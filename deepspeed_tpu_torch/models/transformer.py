@@ -1,0 +1,477 @@
+"""Decoder-only transformer for inference: GPT-2 (learned positions),
+GPT-NeoX/GPT-J (rotary, parallel residual) and BLOOM-style (ALiBi) decoders,
+ported from ``deepspeed_tpu/models/transformer.py``.
+
+Parameters are a plain dict of tensors with the JAX package's layout: the
+layer weights are stacked ``[L, ...]`` (``wq``/``wk``/``wv`` [L, d, H, Dh],
+``wo`` [L, H, Dh, d], ``wi`` [L, d, f], ``wo_mlp`` [L, f, d], biases and
+LayerNorm leaves), q/k/v are [B, S, H, Dh] and the KV cache is
+{k, v} [L, B, Smax, H, Dh]. The bf16 rounding points follow the JAX code:
+LayerNorm statistics in fp32, projections in the compute dtype, attention
+scores and softmax in fp32 with probabilities cast back before the PV
+product, logits computed in the compute dtype and then cast to fp32.
+
+The KV cache is updated IN PLACE by ``apply_with_cache`` and
+``update_cache_slot`` (the JAX versions return new arrays).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.decode_attention import decode_attention
+
+Params = dict
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 50257
+    max_seq_len: int = 1024
+    num_layers: int = 12
+    num_heads: int = 12
+    hidden_size: int = 768
+    intermediate_size: Optional[int] = None  # default 4*hidden
+    pos_emb: str = "learned"  # learned | rotary | alibi | none
+    rotary_pct: float = 1.0
+    rotary_interleaved: bool = False  # GPT-J rotate-every-two convention
+    parallel_residual: bool = False  # GPT-NeoX style
+    causal: bool = True  # False = bidirectional (BERT-style encoders; apply only)
+    norm_style: str = "pre"  # pre (GPT) | post (BERT) layernorm placement
+    layernorm_epsilon: float = 1e-5
+    tie_embeddings: bool = True
+    use_bias: bool = True
+    final_ln: bool = True
+    activation: str = "gelu"  # gelu (tanh approximation) | gelu_exact | relu
+    embed_ln: bool = False  # LayerNorm after embedding (BLOOM)
+    decode_attn: str = "kernel"  # kernel (CUDA decode kernel) | xla (plain cached attention)
+    dtype: torch.dtype = torch.float32  # compute dtype
+    # Not implemented in the port yet: any value but the default raises.
+    attn_impl: str = "xla"
+    local_attn_layers: Optional[tuple] = None
+    moe_every: int = 0
+    weight_bits: int = 0
+    act_quant_bits: int = 0
+    param_offload: bool = False
+    hidden_dropout: float = 0.0
+    attn_dropout: float = 0.0
+    pld_enabled: bool = False
+
+    def __post_init__(self):
+        defaults = {"attn_impl": "xla", "local_attn_layers": None, "moe_every": 0,
+                    "weight_bits": 0, "act_quant_bits": 0, "param_offload": False,
+                    "hidden_dropout": 0.0, "attn_dropout": 0.0, "pld_enabled": False}
+        for name, default in defaults.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"TransformerConfig.{name}={getattr(self, name)!r} is not implemented "
+                    f"in deepspeed_tpu_torch yet (only {default!r})")
+        if self.pos_emb not in ("learned", "rotary", "alibi", "none"):
+            raise ValueError(f"unknown pos_emb {self.pos_emb!r}")
+        if self.activation not in ("gelu", "gelu_exact", "relu"):
+            raise ValueError(f"unknown activation {self.activation!r}")
+        if self.norm_style not in ("pre", "post"):
+            raise ValueError(f"unknown norm_style {self.norm_style!r}")
+        if self.decode_attn not in ("kernel", "xla"):
+            raise ValueError(f"unknown decode_attn {self.decode_attn!r}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def ffn_size(self) -> int:
+        return self.intermediate_size or 4 * self.hidden_size
+
+    def replace(self, **kw) -> "TransformerConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+def init(cfg: TransformerConfig, generator: torch.Generator, device="cpu") -> Params:
+    """The JAX ``init`` parameter tree, fp32, drawn from ``generator`` (on the
+    generator's device) and placed on ``device``. Same distributions as the
+    JAX package; not the same numbers (use ``interop.params_from_jax`` for
+    those)."""
+    d, f, L = cfg.hidden_size, cfg.ffn_size, cfg.num_layers
+    H, Dh = cfg.num_heads, cfg.head_dim
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=generator.device) * std).to(device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device)
+
+    layers = {
+        "ln1_scale": ones(L, d), "ln1_bias": zeros(L, d),
+        "ln2_scale": ones(L, d), "ln2_bias": zeros(L, d),
+        "wq": normal((L, d, H, Dh), 1 / math.sqrt(d)),
+        "wk": normal((L, d, H, Dh), 1 / math.sqrt(d)),
+        "wv": normal((L, d, H, Dh), 1 / math.sqrt(d)),
+        "wo": normal((L, H, Dh, d), 1 / math.sqrt(d)),
+        "wi": normal((L, d, f), 1 / math.sqrt(d)),
+        "wo_mlp": normal((L, f, d), 1 / math.sqrt(f)),
+    }
+    if cfg.use_bias:
+        layers.update({
+            "bq": zeros(L, H, Dh), "bk": zeros(L, H, Dh), "bv": zeros(L, H, Dh),
+            "bo": zeros(L, d), "bi": zeros(L, f), "bo_mlp": zeros(L, d),
+        })
+    params = {
+        "wte": normal((cfg.vocab_size, d), 0.02),
+        "layers": layers,
+        "lnf_scale": ones(d),
+        "lnf_bias": zeros(d),
+    }
+    if cfg.pos_emb == "learned":
+        params["wpe"] = normal((cfg.max_seq_len, d), 0.01)
+    if cfg.embed_ln:
+        params["emb_ln_scale"] = ones(d)
+        params["emb_ln_bias"] = zeros(d)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab_size), 1 / math.sqrt(d))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces
+# ---------------------------------------------------------------------------
+
+def layer_norm(x, scale, bias, eps):
+    """LayerNorm with fp32 statistics; the output has x's dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
+    return y.to(x.dtype)
+
+
+def rotary_embed(x, positions, rotary_dims, interleaved: bool = False):
+    """Rotary position embedding on the first ``rotary_dims`` of x [B,S,H,Dh]
+    at ``positions`` [B,S]. ``interleaved`` = GPT-J pairs (x0,x1),(x2,x3)...;
+    otherwise the NeoX half split (x0,x_half),..."""
+    rd = rotary_dims
+    x_rot, x_pass = x[..., :rd], x[..., rd:]
+    half = rd // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[:, :, None].float() * freqs[None, None, :]  # [B,S,half]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    if interleaved:
+        x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+        rotated = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).reshape(x_rot.shape)
+    else:
+        x1, x2 = x_rot[..., :half], x_rot[..., half:]
+        rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rotated, x_pass], dim=-1)
+
+
+def alibi_slopes(num_heads: int, device="cpu") -> torch.Tensor:
+    """BLOOM ALiBi slopes [H] fp32."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    vals = [2 ** (-8.0 * (i + 1) / closest) for i in range(closest)]
+    vals += [2 ** (-4.0 * (i + 1) / closest) for i in range(num_heads - closest)]
+    return torch.tensor(vals, dtype=torch.float32, device=device)
+
+
+def xla_attention(q, k, v, *, causal_offset=0, bias=None, causal=True):
+    """Plain attention over [B,S,H,Dh] (the JAX package's ``xla_attention``).
+    ``causal_offset`` is a scalar (int or 0-d tensor) or a per-row [B]
+    tensor: query i of row b sits at absolute position offset[b] + i."""
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(Dh)
+    if bias is not None:
+        scores = scores + bias
+    if causal:
+        off = causal_offset if torch.is_tensor(causal_offset) else torch.tensor(causal_offset)
+        off = off.to(q.device)
+        q_pos = torch.arange(Sq, device=q.device)
+        k_pos = torch.arange(Sk, device=q.device)
+        if off.ndim == 0:
+            mask = (q_pos[:, None] + off) >= k_pos[None, :]  # [Sq, Sk]
+            mask = mask[None, None]
+        else:
+            mask = (off[:, None, None] + q_pos[None, :, None]) >= k_pos[None, None, :]  # [B,Sq,Sk]
+            mask = mask[:, None]
+        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _linear(x, w, b):
+    """x [..., d_in] @ w [d_in, ...] (+ b) in x's dtype; the bias is added
+    after the product is rounded, as in the JAX einsum + add."""
+    d_in = w.shape[0]
+    out = (x @ w.reshape(d_in, -1).to(x.dtype)).reshape(*x.shape[:-1], *w.shape[1:])
+    return out if b is None else out + b.to(x.dtype)
+
+
+def _ffn(cfg: TransformerConfig, lp, h):
+    u = _linear(h, lp["wi"], lp.get("bi"))
+    if cfg.activation == "relu":
+        u = F.relu(u)
+    elif cfg.activation == "gelu_exact":
+        u = F.gelu(u)
+    else:
+        u = F.gelu(u, approximate="tanh")
+    return _linear(u, lp["wo_mlp"], lp.get("bo_mlp"))
+
+
+def _qkv_proj(cfg: TransformerConfig, lp, h, positions):
+    """LN'd hidden states [B,T,d] -> rotary-embedded q, k, v [B,T,H,Dh]."""
+    q = _linear(h, lp["wq"], lp.get("bq"))
+    k = _linear(h, lp["wk"], lp.get("bk"))
+    v = _linear(h, lp["wv"], lp.get("bv"))
+    if cfg.pos_emb == "rotary":
+        rd = int(cfg.head_dim * cfg.rotary_pct)
+        q = rotary_embed(q, positions, rd, interleaved=cfg.rotary_interleaved)
+        k = rotary_embed(k, positions, rd, interleaved=cfg.rotary_interleaved)
+    return q, k, v
+
+
+def _attn_out_proj(cfg: TransformerConfig, lp, attn_out):
+    B, T, H, Dh = attn_out.shape
+    return _linear(attn_out.reshape(B, T, H * Dh), lp["wo"].reshape(H * Dh, -1), lp.get("bo"))
+
+
+def _layer(params: Params, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _layer_body(cfg: TransformerConfig, lp, x, bias, positions):
+    """One layer of ``apply``: pre-LN, post-LN or parallel residual."""
+    eps = cfg.layernorm_epsilon
+
+    def attn(h):
+        q, k, v = _qkv_proj(cfg, lp, h, positions)
+        return _attn_out_proj(cfg, lp, xla_attention(q, k, v, bias=bias, causal=cfg.causal))
+
+    if cfg.norm_style == "post":
+        x = layer_norm(x + attn(x), lp["ln1_scale"], lp["ln1_bias"], eps)
+        return layer_norm(x + _ffn(cfg, lp, x), lp["ln2_scale"], lp["ln2_bias"], eps)
+    attn_out = attn(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps))
+    if cfg.parallel_residual:
+        h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
+        return x + attn_out + _ffn(cfg, lp, h2)
+    x = x + attn_out
+    h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
+    return x + _ffn(cfg, lp, h2)
+
+
+def embed(cfg: TransformerConfig, params: Params, tokens, positions=None):
+    """Token (+ learned position) embedding -> (x [B,S,d], positions [B,S])."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    x = params["wte"][tokens].to(cfg.dtype)
+    if cfg.pos_emb == "learned":
+        x = x + params["wpe"][positions].to(cfg.dtype)
+    if cfg.embed_ln:
+        x = layer_norm(x, params["emb_ln_scale"], params["emb_ln_bias"], cfg.layernorm_epsilon)
+    return x, positions
+
+
+def attn_bias(cfg: TransformerConfig, S: int, device="cpu"):
+    """Additive attention bias [1,H,S,S] (ALiBi) or None."""
+    if cfg.pos_emb != "alibi":
+        return None
+    slopes = alibi_slopes(cfg.num_heads, device)
+    pos = torch.arange(S, device=device)
+    dist = (pos[None, :] - pos[:, None]).float()
+    return (slopes[:, None, None] * dist[None])[None]
+
+
+def _lm_head(cfg: TransformerConfig, params: Params, x):
+    """Final LayerNorm + vocab projection in x's dtype, then fp32 logits."""
+    if cfg.final_ln:
+        x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layernorm_epsilon)
+    head = params.get("lm_head")
+    head = params["wte"].t() if head is None else head
+    logits = (x @ head.to(x.dtype)).float()
+    if "lm_head_bias" in params:
+        logits = logits + params["lm_head_bias"].float()
+    return logits
+
+
+def apply(cfg: TransformerConfig, params: Params, tokens, positions=None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, vocab] (fp32). Forward only."""
+    x, positions = embed(cfg, params, tokens, positions)
+    bias = attn_bias(cfg, tokens.shape[1], tokens.device)
+    for i in range(cfg.num_layers):
+        x = _layer_body(cfg, _layer(params, i), x, bias, positions)
+    return _lm_head(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decoding
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, device="cpu"):
+    """An empty KV cache for ``batch`` sequences of up to ``max_len``."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _clamped(start, lo: int, hi: int, device) -> torch.Tensor:
+    """``start`` (int or 0-d tensor) clamped to [lo, hi] as a device tensor,
+    as ``lax.dynamic_slice``/``dynamic_update_slice`` clamp their starts."""
+    t = start if torch.is_tensor(start) else torch.tensor(start)
+    return t.to(device=device, dtype=torch.long).clamp(lo, hi)
+
+
+def slice_cache_slot(cache, slot, length: int, start=0):
+    """Read row ``slot``'s KV window [start, start+length) out of a slot
+    cache: {k,v} [L,B,Smax,H,Dh] -> [L,1,length,H,Dh] (a copy). ``slot`` and
+    ``start`` are clamped into range as in the JAX version."""
+    L, B, Smax, H, Dh = cache["k"].shape
+    if length > Smax:
+        raise ValueError(f"cache window ({length}) exceeds cache length {Smax}")
+    dev = cache["k"].device
+    rows = _clamped(slot, 0, B - 1, dev).reshape(1)
+    idx = _clamped(start, 0, Smax - length, dev) + torch.arange(length, device=dev)
+    return {kv: cache[kv].index_select(1, rows).index_select(2, idx) for kv in ("k", "v")}
+
+
+def update_cache_slot(cache, window, slot, start=0):
+    """Write a [L,1,W,H,Dh] KV window into row ``slot`` at [start, start+W),
+    in place (starts clamped as in the JAX version); returns ``cache``."""
+    L, B, Smax, H, Dh = cache["k"].shape
+    W = window["k"].shape[2]
+    dev = cache["k"].device
+    row = _clamped(slot, 0, B - 1, dev)
+    idx = _clamped(start, 0, Smax - W, dev) + torch.arange(W, device=dev)
+    for kv in ("k", "v"):
+        cache[kv][:, row, idx] = window[kv][:, 0].to(cache[kv].dtype)
+    return cache
+
+
+def cached_attention(q, k_cache, v_cache, pos, *, bias=None):
+    """Attention of q [B,T,H,Dh] against a [B,Smax,H,Dh] cache whose valid
+    keys are [0, pos+T); ``pos`` is a scalar or a per-row [B] tensor."""
+    return xla_attention(q, k_cache, v_cache, causal_offset=pos, bias=bias)
+
+
+def _cache_writer(pos, write_pos, B: int, T: int, Smax: int, device):
+    """The in-place KV write for one layer's cache [B, Smax, H, Dh].
+
+    Scalar ``pos``: the block lands at [pos, pos+T), its start clamped to
+    [0, Smax-T] (``lax.dynamic_update_slice``). Per-row ``pos``: row b's
+    block lands at [write_pos[b], +T) (``write_pos`` defaults to ``pos``),
+    and entries outside [0, Smax) are dropped, as the JAX scatter with
+    ``mode="drop"`` drops them: the serving contract passes
+    ``write_pos = Smax`` for idle rows so their write goes nowhere. The drop
+    is a masked write, one position per row at a time, so no index leaves
+    the cache and no host sync is needed."""
+    if T > Smax:
+        raise ValueError(f"{T} new tokens do not fit a cache of length {Smax}")
+    if pos.ndim == 0:
+        if write_pos is not None:
+            raise ValueError("write_pos requires a per-row pos vector")
+        idx = pos.long().clamp(0, Smax - T) + torch.arange(T, device=device)
+
+        def write(c, new):
+            c.index_copy_(1, idx, new.to(c.dtype))
+        return write
+
+    wp = pos if write_pos is None else torch.as_tensor(write_pos, device=device)
+    wpos = wp.long()[:, None] + torch.arange(T, device=device)[None, :]  # [B, T]
+    valid = (wpos >= 0) & (wpos < Smax)
+    safe = wpos.clamp(0, Smax - 1)
+    rows = torch.arange(B, device=device)
+
+    def write(c, new):
+        new = new.to(c.dtype)
+        for t in range(T):
+            cur = c[rows, safe[:, t]]
+            c[rows, safe[:, t]] = torch.where(valid[:, t, None, None], new[:, t], cur)
+    return write
+
+
+def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
+                     last_only: bool = False, last_index=None, write_pos=None):
+    """tokens [B, T] entering at absolute position ``pos`` -> (logits fp32,
+    cache). Serves prefill (T = prompt) and decode (T = 1). The cache is
+    written in place and returned.
+
+    ``pos`` is an int or 0-d tensor (all rows in lock-step) or a per-row [B]
+    int tensor (each row at its own position). It may live on the device:
+    nothing here reads it on the host. ``last_only`` projects only the last
+    position to the vocab; ``last_index`` (int or 0-d tensor, clamped) only
+    that position. ``write_pos`` (per-row ``pos`` only) moves where a row's
+    KV is written; positions outside the cache are dropped.
+
+    Single-token steps of non-ALiBi models with ``decode_attn="kernel"`` go
+    through the decode-attention kernel; everything else through the plain
+    masked attention over the whole cache."""
+    if not cfg.causal:
+        raise NotImplementedError("KV-cache decoding is causal-only (encoders use apply())")
+    if cfg.norm_style != "pre":
+        raise NotImplementedError("KV-cache decoding supports pre-LN models only")
+    B, T = tokens.shape
+    device = tokens.device
+    Smax = cache["k"].shape[2]
+    pos = (pos if torch.is_tensor(pos) else torch.tensor(pos)).to(device=device, dtype=torch.int32)
+    vector_pos = pos.ndim >= 1
+    arange_t = torch.arange(T, device=device, dtype=torch.int32)
+    positions = (pos[:, None] if vector_pos else pos) + arange_t[None, :].expand(B, T)
+    x, _ = embed(cfg, params, tokens, positions)
+
+    bias = None
+    if cfg.pos_emb == "alibi":
+        slopes = alibi_slopes(cfg.num_heads, device)
+        dist = (torch.arange(Smax, device=device)[None, None, :] - positions[:, :, None]).float()
+        bias = slopes[None, :, None, None] * dist[:, None]  # [B, H, T, Smax]
+
+    use_decode_kernel = T == 1 and cfg.decode_attn == "kernel" and cfg.pos_emb != "alibi"
+    write = _cache_writer(pos, write_pos, B, T, Smax, device)
+    eps = cfg.layernorm_epsilon
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps)
+        q, k, v = _qkv_proj(cfg, lp, h, positions)
+        write(k_cache, k)  # before attention: the new token attends to itself
+        write(v_cache, v)
+        if use_decode_kernel:
+            attn = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos)[:, None]
+        else:
+            attn = cached_attention(q, k_cache, v_cache, pos, bias=bias)
+        attn_out = _attn_out_proj(cfg, lp, attn)
+        if cfg.parallel_residual:
+            h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
+            x = x + attn_out + _ffn(cfg, lp, h2)
+        else:
+            x = x + attn_out
+            h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
+            x = x + _ffn(cfg, lp, h2)
+    if last_index is not None:
+        x = x.index_select(1, _clamped(last_index, 0, T - 1, device).reshape(1))
+    elif last_only:
+        x = x[:, -1:]
+    return _lm_head(cfg, params, x), cache
+
+
+class Model:
+    """Bundle handed to ``init_inference``: the config plus init/apply."""
+
+    def __init__(self, cfg: TransformerConfig):
+        self.config = cfg
+
+    def init(self, generator: torch.Generator, device="cpu") -> Params:
+        return init(self.config, generator, device)
+
+    def apply(self, params: Params, tokens, positions=None):
+        return apply(self.config, params, tokens, positions)

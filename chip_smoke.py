@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each of which passes or makes the script exit non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the decode-attention kernel from deepspeed_tpu_torch/csrc;
+  2. build every kernel from deepspeed_tpu_torch/csrc, one nvcc per source,
+     all started together;
   3. hold the kernel against its plain PyTorch version at the serving shape
      (B=8, Smax=1024, H=12, D=64; bf16 and fp32; per-row and scalar pos;
      with and without ALiBi; plus D=128 and D=8), then time the kernel, the
@@ -17,15 +18,30 @@ Phases, each of which passes or makes the script exit non-zero:
      greedy and sampled, checking that every decode step of every layer
      went through the kernel, that the first decode step's logits agree
      with the plain cached-attention path, and that on a small fp32 model
-     greedy tokens through the kernel equal the plain path's.
-It prints a ``{"kernels": [...]}`` line, then as its last line
-``{"ok": true, "device": {...}}``. Without a GPU it exits 1 and prints no
-result.
+     greedy tokens through the kernel equal the plain path's;
+  5. load the flash-attention kernels (forward, dK/dV, dQ);
+  6. hold each flash kernel against its plain version: bf16 and fp32;
+     causal, bidirectional, ALiBi, window 256 and window 0 at B=8, S=1024,
+     H=12, D=64; the ragged causal edge S=1000; S=128; D=128. Then time
+     each kernel, its plain version and torch's scaled_dot_product_attention
+     (a yardstick the port never calls) against the bound at that shape;
+  7. initialize -> train_batch at GPT-2-125M width (the model bench.py
+     times: 12 layers, d768, 12 heads, vocab 50304, S=1024, bf16, flash
+     attention, loss chunk 256, AdamW, clipping 1.0, ZeRO stage 1, batch 64
+     = micro 16 x gas 4): one warm-up step and five timed steps, checking
+     48 = 12 x 4 launches of each flash kernel per train_batch, a finite
+     falling loss and no overflow;
+  8. slice parity: five fp32 steps of a small model through the kernels and
+     through plain attention give the same losses, and at full width in
+     bf16 the first step's loss and grad norm agree on an 8-row batch.
+It prints a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
+then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
+exits 1 and prints no result.
 
     python3 chip_smoke.py --profile chiprun_out/profile
 
-also traces one generate(max_new_tokens=64) with torch.profiler and prints
-the device's busy share and its time by kernel.
+also traces one generate(max_new_tokens=64) and one train_batch with
+torch.profiler and prints the device's busy share and its time by kernel.
 """
 
 import argparse
@@ -41,11 +57,15 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import transformer as tfm
 from deepspeed_tpu_torch.models.transformer import Model, TransformerConfig
+from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the kernel's math)
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+KERNEL_SOURCES = ("decode_attention", "flash_attention")
+FLASH_COUNTERS = (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq)
 B, SMAX, H, D = 8, 1024, 12, 64
 POS_ROWS = [0, 1, 127, 128, 500, 767, 1022, 1023]
 # fp32: the kernel and the plain version differ in summation order only.
@@ -146,6 +166,255 @@ def kernel_timing(dev):
     return times
 
 
+# Flash kernels vs their plain versions. Forward output: as for decode; lse is
+# fp32 in both and differs in summation order only. Gradients, as max abs
+# error over the reference's max |value|: fp32 summation order only; bf16
+# rounds P and dS to bf16 at the same points in both, but a value near a
+# rounding boundary can land one ulp (2^-8 relative) apart.
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+LSE_TOL = 1e-3
+FS = 1024  # the training sequence length
+
+
+def flash_case(dev, gen, dtype, B, S, H, D, causal=True, alibi=False, window=None):
+    """One kernel-vs-plain check of all three flash kernels; raises on a
+    disagreement. The backward kernels get the plain forward's O and lse,
+    so each kernel is held against its plain version on the same inputs."""
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype) for _ in range(4))
+    kw = {"causal": causal, "alibi_slopes": tfm.alibi_slopes(H, dev) if alibi else None,
+          "window": window}
+    out, lse = fa.flash_forward(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    delta = fa.flash_delta(ref_out, dout)
+    dk, dv = fa.flash_backward_dkdv(q, k, v, dout, ref_lse, delta, **kw)
+    dq = fa.flash_backward_dq(q, k, v, dout, ref_lse, delta, **kw)
+    torch.cuda.synchronize()
+    ref_dq, ref_dk, ref_dv = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse, dout, **kw)
+
+    def abs_err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def rel_err(a, b):
+        return abs_err(a, b) / max(b.float().abs().max().item(), 1e-6)
+
+    errs = {
+        "flash_forward": (abs_err(out, ref_out), abs_err(out, ref_out), TOL[dtype]),
+        "flash_backward_dkdv": (max(abs_err(dk, ref_dk), abs_err(dv, ref_dv)),
+                                max(rel_err(dk, ref_dk), rel_err(dv, ref_dv)), FLASH_GRAD_TOL[dtype]),
+        "flash_backward_dq": (abs_err(dq, ref_dq), rel_err(dq, ref_dq), FLASH_GRAD_TOL[dtype]),
+    }
+    lse_err = abs_err(lse, ref_lse)
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, dq, dk, dv))
+    label = (f"{str(dtype)[6:]} B={B} S={S} D={D} {'causal' if causal else 'bidir'}"
+             f"{' alibi' if alibi else ''}{'' if window is None else f' window={window:g}'}")
+    ok = finite and lse_err <= LSE_TOL and all(checked <= tol for _, checked, tol in errs.values())
+    print(f"  flash vs plain  {label:<44} out {errs['flash_forward'][0]:.2e} (tol {TOL[dtype]:.0e}), "
+          f"lse {lse_err:.2e}, dK/dV {errs['flash_backward_dkdv'][1]:.2e}, "
+          f"dQ {errs['flash_backward_dq'][1]:.2e} (rel, tol {FLASH_GRAD_TOL[dtype]:.0e})  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"a flash kernel disagrees with its plain version: {label}")
+    return errs
+
+
+def flash_checks(dev):
+    """Every case of phase 6 -> {kernel: {dtype: (max abs err, max rel err)}}."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = {name: {dt: (0.0, 0.0) for dt in TOL} for name in ("flash_forward", "flash_backward_dkdv",
+                                                                 "flash_backward_dq")}
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = [dict(B=8, S=FS, H=H, D=D, **kw) for kw in (
+            {}, {"causal": False}, {"alibi": True}, {"window": 256.0}, {"window": 0.0})]
+        cases += [dict(B=8, S=1000, H=H, D=D), dict(B=8, S=128, H=H, D=D), dict(B=2, S=FS, H=H, D=128)]
+        for case in cases:
+            for name, (a, r, _) in flash_case(dev, gen, dtype, **case).items():
+                worst[name][dtype] = tuple(max(x, y) for x, y in zip(worst[name][dtype], (a, r)))
+            torch.cuda.empty_cache()
+    return worst
+
+
+def flash_bounds(B, S, H, D, elt):
+    """{kernel: (bound_ms, bound_by, bytes, flops)} from the shape: each input
+    read once and each output written once; causal work is the S(S+1)/2
+    live (q, k) pairs, 2 flops per multiply-add of each D-long product."""
+    t = B * S * H * D * elt
+    rows = B * H * S * 4
+    pairs = B * H * S * (S + 1) // 2
+    work = {"flash_forward": (4 * t + rows, 2 * 2 * D * pairs),          # q,k,v -> O, lse
+            "flash_backward_dkdv": (6 * t + 2 * rows, 4 * 2 * D * pairs),  # q,k,v,dO,lse,Δ -> dK,dV
+            "flash_backward_dq": (5 * t + 2 * rows, 3 * 2 * D * pairs)}    # q,k,v,dO,lse,Δ -> dQ
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+    return out
+
+
+def flash_timing(dev):
+    """Times at the training shape, bf16, causal, B=8: each kernel, the plain
+    versions, and SDPA's forward and backward as the yardstick."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, S = 8, FS
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16() for _ in range(4))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    out, lse = fa.flash_forward(q, k, v)
+    delta = fa.flash_delta(out, dout)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))  # [B, H, S, D]
+    lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2).float() - out.float()).abs().max().item()
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
+    o_lib = sdpa(qr, kr, vr, is_causal=True)
+    plain_bwd = median_ms(lambda: fa.flash_attention_backward_reference(q, k, v, out, lse, dout), flush, runs=30)
+    lib_bwd = median_ms(lambda: torch.autograd.grad(o_lib, (qr, kr, vr), dot, retain_graph=True), flush)
+    times = {
+        "flash_forward": {
+            "ms": median_ms(lambda: fa.flash_forward(q, k, v), flush),
+            "plain_ms": median_ms(lambda: fa.flash_attention_reference(q, k, v), flush, runs=30),
+            "library_ms": median_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)},
+        "flash_backward_dkdv": {
+            "ms": median_ms(lambda: fa.flash_backward_dkdv(q, k, v, dout, lse, delta), flush),
+            "plain_ms": plain_bwd, "library_ms": lib_bwd},
+        "flash_backward_dq": {
+            "ms": median_ms(lambda: fa.flash_backward_dq(q, k, v, dout, lse, delta), flush),
+            "plain_ms": plain_bwd, "library_ms": lib_bwd},
+    }
+    fwd_bwd_lib = median_ms(
+        lambda: torch.autograd.grad(sdpa(qr, kr, vr, is_causal=True), (qr, kr, vr), dot), flush)
+    for name, (bound, by, nbytes, flops) in flash_bounds(B, S, H, D, 2).items():
+        times[name].update(bound_ms=bound, bound_by=by)
+        t = times[name]
+        print(f"  timing {name:<20} bf16 B={B} S={S} H={H} D={D} causal: kernel {t['ms']*1e3:8.1f} us, "
+              f"plain {t['plain_ms']*1e3:8.1f} us, sdpa {t['library_ms']*1e3:7.1f} us, bound "
+              f"{bound*1e3:5.1f} us ({by}: {nbytes/1e6:.1f} MB, {flops/1e9:.1f} GFLOP), "
+              f"{flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    print(f"  sdpa forward+backward {fwd_bwd_lib*1e3:.1f} us (its backward alone is the library time of "
+          f"both backward rows); sdpa vs kernel output max_abs_err {lib_err:.2e}; plain backward times "
+          f"all three gradients")
+    return times
+
+
+BENCH_DS = {
+    "train_batch_size": 64, "train_micro_batch_size_per_gpu": 16, "gradient_accumulation_steps": 4,
+    "optimizer": {"type": "AdamW", "params": {"lr": 6e-4, "weight_decay": 0.1}},
+    "zero_optimization": {"stage": 1}, "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+    "steps_per_print": 1000000,
+}
+TRAIN_STEPS = 5
+
+
+def gpt2_config(**kw):
+    """GPT-2-125M at full width, as bench.py:139-171 trains it (remat off:
+    not ported, and the 80 GB card holds the activations)."""
+    return TransformerConfig(vocab_size=50304, max_seq_len=FS, num_layers=12, num_heads=12, hidden_size=768,
+                             pos_emb="learned", tie_embeddings=True, dtype=torch.bfloat16,
+                             attn_impl="flash", loss_chunk_size=256, **kw)
+
+
+def counts():
+    return [c.launches for c in FLASH_COUNTERS] + [decode_attention.launches]
+
+
+def train(dev):
+    model = Model(gpt2_config())
+    t0 = time.perf_counter()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=BENCH_DS)
+    torch.cuda.synchronize()
+    print(f"  initialize: {time.perf_counter() - t0:.2f} s on {engine.device}")
+    B, S, L = BENCH_DS["train_batch_size"], FS, model.config.num_layers
+    gas = BENCH_DS["gradient_accumulation_steps"]
+    batch = {"tokens": np.random.default_rng(0).integers(0, 50304, size=(B, S + 1)).astype(np.int32)}
+    t0 = time.perf_counter()
+    warm = engine.train_batch(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in FLASH_COUNTERS:
+        c.launches = 0
+    decode_attention.launches = 0
+    metrics, per_step = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        before = counts()
+        metrics.append(engine.train_batch(batch))
+        per_step.append([a - b for a, b in zip(counts(), before)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    losses = [float(warm["loss"])] + [float(m["loss"]) for m in metrics]
+    overflow = any(bool(m["overflow"]) for m in [warm] + metrics)
+    expect = L * gas
+    ok = (all(step[:3] == [expect] * 3 and step[3] == 0 for step in per_step)
+          and all(np.isfinite(losses)) and losses[-1] < losses[0] and not overflow)
+    step_s = seconds / TRAIN_STEPS
+    tok_s = B * S / step_s
+    n_params = L * 12 * 768 * 768 + 50304 * 768 + S * 768  # bench.py:219-221
+    bench_flops = 6 * n_params + L * 12 * S * 768
+    result = {
+        "warmup_step_s": warm_s, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+        "tflops_model": tok_s * model.flops_per_token() / 1e12, "tflops_bench_formula": tok_s * bench_flops / 1e12,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses,
+        "grad_norms": [float(m["grad_norm"]) for m in [warm] + metrics], "overflow": overflow,
+        "launches_per_train_batch": per_step[0][:3],
+    }
+    print(f"  train_batch x{TRAIN_STEPS} after one warm-up ({warm_s:.2f} s): {result['step_ms']:.1f} ms/step, "
+          f"{tok_s:.0f} tokens/s, {result['tflops_model']:.1f} TFLOP/s (Model.flops_per_token), "
+          f"{result['tflops_bench_formula']:.1f} TFLOP/s (bench.py formula), peak {result['peak_gib']:.2f} GiB")
+    print(f"  flash launches per train_batch {per_step} (expect {L} x {gas} = {expect} of each, 0 decode); "
+          f"losses {[round(x, 4) for x in losses]}; overflow {overflow}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the training phase failed its checks")
+    return launches[:3], result, engine, batch
+
+
+def train_parity(dev):
+    """Phase 8: the slice through the kernels against plain attention."""
+    tiny = TransformerConfig(vocab_size=97, max_seq_len=128, num_layers=2, num_heads=4, hidden_size=64)
+    params = tfm.init(tiny, torch.Generator().manual_seed(0), dev)
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+          "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+          "gradient_clipping": 1.0, "steps_per_print": 1000000}
+    batch = {"tokens": np.random.default_rng(2).integers(0, 97, size=(4, 129)).astype(np.int32)}
+    traj = {}
+    for impl in ("flash", "xla"):
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(model=Model(tiny.replace(attn_impl=impl)), config=ds,
+                                                      model_parameters=params)
+        traj[impl] = [float(eng.train_batch(batch)["loss"]) for _ in range(5)]
+    # fp32: the kernels and plain attention differ in summation order only;
+    # five AdamW steps keep that near 1e-6 relative
+    small_err = max(abs(a - b) / abs(b) for a, b in zip(traj["flash"], traj["xla"]))
+    ok = small_err <= 1e-4
+    print(f"  small fp32 model, 5 steps: flash {[round(x, 5) for x in traj['flash']]} vs plain "
+          f"{[round(x, 5) for x in traj['xla']]}, max rel err {small_err:.2e} (tol 1e-4)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the small model's loss through the kernels differs from plain attention")
+
+    cfg = gpt2_config()
+    params = tfm.init(cfg, torch.Generator().manual_seed(1), dev)
+    ds8 = dict(BENCH_DS, train_batch_size=8, train_micro_batch_size_per_gpu=8, gradient_accumulation_steps=1)
+    batch = {"tokens": np.random.default_rng(3).integers(0, 50304, size=(8, FS + 1)).astype(np.int32)}
+    first = {}
+    for impl in ("flash", "xla"):
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(model=Model(cfg.replace(attn_impl=impl)), config=ds8,
+                                                      model_parameters=params)
+        m = eng.train_batch(batch)
+        first[impl] = (float(m["loss"]), float(m["grad_norm"]))
+        del eng, m
+        torch.cuda.empty_cache()
+    # bf16: the plain path rounds the scores to bf16 before the softmax where
+    # the kernels keep them in fp32, through 12 layers
+    loss_err = abs(first["flash"][0] - first["xla"][0]) / abs(first["xla"][0])
+    gnorm_err = abs(first["flash"][1] - first["xla"][1]) / abs(first["xla"][1])
+    ok = loss_err <= 1e-2 and gnorm_err <= 5e-2 and all(np.isfinite(first["flash"]))
+    print(f"  full width bf16, first train_batch (8 rows, gas 1): loss {first['flash'][0]:.5f} vs "
+          f"{first['xla'][0]:.5f} (rel {loss_err:.2e}, tol 1e-2), grad norm {first['flash'][1]:.5f} vs "
+          f"{first['xla'][1]:.5f} (rel {gnorm_err:.2e}, tol 5e-2)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the full-width step through the kernels disagrees with plain attention")
+    return {"small_fp32_max_rel_err": small_err, "full_width_loss_rel_err": loss_err,
+            "full_width_grad_norm_rel_err": gnorm_err}
+
+
 def serve(dev):
     cfg = TransformerConfig(vocab_size=50304, max_seq_len=1024, num_layers=12, num_heads=12,
                             hidden_size=768, pos_emb="learned", tie_embeddings=True)
@@ -228,10 +497,9 @@ def serve(dev):
     return g["launches"], engine, prompt
 
 
-def profile(engine, prompt, out_dir):
-    """Trace one generate of PROFILE_NEW tokens with torch.profiler: device
-    busy share of the wall time and device time by kernel name. Writes the
-    Chrome trace into ``out_dir``."""
+def profile(label, fn, out_dir):
+    """Trace ``fn`` with torch.profiler: device busy share of the wall time
+    and device time by kernel name. Writes the Chrome trace into ``out_dir``."""
     import os
 
     from torch.profiler import ProfilerActivity
@@ -240,12 +508,12 @@ def profile(engine, prompt, out_dir):
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.generate(prompt, max_new_tokens=PROFILE_NEW)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("  profile: the profiler recorded no device events; device time not measured")
+        print(f"  profile {label}: the profiler recorded no device events; device time not measured")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
@@ -258,14 +526,14 @@ def profile(engine, prompt, out_dir):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print(f"  profile generate(max_new_tokens={PROFILE_NEW}): wall {wall_us/1e3:.1f} ms, device busy "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    print(f"  profile {label}: wall {wall_us/1e3:.1f} ms, device busy "
           f"{busy/1e3:.1f} ms ({busy/wall_us:.1%}), {len(kernels)} kernel launches")
     for name, us in top:
         print(f"    {us/1e3:9.3f} ms  {us/busy:6.1%}  {name[:100]}")
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "generate_trace.json"))
-    print(json.dumps({"profile": {"max_new_tokens": PROFILE_NEW, "wall_ms": wall_us / 1e3,
+    prof.export_chrome_trace(os.path.join(out_dir, f"{label.split('(')[0]}_trace.json"))
+    print(json.dumps({"profile": {"label": label, "wall_ms": wall_us / 1e3,
                                   "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
                                   "kernel_launches": len(kernels),
                                   "top_ms": {n[:80]: us / 1e3 for n, us in top}}}))
@@ -273,7 +541,7 @@ def profile(engine, prompt, out_dir):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", metavar="DIR", help="also trace a short generate into DIR")
+    ap.add_argument("--profile", metavar="DIR", help="also trace a short generate and a train_batch into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on a GPU", file=sys.stderr)
@@ -289,8 +557,10 @@ def main() -> int:
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    op_builder.build_many(KERNEL_SOURCES)
     op_builder.load("decode_attention")
-    print(f"[2] built decode_attention in {time.perf_counter() - t0:.2f} s")
+    print(f"[2] built {', '.join(KERNEL_SOURCES)} (one nvcc each, in parallel) in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     print("[3] decode_attention kernel vs plain")
     errs = kernel_checks(dev)
@@ -299,7 +569,29 @@ def main() -> int:
     print("[4] serving: init_inference -> generate at GPT-2-125M width")
     launches, engine, prompt = serve(dev)
     if args.profile:
-        profile(engine, prompt, args.profile)
+        profile(f"generate(max_new_tokens={PROFILE_NEW})",
+                lambda: engine.generate(prompt, max_new_tokens=PROFILE_NEW), args.profile)
+    del engine
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    op_builder.load("flash_attention")
+    print(f"[5] loaded flash_attention (forward, dK/dV, dQ) in {time.perf_counter() - t0:.2f} s")
+
+    print("[6] flash kernels vs plain")
+    flash_errs = flash_checks(dev)
+    flash_times = flash_timing(dev)
+    torch.cuda.empty_cache()
+
+    print("[7] training: initialize -> train_batch at GPT-2-125M width")
+    flash_launches, training, trainer, batch = train(dev)
+    if args.profile:
+        profile("train_batch", lambda: trainer.train_batch(batch), args.profile)
+    del trainer
+    torch.cuda.empty_cache()
+
+    print("[8] slice parity: flash kernels vs plain attention")
+    training["parity"] = train_parity(dev)
 
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -310,7 +602,21 @@ def main() -> int:
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"],
     }]
+    replaces = {"flash_forward": "deepspeed_tpu/ops/pallas/flash_attention.py:182",
+                "flash_backward_dkdv": "deepspeed_tpu/ops/pallas/flash_attention.py:282",
+                "flash_backward_dq": "deepspeed_tpu/ops/pallas/flash_attention.py:335"}
+    for (name, where), n in zip(replaces.items(), flash_launches):
+        t, e = flash_times[name], flash_errs[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+            "replaces": where, "launches": n,
+            "max_abs_err": e[torch.bfloat16][0], "max_abs_err_fp32": e[torch.float32][0],
+            "max_rel_err": e[torch.bfloat16][1], "max_rel_err_fp32": e[torch.float32][1],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,10 @@
 """deepspeed_tpu_torch: the PyTorch/CUDA port of ``deepspeed_tpu``, for one
 NVIDIA Hopper GPU.
 
-It carries the serving path so far:
+It carries the training path and the serving path so far:
+
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds_config)
+    metrics = engine.train_batch({"tokens": tokens})   # int [B, S+1]
 
     engine = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": "bf16"})
     tokens = engine.generate(prompt, max_new_tokens=256)
@@ -12,6 +15,29 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 __version__ = "0.1.0"
 
 from .utils.logging import log_dist, logger  # noqa: F401
+
+
+def initialize(args=None, model=None, config=None, config_params=None, model_parameters=None,
+               device=None, **kwargs):
+    """Build a training engine (the port of ``deepspeed_tpu.initialize``).
+
+    Returns ``(engine, engine, None, engine.lr_schedule)``: the optimizer and
+    the schedule live inside the engine's step, so those slots hold the
+    engine's handles; the dataloader slot is None (not ported).
+    ``model_parameters`` takes a parameter dict (e.g. from
+    ``interop.params_from_jax``), so both packages can start from the same
+    weights."""
+    from .runtime.engine import DeepSpeedEngine
+
+    cfg = config if config is not None else config_params
+    if cfg is None and args is not None:
+        cfg = getattr(args, "deepspeed_config", None)
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: model is required")
+    if cfg is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: config is required")
+    engine = DeepSpeedEngine(model=model, config=cfg, params=model_parameters, device=device, **kwargs)
+    return engine, engine, None, engine.lr_schedule
 
 
 def init_inference(model=None, config=None, **kwargs):

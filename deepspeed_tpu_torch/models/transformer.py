@@ -1,6 +1,8 @@
-"""Decoder-only transformer for inference: GPT-2 (learned positions),
-GPT-NeoX/GPT-J (rotary, parallel residual) and BLOOM-style (ALiBi) decoders,
-ported from ``deepspeed_tpu/models/transformer.py``.
+"""Decoder-only transformer: GPT-2 (learned positions), GPT-NeoX/GPT-J
+(rotary, parallel residual) and BLOOM-style (ALiBi) decoders, ported from
+``deepspeed_tpu/models/transformer.py``: the training forward and loss
+(``apply``, ``causal_lm_loss``, with plain or flash attention, dropout and
+progressive layer drop) and KV-cache decoding for inference.
 
 Parameters are a plain dict of tensors with the JAX package's layout: the
 layer weights are stacked ``[L, ...]`` (``wq``/``wk``/``wv`` [L, d, H, Dh],
@@ -12,7 +14,9 @@ scores and softmax in fp32 with probabilities cast back before the PV
 product, logits computed in the compute dtype and then cast to fp32.
 
 The KV cache is updated IN PLACE by ``apply_with_cache`` and
-``update_cache_slot`` (the JAX versions return new arrays).
+``update_cache_slot`` (the JAX versions return new arrays). Randomness
+(dropout, layer drop) comes from an explicit ``torch.Generator``; it gives
+other bits than ``jax.random`` for the same seed.
 """
 
 from __future__ import annotations
@@ -20,12 +24,14 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.decode_attention import decode_attention
+from ..ops.flash_attention import flash_attention
 
 Params = dict
 
@@ -44,34 +50,61 @@ class TransformerConfig:
     parallel_residual: bool = False  # GPT-NeoX style
     causal: bool = True  # False = bidirectional (BERT-style encoders; apply only)
     norm_style: str = "pre"  # pre (GPT) | post (BERT) layernorm placement
+    # GPT-Neo alternating local attention: window size + per-layer 0/1 flags
+    # (1 = local); None = all-global
+    local_attn_window: int = 0
+    local_attn_layers: Optional[tuple] = None
     layernorm_epsilon: float = 1e-5
     tie_embeddings: bool = True
     use_bias: bool = True
     final_ln: bool = True
     activation: str = "gelu"  # gelu (tanh approximation) | gelu_exact | relu
     embed_ln: bool = False  # LayerNorm after embedding (BLOOM)
+    attn_impl: str = "xla"  # xla (plain attention) | flash (the CUDA flash kernels)
+    flash_block_q: int = 0  # validated as in the JAX package; not the CUDA tile
+    flash_block_k: int = 0
     decode_attn: str = "kernel"  # kernel (CUDA decode kernel) | xla (plain cached attention)
     dtype: torch.dtype = torch.float32  # compute dtype
+    loss_chunk_size: int = 512  # chunk the vocab projection in the loss; 0 = off
+    loss_impl: str = "chunked"
+    # Dropout on the attention output projection (attn) and on embeddings +
+    # FFN output (hidden); active only when the caller passes a generator.
+    hidden_dropout: float = 0.0
+    attn_dropout: float = 0.0
+    # Progressive layer drop: theta(t) = pld_theta + (1 - pld_theta) *
+    # exp(-pld_gamma * t); layer i's residual branches are kept with
+    # probability 1 - i/L * (1 - theta(t)).
+    pld_enabled: bool = False
+    pld_theta: float = 0.5
+    pld_gamma: float = 0.001
+    moe_aux_coeff: float = 0.01
     # Not implemented in the port yet: any value but the default raises.
-    attn_impl: str = "xla"
-    local_attn_layers: Optional[tuple] = None
+    remat: bool = False
     moe_every: int = 0
     weight_bits: int = 0
     act_quant_bits: int = 0
     param_offload: bool = False
-    hidden_dropout: float = 0.0
-    attn_dropout: float = 0.0
-    pld_enabled: bool = False
 
     def __post_init__(self):
-        defaults = {"attn_impl": "xla", "local_attn_layers": None, "moe_every": 0,
-                    "weight_bits": 0, "act_quant_bits": 0, "param_offload": False,
-                    "hidden_dropout": 0.0, "attn_dropout": 0.0, "pld_enabled": False}
+        defaults = {"remat": False, "moe_every": 0, "weight_bits": 0, "act_quant_bits": 0,
+                    "param_offload": False}
         for name, default in defaults.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"TransformerConfig.{name}={getattr(self, name)!r} is not implemented "
                     f"in deepspeed_tpu_torch yet (only {default!r})")
+        if self.attn_impl in ("ring", "ulysses", "sparse"):
+            raise NotImplementedError(
+                f"TransformerConfig.attn_impl={self.attn_impl!r} is not implemented in "
+                "deepspeed_tpu_torch yet (xla or flash)")
+        if self.attn_impl not in ("xla", "flash"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.loss_impl == "fused_xent":
+            raise NotImplementedError(
+                "TransformerConfig.loss_impl='fused_xent' is not implemented in "
+                "deepspeed_tpu_torch yet (chunked)")
+        if self.loss_impl != "chunked":
+            raise ValueError(f"unknown loss_impl {self.loss_impl!r}")
         if self.pos_emb not in ("learned", "rotary", "alibi", "none"):
             raise ValueError(f"unknown pos_emb {self.pos_emb!r}")
         if self.activation not in ("gelu", "gelu_exact", "relu"):
@@ -245,28 +278,95 @@ def _attn_out_proj(cfg: TransformerConfig, lp, attn_out):
     return _linear(attn_out.reshape(B, T, H * Dh), lp["wo"].reshape(H * Dh, -1), lp.get("bo"))
 
 
-def _layer(params: Params, i: int) -> dict:
-    return {k: v[i] for k, v in params["layers"].items()}
+def _layers(params: Params) -> list[dict]:
+    """The stacked ``[L, ...]`` layer leaves as one dict per layer, taken with
+    one ``torch.unbind`` per leaf: its backward is a single stack, where
+    indexing each leaf L times would build a full-size zero gradient per
+    index."""
+    stacked = params["layers"]
+    names = list(stacked)
+    return [dict(zip(names, leaves)) for leaves in zip(*(torch.unbind(stacked[n], 0) for n in names))]
 
 
-def _layer_body(cfg: TransformerConfig, lp, x, bias, positions):
-    """One layer of ``apply``: pre-LN, post-LN or parallel residual."""
+NEG_BIAS = -1e30
+
+
+def _dropout(x, rate: float, gen: Optional[torch.Generator]):
+    """Inverted dropout; identity when rate == 0 or no generator (inference)."""
+    if rate <= 0.0 or gen is None:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _local_attn_bias(cfg: TransformerConfig, S: int, device="cpu"):
+    """Additive [S, S] window mask for GPT-Neo-style local attention."""
+    pos = torch.arange(S, device=device)
+    dist = pos[:, None] - pos[None, :]
+    keep = (dist >= 0) & (dist < cfg.local_attn_window)
+    return torch.where(keep, 0.0, NEG_BIAS).float()
+
+
+def _attention_dispatch(cfg: TransformerConfig, device="cpu") -> Callable:
+    """attn_fn(q, k, v, bias[, window]) for ``cfg.attn_impl``. The flash
+    dispatch fuses ALiBi and local windows in the kernel
+    (``handles_fused_bias``); a dense bias falls back to plain attention."""
+    if cfg.attn_impl == "flash":
+        bq = cfg.flash_block_q or None
+        bk = cfg.flash_block_k or None
+        slopes = alibi_slopes(cfg.num_heads, device) if cfg.pos_emb == "alibi" else None
+
+        def flash_fn(q, k, v, bias, window=None):
+            if bias is not None:
+                return xla_attention(q, k, v, bias=bias, causal=cfg.causal)
+            return flash_attention(q, k, v, causal=cfg.causal, block_q=bq, block_k=bk,
+                                   alibi_slopes=slopes, window=window)
+
+        flash_fn.handles_fused_bias = True
+        return flash_fn
+    return lambda q, k, v, bias: xla_attention(q, k, v, bias=bias, causal=cfg.causal)
+
+
+def _attn_call(cfg: TransformerConfig, attn_fn, q, k, v, bias, is_local):
+    """Attention with the layer's locality: fused dispatches get the raw
+    window (0 = global); others get the dense-bias merge in ``bias``."""
+    if getattr(attn_fn, "handles_fused_bias", False) and is_local is not None:
+        return attn_fn(q, k, v, bias, window=float(cfg.local_attn_window) if is_local else 0.0)
+    return attn_fn(q, k, v, bias)
+
+
+def _layer_body(cfg: TransformerConfig, lp, x, bias, positions, attn_fn, is_local=None,
+                local_bias=None, gen=None, pld_keep=None):
+    """One layer of ``apply``: pre-LN, post-LN or parallel residual, with
+    dropout and the progressive-layer-drop gate when ``gen`` is given."""
     eps = cfg.layernorm_epsilon
+    gate = None  # progressive layer drop: one coin per layer gates both branches
+    if pld_keep is not None and gen is not None:
+        gate = (torch.rand((), generator=gen, device=x.device) < pld_keep).to(cfg.dtype)
+    if is_local and local_bias is not None:
+        lb = local_bias[None, None]
+        bias = lb if bias is None else bias + lb
+
+    def branch(y, rate):
+        y = _dropout(y, rate, gen)
+        return y if gate is None else gate * y
 
     def attn(h):
         q, k, v = _qkv_proj(cfg, lp, h, positions)
-        return _attn_out_proj(cfg, lp, xla_attention(q, k, v, bias=bias, causal=cfg.causal))
+        out = _attn_out_proj(cfg, lp, _attn_call(cfg, attn_fn, q, k, v, bias, is_local))
+        return branch(out, cfg.attn_dropout)
 
     if cfg.norm_style == "post":
         x = layer_norm(x + attn(x), lp["ln1_scale"], lp["ln1_bias"], eps)
-        return layer_norm(x + _ffn(cfg, lp, x), lp["ln2_scale"], lp["ln2_bias"], eps)
+        f = branch(_ffn(cfg, lp, x), cfg.hidden_dropout)
+        return layer_norm(x + f, lp["ln2_scale"], lp["ln2_bias"], eps)
     attn_out = attn(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps))
     if cfg.parallel_residual:
         h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-        return x + attn_out + _ffn(cfg, lp, h2)
+        return x + attn_out + branch(_ffn(cfg, lp, h2), cfg.hidden_dropout)
     x = x + attn_out
     h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-    return x + _ffn(cfg, lp, h2)
+    return x + branch(_ffn(cfg, lp, h2), cfg.hidden_dropout)
 
 
 def embed(cfg: TransformerConfig, params: Params, tokens, positions=None):
@@ -292,25 +392,60 @@ def attn_bias(cfg: TransformerConfig, S: int, device="cpu"):
     return (slopes[:, None, None] * dist[None])[None]
 
 
-def _lm_head(cfg: TransformerConfig, params: Params, x):
-    """Final LayerNorm + vocab projection in x's dtype, then fp32 logits."""
+def _final_ln(cfg: TransformerConfig, params: Params, x):
     if cfg.final_ln:
         x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layernorm_epsilon)
+    return x
+
+
+def _head(params: Params):
     head = params.get("lm_head")
-    head = params["wte"].t() if head is None else head
-    logits = (x @ head.to(x.dtype)).float()
+    return params["wte"].t() if head is None else head
+
+
+def _project(params: Params, x):
+    """Vocab projection in x's dtype, then fp32 logits."""
+    logits = (x @ _head(params).to(x.dtype)).float()
     if "lm_head_bias" in params:
         logits = logits + params["lm_head_bias"].float()
     return logits
 
 
-def apply(cfg: TransformerConfig, params: Params, tokens, positions=None) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, vocab] (fp32). Forward only."""
+def _lm_head(cfg: TransformerConfig, params: Params, x):
+    """Final LayerNorm + vocab projection."""
+    return _project(params, _final_ln(cfg, params, x))
+
+
+def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
+          return_hidden: bool = False, rng: Optional[torch.Generator] = None,
+          step=None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, vocab] (fp32), or the final hidden
+    states [B, S, d] (after the final LayerNorm) when ``return_hidden``.
+    ``rng`` (a generator on the tokens' device) enables dropout and
+    progressive layer drop (training); ``step`` (int or 0-d tensor) drives
+    the layer-drop schedule."""
+    B, S = tokens.shape
+    L = cfg.num_layers
+    device = tokens.device
     x, positions = embed(cfg, params, tokens, positions)
-    bias = attn_bias(cfg, tokens.shape[1], tokens.device)
-    for i in range(cfg.num_layers):
-        x = _layer_body(cfg, _layer(params, i), x, bias, positions)
-    return _lm_head(cfg, params, x)
+    x = _dropout(x, cfg.hidden_dropout, rng)
+    attn_fn = _attention_dispatch(cfg, device)
+    fused_bias = getattr(attn_fn, "handles_fused_bias", False)
+    # the flash dispatch computes ALiBi and windows from positions in the
+    # kernel: no [S, S] bias tensor is made
+    bias = None if fused_bias else attn_bias(cfg, S, device)
+    has_local = cfg.local_attn_window > 0 and cfg.local_attn_layers is not None
+    local_bias = _local_attn_bias(cfg, S, device) if has_local and not fused_bias else None
+    pld_keep = [None] * L
+    if rng is not None and cfg.pld_enabled:
+        t = torch.as_tensor(0 if step is None else step, device=device).float()
+        theta_t = cfg.pld_theta + (1.0 - cfg.pld_theta) * torch.exp(-cfg.pld_gamma * t)
+        pld_keep = [1.0 - (i / max(1, L)) * (1.0 - theta_t) for i in range(L)]
+    for i, lp in enumerate(_layers(params)):
+        is_local = bool(cfg.local_attn_layers[i]) if has_local else None
+        x = _layer_body(cfg, lp, x, bias, positions, attn_fn, is_local, local_bias, rng, pld_keep[i])
+    x = _final_ln(cfg, params, x)
+    return x if return_hidden else _project(params, x)
 
 
 # ---------------------------------------------------------------------------
@@ -438,8 +573,7 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
     use_decode_kernel = T == 1 and cfg.decode_attn == "kernel" and cfg.pos_emb != "alibi"
     write = _cache_writer(pos, write_pos, B, T, Smax, device)
     eps = cfg.layernorm_epsilon
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps)
         q, k, v = _qkv_proj(cfg, lp, h, positions)
@@ -464,14 +598,90 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
     return _lm_head(cfg, params, x), cache
 
 
-class Model:
-    """Bundle handed to ``init_inference``: the config plus init/apply."""
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
 
-    def __init__(self, cfg: TransformerConfig):
+def effective_loss_impl(cfg: TransformerConfig, n_rows: Optional[int] = None) -> tuple[str, str]:
+    """(implementation, reason). The port has the chunked loss only; its
+    config refuses ``loss_impl="fused_xent"``."""
+    return "chunked", "configured"
+
+
+def _nll_sum(h, labels, head):
+    """(sum of next-token NLL over labelled rows, their count), fp32."""
+    logits = (h @ head.to(h.dtype)).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def lm_loss_from_hidden(cfg: TransformerConfig, params: Params, hidden, labels) -> torch.Tensor:
+    """Token-mean next-token cross-entropy from final hidden states [B, S, d].
+    The vocab projection is chunked over the sequence, and each chunk runs
+    under ``torch.utils.checkpoint`` so its [B, chunk, V] logits are
+    recomputed in the backward and never kept. Unchunked when
+    ``S % chunk or S <= chunk`` (or the chunk is 0), as in the JAX package."""
+    head = _head(params)
+    chunk = cfg.loss_chunk_size
+    S = hidden.shape[1]
+    if chunk <= 0 or S % chunk != 0 or S <= chunk:
+        nll, count = _nll_sum(hidden, labels, head)
+        return nll / torch.clamp(count, min=1.0)
+    nll = count = None
+    for c0 in range(0, S, chunk):
+        n, t = checkpoint(_nll_sum, hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head,
+                          use_reentrant=False)
+        nll, count = (n, t) if nll is None else (nll + n, count + t)
+    return nll / torch.clamp(count, min=1.0)
+
+
+def split_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalize {'tokens'} / {'input_ids','labels'} batches to (inputs, labels)."""
+    tokens = batch.get("tokens", batch.get("input_ids"))
+    labels = batch.get("labels")
+    if labels is None:
+        return tokens[:, :-1], tokens[:, 1:]
+    return tokens, labels
+
+
+def causal_lm_loss(cfg: TransformerConfig, params: Params, batch: dict,
+                   rng: Optional[torch.Generator] = None, step=None) -> torch.Tensor:
+    """Next-token cross-entropy of batch {'tokens': [B, S+1]} (or
+    {'input_ids', 'labels'}). ``rng`` enables dropout for this step."""
+    inputs, labels = split_batch(batch)
+    hidden = apply(cfg, params, inputs.long(), return_hidden=True, rng=rng, step=step)
+    return lm_loss_from_hidden(cfg, params, hidden, labels.long())
+
+
+class Model:
+    """Bundle handed to ``initialize`` and ``init_inference``: the config plus
+    init/apply/loss."""
+
+    def __init__(self, cfg: TransformerConfig, loss_fn: Optional[Callable] = None):
         self.config = cfg
+        self._loss = loss_fn or causal_lm_loss
 
     def init(self, generator: torch.Generator, device="cpu") -> Params:
         return init(self.config, generator, device)
 
-    def apply(self, params: Params, tokens, positions=None):
-        return apply(self.config, params, tokens, positions)
+    def apply(self, params: Params, tokens, positions=None, **kw):
+        return apply(self.config, params, tokens, positions, **kw)
+
+    def loss(self, params: Params, batch: dict, rng: Optional[torch.Generator] = None, step=None):
+        kw = {}
+        if rng is not None:
+            kw["rng"] = rng
+        if step is not None and self.config.pld_enabled:
+            kw["step"] = step
+        return self._loss(self.config, params, batch, **kw)
+
+    def flops_per_token(self) -> float:
+        """Approximate training FLOPs per token (forward + backward ≈ 6 × the
+        matmul parameters, plus the attention term)."""
+        c = self.config
+        n_params = (c.num_layers * (4 * c.hidden_size * c.hidden_size + 2 * c.hidden_size * c.ffn_size)
+                    + c.vocab_size * c.hidden_size)
+        attn = c.num_layers * 2 * c.max_seq_len * c.hidden_size  # per-token qk + av
+        return 6.0 * (n_params + attn)

@@ -38,29 +38,45 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` for sm_90a unless this exact source and
-    these flags were built before; return the library's path."""
+def _library(name: str) -> tuple[Path, Path]:
+    """(source, library path keyed by the hash of the source and the flags)."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if "ptxas info" in line and ("registers" in line or "spill" in line):
-            logger.info(f"{name}: {line.strip()}")
-    os.replace(tmp, lib)  # atomic: a concurrent builder never loads a partial file
-    return lib
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_many(names) -> dict[str, Path]:
+    """Compile ``csrc/<name>.cu`` for sm_90a for each name not built before
+    with this exact source and these flags: one nvcc per source, all started
+    together. Waits for every compiler it started, then raises if any failed.
+    Returns {name: library path}."""
+    running = {}
+    for name in names:
+        src, lib = _library(name)
+        if lib.exists() or name in running:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        running[name] = (src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (src, lib, tmp, proc) in running.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src} (exit {proc.returncode}):\n{out}{err}")
+            continue
+        for line in (out + err).splitlines():
+            if "ptxas info" in line and ("registers" in line or "spill" in line):
+                logger.info(f"{name}: {line.strip()}")
+        os.replace(tmp, lib)  # atomic: a concurrent builder never loads a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _library(name)[1] for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        _loaded[name] = ctypes.CDLL(str(build_many([name])[name]))
     return _loaded[name]

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import transformer as tfm
+from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +71,103 @@ def test_decode_kernel_rejects_what_it_cannot_take(cuda_device):
         decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, 3)
     with pytest.raises(ValueError):
         decode_attention(*_inputs(1, 1, 512, 4, cuda_device, torch.float32), 0)
+
+
+# Flash kernels vs their plain versions. Forward output: as for decode. lse:
+# fp32 in both. Gradients, as max abs error over the reference's max |value|:
+# fp32 differs in summation order only; bf16 rounds P and dS to bf16 at the
+# same points in both, but a value near a rounding boundary can land one ulp
+# (2^-8 relative) apart and the products then differ by a few such terms.
+_FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+_FLASH_CASES = {
+    "causal": {"causal": True},
+    "bidirectional": {"causal": False},
+    "alibi": {"causal": True, "alibi": True},
+    "window": {"causal": True, "window": 96.0},
+    "window_off": {"causal": True, "window": 0.0},
+}
+
+
+def _flash_inputs(B, S, H, D, device, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(np.float32)).to(device, dtype)
+                 for _ in range(4))
+
+
+def _normalised_err(out, ref):
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp_min(1e-6)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case,S", [(case, S) for case in _FLASH_CASES for S in (128, 200, 384)
+                                    if _FLASH_CASES[case]["causal"] or S % 128 == 0])
+def test_flash_kernels_match_reference(cuda_device, dtype, D, S, case):
+    # non-causal attention takes 128-aligned lengths only, as in the JAX package
+    kw = dict(_FLASH_CASES[case])
+    B, H = 2, 3
+    slopes = tfm.alibi_slopes(H, cuda_device) if kw.pop("alibi", False) else None
+    q, k, v, dout = _flash_inputs(B, S, H, D, cuda_device, dtype)
+    kw.update(alibi_slopes=slopes)
+    before = (fa.flash_forward.launches, fa.flash_backward_dkdv.launches, fa.flash_backward_dq.launches)
+    out, lse = fa.flash_forward(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    delta = fa.flash_delta(ref_out, dout)
+    dk, dv = fa.flash_backward_dkdv(q, k, v, dout, ref_lse, delta, **kw)
+    dq = fa.flash_backward_dq(q, k, v, dout, ref_lse, delta, **kw)
+    torch.cuda.synchronize()
+    after = (fa.flash_forward.launches, fa.flash_backward_dkdv.launches, fa.flash_backward_dq.launches)
+    assert after == tuple(n + 1 for n in before)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    ref = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse, dout, **kw)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == want.shape
+        err = _normalised_err(got, want)
+        assert err <= _FLASH_GRAD_TOL[dtype], f"{name}: {err:.3e}"
+
+
+def test_flash_attention_autograd_launches_each_kernel_once(cuda_device):
+    q, k, v, dout = _flash_inputs(2, 256, 2, 64, cuda_device, torch.bfloat16, seed=4)
+    q.requires_grad_(True), k.requires_grad_(True), v.requires_grad_(True)
+    counters = (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq)
+    before = [c.launches for c in counters]
+    fa.flash_attention(q, k, v).backward(dout)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_flash_kernels_reject_what_they_cannot_take(cuda_device):
+    q, k, v, _ = _flash_inputs(1, 128, 2, 64, cuda_device, torch.float32)
+    with pytest.raises(TypeError):
+        fa.flash_forward(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        fa.flash_forward(*_flash_inputs(1, 128, 1, 256, cuda_device, torch.float32)[:3])
+    with pytest.raises(ValueError):
+        fa.flash_forward(q[..., ::2], k[..., ::2], v[..., ::2])
+
+
+def test_train_batch_runs_through_the_flash_kernels(cuda_device):
+    """Three train_batch steps of a small bf16 model: every layer of every
+    micro-batch launches each flash kernel once, and the loss falls."""
+    cfg = tfm.TransformerConfig(vocab_size=97, max_seq_len=256, num_layers=3, num_heads=4, hidden_size=64,
+                                dtype=torch.bfloat16, attn_impl="flash", loss_chunk_size=64)
+    ds = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": 2,
+          "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 1000,
+          "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=tfm.Model(cfg), config=ds)
+    tokens = np.random.default_rng(0).integers(0, 97, size=(8, 257)).astype(np.int32)
+    counters = (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq)
+    losses = []
+    for _ in range(3):
+        before = [c.launches for c in counters]
+        m = engine.train_batch({"tokens": tokens})
+        assert [c.launches - b for c, b in zip(counters, before)] == [3 * 2] * 3
+        losses.append(float(m["loss"]))
+        assert not bool(m["overflow"])
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert engine.get_global_step() == 3
 
 
 def test_decode_in_model_matches_plain_attention(cuda_device):

@@ -32,6 +32,10 @@ from deepspeed_tpu_torch.models.transformer import Model, TransformerConfig
 eng = pkg.init_inference(Model(TransformerConfig(**{TINY!r})), config={{"dtype": "fp32"}}, device="cpu")
 out = eng.generate(np.zeros((2, 5), np.int32), max_new_tokens=4)
 assert out.shape == (2, 4)
+model = Model(TransformerConfig(**{TINY!r}, attn_impl="flash"))
+trainer, _, _, _ = pkg.initialize(model=model, config={{"train_batch_size": 2}}, device="cpu")
+metrics = trainer.train_batch({{"tokens": np.zeros((2, 9), np.int32)}})
+assert np.isfinite(float(metrics["loss"]))
 assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")
 """
@@ -74,6 +78,12 @@ def test_entry_point_needs_cuda_or_an_explicit_cpu(monkeypatch):
                                              config={"dtype": "fp32"}, device="cpu")
     assert eng.params["wte"].device.type == "cpu"
     assert eng.generate([[1, 2, 3]], max_new_tokens=3).shape == (1, 3)
+    ds = {"train_batch_size": 1}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=Model(TransformerConfig(**TINY)), config=ds)
+    trainer, _, _, _ = deepspeed_tpu_torch.initialize(model=Model(TransformerConfig(**TINY)), config=ds,
+                                                      device="cpu")
+    assert trainer.state["params"]["wte"].device.type == "cpu"
 
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():

@@ -155,9 +155,9 @@ def test_rotary_and_layer_norm_match_jax(interleaved):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("attn_impl", "flash"), ("moe_every", 2), ("weight_bits", 8), ("act_quant_bits", 8),
-    ("local_attn_layers", (0, 1)), ("param_offload", True), ("hidden_dropout", 0.1),
-    ("attn_dropout", 0.1), ("pld_enabled", True),
+    ("attn_impl", "ring"), ("moe_every", 2), ("weight_bits", 8), ("act_quant_bits", 8),
+    ("attn_impl", "ulysses"), ("param_offload", True), ("attn_impl", "sparse"),
+    ("loss_impl", "fused_xent"), ("remat", True),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError):

@@ -33,22 +33,46 @@ Phases, each of which passes or makes the script exit non-zero:
      falling loss and no overflow;
   8. slice parity: five fp32 steps of a small model through the kernels and
      through plain attention give the same losses, and at full width in
-     bf16 the first step's loss and grad norm agree on an 8-row batch.
+     bf16 the first step's loss and grad norm agree on an 8-row batch;
+  9. hold each fused-loss kernel (forward, dH, dW) against its plain version
+     at the training shape (N = 16 x 1024 rows, D = 768, V = 50304, bf16,
+     one row in seven ignored, the head as wte.t()), and in fp32 and fp16 at
+     N = 2048, and at V = 50257 and V = 777; then time each kernel, the
+     plain versions and, as a reference point only, the cuBLAS logits
+     product of the chunked loss, against the bound at that shape;
+ 10. train through the fused loss under remat at GPT-2-125M width: phase 7's
+     configuration with loss_impl="fused_xent", remat=True,
+     remat_policy="dots_and_flash", one warm-up and five timed steps,
+     checking 48 launches of each flash kernel and 4 of each fused-loss
+     kernel per train_batch, then one step under nothing_saveable with 96
+     flash-forward launches;
+ 11. slice parity: five fp32 steps of a small model with the fused loss and
+     with the chunked loss give the same losses, and at full width in bf16
+     the first step's loss and grad norm agree;
+ 12. checkpoint and resume: a small bf16 model with dropout trained 2 steps,
+     saved, loaded into a fresh engine and trained 3 more gives the losses of
+     5 uninterrupted steps bitwise; at full width one save/load round trip
+     into a fresh engine (seconds, bytes) and one step whose loss equals the
+     uninterrupted engine's.
 It prints a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
 
     python3 chip_smoke.py --profile chiprun_out/profile
 
-also traces one generate(max_new_tokens=64) and one train_batch with
-torch.profiler and prints the device's busy share and its time by kernel.
+also traces one generate(max_new_tokens=64), one train_batch of phase 7 and
+one of phase 10 with torch.profiler and prints the device's busy share and
+its time by kernel.
 """
 
 import argparse
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,20 +82,23 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import transformer as tfm
 from deepspeed_tpu_torch.models.transformer import Model, TransformerConfig
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import fused_xent as fx
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the kernel's math)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
-KERNEL_SOURCES = ("decode_attention", "flash_attention")
+KERNEL_SOURCES = ("decode_attention", "flash_attention", "fused_xent")
 FLASH_COUNTERS = (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq)
+XENT_COUNTERS = (fx.fused_xent_forward, fx.fused_xent_backward_dh, fx.fused_xent_backward_dw)
 B, SMAX, H, D = 8, 1024, 12, 64
 POS_ROWS = [0, 1, 127, 128, 500, 767, 1022, 1023]
 # fp32: the kernel and the plain version differ in summation order only.
-# bf16: both accumulate in fp32 and round the output to bf16 once, so they
-# differ by at most about one bf16 ulp (2^-7 relative) of outputs below 2.
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16/fp16: both accumulate in fp32 and round the output once, so they
+# differ by at most about one ulp (bf16 2^-7, fp16 2^-10 relative) of
+# outputs below 2.
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 # First decode step's fp32 logits, kernel vs plain cached attention, both in
 # bf16: the plain path rounds scores, probabilities and the PV product to
 # bf16 where the kernel keeps fp32, and the difference passes through 12
@@ -169,9 +196,9 @@ def kernel_timing(dev):
 # Flash kernels vs their plain versions. Forward output: as for decode; lse is
 # fp32 in both and differs in summation order only. Gradients, as max abs
 # error over the reference's max |value|: fp32 summation order only; bf16
-# rounds P and dS to bf16 at the same points in both, but a value near a
-# rounding boundary can land one ulp (2^-8 relative) apart.
-FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# rounds P and dS to bf16 (fp16) at the same points in both, but a value near
+# a rounding boundary can land one ulp (2^-8; fp16 2^-11 relative) apart.
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 4e-3}
 LSE_TOL = 1e-3
 FS = 1024  # the training sequence length
 
@@ -222,7 +249,7 @@ def flash_checks(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = {name: {dt: (0.0, 0.0) for dt in TOL} for name in ("flash_forward", "flash_backward_dkdv",
                                                                  "flash_backward_dq")}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         cases = [dict(B=8, S=FS, H=H, D=D, **kw) for kw in (
             {}, {"causal": False}, {"alibi": True}, {"window": 256.0}, {"window": 0.0})]
         cases += [dict(B=8, S=1000, H=H, D=D), dict(B=8, S=128, H=H, D=D), dict(B=2, S=FS, H=H, D=128)]
@@ -303,15 +330,22 @@ TRAIN_STEPS = 5
 
 
 def gpt2_config(**kw):
-    """GPT-2-125M at full width, as bench.py:139-171 trains it (remat off:
-    not ported, and the 80 GB card holds the activations)."""
+    """GPT-2-125M at full width, as bench.py:139-171 trains it; phase 7 with
+    the chunked loss and no remat (the 80 GB card holds the activations),
+    phase 10 with bench.py's fused loss and dots_and_flash remat."""
     return TransformerConfig(vocab_size=50304, max_seq_len=FS, num_layers=12, num_heads=12, hidden_size=768,
                              pos_emb="learned", tie_embeddings=True, dtype=torch.bfloat16,
                              attn_impl="flash", loss_chunk_size=256, **kw)
 
 
 def counts():
-    return [c.launches for c in FLASH_COUNTERS] + [decode_attention.launches]
+    return [c.launches for c in FLASH_COUNTERS] + [decode_attention.launches] + [c.launches for c in XENT_COUNTERS]
+
+
+def reset_counts():
+    for c in FLASH_COUNTERS + XENT_COUNTERS:
+        c.launches = 0
+    decode_attention.launches = 0
 
 
 def train(dev):
@@ -329,9 +363,7 @@ def train(dev):
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    for c in FLASH_COUNTERS:
-        c.launches = 0
-    decode_attention.launches = 0
+    reset_counts()
     metrics, per_step = [], []
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -344,7 +376,7 @@ def train(dev):
     losses = [float(warm["loss"])] + [float(m["loss"]) for m in metrics]
     overflow = any(bool(m["overflow"]) for m in [warm] + metrics)
     expect = L * gas
-    ok = (all(step[:3] == [expect] * 3 and step[3] == 0 for step in per_step)
+    ok = (all(step[:3] == [expect] * 3 and step[3:] == [0] * 4 for step in per_step)
           and all(np.isfinite(losses)) and losses[-1] < losses[0] and not overflow)
     step_s = seconds / TRAIN_STEPS
     tok_s = B * S / step_s
@@ -413,6 +445,302 @@ def train_parity(dev):
         raise SystemExit("the full-width step through the kernels disagrees with plain attention")
     return {"small_fp32_max_rel_err": small_err, "full_width_loss_rel_err": loss_err,
             "full_width_grad_norm_rel_err": gnorm_err}
+
+
+# Fused-loss kernels vs their plain versions. nll and lse: the logits are
+# exact fp32 products of the inputs' values in both, summed over D and
+# log-sum-exp'd over V in other orders: about 1e-6 relative of values near
+# 11. dH and dW, as max abs error over the reference's max |value|: ds is
+# rounded to the input type at the same points in both, but a value near a
+# rounding boundary can land one ulp apart (as for the flash gradients).
+XENT_TOL = 1e-3
+XENT_GRAD_TOL = FLASH_GRAD_TOL
+XN, XD, XV = 16 * FS, 768, 50304  # the main path's rows (micro 16 x S 1024), width and vocab
+
+
+def xent_inputs(dev, gen, N, D, V, dtype):
+    """hidden [N, D] ~ N(0, 1) (post-LayerNorm scale), the head as wte.t()
+    of a [V, D] buffer ~ N(0, 0.02) (the model's init), int32 labels with
+    one row in seven ignored, g = the masked mean's cotangent."""
+    h = torch.randn(N, D, generator=gen, device=dev).to(dtype)
+    wte = (torch.randn(V, D, generator=gen, device=dev) * 0.02).to(dtype)
+    y = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
+    y[::7] = -1
+    mask = (y >= 0).float()
+    return h, wte.t(), y, mask / mask.sum()
+
+
+def xent_case(dev, gen, N, D, V, dtype):
+    """One kernel-vs-plain check of the three fused-loss kernels; raises on
+    a disagreement. The backward kernels get the plain forward's lse."""
+    h, head, y, g = xent_inputs(dev, gen, N, D, V, dtype)
+    nll, lse = fx.fused_xent_forward(h, head, y)
+    ref_nll, ref_lse = fx.fused_linear_xent_reference(h, head, y)
+    dh = fx.fused_xent_backward_dh(h, head, y, ref_lse, g)
+    dw = fx.fused_xent_backward_dw(h, head, y, ref_lse, g)
+    torch.cuda.synchronize()
+    ref_dh, ref_dw = fx.fused_linear_xent_backward_reference(h, head, y, ref_lse, g)
+
+    def abs_err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def rel_err(a, b):
+        return abs_err(a, b) / max(b.float().abs().max().item(), 1e-12)
+
+    errs = {"fused_xent_forward": (abs_err(nll, ref_nll), abs_err(lse, ref_lse)),
+            "fused_xent_backward_dh": (abs_err(dh, ref_dh), rel_err(dh, ref_dh)),
+            "fused_xent_backward_dw": (abs_err(dw, ref_dw), rel_err(dw, ref_dw))}
+    finite = all(bool(torch.isfinite(t).all()) for t in (nll, lse, dh, dw))
+    ignored_zero = dh[::7].abs().max().item() == 0.0
+    ok = (finite and ignored_zero and max(errs["fused_xent_forward"]) <= XENT_TOL
+          and errs["fused_xent_backward_dh"][1] <= XENT_GRAD_TOL[dtype]
+          and errs["fused_xent_backward_dw"][1] <= XENT_GRAD_TOL[dtype] and dw.stride() == head.stride())
+    label = f"{str(dtype)[6:]} N={N} D={D} V={V}"
+    print(f"  fused xent vs plain  {label:<32} nll {errs['fused_xent_forward'][0]:.2e}, "
+          f"lse {errs['fused_xent_forward'][1]:.2e} (tol {XENT_TOL:.0e}), dH {errs['fused_xent_backward_dh'][1]:.2e}, "
+          f"dW {errs['fused_xent_backward_dw'][1]:.2e} (rel, tol {XENT_GRAD_TOL[dtype]:.0e}), ignored rows' dH 0: "
+          f"{ignored_zero}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"a fused-loss kernel disagrees with its plain version: {label}")
+    return errs
+
+
+def xent_checks(dev):
+    """Every case of phase 9 -> {kernel: {dtype: (max abs err, second)}}, the
+    second being the lse's abs error (forward) or the max rel error (dH, dW)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = {name: {} for name in ("fused_xent_forward", "fused_xent_backward_dh", "fused_xent_backward_dw")}
+    cases = [(XN, XD, XV, torch.bfloat16), (2048, XD, XV, torch.float32), (2048, XD, XV, torch.float16),
+             (2048, XD, 50257, torch.bfloat16), (2048, XD, 777, torch.bfloat16)]
+    for N, D, V, dtype in cases:
+        for name, e in xent_case(dev, gen, N, D, V, dtype).items():
+            old = worst[name].get(dtype, (0.0, 0.0))
+            worst[name][dtype] = tuple(max(x, y) for x, y in zip(old, e))
+        torch.cuda.empty_cache()
+    return worst
+
+
+def xent_bounds(N, D, V, elt):
+    """{kernel: (bound_ms, bound_by, bytes, flops)}: each input read once and
+    each output written once; the logits take 2·N·D·V flops, and each
+    backward computes them again before its own product of the same size."""
+    hw = (N * D + D * V) * elt
+    rows = N * 4
+    work = {"fused_xent_forward": (hw + rows + 2 * rows, 2 * N * D * V),               # h, W, y -> nll, lse
+            "fused_xent_backward_dh": (hw + 3 * rows + N * D * elt, 4 * N * D * V),    # h, W, y, lse, g -> dH
+            "fused_xent_backward_dw": (hw + 3 * rows + D * V * elt, 4 * N * D * V)}    # h, W, y, lse, g -> dW
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+    return out
+
+
+def xent_timing(dev):
+    """Times at the training shape, bf16: each kernel, the plain versions,
+    and the cuBLAS [N, D]·[D, V] product the chunked loss runs (a reference
+    point only: it is not the same function, and the port never calls it
+    for this loss)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h, head, y, g = xent_inputs(dev, gen, XN, XD, XV, torch.bfloat16)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    _, lse = fx.fused_xent_forward(h, head, y)
+    plain_bwd = median_ms(lambda: fx.fused_linear_xent_backward_reference(h, head, y, lse, g), flush,
+                          runs=5, warmup=1)
+    times = {
+        "fused_xent_forward": {"ms": median_ms(lambda: fx.fused_xent_forward(h, head, y), flush, runs=10, warmup=2),
+                               "plain_ms": median_ms(lambda: fx.fused_linear_xent_reference(h, head, y), flush,
+                                                     runs=5, warmup=1)},
+        "fused_xent_backward_dh": {"ms": median_ms(lambda: fx.fused_xent_backward_dh(h, head, y, lse, g), flush,
+                                                   runs=10, warmup=2), "plain_ms": plain_bwd},
+        "fused_xent_backward_dw": {"ms": median_ms(lambda: fx.fused_xent_backward_dw(h, head, y, lse, g), flush,
+                                                   runs=10, warmup=2), "plain_ms": plain_bwd},
+    }
+    cublas_ms = median_ms(lambda: h @ head, flush, runs=20, warmup=3)
+    for name, (bound, by, nbytes, flops) in xent_bounds(XN, XD, XV, 2).items():
+        t = times[name]
+        t.update(bound_ms=bound, bound_by=by, library_ms=None, cublas_logits_ms=cublas_ms)
+        print(f"  timing {name:<23} bf16 N={XN} D={XD} V={XV}: kernel {t['ms']:8.2f} ms, plain {t['plain_ms']:8.2f} ms, "
+              f"bound {bound:.2f} ms ({by}: {nbytes/1e6:.1f} MB, {flops/1e12:.2f} TFLOP), "
+              f"{flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    print(f"  no single PyTorch call computes this function (library: null); reference point only: the cuBLAS "
+          f"logits product [N, D]·[D, V] bf16 {cublas_ms:.2f} ms; the plain backward times dH and dW together")
+    return times
+
+
+FUSED = dict(loss_impl="fused_xent", remat=True, remat_policy="dots_and_flash")
+
+
+def train_fused(dev):
+    """Phase 10: phase 7's step through the fused loss under dots_and_flash
+    remat (bench.py's tuned configuration)."""
+    model = Model(gpt2_config(**FUSED))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=BENCH_DS)
+    B, S, L = BENCH_DS["train_batch_size"], FS, model.config.num_layers
+    gas = BENCH_DS["gradient_accumulation_steps"]
+    batch = {"tokens": np.random.default_rng(0).integers(0, 50304, size=(B, S + 1)).astype(np.int32)}
+    t0 = time.perf_counter()
+    warm = engine.train_batch(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, per_step = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        before = counts()
+        metrics.append(engine.train_batch(batch))
+        per_step.append([a - b for a, b in zip(counts(), before)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(warm["loss"])] + [float(m["loss"]) for m in metrics]
+    overflow = any(bool(m["overflow"]) for m in [warm] + metrics)
+    expect = [L * gas] * 3 + [0] + [gas] * 3
+    ok = (all(step == expect for step in per_step) and all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and not overflow)
+    step_s = seconds / TRAIN_STEPS
+    tok_s = B * S / step_s
+    n_params = L * 12 * 768 * 768 + 50304 * 768 + S * 768  # bench.py:219-221
+    bench_flops = 6 * n_params + L * 12 * S * 768
+    result = {
+        "warmup_step_s": warm_s, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+        "tflops_model": tok_s * model.flops_per_token() / 1e12, "tflops_bench_formula": tok_s * bench_flops / 1e12,
+        "peak_gib": peak, "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in [warm] + metrics],
+        "overflow": overflow, "launches_per_train_batch": per_step[0],
+    }
+    print(f"  fused loss + dots_and_flash remat, train_batch x{TRAIN_STEPS} after one warm-up ({warm_s:.2f} s): "
+          f"{result['step_ms']:.1f} ms/step, {tok_s:.0f} tokens/s, {result['tflops_model']:.1f} TFLOP/s "
+          f"(Model.flops_per_token), {result['tflops_bench_formula']:.1f} TFLOP/s (bench.py formula), "
+          f"peak {peak:.2f} GiB")
+    print(f"  launches per train_batch [flash fwd, dK/dV, dQ, decode, xent fwd, dH, dW] {per_step} "
+          f"(expect {expect}); losses {[round(x, 4) for x in losses]}; overflow {overflow}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the fused-loss remat training phase failed its checks")
+
+    # nothing_saveable recomputes every layer, the flash forward included
+    engine.model.config = engine.model.config.replace(remat_policy="nothing_saveable")
+    before = counts()
+    m = engine.train_batch(batch)
+    step = [a - b for a, b in zip(counts(), before)]
+    engine.model.config = engine.model.config.replace(remat_policy="dots_and_flash")
+    expect_ns = [2 * L * gas, L * gas, L * gas, 0] + [gas] * 3
+    ok = step == expect_ns and np.isfinite(float(m["loss"])) and not bool(m["overflow"])
+    print(f"  one train_batch under nothing_saveable: launches {step} (expect {expect_ns}), "
+          f"loss {float(m['loss']):.4f}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("nothing_saveable did not recompute the flash forward")
+    result["launches_per_train_batch_nothing_saveable"] = step
+    return [launches[4], launches[5], launches[6]], result, engine, batch
+
+
+def fused_parity(dev):
+    """Phase 11: the slice through the fused loss against the chunked loss."""
+    tiny = TransformerConfig(vocab_size=97, max_seq_len=128, num_layers=2, num_heads=4, hidden_size=64,
+                             attn_impl="flash", remat=True, remat_policy="dots_and_flash")
+    params = tfm.init(tiny, torch.Generator().manual_seed(0), dev)
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+          "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+          "gradient_clipping": 1.0, "steps_per_print": 1000000}
+    batch = {"tokens": np.random.default_rng(2).integers(0, 97, size=(4, 129)).astype(np.int32)}
+    traj = {}
+    for impl in ("fused_xent", "chunked"):
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(model=Model(tiny.replace(loss_impl=impl)), config=ds,
+                                                      model_parameters=params)
+        traj[impl] = [float(eng.train_batch(batch)["loss"]) for _ in range(5)]
+    # fp32: the fused kernels and the chunked loss differ in summation order only
+    small_err = max(abs(a - b) / abs(b) for a, b in zip(traj["fused_xent"], traj["chunked"]))
+    ok = small_err <= 1e-4
+    print(f"  small fp32 model, 5 steps: fused {[round(x, 5) for x in traj['fused_xent']]} vs chunked "
+          f"{[round(x, 5) for x in traj['chunked']]}, max rel err {small_err:.2e} (tol 1e-4)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the small model's fused loss differs from the chunked loss")
+
+    cfg = gpt2_config(remat=True, remat_policy="dots_and_flash")
+    params = tfm.init(cfg, torch.Generator().manual_seed(1), dev)
+    ds8 = dict(BENCH_DS, train_batch_size=8, train_micro_batch_size_per_gpu=8, gradient_accumulation_steps=1)
+    batch = {"tokens": np.random.default_rng(3).integers(0, 50304, size=(8, FS + 1)).astype(np.int32)}
+    first = {}
+    for impl in ("fused_xent", "chunked"):
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(model=Model(cfg.replace(loss_impl=impl)), config=ds8,
+                                                      model_parameters=params)
+        m = eng.train_batch(batch)
+        first[impl] = (float(m["loss"]), float(m["grad_norm"]))
+        del eng, m
+        torch.cuda.empty_cache()
+    # bf16: the chunked loss rounds the logits to bf16 before its fp32
+    # log-sum-exp where the fused kernels keep the fp32 accumulators
+    loss_err = abs(first["fused_xent"][0] - first["chunked"][0]) / abs(first["chunked"][0])
+    gnorm_err = abs(first["fused_xent"][1] - first["chunked"][1]) / abs(first["chunked"][1])
+    ok = loss_err <= 1e-2 and gnorm_err <= 5e-2 and all(np.isfinite(first["fused_xent"]))
+    print(f"  full width bf16, first train_batch (8 rows, gas 1): loss {first['fused_xent'][0]:.5f} vs "
+          f"{first['chunked'][0]:.5f} (rel {loss_err:.2e}, tol 1e-2), grad norm {first['fused_xent'][1]:.5f} vs "
+          f"{first['chunked'][1]:.5f} (rel {gnorm_err:.2e}, tol 5e-2)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the full-width step through the fused loss disagrees with the chunked loss")
+    return {"small_fp32_max_rel_err": small_err, "full_width_loss_rel_err": loss_err,
+            "full_width_grad_norm_rel_err": gnorm_err}
+
+
+def checkpoint_resume(dev, trainer, batch):
+    """Phase 12: resume is bitwise on a small model with dropout; a
+    full-width round trip of ``trainer`` into a fresh engine."""
+    small = TransformerConfig(vocab_size=97, max_seq_len=128, num_layers=2, num_heads=4, hidden_size=64,
+                              dtype=torch.bfloat16, attn_impl="flash", hidden_dropout=0.1, attn_dropout=0.1,
+                              **FUSED)
+    params = tfm.init(small, torch.Generator().manual_seed(6), dev)
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+          "bf16": {"enabled": True}, "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}, "seed": 9,
+          "gradient_clipping": 1.0, "steps_per_print": 1000000}
+    tokens = {"tokens": np.random.default_rng(7).integers(0, 97, size=(4, 129)).astype(np.int32)}
+
+    def engine(p=params):
+        return deepspeed_tpu_torch.initialize(model=Model(small), config=ds, model_parameters=p)[0]
+
+    root = tempfile.mkdtemp(prefix="dstt_ckpt_")
+    try:
+        straight = engine()
+        ref = [float(straight.train_batch(tokens)["loss"]) for _ in range(5)]
+        first = engine()
+        got = [float(first.train_batch(tokens)["loss"]) for _ in range(2)]
+        first.save_checkpoint(os.path.join(root, "small"))
+        second = engine(tfm.init(small, torch.Generator().manual_seed(99), dev))
+        second.load_checkpoint(os.path.join(root, "small"))
+        got += [float(second.train_batch(tokens)["loss"]) for _ in range(3)]
+        ok = got == ref
+        print(f"  small bf16 model with dropout, train 2 + save + load + train 3: {got}; 5 straight: {ref}; "
+              f"max abs diff {max(abs(a - b) for a, b in zip(got, ref)):.3e} (bitwise expected)  "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("resume from a checkpoint did not reproduce the uninterrupted run")
+
+        full = os.path.join(root, "full")
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(full)
+        save_s = time.perf_counter() - t0
+        tag_dir = os.path.join(full, f"global_step{trainer.global_steps}")
+        nbytes = sum(os.path.getsize(os.path.join(tag_dir, f)) for f in os.listdir(tag_dir))
+        fresh = deepspeed_tpu_torch.initialize(model=Model(gpt2_config(**FUSED)), config=BENCH_DS)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(full)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a = float(trainer.train_batch(batch)["loss"])
+        b = float(fresh.train_batch(batch)["loss"])
+        ok = a == b and np.isfinite(a)
+        print(f"  full width: save {save_s:.2f} s ({nbytes / 2**30:.3f} GiB in {len(os.listdir(tag_dir))} files), "
+              f"load into a fresh engine {load_s:.2f} s; next step loss {b:.6f} vs uninterrupted {a:.6f} "
+              f"(bitwise expected)  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the full-width engine restored from a checkpoint diverged")
+        del fresh
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"small_resume_losses": got, "full_save_s": save_s, "full_load_s": load_s, "full_bytes": nbytes,
+            "full_next_loss": b}
 
 
 def serve(dev):
@@ -592,6 +920,28 @@ def main() -> int:
 
     print("[8] slice parity: flash kernels vs plain attention")
     training["parity"] = train_parity(dev)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    op_builder.load("fused_xent")
+    print(f"[9] loaded fused_xent (forward, dH, dW) in {time.perf_counter() - t0:.2f} s; fused-loss kernels vs plain")
+    xent_errs = xent_checks(dev)
+    xent_times = xent_timing(dev)
+    torch.cuda.empty_cache()
+
+    print("[10] training: the fused loss under dots_and_flash remat at GPT-2-125M width")
+    xent_launches, training["fused_remat"], trainer, batch = train_fused(dev)
+    if args.profile:
+        profile("train_batch_fused_remat", lambda: trainer.train_batch(batch), args.profile)
+
+    print("[11] slice parity: the fused loss vs the chunked loss")
+    training["fused_remat"]["parity"] = fused_parity(dev)
+    torch.cuda.empty_cache()
+
+    print("[12] checkpoint and resume")
+    training["checkpoint"] = checkpoint_resume(dev, trainer, batch)
+    del trainer
+    torch.cuda.empty_cache()
 
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -611,9 +961,27 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
             "replaces": where, "launches": n,
             "max_abs_err": e[torch.bfloat16][0], "max_abs_err_fp32": e[torch.float32][0],
+            "max_abs_err_fp16": e[torch.float16][0],
             "max_rel_err": e[torch.bfloat16][1], "max_rel_err_fp32": e[torch.float32][1],
+            "max_rel_err_fp16": e[torch.float16][1],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    replaces = {"fused_xent_forward": "deepspeed_tpu/ops/pallas/fused_xent.py:73",
+                "fused_xent_backward_dh": "deepspeed_tpu/ops/pallas/fused_xent.py:171",
+                "fused_xent_backward_dw": "deepspeed_tpu/ops/pallas/fused_xent.py:193"}
+    for (name, where), n in zip(replaces.items(), xent_launches):
+        t, e = xent_times[name], xent_errs[name]
+        second = "lse_max_abs_err" if name == "fused_xent_forward" else "max_rel_err"  # what e[dtype][1] holds
+        kernels.append({
+            "name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/fused_xent.cu",
+            "replaces": where, "launches": n,
+            "max_abs_err": e[torch.bfloat16][0], "max_abs_err_fp32": e[torch.float32][0],
+            "max_abs_err_fp16": e[torch.float16][0],
+            second: e[torch.bfloat16][1], f"{second}_fp32": e[torch.float32][1],
+            f"{second}_fp16": e[torch.float16][1],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "cublas_logits_ms": t["cublas_logits_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"training": training}))

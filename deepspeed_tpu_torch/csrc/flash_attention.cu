@@ -30,17 +30,20 @@
 // (S not a multiple of the tile) is bounds-checked instead of zero-padded; for
 // causal self-attention that gives what the JAX wrapper's padding gives.
 //
-// bf16 rounding follows the Pallas kernel: P is cast to the input type before
-// P·V and before Pᵀ·dO, dS before dSᵀ·Q and dS·K; every product accumulates in
-// fp32 and O, dQ, dK, dV are written in the input type from fp32 accumulators.
+// Input types: fp32, bf16 and fp16, as the Pallas kernels run in the input's
+// type. 16-bit rounding follows the Pallas kernel: P is cast to the input type
+// before P·V and before Pᵀ·dO, dS before dSᵀ·Q and dS·K; every product
+// accumulates in fp32 and O, dQ, dK, dV are written in the input type from
+// fp32 accumulators.
 //
 // What bounds it on this card. At the training shape (S = 1024, D = 64, bf16)
 // the forward moves ~4 bytes of q/k/v/O per 2·S·D/2 causal flops per row:
 // about 250 flops per byte, near the H100's ~295 ridge, so bytes and tensor
 // operations bound it about equally; the backward does 2.5x the products on
-// ~1.5x the bytes and is bound by operations. The design: 64x64 tiles (bf16)
-// staged in shared memory by 16-byte loads, every product on the tensor cores
-// through nvcuda::wmma bf16 fragments with fp32 accumulators, 8 warps per CTA,
+// ~1.5x the bytes and is bound by operations. The design: 64x64 tiles (bf16,
+// fp16) staged in shared memory by 16-byte loads, every product on the tensor
+// cores through nvcuda::wmma fragments with fp32 accumulators (common.cuh),
+// 8 warps per CTA,
 // shared-memory rows padded so a fragment's rows fall in different banks, the
 // softmax state and the forward's accumulator in shared memory (each key tile
 // rescales its rows), the backward's dK/dV and dQ accumulators in registers,
@@ -54,11 +57,7 @@
 // caller's stream, allocates nothing, does not synchronise, and returns
 // cudaGetLastError() (or the error of cudaFuncSetAttribute).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <type_traits>
+#include "common.cuh"
 
 struct FlashParams {
   const void* q;
@@ -81,43 +80,12 @@ struct FlashParams {
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int NUM_WARPS = 8;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int MAX_D = 128;
-// Finite "minus infinity", as in the TPU kernel: exp(NEG_INF - m) is 0 for
-// any real m, and no inf - inf NaN can arise.
-constexpr float NEG_INF = -1e30f;
 
 template <typename T> struct Tile;
 template <> struct Tile<bf16> { static constexpr int BQ = 64, BK = 64; };
+template <> struct Tile<half> { static constexpr int BQ = 64, BK = 64; };
 template <> struct Tile<float> { static constexpr int BQ = 32, BK = 32; };
-
-// Shared-memory rows are padded by 16 bytes (fp32 buffers by 4 floats), so
-// the 16 rows of a tensor-core fragment fall in different banks.
-template <typename T> constexpr int pad() { return 16 / static_cast<int>(sizeof(T)); }
-template <typename T, int W> constexpr int ld_t() { return W + pad<T>(); }  // a [rows][W] T tile
-template <int W> constexpr int ld_f() { return W + 4; }                     // a [rows][W] fp32 buffer
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // Rows [row0, row0 + R) of a [B, S, H, D] tensor at (b, h) into shared
 // memory [R][LD]; zeros past S and past D. 16-byte loads when the row
@@ -163,100 +131,6 @@ __device__ void load_rows(float* dst, const float* src, int b, int h, int H, int
   const float* base = src + (static_cast<long long>(b) * H + h) * S;
   for (int r = threadIdx.x; r < R; r += NUM_THREADS) dst[r] = row0 + r < S ? base[row0 + r] : 0.0f;
 }
-
-// C[M][N] (=, or += with accumulate) op(A)·op(B), everything in shared memory,
-// C fp32 row-major with leading dimension LDC. A is [M][K] row-major, or with
-// A_T its transpose is stored ([K][M]); B is [K][N] row-major, or with B_T
-// its transpose is stored ([N][K]); LDA/LDB are the stored row lengths.
-// bf16: tensor cores, one 16x16 output tile per warp at a time.
-template <int M, int N, int K, bool A_T, bool B_T, int LDA, int LDB, int LDC>
-__device__ void block_gemm(const bf16* A, const bf16* B, float* C, bool accumulate) {
-  using LA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-  constexpr int TN = N / 16;
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * TN; t += NUM_WARPS) {
-    const int m0 = (t / TN) * 16, n0 = (t % TN) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate) {
-      wmma::load_matrix_sync(c, C + m0 * LDC + n0, LDC, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(c, 0.0f);
-    }
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> bb;
-      wmma::load_matrix_sync(a, A_T ? A + k0 * LDA + m0 : A + m0 * LDA + k0, LDA);
-      wmma::load_matrix_sync(bb, B_T ? B + n0 * LDB + k0 : B + k0 * LDB + n0, LDB);
-      wmma::mma_sync(c, a, bb, c);
-    }
-    wmma::store_matrix_sync(C + m0 * LDC + n0, c, LDC, wmma::mem_row_major);
-  }
-}
-
-// fp32: scalar FMAs, one output element per thread at a time.
-template <int M, int N, int K, bool A_T, bool B_T, int LDA, int LDB, int LDC>
-__device__ void block_gemm(const float* A, const float* B, float* C, bool accumulate) {
-  for (int i = threadIdx.x; i < M * N; i += NUM_THREADS) {
-    const int m = i / N, n = i % N;
-    float acc = accumulate ? C[m * LDC + n] : 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) {
-      const float a = A_T ? A[k * LDA + m] : A[m * LDA + k];
-      const float b = B_T ? B[n * LDB + k] : B[k * LDB + n];
-      acc = fmaf(a, b, acc);
-    }
-    C[m * LDC + n] = acc;
-  }
-}
-
-// An M x N fp32 accumulator kept in tensor-core fragments across calls (bf16
-// inputs): warp w owns output tiles w, w + NUM_WARPS, ... . Operands as in
-// block_gemm.
-template <int M, int N>
-struct RegAcc {
-  static constexpr int TN = N / 16, TILES = (M / 16) * TN, PER = (TILES + NUM_WARPS - 1) / NUM_WARPS;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[PER];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) wmma::fill_fragment(c[i], 0.0f);
-  }
-
-  // this += op(A)·op(B)
-  template <int K, bool A_T, bool B_T, int LDA, int LDB>
-  __device__ void mma(const bf16* A, const bf16* B) {
-    using LA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int t = warp + i * NUM_WARPS;
-      if (t >= TILES) break;
-      const int m0 = (t / TN) * 16, n0 = (t % TN) * 16;
-#pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> bb;
-        wmma::load_matrix_sync(a, A_T ? A + k0 * LDA + m0 : A + m0 * LDA + k0, LDA);
-        wmma::load_matrix_sync(bb, B_T ? B + n0 * LDB + k0 : B + k0 * LDB + n0, LDB);
-        wmma::mma_sync(c[i], a, bb, c[i]);
-      }
-    }
-  }
-
-  // -> C [M][LDC] fp32 in shared memory
-  __device__ void store(float* C, int LDC) const {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int t = warp + i * NUM_WARPS;
-      if (t >= TILES) break;
-      wmma::store_matrix_sync(C + (t / TN) * 16 * LDC + (t % TN) * 16, c[i], LDC, wmma::mem_row_major);
-    }
-  }
-};
 
 struct Mask {
   float scale, slope, w;
@@ -407,8 +281,8 @@ template <typename T, int DP>
 struct DkdvSmem {
   static constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   static constexpr int LDT = ld_t<T, DP>(), LDP = ld_t<T, BK>(), LDS = ld_f<BK>(), LDA = ld_f<DP>();
-  // bf16 keeps dK and dV in registers (RegAcc); fp32 accumulates in shared memory
-  static constexpr bool REG = std::is_same<T, bf16>::value;
+  // 16-bit inputs keep dK and dV in registers (RegAcc); fp32 accumulates in shared memory
+  static constexpr bool REG = IS_16BIT<T>;
   static constexpr size_t bytes = (2 * BK * LDT + 2 * BQ * LDT + 2 * BQ * LDP) * sizeof(T) +
                                   (2 * BQ * LDS + (REG ? 0 : 2 * BK * LDA) + 2 * BQ) * sizeof(float);
   static_assert(!REG || BK * LDA <= 2 * BQ * LDS, "the dK/dV staging tile must fit in the score buffers");
@@ -437,7 +311,7 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dkdv_kernel(const Flash
 
   load_tile<T, BK, DP, LDT>(k_s, static_cast<const T*>(p.k), p.k_str, b, h, k0, p.Sk, p.D);
   load_tile<T, BK, DP, LDT>(v_s, static_cast<const T*>(p.v), p.v_str, b, h, k0, p.Sk, p.D);
-  RegAcc<BK, DP> dk_acc, dv_acc;
+  RegAcc<T, BK, DP> dk_acc, dv_acc;
   if constexpr (L::REG) {
     dk_acc.zero();
     dv_acc.zero();
@@ -494,8 +368,8 @@ template <typename T, int DP>
 struct DqSmem {
   static constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   static constexpr int LDT = ld_t<T, DP>(), LDP = ld_t<T, BK>(), LDS = ld_f<BK>(), LDA = ld_f<DP>();
-  // bf16 keeps dQ in registers (RegAcc); fp32 accumulates in shared memory
-  static constexpr bool REG = std::is_same<T, bf16>::value;
+  // 16-bit inputs keep dQ in registers (RegAcc); fp32 accumulates in shared memory
+  static constexpr bool REG = IS_16BIT<T>;
   static constexpr size_t bytes = (2 * BQ * LDT + 2 * BK * LDT + BQ * LDP) * sizeof(T) +
                                   (2 * BQ * LDS + (REG ? 0 : BQ * LDA) + 2 * BQ) * sizeof(float);
   static_assert(!REG || BQ * LDA <= 2 * BQ * LDS, "the dQ staging tile must fit in the score buffers");
@@ -524,7 +398,7 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dq_kernel(const FlashPa
   load_tile<T, BQ, DP, LDT>(do_s, static_cast<const T*>(p.dout), p.do_str, b, h, q0, p.Sq, p.D);
   load_rows<BQ>(lse_s, p.lse, b, h, p.H, q0, p.Sq);
   load_rows<BQ>(delta_s, p.delta, b, h, p.H, q0, p.Sq);
-  RegAcc<BQ, DP> dq_acc;
+  RegAcc<T, BQ, DP> dq_acc;
   if constexpr (L::REG) {
     dq_acc.zero();
   } else {
@@ -605,12 +479,13 @@ int dispatch(const FlashParams* p, Which which, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->dtype == 0) return dispatch_d<float>(*p, which, s);
   if (p->dtype == 1) return dispatch_d<bf16>(*p, which, s);
+  if (p->dtype == 2) return dispatch_d<half>(*p, which, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The caller has checked shapes, dtypes,
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. The caller has checked shapes, dtypes,
 // devices, a contiguous last dimension and 1 <= D <= 128.
 extern "C" int dstt_flash_fwd(const FlashParams* p, void* stream) { return dispatch(p, FWD, stream); }
 extern "C" int dstt_flash_bwd_dkdv(const FlashParams* p, void* stream) { return dispatch(p, DKDV, stream); }

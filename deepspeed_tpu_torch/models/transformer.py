@@ -1,8 +1,10 @@
 """Decoder-only transformer: GPT-2 (learned positions), GPT-NeoX/GPT-J
 (rotary, parallel residual) and BLOOM-style (ALiBi) decoders, ported from
 ``deepspeed_tpu/models/transformer.py``: the training forward and loss
-(``apply``, ``causal_lm_loss``, with plain or flash attention, dropout and
-progressive layer drop) and KV-cache decoding for inference.
+(``apply``, ``causal_lm_loss``, with plain or flash attention, dropout,
+progressive layer drop, activation checkpointing (remat), and the chunked
+or the fused vocab-projection + cross-entropy loss) and KV-cache decoding
+for inference.
 
 Parameters are a plain dict of tensors with the JAX package's layout: the
 layer weights are stacked ``[L, ...]`` (``wq``/``wk``/``wv`` [L, d, H, Dh],
@@ -16,13 +18,17 @@ product, logits computed in the compute dtype and then cast to fp32.
 The KV cache is updated IN PLACE by ``apply_with_cache`` and
 ``update_cache_slot`` (the JAX versions return new arrays). Randomness
 (dropout, layer drop) comes from an explicit ``torch.Generator``; it gives
-other bits than ``jax.random`` for the same seed.
+other bits than ``jax.random`` for the same seed. As the JAX package splits
+its key per layer, each layer draws from a generator of its own, seeded from
+the caller's generator's seed and the layer index, so a remat recompute
+replays the layer's masks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -32,6 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
+from ..ops.fused_xent import fused_linear_xent
+from ..runtime.activation_checkpointing.checkpointing import REMAT_POLICIES, remat_context_fn
 
 Params = dict
 
@@ -66,7 +74,26 @@ class TransformerConfig:
     decode_attn: str = "kernel"  # kernel (CUDA decode kernel) | xla (plain cached attention)
     dtype: torch.dtype = torch.float32  # compute dtype
     loss_chunk_size: int = 512  # chunk the vocab projection in the loss; 0 = off
+    # "chunked": the vocab projection a sequence chunk at a time, each chunk
+    # recomputed in the backward; "fused_xent": the fused projection +
+    # cross-entropy kernels (ops/fused_xent.py), logits never in memory
     loss_impl: str = "chunked"
+    loss_fused_block_rows: int = 0  # validated as in the JAX package; not the CUDA tile
+    loss_fused_block_v: int = 0
+    # Activation checkpointing over the layer stack: each layer (or each
+    # group of ``remat_group`` layers) runs under torch.utils.checkpoint with
+    # ``remat_policy`` (nothing_saveable | everything_saveable | dots_saveable
+    # | save_flash | dots_and_flash). ``remat_offload`` (cpu_checkpointing)
+    # and ``remat_partition_axis`` (partition_activations) raise: they belong
+    # to the memory tiers and to tensor parallelism.
+    remat: bool = False
+    remat_policy: str = "save_flash"
+    remat_offload: bool = False
+    remat_partition_axis: str = ""
+    remat_group: int = 0
+    # The JAX package's lax.scan unroll; the port's layers are a Python loop,
+    # so it has no effect here (it has none on the math in JAX either).
+    scan_unroll: int = 1
     # Dropout on the attention output projection (attn) and on embeddings +
     # FFN output (hidden); active only when the caller passes a generator.
     hidden_dropout: float = 0.0
@@ -79,15 +106,14 @@ class TransformerConfig:
     pld_gamma: float = 0.001
     moe_aux_coeff: float = 0.01
     # Not implemented in the port yet: any value but the default raises.
-    remat: bool = False
     moe_every: int = 0
     weight_bits: int = 0
     act_quant_bits: int = 0
     param_offload: bool = False
 
     def __post_init__(self):
-        defaults = {"remat": False, "moe_every": 0, "weight_bits": 0, "act_quant_bits": 0,
-                    "param_offload": False}
+        defaults = {"moe_every": 0, "weight_bits": 0, "act_quant_bits": 0, "param_offload": False,
+                    "remat_offload": False, "remat_partition_axis": ""}
         for name, default in defaults.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -99,12 +125,12 @@ class TransformerConfig:
                 "deepspeed_tpu_torch yet (xla or flash)")
         if self.attn_impl not in ("xla", "flash"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
-        if self.loss_impl == "fused_xent":
-            raise NotImplementedError(
-                "TransformerConfig.loss_impl='fused_xent' is not implemented in "
-                "deepspeed_tpu_torch yet (chunked)")
-        if self.loss_impl != "chunked":
+        if self.loss_impl not in ("chunked", "fused_xent"):
             raise ValueError(f"unknown loss_impl {self.loss_impl!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} is not implemented in deepspeed_tpu_torch "
+                f"(one of {', '.join(REMAT_POLICIES)})")
         if self.pos_emb not in ("learned", "rotary", "alibi", "none"):
             raise ValueError(f"unknown pos_emb {self.pos_emb!r}")
         if self.activation not in ("gelu", "gelu_exact", "relu"):
@@ -416,19 +442,49 @@ def _lm_head(cfg: TransformerConfig, params: Params, x):
     return _project(params, _final_ln(cfg, params, x))
 
 
+def _mix64(a: int, b: int) -> int:
+    """A 63-bit seed from two integers (the splitmix64 finaliser)."""
+    z = (a * 0x9E3779B97F4A7C15 + b + 1) & (2**64 - 1)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & (2**64 - 1)
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & (2**64 - 1)
+    return (z ^ (z >> 31)) >> 1
+
+
+def _layer_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
+
+
+def _remat_groups(cfg: TransformerConfig) -> list[range]:
+    """The checkpointed regions: one per layer, or ``remat_group`` layers per
+    region when it divides num_layers (the JAX number_checkpoints analogue);
+    otherwise a warning and per-layer regions, as in the JAX package."""
+    L, G = cfg.num_layers, cfg.remat_group
+    if cfg.remat and G > 1 and L % G:
+        warnings.warn(f"remat_group={G} does not divide num_layers={L}; "
+                      "falling back to per-layer activation checkpointing")
+    size = G if cfg.remat and G > 1 and L % G == 0 else 1
+    return [range(i, i + size) for i in range(0, L, size)]
+
+
 def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
           return_hidden: bool = False, rng: Optional[torch.Generator] = None,
           step=None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] (fp32), or the final hidden
     states [B, S, d] (after the final LayerNorm) when ``return_hidden``.
     ``rng`` (a generator on the tokens' device) enables dropout and
-    progressive layer drop (training); ``step`` (int or 0-d tensor) drives
-    the layer-drop schedule."""
+    progressive layer drop (training). It acts as a key, as the JAX rng
+    does: layer i draws from a generator seeded by (``rng.initial_seed()``,
+    i) and the embedding dropout from one seeded by (``rng.initial_seed()``,
+    L), so one seed gives one set of masks and a remat recompute replays
+    them. ``step`` (int or 0-d tensor) drives the layer-drop schedule. With
+    ``cfg.remat`` the layers run in checkpointed regions (``_remat_groups``)
+    under ``cfg.remat_policy``."""
     B, S = tokens.shape
     L = cfg.num_layers
     device = tokens.device
     x, positions = embed(cfg, params, tokens, positions)
-    x = _dropout(x, cfg.hidden_dropout, rng)
+    seeds = [None] * (L + 1) if rng is None else [_mix64(rng.initial_seed(), i) for i in range(L + 1)]
+    x = _dropout(x, cfg.hidden_dropout, _layer_generator(seeds[L], device))
     attn_fn = _attention_dispatch(cfg, device)
     fused_bias = getattr(attn_fn, "handles_fused_bias", False)
     # the flash dispatch computes ALiBi and windows from positions in the
@@ -441,9 +497,23 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
         t = torch.as_tensor(0 if step is None else step, device=device).float()
         theta_t = cfg.pld_theta + (1.0 - cfg.pld_theta) * torch.exp(-cfg.pld_gamma * t)
         pld_keep = [1.0 - (i / max(1, L)) * (1.0 - theta_t) for i in range(L)]
-    for i, lp in enumerate(_layers(params)):
-        is_local = bool(cfg.local_attn_layers[i]) if has_local else None
-        x = _layer_body(cfg, lp, x, bias, positions, attn_fn, is_local, local_bias, rng, pld_keep[i])
+    layers = _layers(params)
+
+    def run(x, idx):
+        for i in idx:
+            is_local = bool(cfg.local_attn_layers[i]) if has_local else None
+            x = _layer_body(cfg, layers[i], x, bias, positions, attn_fn, is_local, local_bias,
+                            _layer_generator(seeds[i], device), pld_keep[i])
+        return x
+
+    remat = cfg.remat and cfg.remat_policy != "everything_saveable" and torch.is_grad_enabled()
+    kw = {}
+    if remat and (context_fn := remat_context_fn(cfg.remat_policy)) is not None:
+        kw["context_fn"] = context_fn
+    for idx in _remat_groups(cfg):
+        # preserve_rng_state=False: the layers draw only from their own
+        # seeded generators, which the recompute makes afresh
+        x = checkpoint(run, x, idx, use_reentrant=False, preserve_rng_state=False, **kw) if remat else run(x, idx)
     x = _final_ln(cfg, params, x)
     return x if return_hidden else _project(params, x)
 
@@ -603,9 +673,23 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
 # ---------------------------------------------------------------------------
 
 def effective_loss_impl(cfg: TransformerConfig, n_rows: Optional[int] = None) -> tuple[str, str]:
-    """(implementation, reason). The port has the chunked loss only; its
-    config refuses ``loss_impl="fused_xent"``."""
-    return "chunked", "configured"
+    """(implementation, reason): the JAX predicate (``transformer.py:1193``).
+    The fused loss takes row counts divisible by 128 and by the row block,
+    with 128-aligned blocks; ``n_rows=None`` gives the shape-free answer.
+    The JAX clause for a tensor-parallel mesh does not apply: the port runs
+    on one device."""
+    if cfg.loss_impl != "fused_xent":
+        return "chunked", "configured"
+    if n_rows is not None:
+        br = cfg.loss_fused_block_rows or 128
+        bv = cfg.loss_fused_block_v or 128
+        if not (n_rows % 128 == 0 and n_rows % br == 0 and br % 128 == 0 and bv % 128 == 0):
+            return "chunked", (
+                f"rows (B*S={n_rows}) must be divisible by 128 and by "
+                f"loss_fused_block_rows ({cfg.loss_fused_block_rows or 'auto'}), "
+                f"with 128-aligned block_rows/block_v"
+            )
+    return "fused_xent", "configured"
 
 
 def _nll_sum(h, labels, head):
@@ -619,11 +703,28 @@ def _nll_sum(h, labels, head):
 
 def lm_loss_from_hidden(cfg: TransformerConfig, params: Params, hidden, labels) -> torch.Tensor:
     """Token-mean next-token cross-entropy from final hidden states [B, S, d].
-    The vocab projection is chunked over the sequence, and each chunk runs
-    under ``torch.utils.checkpoint`` so its [B, chunk, V] logits are
-    recomputed in the backward and never kept. Unchunked when
-    ``S % chunk or S <= chunk`` (or the chunk is 0), as in the JAX package."""
+
+    ``loss_impl="fused_xent"``: the fused projection + cross-entropy
+    (``ops/fused_xent.py``) over the B·S rows with the head cast to the
+    hidden states' dtype, and the masked mean taken here; when
+    ``effective_loss_impl`` refuses the shape it warns and takes the chunked
+    loss, as the JAX package does. Chunked: the vocab projection a sequence
+    chunk at a time, each chunk under ``torch.utils.checkpoint`` so its
+    [B, chunk, V] logits are recomputed in the backward and never kept;
+    unchunked when ``S % chunk or S <= chunk`` (or the chunk is 0)."""
     head = _head(params)
+    impl, reason = effective_loss_impl(cfg, n_rows=hidden.shape[0] * hidden.shape[1])
+    if cfg.loss_impl == "fused_xent" and impl != "fused_xent":
+        warnings.warn(f"loss_impl='fused_xent' falling back to the chunked loss ({reason}) — the fused "
+                      "kernel's memory savings do NOT apply", stacklevel=2)
+    if impl == "fused_xent":
+        B, S, D = hidden.shape
+        flat = labels.reshape(B * S)
+        nll = fused_linear_xent(hidden.reshape(B * S, D), head.to(hidden.dtype), flat,
+                                block_rows=cfg.loss_fused_block_rows or None,
+                                block_v=cfg.loss_fused_block_v or None)
+        mask = (flat >= 0).float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     chunk = cfg.loss_chunk_size
     S = hidden.shape[1]
     if chunk <= 0 or S % chunk != 0 or S <= chunk:

@@ -2,9 +2,13 @@
 
 ``flash_attention`` is the port of ``deepspeed_tpu/ops/pallas/flash_attention.py``
 ``flash_attention`` (same signature and contract; q/k/v and the output are
-[B, S, H, D]). It is a ``torch.autograd.Function`` that saves
+[B, S, H, D], in fp32, bf16 or fp16). Its forward is the ``torch.library``
+custom op ``dstt::flash_attention_fwd`` -> (out, lse), whose autograd saves
 ``(q, k, v, out, lse)`` and recomputes the probabilities in the backward
-(the FlashAttention-2 decomposition).
+(the FlashAttention-2 decomposition). Being an op of the dispatcher, it is
+visible to ``torch.utils.checkpoint``'s selective policies, so a remat
+policy can save its outputs (the JAX package's ``flash_out``/``flash_lse``
+names) instead of running it again in the backward.
 
 On CUDA tensors it launches the hand-written kernels of
 ``csrc/flash_attention.cu`` through three entry points, each with its own
@@ -19,13 +23,14 @@ computation (no [S, S] bias tensor); a dense ``bias`` raises
 ``NotImplementedError``, as in the JAX package. The JAX wrapper's 128-padding
 becomes a bounds check in the kernels, with the same ``ValueError``s where
 JAX raises. ``block_q``/``block_k`` are validated as the JAX wrapper does but
-do not choose the CUDA tile (64x64 for bf16, 32x32 for fp32).
+do not choose the CUDA tile (64x64 for bf16 and fp16, 32x32 for fp32).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -34,7 +39,7 @@ from . import op_builder
 NEG_INF = -1e30  # the kernels' masked-score constant (Pallas: NEG_INF)
 MAX_BLOCK_Q = 512
 MAX_BLOCK_K = 1024
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_D = 128
 
 
@@ -176,7 +181,7 @@ def _params(q, k, v, causal, scale, slopes, window, **tensors):
         raise ValueError(f"the flash kernels run on CUDA tensors, not {q.device}; "
                          "CPU tensors take flash_attention_reference")
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the flash kernels take float32 or bfloat16, not {q.dtype}")
+        raise TypeError(f"the flash kernels take float32, bfloat16 or float16, not {q.dtype}")
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     if not 1 <= D <= _MAX_D:
@@ -266,35 +271,39 @@ def flash_delta(out, dout):
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, slopes, window, causal, scale):
-        kw = dict(causal=causal, sm_scale=scale, alibi_slopes=slopes, window=window)
-        if q.device.type == "cpu":
-            out, lse = flash_attention_reference(q, k, v, **kw)
-        else:
-            out, lse = flash_forward(q, k, v, **kw)
-        B, Sq, H, _ = q.shape
-        # lse saved as [B·H, S] fp32, the Pallas residual without its
-        # 128-lane broadcast
-        ctx.save_for_backward(q, k, v, out, lse.reshape(B * H, Sq))
-        ctx.kw = kw
-        return out
+@torch.library.custom_op("dstt::flash_attention_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slopes: Optional[torch.Tensor],
+                  window: Optional[torch.Tensor], causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the forward kernel on CUDA tensors, the plain version on CPU ones."""
+    kw = dict(causal=causal, sm_scale=scale, alibi_slopes=slopes, window=window)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, **kw)
+    return flash_forward(q, k, v, **kw)
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        B, Sq, H, _ = q.shape
-        lse = lse.reshape(B, H, Sq)
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_backward_reference(q, k, v, out, lse, dout, **ctx.kw)
-        else:
-            if dout.stride(-1) != 1:
-                dout = dout.contiguous()
-            delta = flash_delta(out, dout)
-            dk, dv = flash_backward_dkdv(q, k, v, dout, lse, delta, **ctx.kw)
-            dq = flash_backward_dq(q, k, v, dout, lse, delta, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, slopes, window, causal, scale = inputs
+    out, lse = output
+    # lse saved as [B, H, S] fp32, the Pallas residual without its 128-lane broadcast
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.kw = dict(causal=causal, sm_scale=scale, alibi_slopes=slopes, window=window)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_backward_reference(q, k, v, out, lse, dout, **ctx.kw)
+    else:
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        delta = flash_delta(out, dout)
+        dk, dv = flash_backward_dkdv(q, k, v, dout, lse, delta, **ctx.kw)
+        dq = flash_backward_dq(q, k, v, dout, lse, delta, **ctx.kw)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup_context)
+FLASH_FORWARD_OP = torch.ops.dstt.flash_attention_fwd.default
 
 
 def flash_attention(q, k, v, causal: bool = True, bias=None, sm_scale=None, block_q=None,
@@ -308,5 +317,7 @@ def flash_attention(q, k, v, causal: bool = True, bias=None, sm_scale=None, bloc
     _check(q, k, v, causal, bias, block_q, block_k, alibi_slopes)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
-    return _FlashAttention.apply(q, k, v, alibi_slopes, window, bool(causal),
-                                 _default_scale(q, sm_scale))
+    if window is not None and not torch.is_tensor(window):
+        window = torch.full((), float(window), device=q.device)  # a fill, not a host-to-device copy
+    out, _ = _flash_fwd_op(q, k, v, alibi_slopes, window, bool(causal), _default_scale(q, sm_scale))
+    return out

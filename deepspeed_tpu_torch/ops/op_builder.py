@@ -1,7 +1,7 @@
 """Build the package's CUDA sources at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
-``nvcc`` builds it in seconds. The shared library goes to
+``nvcc`` builds it in seconds; ``csrc/*.cuh`` holds what the sources share. The shared library goes to
 ``build/deepspeed_tpu_torch/`` beside the package, under a name keyed by the
 hash of the source and the flags: an edited source is rebuilt, an unchanged
 one is loaded as it is.
@@ -39,9 +39,11 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> tuple[Path, Path]:
-    """(source, library path keyed by the hash of the source and the flags)."""
+    """(source, library path keyed by the hash of the source, the shared
+    headers ``csrc/*.cuh`` and the flags)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -4,8 +4,9 @@
 One DeepSpeed JSON dict drives both packages: the batch triangulation
 (train = micro × gas × world), ``fp16``/``bf16``, ``zero_optimization``,
 ``optimizer``, ``scheduler``, clipping, seed and ``steps_per_print`` parse
-the same way. The port runs on one device, so the world size is 1 and a
-``mesh`` axis above 1 is refused. Blocks that belong to paths not ported yet
+the same way, as do ``activation_checkpointing`` and ``checkpoint``. The
+port runs on one device, so the world size is 1 and a ``mesh`` axis above 1
+is refused. Blocks that belong to paths not ported yet
 raise ``NotImplementedError`` when enabled, naming the block; ZeRO stages
 0-3 are accepted, since on one device they are the same arithmetic.
 """
@@ -90,7 +91,44 @@ class SchedulerConfig:
 
 @dataclass
 class ActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` block (reference checkpointing.py:825
+    ``configure()``): remat over the layer stack, wired into the model by
+    ``activation_checkpointing.model_overrides``. ``policy`` is a remat
+    policy name; empty keeps the model's own (save_flash)."""
+
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: str = ""
     enabled: bool = False
+
+    def check_ported(self) -> None:
+        """cpu_checkpointing belongs to the memory tiers and
+        partition_activations to tensor parallelism: neither is ported."""
+        for name in ("cpu_checkpointing", "partition_activations"):
+            if self.enabled and getattr(self, name):
+                raise NotImplementedError(
+                    f"activation_checkpointing.{name} is not ported to deepspeed_tpu_torch yet")
+
+
+@dataclass
+class CheckpointConfig:
+    """The ``checkpoint`` block. ``keep_last_k > 0`` prunes older tags after
+    each save (the 'latest'-pointed tag and the newest save are always
+    kept); 0 keeps all. ``verify_integrity=False`` skips the digest pass on
+    load. ``async_save`` and a non-native ``engine`` are not ported."""
+
+    engine: Optional[str] = None  # native (None = native)
+    async_save: bool = False
+    keep_last_k: int = 0
+    verify_integrity: bool = True
+
+    def __post_init__(self):
+        if self.keep_last_k < 0:
+            raise DeepSpeedConfigError(f"checkpoint.keep_last_k must be >= 0, got {self.keep_last_k}")
 
 
 @dataclass
@@ -135,6 +173,7 @@ class DeepSpeedConfig:
     progressive_layer_drop: ProgressiveLayerDropConfig = field(
         default_factory=ProgressiveLayerDropConfig)
     mesh: MeshAxesConfig = field(default_factory=MeshAxesConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
 
     raw: dict = field(default_factory=dict, repr=False)
 
@@ -162,6 +201,7 @@ class DeepSpeedConfig:
             progressive_layer_drop=_build(ProgressiveLayerDropConfig,
                                           _sub(d, C.PROGRESSIVE_LAYER_DROP)),
             mesh=_build(MeshAxesConfig, _sub(d, C.MESH)),
+            checkpoint=_build(CheckpointConfig, _sub(d, C.CHECKPOINT)),
             raw=d,
         )
         cfg._triangulate_batch(world_size)
@@ -210,9 +250,12 @@ class DeepSpeedConfig:
             raise NotImplementedError(
                 f"optimizer {self.optimizer.type!r} (the 1-bit family) is not ported to "
                 "deepspeed_tpu_torch yet")
-        if self.activation_checkpointing.enabled:
-            raise NotImplementedError(
-                "activation_checkpointing (remat) is not ported to deepspeed_tpu_torch yet")
+        self.activation_checkpointing.check_ported()
+        if self.checkpoint.async_save:
+            raise NotImplementedError("checkpoint.async_save is not ported to deepspeed_tpu_torch yet")
+        if self.checkpoint.engine not in (None, "native"):
+            raise NotImplementedError(f"checkpoint.engine {self.checkpoint.engine!r} is not ported to "
+                                      "deepspeed_tpu_torch (native only)")
         for block in _UNPORTED_BLOCKS:
             sub = _sub(self.raw, block)
             if sub.get("enabled", False):

@@ -167,7 +167,7 @@ def test_config_parses_like_jax(name):
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
     {"optimizer": {"type": "OneBitAdam"}},
     {"curriculum_learning": {"enabled": True}},
-    {"activation_checkpointing": {"enabled": True}},
+    {"activation_checkpointing": {"enabled": True, "cpu_checkpointing": True}},
     {"sparse_attention": {"mode": "fixed"}},
     {"telemetry": {"enabled": True}},
     {"mesh": {"data": 2}},

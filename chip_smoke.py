@@ -53,7 +53,34 @@ Phases, each of which passes or makes the script exit non-zero:
      saved, loaded into a fresh engine and trained 3 more gives the losses of
      5 uninterrupted steps bitwise; at full width one save/load round trip
      into a fresh engine (seconds, bytes) and one step whose loss equals the
-     uninterrupted engine's.
+     uninterrupted engine's;
+ 13. load the block-sparse attention kernels (forward, dQ, dK/dV);
+ 14. hold each sparse kernel against its plain version: fixed, bigbird,
+     bslongformer, variable and dense layouts at blocks 16, 32, 64 and 128,
+     causal and bidirectional, bf16, fp16 and fp32, D = 64 (and 128), a
+     layout with a key block no query attends (dK = dV = 0 exactly), and the
+     main path's shape (B=2, S=8192, H=12, D=64, bf16, fixed-64). Then time
+     each kernel, its plain version, SDPA with the layout as a boolean mask
+     (a yardstick the port never calls) and the port's dense flash kernels
+     at that shape, for the slice's fixed-64 layout and the bigbird-128
+     layout of benchmarks/sparse_attention_bench.py;
+ 15. long-sequence training: initialize -> train_batch at GPT-2-125M width
+     with max_seq_len 8192 and the DeepSpeed sparse_attention block (fixed,
+     block 64, 4 local blocks, 1 global, unidirectional), batch 8 = micro 2
+     x gas 4: one warm-up and five timed steps, checking 48 = 12 x 4
+     launches of each sparse kernel and none of the flash kernels per
+     train_batch and a finite falling loss; beside it the same model with
+     dense flash attention at S = 8192;
+ 16. slice parity: five fp32 steps of a small sparse model through the
+     kernels and through the plain versions give the same losses, and at
+     full width in bf16 the first step's loss and grad norm agree on one
+     8192-token row;
+ 17. the curriculum and the dataloader: initialize(training_data=...) over
+     seeded tokens with the fixed_discrete seqlen curriculum [2048, 4096,
+     8192] at steps [1, 2]; each step's length follows the schedule with
+     its own cached lists; train 2 + save + fresh engine and loader + load
+     + train 3 gives the uninterrupted run's losses bitwise and resumes at
+     the same difficulty and loader cursor.
 It prints a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
@@ -85,13 +112,18 @@ from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_xent as fx
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
+from deepspeed_tpu_torch.ops.optimizers import tree_map
+from deepspeed_tpu_torch.ops.sparse_attention import SPARSITY_CONFIGS
+from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the kernel's math)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
-KERNEL_SOURCES = ("decode_attention", "flash_attention", "fused_xent")
+KERNEL_SOURCES = ("decode_attention", "flash_attention", "fused_xent", "sparse_attention")
 FLASH_COUNTERS = (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq)
 XENT_COUNTERS = (fx.fused_xent_forward, fx.fused_xent_backward_dh, fx.fused_xent_backward_dw)
+SPARSE_COUNTERS = (sk.sparse_forward, sk.sparse_backward_dq, sk.sparse_backward_dkdv)
+SPARSE_NAMES = ("sparse_forward", "sparse_backward_dq", "sparse_backward_dkdv")
 B, SMAX, H, D = 8, 1024, 12, 64
 POS_ROWS = [0, 1, 127, 128, 500, 767, 1022, 1023]
 # fp32: the kernel and the plain version differ in summation order only.
@@ -332,20 +364,46 @@ TRAIN_STEPS = 5
 def gpt2_config(**kw):
     """GPT-2-125M at full width, as bench.py:139-171 trains it; phase 7 with
     the chunked loss and no remat (the 80 GB card holds the activations),
-    phase 10 with bench.py's fused loss and dots_and_flash remat."""
-    return TransformerConfig(vocab_size=50304, max_seq_len=FS, num_layers=12, num_heads=12, hidden_size=768,
-                             pos_emb="learned", tie_embeddings=True, dtype=torch.bfloat16,
-                             attn_impl="flash", loss_chunk_size=256, **kw)
+    phase 10 with bench.py's fused loss and dots_and_flash remat, phases
+    15-17 with max_seq_len 8192."""
+    base = dict(vocab_size=50304, max_seq_len=FS, num_layers=12, num_heads=12, hidden_size=768,
+                pos_emb="learned", tie_embeddings=True, dtype=torch.bfloat16, attn_impl="flash",
+                loss_chunk_size=256)
+    return TransformerConfig(**{**base, **kw})
 
 
 def counts():
     return [c.launches for c in FLASH_COUNTERS] + [decode_attention.launches] + [c.launches for c in XENT_COUNTERS]
 
 
+def sparse_counts():
+    return [c.launches for c in SPARSE_COUNTERS]
+
+
 def reset_counts():
-    for c in FLASH_COUNTERS + XENT_COUNTERS:
+    for c in FLASH_COUNTERS + XENT_COUNTERS + SPARSE_COUNTERS:
         c.launches = 0
     decode_attention.launches = 0
+
+
+def timed_steps(engine, batch, steps):
+    """One warm-up and ``steps`` timed train_batch calls -> (warm-up s,
+    step s, metrics of every call, per-step [flash+decode+xent counts,
+    sparse counts])."""
+    t0 = time.perf_counter()
+    warm = engine.train_batch(batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, per_step = [warm], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        before = counts() + sparse_counts()
+        metrics.append(engine.train_batch(batch))
+        per_step.append([a - b for a, b in zip(counts() + sparse_counts(), before)])
+    torch.cuda.synchronize()
+    return warm_s, (time.perf_counter() - t0) / steps, metrics, per_step
 
 
 def train(dev):
@@ -357,28 +415,13 @@ def train(dev):
     B, S, L = BENCH_DS["train_batch_size"], FS, model.config.num_layers
     gas = BENCH_DS["gradient_accumulation_steps"]
     batch = {"tokens": np.random.default_rng(0).integers(0, 50304, size=(B, S + 1)).astype(np.int32)}
-    t0 = time.perf_counter()
-    warm = engine.train_batch(batch)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    metrics, per_step = [], []
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        before = counts()
-        metrics.append(engine.train_batch(batch))
-        per_step.append([a - b for a, b in zip(counts(), before)])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    warm_s, step_s, metrics, per_step = timed_steps(engine, batch, TRAIN_STEPS)
     launches = counts()
-    losses = [float(warm["loss"])] + [float(m["loss"]) for m in metrics]
-    overflow = any(bool(m["overflow"]) for m in [warm] + metrics)
+    losses = [float(m["loss"]) for m in metrics]
+    overflow = any(bool(m["overflow"]) for m in metrics)
     expect = L * gas
-    ok = (all(step[:3] == [expect] * 3 and step[3:] == [0] * 4 for step in per_step)
+    ok = (all(step == [expect] * 3 + [0] * 7 for step in per_step)
           and all(np.isfinite(losses)) and losses[-1] < losses[0] and not overflow)
-    step_s = seconds / TRAIN_STEPS
     tok_s = B * S / step_s
     n_params = L * 12 * 768 * 768 + 50304 * 768 + S * 768  # bench.py:219-221
     bench_flops = 6 * n_params + L * 12 * S * 768
@@ -386,13 +429,14 @@ def train(dev):
         "warmup_step_s": warm_s, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
         "tflops_model": tok_s * model.flops_per_token() / 1e12, "tflops_bench_formula": tok_s * bench_flops / 1e12,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses,
-        "grad_norms": [float(m["grad_norm"]) for m in [warm] + metrics], "overflow": overflow,
+        "grad_norms": [float(m["grad_norm"]) for m in metrics], "overflow": overflow,
         "launches_per_train_batch": per_step[0][:3],
     }
     print(f"  train_batch x{TRAIN_STEPS} after one warm-up ({warm_s:.2f} s): {result['step_ms']:.1f} ms/step, "
           f"{tok_s:.0f} tokens/s, {result['tflops_model']:.1f} TFLOP/s (Model.flops_per_token), "
           f"{result['tflops_bench_formula']:.1f} TFLOP/s (bench.py formula), peak {result['peak_gib']:.2f} GiB")
-    print(f"  flash launches per train_batch {per_step} (expect {L} x {gas} = {expect} of each, 0 decode); "
+    print(f"  launches per train_batch [flash fwd, dK/dV, dQ, decode, xent fwd, dH, dW, sparse fwd, dQ, dK/dV] "
+          f"{per_step} (expect {L} x {gas} = {expect} of each flash kernel, none of the others); "
           f"losses {[round(x, 4) for x in losses]}; overflow {overflow}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the training phase failed its checks")
@@ -579,43 +623,29 @@ def train_fused(dev):
     B, S, L = BENCH_DS["train_batch_size"], FS, model.config.num_layers
     gas = BENCH_DS["gradient_accumulation_steps"]
     batch = {"tokens": np.random.default_rng(0).integers(0, 50304, size=(B, S + 1)).astype(np.int32)}
-    t0 = time.perf_counter()
-    warm = engine.train_batch(batch)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    metrics, per_step = [], []
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        before = counts()
-        metrics.append(engine.train_batch(batch))
-        per_step.append([a - b for a, b in zip(counts(), before)])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    warm_s, step_s, metrics, per_step = timed_steps(engine, batch, TRAIN_STEPS)
     launches = counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    losses = [float(warm["loss"])] + [float(m["loss"]) for m in metrics]
-    overflow = any(bool(m["overflow"]) for m in [warm] + metrics)
-    expect = [L * gas] * 3 + [0] + [gas] * 3
+    losses = [float(m["loss"]) for m in metrics]
+    overflow = any(bool(m["overflow"]) for m in metrics)
+    expect = [L * gas] * 3 + [0] + [gas] * 3 + [0] * 3
     ok = (all(step == expect for step in per_step) and all(np.isfinite(losses)) and losses[-1] < losses[0]
           and not overflow)
-    step_s = seconds / TRAIN_STEPS
     tok_s = B * S / step_s
     n_params = L * 12 * 768 * 768 + 50304 * 768 + S * 768  # bench.py:219-221
     bench_flops = 6 * n_params + L * 12 * S * 768
     result = {
         "warmup_step_s": warm_s, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
         "tflops_model": tok_s * model.flops_per_token() / 1e12, "tflops_bench_formula": tok_s * bench_flops / 1e12,
-        "peak_gib": peak, "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in [warm] + metrics],
+        "peak_gib": peak, "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in metrics],
         "overflow": overflow, "launches_per_train_batch": per_step[0],
     }
     print(f"  fused loss + dots_and_flash remat, train_batch x{TRAIN_STEPS} after one warm-up ({warm_s:.2f} s): "
           f"{result['step_ms']:.1f} ms/step, {tok_s:.0f} tokens/s, {result['tflops_model']:.1f} TFLOP/s "
           f"(Model.flops_per_token), {result['tflops_bench_formula']:.1f} TFLOP/s (bench.py formula), "
           f"peak {peak:.2f} GiB")
-    print(f"  launches per train_batch [flash fwd, dK/dV, dQ, decode, xent fwd, dH, dW] {per_step} "
+    print(f"  launches per train_batch [flash fwd, dK/dV, dQ, decode, xent fwd, dH, dW, sparse fwd, dQ, dK/dV] "
+          f"{per_step} "
           f"(expect {expect}); losses {[round(x, 4) for x in losses]}; overflow {overflow}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the fused-loss remat training phase failed its checks")
@@ -741,6 +771,412 @@ def checkpoint_resume(dev, trainer, batch):
         shutil.rmtree(root, ignore_errors=True)
     return {"small_resume_losses": got, "full_save_s": save_s, "full_load_s": load_s, "full_bytes": nbytes,
             "full_next_loss": b}
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-17: block-sparse attention and long-sequence training
+# ---------------------------------------------------------------------------
+
+SS = 8192  # the long-sequence slice's length
+SPARSE_BLOCK = {"mode": "fixed", "block": 64, "num_local_blocks": 4, "num_global_blocks": 1,
+                "attention": "unidirectional"}  # the reference's default mode, in its own spelling
+BIGBIRD_128 = ("bigbird", {"block": 128, "num_random_blocks": 2, "num_sliding_window_blocks": 3,
+                           "num_global_blocks": 1})  # benchmarks/sparse_attention_bench.py:62-64
+SPARSE_CHECK_LAYOUTS = {
+    "fixed": {"num_local_blocks": 4, "num_global_blocks": 1},
+    "bigbird": {"num_random_blocks": 1, "num_sliding_window_blocks": 3, "num_global_blocks": 1},
+    "bslongformer": {"num_sliding_window_blocks": 3},
+    "variable": {"local_window_blocks": [1, 2], "global_block_indices": [0], "num_random_blocks": 1},
+    "dense": {},
+}
+
+
+def slice_layout(H=12):
+    kw = {k: v for k, v in SPARSE_BLOCK.items() if k != "mode"}
+    return SPARSITY_CONFIGS["fixed"](num_heads=H, **kw).make_layout(SS)
+
+
+def sparse_case(dev, gen, dtype, layout, block, causal, B, H, D, label):
+    """One kernel-vs-plain check of the three sparse kernels (the backward
+    kernels get the plain forward's O and lse); raises on a disagreement.
+    -> ({kernel: (max abs err, max rel err)}, dK, dV, lists)."""
+    S = layout.shape[-1] * block
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype) for _ in range(4))
+    lists = sk.device_lists(layout, causal, S, dev)
+    kw = {"causal": causal}
+    out, lse = sk.sparse_forward(q, k, v, lists, **kw)
+    ref_out, ref_lse = sk.sparse_attention_reference(q, k, v, lists, **kw)
+    delta = fa.flash_delta(ref_out, dout)
+    dq = sk.sparse_backward_dq(q, k, v, dout, ref_lse, delta, lists, **kw)
+    dk, dv = sk.sparse_backward_dkdv(q, k, v, dout, ref_lse, delta, lists, **kw)
+    torch.cuda.synchronize()
+    ref_dq, ref_dk, ref_dv = sk.sparse_attention_backward_reference(q, k, v, ref_out, ref_lse, dout, lists, **kw)
+
+    def abs_err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def rel_err(a, b):
+        return abs_err(a, b) / max(b.float().abs().max().item(), 1e-6)
+
+    errs = {"sparse_forward": (abs_err(out, ref_out), abs_err(out, ref_out), TOL[dtype]),
+            "sparse_backward_dq": (abs_err(dq, ref_dq), rel_err(dq, ref_dq), FLASH_GRAD_TOL[dtype]),
+            "sparse_backward_dkdv": (max(abs_err(dk, ref_dk), abs_err(dv, ref_dv)),
+                                     max(rel_err(dk, ref_dk), rel_err(dv, ref_dv)), FLASH_GRAD_TOL[dtype])}
+    lse_err = abs_err(lse, ref_lse)
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, dq, dk, dv))
+    ok = finite and lse_err <= LSE_TOL and all(checked <= tol for _, checked, tol in errs.values())
+    if not ok or label:
+        print(f"  sparse vs plain  {label or 'case':<44} {str(dtype)[6:]} B={B} S={S} H={H} D={D} block={block} "
+              f"{'causal' if causal else 'bidir'}: out {errs['sparse_forward'][0]:.2e} (tol {TOL[dtype]:.0e}), "
+              f"lse {lse_err:.2e}, dQ {errs['sparse_backward_dq'][1]:.2e}, dK/dV "
+              f"{errs['sparse_backward_dkdv'][1]:.2e} (rel, tol {FLASH_GRAD_TOL[dtype]:.0e})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"a sparse kernel disagrees with its plain version: {label} {dtype} block={block}")
+    return {name: e[:2] for name, e in errs.items()}, dk, dv, lists
+
+
+def sparse_checks(dev):
+    """Every case of phase 14 -> {kernel: {dtype: (max abs err, max rel err)}}."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst = {name: {dt: (0.0, 0.0) for dt in TOL} for name in SPARSE_NAMES}
+
+    def check(dtype, layout, block, causal, H, D, label=""):
+        errs, dk, dv, lists = sparse_case(dev, gen, dtype, layout, block, causal, 2, H, D, label)
+        for name, e in errs.items():
+            worst[name][dtype] = tuple(max(x, y) for x, y in zip(worst[name][dtype], e))
+        return dk, dv, lists
+
+    n = 0
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for mode, kw in SPARSE_CHECK_LAYOUTS.items():
+            for block in sk.BLOCKS:
+                layout = SPARSITY_CONFIGS[mode](num_heads=4, block=block, **kw).make_layout(16 * block)
+                for causal in (True, False):
+                    check(dtype, layout, block, causal, 4, 64)
+                    n += 1
+        for block in (16, 128):
+            check(dtype, SPARSITY_CONFIGS["bigbird"](num_heads=4, block=block).make_layout(8 * block),
+                  block, True, 4, 128)
+            n += 1
+        w = {name: worst[name][dtype] for name in SPARSE_NAMES}
+        print(f"  {str(dtype)[6:]:<9} 5 layouts x blocks {sk.BLOCKS} x causal/bidirectional at D=64, and D=128: "
+              f"worst out {w['sparse_forward'][0]:.2e} (tol {TOL[dtype]:.0e}), dQ {w['sparse_backward_dq'][1]:.2e}, "
+              f"dK/dV {w['sparse_backward_dkdv'][1]:.2e} (rel, tol {FLASH_GRAD_TOL[dtype]:.0e})  ok")
+        torch.cuda.empty_cache()
+
+    unattended = np.zeros((8, 8), np.int64)
+    unattended[np.arange(8), np.arange(8)] = 1
+    unattended[:, 0] = 1
+    unattended[5, 5] = 0  # causal: no query block attends key block 5
+    for dtype in (torch.bfloat16, torch.float32):
+        dk, dv, lists = check(dtype, unattended, 64, True, 4, 64, "key block 5 unattended")
+        zero = (int(lists.q_counts[5]) == 0 and dk[:, 320:384].abs().max().item() == 0.0
+                and dv[:, 320:384].abs().max().item() == 0.0)
+        print(f"    its dK and dV rows are exactly 0: {zero}")
+        if not zero:
+            raise SystemExit("a key block no query attends got non-zero dK/dV")
+    check(torch.bfloat16, slice_layout(), 64, True, 12, 64, "main path: fixed-64")
+    print(f"  {n + 3} cases, every one within tolerance")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def sparse_bounds(B, S, H, D, elt, lists):
+    """{kernel: (bound_ms, bound_by, bytes, flops)}: each input read once and
+    each output written once (the lists a kernel walks included); the work
+    is this layout's active block pairs, diagonal blocks counted whole:
+    4·block²·D flops per pair per (b, h) forward, 6 for dQ, 8 for dK/dV."""
+    t = B * S * H * D * elt
+    rows = B * H * S * 4
+    pairs = int(lists.k_counts.sum()) * B * H
+    per = lists.block ** 2 * D
+    kq = (lists.k_lists.numel() + lists.k_counts.numel()) * 4
+    qk = (lists.q_lists.numel() + lists.q_counts.numel()) * 4
+    work = {"sparse_forward": (4 * t + rows + kq, 4 * per * pairs),             # q,k,v -> O, lse
+            "sparse_backward_dq": (5 * t + 2 * rows + kq, 6 * per * pairs),     # q,k,v,dO,lse,Δ -> dQ
+            "sparse_backward_dkdv": (6 * t + 2 * rows + qk, 8 * per * pairs)}   # q,k,v,dO,lse,Δ -> dK,dV
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+    return out
+
+
+def sparse_timing(dev, label, layout):
+    """Times at the main path's shape (B=2, S=8192, H=12, D=64, bf16,
+    causal) for one layout: each kernel, the plain versions, SDPA with the
+    layout as a boolean [S, S] mask, and the dense causal flash kernels."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, S, H, D = 2, SS, 12, 64
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16() for _ in range(4))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    lists = sk.device_lists(layout, True, S, dev)
+    out, lse = sk.sparse_forward(q, k, v, lists)
+    delta = fa.flash_delta(out, dout)
+    blk = lists.block
+    dense = torch.from_numpy(np.kron(np.asarray(layout[0], bool), np.ones((blk, blk), bool))).to(dev)
+    mask = dense & torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))  # [B, H, S, D]
+    lib_err = (sdpa(qt, kt, vt, attn_mask=mask).transpose(1, 2).float() - out.float()).abs().max().item()
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
+    o_lib = sdpa(qr, kr, vr, attn_mask=mask)
+    plain_bwd = median_ms(lambda: sk.sparse_attention_backward_reference(q, k, v, out, lse, dout, lists), flush,
+                          runs=3, warmup=1)
+    lib_bwd = median_ms(lambda: torch.autograd.grad(o_lib, (qr, kr, vr), dot, retain_graph=True), flush,
+                        runs=20, warmup=3)
+    times = {
+        "sparse_forward": {"ms": median_ms(lambda: sk.sparse_forward(q, k, v, lists), flush, runs=30),
+                           "plain_ms": median_ms(lambda: sk.sparse_attention_reference(q, k, v, lists), flush,
+                                                 runs=3, warmup=1),
+                           "library_ms": median_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), flush, runs=20,
+                                                   warmup=3)},
+        "sparse_backward_dq": {"ms": median_ms(lambda: sk.sparse_backward_dq(q, k, v, dout, lse, delta, lists),
+                                               flush, runs=30),
+                               "plain_ms": plain_bwd, "library_ms": lib_bwd},
+        "sparse_backward_dkdv": {"ms": median_ms(lambda: sk.sparse_backward_dkdv(q, k, v, dout, lse, delta, lists),
+                                                 flush, runs=30),
+                                 "plain_ms": plain_bwd, "library_ms": lib_bwd},
+    }
+    f_out, f_lse = fa.flash_forward(q, k, v)
+    f_delta = fa.flash_delta(f_out, dout)
+    flash = {"flash_forward": median_ms(lambda: fa.flash_forward(q, k, v), flush, runs=10, warmup=2),
+             "flash_backward_dq": median_ms(lambda: fa.flash_backward_dq(q, k, v, dout, f_lse, f_delta), flush,
+                                            runs=10, warmup=2),
+             "flash_backward_dkdv": median_ms(lambda: fa.flash_backward_dkdv(q, k, v, dout, f_lse, f_delta), flush,
+                                              runs=10, warmup=2)}
+    counts_q = lists.q_counts.float()
+    pairs = int(lists.k_counts.sum())
+    print(f"  {label}: {pairs} active block pairs of {blk} per (b, h) after tril (density "
+          f"{pairs / (lists.k_lists.shape[0] * (lists.k_lists.shape[0] + 1) / 2):.3f}); query blocks per key block: "
+          f"max {int(counts_q.max())}, mean {counts_q.mean().item():.1f}")
+    for name, (bound, by, nbytes, flops) in sparse_bounds(B, S, H, D, 2, lists).items():
+        t = times[name]
+        t.update(bound_ms=bound, bound_by=by)
+        dense_name = {"sparse_forward": "flash_forward", "sparse_backward_dq": "flash_backward_dq",
+                      "sparse_backward_dkdv": "flash_backward_dkdv"}[name]
+        t["dense_flash_ms"] = flash[dense_name]
+        print(f"    {name:<21} kernel {t['ms']*1e3:8.1f} us, plain {t['plain_ms']*1e3:9.1f} us, sdpa+mask "
+              f"{t['library_ms']*1e3:8.1f} us, dense flash {flash[dense_name]*1e3:8.1f} us, bound "
+              f"{bound*1e3:6.1f} us ({by}: {nbytes/1e6:.1f} MB, {flops/1e9:.1f} GFLOP), "
+              f"{flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    print(f"    sdpa+mask vs kernel output max_abs_err {lib_err:.2e}; sdpa's backward is the library time of both "
+          f"backward rows; the plain backward times all three gradients")
+    times["pairs_per_bh"] = pairs
+    times["q_per_key_block_max_mean"] = [int(counts_q.max()), counts_q.mean().item()]
+    del q, k, v, dout, qr, kr, vr, o_lib, mask, dense, flush
+    torch.cuda.empty_cache()
+    return times
+
+
+SPARSE_TRAIN_DS = dict(BENCH_DS, train_batch_size=8, train_micro_batch_size_per_gpu=2, gradient_accumulation_steps=4,
+                       sparse_attention=SPARSE_BLOCK)
+
+
+def train_sparse(dev):
+    """Phase 15: the long-sequence slice, and dense flash at the same length."""
+    model = Model(gpt2_config(max_seq_len=SS))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=SPARSE_TRAIN_DS)
+    cfg = engine.model.config
+    B, L, gas = SPARSE_TRAIN_DS["train_batch_size"], cfg.num_layers, SPARSE_TRAIN_DS["gradient_accumulation_steps"]
+    print(f"  model: attn_impl={cfg.attn_impl}, sparsity={cfg.sparsity}")
+    batch = {"tokens": np.random.default_rng(0).integers(0, 50304, size=(B, SS + 1)).astype(np.int32)}
+    warm_s, step_s, metrics, per_step = timed_steps(engine, batch, TRAIN_STEPS)
+    launches = sparse_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    overflow = any(bool(m["overflow"]) for m in metrics)
+    expect = [0] * 7 + [L * gas] * 3
+    # the same batch six times at lr 6e-4 without warm-up: the loss falls up
+    # to the fifth step, and the last may overshoot (phase 7's fifth does)
+    ok = (cfg.attn_impl == "sparse" and all(step == expect for step in per_step) and all(np.isfinite(losses))
+          and losses[-2] < losses[0] and not overflow)
+    tok_s = B * SS / step_s
+    result = {"warmup_step_s": warm_s, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+              "tflops_model_dense_attention_formula": tok_s * model.flops_per_token() / 1e12, "peak_gib": peak,
+              "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in metrics], "overflow": overflow,
+              "launches_per_train_batch": per_step[0][7:]}
+    print(f"  sparse, train_batch x{TRAIN_STEPS} after one warm-up ({warm_s:.2f} s): {result['step_ms']:.1f} ms/step, "
+          f"{tok_s:.0f} tokens/s, {result['tflops_model_dense_attention_formula']:.1f} TFLOP/s by "
+          f"Model.flops_per_token (its dense attention term counts the keys the kernels skip), peak {peak:.2f} GiB")
+    print(f"  launches per train_batch [flash fwd, dK/dV, dQ, decode, xent fwd, dH, dW, sparse fwd, dQ, dK/dV] "
+          f"{per_step} (expect {expect}); losses {[round(x, 4) for x in losses]}; overflow {overflow}  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the long-sequence sparse training phase failed its checks")
+    del engine
+    torch.cuda.empty_cache()
+
+    flash_ds = {k: v for k, v in SPARSE_TRAIN_DS.items() if k != "sparse_attention"}
+    dense_model = Model(gpt2_config(max_seq_len=SS))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=dense_model, config=flash_ds)
+    warm_s, step_s, metrics, per_step = timed_steps(engine, batch, TRAIN_STEPS)
+    dense_peak = torch.cuda.max_memory_allocated() / 2**30
+    dense_losses = [float(m["loss"]) for m in metrics]
+    expect = [L * gas] * 3 + [0] * 7
+    ok = all(step == expect for step in per_step) and all(np.isfinite(dense_losses))
+    tok_s = B * SS / step_s
+    result["dense_flash"] = {"warmup_step_s": warm_s, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+                             "tflops_model": tok_s * dense_model.flops_per_token() / 1e12, "peak_gib": dense_peak,
+                             "losses": dense_losses}
+    print(f"  dense flash at S={SS}, train_batch x{TRAIN_STEPS} after one warm-up ({warm_s:.2f} s): "
+          f"{step_s * 1e3:.1f} ms/step, {tok_s:.0f} tokens/s, {result['dense_flash']['tflops_model']:.1f} TFLOP/s, "
+          f"peak {dense_peak:.2f} GiB; launches {per_step[0]}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the dense flash yardstick at S=8192 failed its checks")
+    print(f"  sparse step / dense flash step: {result['step_ms'] / result['dense_flash']['step_ms']:.3f}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches, result, batch
+
+
+class _PlainSparse(torch.autograd.Function):
+    """The plain versions on CUDA tensors, for phase 16's comparison only:
+    the port's wrapper never takes them for a CUDA tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lists, causal, scale):
+        out, lse = sk.sparse_attention_reference(q, k, v, lists, causal=causal, sm_scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.lists, ctx.causal, ctx.scale = lists, causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = sk.sparse_attention_backward_reference(q, k, v, out, lse, dout, ctx.lists, causal=ctx.causal,
+                                                       sm_scale=ctx.scale)
+        return (*grads, None, None, None)
+
+
+def _plain_sparse_attention(q, k, v, layout, causal=True, sm_scale=None, block=None):
+    lists = sk.device_lists(layout, causal, q.shape[1], q.device)
+    scale = 1.0 / q.shape[-1] ** 0.5 if sm_scale is None else sm_scale
+    return _PlainSparse.apply(q, k, v, lists, causal, scale)
+
+
+def first_steps(cfg, ds, params, batch, steps, plain):
+    """Losses (and grad norms) of ``steps`` train_batch calls from
+    ``params``, through the kernels or, with ``plain``, through the plain
+    versions (the model's sparse dispatch pointed at them for the run)."""
+    kernel_fn = tfm.sparse_flash_attention
+    if plain:
+        tfm.sparse_flash_attention = _plain_sparse_attention
+    try:
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds,
+                                                      model_parameters=tree_map(torch.clone, params))
+        before = sparse_counts()
+        ms = [eng.train_batch(batch) for _ in range(steps)]
+        out = [(float(m["loss"]), float(m["grad_norm"])) for m in ms]
+        launched = [a - b for a, b in zip(sparse_counts(), before)]
+    finally:
+        tfm.sparse_flash_attention = kernel_fn
+    del eng, ms
+    torch.cuda.empty_cache()
+    return out, launched
+
+
+def sparse_parity(dev):
+    """Phase 16: the slice through the sparse kernels against the plain versions."""
+    tiny = TransformerConfig(vocab_size=97, max_seq_len=512, num_layers=2, num_heads=4, hidden_size=64,
+                             attn_impl="sparse", sparsity={"mode": "bigbird", "block": 32, "num_random_blocks": 1},
+                             loss_chunk_size=128)
+    params = tfm.init(tiny, torch.Generator().manual_seed(0), dev)
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+          "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+          "gradient_clipping": 1.0, "steps_per_print": 1000000}
+    batch = {"tokens": np.random.default_rng(2).integers(0, 97, size=(4, 513)).astype(np.int32)}
+    kern, launched = first_steps(tiny, ds, params, batch, 5, plain=False)
+    plain, plain_launched = first_steps(tiny, ds, params, batch, 5, plain=True)
+    # fp32: the kernels and the plain versions differ in summation order only
+    small_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(kern, plain))
+    ok = small_err <= 1e-4 and launched == [20] * 3 and plain_launched == [0] * 3
+    print(f"  small fp32 model (bigbird-32, S=512), 5 steps: kernels {[round(x[0], 5) for x in kern]} vs plain "
+          f"{[round(x[0], 5) for x in plain]}, max rel err {small_err:.2e} (tol 1e-4); launches {launched} and "
+          f"{plain_launched}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the small model's loss through the sparse kernels differs from the plain versions")
+
+    cfg = gpt2_config(max_seq_len=SS)
+    params = tfm.init(cfg, torch.Generator().manual_seed(1), dev)
+    ds1 = dict(SPARSE_TRAIN_DS, train_batch_size=1, train_micro_batch_size_per_gpu=1, gradient_accumulation_steps=1)
+    batch = {"tokens": np.random.default_rng(3).integers(0, 50304, size=(1, SS + 1)).astype(np.int32)}
+    (k1,), _ = first_steps(cfg, ds1, params, batch, 1, plain=False)
+    (p1,), _ = first_steps(cfg, ds1, params, batch, 1, plain=True)
+    # bf16: the plain versions take one softmax over each query block's
+    # gathered row where the kernels go online, so P rounds to bf16 against
+    # another running maximum, through 12 layers
+    loss_err = abs(k1[0] - p1[0]) / abs(p1[0])
+    gnorm_err = abs(k1[1] - p1[1]) / abs(p1[1])
+    ok = loss_err <= 1e-2 and gnorm_err <= 5e-2 and all(np.isfinite(k1))
+    print(f"  full width bf16, first train_batch (one {SS}-token row): loss {k1[0]:.5f} vs {p1[0]:.5f} "
+          f"(rel {loss_err:.2e}, tol 1e-2), grad norm {k1[1]:.5f} vs {p1[1]:.5f} (rel {gnorm_err:.2e}, tol 5e-2)  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the full-width step through the sparse kernels disagrees with the plain versions")
+    return {"small_fp32_max_rel_err": small_err, "full_width_loss_rel_err": loss_err,
+            "full_width_grad_norm_rel_err": gnorm_err}
+
+
+CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 2048, "max_difficulty": SS,
+              "schedule_type": "fixed_discrete",
+              "schedule_config": {"difficulty": [2048, 4096, SS], "max_step": [1, 2]}}
+
+
+def curriculum_resume(dev):
+    """Phase 17: the curriculum and the dataloader through save and resume."""
+    ds = dict(SPARSE_TRAIN_DS, curriculum_learning=CURRICULUM)
+    cfg = gpt2_config(max_seq_len=SS)
+    data = [{"tokens": row} for row in
+            np.random.default_rng(5).integers(0, 50304, size=(48, SS + 1)).astype(np.int32)]
+
+    def engine():
+        params = tfm.init(cfg, torch.Generator().manual_seed(6), dev)
+        return deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds, training_data=data,
+                                              model_parameters=params)
+
+    sk.LIST_CACHE.clear()
+    straight, _, loader, _ = engine()
+    ref, lengths = [], []
+    for _, b in zip(range(5), loader):
+        ref.append(float(straight.train_batch(b)["loss"]))
+        lengths.append(straight.curriculum_scheduler.get_current_difficulty())
+    cached = sorted({key[0] for key in sk.LIST_CACHE if key[2].startswith("cuda")})
+    del straight
+    torch.cuda.empty_cache()
+    d = CURRICULUM["schedule_config"]["difficulty"]
+    expect = [d[0], d[0], d[1], d[2], d[2]]  # steps 0-4 against max_step [1, 2]
+    ok = lengths == expect and cached == d and all(np.isfinite(ref))
+    print(f"  5 steps from the loader: lengths {lengths} (expect {expect}), cached lists per length {cached}, "
+          f"losses {[round(x, 4) for x in ref]}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the curriculum did not follow its schedule")
+
+    root = tempfile.mkdtemp(prefix="dstt_curriculum_")
+    try:
+        first, _, loader, _ = engine()
+        got = [float(first.train_batch(b)["loss"]) for _, b in zip(range(2), loader)]
+        first.save_checkpoint(root)
+        saved = (first.curriculum_scheduler.state_dict(), dict(first._dl_cursor))
+        del first
+        torch.cuda.empty_cache()
+        second, _, loader, _ = engine()
+        second.load_checkpoint(root)
+        resumed = (second.curriculum_scheduler.state_dict(), loader.state_dict())
+        got += [float(second.train_batch(b)["loss"]) for _, b in zip(range(3), loader)]
+        del second
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ok = got == ref and resumed == saved
+    print(f"  train 2 + save + fresh engine and loader + load + train 3: {got}; 5 straight: {ref}; resumed at "
+          f"difficulty {resumed[0]['current_difficulty']} and loader batch {resumed[1]['batches_yielded']} (saved "
+          f"{saved[0]['current_difficulty']}, {saved[1]['batches_yielded']}) (bitwise expected)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("resume with the curriculum and the dataloader did not reproduce the uninterrupted run")
+    return {"lengths": lengths, "cached_lengths": cached, "losses": ref, "resumed_losses": got,
+            "resumed_difficulty": resumed[0]["current_difficulty"],
+            "resumed_loader_batch": resumed[1]["batches_yielded"]}
 
 
 def serve(dev):
@@ -943,6 +1379,34 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    op_builder.load("sparse_attention")
+    print(f"[13] loaded sparse_attention (forward, dQ, dK/dV) in {time.perf_counter() - t0:.2f} s")
+
+    print("[14] sparse kernels vs plain")
+    sparse_errs = sparse_checks(dev)
+    sparse_times = sparse_timing(dev, "fixed-64 (the slice's layout)", slice_layout())
+    name, kw = BIGBIRD_128
+    bigbird_times = sparse_timing(dev, "bigbird-128 (benchmarks/sparse_attention_bench.py)",
+                                  SPARSITY_CONFIGS[name](num_heads=12, **kw).make_layout(SS))
+
+    print(f"[15] long-sequence training: initialize -> train_batch at GPT-2-125M width, S={SS}, sparse attention")
+    sparse_launches, training["sparse"], sparse_batch = train_sparse(dev)
+    if args.profile:
+        engine = deepspeed_tpu_torch.initialize(model=Model(gpt2_config(max_seq_len=SS)), config=SPARSE_TRAIN_DS)[0]
+        engine.train_batch(sparse_batch)
+        profile("train_batch_sparse", lambda: engine.train_batch(sparse_batch), args.profile)
+        del engine
+        torch.cuda.empty_cache()
+
+    print("[16] slice parity: sparse kernels vs their plain versions")
+    training["sparse"]["parity"] = sparse_parity(dev)
+    torch.cuda.empty_cache()
+
+    print("[17] the curriculum and the dataloader through save and resume")
+    training["curriculum"] = curriculum_resume(dev)
+    torch.cuda.empty_cache()
+
     kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
@@ -982,6 +1446,23 @@ def main() -> int:
             f"{second}_fp16": e[torch.float16][1],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "cublas_logits_ms": t["cublas_logits_ms"],
+        })
+    replaces = {"sparse_forward": "deepspeed_tpu/ops/sparse_attention/kernels.py:75",
+                "sparse_backward_dq": "deepspeed_tpu/ops/sparse_attention/kernels.py:154",
+                "sparse_backward_dkdv": "deepspeed_tpu/ops/sparse_attention/kernels.py:192"}
+    for (name, where), n in zip(replaces.items(), sparse_launches):
+        t, e, bb = sparse_times[name], sparse_errs[name], bigbird_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
+            "replaces": where, "launches": n,
+            "max_abs_err": e[torch.bfloat16][0], "max_abs_err_fp32": e[torch.float32][0],
+            "max_abs_err_fp16": e[torch.float16][0],
+            "max_rel_err": e[torch.bfloat16][1], "max_rel_err_fp32": e[torch.float32][1],
+            "max_rel_err_fp16": e[torch.float16][1],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "dense_flash_ms": t["dense_flash_ms"],
+            "bigbird128": {k: bb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                               "dense_flash_ms")},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"training": training}))

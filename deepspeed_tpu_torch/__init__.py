@@ -6,6 +6,11 @@ It carries the training path and the serving path so far:
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds_config)
     metrics = engine.train_batch({"tokens": tokens})   # int [B, S+1]
 
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds_config,
+                                                          training_data=dataset)
+    for batch in loader:                                # dicts of numpy [train_batch_size, ...]
+        engine.train_batch(batch)
+
     engine = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": "bf16"})
     tokens = engine.generate(prompt, max_new_tokens=256)
 
@@ -18,15 +23,17 @@ from .utils.logging import log_dist, logger  # noqa: F401
 
 
 def initialize(args=None, model=None, config=None, config_params=None, model_parameters=None,
-               device=None, **kwargs):
+               training_data=None, collate_fn=None, device=None, **kwargs):
     """Build a training engine (the port of ``deepspeed_tpu.initialize``).
 
-    Returns ``(engine, engine, None, engine.lr_schedule)``: the optimizer and
-    the schedule live inside the engine's step, so those slots hold the
-    engine's handles; the dataloader slot is None (not ported).
-    ``model_parameters`` takes a parameter dict (e.g. from
-    ``interop.params_from_jax``), so both packages can start from the same
-    weights."""
+    Returns ``(engine, engine, dataloader, engine.lr_schedule)``: the
+    optimizer and the schedule live inside the engine's step, so those slots
+    hold the engine's handles. With ``training_data`` (an indexable dataset
+    of dicts, tuples or arrays) the third slot is the engine's
+    ``deepspeed_io`` loader over it (``collate_fn`` overrides the default
+    ``np.stack`` collation), else None. ``model_parameters`` takes a
+    parameter dict (e.g. from ``interop.params_from_jax``), so both packages
+    can start from the same weights."""
     from .runtime.engine import DeepSpeedEngine
 
     cfg = config if config is not None else config_params
@@ -37,7 +44,11 @@ def initialize(args=None, model=None, config=None, config_params=None, model_par
     if cfg is None:
         raise ValueError("deepspeed_tpu_torch.initialize: config is required")
     engine = DeepSpeedEngine(model=model, config=cfg, params=model_parameters, device=device, **kwargs)
-    return engine, engine, None, engine.lr_schedule
+    dataloader = None
+    if training_data is not None:
+        io_kw = {"collate_fn": collate_fn} if collate_fn is not None else {}
+        dataloader = engine.deepspeed_io(training_data, **io_kw)
+    return engine, engine, dataloader, engine.lr_schedule
 
 
 def init_inference(model=None, config=None, **kwargs):

@@ -1,6 +1,6 @@
 // Building blocks shared by the port's tiled kernels (flash_attention.cu,
-// fused_xent.cu): element types, warp reductions, and CTA-wide products of
-// tiles staged in shared memory.
+// sparse_attention.cu, fused_xent.cu): element types, warp reductions, and
+// CTA-wide products of tiles staged in shared memory.
 //
 // Element types: float, and the two 16-bit types bf16 and fp16. A product of
 // 16-bit tiles runs on the tensor cores through nvcuda::wmma 16x16x16

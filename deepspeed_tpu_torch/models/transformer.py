@@ -1,10 +1,10 @@
 """Decoder-only transformer: GPT-2 (learned positions), GPT-NeoX/GPT-J
 (rotary, parallel residual) and BLOOM-style (ALiBi) decoders, ported from
 ``deepspeed_tpu/models/transformer.py``: the training forward and loss
-(``apply``, ``causal_lm_loss``, with plain or flash attention, dropout,
-progressive layer drop, activation checkpointing (remat), and the chunked
-or the fused vocab-projection + cross-entropy loss) and KV-cache decoding
-for inference.
+(``apply``, ``causal_lm_loss``, with plain, flash or block-sparse attention,
+dropout, progressive layer drop, activation checkpointing (remat), and the
+chunked or the fused vocab-projection + cross-entropy loss) and KV-cache
+decoding for inference.
 
 Parameters are a plain dict of tensors with the JAX package's layout: the
 layer weights are stacked ``[L, ...]`` (``wq``/``wk``/``wv`` [L, d, H, Dh],
@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_xent import fused_linear_xent
+from ..ops.sparse_attention import SPARSITY_CONFIGS, sparse_flash_attention
 from ..runtime.activation_checkpointing.checkpointing import REMAT_POLICIES, remat_context_fn
 
 Params = dict
@@ -68,7 +69,14 @@ class TransformerConfig:
     final_ln: bool = True
     activation: str = "gelu"  # gelu (tanh approximation) | gelu_exact | relu
     embed_ln: bool = False  # LayerNorm after embedding (BLOOM)
-    attn_impl: str = "xla"  # xla (plain attention) | flash (the CUDA flash kernels)
+    # xla (plain attention) | flash (the CUDA flash kernels) | sparse (the
+    # CUDA block-sparse kernels over ``sparsity``'s layout)
+    attn_impl: str = "xla"
+    # attn_impl="sparse": block-sparse attention config (reference
+    # ops/sparse_attention/sparsity_config.py). {"mode": "fixed"|"bigbird"|
+    # "bslongformer"|"variable"|"dense", **mode kwargs}; num_heads defaults
+    # to the model's.
+    sparsity: Optional[dict] = None
     flash_block_q: int = 0  # validated as in the JAX package; not the CUDA tile
     flash_block_k: int = 0
     decode_attn: str = "kernel"  # kernel (CUDA decode kernel) | xla (plain cached attention)
@@ -119,11 +127,11 @@ class TransformerConfig:
                 raise NotImplementedError(
                     f"TransformerConfig.{name}={getattr(self, name)!r} is not implemented "
                     f"in deepspeed_tpu_torch yet (only {default!r})")
-        if self.attn_impl in ("ring", "ulysses", "sparse"):
+        if self.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"TransformerConfig.attn_impl={self.attn_impl!r} is not implemented in "
-                "deepspeed_tpu_torch yet (xla or flash)")
-        if self.attn_impl not in ("xla", "flash"):
+                "deepspeed_tpu_torch yet (xla, flash or sparse)")
+        if self.attn_impl not in ("xla", "flash", "sparse"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.loss_impl not in ("chunked", "fused_xent"):
             raise ValueError(f"unknown loss_impl {self.loss_impl!r}")
@@ -333,10 +341,26 @@ def _local_attn_bias(cfg: TransformerConfig, S: int, device="cpu"):
     return torch.where(keep, 0.0, NEG_BIAS).float()
 
 
+_LAYOUTS: dict[tuple, object] = {}  # (sparsity config repr, seq_len) -> numpy layout
+
+
+def _sparsity_layout(cfg: TransformerConfig, seq_len: int):
+    """The layout of ``cfg.sparsity`` at ``seq_len``, made once per length
+    (the config's mode with ``num_heads`` defaulting to the model's)."""
+    sp = dict(cfg.sparsity or {})
+    mode = sp.pop("mode", "fixed")
+    sp.setdefault("num_heads", cfg.num_heads)
+    key = (mode, repr(sorted(sp.items())), seq_len)
+    if key not in _LAYOUTS:
+        _LAYOUTS[key] = SPARSITY_CONFIGS[mode](**sp).make_layout(seq_len)
+    return _LAYOUTS[key]
+
+
 def _attention_dispatch(cfg: TransformerConfig, device="cpu") -> Callable:
     """attn_fn(q, k, v, bias[, window]) for ``cfg.attn_impl``. The flash
     dispatch fuses ALiBi and local windows in the kernel
-    (``handles_fused_bias``); a dense bias falls back to plain attention."""
+    (``handles_fused_bias``); a dense bias falls back to plain attention, in
+    the sparse dispatch too (as in the JAX package)."""
     if cfg.attn_impl == "flash":
         bq = cfg.flash_block_q or None
         bk = cfg.flash_block_k or None
@@ -350,6 +374,13 @@ def _attention_dispatch(cfg: TransformerConfig, device="cpu") -> Callable:
 
         flash_fn.handles_fused_bias = True
         return flash_fn
+    if cfg.attn_impl == "sparse":
+        def sparse_fn(q, k, v, bias):
+            if bias is not None:
+                return xla_attention(q, k, v, bias=bias, causal=cfg.causal)  # alibi unfused
+            return sparse_flash_attention(q, k, v, _sparsity_layout(cfg, q.shape[1]), causal=cfg.causal)
+
+        return sparse_fn
     return lambda q, k, v, bias: xla_attention(q, k, v, bias=bias, causal=cfg.causal)
 
 
@@ -625,6 +656,11 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
         raise NotImplementedError("KV-cache decoding is causal-only (encoders use apply())")
     if cfg.norm_style != "pre":
         raise NotImplementedError("KV-cache decoding supports pre-LN models only")
+    if cfg.attn_impl == "sparse":
+        raise NotImplementedError(
+            "block-sparse decode is not wired up — dense cache attention would "
+            "silently change the attention pattern the model trained with"
+        )
     B, T = tokens.shape
     device = tokens.device
     Smax = cache["k"].shape[2]
@@ -780,7 +816,9 @@ class Model:
 
     def flops_per_token(self) -> float:
         """Approximate training FLOPs per token (forward + backward ≈ 6 × the
-        matmul parameters, plus the attention term)."""
+        matmul parameters, plus the attention term). The attention term is
+        the JAX formula's dense one for every ``attn_impl``: for block-sparse
+        attention it counts keys the kernels skip."""
         c = self.config
         n_params = (c.num_layers * (4 * c.hidden_size * c.hidden_size + 2 * c.hidden_size * c.ffn_size)
                     + c.vocab_size * c.hidden_size)

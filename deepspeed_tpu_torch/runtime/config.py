@@ -4,9 +4,11 @@
 One DeepSpeed JSON dict drives both packages: the batch triangulation
 (train = micro × gas × world), ``fp16``/``bf16``, ``zero_optimization``,
 ``optimizer``, ``scheduler``, clipping, seed and ``steps_per_print`` parse
-the same way, as do ``activation_checkpointing`` and ``checkpoint``. The
-port runs on one device, so the world size is 1 and a ``mesh`` axis above 1
-is refused. Blocks that belong to paths not ported yet
+the same way, as do ``activation_checkpointing``, ``checkpoint``,
+``sparse_attention`` (turned into the model's ``attn_impl="sparse"`` by the
+engine), ``curriculum_learning`` and ``dataloader_drop_last``. The port
+runs on one device, so the world size is 1 and a ``mesh`` axis above 1 is
+refused. Blocks that belong to paths not ported yet
 raise ``NotImplementedError`` when enabled, naming the block; ZeRO stages
 0-3 are accepted, since on one device they are the same arithmetic.
 """
@@ -139,6 +141,39 @@ class ProgressiveLayerDropConfig:
 
 
 @dataclass
+class CurriculumConfig:
+    """reference: runtime/data_pipeline/curriculum_scheduler.py:8."""
+
+    enabled: bool = False
+    curriculum_type: str = "seqlen"
+    min_difficulty: int = 8
+    max_difficulty: int = 1024
+    schedule_type: str = "fixed_linear"
+    schedule_config: dict = field(default_factory=dict)
+
+
+@dataclass
+class SparseAttentionConfig:
+    """reference: runtime/config.py:283-466 sparse attention modes. The
+    engine forwards the fields the mode's ``SparsityConfig`` takes to the
+    model (``attn_impl="sparse"``, ``sparsity``)."""
+
+    mode: str = "fixed"
+    block: int = 16
+    different_layout_per_head: bool = False
+    num_local_blocks: int = 4
+    num_global_blocks: int = 1
+    attention: str = "bidirectional"
+    horizontal_global_attention: bool = False
+    num_different_global_patterns: int = 1
+    num_random_blocks: int = 0
+    local_window_blocks: list = field(default_factory=lambda: [4])
+    global_block_indices: list = field(default_factory=lambda: [0])
+    global_block_end_indices: Optional[list] = None
+    num_sliding_window_blocks: int = 3
+
+
+@dataclass
 class MeshAxesConfig:
     pipe: int = 1
     data: int = -1
@@ -148,10 +183,7 @@ class MeshAxesConfig:
 
 
 # Blocks whose ``enabled`` flag selects a path the port does not have yet.
-_UNPORTED_BLOCKS = (
-    C.CURRICULUM_LEARNING, C.FLOPS_PROFILER, "eigenvalue", C.RESILIENCE, C.TELEMETRY,
-    C.ELASTICITY,
-)
+_UNPORTED_BLOCKS = (C.FLOPS_PROFILER, "eigenvalue", C.RESILIENCE, C.TELEMETRY, C.ELASTICITY)
 
 
 @dataclass
@@ -162,6 +194,7 @@ class DeepSpeedConfig:
     steps_per_print: int = C.STEPS_PER_PRINT_DEFAULT
     seed: int = C.SEED_DEFAULT
     gradient_clipping: float = C.GRADIENT_CLIPPING_DEFAULT
+    dataloader_drop_last: bool = False
 
     fp16: FP16Config = field(default_factory=FP16Config)
     bf16: BF16Config = field(default_factory=BF16Config)
@@ -174,6 +207,8 @@ class DeepSpeedConfig:
         default_factory=ProgressiveLayerDropConfig)
     mesh: MeshAxesConfig = field(default_factory=MeshAxesConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    curriculum_learning: CurriculumConfig = field(default_factory=CurriculumConfig)
+    sparse_attention: Optional[SparseAttentionConfig] = None
 
     raw: dict = field(default_factory=dict, repr=False)
 
@@ -191,6 +226,7 @@ class DeepSpeedConfig:
             steps_per_print=d.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT),
             seed=int(d.get(C.SEED, C.SEED_DEFAULT)),
             gradient_clipping=d.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT),
+            dataloader_drop_last=d.get(C.DATALOADER_DROP_LAST, False),
             fp16=_build(FP16Config, _sub(d, C.FP16)),
             bf16=_build(BF16Config, _sub(d, C.BF16)),
             zero_optimization=_build(ZeroConfig, _sub(d, C.ZERO_OPTIMIZATION)),
@@ -202,6 +238,9 @@ class DeepSpeedConfig:
                                           _sub(d, C.PROGRESSIVE_LAYER_DROP)),
             mesh=_build(MeshAxesConfig, _sub(d, C.MESH)),
             checkpoint=_build(CheckpointConfig, _sub(d, C.CHECKPOINT)),
+            curriculum_learning=_build(CurriculumConfig, _sub(d, C.CURRICULUM_LEARNING)),
+            sparse_attention=(_build(SparseAttentionConfig, d[C.SPARSE_ATTENTION])
+                              if d.get(C.SPARSE_ATTENTION) else None),
             raw=d,
         )
         cfg._triangulate_batch(world_size)
@@ -260,9 +299,6 @@ class DeepSpeedConfig:
             sub = _sub(self.raw, block)
             if sub.get("enabled", False):
                 raise NotImplementedError(f"config block {block!r} is not ported to deepspeed_tpu_torch yet")
-        if self.raw.get(C.SPARSE_ATTENTION):
-            raise NotImplementedError(
-                f"config block {C.SPARSE_ATTENTION!r} is not ported to deepspeed_tpu_torch yet")
         big = {k: v for k, v in dataclasses.asdict(self.mesh).items() if v > 1}
         if big:
             raise NotImplementedError(f"mesh axes {big} > 1: deepspeed_tpu_torch runs on one device")

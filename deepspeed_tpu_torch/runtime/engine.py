@@ -17,12 +17,19 @@ loss), the optimizer state, and the 0-d device tensors ``step``,
 as the JAX engine's, so ``save_checkpoint``/``load_checkpoint`` (format 3,
 ``checkpoint/saver.py``) move a run between the two packages both ways.
 ZeRO stages 0-3 are accepted: on one device they are the same arithmetic.
-The ``activation_checkpointing`` block turns on the model's remat. The
-3-call ``forward/backward/step`` loop and the dataloader are not ported yet.
+The ``activation_checkpointing`` block turns on the model's remat, and the
+``sparse_attention`` block its block-sparse attention (``attn_impl="sparse"``
+with the mode's ``sparsity`` fields). ``curriculum_learning`` truncates each
+batch to the scheduled sequence length. ``deepspeed_io`` builds the
+training dataloader, whose cursor at the last completed step rides the
+checkpoint with the curriculum's state, in the JAX engine's client-state
+keys. The 3-call ``forward/backward/step`` loop is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import inspect
 import os
 import shutil
 import time
@@ -35,10 +42,13 @@ from ..checkpoint import saver, zero_to_fp32
 from ..inference.engine import resolve_device
 from ..models.transformer import effective_loss_impl
 from ..ops.optimizers import get_optimizer, tree_leaves, tree_map
+from ..ops.sparse_attention import SPARSITY_CONFIGS
 from ..resilience.errors import CheckpointCorruptError, CheckpointNotFoundError
 from ..utils.logging import log_dist, logger
 from . import activation_checkpointing as act_ckpt
 from .config import DeepSpeedConfig
+from .data_pipeline.curriculum_scheduler import CurriculumScheduler
+from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import get_schedule
 
 
@@ -90,9 +100,23 @@ class DeepSpeedEngine:
         self.global_samples = 0
         self._seed = int(config.seed)  # dropout/layer-drop stream; restored by load_checkpoint
 
+        self.training_dataloader = None  # set by deepspeed_io / set_dataloader
+        self._dl_cursor = None  # the loader's cursor at the last COMPLETED step
+        self._pending_dl_state = None  # a cursor loaded before any loader was attached
+
         pld = config.progressive_layer_drop
         if pld.enabled and not model.config.pld_enabled:
             model.config = model.config.replace(pld_enabled=True, pld_theta=pld.theta, pld_gamma=pld.gamma)
+        sa = config.sparse_attention
+        if sa is not None and model.config.attn_impl != "sparse":
+            # only the kwargs the mode's SparsityConfig takes (JAX engine.py:280-296)
+            accepted = set(inspect.signature(SPARSITY_CONFIGS[sa.mode].__init__).parameters)
+            sparsity = {"mode": sa.mode, **{k: v for k, v in dataclasses.asdict(sa).items() if k in accepted}}
+            model.config = model.config.replace(attn_impl="sparse", sparsity=sparsity)
+            logger.info("sparse_attention: %s", sparsity)
+        self.curriculum_scheduler = None
+        if config.curriculum_learning.enabled:
+            self.curriculum_scheduler = CurriculumScheduler(config.curriculum_learning)
         ac = config.activation_checkpointing
         if ac.enabled:
             act_ckpt.set_config(ac)
@@ -156,6 +180,8 @@ class DeepSpeedEngine:
         {loss, grad_norm, lr, loss_scale, overflow}."""
         gas = self.gradient_accumulation_steps
         state = self.state
+        if self.curriculum_scheduler is not None:
+            batch = self._apply_curriculum(batch)
         batch = {k: _to_device(v, self.device) for k, v in batch.items()}
         for k, v in batch.items():
             if v.shape[0] != self.train_batch_size:
@@ -214,7 +240,54 @@ class DeepSpeedEngine:
         self.global_samples += self.train_batch_size
         if self.global_steps % self.config.steps_per_print == 0:
             self._report_progress(metrics)
+        self._snapshot_dl_cursor()
         return metrics
+
+    def _apply_curriculum(self, batch: dict) -> dict:
+        """Seqlen curriculum: truncate every batch leaf of rank >= 2 to the
+        scheduled difficulty + 1 tokens (the causal shift consumes one), on
+        the host before the copy (JAX engine.py:1894-1905)."""
+        seqlen = self.curriculum_scheduler.update_difficulty(self.global_steps)
+
+        def trunc(x):
+            if getattr(x, "ndim", 0) >= 2 and x.shape[1] > seqlen + 1:
+                return x[:, : seqlen + 1]
+            return x
+
+        return {k: trunc(v) for k, v in batch.items()}
+
+    # ------------------------------------------------------------------
+    # Data loading
+    # ------------------------------------------------------------------
+
+    def deepspeed_io(self, dataset, batch_size: Optional[int] = None, **kw) -> DeepSpeedDataLoader:
+        """A dataloader over ``dataset`` yielding ``train_batch_size`` samples
+        per batch (one device, one replica; JAX engine.py:1907). The first
+        loader built is attached as the training loader whose cursor rides
+        checkpoints; later ones (eval) stay detached."""
+        loader = DeepSpeedDataLoader(dataset, batch_size=batch_size or self.train_batch_size,
+                                     drop_last=self.config.dataloader_drop_last, **kw)
+        if self.training_dataloader is None:
+            self.set_dataloader(loader)
+        return loader
+
+    def set_dataloader(self, loader) -> None:
+        """Attach ``loader`` as the training loader. A cursor restored by a
+        ``load_checkpoint`` that ran before any loader existed is applied
+        now; the snapshot starts at the attach-time position."""
+        self.training_dataloader = loader
+        if self._pending_dl_state is not None and hasattr(loader, "load_state_dict"):
+            loader.load_state_dict(self._pending_dl_state)
+            self._pending_dl_state = None
+        self._dl_cursor = loader.state_dict() if hasattr(loader, "state_dict") else None
+
+    def _snapshot_dl_cursor(self) -> None:
+        """Record the attached loader's cursor at the end of a completed
+        step: in ``for b in loader: train_batch(b)`` a batch fetched but not
+        yet trained when a checkpoint is taken is replayed on resume."""
+        dl = self.training_dataloader
+        if dl is not None and hasattr(dl, "state_dict"):
+            self._dl_cursor = dl.state_dict()
 
     def _report_progress(self, metrics):
         log_dist(
@@ -262,6 +335,10 @@ class DeepSpeedEngine:
         extra.update(global_steps=self.global_steps, global_samples=self.global_samples,
                      skipped_steps=self.skipped_steps, rng_seed=self._seed,
                      micro_batch_size=self.micro_batch_size, train_batch_size=self.train_batch_size)
+        if self.training_dataloader is not None and self._dl_cursor is not None:
+            extra["dataloader"] = dict(self._dl_cursor)
+        if self.curriculum_scheduler is not None:
+            extra["curriculum"] = self.curriculum_scheduler.state_dict()
         os.makedirs(save_dir, exist_ok=True)
         saver.save_checkpoint(os.path.join(save_dir, tag), self.state, client_state=extra,
                               latest=(os.path.join(save_dir, "latest"), tag))
@@ -339,5 +416,14 @@ class DeepSpeedEngine:
         self.global_steps = int(client_state.get("global_steps", int(state["step"])))
         self.global_samples = int(client_state.get("global_samples", 0))
         self._seed = int(client_state.get("rng_seed", self._seed))
+        if "dataloader" in client_state:
+            dl = self.training_dataloader
+            if dl is not None and hasattr(dl, "load_state_dict"):
+                dl.load_state_dict(client_state["dataloader"])
+                self._dl_cursor = dl.state_dict()
+            else:  # no loader yet (load before deepspeed_io): set_dataloader applies it
+                self._pending_dl_state = dict(client_state["dataloader"])
+        if self.curriculum_scheduler is not None and "curriculum" in client_state:
+            self.curriculum_scheduler.load_state_dict(client_state["curriculum"])
         log_dist(f"loaded checkpoint {load_dir}/{tag} in {time.perf_counter() - t0:.2f} s", ranks=[0])
         return tag, client_state

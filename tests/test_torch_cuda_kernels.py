@@ -17,6 +17,8 @@ from deepspeed_tpu_torch.models import transformer as tfm
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_xent as fx
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
+from deepspeed_tpu_torch.ops.sparse_attention import SPARSITY_CONFIGS
+from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -284,3 +286,129 @@ def test_decode_in_model_matches_plain_attention(cuda_device):
         logits[mode], _ = tfm.apply_with_cache(c, params, tok, cache, 17)
         assert decode_attention.launches - before == (2 if mode == "kernel" else 0)
     torch.testing.assert_close(logits["kernel"], logits["xla"], rtol=1e-4, atol=1e-4)
+
+
+# Block-sparse kernels vs their plain versions, with the flash kernels'
+# tolerances and for the same reasons: the plain versions take a softmax
+# over each query block's whole gathered row where the kernels go online,
+# and round P and dS at the same points.
+_SPARSE_COUNTERS = (sk.sparse_forward, sk.sparse_backward_dq, sk.sparse_backward_dkdv)
+_SPARSE_LAYOUTS = {
+    "fixed": {"num_local_blocks": 4, "num_global_blocks": 1},
+    "bigbird": {"num_random_blocks": 1, "num_sliding_window_blocks": 3, "num_global_blocks": 1},
+    "bslongformer": {"num_sliding_window_blocks": 3},
+    "variable": {"local_window_blocks": [1, 2], "global_block_indices": [0], "num_random_blocks": 1},
+    "dense": {},
+}
+
+
+def _sparse_case(device, dtype, D, block, causal, layout, B=2, H=3, seed=0):
+    """Each kernel against its plain version on one case; the backward
+    kernels get the plain forward's O and lse. Returns the lists."""
+    S = layout.shape[-1] * block
+    q, k, v, dout = _flash_inputs(B, S, H, D, device, dtype, seed=seed)
+    lists = sk.device_lists(layout, causal, S, device)
+    kw = {"causal": causal}
+    before = [c.launches for c in _SPARSE_COUNTERS]
+    out, lse = sk.sparse_forward(q, k, v, lists, **kw)
+    ref_out, ref_lse = sk.sparse_attention_reference(q, k, v, lists, **kw)
+    delta = fa.flash_delta(ref_out, dout)
+    dq = sk.sparse_backward_dq(q, k, v, dout, ref_lse, delta, lists, **kw)
+    dk, dv = sk.sparse_backward_dkdv(q, k, v, dout, ref_lse, delta, lists, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(_SPARSE_COUNTERS, before)] == [1, 1, 1]
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    ref = sk.sparse_attention_backward_reference(q, k, v, ref_out, ref_lse, dout, lists, **kw)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == want.shape
+        err = _normalised_err(got, want)
+        assert err <= _FLASH_GRAD_TOL[dtype], f"{name}: {err:.3e}"
+    return dk, dv, lists
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("mode", list(_SPARSE_LAYOUTS))
+def test_sparse_kernels_match_reference(cuda_device, dtype, block, causal, mode):
+    layout = SPARSITY_CONFIGS[mode](num_heads=3, block=block, **_SPARSE_LAYOUTS[mode]).make_layout(8 * block)
+    _sparse_case(cuda_device, dtype, 64, block, causal, layout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 100, 128])
+@pytest.mark.parametrize("block", [16, 64, 128])
+def test_sparse_kernels_head_dims(cuda_device, dtype, D, block):
+    layout = SPARSITY_CONFIGS["bigbird"](num_heads=2, block=block).make_layout(4 * block)
+    _sparse_case(cuda_device, dtype, D, block, True, layout, H=2, seed=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_sparse_key_block_no_query_attends_gets_zero_gradients(cuda_device, dtype):
+    layout = np.zeros((4, 4), np.int64)
+    layout[np.arange(4), np.arange(4)] = 1
+    layout[:, 0] = 1
+    layout[2, 2] = 0  # with causal masking, no query block attends key block 2
+    for seed in range(4):  # fresh buffers each time: the zeros must not depend on what memory held
+        dk, dv, lists = _sparse_case(cuda_device, dtype, 64, 64, True, layout, seed=seed)
+        assert int(lists.q_counts[2]) == 0
+        assert dk[:, 128:192].abs().max().item() == 0.0 and dv[:, 128:192].abs().max().item() == 0.0
+
+
+def test_sparse_attention_autograd_launches_each_kernel_once(cuda_device):
+    q, k, v, dout = _flash_inputs(2, 512, 2, 64, cuda_device, torch.bfloat16, seed=4)
+    q.requires_grad_(True), k.requires_grad_(True), v.requires_grad_(True)
+    layout = SPARSITY_CONFIGS["fixed"](num_heads=2, block=64, attention="unidirectional").make_layout(512)
+    before = [c.launches for c in _SPARSE_COUNTERS]
+    flash_before = fa.flash_forward.launches
+    sk.sparse_flash_attention(q, k, v, layout).backward(dout)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(_SPARSE_COUNTERS, before)] == [1, 1, 1]
+    assert fa.flash_forward.launches == flash_before
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_sparse_kernels_reject_what_they_cannot_take(cuda_device):
+    q, k, v, _ = _flash_inputs(1, 256, 2, 64, cuda_device, torch.float32)
+    lists = sk.device_lists(np.ones((4, 4)), True, 256, cuda_device)
+    with pytest.raises(TypeError):
+        sk.sparse_forward(q.double(), k.double(), v.double(), lists)
+    big = _flash_inputs(1, 256, 1, 256, cuda_device, torch.float32)[:3]
+    with pytest.raises(ValueError):  # head dim above 128
+        sk.sparse_forward(*big, lists)
+    with pytest.raises(ValueError):  # no contiguous last dimension
+        sk.sparse_forward(q[..., ::2], k[..., ::2], v[..., ::2], lists)
+    odd = sk.device_lists(np.ones((8, 8)), True, 192, cuda_device)  # block 24
+    q3, k3, v3, _ = _flash_inputs(1, 192, 2, 64, cuda_device, torch.float32)
+    with pytest.raises(ValueError):
+        sk.sparse_forward(q3, k3, v3, odd)
+    with pytest.raises(ValueError):  # lists for another length
+        sk.sparse_forward(q[:, :128], k[:, :128], v[:, :128], lists)
+    with pytest.raises(ValueError):
+        sk.sparse_flash_attention(q3, k3, v3, np.ones((8, 8)))
+
+
+def test_train_batch_runs_through_the_sparse_kernels(cuda_device):
+    """Three train_batch steps of a small bf16 model whose config block asks
+    for block-sparse attention: every layer of every micro-batch launches
+    each sparse kernel once and no flash kernel, and the loss falls."""
+    cfg = tfm.TransformerConfig(vocab_size=97, max_seq_len=512, num_layers=3, num_heads=4, hidden_size=64,
+                                dtype=torch.bfloat16, attn_impl="flash", loss_chunk_size=128)
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+          "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 1000,
+          "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+          "sparse_attention": {"mode": "fixed", "block": 64, "num_local_blocks": 4, "num_global_blocks": 1,
+                               "attention": "unidirectional"}}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=tfm.Model(cfg), config=ds)
+    assert engine.model.config.attn_impl == "sparse"
+    tokens = np.random.default_rng(0).integers(0, 97, size=(4, 513)).astype(np.int32)
+    counters = _SPARSE_COUNTERS + (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq)
+    losses = []
+    for _ in range(3):
+        before = [c.launches for c in counters]
+        m = engine.train_batch({"tokens": tokens})
+        assert [c.launches - b for c, b in zip(counters, before)] == [3 * 2] * 3 + [0] * 3
+        losses.append(float(m["loss"]))
+        assert not bool(m["overflow"])
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

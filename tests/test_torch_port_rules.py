@@ -1,6 +1,8 @@
 """Rules the PyTorch port keeps: it imports neither JAX nor the JAX package,
 it runs on CUDA unless asked for the CPU, and its kernel wrappers take the
-plain path only for CPU tensors."""
+plain path only for CPU tensors. The no-JAX subprocess imports every module
+and runs a serving step, a flash training step and a block-sparse training
+step fed by the curriculum and the dataloader."""
 
 import ast
 import pathlib
@@ -36,6 +38,16 @@ model = Model(TransformerConfig(**{TINY!r}, attn_impl="flash"))
 trainer, _, _, _ = pkg.initialize(model=model, config={{"train_batch_size": 2}}, device="cpu")
 metrics = trainer.train_batch({{"tokens": np.zeros((2, 9), np.int32)}})
 assert np.isfinite(float(metrics["loss"]))
+sparse = Model(TransformerConfig(**{TINY!r}))
+ds = {{"train_batch_size": 2, "sparse_attention": {{"mode": "bigbird", "block": 16, "num_random_blocks": 1}},
+      "curriculum_learning": {{"enabled": True, "min_difficulty": 16, "max_difficulty": 32,
+                              "schedule_type": "fixed_discrete",
+                              "schedule_config": {{"difficulty": [16, 32], "max_step": [1]}}}}}}
+data = [{{"tokens": np.full(33, i, np.int32)}} for i in range(4)]
+trainer, _, loader, _ = pkg.initialize(model=sparse, config=ds, training_data=data, device="cpu")
+assert trainer.model.config.attn_impl == "sparse"
+metrics = trainer.train_batch(next(iter(loader)))
+assert np.isfinite(float(metrics["loss"])) and trainer.curriculum_scheduler.get_current_difficulty() == 16
 assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")
 """

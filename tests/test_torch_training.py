@@ -166,9 +166,9 @@ def test_config_parses_like_jax(name):
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
     {"optimizer": {"type": "OneBitAdam"}},
-    {"curriculum_learning": {"enabled": True}},
+    {"flops_profiler": {"enabled": True}},
     {"activation_checkpointing": {"enabled": True, "cpu_checkpointing": True}},
-    {"sparse_attention": {"mode": "fixed"}},
+    {"elasticity": {"enabled": True}},
     {"telemetry": {"enabled": True}},
     {"mesh": {"data": 2}},
 ])

@@ -156,7 +156,7 @@ def test_rotary_and_layer_norm_match_jax(interleaved):
 
 @pytest.mark.parametrize("field,value", [
     ("attn_impl", "ring"), ("moe_every", 2), ("weight_bits", 8), ("act_quant_bits", 8),
-    ("attn_impl", "ulysses"), ("param_offload", True), ("attn_impl", "sparse"),
+    ("attn_impl", "ulysses"), ("param_offload", True),
     ("remat_offload", True), ("remat_partition_axis", "model"),
 ])
 def test_unported_config_fields_raise(field, value):

@@ -19,12 +19,16 @@ Phases, each of which passes or makes the script exit non-zero:
      went through the kernel, that the first decode step's logits agree
      with the plain cached-attention path, and that on a small fp32 model
      greedy tokens through the kernel equal the plain path's;
-  5. load the flash-attention kernels (forward, dK/dV, dQ);
-  6. hold each flash kernel against its plain version: bf16 and fp32;
+  5. load the flash-attention kernels (forward, dK/dV, dQ); count each
+     kernel's HGMMA (wgmma) instructions in its SASS (cuobjdump) beside its
+     registers and spills from the build, failing if the bf16 forward or
+     dK/dV kernel has none;
+  6. hold each flash kernel against its plain version: bf16, fp32 and fp16;
      causal, bidirectional, ALiBi, window 256 and window 0 at B=8, S=1024,
      H=12, D=64; the ragged causal edge S=1000; S=128; D=128. Then time
      each kernel, its plain version and torch's scaled_dot_product_attention
-     (a yardstick the port never calls) against the bound at that shape;
+     (a yardstick the port never calls) against the bound at that shape,
+     with each kernel's ratio to SDPA;
   7. initialize -> train_batch at GPT-2-125M width (the model bench.py
      times: 12 layers, d768, 12 heads, vocab 50304, S=1024, bf16, flash
      attention, loss chunk 256, AdamW, clipping 1.0, ZeRO stage 1, batch 64
@@ -95,6 +99,7 @@ its time by kernel.
 import argparse
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -340,16 +345,88 @@ def flash_timing(dev):
     fwd_bwd_lib = median_ms(
         lambda: torch.autograd.grad(sdpa(qr, kr, vr, is_causal=True), (qr, kr, vr), dot), flush)
     for name, (bound, by, nbytes, flops) in flash_bounds(B, S, H, D, 2).items():
-        times[name].update(bound_ms=bound, bound_by=by)
+        times[name].update(bound_ms=bound, bound_by=by, library_ratio=times[name]["ms"] / times[name]["library_ms"])
         t = times[name]
-        print(f"  timing {name:<20} bf16 B={B} S={S} H={H} D={D} causal: kernel {t['ms']*1e3:8.1f} us, "
-              f"plain {t['plain_ms']*1e3:8.1f} us, sdpa {t['library_ms']*1e3:7.1f} us, bound "
-              f"{bound*1e3:5.1f} us ({by}: {nbytes/1e6:.1f} MB, {flops/1e9:.1f} GFLOP), "
-              f"{flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
-    print(f"  sdpa forward+backward {fwd_bwd_lib*1e3:.1f} us (its backward alone is the library time of "
-          f"both backward rows); sdpa vs kernel output max_abs_err {lib_err:.2e}; plain backward times "
-          f"all three gradients")
+        print(f"  timing {name:<20} bf16 B={B} S={S} H={H} D={D} causal: kernel {t['ms']*1e3:8.1f} us "
+              f"({t['library_ratio']:.2f}x sdpa), plain {t['plain_ms']*1e3:8.1f} us, sdpa "
+              f"{t['library_ms']*1e3:7.1f} us, bound {bound*1e3:5.1f} us ({by}: {nbytes/1e6:.1f} MB, "
+              f"{flops/1e9:.1f} GFLOP), {flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    print(f"  sdpa forward+backward {fwd_bwd_lib*1e3:.1f} us, less its forward "
+          f"{(fwd_bwd_lib - times['flash_forward']['library_ms'])*1e3:.1f} us (its backward alone, timed on a "
+          f"retained graph, is the library time of both backward rows); sdpa vs kernel output max_abs_err "
+          f"{lib_err:.2e}; plain backward times all three gradients")
     return times
+
+
+# The flash library's kernels, read from the SASS and from the build.
+FLASH_KERNELS = ("flash_fwd_hopper", "flash_dkdv_hopper", "flash_fwd_f32_kernel", "flash_dkdv_f32_kernel",
+                 "flash_bwd_dq_kernel")
+# the entry point -> the kernel that runs it at the main path's shape (bf16, D = 64)
+MAIN_PATH_KERNEL = {"flash_forward": "flash_fwd_hopper bf16 D64",
+                    "flash_backward_dkdv": "flash_dkdv_hopper bf16 D64",
+                    "flash_backward_dq": "flash_bwd_dq_kernel bf16 D64"}
+
+
+def kernel_label(mangled):
+    """'flash_fwd_hopper bf16 D64' from a mangled template instance, else None."""
+    base = next((k for k in FLASH_KERNELS if k in mangled), None)
+    if base is None:
+        return None
+    tail = mangled.split(base, 1)[1]
+    dtype = "bf16" if "nv_bfloat16" in tail else "fp16" if "__half" in tail else "fp32"
+    dp = re.search(r"Li(\d+)E", tail)  # the first int template argument: the padded head dim
+    dp = dp.group(1) if dp else "?"
+    return f"{base} {dtype} D{dp}"
+
+
+def cuobjdump():
+    """The CUDA toolkit's cuobjdump, else the copy that Triton's package carries."""
+    found = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                      "cuobjdump")
+    if os.path.exists(found):
+        return found
+    import importlib.util
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cand = os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin", "cuobjdump")
+        if os.path.exists(cand):
+            return cand
+    raise SystemExit("cuobjdump not found: neither the CUDA toolkit nor triton carries it")
+
+
+def flash_sass():
+    """Per flash kernel: HGMMA instructions in its SASS, and its registers and
+    spill bytes from ptxas's report of this run's build. Fails if the bf16
+    forward or dK/dV kernel has no HGMMA."""
+    lib = op_builder.build_many(["flash_attention"])["flash_attention"]
+    sass = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    info, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = kernel_label(line.split("Function :", 1)[1].strip())
+            if fn:
+                info[fn] = {"hgmma": 0, "registers": None, "spill_stores": None, "spill_loads": None}
+        elif fn and "HGMMA" in line:
+            info[fn]["hgmma"] += 1
+    fn = None
+    for line in op_builder.PTXAS_INFO.get("flash_attention", []):
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = kernel_label(line)
+        elif fn in info and "spill stores" in line:
+            words = line.replace(",", "").split()
+            info[fn]["spill_stores"] = int(words[words.index("spill") - 2])
+            info[fn]["spill_loads"] = int(words[-4])
+        elif fn in info and "Used" in line and "registers" in line:
+            words = line.split()
+            info[fn]["registers"] = int(words[words.index("Used") + 1])
+    for name, v in sorted(info.items()):
+        print(f"  {name:<30} HGMMA {v['hgmma']:4d}  registers {v['registers']}  spill stores "
+              f"{v['spill_stores']} B, loads {v['spill_loads']} B")
+    for name in ("flash_fwd_hopper bf16 D64", "flash_dkdv_hopper bf16 D64"):
+        if info.get(name, {}).get("hgmma", 0) == 0:
+            raise SystemExit(f"{name} has no HGMMA instruction in its SASS")
+    return info
 
 
 BENCH_DS = {
@@ -1340,7 +1417,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     op_builder.load("flash_attention")
-    print(f"[5] loaded flash_attention (forward, dK/dV, dQ) in {time.perf_counter() - t0:.2f} s")
+    print(f"[5] loaded flash_attention (forward, dK/dV, dQ) in {time.perf_counter() - t0:.2f} s; "
+          f"its kernels' SASS (cuobjdump) and registers (ptxas):")
+    sass = flash_sass()
 
     print("[6] flash kernels vs plain")
     flash_errs = flash_checks(dev)
@@ -1429,7 +1508,8 @@ def main() -> int:
             "max_rel_err": e[torch.bfloat16][1], "max_rel_err_fp32": e[torch.float32][1],
             "max_rel_err_fp16": e[torch.float16][1],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library_ratio": t["library_ratio"],
+            "hgmma": sass.get(MAIN_PATH_KERNEL[name], {}).get("hgmma", 0),
         })
     replaces = {"fused_xent_forward": "deepspeed_tpu/ops/pallas/fused_xent.py:73",
                 "fused_xent_backward_dh": "deepspeed_tpu/ops/pallas/fused_xent.py:171",

@@ -18,12 +18,21 @@ and ``flash_backward_dq``. On CPU tensors it runs the plain versions
 CUDA tensor never takes the plain path: the kernels launch or the call
 raises.
 
+The 16-bit forward and dK/dV kernels load their tiles by TMA, which needs
+16-byte rows and strides: a head dim that is a multiple of 8, bases at 16
+bytes, batch/sequence/head strides that are positive multiples of 8
+elements. For inputs that are not so (``needs_padding``), the wrapper
+chooses before the launch to copy them into contiguous buffers zero-padded
+along the head dim (``pad_head_dim``; zero columns change no product) and
+slices the outputs back; the softmax scale stays that of the real head dim.
+
 ALiBi slopes and a runtime local window are fused into the score
 computation (no [S, S] bias tensor); a dense ``bias`` raises
 ``NotImplementedError``, as in the JAX package. The JAX wrapper's 128-padding
 becomes a bounds check in the kernels, with the same ``ValueError``s where
 JAX raises. ``block_q``/``block_k`` are validated as the JAX wrapper does but
-do not choose the CUDA tile (64x64 for bf16 and fp16, 32x32 for fp32).
+do not choose the CUDA tiles (bf16/fp16: 128 query rows by 128 or 64 keys in
+the forward, 128 keys by 64 query rows in dK/dV, 64x64 in dQ; fp32: 32x32).
 """
 
 from __future__ import annotations
@@ -221,17 +230,41 @@ def _launch(name: str, p: _Params, device):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+_ROW_ALIGN = 8  # elements of a 16-bit row or stride: TMA's 16 bytes
+
+
+def needs_padding(*tensors) -> bool:
+    """Whether the 16-bit Hopper kernels (forward, dK/dV) cannot read these
+    [B, S, H, D] tensors where they lie: a head dim or a batch/sequence/head
+    stride that is not a multiple of 8 elements, or a base not at 16 bytes.
+    fp32 tensors take the scalar kernels, which read any of them."""
+    return any(t.dtype != torch.float32 and (
+        t.shape[-1] % _ROW_ALIGN or t.data_ptr() % 16
+        or any(st <= 0 or st % _ROW_ALIGN for st in t.stride()[:3])) for t in tensors)
+
+
+def pad_head_dim(*tensors):
+    """Contiguous copies of [..., D] tensors zero-padded to a head dim that is
+    a multiple of 8 (a fresh allocation is 16-byte aligned)."""
+    pad = -tensors[0].shape[-1] % _ROW_ALIGN
+    return tuple(torch.nn.functional.pad(t, (0, pad)).contiguous() for t in tensors)
+
+
 def flash_forward(q, k, v, *, causal=True, sm_scale=None, alibi_slopes=None, window=None):
     """Forward kernel -> (out [B, Sq, H, D], lse [B, H, Sq] fp32). CUDA only."""
     scale = _default_scale(q, sm_scale)
     slopes, w = _extras(q, alibi_slopes, window)
-    B, Sq, H, D = q.shape
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    D = q.shape[-1]
+    padded = needs_padding(q, k, v)
+    if padded:
+        q, k, v = pad_head_dim(q, k, v)
+    B, Sq, H, Dp = q.shape
+    out = torch.empty((B, Sq, H, Dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     p = _params(q, k, v, causal, scale, slopes, w, out=out, lse=lse)
     _launch("dstt_flash_fwd", p, q.device)
     flash_forward.launches += 1
-    return out, lse
+    return (out[..., :D].contiguous() if padded else out), lse
 
 
 def flash_backward_dkdv(q, k, v, dout, lse, delta, *, causal=True, sm_scale=None,
@@ -240,11 +273,17 @@ def flash_backward_dkdv(q, k, v, dout, lse, delta, *, causal=True, sm_scale=None
     [B, H, Sq] fp32. CUDA only."""
     scale = _default_scale(q, sm_scale)
     slopes, w = _extras(q, alibi_slopes, window)
+    D = q.shape[-1]
+    padded = needs_padding(q, k, v, dout)
+    if padded:
+        q, k, v, dout = pad_head_dim(q, k, v, dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     p = _params(q, k, v, causal, scale, slopes, w, dout=dout, lse=lse, delta=delta, dk=dk, dv=dv)
     _launch("dstt_flash_bwd_dkdv", p, q.device)
     flash_backward_dkdv.launches += 1
+    if padded:
+        return dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
 

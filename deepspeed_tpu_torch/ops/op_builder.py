@@ -26,6 +26,9 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# ptxas's lines per source built by this process: entry functions, registers,
+# stack frame and spills, warnings
+PTXAS_INFO: dict[str, list[str]] = {}
 
 
 def _nvcc() -> str:
@@ -68,9 +71,11 @@ def build_many(names) -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {src} (exit {proc.returncode}):\n{out}{err}")
             continue
-        for line in (out + err).splitlines():
-            if "ptxas info" in line and ("registers" in line or "spill" in line):
-                logger.info(f"{name}: {line.strip()}")
+        PTXAS_INFO[name] = [line.strip() for line in (out + err).splitlines()
+                            if "ptxas" in line or "stack frame" in line]
+        for line in PTXAS_INFO[name]:
+            if "registers" in line or "spill" in line:
+                logger.info(f"{name}: {line}")
         os.replace(tmp, lib)  # atomic: a concurrent builder never loads a partial file
     if failed:
         raise RuntimeError("\n".join(failed))

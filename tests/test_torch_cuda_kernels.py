@@ -88,8 +88,12 @@ _FLASH_CASES = {
     "bidirectional": {"causal": False},
     "alibi": {"causal": True, "alibi": True},
     "window": {"causal": True, "window": 96.0},
+    "window_256": {"causal": True, "window": 256.0},
     "window_off": {"causal": True, "window": 0.0},
 }
+# the 16-bit kernels' tile edges: one row, a warpgroup's 64 rows either side,
+# the 128-row CTA, a ragged edge inside the last tile
+_FLASH_LENGTHS = (1, 63, 65, 128, 200, 384, 1000)
 
 
 def _flash_inputs(B, S, H, D, device, dtype, seed=0):
@@ -102,17 +106,12 @@ def _normalised_err(out, ref):
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp_min(1e-6)).item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("case,S", [(case, S) for case in _FLASH_CASES for S in (128, 200, 384)
-                                    if _FLASH_CASES[case]["causal"] or S % 128 == 0])
-def test_flash_kernels_match_reference(cuda_device, dtype, D, S, case):
-    # non-causal attention takes 128-aligned lengths only, as in the JAX package
-    kw = dict(_FLASH_CASES[case])
-    B, H = 2, 3
-    slopes = tfm.alibi_slopes(H, cuda_device) if kw.pop("alibi", False) else None
-    q, k, v, dout = _flash_inputs(B, S, H, D, cuda_device, dtype)
-    kw.update(alibi_slopes=slopes)
+def _flash_check(device, dtype, B, S, H, D, causal=True, alibi=False, window=None, inputs=None):
+    """Each flash kernel against its plain version; the backward kernels get
+    the plain forward's O and lse. Returns (out, lse, dq, dk, dv)."""
+    slopes = tfm.alibi_slopes(H, device) if alibi else None
+    q, k, v, dout = inputs if inputs is not None else _flash_inputs(B, S, H, D, device, dtype)
+    kw = dict(causal=causal, alibi_slopes=slopes, window=window)
     before = (fa.flash_forward.launches, fa.flash_backward_dkdv.launches, fa.flash_backward_dq.launches)
     out, lse = fa.flash_forward(q, k, v, **kw)
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
@@ -122,13 +121,87 @@ def test_flash_kernels_match_reference(cuda_device, dtype, D, S, case):
     torch.cuda.synchronize()
     after = (fa.flash_forward.launches, fa.flash_backward_dkdv.launches, fa.flash_backward_dq.launches)
     assert after == tuple(n + 1 for n in before)
+    assert out.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
     ref = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse, dout, **kw)
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         assert got.dtype == dtype and got.shape == want.shape
+        if S == 1 and name != "dv":
+            # one key: P = 1 and dS = dP − Δ cancels to rounding noise in both
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= _TOL[dtype], f"{name}: {err:.3e}"
+            continue
         err = _normalised_err(got, want)
         assert err <= _FLASH_GRAD_TOL[dtype], f"{name}: {err:.3e}"
+    return out, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("case,S", [(case, S) for case in _FLASH_CASES for S in _FLASH_LENGTHS
+                                    if _FLASH_CASES[case]["causal"] or S % 128 == 0])
+def test_flash_kernels_match_reference(cuda_device, dtype, D, S, case):
+    # non-causal attention takes 128-aligned lengths only, as in the JAX package
+    _flash_check(cuda_device, dtype, 2, S, 3, D, **_FLASH_CASES[case])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Sq,Sk,causal", [(128, 384, False), (384, 128, False), (256, 128, True),
+                                          (128, 256, True)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_cross_attention(cuda_device, dtype, Sq, Sk, causal, D):
+    """128-aligned query and key lengths that differ, as the wrapper allows:
+    the forward's key loop and dK/dV's query loop run over the other
+    tensor's length."""
+    rng = np.random.default_rng(7)
+    q, dout = (torch.from_numpy(rng.standard_normal((2, Sq, 3, D)).astype(np.float32)).to(cuda_device, dtype)
+               for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, Sk, 3, D)).astype(np.float32)).to(cuda_device, dtype)
+            for _ in range(2))
+    _flash_check(cuda_device, dtype, 2, Sq, 3, D, causal=causal, inputs=(q, k, v, dout))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernels_at_the_training_shape(cuda_device, dtype):
+    """The main path's shape: GPT-2-125M's heads at S = 1024, micro-batch 8."""
+    _flash_check(cuda_device, dtype, 8, 1024, 12, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", ["D100", "unaligned_view"])
+def test_flash_kernels_pad_what_tma_cannot_read(cuda_device, dtype, layout):
+    """D = 100 (200-byte rows) and a view whose base and strides are off 16
+    bytes: the 16-bit kernels take zero-padded copies chosen before the
+    launch, and the results are sliced back to the caller's head dim."""
+    if layout == "D100":
+        inputs = _flash_inputs(2, 200, 3, 100, cuda_device, dtype, seed=3)
+    else:
+        wide = _flash_inputs(2, 200, 3, 68, cuda_device, dtype, seed=3)
+        inputs = tuple(t[..., 2:66] for t in wide)
+    q = inputs[0]
+    assert fa.needs_padding(*inputs) == (dtype != torch.float32)
+    out, _, dq, dk, dv = _flash_check(cuda_device, dtype, 2, 200, 3, q.shape[-1], inputs=inputs)
+    assert out.shape == q.shape and dk.shape == q.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_are_deterministic(cuda_device, dtype, D):
+    """Forward and dK/dV give bitwise the same results from two launches into
+    fresh buffers over memory left dirty in between: no atomics, no race."""
+    q, k, v, dout = _flash_inputs(2, 1000, 3, D, cuda_device, dtype, seed=6)
+    runs = []
+    for seed in range(2):
+        junk = torch.randn(64 * 2**20, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(seed))
+        del junk  # the next allocations reuse its memory
+        out, lse = fa.flash_forward(q, k, v)
+        delta = fa.flash_delta(out, dout)
+        dk, dv = fa.flash_backward_dkdv(q, k, v, dout, lse, delta)
+        torch.cuda.synchronize()
+        runs.append((out, lse, dk, dv))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_autograd_launches_each_kernel_once(cuda_device):

@@ -6,6 +6,10 @@ the CPU) and the port's ``flash_attention`` on CPU tensors, which takes the
 plain versions the CUDA kernels are held against on the card.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,3 +137,80 @@ def test_cpu_tensors_count_no_launch_and_kernel_entry_points_need_cuda():
     assert [f.launches for f in counters] == before
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_forward(q.detach(), k, v)
+
+
+_CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+           "const float*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _flash_params_fields():
+    """(name, ctypes type) of ``FlashParams`` in ``csrc/flash_attention.cu``, field by field."""
+    src = (Path(tfa.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
+    body = re.sub(r"//[^\n]*", "", re.search(r"struct FlashParams \{(.*?)\n\};", src, re.S).group(1))
+    fields = []
+    for decl in (d.strip() for d in body.split(";")):
+        if not decl:
+            continue
+        m = re.match(r"((?:const )?(?:void|float|int|long long)\*?)\s+(.*)", decl)
+        ctype, names = m.group(1), m.group(2)
+        for name in (n.strip() for n in names.split(",")):
+            arr = re.match(r"(\w+)\[(\d+)\]", name)
+            if arr:
+                assert ctype == "long long"
+                fields.append((arr.group(1), ctypes.c_longlong * int(arr.group(2))))
+            else:
+                fields.append((name, _CTYPES[ctype]))
+    return fields
+
+
+def test_params_struct_mirrors_the_kernels_flash_params():
+    """The ctypes block the wrapper fills is ``FlashParams`` as the kernel
+    source declares it: same fields, same order, same types."""
+    theirs = _flash_params_fields()
+    assert [name for name, _ in tfa._Params._fields_] == [name for name, _ in theirs]
+    for (name, ours), (_, want) in zip(tfa._Params._fields_, theirs):
+        assert ctypes.sizeof(ours) == ctypes.sizeof(want), name
+        assert getattr(ours, "_type_", ours) == getattr(want, "_type_", want), name
+    assert len(theirs) == 12 + 8 + 7 + 1
+
+
+@pytest.mark.parametrize("D", [8, 100])
+def test_padding_route_gives_the_unpadded_results_exactly(D):
+    """pad → plain forward and backward → slice equals the plain results on
+    the unpadded inputs. Integer-valued q/k/v make every score and dO·V
+    exact whatever the summation order, and dO is non-zero in one head-dim
+    column so that Δ = rowsum(dO∘O) is one product: the comparison is
+    bitwise."""
+    rng = np.random.default_rng(5)
+    B, S, H = 2, 72, 3
+    q, k, v = (torch.from_numpy(rng.integers(-2, 3, (B, S, H, D)).astype(np.float32)) for _ in range(3))
+    dout = torch.zeros(B, S, H, D)
+    dout[..., D // 2] = torch.from_numpy(rng.standard_normal((B, S, H)).astype(np.float32))
+    scale = 0.125 / np.sqrt(D)  # the real head dim's scale, kept through the padding
+    kw = dict(causal=True, sm_scale=scale, alibi_slopes=ttfm.alibi_slopes(H))
+    out, lse = tfa.flash_attention_reference(q, k, v, **kw)
+    grads = tfa.flash_attention_backward_reference(q, k, v, out, lse, dout, **kw)
+    qp, kp, vp, dop = tfa.pad_head_dim(q, k, v, dout)
+    assert qp.shape[-1] % 8 == 0 and qp.shape[-1] - D < 8 and qp.is_contiguous()
+    assert qp[..., D:].abs().max().item() == 0 if qp.shape[-1] > D else True
+    out_p, lse_p = tfa.flash_attention_reference(qp, kp, vp, **kw)
+    grads_p = tfa.flash_attention_backward_reference(qp, kp, vp, out_p, lse_p, dop, **kw)
+    assert torch.equal(out_p[..., :D], out) and torch.equal(lse_p, lse)
+    for got, want in zip(grads_p, grads):
+        assert torch.equal(got[..., :D], want)
+
+
+def test_padding_route_is_chosen_from_the_shape_and_strides():
+    """16-bit inputs go to the padded copies when a head dim or a stride is
+    not a multiple of 8 elements or a base is not 16-byte aligned; fp32
+    inputs never do (their kernels read any of them)."""
+    bf = torch.zeros(2, 64, 3, 64, dtype=torch.bfloat16)
+    assert not tfa.needs_padding(bf, bf, bf)
+    assert tfa.needs_padding(torch.zeros(2, 64, 3, 100, dtype=torch.bfloat16))
+    wide = torch.zeros(2, 64, 3, 72, dtype=torch.bfloat16)
+    assert tfa.needs_padding(wide[..., 1:65])  # base off 16 bytes, strides 216 = 27 x 8 elements
+    assert tfa.needs_padding(torch.zeros(2, 64, 3, 68, dtype=torch.float16)[..., :64])  # strides not x 8
+    assert not tfa.needs_padding(wide[..., 8:72])  # 16-byte base, strides multiples of 8
+    assert not tfa.needs_padding(torch.zeros(2, 64, 3, 100))  # fp32
+    padded, = tfa.pad_head_dim(torch.ones(2, 64, 3, 100, dtype=torch.bfloat16))
+    assert padded.shape[-1] == 104 and not tfa.needs_padding(padded)

@@ -7,28 +7,34 @@ Phases, each of which passes or makes the script exit non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every kernel from deepspeed_tpu_torch/csrc, one nvcc per source,
      all started together;
-  3. hold the kernel against its plain PyTorch version at the serving shape
-     (B=8, Smax=1024, H=12, D=64; bf16 and fp32; per-row and scalar pos;
-     with and without ALiBi; plus D=128 and D=8), then time the kernel, the
+  3. print the split-KV decode kernels' registers and spills from the
+     build; hold them against their plain PyTorch version at the serving
+     shape (B=8, Smax=1024, H=12, D=64; bf16 and fp32; per-row and scalar
+     pos; with and without ALiBi; plus D=128, D=8 and D=100, the per-element
+     load path), at positions on the splits' edges (0, split - 1, split,
+     Smax - 1, past the end) and with rows ending in different splits, and
+     check that a negative pos writes zeros; then time the kernels, the
      plain version and torch's scaled_dot_product_attention (a yardstick the
      port never calls) against the HBM bound;
   4. init_inference -> generate at GPT-2-125M width (12 layers, d768, 12
      heads, vocab 50304, max_seq_len 1024, bf16, random weights from a
      seeded torch.Generator): 8 prompts of 768 tokens, 256 new tokens,
      greedy and sampled, checking that every decode step of every layer
-     went through the kernel, that the first decode step's logits agree
-     with the plain cached-attention path, and that on a small fp32 model
-     greedy tokens through the kernel equal the plain path's;
+     went through the split and combine kernels, that the first decode
+     step's logits agree with the plain cached-attention path, and that on
+     a small fp32 model greedy tokens through the kernels equal the plain
+     path's;
   5. load the flash-attention kernels (forward, dK/dV, dQ); count each
      kernel's HGMMA (wgmma) instructions in its SASS (cuobjdump) beside its
-     registers and spills from the build, failing if the bf16 forward or
-     dK/dV kernel has none;
+     registers and spills from the build, failing if the bf16 forward, dK/dV
+     or dQ kernel has none;
   6. hold each flash kernel against its plain version: bf16, fp32 and fp16;
      causal, bidirectional, ALiBi, window 256 and window 0 at B=8, S=1024,
      H=12, D=64; the ragged causal edge S=1000; S=128; D=128. Then time
      each kernel, its plain version and torch's scaled_dot_product_attention
      (a yardstick the port never calls) against the bound at that shape,
-     with each kernel's ratio to SDPA;
+     with each kernel's ratio to SDPA (the backward kernels' also to SDPA's
+     forward+backward less its forward);
   7. initialize -> train_batch at GPT-2-125M width (the model bench.py
      times: 12 layers, d768, 12 heads, vocab 50304, S=1024, bf16, flash
      attention, loss chunk 256, AdamW, clipping 1.0, ZeRO stage 1, batch 64
@@ -116,7 +122,7 @@ from deepspeed_tpu_torch.models.transformer import Model, TransformerConfig
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_xent as fx
 from deepspeed_tpu_torch.ops import op_builder
-from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
+from deepspeed_tpu_torch.ops.decode_attention import SPLIT_KEYS, decode_attention, decode_attention_reference
 from deepspeed_tpu_torch.ops.optimizers import tree_map
 from deepspeed_tpu_torch.ops.sparse_attention import SPARSITY_CONFIGS
 from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
@@ -145,17 +151,24 @@ PROMPT_LEN, MAX_NEW = 768, 256
 PROFILE_NEW = 64
 
 
+# GPU clock cycles of a spin enqueued before each timed call (~0.5-1 ms):
+# longer than any wrapper's host enqueue, so the events time the device
+HOST_COVER_CYCLES = 1_000_000
+
+
 def median_ms(fn, flush, runs=100, warmup=10):
     """Median device time of ``fn`` over ``runs`` launches, each after a
     write of ``flush`` (larger than the 50 MB L2) so every run reads the
-    cache cold, as each layer of a decode step does. The flush also keeps
-    the device busy while the host enqueues ``fn``."""
+    cache cold, as each layer of a decode step does. A spin kernel after the
+    flush keeps the device busy while the host enqueues ``fn``, so the time
+    between the events is the device's even where the host is slow."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(runs):
         flush.zero_()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         start.record()
         fn()
         end.record()
@@ -167,7 +180,7 @@ def median_ms(fn, flush, runs=100, warmup=10):
 def kernel_checks(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def case(dtype, d, pos, alibi):
+    def case(dtype, d, pos, alibi, label_pos=None):
         q = torch.randn(B, H, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(B, SMAX, H, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(B, SMAX, H, d, generator=gen, device=dev).to(dtype)
@@ -175,9 +188,14 @@ def kernel_checks(dev):
         out = decode_attention(q, k, v, pos, alibi_slopes=slopes)
         torch.cuda.synchronize()
         ref = decode_attention_reference(q, k, v, pos, alibi_slopes=slopes)
+        # a negative position attends to nothing: the kernels write zeros
+        # there (the plain version averages every masked key, as the JAX
+        # package's does)
+        dead = (torch.as_tensor(pos, device=dev).expand(B) < 0)[:, None, None]
+        ref = torch.where(dead, torch.zeros_like(ref), ref)
         err = (out.float() - ref.float()).abs().max().item()
         ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype]
-        label = f"{str(dtype)[6:]} D={d} pos={'rows' if torch.is_tensor(pos) else pos} alibi={alibi}"
+        label = f"{str(dtype)[6:]} D={d} pos={label_pos or ('rows' if torch.is_tensor(pos) else pos)} alibi={alibi}"
         print(f"  kernel vs plain  {label:<38} max_abs_err={err:.3e}  tol={TOL[dtype]:.0e}  "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -192,6 +210,16 @@ def kernel_checks(dev):
                 errs[dtype] = max(errs[dtype], case(dtype, D, pos, alibi))
     errs[torch.bfloat16] = max(errs[torch.bfloat16], case(torch.bfloat16, 128, pos_rows, False))
     errs[torch.float32] = max(errs[torch.float32], case(torch.float32, 8, pos_rows, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        errs[dtype] = max(errs[dtype], case(dtype, 100, pos_rows, True))  # 16-byte loads cannot read its rows
+        # the splits' edges: the first key, a split's last and the next one's
+        # first, the cache's last key, and past it (clamped)
+        for pos in (0, SPLIT_KEYS - 1, SPLIT_KEYS, SMAX - 1, SMAX + 5):
+            errs[dtype] = max(errs[dtype], case(dtype, D, pos, False))
+        rows = torch.tensor([SPLIT_KEYS - 1, SPLIT_KEYS, 2 * SPLIT_KEYS + 3, -1, 5, SMAX - 1, 3 * SPLIT_KEYS - 1,
+                             -7], dtype=torch.int32, device=dev)  # rows ending in different splits, two negative
+        errs[dtype] = max(errs[dtype], case(dtype, D, rows, True, label_pos="split rows"))
+        errs[dtype] = max(errs[dtype], case(dtype, D, -1, False))
     return errs
 
 
@@ -216,6 +244,15 @@ def kernel_timing(dev):
         "plain_ms": median_ms(lambda: decode_attention_reference(q, k, v, pos), flush),
         "library_ms": median_ms(library, flush),
     }
+    times["library_ratio"] = times["ms"] / times["library_ms"]
+    # calls back to back: the host's cost of one call wherever it exceeds the
+    # device's (the decode step is host-bound)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    times["back_to_back_us"] = (time.perf_counter() - t0) / 200 * 1e6
     live_keys = int((pos.long() + 1).clamp(max=SMAX).sum())
     elt = q.element_size()
     nbytes = 2 * live_keys * H * D * elt + 2 * B * H * D * elt + B * 4  # k,v live prefix; q, out; pos
@@ -224,9 +261,11 @@ def kernel_timing(dev):
     times["bound_ms"] = max(bytes_ms, ops_ms)
     times["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"  timing bf16 B={B} Smax={SMAX} H={H} D={D} pos=1023 (L2 flushed per run): "
-          f"kernel {times['ms']*1e3:.1f} us, plain {times['plain_ms']*1e3:.1f} us, "
+          f"kernels (split + combine) {times['ms']*1e3:.1f} us ({times['library_ratio']:.2f}x sdpa, "
+          f"{nbytes / (times['ms'] * 1e-3) / 1e9:.0f} GB/s), plain {times['plain_ms']*1e3:.1f} us, "
           f"sdpa {times['library_ms']*1e3:.1f} us (max_abs_err vs plain {lib_err:.2e}), "
-          f"bound {times['bound_ms']*1e3:.2f} us ({nbytes/1e6:.1f} MB / 3.35 TB/s)")
+          f"bound {times['bound_ms']*1e3:.2f} us ({nbytes/1e6:.1f} MB / 3.35 TB/s); wrapper calls back to back "
+          f"{times['back_to_back_us']:.1f} us each")
     return times
 
 
@@ -344,27 +383,33 @@ def flash_timing(dev):
     }
     fwd_bwd_lib = median_ms(
         lambda: torch.autograd.grad(sdpa(qr, kr, vr, is_causal=True), (qr, kr, vr), dot), flush)
+    bwd_by_difference = fwd_bwd_lib - times["flash_forward"]["library_ms"]
     for name, (bound, by, nbytes, flops) in flash_bounds(B, S, H, D, 2).items():
         times[name].update(bound_ms=bound, bound_by=by, library_ratio=times[name]["ms"] / times[name]["library_ms"])
         t = times[name]
+        also = ""
+        if name != "flash_forward":
+            t["library_fwd_bwd_less_fwd_ms"] = bwd_by_difference
+            t["library_fwd_bwd_less_fwd_ratio"] = t["ms"] / bwd_by_difference
+            also = f", {t['library_fwd_bwd_less_fwd_ratio']:.2f}x its fwd+bwd less fwd"
         print(f"  timing {name:<20} bf16 B={B} S={S} H={H} D={D} causal: kernel {t['ms']*1e3:8.1f} us "
-              f"({t['library_ratio']:.2f}x sdpa), plain {t['plain_ms']*1e3:8.1f} us, sdpa "
+              f"({t['library_ratio']:.2f}x sdpa{also}), plain {t['plain_ms']*1e3:8.1f} us, sdpa "
               f"{t['library_ms']*1e3:7.1f} us, bound {bound*1e3:5.1f} us ({by}: {nbytes/1e6:.1f} MB, "
               f"{flops/1e9:.1f} GFLOP), {flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
     print(f"  sdpa forward+backward {fwd_bwd_lib*1e3:.1f} us, less its forward "
-          f"{(fwd_bwd_lib - times['flash_forward']['library_ms'])*1e3:.1f} us (its backward alone, timed on a "
+          f"{bwd_by_difference*1e3:.1f} us (its backward alone, timed on a "
           f"retained graph, is the library time of both backward rows); sdpa vs kernel output max_abs_err "
           f"{lib_err:.2e}; plain backward times all three gradients")
     return times
 
 
 # The flash library's kernels, read from the SASS and from the build.
-FLASH_KERNELS = ("flash_fwd_hopper", "flash_dkdv_hopper", "flash_fwd_f32_kernel", "flash_dkdv_f32_kernel",
-                 "flash_bwd_dq_kernel")
+FLASH_KERNELS = ("flash_fwd_hopper", "flash_dkdv_hopper", "flash_dq_hopper", "flash_fwd_f32_kernel",
+                 "flash_dkdv_f32_kernel", "flash_dq_f32_kernel")
 # the entry point -> the kernel that runs it at the main path's shape (bf16, D = 64)
 MAIN_PATH_KERNEL = {"flash_forward": "flash_fwd_hopper bf16 D64",
                     "flash_backward_dkdv": "flash_dkdv_hopper bf16 D64",
-                    "flash_backward_dq": "flash_bwd_dq_kernel bf16 D64"}
+                    "flash_backward_dq": "flash_dq_hopper bf16 D64"}
 
 
 def kernel_label(mangled):
@@ -394,36 +439,71 @@ def cuobjdump():
     raise SystemExit("cuobjdump not found: neither the CUDA toolkit nor triton carries it")
 
 
+def ptxas_report(source, label):
+    """{label: registers and spill bytes} of each kernel of csrc/<source>.cu
+    that ``label`` names, from ptxas's report of this run's build."""
+    info, fn = {}, None
+    for line in op_builder.PTXAS_INFO.get(source, []):
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = label(line)
+            if fn:
+                info.setdefault(fn, {"registers": None, "spill_stores": None, "spill_loads": None})
+        elif fn and "spill stores" in line:
+            words = line.replace(",", "").split()
+            info[fn]["spill_stores"] = int(words[words.index("spill") - 2])
+            info[fn]["spill_loads"] = int(words[-4])
+        elif fn and "Used" in line and "registers" in line:
+            words = line.split()
+            info[fn]["registers"] = int(words[words.index("Used") + 1])
+    return info
+
+
+def decode_label(text):
+    """'decode_split_kernel bf16 W8 G8 NV1' (16-byte loads of 8 elements, 8
+    lanes a row, one load a lane) or 'decode_combine_kernel bf16' from a
+    mangled template instance, else None."""
+    m = re.search(r"decode_(split|combine)_kernelI(13__nv_bfloat16|f)((?:Li\d+E)*)E", text)
+    if m is None:
+        return None
+    args = "".join(f" {k}{v}" for k, v in zip(("W", "G", "NV"), re.findall(r"Li(\d+)E", m.group(3))))
+    return f"decode_{m.group(1)}_kernel {'fp32' if m.group(2) == 'f' else 'bf16'}{args}"
+
+
+# the decode kernels that run at the serving shape (bf16, D = 64)
+DECODE_MAIN_PATH = ("decode_split_kernel bf16 W8 G8 NV1", "decode_combine_kernel bf16")
+
+
+def decode_registers():
+    """Print the decode kernels' registers and spills from the build; return
+    those of the serving shape's instances."""
+    info = ptxas_report("decode_attention", decode_label)
+    for name, v in sorted(info.items()):
+        print(f"  {name:<36} registers {v['registers']}  spill stores {v['spill_stores']} B, "
+              f"loads {v['spill_loads']} B")
+    return {name: info.get(name, {}) for name in DECODE_MAIN_PATH}
+
+
 def flash_sass():
     """Per flash kernel: HGMMA instructions in its SASS, and its registers and
-    spill bytes from ptxas's report of this run's build. Fails if the bf16
-    forward or dK/dV kernel has no HGMMA."""
+    spill bytes from ptxas's report of this run's build. Fails if a bf16
+    kernel of the main path has no HGMMA."""
     lib = op_builder.build_many(["flash_attention"])["flash_attention"]
     sass = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    info, fn = {}, None
+    info, fn = ptxas_report("flash_attention", kernel_label), None
+    for v in info.values():
+        v["hgmma"] = 0
     for line in sass.splitlines():
         if "Function :" in line:
             fn = kernel_label(line.split("Function :", 1)[1].strip())
             if fn:
-                info[fn] = {"hgmma": 0, "registers": None, "spill_stores": None, "spill_loads": None}
+                info.setdefault(fn, {"registers": None, "spill_stores": None, "spill_loads": None, "hgmma": 0})
         elif fn and "HGMMA" in line:
             info[fn]["hgmma"] += 1
-    fn = None
-    for line in op_builder.PTXAS_INFO.get("flash_attention", []):
-        if "Compiling entry function" in line or "Function properties for" in line:
-            fn = kernel_label(line)
-        elif fn in info and "spill stores" in line:
-            words = line.replace(",", "").split()
-            info[fn]["spill_stores"] = int(words[words.index("spill") - 2])
-            info[fn]["spill_loads"] = int(words[-4])
-        elif fn in info and "Used" in line and "registers" in line:
-            words = line.split()
-            info[fn]["registers"] = int(words[words.index("Used") + 1])
     for name, v in sorted(info.items()):
         print(f"  {name:<30} HGMMA {v['hgmma']:4d}  registers {v['registers']}  spill stores "
               f"{v['spill_stores']} B, loads {v['spill_loads']} B")
-    for name in ("flash_fwd_hopper bf16 D64", "flash_dkdv_hopper bf16 D64"):
+    for name in MAIN_PATH_KERNEL.values():
         if info.get(name, {}).get("hgmma", 0) == 0:
             raise SystemExit(f"{name} has no HGMMA instruction in its SASS")
     return info
@@ -460,7 +540,7 @@ def sparse_counts():
 def reset_counts():
     for c in FLASH_COUNTERS + XENT_COUNTERS + SPARSE_COUNTERS:
         c.launches = 0
-    decode_attention.launches = 0
+    decode_attention.launches = decode_attention.combine_launches = 0
 
 
 def timed_steps(engine, batch, steps):
@@ -1272,19 +1352,19 @@ def serve(dev):
     for name, kw in (("greedy", {}), ("sampled", {"temperature": 0.8, "top_k": 50, "top_p": 0.9})):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-        decode_attention.launches = 0
+        decode_attention.launches = decode_attention.combine_launches = 0
         t0 = time.perf_counter()
         out = engine.generate(prompt, max_new_tokens=MAX_NEW, **kw)
         seconds = time.perf_counter() - t0
-        launches = decode_attention.launches
+        launches, combines = decode_attention.launches, decode_attention.combine_launches
         ok = (out.shape == (B, MAX_NEW) and out.dtype == np.int32
-              and (out >= 0).all() and (out < cfg.vocab_size).all() and launches == expect)
-        print(f"  generate {name}: {out.shape} in {seconds:.3f} s, kernel launches {launches} "
-              f"(expect {cfg.num_layers} x {MAX_NEW - 1} = {expect}), "
+              and (out >= 0).all() and (out < cfg.vocab_size).all() and launches == combines == expect)
+        print(f"  generate {name}: {out.shape} in {seconds:.3f} s, kernel launches {launches} split, "
+              f"{combines} combine (expect {cfg.num_layers} x {MAX_NEW - 1} = {expect} each), "
               f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"generate {name} failed its checks")
-        results[name] = {"seconds": seconds, "launches": launches,
+        results[name] = {"seconds": seconds, "launches": launches, "combine_launches": combines,
                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
     # prefill alone, to split generate's time into prefill and decode
@@ -1335,7 +1415,7 @@ def serve(dev):
           f"({e2e['decode_tokens_per_s']:.0f} tokens/s over {B} rows), "
           f"{e2e['tokens_per_s']:.0f} tokens/s end to end")
     print(json.dumps({"serving": e2e}))
-    return g["launches"], engine, prompt
+    return (g["launches"], g["combine_launches"]), engine, prompt
 
 
 def profile(label, fn, out_dir):
@@ -1403,7 +1483,8 @@ def main() -> int:
     print(f"[2] built {', '.join(KERNEL_SOURCES)} (one nvcc each, in parallel) in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    print("[3] decode_attention kernel vs plain")
+    print("[3] decode_attention kernels vs plain; their registers and spills (ptxas):")
+    decode_regs = decode_registers()
     errs = kernel_checks(dev)
     times = kernel_timing(dev)
 
@@ -1490,10 +1571,14 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
         "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:54",
-        "launches": launches,
+        "launches": launches[0], "combine_launches": launches[1],
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"], "library_ms": times["library_ms"],
+        "bound_by": times["bound_by"], "library_ms": times["library_ms"], "library_ratio": times["library_ratio"],
+        "back_to_back_us": times["back_to_back_us"],
+        "registers": decode_regs[DECODE_MAIN_PATH[0]].get("registers"),
+        "spill_stores": decode_regs[DECODE_MAIN_PATH[0]].get("spill_stores"),
+        "combine_registers": decode_regs[DECODE_MAIN_PATH[1]].get("registers"),
     }]
     replaces = {"flash_forward": "deepspeed_tpu/ops/pallas/flash_attention.py:182",
                 "flash_backward_dkdv": "deepspeed_tpu/ops/pallas/flash_attention.py:282",
@@ -1509,7 +1594,10 @@ def main() -> int:
             "max_rel_err_fp16": e[torch.float16][1],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library_ratio": t["library_ratio"],
+            **{k: t[k] for k in ("library_fwd_bwd_less_fwd_ms", "library_fwd_bwd_less_fwd_ratio") if k in t},
             "hgmma": sass.get(MAIN_PATH_KERNEL[name], {}).get("hgmma", 0),
+            "registers": sass.get(MAIN_PATH_KERNEL[name], {}).get("registers"),
+            "spill_stores": sass.get(MAIN_PATH_KERNEL[name], {}).get("spill_stores"),
         })
     replaces = {"fused_xent_forward": "deepspeed_tpu/ops/pallas/fused_xent.py:73",
                 "fused_xent_backward_dh": "deepspeed_tpu/ops/pallas/fused_xent.py:171",

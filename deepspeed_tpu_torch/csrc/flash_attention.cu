@@ -43,14 +43,14 @@
 // operations bound it about equally; the backward does 2.5x the products on
 // ~1.5x the bytes and is bound by operations.
 //
-// The 16-bit forward and dK/dV (flash_fwd_hopper, flash_dkdv_hopper) are
-// warp-specialised for Hopper (hopper.cuh): per CTA one producer warp and two
-// consumer warpgroups. The producer's lane 0 loads tiles by TMA into a
+// The 16-bit kernels (flash_fwd_hopper, flash_dkdv_hopper, flash_dq_hopper)
+// are warp-specialised for Hopper (hopper.cuh): per CTA one producer warp and
+// two consumer warpgroups. The producer's lane 0 loads tiles by TMA into a
 // three-stage ring of 128-byte-swizzled shared memory with mbarrier completion
 // (the dK/dV producer warp also stages each query tile's lse and Δ); the
 // consumers run every product as wgmma with fp32 accumulators in registers
 // and hand a stage back through an "empty" mbarrier. S, P, dS and the
-// O/dK/dV accumulators never touch shared memory: P (and dS) are rounded in
+// O/dK/dV/dQ accumulators never touch shared memory: P (and dS) are rounded in
 // registers and fed back as wgmma's register A operand, whose layout is the
 // accumulator's. Softmax runs in base 2 (scale and slopes pre-multiplied by
 // log2 e); lse is written back in natural log.
@@ -61,12 +61,17 @@
 //   dK/dV: CTA = 128 keys (64 per warpgroup), query tiles of 64; Sᵀ = K·Qᵀ
 //     and dPᵀ = V·dOᵀ (keys as rows, so Pᵀ and dSᵀ land in registers as the A
 //     of dV += Pᵀ·dO and dK += dSᵀ·Q, with dO and Q read MN-major).
+//   dQ: CTA = 128 query rows (64 per warpgroup); Q and dO loaded once, key
+//     tiles of 64 through the ring (the register budget: S, dP and dQ
+//     accumulators plus dS as A); S = Q·Kᵀ and dP = dO·Vᵀ K-major, dS formed
+//     in registers, dQ += dS·K with K read MN-major; each thread's two rows
+//     keep their lse and Δ in registers; the longest causal q-tiles first.
 // They need 16-byte rows and strides for TMA: D % 8 == 0, q/k/v/dO bases at
 // 16 bytes and their strides multiples of 8 elements; the wrapper pads any
 // other input into aligned buffers before the launch (flash_attention.py).
-// fp32 inputs keep the 32x32 scalar kernels below (shared-memory tiles,
-// scalar FMAs: TF32 tensor cores would break the fp32 tolerance), and dQ
-// keeps its nvcuda::wmma design (common.cuh, attention.cuh) in all types.
+// fp32 inputs keep the 32x32 scalar kernels (shared-memory tiles, scalar
+// FMAs through common.cuh and attention.cuh: TF32 tensor cores would break
+// the fp32 tolerance).
 //
 // Plain C interface, loaded with ctypes. Each entry point launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns
@@ -102,10 +107,7 @@ namespace {
 
 constexpr int MAX_D = 128;
 
-template <typename T> struct Tile;
-template <> struct Tile<bf16> { static constexpr int BQ = 64, BK = 64; };
-template <> struct Tile<half> { static constexpr int BQ = 64, BK = 64; };
-template <> struct Tile<float> { static constexpr int BQ = 32, BK = 32; };
+constexpr int F32_TILE = 32;  // the fp32 kernels' query and key tiles
 
 struct Mask {
   float scale, slope, w;
@@ -150,7 +152,7 @@ __device__ __forceinline__ int key_end(const FlashParams& p, int q0, int BQ) {
 
 template <int DP>
 struct FwdSmem {
-  static constexpr int BQ = Tile<float>::BQ, BK = Tile<float>::BK;
+  static constexpr int BQ = F32_TILE, BK = F32_TILE;
   static constexpr int LDT = ld_t<float, DP>(), LDS = ld_f<BK>(), LDA = ld_f<DP>();
   static constexpr size_t bytes = (BQ * LDT + 2 * BK * LDT + BQ * LDS + BQ * LDS + BQ * LDA + 2 * BQ) * sizeof(float);
 };
@@ -232,7 +234,7 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_fwd_f32_kernel(const FlashP
 
 template <int DP>
 struct DkdvSmem {
-  static constexpr int BQ = Tile<float>::BQ, BK = Tile<float>::BK;
+  static constexpr int BQ = F32_TILE, BK = F32_TILE;
   static constexpr int LDT = ld_t<float, DP>(), LDS = ld_f<BK>(), LDA = ld_f<DP>();
   static constexpr size_t bytes =
       (2 * BK * LDT + 2 * BQ * LDT + 2 * BQ * LDS + 2 * BQ * LDS + 2 * BK * LDA + 2 * BQ) * sizeof(float);
@@ -656,76 +658,217 @@ __global__ void __launch_bounds__(HOP_THREADS, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// dQ: one CTA per (q-tile, h, b), looping over key tiles.
-// ---------------------------------------------------------------------------
-
+// Shared memory: [Q: 128 x DP][dO: 128 x DP][K: STAGES x 64 x DP][V: the
+// same], then the barriers.
 template <typename T, int DP>
-struct DqSmem {
-  static constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
-  static constexpr int LDT = ld_t<T, DP>(), LDP = ld_t<T, BK>(), LDS = ld_f<BK>(), LDA = ld_f<DP>();
-  // 16-bit inputs keep dQ in registers (RegAcc); fp32 accumulates in shared memory
-  static constexpr bool REG = IS_16BIT<T>;
-  static constexpr size_t bytes = (2 * BQ * LDT + 2 * BK * LDT + BQ * LDP) * sizeof(T) +
-                                  (2 * BQ * LDS + (REG ? 0 : BQ * LDA) + 2 * BQ) * sizeof(float);
-  static_assert(!REG || BQ * LDA <= 2 * BQ * LDS, "the dQ staging tile must fit in the score buffers");
+struct HopDq {
+  static constexpr int BQ = 128, BK = 64;
+  static constexpr int Q_ELEMS = BQ * DP, KV_ELEMS = BK * DP;
+  static constexpr size_t bytes =
+      1024 + (2 * Q_ELEMS + 2 * HOP_STAGES * KV_ELEMS) * sizeof(T) + (1 + 2 * HOP_STAGES) * sizeof(uint64_t);
 };
 
+// 16-bit dQ: CTA = 128 query rows (64 per warpgroup), key tiles of 64. The
+// register budget sets the key tile: S, dP and dQ accumulators (32 + 32 +
+// 32 or 64 a thread) plus dS as the A operand fit under the 168 registers a
+// 288-thread CTA gets; 128-key tiles would not.
 template <typename T, int DP>
-__global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dq_kernel(const FlashParams p) {
-  using L = DqSmem<T, DP>;
-  constexpr int BQ = L::BQ, BK = L::BK, LDT = L::LDT, LDP = L::LDP, LDS = L::LDS, LDA = L::LDA;
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+    flash_dq_hopper(const FlashParams p, const __grid_constant__ HopMaps maps) {
+  using L = HopDq<T, DP>;
+  constexpr int BQ = L::BQ, BK = L::BK, ST = HOP_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = q_s + L::Q_ELEMS;
+  T* k_s = do_s + L::Q_ELEMS;         // stage s at k_s + s * KV_ELEMS
+  T* v_s = k_s + ST * L::KV_ELEMS;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(v_s + ST * L::KV_ELEMS);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + ST;
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal rows first
+  const int n_tiles = (key_end(p, q0, BQ) + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], HOP_CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == HOP_CONSUMER_WARPS) {  // producer: Q and dO once, then the K/V ring
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_bar, 2 * L::Q_ELEMS * sizeof(T));
+      tma_load_rows<BQ, DP>(q_s, &maps.q, q_bar, q0, h, b);
+      tma_load_rows<BQ, DP>(do_s, &maps.dout, q_bar, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(&empty[s], ((j / ST) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::KV_ELEMS * sizeof(T));
+        tma_load_rows<BK, DP>(k_s + s * L::KV_ELEMS, &maps.k, &full[s], j * BK, h, b);
+        tma_load_rows<BK, DP>(v_s + s * L::KV_ELEMS, &maps.v, &full[s], j * BK, h, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns query rows q0 + 64·wg + [0, 64); this
+  // thread holds rows row0 and row0 + 8 for the whole CTA, so their lse (in
+  // base 2, as the scores) and Δ live in registers. Rows past Sq read as
+  // zeros and are never written.
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const Mask mask = make_mask2(p, h);
+  const int row0 = q0 + 64 * wg + acc_row(0, t);
+  const T* q_w = q_s + 64 * 64 * wg;  // this warpgroup's rows in each column atom
+  const T* do_w = do_s + 64 * 64 * wg;
+  float lse2[2], dlt[2];
+  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < p.Sq ? p.lse[row_base + row] * LOG2E : 0.0f;
+    dlt[r] = row < p.Sq ? p.delta[row_base + row] : 0.0f;
+  }
+
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
+
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % ST, k0 = j * BK;
+    const T* k_t = k_s + s * L::KV_ELEMS;
+    const T* v_t = v_s + s * L::KV_ELEMS;
+    mbar_wait(&full[s], (j / ST) & 1);
+
+    float sc[BK / 2], dp[BK / 2];  // S = Q·Kᵀ and dP = dO·Vᵀ, both operands K-major
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      sc[i] = 0.0f;
+      dp[i] = 0.0f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int off = (kk % 4) * 16;  // column atom kk / 4, 32 bytes per step inside it
+      wgmma_ss<T, BK, 0>(sc, desc_b128(q_w + (kk / 4) * BQ * 64 + off, 16),
+                         desc_b128(k_t + (kk / 4) * BK * 64 + off, 16), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int off = (kk % 4) * 16;
+      wgmma_ss<T, BK, 0>(dp, desc_b128(do_w + (kk / 4) * BQ * 64 + off, 16),
+                         desc_b128(v_t + (kk / 4) * BK * 64 + off, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P = exp2(S·scale·log2 e − lse₂), then dS = P∘(dP − Δ) rounded to T. A
+    // tile that no mask reaches, without ALiBi, scales and shifts each raw
+    // product with one FMA; the others go through the mask in the Pallas
+    // _block_scores order.
+    const bool masked = mask.has_window || k0 + BK > p.Sk || (mask.causal && k0 + BK - 1 > q0 + 64 * wg);
+    const bool raw = !masked && mask.slope == 0.0f;
+    if (raw) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = exp2f(fmaf(sc[i], mask.scale, -lse2[(i >> 1) & 1]));
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i >> 1) & 1, qpos = row0 + 8 * r, kpos = k0 + acc_col(i, t);
+        const float s2 = masked ? mask(sc[i], qpos, kpos) : mask.unmasked(sc[i], qpos, kpos);
+        sc[i] = exp2f(s2 - lse2[r]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) dp[i] = sc[i] * (dp[i] - dlt[(i >> 1) & 1]);
+    uint32_t da[BK / 16][4];  // dS in the input type, as the A operand of dS·K
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<T>(dp, kk, da[kk]);
+    fence_regs(dq);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)  // dQ += dS·K, K MN-major: 16 keys = 16 rows per step
+      wgmma_rs<T, DP, 1>(dq, da[kk], desc_b128(k_t + kk * 16 * 64, BK * 128), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // Epilogue: dQ · scale in the input type.
+  T* dq_g = static_cast<T*>(p.dq) + b * p.dq_str[0] + h * p.dq_str[2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int row = row0 + 8 * ((i >> 1) & 1), col = acc_col(i, t);
+    if (row < p.Sq && col < p.D) {
+      *reinterpret_cast<uint32_t*>(dq_g + row * p.dq_str[1] + col) = pack2<T>(dq[i] * p.scale, dq[i + 1] * p.scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 dQ: one CTA per (q-tile, h, b), looping over key tiles.
+// ---------------------------------------------------------------------------
+
+template <int DP>
+struct DqSmem {
+  static constexpr int BQ = F32_TILE, BK = F32_TILE;
+  static constexpr int LDT = ld_t<float, DP>(), LDS = ld_f<BK>(), LDA = ld_f<DP>();
+  static constexpr size_t bytes = (2 * BQ * LDT + 2 * BK * LDT + 3 * BQ * LDS + BQ * LDA + 2 * BQ) * sizeof(float);
+};
+
+template <int DP>
+__global__ void __launch_bounds__(NUM_THREADS) flash_dq_f32_kernel(const FlashParams p) {
+  using L = DqSmem<DP>;
+  constexpr int BQ = L::BQ, BK = L::BK, LDT = L::LDT, LDS = L::LDS, LDA = L::LDA;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);                   // [BQ][LDT]
-  T* do_s = q_s + BQ * LDT;                               // [BQ][LDT]
-  T* k_s = do_s + BQ * LDT;                               // [BK][LDT]
-  T* v_s = k_s + BK * LDT;                                // [BK][LDT]
-  T* ds_s = v_s + BK * LDT;                               // [BQ][LDP]
-  float* s_s = reinterpret_cast<float*>(ds_s + BQ * LDP); // [BQ][LDS]
-  float* dp_s = s_s + BQ * LDS;                           // [BQ][LDS]
-  float* dq_s = dp_s + BQ * LDS;                          // [BQ][LDA] (fp32 inputs only)
-  float* lse_s = dq_s + (L::REG ? 0 : BQ * LDA);          // [BQ]
-  float* delta_s = lse_s + BQ;                            // [BQ]
+  float* q_s = reinterpret_cast<float*>(smem);  // [BQ][LDT]
+  float* do_s = q_s + BQ * LDT;                  // [BQ][LDT]
+  float* k_s = do_s + BQ * LDT;                  // [BK][LDT]
+  float* v_s = k_s + BK * LDT;                   // [BK][LDT]
+  float* ds_s = v_s + BK * LDT;                  // [BQ][LDS]
+  float* s_s = ds_s + BQ * LDS;                  // [BQ][LDS]
+  float* dp_s = s_s + BQ * LDS;                  // [BQ][LDS]
+  float* dq_s = dp_s + BQ * LDS;                 // [BQ][LDA]
+  float* lse_s = dq_s + BQ * LDA;                // [BQ]
+  float* delta_s = lse_s + BQ;                   // [BQ]
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const Mask mask = make_mask(p, h);
 
-  load_tile<T, BQ, DP, LDT>(q_s, static_cast<const T*>(p.q), p.q_str, b, h, q0, p.Sq, p.D);
-  load_tile<T, BQ, DP, LDT>(do_s, static_cast<const T*>(p.dout), p.do_str, b, h, q0, p.Sq, p.D);
+  load_tile<float, BQ, DP, LDT>(q_s, static_cast<const float*>(p.q), p.q_str, b, h, q0, p.Sq, p.D);
+  load_tile<float, BQ, DP, LDT>(do_s, static_cast<const float*>(p.dout), p.do_str, b, h, q0, p.Sq, p.D);
   load_rows<BQ>(lse_s, p.lse, b, h, p.H, q0, p.Sq);
   load_rows<BQ>(delta_s, p.delta, b, h, p.H, q0, p.Sq);
-  RegAcc<T, BQ, DP> dq_acc;
-  if constexpr (L::REG) {
-    dq_acc.zero();
-  } else {
-    for (int i = threadIdx.x; i < BQ * LDA; i += NUM_THREADS) dq_s[i] = 0.0f;
-  }
+  for (int i = threadIdx.x; i < BQ * LDA; i += NUM_THREADS) dq_s[i] = 0.0f;
 
   const int k_end = key_end(p, q0, BQ);
   for (int k0 = 0; k0 < k_end; k0 += BK) {
-    load_tile<T, BK, DP, LDT>(k_s, static_cast<const T*>(p.k), p.k_str, b, h, k0, p.Sk, p.D);
-    load_tile<T, BK, DP, LDT>(v_s, static_cast<const T*>(p.v), p.v_str, b, h, k0, p.Sk, p.D);
+    load_tile<float, BK, DP, LDT>(k_s, static_cast<const float*>(p.k), p.k_str, b, h, k0, p.Sk, p.D);
+    load_tile<float, BK, DP, LDT>(v_s, static_cast<const float*>(p.v), p.v_str, b, h, k0, p.Sk, p.D);
     __syncthreads();
     block_gemm<BQ, BK, DP, false, true, LDT, LDT, LDS>(q_s, k_s, s_s, false);    // Q·Kᵀ
     block_gemm<BQ, BK, DP, false, true, LDT, LDT, LDS>(do_s, v_s, dp_s, false);  // dO·Vᵀ
     __syncthreads();
-    probs_and_dscores<T, BQ, BK, LDS, LDP>(mask, s_s, dp_s, lse_s, delta_s, static_cast<T*>(nullptr),
-                                           ds_s, q0, k0, p.Sq);
+    probs_and_dscores<float, BQ, BK, LDS, LDS>(mask, s_s, dp_s, lse_s, delta_s, static_cast<float*>(nullptr),
+                                               ds_s, q0, k0, p.Sq);
     __syncthreads();
-    if constexpr (L::REG) {
-      dq_acc.template mma<BK, false, false, LDP, LDT>(ds_s, k_s);          // dQ += dS·K
-    } else {
-      block_gemm<BQ, DP, BK, false, false, LDP, LDT, LDA>(ds_s, k_s, dq_s, true);
-    }
+    block_gemm<BQ, DP, BK, false, false, LDS, LDT, LDA>(ds_s, k_s, dq_s, true);  // dQ += dS·K
     __syncthreads();
   }
-
-  if constexpr (L::REG) {  // stage the accumulator through the free score buffers
-    dq_acc.store(s_s, LDA);
-    __syncthreads();
-    dq_s = s_s;
-  }
-  store_tile<T, BQ, DP, LDA>(static_cast<T*>(p.dq), p.dq_str, dq_s, p.scale, b, h, q0, p.Sq, p.D);
+  store_tile<float, BQ, DP, LDA>(static_cast<float*>(p.dq), p.dq_str, dq_s, p.scale, b, h, q0, p.Sq, p.D);
 }
 
 // ---------------------------------------------------------------------------
@@ -740,33 +883,26 @@ int launch_with_smem(Kernel kernel, size_t smem) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-// The fp32 forward and dK/dV, and dQ in every type.
-template <typename T, int DP>
-int launch(const FlashParams& p, Which which, cudaStream_t stream) {
-  constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
+// The fp32 kernels.
+template <int DP>
+int launch_f32(const FlashParams& p, Which which, cudaStream_t stream) {
   void (*kernel)(const FlashParams) = nullptr;
   size_t smem = 0;
-  dim3 grid;
-  if constexpr (std::is_same<T, float>::value) {
-    if (which == FWD) {
-      kernel = flash_fwd_f32_kernel<DP>;
-      smem = FwdSmem<DP>::bytes;
-      grid = dim3((p.Sq + BQ - 1) / BQ, p.H, p.B);
-    } else if (which == DKDV) {
-      kernel = flash_dkdv_f32_kernel<DP>;
-      smem = DkdvSmem<DP>::bytes;
-      grid = dim3((p.Sk + BK - 1) / BK, p.H, p.B);
-    }
+  int tiles = (p.Sq + F32_TILE - 1) / F32_TILE;
+  if (which == FWD) {
+    kernel = flash_fwd_f32_kernel<DP>;
+    smem = FwdSmem<DP>::bytes;
+  } else if (which == DKDV) {
+    kernel = flash_dkdv_f32_kernel<DP>;
+    smem = DkdvSmem<DP>::bytes;
+    tiles = (p.Sk + F32_TILE - 1) / F32_TILE;
+  } else {
+    kernel = flash_dq_f32_kernel<DP>;
+    smem = DqSmem<DP>::bytes;
   }
-  if (which == DQ) {
-    kernel = flash_bwd_dq_kernel<T, DP>;
-    smem = DqSmem<T, DP>::bytes;
-    grid = dim3((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  }
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int e = launch_with_smem(kernel, smem);
   if (e != 0) return e;
-  kernel<<<grid, NUM_THREADS, smem, stream>>>(p);
+  kernel<<<dim3(tiles, p.H, p.B), NUM_THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -779,7 +915,7 @@ bool even(const void* ptr, const long long* str) {
   return reinterpret_cast<size_t>(ptr) % 4 == 0 && str[0] % 2 == 0 && str[1] % 2 == 0 && str[2] % 2 == 0;
 }
 
-// The 16-bit forward and dK/dV on the Hopper kernels. Their inputs need TMA's
+// The 16-bit kernels on Hopper. Their inputs need TMA's
 // 16-byte rows and strides, their outputs 4-byte pairs; the wrapper pads
 // anything else before the launch.
 template <typename T, int DP>
@@ -803,7 +939,7 @@ int launch_hopper(const FlashParams& p, Which which, cudaStream_t stream) {
     if (e != 0) return e;
     const dim3 grid(p.B * p.H, (p.Sq + L::BQ - 1) / L::BQ);
     flash_fwd_hopper<T, DP, BK><<<grid, HOP_THREADS, L::bytes, stream>>>(p, maps);
-  } else {
+  } else if (which == DKDV) {
     using L = HopDkdv<T, DP>;
     if (!aligned16(p.dout, p.do_str) || !even(p.dk, p.dk_str) || !even(p.dv, p.dv_str)) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -818,6 +954,19 @@ int launch_hopper(const FlashParams& p, Which which, cudaStream_t stream) {
     if (e != 0) return e;
     const dim3 grid(p.B * p.H, (p.Sk + L::BK - 1) / L::BK);
     flash_dkdv_hopper<T, DP><<<grid, HOP_THREADS, L::bytes, stream>>>(p, maps);
+  } else {
+    using L = HopDq<T, DP>;
+    if (!aligned16(p.dout, p.do_str) || !even(p.dq, p.dq_str)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!tile_map(&maps.q, p.q, is_bf16, p.q_str, p.B, p.Sq, p.H, p.D, L::BQ) ||
+        !tile_map(&maps.dout, p.dout, is_bf16, p.do_str, p.B, p.Sq, p.H, p.D, L::BQ) ||
+        !tile_map(&maps.k, p.k, is_bf16, p.k_str, p.B, p.Sk, p.H, p.D, L::BK) ||
+        !tile_map(&maps.v, p.v, is_bf16, p.v_str, p.B, p.Sk, p.H, p.D, L::BK)) {
+      return static_cast<int>(cudaErrorNotSupported);
+    }
+    const int e = launch_with_smem(flash_dq_hopper<T, DP>, L::bytes);
+    if (e != 0) return e;
+    const dim3 grid(p.B * p.H, (p.Sq + L::BQ - 1) / L::BQ);
+    flash_dq_hopper<T, DP><<<grid, HOP_THREADS, L::bytes, stream>>>(p, maps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -825,13 +974,12 @@ int launch_hopper(const FlashParams& p, Which which, cudaStream_t stream) {
 template <typename T>
 int dispatch_d(const FlashParams& p, Which which, cudaStream_t stream) {
   if constexpr (IS_16BIT<T>) {
-    if (which != DQ) {
-      return p.D <= 64 ? launch_hopper<T, 64>(p, which, stream) : launch_hopper<T, 128>(p, which, stream);
-    }
+    return p.D <= 64 ? launch_hopper<T, 64>(p, which, stream) : launch_hopper<T, 128>(p, which, stream);
+  } else {
+    if (p.D <= 32) return launch_f32<32>(p, which, stream);
+    if (p.D <= 64) return launch_f32<64>(p, which, stream);
+    return launch_f32<128>(p, which, stream);
   }
-  if (p.D <= 32) return launch<T, 32>(p, which, stream);
-  if (p.D <= 64) return launch<T, 64>(p, which, stream);
-  return launch<T, 128>(p, which, stream);
 }
 
 int dispatch(const FlashParams* p, Which which, void* stream) {
@@ -849,8 +997,8 @@ int dispatch(const FlashParams* p, Which which, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. The caller has checked shapes, dtypes,
-// devices, a contiguous last dimension and 1 <= D <= 128, and for the 16-bit forward
-// and dK/dV the alignment above.
+// devices, a contiguous last dimension and 1 <= D <= 128, and for the 16-bit kernels
+// the alignment above.
 extern "C" int dstt_flash_fwd(const FlashParams* p, void* stream) { return dispatch(p, FWD, stream); }
 extern "C" int dstt_flash_bwd_dkdv(const FlashParams* p, void* stream) { return dispatch(p, DKDV, stream); }
 extern "C" int dstt_flash_bwd_dq(const FlashParams* p, void* stream) { return dispatch(p, DQ, stream); }

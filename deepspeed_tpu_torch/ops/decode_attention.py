@@ -1,10 +1,18 @@
 """Single-token decode attention over a KV cache.
 
-``decode_attention`` launches the hand-written CUDA kernel
+``decode_attention`` launches the hand-written CUDA kernels
 (``csrc/decode_attention.cu``, the port of the TPU kernel in
 ``deepspeed_tpu/ops/pallas/decode_attention.py``) on CUDA tensors, and runs
 its plain PyTorch twin ``decode_attention_reference`` on CPU tensors. A CUDA
-tensor never takes the plain path: the kernel launches or the call raises.
+tensor never takes the plain path: the kernels launch or the call raises.
+
+The CUDA path is split-KV: one kernel computes a partial softmax state per
+``SPLIT_KEYS`` keys of each (b, h) into fp32 scratch, a second merges the
+live splits in order. ``split_plan`` fixes the split count and the scratch
+shape from the cache length alone, never from ``pos``, so a decode step's
+launches do not depend on a position. ``decode_attention.launches`` counts
+the first kernel's launches (one per call), ``.combine_launches`` the
+second's.
 
 Layout: q [B, H, D] (the new token, after rotary), k/v cache [B, Smax, H, D],
 pos [B] int32 or a scalar = index of the newest valid cache entry, so keys
@@ -23,6 +31,8 @@ from . import op_builder
 NEG_INF = -1e30  # the kernel's masked-score constant (TPU kernel: NEG_INF)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
+SPLIT_KEYS = 128  # keys per split: SPLIT_KEYS in csrc/decode_attention.cu
+_MAX_SPLITS = 4096  # MAX_SPLITS there
 
 
 def _pos_vector(pos, B: int, device) -> torch.Tensor:
@@ -67,11 +77,27 @@ def decode_attention_reference(q, k_cache, v_cache, pos, *, sm_scale=None, alibi
     return torch.einsum("bhk,bkhd->bhd", p, v_cache.float()).to(q.dtype)
 
 
+def split_plan(B: int, Smax: int, H: int, D: int) -> tuple[int, tuple[int, int, int, int]]:
+    """(splits, scratch shape) of the split-KV kernels: ceil(Smax /
+    SPLIT_KEYS) splits, each leaving (m, l, acc[D]) in fp32. Fixed by the
+    cache's shape; no position enters it."""
+    splits = -(-Smax // SPLIT_KEYS)
+    return splits, (B, H, splits, D + 2)
+
+
+def vector_loads(k_cache, v_cache) -> bool:
+    """Whether the kernel reads key and value rows as 16-byte loads: a row
+    of D elements that is a multiple of 16 bytes and both caches' bases at
+    16 bytes. Otherwise it loads one element a lane at a time."""
+    row_bytes = k_cache.shape[-1] * k_cache.element_size()
+    return row_bytes % 16 == 0 and k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0
+
+
 def _bind(lib: ctypes.CDLL):
     fn = lib.dstt_decode_attention
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 7 + [i32] * 7 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     return fn
 
@@ -81,7 +107,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, sm_scale=None, alibi_slopes=No
     [B,Smax,H,D] -> [B,H,D] in q's dtype (fp32 accumulation).
 
     CPU tensors take ``decode_attention_reference``. CUDA tensors launch the
-    kernel, which takes contiguous fp32 or bf16 tensors on one device and
+    kernels, which take contiguous fp32 or bf16 tensors on one device and
     D <= 256; anything else raises."""
     _check(q, k_cache, v_cache, alibi_slopes)
     if q.device.type == "cpu":
@@ -100,23 +126,28 @@ def decode_attention(q, k_cache, v_cache, pos, *, sm_scale=None, alibi_slopes=No
         raise ValueError("the decode kernel needs contiguous q, k_cache, v_cache and alibi_slopes")
     if not 1 <= D <= _MAX_D:
         raise ValueError(f"the decode kernel takes head dim 1..{_MAX_D}, got {D}")
-    if not (1 <= B <= 65535 and H >= 1 and Smax >= 1):
-        raise ValueError(f"the decode kernel takes 1 <= B <= 65535, H >= 1, Smax >= 1; got {B}, {H}, {Smax}")
+    if not (1 <= B <= 65535 and 1 <= H <= 65535 and 1 <= Smax <= _MAX_SPLITS * SPLIT_KEYS):
+        raise ValueError(f"the decode kernel takes 1 <= B, H <= 65535 and 1 <= Smax <= "
+                         f"{_MAX_SPLITS * SPLIT_KEYS}; got {B}, {H}, {Smax}")
     if alibi_slopes is not None and alibi_slopes.dtype != torch.float32:
         raise TypeError(f"alibi_slopes must be float32, got {alibi_slopes.dtype}")
     scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
     pos_b = _pos_vector(pos, B, q.device)
+    splits, scratch = split_plan(B, Smax, H, D)
+    partials = torch.empty(scratch, dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     fn = _bind(op_builder.load("decode_attention"))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_b.data_ptr(),
-                 alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-                 out.data_ptr(), B, Smax, H, D, _DTYPE_CODES[q.dtype], scale, stream)
+                 alibi_slopes.data_ptr() if alibi_slopes is not None else None, partials.data_ptr(),
+                 out.data_ptr(), B, Smax, H, D, splits, int(vector_loads(k_cache, v_cache)),
+                 _DTYPE_CODES[q.dtype], scale, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
-    decode_attention.launches += 1
+    decode_attention.launches += 1  # the split kernel
+    decode_attention.combine_launches += 1  # and the combine, launched in the same call
     return out
 
 
-decode_attention.launches = 0  # kernel launches since the last reset to 0
+decode_attention.launches = 0  # split-kernel launches since the last reset to 0
+decode_attention.combine_launches = 0  # combine-kernel launches since the last reset to 0

@@ -18,9 +18,9 @@ and ``flash_backward_dq``. On CPU tensors it runs the plain versions
 CUDA tensor never takes the plain path: the kernels launch or the call
 raises.
 
-The 16-bit forward and dK/dV kernels load their tiles by TMA, which needs
-16-byte rows and strides: a head dim that is a multiple of 8, bases at 16
-bytes, batch/sequence/head strides that are positive multiples of 8
+The 16-bit kernels (forward, dK/dV and dQ) load their tiles by TMA, which
+needs 16-byte rows and strides: a head dim that is a multiple of 8, bases
+at 16 bytes, batch/sequence/head strides that are positive multiples of 8
 elements. For inputs that are not so (``needs_padding``), the wrapper
 chooses before the launch to copy them into contiguous buffers zero-padded
 along the head dim (``pad_head_dim``; zero columns change no product) and
@@ -32,7 +32,8 @@ computation (no [S, S] bias tensor); a dense ``bias`` raises
 becomes a bounds check in the kernels, with the same ``ValueError``s where
 JAX raises. ``block_q``/``block_k`` are validated as the JAX wrapper does but
 do not choose the CUDA tiles (bf16/fp16: 128 query rows by 128 or 64 keys in
-the forward, 128 keys by 64 query rows in dK/dV, 64x64 in dQ; fp32: 32x32).
+the forward, 128 keys by 64 query rows in dK/dV, 128 query rows by 64 keys
+in dQ; fp32: 32x32).
 """
 
 from __future__ import annotations
@@ -234,10 +235,11 @@ _ROW_ALIGN = 8  # elements of a 16-bit row or stride: TMA's 16 bytes
 
 
 def needs_padding(*tensors) -> bool:
-    """Whether the 16-bit Hopper kernels (forward, dK/dV) cannot read these
-    [B, S, H, D] tensors where they lie: a head dim or a batch/sequence/head
-    stride that is not a multiple of 8 elements, or a base not at 16 bytes.
-    fp32 tensors take the scalar kernels, which read any of them."""
+    """Whether the 16-bit Hopper kernels (forward, dK/dV, dQ) cannot read
+    these [B, S, H, D] tensors where they lie: a head dim or a
+    batch/sequence/head stride that is not a multiple of 8 elements, or a
+    base not at 16 bytes. fp32 tensors take the scalar kernels, which read
+    any of them."""
     return any(t.dtype != torch.float32 and (
         t.shape[-1] % _ROW_ALIGN or t.data_ptr() % 16
         or any(st <= 0 or st % _ROW_ALIGN for st in t.stride()[:3])) for t in tensors)
@@ -292,11 +294,15 @@ def flash_backward_dq(q, k, v, dout, lse, delta, *, causal=True, sm_scale=None,
     """dQ kernel -> dq [B, Sq, H, D]. CUDA only."""
     scale = _default_scale(q, sm_scale)
     slopes, w = _extras(q, alibi_slopes, window)
+    D = q.shape[-1]
+    padded = needs_padding(q, k, v, dout)
+    if padded:
+        q, k, v, dout = pad_head_dim(q, k, v, dout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     p = _params(q, k, v, causal, scale, slopes, w, dout=dout, lse=lse, delta=delta, dq=dq)
     _launch("dstt_flash_bwd_dq", p, q.device)
     flash_backward_dq.launches += 1
-    return dq
+    return dq[..., :D].contiguous() if padded else dq
 
 
 flash_forward.launches = 0  # kernel launches since the last reset to 0

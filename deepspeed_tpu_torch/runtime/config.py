@@ -9,8 +9,12 @@ the same way, as do ``activation_checkpointing``, ``checkpoint``,
 engine), ``curriculum_learning`` and ``dataloader_drop_last``. The port
 runs on one device, so the world size is 1 and a ``mesh`` axis above 1 is
 refused. Blocks that belong to paths not ported yet
-raise ``NotImplementedError`` when enabled, naming the block; ZeRO stages
-0-3 are accepted, since on one device they are the same arithmetic.
+raise ``NotImplementedError`` when enabled, naming the block: among them
+the monitor and logging blocks (``csv_monitor``, ``tensorboard``,
+``wandb``, ``comms_logger``, and the flags ``wall_clock_breakdown``,
+``memory_breakdown`` and ``dump_state`` set to true), which the port would
+otherwise accept and ignore; ZeRO stages 0-3 are accepted, since on one
+device they are the same arithmetic.
 """
 
 from __future__ import annotations
@@ -182,8 +186,11 @@ class MeshAxesConfig:
     model: int = 1
 
 
-# Blocks whose ``enabled`` flag selects a path the port does not have yet.
-_UNPORTED_BLOCKS = (C.FLOPS_PROFILER, "eigenvalue", C.RESILIENCE, C.TELEMETRY, C.ELASTICITY)
+# Blocks whose ``enabled`` flag selects a path the port does not have yet,
+# and top-level flags that do so when true (monitor/ is not ported).
+_UNPORTED_BLOCKS = (C.FLOPS_PROFILER, "eigenvalue", C.RESILIENCE, C.TELEMETRY, C.ELASTICITY,
+                    C.MONITOR_CSV, C.MONITOR_TENSORBOARD, C.MONITOR_WANDB, C.COMMS_LOGGER)
+_UNPORTED_FLAGS = (C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN, C.DUMP_STATE)
 
 
 @dataclass
@@ -299,6 +306,9 @@ class DeepSpeedConfig:
             sub = _sub(self.raw, block)
             if sub.get("enabled", False):
                 raise NotImplementedError(f"config block {block!r} is not ported to deepspeed_tpu_torch yet")
+        for flag in _UNPORTED_FLAGS:
+            if self.raw.get(flag, False):
+                raise NotImplementedError(f"config flag {flag!r} is not ported to deepspeed_tpu_torch yet")
         big = {k: v for k, v in dataclasses.asdict(self.mesh).items() if v > 1}
         if big:
             raise NotImplementedError(f"mesh axes {big} > 1: deepspeed_tpu_torch runs on one device")

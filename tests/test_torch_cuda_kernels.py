@@ -16,7 +16,7 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import transformer as tfm
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_xent as fx
-from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
+from deepspeed_tpu_torch.ops.decode_attention import SPLIT_KEYS, decode_attention, decode_attention_reference
 from deepspeed_tpu_torch.ops.sparse_attention import SPARSITY_CONFIGS
 from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
 
@@ -42,20 +42,63 @@ def _inputs(B, H, D, Smax, device, dtype, seed=0):
                  for s in ((B, H, D), (B, Smax, H, D), (B, Smax, H, D)))
 
 
+# per-row positions (Smax = 384, three splits): the first key, a split's last
+# key and the next split's first, the cache's end, and rows ending in
+# different splits
+_DECODE_POS = {
+    "spread": [0, 1, 200, 383],
+    "split_edges": [SPLIT_KEYS - 1, SPLIT_KEYS, 2 * SPLIT_KEYS - 1, 2 * SPLIT_KEYS],
+    "mixed_splits": [3, SPLIT_KEYS + 17, 2 * SPLIT_KEYS + 100, SPLIT_KEYS - 2],
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [8, 64, 128, 256])
+@pytest.mark.parametrize("D", [8, 64, 100, 128, 256])
 @pytest.mark.parametrize("alibi", [False, True])
-def test_decode_kernel_matches_reference(cuda_device, dtype, D, alibi):
+@pytest.mark.parametrize("rows", list(_DECODE_POS))
+def test_decode_kernel_matches_reference(cuda_device, dtype, D, alibi, rows):
+    """D = 100 in bf16 (200-byte rows) takes the per-element load path."""
     B, H, Smax = 4, 6, 384
     q, k, v = _inputs(B, H, D, Smax, cuda_device, dtype)
-    pos = torch.tensor([0, 1, 200, 383], dtype=torch.int32, device=cuda_device)
+    pos = torch.tensor(_DECODE_POS[rows], dtype=torch.int32, device=cuda_device)
     slopes = tfm.alibi_slopes(H, cuda_device) if alibi else None
-    before = decode_attention.launches
+    before = (decode_attention.launches, decode_attention.combine_launches)
     out = decode_attention(q, k, v, pos, alibi_slopes=slopes)
     torch.cuda.synchronize()
-    assert decode_attention.launches == before + 1
+    assert (decode_attention.launches, decode_attention.combine_launches) == (before[0] + 1, before[1] + 1)
     ref = decode_attention_reference(q, k, v, pos, alibi_slopes=slopes)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_negative_pos_writes_zeros(cuda_device, dtype):
+    """A negative position attends to nothing: zeros, in that row only (the
+    Pallas kernel's behaviour; the plain versions average the masked keys)."""
+    q, k, v = _inputs(3, 2, 64, 300, cuda_device, dtype)
+    pos = torch.tensor([-1, 150, -5], dtype=torch.int32, device=cuda_device)
+    out = decode_attention(q, k, v, pos)
+    assert torch.equal(out[0], torch.zeros_like(out[0])) and torch.equal(out[2], torch.zeros_like(out[2]))
+    torch.testing.assert_close(out[1].float(), decode_attention_reference(q, k, v, pos)[1].float(), rtol=0,
+                               atol=_TOL[dtype])
+    assert torch.equal(decode_attention(q, k, v, -1), torch.zeros_like(q))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 100])
+def test_decode_kernel_is_deterministic(cuda_device, dtype, D):
+    """Two launches over scratch left dirty in between give bitwise the same
+    output: the combine merges the splits in order, and splits past pos are
+    never read."""
+    q, k, v = _inputs(4, 6, D, 1024, cuda_device, dtype, seed=9)
+    pos = torch.tensor([1023, 0, 300, 700], dtype=torch.int32, device=cuda_device)
+    outs = []
+    for seed in range(2):
+        junk = torch.randn(64 * 2**20, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(seed))
+        junk.mul_(1e30)  # garbage where the next scratch will lie
+        del junk
+        outs.append(decode_attention(q, k, v, pos))
+        torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and bool(torch.isfinite(outs[0]).all())
 
 
 def test_decode_kernel_scalar_pos_past_the_end(cuda_device):
@@ -172,8 +215,9 @@ def test_flash_kernels_at_the_training_shape(cuda_device, dtype):
 @pytest.mark.parametrize("layout", ["D100", "unaligned_view"])
 def test_flash_kernels_pad_what_tma_cannot_read(cuda_device, dtype, layout):
     """D = 100 (200-byte rows) and a view whose base and strides are off 16
-    bytes: the 16-bit kernels take zero-padded copies chosen before the
-    launch, and the results are sliced back to the caller's head dim."""
+    bytes: the 16-bit kernels (forward, dK/dV and dQ) take zero-padded
+    copies chosen before the launch, and the results are sliced back to the
+    caller's head dim."""
     if layout == "D100":
         inputs = _flash_inputs(2, 200, 3, 100, cuda_device, dtype, seed=3)
     else:
@@ -182,14 +226,15 @@ def test_flash_kernels_pad_what_tma_cannot_read(cuda_device, dtype, layout):
     q = inputs[0]
     assert fa.needs_padding(*inputs) == (dtype != torch.float32)
     out, _, dq, dk, dv = _flash_check(cuda_device, dtype, 2, 200, 3, q.shape[-1], inputs=inputs)
-    assert out.shape == q.shape and dk.shape == q.shape
+    assert out.shape == q.shape and dk.shape == q.shape and dq.shape == q.shape and dq.is_contiguous()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_kernels_are_deterministic(cuda_device, dtype, D):
-    """Forward and dK/dV give bitwise the same results from two launches into
-    fresh buffers over memory left dirty in between: no atomics, no race."""
+    """Forward, dK/dV and dQ give bitwise the same results from two launches
+    into fresh buffers over memory left dirty in between: no atomics, no
+    race."""
     q, k, v, dout = _flash_inputs(2, 1000, 3, D, cuda_device, dtype, seed=6)
     runs = []
     for seed in range(2):
@@ -198,8 +243,9 @@ def test_flash_kernels_are_deterministic(cuda_device, dtype, D):
         out, lse = fa.flash_forward(q, k, v)
         delta = fa.flash_delta(out, dout)
         dk, dv = fa.flash_backward_dkdv(q, k, v, dout, lse, delta)
+        dq = fa.flash_backward_dq(q, k, v, dout, lse, delta)
         torch.cuda.synchronize()
-        runs.append((out, lse, dk, dv))
+        runs.append((out, lse, dk, dv, dq))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 

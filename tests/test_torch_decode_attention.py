@@ -7,6 +7,10 @@ inputs. The CUDA kernel itself is held against the plain version in
 ``test_torch_cuda_kernels.py``.
 """
 
+import inspect
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +18,9 @@ import torch
 
 from deepspeed_tpu.ops.pallas.decode_attention import decode_attention as jax_decode_attention
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
-from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
+from deepspeed_tpu_torch.ops import decode_attention as decode_module
+from deepspeed_tpu_torch.ops.decode_attention import (SPLIT_KEYS, decode_attention, decode_attention_reference,
+                                                      split_plan, vector_loads)
 
 # fp32 on both sides; the two differ only in summation order (online vs
 # full softmax), which moves results by a few ulps
@@ -82,3 +88,37 @@ def test_bad_inputs_raise(case):
         pos = torch.tensor([1, 2, 3])
     with pytest.raises((ValueError, TypeError)):
         decode_attention(q, k, v, pos, alibi_slopes=slopes)
+
+
+def test_split_plan_is_fixed_by_the_cache_shape():
+    """The split-KV launch's split count and scratch shape come from
+    (B, Smax, H, D) alone: no position enters the plan, so every decode step
+    of a generate launches the same grid."""
+    assert "pos" not in inspect.signature(split_plan).parameters
+    assert split_plan(8, 1024, 12, 64) == (8, (8, 12, 8, 66))
+    for Smax in (1, SPLIT_KEYS - 1, SPLIT_KEYS, SPLIT_KEYS + 1, 8192):
+        splits, scratch = split_plan(2, Smax, 3, 100)
+        assert splits == -(-Smax // SPLIT_KEYS) and scratch == (2, 3, splits, 102)
+        # the last live split of any position up to the clamp fits the plan
+        assert (Smax - 1) // SPLIT_KEYS < splits
+
+
+def test_split_constants_mirror_the_kernel_source():
+    src = (Path(decode_module.__file__).resolve().parents[1] / "csrc" / "decode_attention.cu").read_text()
+    assert int(re.search(r"constexpr int SPLIT_KEYS = (\d+);", src).group(1)) == SPLIT_KEYS
+    assert int(re.search(r"constexpr int MAX_SPLITS = (\d+);", src).group(1)) == decode_module._MAX_SPLITS
+
+
+def test_vector_loads_are_chosen_from_the_row_and_the_bases():
+    """16-byte loads when a row of D elements is a multiple of 16 bytes and
+    both caches start at 16 bytes; the per-element path otherwise (D = 100
+    in bf16: 200-byte rows)."""
+    def cache(D, dtype):
+        return torch.zeros(2, 16, 3, D, dtype=dtype)
+
+    for D, dtype, vec in ((64, torch.bfloat16, True), (8, torch.bfloat16, True), (100, torch.bfloat16, False),
+                          (100, torch.float32, True), (6, torch.float32, False), (256, torch.float32, True)):
+        assert vector_loads(cache(D, dtype), cache(D, dtype)) == vec, (D, dtype)
+    flat = torch.zeros(2 * 16 * 3 * 64 + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + 2 * 16 * 3 * 64].view(2, 16, 3, 64)  # contiguous, base 2 bytes off
+    assert shifted.is_contiguous() and not vector_loads(shifted, cache(64, torch.bfloat16))

@@ -214,3 +214,33 @@ def test_padding_route_is_chosen_from_the_shape_and_strides():
     assert not tfa.needs_padding(torch.zeros(2, 64, 3, 100))  # fp32
     padded, = tfa.pad_head_dim(torch.ones(2, 64, 3, 100, dtype=torch.bfloat16))
     assert padded.shape[-1] == 104 and not tfa.needs_padding(padded)
+
+
+@pytest.mark.parametrize("entry", ["flash_forward", "flash_backward_dkdv", "flash_backward_dq"])
+def test_each_entry_point_chooses_the_padding_route_before_the_launch(monkeypatch, entry):
+    """Every entry point hands the kernel padded copies when ``needs_padding``
+    says so (D = 100 here) and the caller's own tensors otherwise, and slices
+    its outputs back to the caller's head dim. The launch is stubbed: what is
+    checked is what would reach the kernel."""
+    seen = []
+    monkeypatch.setattr(tfa, "_params", lambda q, k, v, *args, **tensors: seen.append(dict(q=q, k=k, v=v, **tensors)))
+    monkeypatch.setattr(tfa, "_launch", lambda name, p, device: None)
+    monkeypatch.setattr(getattr(tfa, entry), "launches", 0)
+    for D, padded in ((100, True), (64, False)):
+        q, k, v, dout = (torch.zeros(2, 64, 3, D, dtype=torch.bfloat16) for _ in range(4))
+        lse, delta = torch.zeros(2, 3, 64), torch.zeros(2, 3, 64)
+        if entry == "flash_forward":
+            outs = tfa.flash_forward(q, k, v)[:1]
+        else:
+            fn = getattr(tfa, entry)
+            outs = fn(q, k, v, dout, lse, delta)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+        given = seen[-1]
+        assert given["q"].shape[-1] == (104 if padded else 64)
+        assert all(not tfa.needs_padding(given[n]) for n in ("q", "k", "v"))
+        if entry != "flash_forward":
+            assert given["dout"].shape[-1] == given["q"].shape[-1]
+        if not padded:
+            assert given["q"] is q and given["k"] is k and given["v"] is v
+        assert all(o.shape == q.shape for o in outs)
+    assert getattr(tfa, entry).launches == 2

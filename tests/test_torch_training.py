@@ -177,6 +177,35 @@ def test_unported_config_blocks_raise(block):
         tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, **block})
 
 
+# The monitor and logging blocks the JAX engine acts on (MonitorMaster, comms
+# logging, timers, state dumps); the port has no monitor/ yet.
+MONITOR_BLOCKS = {
+    "csv_monitor": {"enabled": True, "output_path": "logs", "job_name": "run"},
+    "tensorboard": {"enabled": True, "output_path": "logs"},
+    "wandb": {"enabled": True, "project": "p"},
+    "comms_logger": {"enabled": True, "verbose": True},
+    "wall_clock_breakdown": True,
+    "memory_breakdown": True,
+    "dump_state": True,
+}
+
+
+@pytest.mark.parametrize("name", list(MONITOR_BLOCKS))
+def test_monitor_and_logging_blocks_are_refused_not_dropped(name):
+    d = {"train_batch_size": 2, name: MONITOR_BLOCKS[name]}
+    ref = jconfig.DeepSpeedConfig.from_dict(d, world_size=1)  # the reference takes it and acts on it
+    ref_value = getattr(ref, name)
+    assert (ref_value.enabled if hasattr(ref_value, "enabled") else ref_value) is True
+    with pytest.raises(NotImplementedError, match=name):
+        tconfig.DeepSpeedConfig.from_dict(d)
+
+
+def test_monitor_and_logging_blocks_parse_when_off():
+    off = {name: {**v, "enabled": False} if isinstance(v, dict) else False for name, v in MONITOR_BLOCKS.items()}
+    cfg = tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, **off})
+    assert cfg.train_batch_size == 2
+
+
 def _models(**kw):
     base = dict(vocab_size=97, max_seq_len=64, num_layers=2, num_heads=4, hidden_size=32)
     jcfg = jtfm.TransformerConfig(**base, dtype=jnp.float32, **kw)

@@ -27,7 +27,9 @@ Phases, each of which passes or makes the script exit non-zero:
   5. load the flash-attention kernels (forward, dK/dV, dQ); count each
      kernel's HGMMA (wgmma) instructions in its SASS (cuobjdump) beside its
      registers and spills from the build, failing if the bf16 forward, dK/dV
-     or dQ kernel has none;
+     or dQ kernel has none; the same for the fused-loss backward's mainloop
+     (csrc/fused_xent.cu: its ds, dW and dH instances), failing if one that
+     the main path runs has none;
   6. hold each flash kernel against its plain version: bf16, fp32 and fp16;
      causal, bidirectional, ALiBi, window 256 and window 0 at B=8, S=1024,
      H=12, D=64; the ragged causal edge S=1000; S=128; D=128. Then time
@@ -44,18 +46,22 @@ Phases, each of which passes or makes the script exit non-zero:
   8. slice parity: five fp32 steps of a small model through the kernels and
      through plain attention give the same losses, and at full width in
      bf16 the first step's loss and grad norm agree on an 8-row batch;
-  9. hold each fused-loss kernel (forward, dH, dW) against its plain version
+  9. hold the fused-loss forward and backward (dH and dW: per vocab chunk a
+     ds pass, a dW product and a dH product) against their plain versions
      at the training shape (N = 16 x 1024 rows, D = 768, V = 50304, bf16,
      one row in seven ignored, the head as wte.t()), and in fp32 and fp16 at
-     N = 2048, and at V = 50257 and V = 777; then time each kernel, the
-     plain versions and, as a reference point only, the cuBLAS logits
-     product of the chunked loss, against the bound at that shape;
+     N = 2048, and at V = 50257, V = 777, one column past a backward chunk
+     and D = 770; two backward calls must give bitwise-equal dH and dW. Then
+     time the forward, the whole backward against the pair's bound, each
+     backward kernel alone over every chunk in order, the plain versions
+     and, as a reference point only, the cuBLAS logits product of the
+     chunked loss;
  10. train through the fused loss under remat at GPT-2-125M width: phase 7's
      configuration with loss_impl="fused_xent", remat=True,
      remat_policy="dots_and_flash", one warm-up and five timed steps,
-     checking 48 launches of each flash kernel and 4 of each fused-loss
-     kernel per train_batch, then one step under nothing_saveable with 96
-     flash-forward launches;
+     checking 48 launches of each flash kernel, 4 of the fused-loss forward
+     and 4 x 7 (vocab chunks) of each backward kernel per train_batch, then
+     one step under nothing_saveable with 96 flash-forward launches;
  11. slice parity: five fp32 steps of a small model with the fused loss and
      with the chunked loss give the same losses, and at full width in bf16
      the first step's loss and grad norm agree;
@@ -97,9 +103,10 @@ exits 1 and prints no result.
 
     python3 chip_smoke.py --profile chiprun_out/profile
 
-also traces one generate(max_new_tokens=64), one train_batch of phase 7 and
-one of phase 10 with torch.profiler and prints the device's busy share and
-its time by kernel.
+also traces one generate(max_new_tokens=64), one train_batch of phases 7,
+10 and 15 with torch.profiler and prints the device's busy share, its time
+by kernel and the host's top ops by self time; and times phase 10's model
+without remat beside it, which shows what remat's recompute costs the step.
 """
 
 import argparse
@@ -132,7 +139,7 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the kernel's math)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 KERNEL_SOURCES = ("decode_attention", "flash_attention", "fused_xent", "sparse_attention")
 FLASH_COUNTERS = (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq)
-XENT_COUNTERS = (fx.fused_xent_forward, fx.fused_xent_backward_dh, fx.fused_xent_backward_dw)
+XENT_COUNTERS = (fx.fused_xent_forward, fx.xent_ds_pass, fx.xent_dw_pass, fx.xent_dh_pass)
 SPARSE_COUNTERS = (sk.sparse_forward, sk.sparse_backward_dq, sk.sparse_backward_dkdv)
 SPARSE_NAMES = ("sparse_forward", "sparse_backward_dq", "sparse_backward_dkdv")
 B, SMAX, H, D = 8, 1024, 12, 64
@@ -483,30 +490,49 @@ def decode_registers():
     return {name: info.get(name, {}) for name in DECODE_MAIN_PATH}
 
 
-def flash_sass():
-    """Per flash kernel: HGMMA instructions in its SASS, and its registers and
-    spill bytes from ptxas's report of this run's build. Fails if a bf16
-    kernel of the main path has no HGMMA."""
-    lib = op_builder.build_many(["flash_attention"])["flash_attention"]
+def sass_report(source, label, main_path):
+    """Per kernel of csrc/<source>.cu that ``label`` names: HGMMA instructions
+    in its SASS, and its registers and spill bytes from ptxas's report of
+    this run's build. Fails if a kernel of ``main_path`` has no HGMMA."""
+    lib = op_builder.build_many([source])[source]
     sass = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    info, fn = ptxas_report("flash_attention", kernel_label), None
+    info, fn = ptxas_report(source, label), None
     for v in info.values():
         v["hgmma"] = 0
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = kernel_label(line.split("Function :", 1)[1].strip())
+            fn = label(line.split("Function :", 1)[1].strip())
             if fn:
                 info.setdefault(fn, {"registers": None, "spill_stores": None, "spill_loads": None, "hgmma": 0})
         elif fn and "HGMMA" in line:
             info[fn]["hgmma"] += 1
     for name, v in sorted(info.items()):
-        print(f"  {name:<30} HGMMA {v['hgmma']:4d}  registers {v['registers']}  spill stores "
+        print(f"  {name:<36} HGMMA {v['hgmma']:4d}  registers {v['registers']}  spill stores "
               f"{v['spill_stores']} B, loads {v['spill_loads']} B")
-    for name in MAIN_PATH_KERNEL.values():
+    for name in main_path:
         if info.get(name, {}).get("hgmma", 0) == 0:
             raise SystemExit(f"{name} has no HGMMA instruction in its SASS")
     return info
+
+
+# The fused-loss backward's kernels on the main path (bf16, the tied head
+# wteᵀ): each pass of the mainloop, and which operand it reads MN-major.
+XENT_MAIN_PATH = {"ds": "xent_gemm_hopper bf16 ds A:K B:K", "dW": "xent_gemm_hopper bf16 dW A:MN B:MN",
+                  "dH": "xent_gemm_hopper bf16 dH A:K B:MN"}
+
+
+def xent_label(mangled):
+    """'xent_gemm_hopper bf16 dH A:K B:MN' (the epilogue, then how A and B are
+    read) from a mangled instance of the fused-loss backward mainloop, else
+    None."""
+    m = re.search(r"xent_gemm_hopperI(13__nv_bfloat16|6__half)Lb([01])ELb([01])ENS_5(Ds|Dw|Dh)Out", mangled)
+    if m is None:
+        return None
+    dtype = "bf16" if "bfloat16" in m.group(1) else "fp16"
+    epilogue = {"Ds": "ds", "Dw": "dW", "Dh": "dH"}[m.group(4)]
+    major = {"0": "K", "1": "MN"}
+    return f"xent_gemm_hopper {dtype} {epilogue} A:{major[m.group(2)]} B:{major[m.group(3)]}"
 
 
 BENCH_DS = {
@@ -531,6 +557,10 @@ def gpt2_config(**kw):
 
 def counts():
     return [c.launches for c in FLASH_COUNTERS] + [decode_attention.launches] + [c.launches for c in XENT_COUNTERS]
+
+
+N_COUNTS = 8  # len(counts()); sparse_counts() follow it in a step's launches
+COUNT_LABEL = "[flash fwd, dK/dV, dQ, decode, xent fwd, ds, dW, dH, sparse fwd, dQ, dK/dV]"
 
 
 def sparse_counts():
@@ -577,7 +607,7 @@ def train(dev):
     losses = [float(m["loss"]) for m in metrics]
     overflow = any(bool(m["overflow"]) for m in metrics)
     expect = L * gas
-    ok = (all(step == [expect] * 3 + [0] * 7 for step in per_step)
+    ok = (all(step == [expect] * 3 + [0] * 8 for step in per_step)
           and all(np.isfinite(losses)) and losses[-1] < losses[0] and not overflow)
     tok_s = B * S / step_s
     n_params = L * 12 * 768 * 768 + 50304 * 768 + S * 768  # bench.py:219-221
@@ -592,7 +622,7 @@ def train(dev):
     print(f"  train_batch x{TRAIN_STEPS} after one warm-up ({warm_s:.2f} s): {result['step_ms']:.1f} ms/step, "
           f"{tok_s:.0f} tokens/s, {result['tflops_model']:.1f} TFLOP/s (Model.flops_per_token), "
           f"{result['tflops_bench_formula']:.1f} TFLOP/s (bench.py formula), peak {result['peak_gib']:.2f} GiB")
-    print(f"  launches per train_batch [flash fwd, dK/dV, dQ, decode, xent fwd, dH, dW, sparse fwd, dQ, dK/dV] "
+    print(f"  launches per train_batch {COUNT_LABEL} "
           f"{per_step} (expect {L} x {gas} = {expect} of each flash kernel, none of the others); "
           f"losses {[round(x, 4) for x in losses]}; overflow {overflow}  {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -672,14 +702,18 @@ def xent_inputs(dev, gen, N, D, V, dtype):
 
 
 def xent_case(dev, gen, N, D, V, dtype):
-    """One kernel-vs-plain check of the three fused-loss kernels; raises on
-    a disagreement. The backward kernels get the plain forward's lse."""
+    """One kernel-vs-plain check of the fused-loss kernels: the forward, and
+    the backward (its three kernels over every vocab chunk) called twice,
+    which must give bitwise-equal dH and dW; raises on a disagreement. The
+    backward gets the plain forward's lse."""
     h, head, y, g = xent_inputs(dev, gen, N, D, V, dtype)
     nll, lse = fx.fused_xent_forward(h, head, y)
     ref_nll, ref_lse = fx.fused_linear_xent_reference(h, head, y)
-    dh = fx.fused_xent_backward_dh(h, head, y, ref_lse, g)
-    dw = fx.fused_xent_backward_dw(h, head, y, ref_lse, g)
+    dh, dw = fx.fused_xent_backward(h, head, y, ref_lse, g)
+    dh2, dw2 = fx.fused_xent_backward(h, head, y, ref_lse, g)
     torch.cuda.synchronize()
+    bitwise = torch.equal(dh, dh2) and torch.equal(dw, dw2)
+    del dh2, dw2
     ref_dh, ref_dw = fx.fused_linear_xent_backward_reference(h, head, y, ref_lse, g)
 
     def abs_err(a, b):
@@ -693,14 +727,15 @@ def xent_case(dev, gen, N, D, V, dtype):
             "fused_xent_backward_dw": (abs_err(dw, ref_dw), rel_err(dw, ref_dw))}
     finite = all(bool(torch.isfinite(t).all()) for t in (nll, lse, dh, dw))
     ignored_zero = dh[::7].abs().max().item() == 0.0
-    ok = (finite and ignored_zero and max(errs["fused_xent_forward"]) <= XENT_TOL
+    ok = (finite and ignored_zero and bitwise and max(errs["fused_xent_forward"]) <= XENT_TOL
           and errs["fused_xent_backward_dh"][1] <= XENT_GRAD_TOL[dtype]
           and errs["fused_xent_backward_dw"][1] <= XENT_GRAD_TOL[dtype] and dw.stride() == head.stride())
-    label = f"{str(dtype)[6:]} N={N} D={D} V={V}"
-    print(f"  fused xent vs plain  {label:<32} nll {errs['fused_xent_forward'][0]:.2e}, "
+    chunks = len(fx.vocab_chunks(V, fx.backward_chunk(N, V, h.element_size())))
+    label = f"{str(dtype)[6:]} N={N} D={D} V={V} ({chunks} chunk{'s' if chunks > 1 else ''})"
+    print(f"  fused xent vs plain  {label:<44} nll {errs['fused_xent_forward'][0]:.2e}, "
           f"lse {errs['fused_xent_forward'][1]:.2e} (tol {XENT_TOL:.0e}), dH {errs['fused_xent_backward_dh'][1]:.2e}, "
           f"dW {errs['fused_xent_backward_dw'][1]:.2e} (rel, tol {XENT_GRAD_TOL[dtype]:.0e}), ignored rows' dH 0: "
-          f"{ignored_zero}  {'ok' if ok else 'FAIL'}")
+          f"{ignored_zero}, two calls bitwise: {bitwise}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"a fused-loss kernel disagrees with its plain version: {label}")
     return errs
@@ -708,11 +743,17 @@ def xent_case(dev, gen, N, D, V, dtype):
 
 def xent_checks(dev):
     """Every case of phase 9 -> {kernel: {dtype: (max abs err, second)}}, the
-    second being the lse's abs error (forward) or the max rel error (dH, dW)."""
+    second being the lse's abs error (forward) or the max rel error (dH, dW).
+    Beyond the main path's shape: fp32 and fp16, a vocab that is not a
+    multiple of 8 (50257) or of the tile (777), one column past a backward
+    chunk (8193 at N = 16384, whose chunk is 8192), and a width that is not
+    a multiple of 8 (770: TMA cannot read such rows, so hidden and the head
+    go through padded copies)."""
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = {name: {} for name in ("fused_xent_forward", "fused_xent_backward_dh", "fused_xent_backward_dw")}
     cases = [(XN, XD, XV, torch.bfloat16), (2048, XD, XV, torch.float32), (2048, XD, XV, torch.float16),
-             (2048, XD, 50257, torch.bfloat16), (2048, XD, 777, torch.bfloat16)]
+             (2048, XD, 50257, torch.bfloat16), (2048, XD, 777, torch.bfloat16),
+             (XN, XD, fx.backward_chunk(XN, XV, 2) + 1, torch.bfloat16), (2048, 770, XV, torch.bfloat16)]
     for N, D, V, dtype in cases:
         for name, e in xent_case(dev, gen, N, D, V, dtype).items():
             old = worst[name].get(dtype, (0.0, 0.0))
@@ -722,12 +763,15 @@ def xent_checks(dev):
 
 
 def xent_bounds(N, D, V, elt):
-    """{kernel: (bound_ms, bound_by, bytes, flops)}: each input read once and
-    each output written once; the logits take 2·N·D·V flops, and each
-    backward computes them again before its own product of the same size."""
+    """{name: (bound_ms, bound_by, bytes, flops)}: each input read once and
+    each output written once. The logits take 2·N·D·V flops. The forward
+    computes them once; the backward pair ("fused_xent_backward") once more
+    and then its two products; each of the pair's rows alone
+    ("..._dh", "..._dw") would compute them again before its own product."""
     hw = (N * D + D * V) * elt
     rows = N * 4
     work = {"fused_xent_forward": (hw + rows + 2 * rows, 2 * N * D * V),               # h, W, y -> nll, lse
+            "fused_xent_backward": (hw + 3 * rows + (N * D + D * V) * elt, 6 * N * D * V),  # h, W, y, lse, g -> dH, dW
             "fused_xent_backward_dh": (hw + 3 * rows + N * D * elt, 4 * N * D * V),    # h, W, y, lse, g -> dH
             "fused_xent_backward_dw": (hw + 3 * rows + D * V * elt, 4 * N * D * V)}    # h, W, y, lse, g -> dW
     out = {}
@@ -738,43 +782,67 @@ def xent_bounds(N, D, V, elt):
 
 
 def xent_timing(dev):
-    """Times at the training shape, bf16: each kernel, the plain versions,
-    and the cuBLAS [N, D]·[D, V] product the chunked loss runs (a reference
-    point only: it is not the same function, and the port never calls it
-    for this loss)."""
+    """Times at the training shape, bf16: the forward kernel; the whole
+    backward (dH and dW together: three kernels over each vocab chunk); each
+    of its three kernels alone over every chunk in order; the plain
+    versions; and, as a reference point only, the cuBLAS [N, D]·[D, V]
+    product the chunked loss runs (not the same function; the port never
+    calls it for this loss)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     h, head, y, g = xent_inputs(dev, gen, XN, XD, XV, torch.bfloat16)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     _, lse = fx.fused_xent_forward(h, head, y)
     plain_bwd = median_ms(lambda: fx.fused_linear_xent_backward_reference(h, head, y, lse, g), flush,
                           runs=5, warmup=1)
-    times = {
-        "fused_xent_forward": {"ms": median_ms(lambda: fx.fused_xent_forward(h, head, y), flush, runs=10, warmup=2),
-                               "plain_ms": median_ms(lambda: fx.fused_linear_xent_reference(h, head, y), flush,
-                                                     runs=5, warmup=1)},
-        "fused_xent_backward_dh": {"ms": median_ms(lambda: fx.fused_xent_backward_dh(h, head, y, lse, g), flush,
-                                                   runs=10, warmup=2), "plain_ms": plain_bwd},
-        "fused_xent_backward_dw": {"ms": median_ms(lambda: fx.fused_xent_backward_dw(h, head, y, lse, g), flush,
-                                                   runs=10, warmup=2), "plain_ms": plain_bwd},
-    }
+    backward_ms = median_ms(lambda: fx.fused_xent_backward(h, head, y, lse, g), flush, runs=10, warmup=2)
+    chunk = fx.backward_chunk(XN, XV, 2)
+    chunks = fx.vocab_chunks(XV, chunk)
+    passes = {}
+    for name, launch in zip(("ds", "dW", "dH"), fx.BACKWARD_PASSES):
+        ms = median_ms(lambda: fx.fused_xent_backward(h, head, y, lse, g, passes=(launch,)), flush, runs=10,
+                       warmup=2)
+        passes[name] = {"kernel": XENT_MAIN_PATH[name], "ms": ms, "tflops": 2 * XN * XD * XV / (ms * 1e-3) / 1e12}
     cublas_ms = median_ms(lambda: h @ head, flush, runs=20, warmup=3)
-    for name, (bound, by, nbytes, flops) in xent_bounds(XN, XD, XV, 2).items():
-        t = times[name]
-        t.update(bound_ms=bound, bound_by=by, library_ms=None, cublas_logits_ms=cublas_ms)
-        print(f"  timing {name:<23} bf16 N={XN} D={XD} V={XV}: kernel {t['ms']:8.2f} ms, plain {t['plain_ms']:8.2f} ms, "
-              f"bound {bound:.2f} ms ({by}: {nbytes/1e6:.1f} MB, {flops/1e12:.2f} TFLOP), "
-              f"{flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
-    print(f"  no single PyTorch call computes this function (library: null); reference point only: the cuBLAS "
-          f"logits product [N, D]·[D, V] bf16 {cublas_ms:.2f} ms; the plain backward times dH and dW together")
+    bounds = xent_bounds(XN, XD, XV, 2)
+    pair_bound, pair_by, _, pair_flops = bounds["fused_xent_backward"]
+    times = {"fused_xent_forward": {"ms": median_ms(lambda: fx.fused_xent_forward(h, head, y), flush, runs=10,
+                                                   warmup=2),
+                                    "plain_ms": median_ms(lambda: fx.fused_linear_xent_reference(h, head, y), flush,
+                                                          runs=5, warmup=1)}}
+    for name in ("fused_xent_backward_dh", "fused_xent_backward_dw"):
+        # the pair's kernels carry both rows: each row gives the pair's time and bound
+        times[name] = {"ms": backward_ms, "plain_ms": plain_bwd, "pair_bound_ms": pair_bound,
+                       "row_bound_ms": bounds[name][0], "passes": passes, "chunks": len(chunks),
+                       "chunk_width": chunk}
+    t = times["fused_xent_forward"]
+    bound, by, nbytes, flops = bounds["fused_xent_forward"]
+    t.update(bound_ms=bound, bound_by=by, library_ms=None, cublas_logits_ms=cublas_ms)
+    print(f"  timing fused_xent_forward  bf16 N={XN} D={XD} V={XV}: kernel {t['ms']:8.2f} ms, plain "
+          f"{t['plain_ms']:8.2f} ms, bound {bound:.2f} ms ({by}: {nbytes/1e6:.1f} MB, {flops/1e12:.2f} TFLOP), "
+          f"{flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    for name in ("fused_xent_backward_dh", "fused_xent_backward_dw"):
+        times[name].update(bound_ms=pair_bound, bound_by=pair_by, library_ms=None, cublas_logits_ms=cublas_ms)
+    print(f"  timing fused_xent_backward (dH and dW) bf16: {backward_ms:8.3f} ms for {len(chunks)} chunks of "
+          f"{chunk} columns, plain {plain_bwd:8.2f} ms, pair bound {pair_bound:.2f} ms ({pair_by}: "
+          f"{pair_flops/1e12:.2f} TFLOP), {pair_flops / (backward_ms * 1e-3) / 1e12:.1f} TFLOP/s; each row alone "
+          f"{bounds['fused_xent_backward_dh'][0]:.2f} ms")
+    for name, v in passes.items():
+        print(f"    {v['kernel']:<36} alone over all {len(chunks)} chunks {v['ms']:.3f} ms, "
+              f"{v['tflops']:.1f} TFLOP/s")
+    print(f"    the three alone sum to {sum(v['ms'] for v in passes.values()):.3f} ms")
+    print(f"  no single PyTorch call computes these functions (library: null); reference points only: the cuBLAS "
+          f"logits product [N, D]·[D, V] bf16 {cublas_ms:.2f} ms, x 3 = {3 * cublas_ms:.2f} ms for the backward's "
+          f"three products; the plain backward times dH and dW together")
     return times
 
 
 FUSED = dict(loss_impl="fused_xent", remat=True, remat_policy="dots_and_flash")
 
 
-def train_fused(dev):
+def train_fused(dev, no_remat=False):
     """Phase 10: phase 7's step through the fused loss under dots_and_flash
-    remat (bench.py's tuned configuration)."""
+    remat (bench.py's tuned configuration); with ``no_remat``, beside it the
+    same model without remat."""
     model = Model(gpt2_config(**FUSED))
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=BENCH_DS)
     B, S, L = BENCH_DS["train_batch_size"], FS, model.config.num_layers
@@ -785,7 +853,8 @@ def train_fused(dev):
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["loss"]) for m in metrics]
     overflow = any(bool(m["overflow"]) for m in metrics)
-    expect = [L * gas] * 3 + [0] + [gas] * 3 + [0] * 3
+    chunks = len(fx.vocab_chunks(50304, fx.backward_chunk(B // gas * S, 50304, 2)))
+    expect = [L * gas] * 3 + [0] + [gas] + [gas * chunks] * 3 + [0] * 3
     ok = (all(step == expect for step in per_step) and all(np.isfinite(losses)) and losses[-1] < losses[0]
           and not overflow)
     tok_s = B * S / step_s
@@ -801,9 +870,9 @@ def train_fused(dev):
           f"{result['step_ms']:.1f} ms/step, {tok_s:.0f} tokens/s, {result['tflops_model']:.1f} TFLOP/s "
           f"(Model.flops_per_token), {result['tflops_bench_formula']:.1f} TFLOP/s (bench.py formula), "
           f"peak {peak:.2f} GiB")
-    print(f"  launches per train_batch [flash fwd, dK/dV, dQ, decode, xent fwd, dH, dW, sparse fwd, dQ, dK/dV] "
-          f"{per_step} "
-          f"(expect {expect}); losses {[round(x, 4) for x in losses]}; overflow {overflow}  {'ok' if ok else 'FAIL'}")
+    print(f"  launches per train_batch {COUNT_LABEL} {per_step} (expect {expect}: {gas} backward calls, "
+          f"each {chunks} vocab chunks x 3 kernels); losses {[round(x, 4) for x in losses]}; overflow {overflow}  "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the fused-loss remat training phase failed its checks")
 
@@ -813,14 +882,38 @@ def train_fused(dev):
     m = engine.train_batch(batch)
     step = [a - b for a, b in zip(counts(), before)]
     engine.model.config = engine.model.config.replace(remat_policy="dots_and_flash")
-    expect_ns = [2 * L * gas, L * gas, L * gas, 0] + [gas] * 3
+    expect_ns = [2 * L * gas, L * gas, L * gas, 0, gas] + [gas * chunks] * 3
     ok = step == expect_ns and np.isfinite(float(m["loss"])) and not bool(m["overflow"])
     print(f"  one train_batch under nothing_saveable: launches {step} (expect {expect_ns}), "
           f"loss {float(m['loss']):.4f}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("nothing_saveable did not recompute the flash forward")
     result["launches_per_train_batch_nothing_saveable"] = step
-    return [launches[4], launches[5], launches[6]], result, engine, batch
+    result["backward_chunks"] = chunks
+
+    if no_remat:
+        result["no_remat"] = train_no_remat(batch, step_s)
+    return launches[4:8], result, engine, batch
+
+
+def train_no_remat(batch, remat_step_s):
+    """Phase 10's model with the fused loss and no remat: what the recompute
+    costs the step (a host diagnostic, run with ``--profile``)."""
+    B, S = BENCH_DS["train_batch_size"], FS
+    bare, _, _, _ = deepspeed_tpu_torch.initialize(model=Model(gpt2_config(loss_impl="fused_xent")), config=BENCH_DS)
+    _, bare_s, bare_metrics, _ = timed_steps(bare, batch, TRAIN_STEPS)
+    bare_losses = [float(m["loss"]) for m in bare_metrics]
+    result = {"step_ms": bare_s * 1e3, "tokens_per_s": B * S / bare_s,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": bare_losses}
+    ok = all(np.isfinite(bare_losses))
+    print(f"  beside it, the fused loss without remat: {bare_s * 1e3:.1f} ms/step, {B * S / bare_s:.0f} tokens/s, "
+          f"peak {result['peak_gib']:.2f} GiB; remat adds {(remat_step_s - bare_s) * 1e3:.1f} ms a step  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the fused loss without remat gave a non-finite loss")
+    del bare
+    torch.cuda.empty_cache()
+    return result
 
 
 def fused_parity(dev):
@@ -1143,7 +1236,7 @@ def train_sparse(dev):
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["loss"]) for m in metrics]
     overflow = any(bool(m["overflow"]) for m in metrics)
-    expect = [0] * 7 + [L * gas] * 3
+    expect = [0] * N_COUNTS + [L * gas] * 3
     # the same batch six times at lr 6e-4 without warm-up: the loss falls up
     # to the fifth step, and the last may overshoot (phase 7's fifth does)
     ok = (cfg.attn_impl == "sparse" and all(step == expect for step in per_step) and all(np.isfinite(losses))
@@ -1152,11 +1245,11 @@ def train_sparse(dev):
     result = {"warmup_step_s": warm_s, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
               "tflops_model_dense_attention_formula": tok_s * model.flops_per_token() / 1e12, "peak_gib": peak,
               "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in metrics], "overflow": overflow,
-              "launches_per_train_batch": per_step[0][7:]}
+              "launches_per_train_batch": per_step[0][N_COUNTS:]}
     print(f"  sparse, train_batch x{TRAIN_STEPS} after one warm-up ({warm_s:.2f} s): {result['step_ms']:.1f} ms/step, "
           f"{tok_s:.0f} tokens/s, {result['tflops_model_dense_attention_formula']:.1f} TFLOP/s by "
           f"Model.flops_per_token (its dense attention term counts the keys the kernels skip), peak {peak:.2f} GiB")
-    print(f"  launches per train_batch [flash fwd, dK/dV, dQ, decode, xent fwd, dH, dW, sparse fwd, dQ, dK/dV] "
+    print(f"  launches per train_batch {COUNT_LABEL} "
           f"{per_step} (expect {expect}); losses {[round(x, 4) for x in losses]}; overflow {overflow}  "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1170,7 +1263,7 @@ def train_sparse(dev):
     warm_s, step_s, metrics, per_step = timed_steps(engine, batch, TRAIN_STEPS)
     dense_peak = torch.cuda.max_memory_allocated() / 2**30
     dense_losses = [float(m["loss"]) for m in metrics]
-    expect = [L * gas] * 3 + [0] * 7
+    expect = [L * gas] * 3 + [0] * 8
     ok = all(step == expect for step in per_step) and all(np.isfinite(dense_losses))
     tok_s = B * SS / step_s
     result["dense_flash"] = {"warmup_step_s": warm_s, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
@@ -1452,12 +1545,17 @@ def profile(label, fn, out_dir):
           f"{busy/1e3:.1f} ms ({busy/wall_us:.1%}), {len(kernels)} kernel launches")
     for name, us in top:
         print(f"    {us/1e3:9.3f} ms  {us/busy:6.1%}  {name[:100]}")
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:6]
+    print("  host ops by self time (the profiler's own cost inflates them):")
+    for a in host:
+        print(f"    {a.self_cpu_time_total/1e3:9.3f} ms  x{a.count:<6d} {a.key[:90]}")
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"{label.split('(')[0]}_trace.json"))
     print(json.dumps({"profile": {"label": label, "wall_ms": wall_us / 1e3,
                                   "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
                                   "kernel_launches": len(kernels),
-                                  "top_ms": {n[:80]: us / 1e3 for n, us in top}}}))
+                                  "top_ms": {n[:80]: us / 1e3 for n, us in top},
+                                  "host_self_ms": {a.key[:80]: a.self_cpu_time_total / 1e3 for a in host}}}))
 
 
 def main() -> int:
@@ -1500,7 +1598,9 @@ def main() -> int:
     op_builder.load("flash_attention")
     print(f"[5] loaded flash_attention (forward, dK/dV, dQ) in {time.perf_counter() - t0:.2f} s; "
           f"its kernels' SASS (cuobjdump) and registers (ptxas):")
-    sass = flash_sass()
+    sass = sass_report("flash_attention", kernel_label, MAIN_PATH_KERNEL.values())
+    print("  the fused-loss backward's mainloop (csrc/fused_xent.cu), each epilogue and operand layout:")
+    xent_sass = sass_report("fused_xent", xent_label, XENT_MAIN_PATH.values())
 
     print("[6] flash kernels vs plain")
     flash_errs = flash_checks(dev)
@@ -1520,13 +1620,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     op_builder.load("fused_xent")
-    print(f"[9] loaded fused_xent (forward, dH, dW) in {time.perf_counter() - t0:.2f} s; fused-loss kernels vs plain")
+    print(f"[9] loaded fused_xent (forward; backward: ds, dW, dH) in {time.perf_counter() - t0:.2f} s; "
+          f"fused-loss kernels vs plain")
     xent_errs = xent_checks(dev)
     xent_times = xent_timing(dev)
     torch.cuda.empty_cache()
 
     print("[10] training: the fused loss under dots_and_flash remat at GPT-2-125M width")
-    xent_launches, training["fused_remat"], trainer, batch = train_fused(dev)
+    xent_launches, training["fused_remat"], trainer, batch = train_fused(dev, no_remat=bool(args.profile))
     if args.profile:
         profile("train_batch_fused_remat", lambda: trainer.train_batch(batch), args.profile)
 
@@ -1602,19 +1703,36 @@ def main() -> int:
     replaces = {"fused_xent_forward": "deepspeed_tpu/ops/pallas/fused_xent.py:73",
                 "fused_xent_backward_dh": "deepspeed_tpu/ops/pallas/fused_xent.py:171",
                 "fused_xent_backward_dw": "deepspeed_tpu/ops/pallas/fused_xent.py:193"}
-    for (name, where), n in zip(replaces.items(), xent_launches):
+    fwd_launches, ds_launches, dw_launches, dh_launches = xent_launches
+    gas = BENCH_DS["gradient_accumulation_steps"]
+    # the backward pair: the ds pass feeds both rows, then each row's own product
+    carried = {"fused_xent_backward_dh": (("ds", ds_launches), ("dH", dh_launches)),
+               "fused_xent_backward_dw": (("ds", ds_launches), ("dW", dw_launches))}
+    for name, where in replaces.items():
         t, e = xent_times[name], xent_errs[name]
         second = "lse_max_abs_err" if name == "fused_xent_forward" else "max_rel_err"  # what e[dtype][1] holds
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/fused_xent.cu",
-            "replaces": where, "launches": n,
+            "replaces": where, "launches": fwd_launches if name == "fused_xent_forward" else carried[name][1][1],
             "max_abs_err": e[torch.bfloat16][0], "max_abs_err_fp32": e[torch.float32][0],
             "max_abs_err_fp16": e[torch.float16][0],
             second: e[torch.bfloat16][1], f"{second}_fp32": e[torch.float32][1],
             f"{second}_fp16": e[torch.float16][1],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "cublas_logits_ms": t["cublas_logits_ms"],
-        })
+        }
+        if name != "fused_xent_forward":
+            entry.update(
+                ms_is="the pair: dH and dW together, as one backward call computes them",
+                row_bound_ms=t["row_bound_ms"], chunks=t["chunks"], chunk_width=t["chunk_width"],
+                kernels=[{"name": XENT_MAIN_PATH[k], "launches": n,
+                          "launches_per_train_batch": n // TRAIN_STEPS, "ms": t["passes"][k]["ms"],
+                          "hgmma": xent_sass[XENT_MAIN_PATH[k]]["hgmma"],
+                          "registers": xent_sass[XENT_MAIN_PATH[k]]["registers"],
+                          "spill_stores": xent_sass[XENT_MAIN_PATH[k]]["spill_stores"]}
+                         for k, n in carried[name]],
+                backward_calls_per_train_batch=gas)
+        kernels.append(entry)
     replaces = {"sparse_forward": "deepspeed_tpu/ops/sparse_attention/kernels.py:75",
                 "sparse_backward_dq": "deepspeed_tpu/ops/sparse_attention/kernels.py:154",
                 "sparse_backward_dkdv": "deepspeed_tpu/ops/sparse_attention/kernels.py:192"}

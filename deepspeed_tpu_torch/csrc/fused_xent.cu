@@ -1,9 +1,11 @@
-// Fused vocab projection + cross-entropy on Hopper (sm_90a): forward, dH, dW.
+// Fused vocab projection + cross-entropy on Hopper (sm_90a): forward, and the
+// backward as three passes over vocab chunks.
 //
 // Replaces the three Pallas kernels of deepspeed_tpu/ops/pallas/fused_xent.py:
 //   dstt_xent_fwd     <- _fwd_kernel    (:73,  pallas_call :123)
-//   dstt_xent_bwd_dh  <- _bwd_dh_kernel (:171, pallas_call :235)
-//   dstt_xent_bwd_dw  <- _bwd_dw_kernel (:193, pallas_call :250)
+//   dstt_xent_bwd_ds, dstt_xent_bwd_dw, dstt_xent_bwd_dh
+//                     <- _bwd_dh_kernel (:171, pallas_call :235)
+//                      + _bwd_dw_kernel (:193, pallas_call :250)
 //
 // What they compute, for hidden H [N, D], head W [D, V] and labels y [N]
 // (y < 0 is an ignored row), with logits L = H·W in fp32 and columns past V
@@ -11,9 +13,10 @@
 //   forward: lse[n] = logsumexp_v L[n, v], nll[n] = lse[n] − L[n, y[n]]
 //            (the gold logit is 0 when no column matches y[n]);
 //   dH:      dH = ds·Wᵀ, ds = (exp(L − lse) − onehot(y))·g[n] rounded to W's type;
-//   dW:      dW = Hᵀ·ds, ds rounded to H's type;
-// with g [N] the cotangent of nll. The logits never reach device memory: each
-// kernel recomputes the [rows, vocab] tile it needs in shared memory.
+//   dW:      dW = Hᵀ·ds, ds rounded to H's type (_block_ds, :155, with the
+//            .astype of :184 and :207);
+// with g [N] the cotangent of nll. The forward's logits never reach device
+// memory; the backward's reach it one vocab chunk of ds at a time.
 //
 // Layout. H, dH: [N, D] with row/column strides; W, dW: [D, V] with d/v
 // strides, so the tied head wteᵀ (a [V, D] row-major buffer, d stride 1) is
@@ -21,50 +24,74 @@
 // gradient of (for the tied head, the layout wte's gradient needs). Inputs
 // and outputs share one type: fp32, bf16 or fp16.
 //
-// Grid. The Pallas kernels accumulate over a sequential grid axis in VMEM;
-// here that axis is a loop inside one CTA, and nothing is shared between CTAs
-// (no atomics: every result is deterministic run to run):
-//   forward: one CTA per 64-row tile, looping over 128-column vocab tiles,
-//            with a running row max, row sum and gold logit in shared memory;
-//            the contraction over D goes in 64-wide chunks of H and W staged
-//            in shared memory, the logits tile in tensor-core fragments;
-//   dH:      one CTA per 32-row tile (its H rows resident in shared memory),
-//            looping over 64-column vocab tiles: each loads its [64, D] slice
-//            of W once, recomputes the logits tile, forms ds, and adds
-//            ds·W_tile to the dH accumulator;
-//   dW:      one CTA per 32-column vocab tile (its W slice resident), looping
-//            over 64-row tiles: each loads its H rows once, recomputes the
-//            logits tile, forms ds, and adds H_tileᵀ·ds to the dW accumulator.
-// The ragged edges (N, D and V not multiples of the tiles) are
-// bounds-checked: rows past N load as zeros and carry g = 0, columns past V
-// are masked, D is zero-padded to a multiple of 64. fp32 inputs take the same
-// loops with 16-row tiles and scalar FMAs.
+// Forward. One CTA per 64-row tile, looping over 128-column vocab tiles, with
+// a running row max, row sum and gold logit in shared memory; the
+// contraction over D goes in 64-wide chunks of H and W staged in shared
+// memory, the logits tile in tensor-core fragments (fp32: scalar FMAs). It
+// does 2·N·D·V = 1.27 TFLOP at the training shape (N = 16384, D = 768,
+// V = 50304, bf16): bound by operations at 1.28 ms.
 //
-// Accumulators. The backward kernels keep dH [32, D] and dW [D, 32] in
-// registers for the whole loop: tensor-core fragments, each warp owning
-// 16-wide slices of D, 12 fragments (96 fp32 values a thread) at D = 768 and
-// 16 at D = 1024, the most the wrapper allows (MAX_D). That is why dH takes 32
-// rows and dW 32 columns: at 64 the accumulator would be 192 values a thread
-// at D = 768, beyond what 255 registers hold with the rest. Shared memory
-// then holds the resident operand and one streamed tile: 159 KB (dH) and
-// 160 KB (dW) at D = 768, 207 KB and 208 KB at D = 1024.
+// Backward. The caller walks the vocab in chunks [v0, v0 + vc) of a width
+// chosen so that a chunk of ds, [N, vc] in the input type, fits a 256 MiB
+// scratch (vc = 8192 at N = 16384: 7 chunks), and launches, per chunk and in
+// order, three products on one GEMM mainloop with different epilogues:
+//   ds pass: S = H·W[:, chunk] (K = D); the epilogue forms
+//            ds = (exp(S − lse) − onehot(y))·g in fp32 in registers, rounds
+//            it to the input type and stores it into the scratch (rows past
+//            N and columns past the chunk are not stored: the products below
+//            read them as TMA's zero fill);
+//   dW:      dW[:, chunk] = Hᵀ·ds (K = N), stored with the head's strides
+//            (as the [vc, D] product dsᵀ·H when the head is d-contiguous, so
+//            each thread's column pairs are contiguous in memory);
+//   dH:      dH_acc += ds·W[:, chunk]ᵀ (K = vc) into an fp32 [N, D] scratch;
+//            the first chunk writes it, the last rounds it into dH.
+// The chunks run in a fixed order, and every output tile belongs to one CTA
+// (no atomics), so dH and dW are bitwise the same from run to run.
 //
-// What bounds it on this card. At the training shape (N = 16384, D = 768,
-// V = 50304, bf16) the forward does 2·N·D·V = 1.27 TFLOP, each backward
-// 2.53 TFLOP (the logits again, then the product), on about 80 MB of H and
-// W: all three are bound by tensor-core operations (1.28 ms and 2.56 ms at
-// 989 TFLOP/s). The design is simple first: wmma (mma.sync) from shared
-// memory, one CTA of 8 warps per SM in the backward, no overlap of the
-// streamed tile's load with the products, and W (forward, dH) or H (dW)
-// re-read from L2 once per CTA. Left to later work: wgmma with TMA-fed
-// multi-stage buffers, and larger tiles so the streamed operand is re-read
-// less.
+// What bounds the backward on this card, at the training shape: the logits
+// once and two products, 6·N·D·V = 3.80 TFLOP, bound by operations at 3.84 ms
+// (989 TFLOP/s); its traffic, chiefly the scratch (each chunk of ds written
+// once and read twice, 0.8 GB per full chunk) and the fp32 dH accumulator
+// (50 MB read and written per chunk), is ≈ 6 GB, ≈ 1.8 ms at 3.35 TB/s.
+// The first design (one dH kernel and one dW kernel, each recomputing the
+// logits: 5.07 TFLOP, at ~8% of the card) was held back by four things, and
+// this design answers each:
+//   - no tensor-core path and no overlap (wmma from padded shared memory,
+//     four CTA-wide barriers a tile): here a TMA producer warp keeps a 3- or
+//     4-stage ring of 128-byte-swizzled tiles in flight on mbarriers, and
+//     two consumer warpgroups run wgmma m64n128k16 from shared memory with
+//     fp32 accumulators in registers, keeping one product in flight while
+//     the next stage is waited for;
+//   - the logits and ds through fp32 shared memory: here ds is formed in the
+//     accumulator registers and stored once, in the input type;
+//   - the streamed operand re-read per 32-row or 32-column CTA (40 GB per
+//     call): here 128 x 128 output tiles, with the N-tiles of one M-tile in
+//     consecutive CTAs so that they share the M-tile's strip in L2;
+//   - the logits computed twice: here once per chunk, for both products.
+// The cost: a [N, vc] chunk of ds (256 MiB) and the fp32 dH accumulator
+// (48 MiB at N = 16384, D = 768) reach device memory; the full [N, V] fp32
+// logits (3.3 GB) still never do. Why not larger tiles: a [rows, D] or
+// [D, cols] accumulator of full width cannot live in a warpgroup's
+// registers at D = 768, so one kernel per gradient would have to split D and
+// recompute the logits per slice; three plain products on a scratch need no
+// such split and no bound on D.
+//
+// The 16-bit backward reads its operands by TMA, which needs a unit stride,
+// a 16-byte base and the other stride a multiple of 8 elements; the wrapper
+// sends any other operand to a padded copy before the launch
+// (ops/fused_xent.py). fp32 takes the same three passes on a scalar-FMA
+// kernel (64 x 64 tiles staged in shared memory; TF32 tensor cores would
+// break the fp32 tolerance), which reads any strides.
 //
 // Plain C interface, loaded with ctypes. Each entry point launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() (or the error of cudaFuncSetAttribute).
+// cudaGetLastError() (or the error of cudaFuncSetAttribute;
+// cudaErrorInvalidValue for arguments it does not take, cudaErrorNotSupported
+// if cuTensorMapEncodeTiled refuses a tensor map).
 
-#include "common.cuh"
+#include <cstring>
+
+#include "hopper.cuh"
 
 struct XentParams {
   const void* h;        // hidden [N, D]
@@ -74,22 +101,23 @@ struct XentParams {
   const float* g;       // [N] cotangent of nll (backward)
   float* lse;           // [N] (forward)
   float* nll;           // [N] (forward)
-  void* dh;             // [N, D] (dH)
-  void* dw;             // [D, V] (dW)
+  void* dh;             // [N, D] (backward)
+  void* dw;             // [D, V] (backward)
+  void* ds;             // [N, ds_ld] the chunk's ds, input type (backward)
+  float* dh_acc;        // [N, D] fp32 dH summed over the chunks so far (backward; unused with one chunk)
   long long h_str[2];   // row, column
   long long w_str[2];   // d, v
   long long dh_str[2];  // row, column
   long long dw_str[2];  // d, v
   int N, D, V, dtype;
+  int v0, vc, ds_ld;    // the backward's vocab chunk [v0, v0 + vc), the scratch's row stride
 };
 
 namespace {
 
-constexpr int MAX_D = 1024;
-constexpr int DC = 64;  // contraction chunk over D
+constexpr int DC = 64;  // the forward's contraction chunk over D
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int FWD_R = 64, FWD_V = 128;
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // dst [R][ld] = rows [row0, row0 + R) x columns [col0, col0 + C) of a strided
 // matrix whose element (r, c) lies at src[r·s_row + c·s_col]; zeros past
@@ -118,30 +146,6 @@ __device__ void load_tile(T* dst, int ld, const T* src, long long s_row, long lo
     const int r = rows_contiguous ? i % R : i / C, c = rows_contiguous ? i / R : i % C;
     const int row = row0 + r, col = col0 + c;
     dst[r * ld + c] = (row < nrows && col < ncols) ? src[row * s_row + col * s_col] : from_float<T>(0.0f);
-  }
-}
-
-// Per-row values for rows [row0, row0 + R): lse and g (0 past N), labels (−1 past N).
-template <int R>
-__device__ void load_row_state(const XentParams& p, int row0, float* lse_s, float* g_s, int* y_s) {
-  for (int r = threadIdx.x; r < R; r += NUM_THREADS) {
-    const bool in = row0 + r < p.N;
-    lse_s[r] = in ? p.lse_in[row0 + r] : 0.0f;
-    g_s[r] = in ? p.g[row0 + r] : 0.0f;
-    y_s[r] = in ? p.y[row0 + r] : -1;
-  }
-}
-
-// ds for one [R][BV] logits tile at (row0, v0): (exp(s − lse) − onehot)·g in
-// fp32, masked past V, rounded to T (the Pallas kernels' .astype before the
-// product).
-template <typename T, int R, int BV, int LDS, int LDD>
-__device__ void dscores(const float* s_s, const float* lse_s, const float* g_s, const int* y_s, T* ds_s,
-                        int v0, int V) {
-  for (int i = threadIdx.x; i < R * BV; i += NUM_THREADS) {
-    const int r = i / BV, c = i % BV, col = v0 + c;
-    const float pv = col < V ? expf(s_s[r * LDS + c] - lse_s[r]) : 0.0f;
-    ds_s[r * LDD + c] = from_float<T>((pv - (col == y_s[r] ? 1.0f : 0.0f)) * g_s[r]);
   }
 }
 
@@ -232,302 +236,307 @@ __global__ void __launch_bounds__(NUM_THREADS) xent_fwd_kernel(const XentParams 
 }
 
 // ---------------------------------------------------------------------------
-// The backward kernels keep their operands resident in shared memory for the
-// whole contraction over D, and their [rows, D] or [D, columns] accumulator
-// in registers across the loop (tensor-core fragments for 16-bit inputs).
+// Backward: per vocab chunk, three products C[M, N] = A·B over K, on one
+// mainloop, each with its own epilogue. Operand element (i, k), i along M
+// (A) or N (B), lies at base[i·si + k·sk].
 // ---------------------------------------------------------------------------
 
-// s [R][lds] fp32 = A · Bᵀ over K (a multiple of 16): A [R][K] and B [BV][K]
-// row-major in shared memory (lda, ldb), the whole contraction per output
-// tile with no barrier inside.
-template <typename T, int R, int BV>
-__device__ void logits_tile(const T* A, int lda, const T* B, int ldb, int K, float* s, int lds) {
+struct Operand {
+  const void* base;
+  long long si, sk;
+  int rows;  // extent along M (A) or N (B); reads past it, or past K, give 0
+};
+
+// Two values to adjacent elements p[0], p[1] (4-byte aligned for 16-bit T, 8 for fp32).
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b) {
   if constexpr (IS_16BIT<T>) {
-    constexpr int TN = BV / 16;
-    const int warp = threadIdx.x / 32;
-    for (int t = warp; t < (R / 16) * TN; t += NUM_WARPS) {
-      const int m0 = (t / TN) * 16, n0 = (t % TN) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-#pragma unroll 4
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b;
-        wmma::load_matrix_sync(a, A + m0 * lda + k0, lda);
-        wmma::load_matrix_sync(b, B + n0 * ldb + k0, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(s + m0 * lds + n0, c, lds, wmma::mem_row_major);
-    }
+    *reinterpret_cast<uint32_t*>(p) = pack2<T>(a, b);
   } else {
-    for (int i = threadIdx.x; i < R * BV; i += NUM_THREADS) {
-      const int m = i / BV, n = i % BV;
-      float acc = 0.0f;
-#pragma unroll 8
-      for (int k = 0; k < K; ++k) acc = fmaf(A[m * lda + k], B[n * ldb + k], acc);
-      s[m * lds + n] = acc;
-    }
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
   }
 }
 
-// Per-thread fp32 accumulators for an fp32 [M][N] output (M·N <= MAX_D·32):
-// thread t owns elements t, t + NUM_THREADS, ... .
-constexpr int SCALAR_PER = MAX_D * 32 / NUM_THREADS;
+// The epilogues. Each mainloop hands its accumulator to put() as pairs of
+// adjacent columns (c even) of row r, after fetching the row's state once.
 
-// ---------------------------------------------------------------------------
-// dH: one CTA per row tile (32 rows; fp32 16), looping over vocab tiles (64
-// columns; fp32 32). The CTA's H rows stay in shared memory; each vocab tile
-// loads its [BV, D] slice of W once, forms the logits and ds from it, and
-// adds ds·W_tile to dH [R, D], which lives in registers: warp w owns the
-// 16-column slices w, w + 8, ... of D (at most 8 at D = 1024), for both
-// 16-row halves.
-// ---------------------------------------------------------------------------
-
-template <typename T> struct DhTile { static constexpr int R = 32, BV = 64; };
-template <> struct DhTile<float> { static constexpr int R = 16, BV = 32; };
-
+// ds = (exp(s − lse) − onehot(y))·g in fp32, rounded to T, into the scratch
+// [N, ld] (column c is vocab id v0 + c).
 template <typename T>
-struct DhSmem {
-  static constexpr int R = DhTile<T>::R, BV = DhTile<T>::BV, LDS = ld_f<BV>(), LDD = ld_t<T, BV>();
-  __host__ __device__ static int ldh(int DP) { return DP + pad<T>(); }
-  // [R][ldh] H rows, [BV][ldh] W tile, [R][LDS] logits, [R][LDD] ds, lse, g, y
-  static size_t bytes(int DP) {
-    return ((R + BV) * ldh(DP) + R * LDD) * sizeof(T) + (R * LDS + 2 * R) * sizeof(float) + R * sizeof(int);
+struct DsOut {
+  const float* lse;
+  const float* g;
+  const int* y;
+  T* ds;
+  long long ld;
+  int N, vc, v0;
+
+  struct Row {
+    float lse2, g;  // lse·log2 e
+    int y;          // label − v0: a column of this chunk, or none
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    return r < N ? Row{lse[r] * LOG2E, g[r], y[r] - v0} : Row{0.0f, 0.0f, -1};
+  }
+  __device__ __forceinline__ void put(const Row& w, int r, int c, float a, float b) const {
+    if (r >= N || c >= vc) return;
+    const float d0 = (exp2f(fmaf(a, LOG2E, -w.lse2)) - (c == w.y ? 1.0f : 0.0f)) * w.g;
+    const float d1 = (exp2f(fmaf(b, LOG2E, -w.lse2)) - (c + 1 == w.y ? 1.0f : 0.0f)) * w.g;
+    T* p = ds + r * ld + c;
+    if (c + 1 < vc) {
+      store_pair<T>(p, d0, d1);
+    } else {
+      p[0] = from_float<T>(d0);
+    }
   }
 };
 
+// dW[:, chunk] in the head's layout: element (r, c) of the product at out[r·sm + c·sn].
 template <typename T>
-__global__ void __launch_bounds__(NUM_THREADS) xent_bwd_dh_kernel(const XentParams p) {
-  using L = DhSmem<T>;
-  constexpr int R = L::R, BV = L::BV, LDS = L::LDS, LDD = L::LDD;
-  const int DP = round_up(p.D, DC), LDH = L::ldh(DP);
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* h_s = reinterpret_cast<T*>(smem);                   // [R][LDH] the CTA's rows of H
-  T* w_s = h_s + R * LDH;                                 // [BV][LDH] the vocab tile of W, vocab-major
-  T* ds_s = w_s + BV * LDH;                               // [R][LDD]
-  float* s_s = reinterpret_cast<float*>(ds_s + R * LDD);  // [R][LDS]
-  float* lse_s = s_s + R * LDS;                           // [R]
-  float* g_s = lse_s + R;                                 // [R]
-  int* y_s = reinterpret_cast<int*>(g_s + R);             // [R]
+struct DwOut {
+  T* out;
+  long long sm, sn;
+  int M, N;
+  bool pairs;  // sn == 1 with 4-byte (16-bit) or 8-byte (fp32) aligned pairs
 
-  const int row0 = blockIdx.x * R;
-  const int warp = threadIdx.x / 32;
-  const T* w = static_cast<const T*>(p.w);
-  load_tile<T, R>(h_s, LDH, static_cast<const T*>(p.h), p.h_str[0], p.h_str[1], row0, p.N, 0, DP, p.D);
-  load_row_state<R>(p, row0, lse_s, g_s, y_s);
-
-  constexpr int NT = MAX_D / 16 / NUM_WARPS;  // column slices of D a warp can own
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NT];
-  float sacc[SCALAR_PER];
-  if constexpr (IS_16BIT<T>) {
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      wmma::fill_fragment(acc[0][i], 0.0f);
-      wmma::fill_fragment(acc[1][i], 0.0f);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < SCALAR_PER; ++i) sacc[i] = 0.0f;
-  }
-
-  for (int v0 = 0; v0 < p.V; v0 += BV) {
-    __syncthreads();  // the last tile's products have read w_s and ds_s
-    load_tile<T, BV>(w_s, LDH, w, p.w_str[1], p.w_str[0], v0, p.V, 0, DP, p.D);
-    __syncthreads();
-    logits_tile<T, R, BV>(h_s, LDH, w_s, LDH, DP, s_s, LDS);
-    __syncthreads();
-    dscores<T, R, BV, LDS, LDD>(s_s, lse_s, g_s, y_s, ds_s, v0, p.V);
-    __syncthreads();
-    // dH += ds · W_tile: A = ds [R][BV], B = W_tile [BV][D] row-major
-    if constexpr (IS_16BIT<T>) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2][BV / 16];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int k = 0; k < BV / 16; ++k) wmma::load_matrix_sync(a[m][k], ds_s + m * 16 * LDD + k * 16, LDD);
-      }
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const int nt = warp + i * NUM_WARPS;
-        if (nt < DP / 16) {
-#pragma unroll
-          for (int k = 0; k < BV / 16; ++k) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b;
-            wmma::load_matrix_sync(b, w_s + k * 16 * LDH + nt * 16, LDH);
-            wmma::mma_sync(acc[0][i], a[0][k], b, acc[0][i]);
-            wmma::mma_sync(acc[1][i], a[1][k], b, acc[1][i]);
-          }
-        }
-      }
+  struct Row {};
+  __device__ __forceinline__ Row row(int) const { return {}; }
+  __device__ __forceinline__ void put(Row, int r, int c, float a, float b) const {
+    if (r >= M || c >= N) return;
+    T* p = out + r * sm + c * sn;
+    if (pairs && c + 1 < N) {
+      store_pair<T>(p, a, b);
     } else {
-#pragma unroll
-      for (int i = 0; i < SCALAR_PER; ++i) {
-        const int e = threadIdx.x + i * NUM_THREADS;
-        if (e < R * DP) {
-          const int r = e / DP, d = e % DP;
-          float sum = sacc[i];
-          for (int k = 0; k < BV; ++k) sum = fmaf(to_float(ds_s[r * LDD + k]), to_float(w_s[k * LDH + d]), sum);
-          sacc[i] = sum;
-        }
+      p[0] = from_float<T>(a);
+      if (c + 1 < N) p[sn] = from_float<T>(b);
+    }
+  }
+};
+
+// dH: the fp32 accumulator acc [N, D] (+)= the product (written by the first
+// chunk, added to by the rest); the last chunk rounds the sum into dH.
+template <typename T>
+struct DhOut {
+  float* acc;
+  T* dh;
+  long long s0, s1;
+  int N, D;
+  bool first, last, pairs;  // pairs: D even, dh rows contiguous with 4/8-byte aligned pairs
+
+  struct Row {};
+  __device__ __forceinline__ Row row(int) const { return {}; }
+  __device__ __forceinline__ void put(Row, int r, int c, float a, float b) const {
+    if (r >= N || c >= D) return;
+    float* q = acc + static_cast<long long>(r) * D + c;
+    if (pairs) {  // D even, so c + 1 < D
+      if (!first) {
+        const float2 old = *reinterpret_cast<const float2*>(q);
+        a += old.x;
+        b += old.y;
+      }
+      if (last) {
+        store_pair<T>(dh + r * s0 + c, a, b);
+      } else {
+        *reinterpret_cast<float2*>(q) = make_float2(a, b);
+      }
+      return;
+    }
+    const float v[2] = {a, b};
+    for (int e = 0; e < 2 && c + e < D; ++e) {
+      const float x = first ? v[e] : v[e] + q[e];
+      if (last) {
+        dh[r * s0 + (c + e) * s1] = from_float<T>(x);
+      } else {
+        q[e] = x;
       }
     }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// 16-bit mainloop on Hopper: CTA = a 128 x 128 output tile; one producer warp
+// (TMA) and two consumer warpgroups (64 rows each, wgmma m64n128k16, 64 fp32
+// accumulators a thread), a ring of 64-deep A and B tiles between them. A
+// K-major operand tile is [rows][64] (one 128-byte-swizzled atom); an
+// MN-major one is [64][rows] as rows/64 atoms of [64][64] (hopper.cuh).
+// ---------------------------------------------------------------------------
+
+constexpr int G_BM = 128, G_BN = 128, G_BK = 64;
+constexpr int G_CONSUMER_WARPS = 8;
+constexpr int G_THREADS = G_CONSUMER_WARPS * 32 + 32;
+
+// CTAs an SM, and the ring's stages. The ds pass contracts over D only (12
+// tiles at D = 768), so its epilogue weighs: two CTAs an SM on 3 stages let
+// one CTA's epilogue overlap the other's mainloop. The two long products
+// contract over thousands of rows or columns and run faster on one CTA an SM
+// with 4 stages (both settings timed for all three on an H100; PERF.md).
+template <typename Out> constexpr int CTAS_PER_SM = 1;
+template <typename T> constexpr int CTAS_PER_SM<DsOut<T>> = 2;
+template <typename Out> constexpr int STAGES = CTAS_PER_SM<Out> == 2 ? 3 : 4;
+
+struct GemmMaps {
+  CUtensorMap a, b;
+};
+
+template <typename T, int ST>
+struct GemmSmem {
+  static constexpr int A_ELEMS = G_BM * G_BK, B_ELEMS = G_BN * G_BK;
+  static constexpr uint32_t STAGE_BYTES = (A_ELEMS + B_ELEMS) * sizeof(T);
+  static constexpr size_t bytes = 1024 + ST * STAGE_BYTES + 2 * ST * sizeof(uint64_t);
+};
+
+// One stage of an operand: rows [i0, i0 + R) x depth [k0, k0 + 64).
+template <int R, bool MN, typename T>
+__device__ __forceinline__ void tma_operand(T* dst, const CUtensorMap* map, uint64_t* bar, int i0, int k0) {
+  if constexpr (MN) {
+#pragma unroll
+    for (int a = 0; a < R / 64; ++a) tma_load_tile(dst + a * 64 * G_BK, map, bar, i0 + 64 * a, k0, 0, 0);
+  } else {
+    tma_load_tile(dst, map, bar, k0, i0, 0, 0);
+  }
+}
+
+// Descriptor of depth step kk (16 deep) of an operand tile, from row 64·sub
+// on (sub: the warpgroup's 64 rows of A; 0 for B).
+template <bool MN, typename T>
+__device__ __forceinline__ uint64_t operand_desc(const T* tile, int sub, int kk) {
+  if constexpr (MN) {
+    return desc_b128(tile + sub * 64 * G_BK + kk * 16 * 64, G_BK * 128);
+  } else {
+    return desc_b128(tile + sub * 64 * 64 + kk * 16, 16);
+  }
+}
+
+template <typename T, bool A_MN, bool B_MN, typename Out>
+__global__ void __launch_bounds__(G_THREADS, CTAS_PER_SM<Out>)
+    xent_gemm_hopper(const __grid_constant__ GemmMaps maps, const int K, const Out out) {
+  constexpr int ST = STAGES<Out>;
+  using L = GemmSmem<T, ST>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* a_s = reinterpret_cast<T*>(smem);  // stage s at a_s + s * A_ELEMS
+  T* b_s = a_s + ST * L::A_ELEMS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + ST * L::B_ELEMS);
+  uint64_t* empty = full + ST;
+
+  const int m0 = blockIdx.y * G_BM, n0 = blockIdx.x * G_BN;  // the N-tiles of one M-tile run side by side
+  const int nk = (K + G_BK - 1) / G_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], G_CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == G_CONSUMER_WARPS) {  // producer
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % ST;
+        if (kt >= ST) mbar_wait(&empty[s], ((kt / ST) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], L::STAGE_BYTES);
+        tma_operand<G_BM, A_MN>(a_s + s * L::A_ELEMS, &maps.a, &full[s], m0, kt * G_BK);
+        tma_operand<G_BN, B_MN>(b_s + s * L::B_ELEMS, &maps.b, &full[s], n0, kt * G_BK);
+      }
+    }
+    return;
   }
 
-  // Stage dH through shared memory (fp32 [R][DP + 4], over h_s and w_s) and
-  // write it in the input type.
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem);
-  const int LDO = DP + 4;
-  if constexpr (IS_16BIT<T>) {
+  // Consumers: warpgroup wg owns rows m0 + 64·wg + [0, 64) of the tile.
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  float acc[G_BN / 2];
 #pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const int nt = warp + i * NUM_WARPS;
-      if (nt < DP / 16) {
-        wmma::store_matrix_sync(stage + nt * 16, acc[0][i], LDO, wmma::mem_row_major);
-        wmma::store_matrix_sync(stage + 16 * LDO + nt * 16, acc[1][i], LDO, wmma::mem_row_major);
-      }
+  for (int i = 0; i < G_BN / 2; ++i) acc[i] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % ST;
+    const T* a_t = a_s + s * L::A_ELEMS;
+    const T* b_t = b_s + s * L::B_ELEMS;
+    mbar_wait(&full[s], (kt / ST) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < G_BK / 16; ++kk) {
+      wgmma_ss<T, G_BN, B_MN, A_MN>(acc, operand_desc<A_MN>(a_t, wg, kk), operand_desc<B_MN>(b_t, 0, kk), 1);
     }
-  } else {
-#pragma unroll
-    for (int i = 0; i < SCALAR_PER; ++i) {
-      const int e = threadIdx.x + i * NUM_THREADS;
-      if (e < R * DP) stage[(e / DP) * LDO + e % DP] = sacc[i];
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: hand it back
+    fence_regs(acc);
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(kt - 1) % ST]);
     }
   }
-  __syncthreads();
-  T* dh = static_cast<T*>(p.dh);
-  for (int i = threadIdx.x; i < R * DP; i += NUM_THREADS) {
-    const int r = i / DP, d = i % DP;
-    if (row0 + r < p.N && d < p.D) dh[(row0 + r) * p.dh_str[0] + d * p.dh_str[1]] = from_float<T>(stage[r * LDO + d]);
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const int r0 = m0 + 64 * wg + acc_row(0, t);
+  const typename Out::Row rows[2] = {out.row(r0), out.row(r0 + 8)};
+#pragma unroll
+  for (int i = 0; i < G_BN / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    out.put(rows[r], r0 + 8 * r, n0 + acc_col(i, t), acc[i], acc[i + 1]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// dW: one CTA per 32-column vocab tile, looping over row tiles (64 rows;
-// fp32 16). The CTA's [32, D] slice of W stays in shared memory; each row
-// tile loads its H rows once, forms the logits and ds from them, and adds
-// H_tileᵀ·ds to dW [D, 32], which lives in registers: warp w owns the
-// 16-row slices w, w + 8, ... of D (at most 8 at D = 1024), for both
-// 16-column halves.
+// fp32 mainloop: CTA = a 64 x 64 output tile of 256 threads, 16-deep tiles of
+// A and B staged in shared memory (loaded along whichever dimension is
+// contiguous), scalar FMAs; thread (ty, tx) owns rows 4·ty + [0, 4) and
+// columns 2·tx + {0, 1} and 32 + 2·tx + {0, 1}.
 // ---------------------------------------------------------------------------
 
-template <typename T> struct DwTile { static constexpr int R = 64, BV = 32; };
-template <> struct DwTile<float> { static constexpr int R = 16, BV = 32; };
+constexpr int F32_T = 64, F32_K = 16;
 
-template <typename T>
-struct DwSmem {
-  static constexpr int R = DwTile<T>::R, BV = DwTile<T>::BV, LDS = ld_f<BV>(), LDD = ld_t<T, BV>();
-  __host__ __device__ static int ldh(int DP) { return DP + pad<T>(); }
-  // [BV][ldh] W tile, [R][ldh] H rows, [R][LDS] logits, [R][LDD] ds, lse, g, y
-  static size_t bytes(int DP) {
-    return ((BV + R) * ldh(DP) + R * LDD) * sizeof(T) + (R * LDS + 2 * R) * sizeof(float) + R * sizeof(int);
+__device__ __forceinline__ void load_operand_f32(float (*dst)[F32_T + 4], const Operand& o, int i0, int k0,
+                                                 int K) {
+  const float* src = static_cast<const float*>(o.base);
+  const bool i_fast = o.si == 1;
+  for (int e = threadIdx.x; e < F32_T * F32_K; e += NUM_THREADS) {
+    const int i = i_fast ? e % F32_T : e / F32_K, k = i_fast ? e / F32_T : e % F32_K;
+    const int gi = i0 + i, gk = k0 + k;
+    dst[k][i] = gi < o.rows && gk < K ? src[gi * o.si + gk * o.sk] : 0.0f;
   }
-};
+}
 
-template <typename T>
-__global__ void __launch_bounds__(NUM_THREADS) xent_bwd_dw_kernel(const XentParams p) {
-  using L = DwSmem<T>;
-  constexpr int R = L::R, BV = L::BV, LDS = L::LDS, LDD = L::LDD;
-  const int DP = round_up(p.D, DC), LDH = L::ldh(DP);
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* w_s = reinterpret_cast<T*>(smem);                   // [BV][LDH] the CTA's vocab tile of W
-  T* h_s = w_s + BV * LDH;                                // [R][LDH] a row tile of H
-  T* ds_s = h_s + R * LDH;                                // [R][LDD]
-  float* s_s = reinterpret_cast<float*>(ds_s + R * LDD);  // [R][LDS]
-  float* lse_s = s_s + R * LDS;                           // [R]
-  float* g_s = lse_s + R;                                 // [R]
-  int* y_s = reinterpret_cast<int*>(g_s + R);             // [R]
-
-  const int v0 = blockIdx.x * BV;
-  const int warp = threadIdx.x / 32;
-  const T* h = static_cast<const T*>(p.h);
-  load_tile<T, BV>(w_s, LDH, static_cast<const T*>(p.w), p.w_str[1], p.w_str[0], v0, p.V, 0, DP, p.D);
-
-  constexpr int MT = MAX_D / 16 / NUM_WARPS;  // row slices of D a warp can own
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT][2];
-  float sacc[SCALAR_PER];
-  if constexpr (IS_16BIT<T>) {
+template <typename Out>
+__global__ void __launch_bounds__(NUM_THREADS) xent_gemm_f32(const Operand a, const Operand b, const int K,
+                                                             const Out out) {
+  __shared__ __align__(16) float a_s[F32_K][F32_T + 4];
+  __shared__ __align__(16) float b_s[F32_K][F32_T + 4];
+  const int m0 = blockIdx.y * F32_T, n0 = blockIdx.x * F32_T;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float c[4][4];
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      wmma::fill_fragment(acc[i][0], 0.0f);
-      wmma::fill_fragment(acc[i][1], 0.0f);
-    }
-  } else {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < SCALAR_PER; ++i) sacc[i] = 0.0f;
-  }
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.0f;
 
-  for (int row0 = 0; row0 < p.N; row0 += R) {
-    __syncthreads();  // the last tile's products have read h_s, ds_s and the row state
-    load_tile<T, R>(h_s, LDH, h, p.h_str[0], p.h_str[1], row0, p.N, 0, DP, p.D);
-    load_row_state<R>(p, row0, lse_s, g_s, y_s);
+  for (int k0 = 0; k0 < K; k0 += F32_K) {
+    __syncthreads();  // the last tile's products are done
+    load_operand_f32(a_s, a, m0, k0, K);
+    load_operand_f32(b_s, b, n0, k0, K);
     __syncthreads();
-    logits_tile<T, R, BV>(h_s, LDH, w_s, LDH, DP, s_s, LDS);
-    __syncthreads();
-    dscores<T, R, BV, LDS, LDD>(s_s, lse_s, g_s, y_s, ds_s, v0, p.V);
-    __syncthreads();
-    // dW += H_tileᵀ · ds: A = H_tileᵀ [D][R] (h_s read column-major), B = ds [R][BV]
-    if constexpr (IS_16BIT<T>) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[R / 16][2];
 #pragma unroll
-      for (int k = 0; k < R / 16; ++k) {
-        wmma::load_matrix_sync(b[k][0], ds_s + k * 16 * LDD, LDD);
-        wmma::load_matrix_sync(b[k][1], ds_s + k * 16 * LDD + 16, LDD);
-      }
+    for (int k = 0; k < F32_K; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&a_s[k][4 * ty]);
+      const float2 b0 = *reinterpret_cast<const float2*>(&b_s[k][2 * tx]);
+      const float2 b1 = *reinterpret_cast<const float2*>(&b_s[k][32 + 2 * tx]);
+      const float ar[4] = {av.x, av.y, av.z, av.w}, br[4] = {b0.x, b0.y, b1.x, b1.y};
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int mt = warp + i * NUM_WARPS;
-        if (mt < DP / 16) {
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int k = 0; k < R / 16; ++k) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> a;
-            wmma::load_matrix_sync(a, h_s + k * 16 * LDH + mt * 16, LDH);
-            wmma::mma_sync(acc[i][0], a, b[k][0], acc[i][0]);
-            wmma::mma_sync(acc[i][1], a, b[k][1], acc[i][1]);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < SCALAR_PER; ++i) {
-        const int e = threadIdx.x + i * NUM_THREADS;
-        if (e < DP * BV) {
-          const int d = e / BV, c = e % BV;
-          float sum = sacc[i];
-          for (int k = 0; k < R; ++k) sum = fmaf(to_float(h_s[k * LDH + d]), to_float(ds_s[k * LDD + c]), sum);
-          sacc[i] = sum;
-        }
-      }
+        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(ar[i], br[j], c[i][j]);
     }
   }
-
-  // Stage dW through shared memory (fp32 [DP][BV + 4], over w_s and h_s) and
-  // write it with the head's strides.
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem);
-  constexpr int LDO = BV + 4;
-  if constexpr (IS_16BIT<T>) {
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int mt = warp + i * NUM_WARPS;
-      if (mt < DP / 16) {
-        wmma::store_matrix_sync(stage + mt * 16 * LDO, acc[i][0], LDO, wmma::mem_row_major);
-        wmma::store_matrix_sync(stage + mt * 16 * LDO + 16, acc[i][1], LDO, wmma::mem_row_major);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < SCALAR_PER; ++i) {
-      const int e = threadIdx.x + i * NUM_THREADS;
-      if (e < DP * BV) stage[(e / BV) * LDO + e % BV] = sacc[i];
-    }
-  }
-  __syncthreads();
-  T* dw = static_cast<T*>(p.dw);
-  const bool d_contiguous = p.dw_str[0] == 1;  // the tied head's layout: write along d
-  for (int i = threadIdx.x; i < DP * BV; i += NUM_THREADS) {
-    const int d = d_contiguous ? i % DP : i / BV, c = d_contiguous ? i / DP : i % BV;
-    if (d < p.D && v0 + c < p.V) dw[d * p.dw_str[0] + (v0 + c) * p.dw_str[1]] = from_float<T>(stage[d * LDO + c]);
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + 4 * ty + i;
+    const typename Out::Row w = out.row(r);
+    out.put(w, r, n0 + 2 * tx, c[i][0], c[i][1]);
+    out.put(w, r, n0 + 32 + 2 * tx, c[i][2], c[i][3]);
   }
 }
 
@@ -535,36 +544,125 @@ __global__ void __launch_bounds__(NUM_THREADS) xent_bwd_dw_kernel(const XentPara
 // Launch
 // ---------------------------------------------------------------------------
 
-enum Which { FWD, DH, DW };
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+// TMA reads an operand with a unit stride along k (K-major) or along i
+// (MN-major), a 16-byte base and the other stride a multiple of 8 elements.
+bool tma_readable(const Operand& o, bool mn) {
+  const long long unit = mn ? o.si : o.sk, other = mn ? o.sk : o.si;
+  return unit == 1 && other > 0 && other % 8 == 0 && reinterpret_cast<size_t>(o.base) % 16 == 0;
+}
+
+// The operand as a [1, outer, 1, inner] map (inner: its contiguous
+// dimension), boxes of 64 contiguous elements by `box` rows.
+bool operand_map(CUtensorMap* map, const Operand& o, int K, bool mn, int box, bool is_bf16) {
+  const int inner = mn ? o.rows : K, outer = mn ? K : o.rows;
+  const long long ld = mn ? o.sk : o.si;
+  const long long str[3] = {ld * outer, ld, ld * outer};  // batch, row, head
+  return tile_map(map, o.base, is_bf16, str, 1, outer, 1, inner, box);
+}
+
+// C [M, N] = A·B over K, through out. 16-bit: A_MN / B_MN say which operand
+// is read MN-major; fp32 reads any strides.
+template <typename T, bool A_MN, bool B_MN, typename Out>
+int gemm(const Operand& a, const Operand& b, int M, int N, int K, const Out& out, cudaStream_t stream) {
+  if constexpr (!IS_16BIT<T>) {
+    const dim3 grid((N + F32_T - 1) / F32_T, (M + F32_T - 1) / F32_T);
+    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    xent_gemm_f32<Out><<<grid, NUM_THREADS, 0, stream>>>(a, b, K, out);
+  } else {
+    using L = GemmSmem<T, STAGES<Out>>;
+    if (!tma_readable(a, A_MN) || !tma_readable(b, B_MN)) return static_cast<int>(cudaErrorInvalidValue);
+    const bool is_bf16 = std::is_same<T, bf16>::value;
+    GemmMaps maps;
+    memset(&maps, 0, sizeof(maps));
+    if (!operand_map(&maps.a, a, K, A_MN, A_MN ? G_BK : G_BM, is_bf16) ||
+        !operand_map(&maps.b, b, K, B_MN, B_MN ? G_BK : G_BN, is_bf16)) {
+      return static_cast<int>(cudaErrorNotSupported);
+    }
+    const dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
+    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = xent_gemm_hopper<T, A_MN, B_MN, Out>;
+    const int e = set_smem(kernel, L::bytes);
+    if (e != 0) return e;
+    kernel<<<grid, G_THREADS, L::bytes, stream>>>(maps, K, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The head's columns [v0, v0 + vc).
+template <typename T>
+const T* head_chunk(const XentParams& p) {
+  return static_cast<const T*>(p.w) + p.v0 * p.w_str[1];
+}
+
+template <typename T>
+bool pair_aligned(const T* p) {
+  return reinterpret_cast<size_t>(p) % (2 * sizeof(T)) == 0;
+}
+
+// ds pass: S = H·W[:, chunk], M = N, N = vc, K = D; H is read K-major, the
+// head K-major when d-contiguous (the tied head) and MN-major otherwise.
+template <typename T>
+int bwd_ds(const XentParams& p, cudaStream_t stream) {
+  const Operand a{p.h, p.h_str[0], p.h_str[1], p.N};
+  const Operand b{head_chunk<T>(p), p.w_str[1], p.w_str[0], p.vc};
+  const DsOut<T> out{p.lse_in, p.g, p.y, static_cast<T*>(p.ds), p.ds_ld, p.N, p.vc, p.v0};
+  return p.w_str[0] == 1 ? gemm<T, false, false>(a, b, p.N, p.vc, p.D, out, stream)
+                         : gemm<T, false, true>(a, b, p.N, p.vc, p.D, out, stream);
+}
+
+// dW[:, chunk] = Hᵀ·ds, K = N, both operands MN-major: as dsᵀ·H [vc, D] when
+// dW is d-contiguous, else as Hᵀ·ds [D, vc].
+template <typename T>
+int bwd_dw(const XentParams& p, cudaStream_t stream) {
+  const Operand h{p.h, p.h_str[1], p.h_str[0], p.D};
+  const Operand ds{p.ds, 1, p.ds_ld, p.vc};
+  T* base = static_cast<T*>(p.dw) + p.v0 * p.dw_str[1];
+  if (p.dw_str[0] == 1) {
+    const DwOut<T> out{base, p.dw_str[1], 1, p.vc, p.D, p.dw_str[1] % 2 == 0 && pair_aligned(base)};
+    return gemm<T, true, true>(ds, h, p.vc, p.D, p.N, out, stream);
+  }
+  const DwOut<T> out{base, p.dw_str[0], p.dw_str[1], p.D, p.vc,
+                     p.dw_str[1] == 1 && p.dw_str[0] % 2 == 0 && pair_aligned(base)};
+  return gemm<T, true, true>(h, ds, p.D, p.vc, p.N, out, stream);
+}
+
+// dH (+)= ds·W[:, chunk]ᵀ, M = N, N = D, K = vc; ds read K-major, the head
+// MN-major when d-contiguous (the tied head) and K-major otherwise.
+template <typename T>
+int bwd_dh(const XentParams& p, cudaStream_t stream) {
+  const Operand a{p.ds, p.ds_ld, 1, p.N};
+  const Operand b{head_chunk<T>(p), p.w_str[0], p.w_str[1], p.D};
+  T* dh = static_cast<T*>(p.dh);
+  const bool first = p.v0 == 0, last = p.v0 + p.vc >= p.V;
+  if (!last && p.dh_acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const DhOut<T> out{p.dh_acc, dh, p.dh_str[0], p.dh_str[1], p.N, p.D, first, last,
+                     p.D % 2 == 0 && p.dh_str[1] == 1 && p.dh_str[0] % 2 == 0 && pair_aligned(dh)};
+  return p.w_str[0] == 1 ? gemm<T, false, true>(a, b, p.N, p.D, p.vc, out, stream)
+                         : gemm<T, false, false>(a, b, p.N, p.D, p.vc, out, stream);
+}
+
+enum Which { FWD, DS, DW, DH };
 
 template <typename T>
 int launch(const XentParams& p, Which which, cudaStream_t stream) {
-  const int DP = round_up(p.D, DC);
-  void (*kernel)(const XentParams);
-  size_t smem;
-  int grid;
-  if (which == FWD) {
-    kernel = xent_fwd_kernel<T>;
-    smem = FwdSmem<T>::bytes;
-    grid = (p.N + FWD_R - 1) / FWD_R;
-  } else if (which == DH) {
-    kernel = xent_bwd_dh_kernel<T>;
-    smem = DhSmem<T>::bytes(DP);
-    grid = (p.N + DhTile<T>::R - 1) / DhTile<T>::R;
-  } else {
-    kernel = xent_bwd_dw_kernel<T>;
-    smem = DwSmem<T>::bytes(DP);
-    grid = (p.V + DwTile<T>::BV - 1) / DwTile<T>::BV;
-  }
-  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, NUM_THREADS, smem, stream>>>(p);
+  if (which == DS) return bwd_ds<T>(p, stream);
+  if (which == DW) return bwd_dw<T>(p, stream);
+  if (which == DH) return bwd_dh<T>(p, stream);
+  const int e = set_smem(xent_fwd_kernel<T>, FwdSmem<T>::bytes);
+  if (e != 0) return e;
+  xent_fwd_kernel<T><<<(p.N + FWD_R - 1) / FWD_R, NUM_THREADS, FwdSmem<T>::bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const XentParams* p, Which which, void* stream) {
-  if (p == nullptr || p->N < 1 || p->D < 1 || p->D > MAX_D || p->V < 1) {
+  if (p == nullptr || p->N < 1 || p->D < 1 || p->V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (which != FWD && (p->v0 < 0 || p->vc < 1 || p->v0 + p->vc > p->V || p->ds_ld < p->vc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -577,7 +675,9 @@ int dispatch(const XentParams* p, Which which, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. The caller has checked
-// shapes, dtypes, devices, int32 labels and 1 <= D <= 1024.
+// shapes, dtypes, devices and int32 labels, and for the 16-bit backward that
+// its operands are TMA-readable (see above).
 extern "C" int dstt_xent_fwd(const XentParams* p, void* stream) { return dispatch(p, FWD, stream); }
-extern "C" int dstt_xent_bwd_dh(const XentParams* p, void* stream) { return dispatch(p, DH, stream); }
+extern "C" int dstt_xent_bwd_ds(const XentParams* p, void* stream) { return dispatch(p, DS, stream); }
 extern "C" int dstt_xent_bwd_dw(const XentParams* p, void* stream) { return dispatch(p, DW, stream); }
+extern "C" int dstt_xent_bwd_dh(const XentParams* p, void* stream) { return dispatch(p, DH, stream); }

@@ -9,12 +9,15 @@ without its 128-lane broadcast) and recomputes the logits blockwise in the
 backward.
 
 On CUDA tensors it launches the hand-written kernels of ``csrc/fused_xent.cu``
-through three entry points, each with its own ``.launches`` counter:
-``fused_xent_forward`` (nll and lse), ``fused_xent_backward_dh`` and
-``fused_xent_backward_dw``. On CPU tensors it runs the plain versions
-``fused_linear_xent_reference`` and ``fused_linear_xent_backward_reference``.
-A CUDA tensor never takes the plain path: the kernels launch or the call
-raises.
+through two entry points: ``fused_xent_forward`` (nll and lse; one kernel,
+``fused_xent_forward.launches``) and ``fused_xent_backward`` (dh and dw). The
+backward walks the vocab in chunks (``backward_chunk``, ``vocab_chunks``) and
+launches three kernels per chunk, in order, each counted by its own wrapper:
+``xent_ds_pass`` (ds of the chunk into a scratch), ``xent_dw_pass`` (the
+chunk's columns of dW) and ``xent_dh_pass`` (dH accumulated in fp32). On CPU
+tensors it runs the plain versions ``fused_linear_xent_reference`` and
+``fused_linear_xent_backward_reference``. A CUDA tensor never takes the plain
+path: the kernels launch or the call raises.
 
 A label below 0 marks an ignored row: its gold logit is never picked, and the
 caller's mask zeroes its cotangent, so its dH row is exactly 0. The JAX
@@ -35,8 +38,9 @@ MAX_BLOCK_ROWS = 512
 MAX_BLOCK_V = 512
 LANES = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_D = 1024  # the kernels' shared-memory accumulators (csrc/fused_xent.cu)
-_REF_BLOCK_V = 8192  # vocab block of the plain versions (bounds their fp32 logits)
+_REF_BLOCK_V = 8192  # vocab block of the plain forward (bounds its fp32 logits)
+SCRATCH_BYTES = 256 * 2**20  # the backward's bound on one chunk of ds
+TILE = 128  # the 16-bit backward kernels' output tile (csrc/fused_xent.cu G_BM, G_BN)
 
 
 def _auto_block(n: int, cap: int) -> int:
@@ -68,10 +72,22 @@ def _check(hidden, head, labels, block_rows, block_v):
         raise ValueError(f"block_v ({block_v}) must be a multiple of {LANES}")
 
 
-def _vocab_blocks(head):
-    V = head.shape[1]
-    for v0 in range(0, V, _REF_BLOCK_V):
-        yield v0, head[:, v0:v0 + _REF_BLOCK_V]
+def backward_chunk(n_rows: int, vocab: int, itemsize: int) -> int:
+    """Vocab columns per backward chunk: the most, in whole tiles, whose ds
+    ([n_rows, chunk] in the input type) fits ``SCRATCH_BYTES``, and no more
+    than the vocab rounded up to a tile (8192 at 16384 rows in bf16)."""
+    fit = SCRATCH_BYTES // (n_rows * itemsize) // TILE * TILE
+    return max(TILE, min(fit, -(-vocab // TILE) * TILE))
+
+
+def vocab_chunks(vocab: int, chunk: int) -> list[tuple[int, int]]:
+    """[(v0, width)] covering [0, vocab) in order; the last may be narrower."""
+    return [(v0, min(chunk, vocab - v0)) for v0 in range(0, vocab, chunk)]
+
+
+def _vocab_blocks(head, block=_REF_BLOCK_V):
+    for v0, width in vocab_chunks(head.shape[1], block):
+        yield v0, head[:, v0:v0 + width]
 
 
 def fused_linear_xent_reference(hidden, head, labels):
@@ -89,9 +105,10 @@ def fused_linear_xent_reference(hidden, head, labels):
     return lse - gold, lse
 
 
-def fused_linear_xent_backward_reference(hidden, head, labels, lse, g):
+def fused_linear_xent_backward_reference(hidden, head, labels, lse, g, chunk=_REF_BLOCK_V):
     """The plain blockwise backward -> (dh in hidden's dtype, dw in head's
-    dtype). Each vocab block recomputes its logits, forms
+    dtype), over vocab blocks of ``chunk`` columns (its own, not the kernels'
+    chunk rule). Each block recomputes its logits, forms
     ds = (softmax − onehot)·g in fp32, and rounds it to head's dtype before
     ds·Wᵀ and to hidden's dtype before hᵀ·ds, as the Pallas kernels do
     (``fused_xent.py:184``, ``:207``); both products accumulate in fp32."""
@@ -99,7 +116,7 @@ def fused_linear_xent_backward_reference(hidden, head, labels, lse, g):
     g = g.float()[:, None]
     dh = torch.zeros(hidden.shape, dtype=torch.float32, device=hidden.device)
     dws = []
-    for v0, w in _vocab_blocks(head):
+    for v0, w in _vocab_blocks(head, chunk):
         w32 = w.float()
         p = torch.exp(h @ w32 - lse.float()[:, None])
         hit = labels[:, None] == torch.arange(v0, v0 + w.shape[1], device=hidden.device)[None, :]
@@ -113,7 +130,7 @@ def fused_linear_xent_backward_reference(hidden, head, labels, lse, g):
 # CUDA entry points
 # ---------------------------------------------------------------------------
 
-_PTRS = ("h", "w", "y", "lse_in", "g", "lse", "nll", "dh", "dw")
+_PTRS = ("h", "w", "y", "lse_in", "g", "lse", "nll", "dh", "dw", "ds", "dh_acc")
 _STRIDES = ("h_str", "w_str", "dh_str", "dw_str")
 
 
@@ -121,7 +138,7 @@ class _Params(ctypes.Structure):
     """Mirror of ``XentParams`` in ``csrc/fused_xent.cu``."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
                 + [(n, ctypes.c_longlong * 2) for n in _STRIDES]
-                + [(n, ctypes.c_int) for n in ("N", "D", "V", "dtype")])
+                + [(n, ctypes.c_int) for n in ("N", "D", "V", "dtype", "v0", "vc", "ds_ld")])
 
 
 def _bind(name: str):
@@ -134,16 +151,16 @@ def _bind(name: str):
 
 def _params(hidden, head, labels, **tensors):
     """Check what the kernels take and fill the parameter block. ``labels``
-    must be int32; ``lse_in``, ``g``, ``lse`` and ``nll`` contiguous fp32 [N]."""
+    must be int32; ``lse_in``, ``g``, ``lse`` and ``nll`` contiguous fp32 [N];
+    ``dh_acc`` contiguous fp32 [N, D]; ``ds`` [N, width] in hidden's dtype
+    with contiguous rows."""
     if hidden.device.type != "cuda":
-        raise ValueError(f"the fused-xent kernels run on CUDA tensors, not {hidden.device}; "
-                         "CPU tensors take fused_linear_xent_reference")
+        raise ValueError(f"the fused-xent kernels run on CUDA tensors, not {hidden.device}; CPU tensors take "
+                         "fused_linear_xent_reference and fused_linear_xent_backward_reference")
     if hidden.dtype not in _DTYPE_CODES:
         raise TypeError(f"the fused-xent kernels take float32, bfloat16 or float16, not {hidden.dtype}")
     N, D = hidden.shape
     V = head.shape[1]
-    if not 1 <= D <= _MAX_D:
-        raise ValueError(f"the fused-xent kernels take hidden size 1..{_MAX_D}, got {D}")
     if not (1 <= N < 2**31 and 1 <= V < 2**31):
         raise ValueError(f"the fused-xent kernels take 1 <= N, V < 2^31; got {N}, {V}")
     if labels.dtype != torch.int32 or not labels.is_contiguous():
@@ -156,6 +173,13 @@ def _params(hidden, head, labels, **tensors):
         if name in ("lse_in", "g", "lse", "nll"):
             if t.dtype != torch.float32 or not t.is_contiguous() or t.shape != (N,):
                 raise ValueError(f"{name} must be contiguous float32 [N]")
+        elif name == "dh_acc":
+            if t.dtype != torch.float32 or not t.is_contiguous() or t.shape != (N, D):
+                raise ValueError("dh_acc must be contiguous float32 [N, D]")
+        elif name == "ds":
+            if t.dtype != hidden.dtype or t.ndim != 2 or t.shape[0] != N or t.stride(1) != 1:
+                raise ValueError(f"ds must be [N, width] {hidden.dtype} with contiguous rows")
+            p.ds_ld = t.stride(0)
         elif name in ("h", "w", "dh", "dw"):
             if t.dtype != hidden.dtype:
                 raise TypeError(f"{name} is {t.dtype}, hidden is {hidden.dtype}")
@@ -183,27 +207,90 @@ def fused_xent_forward(hidden, head, labels):
     return nll, lse
 
 
-def fused_xent_backward_dh(hidden, head, labels, lse, g):
-    """dH kernel -> dh [N, D] contiguous, hidden's dtype. CUDA only."""
+def tma_readable(t) -> bool:
+    """A 2-D 16-bit operand that the backward's TMA loads read where it lies:
+    a unit stride, a 16-byte base, the other stride a multiple of 8 elements."""
+    s0, s1 = t.stride()
+    other = s0 if s1 == 1 else s1 if s0 == 1 else 0
+    return other > 0 and other % 8 == 0 and t.data_ptr() % 16 == 0
+
+
+def _padded(t, contiguous_dim):
+    """A copy of 2-D ``t``, contiguous along ``contiguous_dim`` with its rows
+    along that dimension padded to a multiple of 8 elements, as a view of
+    ``t``'s shape."""
+    if contiguous_dim == 0:
+        return _padded(t.t(), 1).t()
+    rows, cols = t.shape
+    buf = t.new_zeros(rows, -(-cols // 8) * 8)
+    buf[:, :cols] = t
+    return buf[:, :cols]
+
+
+def tma_operands(hidden, head):
+    """(hidden, head) as the 16-bit backward kernels read them: hidden
+    d-contiguous, the head in its own layout where it has a unit stride. What
+    TMA cannot read goes to a padded copy before the launch; the kernels read
+    only the true N, D and V of it."""
+    if hidden.stride(1) != 1 or not tma_readable(hidden):
+        hidden = _padded(hidden, 1)
+    if not tma_readable(head):
+        head = _padded(head, 0 if head.stride(0) == 1 else 1)
+    return hidden, head
+
+
+def xent_ds_pass(p: _Params, device):
+    """ds of the chunk [p.v0, p.v0 + p.vc) into the scratch: one kernel."""
+    _launch("dstt_xent_bwd_ds", p, device)
+    xent_ds_pass.launches += 1
+
+
+def xent_dw_pass(p: _Params, device):
+    """The chunk's columns of dW from the scratch: one kernel."""
+    _launch("dstt_xent_bwd_dw", p, device)
+    xent_dw_pass.launches += 1
+
+
+def xent_dh_pass(p: _Params, device):
+    """dH_acc += ds·W[:, chunk]ᵀ, dH itself on the last chunk: one kernel."""
+    _launch("dstt_xent_bwd_dh", p, device)
+    xent_dh_pass.launches += 1
+
+
+BACKWARD_PASSES = (xent_ds_pass, xent_dw_pass, xent_dh_pass)
+
+
+def fused_xent_backward(hidden, head, labels, lse, g, passes=BACKWARD_PASSES):
+    """Backward kernels -> (dh [N, D] contiguous in hidden's dtype, dw [D, V]
+    with head's strides: for the tied head wteᵀ, the transpose of a
+    contiguous [V, D] buffer, as wte's gradient needs). For each vocab chunk,
+    in order: the ds pass, the dW product, the dH product, on a [N, chunk]
+    ds scratch and, with more than one chunk, an fp32 [N, D] dH accumulator.
+    ``passes``, a subset of ``BACKWARD_PASSES``, runs only those kernels over
+    every chunk, to time one alone; dh and dw then hold no result. CUDA only
+    (``_params`` refuses CPU tensors)."""
+    N, D = hidden.shape
+    V = head.shape[1]
     dh = torch.empty(hidden.shape, dtype=hidden.dtype, device=hidden.device)
-    _launch("dstt_xent_bwd_dh", _params(hidden, head, labels, lse_in=lse, g=g, dh=dh), hidden.device)
-    fused_xent_backward_dh.launches += 1
-    return dh
-
-
-def fused_xent_backward_dw(hidden, head, labels, lse, g):
-    """dW kernel -> dw [D, V] with head's strides (for the tied head wteᵀ,
-    the transpose of a contiguous [V, D] buffer, as wte's gradient needs).
-    CUDA only."""
     dw = torch.empty_like(head)
-    _launch("dstt_xent_bwd_dw", _params(hidden, head, labels, lse_in=lse, g=g, dw=dw), hidden.device)
-    fused_xent_backward_dw.launches += 1
-    return dw
+    h, w = (hidden, head) if hidden.dtype == torch.float32 else tma_operands(hidden, head)
+    chunk = backward_chunk(N, V, hidden.element_size())
+    chunks = vocab_chunks(V, chunk)
+    scratch = dict(ds=torch.empty(N, chunk, dtype=hidden.dtype, device=hidden.device))
+    if len(chunks) > 1:
+        scratch["dh_acc"] = torch.empty(N, D, dtype=torch.float32, device=hidden.device)
+    p = _params(h, w, labels, lse_in=lse, g=g, dh=dh, dw=dw, **scratch)  # h, w, scratch live past the launches
+    for v0, vc in chunks:
+        p.v0, p.vc = v0, vc
+        for launch in passes:
+            launch(p, hidden.device)
+    return dh, dw
 
 
 fused_xent_forward.launches = 0  # kernel launches since the last reset to 0
-fused_xent_backward_dh.launches = 0
-fused_xent_backward_dw.launches = 0
+xent_ds_pass.launches = 0
+xent_dw_pass.launches = 0
+xent_dh_pass.launches = 0
 
 
 class _FusedXent(torch.autograd.Function):
@@ -224,8 +311,7 @@ class _FusedXent(torch.autograd.Function):
         if hidden.device.type == "cpu":
             dh, dw = fused_linear_xent_backward_reference(hidden, head, labels, lse, g)
         else:
-            dh = fused_xent_backward_dh(hidden, head, labels, lse, g)
-            dw = fused_xent_backward_dw(hidden, head, labels, lse, g)
+            dh, dw = fused_xent_backward(hidden, head, labels, lse, g)
         return dh, dw, None
 
 

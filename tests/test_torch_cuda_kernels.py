@@ -278,7 +278,11 @@ def test_flash_kernels_reject_what_they_cannot_take(cuda_device):
 # value near a rounding boundary can land one ulp apart.
 _XENT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.float16: 1e-3}
 _XENT_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 4e-3}
-_XENT_COUNTERS = (fx.fused_xent_forward, fx.fused_xent_backward_dh, fx.fused_xent_backward_dw)
+_XENT_COUNTERS = (fx.fused_xent_forward, fx.xent_ds_pass, fx.xent_dw_pass, fx.xent_dh_pass)
+
+
+def _chunks(N, V, dtype):
+    return len(fx.vocab_chunks(V, fx.backward_chunk(N, V, torch.empty((), dtype=dtype).element_size())))
 
 
 def _xent_inputs(N, D, V, device, dtype, tied, seed=0):
@@ -296,30 +300,59 @@ def _xent_inputs(N, D, V, device, dtype, tied, seed=0):
     return h, head, y, mask / mask.sum()
 
 
+def _check_xent(h, head, y, g, dtype):
+    """Forward and backward (called twice) against the plain versions; the
+    backward's two calls bitwise equal, ignored rows' dH exactly 0. Returns
+    each counter's launches."""
+    before = [c.launches for c in _XENT_COUNTERS]
+    nll, lse = fx.fused_xent_forward(h, head, y)
+    ref_nll, ref_lse = fx.fused_linear_xent_reference(h, head, y)
+    dh, dw = fx.fused_xent_backward(h, head, y, ref_lse, g)
+    dh2, dw2 = fx.fused_xent_backward(h, head, y, ref_lse, g)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(_XENT_COUNTERS, before)]
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=_XENT_TOL[dtype])
+    torch.testing.assert_close(nll, ref_nll, rtol=0, atol=_XENT_TOL[dtype])
+    ref_dh, ref_dw = fx.fused_linear_xent_backward_reference(h, head, y, ref_lse, g)
+    assert dh.dtype == dw.dtype == dtype and dh.is_contiguous() and dw.stride() == head.stride()
+    for name, got, want in (("dh", dh, ref_dh), ("dw", dw, ref_dw)):
+        err = _normalised_err(got, want)
+        assert err <= _XENT_GRAD_TOL[dtype], f"{name}: {err:.3e}"
+    assert torch.equal(dh, dh2) and torch.equal(dw, dw2)  # fixed chunk order, no atomics
+    assert dh[::7].abs().max().item() == 0.0  # ignored rows
+    return launched
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("V", [777, 50257])
 @pytest.mark.parametrize("tied", [True, False])
 @pytest.mark.parametrize("N,D", [(256, 128), (200, 70)])
 def test_fused_xent_kernels_match_reference(cuda_device, dtype, V, tied, N, D):
+    """D = 70 (140-byte rows) sends the 16-bit backward's operands to padded
+    copies; V = 777 and 50257 leave a ragged last tile."""
     h, head, y, g = _xent_inputs(N, D, V, cuda_device, dtype, tied)
-    before = [c.launches for c in _XENT_COUNTERS]
-    nll, lse = fx.fused_xent_forward(h, head, y)
-    ref_nll, ref_lse = fx.fused_linear_xent_reference(h, head, y)
-    dh = fx.fused_xent_backward_dh(h, head, y, ref_lse, g)
-    dw = fx.fused_xent_backward_dw(h, head, y, ref_lse, g)
-    torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(_XENT_COUNTERS, before)] == [1, 1, 1]
-    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=_XENT_TOL[dtype])
-    torch.testing.assert_close(nll, ref_nll, rtol=0, atol=_XENT_TOL[dtype])
-    ref_dh, ref_dw = fx.fused_linear_xent_backward_reference(h, head, y, ref_lse, g)
-    assert dh.dtype == dw.dtype == dtype and dw.stride() == head.stride()
-    for name, got, want in (("dh", dh, ref_dh), ("dw", dw, ref_dw)):
-        err = _normalised_err(got, want)
-        assert err <= _XENT_GRAD_TOL[dtype], f"{name}: {err:.3e}"
-    assert dh[::7].abs().max().item() == 0.0  # ignored rows
+    chunks = _chunks(N, V, dtype)
+    assert _check_xent(h, head, y, g, dtype) == [1] + [2 * chunks] * 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("V", [129, 383])  # one column past a chunk; one short of three
+@pytest.mark.parametrize("tied", [True, False])
+def test_fused_xent_backward_across_vocab_chunks(cuda_device, monkeypatch, dtype, V, tied):
+    """A 128-column chunk (the scratch budget cut to one tile): the dH
+    accumulator is written by the first chunk, added to by the middle one and
+    rounded into dH by the last, and each chunk writes its own columns of dW."""
+    N, D = 256, 64
+    h, head, y, g = _xent_inputs(N, D, V, cuda_device, dtype, tied, seed=3)
+    monkeypatch.setattr(fx, "SCRATCH_BYTES", N * h.element_size() * 128)
+    chunks = fx.vocab_chunks(V, fx.backward_chunk(N, V, h.element_size()))
+    assert [w for _, w in chunks] == ([128, 1] if V == 129 else [128, 128, 127])
+    assert _check_xent(h, head, y, g, dtype) == [1] + [2 * len(chunks)] * 3
 
 
 def test_fused_xent_autograd_launches_each_kernel_once(cuda_device):
+    """One backward call over one vocab chunk (384 rows, V = 1000): each of
+    the three backward kernels launches once."""
     h, head, y, _ = _xent_inputs(384, 64, 1000, cuda_device, torch.bfloat16, tied=True, seed=5)
     wte = head.t().detach().requires_grad_(True)
     h.requires_grad_(True)
@@ -328,7 +361,8 @@ def test_fused_xent_autograd_launches_each_kernel_once(cuda_device):
     mask = (y >= 0).float()
     (torch.sum(nll * mask) / mask.sum()).backward()
     torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(_XENT_COUNTERS, before)] == [1, 1, 1]
+    chunks = _chunks(384, 1000, torch.bfloat16)
+    assert [c.launches - b for c, b in zip(_XENT_COUNTERS, before)] == [1] + [chunks] * 3
     assert wte.grad.shape == wte.shape and wte.grad.is_contiguous()  # no transposed copy
     assert torch.isfinite(h.grad).all() and torch.isfinite(wte.grad).all()
 
@@ -339,9 +373,11 @@ def test_fused_xent_kernels_reject_what_they_cannot_take(cuda_device):
         fx.fused_xent_forward(h.double(), head.double(), y)
     with pytest.raises(ValueError):
         fx.fused_xent_forward(h, head, y.long())
-    big = torch.zeros(8, 2048, device=cuda_device)
+    _, lse = fx.fused_xent_forward(h, head, y)
     with pytest.raises(ValueError):
-        fx.fused_xent_forward(big, torch.zeros(2048, 16, device=cuda_device), y[:8])
+        fx.fused_xent_backward(h, head, y, lse.double(), g)  # lse must be fp32
+    with pytest.raises(ValueError):
+        fx.fused_xent_backward(h, head, y, lse, g[::2])  # g must be [N]
 
 
 def test_train_batch_runs_through_the_flash_kernels(cuda_device):
@@ -384,7 +420,8 @@ def test_train_batch_runs_through_the_fused_loss_under_remat(cuda_device):
     for _ in range(3):
         before = [c.launches for c in counters]
         m = engine.train_batch({"tokens": tokens})
-        assert [c.launches - b for c, b in zip(counters, before)] == [3 * 2] * 3 + [2] * 3
+        # 4 x 256 rows: the whole vocab is one backward chunk
+        assert [c.launches - b for c, b in zip(counters, before)] == [3 * 2] * 3 + [2] * 4
         losses.append(float(m["loss"]))
         assert not bool(m["overflow"])
     assert np.isfinite(losses).all() and losses[-1] < losses[0]

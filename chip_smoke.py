@@ -70,16 +70,21 @@ Phases, each of which passes or makes the script exit non-zero:
      5 uninterrupted steps bitwise; at full width one save/load round trip
      into a fresh engine (seconds, bytes) and one step whose loss equals the
      uninterrupted engine's;
- 13. load the block-sparse attention kernels (forward, dQ, dK/dV);
+ 13. load the block-sparse attention kernels (forward, dQ, dK/dV); count the HGMMA instructions of each kernel in its SASS
+     beside its registers and spills from the build, failing if the Hopper
+     dQ or dK/dV instance the main path runs (bf16, D = 64, block 64) has
+     none;
  14. hold each sparse kernel against its plain version: fixed, bigbird,
      bslongformer, variable and dense layouts at blocks 16, 32, 64 and 128,
      causal and bidirectional, bf16, fp16 and fp32, D = 64 (and 128), a
-     layout with a key block no query attends (dK = dV = 0 exactly), and the
-     main path's shape (B=2, S=8192, H=12, D=64, bf16, fixed-64). Then time
-     each kernel, its plain version, SDPA with the layout as a boolean mask
-     (a yardstick the port never calls) and the port's dense flash kernels
-     at that shape, for the slice's fixed-64 layout and the bigbird-128
-     layout of benchmarks/sparse_attention_bench.py;
+     layout with a key block no query attends (dK = dV = 0 exactly), long
+     lists at blocks 64 and 128, D = 100 and a view off 16 bytes (the
+     padding route), two backward calls bitwise equal, and the main path's
+     shape (B=2, S=8192, H=12, D=64, bf16, fixed-64). Then time each
+     kernel, the plain versions, SDPA with the layout as a boolean mask (a yardstick the port
+     never calls) and the port's dense flash kernels at that shape, for the
+     slice's fixed-64 layout and the bigbird-128 layout of
+     benchmarks/sparse_attention_bench.py;
  15. long-sequence training: initialize -> train_batch at GPT-2-125M width
      with max_seq_len 8192 and the DeepSpeed sparse_attention block (fixed,
      block 64, 4 local blocks, 1 global, unidirectional), batch 8 = micro 2
@@ -142,6 +147,13 @@ FLASH_COUNTERS = (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq
 XENT_COUNTERS = (fx.fused_xent_forward, fx.xent_ds_pass, fx.xent_dw_pass, fx.xent_dh_pass)
 SPARSE_COUNTERS = (sk.sparse_forward, sk.sparse_backward_dq, sk.sparse_backward_dkdv)
 SPARSE_NAMES = ("sparse_forward", "sparse_backward_dq", "sparse_backward_dkdv")
+# the kernels of csrc/sparse_attention.cu, read from the SASS and from the build
+SPARSE_KERNELS = ("sparse_bwd_dq_hopper", "sparse_bwd_dkdv_hopper", "sparse_fwd_kernel", "sparse_bwd_dq_kernel",
+                  "sparse_bwd_dkdv_kernel")
+# the entry point -> the kernel that runs it on the main path (bf16, D = 64, block 64)
+SPARSE_MAIN_PATH = {"sparse_forward": "sparse_fwd_kernel bf16 D64 B64",
+                    "sparse_backward_dq": "sparse_bwd_dq_hopper bf16 D64 B64",
+                    "sparse_backward_dkdv": "sparse_bwd_dkdv_hopper bf16 D64 B64"}
 B, SMAX, H, D = 8, 1024, 12, 64
 POS_ROWS = [0, 1, 127, 128, 500, 767, 1022, 1023]
 # fp32: the kernel and the plain version differ in summation order only.
@@ -535,6 +547,19 @@ def xent_label(mangled):
     return f"xent_gemm_hopper {dtype} {epilogue} A:{major[m.group(2)]} B:{major[m.group(3)]}"
 
 
+def sparse_label(mangled):
+    """'sparse_bwd_dkdv_hopper bf16 D64 B64' (the padded head dim, then the
+    block, or PR 4's kernels' tile) from a mangled instance of a kernel of
+    csrc/sparse_attention.cu, else None."""
+    base = next((k for k in SPARSE_KERNELS if k in mangled), None)
+    if base is None:
+        return None
+    tail = mangled.split(base, 1)[1]
+    dtype = "bf16" if "nv_bfloat16" in tail else "fp16" if "__half" in tail else "fp32"
+    ints = re.findall(r"Li(\d+)E", tail)[:2]
+    return f"{base} {dtype} D{ints[0]} B{ints[1]}" if len(ints) == 2 else None
+
+
 BENCH_DS = {
     "train_batch_size": 64, "train_micro_batch_size_per_gpu": 16, "gradient_accumulation_steps": 4,
     "optimizer": {"type": "AdamW", "params": {"lr": 6e-4, "weight_decay": 0.1}},
@@ -560,6 +585,7 @@ def counts():
 
 
 N_COUNTS = 8  # len(counts()); sparse_counts() follow it in a step's launches
+N_SPARSE = 3  # len(sparse_counts())
 COUNT_LABEL = "[flash fwd, dK/dV, dQ, decode, xent fwd, ds, dW, dH, sparse fwd, dQ, dK/dV]"
 
 
@@ -607,7 +633,7 @@ def train(dev):
     losses = [float(m["loss"]) for m in metrics]
     overflow = any(bool(m["overflow"]) for m in metrics)
     expect = L * gas
-    ok = (all(step == [expect] * 3 + [0] * 8 for step in per_step)
+    ok = (all(step == [expect] * 3 + [0] * (N_COUNTS - 3 + N_SPARSE) for step in per_step)
           and all(np.isfinite(losses)) and losses[-1] < losses[0] and not overflow)
     tok_s = B * S / step_s
     n_params = L * 12 * 768 * 768 + 50304 * 768 + S * 768  # bench.py:219-221
@@ -854,7 +880,7 @@ def train_fused(dev, no_remat=False):
     losses = [float(m["loss"]) for m in metrics]
     overflow = any(bool(m["overflow"]) for m in metrics)
     chunks = len(fx.vocab_chunks(50304, fx.backward_chunk(B // gas * S, 50304, 2)))
-    expect = [L * gas] * 3 + [0] + [gas] + [gas * chunks] * 3 + [0] * 3
+    expect = [L * gas] * 3 + [0] + [gas] + [gas * chunks] * 3 + [0] * N_SPARSE
     ok = (all(step == expect for step in per_step) and all(np.isfinite(losses)) and losses[-1] < losses[0]
           and not overflow)
     tok_s = B * S / step_s
@@ -1046,12 +1072,15 @@ def slice_layout(H=12):
     return SPARSITY_CONFIGS["fixed"](num_heads=H, **kw).make_layout(SS)
 
 
-def sparse_case(dev, gen, dtype, layout, block, causal, B, H, D, label):
+def sparse_case(dev, gen, dtype, layout, block, causal, B, H, D, label, view=False):
     """One kernel-vs-plain check of the three sparse kernels (the backward
     kernels get the plain forward's O and lse); raises on a disagreement.
-    -> ({kernel: (max abs err, max rel err)}, dK, dV, lists)."""
+    ``view``: q/k/v/dO are views 4 bytes past 16-byte alignment with strides
+    of D + 4 elements. -> ({kernel: (max abs err, max rel err)}, dK, dV,
+    lists)."""
     S = layout.shape[-1] * block
-    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype) for _ in range(4))
+    q, k, v, dout = (torch.randn(B, S, H, D + 4 * view, generator=gen, device=dev).to(dtype)[..., 2 * view:2 * view + D]
+                     for _ in range(4))
     lists = sk.device_lists(layout, causal, S, dev)
     kw = {"causal": causal}
     out, lse = sk.sparse_forward(q, k, v, lists, **kw)
@@ -1090,8 +1119,8 @@ def sparse_checks(dev):
     gen = torch.Generator(device=dev).manual_seed(8)
     worst = {name: {dt: (0.0, 0.0) for dt in TOL} for name in SPARSE_NAMES}
 
-    def check(dtype, layout, block, causal, H, D, label=""):
-        errs, dk, dv, lists = sparse_case(dev, gen, dtype, layout, block, causal, 2, H, D, label)
+    def check(dtype, layout, block, causal, H, D, label="", view=False):
+        errs, dk, dv, lists = sparse_case(dev, gen, dtype, layout, block, causal, 2, H, D, label, view)
         for name, e in errs.items():
             worst[name][dtype] = tuple(max(x, y) for x, y in zip(worst[name][dtype], e))
         return dk, dv, lists
@@ -1125,10 +1154,61 @@ def sparse_checks(dev):
         print(f"    its dK and dV rows are exactly 0: {zero}")
         if not zero:
             raise SystemExit("a key block no query attends got non-zero dK/dV")
+    n += 2
+    for block in sk.HOPPER_BLOCKS:
+        layout = long_list_layout(block)
+        for dtype in (torch.bfloat16, torch.float16):
+            dk, dv, lists = check(dtype, layout, block, True, 4, 64,
+                                  f"long lists ({layout.shape[0]} query blocks), block {block}, "
+                                  "key block 3 unattended")
+            rows = slice(3 * block, 4 * block)
+            zero = dk[:, rows].abs().max().item() == 0.0 and dv[:, rows].abs().max().item() == 0.0
+            print(f"    key block 3's dK and dV exactly 0: {zero}")
+            if not zero:
+                raise SystemExit("an unattended key block got non-zero dK/dV")
+            check(dtype, layout, block, True, 2, 100, f"D=100 (padded), block {block}")
+            check(dtype, layout, block, True, 2, 64, f"a view off 16 bytes (padded), block {block}", view=True)
+            n += 3
+    bitwise = sparse_bitwise(dev, gen)
+    print(f"  dQ and dK/dV twice over dirty memory, bitwise equal: {bitwise}")
+    if not bitwise:
+        raise SystemExit("two sparse backward calls gave different bits")
     check(torch.bfloat16, slice_layout(), 64, True, 12, 64, "main path: fixed-64")
-    print(f"  {n + 3} cases, every one within tolerance")
+    print(f"  {n + 1} cases, every one within tolerance")
     torch.cuda.empty_cache()
     return worst
+
+
+def long_list_layout(block):
+    """Long lists (37 query blocks at block 64, 19 at 128): key blocks 0
+    and 1 attended by every query block, key block 3 by none."""
+    n = 37 if block == 64 else 19
+    layout = np.eye(n, dtype=np.int64)
+    layout[:, :2] = 1
+    layout[3, 3] = 0
+    return layout
+
+
+def sparse_bitwise(dev, gen):
+    """Whether two calls of the 16-bit backward into fresh buffers, over
+    memory left dirty in between, give the same bits at blocks 64 and 128."""
+    for block in sk.HOPPER_BLOCKS:
+        layout = long_list_layout(block)
+        S = layout.shape[0] * block
+        q, k, v, dout = (torch.randn(2, S, 12, 64, generator=gen, device=dev).bfloat16() for _ in range(4))
+        lists = sk.device_lists(layout, True, S, dev)
+        out, lse = sk.sparse_forward(q, k, v, lists)
+        delta = fa.flash_delta(out, dout)
+        runs = []
+        for seed in range(2):
+            torch.randn(64 * 2**20, device=dev, generator=torch.Generator(dev).manual_seed(seed))  # freed at once
+            dq = sk.sparse_backward_dq(q, k, v, dout, lse, delta, lists)
+            dk, dv = sk.sparse_backward_dkdv(q, k, v, dout, lse, delta, lists)
+            torch.cuda.synchronize()
+            runs.append((dq, dk, dv))
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            return False
+    return True
 
 
 def sparse_bounds(B, S, H, D, elt, lists):
@@ -1205,11 +1285,15 @@ def sparse_timing(dev, label, layout):
         t.update(bound_ms=bound, bound_by=by)
         dense_name = {"sparse_forward": "flash_forward", "sparse_backward_dq": "flash_backward_dq",
                       "sparse_backward_dkdv": "flash_backward_dkdv"}[name]
-        t["dense_flash_ms"] = flash[dense_name]
-        print(f"    {name:<21} kernel {t['ms']*1e3:8.1f} us, plain {t['plain_ms']*1e3:9.1f} us, sdpa+mask "
+        t.update(dense_flash_ms=flash[dense_name], dense_flash_ratio=t["ms"] / flash[dense_name],
+                 library_ratio=t["ms"] / t["library_ms"], tflops=flops / (t["ms"] * 1e-3) / 1e12)
+        print(f"    {name:<21} kernel {t['ms']*1e3:8.1f} us ({t['dense_flash_ratio']:.3f}x dense flash, "
+              f"{t['library_ratio']:.3f}x sdpa+mask), plain {t['plain_ms']*1e3:9.1f} us, sdpa+mask "
               f"{t['library_ms']*1e3:8.1f} us, dense flash {flash[dense_name]*1e3:8.1f} us, bound "
-              f"{bound*1e3:6.1f} us ({by}: {nbytes/1e6:.1f} MB, {flops/1e9:.1f} GFLOP), "
-              f"{flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+              f"{bound*1e3:6.1f} us ({by}: {nbytes/1e6:.1f} MB, {flops/1e9:.1f} GFLOP), {t['tflops']:.1f} TFLOP/s")
+    faster = {name: times[name]["dense_flash_ratio"] < 1 for name in ("sparse_backward_dq", "sparse_backward_dkdv")}
+    print(f"    faster than the dense flash kernel for the same gradient: dQ {faster['sparse_backward_dq']}, "
+          f"dK/dV {faster['sparse_backward_dkdv']}")
     print(f"    sdpa+mask vs kernel output max_abs_err {lib_err:.2e}; sdpa's backward is the library time of both "
           f"backward rows; the plain backward times all three gradients")
     times["pairs_per_bh"] = pairs
@@ -1263,7 +1347,7 @@ def train_sparse(dev):
     warm_s, step_s, metrics, per_step = timed_steps(engine, batch, TRAIN_STEPS)
     dense_peak = torch.cuda.max_memory_allocated() / 2**30
     dense_losses = [float(m["loss"]) for m in metrics]
-    expect = [L * gas] * 3 + [0] * 8
+    expect = [L * gas] * 3 + [0] * (N_COUNTS - 3 + N_SPARSE)
     ok = all(step == expect for step in per_step) and all(np.isfinite(dense_losses))
     tok_s = B * SS / step_s
     result["dense_flash"] = {"warmup_step_s": warm_s, "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
@@ -1340,7 +1424,7 @@ def sparse_parity(dev):
     plain, plain_launched = first_steps(tiny, ds, params, batch, 5, plain=True)
     # fp32: the kernels and the plain versions differ in summation order only
     small_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(kern, plain))
-    ok = small_err <= 1e-4 and launched == [20] * 3 and plain_launched == [0] * 3
+    ok = small_err <= 1e-4 and launched == [20] * 3 and plain_launched == [0] * N_SPARSE
     print(f"  small fp32 model (bigbird-32, S=512), 5 steps: kernels {[round(x[0], 5) for x in kern]} vs plain "
           f"{[round(x[0], 5) for x in plain]}, max rel err {small_err:.2e} (tol 1e-4); launches {launched} and "
           f"{plain_launched}  {'ok' if ok else 'FAIL'}")
@@ -1642,7 +1726,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     op_builder.load("sparse_attention")
-    print(f"[13] loaded sparse_attention (forward, dQ, dK/dV) in {time.perf_counter() - t0:.2f} s")
+    print(f"[13] loaded sparse_attention (forward, dQ, dK/dV) in "
+          f"{time.perf_counter() - t0:.2f} s; its kernels' SASS (cuobjdump) and registers (ptxas):")
+    sparse_sass = sass_report("sparse_attention", sparse_label,
+                              [SPARSE_MAIN_PATH[k] for k in ("sparse_backward_dq", "sparse_backward_dkdv")])
 
     print("[14] sparse kernels vs plain")
     sparse_errs = sparse_checks(dev)
@@ -1736,8 +1823,11 @@ def main() -> int:
     replaces = {"sparse_forward": "deepspeed_tpu/ops/sparse_attention/kernels.py:75",
                 "sparse_backward_dq": "deepspeed_tpu/ops/sparse_attention/kernels.py:154",
                 "sparse_backward_dkdv": "deepspeed_tpu/ops/sparse_attention/kernels.py:192"}
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ratio", "dense_flash_ms",
+             "dense_flash_ratio", "tflops")
     for (name, where), n in zip(replaces.items(), sparse_launches):
         t, e, bb = sparse_times[name], sparse_errs[name], bigbird_times[name]
+        built = sparse_sass.get(SPARSE_MAIN_PATH[name], {})
         kernels.append({
             "name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
             "replaces": where, "launches": n,
@@ -1745,10 +1835,10 @@ def main() -> int:
             "max_abs_err_fp16": e[torch.float16][0],
             "max_rel_err": e[torch.bfloat16][1], "max_rel_err_fp32": e[torch.float32][1],
             "max_rel_err_fp16": e[torch.float16][1],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "dense_flash_ms": t["dense_flash_ms"],
-            "bigbird128": {k: bb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                               "dense_flash_ms")},
+            **{k: t[k] for k in timed},
+            "kernel": SPARSE_MAIN_PATH[name], "hgmma": built.get("hgmma", 0), "registers": built.get("registers"),
+            "spill_stores": built.get("spill_stores"),
+            "bigbird128": {k: bb[k] for k in timed},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"training": training}))

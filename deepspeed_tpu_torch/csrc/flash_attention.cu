@@ -906,15 +906,6 @@ int launch_f32(const FlashParams& p, Which which, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* ptr, const long long* str) {
-  return reinterpret_cast<size_t>(ptr) % 16 == 0 && str[0] > 0 && str[1] > 0 && str[2] > 0 && str[0] % 8 == 0 &&
-         str[1] % 8 == 0 && str[2] % 8 == 0;
-}
-
-bool even(const void* ptr, const long long* str) {
-  return reinterpret_cast<size_t>(ptr) % 4 == 0 && str[0] % 2 == 0 && str[1] % 2 == 0 && str[2] % 2 == 0;
-}
-
 // The 16-bit kernels on Hopper. Their inputs need TMA's
 // 16-byte rows and strides, their outputs 4-byte pairs; the wrapper pads
 // anything else before the launch.

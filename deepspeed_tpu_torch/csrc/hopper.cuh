@@ -283,4 +283,17 @@ inline bool tile_map(CUtensorMap* map, const void* base, bool is_bf16, const lon
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Host: whether TMA can read a [B, S, H, D] tensor of a 16-bit type at ``ptr``
+// with element strides ``str`` (batch, sequence, head): a 16-byte base and
+// positive strides that are multiples of 8 elements.
+inline bool aligned16(const void* ptr, const long long* str) {
+  return reinterpret_cast<size_t>(ptr) % 16 == 0 && str[0] > 0 && str[1] > 0 && str[2] > 0 && str[0] % 8 == 0 &&
+         str[1] % 8 == 0 && str[2] % 8 == 0;
+}
+
+// Host: whether an epilogue can store 16-bit pairs (4 bytes) into it.
+inline bool even(const void* ptr, const long long* str) {
+  return reinterpret_cast<size_t>(ptr) % 4 == 0 && str[0] % 2 == 0 && str[1] % 2 == 0 && str[2] % 2 == 0;
+}
+
 }  // namespace

@@ -15,11 +15,19 @@ On CUDA tensors it launches the hand-written kernels of
 ``csrc/sparse_attention.cu`` through three entry points, each with its own
 ``.launches`` counter: ``sparse_forward`` (O and lse), ``sparse_backward_dq``
 and ``sparse_backward_dkdv``; Δ = rowsum(dO∘O) is the flash port's plain
-``flash_delta``. On CPU tensors it runs the plain versions
-``sparse_attention_reference`` and ``sparse_attention_backward_reference``,
-which compute the same function over the same lists by gathering each query
-block's active key blocks (memory O(S · max_a · block), not S²). A CUDA
-tensor never takes the plain path: the kernels launch or the call raises.
+``flash_delta``. The 16-bit backward at blocks 64 and 128 (``hopper_route``)
+runs on the Hopper kernels, which read their tiles by TMA: inputs TMA cannot
+read go to the flash port's padded copies (``needs_padding`` →
+``pad_head_dim``) before the launch and the gradients are sliced back. Their
+grid orders come with the lists (``grid_orders``): ``dq_order`` runs the
+query blocks and ``dkdv_order`` the key blocks longest list first, one CTA
+walking each whole list.
+
+On CPU tensors it runs the plain versions ``sparse_attention_reference`` and
+``sparse_attention_backward_reference``, which compute the same function
+over the same lists by gathering each query block's active key blocks
+(memory O(S · max_a · block), not S²). A CUDA tensor never takes the plain
+path: the kernels launch or the call raises.
 
 The forward is a ``torch.autograd.Function`` saving (q, k, v, out, lse); it
 carries no checkpoint name, so every remat policy recomputes it, as every
@@ -36,10 +44,11 @@ import numpy as np
 import torch
 
 from .. import op_builder
-from ..flash_attention import flash_delta
+from ..flash_attention import flash_delta, needs_padding, pad_head_dim
 
 NEG_INF = -1e30  # the kernels' masked-score constant (Pallas: NEG_INF)
 BLOCKS = (16, 32, 64, 128)  # the block sizes the kernels take
+HOPPER_BLOCKS = (64, 128)  # the blocks whose 16-bit backward runs on the Hopper kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_D = 128
 
@@ -74,14 +83,24 @@ def layout_to_lists(layout: np.ndarray, causal: bool) -> tuple[np.ndarray, np.nd
     return k_lists, counts_k.astype(np.int32), q_lists, counts_q.astype(np.int32)
 
 
+def grid_orders(k_counts, q_counts):
+    """The Hopper backward's grid orders from a layout's list lengths ->
+    (dq_order [nq], dkdv_order [nk]), int32: the query blocks and the key
+    blocks, longest list first (ties in block order)."""
+    return tuple(np.argsort(-np.asarray(c), kind="stable").astype(np.int32) for c in (k_counts, q_counts))
+
+
 class SparseLists(NamedTuple):
-    """One layout's lists as int32 tensors on one device, and its block."""
+    """One layout's lists as int32 tensors on one device, its block, and
+    the Hopper backward's grid orders (``grid_orders``)."""
 
     k_lists: torch.Tensor   # [nq, max_a]
     k_counts: torch.Tensor  # [nq]
     q_lists: torch.Tensor   # [nk, max_aq]
     q_counts: torch.Tensor  # [nk]
     block: int
+    dq_order: torch.Tensor    # [nq]
+    dkdv_order: torch.Tensor  # [nk]
 
 
 # (seq_len, causal, device, layout shape, layout bytes) -> SparseLists
@@ -109,7 +128,9 @@ def device_lists(layout, causal: bool, seq_len: int, device) -> SparseLists:
     hit = LIST_CACHE.get(key)
     if hit is None:
         arrays = layout_to_lists(layout, causal)
-        hit = SparseLists(*(torch.from_numpy(a).to(device) for a in arrays), block=seq_len // layout.shape[0])
+        arrays += grid_orders(arrays[1], arrays[3])
+        lists = [torch.from_numpy(a).to(device) for a in arrays]
+        hit = SparseLists(*lists[:4], block=seq_len // layout.shape[0], dq_order=lists[4], dkdv_order=lists[5])
         LIST_CACHE[key] = hit
     return hit
 
@@ -192,8 +213,8 @@ def sparse_attention_backward_reference(q, k, v, out, lse, dout, lists: SparseLi
 # CUDA entry points
 # ---------------------------------------------------------------------------
 
-_PTRS = ("q", "k", "v", "dout", "out", "dq", "dk", "dv", "lse", "delta",
-         "k_lists", "k_counts", "q_lists", "q_counts")
+_TABLES = ("k_lists", "k_counts", "q_lists", "q_counts", "dq_order", "dkdv_order")
+_PTRS = ("q", "k", "v", "dout", "out", "dq", "dk", "dv", "lse", "delta") + _TABLES
 _STRIDES = ("q_str", "k_str", "v_str", "do_str", "out_str", "dq_str", "dk_str", "dv_str")
 
 
@@ -236,7 +257,7 @@ def _params(q, k, v, lists: SparseLists, causal, scale, **tensors):
     if nq * blk != S or nk * blk != S or lists.k_counts.shape != (nq,) or lists.q_counts.shape != (nk,):
         raise ValueError(f"the lists ({nq} x {nk} blocks of {blk}) do not cover S={S}")
     p = _Params()
-    for name in ("k_lists", "k_counts", "q_lists", "q_counts"):
+    for name in _TABLES:
         t = getattr(lists, name)
         if t.device != q.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 on {q.device} (see device_lists)")
@@ -283,24 +304,42 @@ def sparse_forward(q, k, v, lists: SparseLists, *, causal=True, sm_scale=None):
     return out, lse
 
 
+def hopper_route(dtype, block: int) -> bool:
+    """Whether the backward of these inputs runs on the Hopper kernels,
+    which read by TMA: 16-bit inputs at block 64 or 128. The C entry points
+    choose by the same rule and refuse what TMA cannot read."""
+    return dtype in (torch.bfloat16, torch.float16) and block in HOPPER_BLOCKS
+
+
 def sparse_backward_dq(q, k, v, dout, lse, delta, lists: SparseLists, *, causal=True, sm_scale=None):
     """dQ kernel -> dq [B, S, H, D]. ``lse`` and ``delta`` are [B, H, S]
     fp32. CUDA only."""
+    scale = _default_scale(q, sm_scale)
+    D = q.shape[-1]
+    padded = hopper_route(q.dtype, lists.block) and needs_padding(q, k, v, dout)
+    if padded:
+        q, k, v, dout = pad_head_dim(q, k, v, dout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    p = _params(q, k, v, lists, causal, _default_scale(q, sm_scale), dout=dout, lse=lse, delta=delta, dq=dq)
+    p = _params(q, k, v, lists, causal, scale, dout=dout, lse=lse, delta=delta, dq=dq)
     _launch("dstt_sparse_bwd_dq", p, q.device)
     sparse_backward_dq.launches += 1
-    return dq
+    return dq[..., :D].contiguous() if padded else dq
 
 
 def sparse_backward_dkdv(q, k, v, dout, lse, delta, lists: SparseLists, *, causal=True, sm_scale=None):
     """dK/dV kernel -> (dk, dv) [B, S, H, D]. CUDA only."""
+    scale = _default_scale(q, sm_scale)
+    D = q.shape[-1]
+    padded = hopper_route(q.dtype, lists.block) and needs_padding(q, k, v, dout)
+    if padded:
+        q, k, v, dout = pad_head_dim(q, k, v, dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    p = _params(q, k, v, lists, causal, _default_scale(q, sm_scale), dout=dout, lse=lse, delta=delta,
-                dk=dk, dv=dv)
+    p = _params(q, k, v, lists, causal, scale, dout=dout, lse=lse, delta=delta, dk=dk, dv=dv)
     _launch("dstt_sparse_bwd_dkdv", p, q.device)
     sparse_backward_dkdv.launches += 1
+    if padded:
+        return dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
 

@@ -458,11 +458,11 @@ _SPARSE_LAYOUTS = {
 }
 
 
-def _sparse_case(device, dtype, D, block, causal, layout, B=2, H=3, seed=0):
+def _sparse_case(device, dtype, D, block, causal, layout, B=2, H=3, seed=0, inputs=None):
     """Each kernel against its plain version on one case; the backward
-    kernels get the plain forward's O and lse. Returns the lists."""
+    kernels get the plain forward's O and lse. Returns (dk, dv, lists)."""
     S = layout.shape[-1] * block
-    q, k, v, dout = _flash_inputs(B, S, H, D, device, dtype, seed=seed)
+    q, k, v, dout = inputs if inputs is not None else _flash_inputs(B, S, H, D, device, dtype, seed=seed)
     lists = sk.device_lists(layout, causal, S, device)
     kw = {"causal": causal}
     before = [c.launches for c in _SPARSE_COUNTERS]
@@ -510,6 +510,86 @@ def test_sparse_key_block_no_query_attends_gets_zero_gradients(cuda_device, dtyp
         dk, dv, lists = _sparse_case(cuda_device, dtype, 64, 64, True, layout, seed=seed)
         assert int(lists.q_counts[2]) == 0
         assert dk[:, 128:192].abs().max().item() == 0.0 and dv[:, 128:192].abs().max().item() == 0.0
+
+
+def _long_list_layout(block):
+    """Long lists (37 query blocks at block 64, 19 at 128): key blocks 0
+    and 1 attended by every query block, key block 3 by none."""
+    n = 37 if block == 64 else 19
+    layout = np.eye(n, dtype=np.int64)
+    layout[:, :2] = 1
+    layout[3, 3] = 0
+    return layout
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_hopper_backward_matches_reference(cuda_device, dtype, block, D, causal):
+    """The Hopper dQ and dK/dV at both blocks and head dims, on a bigbird
+    layout and on one with long lists, each walked whole by one CTA. A key
+    block no query attends gets exact zeros."""
+    layout = SPARSITY_CONFIGS["bigbird"](num_heads=3, block=block, **_SPARSE_LAYOUTS["bigbird"]).make_layout(
+        8 * block)
+    _sparse_case(cuda_device, dtype, D, block, causal, layout)
+    assert sk.hopper_route(dtype, block)
+    dk, dv, lists = _sparse_case(cuda_device, dtype, D, block, causal, _long_list_layout(block), H=2, seed=2)
+    assert int(lists.q_counts[3]) == 0
+    rows = slice(3 * block, 4 * block)
+    assert dk[:, rows].abs().max().item() == 0.0 and dv[:, rows].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("layout", ["D100", "unaligned_view"])
+def test_sparse_hopper_backward_pads_what_tma_cannot_read(cuda_device, dtype, block, layout):
+    """D = 100 (200-byte rows) and a view whose base and strides are off 16
+    bytes reach the Hopper dQ and dK/dV as zero-padded copies chosen before
+    the launch; the gradients come back at the caller's head dim."""
+    lay = _long_list_layout(block)
+    S = lay.shape[0] * block
+    if layout == "D100":
+        inputs = _flash_inputs(1, S, 2, 100, cuda_device, dtype, seed=3)
+    else:
+        inputs = tuple(t[..., 2:66] for t in _flash_inputs(1, S, 2, 68, cuda_device, dtype, seed=3))
+    assert fa.needs_padding(*inputs)
+    dk, dv, _ = _sparse_case(cuda_device, dtype, inputs[0].shape[-1], block, True, lay, inputs=inputs)
+    assert dk.shape == inputs[1].shape and dv.shape == inputs[2].shape
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", [64, 128])
+def test_sparse_hopper_backward_is_deterministic(cuda_device, dtype, block):
+    """dQ and dK/dV give bitwise the same results from two calls into fresh
+    buffers over memory left dirty in between: no atomics, fixed order."""
+    lay = _long_list_layout(block)
+    S = lay.shape[0] * block
+    q, k, v, dout = _flash_inputs(2, S, 3, 64, cuda_device, dtype, seed=6)
+    lists = sk.device_lists(lay, True, S, cuda_device)
+    out, lse = sk.sparse_forward(q, k, v, lists)
+    delta = fa.flash_delta(out, dout)
+    runs = []
+    for seed in range(2):
+        junk = torch.randn(64 * 2**20, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(seed))
+        del junk  # the next allocations reuse its memory
+        dq = sk.sparse_backward_dq(q, k, v, dout, lse, delta, lists)
+        dk, dv = sk.sparse_backward_dkdv(q, k, v, dout, lse, delta, lists)
+        torch.cuda.synchronize()
+        runs.append((dq, dk, dv))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,block", [(torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float16, 32),
+                                         (torch.float32, 64), (torch.float32, 128)])
+def test_sparse_backward_keeps_the_old_kernels_off_the_hopper_route(cuda_device, dtype, block):
+    """fp32 and blocks 16/32 stay on PR 4's kernels, which hold against
+    the plain versions on long lists and give an unattended key block zeros."""
+    assert not sk.hopper_route(dtype, block)
+    lay = _long_list_layout(64)
+    dk, dv, _ = _sparse_case(cuda_device, dtype, 64, block, True, lay, H=2)
+    assert dk[:, 3 * block:4 * block].abs().max().item() == 0.0 and dv[:, 3 * block:4 * block].abs().max().item() == 0.0
 
 
 def test_sparse_attention_autograd_launches_each_kernel_once(cuda_device):

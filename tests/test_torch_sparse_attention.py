@@ -9,6 +9,10 @@ atol 1e-5: summation order only); the model and the engine with the
 tolerances of ``tests/test_torch_training.py``.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -174,6 +178,190 @@ def test_backward_reference_matches_autograd_of_dense_masked_attention():
         mine = tsk.sparse_attention_backward_reference(q, k, v, out, lse, g, lists)
     for a, b in zip(mine, grads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The Hopper backward's host side: its parameter block, grid orders and route
+# ---------------------------------------------------------------------------
+
+_CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+           "const float*": ctypes.c_void_p, "const int*": ctypes.c_void_p, "int": ctypes.c_int,
+           "float": ctypes.c_float, "long long": ctypes.c_longlong}
+
+
+def _sparse_params_fields():
+    """(name, ctypes type) of ``SparseParams`` in ``csrc/sparse_attention.cu``, field by field."""
+    src = (Path(tsk.__file__).resolve().parents[2] / "csrc" / "sparse_attention.cu").read_text()
+    body = re.sub(r"//[^\n]*", "", re.search(r"struct SparseParams \{(.*?)\n\};", src, re.S).group(1))
+    fields = []
+    for decl in (d.strip() for d in body.split(";")):
+        if not decl:
+            continue
+        m = re.match(r"((?:const )?(?:void|float|int|long long)\*?)\s+(.*)", decl)
+        ctype, names = m.group(1), m.group(2)
+        for name in (n.strip() for n in names.split(",")):
+            arr = re.match(r"(\w+)\[(\d+)\]", name)
+            if arr:
+                assert ctype == "long long"
+                fields.append((arr.group(1), ctypes.c_longlong * int(arr.group(2))))
+            else:
+                fields.append((name, _CTYPES[ctype]))
+    return fields
+
+
+def test_params_struct_mirrors_the_kernels_sparse_params():
+    """The ctypes block the wrapper fills is ``SparseParams`` as the kernel
+    source declares it: same fields, same order, same types."""
+    theirs = _sparse_params_fields()
+    assert [name for name, _ in tsk._Params._fields_] == [name for name, _ in theirs]
+    for (name, ours), (_, want) in zip(tsk._Params._fields_, theirs):
+        assert ctypes.sizeof(ours) == ctypes.sizeof(want), name
+        assert getattr(ours, "_type_", ours) == getattr(want, "_type_", want), name
+    assert len(theirs) == 16 + 8 + 9 + 1
+
+
+def _unattended_layout(n=8):
+    """Diagonal plus a global first column; key block 5 attended by none."""
+    layout = np.eye(n, dtype=np.int64)
+    layout[:, 0] = 1
+    layout[5, 5] = 0
+    return layout
+
+
+TABLE_LAYOUTS = {
+    "fixed-64": lambda: tsa.SPARSITY_CONFIGS["fixed"](num_heads=12, block=64, num_local_blocks=4, num_global_blocks=1,
+                                                      attention="unidirectional").make_layout(8192)[0],
+    "bigbird-128": lambda: tsa.SPARSITY_CONFIGS["bigbird"](num_heads=12, block=128, num_random_blocks=2,
+                                                           num_sliding_window_blocks=3,
+                                                           num_global_blocks=1).make_layout(8192)[0],
+    "unattended": _unattended_layout,
+}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", list(TABLE_LAYOUTS))
+def test_grid_orders_are_permutations_longest_first(name, causal):
+    """dq_order and dkdv_order are permutations of the query and the key
+    blocks, longest list first, ties in block order; a key block no query
+    attends comes last."""
+    _, k_counts, _, q_counts = tsk.layout_to_lists(TABLE_LAYOUTS[name](), causal=causal)
+    for order, counts in zip(tsk.grid_orders(k_counts, q_counts), (k_counts, q_counts)):
+        assert order.dtype == np.int32
+        assert sorted(order.tolist()) == list(range(len(counts)))
+        assert order.tolist() == sorted(range(len(counts)), key=lambda i: (-counts[i], i))
+    if name == "unattended":
+        assert tsk.grid_orders(k_counts, q_counts)[1][-1] == 5 and q_counts[5] == 0
+
+
+def test_device_lists_carry_the_backward_tables():
+    """The lists carry the grid orders as contiguous int32 tensors. At the
+    long-sequence slice's fixed-64 layout the first dK/dV CTA walks the
+    longest transposed list, 125 query blocks."""
+    layout = TABLE_LAYOUTS["fixed-64"]()
+    lists = tsk.device_lists(layout, True, 8192, "cpu")
+    want = tsk.grid_orders(lists.k_counts.numpy(), lists.q_counts.numpy())
+    for got, ref in zip((lists.dq_order, lists.dkdv_order), want):
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), ref)
+    assert int(lists.q_counts[lists.dkdv_order[0]]) == int(lists.q_counts.max()) == 125
+    assert int(lists.k_counts[lists.dq_order[0]]) == int(lists.k_counts.max())
+
+
+@pytest.mark.parametrize("parity", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkdv_walk_equals_the_plain_backward(causal, parity):
+    """A plain emulation of the Hopper dK/dV's walk: one key block a CTA in
+    ``dkdv_order``, over its whole list; with ``parity`` (block 64) two
+    accumulators take alternate entries and the second is added to the
+    first at the end. It equals ``sparse_attention_backward_reference``
+    within fp32 rounding, and a key block no query attends writes zeros."""
+    blk, n, B, H, D = 16, 12, 2, 2, 8
+    layout = _unattended_layout(n)
+    layout[:, 1] = 1
+    S = n * blk
+    q, k, v, dout = map(torch.from_numpy, _qkv(B, S, H, D, seed=11))
+    lists = tsk.device_lists(layout, causal, S, "cpu")
+    scale = 1.0 / np.sqrt(D)
+    out, lse = tsk.sparse_attention_reference(q, k, v, lists, causal=causal)
+    _, dk_ref, dv_ref = tsk.sparse_attention_backward_reference(q, k, v, out, lse, dout, lists, causal=causal)
+    delta = (dout * out).sum(-1).permute(0, 2, 1)  # [B, H, S]
+
+    def rows(t, i):
+        return t[:, i * blk:(i + 1) * blk]
+
+    dk, dv = torch.full_like(k, float("nan")), torch.full_like(v, float("nan"))
+    for kj in lists.dkdv_order.tolist():
+        acc = [(torch.zeros(B, blk, H, D), torch.zeros(B, blk, H, D)) for _ in range(1 + parity)]
+        for j, qi in enumerate(lists.q_lists[kj, :lists.q_counts[kj]].tolist()):
+            acc_k, acc_v = acc[j % 2 if parity else 0]
+            s = torch.einsum("bihd,bjhd->bhij", rows(q, qi), rows(k, kj)) * scale
+            if causal and qi == kj:
+                s = torch.where(torch.ones(blk, blk, dtype=torch.bool).tril(), s, tsk.NEG_INF)
+            p = torch.exp(s - lse[:, :, qi * blk:(qi + 1) * blk, None])
+            ds = p * (torch.einsum("bihd,bjhd->bhij", rows(dout, qi), rows(v, kj))
+                      - delta[:, :, qi * blk:(qi + 1) * blk, None])
+            acc_v += torch.einsum("bhij,bihd->bjhd", p, rows(dout, qi))
+            acc_k += torch.einsum("bhij,bihd->bjhd", ds, rows(q, qi))
+        acc_k, acc_v = acc[0]
+        if parity:
+            acc_k, acc_v = acc_k + acc[1][0], acc_v + acc[1][1]
+        rows(dk, kj)[:], rows(dv, kj)[:] = acc_k * scale, acc_v
+    assert rows(dk, 5).abs().max().item() == 0.0 and rows(dv, 5).abs().max().item() == 0.0
+    torch.testing.assert_close(dk, dk_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dv, dv_ref, rtol=1e-5, atol=1e-5)
+
+
+def _route_inputs(dtype, D, view):
+    shape = (1, 18 * 128, 2, D)
+    if view:  # base 4 bytes past 16-byte alignment, strides of 68 elements
+        return tuple(torch.zeros(*shape[:3], 68, dtype=dtype)[..., 2:2 + D] for _ in range(4))
+    return tuple(torch.zeros(shape, dtype=dtype) for _ in range(4))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("inputs", ["D64", "D100", "unaligned_view"])
+@pytest.mark.parametrize("block", tsk.BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_backward_route_is_chosen_before_the_launch(monkeypatch, dtype, block, inputs, causal):
+    """16-bit inputs at blocks 64 and 128 take the Hopper route: what TMA
+    cannot read (D = 100, a view off 16 bytes) reaches the kernels as padded
+    copies, and the gradients come back at the caller's head dim.
+    Everything else reaches PR 4's kernels as it is. Each wrapper launches
+    its one kernel once. The launch is stubbed: what is checked is what
+    would reach it."""
+    given, launched = [], []
+
+    def params(q, k, v, lists, causal, scale, **tensors):
+        given.append(dict(q=q, k=k, v=v, causal=causal, **tensors))
+        return tsk._Params()
+
+    monkeypatch.setattr(tsk, "_params", params)
+    monkeypatch.setattr(tsk, "_launch", lambda name, p, device: launched.append(name))
+    for c in (tsk.sparse_backward_dq, tsk.sparse_backward_dkdv):
+        monkeypatch.setattr(c, "launches", 0)
+    D = 100 if inputs == "D100" else 64
+    q, k, v, dout = _route_inputs(dtype, D, inputs == "unaligned_view")
+    S = q.shape[1]
+    layout = np.eye(S // block, dtype=np.int64)
+    layout[:, 0] = 1
+    lists = tsk.device_lists(layout, causal, S, "cpu")
+    lse, delta = torch.zeros(1, 2, S), torch.zeros(1, 2, S)
+    hopper = tsk.hopper_route(dtype, block)
+    assert hopper == (dtype != torch.float32 and block in (64, 128))
+    padded = hopper and inputs != "D64"
+
+    dq = tsk.sparse_backward_dq(q, k, v, dout, lse, delta, lists, causal=causal)
+    dk, dv = tsk.sparse_backward_dkdv(q, k, v, dout, lse, delta, lists, causal=causal)
+    assert launched == ["dstt_sparse_bwd_dq", "dstt_sparse_bwd_dkdv"]
+    assert (tsk.sparse_backward_dq.launches, tsk.sparse_backward_dkdv.launches) == (1, 1)
+    for call in given:
+        assert call["causal"] is causal
+        if padded:
+            assert call["q"].shape[-1] == call["dout"].shape[-1] == -(-D // 8) * 8
+            assert not any(tsk.needs_padding(call[n]) for n in ("q", "k", "v", "dout"))
+        else:
+            assert call["q"] is q and call["k"] is k and call["v"] is v and call["dout"] is dout
+    assert all(t.shape == q.shape and t.dtype == dtype for t in (dq, dk, dv))
 
 
 def test_sparse_self_attention_matches_jax_with_and_without_masks():

@@ -27,9 +27,10 @@ Phases, each of which passes or makes the script exit non-zero:
   5. load the flash-attention kernels (forward, dK/dV, dQ); count each
      kernel's HGMMA (wgmma) instructions in its SASS (cuobjdump) beside its
      registers and spills from the build, failing if the bf16 forward, dK/dV
-     or dQ kernel has none; the same for the fused-loss backward's mainloop
-     (csrc/fused_xent.cu: its ds, dW and dH instances), failing if one that
-     the main path runs has none;
+     or dQ kernel has none; the same for the fused loss's mainloop
+     (csrc/fused_xent.cu: its forward's logsumexp instance and the
+     backward's ds, dW and dH instances), failing if one that the main path
+     runs has none;
   6. hold each flash kernel against its plain version: bf16, fp32 and fp16;
      causal, bidirectional, ALiBi, window 256 and window 0 at B=8, S=1024,
      H=12, D=64; the ragged causal edge S=1000; S=128; D=128. Then time
@@ -46,21 +47,24 @@ Phases, each of which passes or makes the script exit non-zero:
   8. slice parity: five fp32 steps of a small model through the kernels and
      through plain attention give the same losses, and at full width in
      bf16 the first step's loss and grad norm agree on an 8-row batch;
-  9. hold the fused-loss forward and backward (dH and dW: per vocab chunk a
-     ds pass, a dW product and a dH product) against their plain versions
+  9. hold the fused-loss forward (the logits product reducing each vocab
+     tile to partials, then their combine) and backward (dH and dW: per
+     vocab chunk a ds pass, a dW product and a dH product) against their
+     plain versions
      at the training shape (N = 16 x 1024 rows, D = 768, V = 50304, bf16,
      one row in seven ignored, the head as wte.t()), and in fp32 and fp16 at
      N = 2048, and at V = 50257, V = 777, one column past a backward chunk
      and D = 770; two backward calls must give bitwise-equal dH and dW. Then
-     time the forward, the whole backward against the pair's bound, each
-     backward kernel alone over every chunk in order, the plain versions
-     and, as a reference point only, the cuBLAS logits product of the
-     chunked loss;
+     time the forward and each of its two kernels alone, the whole backward
+     against the pair's bound, each backward kernel alone over every chunk
+     in order, the plain versions and, as reference points only, the cuBLAS
+     logits product of the chunked loss and F.cross_entropy over it;
  10. train through the fused loss under remat at GPT-2-125M width: phase 7's
      configuration with loss_impl="fused_xent", remat=True,
      remat_policy="dots_and_flash", one warm-up and five timed steps,
-     checking 48 launches of each flash kernel, 4 of the fused-loss forward
-     and 4 x 7 (vocab chunks) of each backward kernel per train_batch, then
+     checking 48 launches of each flash kernel, 4 of each fused-loss forward
+     kernel (product, combine) and 4 x 7 (vocab chunks) of each backward
+     kernel per train_batch, then
      one step under nothing_saveable with 96 flash-forward launches;
  11. slice parity: five fp32 steps of a small model with the fused loss and
      with the chunked loss give the same losses, and at full width in bf16
@@ -70,16 +74,17 @@ Phases, each of which passes or makes the script exit non-zero:
      5 uninterrupted steps bitwise; at full width one save/load round trip
      into a fresh engine (seconds, bytes) and one step whose loss equals the
      uninterrupted engine's;
- 13. load the block-sparse attention kernels (forward, dQ, dK/dV); count the HGMMA instructions of each kernel in its SASS
-     beside its registers and spills from the build, failing if the Hopper
-     dQ or dK/dV instance the main path runs (bf16, D = 64, block 64) has
-     none;
+ 13. load the block-sparse attention kernels (forward, dQ, dK/dV); count
+     the HGMMA instructions of each kernel in its SASS beside its registers
+     and spills from the build, failing if the Hopper forward, dQ or dK/dV
+     instance the main path runs (bf16, D = 64, block 64) has none;
  14. hold each sparse kernel against its plain version: fixed, bigbird,
      bslongformer, variable and dense layouts at blocks 16, 32, 64 and 128,
      causal and bidirectional, bf16, fp16 and fp32, D = 64 (and 128), a
      layout with a key block no query attends (dK = dV = 0 exactly), long
      lists at blocks 64 and 128, D = 100 and a view off 16 bytes (the
-     padding route), two backward calls bitwise equal, and the main path's
+     padding route), two calls of each 16-bit kernel bitwise equal, a query
+     block with an empty list (O = 0, lse = NEG_INF exactly), and the main path's
      shape (B=2, S=8192, H=12, D=64, bf16, fixed-64). Then time each
      kernel, the plain versions, SDPA with the layout as a boolean mask (a yardstick the port
      never calls) and the port's dense flash kernels at that shape, for the
@@ -144,14 +149,14 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the kernel's math)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 KERNEL_SOURCES = ("decode_attention", "flash_attention", "fused_xent", "sparse_attention")
 FLASH_COUNTERS = (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq)
-XENT_COUNTERS = (fx.fused_xent_forward, fx.xent_ds_pass, fx.xent_dw_pass, fx.xent_dh_pass)
+XENT_COUNTERS = (fx.fused_xent_forward, fx.xent_fwd_combine, fx.xent_ds_pass, fx.xent_dw_pass, fx.xent_dh_pass)
 SPARSE_COUNTERS = (sk.sparse_forward, sk.sparse_backward_dq, sk.sparse_backward_dkdv)
 SPARSE_NAMES = ("sparse_forward", "sparse_backward_dq", "sparse_backward_dkdv")
 # the kernels of csrc/sparse_attention.cu, read from the SASS and from the build
-SPARSE_KERNELS = ("sparse_bwd_dq_hopper", "sparse_bwd_dkdv_hopper", "sparse_fwd_kernel", "sparse_bwd_dq_kernel",
-                  "sparse_bwd_dkdv_kernel")
+SPARSE_KERNELS = ("sparse_fwd_hopper", "sparse_bwd_dq_hopper", "sparse_bwd_dkdv_hopper", "sparse_fwd_kernel",
+                  "sparse_bwd_dq_kernel", "sparse_bwd_dkdv_kernel")
 # the entry point -> the kernel that runs it on the main path (bf16, D = 64, block 64)
-SPARSE_MAIN_PATH = {"sparse_forward": "sparse_fwd_kernel bf16 D64 B64",
+SPARSE_MAIN_PATH = {"sparse_forward": "sparse_fwd_hopper bf16 D64 B64",
                     "sparse_backward_dq": "sparse_bwd_dq_hopper bf16 D64 B64",
                     "sparse_backward_dkdv": "sparse_bwd_dkdv_hopper bf16 D64 B64"}
 B, SMAX, H, D = 8, 1024, 12, 64
@@ -528,21 +533,22 @@ def sass_report(source, label, main_path):
     return info
 
 
-# The fused-loss backward's kernels on the main path (bf16, the tied head
-# wteᵀ): each pass of the mainloop, and which operand it reads MN-major.
-XENT_MAIN_PATH = {"ds": "xent_gemm_hopper bf16 ds A:K B:K", "dW": "xent_gemm_hopper bf16 dW A:MN B:MN",
+# The fused loss's mainloop on the main path (bf16, the tied head wteᵀ):
+# each of its epilogues (the forward's per-tile logsumexp, the backward's
+# passes), and which operand it reads MN-major.
+XENT_MAIN_PATH = {"fwd": "xent_gemm_hopper bf16 lse A:K B:K",
+                  "ds": "xent_gemm_hopper bf16 ds A:K B:K", "dW": "xent_gemm_hopper bf16 dW A:MN B:MN",
                   "dH": "xent_gemm_hopper bf16 dH A:K B:MN"}
 
 
 def xent_label(mangled):
     """'xent_gemm_hopper bf16 dH A:K B:MN' (the epilogue, then how A and B are
-    read) from a mangled instance of the fused-loss backward mainloop, else
-    None."""
-    m = re.search(r"xent_gemm_hopperI(13__nv_bfloat16|6__half)Lb([01])ELb([01])ENS_5(Ds|Dw|Dh)Out", mangled)
+    read) from a mangled instance of the fused loss's mainloop, else None."""
+    m = re.search(r"xent_gemm_hopperI(13__nv_bfloat16|6__half)Lb([01])ELb([01])ENS_\d(Ds|Dw|Dh|Lse)Out", mangled)
     if m is None:
         return None
     dtype = "bf16" if "bfloat16" in m.group(1) else "fp16"
-    epilogue = {"Ds": "ds", "Dw": "dW", "Dh": "dH"}[m.group(4)]
+    epilogue = {"Lse": "lse", "Ds": "ds", "Dw": "dW", "Dh": "dH"}[m.group(4)]
     major = {"0": "K", "1": "MN"}
     return f"xent_gemm_hopper {dtype} {epilogue} A:{major[m.group(2)]} B:{major[m.group(3)]}"
 
@@ -584,9 +590,9 @@ def counts():
     return [c.launches for c in FLASH_COUNTERS] + [decode_attention.launches] + [c.launches for c in XENT_COUNTERS]
 
 
-N_COUNTS = 8  # len(counts()); sparse_counts() follow it in a step's launches
+N_COUNTS = 9  # len(counts()); sparse_counts() follow it in a step's launches
 N_SPARSE = 3  # len(sparse_counts())
-COUNT_LABEL = "[flash fwd, dK/dV, dQ, decode, xent fwd, ds, dW, dH, sparse fwd, dQ, dK/dV]"
+COUNT_LABEL = "[flash fwd, dK/dV, dQ, decode, xent fwd, combine, ds, dW, dH, sparse fwd, dQ, dK/dV]"
 
 
 def sparse_counts():
@@ -808,12 +814,13 @@ def xent_bounds(N, D, V, elt):
 
 
 def xent_timing(dev):
-    """Times at the training shape, bf16: the forward kernel; the whole
-    backward (dH and dW together: three kernels over each vocab chunk); each
-    of its three kernels alone over every chunk in order; the plain
-    versions; and, as a reference point only, the cuBLAS [N, D]·[D, V]
-    product the chunked loss runs (not the same function; the port never
-    calls it for this loss)."""
+    """Times at the training shape, bf16: the forward (its product and its
+    combine, and each alone); the whole backward (dH and dW together: three
+    kernels over each vocab chunk); each of its three kernels alone over
+    every chunk in order; the plain versions; and, as reference points
+    only, the cuBLAS [N, D]·[D, V] product the chunked loss runs and the
+    unfused F.cross_entropy over it (neither the same function; the port
+    never calls them for this loss)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     h, head, y, g = xent_inputs(dev, gen, XN, XD, XV, torch.bfloat16)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -831,10 +838,22 @@ def xent_timing(dev):
     cublas_ms = median_ms(lambda: h @ head, flush, runs=20, warmup=3)
     bounds = xent_bounds(XN, XD, XV, 2)
     pair_bound, pair_by, _, pair_flops = bounds["fused_xent_backward"]
+    yl = y.long()
+    unfused_ms = median_ms(lambda: torch.nn.functional.cross_entropy(h @ head, yl, ignore_index=-1,
+                                                                     reduction="none"), flush, runs=10, warmup=2)
+    # the forward's two kernels alone, on the parameter block fused_xent_forward builds
+    hh, ww = fx.tma_operands(h, head)
+    part = torch.empty(3, XN, fx.vocab_tiles(XV), dtype=torch.float32, device=dev)
+    fwd_p = fx._params(hh, ww, y, nll=torch.empty(XN, device=dev), lse=torch.empty(XN, device=dev), part=part)
+    fwd_kernels = {"product": median_ms(lambda: fx._launch("dstt_xent_fwd", fwd_p, dev), flush, runs=10, warmup=2),
+                   "combine": median_ms(lambda: fx._launch("dstt_xent_fwd_combine", fwd_p, dev), flush, runs=20,
+                                        warmup=2)}
     times = {"fused_xent_forward": {"ms": median_ms(lambda: fx.fused_xent_forward(h, head, y), flush, runs=10,
                                                    warmup=2),
                                     "plain_ms": median_ms(lambda: fx.fused_linear_xent_reference(h, head, y), flush,
-                                                          runs=5, warmup=1)}}
+                                                          runs=5, warmup=1),
+                                    "product_ms": fwd_kernels["product"], "combine_ms": fwd_kernels["combine"],
+                                    "unfused_cross_entropy_ms": unfused_ms}}
     for name in ("fused_xent_backward_dh", "fused_xent_backward_dw"):
         # the pair's kernels carry both rows: each row gives the pair's time and bound
         times[name] = {"ms": backward_ms, "plain_ms": plain_bwd, "pair_bound_ms": pair_bound,
@@ -843,9 +862,11 @@ def xent_timing(dev):
     t = times["fused_xent_forward"]
     bound, by, nbytes, flops = bounds["fused_xent_forward"]
     t.update(bound_ms=bound, bound_by=by, library_ms=None, cublas_logits_ms=cublas_ms)
-    print(f"  timing fused_xent_forward  bf16 N={XN} D={XD} V={XV}: kernel {t['ms']:8.2f} ms, plain "
-          f"{t['plain_ms']:8.2f} ms, bound {bound:.2f} ms ({by}: {nbytes/1e6:.1f} MB, {flops/1e12:.2f} TFLOP), "
-          f"{flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s")
+    print(f"  timing fused_xent_forward  bf16 N={XN} D={XD} V={XV}: kernels {t['ms']:8.3f} ms (the product "
+          f"{t['product_ms']:.3f}, the combine {t['combine_ms']:.3f} alone), plain {t['plain_ms']:8.2f} ms, bound "
+          f"{bound:.2f} ms ({by}: {nbytes/1e6:.1f} MB, {flops/1e12:.2f} TFLOP), "
+          f"{flops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s; {t['ms'] / cublas_ms:.2f}x the cuBLAS logits product, "
+          f"{t['ms'] / unfused_ms:.2f}x F.cross_entropy(h @ w) unfused ({unfused_ms:.3f} ms)")
     for name in ("fused_xent_backward_dh", "fused_xent_backward_dw"):
         times[name].update(bound_ms=pair_bound, bound_by=pair_by, library_ms=None, cublas_logits_ms=cublas_ms)
     print(f"  timing fused_xent_backward (dH and dW) bf16: {backward_ms:8.3f} ms for {len(chunks)} chunks of "
@@ -858,7 +879,8 @@ def xent_timing(dev):
     print(f"    the three alone sum to {sum(v['ms'] for v in passes.values()):.3f} ms")
     print(f"  no single PyTorch call computes these functions (library: null); reference points only: the cuBLAS "
           f"logits product [N, D]·[D, V] bf16 {cublas_ms:.2f} ms, x 3 = {3 * cublas_ms:.2f} ms for the backward's "
-          f"three products; the plain backward times dH and dW together")
+          f"three products, and F.cross_entropy over it {unfused_ms:.2f} ms; the plain backward times dH and dW "
+          f"together")
     return times
 
 
@@ -880,7 +902,7 @@ def train_fused(dev, no_remat=False):
     losses = [float(m["loss"]) for m in metrics]
     overflow = any(bool(m["overflow"]) for m in metrics)
     chunks = len(fx.vocab_chunks(50304, fx.backward_chunk(B // gas * S, 50304, 2)))
-    expect = [L * gas] * 3 + [0] + [gas] + [gas * chunks] * 3 + [0] * N_SPARSE
+    expect = [L * gas] * 3 + [0] + [gas] * 2 + [gas * chunks] * 3 + [0] * N_SPARSE
     ok = (all(step == expect for step in per_step) and all(np.isfinite(losses)) and losses[-1] < losses[0]
           and not overflow)
     tok_s = B * S / step_s
@@ -896,8 +918,8 @@ def train_fused(dev, no_remat=False):
           f"{result['step_ms']:.1f} ms/step, {tok_s:.0f} tokens/s, {result['tflops_model']:.1f} TFLOP/s "
           f"(Model.flops_per_token), {result['tflops_bench_formula']:.1f} TFLOP/s (bench.py formula), "
           f"peak {peak:.2f} GiB")
-    print(f"  launches per train_batch {COUNT_LABEL} {per_step} (expect {expect}: {gas} backward calls, "
-          f"each {chunks} vocab chunks x 3 kernels); losses {[round(x, 4) for x in losses]}; overflow {overflow}  "
+    print(f"  launches per train_batch {COUNT_LABEL} {per_step} (expect {expect}: {gas} forward calls, each "
+          f"the product and its combine; {gas} backward calls, each {chunks} vocab chunks x 3 kernels); losses {[round(x, 4) for x in losses]}; overflow {overflow}  "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the fused-loss remat training phase failed its checks")
@@ -908,7 +930,7 @@ def train_fused(dev, no_remat=False):
     m = engine.train_batch(batch)
     step = [a - b for a, b in zip(counts(), before)]
     engine.model.config = engine.model.config.replace(remat_policy="dots_and_flash")
-    expect_ns = [2 * L * gas, L * gas, L * gas, 0, gas] + [gas * chunks] * 3
+    expect_ns = [2 * L * gas, L * gas, L * gas, 0, gas, gas] + [gas * chunks] * 3
     ok = step == expect_ns and np.isfinite(float(m["loss"])) and not bool(m["overflow"])
     print(f"  one train_batch under nothing_saveable: launches {step} (expect {expect_ns}), "
           f"loss {float(m['loss']):.4f}  {'ok' if ok else 'FAIL'}")
@@ -919,7 +941,7 @@ def train_fused(dev, no_remat=False):
 
     if no_remat:
         result["no_remat"] = train_no_remat(batch, step_s)
-    return launches[4:8], result, engine, batch
+    return launches[4:9], result, engine, batch
 
 
 def train_no_remat(batch, remat_step_s):
@@ -1170,9 +1192,14 @@ def sparse_checks(dev):
             check(dtype, layout, block, True, 2, 64, f"a view off 16 bytes (padded), block {block}", view=True)
             n += 3
     bitwise = sparse_bitwise(dev, gen)
-    print(f"  dQ and dK/dV twice over dirty memory, bitwise equal: {bitwise}")
+    print(f"  the forward, dQ and dK/dV twice over dirty memory, bitwise equal: {bitwise}")
     if not bitwise:
-        raise SystemExit("two sparse backward calls gave different bits")
+        raise SystemExit("two sparse kernel calls gave different bits")
+    empty = sparse_empty_list(dev, gen)
+    print(f"  a query block with an empty list (blocks 64 and 128, causal and bidirectional): O = 0 and lse = "
+          f"NEG_INF exactly, the rest within tolerance: {empty}")
+    if not empty:
+        raise SystemExit("the sparse forward mishandled an empty list")
     check(torch.bfloat16, slice_layout(), 64, True, 12, 64, "main path: fixed-64")
     print(f"  {n + 1} cases, every one within tolerance")
     torch.cuda.empty_cache()
@@ -1190,8 +1217,9 @@ def long_list_layout(block):
 
 
 def sparse_bitwise(dev, gen):
-    """Whether two calls of the 16-bit backward into fresh buffers, over
-    memory left dirty in between, give the same bits at blocks 64 and 128."""
+    """Whether two calls of the 16-bit forward, dQ and dK/dV into fresh
+    buffers, over memory left dirty in between, give the same bits at blocks
+    64 and 128."""
     for block in sk.HOPPER_BLOCKS:
         layout = long_list_layout(block)
         S = layout.shape[0] * block
@@ -1202,12 +1230,37 @@ def sparse_bitwise(dev, gen):
         runs = []
         for seed in range(2):
             torch.randn(64 * 2**20, device=dev, generator=torch.Generator(dev).manual_seed(seed))  # freed at once
+            out2, lse2 = sk.sparse_forward(q, k, v, lists)
             dq = sk.sparse_backward_dq(q, k, v, dout, lse, delta, lists)
             dk, dv = sk.sparse_backward_dkdv(q, k, v, dout, lse, delta, lists)
             torch.cuda.synchronize()
-            runs.append((dq, dk, dv))
+            runs.append((out2, lse2, dq, dk, dv))
         if not all(torch.equal(a, b) for a, b in zip(*runs)):
             return False
+    return True
+
+
+def sparse_empty_list(dev, gen):
+    """Lists built by hand with query block 4 of 6 empty (no layout gives
+    one): the 16-bit forward at blocks 64 and 128 writes O = 0 and
+    lse = NEG_INF there exactly, over dirty memory, and matches the plain
+    version everywhere. -> whether every case held."""
+    for block in sk.HOPPER_BLOCKS:
+        for causal in (True, False):
+            arrays = list(sk.layout_to_lists(np.ones((6, 6), np.int64), causal))
+            arrays[1][4] = 0
+            tables = [torch.from_numpy(a).to(dev) for a in (*arrays, *sk.grid_orders(arrays[1], arrays[3]))]
+            lists = sk.SparseLists(*tables[:4], block=block, dq_order=tables[4], dkdv_order=tables[5])
+            q, k, v = (torch.randn(2, 6 * block, 12, 64, generator=gen, device=dev).bfloat16() for _ in range(3))
+            torch.randn(64 * 2**20, device=dev, generator=torch.Generator(dev).manual_seed(block))  # freed at once
+            out, lse = sk.sparse_forward(q, k, v, lists, causal=causal)
+            ref_out, ref_lse = sk.sparse_attention_reference(q, k, v, lists, causal=causal)
+            torch.cuda.synchronize()
+            rows = slice(4 * block, 5 * block)
+            if not (out[:, rows].abs().max().item() == 0.0 and bool((lse[:, :, rows] == sk.NEG_INF).all())
+                    and (out.float() - ref_out.float()).abs().max().item() <= TOL[torch.bfloat16]
+                    and (lse - ref_lse).abs().max().item() <= LSE_TOL):
+                return False
     return True
 
 
@@ -1291,9 +1344,9 @@ def sparse_timing(dev, label, layout):
               f"{t['library_ratio']:.3f}x sdpa+mask), plain {t['plain_ms']*1e3:9.1f} us, sdpa+mask "
               f"{t['library_ms']*1e3:8.1f} us, dense flash {flash[dense_name]*1e3:8.1f} us, bound "
               f"{bound*1e3:6.1f} us ({by}: {nbytes/1e6:.1f} MB, {flops/1e9:.1f} GFLOP), {t['tflops']:.1f} TFLOP/s")
-    faster = {name: times[name]["dense_flash_ratio"] < 1 for name in ("sparse_backward_dq", "sparse_backward_dkdv")}
-    print(f"    faster than the dense flash kernel for the same gradient: dQ {faster['sparse_backward_dq']}, "
-          f"dK/dV {faster['sparse_backward_dkdv']}")
+    faster = {name: times[name]["dense_flash_ratio"] < 1 for name in SPARSE_NAMES}
+    print(f"    faster than the dense flash kernel for the same output: forward {faster['sparse_forward']}, "
+          f"dQ {faster['sparse_backward_dq']}, dK/dV {faster['sparse_backward_dkdv']}")
     print(f"    sdpa+mask vs kernel output max_abs_err {lib_err:.2e}; sdpa's backward is the library time of both "
           f"backward rows; the plain backward times all three gradients")
     times["pairs_per_bh"] = pairs
@@ -1683,7 +1736,8 @@ def main() -> int:
     print(f"[5] loaded flash_attention (forward, dK/dV, dQ) in {time.perf_counter() - t0:.2f} s; "
           f"its kernels' SASS (cuobjdump) and registers (ptxas):")
     sass = sass_report("flash_attention", kernel_label, MAIN_PATH_KERNEL.values())
-    print("  the fused-loss backward's mainloop (csrc/fused_xent.cu), each epilogue and operand layout:")
+    print("  the fused loss's mainloop (csrc/fused_xent.cu: the forward and the backward), each epilogue and "
+          "operand layout:")
     xent_sass = sass_report("fused_xent", xent_label, XENT_MAIN_PATH.values())
 
     print("[6] flash kernels vs plain")
@@ -1704,8 +1758,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     op_builder.load("fused_xent")
-    print(f"[9] loaded fused_xent (forward; backward: ds, dW, dH) in {time.perf_counter() - t0:.2f} s; "
-          f"fused-loss kernels vs plain")
+    print(f"[9] loaded fused_xent (forward: product and combine; backward: ds, dW, dH) in "
+          f"{time.perf_counter() - t0:.2f} s; the forward's product instance {XENT_MAIN_PATH['fwd']}: HGMMA "
+          f"{xent_sass[XENT_MAIN_PATH['fwd']]['hgmma']}; fused-loss kernels vs plain")
     xent_errs = xent_checks(dev)
     xent_times = xent_timing(dev)
     torch.cuda.empty_cache()
@@ -1728,8 +1783,7 @@ def main() -> int:
     op_builder.load("sparse_attention")
     print(f"[13] loaded sparse_attention (forward, dQ, dK/dV) in "
           f"{time.perf_counter() - t0:.2f} s; its kernels' SASS (cuobjdump) and registers (ptxas):")
-    sparse_sass = sass_report("sparse_attention", sparse_label,
-                              [SPARSE_MAIN_PATH[k] for k in ("sparse_backward_dq", "sparse_backward_dkdv")])
+    sparse_sass = sass_report("sparse_attention", sparse_label, SPARSE_MAIN_PATH.values())
 
     print("[14] sparse kernels vs plain")
     sparse_errs = sparse_checks(dev)
@@ -1790,7 +1844,7 @@ def main() -> int:
     replaces = {"fused_xent_forward": "deepspeed_tpu/ops/pallas/fused_xent.py:73",
                 "fused_xent_backward_dh": "deepspeed_tpu/ops/pallas/fused_xent.py:171",
                 "fused_xent_backward_dw": "deepspeed_tpu/ops/pallas/fused_xent.py:193"}
-    fwd_launches, ds_launches, dw_launches, dh_launches = xent_launches
+    fwd_launches, combine_launches, ds_launches, dw_launches, dh_launches = xent_launches
     gas = BENCH_DS["gradient_accumulation_steps"]
     # the backward pair: the ds pass feeds both rows, then each row's own product
     carried = {"fused_xent_backward_dh": (("ds", ds_launches), ("dH", dh_launches)),
@@ -1808,7 +1862,17 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "cublas_logits_ms": t["cublas_logits_ms"],
         }
-        if name != "fused_xent_forward":
+        if name == "fused_xent_forward":
+            fwd = xent_sass[XENT_MAIN_PATH["fwd"]]
+            entry.update(
+                ms_is="the forward: its product and its combine, as one call runs them",
+                unfused_cross_entropy_ms=t["unfused_cross_entropy_ms"],
+                kernels=[{"name": XENT_MAIN_PATH["fwd"], "launches": fwd_launches,
+                          "launches_per_train_batch": fwd_launches // TRAIN_STEPS, "ms": t["product_ms"],
+                          "hgmma": fwd["hgmma"], "registers": fwd["registers"], "spill_stores": fwd["spill_stores"]},
+                         {"name": "xent_lse_combine", "launches": combine_launches,
+                          "launches_per_train_batch": combine_launches // TRAIN_STEPS, "ms": t["combine_ms"]}])
+        else:
             entry.update(
                 ms_is="the pair: dH and dW together, as one backward call computes them",
                 row_bound_ms=t["row_bound_ms"], chunks=t["chunks"], chunk_width=t["chunk_width"],

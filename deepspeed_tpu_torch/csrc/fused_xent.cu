@@ -2,7 +2,8 @@
 // backward as three passes over vocab chunks.
 //
 // Replaces the three Pallas kernels of deepspeed_tpu/ops/pallas/fused_xent.py:
-//   dstt_xent_fwd     <- _fwd_kernel    (:73,  pallas_call :123)
+//   dstt_xent_fwd, dstt_xent_fwd_combine
+//                     <- _fwd_kernel    (:73,  pallas_call :123)
 //   dstt_xent_bwd_ds, dstt_xent_bwd_dw, dstt_xent_bwd_dh
 //                     <- _bwd_dh_kernel (:171, pallas_call :235)
 //                      + _bwd_dw_kernel (:193, pallas_call :250)
@@ -24,12 +25,28 @@
 // gradient of (for the tied head, the layout wte's gradient needs). Inputs
 // and outputs share one type: fp32, bf16 or fp16.
 //
-// Forward. One CTA per 64-row tile, looping over 128-column vocab tiles, with
-// a running row max, row sum and gold logit in shared memory; the
-// contraction over D goes in 64-wide chunks of H and W staged in shared
-// memory, the logits tile in tensor-core fragments (fp32: scalar FMAs). It
-// does 2·N·D·V = 1.27 TFLOP at the training shape (N = 16384, D = 768,
-// V = 50304, bf16): bound by operations at 1.28 ms.
+// Forward, 16-bit: the backward's mainloop (below) computes the logits in
+// 128 x 128 tiles, L = H·W over K = D, with an epilogue that reduces each
+// tile's rows in registers (a row of the m64n128 accumulator lies in one
+// quad of threads) to three fp32 partials: the row's max over the tile's
+// columns, its sum of exp(L − max), and its gold logit (0 when the label is
+// not among the tile's columns). They go to a scratch [3][N][⌈V/128⌉]
+// (77 MB at the training shape, against 3.3 GB of fp32 logits); a second
+// kernel, one warp a row, merges a row's partials in a fixed order (each
+// lane its tiles in column order, then a fixed butterfly): m = the max of
+// the maxes, l = Σ sum·exp(max − m), lse = m + log(l), nll = lse − the sum
+// of the golds. No atomics, so two calls give the same bits. It does
+// 2·N·D·V = 1.27 TFLOP at the training shape (N = 16384, D = 768, V = 50304,
+// bf16): bound by operations at 1.28 ms. The first design (one CTA per
+// 64-row tile walking the vocab with wmma from padded shared memory, 12
+// synchronous loads of H and W per vocab tile, the logits through fp32
+// shared memory, the 77 MB head re-streamed 256 times) ran at ~10% of that.
+// The grid walks the vocab in groups of 64 tiles (8192 columns, 12.6 MB of
+// the head), every row tile of a group before the next group, so the
+// group's columns stay in L2 while the hidden rows stream past them.
+// fp32 keeps a scalar-FMA kernel (xent_fwd_kernel: one CTA per 64-row tile
+// looping over 128-column vocab tiles, running max, sum and gold logit in
+// shared memory; TF32 tensor cores would break the fp32 tolerance).
 //
 // Backward. The caller walks the vocab in chunks [v0, v0 + vc) of a width
 // chosen so that a chunk of ds, [N, vc] in the input type, fits a 256 MiB
@@ -76,7 +93,7 @@
 // recompute the logits per slice; three plain products on a scratch need no
 // such split and no bound on D.
 //
-// The 16-bit backward reads its operands by TMA, which needs a unit stride,
+// The 16-bit kernels read their operands by TMA, which needs a unit stride,
 // a 16-byte base and the other stride a multiple of 8 elements; the wrapper
 // sends any other operand to a padded copy before the launch
 // (ops/fused_xent.py). fp32 takes the same three passes on a scalar-FMA
@@ -105,6 +122,7 @@ struct XentParams {
   void* dw;             // [D, V] (backward)
   void* ds;             // [N, ds_ld] the chunk's ds, input type (backward)
   float* dh_acc;        // [N, D] fp32 dH summed over the chunks so far (backward; unused with one chunk)
+  float* part;          // [3][N][⌈V/128⌉] per-tile max, sum and gold logit (16-bit forward)
   long long h_str[2];   // row, column
   long long w_str[2];   // d, v
   long long dh_str[2];  // row, column
@@ -118,6 +136,7 @@ namespace {
 constexpr int DC = 64;  // the forward's contraction chunk over D
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int FWD_R = 64, FWD_V = 128;
+constexpr int G_BM = 128, G_BN = 128, G_BK = 64;  // the 16-bit mainloop's output tile and depth step
 
 // dst [R][ld] = rows [row0, row0 + R) x columns [col0, col0 + C) of a strided
 // matrix whose element (r, c) lies at src[r·s_row + c·s_col]; zeros past
@@ -150,19 +169,18 @@ __device__ void load_tile(T* dst, int ld, const T* src, long long s_row, long lo
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one CTA per 64-row tile, looping over vocab tiles.
+// fp32 forward: one CTA per 64-row tile, looping over vocab tiles.
 // ---------------------------------------------------------------------------
 
-template <typename T>
 struct FwdSmem {
-  static constexpr int R = FWD_R, BV = FWD_V, LDT = ld_t<T, DC>(), LDS = ld_f<BV>();
-  static constexpr size_t bytes = (R * LDT + BV * LDT) * sizeof(T) + (R * LDS + 3 * R) * sizeof(float) +
+  static constexpr int R = FWD_R, BV = FWD_V, LDT = ld_t<float, DC>(), LDS = ld_f<BV>();
+  static constexpr size_t bytes = (R * LDT + BV * LDT) * sizeof(float) + (R * LDS + 3 * R) * sizeof(float) +
                                   R * sizeof(int);
 };
 
-template <typename T>
 __global__ void __launch_bounds__(NUM_THREADS) xent_fwd_kernel(const XentParams p) {
-  using L = FwdSmem<T>;
+  using T = float;
+  using L = FwdSmem;
   constexpr int R = L::R, BV = L::BV, LDT = L::LDT, LDS = L::LDS;
   extern __shared__ __align__(128) unsigned char smem[];
   T* h_s = reinterpret_cast<T*>(smem);                  // [R][LDT] H chunk
@@ -353,6 +371,56 @@ struct DhOut {
   }
 };
 
+// The 16-bit forward: per row of the 128-column vocab tile n0 / 128, its
+// max, its sum of exp(L − max) and its gold logit into the planes of part
+// ([3][N][tiles]); columns past V are masked. Unlike the pair epilogues
+// above it reduces the whole accumulator (reduce(), not put()).
+struct LseOut {
+  const int* y;
+  float* part;
+  int N, V, tiles;
+
+  __device__ __forceinline__ void reduce(float (&acc)[G_BN / 2], int r0, int n0, int t) const {
+    const int yr[2] = {r0 < N ? y[r0] : -1, r0 + 8 < N ? y[r0 + 8] : -1};
+    const bool edge = n0 + G_BN > V;  // the last tile: columns past V
+    float mx[2] = {NEG_INF, NEG_INF}, gold[2] = {0.0f, 0.0f}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < G_BN / 2; ++i) {
+      const int r = (i >> 1) & 1, c = n0 + acc_col(i, t);
+      if (edge && c >= V) acc[i] = NEG_INF;
+      if (c == yr[r]) gold[r] += acc[i];  // a label below V: at most one column of one tile
+      mx[r] = fmaxf(mx[r], acc[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    const float m2[2] = {mx[0] * LOG2E, mx[1] * LOG2E};
+#pragma unroll
+    for (int i = 0; i < G_BN / 2; ++i) sum[(i >> 1) & 1] += exp2f(fmaf(acc[i], LOG2E, -m2[(i >> 1) & 1]));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int lane = 1; lane < 4; lane <<= 1) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], lane);
+        gold[r] += __shfl_xor_sync(0xffffffffu, gold[r], lane);
+      }
+    }
+    if (t % 4 != 0) return;
+    const long long plane = static_cast<long long>(N) * tiles;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= N) continue;
+      float* q = part + static_cast<long long>(row) * tiles + n0 / G_BN;
+      q[0] = mx[r];
+      q[plane] = sum[r];
+      q[2 * plane] = gold[r];
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // 16-bit mainloop on Hopper: CTA = a 128 x 128 output tile; one producer warp
 // (TMA) and two consumer warpgroups (64 rows each, wgmma m64n128k16, 64 fp32
@@ -361,7 +429,6 @@ struct DhOut {
 // MN-major one is [64][rows] as rows/64 atoms of [64][64] (hopper.cuh).
 // ---------------------------------------------------------------------------
 
-constexpr int G_BM = 128, G_BN = 128, G_BK = 64;
 constexpr int G_CONSUMER_WARPS = 8;
 constexpr int G_THREADS = G_CONSUMER_WARPS * 32 + 32;
 
@@ -370,9 +437,18 @@ constexpr int G_THREADS = G_CONSUMER_WARPS * 32 + 32;
 // one CTA's epilogue overlap the other's mainloop. The two long products
 // contract over thousands of rows or columns and run faster on one CTA an SM
 // with 4 stages (both settings timed for all three on an H100; PERF.md).
+// The forward, like the ds pass, contracts over D only and takes the ds
+// pass's setting.
 template <typename Out> constexpr int CTAS_PER_SM = 1;
 template <typename T> constexpr int CTAS_PER_SM<DsOut<T>> = 2;
+template <> constexpr int CTAS_PER_SM<LseOut> = 2;
 template <typename Out> constexpr int STAGES = CTAS_PER_SM<Out> == 2 ? 3 : 4;
+// N-tiles a group of the grid's walk (0: none). The forward's B is the whole
+// head (77 MB at the training shape, more than L2): its CTAs walk every
+// M-tile of 64 vocab tiles (12.6 MB of the head) before the next 64, so the
+// group stays in L2. The backward's chunk of the head fits L2 as it is.
+template <typename Out> constexpr int GROUP_N = 0;
+template <> constexpr int GROUP_N<LseOut> = 64;
 
 struct GemmMaps {
   CUtensorMap a, b;
@@ -419,7 +495,14 @@ __global__ void __launch_bounds__(G_THREADS, CTAS_PER_SM<Out>)
   uint64_t* full = reinterpret_cast<uint64_t*>(b_s + ST * L::B_ELEMS);
   uint64_t* empty = full + ST;
 
-  const int m0 = blockIdx.y * G_BM, n0 = blockIdx.x * G_BN;  // the N-tiles of one M-tile run side by side
+  int m0 = blockIdx.y * G_BM, n0 = blockIdx.x * G_BN;  // the N-tiles of one M-tile run side by side
+  if constexpr (GROUP_N<Out> > 0) {  // launch order (x fastest) -> group, M-tile, N-tile in the group
+    const int id = blockIdx.y * gridDim.x + blockIdx.x, per_group = GROUP_N<Out> * gridDim.y;
+    const int g = id / per_group, in = id % per_group;
+    const int width = min(GROUP_N<Out>, static_cast<int>(gridDim.x) - g * GROUP_N<Out>);
+    m0 = (in / width) * G_BM;
+    n0 = (g * GROUP_N<Out> + in % width) * G_BN;
+  }
   const int nk = (K + G_BK - 1) / G_BK;
 
   if (threadIdx.x == 0) {
@@ -473,11 +556,40 @@ __global__ void __launch_bounds__(G_THREADS, CTAS_PER_SM<Out>)
   fence_regs(acc);
 
   const int r0 = m0 + 64 * wg + acc_row(0, t);
-  const typename Out::Row rows[2] = {out.row(r0), out.row(r0 + 8)};
+  if constexpr (std::is_same<Out, LseOut>::value) {
+    out.reduce(acc, r0, n0, t);
+  } else {
+    const typename Out::Row rows[2] = {out.row(r0), out.row(r0 + 8)};
 #pragma unroll
-  for (int i = 0; i < G_BN / 2; i += 2) {
-    const int r = (i >> 1) & 1;
-    out.put(rows[r], r0 + 8 * r, n0 + acc_col(i, t), acc[i], acc[i + 1]);
+    for (int i = 0; i < G_BN / 2; i += 2) {
+      const int r = (i >> 1) & 1;
+      out.put(rows[r], r0 + 8 * r, n0 + acc_col(i, t), acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// The 16-bit forward's second kernel: one warp a row merges the row's
+// partials. Lane j takes tiles j, j + 32, ... in column order; the warp's
+// butterflies fix the rest of the order.
+__global__ void __launch_bounds__(NUM_THREADS) xent_lse_combine(const XentParams p, const int tiles) {
+  const int row = blockIdx.x * NUM_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= p.N) return;
+  const long long plane = static_cast<long long>(p.N) * tiles;
+  const float* part = p.part + static_cast<long long>(row) * tiles;  // max; sum at + plane; gold at + 2·plane
+  float m = NEG_INF;
+  for (int j = lane; j < tiles; j += 32) m = fmaxf(m, part[j]);
+  m = warp_max(m);
+  float l = 0.0f, gold = 0.0f;
+  for (int j = lane; j < tiles; j += 32) {
+    l += part[plane + j] * exp2f((part[j] - m) * LOG2E);
+    gold += part[2 * plane + j];
+  }
+  l = warp_sum(l);
+  gold = warp_sum(gold);
+  if (lane == 0) {
+    const float lse = m + logf(l == 0.0f ? 1.0f : l);
+    p.lse[row] = lse;
+    p.nll[row] = lse - gold;
   }
 }
 
@@ -647,25 +759,53 @@ int bwd_dh(const XentParams& p, cudaStream_t stream) {
                          : gemm<T, false, false>(a, b, p.N, p.D, p.vc, out, stream);
 }
 
-enum Which { FWD, DS, DW, DH };
+// The vocab tiles of the 16-bit forward's partials.
+int vocab_tiles(int V) { return (V + G_BN - 1) / G_BN; }
+
+// The 16-bit forward's product: the logits H·W (M = N, N = V, K = D) into
+// the per-tile partials; H read K-major, the head K-major when d-contiguous
+// (the tied head) and MN-major otherwise.
+template <typename T>
+int fwd_partials(const XentParams& p, cudaStream_t stream) {
+  const Operand a{p.h, p.h_str[0], p.h_str[1], p.N};
+  const Operand b{p.w, p.w_str[1], p.w_str[0], p.V};
+  const LseOut out{p.y, p.part, p.N, p.V, vocab_tiles(p.V)};
+  return p.w_str[0] == 1 ? gemm<T, false, false>(a, b, p.N, p.V, p.D, out, stream)
+                         : gemm<T, false, true>(a, b, p.N, p.V, p.D, out, stream);
+}
+
+enum Which { FWD, COMBINE, DS, DW, DH };
 
 template <typename T>
 int launch(const XentParams& p, Which which, cudaStream_t stream) {
   if (which == DS) return bwd_ds<T>(p, stream);
   if (which == DW) return bwd_dw<T>(p, stream);
   if (which == DH) return bwd_dh<T>(p, stream);
-  const int e = set_smem(xent_fwd_kernel<T>, FwdSmem<T>::bytes);
-  if (e != 0) return e;
-  xent_fwd_kernel<T><<<(p.N + FWD_R - 1) / FWD_R, NUM_THREADS, FwdSmem<T>::bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (IS_16BIT<T>) {
+    return fwd_partials<T>(p, stream);
+  } else {
+    const int e = set_smem(xent_fwd_kernel, FwdSmem::bytes);
+    if (e != 0) return e;
+    xent_fwd_kernel<<<(p.N + FWD_R - 1) / FWD_R, NUM_THREADS, FwdSmem::bytes, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 int dispatch(const XentParams* p, Which which, void* stream) {
   if (p == nullptr || p->N < 1 || p->D < 1 || p->V < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (which != FWD && (p->v0 < 0 || p->vc < 1 || p->v0 + p->vc > p->V || p->ds_ld < p->vc)) {
+  if ((which == DS || which == DW || which == DH) &&
+      (p->v0 < 0 || p->vc < 1 || p->v0 + p->vc > p->V || p->ds_ld < p->vc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the 16-bit forward and its combine need the partials
+  if ((which == COMBINE || (which == FWD && p->dtype != 0)) && p->part == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (which == COMBINE) {
+    xent_lse_combine<<<(p->N + NUM_WARPS - 1) / NUM_WARPS, NUM_THREADS, 0, s>>>(*p, vocab_tiles(p->V));
+    return static_cast<int>(cudaGetLastError());
+  }
   if (p->dtype == 0) return launch<float>(*p, which, s);
   if (p->dtype == 1) return launch<bf16>(*p, which, s);
   if (p->dtype == 2) return launch<half>(*p, which, s);
@@ -675,9 +815,12 @@ int dispatch(const XentParams* p, Which which, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. The caller has checked
-// shapes, dtypes, devices and int32 labels, and for the 16-bit backward that
-// its operands are TMA-readable (see above).
+// shapes, dtypes, devices and int32 labels, and for the 16-bit kernels that
+// their operands are TMA-readable (see above). dstt_xent_fwd is the whole
+// forward in fp32 and the product into the partials in 16 bits, which
+// dstt_xent_fwd_combine then merges into lse and nll.
 extern "C" int dstt_xent_fwd(const XentParams* p, void* stream) { return dispatch(p, FWD, stream); }
+extern "C" int dstt_xent_fwd_combine(const XentParams* p, void* stream) { return dispatch(p, COMBINE, stream); }
 extern "C" int dstt_xent_bwd_ds(const XentParams* p, void* stream) { return dispatch(p, DS, stream); }
 extern "C" int dstt_xent_bwd_dw(const XentParams* p, void* stream) { return dispatch(p, DW, stream); }
 extern "C" int dstt_xent_bwd_dh(const XentParams* p, void* stream) { return dispatch(p, DH, stream); }

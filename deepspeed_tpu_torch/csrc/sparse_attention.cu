@@ -44,16 +44,20 @@
 // tiles per block, so it is bound by the tensor cores, as the dense flash
 // kernels are.
 //
-// The 16-bit backward at blocks 64 and 128 (sparse_bwd_dq_hopper,
-// sparse_bwd_dkdv_hopper) is built as the flash kernels' Hopper backward
-// (flash_attention.cu, hopper.cuh): one TMA producer warp and two consumer
-// warpgroups a CTA, a four-stage mbarrier ring of 128-byte-swizzled tiles,
-// every product a wgmma with fp32 accumulators in registers, P and dS rounded
-// in registers and fed back as the register A operand, exp2 with one FMA on
-// tiles outside the diagonal block. What is new is the walk:
-//   dQ:    one CTA per (query block, h, b), Q and dO loaded once; the
-//          producer streams the 64-key K/V tiles of k_lists[qi]. Query blocks
-//          run longest list first (the host's dq_order).
+// The 16-bit kernels at blocks 64 and 128 (sparse_fwd_hopper,
+// sparse_bwd_dq_hopper, sparse_bwd_dkdv_hopper) are built as the flash
+// kernels' Hopper kernels (flash_attention.cu, hopper.cuh): one TMA producer
+// warp and two consumer warpgroups a CTA, a four-stage mbarrier ring of
+// 128-byte-swizzled tiles, every product a wgmma with fp32 accumulators in
+// registers, P and dS rounded in registers and fed back as the register A
+// operand, exp2 with one FMA on tiles outside the diagonal block. What is new
+// is the walk:
+//   forward: one CTA per (query block, h, b), Q loaded once; the producer
+//          streams the 64-key K/V tiles of k_lists[qi]; the online max and
+//          sum of each row (base 2) and O stay in registers, O and lse are
+//          written from them at the end. Query blocks run longest list
+//          first (the host's dq_order).
+//   dQ:    the same walk, Q and dO loaded once.
 //   dK/dV: one CTA per (key block, h, b), K and V loaded once; the
 //          producer streams the 64-row Q/dO tiles of q_lists[kj] with their
 //          lse·log2 e and Δ. Key blocks run longest list first (the host's
@@ -66,20 +70,22 @@
 //          loads nothing and writes its zero accumulators, which live in
 //          registers.
 // Block 128: each warpgroup owns 64 of the block's rows and both take every
-// tile. Block 64 has only 64 rows, one warpgroup's M, so the warpgroups split
-// the list by parity (warpgroup w takes tiles j ≡ w mod 2) with an
-// accumulator each; at the end warpgroup 1 stages its partial through shared
-// memory and warpgroup 0 adds it. Tiles are 64 rows, so inside the diagonal
-// block no tile lies wholly above the diagonal for a whole CTA: the mask
-// zeroes what a warpgroup's rows cannot see.
+// tile (the forward's warpgroup 0 skips the diagonal block's second tile,
+// which its rows cannot see). Block 64 has only 64 rows, one warpgroup's M,
+// so the warpgroups split the list by parity (warpgroup w takes tiles
+// j ≡ w mod 2) with an accumulator each; at the end warpgroup 1 stages its
+// partial through shared memory and warpgroup 0 adds it (the forward merges
+// the two online softmaxes: m = max(m₀, m₁), O = O₀·2^(m₀−m) + O₁·2^(m₁−m),
+// l likewise), always in that order. Tiles are 64 rows, so inside the
+// diagonal block the mask zeroes what a warpgroup's rows cannot see.
 // They need TMA's 16-byte rows and strides (D % 8 == 0, q/k/v/dO bases at 16
 // bytes, strides multiples of 8 elements); the wrapper pads anything else
 // before the launch, and the entry points refuse it.
 //
-// fp32 inputs, blocks 16 and 32, and the forward keep PR 4's design: a loop
-// over the list inside one CTA per (query tile, h, b), or per (key tile, h,
-// b) for dK/dV, walking the whole list; tiles of TL rows (the block itself
-// up to 64 rows, 32 for fp32 inputs; a block of 128 is two tiles of 64),
+// fp32 inputs and blocks 16 and 32 keep the tiled design: a loop over the list
+// inside one CTA per (query tile, h, b), or per (key tile, h, b) for dK/dV,
+// walking the whole list; tiles of TL rows (the block itself at blocks 16
+// and 32; 32 rows for fp32 at blocks 64 and 128, two or four tiles a block),
 // tiles wholly above the diagonal skipped with their loads; common.cuh wmma
 // products from padded shared memory, fp32 accumulators, 16-bit dQ/dK/dV
 // accumulators in registers.
@@ -429,6 +435,7 @@ constexpr int HOP_THREADS = HOP_CONSUMER_WARPS * 32 + 32;
 constexpr int HOP_STAGES = 4;
 constexpr int TILE = 64;  // rows of a streamed tile, and of one warpgroup's accumulators
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct SparseMaps {
   CUtensorMap q, k, v, dout;
@@ -450,6 +457,215 @@ template <int N>
 __device__ __forceinline__ void add_staged(float (&acc)[N], const float* stage, int t) {
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] += stage[i * 128 + t];
+}
+
+// Shared memory of the forward: [Q: BLK x DP][K: STAGES x 64 x DP][V: the
+// same], 1024-byte aligned tiles, then the barriers.
+template <typename T, int DP, int BLK>
+struct HopFwd {
+  static constexpr int Q_ELEMS = BLK * DP, KV_ELEMS = TILE * DP;
+  static constexpr size_t bytes =
+      1024 + (Q_ELEMS + 2 * HOP_STAGES * KV_ELEMS) * sizeof(T) + (1 + 2 * HOP_STAGES) * sizeof(uint64_t);
+};
+
+// The forward of one query block: Q loaded once, the K/V tiles of its list
+// through the ring. S = Q·Kᵀ with both operands K-major; the online softmax
+// in base 2 with each row's max and sum in registers (a row's four threads
+// are a quad); O += P·V with V MN-major and P as the register A.
+template <typename T, int DP, int BLK>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+    sparse_fwd_hopper(const SparseParams p, const __grid_constant__ SparseMaps maps) {
+  using L = HopFwd<T, DP, BLK>;
+  constexpr int ST = HOP_STAGES, TPB = BLK / TILE;  // key tiles per block
+  constexpr bool PARITY = BLK == TILE;              // the warpgroups split the tiles, not the rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = q_s + L::Q_ELEMS;  // stage s at k_s + s * KV_ELEMS
+  T* v_s = k_s + ST * L::KV_ELEMS;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(v_s + ST * L::KV_ELEMS);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + ST;
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int qi = p.dq_order[blockIdx.y];  // the longest lists first
+  const int q0 = qi * BLK;
+  const int* list = p.k_lists + static_cast<long long>(qi) * p.max_a;
+  const int n_tiles = p.k_counts[qi] * TPB;  // 0 for an empty list: O = 0, lse = NEG_INF
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], PARITY ? HOP_CONSUMER_WARPS / 2 : HOP_CONSUMER_WARPS);  // the warps that read it
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == HOP_CONSUMER_WARPS) {  // producer: Q once, then the list's K/V tiles
+    if (lane == 0 && n_tiles > 0) {
+      mbar_arrive_expect_tx(q_bar, L::Q_ELEMS * sizeof(T));
+      tma_load_rows<BLK, DP>(q_s, &maps.q, q_bar, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST, k0 = list[j / TPB] * BLK + (j % TPB) * TILE;
+        if (j >= ST) mbar_wait(&empty[s], ((j / ST) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::KV_ELEMS * sizeof(T));
+        tma_load_rows<TILE, DP>(k_s + s * L::KV_ELEMS, &maps.k, &full[s], k0, h, b);
+        tma_load_rows<TILE, DP>(v_s + s * L::KV_ELEMS, &maps.v, &full[s], k0, h, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: this thread holds query rows row0 and row0 + 8 (of warpgroup
+  // wg's 64 at block 128, of the block's 64 at block 64).
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const int wrow = PARITY ? 0 : 64 * wg;
+  const int row0 = q0 + wrow + acc_row(0, t);
+  const T* q_w = q_s + wrow * 64;  // this warpgroup's rows in each column atom
+  const float scale2 = p.scale * LOG2E;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+  if (n_tiles > 0) mbar_wait(q_bar, 0);
+  for (int j = PARITY ? wg : 0; j < n_tiles; j += PARITY ? 2 : 1) {
+    const int s = j % ST, kj = list[j / TPB], k0 = kj * BLK + (j % TPB) * TILE;
+    const T* k_t = k_s + s * L::KV_ELEMS;
+    const T* v_t = v_s + s * L::KV_ELEMS;
+    const bool diag = p.causal && kj == qi;
+    mbar_wait(&full[s], (j / ST) & 1);
+    // At block 128 the diagonal block's second tile lies wholly above
+    // warpgroup 0's rows: every score masked, nothing to add.
+    if (!(diag && k0 > q0 + wrow + TILE - 1)) {
+      float sc[TILE / 2];
+#pragma unroll
+      for (int i = 0; i < TILE / 2; ++i) sc[i] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {  // S = Q·Kᵀ, both K-major
+        const int off = (kk % 4) * 16;        // column atom kk / 4, 32 bytes per step inside it
+        wgmma_ss<T, TILE, 0>(sc, desc_b128(q_w + (kk / 4) * BLK * 64 + off, 16),
+                             desc_b128(k_t + (kk / 4) * TILE * 64 + off, 16), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // Only the causal diagonal block holds masked pairs. Elsewhere the
+      // raw products are kept: the scaled row max is the raw one times the
+      // (positive) scale, and one FMA inside exp2 scales and shifts each.
+      const bool raw = !diag && scale2 > 0.0f;
+      if (!raw) {
+#pragma unroll
+        for (int i = 0; i < TILE / 2; ++i) {
+          const int qpos = row0 + 8 * ((i >> 1) & 1), kpos = k0 + acc_col(i, t);
+          sc[i] = diag && qpos < kpos ? NEG_INF : sc[i] * scale2;
+        }
+      }
+      const float mul = raw ? scale2 : 1.0f;
+      float mx[2] = {NEG_INF, NEG_INF}, alpha[2];
+#pragma unroll
+      for (int i = 0; i < TILE / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * mul);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < TILE / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = exp2f(fmaf(sc[i], mul, -m[r]));
+        l[r] += sc[i];  // this thread's part of the row sum; the quad adds up at the end
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      uint32_t pa[TILE / 16][4];  // P in the input type, as the A operand of P·V
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) acc_to_a<T>(sc, kk, pa[kk]);
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk)  // O += P·V, V MN-major: 16 keys = 16 rows per step
+        wgmma_rs<T, DP, 1>(o, pa[kk], desc_b128(v_t + kk * 16 * 64, TILE * 128), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  if constexpr (PARITY) {  // warpgroup 0 merges warpgroup 1's (m, l, O) into its own
+    float* stage = reinterpret_cast<float*>(k_s);  // the ring: every tile loaded into it has been consumed
+    float* stage_ml = stage + (DP / 2) * 128;      // [m0, m1, l0, l1][t]
+    consumers_sync();
+    if (wg == 1) {
+      stage_out(o, stage, t);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        stage_ml[r * 128 + t] = m[r];
+        stage_ml[(2 + r) * 128 + t] = l[r];
+      }
+    }
+    consumers_sync();
+    if (wg == 1) return;
+    float a0[2], a1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = stage_ml[r * 128 + t], l1 = stage_ml[(2 + r) * 128 + t];
+      const float m_new = fmaxf(m[r], m1);
+      a0[r] = exp2f(m[r] - m_new);
+      a1[r] = exp2f(m1 - m_new);
+      l[r] = l[r] * a0[r] + l1 * a1[r];
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      o[i] = o[i] * a0[r] + stage[i * 128 + t] * a1[r];
+    }
+  }
+
+  // Epilogue: O / l in the input type, lse = m·ln 2 + log(l), l = 0 taken
+  // as 1; an empty list writes O = 0 and lse = NEG_INF (the Pallas kernel's
+  // m + log(l_safe) with m never raised).
+  float inv[2], lse[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float ls = l[r] == 0.0f ? 1.0f : l[r];
+    inv[r] = 1.0f / ls;
+    lse[r] = n_tiles == 0 ? NEG_INF : m[r] * LN2 + logf(ls);
+  }
+  T* out = static_cast<T*>(p.out) + b * p.out_str[0] + h * p.out_str[2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int r = (i >> 1) & 1, row = row0 + 8 * r, col = acc_col(i, t);
+    if (col < p.D) {
+      *reinterpret_cast<uint32_t*>(out + row * p.out_str[1] + col) = pack2<T>(o[i] * inv[r], o[i + 1] * inv[r]);
+    }
+  }
+  if (t % 4 == 0) {
+    float* lse_g = p.lse + (static_cast<long long>(b) * p.H + h) * p.S;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lse_g[row0 + 8 * r] = lse[r];
+  }
 }
 
 // Shared memory of dQ: [Q: BLK x DP][dO: the same][K: STAGES x 64 x DP][V:
@@ -839,30 +1055,38 @@ int launch_tiled(const SparseParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The Hopper dQ and dK/dV. Their inputs need TMA's 16-byte rows and
-// strides, their outputs 4-byte pairs; the wrapper pads anything else.
+// The Hopper kernels. Their inputs need TMA's 16-byte rows and strides,
+// their outputs 4-byte pairs; the wrapper pads anything else.
 template <typename T, int DP, int BLK, Which W>
 int launch_hopper(const SparseParams& p, cudaStream_t stream) {
+  const bool reads_do = W != FWD;
   if (p.D % 8 != 0 || !aligned16(p.q, p.q_str) || !aligned16(p.k, p.k_str) || !aligned16(p.v, p.v_str) ||
-      !aligned16(p.dout, p.do_str)) {
+      (reads_do && !aligned16(p.dout, p.do_str))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool is_bf16 = std::is_same<T, bf16>::value;
-  constexpr int Q_ROWS = W == DQ ? BLK : TILE, K_ROWS = W == DQ ? TILE : BLK;  // the boxes each kernel loads
+  constexpr int Q_ROWS = W == DKDV ? TILE : BLK, K_ROWS = W == DKDV ? BLK : TILE;  // the boxes each kernel loads
   SparseMaps maps;
   memset(&maps, 0, sizeof(maps));
   if (!tile_map(&maps.q, p.q, is_bf16, p.q_str, p.B, p.S, p.H, p.D, Q_ROWS) ||
-      !tile_map(&maps.dout, p.dout, is_bf16, p.do_str, p.B, p.S, p.H, p.D, Q_ROWS) ||
+      (reads_do && !tile_map(&maps.dout, p.dout, is_bf16, p.do_str, p.B, p.S, p.H, p.D, Q_ROWS)) ||
       !tile_map(&maps.k, p.k, is_bf16, p.k_str, p.B, p.S, p.H, p.D, K_ROWS) ||
       !tile_map(&maps.v, p.v, is_bf16, p.v_str, p.B, p.S, p.H, p.D, K_ROWS)) {
     return static_cast<int>(cudaErrorNotSupported);
   }
-  if constexpr (W == DQ) {
+  const dim3 grid(p.B * p.H, p.S / BLK);
+  if constexpr (W == FWD) {
+    using L = HopFwd<T, DP, BLK>;
+    if (!even(p.out, p.out_str) || p.dq_order == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int e = set_smem(sparse_fwd_hopper<T, DP, BLK>, L::bytes);
+    if (e != 0) return e;
+    sparse_fwd_hopper<T, DP, BLK><<<grid, HOP_THREADS, L::bytes, stream>>>(p, maps);
+  } else if constexpr (W == DQ) {
     using L = HopDq<T, DP, BLK>;
     if (!even(p.dq, p.dq_str) || p.dq_order == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const int e = set_smem(sparse_bwd_dq_hopper<T, DP, BLK>, L::bytes);
     if (e != 0) return e;
-    sparse_bwd_dq_hopper<T, DP, BLK><<<dim3(p.B * p.H, p.S / BLK), HOP_THREADS, L::bytes, stream>>>(p, maps);
+    sparse_bwd_dq_hopper<T, DP, BLK><<<grid, HOP_THREADS, L::bytes, stream>>>(p, maps);
   } else {
     using L = HopDkdv<T, DP, BLK>;
     if (!even(p.dk, p.dk_str) || !even(p.dv, p.dv_str) || p.dkdv_order == nullptr) {
@@ -870,27 +1094,23 @@ int launch_hopper(const SparseParams& p, cudaStream_t stream) {
     }
     const int e = set_smem(sparse_bwd_dkdv_hopper<T, DP, BLK>, L::bytes);
     if (e != 0) return e;
-    sparse_bwd_dkdv_hopper<T, DP, BLK><<<dim3(p.B * p.H, p.S / BLK), HOP_THREADS, L::bytes, stream>>>(p, maps);
+    sparse_bwd_dkdv_hopper<T, DP, BLK><<<grid, HOP_THREADS, L::bytes, stream>>>(p, maps);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The route, from the type and the block alone: the 16-bit dQ and dK/dV at
-// blocks 64 and 128 take the Hopper kernels;
-// everything else PR 4's kernels, with the block itself as the tile up to 64
-// rows for 16-bit inputs (32 for fp32).
+// The route, from the type and the block alone: the 16-bit forward, dQ and
+// dK/dV at blocks 64 and 128 take the Hopper kernels; everything else the
+// tiled kernels, with the block itself as the tile for 16-bit inputs (16 or 32
+// rows) and tiles of 16 or 32 rows for fp32.
 template <typename T, int DP, Which W>
 int dispatch_block(const SparseParams& p, cudaStream_t stream) {
+  if (p.block == 16) return launch_tiled<T, DP, 16, W>(p, stream);
   if constexpr (!IS_16BIT<T>) {
-    return p.block == 16 ? launch_tiled<T, DP, 16, W>(p, stream) : launch_tiled<T, DP, 32, W>(p, stream);
+    return launch_tiled<T, DP, 32, W>(p, stream);
   } else {
-    if (p.block == 16) return launch_tiled<T, DP, 16, W>(p, stream);
     if (p.block == 32) return launch_tiled<T, DP, 32, W>(p, stream);
-    if constexpr (W == FWD) {
-      return launch_tiled<T, DP, 64, W>(p, stream);
-    } else {
-      return p.block == 64 ? launch_hopper<T, DP, 64, W>(p, stream) : launch_hopper<T, DP, 128, W>(p, stream);
-    }
+    return p.block == 64 ? launch_hopper<T, DP, 64, W>(p, stream) : launch_hopper<T, DP, 128, W>(p, stream);
   }
 }
 

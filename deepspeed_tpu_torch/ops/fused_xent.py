@@ -9,8 +9,12 @@ without its 128-lane broadcast) and recomputes the logits blockwise in the
 backward.
 
 On CUDA tensors it launches the hand-written kernels of ``csrc/fused_xent.cu``
-through two entry points: ``fused_xent_forward`` (nll and lse; one kernel,
-``fused_xent_forward.launches``) and ``fused_xent_backward`` (dh and dw). The
+through two entry points: ``fused_xent_forward`` (nll and lse) and
+``fused_xent_backward`` (dh and dw). The 16-bit forward launches two kernels,
+each counted by its own wrapper: ``fused_xent_forward`` (the logits product,
+reduced per 128-column vocab tile into an fp32 scratch of partials) and
+``xent_fwd_combine`` (the partials merged in a fixed order into lse and nll);
+the fp32 forward is one kernel, counted by ``fused_xent_forward``. The
 backward walks the vocab in chunks (``backward_chunk``, ``vocab_chunks``) and
 launches three kernels per chunk, in order, each counted by its own wrapper:
 ``xent_ds_pass`` (ds of the chunk into a scratch), ``xent_dw_pass`` (the
@@ -40,7 +44,7 @@ LANES = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _REF_BLOCK_V = 8192  # vocab block of the plain forward (bounds its fp32 logits)
 SCRATCH_BYTES = 256 * 2**20  # the backward's bound on one chunk of ds
-TILE = 128  # the 16-bit backward kernels' output tile (csrc/fused_xent.cu G_BM, G_BN)
+TILE = 128  # the 16-bit kernels' output tile (csrc/fused_xent.cu G_BM, G_BN)
 
 
 def _auto_block(n: int, cap: int) -> int:
@@ -78,6 +82,12 @@ def backward_chunk(n_rows: int, vocab: int, itemsize: int) -> int:
     than the vocab rounded up to a tile (8192 at 16384 rows in bf16)."""
     fit = SCRATCH_BYTES // (n_rows * itemsize) // TILE * TILE
     return max(TILE, min(fit, -(-vocab // TILE) * TILE))
+
+
+def vocab_tiles(vocab: int) -> int:
+    """The 16-bit forward's vocab tiles, each of which leaves one partial
+    (max, sum, gold) per row: ⌈vocab / TILE⌉."""
+    return -(-vocab // TILE)
 
 
 def vocab_chunks(vocab: int, chunk: int) -> list[tuple[int, int]]:
@@ -130,7 +140,7 @@ def fused_linear_xent_backward_reference(hidden, head, labels, lse, g, chunk=_RE
 # CUDA entry points
 # ---------------------------------------------------------------------------
 
-_PTRS = ("h", "w", "y", "lse_in", "g", "lse", "nll", "dh", "dw", "ds", "dh_acc")
+_PTRS = ("h", "w", "y", "lse_in", "g", "lse", "nll", "dh", "dw", "ds", "dh_acc", "part")
 _STRIDES = ("h_str", "w_str", "dh_str", "dw_str")
 
 
@@ -152,8 +162,9 @@ def _bind(name: str):
 def _params(hidden, head, labels, **tensors):
     """Check what the kernels take and fill the parameter block. ``labels``
     must be int32; ``lse_in``, ``g``, ``lse`` and ``nll`` contiguous fp32 [N];
-    ``dh_acc`` contiguous fp32 [N, D]; ``ds`` [N, width] in hidden's dtype
-    with contiguous rows."""
+    ``dh_acc`` contiguous fp32 [N, D]; ``part`` contiguous fp32
+    [3, N, vocab_tiles(V)]; ``ds`` [N, width] in hidden's dtype with
+    contiguous rows."""
     if hidden.device.type != "cuda":
         raise ValueError(f"the fused-xent kernels run on CUDA tensors, not {hidden.device}; CPU tensors take "
                          "fused_linear_xent_reference and fused_linear_xent_backward_reference")
@@ -176,6 +187,9 @@ def _params(hidden, head, labels, **tensors):
         elif name == "dh_acc":
             if t.dtype != torch.float32 or not t.is_contiguous() or t.shape != (N, D):
                 raise ValueError("dh_acc must be contiguous float32 [N, D]")
+        elif name == "part":
+            if t.dtype != torch.float32 or not t.is_contiguous() or t.shape != (3, N, vocab_tiles(V)):
+                raise ValueError("part must be contiguous float32 [3, N, vocab_tiles(V)]")
         elif name == "ds":
             if t.dtype != hidden.dtype or t.ndim != 2 or t.shape[0] != N or t.stride(1) != 1:
                 raise ValueError(f"ds must be [N, width] {hidden.dtype} with contiguous rows")
@@ -198,17 +212,34 @@ def _launch(name: str, p: _Params, device):
 
 
 def fused_xent_forward(hidden, head, labels):
-    """Forward kernel -> (nll [N], lse [N]) fp32. CUDA only; labels int32."""
+    """Forward kernels -> (nll [N], lse [N]) fp32. CUDA only; labels int32.
+    16-bit: the logits product into a [3, N, vocab_tiles(V)] fp32 scratch
+    of per-tile partials over the operands as ``tma_operands`` gives them,
+    then ``xent_fwd_combine``; fp32: one kernel."""
     N = hidden.shape[0]
     nll = torch.empty(N, dtype=torch.float32, device=hidden.device)
     lse = torch.empty(N, dtype=torch.float32, device=hidden.device)
-    _launch("dstt_xent_fwd", _params(hidden, head, labels, nll=nll, lse=lse), hidden.device)
+    if hidden.dtype == torch.float32:
+        _launch("dstt_xent_fwd", _params(hidden, head, labels, nll=nll, lse=lse), hidden.device)
+        fused_xent_forward.launches += 1
+        return nll, lse
+    h, w = tma_operands(hidden, head)
+    part = torch.empty(3, N, vocab_tiles(head.shape[1]), dtype=torch.float32, device=hidden.device)
+    p = _params(h, w, labels, nll=nll, lse=lse, part=part)  # h, w, part live past both launches
+    _launch("dstt_xent_fwd", p, hidden.device)
     fused_xent_forward.launches += 1
+    xent_fwd_combine(p, hidden.device)
     return nll, lse
 
 
+def xent_fwd_combine(p: _Params, device):
+    """The 16-bit forward's partials merged into lse and nll: one kernel."""
+    _launch("dstt_xent_fwd_combine", p, device)
+    xent_fwd_combine.launches += 1
+
+
 def tma_readable(t) -> bool:
-    """A 2-D 16-bit operand that the backward's TMA loads read where it lies:
+    """A 2-D 16-bit operand that the kernels' TMA loads read where it lies:
     a unit stride, a 16-byte base, the other stride a multiple of 8 elements."""
     s0, s1 = t.stride()
     other = s0 if s1 == 1 else s1 if s0 == 1 else 0
@@ -228,7 +259,7 @@ def _padded(t, contiguous_dim):
 
 
 def tma_operands(hidden, head):
-    """(hidden, head) as the 16-bit backward kernels read them: hidden
+    """(hidden, head) as the 16-bit kernels read them: hidden
     d-contiguous, the head in its own layout where it has a unit stride. What
     TMA cannot read goes to a padded copy before the launch; the kernels read
     only the true N, D and V of it."""
@@ -288,6 +319,7 @@ def fused_xent_backward(hidden, head, labels, lse, g, passes=BACKWARD_PASSES):
 
 
 fused_xent_forward.launches = 0  # kernel launches since the last reset to 0
+xent_fwd_combine.launches = 0
 xent_ds_pass.launches = 0
 xent_dw_pass.launches = 0
 xent_dh_pass.launches = 0

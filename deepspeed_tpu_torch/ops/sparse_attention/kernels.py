@@ -15,13 +15,13 @@ On CUDA tensors it launches the hand-written kernels of
 ``csrc/sparse_attention.cu`` through three entry points, each with its own
 ``.launches`` counter: ``sparse_forward`` (O and lse), ``sparse_backward_dq``
 and ``sparse_backward_dkdv``; Δ = rowsum(dO∘O) is the flash port's plain
-``flash_delta``. The 16-bit backward at blocks 64 and 128 (``hopper_route``)
-runs on the Hopper kernels, which read their tiles by TMA: inputs TMA cannot
-read go to the flash port's padded copies (``needs_padding`` →
-``pad_head_dim``) before the launch and the gradients are sliced back. Their
-grid orders come with the lists (``grid_orders``): ``dq_order`` runs the
-query blocks and ``dkdv_order`` the key blocks longest list first, one CTA
-walking each whole list.
+``flash_delta``. The 16-bit forward and backward at blocks 64 and 128
+(``hopper_route``) run on the Hopper kernels, which read their tiles by TMA:
+inputs TMA cannot read go to the flash port's padded copies
+(``needs_padding`` → ``pad_head_dim``) before the launch and the outputs are
+sliced back. Their grid orders come with the lists (``grid_orders``):
+``dq_order`` runs the query blocks (forward and dQ) and ``dkdv_order`` the
+key blocks longest list first, one CTA walking each whole list.
 
 On CPU tensors it runs the plain versions ``sparse_attention_reference`` and
 ``sparse_attention_backward_reference``, which compute the same function
@@ -48,7 +48,7 @@ from ..flash_attention import flash_delta, needs_padding, pad_head_dim
 
 NEG_INF = -1e30  # the kernels' masked-score constant (Pallas: NEG_INF)
 BLOCKS = (16, 32, 64, 128)  # the block sizes the kernels take
-HOPPER_BLOCKS = (64, 128)  # the blocks whose 16-bit backward runs on the Hopper kernels
+HOPPER_BLOCKS = (64, 128)  # the blocks whose 16-bit kernels run on Hopper's wgmma and TMA
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_D = 128
 
@@ -84,7 +84,7 @@ def layout_to_lists(layout: np.ndarray, causal: bool) -> tuple[np.ndarray, np.nd
 
 
 def grid_orders(k_counts, q_counts):
-    """The Hopper backward's grid orders from a layout's list lengths ->
+    """The Hopper kernels' grid orders from a layout's list lengths ->
     (dq_order [nq], dkdv_order [nk]), int32: the query blocks and the key
     blocks, longest list first (ties in block order)."""
     return tuple(np.argsort(-np.asarray(c), kind="stable").astype(np.int32) for c in (k_counts, q_counts))
@@ -92,7 +92,7 @@ def grid_orders(k_counts, q_counts):
 
 class SparseLists(NamedTuple):
     """One layout's lists as int32 tensors on one device, its block, and
-    the Hopper backward's grid orders (``grid_orders``)."""
+    the Hopper kernels' grid orders (``grid_orders``)."""
 
     k_lists: torch.Tensor   # [nq, max_a]
     k_counts: torch.Tensor  # [nq]
@@ -141,8 +141,9 @@ def _default_scale(q, sm_scale):
 
 def _gathered_scores(q, k, lists: SparseLists, causal: bool, scale: float):
     """(scores [B, H, nq, blk, A, blk] fp32 with the causal and padding masks
-    at NEG_INF, key-block index [nq, A] int64, and the kernels' view of q
-    as [B, nq, blk, H, D] fp32)."""
+    at NEG_INF, key-block index [nq, A] int64, the kernels' view of q as
+    [B, nq, blk, H, D] fp32, and the padding mask [nq, 1, A, 1]: the list
+    entries past k_counts, which the kernels never walk)."""
     B, S, H, D = q.shape
     blk = lists.block
     nq, A = lists.k_lists.shape
@@ -151,23 +152,26 @@ def _gathered_scores(q, k, lists: SparseLists, causal: bool, scale: float):
     qb = q.float().reshape(B, nq, blk, H, D)
     kg = k.reshape(B, S // blk, blk, H, D)[:, kl]  # [B, nq, A, blk, H, D]
     s = torch.einsum("bqihd,bqajhd->bhqiaj", qb, kg.float()) * scale
-    masked = (torch.arange(A, device=q.device)[None, :] >= counts[:, None])[:, None, :, None]  # padding
+    pad = (torch.arange(A, device=q.device)[None, :] >= counts[:, None])[:, None, :, None]
+    masked = pad
     if causal:
         q_pos = torch.arange(nq, device=q.device)[:, None] * blk + torch.arange(blk, device=q.device)[None, :]
         k_pos = kl[:, :, None] * blk + torch.arange(blk, device=q.device)[None, None, :]
         masked = masked | (q_pos[:, :, None, None] < k_pos[:, None, :, :])  # [nq, blk, A, blk]
-    return torch.where(masked, NEG_INF, s), kl, qb
+    return torch.where(masked, NEG_INF, s), kl, qb, pad
 
 
 def sparse_attention_reference(q, k, v, lists: SparseLists, causal: bool = True, sm_scale=None):
     """The plain forward over ``lists`` -> (out [B, S, H, D] in q's dtype,
     lse [B, H, S] fp32). P is rounded to the input dtype before the P·V
-    product and the sum accumulates in fp32, as in the kernels."""
+    product and the sum accumulates in fp32, as in the kernels. Padding
+    entries add nothing, so a query block whose list is empty gets O = 0
+    and lse = NEG_INF, as the Pallas kernel and the kernels give it."""
     B, S, H, D = q.shape
     blk = lists.block
-    s, kl, _ = _gathered_scores(q, k, lists, causal, _default_scale(q, sm_scale))
+    s, kl, _, pad = _gathered_scores(q, k, lists, causal, _default_scale(q, sm_scale))
     m = s.amax(dim=(-2, -1), keepdim=True)
-    p = torch.exp(s - m)
+    p = torch.where(pad, 0.0, torch.exp(s - m))
     l = p.sum(dim=(-2, -1), keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
     vg = v.reshape(B, S // blk, blk, H, D)[:, kl]
@@ -189,9 +193,9 @@ def sparse_attention_backward_reference(q, k, v, out, lse, dout, lists: SparseLi
     blk = lists.block
     dt = q.dtype
     scale = _default_scale(q, sm_scale)
-    s, kl, qb = _gathered_scores(q, k, lists, causal, scale)
+    s, kl, qb, pad = _gathered_scores(q, k, lists, causal, scale)
     nq, A = kl.shape
-    p = torch.exp(s - lse.float().reshape(B, H, nq, blk)[..., None, None])
+    p = torch.where(pad, 0.0, torch.exp(s - lse.float().reshape(B, H, nq, blk)[..., None, None]))
     do32 = dout.float().reshape(B, nq, blk, H, D)
     kg = k.reshape(B, S // blk, blk, H, D)[:, kl].float()
     vg = v.reshape(B, S // blk, blk, H, D)[:, kl].float()
@@ -295,19 +299,24 @@ def _launch(name: str, p: _Params, device):
 
 def sparse_forward(q, k, v, lists: SparseLists, *, causal=True, sm_scale=None):
     """Forward kernel -> (out [B, S, H, D], lse [B, H, S] fp32). CUDA only."""
-    B, S, H, D = q.shape
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    scale = _default_scale(q, sm_scale)
+    D = q.shape[-1]
+    padded = hopper_route(q.dtype, lists.block) and needs_padding(q, k, v)
+    if padded:
+        q, k, v = pad_head_dim(q, k, v)
+    B, S, H, Dp = q.shape
+    out = torch.empty((B, S, H, Dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    p = _params(q, k, v, lists, causal, _default_scale(q, sm_scale), out=out, lse=lse)
+    p = _params(q, k, v, lists, causal, scale, out=out, lse=lse)
     _launch("dstt_sparse_fwd", p, q.device)
     sparse_forward.launches += 1
-    return out, lse
+    return (out[..., :D].contiguous() if padded else out), lse
 
 
 def hopper_route(dtype, block: int) -> bool:
-    """Whether the backward of these inputs runs on the Hopper kernels,
-    which read by TMA: 16-bit inputs at block 64 or 128. The C entry points
-    choose by the same rule and refuse what TMA cannot read."""
+    """Whether the forward, dQ and dK/dV of these inputs run on the Hopper
+    kernels, which read by TMA: 16-bit inputs at block 64 or 128. The C
+    entry points choose by the same rule and refuse what TMA cannot read."""
     return dtype in (torch.bfloat16, torch.float16) and block in HOPPER_BLOCKS
 
 

@@ -149,6 +149,18 @@ def _normalised_err(out, ref):
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp_min(1e-6)).item()
 
 
+def _kernels_launched(fn):
+    """The names of the CUDA kernels ``fn`` launches, from torch.profiler.
+    A warm-up kernel goes first: the tracer can miss the first kernel of a
+    profile."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def _flash_check(device, dtype, B, S, H, D, causal=True, alibi=False, window=None, inputs=None):
     """Each flash kernel against its plain version; the backward kernels get
     the plain forward's O and lse. Returns (out, lse, dq, dk, dv)."""
@@ -278,7 +290,8 @@ def test_flash_kernels_reject_what_they_cannot_take(cuda_device):
 # value near a rounding boundary can land one ulp apart.
 _XENT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.float16: 1e-3}
 _XENT_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 4e-3}
-_XENT_COUNTERS = (fx.fused_xent_forward, fx.xent_ds_pass, fx.xent_dw_pass, fx.xent_dh_pass)
+_XENT_COUNTERS = (fx.fused_xent_forward, fx.xent_fwd_combine, fx.xent_ds_pass, fx.xent_dw_pass,
+                  fx.xent_dh_pass)
 
 
 def _chunks(N, V, dtype):
@@ -332,7 +345,7 @@ def test_fused_xent_kernels_match_reference(cuda_device, dtype, V, tied, N, D):
     copies; V = 777 and 50257 leave a ragged last tile."""
     h, head, y, g = _xent_inputs(N, D, V, cuda_device, dtype, tied)
     chunks = _chunks(N, V, dtype)
-    assert _check_xent(h, head, y, g, dtype) == [1] + [2 * chunks] * 3
+    assert _check_xent(h, head, y, g, dtype) == [1, int(dtype != torch.float32)] + [2 * chunks] * 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
@@ -347,24 +360,58 @@ def test_fused_xent_backward_across_vocab_chunks(cuda_device, monkeypatch, dtype
     monkeypatch.setattr(fx, "SCRATCH_BYTES", N * h.element_size() * 128)
     chunks = fx.vocab_chunks(V, fx.backward_chunk(N, V, h.element_size()))
     assert [w for _, w in chunks] == ([128, 1] if V == 129 else [128, 128, 127])
-    assert _check_xent(h, head, y, g, dtype) == [1] + [2 * len(chunks)] * 3
+    assert _check_xent(h, head, y, g, dtype) == [1, int(dtype != torch.float32)] + [2 * len(chunks)] * 3
 
 
 def test_fused_xent_autograd_launches_each_kernel_once(cuda_device):
-    """One backward call over one vocab chunk (384 rows, V = 1000): each of
-    the three backward kernels launches once."""
+    """One forward and one backward call over one vocab chunk (384 rows,
+    V = 1000): the forward launches its product (the Hopper mainloop with
+    the logsumexp epilogue) and its combine once each, the backward each of
+    its three kernels once; the old forward kernel (fp32 only now) does
+    not run."""
     h, head, y, _ = _xent_inputs(384, 64, 1000, cuda_device, torch.bfloat16, tied=True, seed=5)
     wte = head.t().detach().requires_grad_(True)
     h.requires_grad_(True)
     before = [c.launches for c in _XENT_COUNTERS]
-    nll = fx.fused_linear_xent(h, wte.t(), y)
-    mask = (y >= 0).float()
-    (torch.sum(nll * mask) / mask.sum()).backward()
-    torch.cuda.synchronize()
+
+    def step():
+        nll = fx.fused_linear_xent(h, wte.t(), y)
+        mask = (y >= 0).float()
+        (torch.sum(nll * mask) / mask.sum()).backward()
+
+    names = _kernels_launched(step)
     chunks = _chunks(384, 1000, torch.bfloat16)
-    assert [c.launches - b for c, b in zip(_XENT_COUNTERS, before)] == [1] + [chunks] * 3
+    assert [c.launches - b for c, b in zip(_XENT_COUNTERS, before)] == [1, 1] + [chunks] * 3
+    assert any("xent_gemm_hopper" in n and "LseOut" in n for n in names), names
+    assert any("xent_lse_combine" in n for n in names)
+    assert not any("xent_fwd_kernel" in n for n in names)
     assert wte.grad.shape == wte.shape and wte.grad.is_contiguous()  # no transposed copy
     assert torch.isfinite(h.grad).all() and torch.isfinite(wte.grad).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("N,D,V", [(1000, 768, 50304), (1000, 768, 50257), (1000, 64, 777), (256, 770, 1000)])
+@pytest.mark.parametrize("tied", [True, False])
+def test_fused_xent_hopper_forward(cuda_device, dtype, N, D, V, tied):
+    """The 16-bit forward (product with the logsumexp epilogue, then the
+    combine) against its plain version: vocabs of whole tiles, a last tile
+    of 1 (50257) and 9 (777) columns, D = 770 through the padded route, N
+    not a multiple of the 128-row tile, the head as wte.t() or a contiguous
+    [D, V], one row in seven ignored (nll = lse there). Two calls give the
+    same bits."""
+    h, head, y, _ = _xent_inputs(N, D, V, cuda_device, dtype, tied, seed=7)
+    y[1], y[2] = V - 1, 0  # the last column and the first
+    assert fx.tma_readable(head) == ((D if tied else V) % 8 == 0)  # the head's non-unit stride
+    before = [c.launches for c in _XENT_COUNTERS]
+    nll, lse = fx.fused_xent_forward(h, head, y)
+    nll2, lse2 = fx.fused_xent_forward(h, head, y)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(_XENT_COUNTERS, before)] == [2, 2, 0, 0, 0]
+    ref_nll, ref_lse = fx.fused_linear_xent_reference(h, head, y)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=_XENT_TOL[dtype])
+    torch.testing.assert_close(nll, ref_nll, rtol=0, atol=_XENT_TOL[dtype])
+    assert torch.equal(nll, nll2) and torch.equal(lse, lse2)
+    assert torch.equal(nll[::7], lse[::7])  # ignored rows: no gold logit
 
 
 def test_fused_xent_kernels_reject_what_they_cannot_take(cuda_device):
@@ -421,7 +468,7 @@ def test_train_batch_runs_through_the_fused_loss_under_remat(cuda_device):
         before = [c.launches for c in counters]
         m = engine.train_batch({"tokens": tokens})
         # 4 x 256 rows: the whole vocab is one backward chunk
-        assert [c.launches - b for c, b in zip(counters, before)] == [3 * 2] * 3 + [2] * 4
+        assert [c.launches - b for c, b in zip(counters, before)] == [3 * 2] * 3 + [2] * 5
         losses.append(float(m["loss"]))
         assert not bool(m["overflow"])
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
@@ -542,6 +589,57 @@ def test_sparse_hopper_backward_matches_reference(cuda_device, dtype, block, D, 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_hopper_forward_matches_reference(cuda_device, dtype, block, D, causal):
+    """The Hopper forward at both blocks and head dims, on long lists (the
+    dense layout: up to 24 key blocks at block 64, 12 at 128) walked whole
+    by one CTA, and with causal masking lists of every length from 1: O
+    against the plain version within _TOL, lse within 1e-4; two calls give
+    the same bits."""
+    n = 24 if block == 64 else 12
+    S = n * block
+    q, k, v, _ = _flash_inputs(2, S, 2, D, cuda_device, dtype, seed=9)
+    lists = sk.device_lists(np.ones((n, n), np.int64), causal, S, cuda_device)
+    assert sk.hopper_route(dtype, block) and int(lists.k_counts.max()) == n
+    out, lse = sk.sparse_forward(q, k, v, lists, causal=causal)
+    out2, lse2 = sk.sparse_forward(q, k, v, lists, causal=causal)
+    ref_out, ref_lse = sk.sparse_attention_reference(q, k, v, lists, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_forward_empty_list_writes_zeros(cuda_device, dtype, block, causal):
+    """A query block whose list is empty (lists built by hand: no layout
+    gives one) walks no tile and writes O = 0 and lse = NEG_INF exactly, as
+    the plain version and the Pallas kernel do, into fresh buffers over
+    dirty memory; every other row matches the plain version."""
+    n = 6
+    S = n * block
+    k_lists, k_counts, q_lists, q_counts = sk.layout_to_lists(np.ones((n, n), np.int64), causal)
+    k_counts[4] = 0
+    tables = [torch.from_numpy(a).to(cuda_device)
+              for a in (k_lists, k_counts, q_lists, q_counts, *sk.grid_orders(k_counts, q_counts))]
+    lists = sk.SparseLists(*tables[:4], block=block, dq_order=tables[4], dkdv_order=tables[5])
+    q, k, v, _ = _flash_inputs(2, S, 3, 64, cuda_device, dtype, seed=10)
+    ref_out, ref_lse = sk.sparse_attention_reference(q, k, v, lists, causal=causal)
+    rows = slice(4 * block, 5 * block)
+    for seed in range(2):
+        torch.randn(64 * 2**20, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(seed))
+        out, lse = sk.sparse_forward(q, k, v, lists, causal=causal)
+        torch.cuda.synchronize()
+        assert out[:, rows].abs().max().item() == 0.0 and (lse[:, :, rows] == sk.NEG_INF).all()
+        torch.testing.assert_close(out.float(), ref_out.float(), rtol=0, atol=_TOL[dtype])
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", [64, 128])
 @pytest.mark.parametrize("layout", ["D100", "unaligned_view"])
 def test_sparse_hopper_backward_pads_what_tma_cannot_read(cuda_device, dtype, block, layout):
     """D = 100 (200-byte rows) and a view whose base and strides are off 16
@@ -582,14 +680,23 @@ def test_sparse_hopper_backward_is_deterministic(cuda_device, dtype, block):
 
 
 @pytest.mark.parametrize("dtype,block", [(torch.bfloat16, 16), (torch.bfloat16, 32), (torch.float16, 32),
-                                         (torch.float32, 64), (torch.float32, 128)])
+                                         (torch.float32, 64), (torch.float32, 128), (torch.bfloat16, 64),
+                                         (torch.float16, 128)])
 def test_sparse_backward_keeps_the_old_kernels_off_the_hopper_route(cuda_device, dtype, block):
     """fp32 and blocks 16/32 stay on PR 4's kernels, which hold against
-    the plain versions on long lists and give an unattended key block zeros."""
-    assert not sk.hopper_route(dtype, block)
+    the plain versions on long lists and give an unattended key block zeros;
+    16-bit at blocks 64/128 launches the Hopper forward, dQ and dK/dV and
+    none of the tiled kernels (the kernels' names from the profiler)."""
+    hopper = sk.hopper_route(dtype, block)
+    assert hopper == (dtype != torch.float32 and block >= 64)
     lay = _long_list_layout(64)
-    dk, dv, _ = _sparse_case(cuda_device, dtype, 64, block, True, lay, H=2)
+    result = []
+    names = _kernels_launched(lambda: result.append(_sparse_case(cuda_device, dtype, 64, block, True, lay, H=2)))
+    dk, dv, _ = result[0]
     assert dk[:, 3 * block:4 * block].abs().max().item() == 0.0 and dv[:, 3 * block:4 * block].abs().max().item() == 0.0
+    for kind in ("fwd", "bwd_dq", "bwd_dkdv"):
+        assert any(f"sparse_{kind}_hopper" in n for n in names) == hopper, (kind, names)
+        assert any(f"sparse_{kind}_kernel" in n for n in names) == (not hopper), (kind, names)
 
 
 def test_sparse_attention_autograd_launches_each_kernel_once(cuda_device):

@@ -191,7 +191,7 @@ def test_unaligned_rows_warn_and_fall_back_like_jax(no_jax_mesh):
     assert tl.item() == chunked.item()
 
 
-_COUNTERS = (tfx.fused_xent_forward, tfx.xent_ds_pass, tfx.xent_dw_pass, tfx.xent_dh_pass)
+_COUNTERS = (tfx.fused_xent_forward, tfx.xent_ds_pass, tfx.xent_dw_pass, tfx.xent_dh_pass, tfx.xent_fwd_combine)
 
 
 def test_cpu_tensors_count_no_launch_and_kernel_entry_points_need_cuda():
@@ -285,7 +285,7 @@ def test_params_struct_mirrors_the_kernels_xent_params():
     for (name, ours), (_, want) in zip(tfx._Params._fields_, theirs):
         assert ctypes.sizeof(ours) == ctypes.sizeof(want), name
         assert getattr(ours, "_type_", ours) == getattr(want, "_type_", want), name
-    assert len(theirs) == 11 + 4 + 7
+    assert len(theirs) == 12 + 4 + 7
 
 
 def test_tma_operands_pad_only_what_tma_cannot_read():
@@ -342,7 +342,7 @@ def test_backward_launches_three_kernels_per_chunk_in_order(monkeypatch):
     assert given["ds"].shape == (N, 256) and given["dh_acc"].shape == (N, D)
     assert given["dh_acc"].dtype == torch.float32 and given["dh"] is dh and given["dw"] is dw
     assert dh.is_contiguous() and dw.shape == head.shape and dw.stride() == head.stride()
-    assert [c.launches for c in _COUNTERS] == [0] + [len(chunks)] * 3
+    assert [c.launches for c in _COUNTERS] == [0] + [len(chunks)] * 3 + [0]
 
 
 @pytest.mark.parametrize("which", [0, 1, 2])  # the ds pass, the dW product, the dH product
@@ -363,4 +363,97 @@ def test_backward_passes_subset_runs_one_kernel_over_every_chunk(monkeypatch, wh
     tfx.fused_xent_backward(h, head, y, lse, g, passes=(launch,))
     name = ("dstt_xent_bwd_ds", "dstt_xent_bwd_dw", "dstt_xent_bwd_dh")[which]
     assert seen == [(name, 0, 256), (name, 256, 256), (name, 512, 88)]
-    assert [c.launches for c in _COUNTERS[1:]] == [3 if i == which else 0 for i in range(3)]
+    assert [c.launches for c in _COUNTERS[1:4]] == [3 if i == which else 0 for i in range(3)]
+
+
+@pytest.mark.parametrize("D", [64, 70])  # 70: rows of 140 bytes, which TMA cannot read
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_forward_route_is_chosen_before_the_launch(monkeypatch, dtype, tied, D):
+    """The 16-bit forward reaches its two kernels (the logits product into
+    the per-tile partials, then the combine) through ``tma_operands``:
+    hidden and the head where TMA can read them, padded copies otherwise,
+    and a [3, N, vocab_tiles(V)] fp32 scratch. fp32 reaches its one kernel
+    with the operands as given and no scratch. The launch is stubbed: what
+    is checked is what would reach the kernels."""
+    given, launched = [], []
+
+    def params(h, w, y, **tensors):
+        given.append(dict(h=h, w=w, **tensors))
+        return tfx._Params()
+
+    monkeypatch.setattr(tfx, "_params", params)
+    monkeypatch.setattr(tfx, "_launch", lambda name, p, device: launched.append(name))
+    for c in _COUNTERS:
+        monkeypatch.setattr(c, "launches", 0)
+    N, V = 200, 777
+    h = torch.zeros(N, D, dtype=dtype)
+    head = torch.zeros(V, D, dtype=dtype).t() if tied else torch.zeros(D, V, dtype=dtype)
+    nll, lse = tfx.fused_xent_forward(h, head, torch.zeros(N, dtype=torch.int32))
+    assert nll.shape == lse.shape == (N,) and nll.dtype == lse.dtype == torch.float32
+    (call,) = given
+    if dtype == torch.float32:
+        assert launched == ["dstt_xent_fwd"] and "part" not in call
+        assert call["h"] is h and call["w"] is head
+        assert [c.launches for c in _COUNTERS] == [1, 0, 0, 0, 0]
+        return
+    assert launched == ["dstt_xent_fwd", "dstt_xent_fwd_combine"]
+    assert [c.launches for c in _COUNTERS] == [1, 0, 0, 0, 1]
+    assert tfx.tma_readable(call["h"]) and tfx.tma_readable(call["w"])
+    assert tfx.tma_readable(head) == (tied and D % 8 == 0)  # untied: rows of 777 elements
+    assert (call["h"] is h) == (D % 8 == 0) and (call["w"] is head) == tfx.tma_readable(head)
+    assert torch.equal(call["h"], h) and torch.equal(call["w"], head)
+    assert (call["w"].stride(0) == 1) == tied
+    assert call["part"].shape == (3, N, tfx.vocab_tiles(V)) == (3, N, 7)
+    assert call["part"].dtype == torch.float32 and call["part"].is_contiguous()
+
+
+NEG_INF = -1e30  # the kernels' masked-logit constant
+
+
+def _partials_then_combine(h, w, y):
+    """The 16-bit forward's arithmetic in fp32: per row and 128-column vocab
+    tile, the max, the sum of exp(L − max) and the gold logit (columns past
+    V masked), then the combine: m = the max of the maxes, l = Σ sum ·
+    exp(max − m), lse = m + log(l), nll = lse − Σ gold. -> (nll, lse, the
+    tile of each row's max)."""
+    N, V = h.shape[0], w.shape[1]
+    tiles = tfx.vocab_tiles(V)
+    logits = torch.full((N, tiles * tfx.TILE), NEG_INF, dtype=torch.float32)
+    logits[:, :V] = h.float() @ w.float()
+    logits = logits.reshape(N, tiles, tfx.TILE)
+    col = torch.arange(tiles * tfx.TILE).reshape(tiles, tfx.TILE)
+    mx = logits.amax(-1)
+    sums = torch.exp(logits - mx[..., None]).sum(-1)
+    gold = torch.where(col[None] == y.long()[:, None, None], logits, 0.0).sum(-1)
+    m = mx.amax(-1)
+    l = (sums * torch.exp(mx - m[:, None])).sum(-1)
+    lse = m + torch.log(l)
+    return lse - gold.sum(-1), lse, mx.argmax(-1)
+
+
+@pytest.mark.parametrize("labels", ["mixed", "all_ignored"])
+def test_forward_partials_and_combine_match_pallas(labels):
+    """The 16-bit forward's partials merged by the combine, in plain fp32,
+    against the JAX package's fused_linear_xent (Pallas in interpret mode)
+    at V = 777 (a last tile of 9 columns): labels in the last tile, ignored
+    rows (or all of them), and rows whose max lies in each of the 7 tiles.
+    fp32, summation order only (the tolerance of test_forward_matches_pallas)."""
+    N, D, V = 128, 64, 777
+    h, w, y = _inputs(N, D, V, seed=9, ignore_every=6)
+    for i in range(N):  # raise column 128·(i mod 7) + 5 of row i's logits by 4
+        c = 128 * (i % 7) + 5
+        h[i] += 4.0 * w[:, c] / np.dot(w[:, c], w[:, c])
+    y[1], y[2], y[3] = V - 1, 770, 768  # in the last tile
+    if labels == "all_ignored":
+        y[:] = -1
+    ref = np.asarray(jfused(jnp.asarray(h), jnp.asarray(w), jnp.asarray(y), block_rows=128, block_v=128,
+                            interpret=True))
+    nll, lse, max_tile = _partials_then_combine(*map(torch.from_numpy, (h, w, y)))
+    assert set(max_tile.tolist()) == set(range(7))
+    np.testing.assert_allclose(nll.numpy(), ref, rtol=2e-5, atol=2e-5)
+    plain_nll, plain_lse = tfx.fused_linear_xent_reference(*map(torch.from_numpy, (h, w, y)))
+    torch.testing.assert_close(lse, plain_lse, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(nll, plain_nll, rtol=2e-5, atol=2e-5)
+    ignored = y < 0
+    np.testing.assert_allclose(nll.numpy()[ignored], lse.numpy()[ignored], rtol=0, atol=0)

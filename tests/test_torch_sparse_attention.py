@@ -135,6 +135,49 @@ def test_key_block_no_query_attends_gets_zero_gradients():
     assert k.grad[:, 96:].abs().max().item() > 0.0
 
 
+def _lists_with_an_empty_row(layout, causal, empty, S):
+    """The lists of ``layout`` with query block ``empty``'s list emptied
+    (its count 0), as no layout gives them: ``layout_to_lists`` refuses a
+    query block with no keys."""
+    k_lists, k_counts, q_lists, q_counts = tsk.layout_to_lists(layout, causal)
+    k_counts = k_counts.copy()
+    k_counts[empty] = 0
+    orders = tsk.grid_orders(k_counts, q_counts)
+    tensors = [torch.from_numpy(a) for a in (k_lists, k_counts, q_lists, q_counts, *orders)]
+    return tsk.SparseLists(*tensors[:4], block=S // layout.shape[0], dq_order=tensors[4], dkdv_order=tensors[5])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_query_block_with_an_empty_list_gets_zeros_like_pallas(causal):
+    """A query block whose list is empty: the Pallas forward walks nothing
+    and writes O = 0 and lse = m + log(l_safe) = NEG_INF; the plain forward
+    gives the same, its padding entries adding nothing, and every other row
+    as before. fp32, summation order only."""
+    blk, n, B, H, D = 32, 4, 1, 2, 16
+    S = n * blk
+    layout = np.ones((n, n), np.int64)
+    lists = _lists_with_an_empty_row(layout, causal, 2, S)
+    assert int(lists.k_counts[2]) == 0 and int(lists.dq_order[-1]) == 2
+    q, k, v, _ = _qkv(B, S, H, D, seed=12)
+    scale = 1.0 / np.sqrt(D)
+
+    def bh(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(B * H, S, D))
+
+    jout, jlse = jsk._sparse_forward(bh(q), bh(k), bh(v), jnp.asarray(lists.k_lists.numpy()),
+                                     jnp.asarray(lists.k_counts.numpy()), scale, causal, blk, True)
+    out, lse = tsk.sparse_attention_reference(*map(torch.from_numpy, (q, k, v)), lists, causal=causal)
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 1, 3).reshape(B * H, S, D), np.asarray(jout),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy().reshape(B * H, S), np.asarray(jlse), rtol=RTOL, atol=ATOL)
+    rows = slice(2 * blk, 3 * blk)
+    assert out[:, rows].abs().max().item() == 0.0 and (lse[:, :, rows] == tsk.NEG_INF).all()
+    dout = torch.ones_like(out)
+    dq, _, _ = tsk.sparse_attention_backward_reference(*map(torch.from_numpy, (q, k, v)), out, lse, dout, lists,
+                                                       causal=causal)
+    assert dq[:, rows].abs().max().item() == 0.0
+
+
 def test_argument_rules_match_jax():
     q = torch.zeros(1, 128, 2, 8)
     jq = jnp.zeros((1, 128, 2, 8))
@@ -323,12 +366,12 @@ def _route_inputs(dtype, D, view):
 @pytest.mark.parametrize("block", tsk.BLOCKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_backward_route_is_chosen_before_the_launch(monkeypatch, dtype, block, inputs, causal):
-    """16-bit inputs at blocks 64 and 128 take the Hopper route: what TMA
-    cannot read (D = 100, a view off 16 bytes) reaches the kernels as padded
-    copies, and the gradients come back at the caller's head dim.
-    Everything else reaches PR 4's kernels as it is. Each wrapper launches
-    its one kernel once. The launch is stubbed: what is checked is what
-    would reach it."""
+    """16-bit inputs at blocks 64 and 128 take the Hopper route, the forward
+    as the backward: what TMA cannot read (D = 100, a view off 16 bytes)
+    reaches the kernels as padded copies, and the output and the gradients
+    come back at the caller's head dim. Everything else reaches the tiled
+    kernels as it is. Each wrapper launches its one kernel once. The launch
+    is stubbed: what is checked is what would reach it."""
     given, launched = [], []
 
     def params(q, k, v, lists, causal, scale, **tensors):
@@ -337,7 +380,8 @@ def test_backward_route_is_chosen_before_the_launch(monkeypatch, dtype, block, i
 
     monkeypatch.setattr(tsk, "_params", params)
     monkeypatch.setattr(tsk, "_launch", lambda name, p, device: launched.append(name))
-    for c in (tsk.sparse_backward_dq, tsk.sparse_backward_dkdv):
+    counters = (tsk.sparse_forward, tsk.sparse_backward_dq, tsk.sparse_backward_dkdv)
+    for c in counters:
         monkeypatch.setattr(c, "launches", 0)
     D = 100 if inputs == "D100" else 64
     q, k, v, dout = _route_inputs(dtype, D, inputs == "unaligned_view")
@@ -350,18 +394,22 @@ def test_backward_route_is_chosen_before_the_launch(monkeypatch, dtype, block, i
     assert hopper == (dtype != torch.float32 and block in (64, 128))
     padded = hopper and inputs != "D64"
 
+    out, lse_out = tsk.sparse_forward(q, k, v, lists, causal=causal)
     dq = tsk.sparse_backward_dq(q, k, v, dout, lse, delta, lists, causal=causal)
     dk, dv = tsk.sparse_backward_dkdv(q, k, v, dout, lse, delta, lists, causal=causal)
-    assert launched == ["dstt_sparse_bwd_dq", "dstt_sparse_bwd_dkdv"]
-    assert (tsk.sparse_backward_dq.launches, tsk.sparse_backward_dkdv.launches) == (1, 1)
+    assert launched == ["dstt_sparse_fwd", "dstt_sparse_bwd_dq", "dstt_sparse_bwd_dkdv"]
+    assert [c.launches for c in counters] == [1, 1, 1]
+    assert "dout" not in given[0] and given[0]["out"].shape[:3] == q.shape[:3]
     for call in given:
         assert call["causal"] is causal
+        read = [call[n] for n in ("q", "k", "v", "dout") if n in call]
         if padded:
-            assert call["q"].shape[-1] == call["dout"].shape[-1] == -(-D // 8) * 8
-            assert not any(tsk.needs_padding(call[n]) for n in ("q", "k", "v", "dout"))
+            assert all(t.shape[-1] == -(-D // 8) * 8 for t in read)
+            assert not any(tsk.needs_padding(t) for t in read)
         else:
-            assert call["q"] is q and call["k"] is k and call["v"] is v and call["dout"] is dout
-    assert all(t.shape == q.shape and t.dtype == dtype for t in (dq, dk, dv))
+            assert all(a is b for a, b in zip(read, (q, k, v, dout)))
+    assert all(t.shape == q.shape and t.dtype == dtype for t in (out, dq, dk, dv))
+    assert lse_out.shape == (1, 2, S) and lse_out.dtype == torch.float32
 
 
 def test_sparse_self_attention_matches_jax_with_and_without_masks():

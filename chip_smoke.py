@@ -106,15 +106,34 @@ Phases, each of which passes or makes the script exit non-zero:
      8192] at steps [1, 2]; each step's length follows the schedule with
      its own cached lists; train 2 + save + fresh engine and loader + load
      + train 3 gives the uninterrupted run's losses bitwise and resumes at
-     the same difficulty and loader cursor.
-It prints a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
+     the same difficulty and loader cursor;
+ 18. the serving engine (inference/serving.ServingEngine) over
+     init_inference at GPT-2-125M width (phase 4's model): 16 slots, the
+     prefix cache (8 x 512 tokens), chunked prefill (256), the decode step
+     one CUDA graph captured once. Workload (a): 64 requests sharing a
+     512-token system prompt with 8-48-token tails and 64-128 new tokens,
+     all greedy and arrived at 0 (benchmarks/serving_throughput.py:169-191),
+     through serve() with speculation off, then on (depth 8); workload (b):
+     64 ragged requests, half sampled, at Poisson arrivals of 32/s
+     (:147-166). It checks that every request ends ok, one decode program
+     per engine, 12 split and 12 combine launches a replay (and the
+     profiler's kernel records over 5 steps), the prefix hits of (a), one
+     replay against the eager step function bit for bit, the first-token
+     logits of (a) against generate's prefill, and on a small fp32 model
+     the tokens of generate with speculation off and on; it prints
+     tokens/s, TTFT p50/p99, TPOT p50, decode ms/step as graph replay and
+     as the eager step, the prefix hit rate, the speculation acceptance
+     rate and the slot occupancy, each beside the card's name and power
+     limit.
+It prints a ``{"serving_engine": {...}}`` line, a ``{"kernels": [...]}``
+line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
 
     python3 chip_smoke.py --profile chiprun_out/profile
 
 also traces one generate(max_new_tokens=64), one train_batch of phases 7,
-10 and 15 with torch.profiler and prints the device's busy share, its time
+10 and 15 and 20 serving steps of phase 18's workload (a) with torch.profiler and prints the device's busy share, its time
 by kernel and the host's top ops by self time; and times phase 10's model
 without remat beside it, which shows what remat's recompute costs the step.
 """
@@ -1648,6 +1667,349 @@ def serve(dev):
     return (g["launches"], g["combine_launches"]), engine, prompt
 
 
+# Phase 18: the continuous-batching serving engine at GPT-2-125M width
+# (inference/serving.py), its decode step one CUDA graph.
+SERVE_SLOTS, SERVE_REQUESTS, SHARED_PREFIX = 16, 64, 512
+SERVE_CONFIG = {"n_slots": SERVE_SLOTS, "seed": 0,
+                "prefix_cache": {"enabled": True, "n_slots": 8, "max_prefix_len": SHARED_PREFIX},
+                "chunked_prefill": {"enabled": True, "chunk_size": 256}}
+SPEC_DEPTH = 8
+RAGGED_RATE = 32.0  # Poisson arrivals of workload (b), requests per second
+# First-token logits, serving vs generate's prefill, both bf16: the serving
+# path fetches the 512-token prefix that another request's 256-token chunks
+# wrote, and runs its own tail as one chunk over the whole slot window,
+# where generate runs the prompt in one pass; the products round at other
+# shapes and the difference passes through 12 layers.
+FIRST_LOGITS_TOL = 0.25
+PROFILE_SERVE_STEPS = 20
+
+
+def shared_prefix_workload(vocab, seed=0):
+    """benchmarks/serving_throughput.py:169-191: 64 requests, one 512-token
+    system prompt shared by all, 8-48-token unique tails, 64-128 new
+    tokens, all greedy; every request arrived at 0 (its Poisson draws are
+    made and dropped, so the tokens are the benchmark's)."""
+    from deepspeed_tpu_torch.inference import Request
+
+    rng = np.random.default_rng(seed)
+    rng.exponential(1.0, size=SERVE_REQUESTS)
+    shared = rng.integers(0, vocab, size=SHARED_PREFIX).astype(np.int32)
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        tail = rng.integers(0, vocab, size=int(rng.integers(8, 49))).astype(np.int32)
+        reqs.append(Request(uid=i, prompt=np.concatenate([shared, tail]),
+                            max_new_tokens=int(rng.integers(64, 129))))
+    return reqs
+
+
+def ragged_workload(vocab, rate, seed=0, uid0=0):
+    """benchmarks/serving_throughput.py:147-166: 64 requests at Poisson
+    arrivals of ``rate`` per second, 6-48-token prompts, 8-32 new tokens,
+    half sampled at temperature 0.5-1.2, top-k < 20, top-p 0.8-1.0."""
+    from deepspeed_tpu_torch.inference import Request
+
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, size=SERVE_REQUESTS))
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        greedy = i % 2 == 0
+        reqs.append(Request(
+            uid=uid0 + i, prompt=rng.integers(0, vocab, size=int(rng.integers(6, 49))).astype(np.int32),
+            max_new_tokens=int(rng.integers(8, 33)),
+            temperature=0.0 if greedy else float(rng.uniform(0.5, 1.2)),
+            top_k=0 if greedy else int(rng.integers(0, 20)),
+            top_p=1.0 if greedy else float(rng.uniform(0.8, 1.0)),
+            arrival_time=float(arrivals[i])))
+    return reqs
+
+
+def serving_metrics(results, seconds):
+    ok = [r for r in results.values() if r.ok]
+    tokens = sum(len(r.tokens) for r in results.values())
+    ttft = [r.ttft for r in ok]
+    tpot = [r.time_per_output_token for r in ok if len(r.tokens) > 1]
+    return {"requests": len(results), "ok": len(ok), "tokens": tokens, "seconds": seconds,
+            "tokens_per_s": tokens / seconds, "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+            "ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3,
+            "tpot_p50_ms": float(np.percentile(tpot, 50)) * 1e3}
+
+
+def serving_engine(engine, speculation):
+    from deepspeed_tpu_torch.inference import Request, ServingEngine
+
+    srv = ServingEngine(engine, config={**SERVE_CONFIG, "watchdog_mode": "raise",
+                                        "speculation": {"enabled": speculation, "depth": SPEC_DEPTH}})
+    # a warm-up outside the measured runs: the graph capture, the allocator
+    srv.serve([Request(uid=100000 + i, prompt=np.arange(1, 20 + i, dtype=np.int32), max_new_tokens=4)
+               for i in range(2)])
+    return srv
+
+
+def record_first_logits(srv):
+    """Wrap the worker's first-token sampling to keep each request's fp32
+    first-token logits (instrumentation for the check; the engine is
+    unchanged)."""
+    w, last, kept = srv.worker, {}, {}
+    sample, activate = w._sample_one, srv._activate
+
+    def sample_one(logits, *a):
+        last["logits"] = logits[0, 0].float().clone()
+        return sample(logits, *a)
+
+    def activate_(slot, req, *a, **kw):
+        kept[req.uid] = last.pop("logits")
+        return activate(slot, req, *a, **kw)
+
+    w._sample_one, srv._activate = sample_one, activate_
+    return kept
+
+
+def run_workload(srv, reqs, label, smi):
+    reset_counts()
+    steps0, (s0, c0) = srv.worker._decode_steps, srv.worker.decode_kernel_launches()
+    hits0 = (srv.prefix_cache_stats() or {}).get("hits", 0)
+    occ = srv.telemetry.histogram("serving/slot_occupancy")
+    occ_n, occ_sum = occ.count, occ.sum
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv.serve(reqs)
+    seconds = time.perf_counter() - t0
+    m = serving_metrics(res, seconds)
+    s1, c1 = srv.worker.decode_kernel_launches()
+    m.update(decode_steps=srv.worker._decode_steps - steps0, split_launches=s1 - s0, combine_launches=c1 - c0,
+             python_counter_launches=decode_attention.launches,
+             slot_occupancy=(occ.sum - occ_sum) / max(occ.count - occ_n, 1))
+    stats = srv.prefix_cache_stats()
+    lookups = stats["hits"] + stats["misses"]
+    m["prefix_hit_rate"] = stats["hits"] / lookups if lookups else 0.0
+    m["prefix_hits"] = stats["hits"] - hits0
+    spec = srv.spec_stats()
+    if spec is not None:
+        m["spec_acceptance_rate"], m["spec_drafted"], m["verify_steps"] = (
+            spec["acceptance_rate"], spec["drafted"], spec["verify_steps"])
+    print(f"  [{smi}] {label}: {m['ok']}/{m['requests']} ok, {m['tokens']} tokens in {seconds:.3f} s = "
+          f"{m['tokens_per_s']:.1f} tokens/s; TTFT p50 {m['ttft_p50_ms']:.1f} ms, p99 {m['ttft_p99_ms']:.1f} ms; "
+          f"TPOT p50 {m['tpot_p50_ms']:.3f} ms; slot occupancy {m['slot_occupancy']:.3f}; prefix hit rate "
+          f"{m['prefix_hit_rate']:.3f}"
+          + (f"; speculation acceptance {m['spec_acceptance_rate']:.3f} ({m['spec_drafted']} drafted, "
+             f"{m['verify_steps']} verify calls)" if spec is not None else ""))
+    expect = srv.cfg.num_layers
+    ok = (m["ok"] == m["requests"] and m["split_launches"] == m["combine_launches"] == expect * m["decode_steps"]
+          and srv.worker.graph_launches == (expect, expect) and srv.compile_counts()["decode"] == 1)
+    print(f"    decode steps {m['decode_steps']} (graph replays), split/combine launches by the graph "
+          f"{m['split_launches']}/{m['combine_launches']} (expect {expect} x {m['decode_steps']}), decode "
+          f"programs {srv.compile_counts()['decode']}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"serving {label} failed its checks")
+    return res, m
+
+
+def replay_vs_eager(srv, dev):
+    """One graph replay against the same step function called eagerly on a
+    copy of the same state (cache and generator), bit for bit."""
+    from deepspeed_tpu_torch.inference.serving import pack_decode_inputs
+
+    w = srv.worker
+    wpos = np.where(srv._active, srv._pos, w.Smax).astype(np.int32)
+    packed = pack_decode_inputs(srv._last_tok, srv._pos, wpos, srv._active, srv._temp, srv._top_k, srv._top_p)
+    cache0 = {kv: t.clone() for kv, t in w._cache.items()}
+    gen0 = w._gen.get_state()
+    out_graph = w._decode_program(packed)
+    cache_graph = {kv: t.clone() for kv, t in w._cache.items()}
+    for kv in cache0:
+        w._cache[kv].copy_(cache0[kv])
+    w._gen.set_state(gen0)
+    out_eager = w.decode_step(torch.from_numpy(packed).to(dev)).cpu().numpy()
+    same = bool(np.array_equal(out_graph, out_eager)) and all(torch.equal(w._cache[kv], cache_graph[kv])
+                                                              for kv in cache0)
+    print(f"  one graph replay vs the step function eagerly on a copy of the state ({srv.n_active} rows active, "
+          f"{int((srv._temp[srv._active] > 0).sum())} sampled): packed output and cache bitwise equal: {same}")
+    if not same:
+        raise SystemExit("the decode graph's replay differs from the eager step")
+    for kv in cache0:
+        w._cache[kv].copy_(cache_graph[kv])
+    return packed
+
+
+def decode_step_times(srv, dev, packed, reps=100):
+    """Host-clock ms per decode step on one state (every row active, writes
+    dropped so the state does not change): the graph replay with its two
+    copies, and the eager step function ending in a synchronise."""
+    w = srv.worker
+    packed = packed.copy()
+    packed[2] = w.Smax  # wpos: every write dropped
+    inp = torch.from_numpy(packed).to(dev)
+    times = {}
+    for name, fn in (("graph", lambda: w._decode_program(packed)),
+                     ("eager", lambda: (w.decode_step(inp), torch.cuda.synchronize()))):
+        for _ in range(5):
+            fn()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        times[name] = statistics.median(ts) * 1e3
+    return times
+
+
+def profiled_kernel_counts(srv, steps=5):
+    """Kernel records of ``steps`` serving steps under torch.profiler: the
+    split and combine kernels against num_layers x the decode steps taken."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    s0 = srv.worker._decode_steps
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            srv.step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum("decode_split_kernel" in n for n in names), sum("decode_combine_kernel" in n for n in names),
+            srv.worker._decode_steps - s0)
+
+
+def serving_parity_small(dev):
+    """Small fp32 model on the card: every greedy request's tokens equal
+    generate's, speculation off and on."""
+    from deepspeed_tpu_torch.inference import ServingEngine
+
+    tiny = TransformerConfig(vocab_size=97, max_seq_len=256, num_layers=2, num_heads=4, hidden_size=32)
+    eng = deepspeed_tpu_torch.init_inference(Model(tiny), config={"dtype": "fp32"})
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, 97, size=40).astype(np.int32)
+    from deepspeed_tpu_torch.inference import Request
+
+    reqs = [Request(uid=i, prompt=np.concatenate([shared, rng.integers(0, 97, size=int(rng.integers(3, 30)))])
+                    .astype(np.int32), max_new_tokens=int(rng.integers(8, 40))) for i in range(12)]
+    refs = {r.uid: eng.generate(r.prompt[None], max_new_tokens=r.max_new_tokens)[0] for r in reqs}
+    for spec in (False, True):
+        srv = ServingEngine(eng, config={"n_slots": 4, "prefix_cache": {"enabled": True, "n_slots": 4, "block": 8},
+                                         "chunked_prefill": {"enabled": True, "chunk_size": 16},
+                                         "speculation": {"enabled": spec, "depth": 4}})
+        res = srv.serve(reqs)
+        ok = all(np.array_equal(res[u].tokens, refs[u]) for u in refs) and srv.compile_counts()["decode"] == 1
+        print(f"  small fp32 model, {len(reqs)} greedy requests through 4 slots, speculation "
+              f"{'on' if spec else 'off'}: tokens == generate's for every request: {ok}")
+        if not ok:
+            raise SystemExit("serving's greedy tokens differ from generate's")
+
+
+def first_token_check(engine, reqs, res, kept):
+    """Each request's first-token logits against generate's prefill of its
+    prompt, within FIRST_LOGITS_TOL; the first tokens agree, or where they
+    do not, generate's top two logits lie within that tolerance (a near tie
+    that logits differing by less than the tolerance may order either
+    way), which is printed."""
+    cfg, dev = engine.cfg, engine.device
+    errs, agree, ties = [], 0, []
+    with torch.inference_mode():
+        for r in reqs:
+            prompt = torch.from_numpy(r.prompt[None]).long().to(dev)
+            cache = tfm.init_cache(cfg, 1, -(-len(r.prompt) // 128) * 128, device=dev)
+            ref, _ = tfm.apply_with_cache(cfg, engine.params, prompt, cache, 0, last_only=True)
+            ref = ref[0, -1].float()
+            errs.append((kept[r.uid] - ref).abs().max().item())
+            served = int(res[r.uid].tokens[0])
+            if ref.argmax().item() == served:
+                agree += 1
+            else:
+                ties.append((r.uid, (ref.max() - ref[served]).item()))
+    err = max(errs)
+    ok = err <= FIRST_LOGITS_TOL and all(gap <= FIRST_LOGITS_TOL for _, gap in ties)
+    print(f"  full width bf16, workload (a): first-token logits vs generate's prefill, max_abs_err {err:.3e} "
+          f"(tol {FIRST_LOGITS_TOL}), first tokens agree {agree}/{len(reqs)}; the others' gap between generate's "
+          f"top logit and the served token's {[f'uid {u}: {g:.3e}' for u, g in ties]}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("serving's first tokens disagree with generate's prefill")
+    return err
+
+
+def serve_engine_phase(dev, smi, profile_dir=None):
+    from deepspeed_tpu_torch.inference import Request
+
+    cfg = TransformerConfig(vocab_size=50304, max_seq_len=1024, num_layers=12, num_heads=12,
+                            hidden_size=768, pos_emb="learned", tie_embeddings=True)
+    engine = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": "bf16"})
+    vocab = engine.cfg.vocab_size
+    out = {"config": {**SERVE_CONFIG, "speculation_depth": SPEC_DEPTH, "ragged_rate_per_s": RAGGED_RATE}}
+    shared = shared_prefix_workload(vocab)
+
+    srv = serving_engine(engine, speculation=False)
+    w = srv.worker
+    print(f"  slot cache {w._cache['k'].numel() * 2 * 2 / 1e9:.3f} GB, prefix pool "
+          f"{w._pool['k'].numel() * 2 * 2 / 1e9:.3f} GB; the decode graph records {w.graph_launches} "
+          f"(split, combine) launches a replay")
+    kept = record_first_logits(srv)
+    res, out["shared_prefix"] = run_workload(srv, shared, "workload (a) shared prefix, speculation off", smi)
+    first_hit = min(r.first_token_time for r in res.values())
+    late = [r for r in res.values() if r.admitted_time > first_hit]
+    hits_ok = all(r.prefix_hit_tokens >= SHARED_PREFIX for r in late) and len(late) >= SERVE_REQUESTS - SERVE_SLOTS
+    print(f"    prefix cache: {len(late)} requests admitted after the first prefix insert, each with "
+          f"prefix_hit_tokens >= {SHARED_PREFIX}: {hits_ok} (hit tokens {sorted({r.prefix_hit_tokens for r in late})})")
+    if not hits_ok:
+        raise SystemExit("the prefix cache missed on workload (a)")
+    out["first_token_logits_max_abs_err"] = first_token_check(engine, shared, res, kept)
+    del w._sample_one, srv._activate  # the instrumentation off: the class's methods again
+    greedy_off = {u: r.tokens for u, r in res.items()}
+
+    ragged = ragged_workload(vocab, RAGGED_RATE, uid0=1000)
+    res_b, out["ragged"] = run_workload(srv, ragged, f"workload (b) ragged, Poisson {RAGGED_RATE:g}/s", smi)
+    in_range = all(((r.tokens >= 0) & (r.tokens < vocab)).all() for r in res_b.values())
+    if not in_range:
+        raise SystemExit("workload (b) produced tokens outside the vocabulary")
+
+    # a mid-run state for the bitwise check, the step times and the profiler
+    for r in ragged_workload(vocab, RAGGED_RATE, seed=1, uid0=2000)[:SERVE_SLOTS]:
+        r.arrival_time = 0.0
+        srv.submit(r)
+    for _ in range(8):
+        srv.step()
+    packed = replay_vs_eager(srv, dev)
+    times = decode_step_times(srv, dev, packed)
+    out["decode_ms_per_step"] = times
+    print(f"  [{smi}] decode ms/step on one state ({SERVE_SLOTS} rows): graph replay {times['graph']:.3f}, "
+          f"eager step function {times['eager']:.3f} ({times['eager'] / times['graph']:.2f}x)")
+    split, combine, steps = profiled_kernel_counts(srv)
+    ok = split == combine == cfg.num_layers * steps and steps > 0
+    print(f"  profiler over 5 serving steps: {split} split and {combine} combine kernel records for {steps} decode "
+          f"steps (expect {cfg.num_layers} x {steps})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the profiler does not see the decode kernels in every graph replay")
+    out["profiled_launches"] = {"split": split, "combine": combine, "decode_steps": steps}
+    srv.drain()
+    out["compile_counts"] = srv.compile_counts()
+    del srv
+    torch.cuda.empty_cache()
+
+    srv = serving_engine(engine, speculation=True)
+    res, out["shared_prefix_speculation"] = run_workload(
+        srv, shared, f"workload (a) shared prefix, speculation on (depth {SPEC_DEPTH})", smi)
+    # in bf16 the verify pass (plain cached attention over depth + 1
+    # positions) and the decode kernel round differently, so greedy streams
+    # may part where two logits nearly tie; the fp32 check below is exact
+    same = sum(np.array_equal(greedy_off[u], r.tokens) for u, r in res.items())
+    out["shared_prefix_speculation"]["greedy_streams_equal_to_speculation_off"] = same
+    print(f"    greedy token streams identical to speculation off: {same}/{len(res)} (bf16; not required)")
+    out["compile_counts_speculation"] = srv.compile_counts()
+    if profile_dir:
+        prof_srv = serving_engine(engine, speculation=False)
+        for r in shared_prefix_workload(vocab, seed=3):
+            prof_srv.submit(r)
+        prof_srv.step()
+        profile(f"serving_steps(x{PROFILE_SERVE_STEPS})",
+                lambda: [prof_srv.step() for _ in range(PROFILE_SERVE_STEPS)], profile_dir)
+        prof_srv.drain()
+        del prof_srv
+    del srv
+    torch.cuda.empty_cache()
+    serving_parity_small(dev)
+    print(json.dumps({"serving_engine": out}))
+    # the main path's launches: the three workload runs' graph replays
+    runs = [out[k] for k in ("shared_prefix", "ragged", "shared_prefix_speculation")]
+    return sum(m["split_launches"] for m in runs), sum(m["combine_launches"] for m in runs)
+
+
 def profile(label, fn, out_dir):
     """Trace ``fn`` with torch.profiler: device busy share of the wall time
     and device time by kernel name. Writes the Chrome trace into ``out_dir``."""
@@ -1809,11 +2171,16 @@ def main() -> int:
     training["curriculum"] = curriculum_resume(dev)
     torch.cuda.empty_cache()
 
+    print("[18] serving engine: ServingEngine over init_inference at GPT-2-125M width, the decode step one CUDA graph")
+    serving_launches = serve_engine_phase(dev, smi, args.profile)
+    torch.cuda.empty_cache()
+
     kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
         "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:54",
         "launches": launches[0], "combine_launches": launches[1],
+        "serving_launches": serving_launches[0], "serving_combine_launches": serving_launches[1],
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"], "library_ratio": times["library_ratio"],

@@ -14,6 +14,16 @@ It carries the training path and the serving path so far:
     engine = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": "bf16"})
     tokens = engine.generate(prompt, max_new_tokens=256)
 
+    from deepspeed_tpu_torch.inference import Request, ServingEngine
+    serving = ServingEngine(engine, config={"n_slots": 16,
+        "prefix_cache": {"enabled": True, "n_slots": 8, "max_prefix_len": 512},
+        "chunked_prefill": {"enabled": True, "chunk_size": 256},
+        "speculation": {"enabled": True, "depth": 8}})
+    results = serving.serve([Request(uid=i, prompt=p, max_new_tokens=128) for i, p in ...])
+
+``ServingEngine`` is continuous batching over a slot KV cache, with its
+decode step one CUDA graph on the card (``inference/serving.py``).
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 

@@ -27,6 +27,7 @@ replays the layer's masks.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from dataclasses import dataclass
@@ -243,8 +244,11 @@ def rotary_embed(x, positions, rotary_dims, interleaved: bool = False):
     return torch.cat([rotated, x_pass], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
 def alibi_slopes(num_heads: int, device="cpu") -> torch.Tensor:
-    """BLOOM ALiBi slopes [H] fp32."""
+    """BLOOM ALiBi slopes [H] fp32, made once per (num_heads, device): the
+    copy from the host happens on the first call, never inside a CUDA graph
+    capture of a later one. Callers must not write to the result."""
     closest = 2 ** math.floor(math.log2(num_heads))
     vals = [2 ** (-8.0 * (i + 1) / closest) for i in range(closest)]
     vals += [2 ** (-4.0 * (i + 1) / closest) for i in range(num_heads - closest)]
@@ -561,11 +565,26 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, dev
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _on_device(x, device) -> torch.Tensor:
+    """``x`` (a host value or a tensor) as a tensor on ``device``. A host
+    value is copied from pageable memory, which a CUDA graph cannot
+    capture: under capture it raises, so the decode step's operands must
+    already live on the device."""
+    if torch.is_tensor(x) and x.device == torch.device(device):
+        return x
+    if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"under CUDA graph capture every position operand must already be a "
+                           f"tensor on {device}; got {type(x).__name__}"
+                           + (f" on {x.device}" if torch.is_tensor(x) else ""))
+    return torch.as_tensor(x, device=device)
+
+
 def _clamped(start, lo: int, hi: int, device) -> torch.Tensor:
     """``start`` (int or 0-d tensor) clamped to [lo, hi] as a device tensor,
-    as ``lax.dynamic_slice``/``dynamic_update_slice`` clamp their starts."""
-    t = start if torch.is_tensor(start) else torch.tensor(start)
-    return t.to(device=device, dtype=torch.long).clamp(lo, hi)
+    as ``lax.dynamic_slice``/``dynamic_update_slice`` clamp their starts.
+    Eager paths only (prefill, chunks, prefix copies): a host ``start`` is
+    copied to the device, which a graph capture refuses."""
+    return _on_device(start, device).to(torch.long).clamp(lo, hi)
 
 
 def slice_cache_slot(cache, slot, length: int, start=0):
@@ -609,8 +628,12 @@ def _cache_writer(pos, write_pos, B: int, T: int, Smax: int, device):
     and entries outside [0, Smax) are dropped, as the JAX scatter with
     ``mode="drop"`` drops them: the serving contract passes
     ``write_pos = Smax`` for idle rows so their write goes nowhere. The drop
-    is a masked write, one position per row at a time, so no index leaves
-    the cache and no host sync is needed."""
+    is one gather and one scatter per call with no host sync: a dropped
+    entry writes back the value already at a position its row does not
+    write (past the end it folds back by T, below the row's first write;
+    before the start forward by T, past its last), so every index of the
+    scatter is distinct and the write is exact. Under CUDA graph capture
+    ``write_pos`` must already be a device tensor."""
     if T > Smax:
         raise ValueError(f"{T} new tokens do not fit a cache of length {Smax}")
     if pos.ndim == 0:
@@ -622,17 +645,14 @@ def _cache_writer(pos, write_pos, B: int, T: int, Smax: int, device):
             c.index_copy_(1, idx, new.to(c.dtype))
         return write
 
-    wp = pos if write_pos is None else torch.as_tensor(write_pos, device=device)
-    wpos = wp.long()[:, None] + torch.arange(T, device=device)[None, :]  # [B, T]
-    valid = (wpos >= 0) & (wpos < Smax)
-    safe = wpos.clamp(0, Smax - 1)
-    rows = torch.arange(B, device=device)
+    wp = pos if write_pos is None else _on_device(write_pos, device)
+    idx = wp.long()[:, None] + torch.arange(T, device=device)[None, :]  # [B, T]
+    valid = ((idx >= 0) & (idx < Smax))[:, :, None, None]
+    target = torch.where(idx >= Smax, idx - T, torch.where(idx < 0, idx + T, idx))
+    rows = torch.arange(B, device=device)[:, None].expand(B, T)
 
     def write(c, new):
-        new = new.to(c.dtype)
-        for t in range(T):
-            cur = c[rows, safe[:, t]]
-            c[rows, safe[:, t]] = torch.where(valid[:, t, None, None], new[:, t], cur)
+        c[rows, target] = torch.where(valid, new.to(c.dtype), c[rows, target])
     return write
 
 
@@ -644,8 +664,9 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
 
     ``pos`` is an int or 0-d tensor (all rows in lock-step) or a per-row [B]
     int tensor (each row at its own position). It may live on the device:
-    nothing here reads it on the host. ``last_only`` projects only the last
-    position to the vocab; ``last_index`` (int or 0-d tensor, clamped) only
+    nothing here reads it on the host. Under CUDA graph capture (the serving
+    decode step) it and ``write_pos`` must already be device tensors.
+    ``last_only`` projects only the last position to the vocab; ``last_index`` (int or 0-d tensor, clamped) only
     that position. ``write_pos`` (per-row ``pos`` only) moves where a row's
     KV is written; positions outside the cache are dropped.
 
@@ -664,7 +685,7 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
     B, T = tokens.shape
     device = tokens.device
     Smax = cache["k"].shape[2]
-    pos = (pos if torch.is_tensor(pos) else torch.tensor(pos)).to(device=device, dtype=torch.int32)
+    pos = _on_device(pos, device).to(torch.int32)
     vector_pos = pos.ndim >= 1
     arange_t = torch.arange(T, device=device, dtype=torch.int32)
     positions = (pos[:, None] if vector_pos else pos) + arange_t[None, :].expand(B, T)

@@ -1,4 +1,5 @@
-"""Typed failures of the fault-tolerance layer (``errors.py``, a copy of the
-JAX package's); the port raises the checkpoint ones so far."""
+"""The fault-tolerance layer: typed failures (``errors.py``, a copy of the
+JAX package's) and the serving engine's fault injector (``faults.py``)."""
 
-from .errors import CheckpointCorruptError, CheckpointError, CheckpointNotFoundError, ResilienceError  # noqa: F401
+from .errors import CheckpointCorruptError, CheckpointError, CheckpointNotFoundError, RequestRejected, ResilienceError  # noqa: F401
+from .faults import FaultInjector  # noqa: F401

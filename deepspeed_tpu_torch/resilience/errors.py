@@ -15,8 +15,9 @@ contexts) and the report CLI must be able to import these without jax.
 
 The port keeps this copy of ``deepspeed_tpu/resilience/errors.py`` (it imports
 nothing of the JAX package); the checkpoint code raises
-``CheckpointNotFoundError`` and ``CheckpointCorruptError``, and the other
-types wait for the port's resilience layer.
+``CheckpointNotFoundError`` and ``CheckpointCorruptError``, the serving
+engine ``RequestRejected``, and the other types wait for the port's
+resilience layer.
 """
 
 from __future__ import annotations

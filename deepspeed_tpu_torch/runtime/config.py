@@ -186,6 +186,211 @@ class MeshAxesConfig:
     model: int = 1
 
 
+# ---------------------------------------------------------------------------
+# The serving blocks ``inference/serving.ServingEngine`` reads (the JAX
+# package's dataclasses, with their defaults and validation errors)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class RequestTraceConfig:
+    """``telemetry.request_trace`` (also ``serving.request_trace``): record
+    each request's arrived/admitted/chunk/first_token/terminal events in a
+    ring of ``capacity`` events (``telemetry/request_trace.py``)."""
+
+    enabled: bool = True
+    capacity: int = 2048
+
+    def __post_init__(self):
+        if self.capacity < 1:
+            raise DeepSpeedConfigError(
+                f"telemetry.request_trace.capacity must be >= 1, "
+                f"got {self.capacity}")
+
+
+_FAULT_SITES = {"nan_grads", "io_error", "io_flaky", "garbage_logits", "preempt",
+                "replica_dead", "replica_hang", "rpc_timeout", "rpc_conn_reset",
+                "rpc_garbled_frame", "gateway_disconnect", "gateway_stall", "router_crash"}
+
+
+@dataclass
+class FaultInjectionConfig:
+    """``serving.fault_injection`` (and ``resilience.fault_injection``):
+    deterministic faults (``resilience/faults.FaultInjector``). The port's
+    serving engine consumes ``garbage_logits_uids`` (+ ``_phase``
+    ``prefill|decode`` and the 0-based ``_decode_step``) and ``rate`` /
+    ``sites``; the other lists belong to sites the port has not got yet and
+    are parsed so that one config serves both packages."""
+
+    enabled: bool = False
+    seed: int = 0
+    rate: float = 0.0
+    sites: list = field(default_factory=list)
+    nan_grad_steps: list = field(default_factory=list)
+    io_error_writes: list = field(default_factory=list)
+    io_flaky_writes: list = field(default_factory=list)
+    io_error_journal_appends: list = field(default_factory=list)
+    garbage_logits_uids: list = field(default_factory=list)
+    garbage_logits_phase: str = "decode"
+    garbage_logits_decode_step: int = 0
+    preempt_steps: list = field(default_factory=list)
+    replica_dead_at: list = field(default_factory=list)
+    replica_hang_at: list = field(default_factory=list)
+    rpc_timeout_at: list = field(default_factory=list)
+    rpc_conn_reset_at: list = field(default_factory=list)
+    rpc_garbled_at: list = field(default_factory=list)
+    gateway_disconnect_at: list = field(default_factory=list)
+    gateway_stall_at: list = field(default_factory=list)
+    router_crash_at: list = field(default_factory=list)
+
+    def __post_init__(self):
+        if not 0.0 <= self.rate <= 1.0:
+            raise DeepSpeedConfigError(
+                f"fault_injection.rate must be in [0, 1], got {self.rate}")
+        if self.garbage_logits_phase not in ("prefill", "decode"):
+            raise DeepSpeedConfigError(
+                "fault_injection.garbage_logits_phase must be prefill|decode, "
+                f"got {self.garbage_logits_phase!r}")
+        bad = set(self.sites) - _FAULT_SITES
+        if bad:
+            raise DeepSpeedConfigError(
+                f"fault_injection.sites contains unknown site(s) {sorted(bad)}")
+        pairs = {"replica_dead_at": ((int, int), "[replica_id, router_step] int pairs"),
+                 "replica_hang_at": ((int, int), "[replica_id, router_step] int pairs"),
+                 "rpc_timeout_at": ((str, int), "[method, nth_call] (str, int) pairs"),
+                 "rpc_conn_reset_at": ((str, int), "[method, nth_call] (str, int) pairs"),
+                 "rpc_garbled_at": ((str, int), "[method, nth_call] (str, int) pairs"),
+                 "gateway_disconnect_at": ((int, int), "[uid, nth_token] int pairs"),
+                 "gateway_stall_at": ((int, int), "[uid, nth_token] int pairs")}
+        for name, (types, what) in pairs.items():
+            for p in getattr(self, name):
+                if (not isinstance(p, (list, tuple)) or len(p) != 2
+                        or not all(isinstance(x, t) for x, t in zip(p, types))):
+                    raise DeepSpeedConfigError(f"fault_injection.{name} entries must be {what}, got {p!r}")
+        for s in self.router_crash_at:
+            if not isinstance(s, int) or s < 1:
+                raise DeepSpeedConfigError(
+                    f"fault_injection.router_crash_at entries must be "
+                    f"1-based router steps (positive ints), got {s!r}")
+        for s in self.io_error_journal_appends:
+            if not isinstance(s, int) or s < 1:
+                raise DeepSpeedConfigError(
+                    f"fault_injection.io_error_journal_appends entries must "
+                    f"be 1-based append indices (positive ints), got {s!r}")
+
+
+@dataclass
+class PrefixCacheConfig:
+    """``serving.prefix_cache``: prompt-prefix KV reuse. A host trie maps
+    prompt prefixes (in whole ``block``s) to slots of a device pool
+    ``[L, n_slots, max_prefix_len, H, Dh]`` (0 = the slot length);
+    ``insert_policy`` ``always`` caches every admitted prompt's prefix,
+    ``min_hits`` only one that ``min_hits`` prompts have shared."""
+
+    enabled: bool = False
+    n_slots: int = 8
+    max_prefix_len: int = 0  # 0 = the serving slot length (Smax)
+    block: int = 16
+    insert_policy: str = "always"
+    min_hits: int = 2
+
+    def __post_init__(self):
+        if self.insert_policy not in ("always", "min_hits"):
+            raise DeepSpeedConfigError(
+                f"serving.prefix_cache.insert_policy must be always|min_hits, "
+                f"got {self.insert_policy!r}")
+        if self.n_slots < 1:
+            raise DeepSpeedConfigError(
+                f"serving.prefix_cache.n_slots must be >= 1, got {self.n_slots}")
+        if self.block < 1:
+            raise DeepSpeedConfigError(
+                f"serving.prefix_cache.block must be >= 1, got {self.block}")
+        if self.min_hits < 1:
+            raise DeepSpeedConfigError(
+                f"serving.prefix_cache.min_hits must be >= 1, got {self.min_hits}")
+
+
+@dataclass
+class ChunkedPrefillConfig:
+    """``serving.chunked_prefill``: prompt suffixes run as ``chunk_size``
+    chunks (a power of two; the remainder as one power-of-two padded tail),
+    ``chunks_per_step`` of them per scheduler step between decode steps."""
+
+    enabled: bool = False
+    chunk_size: int = 64
+    chunks_per_step: int = 1
+
+    def __post_init__(self):
+        c = self.chunk_size
+        if c < 1 or (c & (c - 1)) != 0:
+            raise DeepSpeedConfigError(
+                f"serving.chunked_prefill.chunk_size must be a power of two, got {c}")
+        if self.chunks_per_step < 1:
+            raise DeepSpeedConfigError(
+                f"serving.chunked_prefill.chunks_per_step must be >= 1, "
+                f"got {self.chunks_per_step}")
+
+
+@dataclass
+class TenantConfig:
+    """One tenant of ``serving.tenants`` (and ``serving.gateway.auth.tenants``):
+    ``weight`` is its DWRR share of admissions, ``max_queued`` its bound on
+    arrived, queued requests (0 = none). ``token_sha256``, ``rate_rps`` and
+    ``burst`` belong to the HTTP gateway, which the port has not got yet."""
+
+    token_sha256: str = ""
+    weight: float = 1.0
+    max_queued: int = 0
+    rate_rps: float = 0.0
+    burst: int = 8
+
+    def __post_init__(self):
+        if self.weight < 0.01:
+            raise DeepSpeedConfigError(
+                f"serving.gateway.auth tenant weight must be >= 0.01, "
+                f"got {self.weight}")
+        if self.max_queued < 0 or self.rate_rps < 0:
+            raise DeepSpeedConfigError(
+                "serving.gateway.auth tenant max_queued/rate_rps must be "
+                ">= 0")
+        if self.burst < 1:
+            raise DeepSpeedConfigError(
+                f"serving.gateway.auth tenant burst must be >= 1, "
+                f"got {self.burst}")
+        d = self.token_sha256
+        if d and (len(d) != 64 or any(c not in "0123456789abcdef"
+                                      for c in d.lower())):
+            raise DeepSpeedConfigError(
+                "serving.gateway.auth tenant token_sha256 must be a "
+                "64-char hex SHA-256 digest (never the raw token)")
+
+
+@dataclass
+class SpeculationConfig:
+    """``serving.speculation``: drafts of up to ``depth`` tokens a slot
+    (``ngram``: prompt lookup over the request's own history once a suffix
+    of ``ngram_min_match`` tokens recurs; ``draft_model``: a host-resident
+    random scorer), verified in one forward pass; greedy requests keep
+    the tokens of one-token decode exactly."""
+
+    enabled: bool = False
+    depth: int = 4
+    ngram_min_match: int = 2
+    draft_source: str = "ngram"
+
+    def __post_init__(self):
+        if self.draft_source not in ("ngram", "draft_model"):
+            raise DeepSpeedConfigError(
+                f"serving.speculation.draft_source must be ngram|draft_model, "
+                f"got {self.draft_source!r}")
+        if self.depth < 1:
+            raise DeepSpeedConfigError(
+                f"serving.speculation.depth must be >= 1, got {self.depth}")
+        if self.ngram_min_match < 1:
+            raise DeepSpeedConfigError(
+                f"serving.speculation.ngram_min_match must be >= 1, "
+                f"got {self.ngram_min_match}")
+
+
 # Blocks whose ``enabled`` flag selects a path the port does not have yet,
 # and top-level flags that do so when true (monitor/ is not ported).
 _UNPORTED_BLOCKS = (C.FLOPS_PROFILER, "eigenvalue", C.RESILIENCE, C.TELEMETRY, C.ELASTICITY,

@@ -755,3 +755,109 @@ def test_train_batch_runs_through_the_sparse_kernels(cuda_device):
         losses.append(float(m["loss"]))
         assert not bool(m["overflow"])
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# The serving engine's decode step as one CUDA graph (inference/serving.py).
+_SERVE_TINY = dict(vocab_size=97, max_seq_len=256, num_layers=2, num_heads=4, hidden_size=32)
+
+
+def _serving(device, n_slots=4, seed=0, **config):
+    from deepspeed_tpu_torch.inference import ServingEngine
+
+    eng = deepspeed_tpu_torch.init_inference(tfm.Model(tfm.TransformerConfig(**_SERVE_TINY)),
+                                             config={"dtype": "fp32"}, device=device)
+    return ServingEngine(eng, config={"n_slots": n_slots, "seed": seed, **config})
+
+
+def _serve_requests(n, seed=0, sampled=False):
+    from deepspeed_tpu_torch.inference import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, 97, size=int(rng.integers(5, 40))).astype(np.int32),
+                    max_new_tokens=int(rng.integers(4, 24)),
+                    temperature=0.9 if sampled and i % 2 else 0.0, top_k=7 if sampled else 0,
+                    top_p=0.9 if sampled else 1.0) for i in range(n)]
+
+
+def test_serving_decode_graph_replay_equals_eager_step(cuda_device):
+    """One replay of the captured step against the same step function
+    called eagerly on a copy of the same state (cache and generator): the
+    packed output and the cache bit for bit, greedy and sampled rows."""
+    from deepspeed_tpu_torch.inference.serving import pack_decode_inputs
+
+    srv = _serving(cuda_device, n_slots=4)
+    for r in _serve_requests(4, seed=1, sampled=True):
+        srv.submit(r)
+    for _ in range(3):
+        srv.step(now=0.0)
+    w = srv.worker
+    assert w._graph is not None and srv.n_active == 4
+    wpos = np.where(srv._active, srv._pos, w.Smax).astype(np.int32)
+    packed = pack_decode_inputs(srv._last_tok, srv._pos, wpos, srv._active, srv._temp, srv._top_k, srv._top_p)
+    cache0 = {kv: t.clone() for kv, t in w._cache.items()}
+    gen0 = w._gen.get_state()
+    out_graph = w._decode_program(packed)
+    cache_graph = {kv: t.clone() for kv, t in w._cache.items()}
+    for kv in cache0:
+        w._cache[kv].copy_(cache0[kv])
+    w._gen.set_state(gen0)
+    out_eager = w.decode_step(torch.from_numpy(packed).to(cuda_device)).cpu().numpy()
+    np.testing.assert_array_equal(out_graph, out_eager)
+    for kv in cache0:
+        assert torch.equal(w._cache[kv], cache_graph[kv]), kv
+        assert not torch.equal(cache_graph[kv], cache0[kv])  # the step wrote its tokens' KV
+
+
+def test_serving_decode_graph_advances_the_generator_and_seeds_repeat(cuda_device):
+    from deepspeed_tpu_torch.inference.serving import pack_decode_inputs
+
+    srv = _serving(cuda_device, n_slots=8)
+    w, n = srv.worker, 8
+    # every row sampled at temperature 1, every write dropped: two replays
+    # of the same inputs differ only by the generator's offset
+    packed = pack_decode_inputs(np.arange(n), np.full(n, 3), np.full(n, w.Smax), np.ones(n, bool),
+                                np.ones(n, np.float32), np.zeros(n, np.int32), np.ones(n, np.float32))
+    a, b = w._decode_program(packed), w._decode_program(packed)
+    assert w._graph is not None and not np.array_equal(a[:, 0], b[:, 0])
+    runs = []
+    for _ in range(2):
+        srv = _serving(cuda_device, n_slots=4, seed=5)
+        res = srv.serve(_serve_requests(10, seed=2, sampled=True))
+        runs.append({u: r.tokens for u, r in res.items()})
+        assert srv.compile_counts()["decode"] == 1
+    for uid in runs[0]:
+        np.testing.assert_array_equal(runs[0][uid], runs[1][uid])
+
+
+@pytest.mark.parametrize("spec", [False, True])
+def test_serving_greedy_tokens_equal_generate_on_the_card(cuda_device, spec):
+    srv = _serving(cuda_device, n_slots=4, prefix_cache={"enabled": True, "n_slots": 4, "block": 8},
+                   chunked_prefill={"enabled": True, "chunk_size": 16},
+                   speculation={"enabled": spec, "depth": 4})
+    reqs = _serve_requests(10, seed=3)
+    res = srv.serve(reqs)
+    for r in reqs:
+        ref = srv.engine.generate(r.prompt[None], max_new_tokens=r.max_new_tokens)[0]
+        np.testing.assert_array_equal(res[r.uid].tokens, ref)
+    assert srv.compile_counts()["decode"] == 1
+
+
+def test_serving_decode_graph_replay_launches_each_kernel_per_layer(cuda_device):
+    """The profiler's kernel records over one replay: num_layers split and
+    num_layers combine launches, as the counters recorded at capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.inference.serving import pack_decode_inputs
+
+    srv = _serving(cuda_device, n_slots=4)
+    w, n, L = srv.worker, 4, _SERVE_TINY["num_layers"]
+    packed = pack_decode_inputs(np.zeros(n), np.full(n, 9), np.full(n, w.Smax), np.ones(n, bool),
+                                np.zeros(n, np.float32), np.zeros(n, np.int32), np.ones(n, np.float32))
+    w._decode_program(packed)  # captures
+    assert w.graph_launches == (L, L)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w._decode_program(packed)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("decode_split_kernel" in x for x in names) == L, names
+    assert sum("decode_combine_kernel" in x for x in names) == L, names

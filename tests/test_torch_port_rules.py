@@ -34,6 +34,11 @@ from deepspeed_tpu_torch.models.transformer import Model, TransformerConfig
 eng = pkg.init_inference(Model(TransformerConfig(**{TINY!r})), config={{"dtype": "fp32"}}, device="cpu")
 out = eng.generate(np.zeros((2, 5), np.int32), max_new_tokens=4)
 assert out.shape == (2, 4)
+from deepspeed_tpu_torch.inference import Request, ServingEngine
+srv = ServingEngine(eng, config={{"n_slots": 2, "prefix_cache": {{"enabled": True}},
+                                 "chunked_prefill": {{"enabled": True}}, "speculation": {{"enabled": True}}}})
+res = srv.serve([Request(uid=i, prompt=np.arange(5 + i, dtype=np.int32), max_new_tokens=3) for i in range(3)])
+assert all(r.ok for r in res.values()) and srv.compile_counts()["decode"] == 1
 model = Model(TransformerConfig(**{TINY!r}, attn_impl="flash"))
 trainer, _, _, _ = pkg.initialize(model=model, config={{"train_batch_size": 2}}, device="cpu")
 metrics = trainer.train_batch({{"tokens": np.zeros((2, 9), np.int32)}})

@@ -125,8 +125,24 @@ Phases, each of which passes or makes the script exit non-zero:
      as the eager step, the prefix hit rate, the speculation acceptance
      rate and the slot occupancy, each beside the card's name and power
      limit.
-It prints a ``{"serving_engine": {...}}`` line, a ``{"kernels": [...]}``
-line, a ``{"training": {...}}`` line,
+ 19. training resilience at GPT-2-125M width (phase 10's model and config
+     without remat: fused loss, flash attention, bf16, batch 64 = micro 16
+     x gas 4), nine drills that each fail the script: a NaN step (a +inf
+     loss scale through the kernels) is skipped and 4 clean steps equal 5
+     with the poisoned one bitwise; two NaN steps in a row rewind to the
+     last good tag bitwise; a real SIGTERM gives PreemptionSignal and a JIT
+     checkpoint from which a fresh engine resumes bitwise; a transient
+     write failure is retried once; a permanent one raises and leaves
+     'latest' on the intact tag; an async save (a step running while its
+     writer does) equals a synchronous save; DeepSpeed's 3-call loop
+     against train_batch over two steps, with each kernel's launches per
+     step on both loops, and on a small fp32 model; save_16bit_model read
+     back bitwise; the CSV monitor's one row per step. It prints, beside
+     the card's name and power limit, step ms with the guardrail on and
+     off and of both loops, the JIT checkpoint's seconds, and how long a
+     synchronous and an async save block the caller (and the commit).
+It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
+line, a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
 
@@ -159,9 +175,11 @@ from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_xent as fx
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.decode_attention import SPLIT_KEYS, decode_attention, decode_attention_reference
-from deepspeed_tpu_torch.ops.optimizers import tree_map
+from deepspeed_tpu_torch.ops.optimizers import tree_leaves, tree_map
 from deepspeed_tpu_torch.ops.sparse_attention import SPARSITY_CONFIGS
 from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
+from deepspeed_tpu_torch.resilience import PermanentIOError, PreemptionSignal, install_injector
+from deepspeed_tpu_torch.resilience.preemption import deactivate_guard
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the kernel's math)
@@ -611,7 +629,8 @@ def counts():
 
 N_COUNTS = 9  # len(counts()); sparse_counts() follow it in a step's launches
 N_SPARSE = 3  # len(sparse_counts())
-COUNT_LABEL = "[flash fwd, dK/dV, dQ, decode, xent fwd, combine, ds, dW, dH, sparse fwd, dQ, dK/dV]"
+COUNT_LABEL_9 = "[flash fwd, dK/dV, dQ, decode, xent fwd, combine, ds, dW, dH]"  # counts()
+COUNT_LABEL = COUNT_LABEL_9[:-1] + ", sparse fwd, dQ, dK/dV]"
 
 
 def sparse_counts():
@@ -2010,6 +2029,267 @@ def serve_engine_phase(dev, smi, profile_dir=None):
     return sum(m["split_launches"] for m in runs), sum(m["combine_launches"] for m in runs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: training resilience at GPT-2-125M width
+# ---------------------------------------------------------------------------
+
+# Phase 10's model and config without remat (the drills' time), the fused
+# loss and flash attention; drill engines share the seeded initial weights
+RESILIENCE_MODEL = dict(loss_impl="fused_xent")
+# the 3-call loop against train_batch, at full width in bf16 and on a small
+# fp32 model: both loops run one accumulation and one update function on
+# the same micro-batches through deterministic kernels (the loop adds a
+# no-grad forward whose loss it returns), so the parameters and the losses
+# must agree bitwise. A tolerance would not do at full width: AdamW moves
+# an element by about lr whatever its gradient, so a dropped micro-batch
+# would stay within any limit of the order of lr
+
+
+def _params_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a.state["params"]), tree_leaves(b.state["params"])))
+
+
+def _max_param_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a.state["params"]),
+                                                           tree_leaves(b.state["params"])))
+
+
+def _drill(name, ok, detail):
+    print(f"  {name}: {detail}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 19 drill failed: {name}")
+
+
+def _timed(fn, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def three_call_step(engine, tokens):
+    """One step of DeepSpeed's 3-call loop over the gas micro-batches of a
+    train_batch-sized batch -> the forward losses."""
+    gas = engine.gradient_accumulation_steps
+    mb = tokens.shape[0] // gas
+    losses = []
+    for i in range(gas):
+        loss = engine({"tokens": tokens[i * mb:(i + 1) * mb]})
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss)
+    return losses
+
+
+def loop_parity_small(dev):
+    """A small fp32 model through the flash and fused-loss kernels: two
+    steps of the 3-call loop against two train_batch steps."""
+    cfg = TransformerConfig(vocab_size=1000, max_seq_len=256, num_layers=2, num_heads=4, hidden_size=64,
+                            attn_impl="flash", loss_impl="fused_xent")
+    ds = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": 2,
+          "optimizer": {"type": "SGD", "params": {"lr": 0.05, "momentum": 0.9}}, "gradient_clipping": 1.0,
+          "steps_per_print": 1000000}
+    a = deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds)[0]
+    b = deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds)[0]
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        tokens = rng.integers(0, 1000, size=(8, 257)).astype(np.int32)
+        a.train_batch({"tokens": tokens})
+        three_call_step(b, tokens)
+    return _max_param_diff(a, b)
+
+
+def resilience_phase(dev, smi):
+    """Phase 19: the nine drills, the 3-call loop and the timings -> result."""
+    B, S = BENCH_DS["train_batch_size"], FS
+    gas = BENCH_DS["gradient_accumulation_steps"]
+    rng = np.random.default_rng(19)
+    bs = [rng.integers(0, 50304, size=(B, S + 1)).astype(np.int32) for _ in range(6)]
+
+    def model():
+        return Model(gpt2_config(**RESILIENCE_MODEL))
+
+    root = tempfile.mkdtemp(prefix="dstt_resilience_")
+    out = {"config": {"model": "GPT-2-125M", "micro": BENCH_DS["train_micro_batch_size_per_gpu"], "gas": gas,
+                      "seq": S, "remat": False, "loss_impl": "fused_xent", "attn_impl": "flash"}}
+    csv_dir = os.path.join(root, "csv")
+    try:
+        reset_counts()
+        clean = deepspeed_tpu_torch.initialize(model=model(), config=BENCH_DS)[0]
+        guarded = deepspeed_tpu_torch.initialize(model=model(), config={**BENCH_DS, "resilience": {
+            "enabled": True, "max_consecutive_bad_steps": 2, "retry": {"base_delay_s": 0.01},
+            "preemption": {"enabled": True, "signals": ["SIGTERM"], "save_dir": os.path.join(root, "jit")},
+            "fault_injection": {"enabled": True, "nan_grad_steps": [3, 6, 7]}}})[0]
+
+        # 1. NaN skip: 4 clean steps against 5 with step 3 poisoned by a +inf loss scale
+        for t in bs[:4]:
+            clean.train_batch({"tokens": t})
+        skipped_metrics = None
+        for i, t in enumerate(bs[:2] + [bs[5]] + bs[2:4]):
+            m = guarded.train_batch({"tokens": t})
+            if i == 2:
+                skipped_metrics = (bool(m["overflow"]), float(m["grad_norm"]))
+        ok = (guarded.skipped_steps == 1 and skipped_metrics[0] and not np.isfinite(skipped_metrics[1])
+              and guarded.loss_scale == 1.0 and _params_equal(guarded, clean))
+        _drill("1 NaN skip", ok, f"skipped_steps {guarded.skipped_steps}, the poisoned step's overflow "
+               f"{skipped_metrics[0]} and grad norm {skipped_metrics[1]}, parameters bitwise equal to 4 clean steps")
+
+        # 2. rewind: save a good tag, then NaN at steps 6 and 7 (max_consecutive_bad_steps 2)
+        good = os.path.join(root, "good")
+        guarded.save_checkpoint(good, tag="g5")
+        guarded.train_batch({"tokens": bs[4]})
+        guarded.train_batch({"tokens": bs[4]})
+        counters = guarded.telemetry.registry.snapshot()["counters"]
+        ok = (counters.get("resilience/rewinds") == 1 and guarded.global_steps == 5
+              and guarded.get_global_step() == 4 and _params_equal(guarded, clean))
+        _drill("2 rewind", ok, f"rewinds {counters.get('resilience/rewinds')}, host step {guarded.global_steps}, "
+               "parameters bitwise equal to the g5 tag's")
+
+        # 3. preemption by a real SIGTERM: a JIT checkpoint, then a fresh engine resumes
+        import signal
+        os.kill(os.getpid(), signal.SIGTERM)
+        try:
+            guarded.train_batch({"tokens": bs[4]})
+            raised = False
+        except PreemptionSignal:
+            raised = True
+        jit_s = guarded.telemetry.registry.snapshot()["histograms"]["resilience/jit_ckpt_sec"]["sum"]
+        out["jit_checkpoint_s"] = jit_s
+        resumed = deepspeed_tpu_torch.initialize(model=model(), config={
+            **BENCH_DS, "checkpoint": {"async_save": True},
+            "csv_monitor": {"enabled": True, "output_path": csv_dir, "job_name": "phase19"}})[0]
+        tag, _ = resumed.load_checkpoint(os.path.join(root, "jit"))
+        resumed.train_batch({"tokens": bs[4]})
+        clean.train_batch({"tokens": bs[4]})
+        ok = raised and tag == "preempt" and _params_equal(resumed, clean)
+        _drill("3 preemption", ok, f"SIGTERM -> PreemptionSignal {raised}, JIT checkpoint {jit_s:.2f} s, a fresh "
+               f"engine loads {tag!r} and one more step equals the clean run's bitwise")
+
+        # 4. a transient write failure is retried (the fresh engine of drill
+        # 3 took the process's injector slot, which the saver consults)
+        inj = guarded.fault_injector
+        install_injector(inj)
+        inj.io_flaky_writes = {inj.stats()["guarded_writes"] + 3}
+        guarded.save_checkpoint(good, tag="flaky")
+        retries = guarded.telemetry.registry.snapshot()["counters"].get("resilience/ckpt_retries")
+        _drill("4 transient write failure", retries == 1 and open(os.path.join(good, "latest")).read() == "flaky",
+               f"resilience/ckpt_retries {retries}, 'latest' -> flaky")
+
+        # 5. a permanent one raises and leaves 'latest' on the intact tag
+        inj.io_error_writes = {inj.stats()["guarded_writes"] + 5}
+        try:
+            guarded.save_checkpoint(good, tag="broken")
+            perm = False
+        except PermanentIOError:
+            perm = True
+        latest = open(os.path.join(good, "latest")).read()
+        ok = perm and latest == "flaky" and not os.path.exists(os.path.join(good, "broken"))
+        _drill("5 permanent write failure", ok, f"PermanentIOError {perm}, 'latest' -> {latest}, no 'broken' tag")
+
+        # 6. async save: returns after the snapshot; a step runs; commit; then
+        # the same state (cloned before the save) saved synchronously
+        snapshot = tree_map(torch.clone, resumed.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed.save_checkpoint(os.path.join(root, "async"), tag="a")
+        out["async_save_blocks_s"] = time.perf_counter() - t0
+        resumed.train_batch({"tokens": bs[0]})  # the next step while the writer runs
+        t0 = time.perf_counter()
+        resumed.checkpoint_engine.commit()
+        out["async_commit_s"] = time.perf_counter() - t0
+        clean.state = snapshot
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean.save_checkpoint(os.path.join(root, "sync"), tag="a")
+        out["sync_save_blocks_s"] = time.perf_counter() - t0
+        del snapshot
+        man = [json.load(open(os.path.join(root, d, "a", "manifest.json"))) for d in ("async", "sync")]
+        guarded.load_checkpoint(os.path.join(root, "async"))
+        reference = deepspeed_tpu_torch.initialize(model=model(), config=BENCH_DS)[0]
+        reference.load_checkpoint(os.path.join(root, "sync"))
+        ok = (man[0]["checksums"] == man[1]["checksums"] and man[0]["leaves"] == man[1]["leaves"]
+              and all(torch.equal(x, y) for x, y in zip(tree_leaves(guarded.state), tree_leaves(reference.state))))
+        _drill("6 async save", ok, f"blocks the caller {out['async_save_blocks_s']:.3f} s, commit after one step "
+               f"{out['async_commit_s']:.2f} s; a synchronous save blocks {out['sync_save_blocks_s']:.2f} s; the "
+               "loaded states and the files' crc32 equal")
+
+        # 7. the 3-call loop (guarded, from the async save) against train_batch
+        # (reference, from the sync save): two steps from the same state
+        launches = {}
+        tb_losses, loop_losses = [], []
+        steps = {"train_batch": lambda t: tb_losses.append(float(reference.train_batch({"tokens": t})["loss"])),
+                 "three_call": lambda t: loop_losses.append(float(sum(three_call_step(guarded, t))) / gas)}
+        for label, fn in steps.items():
+            before = counts()
+            for t in bs[1:3]:
+                fn(t)
+            launches[label] = [(a - b) // 2 for a, b in zip(counts(), before)]
+        diff = _max_param_diff(guarded, reference)
+        differing = sum(int((x != y).sum()) for x, y in zip(tree_leaves(guarded.state["params"]),
+                                                            tree_leaves(reference.state["params"])))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(loop_losses, tb_losses))
+        # the GPT-2-width engines' launches over drills 1-7 (the SIGTERM
+        # step raises before it launches), before the small model's
+        out["launches"] = counts()
+        small = loop_parity_small(dev)
+        chunks = len(fx.vocab_chunks(50304, fx.backward_chunk(B // gas * S, 50304, 2)))
+        L = 12
+        want_tb = [L * gas] * 3 + [0, gas, gas] + [gas * chunks] * 3
+        want_loop = [2 * L * gas, L * gas, L * gas, 0, 2 * gas, 2 * gas] + [gas * chunks] * 3
+        ok = (differing == 0 and loop_losses == tb_losses and small == 0.0
+              and launches["train_batch"] == want_tb and launches["three_call"] == want_loop)
+        out["three_call"] = {"max_param_diff": diff, "params_differing": differing, "max_loss_rel_diff": rel,
+                             "small_fp32_max_param_diff": small,
+                             "losses": loop_losses, "train_batch_losses": tb_losses, "launches_per_step": launches,
+                             "tolerance": "bitwise"}
+        _drill("7 3-call loop", ok, f"two steps: params max |diff| {diff:.3e} ({differing} elements differ), "
+               f"losses max rel diff {rel:.3e}, small fp32 model {small:.3e} (all bitwise: expect 0); "
+               f"launches per step {COUNT_LABEL_9} train_batch {launches['train_batch']} (expect {want_tb}), "
+               f"3-call {launches['three_call']} (expect {want_loop})")
+
+        # 8. save_16bit_model, read back with torch.load
+        reference.save_16bit_model(os.path.join(root, "w16"))
+        sd = torch.load(os.path.join(root, "w16", "model_weights.pt"))
+        params = reference.state["params"]
+        want = {"wte": params["wte"], "wpe": params["wpe"], "lnf_scale": params["lnf_scale"],
+                "lnf_bias": params["lnf_bias"], **{f"layers/{k}": v for k, v in params["layers"].items()}}
+        ok = (sorted(sd) == sorted(want) and all(sd[k].dtype == torch.bfloat16 for k in sd)
+              and all(torch.equal(sd[k], v.to(torch.bfloat16).cpu()) for k, v in want.items()))
+        _drill("8 save_16bit_model", ok, f"{len(sd)} bf16 tensors read back with torch.load, bitwise the "
+               "engine's bf16 cast")
+
+        # 9. the CSV monitor: one row per train_batch of the resumed engine
+        resumed.monitor.close()
+        rows = {f: open(os.path.join(csv_dir, "phase19", f)).read().splitlines()[1:]
+                for f in sorted(os.listdir(os.path.join(csv_dir, "phase19")))}
+        ok = sorted(rows) == ["Train_Samples_lr.csv", "Train_Samples_train_loss.csv"] and all(
+            len(r) == 2 for r in rows.values())
+        _drill("9 CSV monitor", ok, f"{ {k: len(v) for k, v in rows.items()} } rows for 2 train_batch calls")
+        del resumed, clean
+
+        # timings: guardrail off vs on, 3-call loop vs train_batch
+        for e in (reference, guarded):
+            e.train_batch({"tokens": bs[0]})
+        out["step_ms_guardrail_off"] = _timed(lambda: reference.train_batch({"tokens": bs[0]}), TRAIN_STEPS)
+        out["step_ms_guardrail_on"] = _timed(lambda: guarded.train_batch({"tokens": bs[0]}), TRAIN_STEPS)
+        out["step_ms_three_call"] = _timed(lambda: three_call_step(reference, bs[0]), TRAIN_STEPS)
+        print(f"  [{smi}] step ms: guardrail off {out['step_ms_guardrail_off']:.1f}, on "
+              f"{out['step_ms_guardrail_on']:.1f}; 3-call loop {out['step_ms_three_call']:.1f} vs train_batch "
+              f"{out['step_ms_guardrail_off']:.1f}; JIT checkpoint {jit_s:.2f} s; save blocks the caller: sync "
+              f"{out['sync_save_blocks_s']:.2f} s, async {out['async_save_blocks_s']:.3f} s (+ commit "
+              f"{out['async_commit_s']:.2f} s)")
+        del guarded, reference
+    finally:
+        deactivate_guard()  # SIGTERM is the default's again
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["card"] = smi
+    print(json.dumps({"resilience": out}))
+    return out
+
+
 def profile(label, fn, out_dir):
     """Trace ``fn`` with torch.profiler: device busy share of the wall time
     and device time by kernel name. Writes the Chrome trace into ``out_dir``."""
@@ -2175,6 +2455,10 @@ def main() -> int:
     serving_launches = serve_engine_phase(dev, smi, args.profile)
     torch.cuda.empty_cache()
 
+    print("[19] training resilience at GPT-2-125M width: NaN skip, rewind, preemption, write faults, async "
+          "save, the 3-call loop, save_16bit_model, the CSV monitor")
+    resilience = resilience_phase(dev, smi)
+
     kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
@@ -2204,6 +2488,7 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library_ratio": t["library_ratio"],
             **{k: t[k] for k in ("library_fwd_bwd_less_fwd_ms", "library_fwd_bwd_less_fwd_ratio") if k in t},
+            "resilience_launches": resilience["launches"][list(replaces).index(name)],
             "hgmma": sass.get(MAIN_PATH_KERNEL[name], {}).get("hgmma", 0),
             "registers": sass.get(MAIN_PATH_KERNEL[name], {}).get("registers"),
             "spill_stores": sass.get(MAIN_PATH_KERNEL[name], {}).get("spill_stores"),
@@ -2229,6 +2514,10 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "cublas_logits_ms": t["cublas_logits_ms"],
         }
+        r19 = resilience["launches"]
+        entry["resilience_launches"] = (
+            {"product": r19[4], "combine": r19[5]} if name == "fused_xent_forward"
+            else {"ds": r19[6], "dH" if name == "fused_xent_backward_dh" else "dW": r19[8 if name.endswith("dh") else 7]})
         if name == "fused_xent_forward":
             fwd = xent_sass[XENT_MAIN_PATH["fwd"]]
             entry.update(

@@ -3,4 +3,9 @@ from .saver import (  # noqa: F401
     load_checkpoint,
     save_checkpoint,
 )
+from .universal import (  # noqa: F401
+    inspect_checkpoint,
+    merge_checkpoint,
+    reshape_checkpoint,
+)
 from .zero_to_fp32 import get_fp32_state_dict_from_checkpoint  # noqa: F401

@@ -625,14 +625,15 @@ def _cache_writer(pos, write_pos, B: int, T: int, Smax: int, device):
     Scalar ``pos``: the block lands at [pos, pos+T), its start clamped to
     [0, Smax-T] (``lax.dynamic_update_slice``). Per-row ``pos``: row b's
     block lands at [write_pos[b], +T) (``write_pos`` defaults to ``pos``),
-    and entries outside [0, Smax) are dropped, as the JAX scatter with
-    ``mode="drop"`` drops them: the serving contract passes
-    ``write_pos = Smax`` for idle rows so their write goes nowhere. The drop
-    is one gather and one scatter per call with no host sync: a dropped
-    entry writes back the value already at a position its row does not
-    write (past the end it folds back by T, below the row's first write;
-    before the start forward by T, past its last), so every index of the
-    scatter is distinct and the write is exact. Under CUDA graph capture
+    and its indices follow the JAX scatter with ``mode="drop"``: an index in
+    [-Smax, -1] wraps to Smax + i, and one at or past Smax, or below -Smax,
+    is dropped. The serving contract passes ``write_pos = Smax`` for idle
+    rows so their write goes nowhere. The drop is one gather and one
+    scatter per call with no host sync: every entry lands at its index
+    modulo Smax, where a dropped entry writes back the value already there.
+    A row's T <= Smax indices are consecutive, so their residues are
+    distinct and a dropped entry never lands where its row writes: the
+    write is exact for any ``write_pos``. Under CUDA graph capture
     ``write_pos`` must already be a device tensor."""
     if T > Smax:
         raise ValueError(f"{T} new tokens do not fit a cache of length {Smax}")
@@ -647,8 +648,8 @@ def _cache_writer(pos, write_pos, B: int, T: int, Smax: int, device):
 
     wp = pos if write_pos is None else _on_device(write_pos, device)
     idx = wp.long()[:, None] + torch.arange(T, device=device)[None, :]  # [B, T]
-    valid = ((idx >= 0) & (idx < Smax))[:, :, None, None]
-    target = torch.where(idx >= Smax, idx - T, torch.where(idx < 0, idx + T, idx))
+    valid = ((idx >= -Smax) & (idx < Smax))[:, :, None, None]
+    target = torch.remainder(idx, Smax)
     rows = torch.arange(B, device=device)[:, None].expand(B, T)
 
     def write(c, new):

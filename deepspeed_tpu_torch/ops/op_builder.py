@@ -76,7 +76,8 @@ def build_many(names) -> dict[str, Path]:
         for line in PTXAS_INFO[name]:
             if "registers" in line or "spill" in line:
                 logger.info(f"{name}: {line}")
-        os.replace(tmp, lib)  # atomic: a concurrent builder never loads a partial file
+        # dstpu: allow[rename-durability] -- a build cache, not durable state: the rename only keeps a concurrent builder from loading a partial file, and a library lost to a crash is rebuilt at its next load
+        os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: _library(name)[1] for name in names}

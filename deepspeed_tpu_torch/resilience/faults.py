@@ -1,22 +1,36 @@
-"""Deterministic, config-selected fault injection (the serving part of
-``deepspeed_tpu/resilience/faults.py``, which imports no jax).
+"""Deterministic, config-selected fault injection (the training, checkpoint
+and serving sites of ``deepspeed_tpu/resilience/faults.py``, which imports
+no jax).
 
 A seeded injector whose every decision is a pure function of
 ``(seed, site, key)``: two runs with the same config inject the same faults
-at the same sites, so a recovery test is reproducible and a greedy-parity
-comparison against an unfaulted run is meaningful. The port has the
-``garbage_logits`` site: NaN logits for a chosen request. The serving engine
-poisons the request's slot KV, so the next program attending to it
-genuinely computes non-finite logits, and the per-slot sentinel computed on
-the device must catch it. The JAX package's other sites (training,
-checkpoint writes, the fleet's RPC, router and gateway) wait for the port
-of those paths.
+at the same sites, so a recovery test is reproducible and a comparison
+against an unfaulted run is meaningful. Sites:
+
+  ``nan_grads``       non-finite loss and gradients at a chosen training
+                      step: the engine sets the loss scale to +inf for that
+                      step, so the values come out non-finite inside the
+                      step and its update is skipped on the device.
+  ``io_error``        ``PermanentIOError`` on the Nth guarded checkpoint
+                      write (``checkpoint/saver.py`` consults the installed
+                      injector before each file write).
+  ``io_flaky``        ``TransientIOError`` on the Nth guarded write: the
+                      write clock keeps advancing, so a retried save lands
+                      on fresh write numbers and succeeds.
+  ``garbage_logits``  NaN logits for a chosen request: the serving engine
+                      poisons the request's slot KV, so the next program
+                      attending to it computes non-finite logits.
+  ``preempt``         simulated preemption before a chosen training step.
+
+The fleet's sites (router replicas, RPC, the HTTP gateway, the control
+plane, the request journal) wait for the port of the fleet.
 
 Two selection modes compose:
 
-  * **deterministic lists** (``garbage_logits_uids`` + phase/step) fire
-    exactly once per listed key: a requeued request is NOT re-faulted,
-    modelling a transient fault rather than a permanent one;
+  * **deterministic lists** (``nan_grad_steps``, ``io_error_writes``,
+    ``io_flaky_writes``, ``garbage_logits_uids`` + phase/step,
+    ``preempt_steps``) fire exactly once per listed key: a rewound step or
+    a requeued request is NOT re-faulted, modelling a transient fault;
   * **rate mode** (``rate`` in (0, 1], optionally restricted by ``sites``)
     draws per opportunity from a crc32 hash of ``(seed, site,
     #opportunity)`` — deterministic across runs, independent across
@@ -28,7 +42,9 @@ from __future__ import annotations
 import threading
 import zlib
 from collections import Counter
-from typing import Any
+from typing import Any, Optional
+
+from .errors import PermanentIOError, TransientIOError
 
 
 def _get(cfg: Any, name: str, default):
@@ -47,9 +63,14 @@ class FaultInjector:
         self.seed = int(_get(cfg, "seed", 0))
         self.rate = float(_get(cfg, "rate", 0.0))
         self.sites = set(_get(cfg, "sites", []) or [])
+        self.nan_grad_steps = set(_get(cfg, "nan_grad_steps", []) or [])
+        self.io_error_writes = set(_get(cfg, "io_error_writes", []) or [])
+        self.io_flaky_writes = set(_get(cfg, "io_flaky_writes", []) or [])
+        self.preempt_steps = set(_get(cfg, "preempt_steps", []) or [])
         self.garbage_logits_uids = set(_get(cfg, "garbage_logits_uids", []) or [])
         self.garbage_logits_phase = str(_get(cfg, "garbage_logits_phase", "decode"))
         self.garbage_logits_decode_step = int(_get(cfg, "garbage_logits_decode_step", 0))
+        self._writes = 0  # guarded-write clock (io_error and io_flaky)
         self._fired: set = set()  # list-mode keys fire exactly once
         self._lock = threading.Lock()
         self.injected: Counter = Counter()
@@ -80,6 +101,36 @@ class FaultInjector:
                 self.injected[site] += 1
             return hit
 
+    def nan_grads(self, step: int) -> bool:
+        """True if the training step about to run (1-based global step)
+        should see non-finite gradients."""
+        if not self.enabled:
+            return False
+        return self._fire("nan_grads", step in self.nan_grad_steps, step)
+
+    def io_error(self, path: str) -> None:
+        """Guarded-write hook: advances the shared write clock and raises
+        ``PermanentIOError`` when this write is armed for ``io_error``, or
+        ``TransientIOError`` for ``io_flaky`` (1-based indices; a retry of a
+        failed save advances the clock past the armed index, which is what
+        makes the flaky site transient)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._writes += 1
+            n = self._writes
+        if self._fire("io_error", n in self.io_error_writes, n):
+            raise PermanentIOError(f"fault injection: io_error on guarded write #{n} ({path})")
+        if self._fire("io_flaky", n in self.io_flaky_writes, n):
+            raise TransientIOError(f"fault injection: io_flaky (transient) on guarded write #{n} ({path})")
+
+    def preempt(self, step: int) -> bool:
+        """True if a preemption should fire before running ``step``
+        (1-based global step)."""
+        if not self.enabled:
+            return False
+        return self._fire("preempt", step in self.preempt_steps, step)
+
     def garbage_logits(self, uid: int, phase: str, decode_step: int = 0) -> bool:
         """True if request ``uid`` should produce NaN logits now. ``phase``
         is ``prefill`` (at admission completion) or ``decode`` with the
@@ -94,4 +145,34 @@ class FaultInjector:
         return self._fire("garbage_logits", listed, (uid, phase, decode_step))
 
     def stats(self) -> dict:
-        return {"injected": dict(self.injected), "opportunities": dict(self.opportunities)}
+        return {"injected": dict(self.injected), "opportunities": dict(self.opportunities),
+                "guarded_writes": self._writes}
+
+
+# -- process-global injector -------------------------------------------
+# checkpoint/saver.py's free functions have no engine handle to thread an
+# injector through; they consult this slot instead. The training engine
+# installs its injector (or None) at init; tests install/clear around
+# save/load calls.
+
+_installed: Optional[FaultInjector] = None
+
+
+def install_injector(inj: Optional[FaultInjector]) -> None:
+    global _installed
+    _installed = inj
+
+
+def clear_injector() -> None:
+    install_injector(None)
+
+
+def get_injector() -> Optional[FaultInjector]:
+    return _installed
+
+
+def maybe_io_error(path: str) -> None:
+    """Guarded-write hook for code without an injector reference (no-op
+    unless an enabled injector is installed)."""
+    if _installed is not None:
+        _installed.io_error(path)

@@ -8,19 +8,25 @@ the same way, as do ``activation_checkpointing``, ``checkpoint``,
 ``sparse_attention`` (turned into the model's ``attn_impl="sparse"`` by the
 engine), ``curriculum_learning`` and ``dataloader_drop_last``. The port
 runs on one device, so the world size is 1 and a ``mesh`` axis above 1 is
-refused. Blocks that belong to paths not ported yet
-raise ``NotImplementedError`` when enabled, naming the block: among them
-the monitor and logging blocks (``csv_monitor``, ``tensorboard``,
-``wandb``, ``comms_logger``, and the flags ``wall_clock_breakdown``,
-``memory_breakdown`` and ``dump_state`` set to true), which the port would
-otherwise accept and ignore; ZeRO stages 0-3 are accepted, since on one
-device they are the same arithmetic.
+refused. ``resilience`` (the NaN guardrail, preemption, checkpoint-save
+retries and the training fault sites), ``csv_monitor``, the training
+fields of ``telemetry`` and ``checkpoint.async_save`` parse as in the JAX
+package. Blocks that belong to paths not ported yet raise
+``NotImplementedError`` when enabled, naming the block: among them the
+monitor and logging blocks (``tensorboard``, ``wandb``, ``comms_logger``,
+and the flags ``wall_clock_breakdown``, ``memory_breakdown`` and
+``dump_state`` set to true), which the port would otherwise accept and
+ignore, the telemetry ``ledger`` (on by default in the JAX package: a
+``telemetry`` block must pass ``"ledger": {"enabled": false}``), its
+flight-recorder blocks, and the fleet's fault sites; ZeRO stages 0-3 are
+accepted, since on one device they are the same arithmetic.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import signal as _signal
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -123,9 +129,12 @@ class ActivationCheckpointingConfig:
 @dataclass
 class CheckpointConfig:
     """The ``checkpoint`` block. ``keep_last_k > 0`` prunes older tags after
-    each save (the 'latest'-pointed tag and the newest save are always
-    kept); 0 keeps all. ``verify_integrity=False`` skips the digest pass on
-    load. ``async_save`` and a non-native ``engine`` are not ported."""
+    each save (the 'latest'-pointed tag, the newest save and the guardrail's
+    rewind target are always kept); 0 keeps all. ``verify_integrity=False``
+    skips the digest pass on load. ``async_save`` snapshots the state to
+    host memory inside ``save_checkpoint`` and writes the files on a
+    background thread, finished by the next save, a load or
+    ``checkpoint_engine.commit()``. A non-native ``engine`` is not ported."""
 
     engine: Optional[str] = None  # native (None = native)
     async_save: bool = False
@@ -212,14 +221,25 @@ _FAULT_SITES = {"nan_grads", "io_error", "io_flaky", "garbage_logits", "preempt"
                 "rpc_garbled_frame", "gateway_disconnect", "gateway_stall", "router_crash"}
 
 
+_FLEET_FAULT_SITES = {"replica_dead", "replica_hang", "rpc_timeout", "rpc_conn_reset", "rpc_garbled_frame",
+                      "gateway_disconnect", "gateway_stall", "router_crash"}
+_FLEET_FAULT_KEYS = ("io_error_journal_appends", "replica_dead_at", "replica_hang_at", "rpc_timeout_at",
+                     "rpc_conn_reset_at", "rpc_garbled_at", "gateway_disconnect_at", "gateway_stall_at",
+                     "router_crash_at")
+
+
 @dataclass
 class FaultInjectionConfig:
-    """``serving.fault_injection`` (and ``resilience.fault_injection``):
+    """``serving.fault_injection`` and ``resilience.fault_injection``:
     deterministic faults (``resilience/faults.FaultInjector``). The port's
     serving engine consumes ``garbage_logits_uids`` (+ ``_phase``
     ``prefill|decode`` and the 0-based ``_decode_step``) and ``rate`` /
-    ``sites``; the other lists belong to sites the port has not got yet and
-    are parsed so that one config serves both packages."""
+    ``sites``; the training engine ``nan_grad_steps`` and ``preempt_steps``
+    (1-based global steps) and the checkpoint writer ``io_error_writes``
+    and ``io_flaky_writes`` (1-based guarded writes, permanent and
+    transient). The fleet's lists parse so that one config serves both
+    packages; the training engine refuses them by name
+    (``check_ported``) until the fleet is ported."""
 
     enabled: bool = False
     seed: int = 0
@@ -276,6 +296,19 @@ class FaultInjectionConfig:
                 raise DeepSpeedConfigError(
                     f"fault_injection.io_error_journal_appends entries must "
                     f"be 1-based append indices (positive ints), got {s!r}")
+
+    def check_ported(self) -> None:
+        """The fleet's sites (router replicas, RPC, the HTTP gateway, the
+        control plane, the request journal) have no consumer in the port
+        yet: a key or ``sites`` entry that selects one raises, naming it."""
+        for name in _FLEET_FAULT_KEYS:
+            if getattr(self, name):
+                raise NotImplementedError(f"fault_injection.{name} (a fleet fault site) is not ported to "
+                                          "deepspeed_tpu_torch yet")
+        fleet = sorted(set(self.sites) & _FLEET_FAULT_SITES)
+        if fleet:
+            raise NotImplementedError(f"fault_injection.sites {fleet} (fleet fault sites) are not ported to "
+                                      "deepspeed_tpu_torch yet")
 
 
 @dataclass
@@ -391,10 +424,214 @@ class SpeculationConfig:
                 f"got {self.ngram_min_match}")
 
 
+# ---------------------------------------------------------------------------
+# The training engine's resilience, monitor and telemetry blocks (the JAX
+# package's dataclasses, with their defaults and validation errors)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PreemptionConfig:
+    """``resilience.preemption``: ``enabled`` installs handlers for
+    ``signals`` at engine init; the flag they set is consumed at the next
+    step boundary, where the engine takes a just-in-time atomic checkpoint
+    under ``save_dir``/``tag`` (none without ``save_dir``: the caller
+    saves) and raises ``PreemptionSignal``."""
+
+    enabled: bool = False
+    save_dir: str = ""
+    tag: str = "preempt"
+    signals: list = field(default_factory=lambda: ["SIGTERM", "SIGINT"])
+
+    def __post_init__(self):
+        if not self.tag or "/" in self.tag:
+            raise DeepSpeedConfigError(
+                f"resilience.preemption.tag must be a plain tag name, got "
+                f"{self.tag!r}")
+        for name in self.signals:
+            if not isinstance(name, str) or not name.startswith("SIG"):
+                raise DeepSpeedConfigError(
+                    f"resilience.preemption.signals entries must be signal "
+                    f"names like 'SIGTERM', got {name!r}")
+            if not hasattr(_signal, name):
+                raise DeepSpeedConfigError(
+                    f"resilience.preemption.signals: unknown signal {name!r}")
+            if name in ("SIGKILL", "SIGSTOP"):
+                raise DeepSpeedConfigError(
+                    f"resilience.preemption.signals: {name} cannot be "
+                    "caught; a handler can never run for it")
+
+
+@dataclass
+class RetryConfig:
+    """``resilience.retry``: ``max_attempts`` tries of a synchronous
+    checkpoint save; delays ``base_delay_s * 2**(attempt-1)`` capped at
+    ``max_delay_s``, spread by +/- ``jitter`` with a seeded draw."""
+
+    max_attempts: int = 3
+    base_delay_s: float = 0.5
+    max_delay_s: float = 8.0
+    jitter: float = 0.25
+
+    def __post_init__(self):
+        if self.max_attempts < 1:
+            raise DeepSpeedConfigError(
+                f"resilience.retry.max_attempts must be >= 1, got "
+                f"{self.max_attempts}")
+        if self.base_delay_s < 0 or self.max_delay_s < 0:
+            raise DeepSpeedConfigError("resilience.retry delays must be >= 0")
+        if not 0.0 <= self.jitter <= 1.0:
+            raise DeepSpeedConfigError(
+                f"resilience.retry.jitter must be in [0, 1], got {self.jitter}")
+
+
+@dataclass
+class ChaosConfig:
+    """``resilience.chaos``: the fleet's seeded fault-schedule search. It
+    parses, so one config serves both packages; the port has no search to
+    run until the fleet is ported."""
+
+    n_schedules: int = 64
+    seed: int = 0
+    max_faults: int = 4
+    artifact_dir: str = "chaos-repros"
+    shrink: bool = True
+
+    def __post_init__(self):
+        if self.n_schedules < 1:
+            raise DeepSpeedConfigError(
+                f"resilience.chaos.n_schedules must be >= 1, got "
+                f"{self.n_schedules}")
+        if self.max_faults < 1:
+            raise DeepSpeedConfigError(
+                f"resilience.chaos.max_faults must be >= 1, got "
+                f"{self.max_faults}")
+        if not self.artifact_dir:
+            raise DeepSpeedConfigError(
+                "resilience.chaos.artifact_dir must be a non-empty path")
+
+
+@dataclass
+class ResilienceConfig:
+    """The ``resilience`` block. ``enabled`` arms the host-side NaN
+    guardrail: one fetch of the step's overflow flag per step (the step
+    itself always skips a non-finite update on the device), skip ->
+    rewind to the last good checkpoint after ``max_consecutive_bad_steps``
+    -> ``TrainingDivergedError`` with no rewind target; it also wraps
+    synchronous saves in ``retry``. ``preemption`` and ``fault_injection``
+    work without it."""
+
+    enabled: bool = False
+    max_consecutive_bad_steps: int = 3
+    rewind: bool = True
+    preemption: PreemptionConfig = field(default_factory=PreemptionConfig)
+    retry: RetryConfig = field(default_factory=RetryConfig)
+    fault_injection: FaultInjectionConfig = field(default_factory=FaultInjectionConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+
+    def __post_init__(self):
+        if isinstance(self.preemption, dict):
+            self.preemption = _build(PreemptionConfig, self.preemption)
+        if isinstance(self.retry, dict):
+            self.retry = _build(RetryConfig, self.retry)
+        if isinstance(self.fault_injection, dict):
+            self.fault_injection = _build(FaultInjectionConfig, self.fault_injection)
+        if isinstance(self.chaos, dict):
+            self.chaos = _build(ChaosConfig, self.chaos)
+        if self.max_consecutive_bad_steps < 1:
+            raise DeepSpeedConfigError(
+                "resilience.max_consecutive_bad_steps must be >= 1, got "
+                f"{self.max_consecutive_bad_steps}")
+
+
+@dataclass
+class MonitorBackendConfig:
+    """``csv_monitor`` (and the refused ``tensorboard``/``wandb``): one CSV
+    per tag under ``output_path``/``job_name`` (``monitor/monitor.py``)."""
+
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+    team: str = ""
+    group: str = ""
+    project: str = "deepspeed"
+
+
+@dataclass
+class LedgerConfig:
+    """``telemetry.ledger``: the JAX package's program ledger, on there by
+    default. The port has none, so a ``telemetry`` block must turn it off;
+    ``hbm_warn_fraction`` sets the HBM-pool section's warning."""
+
+    enabled: bool = True
+    hbm_warn_fraction: float = 0.9
+    collectives: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        if not (0.0 < self.hbm_warn_fraction <= 1.0):
+            raise DeepSpeedConfigError(
+                f"telemetry.ledger.hbm_warn_fraction must be in (0, 1], "
+                f"got {self.hbm_warn_fraction}")
+
+
+@dataclass
+class TelemetryConfig:
+    """The training fields of ``telemetry``. The registry (the step-time
+    histogram, the ``train/*`` and ``resilience/*`` metrics) always runs;
+    ``enabled`` turns on the exporters: the JSONL sink at ``jsonl_path``
+    (rotated at ``jsonl_max_bytes``, ``jsonl_keep`` files kept) and, with
+    ``monitor_bridge`` and a monitor on, the registry pushed into the
+    monitor at each print boundary. ``device_sync_spans`` makes the step
+    span wait for the step's loss. ``request_trace`` belongs to serving.
+    The ledger and the flight-recorder blocks (``timeseries``, ``slo``,
+    ``incidents``) are not ported and raise when on."""
+
+    enabled: bool = False
+    jsonl_path: str = ""
+    jsonl_max_bytes: int = 0
+    jsonl_keep: int = 3
+    watchdog: str = "warn"
+    device_sync_spans: bool = False
+    monitor_bridge: bool = True
+    ledger: LedgerConfig = field(default_factory=LedgerConfig)
+    request_trace: RequestTraceConfig = field(default_factory=RequestTraceConfig)
+    timeseries: dict = field(default_factory=dict)
+    slo: dict = field(default_factory=dict)
+    incidents: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        if isinstance(self.ledger, dict):
+            self.ledger = _build(LedgerConfig, self.ledger)
+        if isinstance(self.request_trace, dict):
+            self.request_trace = _build(RequestTraceConfig, self.request_trace)
+        if self.watchdog not in ("off", "warn", "raise"):
+            raise DeepSpeedConfigError(
+                f"telemetry.watchdog must be off|warn|raise, got {self.watchdog!r}")
+        if self.jsonl_max_bytes < 0:
+            raise DeepSpeedConfigError(
+                f"telemetry.jsonl_max_bytes must be >= 0, "
+                f"got {self.jsonl_max_bytes}")
+        if self.jsonl_keep < 1:
+            raise DeepSpeedConfigError(
+                f"telemetry.jsonl_keep must be >= 1, got {self.jsonl_keep}")
+
+    def check_ported(self) -> None:
+        """The program ledger (default on), its collective X-ray and the
+        flight-recorder blocks raise, naming themselves."""
+        if self.ledger.enabled:
+            raise NotImplementedError(
+                "telemetry.ledger (the program ledger, on by default) is not ported to deepspeed_tpu_torch "
+                "yet; pass {'ledger': {'enabled': False}} in the telemetry block")
+        if self.ledger.collectives.get("enabled", False):
+            raise NotImplementedError("telemetry.ledger.collectives is not ported to deepspeed_tpu_torch yet")
+        for name in ("timeseries", "slo", "incidents"):
+            if getattr(self, name).get("enabled", False):
+                raise NotImplementedError(f"telemetry.{name} is not ported to deepspeed_tpu_torch yet")
+
+
 # Blocks whose ``enabled`` flag selects a path the port does not have yet,
-# and top-level flags that do so when true (monitor/ is not ported).
-_UNPORTED_BLOCKS = (C.FLOPS_PROFILER, "eigenvalue", C.RESILIENCE, C.TELEMETRY, C.ELASTICITY,
-                    C.MONITOR_CSV, C.MONITOR_TENSORBOARD, C.MONITOR_WANDB, C.COMMS_LOGGER)
+# and top-level flags that do so when true.
+_UNPORTED_BLOCKS = (C.FLOPS_PROFILER, "eigenvalue", C.ELASTICITY, C.MONITOR_TENSORBOARD, C.MONITOR_WANDB,
+                    C.COMMS_LOGGER)
 _UNPORTED_FLAGS = (C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN, C.DUMP_STATE)
 
 
@@ -421,6 +658,9 @@ class DeepSpeedConfig:
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     curriculum_learning: CurriculumConfig = field(default_factory=CurriculumConfig)
     sparse_attention: Optional[SparseAttentionConfig] = None
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    csv_monitor: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
 
     raw: dict = field(default_factory=dict, repr=False)
 
@@ -453,6 +693,9 @@ class DeepSpeedConfig:
             curriculum_learning=_build(CurriculumConfig, _sub(d, C.CURRICULUM_LEARNING)),
             sparse_attention=(_build(SparseAttentionConfig, d[C.SPARSE_ATTENTION])
                               if d.get(C.SPARSE_ATTENTION) else None),
+            resilience=_build(ResilienceConfig, _sub(d, C.RESILIENCE)),
+            csv_monitor=_build(MonitorBackendConfig, _sub(d, C.MONITOR_CSV)),
+            telemetry=_build(TelemetryConfig, _sub(d, C.TELEMETRY)),
             raw=d,
         )
         cfg._triangulate_batch(world_size)
@@ -502,8 +745,9 @@ class DeepSpeedConfig:
                 f"optimizer {self.optimizer.type!r} (the 1-bit family) is not ported to "
                 "deepspeed_tpu_torch yet")
         self.activation_checkpointing.check_ported()
-        if self.checkpoint.async_save:
-            raise NotImplementedError("checkpoint.async_save is not ported to deepspeed_tpu_torch yet")
+        self.resilience.fault_injection.check_ported()
+        if C.TELEMETRY in self.raw:  # the JAX defaults hold a ledger the port has not got
+            self.telemetry.check_ported()
         if self.checkpoint.engine not in (None, "native"):
             raise NotImplementedError(f"checkpoint.engine {self.checkpoint.engine!r} is not ported to "
                                       "deepspeed_tpu_torch (native only)")

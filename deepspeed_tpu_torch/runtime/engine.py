@@ -9,7 +9,11 @@ and applied by the optimizer at ``lr(step+1)``. On overflow the update is
 dropped on the device: params and optimizer state are unchanged and ``step``
 does not advance. fp16 runs the dynamic loss scale with hysteresis. The
 metrics come back as device tensors; nothing is read on the host except at
-``steps_per_print`` boundaries.
+``steps_per_print`` boundaries (every step with a monitor or the guardrail
+on). DeepSpeed's 3-call loop ``loss = engine(micro_batch)`` →
+``engine.backward(loss)`` → ``engine.step()`` runs the same update
+(``_apply_update``) at every ``gas``-th ``step()``; ``forward`` evaluates
+without dropout and ``backward`` recomputes with it.
 
 The state is the fp32 master parameters (cast to the compute dtype inside the
 loss), the optimizer state, and the 0-d device tensors ``step``,
@@ -23,7 +27,16 @@ with the mode's ``sparsity`` fields). ``curriculum_learning`` truncates each
 batch to the scheduled sequence length. ``deepspeed_io`` builds the
 training dataloader, whose cursor at the last completed step rides the
 checkpoint with the curriculum's state, in the JAX engine's client-state
-keys. The 3-call ``forward/backward/step`` loop is not ported yet.
+keys.
+
+Resilience (the ``resilience`` block, ``resilience/``): the NaN guardrail
+(skip → rewind to the last good checkpoint → ``TrainingDivergedError``),
+preemption by signal or injection (a just-in-time checkpoint, then
+``PreemptionSignal``), retried synchronous saves, the training fault sites,
+and ``checkpoint.async_save``. ``csv_monitor`` receives the loss and lr
+each step and, with ``telemetry.enabled``, the registry at print
+boundaries; ``telemetry_snapshot()`` reports the registry and the
+device-memory pools.
 """
 
 from __future__ import annotations
@@ -41,11 +54,17 @@ import torch
 from ..checkpoint import saver, zero_to_fp32
 from ..inference.engine import resolve_device
 from ..models.transformer import effective_loss_impl
+from ..monitor.monitor import MonitorMaster
 from ..ops.optimizers import get_optimizer, tree_leaves, tree_map
 from ..ops.sparse_attention import SPARSITY_CONFIGS
-from ..resilience.errors import CheckpointCorruptError, CheckpointNotFoundError
+from ..resilience import (CheckpointCorruptError, CheckpointNotFoundError, FaultInjector, PermanentIOError,
+                          PreemptionSignal, TrainingDivergedError, TrainingGuardrail, install_injector,
+                          retry_call)
+from ..resilience.preemption import PreemptionGuard, activate_guard, reap_orphaned_guard
+from ..telemetry import MonitorBridge, Telemetry, hbm_snapshot, tree_bytes
 from ..utils.logging import log_dist, logger
 from . import activation_checkpointing as act_ckpt
+from .checkpoint_engine.checkpoint_engine import get_checkpoint_engine
 from .config import DeepSpeedConfig
 from .data_pipeline.curriculum_scheduler import CurriculumScheduler
 from .dataloader import DeepSpeedDataLoader
@@ -104,6 +123,56 @@ class DeepSpeedEngine:
         self._dl_cursor = None  # the loader's cursor at the last COMPLETED step
         self._pending_dl_state = None  # a cursor loaded before any loader was attached
 
+        # telemetry: the registry always runs (host-side dict updates); the
+        # config gates the exporters, the JSONL sink and the monitor bridge
+        self.monitor = MonitorMaster(config)
+        tcfg = config.telemetry
+        self.telemetry = Telemetry(jsonl_path=tcfg.jsonl_path if tcfg.enabled else "",
+                                   watchdog_mode=tcfg.watchdog, device_sync_spans=tcfg.device_sync_spans,
+                                   jsonl_max_bytes=tcfg.jsonl_max_bytes, jsonl_keep=tcfg.jsonl_keep)
+        self._telemetry_bridge = (MonitorBridge(self.monitor)
+                                  if tcfg.enabled and tcfg.monitor_bridge and self.monitor.enabled else None)
+        self._last_seen_loss_scale = None  # boundary-sampled flip detection
+
+        # resilience: the step always skips a non-finite update on the
+        # device; the guardrail adds streak tracking and rewind at the cost
+        # of one fetch of the overflow flag per step
+        rcfg = config.resilience
+        self.fault_injector = FaultInjector(rcfg.fault_injection) if rcfg.fault_injection.enabled else None
+        if self.fault_injector is not None:
+            log_dist(f"resilience: fault injection armed (seed {rcfg.fault_injection.seed}, "
+                     f"rate {rcfg.fault_injection.rate})", ranks=[0])
+        # the checkpoint writer consults the process-global slot: always
+        # (re)install, so an earlier engine's injector cannot fail this
+        # engine's writes
+        install_injector(self.fault_injector)
+        self._guardrail = (TrainingGuardrail(rcfg.max_consecutive_bad_steps, rcfg.rewind, self.telemetry)
+                           if rcfg.enabled else None)
+        if self._guardrail is not None:
+            log_dist(f"resilience: NaN guardrail on (skip, rewind after {rcfg.max_consecutive_bad_steps} "
+                     "consecutive bad steps; one overflow fetch per step)", ranks=[0])
+        self._injected_scale = None  # the loss scale a nan_grads injection replaced
+        self._preemption_guard = None
+        if rcfg.preemption.enabled:
+            self._preemption_guard = PreemptionGuard(rcfg.preemption.signals)
+            # the process-global slot: claiming it evicts a discarded
+            # predecessor's handlers, which would swallow the signals
+            live = activate_guard(self._preemption_guard, owner=self)
+            log_dist("resilience: preemption guard armed "
+                     f"({'+'.join(rcfg.preemption.signals)}"
+                     f"{'' if live else '; trigger()-only, handlers unavailable off the main thread'}"
+                     + (f"; JIT checkpoint -> {rcfg.preemption.save_dir}" if rcfg.preemption.save_dir
+                        else "; no save_dir: the caller saves") + ")", ranks=[0])
+        else:
+            reap_orphaned_guard()  # a live sibling's guard stays armed
+        self._ckpt_engine = None
+        self._ckpt_async = bool(config.checkpoint.async_save)
+        # the 3-call loop's accumulation: the leaves whose .grad collect the
+        # micro-batches, how many have been added, the last forward's batch
+        self._accum = None
+        self._micro_count = 0
+        self._last_batch = None
+
         pld = config.progressive_layer_drop
         if pld.enabled and not model.config.pld_enabled:
             model.config = model.config.replace(pld_enabled=True, pld_theta=pld.theta, pld_gamma=pld.gamma)
@@ -151,6 +220,10 @@ class DeepSpeedEngine:
             "skipped": scalar(0, torch.int32),
             "hysteresis": scalar(fp16.hysteresis, torch.int32),
         }
+        # the host's mirror of state["step"], which keys the dropout stream:
+        # it does not advance on a step the host knows was skipped (an
+        # injected one, or any with the guardrail armed)
+        self._rng_step = 0
         n_params = sum(t.numel() for t in tree_leaves(params))
         log_dist(f"engine ready: {n_params / 1e6:.1f}M params, zero_stage={self.zero_stage}, "
                  f"device={self.device}, micro_bs={self.micro_batch_size}, "
@@ -167,10 +240,13 @@ class DeepSpeedEngine:
 
     def _generator(self, step1: int, micro: int) -> torch.Generator:
         """Dropout/layer-drop randomness for one micro-batch, seeded by
-        (seed, step, micro-batch) as the JAX engine folds the step into its
-        key and splits it over the micro-batches (other bits). The step is
-        the host's count of ``train_batch`` calls, so no device value is
-        read; it equals the device step while no step overflowed."""
+        (seed, step, micro-batch) as the JAX engine folds the device step
+        into its key and splits it over the micro-batches (other bits). The
+        step is ``_rng_step + 1``, the host's mirror of the device step, so
+        no device value is read. The mirror follows the device through a
+        skip the host knows of (injected, or seen by the armed guardrail);
+        an unguarded fp16 overflow advances it where the device step does
+        not (a known difference from the JAX engine)."""
         mixed = ((self._seed * 1_000_003 + step1) * 1_000_033 + micro) % (2 ** 63)
         return torch.Generator(device=self.device).manual_seed(mixed)
 
@@ -178,70 +254,256 @@ class DeepSpeedEngine:
         """One full (micro × gas) step on a batch of [train_batch_size, ...]
         leaves (numpy or torch) -> metrics dict of 0-d device tensors
         {loss, grad_norm, lr, loss_scale, overflow}."""
+        self._resilience_pre_step()
         gas = self.gradient_accumulation_steps
-        state = self.state
         if self.curriculum_scheduler is not None:
             batch = self._apply_curriculum(batch)
-        batch = {k: _to_device(v, self.device) for k, v in batch.items()}
-        for k, v in batch.items():
-            if v.shape[0] != self.train_batch_size:
-                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, train_batch_size is "
-                                 f"{self.train_batch_size}")
-        micro = {k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:]) for k, v in batch.items()}
-        step1 = state["step"] + 1
-        loss_scale = state["loss_scale"]
-        leaves = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), state["params"])
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i in range(gas):
-            mb = {k: v[i] for k, v in micro.items()}
-            kw = {}
-            if self._dropout_enabled:
-                kw = {"rng": self._generator(self.global_steps + 1, i), "step": step1}
-            loss = self.model.loss(self._cast(leaves), mb, **kw)
-            (loss * loss_scale).backward()
-            loss_sum = loss_sum + loss.detach().float()
-
-        with torch.no_grad():
-            grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p), leaves)
-            inv = 1.0 / (loss_scale * gas)
-            for g in tree_leaves(grads):
-                g.mul_(inv)
-            finite = torch.stack([torch.isfinite(g).all() for g in tree_leaves(grads)]).all()
-            gnorm = _global_norm(grads)
-            clip = self.config.gradient_clipping
-            if clip > 0:
-                factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-                for g in tree_leaves(grads):
-                    g.mul_(factor)
-            lr = self.lr_schedule(step1)
-            new_params, new_opt = self.opt_update(grads, state["opt"], state["params"], step1, lr)
-
-            def keep(new, old):
-                return torch.where(finite, new, old)
-
-            fp16 = self.config.fp16
-            if self.fp16_enabled and fp16.loss_scale == 0:
-                new_scale, good, hyst = _dynamic_loss_scale(
-                    finite, loss_scale, state["good_steps"], state["hysteresis"], fp16)
-            else:
-                new_scale, good, hyst = loss_scale, state["good_steps"], state["hysteresis"]
-            self.state = {
-                "step": torch.where(finite, step1, state["step"]),
-                "params": tree_map(keep, new_params, state["params"]),
-                "opt": tree_map(keep, new_opt, state["opt"]),
-                "loss_scale": new_scale,
-                "good_steps": good,
-                "skipped": state["skipped"] + (~finite).int(),
-                "hysteresis": hyst,
-            }
-        metrics = {"loss": loss_sum / gas, "grad_norm": gnorm, "lr": lr, "loss_scale": loss_scale,
-                   "overflow": ~finite}
+        with self.telemetry.span("train/train_batch") as sp:
+            dev_batch = {k: _to_device(v, self.device) for k, v in batch.items()}
+            for k, v in dev_batch.items():
+                if v.shape[0] != self.train_batch_size:
+                    raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, train_batch_size is "
+                                     f"{self.train_batch_size}")
+            micro = {k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:]) for k, v in dev_batch.items()}
+            leaves = self._grad_leaves()
+            loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+            for i in range(gas):
+                loss_sum = loss_sum + self._accumulate(leaves, {k: v[i] for k, v in micro.items()}, i)
+            metrics = {"loss": loss_sum / gas, **self._apply_update(leaves, gas)}
+            sp.set_sync(metrics["loss"])
         self.global_steps += 1
         self.global_samples += self.train_batch_size
+        need_host = self.global_steps % self.config.steps_per_print == 0 or self.monitor.enabled
         if self.global_steps % self.config.steps_per_print == 0:
             self._report_progress(metrics)
+        if self.monitor.enabled:
+            self.monitor.write_events([("Train/Samples/train_loss", float(metrics["loss"]), self.global_samples),
+                                       ("Train/Samples/lr", float(metrics["lr"]), self.global_samples)])
+        self._train_telemetry(batch, metrics if need_host else None, sp.dur_s)
+        self._resilience_post_step(metrics)
         self._snapshot_dl_cursor()
         return metrics
+
+    def _grad_leaves(self) -> dict:
+        """The fp32 master parameters as fresh autograd leaves, whose
+        ``.grad`` collects the micro-batches' gradients."""
+        return tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), self.state["params"])
+
+    def _accumulate(self, leaves, mb: dict, micro: int) -> torch.Tensor:
+        """Forward and backward of one micro-batch (with dropout): the
+        gradients of ``loss × loss_scale`` add into ``leaves``' ``.grad``.
+        Returns the detached fp32 loss."""
+        kw = {}
+        if self._dropout_enabled:
+            kw = {"rng": self._generator(self._rng_step + 1, micro), "step": self.state["step"] + 1}
+        loss = self.model.loss(self._cast(leaves), mb, **kw)
+        (loss * self.state["loss_scale"]).backward()
+        return loss.detach().float()
+
+    @torch.no_grad()
+    def _apply_update(self, leaves, n_micro: int) -> dict:
+        """The step's update from the gradients in ``leaves``: unscale by
+        ``1/(loss_scale·n_micro)``, check finiteness, clip, apply the
+        optimizer at ``lr(step+1)`` and keep the old state where the
+        gradients were not finite; the loss scale follows its rule.
+        Replaces ``self.state``; returns {grad_norm, lr, loss_scale,
+        overflow} as device tensors."""
+        state = self.state
+        step1 = state["step"] + 1
+        loss_scale = state["loss_scale"]
+        grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p), leaves)
+        inv = 1.0 / (loss_scale * n_micro)
+        for g in tree_leaves(grads):
+            g.mul_(inv)
+        finite = torch.stack([torch.isfinite(g).all() for g in tree_leaves(grads)]).all()
+        gnorm = _global_norm(grads)
+        clip = self.config.gradient_clipping
+        if clip > 0:
+            factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
+            for g in tree_leaves(grads):
+                g.mul_(factor)
+        lr = self.lr_schedule(step1)
+        new_params, new_opt = self.opt_update(grads, state["opt"], state["params"], step1, lr)
+
+        def keep(new, old):
+            return torch.where(finite, new, old)
+
+        fp16 = self.config.fp16
+        if self.fp16_enabled and fp16.loss_scale == 0:
+            new_scale, good, hyst = _dynamic_loss_scale(
+                finite, loss_scale, state["good_steps"], state["hysteresis"], fp16)
+        else:
+            new_scale, good, hyst = loss_scale, state["good_steps"], state["hysteresis"]
+        self.state = {
+            "step": torch.where(finite, step1, state["step"]),
+            "params": tree_map(keep, new_params, state["params"]),
+            "opt": tree_map(keep, new_opt, state["opt"]),
+            "loss_scale": new_scale,
+            "good_steps": good,
+            "skipped": state["skipped"] + (~finite).int(),
+            "hysteresis": hyst,
+        }
+        return {"grad_norm": gnorm, "lr": lr, "loss_scale": loss_scale, "overflow": ~finite}
+
+    # ------------------------------------------------------------------
+    # The 3-call loop: forward / backward / step (JAX engine.py:1965-2087)
+    # ------------------------------------------------------------------
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """The loss of one micro-batch of [micro_batch_size, ...] leaves,
+        without dropout or a gradient (a 0-d device tensor). The batch is
+        kept for ``backward``."""
+        self._last_batch = {k: _to_device(v, self.device) for k, v in batch.items()}
+        with torch.no_grad():
+            return self.model.loss(self._cast(self.state["params"]), self._last_batch)
+
+    __call__ = forward
+
+    def backward(self, loss=None) -> None:
+        """Accumulate fp32 gradients for the batch last passed to
+        ``forward``: its loss is recomputed with dropout (``loss`` is not
+        differentiated; it may be None)."""
+        if self._last_batch is None:
+            raise RuntimeError("backward() needs a forward() first")
+        if self._accum is None:
+            self._accum = self._grad_leaves()
+        self._accumulate(self._accum, self._last_batch, self._micro_count)
+        self._micro_count += 1
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self._micro_count >= self.gradient_accumulation_steps
+
+    def step(self) -> None:
+        """Apply the accumulated gradients once ``gas`` micro-batches went
+        through ``backward``; before that a no-op, as DeepSpeed's GAS gate."""
+        if self._micro_count < self.gradient_accumulation_steps:
+            return
+        self._apply_update(self._accum, self._micro_count)
+        self._accum = None
+        self._micro_count = 0
+        self.global_steps += 1
+        self._rng_step += 1  # assumed finite: this loop fetches nothing
+
+    # ------------------------------------------------------------------
+    # Resilience hooks (JAX engine.py:1606-1711)
+    # ------------------------------------------------------------------
+
+    def _resilience_pre_step(self) -> None:
+        """Before a step: a pending real preemption signal, then the fault
+        sites (simulated preemption, nan_grads). Both preemption sources go
+        through ``_preempt``."""
+        step1 = self.global_steps + 1
+        guard = self._preemption_guard
+        if guard is not None and guard.consume():
+            self._preempt(source="signal")
+        inj = self.fault_injector
+        if inj is None:
+            return
+        if inj.preempt(step1):
+            self._preempt(source="injected")
+        if inj.nan_grads(step1):
+            # a +inf loss scale for this one step: the loss and gradients
+            # come out non-finite inside the step (through the kernels) and
+            # the update is skipped on the device; restored after the step
+            self._injected_scale = self.state["loss_scale"]
+            self.state["loss_scale"] = torch.full((), float("inf"), dtype=torch.float32, device=self.device)
+            self.telemetry.counter("resilience/injected_nan_steps").inc()
+
+    def _preempt(self, source: str) -> None:
+        """The preemption path, real signal and injected drill alike: at a
+        step boundary the state is consistent, so take a just-in-time
+        checkpoint under ``preemption.save_dir``/``tag`` (committed, async
+        or not, with 'latest' repointed), then raise ``PreemptionSignal``.
+        Without ``save_dir`` the signal still surfaces and the caller
+        saves."""
+        self.telemetry.counter("resilience/preemptions").inc()
+        pcfg = self.config.resilience.preemption
+        if pcfg.save_dir:
+            t0 = time.perf_counter()
+            self.save_checkpoint(pcfg.save_dir, tag=pcfg.tag)
+            # the process is about to die: an async save is made durable
+            # before the signal propagates
+            self.checkpoint_engine.commit()
+            dt = time.perf_counter() - t0
+            self.telemetry.histogram("resilience/jit_ckpt_sec").observe(dt)
+            self.telemetry.counter("resilience/jit_checkpoints").inc()
+            log_dist(f"resilience: preemption ({source}) at step {self.global_steps}; JIT checkpoint "
+                     f"{pcfg.save_dir}/{pcfg.tag} committed in {dt:.2f}s", ranks=[0])
+        else:
+            log_dist(f"resilience: preemption ({source}) at step {self.global_steps}; no "
+                     "preemption.save_dir, the caller saves", ranks=[0])
+        raise PreemptionSignal(step=self.global_steps)
+
+    def _resilience_post_step(self, metrics) -> None:
+        """Restore an injected loss scale and advance the dropout stream's
+        step mirror; with the guardrail armed, fetch the overflow flag and
+        escalate skip -> rewind -> diverged."""
+        injected = self._injected_scale is not None
+        if injected:
+            self.state["loss_scale"] = self._injected_scale
+            self._injected_scale = None
+        overflow = bool(metrics["overflow"]) if self._guardrail is not None else False
+        if not (injected or overflow):
+            self._rng_step += 1
+        if self._guardrail is None:
+            return
+        action = self._guardrail.observe(overflow)
+        if action == "rewind":
+            d, t = self._guardrail.last_good
+            logger.warning("resilience: %d consecutive non-finite steps; rewinding to checkpoint %s/%s",
+                           self._guardrail.bad_streak, d, t)
+            # the loader's cursor is not restored: data replay after a
+            # rewind is the caller's part
+            self.load_checkpoint(d, t, _restore_dataloader=False)
+            self._guardrail.rewound()
+        elif action == "diverged":
+            self.telemetry.counter("resilience/diverged").inc()
+            raise TrainingDivergedError(
+                f"{self._guardrail.bad_streak} consecutive non-finite steps and no rewind target (save a "
+                "checkpoint, or disable resilience.rewind to keep skipping)")
+
+    def _train_telemetry(self, batch, metrics, step_dur: float) -> None:
+        """Per-step registry updates; the scalar gauges and the memory
+        watermarks only when the step's metrics were read anyway (print
+        boundaries, or every step with a monitor), so loss-scale flips are
+        boundary-sampled. The bridge pushes at print boundaries."""
+        tm = self.telemetry
+        tm.histogram("train/step_time_sec").observe(step_dur)
+        tm.counter("train/steps").inc()
+        tm.counter("train/samples").inc(self.train_batch_size)
+        toks = batch.get("tokens") if isinstance(batch, dict) else None
+        if toks is not None and getattr(toks, "ndim", 0) >= 2:
+            tm.counter("train/tokens").inc(int(toks.shape[0]) * int(toks.shape[1]))
+        if metrics is None:
+            return
+        tm.gauge("train/loss").set(float(metrics["loss"]))
+        tm.gauge("train/lr").set(float(metrics["lr"]))
+        tm.gauge("train/grad_norm").set(float(metrics["grad_norm"]))
+        scale = float(metrics["loss_scale"])
+        tm.gauge("train/loss_scale").set(scale)
+        if self._last_seen_loss_scale is not None and scale != self._last_seen_loss_scale:
+            tm.counter("train/loss_scale_flips").inc()
+        self._last_seen_loss_scale = scale
+        if bool(metrics["overflow"]):
+            tm.counter("train/overflow_steps").inc()
+        if self.device.type == "cuda":
+            stats = torch.cuda.memory_stats(self.device)
+            tm.gauge("train/device_bytes_in_use").set(stats.get("allocated_bytes.all.current", 0))
+            tm.gauge("train/device_peak_bytes").set(stats.get("allocated_bytes.all.peak", 0))
+        if self._telemetry_bridge is not None and self.global_steps % self.config.steps_per_print == 0:
+            self._telemetry_bridge.push(tm.registry, self.global_steps)
+
+    def telemetry_snapshot(self) -> dict:
+        """The registry (step-time histogram, counters, boundary gauges),
+        the recompile table and the device-memory pools (params, optimizer
+        state) beside the caching allocator's counts; appended to the JSONL
+        log when a sink is configured. The JAX engine's program-ledger and
+        collective sections are not ported."""
+        pools = {"params": tree_bytes(self.state["params"]), "opt_state": tree_bytes(self.state["opt"])}
+        snap = self.telemetry.snapshot(
+            hbm=hbm_snapshot(pools, self.device, self.config.telemetry.ledger.hbm_warn_fraction))
+        self.telemetry.emit({"type": "snapshot", **snap})
+        return snap
 
     def _apply_curriculum(self, batch: dict) -> dict:
         """Seqlen curriculum: truncate every batch leaf of rank >= 2 to the
@@ -322,37 +584,78 @@ class DeepSpeedEngine:
     # Checkpoints
     # ------------------------------------------------------------------
 
+    @property
+    def checkpoint_engine(self):
+        """The storage backend (``runtime/checkpoint_engine``; native only).
+        With ``checkpoint.async_save`` the last save of a run is committed
+        at interpreter exit too, if the caller never saves or loads again
+        (the backend's own exit hook, held only while a save is pending)."""
+        if self._ckpt_engine is None:
+            self._ckpt_engine = get_checkpoint_engine(self.config.checkpoint.engine)
+        return self._ckpt_engine
+
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None, client_state: Optional[dict] = None):
         """Save the engine state to ``save_dir/tag`` (default
         ``global_step<N>``), atomically, and point ``save_dir/latest`` at it
         once it is durable. The client state carries the host's trajectory
-        (steps, samples, skipped steps, the dropout seed, the batch sizes),
-        so train k + save + load + train n−k draws the masks of train n.
+        (steps, samples, skipped steps, the dropout seed and its step
+        mirror, the batch sizes, the guardrail's streak), so train k + save
+        + load + train n−k draws the masks of train n. With ``resilience.enabled`` a
+        synchronous save is retried under ``resilience.retry`` (a
+        ``PermanentIOError`` is not); an async save returns after its
+        snapshot and is finished by the next save, a load or
+        ``checkpoint_engine.commit()``, where its errors surface.
         ``zero_to_fp32.py`` is copied beside the checkpoint, and older tags
         are pruned to ``checkpoint.keep_last_k``."""
         tag = tag or f"global_step{self.global_steps}"
         extra = dict(client_state or {})
         extra.update(global_steps=self.global_steps, global_samples=self.global_samples,
-                     skipped_steps=self.skipped_steps, rng_seed=self._seed,
+                     skipped_steps=self.skipped_steps, rng_seed=self._seed, rng_step=self._rng_step,
                      micro_batch_size=self.micro_batch_size, train_batch_size=self.train_batch_size)
         if self.training_dataloader is not None and self._dl_cursor is not None:
             extra["dataloader"] = dict(self._dl_cursor)
         if self.curriculum_scheduler is not None:
             extra["curriculum"] = self.curriculum_scheduler.state_dict()
+        if self._guardrail is not None:
+            extra["guardrail"] = self._guardrail.state_dict()
         os.makedirs(save_dir, exist_ok=True)
-        saver.save_checkpoint(os.path.join(save_dir, tag), self.state, client_state=extra,
-                              latest=(os.path.join(save_dir, "latest"), tag))
+        eng = self.checkpoint_engine
+        rcfg = self.config.resilience
+
+        def do_save():
+            return eng.save(os.path.join(save_dir, tag), self.state, client_state=extra,
+                            async_save=self._ckpt_async, latest=(os.path.join(save_dir, "latest"), tag))
+
+        if rcfg.enabled and not self._ckpt_async:
+            # a failed attempt's staging leftovers are reclaimed by the next
+            # attempt, so a retried atomic save stays atomic; an async save
+            # is not retried (its errors surface at commit, where a retry
+            # would snapshot a later state)
+            def note_retry(attempt, exc, delay):
+                self.telemetry.counter("resilience/ckpt_retries").inc()
+                logger.warning("checkpoint save %s/%s attempt %d failed (%s); retrying in %.2fs",
+                               save_dir, tag, attempt, exc, delay)
+
+            retry_call(do_save, policy=rcfg.retry, retry_on=(OSError,), no_retry_on=(PermanentIOError,),
+                       seed=rcfg.fault_injection.seed, on_retry=note_retry)
+        else:
+            do_save()
         try:
             shutil.copyfile(zero_to_fp32.__file__, os.path.join(save_dir, "zero_to_fp32.py"))
         except OSError as e:
             logger.warning(f"could not copy zero_to_fp32.py into {save_dir}: {e}")
-        log_dist(f"saved checkpoint {save_dir}/{tag}", ranks=[0])
+        log_dist(f"saved checkpoint {save_dir}/{tag}" + (" (async)" if self._ckpt_async else ""), ranks=[0])
+        if self._guardrail is not None:
+            self._guardrail.note_checkpoint(save_dir, tag)  # the rewind target, if saved outside a streak
         self._prune_checkpoints(save_dir, current=tag)
         return True
 
     def _prune_checkpoints(self, save_dir: str, current: str) -> None:
-        """keep_last_k retention: after a save, committed tags beyond the k
-        newest are removed; the just-saved and the 'latest' tags stay."""
+        """keep_last_k retention: after a save, the just-saved tag and the
+        k - 1 newest other committed tags are kept and older ones removed;
+        the 'latest' tag and the guardrail's rewind target always stay. The
+        just-saved tag counts among the k while an async save of it is
+        still in flight."""
         k = self.config.checkpoint.keep_last_k
         if k <= 0:
             return
@@ -361,22 +664,28 @@ class DeepSpeedEngine:
         if os.path.exists(latest):
             with open(latest) as f:
                 keep.add(f.read().strip())
-        for i, tag in enumerate(saver.find_checkpoints(save_dir)):  # newest first
+        if self._guardrail is not None and self._guardrail.last_good:
+            gdir, gtag = self._guardrail.last_good
+            if os.path.abspath(gdir) == os.path.abspath(save_dir):
+                keep.add(gtag)
+        tags = [current] + [t for t in saver.find_checkpoints(save_dir) if t != current]  # newest first
+        for i, tag in enumerate(tags):
             if i >= k and tag not in keep:
                 shutil.rmtree(os.path.join(save_dir, tag), ignore_errors=True)
                 log_dist(f"pruned checkpoint {save_dir}/{tag} (keep_last_k={k})", ranks=[0])
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None, fallback_to_intact: bool = True,
-                        verify: Optional[bool] = None):
+                        verify: Optional[bool] = None, _restore_dataloader: bool = True):
         """Restore the engine state from ``load_dir`` -> (tag, client_state),
-        or (None, {}) when there is no 'latest' to follow. With ``tag=None``
-        the 'latest' tag is followed; if that checkpoint is torn or corrupt
-        and ``fallback_to_intact`` is set, the newest intact sibling is
-        loaded instead and 'latest' repointed at it. An explicit ``tag``
-        never falls back. ``verify`` (default ``checkpoint.verify_integrity``)
+        or (None, {}) when there is no 'latest' to follow. A pending async
+        save is committed first. With ``tag=None`` the 'latest' tag is
+        followed; if that checkpoint is torn or corrupt and
+        ``fallback_to_intact`` is set, the newest intact sibling is loaded
+        instead and 'latest' repointed at it. An explicit ``tag`` never
+        falls back. ``verify`` (default ``checkpoint.verify_integrity``)
         digests every file before the state is touched; the fallback scan
-        always verifies. The host's step count, sample count and dropout
-        seed come back from the client state."""
+        always verifies. The host's trajectory comes back from the client
+        state (``_restore_training_state``)."""
         if verify is None:
             verify = self.config.checkpoint.verify_integrity
         t0 = time.perf_counter()
@@ -388,8 +697,10 @@ class DeepSpeedEngine:
                 return None, {}
             with open(latest) as f:
                 tag = f.read().strip()
+        eng = self.checkpoint_engine
+        eng.commit()  # do not read past an in-flight save
         try:
-            state, client_state = saver.load_checkpoint(os.path.join(load_dir, tag), self.state, verify=verify)
+            state, client_state = eng.load(os.path.join(load_dir, tag), self.state, verify=verify)
         except (CheckpointCorruptError, CheckpointNotFoundError) as err:
             if explicit or not fallback_to_intact:
                 raise
@@ -400,12 +711,13 @@ class DeepSpeedEngine:
                 if cand == tag:
                     continue
                 try:
-                    state, client_state = saver.load_checkpoint(os.path.join(load_dir, cand), self.state,
-                                                                verify=True)
+                    state, client_state = eng.load(os.path.join(load_dir, cand), self.state, verify=True)
                 except CheckpointCorruptError as e2:
                     logger.warning("checkpoint %s/%s also corrupt (%s); continuing scan", load_dir, cand, e2)
                     continue
-                logger.warning("fell back from torn checkpoint %r to intact %r", tag, cand)
+                self.telemetry.counter("resilience/ckpt_fallbacks").inc()
+                self.telemetry.counter("resilience/recovered").inc()
+                logger.warning("resilience: fell back from torn checkpoint %r to intact %r", tag, cand)
                 saver.write_latest(os.path.join(load_dir, "latest"), cand)
                 tag = cand
                 break
@@ -413,10 +725,26 @@ class DeepSpeedEngine:
                 raise CheckpointCorruptError(f"no intact checkpoint under {load_dir} (latest {tag!r} and every "
                                              "fallback failed verification)", path=load_dir) from err
         self.state = state
+        self._accum, self._micro_count = None, 0  # a half-accumulated 3-call step is dropped
         self.global_steps = int(client_state.get("global_steps", int(state["step"])))
         self.global_samples = int(client_state.get("global_samples", 0))
+        self._restore_training_state(client_state, restore_dataloader=_restore_dataloader)
+        self.telemetry.histogram("resilience/reshard_sec").observe(time.perf_counter() - t0)
+        self.telemetry.counter("resilience/resumes").inc()
+        log_dist(f"loaded checkpoint {load_dir}/{tag} in {time.perf_counter() - t0:.2f} s", ranks=[0])
+        return tag, client_state
+
+    def _restore_training_state(self, client_state: dict, restore_dataloader: bool = True) -> None:
+        """The host-side trajectory the client state captured at save: the
+        dropout seed, the loader's cursor (not on a guardrail rewind, where
+        data replay is the caller's part), the curriculum's difficulty and
+        the guardrail's streak. The dropout stream's step mirror comes back
+        as saved, which an unguarded fp16 overflow may have put ahead of the
+        device step; a checkpoint without it (the JAX engine's) restarts the
+        mirror at the loaded device step."""
         self._seed = int(client_state.get("rng_seed", self._seed))
-        if "dataloader" in client_state:
+        self._rng_step = int(client_state.get("rng_step", int(self.state["step"])))
+        if restore_dataloader and "dataloader" in client_state:
             dl = self.training_dataloader
             if dl is not None and hasattr(dl, "load_state_dict"):
                 dl.load_state_dict(client_state["dataloader"])
@@ -425,5 +753,30 @@ class DeepSpeedEngine:
                 self._pending_dl_state = dict(client_state["dataloader"])
         if self.curriculum_scheduler is not None and "curriculum" in client_state:
             self.curriculum_scheduler.load_state_dict(client_state["curriculum"])
-        log_dist(f"loaded checkpoint {load_dir}/{tag} in {time.perf_counter() - t0:.2f} s", ranks=[0])
-        return tag, client_state
+        if self._guardrail is not None and "guardrail" in client_state:
+            self._guardrail.load_state_dict(client_state["guardrail"])
+
+    def load_universal_checkpoint(self, load_dir: str, tag: Optional[str] = None):
+        """Every format-3 checkpoint is universal (global shapes in the
+        manifest, each leaf assembled whole on load, whatever the mesh that
+        saved it), so this is ``load_checkpoint`` by another name, kept for
+        API parity; ``checkpoint/universal.py`` reshapes files offline."""
+        return self.load_checkpoint(load_dir, tag=tag)
+
+    def _zero3_consolidated_16bit_state_dict(self) -> dict:
+        """The weights in the compute dtype as a flat {"a/b": CPU tensor}
+        dict in the JAX tree's order (on one device nothing is gathered)."""
+        cdt = self.config.compute_dtype
+        flat = saver._flatten_with_paths(self.state["params"])
+        return {key.replace(saver._SEP, "/"): (t.detach().to(cdt) if t.is_floating_point() else t.detach()).cpu()
+                for key, t in flat.items()}
+
+    def save_16bit_model(self, save_dir: str, save_filename: str = "model_weights.pt") -> bool:
+        """Write the weights in the compute dtype for deployment, as a torch
+        state dict (``torch.save``), the file the JAX engine writes."""
+        sd = self._zero3_consolidated_16bit_state_dict()
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, save_filename)
+        torch.save(sd, path)
+        log_dist(f"saved 16bit model weights to {path}", ranks=[0])
+        return True

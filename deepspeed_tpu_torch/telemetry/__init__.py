@@ -11,19 +11,20 @@ request tracer.
     raise on a second one.
   * ``RequestTracer`` — bounded per-request lifecycle timeline with a
     Perfetto export.
-  * exporters — JSONL event log, Prometheus text.
+  * exporters — JSONL event log, Prometheus text, the bridge into the
+    monitor backends.
 
 ``Telemetry`` bundles them; engines hold one each. Metric names follow
 ``subsystem/name``, as in the JAX package. Not ported yet: the program and
 collective ledgers, the flight-recorder rings (``timeseries``), SLO
-classification, incidents, the report CLI and the MonitorMaster bridge.
+classification, incidents and the report CLI.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .exporters import JsonlExporter, prometheus_fleet_text, prometheus_text
+from .exporters import JsonlExporter, MonitorBridge, prometheus_fleet_text, prometheus_text
 from .registry import Counter, Gauge, Histogram, MetricsRegistry, get_registry
 from .request_trace import RequestTracer, request_timeline, to_perfetto
 from .tracing import Span, SpanTracer
@@ -32,7 +33,7 @@ from .watchdog import RecompileError, RecompileWatchdog, abstract_signature
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
     "Span", "SpanTracer", "RecompileError", "RecompileWatchdog",
-    "abstract_signature", "JsonlExporter", "prometheus_text",
+    "abstract_signature", "JsonlExporter", "MonitorBridge", "prometheus_text",
     "prometheus_fleet_text", "RequestTracer", "request_timeline",
     "to_perfetto", "Telemetry", "tree_bytes", "hbm_snapshot",
 ]

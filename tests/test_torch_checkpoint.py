@@ -82,7 +82,9 @@ def test_round_trip_is_bitwise(tmp_path):
 
 def test_manifest_matches_jax(tmp_path):
     """The same state saved by both packages: the same leaf keys, shapes,
-    dtypes, file names, format and client-state keys the port fills."""
+    dtypes, file names, format and client-state keys the port fills, but
+    for the dropout stream's step mirror, which only the port keeps (the
+    JAX engine keys its masks on the device step)."""
     jeng, _, _, _ = deepspeed_tpu.initialize(model=tiny_transformer(), config=DS, mesh=single_device_mesh())
     teng = _port_engine(interop.params_from_jax(jax.tree.map(np.asarray, jeng.state["params"])))
     jeng.save_checkpoint(str(tmp_path / "jax"), tag="t")
@@ -92,7 +94,8 @@ def test_manifest_matches_jax(tmp_path):
     assert tm["format"] == jm["format"] == 3
     assert tm["leaves"] == jm["leaves"]
     assert set(tm["checksums"]) == set(jm["checksums"])
-    assert set(tm["client_state"]) <= set(jm["client_state"])
+    assert "rng_step" in tm["client_state"] and "rng_step" not in jm["client_state"]
+    assert set(tm["client_state"]) - {"rng_step"} <= set(jm["client_state"])
     for fname, crc in tm["checksums"].items():  # identical arrays give identical files
         if fname.startswith("params::"):
             assert crc == jm["checksums"][fname], fname
@@ -164,8 +167,16 @@ def test_keep_last_k_prunes(tmp_path):
         eng.train_batch({"tokens": TOKENS})
         eng.save_checkpoint(str(tmp_path))
     assert sorted(p.name for p in tmp_path.iterdir() if p.is_dir()) == ["global_step3", "global_step4"]
-    with pytest.raises(NotImplementedError):
-        _port_engine(ds=dict(DS, checkpoint={"async_save": True}))
+    # async saves keep keep_last_k too: the save still in flight counts among the k
+    eng = _port_engine(ds=dict(DS, checkpoint={"keep_last_k": 2, "async_save": True}))
+    for _ in range(4):
+        eng.train_batch({"tokens": TOKENS})
+        eng.save_checkpoint(str(tmp_path / "async"))
+        assert len([p for p in (tmp_path / "async").iterdir() if p.is_dir()]) <= 3  # k + the staging dir
+    eng.checkpoint_engine.commit()
+    assert sorted(p.name for p in (tmp_path / "async").iterdir() if p.is_dir()) == ["global_step3",
+                                                                                    "global_step4"]
+    assert (tmp_path / "async" / "latest").read_text() == "global_step4"
 
 
 def test_resume_with_dropout_is_bitwise(tmp_path):

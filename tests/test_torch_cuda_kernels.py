@@ -17,6 +17,7 @@ from deepspeed_tpu_torch.models import transformer as tfm
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_xent as fx
 from deepspeed_tpu_torch.ops.decode_attention import SPLIT_KEYS, decode_attention, decode_attention_reference
+from deepspeed_tpu_torch.ops.optimizers import tree_leaves
 from deepspeed_tpu_torch.ops.sparse_attention import SPARSITY_CONFIGS
 from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
 
@@ -861,3 +862,91 @@ def test_serving_decode_graph_replay_launches_each_kernel_per_layer(cuda_device)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("decode_split_kernel" in x for x in names) == L, names
     assert sum("decode_combine_kernel" in x for x in names) == L, names
+
+
+# ---------------------------------------------------------------------------
+# Training resilience on the card: an injected NaN step through the kernels,
+# and the async save's staging copy
+# ---------------------------------------------------------------------------
+
+_RESILIENCE_DS = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": 2,
+                  "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 1000,
+                  "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+
+
+def _resilience_model():
+    return tfm.Model(tfm.TransformerConfig(vocab_size=1000, max_seq_len=256, num_layers=3, num_heads=4,
+                                           hidden_size=64, dtype=torch.bfloat16, attn_impl="flash",
+                                           loss_impl="fused_xent"))
+
+
+def test_kernels_keep_an_infinite_upstream_gradient_non_finite(cuda_device):
+    """The NaN drill's +inf loss scale reaches the backward kernels as an
+    infinite upstream gradient: neither the fused-loss ds/dW/dH passes nor
+    the flash dK/dV and dQ may turn it into finite values (no clamped
+    exponent, no saturating store)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    N, D, V = 256, 64, 1000
+    h = torch.randn(N, D, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(D, V, generator=g, device=cuda_device) * 0.05).to(torch.bfloat16)
+    y = torch.randint(0, V, (N,), generator=g, device=cuda_device, dtype=torch.int32)
+    _, lse = fx.fused_xent_forward(h, w, y)
+    dh, dw = fx.fused_xent_backward(h, w, y, lse, torch.full((N,), float("inf"), device=cuda_device))
+    assert not torch.isfinite(dh.float()).any() and not torch.isfinite(dw.float()).any()
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=g, device=cuda_device).to(torch.bfloat16) for _ in range(3))
+    out, lse = fa.flash_forward(q, k, v, causal=True)
+    dout = torch.full_like(out, float("inf"))
+    delta = fa.flash_delta(out, dout)
+    dk, dv = fa.flash_backward_dkdv(q, k, v, dout, lse, delta, causal=True)
+    dq = fa.flash_backward_dq(q, k, v, dout, lse, delta, causal=True)
+    for t in (dq, dk, dv):
+        assert not torch.isfinite(t.float()).all()
+
+
+def test_injected_nan_step_through_the_kernels_is_skipped(cuda_device):
+    """nan_grad_steps [2] with the guardrail on: the step launches every
+    flash and fused-loss kernel, comes out non-finite, and leaves the
+    parameters and optimizer state bitwise as they were; the loss scale is
+    restored and the next step trains."""
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=_resilience_model(), config={
+        **_RESILIENCE_DS, "resilience": {"enabled": True, "fault_injection": {"enabled": True,
+                                                                            "nan_grad_steps": [2]}}})
+    tokens = np.random.default_rng(0).integers(0, 1000, size=(8, 257)).astype(np.int32)
+    engine.train_batch({"tokens": tokens})
+    before = [t.clone() for t in tree_leaves(engine.state["params"]) + tree_leaves(engine.state["opt"])]
+    counters = (fa.flash_forward, fa.flash_backward_dkdv, fa.flash_backward_dq) + _XENT_COUNTERS
+    launched = [c.launches for c in counters]
+    m = engine.train_batch({"tokens": tokens})
+    assert [c.launches - b for c, b in zip(counters, launched)] == [3 * 2] * 3 + [2] * 5
+    assert bool(m["overflow"]) and not np.isfinite(float(m["grad_norm"]))
+    after = tree_leaves(engine.state["params"]) + tree_leaves(engine.state["opt"])
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+    assert engine.skipped_steps == 1 and engine.get_global_step() == 1 and engine.loss_scale == 1.0
+    m = engine.train_batch({"tokens": tokens})
+    assert not bool(m["overflow"]) and engine.get_global_step() == 2
+
+
+def test_async_save_snapshot_is_right_while_the_next_step_runs(cuda_device, tmp_path):
+    """save_checkpoint returns after enqueueing the snapshot on a side stream;
+    the next steps run at once and free the saved tensors, whose memory must
+    not be reused before the copy ends. The committed checkpoint equals the
+    state at the save, and the pinned buffer is allocated once."""
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=_resilience_model(), config={
+        **_RESILIENCE_DS, "checkpoint": {"async_save": True}})
+    tokens = np.random.default_rng(0).integers(0, 1000, size=(8, 257)).astype(np.int32)
+    engine.train_batch({"tokens": tokens})
+    want = [t.clone() for t in tree_leaves(engine.state)]
+    engine.save_checkpoint(str(tmp_path))
+    buf = engine.checkpoint_engine.staging._buf
+    for _ in range(3):
+        engine.train_batch({"tokens": tokens})
+    engine.save_checkpoint(str(tmp_path))  # commits the first save, snapshots the second
+    assert engine.checkpoint_engine.staging._buf is buf
+    engine.checkpoint_engine.commit()
+    fresh, _, _, _ = deepspeed_tpu_torch.initialize(model=_resilience_model(), config=_RESILIENCE_DS)
+    fresh.load_checkpoint(str(tmp_path), tag="global_step1")
+    for a, b in zip(tree_leaves(fresh.state), want):
+        assert torch.equal(a, b)
+    fresh.load_checkpoint(str(tmp_path))
+    for a, b in zip(tree_leaves(fresh.state), tree_leaves(engine.state)):
+        assert torch.equal(a, b)

@@ -112,3 +112,18 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     assert decode_attention.launches == before
     torch.testing.assert_close(out, decode_attention_reference(q, k, v, torch.tensor([4, 15])),
                                rtol=0, atol=0)
+
+
+# dstpu-lint's code rules (bin/dstpu_lint --list-rules, file scope); the
+# doc-drift rules are left out: they hold docs/, which catalogs the JAX
+# package's config keys and metrics, against the tree given
+LINT_CODE_RULES = ("append-durability", "blocking-under-lock", "broad-except", "parse-error", "pragma",
+                   "rename-durability", "secret-hygiene", "socket-discipline", "unguarded-donation",
+                   "unlogged-collective", "wall-clock-verdict")
+
+
+def test_port_passes_the_code_lint_rules():
+    proc = subprocess.run([sys.executable, str(REPO / "bin" / "dstpu_lint"), str(PKG), "--rule",
+                           ",".join(LINT_CODE_RULES)], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "clean" in proc.stdout

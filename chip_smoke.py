@@ -141,8 +141,27 @@ Phases, each of which passes or makes the script exit non-zero:
      the card's name and power limit, step ms with the guardrail on and
      off and of both loops, the JIT checkpoint's seconds, and how long a
      synchronous and an async save block the caller (and the commit).
+ 20. the serving fleet at GPT-2-125M width (phase 18's configuration),
+     workload (b): one engine as the yardstick; a Router over 2 in-process
+     replicas (their decode steps two CUDA graphs on the split-KV kernel),
+     unfaulted, then with replica 0 killed before router step 10
+     (benchmarks/serving_throughput.py:339-405): every request terminal,
+     failovers recovered, survivors idle with their slots accounted, one
+     decode program a replica, each replica's launches = 12 x its replays
+     (and the profiler's kernel records over 3 fleet steps), the dead
+     replica's device memory released; a small fp32 fleet's kill whose
+     greedy streams must equal the unfaulted run's; the request journal
+     (fsync on) through a router_crash and a new Router's recovery, every
+     accepted request delivered exactly once; 2 worker processes on the
+     card under a WorkerSupervisor (unix sockets), worker 0 SIGKILLed after
+     router step 10, the DEAD verdict's failover, respawn and
+     attach_replica, each worker's decode launches as it reports them, and
+     a SIGTERM drain with exit 0. It prints tokens/s, TTFT p50/p99 and TPOT
+     p50 of each run, the time from the kill to the last failed-over
+     admission, the recovery time, the worker boot and respawn seconds,
+     beside the card's name and power limit.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
-line, a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
+line, a ``{"fleet": {...}}`` line, a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
 
@@ -2337,6 +2356,442 @@ def profile(label, fn, out_dir):
                                   "host_self_ms": {a.key[:80]: a.self_cpu_time_total / 1e3 for a in host}}}))
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the serving fleet (inference/router.py, journal.py, rpc.py,
+# launcher/serving_worker.py) at GPT-2-125M width
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 2
+KILL_STEP = 10  # benchmarks/serving_throughput.py --kill-step 10
+FLEET_HEALTH = {"timeout": 30.0}
+JOURNAL_CRASH_STEP = 20
+# the worker processes' transport: their boots (interpreter, CUDA context,
+# weights, the decode kernel's library and graph) and the first steps
+# take seconds, not the JAX defaults' budget
+FLEET_TRANSPORT = {"family": "unix", "call_timeout_s": 120.0, "boot_timeout_s": 300.0,
+                   "heartbeat_timeout_s": 60.0, "base_delay_s": 0.05, "max_delay_s": 0.2}
+GPT2_SPEC = dict(vocab_size=50304, max_seq_len=1024, num_layers=12, num_heads=12, hidden_size=768,
+                 pos_emb="learned", tie_embeddings=True)
+
+
+def fleet_config(serve_config, **extra):
+    return {**serve_config, "watchdog_mode": "raise",
+            "router": {"replicas": FLEET_REPLICAS, "health": dict(FLEET_HEALTH)}, **extra}
+
+
+def serve_fleet(router, reqs, on_step=None):
+    """Router.serve, with ``on_step(router)`` called after every step (the
+    kill drill's hook); returns (results, seconds)."""
+    router._epoch = time.perf_counter()
+    for r in router._replicas:
+        r.engine.set_epoch(router._epoch)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uids = {router.submit(r) for r in sorted(reqs, key=lambda r: r.arrival_time)}
+    while not uids <= set(router.results):
+        now = router.now()
+        stepped = [r for r in router._replicas if r.stepped]
+        if all(r.engine.idle for r in stepped):
+            pending = [t for r in stepped for t in r.engine.pending_arrival_times()]
+            if pending and min(pending) > now:
+                time.sleep(min(min(pending) - now, 0.05))
+        router.step()
+        if on_step is not None:
+            on_step(router)
+    seconds = time.perf_counter() - t0
+    return {u: router.result(u) for u in uids}, seconds
+
+
+def replica_bytes(engine):
+    w = engine.worker
+    return sum(t.numel() * t.element_size() for pool in (w._cache, w._pool) if pool is not None
+               for t in pool.values())
+
+
+def check_fleet_contract(router, res, label, killed):
+    """benchmarks/serving_throughput.py:363-384: every request terminal, the
+    failover counters, and every survivor idle with its slots accounted."""
+    stats = router.router_stats()
+    counters = router.telemetry.registry.snapshot()["counters"]
+    survivors = [r for r in router._replicas if r.state != "dead"]
+    slots_ok = all(r.engine.n_active == 0 and r.engine.n_prefilling == 0
+                   and r.engine.n_free + len(r.engine.quarantined_slots) == r.engine.n_slots for r in survivors)
+    terminal = all(x is not None for x in res.values())
+    failover_ok = (not killed) or (counters.get("router/failovers", 0) > 0 and stats["failovers_recovered"] > 0)
+    decode_ok = all(r.engine.compile_counts()["decode"] == 1 for r in router._replicas)
+    ok = terminal and slots_ok and failover_ok and decode_ok
+    print(f"    contract: every request terminal {terminal}; router/failovers {counters.get('router/failovers', 0)}, "
+          f"failovers_recovered {stats['failovers_recovered']}, failed_replica "
+          f"{sum(r.status == 'failed_replica' for r in res.values())}; survivors idle with n_free + quarantined "
+          f"= n_slots {slots_ok}; one decode program a replica {decode_ok} "
+          f"{[r.engine.compile_counts()['decode'] for r in router._replicas]}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"fleet {label} failed the benchmark's contract")
+    return stats, counters
+
+
+def replica_launches(router, expect):
+    """(split, combine) decode-kernel launches per replica, checked against
+    num_layers x each replica's graph replays."""
+    out, ok = [], True
+    for r in router._replicas:
+        w = r.engine.worker
+        split, combine = w.decode_kernel_launches()
+        replays = w._decode_steps
+        ok &= w.graph_launches == (expect, expect) and split == combine == expect * replays
+        out.append({"rid": r.rid, "state": r.state, "replays": replays, "split": split, "combine": combine})
+    return out, ok
+
+
+def run_fleet(router, reqs, label, smi, expect, on_step=None, killed=False):
+    before = [r.engine.worker.decode_kernel_launches() for r in router._replicas]
+    res, seconds = serve_fleet(router, reqs, on_step)
+    m = serving_metrics(res, seconds)
+    stats, counters = check_fleet_contract(router, res, label, killed)
+    launches, ok = replica_launches(router, expect)
+    for entry, (s0, c0) in zip(launches, before):
+        entry["split_in_run"], entry["combine_in_run"] = entry["split"] - s0, entry["combine"] - c0
+    m.update(replicas=launches, failovers=counters.get("router/failovers", 0),
+             failovers_recovered=stats["failovers_recovered"],
+             states=router.replica_states())
+    print(f"  [{smi}] {label}: {m['ok']}/{m['requests']} ok, {m['tokens']} tokens in {seconds:.3f} s = "
+          f"{m['tokens_per_s']:.1f} tokens/s; TTFT p50 {m['ttft_p50_ms']:.1f} ms, p99 {m['ttft_p99_ms']:.1f} ms; "
+          f"TPOT p50 {m['tpot_p50_ms']:.3f} ms; replica states {m['states']}")
+    total = (sum(e["split"] for e in launches), sum(e["combine"] for e in launches))
+    replays = sum(e["replays"] for e in launches)
+    print(f"    decode launches by the replicas' graphs (split, combine) {[(e['split'], e['combine']) for e in launches]}"
+          f" = {total} for {replays} replays (expect {expect} x replays each)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"fleet {label}: the decode launches do not match the replays")
+    return res, m
+
+
+def fleet_profiled_launches(router, vocab, steps=3):
+    """torch.profiler's kernel records over a few fleet steps: the split
+    and combine kernels against num_layers x the replays the replicas
+    made in that window."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for r in ragged_workload(vocab, RAGGED_RATE, seed=4, uid0=5000)[:2 * FLEET_REPLICAS]:
+        r.arrival_time = 0.0
+        router.submit(r)
+    router.step()
+    router.step()
+    before = sum(r.engine.worker._decode_steps for r in router._replicas)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            router.step()
+        torch.cuda.synchronize()
+    replays = sum(r.engine.worker._decode_steps for r in router._replicas) - before
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    router.drain()
+    return (sum("decode_split_kernel" in n for n in names), sum("decode_combine_kernel" in n for n in names),
+            replays)
+
+
+def failover_timing(router, res):
+    """(seconds from the kill to the last failed-over request's admission
+    on its survivor, the failed-over uids), on the fleet clock."""
+    ev = [e for e in router.tracer.events() if e["event"] == "failover" and "to_replica" in e]
+    if not ev:
+        return None, []
+    t_kill = min(e["t"] for e in ev)
+    uids = sorted({e["uid"] for e in ev})
+    return max(res[u].admitted_time for u in uids) - t_kill, uids
+
+
+def fleet_parity_small(dev):
+    """A small fp32 fleet on the card: the replica_dead kill's completed
+    greedy streams equal the unfaulted fleet's and generate's (the JAX
+    Router's contract: a replay prefills from scratch on a clean replica)."""
+    from deepspeed_tpu_torch.inference import Request, Router
+
+    tiny = TransformerConfig(vocab_size=97, max_seq_len=256, num_layers=2, num_heads=4, hidden_size=32)
+    eng = deepspeed_tpu_torch.init_inference(Model(tiny), config={"dtype": "fp32"}, device=dev)
+    rng = np.random.default_rng(5)
+    specs = [(rng.integers(0, 97, size=int(rng.integers(4, 40))).astype(np.int32), int(rng.integers(8, 40)))
+             for _ in range(12)]
+    out = {}
+    for label, fi in (("unfaulted", None), ("killed", {"enabled": True, "replica_dead_at": [[0, 3]]})):
+        cfg = {"n_slots": 4, "router": {"replicas": 2, "health": dict(FLEET_HEALTH)}}
+        if fi:
+            cfg["fault_injection"] = fi
+        router = Router(eng, config=cfg)
+        res = router.serve([Request(uid=i, prompt=p, max_new_tokens=n) for i, (p, n) in enumerate(specs)])
+        out[label] = (res, router.telemetry.registry.snapshot()["counters"].get("router/failovers", 0))
+    refs = [eng.generate(p[None], max_new_tokens=n)[0] for p, n in specs]
+    (res_a, _), (res_b, failovers) = out["unfaulted"], out["killed"]
+    same = all(res_b[i].ok and np.array_equal(res_b[i].tokens, res_a[i].tokens)
+               and np.array_equal(res_b[i].tokens, refs[i]) for i in range(len(specs)))
+    ok = same and failovers > 0
+    print(f"  small fp32 fleet (2 layers, prefix cache off), 2 replicas, replica 0 killed at router step 3: "
+          f"{failovers} failovers; every greedy request's tokens == the unfaulted fleet's == generate's: {same}  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the fp32 fleet's failed-over streams differ from the unfaulted run")
+    return {"failovers": failovers, "tokens_equal": same}
+
+
+def journal_drill(engine, serve_config, vocab, smi):
+    """Router with the journal (fsync on) crashed by router_crash_at, then
+    a new Router over the same journal and the surviving replicas: every
+    accepted request ends in exactly one terminal."""
+    from deepspeed_tpu_torch.inference import Router, ServingEngine
+    from deepspeed_tpu_torch.inference.journal import replay
+    from deepspeed_tpu_torch.resilience import ControlPlaneCrash
+
+    d = tempfile.mkdtemp(prefix="dstt_journal_")
+    try:
+        path = os.path.join(d, "router.journal")
+        reps = [ServingEngine(engine, config={**serve_config, "watchdog_mode": "raise"}, replica_id=i)
+                for i in range(FLEET_REPLICAS)]
+        for r in reps:
+            r.warm_decode()
+        rc = {"replicas": FLEET_REPLICAS, "health": dict(FLEET_HEALTH),
+              "journal": {"enabled": True, "path": path, "fsync": True}}
+        a = Router(config={"router": rc, "fault_injection": {"enabled": True, "router_crash_at": [JOURNAL_CRASH_STEP]}},
+                   replica_engines=reps)
+        reqs = ragged_workload(vocab, RAGGED_RATE, seed=6, uid0=7000)
+        for r in reqs:
+            r.arrival_time = 0.0
+        accepted = [a.submit(r) for r in reqs]
+        first = []
+        crashed = False
+        try:
+            for _ in range(10 * JOURNAL_CRASH_STEP):
+                first += a.step()
+        except ControlPlaneCrash:
+            crashed = True
+        a._journal.close()  # what the OS does for the killed process
+        del a
+        t0 = time.perf_counter()
+        b = Router(config={"router": rc}, replica_engines=reps)
+        recovery_s = time.perf_counter() - t0
+        counters = {k.split("/")[-1]: v for k, v in b.telemetry.registry.snapshot()["counters"].items()
+                    if k.startswith("router/recovery/")}
+        second = []
+        while b._owner or b._pending_terminal:
+            second += b.step(now=float("inf"), enforce_deadlines=False)
+        delivered = first + second
+        st = replay(path)
+        once = sorted(delivered) == sorted(accepted) and len(set(delivered)) == len(delivered)
+        ok = (crashed and once and set(st.terminals) == set(accepted) and not st.requests
+              and all(b.result(u) is not None and b.result(u).ok for u in accepted))
+        print(f"  [{smi}] journal drill (fsync on): router_crash at step {JOURNAL_CRASH_STEP} with "
+              f"{len(first)} of {len(accepted)} terminal; recovery {recovery_s * 1e3:.1f} ms ({counters}); every "
+              f"accepted request delivered exactly once ({len(delivered)} terminal uids, no duplicate, no loss): "
+              f"{once}; the journal replays {len(st.terminals)} terminals, {len(st.requests)} live  "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the journal drill lost or duplicated a request")
+        out = {"recovery_s": recovery_s, "terminal_before_crash": len(first), "accepted": len(accepted),
+               "recovery_counters": counters, "journal_records": st.records}
+        del b, reps
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _socket_dir():
+    """A short directory for the workers' unix sockets (AF_UNIX paths stop
+    at ~108 bytes): the system temp directory, or one under the working
+    directory used by a relative path when that is too long."""
+    d = tempfile.mkdtemp(prefix="dstt_fleet_")
+    if len(d) + len("/w0g0.sock") < 100:
+        return d, d
+    shutil.rmtree(d, ignore_errors=True)
+    d = tempfile.mkdtemp(prefix="dstt_fleet_", dir=".")
+    return d, os.path.relpath(d)
+
+
+def worker_fleet(serve_config, vocab, smi, device="cuda", model_spec=None, engine_dtype="bf16"):
+    """Two worker processes under a WorkerSupervisor, a Router over their
+    ReplicaClients; worker 0 SIGKILLed after router step KILL_STEP, its
+    requests failed over, the worker respawned and attached; every request
+    terminal; each worker's decode launches as it reports them; SIGTERM
+    drains."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepspeed_tpu_torch.inference import Request, Router
+    from deepspeed_tpu_torch.launcher.serving_worker import WorkerSupervisor
+
+    spec = {"model": {**(model_spec or GPT2_SPEC), "dtype": "float32"}, "engine_dtype": engine_dtype,
+            "serving": {**serve_config, "watchdog_mode": "raise"}}
+    real, workdir = _socket_dir()
+    sup = WorkerSupervisor(spec, FLEET_REPLICAS, workdir=workdir, transport=FLEET_TRANSPORT, device=device,
+                           respawn_backoff={"max_attempts": 10, "base_delay_s": 0.05, "max_delay_s": 0.1,
+                                            "jitter": 0.0})
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(FLEET_REPLICAS) as ex:  # both boot at once
+            clients = list(ex.map(sup.spawn, range(FLEET_REPLICAS)))
+        out["boot_s"] = time.perf_counter() - t0
+        router = Router(config={"router": {"replicas": FLEET_REPLICAS, "health": dict(FLEET_HEALTH),
+                                           "transport": FLEET_TRANSPORT}}, replica_engines=clients)
+        reported = {}
+        killed = {}
+
+        def kill_after(r):
+            if r._steps == KILL_STEP and not killed:
+                reported[0] = clients[0].telemetry_snapshot()["decode_kernel_launches"]
+                sup.kill(0, signal.SIGKILL)
+                killed["t"] = r.now()
+
+        reqs = ragged_workload(vocab, RAGGED_RATE, uid0=9000)
+        res, seconds = serve_fleet(router, reqs, kill_after)
+        m = serving_metrics(res, seconds)
+        counters = router.telemetry.registry.snapshot()["counters"]
+        terminal = all(x is not None for x in res.values())
+        dead_ok = router.replica_states()[0] == "dead" and counters.get("router/failovers", 0) > 0
+        print(f"  [{smi}] worker processes ({FLEET_REPLICAS}, unix sockets, {device}): booted together in "
+              f"{out['boot_s']:.1f} s; worker 0 SIGKILLed after router step {KILL_STEP}: {m['ok']}/{m['requests']} "
+              f"ok, {m['tokens']} tokens in {seconds:.3f} s = {m['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+              f"{m['ttft_p50_ms']:.1f} ms, p99 {m['ttft_p99_ms']:.1f} ms; TPOT p50 {m['tpot_p50_ms']:.3f} ms; "
+              f"DEAD verdict and {counters.get('router/failovers', 0)} failovers from the Router's copies: "
+              f"{dead_ok}; every request terminal {terminal}")
+        if not (terminal and dead_ok):
+            raise SystemExit("the worker fleet did not fail over the killed worker's requests")
+        bad = sup.poll()
+        t0 = time.perf_counter()
+        fresh = sup.respawn(0)
+        out["respawn_s"] = time.perf_counter() - t0
+        rid = router.attach_replica(fresh)
+        extra = [Request(uid=9900 + i, prompt=np.arange(1, 30 + i, dtype=np.int32), max_new_tokens=8)
+                 for i in range(2)]
+        for r in extra:
+            router.submit(r)
+        owners = [router.owner_of(r.uid) for r in extra]
+        done = router.drain()
+        attach_ok = bad == [0] and rid in owners and all(done[r.uid].ok for r in extra)
+        print(f"    supervisor: poll() {bad}, respawned worker 0 in {out['respawn_s']:.1f} s, attached as replica "
+              f"{rid}; two new requests owned by {owners} and ok: {attach_ok}")
+        if not attach_ok:
+            raise SystemExit("the respawned worker did not rejoin the fleet")
+        for slot, client in ((1, clients[1]), (2, fresh)):
+            reported[slot] = client.telemetry_snapshot()["decode_kernel_launches"]
+        sup.shutdown(signal.SIGTERM, timeout=120.0)
+        drained = {}
+        for slot in range(FLEET_REPLICAS):
+            lines = [json.loads(x) for x in open(sup._logs[slot]) if x.startswith("{")]
+            ev = [e for e in lines if e.get("event") == "drained"]
+            drained[slot] = (sup.proc(slot).returncode, ev[0] if ev else None)
+        drain_ok = all(rc == 0 and ev is not None for rc, ev in drained.values())
+        launches_ok = all(v[0] > 0 and v[0] == v[1] for v in reported.values()) or device != "cuda"
+        print(f"    decode-kernel launches (split, combine) as each worker reported them: worker 0 before its kill "
+              f"{reported[0]}, worker 1 {reported[1]}, the respawned worker {reported[2]}  "
+              f"{'ok' if launches_ok else 'FAIL'}; SIGTERM: exit codes and drained lines "
+              f"{[(rc, ev and ev['decode_kernel_launches']) for rc, ev in drained.values()]}  "
+              f"{'ok' if drain_ok else 'FAIL'}")
+        if not (launches_ok and drain_ok):
+            raise SystemExit("a worker launched no decode kernel or did not drain on SIGTERM")
+        out.update(metrics=m, failovers=counters.get("router/failovers", 0), reported_launches=reported,
+                   drained={s: ev for s, (_, ev) in drained.items()})
+        return out
+    finally:
+        sup.shutdown(signal.SIGKILL, timeout=10.0)
+        shutil.rmtree(real, ignore_errors=True)
+
+
+def fleet_phase(dev, smi, model_cfg=None, serve_config=None, vocab_cap=None):
+    """Phase 20. ``model_cfg``/``serve_config`` default to phase 18's
+    (GPT-2-125M, bf16); a smaller pair rehearses the phase's control flow."""
+    from deepspeed_tpu_torch.inference import Router
+
+    cuda = dev.type == "cuda"
+    cfg = model_cfg or TransformerConfig(**GPT2_SPEC)
+    expect = cfg.num_layers if cuda else 0  # decode-kernel launches a replay
+    serve_config = serve_config or SERVE_CONFIG
+    engine = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": "bf16" if model_cfg is None else "fp32"},
+                                                device=dev)
+    vocab = vocab_cap or engine.cfg.vocab_size
+    out = {"config": {**serve_config, "replicas": FLEET_REPLICAS, "kill_step": KILL_STEP,
+                      "health": FLEET_HEALTH, "ragged_rate_per_s": RAGGED_RATE}}
+    reset_counts()
+
+    # one engine, the yardstick
+    srv = serving_engine(engine, speculation=False) if model_cfg is None else None
+    if srv is not None:
+        _, out["one_engine"] = run_workload(srv, ragged_workload(vocab, RAGGED_RATE), "one engine, workload (b)", smi)
+        del srv
+    # two in-process replicas, unfaulted
+    router = Router(engine, config=fleet_config(serve_config))
+    for r in router._replicas:
+        r.engine.warm_decode()
+    workload = ragged_workload(vocab, RAGGED_RATE)
+    res_a, out["two_replicas"] = run_fleet(router, workload, f"{FLEET_REPLICAS} in-process replicas, workload (b)",
+                                           smi, expect)
+    if cuda:
+        split, combine, replays = fleet_profiled_launches(router, vocab)
+        L = cfg.num_layers
+        ok = split == combine == L * replays and replays > 0
+        print(f"    profiler over 3 fleet steps: {split} split and {combine} combine kernel records for {replays} "
+              f"replays across the replicas (expect {L} x {replays})  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the profiler does not see the decode kernels in every replica's replays")
+        out["two_replicas"]["profiled"] = {"split": split, "combine": combine, "replays": replays}
+    del router
+    # the same with replica 0 killed before router step KILL_STEP
+    router = Router(engine, config=fleet_config(
+        serve_config, fault_injection={"enabled": True, "seed": 0, "replica_dead_at": [[0, KILL_STEP]]}))
+    for r in router._replicas:
+        r.engine.warm_decode()
+    victim = router._replicas[0].engine
+    held = {"bytes": replica_bytes(victim)}
+    close = victim.close
+
+    def measured_close():  # instrumentation: the device memory around the release
+        if cuda:
+            torch.cuda.synchronize()
+            held["before"] = torch.cuda.memory_allocated()
+        close()
+        if cuda:
+            torch.cuda.synchronize()
+            held["after"] = torch.cuda.memory_allocated()
+
+    victim.close = measured_close
+    res_k, out["two_replicas_killed"] = run_fleet(
+        router, ragged_workload(vocab, RAGGED_RATE),
+        f"{FLEET_REPLICAS} in-process replicas, replica 0 killed before router step {KILL_STEP}", smi, expect,
+        killed=True)
+    to_admit, moved = failover_timing(router, res_k)
+    greedy = [u for u in moved if res_k[u].ok and workload[u].temperature <= 0]
+    same = sum(np.array_equal(res_k[u].tokens, res_a[u].tokens) for u in greedy)
+    released = (held.get("before", 0) - held.get("after", 0)) if cuda else 0
+    rel_ok = (not cuda) or (victim.worker._cache is None and released >= held["bytes"])
+    print(f"    {len(moved)} requests failed over; the kill to the last one's admission on the survivor "
+          f"{(to_admit or 0) * 1e3:.1f} ms; greedy failed-over requests whose tokens equal the unfaulted run's: "
+          f"{same}/{len(greedy)} (bf16; reported, not required)")
+    print(f"    the dead replica's device memory: allocated {held.get('before', 0) / 1e9:.3f} GB before its release, "
+          f"{held.get('after', 0) / 1e9:.3f} GB after ({released / 1e9:.3f} GB freed; its slot cache and prefix pool "
+          f"{held['bytes'] / 1e9:.3f} GB)  {'ok' if rel_ok else 'FAIL'}")
+    if not rel_ok:
+        raise SystemExit("the dead replica kept its device memory")
+    out["two_replicas_killed"].update(kill_to_last_admission_s=to_admit, failed_over=len(moved),
+                                      greedy_failed_over=len(greedy), greedy_equal_to_unfaulted=same,
+                                      released_bytes=released, replica_bytes=held["bytes"])
+    del router, victim, close, measured_close
+    if cuda:
+        torch.cuda.empty_cache()
+    out["fp32_failover_parity"] = fleet_parity_small(dev)
+    out["journal"] = journal_drill(engine, serve_config, vocab, smi)
+    del engine
+    if cuda:
+        torch.cuda.empty_cache()
+    out["workers"] = worker_fleet(serve_config, vocab, smi, device=dev.type,
+                                  model_spec=None if model_cfg is None else {
+                                      k: getattr(cfg, k) for k in ("vocab_size", "max_seq_len", "num_layers",
+                                                                   "num_heads", "hidden_size")},
+                                  engine_dtype="bf16" if model_cfg is None else "fp32")
+    print(json.dumps({"fleet": out}, default=str))
+    inproc = [e for k in ("two_replicas", "two_replicas_killed") for e in out[k]["replicas"]]
+    return {"inprocess": [(e["split_in_run"], e["combine_in_run"]) for e in inproc],
+            "workers": {str(k): v for k, v in out["workers"]["reported_launches"].items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace a short generate and a train_batch into DIR")
@@ -2458,6 +2913,12 @@ def main() -> int:
     print("[19] training resilience at GPT-2-125M width: NaN skip, rewind, preemption, write faults, async "
           "save, the 3-call loop, save_16bit_model, the CSV monitor")
     resilience = resilience_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    print(f"[20] serving fleet: Router over {FLEET_REPLICAS} in-process replicas (unfaulted, then replica 0 killed "
+          f"at router step {KILL_STEP}), the journal's crash drill, {FLEET_REPLICAS} worker processes under a "
+          f"WorkerSupervisor (SIGKILL, respawn, SIGTERM drain), at GPT-2-125M width")
+    fleet = fleet_phase(dev, smi)
 
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -2465,6 +2926,7 @@ def main() -> int:
         "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:54",
         "launches": launches[0], "combine_launches": launches[1],
         "serving_launches": serving_launches[0], "serving_combine_launches": serving_launches[1],
+        "fleet_inprocess_launches": fleet["inprocess"], "fleet_worker_launches": fleet["workers"],
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"], "library_ratio": times["library_ratio"],

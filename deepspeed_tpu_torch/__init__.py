@@ -24,6 +24,13 @@ It carries the training path and the serving path so far:
 ``ServingEngine`` is continuous batching over a slot KV cache, with its
 decode step one CUDA graph on the card (``inference/serving.py``).
 
+    router = deepspeed_tpu_torch.Router(engine, config={"n_slots": 16, "router": {"replicas": 2}})
+    results = router.serve([...])
+
+``Router`` puts replicas, in process or worker processes reached through
+``ReplicaClient`` (``launcher/serving_worker.py``), behind one surface with
+failover, drain and an optional ``RequestJournal`` (``inference/router.py``).
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
@@ -68,3 +75,15 @@ def init_inference(model=None, config=None, **kwargs):
     from .inference.engine import InferenceEngine
 
     return InferenceEngine(model=model, config=config or {}, **kwargs)
+
+
+_FLEET = ("Router", "ReplicaClient", "RequestJournal")
+
+
+def __getattr__(name):
+    # the fleet's entry points, imported on first use
+    if name in _FLEET:
+        from . import inference
+
+        return getattr(inference, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

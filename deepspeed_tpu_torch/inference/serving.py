@@ -44,14 +44,22 @@ attending at position 0, and the host discards their tokens. Repetition
 penalty is not supported here (its [n_slots, vocab] carry), as in the JAX
 package: use ``InferenceEngine.generate``.
 
+A fleet (``inference/router.Router``) drives the engine through the
+scheduler surface below it: ``load``, ``idle``, ``queue_len``,
+``live_requests``, ``prefix_match_len``, ``set_epoch`` and
+``last_step_compiled``, which exempts a step from the Router's hung
+verdict when it compiled a program, captured the decode graph or loaded
+a kernel library.
+
 Not ported yet: the disaggregated roles (``role="prefill"|"decode"``, the
-KV handoff), which belong to the fleet; the program ledger, the
-flight-recorder rings (``timeseries``), SLO classification and incidents.
-Any of those enabled raises ``NotImplementedError`` naming it.
+KV handoff); the program ledger, the flight-recorder rings
+(``timeseries``), SLO classification and incidents. Any of those enabled
+raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -61,6 +69,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as tfm
+from ..ops import op_builder
 from ..ops.decode_attention import decode_attention
 from ..resilience import FaultInjector, RequestRejected
 from ..runtime.config import (ChunkedPrefillConfig, FaultInjectionConfig,
@@ -238,6 +247,10 @@ class SlotWorker:
         # decode-kernel launches recorded into the graph per replay (split,
         # combine): the wrappers' counters advance only while capturing
         self.graph_launches = (0, 0)
+        # True once a program of the current scheduler step ran for the
+        # first time at its signature (the decode graph's capture included):
+        # the Router's hung verdict exempts such a step
+        self.step_compiled = False
 
     # -- the decode step --------------------------------------------------
 
@@ -289,8 +302,18 @@ class SlotWorker:
                                "step needs it")
         register(self._gen)
         before = (decode_attention.launches, decode_attention.combine_launches)
-        with torch.cuda.graph(graph):
-            self._static_out = self.decode_step(self._static_in)
+        # an engine dropped earlier (its worker sits in a reference cycle)
+        # must not be collected mid-capture: destroying its graph there
+        # invalidates this capture
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._static_out = self.decode_step(self._static_in)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph_launches = (decode_attention.launches - before[0],
                                decode_attention.combine_launches - before[1])
         self._graph = graph
@@ -320,6 +343,7 @@ class SlotWorker:
                                     stable=True)
         t0 = time.perf_counter()
         out = self._decode(pack_decode_inputs(last_tok, pos, wpos, active, temp, top_k, top_p))
+        self.step_compiled |= bool(self._decode.last_call_compiled)
         self._decode_steps += 1
         # the capturing call is excluded from the latency histogram
         if not self._decode.last_call_compiled:
@@ -330,7 +354,7 @@ class SlotWorker:
     def decode_kernel_launches(self) -> tuple[int, int]:
         """(split, combine) decode-kernel launches the graph's replays made:
         the per-replay launches recorded at capture times the replays."""
-        replays = self._decode_steps if self._graph is not None else 0
+        replays = self._decode_steps
         return self.graph_launches[0] * replays, self.graph_launches[1] * replays
 
     # -- eager programs ---------------------------------------------------
@@ -379,6 +403,7 @@ class SlotWorker:
         prog = self._prefills[bucket]
         t0 = time.perf_counter()
         out = prog(bucket, padded, slot, true_len, temperature, top_k, top_p)
+        self.step_compiled |= bool(prog.last_call_compiled)
         if not prog.last_call_compiled:
             tm.histogram("serving/prefill_sec").observe(time.perf_counter() - t0)
         tm.counter(f"serving/prefill_bucket[{bucket}]").inc()
@@ -414,6 +439,7 @@ class SlotWorker:
         tm = self.telemetry
         t0 = time.perf_counter()
         out = prog(width, toks, slot, start, live, temperature, top_k, top_p, fetch)
+        self.step_compiled |= bool(prog.last_call_compiled)
         tm.counter(f"serving/chunk_bucket[{width}]").inc()
         if fetch and not prog.last_call_compiled:
             tm.histogram("serving/chunk_prefill_sec").observe(time.perf_counter() - t0)
@@ -452,12 +478,13 @@ class SlotWorker:
                 p[:, -1].astype(bool))
 
     def verify(self, depth: int, toks, pos, wpos, active, temp, top_k, top_p,
-               greedy_only: bool = False):
+               greedy_only: bool = False, warm: bool = False):
         """Score every slot's draft block in one forward pass through the
         ``depth`` verify program (at most two per power-of-two depth: the
         all-greedy one and the sampled one). Returns host ``(accept,
         resample, clean, bad)`` arrays ([n, depth] / [n, depth+1] /
-        [n, depth+1] / [n])."""
+        [n, depth+1] / [n]). ``warm=True`` (a dispatch with every slot idle,
+        made to compile) records neither a latency nor a verify step."""
         tm = self.telemetry
         key = (depth, greedy_only)
         if key not in self._verifies:
@@ -468,6 +495,9 @@ class SlotWorker:
         t0 = time.perf_counter()
         out = prog(depth, greedy_only, np.asarray(toks, np.int32), pos, np.asarray(wpos, np.int32),
                    active, temp, top_k, top_p)
+        self.step_compiled |= bool(prog.last_call_compiled)
+        if warm:
+            return out
         if not prog.last_call_compiled:
             tm.histogram("serving/verify_step_sec").observe(time.perf_counter() - t0)
         tm.counter("serving/verify_steps").inc()
@@ -489,6 +519,7 @@ class SlotWorker:
             self._fetch = wd.watch(self._fetch_program, wd.unique_name("serving/prefix_fetch"),
                                    stable=True)
         self._fetch(pool_slot, slot)
+        self.step_compiled |= bool(self._fetch.last_call_compiled)
 
     @torch.no_grad()
     def _store_program(self, slot, pool_slot):
@@ -502,6 +533,7 @@ class SlotWorker:
             self._store = wd.watch(self._store_program, wd.unique_name("serving/prefix_store"),
                                    stable=True)
         self._store(slot, pool_slot)
+        self.step_compiled |= bool(self._store.last_call_compiled)
 
     @torch.no_grad()
     def _fill_program(self, slot, value):
@@ -521,13 +553,27 @@ class SlotWorker:
             self._fill = wd.watch(self._fill_program, wd.unique_name("serving/fill_slot"),
                                   stable=True)
         self._fill(slot, float(value))
+        self.step_compiled |= bool(self._fill.last_call_compiled)
 
     def hbm_pools(self) -> dict:
         """Named device-memory pools this worker holds, from tensor bytes."""
-        pools = {"params": tree_bytes(self.params), "slot_kv_cache": tree_bytes(self._cache)}
+        pools = {"params": tree_bytes(self.params)}
+        if self._cache is not None:
+            pools["slot_kv_cache"] = tree_bytes(self._cache)
         if self._pool is not None:
             pools["prefix_pool"] = tree_bytes(self._pool)
         return pools
+
+    def release(self) -> None:
+        """Drop the device state: the slot cache, the prefix pool, the
+        decode graph (its private memory pool goes with it) and the graph's
+        static and pinned buffers. The worker runs nothing afterwards."""
+        self._cache = self._pool = None
+        if self._graph is not None:
+            self._graph.reset()
+        self._graph = None
+        for name in ("_static_in", "_static_out", "_pin_in", "_pin_out", "_done"):
+            self.__dict__.pop(name, None)
 
     def compile_counts(self) -> dict:
         """How many programs this worker compiled (first calls at a new
@@ -722,6 +768,7 @@ class ServingEngine:
         self._terminal_uids: list[int] = []
         self._deadlines_armed = self.default_deadline_s > 0
         self._epoch = time.perf_counter()
+        self._trace_cursor = 0  # take_trace_flush's position in the trace
         self.tracer: Optional[RequestTracer] = (
             RequestTracer(rt.capacity, replica_id=self.replica_id,
                           clock=lambda: time.perf_counter() - self._epoch)
@@ -890,17 +937,102 @@ class ServingEngine:
                    and self._requeues.get(r.uid, 0) == 0
                    and r.uid not in self._exempt_uids)
 
+    def live_progress(self) -> dict[int, list[int]]:
+        """``{uid: tokens so far}`` for every decoding slot (what a worker
+        process piggybacks on its step reply for streaming)."""
+        return {st.uid: list(map(int, st.tokens))
+                for slot, st in enumerate(self._slots)
+                if self._active[slot] and st.uid >= 0}
+
+    def live_requests(self) -> list[Request]:
+        """Accepted, non-terminal requests in scheduler order (queued, then
+        mid-prefill, then decoding): what a Router fails over when this
+        replica is declared dead or hung."""
+        out = list(self._queue)
+        out.extend(pf.req for _, pf in sorted(self._prefilling.items()))
+        out.extend(st.request for slot, st in enumerate(self._slots)
+                   if self._active[slot] and st.request is not None)
+        return out
+
+    def prefix_match_len(self, prompt) -> int:
+        """Longest cached-prefix match (tokens) for ``prompt`` with no side
+        effect (``PrefixIndex.peek``: no hit/miss counts, no LRU bump), for
+        the Router's affinity dispatch; 0 when the feature is off."""
+        if self._pfx is None:
+            return 0
+        p = np.asarray(prompt).reshape(-1)
+        if p.shape[0] < 2:
+            return 0
+        return self._pfx.peek(p, min(p.shape[0] - 1, self.worker.pmax))
+
+    @property
+    def load(self) -> int:
+        """Queued + mid-prefill + decoding requests (least-loaded dispatch)."""
+        return len(self._queue) + len(self._prefilling) + self.n_active
+
     @property
     def idle(self) -> bool:
         return not self._queue and not self._prefilling and not self._active.any()
+
+    @property
+    def queue_len(self) -> int:
+        """Requests queued (arrived or future-dated), not yet admitted."""
+        return len(self._queue)
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of slots held by decoding requests."""
+        return self.n_active / self.n_slots if self.n_slots else 0.0
+
+    def pending_arrival_times(self) -> list[float]:
+        """Arrival times of every queued request (a Router's idle wait)."""
+        return [r.arrival_time for r in self._queue]
+
+    def set_epoch(self, epoch: float) -> None:
+        """Align this engine's clock with a Router's, so that ``step(now=...)``
+        and the request timings mean one instant across the fleet. Call
+        only while idle: in-flight timings are epoch-relative."""
+        self._epoch = float(epoch)
+
+    def take_trace_flush(self, limit: int = 256) -> list[dict]:
+        """Request-trace events recorded since the last call (bounded; the
+        engine's own ring keeps them too): a Router mirrors them each step,
+        so a worker process that dies has already shipped its timeline.
+        Empty when tracing is off."""
+        if self.tracer is None:
+            return []
+        events, self._trace_cursor = self.tracer.events_since(self._trace_cursor, limit)
+        return events
+
+    def take_ring_flush(self, limit: int = 256) -> list[dict]:
+        """The flight-recorder rings' closed cells; the rings
+        (``timeseries``) are not ported, so there are none, as in the JAX
+        engine with its rings off."""
+        return []
+
+    @property
+    def last_step_compiled(self) -> bool:
+        """True if the latest ``step()`` ran a program for the first time at
+        its signature (the decode graph's capture and warm-up included) or
+        built/loaded a kernel library: the Router exempts such a step from
+        its hung verdict."""
+        return self.worker.step_compiled
 
     @property
     def n_active(self) -> int:
         return int(self._active.sum())
 
     @property
+    def n_prefilling(self) -> int:
+        return len(self._prefilling)
+
+    @property
     def n_free(self) -> int:
         return len(self._free)
+
+    @property
+    def quarantined_slots(self) -> set[int]:
+        return set(self._quarantined_slots)
 
     def _pop_earliest_arrived(self, now: float) -> Optional[Request]:
         """The earliest-arrived request whose arrival_time has passed, off
@@ -1447,6 +1579,16 @@ class ServingEngine:
         the queue bound."""
         if now is None:
             now = time.perf_counter() - self._epoch
+        self.worker.step_compiled = False  # a fresh heartbeat window
+        libraries = op_builder.loaded_count()
+        finished = self._step(now, enforce_deadlines)
+        # a kernel library built or loaded inside the step (nvcc takes tens
+        # of seconds on a cold cache) is compiling, not hanging
+        if op_builder.loaded_count() != libraries:
+            self.worker.step_compiled = True
+        return finished
+
+    def _step(self, now: float, enforce_deadlines: bool) -> list[int]:
         tm = self.telemetry
         if enforce_deadlines:
             if self._deadlines_armed:
@@ -1528,10 +1670,51 @@ class ServingEngine:
         card): decode == 1 whatever the workload mix."""
         return self.worker.compile_counts()
 
+    def close(self) -> None:
+        """Release this replica's device memory (``SlotWorker.release``): a
+        Router calls it when it declares the replica dead. Host state
+        (results, counters, the request trace) stays readable; the engine
+        steps no more."""
+        self.worker.release()
+
     def prefix_cache_stats(self) -> Optional[dict]:
         """Host-side prefix-cache view (hits, misses, reuse, pool occupancy,
         resident entries); None when the feature is off."""
         return self._pfx.stats() if self._pfx is not None else None
+
+    def warm_decode(self) -> None:
+        """Run the decode step once with every slot idle (each write lands
+        past Smax and is dropped): on the card this builds and loads the
+        decode kernel and captures the decode graph before any request
+        waits on them. A worker process calls it at boot."""
+        n = self.n_slots
+        self.worker.decode(np.zeros(n, np.int32), np.zeros(n, np.int32), np.full(n, self.Smax, np.int32),
+                           np.zeros(n, bool), self._temp, self._top_k, self._top_p)
+
+    def warm_verify(self, *, sampled: bool = False) -> list[int]:
+        """Run the speculative verify programs once ahead of traffic, one
+        dispatch per power-of-two depth up to ``speculation.depth`` with
+        every slot idle (each write lands past Smax and is dropped), so
+        that no request pays a verify program's first call. Warms the
+        all-greedy family; ``sampled=True`` adds the sampled one. Returns
+        the depths; [] when speculation is off."""
+        if self._drafter is None:
+            return []
+        depths, d = [], 1
+        while True:
+            depths.append(d)
+            if d >= self.spec_cfg.depth:
+                break
+            d *= 2
+        pos = np.zeros(self.n_slots, np.int32)
+        wpos = np.full(self.n_slots, self.worker.Smax, np.int32)
+        off = np.zeros(self.n_slots, bool)
+        for b in depths:
+            toks = np.zeros((self.n_slots, b + 1), np.int32)
+            for greedy_only in ((True, False) if sampled else (True,)):
+                self.worker.verify(b, toks, pos, wpos, off, self._temp, self._top_k, self._top_p,
+                                   greedy_only=greedy_only, warm=True)
+        return depths
 
     def spec_stats(self) -> Optional[dict]:
         """Speculation totals: drafted/accepted tokens, acceptance rate,

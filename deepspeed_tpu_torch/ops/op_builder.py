@@ -83,6 +83,12 @@ def build_many(names) -> dict[str, Path]:
     return {name: _library(name)[1] for name in names}
 
 
+def loaded_count() -> int:
+    """How many libraries this process has loaded: a caller that sees the
+    count change across a call knows the call built or loaded one."""
+    return len(_loaded)
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     if name not in _loaded:

@@ -1,6 +1,5 @@
-"""Deterministic, config-selected fault injection (the training, checkpoint
-and serving sites of ``deepspeed_tpu/resilience/faults.py``, which imports
-no jax).
+"""Deterministic, config-selected fault injection (a copy of
+``deepspeed_tpu/resilience/faults.py``, which imports no jax).
 
 A seeded injector whose every decision is a pure function of
 ``(seed, site, key)``: two runs with the same config inject the same faults
@@ -21,9 +20,24 @@ against an unfaulted run is meaningful. Sites:
                       poisons the request's slot KV, so the next program
                       attending to it computes non-finite logits.
   ``preempt``         simulated preemption before a chosen training step.
-
-The fleet's sites (router replicas, RPC, the HTTP gateway, the control
-plane, the request journal) wait for the port of the fleet.
+  ``replica_dead``    a Router replica dies before a chosen router step
+                      (``inference/router.py``): it is never stepped again
+                      and its in-flight requests fail over.
+  ``replica_hang``    a replica's step at a chosen router step is observed
+                      past ``health.timeout`` (the hung verdict's path).
+  ``rpc_timeout``     the Nth RPC call of a method loses its reply to the
+                      deadline after the call executed (``inference/rpc.py``).
+  ``rpc_conn_reset``  the connection drops after the Nth call of a method
+                      executed (over TCP an abortive RST, ``SO_LINGER(0)``).
+  ``rpc_garbled_frame``  the Nth reply frame of a method fails its
+                      integrity check.
+  ``router_crash``    the control plane dies at a chosen router step
+                      (``Router.step`` raises ``ControlPlaneCrash``).
+  ``journal_append``  the Nth request-journal append fails permanently
+                      (the ``io_error`` family, its own clock).
+  ``gateway_disconnect`` / ``gateway_stall``  the HTTP gateway's streams:
+                      their consumer is not ported; the config refuses
+                      their keys (``FaultInjectionConfig.check_ported``).
 
 Two selection modes compose:
 
@@ -58,6 +72,11 @@ class FaultInjector:
     ``runtime.config.FaultInjectionConfig``, a plain dict with the same
     keys, or None (disabled)."""
 
+    SITES = ("nan_grads", "io_error", "io_flaky", "garbage_logits", "preempt",
+             "replica_dead", "replica_hang",
+             "rpc_timeout", "rpc_conn_reset", "rpc_garbled_frame",
+             "gateway_disconnect", "gateway_stall", "router_crash")
+
     def __init__(self, cfg: Any = None):
         self.enabled = bool(_get(cfg, "enabled", False)) if cfg is not None else False
         self.seed = int(_get(cfg, "seed", 0))
@@ -70,7 +89,19 @@ class FaultInjector:
         self.garbage_logits_uids = set(_get(cfg, "garbage_logits_uids", []) or [])
         self.garbage_logits_phase = str(_get(cfg, "garbage_logits_phase", "decode"))
         self.garbage_logits_decode_step = int(_get(cfg, "garbage_logits_decode_step", 0))
+        # 1-based RequestJournal appends that fail permanently (ENOSPC)
+        self.io_error_journal_appends = set(_get(cfg, "io_error_journal_appends", []) or [])
+        # [replica_id, router_step] pairs (1-based steps)
+        self.replica_dead_at = {tuple(int(x) for x in p) for p in _get(cfg, "replica_dead_at", []) or []}
+        self.replica_hang_at = {tuple(int(x) for x in p) for p in _get(cfg, "replica_hang_at", []) or []}
+        # [method, nth call of that method] pairs (1-based, per client)
+        self.rpc_timeout_at = {(str(p[0]), int(p[1])) for p in _get(cfg, "rpc_timeout_at", []) or []}
+        self.rpc_conn_reset_at = {(str(p[0]), int(p[1])) for p in _get(cfg, "rpc_conn_reset_at", []) or []}
+        self.rpc_garbled_at = {(str(p[0]), int(p[1])) for p in _get(cfg, "rpc_garbled_at", []) or []}
+        # 1-based router steps at which the control plane crashes
+        self.router_crash_at = set(_get(cfg, "router_crash_at", []) or [])
         self._writes = 0  # guarded-write clock (io_error and io_flaky)
+        self._journal_appends = 0  # journal-append clock (io_error family)
         self._fired: set = set()  # list-mode keys fire exactly once
         self._lock = threading.Lock()
         self.injected: Counter = Counter()
@@ -124,12 +155,68 @@ class FaultInjector:
         if self._fire("io_flaky", n in self.io_flaky_writes, n):
             raise TransientIOError(f"fault injection: io_flaky (transient) on guarded write #{n} ({path})")
 
+    def journal_append(self, path: str) -> None:
+        """Journal-append hook: advances its own append clock (a schedule
+        arming "the 3rd journal append" must not depend on checkpoint
+        writes) and raises ``PermanentIOError`` when the append is armed in
+        ``io_error_journal_appends`` (1-based). The fired-set key
+        ``("journal", n)`` never collides with the guarded writes' ints."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._journal_appends += 1
+            n = self._journal_appends
+        if self._fire("io_error", n in self.io_error_journal_appends, ("journal", n)):
+            raise PermanentIOError(f"fault injection: io_error on journal append #{n} ({path})")
+
     def preempt(self, step: int) -> bool:
         """True if a preemption should fire before running ``step``
         (1-based global step)."""
         if not self.enabled:
             return False
         return self._fire("preempt", step in self.preempt_steps, step)
+
+    def replica_dead(self, replica: int, step: int) -> bool:
+        """True if Router replica ``replica`` is found dead before router
+        step ``step`` (1-based)."""
+        if not self.enabled:
+            return False
+        return self._fire("replica_dead", (replica, step) in self.replica_dead_at, (replica, step))
+
+    def replica_hang(self, replica: int, step: int) -> bool:
+        """True if replica ``replica``'s step at router step ``step`` is
+        observed past ``health.timeout``."""
+        if not self.enabled:
+            return False
+        return self._fire("replica_hang", (replica, step) in self.replica_hang_at, (replica, step))
+
+    def rpc_timeout(self, method: str, call_n: int) -> bool:
+        """True if the ``call_n``-th call of ``method`` (1-based, per
+        client) loses its reply to the deadline."""
+        if not self.enabled:
+            return False
+        return self._fire("rpc_timeout", (method, call_n) in self.rpc_timeout_at, (method, call_n))
+
+    def rpc_conn_reset(self, method: str, call_n: int) -> bool:
+        """True if the connection resets after the ``call_n``-th call of
+        ``method`` executed."""
+        if not self.enabled:
+            return False
+        return self._fire("rpc_conn_reset", (method, call_n) in self.rpc_conn_reset_at, (method, call_n))
+
+    def rpc_garbled_frame(self, method: str, call_n: int) -> bool:
+        """True if the ``call_n``-th reply frame of ``method`` fails its
+        integrity check."""
+        if not self.enabled:
+            return False
+        return self._fire("rpc_garbled_frame", (method, call_n) in self.rpc_garbled_at, (method, call_n))
+
+    def router_crash(self, step: int) -> bool:
+        """True if the control plane crashes (``ControlPlaneCrash`` out of
+        ``Router.step``) at router step ``step`` (1-based)."""
+        if not self.enabled:
+            return False
+        return self._fire("router_crash", step in self.router_crash_at, step)
 
     def garbage_logits(self, uid: int, phase: str, decode_step: int = 0) -> bool:
         """True if request ``uid`` should produce NaN logits now. ``phase``
@@ -146,7 +233,7 @@ class FaultInjector:
 
     def stats(self) -> dict:
         return {"injected": dict(self.injected), "opportunities": dict(self.opportunities),
-                "guarded_writes": self._writes}
+                "guarded_writes": self._writes, "journal_appends": self._journal_appends}
 
 
 # -- process-global injector -------------------------------------------

@@ -18,7 +18,7 @@ and the flags ``wall_clock_breakdown``, ``memory_breakdown`` and
 ``dump_state`` set to true), which the port would otherwise accept and
 ignore, the telemetry ``ledger`` (on by default in the JAX package: a
 ``telemetry`` block must pass ``"ledger": {"enabled": false}``), its
-flight-recorder blocks, and the fleet's fault sites; ZeRO stages 0-3 are
+flight-recorder blocks, and the HTTP gateway's fault sites; ZeRO stages 0-3 are
 accepted, since on one device they are the same arithmetic.
 """
 
@@ -221,11 +221,10 @@ _FAULT_SITES = {"nan_grads", "io_error", "io_flaky", "garbage_logits", "preempt"
                 "rpc_garbled_frame", "gateway_disconnect", "gateway_stall", "router_crash"}
 
 
-_FLEET_FAULT_SITES = {"replica_dead", "replica_hang", "rpc_timeout", "rpc_conn_reset", "rpc_garbled_frame",
-                      "gateway_disconnect", "gateway_stall", "router_crash"}
-_FLEET_FAULT_KEYS = ("io_error_journal_appends", "replica_dead_at", "replica_hang_at", "rpc_timeout_at",
-                     "rpc_conn_reset_at", "rpc_garbled_at", "gateway_disconnect_at", "gateway_stall_at",
-                     "router_crash_at")
+# the HTTP gateway's sites: their consumer (launcher/http_gateway.py) is not
+# ported yet
+_GATEWAY_FAULT_SITES = {"gateway_disconnect", "gateway_stall"}
+_GATEWAY_FAULT_KEYS = ("gateway_disconnect_at", "gateway_stall_at")
 
 
 @dataclass
@@ -237,9 +236,12 @@ class FaultInjectionConfig:
     ``sites``; the training engine ``nan_grad_steps`` and ``preempt_steps``
     (1-based global steps) and the checkpoint writer ``io_error_writes``
     and ``io_flaky_writes`` (1-based guarded writes, permanent and
-    transient). The fleet's lists parse so that one config serves both
-    packages; the training engine refuses them by name
-    (``check_ported``) until the fleet is ported."""
+    transient); the fleet ``replica_dead_at`` / ``replica_hang_at``
+    ([replica, router step]), ``rpc_timeout_at`` / ``rpc_conn_reset_at`` /
+    ``rpc_garbled_at`` ([method, nth call]), ``router_crash_at`` (router
+    steps) and the journal's ``io_error_journal_appends``. The HTTP
+    gateway's lists parse so that one config serves both packages, and
+    are refused by name (``check_ported``) until the gateway is ported."""
 
     enabled: bool = False
     seed: int = 0
@@ -298,17 +300,16 @@ class FaultInjectionConfig:
                     f"be 1-based append indices (positive ints), got {s!r}")
 
     def check_ported(self) -> None:
-        """The fleet's sites (router replicas, RPC, the HTTP gateway, the
-        control plane, the request journal) have no consumer in the port
-        yet: a key or ``sites`` entry that selects one raises, naming it."""
-        for name in _FLEET_FAULT_KEYS:
+        """The HTTP gateway's sites have no consumer in the port yet: a key
+        or ``sites`` entry that selects one raises, naming it."""
+        for name in _GATEWAY_FAULT_KEYS:
             if getattr(self, name):
-                raise NotImplementedError(f"fault_injection.{name} (a fleet fault site) is not ported to "
-                                          "deepspeed_tpu_torch yet")
-        fleet = sorted(set(self.sites) & _FLEET_FAULT_SITES)
-        if fleet:
-            raise NotImplementedError(f"fault_injection.sites {fleet} (fleet fault sites) are not ported to "
-                                      "deepspeed_tpu_torch yet")
+                raise NotImplementedError(f"fault_injection.{name} (an HTTP gateway fault site) is not ported "
+                                          "to deepspeed_tpu_torch yet")
+        gateway = sorted(set(self.sites) & _GATEWAY_FAULT_SITES)
+        if gateway:
+            raise NotImplementedError(f"fault_injection.sites {gateway} (HTTP gateway fault sites) are not "
+                                      "ported to deepspeed_tpu_torch yet")
 
 
 @dataclass
@@ -422,6 +423,357 @@ class SpeculationConfig:
             raise DeepSpeedConfigError(
                 f"serving.speculation.ngram_min_match must be >= 1, "
                 f"got {self.ngram_min_match}")
+
+
+# ---------------------------------------------------------------------------
+# The fleet's blocks under ``serving.router`` (and ``serving.gateway``),
+# which ``inference/router.Router``, ``inference/rpc`` and
+# ``launcher/serving_worker`` read: the JAX package's dataclasses, with
+# their defaults and validation errors. ``autoscale``, ``disagg`` and the
+# gateway parse, and refuse being enabled (``check_ported``).
+# ---------------------------------------------------------------------------
+
+@dataclass
+class RouterHealthConfig:
+    """``serving.router.health``: ``timeout`` is the step-latency bound past
+    which a replica's step is a HUNG verdict (0 disables the check);
+    ``max_attempts`` / ``base_delay_s`` / ``max_delay_s`` / ``jitter`` are
+    the probation schedule (``resilience/retry.backoff_delay`` reads them);
+    the ``max_attempts``-th hung verdict escalates to DEAD."""
+
+    timeout: float = 5.0
+    max_attempts: int = 3
+    base_delay_s: float = 0.5
+    max_delay_s: float = 8.0
+    jitter: float = 0.25
+
+    def __post_init__(self):
+        if self.timeout < 0:
+            raise DeepSpeedConfigError(
+                f"serving.router.health.timeout must be >= 0, got {self.timeout}")
+        if self.max_attempts < 1:
+            raise DeepSpeedConfigError(
+                f"serving.router.health.max_attempts must be >= 1, "
+                f"got {self.max_attempts}")
+        if self.base_delay_s < 0 or self.max_delay_s < 0:
+            raise DeepSpeedConfigError(
+                "serving.router.health delays must be >= 0")
+        if not 0.0 <= self.jitter <= 1.0:
+            raise DeepSpeedConfigError(
+                f"serving.router.health.jitter must be in [0, 1], "
+                f"got {self.jitter}")
+
+
+@dataclass
+class JournalConfig:
+    """``serving.router.journal``: the durable request journal
+    (``inference/journal.RequestJournal``). Accepted requests, terminals
+    and cancels are appended (fsync'd unless ``fsync`` is false); a Router
+    built over an existing file replays it and reconciles with the
+    replicas. Compaction every ``rotate_max_records`` appends keeps live
+    requests and the last ``keep_terminals`` terminals."""
+
+    enabled: bool = False
+    path: str = ""
+    fsync: bool = True
+    rotate_max_records: int = 4096
+    keep_terminals: int = 1024
+
+    def __post_init__(self):
+        if self.enabled and not self.path:
+            raise DeepSpeedConfigError(
+                "serving.router.journal.enabled requires journal.path")
+        if self.rotate_max_records < 2:
+            raise DeepSpeedConfigError(
+                f"serving.router.journal.rotate_max_records must be >= 2, "
+                f"got {self.rotate_max_records}")
+        if self.keep_terminals < 0:
+            raise DeepSpeedConfigError(
+                f"serving.router.journal.keep_terminals must be >= 0, "
+                f"got {self.keep_terminals}")
+
+
+@dataclass
+class RouterTransportConfig:
+    """``serving.router.transport``: the RPC to worker-process replicas
+    (``inference/rpc``, ``launcher/serving_worker``). ``family`` unix|tcp;
+    TCP workers of slot i listen on ``port_base + i`` (0: an ephemeral port
+    read from the worker's ready line). ``call_timeout_s`` is the per-call
+    reply deadline (a missed one is the Router's HUNG verdict); the
+    reconnect schedule is ``connect_attempts`` / ``base_delay_s`` /
+    ``max_delay_s`` / ``jitter``. ``boot_timeout_s`` bounds a worker's boot,
+    ``heartbeat_timeout_s`` its heartbeat file's staleness before a SIGKILL
+    (0 disables)."""
+
+    family: str = "unix"
+    host: str = "127.0.0.1"
+    port_base: int = 0
+    call_timeout_s: float = 30.0
+    connect_attempts: int = 4
+    base_delay_s: float = 0.2
+    max_delay_s: float = 2.0
+    jitter: float = 0.25
+    boot_timeout_s: float = 60.0
+    heartbeat_timeout_s: float = 10.0
+
+    def __post_init__(self):
+        if self.family not in ("unix", "tcp"):
+            raise DeepSpeedConfigError(
+                f"serving.router.transport.family must be unix|tcp, "
+                f"got {self.family!r}")
+        if not 0 <= self.port_base <= 65535:
+            raise DeepSpeedConfigError(
+                f"serving.router.transport.port_base must be in [0, 65535], "
+                f"got {self.port_base}")
+        if self.call_timeout_s <= 0:
+            raise DeepSpeedConfigError(
+                f"serving.router.transport.call_timeout_s must be > 0, "
+                f"got {self.call_timeout_s}")
+        if self.connect_attempts < 1:
+            raise DeepSpeedConfigError(
+                f"serving.router.transport.connect_attempts must be >= 1, "
+                f"got {self.connect_attempts}")
+        if self.base_delay_s < 0 or self.max_delay_s < 0:
+            raise DeepSpeedConfigError(
+                "serving.router.transport delays must be >= 0")
+        if not 0.0 <= self.jitter <= 1.0:
+            raise DeepSpeedConfigError(
+                f"serving.router.transport.jitter must be in [0, 1], "
+                f"got {self.jitter}")
+        if self.boot_timeout_s <= 0:
+            raise DeepSpeedConfigError(
+                f"serving.router.transport.boot_timeout_s must be > 0, "
+                f"got {self.boot_timeout_s}")
+        if self.heartbeat_timeout_s < 0:
+            raise DeepSpeedConfigError(
+                f"serving.router.transport.heartbeat_timeout_s must be "
+                f">= 0, got {self.heartbeat_timeout_s}")
+
+
+@dataclass
+class AutoscaleConfig:
+    """``serving.router.autoscale``: the elastic fleet (not ported yet;
+    parsed and validated as in the JAX package, refused when enabled)."""
+
+    enabled: bool = False
+    min_replicas: int = 1
+    max_replicas: int = 4
+    scale_up_queue: int = 4
+    scale_up_load: float = 3.0
+    scale_up_step_s: float = 0.0
+    scale_up_mfu: float = 0.0
+    scale_down_load: float = 0.5
+    up_consecutive: int = 2
+    down_consecutive: int = 4
+    cooldown_s: float = 5.0
+    brownout_deadline_s: float = 0.0
+    events_capacity: int = 256
+
+    def __post_init__(self):
+        if self.min_replicas < 1:
+            raise DeepSpeedConfigError(
+                f"serving.router.autoscale.min_replicas must be >= 1, "
+                f"got {self.min_replicas}")
+        if self.max_replicas < self.min_replicas:
+            raise DeepSpeedConfigError(
+                f"serving.router.autoscale.max_replicas ({self.max_replicas}) "
+                f"must be >= min_replicas ({self.min_replicas})")
+        if self.up_consecutive < 1 or self.down_consecutive < 1:
+            raise DeepSpeedConfigError(
+                "serving.router.autoscale up/down_consecutive must be >= 1")
+        if self.cooldown_s < 0 or self.brownout_deadline_s < 0:
+            raise DeepSpeedConfigError(
+                "serving.router.autoscale cooldown_s/brownout_deadline_s "
+                "must be >= 0")
+        if (self.scale_up_queue < 0 or self.scale_up_load < 0
+                or self.scale_up_step_s < 0 or self.scale_down_load < 0
+                or not 0.0 <= self.scale_up_mfu <= 1.0):
+            raise DeepSpeedConfigError(
+                "serving.router.autoscale thresholds must be >= 0 "
+                "(scale_up_mfu in [0, 1])")
+        if 0 < self.scale_up_load < self.scale_down_load:
+            raise DeepSpeedConfigError(
+                f"serving.router.autoscale.scale_down_load "
+                f"({self.scale_down_load}) must be <= scale_up_load "
+                f"({self.scale_up_load})")
+        if self.events_capacity < 1:
+            raise DeepSpeedConfigError(
+                f"serving.router.autoscale.events_capacity must be >= 1, "
+                f"got {self.events_capacity}")
+
+
+@dataclass
+class DisaggConfig:
+    """``serving.router.disagg``: disaggregated prefill/decode pools with a
+    KV handoff (not ported yet; parsed and validated as in the JAX
+    package, refused when enabled)."""
+
+    enabled: bool = False
+    prefill_replicas: int = 1
+    decode_replicas: int = 1
+    handoff_chunk: int = 64
+    kv_compression: str = "none"
+    prefill_min_replicas: int = 1
+    prefill_max_replicas: int = 4
+    decode_min_replicas: int = 1
+    decode_max_replicas: int = 4
+    prefill_scale_up_queue: int = 4
+    prefill_scale_up_backlog: int = 4
+    decode_scale_up_occupancy: float = 0.75
+    decode_scale_up_step_s: float = 0.0
+
+    def __post_init__(self):
+        if self.prefill_replicas < 1 or self.decode_replicas < 1:
+            raise DeepSpeedConfigError(
+                "serving.router.disagg prefill_replicas/decode_replicas "
+                "must be >= 1")
+        w = self.handoff_chunk
+        if w < 8 or w > 128 or (w & (w - 1)) != 0:
+            raise DeepSpeedConfigError(
+                f"serving.router.disagg.handoff_chunk must be a power of "
+                f"two in [8, 128], got {w}")
+        if self.kv_compression not in ("none", "int8"):
+            raise DeepSpeedConfigError(
+                f"serving.router.disagg.kv_compression must be none|int8, "
+                f"got {self.kv_compression!r}")
+        if self.prefill_min_replicas < 1 or self.decode_min_replicas < 1:
+            raise DeepSpeedConfigError(
+                "serving.router.disagg per-pool min replicas must be >= 1")
+        if (self.prefill_max_replicas < self.prefill_min_replicas
+                or self.decode_max_replicas < self.decode_min_replicas):
+            raise DeepSpeedConfigError(
+                "serving.router.disagg per-pool max replicas must be >= "
+                "the pool's min replicas")
+        if (self.prefill_scale_up_queue < 0
+                or self.prefill_scale_up_backlog < 0
+                or self.decode_scale_up_step_s < 0
+                or not 0.0 <= self.decode_scale_up_occupancy <= 1.0):
+            raise DeepSpeedConfigError(
+                "serving.router.disagg scale thresholds must be >= 0 "
+                "(decode_scale_up_occupancy in [0, 1])")
+
+
+@dataclass
+class GatewayAuthConfig:
+    """``serving.gateway.auth``: bearer-token tenants of the HTTP gateway
+    (not ported yet; parsed and validated as in the JAX package)."""
+
+    enabled: bool = False
+    tenants: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        coerced = {}
+        for tid, block in (self.tenants or {}).items():
+            if not tid or any(ord(c) < 0x20 or c == "\x7f" for c in tid):
+                raise DeepSpeedConfigError(
+                    f"serving.gateway.auth.tenants id {tid!r} must be a "
+                    f"non-empty string without control characters")
+            coerced[tid] = (_build(TenantConfig, block)
+                            if isinstance(block, dict) else block)
+        self.tenants = coerced
+        if self.enabled and not self.tenants:
+            raise DeepSpeedConfigError(
+                "serving.gateway.auth.enabled requires at least one "
+                "entry in serving.gateway.auth.tenants")
+        if self.enabled:
+            for tid, t in self.tenants.items():
+                if not t.token_sha256:
+                    raise DeepSpeedConfigError(
+                        f"serving.gateway.auth tenant {tid!r} needs a "
+                        f"token_sha256 digest when auth is enabled")
+
+
+@dataclass
+class GatewayConfig:
+    """``serving.gateway``: the HTTP/SSE front door (not ported yet; parsed
+    and validated as in the JAX package, refused when enabled)."""
+
+    enabled: bool = False
+    host: str = "127.0.0.1"
+    port: int = 0
+    stream_poll_s: float = 0.05
+    write_timeout_s: float = 10.0
+    retry_after_s: float = 0.0
+    max_body_bytes: int = 1 << 20
+    shutdown_grace_s: float = 30.0
+    metrics_fleet_refresh_s: float = 0.0
+    auth: GatewayAuthConfig = field(default_factory=GatewayAuthConfig)
+
+    def __post_init__(self):
+        if isinstance(self.auth, dict):
+            self.auth = _build(GatewayAuthConfig, self.auth)
+        if not 0 <= self.port <= 65535:
+            raise DeepSpeedConfigError(
+                f"serving.gateway.port must be in [0, 65535], got {self.port}")
+        if self.stream_poll_s <= 0:
+            raise DeepSpeedConfigError(
+                f"serving.gateway.stream_poll_s must be > 0, "
+                f"got {self.stream_poll_s}")
+        if self.write_timeout_s < 0 or self.retry_after_s < 0 \
+                or self.shutdown_grace_s < 0 \
+                or self.metrics_fleet_refresh_s < 0:
+            raise DeepSpeedConfigError(
+                "serving.gateway write_timeout_s/retry_after_s/"
+                "shutdown_grace_s/metrics_fleet_refresh_s must be >= 0")
+        if self.max_body_bytes < 1:
+            raise DeepSpeedConfigError(
+                f"serving.gateway.max_body_bytes must be >= 1, "
+                f"got {self.max_body_bytes}")
+
+    def check_ported(self) -> None:
+        if self.enabled:
+            raise NotImplementedError(
+                "serving.gateway (the HTTP/SSE front door, launcher/http_gateway.py) is not ported to "
+                "deepspeed_tpu_torch yet")
+
+
+@dataclass
+class RouterConfig:
+    """``serving.router``: ``replicas`` ``ServingEngine``s behind one
+    ``Router``; ``affinity`` routes a prompt to the replica whose prefix
+    trie holds its longest match; ``max_queue_len`` bounds arrived,
+    unadmitted requests across the fleet (0 = none); and the ``health``,
+    ``transport`` and ``journal`` sub-blocks above. ``autoscale`` and
+    ``disagg`` parse and are refused when enabled (``check_ported``)."""
+
+    replicas: int = 1
+    affinity: bool = True
+    max_queue_len: int = 0
+    health: RouterHealthConfig = field(default_factory=RouterHealthConfig)
+    transport: RouterTransportConfig = field(
+        default_factory=RouterTransportConfig)
+    autoscale: AutoscaleConfig = field(default_factory=AutoscaleConfig)
+    disagg: DisaggConfig = field(default_factory=DisaggConfig)
+    journal: JournalConfig = field(default_factory=JournalConfig)
+
+    def __post_init__(self):
+        if isinstance(self.health, dict):
+            self.health = _build(RouterHealthConfig, self.health)
+        if isinstance(self.transport, dict):
+            self.transport = _build(RouterTransportConfig, self.transport)
+        if isinstance(self.autoscale, dict):
+            self.autoscale = _build(AutoscaleConfig, self.autoscale)
+        if isinstance(self.disagg, dict):
+            self.disagg = _build(DisaggConfig, self.disagg)
+        if isinstance(self.journal, dict):
+            self.journal = _build(JournalConfig, self.journal)
+        if self.replicas < 1:
+            raise DeepSpeedConfigError(
+                f"serving.router.replicas must be >= 1, got {self.replicas}")
+        if self.max_queue_len < 0:
+            raise DeepSpeedConfigError(
+                f"serving.router.max_queue_len must be >= 0, "
+                f"got {self.max_queue_len}")
+
+    def check_ported(self) -> None:
+        if self.autoscale.enabled:
+            raise NotImplementedError(
+                "serving.router.autoscale (the elastic fleet, inference/autoscaler.py) is not ported to "
+                "deepspeed_tpu_torch yet")
+        if self.disagg.enabled:
+            raise NotImplementedError(
+                "serving.router.disagg (disaggregated prefill/decode pools with a KV handoff) is not "
+                "ported to deepspeed_tpu_torch yet")
 
 
 # ---------------------------------------------------------------------------

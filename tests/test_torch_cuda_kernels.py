@@ -864,6 +864,65 @@ def test_serving_decode_graph_replay_launches_each_kernel_per_layer(cuda_device)
     assert sum("decode_combine_kernel" in x for x in names) == L, names
 
 
+def _two_replicas(device):
+    from deepspeed_tpu_torch.inference import Router
+
+    eng = deepspeed_tpu_torch.init_inference(tfm.Model(tfm.TransformerConfig(**_SERVE_TINY)),
+                                             config={"dtype": "fp32"}, device=device)
+    return Router(eng, config={"n_slots": 4, "router": {"replicas": 2, "health": {"timeout": 60.0}}})
+
+
+def test_inprocess_replicas_capture_separate_graphs(cuda_device):
+    """Two in-process replicas over one engine's parameters: each captures
+    its own decode graph, in its own memory pool, over its own static
+    input/output buffers and slot cache."""
+    router = _two_replicas(cuda_device)
+    for r in router._replicas:
+        r.engine.warm_decode()
+    a, b = (r.engine.worker for r in router._replicas)
+    assert a._graph is not None and b._graph is not None and a._graph is not b._graph
+    assert a._graph.pool() != b._graph.pool()
+    for name in ("_static_in", "_static_out"):
+        assert getattr(a, name).data_ptr() != getattr(b, name).data_ptr(), name
+    assert a._cache["k"].data_ptr() != b._cache["k"].data_ptr()
+    assert a.params is b.params  # the weights are shared, the state is not
+    assert [r.engine.compile_counts()["decode"] for r in router._replicas] == [1, 1]
+
+
+def test_replay_of_one_replica_leaves_the_other_unchanged(cuda_device):
+    """A replica's replays write only its own slot cache: the sibling's cache
+    and graph output stay bitwise as they were; a replica the Router marks
+    dead releases its cache and graph."""
+    from deepspeed_tpu_torch.inference import Request
+
+    router = _two_replicas(cuda_device)
+    reqs = _serve_requests(8, seed=4)
+    for r in reqs:
+        router.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=24))
+    for _ in range(4):
+        router.step(now=0.0)
+    a, b = (r.engine for r in router._replicas)
+    assert a.n_active and b.n_active
+    frozen = {kv: t.clone() for kv, t in b.worker._cache.items()}
+    out_b = b.worker._static_out.clone()
+    for _ in range(3):
+        a.step(now=0.0)
+    torch.cuda.synchronize()
+    for kv in frozen:
+        assert torch.equal(b.worker._cache[kv], frozen[kv]), kv
+    assert torch.equal(b.worker._static_out, out_b)
+    del frozen, out_b
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cache_bytes = sum(t.numel() * t.element_size() for t in b.worker._cache.values())
+    router._fail(router._replicas[1], "dead", 0.0, [])
+    torch.cuda.synchronize()
+    assert b.worker._cache is None and b.worker._graph is None
+    assert before - torch.cuda.memory_allocated() >= cache_bytes
+    res = router.drain()
+    assert all(r.ok for r in res.values()) and len(res) == 8
+
+
 # ---------------------------------------------------------------------------
 # Training resilience on the card: an injected NaN step through the kernels,
 # and the async save's staging copy

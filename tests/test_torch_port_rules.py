@@ -1,8 +1,10 @@
 """Rules the PyTorch port keeps: it imports neither JAX nor the JAX package,
 it runs on CUDA unless asked for the CPU, and its kernel wrappers take the
 plain path only for CPU tensors. The no-JAX subprocess imports every module
-and runs a serving step, a flash training step and a block-sparse training
-step fed by the curriculum and the dataloader."""
+and runs a serving step, a two-replica Router with a journal through a
+replica's death, a flash training step and a block-sparse training step
+fed by the curriculum and the dataloader; the serving worker's
+``python -m`` entry point runs with JAX blocked too."""
 
 import ast
 import pathlib
@@ -39,6 +41,16 @@ srv = ServingEngine(eng, config={{"n_slots": 2, "prefix_cache": {{"enabled": Tru
                                  "chunked_prefill": {{"enabled": True}}, "speculation": {{"enabled": True}}}})
 res = srv.serve([Request(uid=i, prompt=np.arange(5 + i, dtype=np.int32), max_new_tokens=3) for i in range(3)])
 assert all(r.ok for r in res.values()) and srv.compile_counts()["decode"] == 1
+import tempfile, os
+from deepspeed_tpu_torch.inference import Router, RequestJournal
+with tempfile.TemporaryDirectory() as d:
+    router = Router(eng, config={{"n_slots": 2, "router": {{"replicas": 2, "journal": {{"enabled": True,
+                                 "path": os.path.join(d, "j")}}}},
+                                 "fault_injection": {{"enabled": True, "replica_dead_at": [[0, 2]]}}}})
+    res = router.serve([Request(uid=i, prompt=np.arange(5 + i, dtype=np.int32), max_new_tokens=3)
+                        for i in range(3)])
+    assert all(r.ok for r in res.values()) and router.replica_states()[0] == "dead"
+    assert sorted(RequestJournal(os.path.join(d, "j")).state.terminals) == [0, 1, 2]
 model = Model(TransformerConfig(**{TINY!r}, attn_impl="flash"))
 trainer, _, _, _ = pkg.initialize(model=model, config={{"train_batch_size": 2}}, device="cpu")
 metrics = trainer.train_batch({{"tokens": np.zeros((2, 9), np.int32)}})
@@ -77,6 +89,26 @@ def _imported_modules(path):
             name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
             if name in ("import_module", "__import__") and isinstance(node.args[0].value, str):
                 yield node.args[0].value
+
+
+_WORKER_HELP = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["deepspeed_tpu"] = None
+sys.argv = ["serving_worker", "--help"]
+try:
+    runpy.run_module("deepspeed_tpu_torch.launcher.serving_worker", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_serving_worker_entry_point_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _WORKER_HELP], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "--socket" in proc.stdout
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],

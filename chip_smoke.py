@@ -148,15 +148,18 @@ Phases, each of which passes or makes the script exit non-zero:
      (benchmarks/serving_throughput.py:339-405): every request terminal,
      failovers recovered, survivors idle with their slots accounted, one
      decode program a replica, each replica's launches = 12 x its replays
-     (and the profiler's kernel records over 3 fleet steps), the dead
+     (so by construction: the profiler's kernel records over 3 fleet
+     steps are the measurement), the dead
      replica's device memory released; a small fp32 fleet's kill whose
      greedy streams must equal the unfaulted run's; the request journal
      (fsync on) through a router_crash and a new Router's recovery, every
      accepted request delivered exactly once; 2 worker processes on the
      card under a WorkerSupervisor (unix sockets), worker 0 SIGKILLed after
      router step 10, the DEAD verdict's failover, respawn and
-     attach_replica, each worker's decode launches as it reports them, and
-     a SIGTERM drain with exit 0. It prints tokens/s, TTFT p50/p99 and TPOT
+     attach_replica, each worker's decode launches as it reports them
+     (its boot warm-up excluded), the live workers' own profiler kernel
+     records over 3 decoding steps after the timed run, and a SIGTERM
+     drain with exit 0. It prints tokens/s, TTFT p50/p99 and TPOT
      p50 of each run, the time from the kill to the last failed-over
      admission, the recovery time, the worker boot and respawn seconds,
      beside the card's name and power limit.
@@ -2364,6 +2367,7 @@ def profile(label, fn, out_dir):
 FLEET_REPLICAS = 2
 KILL_STEP = 10  # benchmarks/serving_throughput.py --kill-step 10
 FLEET_HEALTH = {"timeout": 30.0}
+PROFILE_STEPS = 3  # a worker's profiled decoding steps, after the timed run
 JOURNAL_CRASH_STEP = 20
 # the worker processes' transport: their boots (interpreter, CUDA context,
 # weights, the decode kernel's library and graph) and the first steps
@@ -2432,13 +2436,15 @@ def check_fleet_contract(router, res, label, killed):
 
 
 def replica_launches(router, expect):
-    """(split, combine) decode-kernel launches per replica, checked against
-    num_layers x each replica's graph replays."""
+    """(split, combine) decode-kernel launches per replica: the launches one
+    replay makes, counted by the wrappers at capture (num_layers each),
+    times the graph's replays. The product holds by construction; the
+    profiler's kernel records (fleet_profiled_launches) measure it."""
     out, ok = [], True
     for r in router._replicas:
         w = r.engine.worker
         split, combine = w.decode_kernel_launches()
-        replays = w._decode_steps
+        replays = w.graph_replays
         ok &= w.graph_launches == (expect, expect) and split == combine == expect * replays
         out.append({"rid": r.rid, "state": r.state, "replays": replays, "split": split, "combine": combine})
     return out, ok
@@ -2461,7 +2467,8 @@ def run_fleet(router, reqs, label, smi, expect, on_step=None, killed=False):
     total = (sum(e["split"] for e in launches), sum(e["combine"] for e in launches))
     replays = sum(e["replays"] for e in launches)
     print(f"    decode launches by the replicas' graphs (split, combine) {[(e['split'], e['combine']) for e in launches]}"
-          f" = {total} for {replays} replays (expect {expect} x replays each)  {'ok' if ok else 'FAIL'}")
+          f" = {total} for {replays} replays (the capture's {expect} x replays each, by construction)  "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"fleet {label}: the decode launches do not match the replays")
     return res, m
@@ -2479,12 +2486,12 @@ def fleet_profiled_launches(router, vocab, steps=3):
         router.submit(r)
     router.step()
     router.step()
-    before = sum(r.engine.worker._decode_steps for r in router._replicas)
+    before = sum(r.engine.worker.graph_replays for r in router._replicas)
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             router.step()
         torch.cuda.synchronize()
-    replays = sum(r.engine.worker._decode_steps for r in router._replicas) - before
+    replays = sum(r.engine.worker.graph_replays for r in router._replicas) - before
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     router.drain()
     return (sum("decode_split_kernel" in n for n in names), sum("decode_combine_kernel" in n for n in names),
@@ -2618,8 +2625,8 @@ def worker_fleet(serve_config, vocab, smi, device="cuda", model_spec=None, engin
     from deepspeed_tpu_torch.inference import Request, Router
     from deepspeed_tpu_torch.launcher.serving_worker import WorkerSupervisor
 
-    spec = {"model": {**(model_spec or GPT2_SPEC), "dtype": "float32"}, "engine_dtype": engine_dtype,
-            "serving": {**serve_config, "watchdog_mode": "raise"}}
+    model = {**(model_spec or GPT2_SPEC), "dtype": "float32"}
+    spec = {"model": model, "engine_dtype": engine_dtype, "serving": {**serve_config, "watchdog_mode": "raise"}}
     real, workdir = _socket_dir()
     sup = WorkerSupervisor(spec, FLEET_REPLICAS, workdir=workdir, transport=FLEET_TRANSPORT, device=device,
                            respawn_backoff={"max_attempts": 10, "base_delay_s": 0.05, "max_delay_s": 0.1,
@@ -2632,12 +2639,16 @@ def worker_fleet(serve_config, vocab, smi, device="cuda", model_spec=None, engin
         out["boot_s"] = time.perf_counter() - t0
         router = Router(config={"router": {"replicas": FLEET_REPLICAS, "health": dict(FLEET_HEALTH),
                                            "transport": FLEET_TRANSPORT}}, replica_engines=clients)
-        reported = {}
+        reported, records = {}, {}
         killed = {}
+
+        def read(slot, client):
+            snap = client.telemetry_snapshot()
+            reported[slot], records[slot] = snap["decode_kernel_launches"], snap["decode_kernel_records"]
 
         def kill_after(r):
             if r._steps == KILL_STEP and not killed:
-                reported[0] = clients[0].telemetry_snapshot()["decode_kernel_launches"]
+                read(0, clients[0])
                 sup.kill(0, signal.SIGKILL)
                 killed["t"] = r.now()
 
@@ -2660,6 +2671,11 @@ def worker_fleet(serve_config, vocab, smi, device="cuda", model_spec=None, engin
         fresh = sup.respawn(0)
         out["respawn_s"] = time.perf_counter() - t0
         rid = router.attach_replica(fresh)
+        # after the timed run: each live worker traces its next
+        # PROFILE_STEPS decoding steps (the decode kernels' device records
+        # beside its graph replays in that window)
+        for client in (clients[1], fresh):
+            client.rpc.call("profile_decode_steps", steps=PROFILE_STEPS)
         extra = [Request(uid=9900 + i, prompt=np.arange(1, 30 + i, dtype=np.int32), max_new_tokens=8)
                  for i in range(2)]
         for r in extra:
@@ -2672,7 +2688,7 @@ def worker_fleet(serve_config, vocab, smi, device="cuda", model_spec=None, engin
         if not attach_ok:
             raise SystemExit("the respawned worker did not rejoin the fleet")
         for slot, client in ((1, clients[1]), (2, fresh)):
-            reported[slot] = client.telemetry_snapshot()["decode_kernel_launches"]
+            read(slot, client)
         sup.shutdown(signal.SIGTERM, timeout=120.0)
         drained = {}
         for slot in range(FLEET_REPLICAS):
@@ -2680,16 +2696,24 @@ def worker_fleet(serve_config, vocab, smi, device="cuda", model_spec=None, engin
             ev = [e for e in lines if e.get("event") == "drained"]
             drained[slot] = (sup.proc(slot).returncode, ev[0] if ev else None)
         drain_ok = all(rc == 0 and ev is not None for rc, ev in drained.values())
-        launches_ok = all(v[0] > 0 and v[0] == v[1] for v in reported.values()) or device != "cuda"
-        print(f"    decode-kernel launches (split, combine) as each worker reported them: worker 0 before its kill "
-              f"{reported[0]}, worker 1 {reported[1]}, the respawned worker {reported[2]}  "
+        L = model["num_layers"]
+        launches_ok = device != "cuda" or all(
+            v[0] > 0 and v[0] == v[1] for v in reported.values()) and all(
+            records[k] is not None and records[k]["replays"] > 0
+            and records[k]["split"] == records[k]["combine"] == L * records[k]["replays"] for k in (1, 2))
+        print(f"    decode-kernel launches (split, combine) as each worker reported them, its warm-up replay "
+              f"excluded: worker 0 before its kill {reported[0]}, worker 1 {reported[1]}, the respawned worker "
+              f"{reported[2]}; worker 1's and the respawned worker's profiler over {PROFILE_STEPS} decoding steps "
+              f"after the timed run (split and combine kernel records, replays; expect {L} x replays): "
+              f"{[(k, r and (r['split'], r['combine'], r['replays'])) for k, r in records.items() if k]}  "
               f"{'ok' if launches_ok else 'FAIL'}; SIGTERM: exit codes and drained lines "
               f"{[(rc, ev and ev['decode_kernel_launches']) for rc, ev in drained.values()]}  "
               f"{'ok' if drain_ok else 'FAIL'}")
         if not (launches_ok and drain_ok):
-            raise SystemExit("a worker launched no decode kernel or did not drain on SIGTERM")
+            raise SystemExit("a worker launched no decode kernel, its profiler saw other than num_layers split "
+                             "and combine kernels a replay, or it did not drain on SIGTERM")
         out.update(metrics=m, failovers=counters.get("router/failovers", 0), reported_launches=reported,
-                   drained={s: ev for s, (_, ev) in drained.items()})
+                   profiled_launches=records, drained={s: ev for s, (_, ev) in drained.items()})
         return out
     finally:
         sup.shutdown(signal.SIGKILL, timeout=10.0)

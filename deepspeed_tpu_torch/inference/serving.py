@@ -247,6 +247,8 @@ class SlotWorker:
         # decode-kernel launches recorded into the graph per replay (split,
         # combine): the wrappers' counters advance only while capturing
         self.graph_launches = (0, 0)
+        # the graph's replays on traffic (a warm-up's is not counted)
+        self.graph_replays = 0
         # True once a program of the current scheduler step ran for the
         # first time at its signature (the decode graph's capture included):
         # the Router's hung verdict exempts such a step
@@ -331,11 +333,12 @@ class SlotWorker:
         self._done.synchronize()
         return self._pin_out.numpy().copy()
 
-    def decode(self, last_tok, pos, wpos, active, temp, top_k, top_p):
+    def decode(self, last_tok, pos, wpos, active, temp, top_k, top_p, warm: bool = False):
         """Advance EVERY slot one token: the compile-stable path (one
         program, one CUDA graph on the card). Returns host ``(next_token,
         bad)`` [n_slots] arrays; the read syncs, so the recorded latency is
-        the device's."""
+        the device's. ``warm=True`` (every slot idle, made to capture)
+        records neither a latency nor a decode step nor a replay."""
         tm = self.telemetry
         if self._decode is None:
             wd = tm.watchdog
@@ -344,7 +347,11 @@ class SlotWorker:
         t0 = time.perf_counter()
         out = self._decode(pack_decode_inputs(last_tok, pos, wpos, active, temp, top_k, top_p))
         self.step_compiled |= bool(self._decode.last_call_compiled)
+        if warm:
+            return out[:, 0], out[:, 1].astype(bool)
         self._decode_steps += 1
+        if self._graph is not None:
+            self.graph_replays += 1
         # the capturing call is excluded from the latency histogram
         if not self._decode.last_call_compiled:
             tm.histogram("serving/decode_step_sec").observe(time.perf_counter() - t0)
@@ -352,10 +359,12 @@ class SlotWorker:
         return out[:, 0], out[:, 1].astype(bool)
 
     def decode_kernel_launches(self) -> tuple[int, int]:
-        """(split, combine) decode-kernel launches the graph's replays made:
-        the per-replay launches recorded at capture times the replays."""
-        replays = self._decode_steps
-        return self.graph_launches[0] * replays, self.graph_launches[1] * replays
+        """(split, combine) decode-kernel launches the graph's replays made
+        on traffic: the launches one replay makes, as the wrappers counted
+        them while capturing, times the replays. A replay cannot count, so
+        this follows from the capture; the profiler's kernel records over
+        replays are what measure it."""
+        return self.graph_launches[0] * self.graph_replays, self.graph_launches[1] * self.graph_replays
 
     # -- eager programs ---------------------------------------------------
 
@@ -1686,10 +1695,11 @@ class ServingEngine:
         """Run the decode step once with every slot idle (each write lands
         past Smax and is dropped): on the card this builds and loads the
         decode kernel and captures the decode graph before any request
-        waits on them. A worker process calls it at boot."""
+        waits on them. A worker process calls it at boot. It counts as no
+        decode step and no replay."""
         n = self.n_slots
         self.worker.decode(np.zeros(n, np.int32), np.zeros(n, np.int32), np.full(n, self.Smax, np.int32),
-                           np.zeros(n, bool), self._temp, self._top_k, self._top_p)
+                           np.zeros(n, bool), self._temp, self._top_k, self._top_p, warm=True)
 
     def warm_verify(self, *, sampled: bool = False) -> list[int]:
         """Run the speculative verify programs once ahead of traffic, one

@@ -14,7 +14,11 @@ line). ``--device`` is ``cuda`` (the default: the worker raises without a
 card, it never falls back) or ``cpu``. On the card the worker builds the
 decode kernel and captures and replays its decode graph once before it
 opens its socket: a worker that cannot build or launch the kernel fails
-its boot.
+its boot. That warm-up counts as no decode step. The port's own handler
+``profile_decode_steps(steps)`` traces the next steps that begin with a
+decoding slot under torch.profiler; ``telemetry_snapshot`` then reports
+the decode kernels' device records beside the graph replays of that
+window (``decode_kernel_records``).
 
 Process lifecycle:
 
@@ -106,6 +110,11 @@ class WorkerHost:
         self._hb_last = 0.0
         self._unacked: list[int] = []  # terminal uids awaiting client ack
         self._withdrawn: dict[int, dict] = {}  # uid -> encoded request
+        # the profiler window ``profile_decode_steps`` arms
+        self._profile_left = 0
+        self._prof = None
+        self._replays0 = 0
+        self.decode_kernel_records: Optional[dict] = None
         if heartbeat:
             # beat from a daemon thread, not only between frames: a long
             # handler (a first graph capture, a big drain) blocks the serve
@@ -197,9 +206,11 @@ class WorkerHost:
                 self._unacked.remove(int(uid))
             except ValueError:
                 pass
+        self._profile_open()
         uids = self.engine.step(
             now=None if now is None else float(now),
             enforce_deadlines=bool(enforce_deadlines))
+        self._profile_count()
         known = set(self._unacked)
         self._unacked.extend(u for u in uids if u not in known)
         results = {}
@@ -230,6 +241,43 @@ class WorkerHost:
             reply["progress"] = {
                 str(u): t for u, t in self.engine.live_progress().items()}
         return reply
+
+    def profile_decode_steps(self, steps: int) -> dict:
+        """Arm a torch.profiler window over the next ``steps`` steps that
+        begin with a decoding slot (the port's own handler). When it closes,
+        ``telemetry_snapshot`` reports the decode kernels' device records
+        beside the graph replays in the window: the launch count is the
+        per-replay launches times the replays, and the records measure it."""
+        self._profile_left, self.decode_kernel_records = int(steps), None
+        return {"armed": self._profile_left}
+
+    def _profile_open(self) -> None:
+        if self._profile_left <= 0 or self._prof is not None or not self.engine.n_active:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.engine.worker.device.type == "cuda"
+        self._prof = profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU])
+        self._prof.start()
+        self._replays0 = self.engine.worker.graph_replays
+
+    def _profile_count(self) -> None:
+        if self._prof is None:
+            return
+        self._profile_left -= 1
+        if self._profile_left:
+            return
+        import torch
+
+        if self.engine.worker.device.type == "cuda":
+            torch.cuda.synchronize()
+        self._prof.stop()
+        names = [e.name for e in self._prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        self._prof = None
+        self.decode_kernel_records = {
+            "split": sum("decode_split_kernel" in n for n in names),
+            "combine": sum("decode_combine_kernel" in n for n in names),
+            "replays": self.engine.worker.graph_replays - self._replays0}
 
     def live_requests(self) -> list:
         return [encode_request(r) for r in self.engine.live_requests()]
@@ -274,6 +322,7 @@ class WorkerHost:
         # the decode kernel's (split, combine) launches by this process's
         # graph replays: the fleet's launch count, read from the worker
         snap["decode_kernel_launches"] = list(self.engine.worker.decode_kernel_launches())
+        snap["decode_kernel_records"] = self.decode_kernel_records
         return snap
 
     def compile_counts(self) -> dict:
@@ -287,7 +336,7 @@ class WorkerHost:
             "ping", "submit", "requeue", "withdraw", "cancel", "result",
             "step", "live_requests", "reconcile", "arrived_queue_len",
             "prefix_match_len", "set_epoch", "drain", "telemetry_snapshot",
-            "compile_counts", "prefix_cache_stats")}
+            "compile_counts", "prefix_cache_stats", "profile_decode_steps")}
 
 
 def _pid_alive(pid: int) -> bool:

@@ -889,6 +889,30 @@ def test_inprocess_replicas_capture_separate_graphs(cuda_device):
     assert [r.engine.compile_counts()["decode"] for r in router._replicas] == [1, 1]
 
 
+def test_worker_profiler_sees_each_replays_decode_kernels(cuda_device):
+    """A WorkerHost's profiler window on the card: num_layers split and
+    combine kernel records for each graph replay it saw; the boot warm-up
+    (capture plus one replay) counts as no replay."""
+    from deepspeed_tpu_torch.inference import Request
+    from deepspeed_tpu_torch.inference.rpc import encode_request
+    from deepspeed_tpu_torch.launcher.serving_worker import WorkerHost
+
+    srv = _serving(cuda_device, n_slots=4)
+    L = _SERVE_TINY["num_layers"]
+    srv.warm_decode()
+    assert srv.worker.graph_launches == (L, L) and srv.worker.decode_kernel_launches() == (0, 0)
+    host = WorkerHost(srv)
+    host.profile_decode_steps(3)
+    for r in _serve_requests(4, seed=6):
+        host.submit(encode_request(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=12)))
+    for _ in range(6):
+        host.step(now=0.0)
+    rec = host.telemetry_snapshot()["decode_kernel_records"]
+    assert rec is not None and rec["replays"] == 3, rec
+    assert rec["split"] == rec["combine"] == L * rec["replays"], rec
+    assert srv.worker.decode_kernel_launches() == (L * srv.worker.graph_replays,) * 2
+
+
 def test_replay_of_one_replica_leaves_the_other_unchanged(cuda_device):
     """A replica's replays write only its own slot cache: the sibling's cache
     and graph output stay bitwise as they were; a replica the Router marks

@@ -8,7 +8,9 @@ step the terminal uids, every request's owner and the replica states must
 be equal; at the end the tokens and statuses, ``router_stats()`` and the
 ``router/*`` counters. The cases mirror ``tests/test_router.py``: failover
 mid-decode, mid-prefill and under speculation, drain (under load, and
-interleaved with a sibling's death), typed global shedding, prefix
+interleaved with a sibling's death), typed global shedding and the
+brownout ladder (deadline tightening, tenant-first priority shedding,
+``overloaded``), prefix
 affinity, hang probation and escalation, the exactly-once budget, the
 compile exemption, cancel and duplicate uids, and verdict clocks that
 never read the wall clock.
@@ -193,6 +195,36 @@ def case_global_shed(P, eng):
     return obs.finish()
 
 
+def case_brownout_shed(P, eng):
+    """Brownout under a full global queue (tenant "a" over its quota):
+    deadline-free arrivals take the brownout deadline while no tenant is
+    over quota, a higher-priority arrival sheds the over-quota tenant's
+    newest queued request, an arrival that nothing queued is below bounces
+    as ``overloaded``, and once the brownout lifts a full queue bounces as
+    ``queue_full``. The tightened requests still queued at t=100 miss their
+    deadline."""
+    prompts = _prompts([5, 11, 9, 7, 6, 8], seed=23)
+    router = _router(P, eng, n_slots=1, router={"max_queue_len": 3})
+    router.set_tenant_policy({"a": {"max_queued": 1}, "b": {}})
+    router.set_brownout(True, deadline_s=50.0)
+    obs = _Obs(router, range(6))
+    for uid, tenant, prio in ((0, "a", 0), (1, "a", 0), (2, "b", 0), (3, "b", 1), (4, "b", 0)):
+        try:
+            router.submit(P.Request(uid=uid, prompt=prompts[uid], max_new_tokens=3, priority=prio, tenant=tenant))
+        except P.Rejected as e:
+            obs.note("rejected", e.uid, e.reason)
+    obs.note("brownout", router.brownout, {u: router.owner_of(u) for u in range(5)},
+             {u: req.deadline_s for u, req in sorted(router._requests.items())})
+    router.set_brownout(False)
+    try:
+        router.submit(P.Request(uid=5, prompt=prompts[5], max_new_tokens=3, priority=2, tenant="b"))
+    except P.Rejected as e:
+        obs.note("rejected", e.uid, e.reason)
+    obs.step(0.0)
+    _steps_until_idle(obs, now=100.0)
+    return obs.finish()
+
+
 def case_exempt_requeue(P, eng):
     """A failover/drain requeue sits outside the queue bound: the sweep
     neither sheds it nor lets it displace an accepted arrival."""
@@ -351,6 +383,11 @@ def test_router_matches_jax(engines, case):
         assert tout["results"][0][0] == "failed_replica"
     elif case == "global_shed":
         assert ("rejected", 2, "queue_full") in tout["log"]
+    elif case == "brownout_shed":
+        assert ("rejected", 4, "overloaded") in tout["log"] and ("rejected", 5, "queue_full") in tout["log"]
+        assert tout["results"][1][0] == "shed_brownout"
+        assert tout["counters"]["router/autoscale/brownout_shed"] == 1
+        assert tout["counters"]["router/autoscale/brownout_deadlines"] >= 1
     elif case == "hang_probation":
         assert tout["counters"]["router/readmissions"] == 1
     elif case == "compiling_step_exempt":

@@ -337,6 +337,32 @@ def test_replica_client_matches_inprocess_engine(engine, tmp_path):
         w.stop()
 
 
+def test_worker_profile_window_and_warm_decode(engine):
+    """A WorkerHost's profiler window, armed by ``profile_decode_steps``,
+    opens at the next step that begins with a decoding slot and closes
+    after that many steps;
+    ``telemetry_snapshot`` reports its kernel records (none on the CPU,
+    where the decode step runs eagerly and no graph replays). The boot
+    warm-up counts as no decode step."""
+    srv = ServingEngine(engine, config={"n_slots": 2, "max_seq_len": 64, "watchdog_mode": "raise"})
+    srv.warm_decode()
+    counts = srv.compile_counts()
+    assert (counts["decode"], counts["decode_steps"]) == (1, 0)
+    assert srv.telemetry.registry.snapshot()["counters"].get("serving/decode_steps", 0) == 0
+    host = WorkerHost(srv)
+    assert host.profile_decode_steps(2) == {"armed": 2}
+    for i, p in enumerate(_prompts([5, 11], seed=3)):
+        host.submit(trpc.encode_request(Request(uid=i, prompt=p, max_new_tokens=8)))
+    host.step(now=0.0)  # prefill: nothing was decoding when it began
+    assert host._prof is None and host.telemetry_snapshot()["decode_kernel_records"] is None
+    host.step(now=0.0)
+    assert host._prof is not None
+    host.step(now=0.0)
+    snap = host.telemetry_snapshot()
+    assert host._prof is None and snap["decode_kernel_records"] == {"split": 0, "combine": 0, "replays": 0}
+    assert snap["decode_kernel_launches"] == [0, 0] and srv.compile_counts()["decode_steps"] == 3
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 def test_step_reply_loss_recovered_by_replay(engine, tmp_path, family):
     """A step reply lost to a reset (over TCP a linger-0 RST) or a garbled

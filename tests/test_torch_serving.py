@@ -211,6 +211,35 @@ def test_cancel_withdraw_requeue_and_partial_tokens(engines):
     assert srv.result(3).ok and srv.idle and srv.n_free == 1
 
 
+@pytest.mark.parametrize("sampled", [False, True])
+def test_warm_verify_compiles_each_depth_once_like_jax(engines, sampled):
+    """``warm_verify`` dispatches each power-of-two verify depth once with
+    every slot idle: the same depths and verify programs as JAX's, no
+    verify step recorded, and nothing observable changed, so the greedy
+    traffic after it compiles no verify program and gives JAX's tokens
+    (and those of an engine that was not warmed)."""
+    jeng, teng = engines
+    config = {**BASE, **FEATURES["speculation"], "watchdog_mode": "raise"}
+    jsrv, tsrv = JaxServingEngine(jeng, config=dict(config)), ServingEngine(teng, config=dict(config))
+    assert tsrv.warm_verify(sampled=sampled) == jsrv.warm_verify(sampled=sampled) == [1, 2, 4]
+    warmed = tsrv.compile_counts()["verify"]
+    assert warmed == jsrv.compile_counts()["verify"] == {d: 1 + sampled for d in (1, 2, 4)}
+    assert tsrv.spec_stats()["verify_steps"] == jsrv.spec_stats()["verify_steps"] == 0
+    assert tsrv.telemetry.registry.snapshot()["counters"].get("serving/verify_steps", 0) == 0
+    assert ServingEngine(teng, config={**BASE}).warm_verify() == []
+    if sampled:
+        return
+    specs = _requests()
+    jout = _drive(jsrv, [JaxRequest(**s) for s in specs], JaxRejected)
+    tout = _drive(tsrv, [Request(**s) for s in specs], RequestRejected)
+    _assert_same(jsrv, tsrv, jout, tout)
+    assert tsrv.compile_counts()["verify"] == warmed and tsrv.spec_stats()["verify_steps"] > 0
+    cold = ServingEngine(teng, config=dict(config))
+    _drive(cold, [Request(**s) for s in specs], RequestRejected)
+    for uid, r in cold._results.items():
+        np.testing.assert_array_equal(tsrv._results[uid].tokens, r.tokens, err_msg=f"uid {uid}")
+
+
 def test_sampled_mix_keeps_one_decode_program(engines):
     """Distinct prompt lengths, sampling parameters and arrival times: ONE
     decode program, and seeded engines sample the same tokens."""

@@ -163,8 +163,33 @@ Phases, each of which passes or makes the script exit non-zero:
      p50 of each run, the time from the kill to the last failed-over
      admission, the recovery time, the worker boot and respawn seconds,
      beside the card's name and power limit.
+ 21. the fleet's front door and membership at GPT-2-125M width (phase 18's
+     configuration; bench.py --gateway-chaos and --surge at this width,
+     without the flight recorder): (a) the Router over 2 in-process
+     replicas alone, then behind launcher/http_gateway.HttpGateway on
+     127.0.0.1, workload (b) as client threads at its Poisson arrivals,
+     half blocking POSTs, half SSE streams: every SSE stream's token events
+     equal its done event and the fleet's result, greedy ones counted
+     against one engine's (bf16), and the profiler's kernel records over
+     streamed requests equal 12 split + 12 combine a replay; (b) 3 clients
+     reset their sockets mid-stream: each request ends cancelled and every
+     replica's slots and prefix references return to 0; (c) a rolling
+     upgrade of both replicas under 64 live requests: every wave upgraded,
+     each canary served through the newcomer's graph, no request lost, the
+     old generation's memory released; (d) an autoscaled in-process fleet
+     (1..3, bench.py's block) under the surge trace (two bursts and a
+     high-priority third, heavy-tailed prompts), one replica killed
+     mid-trace: it grows to 3, browns out, respawns the dead one as a new
+     rid, shrinks back to 1, and every accepted request ends terminal; a
+     small fp32 fleet's greedy streams through the gateway equal generate's
+     across an upgrade; (e) 2 worker processes over TCP behind the gateway,
+     one SIGKILLed, respawned and attached, then a set_spec rolling upgrade
+     of both. It prints client TTFT p50/p99 beside the Router's, TPOT p50,
+     tokens/s through the gateway against the Router alone, each wave's
+     boot/gate/drain ms, signal -> attached ms, shed counts, worker boot and
+     respawn s, and decode launches per replica and per worker.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
-line, a ``{"fleet": {...}}`` line, a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
+line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
 
@@ -2816,6 +2841,853 @@ def fleet_phase(dev, smi, model_cfg=None, serve_config=None, vocab_cap=None):
             "workers": {str(k): v for k, v in out["workers"]["reported_launches"].items()}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the fleet's front door and membership (launcher/http_gateway.py,
+# inference/autoscaler.py, Router.rolling_upgrade, WorkerSupervisor.set_spec)
+# at GPT-2-125M width: bench.py --gateway-chaos (:1161) and --surge (:939)
+# ---------------------------------------------------------------------------
+
+DISCONNECTS = 3
+GATEWAY_CFG = {"host": "127.0.0.1", "port": 0, "shutdown_grace_s": 60.0}
+# bench.py:985-1008's trace shape: burst A (30%) at 0-0.3 s, burst B (50%) at
+# 2.5-3.2 s, high-priority burst C (20%) at 4.5-5.5 s; one prompt in five
+# heavy. Its lengths scaled to GPT-2's context: 16-96 tokens, heavy 256-768;
+# 32 new tokens, greedy
+SURGE_REQUESTS = 96
+SURGE_KILL_AT = 2.9  # seconds into the trace: mid burst B
+# bench.py:1025-1034's autoscale block, the load threshold set to 3/4 of a
+# replica's 16 slots (its fleet had 2-slot replicas)
+SURGE_AUTOSCALE = {"enabled": True, "min_replicas": 1, "max_replicas": 3, "scale_up_queue": 3,
+                   "scale_up_load": 12.0, "scale_down_load": 0.5, "up_consecutive": 2, "down_consecutive": 8,
+                   "cooldown_s": 0.75, "brownout_deadline_s": 60.0}
+SURGE_QUEUE = 12  # bench.py:1027 router max_queue_len
+MEMORY_SLACK = 1 << 20  # what a wave may leave beyond its level (rounding)
+# cuBLAS's workspaces (32 MiB each on Hopper) for a thread's first use of a
+# stream: the serve loop's first captures (the warm-up and capture streams)
+CUBLAS_LOOP_WORKSPACES = 2 * (32 << 20)
+
+
+class LoopCalls:
+    """The gateway's ``on_tick``: runs queued calls (``run``) and every
+    ``watchers`` entry on the serve-loop thread, the one thread that touches
+    the Router and its engines."""
+
+    def __init__(self):
+        import queue
+
+        self._q = queue.Queue()
+        self._empty = queue.Empty
+        self.watchers = []
+
+    def __call__(self):
+        for w in self.watchers:
+            w()
+        while True:
+            try:
+                fn, box = self._q.get_nowait()
+            except self._empty:
+                return
+            try:
+                box["value"] = fn()
+            except BaseException as e:  # handed back to the caller's thread
+                box["error"] = e
+            box["done"].set()
+
+    def run(self, fn, timeout=300.0):
+        import threading
+
+        box = {"done": threading.Event()}
+        self._q.put((fn, box))
+        if not box["done"].wait(timeout):
+            raise SystemExit("a call on the gateway's serve loop did not return")
+        if "error" in box:
+            raise box["error"]
+        return box.get("value")
+
+    def wait(self, cond, timeout=120.0, what="the fleet"):
+        """Poll ``cond`` on the loop thread until it holds."""
+        deadline = time.monotonic() + timeout
+        while not self.run(cond):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"{what} did not settle within {timeout:.0f} s")
+            time.sleep(0.05)
+
+
+def sse_event(block):
+    """(event, data) of one SSE block, None for a keepalive comment."""
+    name = data = None
+    for line in block.splitlines():
+        if line.startswith(b"event: "):
+            name = line[7:].decode()
+        elif line.startswith(b"data: "):
+            data = json.loads(line[6:])
+    return None if name is None else (name, data)
+
+
+def http_generate(port, body, stream, t0, headers=None):
+    """One client: POST /v1/generate, then the blocking JSON or the SSE
+    events. Times are perf_counter seconds after ``t0``: sent, each token
+    event's arrival, the end."""
+    import http.client
+
+    sent = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps({**body, "stream": stream}), headers=headers or {})
+        resp = conn.getresponse()
+        rec = {"status": resp.status, "stream": stream, "sent": sent - t0}
+        if not resp.getheader("Content-Type", "").startswith("text/event-stream"):
+            rec["json"] = json.loads(resp.read())
+            rec["end"] = time.perf_counter() - t0
+            return rec
+        rec["uid"], toks, times, buf = int(resp.getheader("X-DSTPU-Uid")), [], [], b""
+        while "json" not in rec:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n\n" in buf:
+                block, buf = buf.split(b"\n\n", 1)
+                ev = sse_event(block)
+                if ev and ev[0] == "token":
+                    toks.append(ev[1]["token"])
+                    times.append(time.perf_counter() - t0)
+                elif ev and ev[0] == "done":
+                    rec["json"] = ev[1]
+        rec.update(tokens=toks, token_times=times, end=time.perf_counter() - t0)
+        return rec
+    finally:
+        conn.close()
+
+
+def run_trace(port, items, t0):
+    """Client threads, one a request: ``items`` are (offset s, body, stream,
+    headers); each thread sends at t0 + offset (perf_counter, one clock for
+    every process of the machine). Returns the records in item order."""
+    import threading
+
+    out = [None] * len(items)
+
+    def client(i, offset, body, stream, headers):
+        delay = t0 + offset - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        out[i] = http_generate(port, body, stream, t0, headers)
+
+    threads = [threading.Thread(target=client, args=(i, *it), daemon=True) for i, it in enumerate(items)]
+    lag = time.perf_counter() - t0  # how late this process took up the trace
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    return lag, out
+
+
+_CLIENTS = []  # the client process pool, made at first use
+
+
+def client_pool():
+    """The clients run in a process of their own, so that their threads
+    share no interpreter lock with the gateway and its serve loop. One
+    process, started (chip_smoke imported) before the first trace: a trace
+    taken up late would send its requests in one burst."""
+    if not _CLIENTS:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        _CLIENTS.append(ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn")))
+        _CLIENTS[0].submit(run_trace, 0, [], 0.0).result(300)  # imports chip_smoke there
+    return _CLIENTS[0]
+
+
+def send_trace(port, items, t0):
+    return client_pool().submit(run_trace, port, items, t0)
+
+
+TRACE_LAG_S = 0.1  # the most a trace may start after its time 0
+
+
+def join_trace(trace, timeout=600.0):
+    lag, records = trace.result(timeout)
+    if any(r is None for r in records):
+        raise SystemExit("a gateway client did not finish")
+    if lag > TRACE_LAG_S:
+        raise SystemExit(f"the client process took the trace up {lag:.3f} s late; its arrivals would bunch")
+    return records
+
+
+def close_clients():
+    while _CLIENTS:
+        _CLIENTS.pop().shutdown(wait=True, cancel_futures=True)
+
+
+def request_body(r):
+    return {"prompt": [int(t) for t in r.prompt], "max_new_tokens": int(r.max_new_tokens),
+            "temperature": float(r.temperature), "top_k": int(r.top_k), "top_p": float(r.top_p)}
+
+
+def client_metrics(records, router_results):
+    """Client-side TTFT (send -> first SSE token event) and TPOT (between
+    token events) beside the Router's own, and tokens/s through the
+    gateway (every reply's tokens over the trace's time 0 -> last reply)."""
+    sse = [r for r in records if r["stream"] and r.get("token_times")]
+    ttft = [r["token_times"][0] - r["sent"] for r in sse]
+    tpot = [(r["token_times"][-1] - r["token_times"][0]) / (len(r["token_times"]) - 1)
+            for r in sse if len(r["token_times"]) > 1]
+    tokens = sum(len(r["json"].get("tokens", [])) for r in records if "json" in r)
+    span = max(r["end"] for r in records)  # from the trace's time 0, as the Router alone's run counts
+    ok = [x for x in router_results.values() if x is not None and x.ok]
+    return {"requests": len(records), "ok": sum(r.get("json", {}).get("status") == "ok" for r in records),
+            "tokens": tokens, "seconds": span, "tokens_per_s": tokens / span,
+            "client_ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+            "client_ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3,
+            "client_tpot_p50_ms": float(np.percentile(tpot, 50)) * 1e3,
+            "router_ttft_p50_ms": float(np.percentile([x.ttft for x in ok], 50)) * 1e3,
+            "router_ttft_p99_ms": float(np.percentile([x.ttft for x in ok], 99)) * 1e3,
+            "router_tpot_p50_ms": float(np.percentile([x.time_per_output_token for x in ok
+                                                       if len(x.tokens) > 1], 50)) * 1e3}
+
+
+def uid_of(rec):
+    return rec.get("uid", rec.get("json", {}).get("uid"))
+
+
+def one_engine_greedy(engine, serve_config, reqs):
+    """The greedy requests' tokens from one ServingEngine (all arrived at 0):
+    the yardstick greedy streams are counted against."""
+    from deepspeed_tpu_torch.inference import Request, ServingEngine
+
+    srv = ServingEngine(engine, config={**serve_config, "watchdog_mode": "raise"})
+    greedy = [r for r in reqs if r.temperature <= 0]
+    res = srv.serve([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in greedy])
+    srv.close()
+    return {u: [int(t) for t in x.tokens] for u, x in res.items()}
+
+
+def stream_contract(records, results):
+    """Every completed SSE stream: its token events == its done event's
+    tokens == the fleet's result for the uid (the same run, so required)."""
+    bad = [uid_of(r) for r in records if r["stream"] and r.get("json", {}).get("status") == "ok"
+           and not (r["tokens"] == r["json"]["tokens"] == [int(t) for t in results[uid_of(r)].tokens])]
+    return not bad, bad
+
+
+def replays_of(router):
+    return {r.rid: r.engine.worker.graph_replays for r in router._replicas if hasattr(r.engine, "worker")}
+
+
+def loop_timer(router, gw, calls):
+    """Instrumentation of the serve loop while a trace runs, over the ticks
+    with work in flight: the period between ticks, and the time of each
+    ``router.step()`` and of each publish of the streams' feeds in them.
+    Returns a function that removes it and gives (periods, steps,
+    publishes) in seconds."""
+    ticks, steps, publishes = [], [], []
+    step, publish = router.step, gw._publish
+
+    def timed(fn, out):
+        def call(*a, **kw):
+            busy, t = bool(router._owner), time.perf_counter()
+            res = fn(*a, **kw)
+            if busy:
+                out.append(time.perf_counter() - t)
+            return res
+        return call
+
+    def tick():
+        if router._owner:
+            ticks.append(time.perf_counter())
+
+    def install():
+        router.step, gw._publish = timed(step, steps), timed(publish, publishes)
+        calls.watchers.append(tick)
+
+    def remove():
+        del router.step, gw._publish
+        calls.watchers.remove(tick)
+        return list(np.diff(ticks)), steps, publishes
+
+    calls.run(install)
+    return lambda: calls.run(remove)
+
+
+def gateway_traffic(router, gw, calls, reqs, smi, label, ref=None):
+    """(a): ``reqs`` through the gateway, half blocking, half SSE (greedy
+    and sampled alike), as client threads at their arrival times."""
+    replays0 = calls.run(lambda: replays_of(router))
+    items = [(float(r.arrival_time), request_body(r), (i // 2) % 2 == 0, None) for i, r in enumerate(reqs)]
+    timer = loop_timer(router, gw, calls)
+    t0 = time.perf_counter()
+    records = join_trace(send_trace(gw.port, items, t0))
+    periods, steps, publishes = timer()
+    uids = [uid_of(r) for r in records]
+    results = calls.run(lambda: {u: router.result(u) for u in uids})
+    m = client_metrics(records, results)
+    contract, bad = stream_contract(records, results)
+    delta = calls.run(lambda: {rid: n - replays0.get(rid, 0) for rid, n in replays_of(router).items()})
+    L = router._replicas[0].engine.worker.graph_launches[0]
+    m.update(replays=delta, decode_launches={rid: (L * n, L * n) for rid, n in delta.items()},
+             http_status={s: sum(r["status"] == s for r in records) for s in {r["status"] for r in records}},
+             loop_period_p50_ms=float(np.percentile(periods, 50)) * 1e3,
+             loop_period_p90_ms=float(np.percentile(periods, 90)) * 1e3,
+             loop_step_p50_ms=float(np.percentile(steps, 50)) * 1e3,
+             loop_publish_p50_ms=float(np.percentile(publishes, 50)) * 1e3, loop_ticks=len(periods))
+    greedy_equal = None
+    if ref is not None:
+        pos = {r.uid: i for i, r in enumerate(reqs)}
+        greedy = [(records[pos[u]], u) for u in ref]
+        greedy_equal = sum(rec["json"].get("tokens") == ref[u] for rec, u in greedy)
+        m["greedy_equal_to_one_engine"], m["greedy"] = greedy_equal, len(greedy)
+    print(f"  [{smi}] {label}: {m['ok']}/{m['requests']} ok (HTTP {m['http_status']}), {m['tokens']} tokens in "
+          f"{m['seconds']:.3f} s = {m['tokens_per_s']:.1f} tokens/s; client TTFT p50 {m['client_ttft_p50_ms']:.1f} ms, "
+          f"p99 {m['client_ttft_p99_ms']:.1f} ms (the Router's {m['router_ttft_p50_ms']:.1f} / "
+          f"{m['router_ttft_p99_ms']:.1f} ms); TPOT p50 client {m['client_tpot_p50_ms']:.3f} ms, Router "
+          f"{m['router_tpot_p50_ms']:.3f} ms; the serve loop with work in flight: a tick every "
+          f"{m['loop_period_p50_ms']:.2f} ms (p90 {m['loop_period_p90_ms']:.2f}) over {m['loop_ticks']} ticks, in it "
+          f"router.step() {m['loop_step_p50_ms']:.2f} ms and the streams' publish {m['loop_publish_p50_ms']:.2f} ms "
+          f"(p50s); decode launches per replica (split, combine) from the replays "
+          f"{m['decode_launches']}"
+          + (f"; greedy requests equal to one engine's {greedy_equal}/{m['greedy']} (bf16; reported)"
+             if ref is not None else ""))
+    launched = L == 0 or all(n > 0 for n in delta.values())  # L = 0: the CPU's eager step
+    ok = m["ok"] == m["requests"] and contract and launched
+    print(f"    every SSE stream's token events == its done event == the fleet's result: {contract} {bad[:4]}; "
+          f"every replica's graph replayed: {launched}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"gateway {label}: a request failed, a stream disagrees with its result, or a replica's "
+                         "decode kernels never ran")
+    return records, m
+
+
+def gateway_profiled(router, gw, calls, vocab, L):
+    """The profiler's kernel records over a few streamed requests, started
+    and stopped on the serve loop: num_layers split and combine kernels per
+    replay the replicas made in that window."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def start():
+        prof.start()
+        return sum(replays_of(router).values())
+
+    def stop():
+        torch.cuda.synchronize()
+        prof.stop()
+        return sum(replays_of(router).values())
+
+    before = calls.run(start)
+    reqs = ragged_workload(vocab, RAGGED_RATE, seed=21)[:4]
+    join_trace(send_trace(gw.port, [(0.0, {**request_body(r), "temperature": 0.0}, True, None) for r in reqs],
+                          time.perf_counter()))
+    replays = calls.run(stop) - before
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    split, combine = sum("decode_split_kernel" in n for n in names), sum("decode_combine_kernel" in n for n in names)
+    ok = replays > 0 and split == combine == L * replays
+    print(f"    profiler on the serve loop over 4 streamed requests: {split} split and {combine} combine kernel "
+          f"records for {replays} replays across the replicas (expect {L} x {replays})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the profiler does not see the decode kernels in the gateway's replays")
+    return {"split": split, "combine": combine, "replays": replays}
+
+
+def prefix_refs(engine):
+    pfx = getattr(engine, "_pfx", None)
+    return sum(e.refs for e in pfx.entries()) if pfx is not None else 0
+
+
+def gateway_disconnects(router, gw, calls, vocab, smi):
+    """(b): DISCONNECTS clients reset their sockets after two token events:
+    each request ends ``cancelled``, and slot and prefix-reference
+    occupancy return to 0 on every replica."""
+    import socket
+    import struct
+
+    reqs = ragged_workload(vocab, RAGGED_RATE, seed=22)[:DISCONNECTS]
+    socks = []
+    for r in reqs:
+        data = json.dumps({**request_body(r), "temperature": 0.0, "max_new_tokens": 400}).encode()
+        s = socket.create_connection(("127.0.0.1", gw.port), timeout=60)
+        s.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: t\r\nContent-Length: %d\r\n\r\n" % len(data) + data)
+        socks.append(s)
+    uids = []
+    for s in socks:
+        buf = b""
+        while buf.count(b"event: token") < 2:
+            buf += s.recv(65536)
+        uids.append(int(re.search(rb"X-DSTPU-Uid: (\d+)", buf).group(1)))
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+        s.close()
+    t0 = time.perf_counter()
+
+    def settled():
+        res = [router.result(u) for u in uids]
+        live = [r for r in router._replicas if r.state == "healthy"]
+        return (all(x is not None for x in res) and not router._owner
+                and all(r.engine.n_active == 0 and r.engine.n_prefilling == 0 and prefix_refs(r.engine) == 0
+                        for r in live))
+
+    calls.wait(settled, timeout=60, what="the disconnected requests")
+    seconds = time.perf_counter() - t0
+    statuses = calls.run(lambda: [router.result(u).status for u in uids])
+    counters = router.telemetry.registry.snapshot()["counters"]
+    ok = statuses == ["cancelled"] * DISCONNECTS and counters.get("gateway/cancelled_on_disconnect", 0) >= DISCONNECTS
+    print(f"  [{smi}] (b) {DISCONNECTS} clients reset mid-stream after 2 tokens: statuses {statuses}; every replica "
+          f"back to 0 active, 0 prefilling, 0 prefix references in {seconds * 1e3:.1f} ms; "
+          f"gateway/cancelled_on_disconnect {counters.get('gateway/cancelled_on_disconnect', 0)}  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("a disconnected request was not cancelled or kept its slot")
+    return {"statuses": statuses, "settle_ms": seconds * 1e3}
+
+
+def upgrade_watcher(router, marks):
+    """Records each wave's phase changes on the fleet clock, and each
+    newcomer's graph replays when its gate passes."""
+    seen = {}
+
+    def watch():
+        st = router.upgrade_status()
+        if st is None:
+            return
+        cur = st["current"]
+        if cur is not None and seen.get(cur["old_rid"]) != cur["phase"]:
+            seen[cur["old_rid"]] = cur["phase"]
+            w = marks.setdefault(cur["old_rid"], {})
+            w[cur["phase"]] = router.now()
+            if cur["phase"] == "drain":
+                new = router._replicas[cur["new_rid"]].engine
+                w["newcomer_replays_at_gate"] = new.worker.graph_replays if hasattr(new, "worker") else None
+        for wave in st["waves"]:
+            w = marks.setdefault(wave["old_rid"], {})
+            if "end" not in w:
+                w["end"] = router.now()
+    return watch
+
+
+def wave_times(status, marks):
+    out = []
+    for w in status["waves"]:
+        m = marks.get(w["old_rid"], {})
+        start = w.get("started", m.get("boot"))
+        out.append({"old_rid": w["old_rid"], "new_rid": w.get("new_rid"), "outcome": w["outcome"],
+                    "canary_status": w.get("canary_status"),
+                    "boot_ms": (w["gate_start"] - start) * 1e3 if "gate_start" in w else None,
+                    "gate_ms": (m["drain"] - w["gate_start"]) * 1e3 if "drain" in m and "gate_start" in w else None,
+                    "drain_ms": (m["end"] - m["drain"]) * 1e3 if "drain" in m and "end" in m else None,
+                    "newcomer_replays_at_gate": m.get("newcomer_replays_at_gate")})
+    return out
+
+
+def upgrade_once(router, gw, calls, reqs, cuda):
+    """One rolling upgrade of every healthy replica while ``reqs`` stream
+    in; returns (status, wave times, records, memory before, after)."""
+    marks = {}
+    calls.watchers.append(upgrade_watcher(router, marks))
+    mem = (lambda: (torch.cuda.synchronize(), torch.cuda.memory_allocated())[1]) if cuda else (lambda: 0)
+    before = calls.run(mem)
+    trace = send_trace(gw.port, [(float(r.arrival_time), request_body(r), i % 2 == 0, None)
+                                 for i, r in enumerate(reqs)], time.perf_counter())
+    time.sleep(0.3)
+    calls.run(router.rolling_upgrade)
+    calls.wait(lambda: router.upgrade_status()["state"] != "running"
+               and not any(s == "draining" for s in router.replica_states().values()), timeout=240,
+               what="the rolling upgrade")
+    records = join_trace(trace)
+    calls.run(lambda: None)  # one more tick: the watcher stamps the last wave's end
+    calls.watchers.pop()
+    status = calls.run(router.upgrade_status)
+    return status, wave_times(status, marks), records, before, calls.run(mem)
+
+
+def gateway_upgrade(router, gw, calls, vocab, smi, cuda):
+    """(c): a rolling upgrade of the 2 in-process replicas under live
+    traffic: every wave ``upgraded``, each canary served through the
+    newcomer's graph, no accepted request lost, the old generation's
+    memory released. A second upgrade under light traffic shows the
+    memory level of a wave alone: the first one's newcomers are the first
+    graphs captured on the serve loop's thread, whose cuBLAS handle then
+    takes its workspaces (once per thread and stream)."""
+    status, waves, records, before, after = upgrade_once(router, gw, calls, ragged_workload(vocab, RAGGED_RATE,
+                                                                                            seed=23), cuda)
+    status2, waves2, records2, before2, after2 = upgrade_once(router, gw, calls, ragged_workload(
+        vocab, RAGGED_RATE, seed=26)[:8], cuda)
+    old = [w["old_rid"] for w in status["waves"] + status2["waves"]]
+    released = calls.run(lambda: all(router._replicas[rid].engine.worker._cache is None for rid in old))
+    newcomers = calls.run(lambda: {w["new_rid"]: (router._replicas[w["new_rid"]].engine.worker.graph_replays,
+                                                  router._replicas[w["new_rid"]].engine.compile_counts()["decode"])
+                                   for w in status["waves"] + status2["waves"]})
+    lost = [uid_of(r) for r in records + records2 if r["status"] != 200 or r.get("json", {}).get("status") != "ok"]
+    every = waves + waves2
+    canary_graph = all(w["canary_status"] == "ok" and (not cuda or (w["newcomer_replays_at_gate"] or 0) >= 1)
+                       for w in every)
+    ok = (status["state"] == status2["state"] == "done" and [w["outcome"] for w in every] == ["upgraded"] * 4
+          and canary_graph and not lost and released and all(d == 1 for _, d in newcomers.values())
+          and after - before <= CUBLAS_LOOP_WORKSPACES + MEMORY_SLACK and after2 <= before2 + MEMORY_SLACK)
+    print(f"  [{smi}] (c) rolling upgrade of 2 in-process replicas under 64 live requests, then again under 8: "
+          f"states {status['state']}, {status2['state']}; waves {[(w['old_rid'], w['new_rid'], w['outcome']) for w in every]}; "
+          f"boot / gate / drain ms {[(round(w['boot_ms'] or 0, 1), round(w['gate_ms'] or 0, 1), round(w['drain_ms'] or 0, 1)) for w in every]}; "
+          f"each canary ok through the newcomer's graph (its replays when the gate passed "
+          f"{[w['newcomer_replays_at_gate'] for w in every]}; decode programs {[d for _, d in newcomers.values()]}): "
+          f"{canary_graph}; requests lost {lost}; the old generations released {released}; device memory "
+          f"{before} B before the first upgrade, {after} B after ({(after - before) / 2**20:+.1f} MiB: the serve "
+          f"loop's first captures), {before2} B before the second, {after2} B after "
+          f"({(after2 - before2) / 2**20:+.1f} MiB)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the rolling upgrade lost a request, a wave failed, or memory stayed held")
+    return {"state": status["state"], "waves": waves, "second_waves": waves2, "memory_before": before,
+            "memory_after": after, "memory_before_second": before2, "memory_after_second": after2,
+            "newcomer_replays": {str(k): v[0] for k, v in newcomers.items()}}
+
+
+def surge_trace(vocab, seed=31):
+    """bench.py:985-1008's shape at GPT-2's context (SURGE_* above)."""
+    rng = np.random.default_rng(seed)
+    n_a, n_c = int(SURGE_REQUESTS * 0.3), int(SURGE_REQUESTS * 0.2)
+    n_b = SURGE_REQUESTS - n_a - n_c
+    items = []
+    for i in range(SURGE_REQUESTS):
+        heavy = rng.random() < 0.2
+        size = int(rng.integers(256, 769) if heavy else rng.integers(16, 97))
+        prompt = [int(t) for t in rng.integers(0, vocab, size=size)]
+        if i < n_a:
+            offset, prio = float(rng.uniform(0.0, 0.3)), int(rng.integers(0, 2))
+        elif i < n_a + n_b:
+            offset, prio = float(rng.uniform(2.5, 3.2)), int(rng.integers(0, 2))
+        else:
+            offset, prio = float(rng.uniform(4.5, 5.5)), 2
+        items.append((offset, {"prompt": prompt, "max_new_tokens": 32}, i % 2 == 0, {"X-DSTPU-Priority": str(prio)}))
+    return items
+
+
+def gateway_surge(engine, serve_config, vocab, smi, cuda):
+    """(d): the autoscaler on an in-process fleet behind the gateway: the
+    surge trace grows it to 3, brownout engages at that maximum, a replica
+    killed mid-trace comes back as a new rid, the fleet shrinks back to 1,
+    and every accepted request ends in a terminal state."""
+    from deepspeed_tpu_torch.inference import Router
+    from deepspeed_tpu_torch.launcher.http_gateway import HttpGateway
+
+    router = Router(engine, config={**serve_config, "watchdog_mode": "raise",
+                                    "router": {"replicas": 1, "max_queue_len": SURGE_QUEUE,
+                                               "health": dict(FLEET_HEALTH), "autoscale": SURGE_AUTOSCALE}})
+    for r in router._replicas:
+        r.engine.warm_decode()
+    asc = router._autoscaler
+    seen = {"max_healthy": 1, "up_since": None, "signal_to_attached_ms": [], "brownout": False}
+    spawn = router._spawn_inprocess
+    spawn_ms = []
+
+    def timed_spawn():  # instrumentation: the newcomer's build and capture
+        t = time.perf_counter()
+        e = spawn()
+        spawn_ms.append((time.perf_counter() - t) * 1e3)
+        return e
+
+    router._spawn_inprocess = timed_spawn
+    c = asc.cfg
+
+    def watch():
+        now, n = router.now(), len(router._replicas)
+        sig = asc.signals(now)
+        up = sig["queue"] >= c.scale_up_queue or sig["load_per_replica"] >= c.scale_up_load
+        if up and seen["up_since"] is None:
+            seen["up_since"] = now
+        if n > seen.get("n", 1) and seen["up_since"] is not None:
+            seen["signal_to_attached_ms"].append((now - seen["up_since"]) * 1e3)
+            seen["up_since"] = None
+        seen["n"] = n
+        seen["max_healthy"] = max(seen["max_healthy"], sig["healthy"])
+        seen["brownout"] |= router.brownout
+
+    calls = LoopCalls()
+    calls.watchers.append(watch)
+    gw = HttpGateway(router, GATEWAY_CFG, gateway_id=2, on_tick=calls)
+    gw.start()
+    try:
+        items = surge_trace(vocab)
+        t0 = time.perf_counter()
+        trace = send_trace(gw.port, items, t0)
+        time.sleep(max(0.0, t0 + SURGE_KILL_AT - time.perf_counter()))
+
+        def kill():
+            live = [r for r in router._replicas if r.state == "healthy"]
+            victim = max(live, key=lambda r: (r.engine.load, r.rid))
+            router.mark_dead(victim.rid)
+            return victim.rid, len(live)
+
+        killed, live_at_kill = calls.run(kill)
+        records = join_trace(trace)
+        seconds = time.perf_counter() - t0
+        calls.wait(lambda: (asc.target == 1 and not asc._boots
+                            and sum(s == "healthy" for s in router.replica_states().values()) == 1
+                            and not any(s == "draining" for s in router.replica_states().values())),
+                   timeout=180, what="the shrinking fleet")
+        snap = calls.run(lambda: (router.replica_states(), list(asc.events),
+                                  router.telemetry.registry.snapshot()["counters"],
+                                  {r.rid: (r.engine.worker.graph_replays, r.engine.compile_counts()["decode"],
+                                           r.engine.worker._cache is None) for r in router._replicas}))
+    finally:
+        gw.stop()
+        gw.close()
+    states, events, counters, reps = snap
+    accepted = [r for r in records if r["status"] == 200]
+    terminal = all(r.get("json", {}).get("status") for r in accepted)
+    shed429 = sum(r["status"] == 429 for r in records)
+    a = {k.rsplit("/", 1)[1]: int(v) for k, v in counters.items() if k.startswith("router/autoscale/")}
+    respawned = [e["rid"] for e in events if e["kind"] == "respawn"]
+    retired_freed = all(gone for rid, (_, _, gone) in reps.items() if states[rid] in ("drained", "dead"))
+    ok = (seen["max_healthy"] >= 3 and a.get("brownouts", 0) >= 1 and seen["brownout"] and respawned
+          and all(rid != killed for rid in respawned) and a.get("scale_downs", 0) >= 1 and terminal
+          and sum(s == "healthy" for s in states.values()) == 1 and retired_freed
+          and all(d <= 1 for _, d, _ in reps.values()))
+    statuses = {}
+    for r in accepted:
+        s = r.get("json", {}).get("status")
+        statuses[s] = statuses.get(s, 0) + 1
+    print(f"  [{smi}] (d) autoscaler 1..3 under the surge trace ({SURGE_REQUESTS} requests, bursts at 0, 2.5 and "
+          f"4.5 s) in {seconds:.2f} s: peak {seen['max_healthy']} healthy; replica {killed} killed at "
+          f"{SURGE_KILL_AT} s ({live_at_kill} live), respawned as {respawned}; brownout engaged "
+          f"{a.get('brownouts', 0)}x, shed: {a.get('brownout_shed', 0)} queued (brownout_shed), "
+          f"{a.get('overloaded_rejects', 0)} overloaded, HTTP 429 {shed429}; scale-ups {a.get('scale_ups', 0)}, "
+          f"downs {a.get('scale_downs', 0)}, respawns {a.get('respawns', 0)}; signal -> attached ms "
+          f"{[round(x, 1) for x in seen['signal_to_attached_ms']]}, newcomer build + capture ms "
+          f"{[round(x, 1) for x in spawn_ms]}; accepted {len(accepted)}, terminal {terminal} {statuses}; final "
+          f"states {states}; retired replicas released {retired_freed}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the autoscaled fleet did not grow, brown out, heal and shrink back, or lost a request")
+    return {"seconds": seconds, "max_healthy": seen["max_healthy"], "killed": killed, "respawned": respawned,
+            "autoscale": a, "http_429": shed429, "accepted": len(accepted), "statuses": statuses,
+            "signal_to_attached_ms": seen["signal_to_attached_ms"], "spawn_ms": spawn_ms,
+            "replays": {str(rid): v[0] for rid, v in reps.items()}, "states": states}
+
+
+def gateway_workers(serve_config, vocab, smi, device="cuda", model_spec=None, engine_dtype="bf16"):
+    """(e): 2 worker processes over TCP behind the gateway: worker 0
+    SIGKILLed mid-trace, respawned by its supervisor and attached; then a
+    ``set_spec`` rolling upgrade of both workers."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepspeed_tpu_torch.inference import Router
+    from deepspeed_tpu_torch.launcher.http_gateway import HttpGateway
+    from deepspeed_tpu_torch.launcher.serving_worker import WorkerSupervisor
+
+    model = {**(model_spec or GPT2_SPEC), "dtype": "float32"}
+    spec = {"model": model, "engine_dtype": engine_dtype, "serving": {**serve_config, "watchdog_mode": "raise"}}
+    transport = {**FLEET_TRANSPORT, "family": "tcp", "host": "127.0.0.1"}
+    real, workdir = _socket_dir()
+    sup = WorkerSupervisor(spec, FLEET_REPLICAS, workdir=workdir, transport=transport, device=device,
+                           respawn_backoff={"max_attempts": 10, "base_delay_s": 0.05, "max_delay_s": 0.1,
+                                            "jitter": 0.0})
+    out = {}
+    gw = None
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(FLEET_REPLICAS) as ex:
+            clients = list(ex.map(sup.spawn, range(FLEET_REPLICAS)))
+        out["boot_s"] = time.perf_counter() - t0
+        router = Router(config={"router": {"replicas": FLEET_REPLICAS, "health": dict(FLEET_HEALTH),
+                                           "transport": transport}}, replica_engines=clients)
+        calls = LoopCalls()
+        gw = HttpGateway(router, GATEWAY_CFG, gateway_id=3, on_tick=calls)
+        gw.start()
+        reported = {}
+
+        def launches(client):
+            return tuple(client.telemetry_snapshot()["decode_kernel_launches"])
+
+        reqs = ragged_workload(vocab, RAGGED_RATE, seed=24)
+        t0 = time.perf_counter()
+        trace = send_trace(gw.port, [(float(r.arrival_time), request_body(r), i % 2 == 0, None)
+                                     for i, r in enumerate(reqs)], t0)
+        time.sleep(0.7)
+        reported["worker 0 before its kill"] = calls.run(lambda: launches(clients[0]))
+        sup.kill(0, signal.SIGKILL)
+        records = join_trace(trace)
+        dead = calls.run(lambda: router.replica_states()[0])
+        t1 = time.perf_counter()
+        fresh = sup.respawn(0)
+        out["respawn_s"] = time.perf_counter() - t1
+        rid = calls.run(lambda: router.attach_replica(fresh))
+        ok_a = dead == "dead" and all(r["status"] == 200 and r["json"].get("status") == "ok" for r in records)
+        counters = router.telemetry.registry.snapshot()["counters"]
+        print(f"  [{smi}] (e) {FLEET_REPLICAS} worker processes over TCP behind the gateway, booted together in "
+              f"{out['boot_s']:.1f} s; worker 0 SIGKILLed 0.7 s into workload (b): replica 0 {dead}, "
+              f"{counters.get('router/failovers', 0)} failovers, every request ok {ok_a}; respawned in "
+              f"{out['respawn_s']:.1f} s and attached as replica {rid}")
+        if not ok_a:
+            raise SystemExit("the worker fleet behind the gateway lost a request to the SIGKILL")
+        # both live workers serve a few requests before the upgrade
+        more = ragged_workload(vocab, RAGGED_RATE, seed=27)[:8]
+
+        def completed():
+            return {k: v["completed"] for k, v in router.router_stats()["replicas"].items()}
+
+        done0 = calls.run(completed)
+        extra = join_trace(send_trace(gw.port, [(0.0, {**request_body(r), "temperature": 0.0}, True, None)
+                                                for r in more], time.perf_counter()))
+        owners = sorted(k for k, n in calls.run(completed).items() if n > done0.get(k, 0))
+        ok_b = all(r["status"] == 200 and r["json"].get("status") == "ok" for r in extra) and rid in owners
+        print(f"    8 more requests after the attach, served by replicas {owners}: {ok_b}")
+        if not ok_b:
+            raise SystemExit("the respawned worker did not serve after its attach")
+        for name, client in (("worker 1", clients[1]), ("respawned worker", fresh)):
+            reported[name] = calls.run(lambda c=client: launches(c))
+        # the new generation: the same model under a spec of its own, so
+        # the newcomers boot the spec set_spec installs
+        marks = {}
+        calls.watchers.append(upgrade_watcher(router, marks))
+        calls.run(lambda: router.rolling_upgrade(supervisor=sup, slots={1: 1, rid: 0},
+                                                 spec={**spec, "generation": 2}, gate_timeout_s=300.0))
+        light = ragged_workload(vocab, 4.0, seed=25)[:8]
+        trace = send_trace(gw.port, [(float(r.arrival_time), request_body(r), True, None) for r in light],
+                           time.perf_counter())
+        calls.wait(lambda: router.upgrade_status()["state"] != "running"
+                   and not any(s == "draining" for s in router.replica_states().values()), timeout=300,
+                   what="the workers' rolling upgrade")
+        upgrade_records = join_trace(trace)
+        calls.run(lambda: None)
+        status = calls.run(router.upgrade_status)
+        waves = wave_times(status, marks)
+        new_clients = {w["new_rid"]: router._replicas[w["new_rid"]].engine for w in status["waves"]}
+        for w in status["waves"]:
+            reported[f"newcomer replica {w['new_rid']}"] = calls.run(
+                lambda c=new_clients[w["new_rid"]]: launches(c))
+        spec_ok = all(json.loads(open(sup._slot_spec[s]).read()).get("generation") == 2
+                      for s in status["slots"].values())
+        ok = (status["state"] == "done" and [w["outcome"] for w in waves] == ["upgraded"] * 2 and spec_ok
+              and all(w["canary_status"] == "ok" for w in waves)
+              and all(r["status"] == 200 and r["json"].get("status") == "ok" for r in upgrade_records)
+              and (device != "cuda" or all(v[0] > 0 and v[0] == v[1] for v in reported.values())))
+        print(f"    set_spec rolling upgrade of both workers under 8 streams: state {status['state']}, waves "
+              f"{[(w['old_rid'], w['new_rid'], w['outcome'], w['canary_status']) for w in waves]}; boot / gate / "
+              f"drain ms {[(round(w['boot_ms'] or 0), round(w['gate_ms'] or 0), round(w['drain_ms'] or 0)) for w in waves]}; "
+              f"newcomers booted the new spec {spec_ok}; decode launches (split, combine) as each worker reported "
+              f"them {reported}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the workers' rolling upgrade failed or a worker launched no decode kernel")
+        out.update(waves=waves, reported_launches={k: list(v) for k, v in reported.items()},
+                   failovers=counters.get("router/failovers", 0))
+        return out
+    finally:
+        if gw is not None:
+            gw.stop()
+            gw.close()
+        sup.shutdown(signal.SIGTERM, timeout=60.0)
+        sup.shutdown(signal.SIGKILL, timeout=10.0)
+        shutil.rmtree(real, ignore_errors=True)
+
+
+def gateway_parity_small(dev):
+    """A small fp32 fleet behind the gateway with an in-process rolling
+    upgrade started mid-stream: every greedy stream (SSE token events and
+    blocking replies) equals generate's tokens (required)."""
+    from deepspeed_tpu_torch.inference import Router
+    from deepspeed_tpu_torch.launcher.http_gateway import HttpGateway
+
+    tiny = TransformerConfig(vocab_size=97, max_seq_len=256, num_layers=2, num_heads=4, hidden_size=32)
+    eng = deepspeed_tpu_torch.init_inference(Model(tiny), config={"dtype": "fp32"}, device=dev)
+    rng = np.random.default_rng(5)
+    specs = [(rng.integers(0, 97, size=int(rng.integers(4, 40))).astype(np.int32), int(rng.integers(8, 40)))
+             for _ in range(12)]
+    router = Router(eng, config={"n_slots": 4, "watchdog_mode": "raise",
+                                 "router": {"replicas": 2, "health": dict(FLEET_HEALTH)}})
+    for r in router._replicas:
+        r.engine.warm_decode()
+    calls = LoopCalls()
+    gw = HttpGateway(router, GATEWAY_CFG, on_tick=calls)
+    gw.start()
+    try:
+        items = [(0.05 * i, {"prompt": [int(t) for t in p], "max_new_tokens": n}, i % 2 == 0, None)
+                 for i, (p, n) in enumerate(specs)]
+        trace = send_trace(gw.port, items, time.perf_counter())
+        time.sleep(0.2)
+        calls.run(router.rolling_upgrade)
+        records = join_trace(trace)
+        calls.wait(lambda: router.upgrade_status()["state"] != "running", timeout=120, what="the fp32 upgrade")
+        state = calls.run(lambda: router.upgrade_status()["state"])
+    finally:
+        gw.stop()
+        gw.close()
+    refs = [[int(t) for t in eng.generate(p[None], max_new_tokens=n)[0]] for p, n in specs]
+    same = all(r["json"]["status"] == "ok" and r["json"]["tokens"] == ref and (not r["stream"] or r["tokens"] == ref)
+               for r, ref in zip(records, refs))
+    ok = same and state == "done"
+    print(f"  small fp32 fleet (2 layers) behind the gateway, a rolling upgrade started mid-stream (state {state}): "
+          f"every greedy stream's tokens (SSE events and blocking replies) == generate's: {same}  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the fp32 fleet's gateway streams differ from generate")
+    return {"tokens_equal": same, "upgrade": state}
+
+
+def gateway_phase(dev, smi, model_cfg=None, serve_config=None, vocab_cap=None):
+    """Phase 21. ``model_cfg``/``serve_config`` default to phase 18's
+    (GPT-2-125M, bf16); a smaller pair rehearses the phase's control flow."""
+    from deepspeed_tpu_torch.inference import Router
+    from deepspeed_tpu_torch.launcher.http_gateway import HttpGateway
+
+    cuda = dev.type == "cuda"
+    cfg = model_cfg or TransformerConfig(**GPT2_SPEC)
+    L = cfg.num_layers if cuda else 0
+    serve_config = serve_config or SERVE_CONFIG
+    engine = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": "bf16" if model_cfg is None else "fp32"},
+                                                device=dev)
+    vocab = vocab_cap or engine.cfg.vocab_size
+    out = {"config": {**serve_config, "replicas": FLEET_REPLICAS, "ragged_rate_per_s": RAGGED_RATE,
+                      "gateway": GATEWAY_CFG, "surge_autoscale": SURGE_AUTOSCALE, "surge_queue": SURGE_QUEUE}}
+    reset_counts()
+    try:
+        client_pool()  # the client process, started before any trace's time 0
+        workload = ragged_workload(vocab, RAGGED_RATE, seed=11)
+        ref = one_engine_greedy(engine, serve_config, workload)
+        router = Router(engine, config=fleet_config(serve_config))
+        for r in router._replicas:
+            r.engine.warm_decode()  # both graphs captured before the gateway binds
+        res, seconds = serve_fleet(router, ragged_workload(vocab, RAGGED_RATE, seed=11))
+        out["router_alone"] = serving_metrics(res, seconds)
+        m = out["router_alone"]
+        print(f"  [{smi}] (a) the Router alone, workload (b): {m['ok']}/{m['requests']} ok, {m['tokens_per_s']:.1f} "
+              f"tokens/s; TTFT p50 {m['ttft_p50_ms']:.1f} ms, p99 {m['ttft_p99_ms']:.1f} ms; TPOT p50 "
+              f"{m['tpot_p50_ms']:.3f} ms")
+        calls = LoopCalls()
+        gw = HttpGateway(router, GATEWAY_CFG, gateway_id=1, on_tick=calls)
+        gw.start()
+        try:
+            _, out["through_gateway"] = gateway_traffic(router, gw, calls, workload, smi,
+                                                        f"(a) workload (b) through the gateway ({gw.address})", ref)
+            out["through_gateway"]["tokens_per_s_vs_router_alone"] = (
+                out["through_gateway"]["tokens_per_s"] / out["router_alone"]["tokens_per_s"])
+            if cuda:
+                out["through_gateway"]["profiled"] = gateway_profiled(router, gw, calls, vocab, L)
+            out["disconnects"] = gateway_disconnects(router, gw, calls, vocab, smi)
+            out["upgrade"] = gateway_upgrade(router, gw, calls, vocab, smi, cuda)
+        finally:
+            gw.stop()
+            gw.close()
+        inproc = {str(k): v for k, v in out["through_gateway"]["decode_launches"].items()}
+        del router
+        if cuda:
+            torch.cuda.empty_cache()
+        out["surge"] = gateway_surge(engine, serve_config, vocab, smi, cuda)
+        out["fp32_gateway_parity"] = gateway_parity_small(dev)
+        del engine
+        if cuda:
+            torch.cuda.empty_cache()
+        out["workers"] = gateway_workers(serve_config, vocab, smi, device=dev.type,
+                                         model_spec=None if model_cfg is None else {
+                                             k: getattr(cfg, k) for k in ("vocab_size", "max_seq_len", "num_layers",
+                                                                          "num_heads", "hidden_size")},
+                                         engine_dtype="bf16" if model_cfg is None else "fp32")
+        print(json.dumps({"gateway": out}, default=str))
+        return {"inprocess": inproc, "surge_replays": out["surge"]["replays"],
+                "workers": out["workers"]["reported_launches"]}
+    finally:
+        close_clients()  # the client processes
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace a short generate and a train_batch into DIR")
@@ -2943,6 +3815,13 @@ def main() -> int:
           f"at router step {KILL_STEP}), the journal's crash drill, {FLEET_REPLICAS} worker processes under a "
           f"WorkerSupervisor (SIGKILL, respawn, SIGTERM drain), at GPT-2-125M width")
     fleet = fleet_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    print(f"[21] the fleet's front door and membership at GPT-2-125M width: {FLEET_REPLICAS} in-process replicas "
+          f"behind the HTTP/SSE gateway (workload (b) blocking and streamed, disconnects, a rolling upgrade under "
+          f"traffic), the autoscaler under the surge trace with a replica killed, {FLEET_REPLICAS} worker processes "
+          f"over TCP (SIGKILL, respawn, a set_spec rolling upgrade)")
+    gateway = gateway_phase(dev, smi)
 
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -2951,6 +3830,8 @@ def main() -> int:
         "launches": launches[0], "combine_launches": launches[1],
         "serving_launches": serving_launches[0], "serving_combine_launches": serving_launches[1],
         "fleet_inprocess_launches": fleet["inprocess"], "fleet_worker_launches": fleet["workers"],
+        "gateway_inprocess_launches": gateway["inprocess"], "gateway_surge_replays": gateway["surge_replays"],
+        "gateway_worker_launches": gateway["workers"],
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"], "library_ratio": times["library_ratio"],

@@ -14,10 +14,16 @@ request journal of ``journal.py``:
 
     router = Router(engine, config={"n_slots": 16, "router": {"replicas": 2}})
     results = router.serve([Request(uid=i, prompt=p, max_new_tokens=128) for i, p in ...])
+
+``router.autoscale`` (or an ``Autoscaler`` around a ``WorkerSupervisor``)
+grows, shrinks and heals the fleet, ``Router.rolling_upgrade`` replaces it
+replica by replica, and ``launcher/http_gateway.HttpGateway`` puts it behind
+HTTP with SSE token streams.
 """
 
 from .engine import InferenceEngine  # noqa: F401
 from .serving import Request, RequestResult, ServingEngine  # noqa: F401
 from .journal import RequestJournal  # noqa: F401
 from .router import Router  # noqa: F401
+from .autoscaler import Autoscaler  # noqa: F401
 from .rpc import ReplicaClient, RpcClient, RpcServer  # noqa: F401

@@ -35,23 +35,40 @@ the split-KV decode kernel.
                     Router built over the same journal replays it and
                     reconciles with the surviving replicas.
 
+  * membership      ``attach_replica`` grows the fleet (a new rid, never a
+                    dead one resurrected); ``router.autoscale`` (or an
+                    ``inference/autoscaler.Autoscaler`` bound here) grows,
+                    shrinks, heals and browns out the fleet on every step;
+                    ``rolling_upgrade`` replaces it replica by replica
+                    (boot -> gate: a clean step plus a canary in the
+                    reserved uid band -> drain), and autoscale evaluation
+                    pauses while it runs.
+  * streaming       ``partial_result`` is the HTTP gateway's feed
+                    (``launcher/http_gateway.py``): tokens so far from host
+                    state only (an in-process replica's slot tokens, which
+                    the step's one device read filled; a worker's
+                    step-reply piggyback once ``enable_stream_progress``).
+
 ``step()`` returns every uid that reached a terminal state since the last
 call, across all replicas. Replicas are in-process (built from
 ``engine`` + ``config``, sharing its parameters, each with its own slot
 cache, generator and decode graph) or prebuilt ``replica_engines``: any
 mix of ``ServingEngine``s and ``rpc.ReplicaClient``s fronting worker
 processes (``launcher/serving_worker.py``). An ``RpcTimeout`` is a HUNG
-verdict, any other transport failure DEAD.
+verdict, any other transport failure DEAD. A replica that leaves the fleet
+(dead, or drained and retired) is ``close()``d: an in-process one frees its
+slot cache, prefix pool and graph.
 
 Not ported yet, each refused by name when its config enables it:
-``router.autoscale`` (and ``bind_autoscaler``), ``router.disagg`` (the
-prefill/decode pools and their KV handoff), ``rolling_upgrade``, the
-``gateway`` block, and the ``timeseries`` / ``slo`` / ``incidents``
-stores.
+``router.disagg`` (the prefill/decode pools, their KV handoff and per-pool
+autoscaling), ``router.autoscale.scale_up_mfu`` (its signal is the program
+ledger's), and the ``timeseries`` / ``slo`` / ``incidents`` stores.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, replace
@@ -63,16 +80,21 @@ from ..resilience import (ControlPlaneCrash, FaultInjector,
                           JournalUnavailableError, RequestRejected,
                           RpcError, RpcTimeout)
 from ..resilience.retry import backoff_delay
-from ..runtime.config import (FaultInjectionConfig, GatewayConfig,
-                              RequestTraceConfig, RouterConfig,
-                              RouterHealthConfig, TenantConfig)
+from ..runtime.config import (FaultInjectionConfig, RequestTraceConfig,
+                              RouterConfig, RouterHealthConfig, TenantConfig)
 from ..telemetry import RequestTracer, Telemetry
+from ..telemetry.request_trace import RESERVED_UID_BASE
 from ..utils.logging import log_dist
 from .engine import InferenceEngine
 from .serving import Request, RequestResult, ServingEngine
 
 # fleet observability blocks of the JAX Router the port has not got
 _UNPORTED_BLOCKS = ("timeseries", "slo", "incidents")
+
+# per-process canary uid source: every rolling-upgrade wave's synthetic
+# generate gets a uid in the RESERVED band, unique across successive
+# upgrades on the same fleet (engines remember finished uids forever)
+_canary_uids = itertools.count()
 
 
 @dataclass
@@ -96,7 +118,8 @@ class _Replica:
     drained: int = 0         # queued requests migrated off at drain time
     completed: int = 0       # terminal results recorded from this replica
     last_step_sec: float = 0.0  # latest non-compiling step latency
-    ok_steps: int = 0        # completed non-compiling steps
+    ok_steps: int = 0        # completed non-compiling steps: the rolling
+    #                          upgrade's "newcomer proven healthy" gate
 
     @property
     def accepts(self) -> bool:
@@ -147,8 +170,6 @@ class Router:
         if isinstance(rc, dict):
             rc = RouterConfig(**rc)
         rc.check_ported()
-        gw = config.get("gateway", {})
-        (GatewayConfig(**gw) if isinstance(gw, dict) else gw).check_ported()
         for name in _UNPORTED_BLOCKS:
             blk = config.get(name)
             on = blk.get("enabled", False) if isinstance(blk, dict) else getattr(blk, "enabled", False)
@@ -183,7 +204,6 @@ class Router:
         fi = config.get("fault_injection", {})
         if isinstance(fi, dict):
             fi = FaultInjectionConfig(**fi)
-        fi.check_ported()
         # the router's OWN injector consumes the replica_* sites; each
         # replica engine builds its own from the same block for the
         # request-level sites (garbage_logits) — independent counters
@@ -238,6 +258,11 @@ class Router:
         # ONE sink at the router — N replicas appending to one JSONL path
         # would interleave half-written lines
         sub.pop("jsonl_path", None)
+        # kept for runtime growth: the autoscaler's and the rolling
+        # upgrade's in-process newcomers are built from the same engine and
+        # per-replica config the constructor used
+        self._base_engine = engine
+        self._sub_config = sub
         self._replicas: list[_Replica] = []
         if replica_engines is not None:
             for rid, e in enumerate(replica_engines):
@@ -280,6 +305,12 @@ class Router:
         # saturated; degrades submit gracefully instead of shedding blindly
         self._brownout = False
         self._brownout_deadline_s = 0.0
+        self._autoscaler = None
+        # rolling-upgrade state machine, ticked by step() while one runs
+        self._upgrade: Optional[_RollingUpgrade] = None
+        # set by enable_stream_progress (an SSE gateway exists): remote
+        # replicas piggyback tokens-so-far on step replies
+        self._stream_progress = False
         if self._journal is not None and self._journal.recovered:
             # cold-start recovery: the journal remembers what the dead
             # control plane promised; the workers remember what they were
@@ -292,6 +323,13 @@ class Router:
             f"{self.health.timeout}s, affinity={self.affinity}, "
             f"global max_queue_len={self.max_queue_len or 'unbounded'}",
             ranks=[0])
+        if rc.autoscale.enabled and replica_engines is None:
+            # in-process fleets close the elasticity loop by themselves;
+            # process-mode fleets construct an Autoscaler around their
+            # WorkerSupervisor instead (it binds itself here)
+            from .autoscaler import Autoscaler
+
+            Autoscaler(self, rc.autoscale)
 
     # -- dispatch --------------------------------------------------------
 
@@ -496,6 +534,24 @@ class Router:
         own cache from this after a recovery)."""
         return dict(self._idem)
 
+    def request_tenant(self, uid: int) -> Optional[str]:
+        """The tenant owning live request ``uid`` (None when unknown or
+        terminal): the gateway's resume/fetch ownership check reads this
+        for uids it did not mint itself (journal-recovered bands)."""
+        req = self._requests.get(uid)
+        return req.tenant if req is not None else None
+
+    def max_uid_in_band(self, lo: int, hi: int) -> int:
+        """Highest uid in ``[lo, hi)`` this router knows (live or
+        terminal), or ``lo`` when none: a restarted gateway resumes its
+        uid counter past the recovered band instead of re-minting uids the
+        journal already owns."""
+        best = int(lo)
+        for uid in itertools.chain(self._owner, self._results):
+            if lo <= uid < hi:
+                best = max(best, uid)
+        return best
+
     def cancel(self, uid: int) -> bool:
         """Cancel wherever the request lives; the terminal ``cancelled``
         result is recorded immediately AND the uid is still returned by the
@@ -530,6 +586,39 @@ class Router:
         """Seconds on the fleet clock (the epoch every replica is anchored
         to) — arrival times, deadlines and autoscale cooldowns all read it."""
         return time.perf_counter() - self._epoch
+
+    def enable_stream_progress(self) -> None:
+        """Ask remote replicas to piggyback tokens-so-far on every step
+        reply (the ``partial_result`` feed for SSE streaming). Opt-in,
+        because the piggyback re-sends each live stream's token list per
+        step: a fleet with no streaming front door must not pay that wire
+        cost. The HTTP gateway flips this at construction; replicas
+        attached later inherit it. In-process replicas need nothing."""
+        self._stream_progress = True
+        for r in self._replicas:
+            if hasattr(r.engine, "stream_progress"):
+                r.engine.stream_progress = True
+
+    def partial_result(self, uid: int):
+        """Incremental per-uid result, what the SSE gateway streams from:
+        ``(tokens_so_far, terminal_result_or_None)``, or None for a uid the
+        fleet does not hold. Host reads only: an in-process replica's slot
+        tokens (filled by the step's one device read) or a remote replica's
+        step-piggybacked progress cache, so polling costs no device work
+        and no round trip. After a failover the replay decodes from
+        scratch, so ``tokens_so_far`` may shrink for a while; greedy
+        replays produce the same prefix, and the terminal result is always
+        authoritative."""
+        res = self._results.get(uid)
+        if res is not None:
+            return np.asarray(res.tokens, np.int32), res
+        rid = self._owner.get(uid)
+        if rid is None:
+            return None
+        toks = self._replicas[rid].engine.partial_tokens(uid)
+        if toks is None:
+            toks = np.zeros((0,), np.int32)
+        return np.asarray(toks, np.int32), None
 
     # -- overload brownout (docs/serving.md "Elastic fleet & brownout") --
 
@@ -600,6 +689,17 @@ class Router:
         if tenant:
             self.telemetry.counter(f"tenant/{tenant}/rejected").inc()
 
+    def tenant_excess(self) -> int:
+        """Fleet backlog held by tenants OVER their ``max_queued`` quota.
+        The autoscaler subtracts it from its queue signal: an aggressor's
+        burst is answered by its own 429s and the tenant-first brownout,
+        not by growing the fleet."""
+        if not self._tenants:
+            return 0
+        live = self._tenant_live_counts()
+        return sum(max(0, live.get(t, 0) - tc.max_queued)
+                   for t, tc in self._tenants.items() if tc.max_queued > 0)
+
     def _shed_lower_priority(self, request: Request) -> bool:
         """Brownout ladder rung 2: make room for ``request`` by shedding
         the lowest-priority NEWEST still-QUEUED request (admitted work —
@@ -655,9 +755,34 @@ class Router:
         return False
 
     def bind_autoscaler(self, autoscaler) -> None:
-        raise NotImplementedError(
-            "Router.bind_autoscaler (the elastic fleet, inference/autoscaler.py) is not ported to "
-            "deepspeed_tpu_torch yet")
+        """Attach the autoscaler whose ``tick`` rides every ``step()`` and
+        whose decision ring the fleet snapshot carries."""
+        self._autoscaler = autoscaler
+
+    def mark_dead(self, rid: int) -> None:
+        """External dead verdict: a supervisor OBSERVED the replica's worker
+        process gone (stronger evidence than any transport timeout, also
+        for a replica on probation: a dead process never re-admits). Its
+        in-flight work fails over now instead of at the next step's
+        transport error. No-op for replicas already dead or drained."""
+        r = self._replicas[rid]
+        if r.state in ("dead", "drained"):
+            return
+        log_dist(f"router: replica {rid} marked dead externally "
+                 f"(supervisor observed the worker process gone)", ranks=[0])
+        self._fail(r, "dead", self.now(), self._pending_terminal)
+
+    def release_replica(self, rid: int) -> None:
+        """``close()`` a replica that left the fleet (dead, or drained and
+        retired): an in-process replica frees its slot cache, prefix pool
+        and decode graph, a remote one's client closes so later calls fail
+        fast. Best-effort: the replica serves nothing any more."""
+        closer = getattr(self._replicas[rid].engine, "close", None)
+        if closer is not None:
+            try:
+                closer()
+            except (RpcError, OSError):
+                pass
 
     # -- cold-start recovery (docs/serving.md "Crash-safe control plane") -
 
@@ -926,15 +1051,10 @@ class Router:
         if verdict == "dead":
             r.state = "dead"
             tm.counter("router/replicas_dead").inc()
-            closer = getattr(r.engine, "close", None)
-            if closer is not None:
-                # a remote replica's client is closed so later snapshots /
-                # cancels fail FAST instead of paying reconnect backoff
-                # toward a process that is gone
-                try:
-                    closer()
-                except (RpcError, OSError):  # teardown is best-effort
-                    pass
+            # a remote replica's client is closed so later snapshots /
+            # cancels fail FAST instead of paying reconnect backoff toward
+            # a process that is gone; an in-process one frees its memory
+            self.release_replica(r.rid)
             log_dist(f"router: replica {r.rid} marked DEAD "
                      f"({len(live)} in-flight requests failing over)",
                      ranks=[0])
@@ -1079,6 +1199,16 @@ class Router:
         tm.gauge("router/queue_depth").set(
             sum(r.engine.queue_len for r in self._replicas if r.stepped))
         self._update_gauges()
+        if self._upgrade is not None and self._upgrade.state == "running":
+            self._upgrade.tick(now)
+        elif self._autoscaler is not None:
+            # the elasticity loop closes here: every fleet step evaluates
+            # the scaling signals (worker boots run on background threads;
+            # a later tick attaches them). Autoscale evaluation PAUSES while
+            # a rolling upgrade runs: the upgrade churns membership on
+            # purpose, and its transient double capacity would read as
+            # idleness
+            self._autoscaler.tick(now)
         return terminal
 
     # -- draining / run loops -------------------------------------------
@@ -1197,6 +1327,23 @@ class Router:
 
     # -- fleet membership ------------------------------------------------
 
+    def _spawn_inprocess(self) -> ServingEngine:
+        """One more in-process replica from the constructor's engine and
+        per-replica config: the autoscaler's and the rolling upgrade's
+        default newcomer. It runs on the thread that steps the fleet, and
+        on the card it captures its decode graph here, before it takes
+        traffic (a capture must never overlap another thread's device
+        work)."""
+        if self._base_engine is None:
+            raise ValueError(
+                "this fleet was built from prebuilt replica_engines; give "
+                "the autoscaler a spawn callable or a WorkerSupervisor")
+        e = ServingEngine(self._base_engine, config=self._sub_config,
+                          replica_id=len(self._replicas))
+        if e.worker.device.type == "cuda":
+            e.warm_decode()
+        return e
+
     def attach_replica(self, engine) -> int:
         """Grow the fleet at runtime — the worker supervisor's respawn
         path: a SIGKILL'd worker's replacement process joins as a NEW
@@ -1208,6 +1355,10 @@ class Router:
         if hasattr(engine, "bind_telemetry"):
             engine.bind_telemetry(self.telemetry)
         engine.set_epoch(self._epoch)
+        if self._stream_progress and hasattr(engine, "stream_progress"):
+            # a streaming front door is attached: joiners piggyback
+            # tokens-so-far like the rest of the fleet
+            engine.stream_progress = True
         self._replicas.append(_Replica(rid, engine))
         self.telemetry.gauge("router/replicas").set(len(self._replicas))
         self.telemetry.counter("router/replicas_attached").inc()
@@ -1218,10 +1369,56 @@ class Router:
 
     # -- rolling upgrades -------------------------------------------------
 
-    def rolling_upgrade(self, **kwargs) -> None:
-        raise NotImplementedError(
-            "Router.rolling_upgrade (worker-by-worker generation replacement) is not ported to "
-            "deepspeed_tpu_torch yet")
+    def rolling_upgrade(self, *, supervisor=None, slots: dict | None = None,
+                        spawn=None, spec: dict | None = None,
+                        gate_timeout_s: float = 120.0,
+                        canary: bool = True,
+                        canary_prompt=None,
+                        canary_max_new: int = 2) -> None:
+        """Begin a zero-downtime replica-by-replica fleet upgrade. For each
+        replica that was healthy when the upgrade started, one WAVE:
+
+          1. boot the NEW generation first (``supervisor.spawn`` on a
+             background thread, so the fleet keeps stepping, or the
+             ``spawn`` callable / ``_spawn_inprocess``, run inline on the
+             stepping thread),
+          2. ``attach_replica`` it and GATE on its first healthy
+             non-compiling step plus, with ``canary`` on (the default), a
+             canary generate served end to end by the newcomer: a tiny
+             request in the RESERVED uid band (>= 2**62), submitted to the
+             newcomer's scheduler directly (never journaled, never traced
+             as user traffic) and driven by the ordinary fleet steps. A
+             newcomer that dies, hangs, fails its canary or misses the gate
+             within ``gate_timeout_s`` (fleet clock) ABORTS the upgrade:
+             the old generation keeps serving, the newcomer is drained and
+             retired. ``canary_prompt`` (default ``[1, 1, 1, 1]``) must be
+             valid token ids for the model,
+          3. only then ``drain_replica`` the old generation (queued work
+             migrates, in-flight streams finish in place) and retire it.
+
+        ``supervisor``/``slots`` follow the Autoscaler's contract: ``slots``
+        maps attached rids to their supervisor slots, newcomers take fresh
+        slots. ``spec`` (with a supervisor) installs the new generation's
+        engine spec (``WorkerSupervisor.set_spec``) before the first boot.
+        ``step()`` ticks the state machine; poll ``upgrade_status()``.
+        Autoscale evaluation pauses meanwhile."""
+        if self._upgrade is not None and self._upgrade.state == "running":
+            raise ValueError("a rolling upgrade is already in progress")
+        self.telemetry.counter("router/upgrades").inc()
+        self._upgrade = _RollingUpgrade(
+            self, supervisor=supervisor, slots=slots, spawn=spawn,
+            spec=spec, gate_timeout_s=gate_timeout_s, canary=canary,
+            canary_prompt=canary_prompt, canary_max_new=canary_max_new)
+        log_dist(
+            f"router: rolling upgrade started over replicas "
+            f"{self._upgrade.plan} (gate: first healthy non-compiling step"
+            f"{' + served canary' if canary else ''}, "
+            f"{gate_timeout_s}s timeout)", ranks=[0])
+
+    def upgrade_status(self) -> Optional[dict]:
+        """State of the current/last rolling upgrade (None if never
+        started): ``{state, reason, pending, current, waves, slots}``."""
+        return None if self._upgrade is None else self._upgrade.status()
 
     # -- observability ---------------------------------------------------
 
@@ -1343,12 +1540,302 @@ class Router:
                 **self.router_stats(),
                 **({"request_trace": self.tracer.events()}
                    if self.tracer is not None else {}),
+                **({"autoscale": self._autoscaler.describe()}
+                   if self._autoscaler is not None else {}),
+                **({"upgrade": self._upgrade.status()}
+                   if self._upgrade is not None else {}),
             },
             "replicas": reps,
         }
         if emit:
             self.telemetry.emit({"type": "snapshot", **snap})
         return snap
+
+
+class _RollingUpgrade:
+    """Replica-by-replica generation replacement, as a state machine ticked
+    by ``Router.step()``: the upgrade never stalls the serve loop (clients
+    are streaming tokens while it runs). One wave per replica that was
+    healthy at start; within a wave the phases are
+
+        boot -> gate -> drain        (success: old generation retired)
+                  \\-> abort_drain    (failure: NEWCOMER drained/retired,
+                                      old generation keeps serving, the
+                                      whole upgrade stops)
+
+    The gate is the newcomer's first healthy NON-COMPILING step
+    (``_Replica.ok_steps``) plus its canary: a replacement that boots but
+    cannot serve must never cost the fleet its proven old generation.
+    Supervisor boots run on a background thread (the autoscaler's
+    discipline; a boot there touches no device in this process); in-process
+    builds run inline on the stepping thread, where the newcomer captures
+    its decode graph. A retired in-process replica is ``close()``d, which
+    frees its slot cache, prefix pool and graph."""
+
+    def __init__(self, router: Router, *, supervisor=None,
+                 slots: dict | None = None, spawn=None,
+                 spec: dict | None = None, gate_timeout_s: float = 120.0,
+                 canary: bool = True, canary_prompt=None,
+                 canary_max_new: int = 2):
+        self.router = router
+        self.supervisor = supervisor
+        self.slots: dict[int, int] = dict(slots or {})  # rid -> slot
+        self._spawn_fn = spawn
+        self.gate_timeout_s = float(gate_timeout_s)
+        self.canary = bool(canary)
+        self.canary_prompt = (np.asarray([1, 1, 1, 1], np.int32)
+                              if canary_prompt is None
+                              else np.asarray(canary_prompt, np.int32))
+        self.canary_max_new = int(canary_max_new)
+        self.state = "running"
+        self.reason = ""
+        self.plan: list[int] = [r.rid for r in router._replicas
+                                if r.state == "healthy"]
+        self.waves: list[dict] = []
+        self._wave: Optional[dict] = None
+        self._boot: Optional[dict] = None
+        self._next_slot = max(self.slots.values(), default=-1) + 1
+        asc = router._autoscaler
+        if asc is not None:
+            # a bound autoscaler owns the SAME slot namespace: newcomer
+            # slots must not collide with ones it may allocate later, and
+            # its rid->slot ledger must track every wave
+            self._next_slot = max(self._next_slot, asc._slot_seq)
+        if supervisor is not None and spec is not None:
+            # the new generation's spec: running workers keep the old one
+            # until their wave's retire->spawn replaces them
+            supervisor.set_spec(spec)
+
+    def _ledger_attach(self, rid: int, slot) -> None:
+        """Record a newcomer in this upgrade's map AND the autoscaler's."""
+        if slot is None:
+            return
+        self.slots[rid] = slot
+        asc = self.router._autoscaler
+        if asc is not None:
+            asc._slots[rid] = slot
+            asc._slot_seq = max(asc._slot_seq, slot + 1)
+
+    def _ledger_retire(self, rid: int):
+        """Drop ``rid`` from both maps; returns its slot (or None)."""
+        slot = self.slots.pop(rid, None)
+        asc = self.router._autoscaler
+        if asc is not None:
+            asc._slots.pop(rid, None)
+        return slot
+
+    # -- boots ------------------------------------------------------------
+
+    def _begin_boot(self) -> None:
+        holder: dict = {"slot": None, "result": None, "error": None,
+                        "thread": None}
+        if self.supervisor is None:
+            # in-process replacement: same engine + config, built (and on
+            # the card captured) inline on the stepping thread
+            try:
+                holder["result"] = (self._spawn_fn() if self._spawn_fn
+                                    else self.router._spawn_inprocess())
+            except (RpcError, OSError, RuntimeError) as e:
+                holder["error"] = e
+            self._boot = holder
+            return
+        slot = self._next_slot
+        self._next_slot += 1
+        holder["slot"] = slot
+
+        def run():
+            try:
+                holder["result"] = self.supervisor.spawn(slot)
+            except (RpcError, OSError, RuntimeError) as e:
+                holder["error"] = e
+
+        t = threading.Thread(target=run, daemon=True,
+                             name=f"dstt-upgrade-boot-{slot}")
+        holder["thread"] = t
+        self._boot = holder
+        t.start()
+
+    # -- the tick ----------------------------------------------------------
+
+    def tick(self, now: float) -> None:
+        if self.state != "running":
+            return
+        if self._wave is None:
+            if not self.plan:
+                self.state = "done"
+                log_dist(
+                    f"router: rolling upgrade complete "
+                    f"({len([w for w in self.waves if w.get('outcome') == 'upgraded'])} "
+                    f"replicas replaced)", ranks=[0])
+                return
+            old = self.plan.pop(0)
+            if self.router._replicas[old].state != "healthy":
+                # died or was drained since the plan snapshot: nothing
+                # left to upgrade in this wave
+                self.waves.append({"old_rid": old, "outcome": "skipped"})
+                return
+            self._wave = {"old_rid": old, "new_rid": None, "phase": "boot",
+                          "started": round(now, 4)}
+            self._begin_boot()
+            return
+        w = self._wave
+        if w["phase"] == "boot":
+            b = self._boot
+            if b["thread"] is not None and b["thread"].is_alive():
+                return  # still booting; the fleet keeps stepping
+            if b["error"] is not None:
+                self._abort(now, "newcomer boot failed: "
+                            f"{type(b['error']).__name__}: {b['error']}",
+                            boot_slot=b["slot"])
+                return
+            new_rid = self.router.attach_replica(b["result"])
+            self._ledger_attach(new_rid, b["slot"])
+            w["new_rid"] = new_rid
+            w["phase"] = "gate"
+            w["gate_start"] = now
+            return
+        if w["phase"] == "gate":
+            new_r = self.router._replicas[w["new_rid"]]
+            if new_r.state == "dead":
+                self._abort(now, f"newcomer replica {w['new_rid']} died "
+                            "before its first healthy step")
+                return
+            if self.canary and w.get("canary_uid") is None:
+                # per-wave canary in the RESERVED uid band, submitted to the
+                # newcomer's scheduler directly: never journaled, never
+                # dispatched elsewhere, out of user timelines. Its deadline
+                # bounds an abort-drain it could otherwise pin open, and
+                # its arrival is NOW on the fleet clock (deadlines are
+                # arrival + deadline_s)
+                uid = RESERVED_UID_BASE + next(_canary_uids)
+                try:
+                    new_r.engine.submit(Request(
+                        uid=uid, prompt=self.canary_prompt,
+                        max_new_tokens=self.canary_max_new,
+                        arrival_time=now,
+                        deadline_s=max(1.0, self.gate_timeout_s)))
+                except (RpcError, OSError, ValueError) as e:
+                    self._abort(now, f"newcomer replica {w['new_rid']} "
+                                f"refused its canary generate "
+                                f"({type(e).__name__}: {e})")
+                    return
+                w["canary_uid"] = uid
+            canary_ok = True
+            if self.canary:
+                try:
+                    res = new_r.engine.result(w["canary_uid"])
+                except (RpcError, OSError):
+                    res = None  # transport hiccup: the timeout governs
+                if res is not None and not res.ok:
+                    self._abort(now, f"newcomer replica {w['new_rid']} "
+                                f"failed its canary generate "
+                                f"(status {res.status})")
+                    return
+                canary_ok = res is not None and res.ok
+                if canary_ok:
+                    w["canary_status"] = res.status
+            if new_r.state == "healthy" and new_r.ok_steps >= 1 and canary_ok:
+                # newcomer proven (booted, stepped clean, served a request
+                # end to end): NOW the old generation may go
+                self.router.drain_replica(w["old_rid"], block=False)
+                w["phase"] = "drain"
+                return
+            if now - w["gate_start"] > self.gate_timeout_s:
+                self._abort(now, f"newcomer replica {w['new_rid']} never "
+                            "passed the gate (healthy non-compiling step"
+                            + (" + served canary" if self.canary else "")
+                            + f") within {self.gate_timeout_s}s")
+            return
+        if w["phase"] in ("drain", "abort_drain"):
+            rid = w["old_rid"] if w["phase"] == "drain" else w["new_rid"]
+            if self.router._replicas[rid].state == "draining":
+                return
+            # drained, or dead (the router already failed its in-flight
+            # work over): either way the replica can go
+            self._retire(rid)
+            if w["phase"] == "drain":
+                w["outcome"] = "upgraded"
+                self.router.telemetry.counter("router/upgrade_waves").inc()
+                log_dist(
+                    f"router: upgrade wave done — replica {w['old_rid']} "
+                    f"retired, replica {w['new_rid']} serving", ranks=[0])
+                self.waves.append(w)
+                self._wave = None
+            else:
+                w["outcome"] = "aborted"
+                self.waves.append(w)
+                self._wave = None
+                self.state = "aborted"
+
+    def _retire(self, rid: int) -> None:
+        """Retire a replica that left the fleet: its worker slot, or, for
+        an in-process replica, its device memory (``close()``)."""
+        slot = self._ledger_retire(rid)
+        if slot is None:
+            self.router.release_replica(rid)
+        self._retire_slot(slot)
+
+    def _retire_slot(self, slot) -> None:
+        """Retire a worker slot WITHOUT stalling the serve loop:
+        ``WorkerSupervisor.retire`` SIGTERMs then waits up to its timeout,
+        and a slow-to-exit old generation must not freeze every client's
+        token stream for that long. Fire-and-forget is safe: the replica
+        is already drained or dead, so nothing routes to it."""
+        if slot is None or self.supervisor is None:
+            return
+
+        def run():
+            try:
+                self.supervisor.retire(slot)
+            except OSError:  # a corpse's slot: reaping is best-effort
+                pass
+
+        threading.Thread(target=run, daemon=True,
+                         name=f"dstt-upgrade-retire-{slot}").start()
+
+    def _abort(self, now: float, reason: str, boot_slot=None) -> None:
+        """Keep the OLD generation serving. A failed-boot newcomer only
+        needs its slot reaped; an attached-but-unproven one is drained
+        first (dispatch may already have routed arrivals to it: no accepted
+        request is lost on the abort path either)."""
+        self.reason = reason
+        self.router.telemetry.counter("router/upgrade_aborts").inc()
+        log_dist(f"router: rolling upgrade ABORTED — {reason} (old "
+                 "generation keeps serving)", ranks=[0])
+        w = self._wave
+        if w and w.get("canary_uid") is not None \
+                and w.get("new_rid") is not None:
+            # free the pending canary so the newcomer's abort-drain is not
+            # pinned open by a request it can never serve
+            try:
+                self.router._replicas[w["new_rid"]].engine.cancel(
+                    w["canary_uid"])
+            except (RpcError, OSError):
+                pass  # a dead/hung newcomer cannot acknowledge
+        self._retire_slot(boot_slot)
+        new_rid = w.get("new_rid") if w else None
+        if new_rid is not None and \
+                self.router._replicas[new_rid].state == "healthy":
+            self.router.drain_replica(new_rid, block=False)
+            w["phase"] = "abort_drain"
+            return
+        if new_rid is not None:
+            self._retire(new_rid)
+        if w is not None:
+            w["outcome"] = "aborted"
+            self.waves.append(w)
+        self._wave = None
+        self.state = "aborted"
+
+    def status(self) -> dict:
+        return {
+            "state": self.state,
+            "reason": self.reason,
+            "pending": list(self.plan),
+            "current": dict(self._wave) if self._wave else None,
+            "waves": [dict(w) for w in self.waves],
+            "slots": dict(self.slots),
+        }
 
 
 __all__ = ["Router", "tenant_idem_key"]

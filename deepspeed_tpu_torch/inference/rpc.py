@@ -586,6 +586,13 @@ class ReplicaClient:
         self._results: dict[int, object] = {}  # uid -> decoded RequestResult
         self._trace_flush: deque = deque(maxlen=4096)
         self._ack: list[int] = []  # terminal uids to acknowledge next step
+        # per-uid tokens-so-far, replaced whole by every step reply: the
+        # gateway's SSE streams read this cache (partial_tokens), so
+        # streaming costs no extra round trip. Opt-in (``stream_progress``,
+        # set by Router.enable_stream_progress): other fleets skip the wire
+        # cost of re-sending each stream's tokens every step
+        self.stream_progress = False
+        self._progress: dict[int, list[int]] = {}
         # last piggybacked speculative-decoding stats block ("spec" on the
         # step reply; None until the worker reports one / feature off).
         # Kept across a replica death so the fleet aggregate still counts
@@ -682,7 +689,7 @@ class ReplicaClient:
              enforce_deadlines: bool = True) -> list[int]:
         reply = self.rpc.call(
             "step", now=now, enforce_deadlines=bool(enforce_deadlines),
-            ack=self._ack, progress=False,
+            ack=self._ack, progress=bool(self.stream_progress),
             retry_safe=True)
         self._ack = []
         self._refresh(reply)
@@ -690,6 +697,8 @@ class ReplicaClient:
         for k, enc in (reply.get("results") or {}).items():
             self._results[int(k)] = decode_result(enc)
         self._trace_flush.extend(reply.get("trace") or [])
+        self._progress = {int(k): [int(t) for t in v]
+                          for k, v in (reply.get("progress") or {}).items()}
         self._spec = reply.get("spec") or self._spec
         uids = [int(u) for u in reply.get("uids") or []]
         self._ack = list(uids)
@@ -777,6 +786,20 @@ class ReplicaClient:
         while self._trace_flush and len(out) < limit:
             out.append(self._trace_flush.popleft())
         return out
+
+    def partial_tokens(self, uid: int):
+        """Tokens so far for ``uid`` from the step-piggybacked progress
+        cache (and terminal results), NEVER the wire: a gateway polls this
+        per stream per step. None when the worker has not reported the uid
+        (it may still be queued there)."""
+        uid = int(uid)
+        res = self._results.get(uid)
+        if res is not None:
+            return np.asarray(res.tokens, np.int32)
+        toks = self._progress.get(uid)
+        if toks is None:
+            return None
+        return np.asarray(toks, np.int32)
 
     # -- observability ---------------------------------------------------
 

@@ -202,6 +202,20 @@ class _Prefill:
     t_admit: float = 0.0  # epoch-relative admission time
 
 
+# one warm-up stream per device for every decode graph's capture: cuBLAS
+# keeps a workspace for each stream it ran on until the process exits, so a
+# stream made per capture would hold one more workspace (32 MiB on Hopper)
+# for every replica a fleet ever builds (an autoscaler's, an upgrade's)
+_WARMUP_STREAMS: dict = {}
+
+
+def _warmup_stream(device) -> "torch.cuda.Stream":
+    stream = _WARMUP_STREAMS.get(device)
+    if stream is None:
+        stream = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 class SlotWorker:
     """The device half of the serving engine: the slot KV cache, the prefix
     pool, the sampler's generator and the watched programs that touch them.
@@ -290,7 +304,7 @@ class SlotWorker:
         self._static_in = self._pin_in.to(dev)
         self._pin_out = torch.empty((n, 2), dtype=torch.int32).pin_memory()
         self._done = torch.cuda.Event()
-        side = torch.cuda.Stream(dev)
+        side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(2):

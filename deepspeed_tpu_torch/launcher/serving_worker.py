@@ -43,11 +43,13 @@ flush, so a later SIGKILL cannot take the timeline with it.
 
 ``WorkerSupervisor`` owns spawn and respawn: one process per replica
 slot, socket, heartbeat and pidfile under a short work directory, SIGKILL
-on a stale heartbeat, bounded-backoff respawns, and adoption of workers a
-dead supervisor left behind (``adopt``).
+on a stale heartbeat, bounded-backoff respawns, adoption of workers a dead
+supervisor left behind (``adopt``), and ``set_spec``, the rolling
+upgrade's new generation: later spawns boot it, while running workers and
+their respawns keep the spec they booted from.
 
 Not ported yet: the disaggregated ``--role`` flag and the KV-handoff
-handlers, and the rolling upgrade's ``set_spec``.
+handlers.
 """
 
 from __future__ import annotations
@@ -502,8 +504,12 @@ class WorkerSupervisor:
         # AF_UNIX sun_path limit (~108 chars), so default to a short tmpdir
         self.workdir = workdir or tempfile.mkdtemp(prefix="dstt_srv_")
         os.makedirs(self.workdir, exist_ok=True)
+        # the spec fresh spawns boot; each slot remembers the one its
+        # generation booted (a respawn boots that one again)
         self.spec_path = os.path.join(self.workdir, "spec.json")
         write_durable_bytes(self.spec_path, json.dumps(spec).encode("utf-8"))
+        self._spec_gen = 0
+        self._slot_spec: dict[int, str] = {}
         self.extra_env = dict(env or {})
         self.worker_env = {int(k): dict(v)
                            for k, v in (worker_env or {}).items()}
@@ -521,6 +527,19 @@ class WorkerSupervisor:
         self.respawns = 0
 
     # -- spawn -----------------------------------------------------------
+
+    def set_spec(self, spec: dict) -> None:
+        """Install a NEW engine spec for later spawns, the rolling
+        upgrade's generation replacement (``Router.rolling_upgrade``). It
+        is written under a name of its own, tmp + fsync + rename + directory
+        fsync, so a crash mid-upgrade never leaves a torn spec to boot
+        from. Running workers keep serving the old generation's spec, and
+        a crash-respawn of such a slot boots that spec again: only a fresh
+        slot (an upgrade wave's newcomer, a scale-up) boots the new one."""
+        self._spec_gen += 1
+        path = os.path.join(self.workdir, f"spec.g{self._spec_gen}.json")
+        write_durable_bytes(path, json.dumps(spec).encode("utf-8"))
+        self.spec_path = path
 
     def _pidfile(self, slot: int) -> str:
         return os.path.join(self.workdir, f"w{slot}.pid")
@@ -569,9 +588,12 @@ class WorkerSupervisor:
             pass
         return None
 
-    def spawn(self, slot: int) -> ReplicaClient:
-        """Boot the worker for ``slot`` and block until its socket serves a
-        ping (bounded by ``transport.boot_timeout_s``)."""
+    def spawn(self, slot: int, spec_path: Optional[str] = None) -> ReplicaClient:
+        """Boot the worker for ``slot`` from ``spec_path`` (default: the
+        current spec, ``set_spec``'s latest) and block until its socket
+        serves a ping (bounded by ``transport.boot_timeout_s``)."""
+        spec_path = spec_path or self.spec_path
+        self._slot_spec[slot] = spec_path
         addr = self._listen_address(slot)
         hb = os.path.join(self.workdir, f"hb{slot}")
         with open(hb, "w"):
@@ -588,7 +610,7 @@ class WorkerSupervisor:
         env.update(self.extra_env)
         env.update(self.worker_env.get(slot, {}))
         cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.serving_worker",
-               "--socket", addr, "--spec", self.spec_path,
+               "--socket", addr, "--spec", spec_path,
                "--replica-id", str(slot), "--heartbeat", hb,
                "--device", self.device]
         with open(log_path, "w") as log_f:
@@ -601,7 +623,7 @@ class WorkerSupervisor:
         # resolved address is rewritten below once the worker is up
         self._write_pidfile(slot, {
             "pid": proc.pid, "slot": slot, "gen": self._gen[slot],
-            "addr": addr, "heartbeat": hb, "log": log_path})
+            "addr": addr, "heartbeat": hb, "log": log_path, "spec": spec_path})
         # an ephemeral-port worker resolves its address at bind time; poll
         # the ready line for it before the first connect
         ephemeral = addr.startswith("tcp://") and addr.endswith(":0")
@@ -638,7 +660,7 @@ class WorkerSupervisor:
             # record must carry the address a successor can connect to
             self._write_pidfile(slot, {
                 "pid": proc.pid, "slot": slot, "gen": self._gen[slot],
-                "addr": client.rpc.path, "heartbeat": hb, "log": log_path})
+                "addr": client.rpc.path, "heartbeat": hb, "log": log_path, "spec": spec_path})
         logger.info("serving supervisor: slot %d generation %d up (pid %d, "
                     "%s)", slot, self._gen[slot], proc.pid, client.rpc.path)
         return client
@@ -719,6 +741,7 @@ class WorkerSupervisor:
             self._procs[slot] = _AdoptedProc(pid)
             self._clients[slot] = client
             self._gen[slot] = int(info.get("gen", 0))
+            self._slot_spec[slot] = str(info.get("spec", "")) or self.spec_path
             self._logs[slot] = str(info.get("log", "")) or os.path.join(
                 self.workdir, f"w{slot}g{self._gen[slot]}.log")
             hb = str(info.get("heartbeat", "")) or os.path.join(
@@ -823,7 +846,9 @@ class WorkerSupervisor:
                 pass
         self._gen[slot] += 1
         self.respawns += 1
-        return self.spawn(slot)
+        # the slot's own generation: an upgrade's set_spec does not reach a
+        # worker before its wave replaces it
+        return self.spawn(slot, self._slot_spec.get(slot))
 
     def kill(self, slot: int, sig: int = signal.SIGKILL) -> None:
         """Deliver ``sig`` to the slot's worker (the chaos drill's kill -9)."""
@@ -838,6 +863,7 @@ class WorkerSupervisor:
         generation if the fleet grows again)."""
         proc = self._procs.pop(slot, None)
         client = self._clients.pop(slot, None)
+        self._slot_spec.pop(slot, None)
         self._hb_judge.pop(slot, None)
         self._hb_path.pop(slot, None)
         self._heal_anchor.pop(slot, None)

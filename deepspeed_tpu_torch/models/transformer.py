@@ -17,11 +17,13 @@ product, logits computed in the compute dtype and then cast to fp32.
 
 The KV cache is updated IN PLACE by ``apply_with_cache`` and
 ``update_cache_slot`` (the JAX versions return new arrays). Randomness
-(dropout, layer drop) comes from an explicit ``torch.Generator``; it gives
-other bits than ``jax.random`` for the same seed. As the JAX package splits
-its key per layer, each layer draws from a generator of its own, seeded from
-the caller's generator's seed and the layer index, so a remat recompute
-replays the layer's masks.
+(dropout, layer drop) comes from a key, a 0-d int64 tensor
+(``dropout_key(seed, step, micro)``), and a counter-based integer hash of it
+and each element's index in plain torch ops: the same bits on the CPU and
+the card, other bits than ``jax.random``. As the JAX package splits its key
+per layer, each layer and each of its sites hashes a key of its own, so a
+remat recompute replays the layer's masks, and a step tensor on the device
+keys them without a fetch.
 """
 
 from __future__ import annotations
@@ -329,11 +331,53 @@ def _layers(params: Params) -> list[dict]:
 NEG_BIAS = -1e30
 
 
-def _dropout(x, rate: float, gen: Optional[torch.Generator]):
-    """Inverted dropout; identity when rate == 0 or no generator (inference)."""
-    if rate <= 0.0 or gen is None:
+_M32 = 0xFFFFFFFF
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xorshift-multiply rounds) of an int64 tensor
+    holding values in [0, 2**32). Both multipliers are below 2**31, so no
+    product overflows int64 and the CPU and the card give the same bits."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x5BD1E995) & _M32
+    return x ^ (x >> 16)
+
+
+def _fold(key: torch.Tensor, value) -> torch.Tensor:
+    """The key of a sub-stream: ``key`` hashed with ``value`` (an int or an
+    integer tensor on the key's device)."""
+    v = torch.as_tensor(value, device=key.device).long() & _M32
+    return _hash32(key ^ _hash32(v))
+
+
+def dropout_key(seed: int, step, micro: int = 0, device=None) -> torch.Tensor:
+    """The dropout and layer-drop key of one micro-batch: a 0-d int64 tensor
+    hashed from (``seed``, ``step``, ``micro``). ``step`` may be a tensor on
+    the device (the engine passes ``state["step"] + 1``): the key is computed
+    there and nothing is read back, so the masks follow the device step
+    through every skipped update, as the JAX engine's key does."""
+    step = torch.as_tensor(step, device=device)
+    seed = int(seed)
+    key = _hash32(torch.tensor((seed ^ (seed >> 32)) & _M32, dtype=torch.int64, device=step.device))
+    return _fold(_fold(key, step), int(micro))
+
+
+def _uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """Uniform fp32 in [0, 1) with 24 random bits, one per element of
+    ``shape``: the hash of the element's index under ``key``."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=key.device).view(shape)
+    bits = _hash32(_hash32(idx ^ key) ^ key)
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _dropout(x, rate: float, key):
+    """Inverted dropout; identity when rate == 0 or no key (inference)."""
+    if rate <= 0.0 or key is None:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    keep = _uniform(key, tuple(x.shape)) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -397,37 +441,39 @@ def _attn_call(cfg: TransformerConfig, attn_fn, q, k, v, bias, is_local):
 
 
 def _layer_body(cfg: TransformerConfig, lp, x, bias, positions, attn_fn, is_local=None,
-                local_bias=None, gen=None, pld_keep=None):
+                local_bias=None, key=None, pld_keep=None):
     """One layer of ``apply``: pre-LN, post-LN or parallel residual, with
-    dropout and the progressive-layer-drop gate when ``gen`` is given."""
+    dropout and the progressive-layer-drop gate when ``key`` (the layer's
+    key) is given: sites 0 (the gate), 1 (attention) and 2 (FFN) each fold
+    a key of their own from it."""
     eps = cfg.layernorm_epsilon
     gate = None  # progressive layer drop: one coin per layer gates both branches
-    if pld_keep is not None and gen is not None:
-        gate = (torch.rand((), generator=gen, device=x.device) < pld_keep).to(cfg.dtype)
+    if pld_keep is not None and key is not None:
+        gate = (_uniform(_fold(key, 0), ()) < pld_keep).to(cfg.dtype)
     if is_local and local_bias is not None:
         lb = local_bias[None, None]
         bias = lb if bias is None else bias + lb
 
-    def branch(y, rate):
-        y = _dropout(y, rate, gen)
+    def branch(y, rate, site):
+        y = _dropout(y, rate, None if key is None else _fold(key, site))
         return y if gate is None else gate * y
 
     def attn(h):
         q, k, v = _qkv_proj(cfg, lp, h, positions)
         out = _attn_out_proj(cfg, lp, _attn_call(cfg, attn_fn, q, k, v, bias, is_local))
-        return branch(out, cfg.attn_dropout)
+        return branch(out, cfg.attn_dropout, 1)
 
     if cfg.norm_style == "post":
         x = layer_norm(x + attn(x), lp["ln1_scale"], lp["ln1_bias"], eps)
-        f = branch(_ffn(cfg, lp, x), cfg.hidden_dropout)
+        f = branch(_ffn(cfg, lp, x), cfg.hidden_dropout, 2)
         return layer_norm(x + f, lp["ln2_scale"], lp["ln2_bias"], eps)
     attn_out = attn(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps))
     if cfg.parallel_residual:
         h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-        return x + attn_out + branch(_ffn(cfg, lp, h2), cfg.hidden_dropout)
+        return x + attn_out + branch(_ffn(cfg, lp, h2), cfg.hidden_dropout, 2)
     x = x + attn_out
     h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-    return x + branch(_ffn(cfg, lp, h2), cfg.hidden_dropout)
+    return x + branch(_ffn(cfg, lp, h2), cfg.hidden_dropout, 2)
 
 
 def embed(cfg: TransformerConfig, params: Params, tokens, positions=None):
@@ -477,18 +523,6 @@ def _lm_head(cfg: TransformerConfig, params: Params, x):
     return _project(params, _final_ln(cfg, params, x))
 
 
-def _mix64(a: int, b: int) -> int:
-    """A 63-bit seed from two integers (the splitmix64 finaliser)."""
-    z = (a * 0x9E3779B97F4A7C15 + b + 1) & (2**64 - 1)
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & (2**64 - 1)
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & (2**64 - 1)
-    return (z ^ (z >> 31)) >> 1
-
-
-def _layer_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
-    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
-
-
 def _remat_groups(cfg: TransformerConfig) -> list[range]:
     """The checkpointed regions: one per layer, or ``remat_group`` layers per
     region when it divides num_layers (the JAX number_checkpoints analogue);
@@ -502,24 +536,24 @@ def _remat_groups(cfg: TransformerConfig) -> list[range]:
 
 
 def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
-          return_hidden: bool = False, rng: Optional[torch.Generator] = None,
+          return_hidden: bool = False, rng=None,
           step=None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] (fp32), or the final hidden
     states [B, S, d] (after the final LayerNorm) when ``return_hidden``.
-    ``rng`` (a generator on the tokens' device) enables dropout and
+    ``rng`` (a ``dropout_key`` on the tokens' device) enables dropout and
     progressive layer drop (training). It acts as a key, as the JAX rng
-    does: layer i draws from a generator seeded by (``rng.initial_seed()``,
-    i) and the embedding dropout from one seeded by (``rng.initial_seed()``,
-    L), so one seed gives one set of masks and a remat recompute replays
-    them. ``step`` (int or 0-d tensor) drives the layer-drop schedule. With
+    does: layer i hashes the key folded with i and the embedding dropout the
+    key folded with L, so one key gives one set of masks and a remat
+    recompute replays them. ``step`` (int or 0-d tensor) drives the
+    layer-drop schedule. With
     ``cfg.remat`` the layers run in checkpointed regions (``_remat_groups``)
     under ``cfg.remat_policy``."""
     B, S = tokens.shape
     L = cfg.num_layers
     device = tokens.device
     x, positions = embed(cfg, params, tokens, positions)
-    seeds = [None] * (L + 1) if rng is None else [_mix64(rng.initial_seed(), i) for i in range(L + 1)]
-    x = _dropout(x, cfg.hidden_dropout, _layer_generator(seeds[L], device))
+    keys = [None] * (L + 1) if rng is None else [_fold(rng, i) for i in range(L + 1)]
+    x = _dropout(x, cfg.hidden_dropout, keys[L])
     attn_fn = _attention_dispatch(cfg, device)
     fused_bias = getattr(attn_fn, "handles_fused_bias", False)
     # the flash dispatch computes ALiBi and windows from positions in the
@@ -538,7 +572,7 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
         for i in idx:
             is_local = bool(cfg.local_attn_layers[i]) if has_local else None
             x = _layer_body(cfg, layers[i], x, bias, positions, attn_fn, is_local, local_bias,
-                            _layer_generator(seeds[i], device), pld_keep[i])
+                            keys[i], pld_keep[i])
         return x
 
     remat = cfg.remat and cfg.remat_policy != "everything_saveable" and torch.is_grad_enabled()
@@ -546,8 +580,8 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
     if remat and (context_fn := remat_context_fn(cfg.remat_policy)) is not None:
         kw["context_fn"] = context_fn
     for idx in _remat_groups(cfg):
-        # preserve_rng_state=False: the layers draw only from their own
-        # seeded generators, which the recompute makes afresh
+        # preserve_rng_state=False: the masks are hashes of the layers'
+        # keys, which the recompute hashes afresh
         x = checkpoint(run, x, idx, use_reentrant=False, preserve_rng_state=False, **kw) if remat else run(x, idx)
     x = _final_ln(cfg, params, x)
     return x if return_hidden else _project(params, x)
@@ -806,9 +840,10 @@ def split_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def causal_lm_loss(cfg: TransformerConfig, params: Params, batch: dict,
-                   rng: Optional[torch.Generator] = None, step=None) -> torch.Tensor:
+                   rng=None, step=None) -> torch.Tensor:
     """Next-token cross-entropy of batch {'tokens': [B, S+1]} (or
-    {'input_ids', 'labels'}). ``rng`` enables dropout for this step."""
+    {'input_ids', 'labels'}). ``rng`` (a ``dropout_key``) enables dropout
+    for this step."""
     inputs, labels = split_batch(batch)
     hidden = apply(cfg, params, inputs.long(), return_hidden=True, rng=rng, step=step)
     return lm_loss_from_hidden(cfg, params, hidden, labels.long())
@@ -828,7 +863,7 @@ class Model:
     def apply(self, params: Params, tokens, positions=None, **kw):
         return apply(self.config, params, tokens, positions, **kw)
 
-    def loss(self, params: Params, batch: dict, rng: Optional[torch.Generator] = None, step=None):
+    def loss(self, params: Params, batch: dict, rng=None, step=None):
         kw = {}
         if rng is not None:
             kw["rng"] = rng

@@ -35,9 +35,13 @@ against an unfaulted run is meaningful. Sites:
                       (``Router.step`` raises ``ControlPlaneCrash``).
   ``journal_append``  the Nth request-journal append fails permanently
                       (the ``io_error`` family, its own clock).
-  ``gateway_disconnect`` / ``gateway_stall``  the HTTP gateway's streams:
-                      their consumer is not ported; the config refuses
-                      their keys (``FaultInjectionConfig.check_ported``).
+  ``gateway_disconnect``  the HTTP gateway's SSE stream for a request sees
+                      its client gone after the Nth streamed token
+                      (``launcher/http_gateway.py``): the request is
+                      cancelled fleet-side, as for a real disconnect.
+  ``gateway_stall``   the stream's reader stops draining after the Nth
+                      token (the send overruns the write deadline): the
+                      same cancel path.
 
 Two selection modes compose:
 
@@ -98,6 +102,9 @@ class FaultInjector:
         self.rpc_timeout_at = {(str(p[0]), int(p[1])) for p in _get(cfg, "rpc_timeout_at", []) or []}
         self.rpc_conn_reset_at = {(str(p[0]), int(p[1])) for p in _get(cfg, "rpc_conn_reset_at", []) or []}
         self.rpc_garbled_at = {(str(p[0]), int(p[1])) for p in _get(cfg, "rpc_garbled_at", []) or []}
+        # gateway stream faults: [uid, nth streamed token] pairs (1-based)
+        self.gateway_disconnect_at = {tuple(int(x) for x in p) for p in _get(cfg, "gateway_disconnect_at", []) or []}
+        self.gateway_stall_at = {tuple(int(x) for x in p) for p in _get(cfg, "gateway_stall_at", []) or []}
         # 1-based router steps at which the control plane crashes
         self.router_crash_at = set(_get(cfg, "router_crash_at", []) or [])
         self._writes = 0  # guarded-write clock (io_error and io_flaky)
@@ -210,6 +217,20 @@ class FaultInjector:
         if not self.enabled:
             return False
         return self._fire("rpc_garbled_frame", (method, call_n) in self.rpc_garbled_at, (method, call_n))
+
+    def gateway_disconnect(self, uid: int, token_n: int) -> bool:
+        """True if the SSE stream for request ``uid`` should observe its
+        client gone after streaming token ``token_n`` (1-based)."""
+        if not self.enabled:
+            return False
+        return self._fire("gateway_disconnect", (uid, token_n) in self.gateway_disconnect_at, (uid, token_n))
+
+    def gateway_stall(self, uid: int, token_n: int) -> bool:
+        """True if the stream's reader should stall (send deadline overrun)
+        after token ``token_n`` (1-based)."""
+        if not self.enabled:
+            return False
+        return self._fire("gateway_stall", (uid, token_n) in self.gateway_stall_at, (uid, token_n))
 
     def router_crash(self, step: int) -> bool:
         """True if the control plane crashes (``ControlPlaneCrash`` out of

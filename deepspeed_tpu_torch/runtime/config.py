@@ -17,9 +17,9 @@ monitor and logging blocks (``tensorboard``, ``wandb``, ``comms_logger``,
 and the flags ``wall_clock_breakdown``, ``memory_breakdown`` and
 ``dump_state`` set to true), which the port would otherwise accept and
 ignore, the telemetry ``ledger`` (on by default in the JAX package: a
-``telemetry`` block must pass ``"ledger": {"enabled": false}``), its
-flight-recorder blocks, and the HTTP gateway's fault sites; ZeRO stages 0-3 are
-accepted, since on one device they are the same arithmetic.
+``telemetry`` block must pass ``"ledger": {"enabled": false}``) and its
+flight-recorder blocks; ZeRO stages 0-3 are accepted, since on one device
+they are the same arithmetic.
 """
 
 from __future__ import annotations
@@ -221,12 +221,6 @@ _FAULT_SITES = {"nan_grads", "io_error", "io_flaky", "garbage_logits", "preempt"
                 "rpc_garbled_frame", "gateway_disconnect", "gateway_stall", "router_crash"}
 
 
-# the HTTP gateway's sites: their consumer (launcher/http_gateway.py) is not
-# ported yet
-_GATEWAY_FAULT_SITES = {"gateway_disconnect", "gateway_stall"}
-_GATEWAY_FAULT_KEYS = ("gateway_disconnect_at", "gateway_stall_at")
-
-
 @dataclass
 class FaultInjectionConfig:
     """``serving.fault_injection`` and ``resilience.fault_injection``:
@@ -239,9 +233,9 @@ class FaultInjectionConfig:
     transient); the fleet ``replica_dead_at`` / ``replica_hang_at``
     ([replica, router step]), ``rpc_timeout_at`` / ``rpc_conn_reset_at`` /
     ``rpc_garbled_at`` ([method, nth call]), ``router_crash_at`` (router
-    steps) and the journal's ``io_error_journal_appends``. The HTTP
-    gateway's lists parse so that one config serves both packages, and
-    are refused by name (``check_ported``) until the gateway is ported."""
+    steps), the journal's ``io_error_journal_appends`` and the HTTP
+    gateway's ``gateway_disconnect_at`` / ``gateway_stall_at`` ([uid, nth
+    streamed token])."""
 
     enabled: bool = False
     seed: int = 0
@@ -298,18 +292,6 @@ class FaultInjectionConfig:
                 raise DeepSpeedConfigError(
                     f"fault_injection.io_error_journal_appends entries must "
                     f"be 1-based append indices (positive ints), got {s!r}")
-
-    def check_ported(self) -> None:
-        """The HTTP gateway's sites have no consumer in the port yet: a key
-        or ``sites`` entry that selects one raises, naming it."""
-        for name in _GATEWAY_FAULT_KEYS:
-            if getattr(self, name):
-                raise NotImplementedError(f"fault_injection.{name} (an HTTP gateway fault site) is not ported "
-                                          "to deepspeed_tpu_torch yet")
-        gateway = sorted(set(self.sites) & _GATEWAY_FAULT_SITES)
-        if gateway:
-            raise NotImplementedError(f"fault_injection.sites {gateway} (HTTP gateway fault sites) are not "
-                                      "ported to deepspeed_tpu_torch yet")
 
 
 @dataclass
@@ -368,8 +350,9 @@ class ChunkedPrefillConfig:
 class TenantConfig:
     """One tenant of ``serving.tenants`` (and ``serving.gateway.auth.tenants``):
     ``weight`` is its DWRR share of admissions, ``max_queued`` its bound on
-    arrived, queued requests (0 = none). ``token_sha256``, ``rate_rps`` and
-    ``burst`` belong to the HTTP gateway, which the port has not got yet."""
+    arrived, queued requests (0 = none). ``token_sha256`` (the bearer
+    token's SHA-256, never the token), ``rate_rps`` and ``burst`` (its token
+    bucket) belong to the HTTP gateway."""
 
     token_sha256: str = ""
     weight: float = 1.0
@@ -429,8 +412,8 @@ class SpeculationConfig:
 # The fleet's blocks under ``serving.router`` (and ``serving.gateway``),
 # which ``inference/router.Router``, ``inference/rpc`` and
 # ``launcher/serving_worker`` read: the JAX package's dataclasses, with
-# their defaults and validation errors. ``autoscale``, ``disagg`` and the
-# gateway parse, and refuse being enabled (``check_ported``).
+# their defaults and validation errors. ``disagg`` parses and refuses being
+# enabled, and ``autoscale`` a ``scale_up_mfu`` threshold (``check_ported``).
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -552,8 +535,11 @@ class RouterTransportConfig:
 
 @dataclass
 class AutoscaleConfig:
-    """``serving.router.autoscale``: the elastic fleet (not ported yet;
-    parsed and validated as in the JAX package, refused when enabled)."""
+    """``serving.router.autoscale``: the elastic fleet
+    (``inference/autoscaler.Autoscaler``), parsed and validated as in the
+    JAX package. ``scale_up_mfu`` reads the program ledger's MFU gauges,
+    which the port has not got: a threshold above 0 is refused
+    (``check_ported``) rather than left to never fire."""
 
     enabled: bool = False
     min_replicas: int = 1
@@ -600,6 +586,12 @@ class AutoscaleConfig:
             raise DeepSpeedConfigError(
                 f"serving.router.autoscale.events_capacity must be >= 1, "
                 f"got {self.events_capacity}")
+
+    def check_ported(self) -> None:
+        if self.enabled and self.scale_up_mfu > 0:
+            raise NotImplementedError(
+                "serving.router.autoscale.scale_up_mfu (its signal is the program ledger's serving/mfu "
+                "gauges, telemetry.ledger) is not ported to deepspeed_tpu_torch yet")
 
 
 @dataclass
@@ -655,8 +647,8 @@ class DisaggConfig:
 
 @dataclass
 class GatewayAuthConfig:
-    """``serving.gateway.auth``: bearer-token tenants of the HTTP gateway
-    (not ported yet; parsed and validated as in the JAX package)."""
+    """``serving.gateway.auth``: bearer-token tenants of the HTTP gateway,
+    each a ``TenantConfig`` holding its token's SHA-256 digest."""
 
     enabled: bool = False
     tenants: dict = field(default_factory=dict)
@@ -685,8 +677,10 @@ class GatewayAuthConfig:
 
 @dataclass
 class GatewayConfig:
-    """``serving.gateway``: the HTTP/SSE front door (not ported yet; parsed
-    and validated as in the JAX package, refused when enabled)."""
+    """``serving.gateway``: the HTTP/SSE front door
+    (``launcher/http_gateway.HttpGateway``): bind address, the stream poll
+    and write deadlines, ``Retry-After``, the body bound, the shutdown
+    grace, the fleet ``/metrics`` refresh cadence and ``auth``."""
 
     enabled: bool = False
     host: str = "127.0.0.1"
@@ -720,12 +714,6 @@ class GatewayConfig:
                 f"serving.gateway.max_body_bytes must be >= 1, "
                 f"got {self.max_body_bytes}")
 
-    def check_ported(self) -> None:
-        if self.enabled:
-            raise NotImplementedError(
-                "serving.gateway (the HTTP/SSE front door, launcher/http_gateway.py) is not ported to "
-                "deepspeed_tpu_torch yet")
-
 
 @dataclass
 class RouterConfig:
@@ -733,8 +721,8 @@ class RouterConfig:
     ``Router``; ``affinity`` routes a prompt to the replica whose prefix
     trie holds its longest match; ``max_queue_len`` bounds arrived,
     unadmitted requests across the fleet (0 = none); and the ``health``,
-    ``transport`` and ``journal`` sub-blocks above. ``autoscale`` and
-    ``disagg`` parse and are refused when enabled (``check_ported``)."""
+    ``transport``, ``autoscale`` and ``journal`` sub-blocks above.
+    ``disagg`` parses and is refused when enabled (``check_ported``)."""
 
     replicas: int = 1
     affinity: bool = True
@@ -766,14 +754,11 @@ class RouterConfig:
                 f"got {self.max_queue_len}")
 
     def check_ported(self) -> None:
-        if self.autoscale.enabled:
-            raise NotImplementedError(
-                "serving.router.autoscale (the elastic fleet, inference/autoscaler.py) is not ported to "
-                "deepspeed_tpu_torch yet")
+        self.autoscale.check_ported()
         if self.disagg.enabled:
             raise NotImplementedError(
-                "serving.router.disagg (disaggregated prefill/decode pools with a KV handoff) is not "
-                "ported to deepspeed_tpu_torch yet")
+                "serving.router.disagg (disaggregated prefill/decode pools with a KV handoff, and their "
+                "per-pool autoscaling) is not ported to deepspeed_tpu_torch yet")
 
 
 # ---------------------------------------------------------------------------
@@ -1097,7 +1082,6 @@ class DeepSpeedConfig:
                 f"optimizer {self.optimizer.type!r} (the 1-bit family) is not ported to "
                 "deepspeed_tpu_torch yet")
         self.activation_checkpointing.check_ported()
-        self.resilience.fault_injection.check_ported()
         if C.TELEMETRY in self.raw:  # the JAX defaults hold a ledger the port has not got
             self.telemetry.check_ported()
         if self.checkpoint.engine not in (None, "native"):

@@ -53,6 +53,7 @@ import torch
 
 from ..checkpoint import saver, zero_to_fp32
 from ..inference.engine import resolve_device
+from ..models import transformer as tfm
 from ..models.transformer import effective_loss_impl
 from ..monitor.monitor import MonitorMaster
 from ..ops.optimizers import get_optimizer, tree_leaves, tree_map
@@ -220,10 +221,6 @@ class DeepSpeedEngine:
             "skipped": scalar(0, torch.int32),
             "hysteresis": scalar(fp16.hysteresis, torch.int32),
         }
-        # the host's mirror of state["step"], which keys the dropout stream:
-        # it does not advance on a step the host knows was skipped (an
-        # injected one, or any with the guardrail armed)
-        self._rng_step = 0
         n_params = sum(t.numel() for t in tree_leaves(params))
         log_dist(f"engine ready: {n_params / 1e6:.1f}M params, zero_stage={self.zero_stage}, "
                  f"device={self.device}, micro_bs={self.micro_batch_size}, "
@@ -238,17 +235,14 @@ class DeepSpeedEngine:
         dt = self.config.compute_dtype
         return tree_map(lambda p: p.to(dt) if p.dtype == torch.float32 else p, params)
 
-    def _generator(self, step1: int, micro: int) -> torch.Generator:
-        """Dropout/layer-drop randomness for one micro-batch, seeded by
-        (seed, step, micro-batch) as the JAX engine folds the device step
-        into its key and splits it over the micro-batches (other bits). The
-        step is ``_rng_step + 1``, the host's mirror of the device step, so
-        no device value is read. The mirror follows the device through a
-        skip the host knows of (injected, or seen by the armed guardrail);
-        an unguarded fp16 overflow advances it where the device step does
-        not (a known difference from the JAX engine)."""
-        mixed = ((self._seed * 1_000_003 + step1) * 1_000_033 + micro) % (2 ** 63)
-        return torch.Generator(device=self.device).manual_seed(mixed)
+    def _dropout_key(self, micro: int) -> torch.Tensor:
+        """Dropout/layer-drop key of one micro-batch, hashed on the device
+        from (seed, ``state["step"] + 1``, micro-batch), as the JAX engine
+        folds the device step into its key and splits it over the
+        micro-batches (other bits). The step is the device's own, so no
+        value is fetched and the masks follow it through every skipped
+        update, a guarded one or not."""
+        return tfm.dropout_key(self._seed, self.state["step"] + 1, micro)
 
     def train_batch(self, batch: dict) -> dict:
         """One full (micro × gas) step on a batch of [train_batch_size, ...]
@@ -295,7 +289,7 @@ class DeepSpeedEngine:
         Returns the detached fp32 loss."""
         kw = {}
         if self._dropout_enabled:
-            kw = {"rng": self._generator(self._rng_step + 1, micro), "step": self.state["step"] + 1}
+            kw = {"rng": self._dropout_key(micro), "step": self.state["step"] + 1}
         loss = self.model.loss(self._cast(leaves), mb, **kw)
         (loss * self.state["loss_scale"]).backward()
         return loss.detach().float()
@@ -382,7 +376,6 @@ class DeepSpeedEngine:
         self._accum = None
         self._micro_count = 0
         self.global_steps += 1
-        self._rng_step += 1  # assumed finite: this loop fetches nothing
 
     # ------------------------------------------------------------------
     # Resilience hooks (JAX engine.py:1606-1711)
@@ -435,18 +428,14 @@ class DeepSpeedEngine:
         raise PreemptionSignal(step=self.global_steps)
 
     def _resilience_post_step(self, metrics) -> None:
-        """Restore an injected loss scale and advance the dropout stream's
-        step mirror; with the guardrail armed, fetch the overflow flag and
-        escalate skip -> rewind -> diverged."""
-        injected = self._injected_scale is not None
-        if injected:
+        """Restore an injected loss scale; with the guardrail armed, fetch
+        the overflow flag and escalate skip -> rewind -> diverged."""
+        if self._injected_scale is not None:
             self.state["loss_scale"] = self._injected_scale
             self._injected_scale = None
-        overflow = bool(metrics["overflow"]) if self._guardrail is not None else False
-        if not (injected or overflow):
-            self._rng_step += 1
         if self._guardrail is None:
             return
+        overflow = bool(metrics["overflow"])
         action = self._guardrail.observe(overflow)
         if action == "rewind":
             d, t = self._guardrail.last_good
@@ -598,9 +587,9 @@ class DeepSpeedEngine:
         """Save the engine state to ``save_dir/tag`` (default
         ``global_step<N>``), atomically, and point ``save_dir/latest`` at it
         once it is durable. The client state carries the host's trajectory
-        (steps, samples, skipped steps, the dropout seed and its step
-        mirror, the batch sizes, the guardrail's streak), so train k + save
-        + load + train n−k draws the masks of train n. With ``resilience.enabled`` a
+        (steps, samples, skipped steps, the dropout seed, the batch sizes,
+        the guardrail's streak), so train k + save + load + train n−k draws
+        the masks of train n (they follow the saved device step). With ``resilience.enabled`` a
         synchronous save is retried under ``resilience.retry`` (a
         ``PermanentIOError`` is not); an async save returns after its
         snapshot and is finished by the next save, a load or
@@ -610,7 +599,7 @@ class DeepSpeedEngine:
         tag = tag or f"global_step{self.global_steps}"
         extra = dict(client_state or {})
         extra.update(global_steps=self.global_steps, global_samples=self.global_samples,
-                     skipped_steps=self.skipped_steps, rng_seed=self._seed, rng_step=self._rng_step,
+                     skipped_steps=self.skipped_steps, rng_seed=self._seed,
                      micro_batch_size=self.micro_batch_size, train_batch_size=self.train_batch_size)
         if self.training_dataloader is not None and self._dl_cursor is not None:
             extra["dataloader"] = dict(self._dl_cursor)
@@ -738,12 +727,10 @@ class DeepSpeedEngine:
         """The host-side trajectory the client state captured at save: the
         dropout seed, the loader's cursor (not on a guardrail rewind, where
         data replay is the caller's part), the curriculum's difficulty and
-        the guardrail's streak. The dropout stream's step mirror comes back
-        as saved, which an unguarded fp16 overflow may have put ahead of the
-        device step; a checkpoint without it (the JAX engine's) restarts the
-        mirror at the loaded device step."""
+        the guardrail's streak. The masks are keyed on the loaded device
+        step; an ``rng_step`` that older checkpoints of the port carry is
+        ignored."""
         self._seed = int(client_state.get("rng_seed", self._seed))
-        self._rng_step = int(client_state.get("rng_step", int(self.state["step"])))
         if restore_dataloader and "dataloader" in client_state:
             dl = self.training_dataloader
             if dl is not None and hasattr(dl, "load_state_dict"):

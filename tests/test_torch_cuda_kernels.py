@@ -8,6 +8,8 @@ no JAX, so it also runs where JAX is not installed:
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.)
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -945,6 +947,131 @@ def test_replay_of_one_replica_leaves_the_other_unchanged(cuda_device):
     assert before - torch.cuda.memory_allocated() >= cache_bytes
     res = router.drain()
     assert all(r.ok for r in res.values()) and len(res) == 8
+
+
+def _serve_via_gateway(gw, prompts, max_new, stream=True):
+    """Greedy requests through the gateway; each reply's tokens (for SSE the
+    token events, held against the done event's)."""
+    import http.client
+    import json
+
+    out = []
+    for p in prompts:
+        conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=120)
+        conn.request("POST", "/v1/generate", body=json.dumps({"prompt": [int(t) for t in p],
+                                                              "max_new_tokens": max_new, "stream": stream}))
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        conn.close()
+        if not stream:
+            out.append(json.loads(body)["tokens"])
+            continue
+        events = [b for b in body.split("\n\n") if b.strip()]
+        toks = [json.loads(b.split("data: ", 1)[1])["token"] for b in events if "event: token" in b]
+        done = [json.loads(b.split("data: ", 1)[1]) for b in events if "event: done" in b][0]
+        assert done["status"] == "ok" and done["tokens"] == toks
+        out.append(toks)
+    return out
+
+
+def test_sse_streams_while_an_inprocess_newcomer_captures(cuda_device):
+    """A rolling upgrade started on the gateway's serve loop while SSE
+    streams run: each newcomer builds and captures its decode graph on that
+    loop (no broken capture), every stream equals the run without the
+    upgrade, and the newcomers serve through their graphs."""
+    import threading
+
+    from deepspeed_tpu_torch.launcher.http_gateway import HttpGateway
+
+    router = _two_replicas(cuda_device)
+    for r in router._replicas:
+        r.engine.warm_decode()
+    prompts = [r.prompt for r in _serve_requests(6, seed=7)]
+    go = threading.Event()
+
+    def on_tick():
+        if go.is_set() and router.upgrade_status() is None:
+            router.rolling_upgrade()
+
+    gw = HttpGateway(router, {"port": 0}, on_tick=on_tick)
+    gw.start()
+    try:
+        base = _serve_via_gateway(gw, prompts, 20)
+        results = {}
+        worker = threading.Thread(target=lambda: results.update(out=_serve_via_gateway(gw, prompts, 20)))
+        worker.start()
+        go.set()
+        worker.join(120)
+        deadline = time.monotonic() + 120
+        while router.upgrade_status() is None or router.upgrade_status()["state"] == "running":
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        after = _serve_via_gateway(gw, prompts, 20, stream=False)
+    finally:
+        gw.stop()
+        gw.close()
+    assert results["out"] == base == after
+    st = router.upgrade_status()
+    assert st["state"] == "done" and all(w["outcome"] == "upgraded" for w in st["waves"])
+    for w in st["waves"]:
+        new = router._replicas[w["new_rid"]].engine
+        assert new.worker._graph is not None and new.worker.graph_replays > 0
+        assert new.compile_counts()["decode"] == 1
+
+
+def test_retired_replica_frees_its_cache_pool_and_graph(cuda_device):
+    """An in-process rolling upgrade: each old replica, drained and retired,
+    releases its slot cache, prefix pool and graph, so device memory comes
+    back to its level before the wave; a newcomer's greedy replays give the
+    old generation's tokens bit for bit."""
+    from deepspeed_tpu_torch.inference import Request, Router
+
+    eng = deepspeed_tpu_torch.init_inference(tfm.Model(tfm.TransformerConfig(**_SERVE_TINY)),
+                                             config={"dtype": "fp32"}, device=cuda_device)
+    router = Router(eng, config={"n_slots": 4, "prefix_cache": {"enabled": True, "n_slots": 4, "block": 8},
+                                 "router": {"replicas": 2, "health": {"timeout": 60.0}}})
+    reqs = _serve_requests(8, seed=8)
+
+    def serve(uid0):
+        for r in reqs:
+            router.submit(Request(uid=uid0 + r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
+        out = router.drain()
+        return [out[uid0 + r.uid].tokens for r in reqs]
+
+    old_tokens = serve(0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    router.rolling_upgrade()
+    for k in range(400):
+        router.step()
+        st = router.upgrade_status()
+        if st["state"] != "running" and "draining" not in router.replica_states().values():
+            break
+    assert st["state"] == "done", st
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    for rid in (0, 1):
+        w = router._replicas[rid].engine.worker
+        assert w._cache is None and w._pool is None and w._graph is None
+    assert after <= before + (1 << 20), (before, after)
+    new_tokens = serve(1000)
+    for a, b in zip(old_tokens, new_tokens):
+        np.testing.assert_array_equal(a, b)
+    assert all(router._replicas[w["new_rid"]].engine.worker.graph_replays > 0 for w in st["waves"])
+
+
+def test_dropout_masks_are_equal_on_the_cpu_and_the_card(cuda_device):
+    """The counter-based hash gives the same keys and the same masks on
+    both devices, from a step held on the device (no value fetched)."""
+    step = torch.tensor(7, dtype=torch.int32, device=cuda_device)
+    for micro in (0, 3):
+        kc = tfm.dropout_key(1234, step + 1, micro)
+        kh = tfm.dropout_key(1234, 8, micro)
+        assert kc.device.type == "cuda" and int(kc) == int(kh)
+        uc, uh = tfm._uniform(tfm._fold(kc, 2), (4, 33, 17)), tfm._uniform(tfm._fold(kh, 2), (4, 33, 17))
+        assert torch.equal(uc.cpu(), uh)
+        x = torch.ones(4, 33, 17)
+        assert torch.equal(tfm._dropout(x.to(cuda_device), 0.25, kc).cpu(), tfm._dropout(x, 0.25, kh))
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,7 @@ TINY = dict(vocab_size=97, max_seq_len=64, num_layers=4, num_heads=4, hidden_siz
 
 def _loss_and_grads(cfg, params, tokens, seed=11):
     leaves = topt.tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
-    loss = ttfm.causal_lm_loss(cfg, leaves, {"tokens": tokens}, rng=torch.Generator().manual_seed(seed))
+    loss = ttfm.causal_lm_loss(cfg, leaves, {"tokens": tokens}, rng=ttfm.dropout_key(seed, 0))
     loss.backward()
     return loss.detach(), topt.tree_leaves(topt.tree_map(lambda t: t.grad, leaves))
 

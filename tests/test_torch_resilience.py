@@ -326,29 +326,34 @@ def test_skip_with_dropout_and_guardrail_equals_clean_run(init_params):
         np.testing.assert_array_equal(a, b)
 
 
-def test_unguarded_fp16_overflow_advances_the_dropout_step(init_params):
-    """The known difference from the JAX engine, pinned: an fp16 overflow
-    that no guardrail fetched leaves the device step behind while the
-    host's mirror, which keys the dropout masks, moves on (JAX keys them on
-    the device step). With the guardrail armed the mirror stays with the
-    device."""
+def test_unguarded_fp16_overflow_keeps_the_dropout_step(init_params):
+    """The masks are keyed on the device step, as JAX folds its device
+    step into the key: after an fp16 overflow that no guardrail fetched the
+    device step stays at 0, so the next step draws the masks of a fresh
+    engine's first step (the same parameters, so the same loss bitwise).
+    With the guardrail armed likewise."""
     ds = dict(DS, fp16={"enabled": True, "initial_scale_power": 32})
-    tokens = _batches(1)[0]
-    for guarded in (False, True):
-        d = dict(ds, resilience={"enabled": True}) if guarded else ds
-        eng = tengine.DeepSpeedEngine(
+    tokens, nxt = _batches(2)
+
+    def engine(d):
+        return tengine.DeepSpeedEngine(
             ttfm.Model(ttfm.TransformerConfig(**MODEL, hidden_dropout=0.1, dtype=torch.float16)), d,
             params=interop.params_from_jax(init_params_np()), device="cpu")
+
+    fresh = float(engine(ds).train_batch(nxt)["loss"])
+    for guarded in (False, True):
+        eng = engine(dict(ds, resilience={"enabled": True}) if guarded else ds)
         m = eng.train_batch(tokens)
-        assert bool(m["overflow"]) and eng.get_global_step() == 0
-        assert eng._rng_step == (0 if guarded else 1)
+        assert bool(m["overflow"]) and eng.get_global_step() == 0 and eng.global_steps == 1
+        assert not hasattr(eng, "_rng_step")
+        assert float(eng.train_batch(nxt)["loss"]) == fresh
 
 
 def test_resume_after_unguarded_fp16_overflow_is_bitwise(init_params, tmp_path):
     """fp16 with dropout and no guardrail: dynamic loss scaling overflows at
-    steps 1 and 2, which puts the dropout mirror two steps ahead of the
-    device step. The checkpoint carries the mirror, so train 3 + save +
-    load + train 2 equals train 5 bitwise."""
+    steps 1 and 2, so the device step lags two steps behind the calls. The
+    masks follow the device step, which the checkpoint carries, so train 3
+    + save + load + train 2 equals train 5 bitwise."""
     ds = dict(DS, fp16={"enabled": True, "initial_scale_power": 20, "hysteresis": 1})
     bs = _batches(5)
 
@@ -363,11 +368,11 @@ def test_resume_after_unguarded_fp16_overflow_is_bitwise(init_params, tmp_path):
     first = engine()
     for b in bs[:3]:
         first.train_batch(b)
-    assert (first.get_global_step(), first._rng_step) == (1, 3)
+    assert (first.global_steps, first.get_global_step()) == (3, 1)
     first.save_checkpoint(str(tmp_path))
     resumed = engine()
     resumed.load_checkpoint(str(tmp_path))
-    assert resumed._rng_step == 3
+    assert resumed.get_global_step() == 1
     for b in bs[3:]:
         resumed.train_batch(b)
     assert resumed.get_global_step() == clean.get_global_step() == 3

@@ -424,23 +424,12 @@ def test_router_config_schema_matches_jax():
 
 
 @pytest.mark.parametrize("block,match", [
-    ({"router": {"autoscale": {"enabled": True}}}, "autoscale"),
     ({"router": {"disagg": {"enabled": True}}}, "disagg"),
-    ({"gateway": {"enabled": True}}, "gateway"),
+    ({"router": {"autoscale": {"enabled": True, "scale_up_mfu": 0.5}}}, "scale_up_mfu"),
     ({"timeseries": {"enabled": True}}, "timeseries"),
     ({"slo": {"enabled": True}}, "slo"),
     ({"incidents": {"enabled": True}}, "incidents"),
-    ({"fault_injection": {"enabled": True, "gateway_stall_at": [[1, 2]]}}, "gateway_stall_at"),
-    ({"fault_injection": {"enabled": True, "sites": ["gateway_disconnect"], "rate": 0.1}}, "gateway"),
 ])
 def test_unported_fleet_blocks_are_refused(engines, block, match):
     with pytest.raises(NotImplementedError, match=match):
         Router(engines["torch"], config={"n_slots": 2, **block})
-
-
-def test_rolling_upgrade_and_autoscaler_are_refused(engines):
-    router = Router(engines["torch"], config={"n_slots": 2, "router": {"replicas": 1}})
-    with pytest.raises(NotImplementedError, match="rolling_upgrade"):
-        router.rolling_upgrade()
-    with pytest.raises(NotImplementedError, match="autoscaler"):
-        router.bind_autoscaler(object())

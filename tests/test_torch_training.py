@@ -322,7 +322,7 @@ def test_fp16_overflow_skips_and_loss_scale_follows_the_rule():
 
 def test_dropout_and_layer_drop():
     x = torch.ones(200_000)
-    gen = torch.Generator().manual_seed(0)
+    gen = ttfm.dropout_key(0, 0)
     assert ttfm._dropout(x, 0.0, gen) is x and ttfm._dropout(x, 0.3, None) is x
     y = ttfm._dropout(x, 0.3, gen)
     kept = y != 0

@@ -188,8 +188,32 @@ Phases, each of which passes or makes the script exit non-zero:
      tokens/s through the gateway against the Router alone, each wave's
      boot/gate/drain ms, signal -> attached ms, shed counts, worker boot and
      respawn s, and decode launches per replica and per worker.
+ 22. disaggregated prefill/decode serving at GPT-2-125M width (phase 18's
+     configuration, 64-token KV windows), the flight recorder on throughout
+     (rings, SLOs, incident bundles into a temporary directory): (a)
+     workloads (a) and (b) through 2 co-located replicas and through 1
+     prefill + 1 decode replica, every request ok, the prefill replica with
+     no decode program, no graph and no completion, the decode replica's
+     launches 12 + 12 a replay; the profiler's kernel records over the
+     prefill replica's own steps (no decode kernel) and over the decode
+     replica's (12 + 12 a replay); a small fp32 fleet's 1 + 1 greedy
+     streams equal to 2 co-located replicas'; workload (b) co-located with
+     the recorder off; (b) the int8 wire: the bytes saved and the largest
+     per-window dequantisation error against JAX's bound; (c) 2 prefill + 1
+     decode worker processes over TCP, the prefill worker streaming the
+     second handoff SIGKILLed between two of its windows, judged by
+     resilience/invariants.py (zero accepted loss, terminal conservation,
+     exactly-once failover), the dead verdict, bf16 windows across the
+     process boundary, and one incident bundle holding the kill and its
+     failovers that the autopsy validates; (d) per-pool autoscaling 1..2
+     under phase 21's surge trace, each pool scaling at least once and both
+     back to 1; (e) the SLO tracker's verdict and the rings' cells against
+     their bound. It prints tokens/s, TTFT and TPOT disaggregated against
+     co-located, handoff ms p50/p99, bytes per handoff, the parked
+     backlog's peak and the recorder's cost.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
-line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
+line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, a
+``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
 
@@ -2464,14 +2488,19 @@ def replica_launches(router, expect):
     """(split, combine) decode-kernel launches per replica: the launches one
     replay makes, counted by the wrappers at capture (num_layers each),
     times the graph's replays. The product holds by construction; the
-    profiler's kernel records (fleet_profiled_launches) measure it."""
+    profiler's kernel records (fleet_profiled_launches) measure it. A
+    prefill-role replica captures nothing and replays nothing."""
     out, ok = [], True
     for r in router._replicas:
         w = r.engine.worker
         split, combine = w.decode_kernel_launches()
         replays = w.graph_replays
-        ok &= w.graph_launches == (expect, expect) and split == combine == expect * replays
-        out.append({"rid": r.rid, "state": r.state, "replays": replays, "split": split, "combine": combine})
+        if r.role == "prefill":
+            ok &= w._graph is None and replays == 0 and split == combine == 0
+        else:
+            ok &= w.graph_launches == (expect, expect) and split == combine == expect * replays
+        out.append({"rid": r.rid, "state": r.state, "role": r.role, "replays": replays, "split": split,
+                    "combine": combine})
     return out, ok
 
 
@@ -3379,9 +3408,9 @@ def gateway_surge(engine, serve_config, vocab, smi, cuda):
     spawn = router._spawn_inprocess
     spawn_ms = []
 
-    def timed_spawn():  # instrumentation: the newcomer's build and capture
+    def timed_spawn(role=None):  # instrumentation: the newcomer's build and capture
         t = time.perf_counter()
-        e = spawn()
+        e = spawn(role=role)
         spawn_ms.append((time.perf_counter() - t) * 1e3)
         return e
 
@@ -3688,6 +3717,493 @@ def gateway_phase(dev, smi, model_cfg=None, serve_config=None, vocab_cap=None):
         close_clients()  # the client processes
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: disaggregated prefill/decode serving (inference/router.py's
+# handoff pump, rpc.encode_kv_window, the roles of inference/serving.py and
+# launcher/serving_worker.py, per-pool autoscaling), judged by
+# resilience/invariants.py, with the flight recorder (telemetry/timeseries.py,
+# slo.py, incident.py, autopsy.py) on throughout, at GPT-2-125M width
+# ---------------------------------------------------------------------------
+
+HANDOFF_CHUNK = 64
+# the fleet's flight recorder: rings at 0.25 s, SLO objectives loose enough
+# that the workloads' own arrival bursts breach nothing (TTFT 5 s, TPOT
+# 250 ms), incident bundles into a temporary directory
+FLIGHT_RECORDER = {"timeseries": {"enabled": True, "interval_s": 0.25},
+                   "slo": {"enabled": True, "ttft_s": 5.0, "tpot_s": 0.25, "window_s": 30.0,
+                           "fast_window_s": 10.0, "slow_window_s": 30.0, "eval_interval_s": 0.5}}
+DRILL_REQUESTS = 12  # workload (a)'s first requests through the worker kill drill
+# per-pool envelopes 1..2 over phase 21's surge trace; the autoscale block's
+# hysteresis as SURGE_AUTOSCALE's, the pools' thresholds at its queue and
+# 3/4 of a replica's 16 slots
+DISAGG_AUTOSCALE = {"enabled": True, "min_replicas": 1, "max_replicas": 4, "scale_down_load": 0.5,
+                    "up_consecutive": 2, "down_consecutive": 8, "cooldown_s": 0.75}
+DISAGG_POOLS = {"prefill_max_replicas": 2, "decode_max_replicas": 2, "prefill_scale_up_queue": 3,
+                "prefill_scale_up_backlog": 12, "decode_scale_up_occupancy": 0.75}
+
+
+def recorder_config(inc_dir, **extra):
+    return {**FLIGHT_RECORDER, "incidents": {"enabled": True, "dir": inc_dir, "window_before_s": 10.0,
+                                             "window_after_s": 0.5}, **extra}
+
+
+def disagg_config(serve_config, inc_dir, prefill=1, decode=1, **disagg):
+    return {**serve_config, "watchdog_mode": "raise", **recorder_config(inc_dir),
+            "router": {"health": dict(FLEET_HEALTH),
+                       "disagg": {"enabled": True, "prefill_replicas": prefill, "decode_replicas": decode,
+                                  "handoff_chunk": HANDOFF_CHUNK, **disagg}}}
+
+
+def pools(router):
+    return ([r for r in router._replicas if r.role == "prefill"], [r for r in router._replicas if r.role == "decode"])
+
+
+def handoff_metrics(router, peak):
+    """The pump's histograms and counters: handoff ms p50/p99, bytes per
+    handoff, the parked backlog's peak, the int8 bytes saved."""
+    reg = router.telemetry.registry
+    h, b = reg.get("router/disagg/handoff_sec"), reg.get("router/disagg/handoff_bytes")
+    saved = reg.get("router/disagg/kv_bytes_saved")
+    n = int(h.count) if h is not None else 0
+    return {"handoffs": router.router_stats()["disagg"]["handoffs"],
+            "handoff_ms_p50": h.quantile(0.5) * 1e3 if n else None,
+            "handoff_ms_p99": h.quantile(0.99) * 1e3 if n else None,
+            "bytes_per_handoff": (b.sum / b.count) if b is not None and b.count else None,
+            "wire_bytes": b.sum if b is not None else 0, "kv_bytes_saved": saved.value if saved is not None else 0,
+            "parked_backlog_peak": peak}
+
+
+def disagg_contract(router, res, label):
+    """Every request terminal and ok, every replica idle with its slots
+    accounted (a parked handoff released, a staged import committed), the
+    prefill pool's replicas with no decode program and no completion, one
+    decode program a decode replica."""
+    stats = router.router_stats()
+    pre, dec = pools(router)
+    live = [r for r in router._replicas if r.state != "dead"]
+    slots_ok = all(r.engine.idle and r.engine.n_free + len(r.engine.quarantined_slots) == r.engine.n_slots
+                   for r in live)
+    terminal = all(x is not None and x.ok for x in res.values())
+    roles_ok = (all(r.engine.compile_counts()["decode"] == 0 and r.completed == 0 for r in pre)
+                and all(r.engine.compile_counts()["decode"] == 1 for r in dec))
+    ok = terminal and slots_ok and roles_ok and stats["disagg"]["parked_backlog"] == 0
+    print(f"    contract: every request terminal and ok {terminal}; every replica idle with n_free + quarantined = "
+          f"n_slots {slots_ok}; prefill replicas no decode program and no completion, one decode program a decode "
+          f"replica {roles_ok}; parked backlog {stats['disagg']['parked_backlog']}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"disaggregated fleet {label} failed its contract")
+    return stats
+
+
+def run_disagg(router, reqs, label, smi, expect):
+    peak = {"parked": 0}
+
+    def watch(r):
+        peak["parked"] = max(peak["parked"], r._handoff_backlog)
+
+    res, seconds = serve_fleet(router, reqs, watch)
+    m = serving_metrics(res, seconds)
+    disagg_contract(router, res, label)
+    launches, ok = replica_launches(router, expect)
+    m.update(handoff_metrics(router, peak["parked"]), replicas=launches)
+    print(f"  [{smi}] {label}: {m['ok']}/{m['requests']} ok, {m['tokens']} tokens in {seconds:.3f} s = "
+          f"{m['tokens_per_s']:.1f} tokens/s; TTFT p50 {m['ttft_p50_ms']:.1f} ms, p99 {m['ttft_p99_ms']:.1f} ms; "
+          f"TPOT p50 {m['tpot_p50_ms']:.3f} ms; {m['handoffs']} handoffs, handoff p50 "
+          f"{m['handoff_ms_p50'] or 0:.2f} ms, p99 {m['handoff_ms_p99'] or 0:.2f} ms, "
+          f"{(m['bytes_per_handoff'] or 0) / 1e6:.3f} MB per handoff, parked backlog peak {m['parked_backlog_peak']}")
+    print(f"    decode launches (split, combine) by replica {[(e['role'], e['split'], e['combine']) for e in launches]}"
+          f" for replays {[e['replays'] for e in launches]} (the capture's {expect} x replays; 0 on prefill)  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"disaggregated fleet {label}: a prefill replica decoded, or the launches do not match")
+    return res, m
+
+
+def run_colocated(engine, serve_config, reqs, label, smi, inc_dir, recorder=True):
+    from deepspeed_tpu_torch.inference import Router
+
+    extra = recorder_config(inc_dir) if recorder else {}
+    router = Router(engine, config={**fleet_config(serve_config), **extra})
+    for r in router._replicas:
+        r.engine.warm_decode()
+    res, seconds = serve_fleet(router, reqs)
+    m = serving_metrics(res, seconds)
+    check_fleet_contract(router, res, label, killed=False)
+    print(f"  [{smi}] {label}: {m['ok']}/{m['requests']} ok, {m['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+          f"{m['ttft_p50_ms']:.1f} ms, p99 {m['ttft_p99_ms']:.1f} ms; TPOT p50 {m['tpot_p50_ms']:.3f} ms")
+    return router, res, m
+
+
+def profiled_roles(router, vocab, L):
+    """torch.profiler's kernel records over the prefill replica's own steps
+    (its chunks run; no decode kernel may appear) and then over the decode
+    replica's own steps (num_layers split and combine records a replay)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    (pre,), (dec,) = pools(router)
+    for r in ragged_workload(vocab, RAGGED_RATE, seed=12, uid0=60000)[:4]:
+        r.arrival_time, r.max_new_tokens = 0.0, 16
+        router.submit(r)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        while pre.engine._queue or pre.engine._prefilling:
+            pre.engine.step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    pre_records = (sum("decode_split_kernel" in n for n in names), sum("decode_combine_kernel" in n for n in names),
+                   len(names))
+    router.step()  # the pump hands the parked prefills to the decode replica
+    before = dec.engine.worker.graph_replays
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            dec.engine.step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    replays = dec.engine.worker.graph_replays - before
+    dec_records = (sum("decode_split_kernel" in n for n in names), sum("decode_combine_kernel" in n for n in names),
+                   replays)
+    router.drain()
+    ok = pre_records[:2] == (0, 0) and pre_records[2] > 0 and replays > 0 and dec_records[:2] == (L * replays,) * 2
+    print(f"    profiler: the prefill replica's own steps {pre_records[2]} kernel records, {pre_records[0]} split + "
+          f"{pre_records[1]} combine decode kernels (expect 0); the decode replica's 3 steps {dec_records[0]} split "
+          f"+ {dec_records[1]} combine for {replays} replays (expect {L} x replays)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the profiler saw a decode kernel on the prefill replica or other than num_layers a replay")
+    return {"prefill_records": pre_records[2], "prefill_decode_kernels": list(pre_records[:2]),
+            "decode_split": dec_records[0], "decode_combine": dec_records[1], "decode_replays": replays}
+
+
+def disagg_parity_small(dev, inc_dir):
+    """A small fp32 fleet on the device: the 1 + 1 disaggregated fleet's
+    greedy streams must equal the co-located fleet's (2 replicas) exactly."""
+    from deepspeed_tpu_torch.inference import Request, Router
+
+    tiny = TransformerConfig(vocab_size=97, max_seq_len=256, num_layers=2, num_heads=4, hidden_size=32)
+    eng = deepspeed_tpu_torch.init_inference(Model(tiny), config={"dtype": "fp32"}, device=dev)
+    rng = np.random.default_rng(8)
+    specs = [(rng.integers(0, 97, size=int(rng.integers(4, 150))).astype(np.int32), int(rng.integers(8, 40)))
+             for _ in range(12)]
+    small = {"n_slots": 4, "prefix_cache": {"enabled": True, "n_slots": 4, "max_prefix_len": 128},
+             "chunked_prefill": {"enabled": True, "chunk_size": 32}}
+    runs = {}
+    for label, cfg in (("colocated", {**small, "router": {"replicas": 2}}),
+                       ("disagg", disagg_config(small, inc_dir))):
+        router = Router(eng, config=cfg)
+        runs[label] = router.serve([Request(uid=i, prompt=p, max_new_tokens=n) for i, (p, n) in enumerate(specs)])
+    same = all(runs["disagg"][i].ok and np.array_equal(runs["disagg"][i].tokens, runs["colocated"][i].tokens)
+               for i in range(len(specs)))
+    print(f"  small fp32 fleet (2 layers), 1 prefill + 1 decode vs 2 co-located replicas: every greedy stream "
+          f"equal: {same}  {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("the fp32 disaggregated fleet's greedy streams differ from the co-located fleet's")
+    return {"requests": len(specs), "tokens_equal": same}
+
+
+def int8_wire(engine, serve_config, vocab, smi, inc_dir, expect):
+    """(b): (a)'s disaggregated workload (b) with kv_compression int8: the
+    bytes saved against the raw bytes, the largest per-window dequantisation
+    error against JAX's bound (absmax / 127 x 0.5001, tests/test_disagg.py's),
+    before and after the rounding back to the cache's dtype."""
+    from deepspeed_tpu_torch.inference import Router
+    from deepspeed_tpu_torch.inference.rpc import dequantize_int8, quantize_int8
+
+    router = Router(engine, config=disagg_config(serve_config, inc_dir, kv_compression="int8"))
+    for r in router._replicas:
+        r.engine.warm_decode()
+    (pre,), _ = pools(router)
+    worst = {"f32": 0.0, "cast": 0.0}
+    export = pre.engine.kv_export_window
+
+    def measured_export(uid, start, width):  # instrumentation: the windows' quantisation error
+        k, v = export(uid, start, width)
+        for a in (k, v):
+            a32 = a.float().numpy()
+            q, scale = quantize_int8(a)
+            bound = float(np.max(np.abs(a32))) / 127.0 * 0.5001
+            if bound:
+                back = dequantize_int8(q, scale)
+                worst["f32"] = max(worst["f32"], float(np.max(np.abs(back - a32))) / bound)
+                cast = torch.as_tensor(dequantize_int8(q, scale, str(a.dtype).rsplit(".", 1)[-1])).float().numpy()
+                worst["cast"] = max(worst["cast"], float(np.max(np.abs(cast - a32))) / bound)
+        return k, v
+
+    pre.engine.kv_export_window = measured_export
+    _, m = run_disagg(router, ragged_workload(vocab, RAGGED_RATE, seed=13), "(b) 1 + 1, workload (b), int8 wire",
+                      smi, expect)
+    raw = m["wire_bytes"] + m["kv_bytes_saved"]
+    m.update(saved_fraction=m["kv_bytes_saved"] / raw if raw else 0.0, dequant_err_over_bound=worst["f32"],
+             dequant_err_over_bound_after_cast=worst["cast"])
+    ok = m["kv_bytes_saved"] > 0 and worst["f32"] <= 1.0
+    print(f"    int8 wire: {m['kv_bytes_saved'] / 1e6:.2f} MB saved of {raw / 1e6:.2f} MB raw "
+          f"({m['saved_fraction']:.3f}); the largest per-window error / JAX's bound {worst['f32']:.4f} in fp32 "
+          f"(<= 1), {worst['cast']:.4f} after the rounding back to the cache's dtype  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the int8 wire saved nothing or broke JAX's quantisation bound")
+    return m
+
+
+def disagg_workers(serve_config, vocab, smi, inc_dir, device="cuda", model_spec=None, engine_dtype="bf16"):
+    """(c): 2 prefill-role and 1 decode-role worker processes over TCP; the
+    prefill worker that streams the second handoff is SIGKILLed between two
+    of its windows (bench.py:843-870's drill). Judged by the port's
+    invariants: zero accepted-request loss, exactly-once failover, the dead
+    verdict; bf16 windows crossed the process boundary; the kill leaves one
+    coalesced incident bundle that the autopsy validates."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepspeed_tpu_torch.inference import Router
+    from deepspeed_tpu_torch.launcher.serving_worker import WorkerSupervisor
+    from deepspeed_tpu_torch.resilience import invariants
+    from deepspeed_tpu_torch.telemetry import autopsy
+
+    model = {**(model_spec or GPT2_SPEC), "dtype": "float32"}
+    spec = {"model": model, "engine_dtype": engine_dtype,
+            "serving": {**serve_config, "watchdog_mode": "raise", **FLIGHT_RECORDER}}
+    transport = {**FLEET_TRANSPORT, "family": "tcp", "host": "127.0.0.1", "port_base": 0}
+    real, workdir = _socket_dir()
+    sup = WorkerSupervisor(spec, 3, workdir=workdir, transport=transport, device=device,
+                           roles={0: "prefill", 1: "prefill", 2: "decode"})
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as ex:  # all boot at once
+            clients = list(ex.map(sup.spawn, range(3)))
+        out["boot_s"] = time.perf_counter() - t0
+        router = Router(config={**recorder_config(inc_dir), "router": {
+            "replicas": 3, "health": dict(FLEET_HEALTH), "transport": transport,
+            "disagg": {"enabled": True, "handoff_chunk": HANDOFF_CHUNK}}}, replica_engines=clients)
+        roles = [r.role for r in router._replicas]
+        seen = {"uids": [], "dtypes": set(), "windows": 0}
+        killed = {}
+
+        def instrument(slot, client):
+            export = client.kv_export_window
+
+            def drill(uid, start, width, **kw):
+                if uid not in seen["uids"]:
+                    seen["uids"].append(uid)
+                if not killed and start > 0 and seen["uids"].index(uid) == 1:
+                    # the second handoff, between two of its windows
+                    sup.kill(slot, signal.SIGKILL)
+                    sup.proc(slot).wait(timeout=30)
+                    killed.update(slot=slot, uid=uid, start=start, t=router.now())
+                window = export(uid, start, width, **kw)
+                seen["dtypes"].add(str(window["k"].dtype))
+                seen["windows"] += 1
+                return window
+
+            client.kv_export_window = drill
+
+        for slot in (0, 1):
+            instrument(slot, clients[slot])
+        reqs = shared_prefix_workload(vocab)[:DRILL_REQUESTS]
+        for r in reqs:
+            r.uid += 20000
+        terminal_events = []
+        step = router.step
+
+        def recording_step(*a, **kw):  # the terminal uids every step returns
+            uids = step(*a, **kw)
+            terminal_events.extend(uids)
+            return uids
+
+        router.step = recording_step
+        res, seconds = serve_fleet(router, reqs)
+        router.drain()  # finalizes the staged incident
+        m = serving_metrics(res, seconds)
+        stats = router.router_stats()
+        accepted = [r.uid for r in reqs]
+        results = {u: router.result(u) for u in accepted if router.result(u) is not None}
+        violations = (invariants.zero_accepted_loss(accepted, results)
+                      + invariants.terminal_uid_conservation(accepted, router.results)
+                      + invariants.exactly_once_failover(stats, min_recovered=1, terminal_events=terminal_events))
+        victim = killed.get("slot")
+        dead = victim is not None and router.replica_states()[victim] == "dead"
+        bundles = sorted(f for f in os.listdir(inc_dir) if f.startswith("incident-"))
+        kill_bundles = []
+        for f in bundles:
+            b = autopsy.load_bundle(os.path.join(inc_dir, f))
+            if any(t["kind"] == "replica_dead" for t in b["triggers"]):
+                kill_bundles.append((f, b))
+        problems = autopsy.validate(kill_bundles[0][1]) if len(kill_bundles) == 1 else ["no single kill bundle"]
+        cli = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.telemetry.autopsy",
+                              os.path.join(inc_dir, kill_bundles[0][0])] if kill_bundles else [sys.executable, "-c",
+                                                                                              "exit(2)"],
+                             capture_output=True, text=True, timeout=120)
+        triggers = [t["kind"] for t in kill_bundles[0][1]["triggers"]] if kill_bundles else []
+        bf16 = seen["dtypes"] == {"torch.bfloat16"} if engine_dtype == "bf16" else bool(seen["dtypes"])
+        ok = (not violations and dead and bf16 and len(kill_bundles) == 1 and not problems and cli.returncode == 0
+              and roles == ["prefill", "prefill", "decode"] and stats["disagg"]["handoffs"] >= DRILL_REQUESTS)
+        reported = {}
+        other = 1 - victim if victim is not None else 1  # the surviving prefill worker
+        for slot in (2, other):
+            snap = clients[slot].telemetry_snapshot()
+            reported[slot] = snap["decode_kernel_launches"]
+        # the decode worker's graph replays launched the kernel; the
+        # surviving prefill worker never decoded
+        L = model["num_layers"]
+        ok &= device != "cuda" or (reported[2][0] > 0 and reported[2][0] == reported[2][1]
+                                   and reported[2][0] % L == 0 and list(reported[other]) == [0, 0])
+        print(f"  [{smi}] (c) 2 prefill + 1 decode worker processes over TCP ({device}), booted together in "
+              f"{out['boot_s']:.1f} s, roles {roles}; prefill worker {victim} SIGKILLed before window "
+              f"{killed.get('start')} of handoff 2 (uid {killed.get('uid')}): {m['ok']}/{m['requests']} ok, "
+              f"{m['tokens_per_s']:.1f} tokens/s; {stats['disagg']['handoffs']} handoffs, {seen['windows']} windows "
+              f"exported, window dtypes {sorted(seen['dtypes'])}; invariants (zero accepted loss, terminal "
+              f"conservation, exactly-once failover): {[str(v) for v in violations] or 'none violated'}; dead "
+              f"verdict {dead}; failovers_recovered {stats['failovers_recovered']}; incident bundles {bundles}, the "
+              f"kill's triggers {triggers}, autopsy problems {problems}, its CLI exit {cli.returncode}; decode "
+              f"launches as reported {reported}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the disaggregated worker drill broke an invariant, sent no bf16 window or left no "
+                             "single valid incident bundle")
+        out.update(metrics=m, handoffs=stats["disagg"]["handoffs"], windows=seen["windows"],
+                   window_dtypes=sorted(seen["dtypes"]), killed=killed, failovers_recovered=stats["failovers_recovered"],
+                   violations=[str(v) for v in violations], bundles=bundles, kill_triggers=triggers,
+                   autopsy_exit=cli.returncode, reported_launches=reported,
+                   handoff=handoff_metrics(router, None))
+        return out
+    finally:
+        sup.shutdown(signal.SIGKILL, timeout=10.0)
+        shutil.rmtree(real, ignore_errors=True)
+
+
+def disagg_surge(engine, serve_config, vocab, smi, inc_dir):
+    """(d): phase 21's surge trace into a 1 + 1 disaggregated fleet with
+    per-pool envelopes 1..2: each pool must scale on its own signals at
+    least once, and both must return to 1."""
+    from deepspeed_tpu_torch.inference import Request, Router
+
+    cfg = disagg_config(serve_config, inc_dir, **DISAGG_POOLS)
+    cfg["router"]["autoscale"] = dict(DISAGG_AUTOSCALE)
+    router = Router(engine, config=cfg)
+    for r in router._replicas:
+        r.engine.warm_decode()
+    asc = router._autoscaler
+    reqs = [Request(uid=30000 + i, prompt=np.asarray(body["prompt"], np.int32),
+                    max_new_tokens=body["max_new_tokens"], arrival_time=offset,
+                    priority=int(headers["X-DSTPU-Priority"]))
+            for i, (offset, body, _, headers) in enumerate(surge_trace(vocab))]
+    peak = {"prefill": 1, "decode": 1}
+
+    def watch(r):
+        for role in peak:
+            peak[role] = max(peak[role], sum(x.state == "healthy" and x.role == role for x in r._replicas))
+
+    res, seconds = serve_fleet(router, reqs, watch)
+    t_end = time.perf_counter() + 60.0
+    while time.perf_counter() < t_end:
+        router.step()
+        states = router.replica_states()
+        if (asc.pool_target == {"prefill": 1, "decode": 1} and not asc._boots
+                and not any(s == "draining" for s in states.values())):
+            break
+        time.sleep(0.02)
+    events = [(e["kind"], e.get("pool")) for e in asc.events]
+    decisions = {role: sum(k in ("scale_up", "scale_down") and p == role for k, p in events) for role in peak}
+    ups = {role: sum(k == "scale_up" and p == role for k, p in events) for role in peak}
+    healthy = {role: sum(r.state == "healthy" and r.role == role for r in router._replicas) for role in peak}
+    terminal = all(x is not None and x.ok for x in res.values())
+    ok = (terminal and all(n >= 1 for n in decisions.values()) and asc.pool_target == {"prefill": 1, "decode": 1}
+          and healthy == {"prefill": 1, "decode": 1})
+    print(f"  [{smi}] (d) per-pool autoscaling 1..2 each under the surge trace ({len(reqs)} requests) in "
+          f"{seconds:.2f} s: peak healthy {peak}; scale decisions {decisions} (ups {ups}); final targets "
+          f"{asc.pool_target}, healthy {healthy}; every request terminal and ok {terminal}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("a pool made no scale decision or did not return to 1, or a request was lost")
+    return {"seconds": seconds, "peak": peak, "decisions": decisions, "ups": ups, "events": events,
+            "final_targets": dict(asc.pool_target), "metrics": serving_metrics(res, seconds)}
+
+
+def ring_cells(router):
+    """Cells held by the Router's rings and its per-replica mirrors, beside
+    their bound (series x tiers x capacity)."""
+    snaps = [router._rings.snapshot()] + [s.snapshot() for s in router._ring_mirror.values()]
+    cells = sum(len(c) for s in snaps for tiers in s["series"].values() for c in tiers.values())
+    bound = sum(len(s["series"]) for s in snaps) * len(router._rings.intervals) * router._rings.capacity
+    return cells, bound
+
+
+def disagg_phase(dev, smi, model_cfg=None, serve_config=None, vocab_cap=None):
+    """Phase 22. ``model_cfg``/``serve_config`` default to phase 18's
+    (GPT-2-125M, bf16); a smaller pair rehearses the phase's control flow."""
+    from deepspeed_tpu_torch.inference import Router
+
+    cuda = dev.type == "cuda"
+    cfg = model_cfg or TransformerConfig(**GPT2_SPEC)
+    L = cfg.num_layers
+    expect = L if cuda else 0
+    serve_config = serve_config or SERVE_CONFIG
+    engine = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": "bf16" if model_cfg is None else "fp32"},
+                                                device=dev)
+    vocab = vocab_cap or engine.cfg.vocab_size
+    inc_root = tempfile.mkdtemp(prefix="dstt_incidents_")
+    out = {"config": {**serve_config, "handoff_chunk": HANDOFF_CHUNK, "flight_recorder": FLIGHT_RECORDER,
+                      "pools": DISAGG_POOLS, "autoscale": DISAGG_AUTOSCALE}}
+    try:
+        # (a) parity and speed: co-located 2 against disaggregated 1 + 1
+        for key, label, make in (("a", "workload (a)", lambda: shared_prefix_workload(vocab)),
+                                 ("b", "workload (b)", lambda: ragged_workload(vocab, RAGGED_RATE, seed=14))):
+            _, res_c, mc = run_colocated(engine, serve_config, make(), f"(a) 2 co-located, {label}", smi,
+                                         os.path.join(inc_root, f"colo_{key}"))
+            router = Router(engine, config=disagg_config(serve_config, os.path.join(inc_root, f"dis_{key}")))
+            for r in router._replicas:
+                r.engine.warm_decode()
+            reqs = make()
+            res_d, md = run_disagg(router, reqs, f"(a) 1 prefill + 1 decode, {label}", smi, expect)
+            greedy = [r.uid for r in reqs if r.temperature <= 0]
+            same = sum(np.array_equal(res_d[u].tokens, res_c[u].tokens) for u in greedy)
+            md.update(greedy=len(greedy), greedy_equal_to_colocated=same,
+                      tokens_per_s_vs_colocated=md["tokens_per_s"] / mc["tokens_per_s"],
+                      tpot_p50_vs_colocated=md["tpot_p50_ms"] / mc["tpot_p50_ms"],
+                      ttft_p50_vs_colocated=md["ttft_p50_ms"] / mc["ttft_p50_ms"])
+            print(f"    disaggregated / co-located: tokens/s {md['tokens_per_s_vs_colocated']:.3f}, TTFT p50 "
+                  f"{md['ttft_p50_vs_colocated']:.3f}, TPOT p50 {md['tpot_p50_vs_colocated']:.3f}; greedy streams "
+                  f"equal to the co-located fleet's {same}/{len(greedy)} (bf16; reported, not required)")
+            if key == "b":
+                cells, bound = ring_cells(router)
+                slo = dict(router._slo.last) if router._slo is not None else {}
+                ok = 0 < cells <= bound
+                print(f"  [{smi}] (e) SLO tracker's last verdict: attainment {slo.get('attainment')}, breach "
+                      f"{slo.get('breach')}; rings {cells} cells (bound {bound})  {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("the flight recorder's rings hold more cells than their bound, or none")
+                out["slo"] = {"attainment": slo.get("attainment"), "burn": slo.get("burn"),
+                              "breach": slo.get("breach"), "ring_cells": cells, "ring_bound": bound}
+                if cuda:
+                    md["profiled"] = profiled_roles(router, vocab, L)
+            out[f"colocated_{key}"], out[f"disagg_{key}"] = mc, md
+            del router
+            if cuda:
+                torch.cuda.empty_cache()
+        _, _, off = run_colocated(engine, serve_config, ragged_workload(vocab, RAGGED_RATE, seed=14),
+                                  "(a) 2 co-located, workload (b), flight recorder off", smi, inc_root, recorder=False)
+        out["colocated_b_recorder_off"] = off
+        out["recorder_cost"] = out["colocated_b"]["tokens_per_s"] / off["tokens_per_s"]
+        print(f"    the flight recorder on / off, co-located workload (b): tokens/s {out['recorder_cost']:.3f}")
+        out["fp32_parity"] = disagg_parity_small(dev, os.path.join(inc_root, "small"))
+        out["int8"] = int8_wire(engine, serve_config, vocab, smi, os.path.join(inc_root, "int8"), expect)
+        out["surge"] = disagg_surge(engine, serve_config, vocab, smi, os.path.join(inc_root, "surge"))
+        del engine
+        if cuda:
+            torch.cuda.empty_cache()
+        inc_dir = os.path.join(inc_root, "workers")
+        os.makedirs(inc_dir)
+        out["workers"] = disagg_workers(serve_config, vocab, smi, inc_dir, device=dev.type,
+                                        model_spec=None if model_cfg is None else {
+                                            k: getattr(cfg, k) for k in ("vocab_size", "max_seq_len", "num_layers",
+                                                                         "num_heads", "hidden_size")},
+                                        engine_dtype="bf16" if model_cfg is None else "fp32")
+        print(json.dumps({"disagg": out}, default=str))
+        return {"decode_replicas": [(e["split"], e["combine"]) for k in ("disagg_a", "disagg_b")
+                                    for e in out[k]["replicas"] if e["role"] == "decode"],
+                "prefill_replicas": [(e["split"], e["combine"]) for k in ("disagg_a", "disagg_b")
+                                     for e in out[k]["replicas"] if e["role"] == "prefill"],
+                "workers": {str(k): v for k, v in out["workers"]["reported_launches"].items()}}
+    finally:
+        shutil.rmtree(inc_root, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace a short generate and a train_batch into DIR")
@@ -3822,6 +4338,13 @@ def main() -> int:
           f"traffic), the autoscaler under the surge trace with a replica killed, {FLEET_REPLICAS} worker processes "
           f"over TCP (SIGKILL, respawn, a set_spec rolling upgrade)")
     gateway = gateway_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    print(f"[22] disaggregated prefill/decode serving at GPT-2-125M width with the flight recorder on: 2 co-located "
+          f"against 1 prefill + 1 decode in-process replicas (workloads (a) and (b)), the int8 wire, 2 prefill + 1 "
+          f"decode worker processes over TCP with a prefill SIGKILLed mid-handoff, per-pool autoscaling under the "
+          f"surge trace, the SLO tracker and the rings")
+    disagg = disagg_phase(dev, smi)
 
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -3832,6 +4355,9 @@ def main() -> int:
         "fleet_inprocess_launches": fleet["inprocess"], "fleet_worker_launches": fleet["workers"],
         "gateway_inprocess_launches": gateway["inprocess"], "gateway_surge_replays": gateway["surge_replays"],
         "gateway_worker_launches": gateway["workers"],
+        "disagg_decode_replica_launches": disagg["decode_replicas"],
+        "disagg_prefill_replica_launches": disagg["prefill_replicas"],
+        "disagg_worker_launches": disagg["workers"],
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"], "library_ratio": times["library_ratio"],

@@ -39,8 +39,14 @@ Every decision is a typed event in a bounded ring (``describe()``, carried
 in ``Router.telemetry_snapshot()``) plus ``router/autoscale/*`` counters
 and gauges.
 
-Not ported: per-pool autoscaling of disaggregated fleets (the JAX
-``pool_signals`` / ``_evaluate_pool``), which comes with ``router.disagg``.
+A disaggregated fleet (``router.disagg``) scales its prefill and decode
+pools on their own signals (``pool_signals`` / ``_evaluate_pool``): the
+prefill pool on its arrival queue and chunk backlog, the decode pool on
+slot occupancy (staged imports included), step latency and the Router's
+parked-handoff backlog; each within its own ``disagg`` envelope, with the
+shared hysteresis and cooldown. Newcomers are role-pinned
+(``_spawn_inprocess(role)``, or the supervisor's ``roles``), and a dead
+worker heals back into its own pool.
 """
 
 from __future__ import annotations
@@ -94,6 +100,33 @@ class Autoscaler:
         healthy = sum(1 for r in router._replicas if r.state == "healthy")
         self.target = min(max(healthy, self.cfg.min_replicas),
                           self.cfg.max_replicas)
+        # disaggregated fleets scale the prefill and decode pools on their
+        # OWN signals:
+        # per-pool targets, min/max envelopes and hysteresis state, with
+        # the shared cooldown/consecutive knobs from the autoscale block
+        dg = getattr(router.cfg, "disagg", None)
+        self._disagg = bool(dg is not None and dg.enabled)
+        self.pool_cfg: dict[str, dict] = {}
+        self.pool_target: dict[str, int] = {}
+        self._pool: dict[str, dict] = {}
+        if self._disagg:
+            self.pool_cfg = {
+                "prefill": {"min": int(dg.prefill_min_replicas),
+                            "max": int(dg.prefill_max_replicas)},
+                "decode": {"min": int(dg.decode_min_replicas),
+                           "max": int(dg.decode_max_replicas)},
+            }
+            for role, pc in self.pool_cfg.items():
+                n = sum(1 for r in router._replicas
+                        if r.state == "healthy" and r.role == role)
+                self.pool_target[role] = min(max(n, pc["min"]), pc["max"])
+                self._pool[role] = {"up_for": 0, "down_for": 0,
+                                    "down_since": float("inf"),
+                                    "last_action": float("-inf")}
+                self.tm.gauge(
+                    f"router/autoscale/{role}_target_replicas").set(
+                    self.pool_target[role])
+            self.target = sum(self.pool_target.values())
         self._up_for = 0
         self._down_for = 0
         self._down_since = float("inf")  # router-clock start of the streak
@@ -167,7 +200,14 @@ class Autoscaler:
         self._poll_boots(now)
         self._recover(now)
         sig = self.signals(now)
-        self._evaluate(now, sig)
+        if self._disagg:
+            # per-pool evaluation: each pool's OWN signals against its own
+            # envelope and hysteresis; the fleet signals ride along for the
+            # event ring
+            sig["pools"] = {role: self._evaluate_pool(now, role)
+                            for role in ("prefill", "decode")}
+        else:
+            self._evaluate(now, sig)
         return sig
 
     def _evaluate(self, now: float, sig: dict) -> None:
@@ -224,18 +264,102 @@ class Autoscaler:
             # time, and a boot in flight (a bet on MORE capacity) vetoes it
             self._scale_down(now, sig)
 
-    def _bump(self, delta: int) -> None:
+    # -- per-pool evaluation (disaggregated fleets) -----------------------
+
+    def pool_signals(self, now: float, role: str) -> dict:
+        """One pool's cheap per-tick signal set. Prefill pressure is
+        arrival backlog (queued) + chunk backlog (slots mid-prefill plus
+        finished slots parked awaiting handoff); decode pressure is slot
+        occupancy (staged imports included) + step latency, with the
+        router's parked-handoff backlog as the slots-exhausted override."""
+        members = [r for r in self.router._replicas
+                   if r.state == "healthy" and r.role == role]
+        n = len(members)
+        load = sum(r.engine.load for r in members)
+        queue = sum(r.engine.queue_len for r in members)
+        sig = {
+            "pool": role,
+            "healthy": n,
+            "target": self.pool_target[role],
+            "queue": queue,
+            "load": load,
+            "load_per_replica": load / max(1, n),
+            "step_sec": max((r.last_step_sec for r in members), default=0.0),
+        }
+        if role == "prefill":
+            sig["backlog"] = load - queue  # mid-prefill + parked handoffs
+        else:
+            sig["occupancy"] = (sum(
+                float(getattr(r.engine, "occupancy", 0.0)) for r in members)
+                / max(1, n))
+            sig["parked"] = int(self.router._handoff_backlog)
+        return sig
+
+    def _evaluate_pool(self, now: float, role: str) -> dict:
+        c = self.cfg
+        d = self.router.cfg.disagg
+        st = self._pool[role]
+        pc = self.pool_cfg[role]
+        sig = self.pool_signals(now, role)
+        if role == "prefill":
+            up = ((d.prefill_scale_up_queue > 0
+                   and sig["queue"] >= d.prefill_scale_up_queue)
+                  or (d.prefill_scale_up_backlog > 0
+                      and sig["backlog"] >= d.prefill_scale_up_backlog))
+        else:
+            up = ((d.decode_scale_up_occupancy > 0
+                   and sig["occupancy"] >= d.decode_scale_up_occupancy)
+                  # a parked handoff IS an exhausted decode pool: prefill
+                  # finished work it cannot place
+                  or sig["parked"] > 0
+                  or (d.decode_scale_up_step_s > 0
+                      and sig["step_sec"] >= d.decode_scale_up_step_s))
+        down = (not up and sig["queue"] == 0
+                and sig["load_per_replica"] <= c.scale_down_load
+                and sig["healthy"] >= self.pool_target[role])
+        st["up_for"] = st["up_for"] + 1 if up else 0
+        if down:
+            if st["down_for"] == 0:
+                st["down_since"] = now
+            st["down_for"] += 1
+        else:
+            st["down_for"] = 0
+            st["down_since"] = float("inf")
+        cool = now - st["last_action"] >= c.cooldown_s
+        booting = any(b.get("role") == role for b in self._boots)
+        if (up and st["up_for"] >= c.up_consecutive and cool
+                and self.pool_target[role] < pc["max"]):
+            self._scale_up(now, sig, role=role)
+        elif (down and st["down_for"] >= c.down_consecutive
+                and now - st["down_since"] >= c.cooldown_s and cool
+                and self.pool_target[role] > pc["min"] and not booting):
+            self._scale_down(now, sig, role=role)
+        return sig
+
+    def _bump_pool(self, role: Optional[str], delta: int) -> None:
+        """Move the fleet target (and, in disagg mode, the pool target and
+        its gauge) by ``delta``: the one bookkeeping path every scale and
+        failed-boot revert shares."""
         self.target += delta
         self.tm.gauge("router/autoscale/target_replicas").set(self.target)
+        if role is not None and role in self.pool_target:
+            self.pool_target[role] += delta
+            self.tm.gauge(f"router/autoscale/{role}_target_replicas").set(
+                self.pool_target[role])
 
     # -- actions ----------------------------------------------------------
 
-    def _begin_boot(self, kind: str, slot: int, respawn: bool) -> None:
+    def _begin_boot(self, kind: str, slot: int, respawn: bool,
+                    role: Optional[str] = None) -> None:
         """Start a supervisor worker boot on a background thread (it runs
         a process and waits on its socket; nothing here touches the
-        device). ``_poll_boots`` harvests it."""
+        device). ``_poll_boots`` harvests it. ``role`` pins the worker to
+        a disaggregated pool (``--role``; a respawn of the slot keeps it)."""
         holder = {"kind": kind, "slot": slot, "respawn": respawn,
-                  "result": None, "error": None}
+                  "role": role, "result": None, "error": None}
+        roles = getattr(self.supervisor, "roles", None)
+        if role is not None and roles is not None:
+            roles[slot] = role
 
         def run():
             try:
@@ -269,67 +393,84 @@ class Autoscaler:
                     # it would sit at the head of poll()'s queue forever
                     self.supervisor.retire(b["slot"])
                 if b["kind"] == "scale_up":
-                    self._bump(-1)  # the size it never reached
+                    # the size it never reached
+                    self._bump_pool(b.get("role"), -1)
                 self._last_action = now
                 self._retry_at = now + max(self.cfg.cooldown_s, 1.0)
                 continue
             rid = self.router.attach_replica(b["result"])
             self._slots[rid] = b["slot"]
+            extra = {"pool": b["role"]} if b.get("role") else {}
             if b["kind"] == "scale_up":
                 self.tm.counter("router/autoscale/scale_ups").inc()
-                self._event("scale_up", now, None, rid=rid, slot=b["slot"])
+                self._event("scale_up", now, None, rid=rid, slot=b["slot"],
+                            **extra)
                 log_dist(f"autoscaler: scaled UP to {self.target} (attached "
                          f"replica {rid})", ranks=[0])
             else:
                 self.tm.counter("router/autoscale/respawns").inc()
-                self._event("respawn", now, None, rid=rid, slot=b["slot"])
+                self._event("respawn", now, None, rid=rid, slot=b["slot"],
+                            **extra)
                 log_dist(f"autoscaler: recovered a lost worker as replica "
                          f"{rid}", ranks=[0])
 
-    def _spawn(self):
+    def _spawn(self, role: Optional[str] = None):
         return (self._spawn_fn() if self._spawn_fn is not None
-                else self.router._spawn_inprocess())
+                else self.router._spawn_inprocess(role=role))
 
-    def _scale_up(self, now: float, sig: dict) -> None:
+    def _scale_up(self, now: float, sig: dict,
+                  role: Optional[str] = None) -> None:
         self._up_for = 0
         self._last_action = now
+        if role is not None:
+            self._pool[role]["up_for"] = 0
+            self._pool[role]["last_action"] = now
+        extra = {"pool": role} if role else {}
         if self.supervisor is not None:
             # async: the target moves to the DESIRED size now; the boot
             # lands via _poll_boots (or reverts the target on failure)
             slot = self._slot_seq
             self._slot_seq += 1
-            self._bump(+1)
-            self._event("scale_up_started", now, sig, slot=slot)
-            self._begin_boot("scale_up", slot, respawn=False)
+            self._bump_pool(role, +1)
+            self._event("scale_up_started", now, sig, slot=slot, **extra)
+            self._begin_boot("scale_up", slot, respawn=False, role=role)
             return
         try:
-            engine = self._spawn()
+            engine = self._spawn(role)
         except (RpcError, OSError, RuntimeError) as e:
             self.tm.counter("router/autoscale/spawn_failures").inc()
             self._event("spawn_failed", now, sig,
-                        error=f"{type(e).__name__}: {e}")
+                        error=f"{type(e).__name__}: {e}", **extra)
             return
         rid = self.router.attach_replica(engine)
-        self._bump(+1)
+        self._bump_pool(role, +1)
         self.tm.counter("router/autoscale/scale_ups").inc()
-        self._event("scale_up", now, sig, rid=rid)
+        self._event("scale_up", now, sig, rid=rid, **extra)
         log_dist(f"autoscaler: scaled UP to {self.target} (attached replica "
                  f"{rid})", ranks=[0])
 
-    def _scale_down(self, now: float, sig: dict) -> None:
-        healthy = [r for r in self.router._replicas if r.state == "healthy"]
-        if len(healthy) <= self.cfg.min_replicas:
+    def _scale_down(self, now: float, sig: dict,
+                    role: Optional[str] = None) -> None:
+        healthy = [r for r in self.router._replicas if r.state == "healthy"
+                   and (role is None or r.role == role)]
+        floor = (self.pool_cfg[role]["min"] if role is not None
+                 else self.cfg.min_replicas)
+        if len(healthy) <= floor:
             return
         # least-loaded first; rookies (highest rid) break ties so the
         # longest-lived replicas (warmest prefix caches) survive
         victim = min(healthy, key=lambda r: (r.engine.load, -r.rid))
         self.router.drain_replica(victim.rid, block=False)
-        self._bump(-1)
+        self._bump_pool(role, -1)
         self._down_for = 0
         self._last_action = now
+        if role is not None:
+            self._pool[role]["down_for"] = 0
+            self._pool[role]["last_action"] = now
         self._retiring[victim.rid] = self._slots.pop(victim.rid, None)
         self.tm.counter("router/autoscale/scale_downs").inc()
-        self._event("scale_down", now, sig, rid=victim.rid)
+        self._event("scale_down", now, sig, rid=victim.rid,
+                    **({"pool": role} if role else {}))
         log_dist(f"autoscaler: scaling DOWN to {self.target} (draining "
                  f"replica {victim.rid})", ranks=[0])
 
@@ -375,6 +516,17 @@ class Autoscaler:
                     if r.state in ("healthy", "probation"))
         # boots in flight count toward the expected size
         missing = self.target - alive - len(self._boots)
+        # disagg fleets heal per pool: a dead decode worker comes back as a
+        # DECODE replica, not generic capacity
+        pool_missing: dict[str, int] = {}
+        if self._disagg:
+            for role, tgt in self.pool_target.items():
+                al = sum(1 for r in self.router._replicas
+                         if r.state in ("healthy", "probation")
+                         and r.role == role)
+                boots = sum(1 for b in self._boots if b.get("role") == role)
+                pool_missing[role] = tgt - al - boots
+            missing = sum(max(0, m) for m in pool_missing.values())
         if missing <= 0:
             for slot in bad:
                 # a corpse the fleet no longer needs (its rid is already
@@ -383,19 +535,30 @@ class Autoscaler:
             return
         if now < self._retry_at:
             return
+        need_role = None
+        if pool_missing:
+            need_role = max(pool_missing, key=lambda k: pool_missing[k])
         if self.supervisor is not None:
             # async: one replacement boot starts per tick (further corpses
-            # wait a tick each; poll() keeps reporting them)
+            # wait a tick each; poll() keeps reporting them). A respawned
+            # slot keeps its role (supervisor.roles is keyed by slot)
             if bad:
-                self._begin_boot("respawn", bad.pop(0), respawn=True)
+                slot = bad.pop(0)
+                self._begin_boot(
+                    "respawn", slot, respawn=True,
+                    role=getattr(self.supervisor, "roles", {}).get(slot)
+                    if self._disagg else None)
             else:
                 slot = self._slot_seq
                 self._slot_seq += 1
-                self._begin_boot("respawn", slot, respawn=False)
+                self._begin_boot("respawn", slot, respawn=False,
+                                 role=need_role)
             return
         while missing > 0:
+            if pool_missing:
+                need_role = max(pool_missing, key=lambda k: pool_missing[k])
             try:
-                engine = self._spawn()
+                engine = self._spawn(need_role)
             except (RpcError, OSError, RuntimeError) as e:
                 # boot failure: pace the retry instead of spinning
                 self.tm.counter("router/autoscale/spawn_failures").inc()
@@ -405,9 +568,12 @@ class Autoscaler:
                 return
             rid = self.router.attach_replica(engine)
             self.tm.counter("router/autoscale/respawns").inc()
-            self._event("respawn", now, None, rid=rid)
+            self._event("respawn", now, None, rid=rid,
+                        **({"pool": need_role} if need_role else {}))
             log_dist(f"autoscaler: recovered a lost worker as replica "
                      f"{rid}", ranks=[0])
+            if need_role is not None:
+                pool_missing[need_role] -= 1
             missing -= 1
 
     # -- observability ----------------------------------------------------
@@ -425,7 +591,7 @@ class Autoscaler:
     def describe(self) -> dict:
         """The snapshot block: current target, brownout state, and the
         bounded decision-event ring."""
-        return {
+        out = {
             "enabled": bool(self.cfg.enabled),
             "target": self.target,
             "min": self.cfg.min_replicas,
@@ -433,6 +599,12 @@ class Autoscaler:
             "brownout": bool(self.router.brownout),
             "events": list(self.events),
         }
+        if self._disagg:
+            out["pools"] = {
+                role: {"target": self.pool_target[role],
+                       "min": pc["min"], "max": pc["max"]}
+                for role, pc in self.pool_cfg.items()}
+        return out
 
 
 __all__ = ["Autoscaler"]

@@ -59,15 +59,28 @@ verdict, any other transport failure DEAD. A replica that leaves the fleet
 (dead, or drained and retired) is ``close()``d: an in-process one frees its
 slot cache, prefix pool and graph.
 
-Not ported yet, each refused by name when its config enables it:
-``router.disagg`` (the prefill/decode pools, their KV handoff and per-pool
-autoscaling), ``router.autoscale.scale_up_mfu`` (its signal is the program
-ledger's), and the ``timeseries`` / ``slo`` / ``incidents`` stores.
+  * disaggregation  ``router.disagg`` splits the fleet into a PREFILL pool
+                    (dispatch and failover replays land there) and a
+                    DECODE pool; after every fleet step ``_pump_handoffs``
+                    streams each parked prefill's slot KV window by window
+                    (``handoff_chunk`` wide, ``rpc.encode_kv_window``, raw
+                    or ``int8``) into a decode replica's staged slot, and
+                    ownership moves at commit. In-process replicas go
+                    through the same encode/decode as a worker's frames.
+  * flight recorder ``timeseries`` / ``slo`` / ``incidents``: router rings
+                    plus a mirror of each replica's flushed cells, the
+                    SLO tracker over them, and incident bundles on dead
+                    and hung verdicts, failovers, brownout, journal
+                    recovery and failure, upgrade aborts and SLO burn.
+
+Not ported: ``router.autoscale.scale_up_mfu`` (its signal is the program
+ledger's), refused by name.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 import threading
 import time
 from collections import deque
@@ -80,16 +93,16 @@ from ..resilience import (ControlPlaneCrash, FaultInjector,
                           JournalUnavailableError, RequestRejected,
                           RpcError, RpcTimeout)
 from ..resilience.retry import backoff_delay
-from ..runtime.config import (FaultInjectionConfig, RequestTraceConfig,
-                              RouterConfig, RouterHealthConfig, TenantConfig)
-from ..telemetry import RequestTracer, Telemetry
+from ..runtime.config import (FaultInjectionConfig, IncidentConfig,
+                              RequestTraceConfig, RouterConfig,
+                              RouterHealthConfig, SLOConfig,
+                              TenantConfig, TimeSeriesConfig)
+from ..telemetry import (IncidentRecorder, RequestTracer, SLOTracker,
+                         Telemetry, TimeSeriesStore)
 from ..telemetry.request_trace import RESERVED_UID_BASE
 from ..utils.logging import log_dist
 from .engine import InferenceEngine
 from .serving import Request, RequestResult, ServingEngine
-
-# fleet observability blocks of the JAX Router the port has not got
-_UNPORTED_BLOCKS = ("timeseries", "slo", "incidents")
 
 # per-process canary uid source: every rolling-upgrade wave's synthetic
 # generate gets a uid in the RESERVED band, unique across successive
@@ -109,7 +122,7 @@ class _Replica:
 
     rid: int
     engine: ServingEngine
-    role: str = "both"       # scheduler role (the port serves "both")
+    role: str = "both"       # disagg pool membership: prefill|decode|both
     state: str = "healthy"
     hung_verdicts: int = 0
     readmit_at: float = 0.0  # router-clock time probation ends
@@ -170,13 +183,6 @@ class Router:
         if isinstance(rc, dict):
             rc = RouterConfig(**rc)
         rc.check_ported()
-        for name in _UNPORTED_BLOCKS:
-            blk = config.get(name)
-            on = blk.get("enabled", False) if isinstance(blk, dict) else getattr(blk, "enabled", False)
-            if on:
-                raise NotImplementedError(
-                    f"serving config block {name!r} (the fleet's flight recorder) is not ported to "
-                    "deepspeed_tpu_torch yet")
         if replica_engines is not None:
             if not replica_engines:
                 raise ValueError("replica_engines must not be empty")
@@ -193,6 +199,12 @@ class Router:
         self.health: RouterHealthConfig = rc.health
         self.affinity = bool(rc.affinity)
         self.max_queue_len = int(rc.max_queue_len)
+        # disaggregated prefill/decode serving: when enabled, dispatch
+        # targets the PREFILL pool only and _pump_handoffs streams finished
+        # prefills' slot KV into the decode pool each step
+        self.disagg = rc.disagg
+        self._handoff_backlog = 0   # parked handoffs the last pump left
+        self._handoffs_done = 0     # committed prefill->decode transfers
         # per-tenant isolation policy (docs/serving.md "Multi-tenant
         # isolation"): the router consumes weight/max_queued for brownout
         # ordering and fleet stats; every replica engine reads the SAME
@@ -273,17 +285,38 @@ class Router:
                 # one clock across the fleet (a remote replica re-anchors
                 # its own perf_counter to the router's elapsed time)
                 e.set_epoch(self._epoch)
-                self._replicas.append(_Replica(rid, e))
+                # pool membership comes from the engine: a worker booted
+                # with --role reports it in its ping reply, an in-process
+                # engine carries it. A client never pinged reports "both",
+                # which would collapse the pool split, so ask once here (a
+                # failure is fine: the health machine owns dead boots)
+                if rc.disagg.enabled and hasattr(e, "rpc"):
+                    try:
+                        e.ping()
+                    except (RpcError, OSError):
+                        pass
+                self._replicas.append(_Replica(
+                    rid, e, role=str(getattr(e, "role", "both") or "both")))
         else:
+            roles = ["both"] * rc.replicas
+            if rc.disagg.enabled:
+                # the pool split overrides the flat replica count: the fleet
+                # is prefill_replicas + decode_replicas engines over the
+                # same parameters, differing only in scheduler role
+                rc.replicas = (int(rc.disagg.prefill_replicas)
+                               + int(rc.disagg.decode_replicas))
+                roles = (["prefill"] * int(rc.disagg.prefill_replicas)
+                         + ["decode"] * int(rc.disagg.decode_replicas))
             for rid in range(rc.replicas):
                 # one InferenceEngine's parameters; each replica its own
                 # slot cache, prefix pool, generator and decode graph
-                e = ServingEngine(engine, config=sub, replica_id=rid)
+                e = ServingEngine(engine, config=sub, replica_id=rid,
+                                  role=roles[rid])
                 # one clock across the fleet: replica-relative timings
                 # (queue wait, TTFT) stay comparable and step(now=...) means
                 # the same instant on every replica
                 e.set_epoch(self._epoch)
-                self._replicas.append(_Replica(rid, e))
+                self._replicas.append(_Replica(rid, e, role=roles[rid]))
         self._owner: dict[int, int] = {}      # live uid -> replica id
         self._seen: dict[int, set] = {}       # uid -> replicas that held it
         self._failovers: dict[int, int] = {}  # uid -> failover count
@@ -311,6 +344,41 @@ class Router:
         # set by enable_stream_progress (an SSE gateway exists): remote
         # replicas piggyback tokens-so-far on step replies
         self._stream_progress = False
+        # the fleet flight recorder: router-side rings, per-replica mirror
+        # stores rebuilt from the step-reply cell flush, an SLO tracker over
+        # both, and an incident recorder ticked by step(). SLO and
+        # incidents imply the rings.
+        ts = config.get("timeseries", {})
+        if isinstance(ts, dict):
+            ts = TimeSeriesConfig(**ts)
+        slo = config.get("slo", {})
+        if isinstance(slo, dict):
+            slo = SLOConfig(**slo)
+        inc = config.get("incidents", {})
+        if isinstance(inc, dict):
+            inc = IncidentConfig(**inc)
+        self.timeseries_cfg: TimeSeriesConfig = ts
+        self.slo_cfg: SLOConfig = slo
+        self.incidents_cfg: IncidentConfig = inc
+        self._rings: Optional[TimeSeriesStore] = (
+            TimeSeriesStore(raw_interval_s=ts.interval_s,
+                            tiers=tuple(ts.tiers), capacity=ts.capacity,
+                            flush_capacity=ts.flush_capacity)
+            if (ts.enabled or slo.enabled or inc.enabled) else None)
+        self._next_sample_t = 0.0
+        # rid -> mirror store fed by ingest of that replica's flushed cells
+        self._ring_mirror: dict = {}
+        self._slo: Optional[SLOTracker] = (
+            SLOTracker(slo, self.telemetry.registry, self._slo_stores)
+            if slo.enabled else None)
+        self._next_slo_t = 0.0
+        self._incidents: Optional[IncidentRecorder] = None
+        if inc.enabled:
+            self._incidents = IncidentRecorder(
+                inc.dir, source="router", max_bundles=inc.max_bundles,
+                window_before_s=inc.window_before_s,
+                window_after_s=inc.window_after_s,
+                registry=self.telemetry.registry)
         if self._journal is not None and self._journal.recovered:
             # cold-start recovery: the journal remembers what the dead
             # control plane promised; the workers remember what they were
@@ -333,12 +401,18 @@ class Router:
 
     # -- dispatch --------------------------------------------------------
 
-    def _accepting(self) -> list[_Replica]:
-        return [r for r in self._replicas if r.accepts]
+    def _accepting(self, role: str | None = None) -> list[_Replica]:
+        if role is None:
+            return [r for r in self._replicas if r.accepts]
+        return [r for r in self._replicas if r.accepts and r.role == role]
 
     def _dispatch_targets(self) -> list[_Replica]:
         """Replicas eligible for NEW request dispatch and for failover
-        replays, which re-run admission and prefill from scratch."""
+        replays, which re-run admission and prefill from scratch: the
+        prefill pool under disaggregation, every healthy replica
+        otherwise."""
+        if self.disagg.enabled:
+            return self._accepting("prefill")
         return self._accepting()
 
     def _pick(self, candidates: list[_Replica], request: Request) -> _Replica:
@@ -634,12 +708,14 @@ class Router:
         on = bool(on)
         if on and not self._brownout:
             self.telemetry.counter("router/autoscale/brownouts").inc()
+            self._incident("brownout_engaged", deadline_s=float(deadline_s))
             log_dist(
                 "router: BROWNOUT on ("
                 + (f"{deadline_s}s deadline for deadline-free requests, "
                    if deadline_s else "no deadline tightening, ")
                 + "priority shedding armed)", ranks=[0])
         elif not on and self._brownout:
+            self._incident("brownout_lifted")
             log_dist("router: brownout lifted", ranks=[0])
         self._brownout = on
         self._brownout_deadline_s = float(deadline_s) if on else 0.0
@@ -877,6 +953,9 @@ class Router:
             self._failover(req, self._pending_terminal)
             tm.counter("router/recovery/redispatched").inc()
         self._update_gauges()
+        self._incident("journal_recovery", terminals=len(st.terminals),
+                       adopted=len(held), harvested=len(harvested),
+                       redispatched=len(redispatch))
         log_dist(
             f"router: recovered from journal — "
             f"{len(st.terminals)} journaled terminals, "
@@ -894,6 +973,8 @@ class Router:
         tm.counter("router/journal/append_failures").inc()
         if not self._journal_failure_noted:
             self._journal_failure_noted = True
+            self._incident("journal_unavailable", error=str(e),
+                           path=getattr(e, "path", ""))
             log_dist(f"router: request journal fail-closed ({e}) — "
                      f"rejecting new accepts until restart", ranks=[0])
 
@@ -998,6 +1079,7 @@ class Router:
                 ranks=[0])
             return
         self._failovers[req.uid] = n + 1
+        self._incident("failover", uid=req.uid, from_rid=from_rid)
         tgt = self._pick(targets, req)
         try:
             tgt.engine.requeue(req)
@@ -1051,6 +1133,8 @@ class Router:
         if verdict == "dead":
             r.state = "dead"
             tm.counter("router/replicas_dead").inc()
+            self._incident("replica_dead", rid=r.rid, in_flight=len(live),
+                           hung_verdicts=r.hung_verdicts)
             # a remote replica's client is closed so later snapshots /
             # cancels fail FAST instead of paying reconnect backoff toward
             # a process that is gone; an in-process one frees its memory
@@ -1066,6 +1150,8 @@ class Router:
                                   seed=self._seed + r.rid)
             r.readmit_at = now + delay
             r.state = "probation"
+            self._incident("replica_hung", rid=r.rid, in_flight=len(live),
+                           verdicts=r.hung_verdicts, probation_s=delay)
             log_dist(
                 f"router: replica {r.rid} HUNG (verdict "
                 f"{r.hung_verdicts}/{self.health.max_attempts}); probation "
@@ -1085,11 +1171,172 @@ class Router:
             self._failover(req, terminal, from_rid=r.rid)
         self._update_gauges()
 
+    # -- disaggregated prefill/decode handoff -------------------------
+
+    def _pump_handoffs(self, now: float, terminal: list) -> None:
+        """Stream every parked finished prefill into a decode-pool slot:
+        per ready handoff, ``kv_import_begin`` on the least-loaded clean
+        decode replica, the slot-KV window chunk by chunk
+        (``disagg.handoff_chunk`` wide — the compiled export/import
+        programs' pow2 bucket), then commit + release. Ownership moves to
+        the decode replica ONLY at commit, so the exactly-once
+        discipline covers the whole transfer window:
+
+          * prefill dead mid-transfer — the decode-side staging is
+            aborted and the prefill's dead/hung verdict replays its
+            requests (this one included) from scratch through the prefill
+            pool, exactly once.
+          * decode dead pre-commit — NOT a failover: the uid never moved,
+            the handoff stays parked and the next pump picks another
+            decode replica.
+          * decode dead post-commit — a normal failover; the replay
+            re-enters via the prefill pool, whose prefix cache still holds
+            the prompt's KV (commit released the prefill's copy cleanly,
+            so the replay may land back on the SAME prefill replica).
+
+        ``kv_import_begin`` rejecting with ``no_slot`` leaves the handoff
+        parked; the standing backlog is the decode pool's scale-up
+        signal."""
+        from .rpc import decode_kv_window, encode_kv_window, kv_window_nbytes
+
+        tm = self.telemetry
+        W = int(self.disagg.handoff_chunk)
+        comp = str(self.disagg.kv_compression)
+        backlog = 0
+        for pre in list(self._replicas):
+            if pre.role != "prefill" or not pre.stepped:
+                continue
+            try:
+                ready = pre.engine.handoff_ready()
+            except RpcError:
+                continue  # its verdict lands on its next step
+            prefill_down = False
+            for h in ready:
+                uid = int(h["uid"])
+                req = self._requests.get(uid)
+                if self._owner.get(uid) != pre.rid or req is None:
+                    # orphaned park (lost-reply submit) or already
+                    # terminal router-side: the deadline sweep frees it
+                    continue
+                decs = [d for d in self._accepting("decode")
+                        if d.rid not in self._seen.get(uid, set())]
+                if not decs:
+                    backlog += 1
+                    continue
+                dec = min(decs, key=lambda d: (d.engine.load, d.rid))
+                t0 = time.perf_counter()
+                if self.tracer is not None:
+                    self.tracer.record(uid, "kv_handoff_started",
+                                       from_replica=pre.rid,
+                                       to_replica=dec.rid)
+                try:
+                    dec.engine.kv_import_begin(
+                        req, int(h["pos"]), int(h["first"]),
+                        prefix_hit_tokens=int(h.get("prefix_hit_tokens", 0)),
+                        t_admit=float(h.get("t_admit", 0.0)),
+                        t_first=float(h.get("t_first", 0.0)))
+                except RequestRejected:
+                    # decode pool saturated: stays parked, feeds the
+                    # decode scale-up signal
+                    backlog += 1
+                    tm.counter("router/disagg/handoff_no_slot").inc()
+                    continue
+                except RpcError as e:
+                    self._fail(dec, "hung" if isinstance(e, RpcTimeout)
+                               else "dead", now, terminal)
+                    backlog += 1
+                    continue
+                pos = int(h["pos"])
+                wire_total = raw_total = 0
+                imported = True
+                for start in range(0, ((pos + W - 1) // W) * W, W):
+                    try:
+                        if hasattr(pre.engine, "rpc"):
+                            window = pre.engine.kv_export_window(
+                                uid, start, W, compression=comp)
+                        else:
+                            k, v = pre.engine.kv_export_window(uid, start, W)
+                            window = encode_kv_window(k, v, comp)
+                    except RpcError as e:
+                        # prefill died mid-transfer: abort the staging,
+                        # then the verdict replays its work from scratch
+                        try:
+                            dec.engine.kv_import_abort(uid)
+                        except RpcError:
+                            pass
+                        self._fail(pre, "hung" if isinstance(e, RpcTimeout)
+                                   else "dead", now, terminal)
+                        imported = False
+                        prefill_down = True
+                        break
+                    wire, raw = kv_window_nbytes(window)
+                    wire_total += wire
+                    raw_total += raw
+                    try:
+                        if hasattr(dec.engine, "rpc"):
+                            dec.engine.kv_import_window(uid, start, W, window)
+                        else:
+                            kk, vv = decode_kv_window(window)
+                            dec.engine.kv_import_window(uid, start, W, kk, vv)
+                    except RpcError as e:
+                        self._fail(dec, "hung" if isinstance(e, RpcTimeout)
+                                   else "dead", now, terminal)
+                        imported = False
+                        break
+                if prefill_down:
+                    break  # _fail(pre) already replayed its whole slate
+                if not imported:
+                    backlog += 1  # still parked; next pump retries
+                    continue
+                try:
+                    committed = dec.engine.kv_import_commit(uid)
+                except RpcError as e:
+                    self._fail(dec, "hung" if isinstance(e, RpcTimeout)
+                               else "dead", now, terminal)
+                    backlog += 1
+                    continue
+                if not committed:
+                    backlog += 1  # staging swept decode-side; retry later
+                    continue
+                try:
+                    pre.engine.handoff_release(uid)
+                except RpcError:
+                    pass  # verdict next step; the parked copy is an orphan
+                seen = self._seen.setdefault(uid, set())
+                # the prefill side released cleanly (no cancel, no stale
+                # result), so a later decode-death replay MAY legally land
+                # back on it — where its prefix pool still holds the KV
+                seen.discard(pre.rid)
+                seen.add(dec.rid)
+                self._owner[uid] = dec.rid
+                dec.dispatched += 1
+                self._handoffs_done += 1
+                dt = time.perf_counter() - t0
+                tm.counter("router/disagg/handoffs").inc()
+                tm.histogram("router/disagg/handoff_sec").observe(dt)
+                tm.histogram("router/disagg/handoff_bytes").observe(
+                    float(wire_total))
+                if raw_total > wire_total:
+                    tm.counter("router/disagg/kv_bytes_saved").inc(
+                        raw_total - wire_total)
+                if self.tracer is not None:
+                    self.tracer.record(uid, "kv_handoff_done",
+                                       from_replica=pre.rid,
+                                       to_replica=dec.rid,
+                                       bytes=int(wire_total))
+        self._handoff_backlog = backlog
+        tm.gauge("router/disagg/parked_handoffs").set(backlog)
+
     def _update_gauges(self) -> None:
         tm = self.telemetry
         tm.gauge("router/healthy_replicas").set(
             sum(1 for r in self._replicas if r.state == "healthy"))
         tm.gauge("router/live_requests").set(len(self._owner))
+        if self.disagg.enabled:
+            tm.gauge("router/disagg/prefill_replicas").set(
+                len(self._accepting("prefill")))
+            tm.gauge("router/disagg/decode_replicas").set(
+                len(self._accepting("decode")))
 
     def _mirror_trace(self, r: _Replica) -> None:
         """Mirror the replica's piggybacked request-trace flush into a
@@ -1106,6 +1353,134 @@ class Router:
         if flush:
             self._trace_mirror.setdefault(
                 r.rid, deque(maxlen=2048)).extend(flush)
+
+    # -- flight recorder ---------------------------------------------------
+
+    def _mirror_rings(self, r: _Replica) -> None:
+        """Ingest the replica's piggybacked closed ring cells into a
+        router-side mirror store — the SLO windows' and incident bundles'
+        only source for a replica whose process is gone."""
+        if self._rings is None:
+            return
+        take = getattr(r.engine, "take_ring_flush", None)
+        if take is None:
+            return
+        try:
+            flush = take()
+        # dstpu: allow[broad-except] -- same contract as _mirror_trace: ring mirroring is observability-only and must never fail a fleet step; the replica's verdict is earned from its step call, not its flush
+        except Exception:  # noqa: BLE001 — rings never fail a step
+            return
+        if not flush:
+            return
+        store = self._ring_mirror.get(r.rid)
+        if store is None:
+            store = self._ring_mirror[r.rid] = TimeSeriesStore(
+                raw_interval_s=self._rings.raw_interval_s,
+                tiers=self._rings.intervals[1:],
+                capacity=self._rings.capacity)
+        for item in flush:
+            if isinstance(item, dict) and "s" in item and "c" in item:
+                store.ingest(str(item["s"]), item["c"])
+
+    def _slo_stores(self) -> list:
+        """Every store the SLO windows sum over: the router's own rings
+        plus each replica mirror (dead replicas' last-flushed cells still
+        count toward attainment — their failures happened)."""
+        stores = [self._rings] if self._rings is not None else []
+        stores.extend(self._ring_mirror.values())
+        return stores
+
+    def _sample_rings(self, now: float) -> None:
+        """Router-side flight-recorder sample: fleet gauges as-is, registry
+        counters as deltas (failovers, verdicts, brownout activity) — one
+        call per raw interval from step()."""
+        if self._rings is None or not math.isfinite(now):
+            return
+        if now < self._next_sample_t:
+            return
+        iv = self._rings.raw_interval_s
+        self._next_sample_t = (math.floor(now / iv) + 1.0) * iv
+        reg = self.telemetry.registry
+        gauges = {
+            "router/queue_depth": float(sum(
+                r.engine.queue_len for r in self._replicas if r.stepped)),
+            "router/healthy_replicas": float(sum(
+                1 for r in self._replicas if r.state == "healthy")),
+            "router/live_requests": float(len(self._owner)),
+            "router/fleet_size": float(len(self._replicas)),
+        }
+        counters = {}
+        for name in ("router/failovers", "router/failed_requests",
+                     "router/hung_verdicts", "router/replicas_dead",
+                     "router/autoscale/brownouts",
+                     "router/autoscale/brownout_shed"):
+            c = reg.get(name)
+            if c is not None:
+                counters[name] = c.value
+        self._rings.sample(now, gauges=gauges, counters=counters)
+
+    def _incident(self, kind: str, **detail) -> None:
+        """Stage (or coalesce onto) an incident at the current fleet time —
+        the one call every trigger site uses; a no-op when the recorder is
+        off, so trigger sites carry no conditionals."""
+        if self._incidents is not None:
+            self._incidents.trigger(kind, self.now(), **detail)
+
+    def _incident_context(self, st: dict, t0: float, t1: float) -> dict:
+        """Router-side incident capture: ring windows (own + mirrors),
+        merged trace events for the window restricted to in-flight and
+        trigger uids, fleet/autoscale/upgrade state, SLO verdict, journal
+        cursor. Host-memory reads ONLY — a dead replica cannot answer an
+        RPC, and capture must never block the serve loop on one."""
+        ctx: dict = {}
+        rings: dict = {}
+        if self._rings is not None:
+            rings["router"] = self._rings.window_snapshot(t0, t1)
+        if self._ring_mirror:
+            rings["replicas"] = {
+                rid: store.window_snapshot(t0, t1)
+                for rid, store in self._ring_mirror.items()}
+        if rings:
+            ctx["rings"] = rings
+        uids = set(self._owner)
+        for ev in st.get("triggers", ()):
+            if "uid" in ev:
+                uids.add(int(ev["uid"]))
+        events: list = []
+        if self.tracer is not None:
+            events.extend(self.tracer.events())
+        for buf in self._trace_mirror.values():
+            events.extend(buf)
+        ctx["trace_events"] = sorted(
+            (dict(ev) for ev in events
+             if t0 <= float(ev.get("t", 0.0)) <= t1
+             and (not uids or int(ev.get("uid", -1)) in uids)),
+            key=lambda ev: (float(ev.get("t", 0.0)), int(ev.get("uid", 0))))
+        ctx["fleet"] = {"replicas": {
+            r.rid: {"state": r.state, "completed": r.completed,
+                    "dispatched": r.dispatched,
+                    "failed_over": r.failed_over,
+                    "hung_verdicts": r.hung_verdicts}
+            for r in self._replicas}}
+        ctx["stats"] = self.router_stats()
+        if self._autoscaler is not None:
+            ctx["autoscale"] = self._autoscaler.describe()
+        if self._upgrade is not None:
+            ctx["upgrade"] = self._upgrade.status()
+        if self._slo is not None and self._slo.last:
+            ctx["slo"] = dict(self._slo.last)
+        if self._journal is not None:
+            ctx["journal"] = {
+                "path": self._journal.path,
+                "live_requests": len(self._journal.state.requests),
+                "terminals": len(self._journal.state.terminals)}
+        return ctx
+
+    @property
+    def incidents(self) -> Optional[IncidentRecorder]:
+        """The router's incident recorder (None when off) — the gateway's
+        ``/debug/incidents`` listing reads ``incidents.index()``."""
+        return self._incidents
 
     # -- stepping --------------------------------------------------------
 
@@ -1162,6 +1537,7 @@ class Router:
                 self._fail(r, "dead", now, terminal)
                 continue
             self._mirror_trace(r)
+            self._mirror_rings(r)
             latency = time.perf_counter() - t0
             compiled = r.engine.last_step_compiled
             if self._inj is not None and self._inj.replica_hang(
@@ -1196,9 +1572,25 @@ class Router:
                 log_dist(f"router: replica {r.rid} drained and detached",
                          ranks=[0])
                 self._update_gauges()
+        if self.disagg.enabled:
+            # after the fleet stepped: prefills that finished THIS step are
+            # parked and ready, decode slots that freed THIS step can admit
+            self._pump_handoffs(now, terminal)
         tm.gauge("router/queue_depth").set(
             sum(r.engine.queue_len for r in self._replicas if r.stepped))
         self._update_gauges()
+        self._sample_rings(now)
+        if (self._slo is not None and math.isfinite(now)
+                and now >= self._next_slo_t):
+            self._next_slo_t = now + self._slo.cfg.eval_interval_s
+            verdict = self._slo.evaluate(now)
+            if verdict.get("breach_rising"):
+                self._incident("slo_fast_burn",
+                               dims=verdict.get("breach_dims", []),
+                               burn=verdict.get("burn", {}))
+        if (self._incidents is not None and self._incidents.pending
+                and math.isfinite(now)):
+            self._incidents.tick(now, self._incident_context)
         if self._upgrade is not None and self._upgrade.state == "running":
             self._upgrade.tick(now)
         elif self._autoscaler is not None:
@@ -1230,7 +1622,11 @@ class Router:
         r.state = "draining"
         self.telemetry.counter("router/drains").inc()
         self._update_gauges()
-        targets = self._accepting()
+        # under disaggregation queued work exists only on prefill replicas,
+        # and a migrated request must land in the SAME pool (a decode
+        # replica would never prefill it)
+        targets = (self._accepting(r.role) if self.disagg.enabled
+                   else self._accepting())
         if targets:
             for req in list(r.engine.live_requests()):
                 if self._owner.get(req.uid) != r.rid:
@@ -1294,6 +1690,10 @@ class Router:
         deadlines, like ``ServingEngine.drain``); returns all results."""
         while self._owner:
             self.step(now=float("inf"), enforce_deadlines=False)
+        if self._incidents is not None and self._incidents.pending:
+            # a trigger staged during the final steps would otherwise wait
+            # forever for window_after_s of fleet time that never comes
+            self._incidents.flush(self._incident_context)
         return dict(self._results)
 
     def serve(self, requests: list[Request]) -> dict[int, RequestResult]:
@@ -1327,19 +1727,20 @@ class Router:
 
     # -- fleet membership ------------------------------------------------
 
-    def _spawn_inprocess(self) -> ServingEngine:
+    def _spawn_inprocess(self, role: str | None = None) -> ServingEngine:
         """One more in-process replica from the constructor's engine and
         per-replica config: the autoscaler's and the rolling upgrade's
         default newcomer. It runs on the thread that steps the fleet, and
         on the card it captures its decode graph here, before it takes
         traffic (a capture must never overlap another thread's device
-        work)."""
+        work; a prefill-role newcomer captures none). ``role`` pins it to
+        a disaggregated pool (per-pool scale-up)."""
         if self._base_engine is None:
             raise ValueError(
                 "this fleet was built from prebuilt replica_engines; give "
                 "the autoscaler a spawn callable or a WorkerSupervisor")
         e = ServingEngine(self._base_engine, config=self._sub_config,
-                          replica_id=len(self._replicas))
+                          replica_id=len(self._replicas), role=role or "both")
         if e.worker.device.type == "cuda":
             e.warm_decode()
         return e
@@ -1359,7 +1760,8 @@ class Router:
             # a streaming front door is attached: joiners piggyback
             # tokens-so-far like the rest of the fleet
             engine.stream_progress = True
-        self._replicas.append(_Replica(rid, engine))
+        self._replicas.append(_Replica(
+            rid, engine, role=str(getattr(engine, "role", "both") or "both")))
         self.telemetry.gauge("router/replicas").set(len(self._replicas))
         self.telemetry.counter("router/replicas_attached").inc()
         self._update_gauges()
@@ -1477,6 +1879,13 @@ class Router:
             }
         if self._inj is not None:
             out["fault_injection"] = self._inj.stats()
+        if self.disagg.enabled:
+            out["disagg"] = {
+                "prefill_replicas": len(self._accepting("prefill")),
+                "decode_replicas": len(self._accepting("decode")),
+                "handoffs": self._handoffs_done,
+                "parked_backlog": self._handoff_backlog,
+            }
         spec = self._spec_aggregate()
         if spec is not None:
             out["speculation"] = spec
@@ -1544,6 +1953,17 @@ class Router:
                    if self._autoscaler is not None else {}),
                 **({"upgrade": self._upgrade.status()}
                    if self._upgrade is not None else {}),
+                **({"rings": {
+                        "router": self._rings.snapshot(),
+                        **({"replicas": {
+                                rid: s.snapshot() for rid, s
+                                in self._ring_mirror.items()}}
+                           if self._ring_mirror else {})}}
+                   if self._rings is not None else {}),
+                **({"slo": dict(self._slo.last)}
+                   if self._slo is not None and self._slo.last else {}),
+                **({"incidents": self._incidents.index()}
+                   if self._incidents is not None else {}),
             },
             "replicas": reps,
         }
@@ -1800,6 +2220,7 @@ class _RollingUpgrade:
         request is lost on the abort path either)."""
         self.reason = reason
         self.router.telemetry.counter("router/upgrade_aborts").inc()
+        self.router._incident("upgrade_abort", reason=reason)
         log_dist(f"router: rolling upgrade ABORTED — {reason} (old "
                  "generation keeps serving)", ranks=[0])
         w = self._wave

@@ -38,10 +38,17 @@ cached per uid); ``submit`` is never retried (a maybe-landed request would
 fork one uid across two replicas). Deadlines, backoff and heartbeats use
 ``time.monotonic()``.
 
-Not ported yet: the disaggregated roles' KV-window codec
-(``quantize_int8``, ``encode_kv_window``) and the ``kv_*``/``handoff_*``
-client methods. Stdlib + numpy at import; ``Request``/``RequestResult``
-are imported lazily by the codec.
+The disaggregated handoff's KV windows (``encode_kv_window``: raw, or
+``int8`` with one absmax scale per tensor) ride the same codec. A bf16
+window is a ``torch.bfloat16`` tensor on the host and travels as its raw
+2-byte payload labelled ``"dtype": "bfloat16"``, byte for byte the JAX
+package's frame of an ``ml_dtypes`` array, and decodes back to a
+``torch.bfloat16`` tensor: no path needs ``ml_dtypes``. The int8
+arithmetic is the JAX package's: the scale ``max|a| / 127`` in double,
+the division in float32, round half to even.
+
+Stdlib + numpy at import; ``torch`` is imported lazily for bf16 windows,
+``Request``/``RequestResult`` lazily by the codec.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import base64
 import json
 import socket
 import struct
+import sys
 import time
 import zlib
 from collections import Counter, deque
@@ -92,11 +100,47 @@ def format_address(family: str, target) -> str:
 
 # -- value codec ------------------------------------------------------------
 
+def _is_tensor(x) -> bool:
+    # without importing torch: no tensor exists before torch is imported
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(x, torch.Tensor)
+
+
+def _dtype_name(x) -> str:
+    """numpy's name of an array's dtype; a torch tensor's spelled the same
+    way (``torch.bfloat16`` -> ``"bfloat16"``, as ``ml_dtypes`` names it)."""
+    if _is_tensor(x):
+        return str(x.dtype).rsplit(".", 1)[-1]
+    return str(np.asarray(x).dtype)
+
+
+def _tensor_bytes(t) -> bytes:
+    """A host tensor's raw payload; a bf16 one through its int16 view
+    (numpy has no bf16 without ``ml_dtypes``)."""
+    import torch
+
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy().tobytes()
+
+
+def _from_bf16_bytes(raw: bytes, shape):
+    import torch
+
+    if not raw:
+        return torch.empty(tuple(shape), dtype=torch.bfloat16)
+    return torch.frombuffer(bytearray(raw), dtype=torch.bfloat16).reshape(tuple(shape))
+
+
 def _enc_value(x):
     if isinstance(x, np.ndarray):
         a = np.ascontiguousarray(x)
         return {"__nd__": base64.b64encode(a.tobytes()).decode("ascii"),
                 "dtype": str(a.dtype), "shape": list(a.shape)}
+    if _is_tensor(x):
+        return {"__nd__": base64.b64encode(_tensor_bytes(x)).decode("ascii"),
+                "dtype": _dtype_name(x), "shape": list(x.shape)}
     if isinstance(x, (np.integer,)):
         return int(x)
     if isinstance(x, (np.floating,)):
@@ -112,6 +156,8 @@ def _dec_value(x):
     if isinstance(x, dict):
         if "__nd__" in x:
             raw = base64.b64decode(x["__nd__"])
+            if x["dtype"] == "bfloat16":
+                return _from_bf16_bytes(raw, x["shape"])
             return np.frombuffer(raw, dtype=np.dtype(x["dtype"])).reshape(
                 x["shape"]).copy()
         return {k: _dec_value(v) for k, v in x.items()}
@@ -170,6 +216,88 @@ def decode_result(d: dict):
     d["tokens"] = _dec_value(d["tokens"])
     return RequestResult(**d)
 
+
+# -- KV wire codec (disaggregated handoff) ----------------------------------
+#
+# The handoff streams slot-KV windows (``ServingEngine.kv_export_window``:
+# host ``[L, 1, width, H, Dh]`` k and v) from a prefill replica into a
+# decode replica. ``kv_compression="int8"`` (serving.router.disagg) applies
+# the JAX package's absmax discipline: one scale per tensor, symmetric
+# round to nearest even, a quarter of fp32's bytes and half of bf16's.
+# Greedy parity holds only with compression off.
+
+def _as_f32(a) -> np.ndarray:
+    """A window as float32 numpy (exact for bf16 and fp16)."""
+    if _is_tensor(a):
+        return a.detach().to("cpu").float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def quantize_int8(a) -> tuple[np.ndarray, float]:
+    """fp array or host tensor -> (int8 array, scale) with symmetric absmax
+    scaling: the scale ``max|a| / 127`` in double, ``a / scale`` in float32
+    (what numpy computes for an ``ml_dtypes`` bf16 array divided by a
+    Python float), then round half to even."""
+    a = _as_f32(a)
+    scale = float(np.max(np.abs(a))) / 127.0 if a.size else 0.0
+    if scale == 0.0:
+        return np.zeros(a.shape, np.int8), 0.0
+    return np.clip(np.rint(a / scale), -127, 127).astype(np.int8), scale
+
+
+def dequantize_int8(q: np.ndarray, scale: float, dtype="float32"):
+    """int8 array -> ``q * scale`` in float32, then rounded to ``dtype``
+    (a name or numpy dtype); ``"bfloat16"`` gives a ``torch.bfloat16``
+    tensor."""
+    out = np.asarray(q, np.float32) * float(scale)
+    if str(dtype) == "bfloat16":
+        import torch
+
+        return torch.from_numpy(out).to(torch.bfloat16)
+    return out.astype(np.dtype(dtype))
+
+
+def encode_kv_window(k, v, compression: str = "none") -> dict:
+    if compression == "int8":
+        qk, sk = quantize_int8(k)
+        qv, sv = quantize_int8(v)
+        return {"codec": "int8", "dtype": _dtype_name(k),
+                "k": _enc_value(qk), "v": _enc_value(qv),
+                "k_scale": sk, "v_scale": sv}
+    return {"codec": "raw", "k": _enc_value(k if _is_tensor(k) else np.asarray(k)),
+            "v": _enc_value(v if _is_tensor(v) else np.asarray(v))}
+
+
+def decode_kv_window(d: dict):
+    """An encoded window (or one that crossed the wire) -> host ``(k, v)``:
+    numpy arrays, or ``torch.bfloat16`` tensors for a bf16 window."""
+    if d.get("codec") == "int8":
+        dt = d.get("dtype", "float32")
+        return (dequantize_int8(_dec_value(d["k"]), d["k_scale"], dt),
+                dequantize_int8(_dec_value(d["v"]), d["v_scale"], dt))
+    return _dec_value(d["k"]), _dec_value(d["v"])
+
+
+def _itemsize(name: str) -> int:
+    return 2 if name == "bfloat16" else np.dtype(name).itemsize
+
+
+def kv_window_nbytes(d: dict) -> tuple[int, int]:
+    """(wire_bytes, raw_bytes) of an encoded KV window: wire is the array
+    payload, raw is the uncompressed fp equivalent; their difference feeds
+    the bytes-saved counter. A freshly encoded window carries ``{"__nd__":
+    b64}`` markers, one that crossed the wire decoded arrays (or bf16
+    tensors)."""
+    def _nbytes(x):
+        if isinstance(x, np.ndarray):
+            return x.nbytes
+        if _is_tensor(x):
+            return x.numel() * x.element_size()
+        return (len(x["__nd__"]) * 3) // 4
+    wire = sum(_nbytes(d[key]) for key in ("k", "v"))
+    if d.get("codec") == "int8":
+        return wire, wire * _itemsize(d.get("dtype", "float32"))
+    return wire, wire
 
 # -- frame layer ------------------------------------------------------------
 
@@ -585,6 +713,7 @@ class ReplicaClient:
         self._compiled = False
         self._results: dict[int, object] = {}  # uid -> decoded RequestResult
         self._trace_flush: deque = deque(maxlen=4096)
+        self._ring_flush: deque = deque(maxlen=4096)
         self._ack: list[int] = []  # terminal uids to acknowledge next step
         # per-uid tokens-so-far, replaced whole by every step reply: the
         # gateway's SSE streams read this cache (partial_tokens), so
@@ -598,6 +727,10 @@ class ReplicaClient:
         # Kept across a replica death so the fleet aggregate still counts
         # the dead worker's accepted tokens.
         self._spec: Optional[dict] = None
+        # prefill-role workers piggyback their parked prefill-complete
+        # requests ("handoff" on the step reply), so the Router's handoff
+        # pump needs no polling round trip
+        self._handoff_ready: list[dict] = []
 
     # -- connection / identity ------------------------------------------
 
@@ -697,9 +830,12 @@ class ReplicaClient:
         for k, enc in (reply.get("results") or {}).items():
             self._results[int(k)] = decode_result(enc)
         self._trace_flush.extend(reply.get("trace") or [])
+        self._ring_flush.extend(reply.get("rings") or [])
         self._progress = {int(k): [int(t) for t in v]
                           for k, v in (reply.get("progress") or {}).items()}
         self._spec = reply.get("spec") or self._spec
+        if "handoff" in reply:
+            self._handoff_ready = list(reply.get("handoff") or [])
         uids = [int(u) for u in reply.get("uids") or []]
         self._ack = list(uids)
         return uids
@@ -787,6 +923,16 @@ class ReplicaClient:
             out.append(self._trace_flush.popleft())
         return out
 
+    def take_ring_flush(self, limit: int = 256) -> list[dict]:
+        """Drain the piggybacked flight-recorder ring cells the step
+        replies delivered (no extra round trip): the Router ingests them
+        into its per-replica mirror stores, so a SIGKILL'd worker's recent
+        history survives for SLO windows and incident bundles."""
+        out = []
+        while self._ring_flush and len(out) < limit:
+            out.append(self._ring_flush.popleft())
+        return out
+
     def partial_tokens(self, uid: int):
         """Tokens so far for ``uid`` from the step-piggybacked progress
         cache (and terminal results), NEVER the wire: a gateway polls this
@@ -800,6 +946,68 @@ class ReplicaClient:
         if toks is None:
             return None
         return np.asarray(toks, np.int32)
+
+    # -- disaggregated handoff surface -----------------------------------
+
+    def handoff_ready(self) -> list[dict]:
+        """Parked prefill-complete requests on this (prefill-role) worker,
+        from the step-piggybacked cache — NEVER the wire: the Router's
+        handoff pump polls this every step."""
+        return list(self._handoff_ready)
+
+    def kv_export_window(self, uid: int, start: int, width: int,
+                         compression: str = "none") -> dict:
+        """One chunk-granular slot-KV window, ENCODED (encode_kv_window):
+        the Router relays the dict straight into ``kv_import_window`` on a
+        decode worker with no host decode/re-encode in between. Replay-
+        safe: a pure read on the worker."""
+        return self.rpc.call(
+            "kv_export_window", uid=int(uid), start=int(start),
+            width=int(width), compression=str(compression), retry_safe=True)
+
+    def kv_import_window(self, uid: int, start: int, width: int,
+                         window: dict) -> None:
+        # replay-safe: re-importing the same window is an idempotent
+        # overwrite of the same cache region
+        reply = self.rpc.call(
+            "kv_import_window", uid=int(uid), start=int(start),
+            width=int(width), window=window, retry_safe=True)
+        self._refresh(reply)
+
+    def kv_import_begin(self, request, pos: int, first: int, *,
+                        prefix_hit_tokens: int = 0, t_admit: float = 0.0,
+                        t_first: float = 0.0) -> int:
+        # replay-safe: the worker treats a re-delivered staged uid as
+        # success (keyed staging, unlike submit's queue append). Raises
+        # RequestRejected(reason="no_slot") natively when the decode pool
+        # is full — the Router leaves the handoff parked.
+        reply = self.rpc.call(
+            "kv_import_begin", request=encode_request(request),
+            pos=int(pos), first=int(first),
+            prefix_hit_tokens=int(prefix_hit_tokens),
+            t_admit=float(t_admit), t_first=float(t_first), retry_safe=True)
+        self._refresh(reply)
+        return int(reply["slot"])
+
+    def kv_import_commit(self, uid: int) -> bool:
+        reply = self.rpc.call("kv_import_commit", uid=int(uid),
+                              retry_safe=True)
+        self._refresh(reply)
+        return bool(reply["committed"])
+
+    def kv_import_abort(self, uid: int) -> bool:
+        reply = self.rpc.call("kv_import_abort", uid=int(uid),
+                              retry_safe=True)
+        self._refresh(reply)
+        return bool(reply["aborted"])
+
+    def handoff_release(self, uid: int) -> bool:
+        reply = self.rpc.call("handoff_release", uid=int(uid),
+                              retry_safe=True)
+        self._refresh(reply)
+        self._handoff_ready = [h for h in self._handoff_ready
+                               if int(h.get("uid", -1)) != int(uid)]
+        return bool(reply["released"])
 
     # -- observability ---------------------------------------------------
 
@@ -829,6 +1037,8 @@ __all__ = [
     "RpcError", "RpcTimeout", "RpcConnectionLost", "RpcGarbledFrame",
     "RpcRemoteError",
     "encode_request", "decode_request", "encode_result", "decode_result",
+    "encode_kv_window", "decode_kv_window", "kv_window_nbytes",
+    "quantize_int8", "dequantize_int8",
     "parse_address", "format_address",
     "recv_frame", "send_frame",
 ]

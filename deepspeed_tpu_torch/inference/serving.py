@@ -1,7 +1,8 @@
 """Continuous-batching serving engine (the port of
-``deepspeed_tpu/inference/serving.py``, its co-located ``role="both"``
-path): a slot KV cache, ONE decode program, bucketed prefill, prefix-cache
-KV reuse, chunked prefill and speculative decoding.
+``deepspeed_tpu/inference/serving.py``): a slot KV cache, ONE decode
+program, bucketed prefill, prefix-cache KV reuse, chunked prefill,
+speculative decoding, the disaggregated roles' KV handoff and the flight
+recorder.
 
 The engine is two machines, as in the JAX package:
 
@@ -51,15 +52,31 @@ scheduler surface below it: ``load``, ``idle``, ``queue_len``,
 verdict when it compiled a program, captured the decode graph or loaded
 a kernel library.
 
-Not ported yet: the disaggregated roles (``role="prefill"|"decode"``, the
-KV handoff); the program ledger, the flight-recorder rings
-(``timeseries``), SLO classification and incidents. Any of those enabled
-raises ``NotImplementedError`` naming it.
+Disaggregated roles (``role="prefill"|"decode"``, as in the JAX engine):
+a prefill replica admits and prefills, then PARKS each finished prefill
+(``_Handoff``) with its KV and first token resident and never decodes (it
+builds no decode program and captures no graph); the Router streams the
+slot's KV out window by window (``kv_export_window``: one eager read per
+power-of-two width, to the host) into a decode replica's staged slot
+(``kv_import_begin`` / ``kv_import_window`` / ``kv_import_commit``). The
+import writes IN PLACE into the tensors the decode graph captured
+(``copy_`` into the slot's window, like the prefix fetch), so the next
+replay decodes from the imported KV.
+
+The flight recorder (``timeseries``, ``slo``, ``incidents``): bounded
+rings sampled from ``step()``, flushed over a worker's step reply
+(``take_ring_flush``); every terminal classified against the SLO
+thresholds (``classify_terminal``); incident bundles per replica under
+``<dir>/replica<rid>/`` on a NaN quarantine or a watchdog refusal. Not
+ported: the program ledger (``ledger`` enabled raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
 
 import gc
+import math
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -73,9 +90,12 @@ from ..ops import op_builder
 from ..ops.decode_attention import decode_attention
 from ..resilience import FaultInjector, RequestRejected
 from ..runtime.config import (ChunkedPrefillConfig, FaultInjectionConfig,
-                              PrefixCacheConfig, RequestTraceConfig,
-                              SpeculationConfig, TenantConfig)
-from ..telemetry import RequestTracer, Telemetry, hbm_snapshot, tree_bytes
+                              IncidentConfig, PrefixCacheConfig,
+                              RequestTraceConfig, SLOConfig, SpeculationConfig,
+                              TenantConfig, TimeSeriesConfig)
+from ..telemetry import (IncidentRecorder, RequestTracer, Telemetry,
+                         TimeSeriesStore, classify_terminal, hbm_snapshot,
+                         tree_bytes)
 from ..utils.logging import log_dist
 from .engine import InferenceEngine
 from .prefix_cache import PrefixIndex
@@ -98,7 +118,7 @@ _SPEC_PROBE_WAIT_MAX_LOG2 = 6
 
 # config blocks of the JAX engine the port has not got; each names the
 # default of its ``enabled`` flag there
-_UNPORTED_BLOCKS = {"ledger": True, "timeseries": False, "slo": False, "incidents": False}
+_UNPORTED_BLOCKS = {"ledger": True}
 
 # rows of the decode step's packed int32 input [7, n_slots]; temperature
 # and top-p travel as their float32 bits
@@ -202,6 +222,24 @@ class _Prefill:
     t_admit: float = 0.0  # epoch-relative admission time
 
 
+@dataclass
+class _Handoff:
+    """A prefill-role slot PARKED after admission: the prompt KV and first
+    token are resident, but a prefill worker never decodes — the slot waits
+    for the Router to stream its KV window into a decode replica
+    (``kv_export_window``) and release it (``handoff_release``). Occupied
+    (not in ``_free``), never ``_active``."""
+
+    req: Request
+    slot: int
+    first: int  # the sampled first token (travels with the handoff)
+    pos: int  # prompt length: KV resident in [0, pos)
+    prefix_hit_tokens: int
+    t_admit: float
+    t_first: float
+    entry: object = None  # acquired PrefixEntry, released on handoff_release
+
+
 # one warm-up stream per device for every decode graph's capture: cuBLAS
 # keeps a workspace for each stream it ran on until the process exits, so a
 # stream made per capture would hold one more workspace (32 MiB on Hopper)
@@ -257,6 +295,10 @@ class SlotWorker:
         self._fetch = None
         self._store = None
         self._fill = None
+        # the disaggregated handoff's KV wire programs: width -> watched
+        # window read / write (one per power-of-two width, as the chunks)
+        self._kv_exports: dict[int, object] = {}
+        self._kv_imports: dict[int, object] = {}
         self._decode_steps = 0
         # decode-kernel launches recorded into the graph per replay (split,
         # combine): the wrappers' counters advance only while capturing
@@ -559,6 +601,53 @@ class SlotWorker:
         self.step_compiled |= bool(self._store.last_call_compiled)
 
     @torch.no_grad()
+    def _kv_export_program(self, width, slot, start):
+        # a pure read: the prefill slot keeps its KV for retries until the
+        # Router releases it; one copy of both windows to the host
+        kv = torch.stack([self._cache[kv][:, slot:slot + 1, start:start + width] for kv in ("k", "v")])
+        kv = kv.cpu()
+        return kv[0], kv[1]
+
+    def kv_export(self, width: int, slot: int, start: int):
+        """Fetch one ``[start, start + width)`` KV window of ``slot`` to the
+        host: the disaggregated handoff's wire unit, one watched program per
+        power-of-two width. Returns host ``(k, v)`` tensors
+        ``[L, 1, width, H, Dh]`` in the cache's dtype."""
+        if width not in self._kv_exports:
+            wd = self.telemetry.watchdog
+            self._kv_exports[width] = wd.watch(
+                self._kv_export_program, wd.unique_name(f"serving/kv_export[{width}]"), stable=True)
+        prog = self._kv_exports[width]
+        out = prog(width, slot, start)
+        self.step_compiled |= bool(prog.last_call_compiled)
+        self.telemetry.counter(f"serving/kv_export_bucket[{width}]").inc()
+        return out
+
+    @torch.no_grad()
+    def _kv_import_program(self, width, k, v, slot, start):
+        # IN PLACE into the tensors the decode graph captured; the cache is
+        # never rebound
+        for name, w in (("k", k), ("v", v)):
+            self._cache[name][:, slot:slot + 1, start:start + width].copy_(w, non_blocking=False)
+
+    def kv_import(self, width: int, k, v, slot: int, start: int) -> None:
+        """Write one host KV window into ``[start, start + width)`` of
+        ``slot``: the import half of the handoff wire. Idempotent (a
+        replayed window writes the same bytes); the window is cast to the
+        cache's dtype, so one program per width."""
+        if width not in self._kv_imports:
+            wd = self.telemetry.watchdog
+            self._kv_imports[width] = wd.watch(
+                self._kv_import_program, wd.unique_name(f"serving/kv_import[{width}]"), stable=True)
+        prog = self._kv_imports[width]
+        dtype = self._cache["k"].dtype
+        k = torch.as_tensor(k).to(dtype)
+        v = torch.as_tensor(v).to(dtype)
+        prog(width, k, v, slot, start)
+        self.step_compiled |= bool(prog.last_call_compiled)
+        self.telemetry.counter(f"serving/kv_import_bucket[{width}]").inc()
+
+    @torch.no_grad()
     def _fill_program(self, slot, value):
         for kv in ("k", "v"):
             self._cache[kv][:, slot].fill_(value)
@@ -619,6 +708,10 @@ class SlotWorker:
             out["prefix_fetch"] = int(self._fetch._cache_size())
         if self._store is not None:
             out["prefix_store"] = int(self._store._cache_size())
+        if self._kv_exports:
+            out["kv_export"] = {w: int(f._cache_size()) for w, f in sorted(self._kv_exports.items())}
+        if self._kv_imports:
+            out["kv_import"] = {w: int(f._cache_size()) for w, f in sorted(self._kv_imports.items())}
         if self._fill is not None:
             out["fill_slot"] = int(self._fill._cache_size())
         return out
@@ -657,10 +750,10 @@ class ServingEngine:
       slot_quarantine_after     consecutive NaN faults before a slot is
                           pulled from rotation
       fault_injection     {enabled, seed, rate, garbage_logits_*}
+      role                both (co-located) | prefill | decode
+      timeseries / slo / incidents   the flight recorder's blocks
     ``router`` and ``gateway`` sub-blocks belong to the fleet and are
-    ignored here. ``role`` other than ``both``, and ``ledger``,
-    ``timeseries``, ``slo`` or ``incidents`` enabled, raise
-    ``NotImplementedError``.
+    ignored here. ``ledger`` enabled raises ``NotImplementedError``.
     """
 
     def __init__(self, engine: InferenceEngine, config: dict | None = None,
@@ -679,10 +772,6 @@ class ServingEngine:
         self.role = role if role is not None else config.pop("role", "both")
         if self.role not in ("both", "prefill", "decode"):
             raise ValueError(f"serving role must be both|prefill|decode, got {self.role!r}")
-        if self.role != "both":
-            raise NotImplementedError(
-                f"serving role {self.role!r} (disaggregated prefill/decode with KV handoff) is not "
-                "ported to deepspeed_tpu_torch yet; it comes with the fleet")
         for name, default in _UNPORTED_BLOCKS.items():
             blk = config.get(name)
             on = getattr(blk, "enabled", None) if not isinstance(blk, dict) else blk.get("enabled", default)
@@ -698,6 +787,12 @@ class ServingEngine:
                               else config.get("min_prefill_bucket", 16))
         seed = seed if seed is not None else config.get("seed", 0)
         rt = _block(config.get("request_trace", {}), RequestTraceConfig)
+        ts = _block(config.get("timeseries", {}), TimeSeriesConfig)
+        slo = _block(config.get("slo", {}), SLOConfig)
+        inc = _block(config.get("incidents", {}), IncidentConfig)
+        self.timeseries_cfg: TimeSeriesConfig = ts
+        self.slo_cfg: SLOConfig = slo
+        self.incidents_cfg: IncidentConfig = inc
         self.telemetry = telemetry if telemetry is not None else Telemetry(
             jsonl_path=config.get("jsonl_path", ""),
             watchdog_mode=config.get("watchdog_mode", "warn"),
@@ -778,6 +873,11 @@ class ServingEngine:
 
         self._queue: deque[Request] = deque()
         self._prefilling: dict[int, _Prefill] = {}  # slot -> admission state
+        # disaggregated-serving state (empty for role "both"): the prefill
+        # role parks finished admissions here until the Router streams
+        # their KV out; the decode role stages imports here until commit
+        self._handoffs: dict[int, _Handoff] = {}  # uid -> parked handoff
+        self._imports: dict[int, dict] = {}  # uid -> staged KV import
         self._rr = 0  # round-robin cursor over prefilling slots
         self._results: dict[int, RequestResult] = {}
         self._requeues: dict[int, int] = {}  # uid -> quarantine replays
@@ -796,6 +896,24 @@ class ServingEngine:
             RequestTracer(rt.capacity, replica_id=self.replica_id,
                           clock=lambda: time.perf_counter() - self._epoch)
             if rt.enabled else None)
+        # flight-recorder rings: sampled from the step loop on the engine
+        # clock, flushed over a worker's step reply. SLO classification and
+        # incident capture both read the rings, so either enables them
+        self._rings: Optional[TimeSeriesStore] = (
+            TimeSeriesStore(raw_interval_s=ts.interval_s, tiers=tuple(ts.tiers), capacity=ts.capacity,
+                            flush_capacity=ts.flush_capacity)
+            if (ts.enabled or slo.enabled or inc.enabled) else None)
+        self._next_sample_t = 0.0
+        self._ring_cursor = 0  # take_ring_flush's position in the journal
+        # incident bundles per replica under <dir>/replica<rid>/, so a
+        # fleet's recorders never collide
+        self._incidents: Optional[IncidentRecorder] = None
+        if inc.enabled:
+            self._incidents = IncidentRecorder(
+                os.path.join(inc.dir, f"replica{self.replica_id}"), source=f"replica{self.replica_id}",
+                max_bundles=inc.max_bundles, window_before_s=inc.window_before_s,
+                window_after_s=inc.window_after_s, registry=self.telemetry.registry)
+            self.telemetry.watchdog.on_refusal = self._on_watchdog_refusal
         feat = []
         if pc.enabled:
             feat.append(f"prefix_cache[{pc.n_slots}x{self.worker.pmax}, "
@@ -804,6 +922,8 @@ class ServingEngine:
             feat.append(f"chunked_prefill[{cp.chunk_size}]")
         if sp.enabled:
             feat.append(f"speculation[depth {sp.depth}, {sp.draft_source}]")
+        if self.role != "both":
+            feat.append(f"role {self.role}")
         log_dist(
             f"serving engine: {n} slots x {self.Smax} tokens, cache "
             f"{tree_bytes(self.worker._cache) / 1e6:.1f} MB on {self.worker.device}"
@@ -868,7 +988,8 @@ class ServingEngine:
                 f"(got {request.max_new_tokens})")
         live = ({r.uid for r in self._queue} | set(self._results)
                 | {s.uid for s in self._slots if s.uid >= 0}
-                | {p.req.uid for p in self._prefilling.values()})
+                | {p.req.uid for p in self._prefilling.values()}
+                | set(self._handoffs) | set(self._imports))
         if request.uid in live:
             raise ValueError(f"request uid {request.uid} is already in flight "
                              "or finished; uids must be unique per engine")
@@ -929,6 +1050,159 @@ class ServingEngine:
                 return r
         return None
 
+    # -- disaggregated prefill/decode surface ----------------------------
+    #
+    # Prefill role: _activate parks finished admissions in self._handoffs;
+    # the Router discovers them (handoff_ready), streams their KV windows
+    # out (kv_export_window) and frees the slot once the decode side has
+    # committed (handoff_release). Decode role: the Router stages a slot
+    # (kv_import_begin), streams windows in (kv_import_window), then flips
+    # it to decoding (kv_import_commit) or unwinds (kv_import_abort).
+    # Every mutation is replay-tolerant — a retried RPC must not corrupt
+    # the handoff state machine.
+
+    def _check_kv_window(self, start: int, width: int) -> None:
+        if width < 1 or (width & (width - 1)) != 0 or width > 128:
+            raise ValueError(
+                f"kv window width must be a power of two <= 128, got {width}")
+        if start < 0 or start % width != 0 or start + width > self.Smax:
+            raise ValueError(
+                f"kv window [{start}, {start + width}) must be width-aligned "
+                f"inside the {self.Smax}-token slot cache")
+
+    def handoff_ready(self) -> list[dict]:
+        """Parked prefill-role handoffs awaiting KV transfer — the block a
+        worker process piggybacks on its step reply so the Router's handoff
+        pump discovers finished prefills with zero extra round trips."""
+        return [{"uid": int(uid), "pos": int(h.pos), "first": int(h.first),
+                 "prefix_hit_tokens": int(h.prefix_hit_tokens),
+                 "t_admit": float(h.t_admit), "t_first": float(h.t_first)}
+                for uid, h in self._handoffs.items()]
+
+    def kv_export_window(self, uid: int, start: int, width: int):
+        """One host KV window of a parked handoff's slot — a pure read
+        (replay-safe: a retried export returns the same bytes)."""
+        h = self._handoffs.get(int(uid))
+        if h is None:
+            raise ValueError(f"uid {uid} is not parked for handoff")
+        self._check_kv_window(start, width)
+        return self.worker.kv_export(width, h.slot, start)
+
+    def handoff_release(self, uid: int) -> bool:
+        """Free a parked handoff's slot after the decode side committed —
+        the request is MOVING, not terminal, so no result is synthesized
+        (the decode replica owns it from here). Replay-tolerant: releasing
+        an unknown uid is False, not an error."""
+        h = self._handoffs.pop(int(uid), None)
+        if h is None:
+            return False
+        if h.entry is not None:
+            self._pfx.release(h.entry)
+        # the slot's KV is finite (the prefill sentinel was checked before
+        # parking) — stale-but-finite KV is causally masked for the next
+        # occupant, the same contract every normal release relies on
+        self._free.append(h.slot)
+        self._exempt_uids.discard(int(uid))
+        self.telemetry.counter("serving/handoffs_released").inc()
+        if self.tracer is not None:
+            self.tracer.record(int(uid), "handoff_released", slot=h.slot)
+        return True
+
+    def kv_import_begin(self, request: Request, pos: int, first: int,
+                        prefix_hit_tokens: int = 0, t_admit: float = 0.0,
+                        t_first: float = 0.0) -> int:
+        """Stage a decode-role slot for an incoming KV handoff; returns the
+        slot. Raises a typed ``RequestRejected(reason="no_slot")`` when no
+        slot is free (the Router leaves the handoff parked and retries —
+        that backlog is the decode pool's scale-up signal). Replay-
+        tolerant: a uid already staged returns its existing slot."""
+        uid = int(request.uid)
+        if uid in self._imports:
+            return int(self._imports[uid]["slot"])
+        if not self._free:
+            raise RequestRejected(uid, "no_slot",
+                                  "no free decode slot for KV import")
+        if int(pos) + int(request.max_new_tokens) - 1 > self.budget:
+            raise ValueError(
+                f"kv import for uid {uid}: pos ({pos}) + remaining tokens "
+                f"exceed the slot budget {self.budget}")
+        slot = self._free.popleft()
+        self._imports[uid] = {
+            "slot": slot, "req": request, "pos": int(pos),
+            "first": int(first), "prefix_hit_tokens": int(prefix_hit_tokens),
+            "t_admit": float(t_admit), "t_first": float(t_first),
+        }
+        if self.tracer is not None:
+            self.tracer.record(uid, "kv_import_begin", slot=slot,
+                               pos=int(pos))
+        return slot
+
+    def kv_import_window(self, uid: int, start: int, width: int, k, v) -> None:
+        """Splat one streamed KV window into the staged slot. Idempotent —
+        a replayed window rewrites the same bytes."""
+        imp = self._imports.get(int(uid))
+        if imp is None:
+            raise ValueError(f"uid {uid} has no staged KV import")
+        self._check_kv_window(start, width)
+        self.worker.kv_import(width, k, v, imp["slot"], start)
+
+    def kv_import_commit(self, uid: int) -> bool:
+        """Flip a fully-streamed import to DECODING — the decode-role twin
+        of ``_activate``. Replay-tolerant: committing a uid that already
+        committed (active or terminal here) returns True; an unknown uid
+        returns False (the Router treats it as a lost handoff)."""
+        uid = int(uid)
+        imp = self._imports.pop(uid, None)
+        if imp is None:
+            return bool(uid in self._results
+                        or any(self._active[s] and self._slots[s].uid == uid
+                               for s in range(self.n_slots)))
+        slot, req = imp["slot"], imp["req"]
+        st = self._slots[slot]
+        st.uid = uid
+        st.remaining = req.max_new_tokens - 1
+        st.eos = req.eos_token if req.eos_token is not None else -1
+        st.tokens = [imp["first"]]
+        st.request = req
+        st.result = RequestResult(
+            uid=uid, tokens=np.zeros((0,), np.int32),
+            prompt_len=imp["pos"], arrival_time=req.arrival_time,
+            admitted_time=imp["t_admit"], first_token_time=imp["t_first"],
+            slot=slot, prefix_hit_tokens=imp["prefix_hit_tokens"],
+        )
+        self._active[slot] = True
+        self._pos[slot] = imp["pos"]
+        self._last_tok[slot] = imp["first"]
+        self._spec_len[slot] = 2
+        self._spec_zero_streak[slot] = 0
+        self._spec_probe_wait[slot] = 0
+        self._temp[slot] = req.temperature
+        self._top_k[slot] = req.top_k
+        self._top_p[slot] = req.top_p
+        if req.deadline_s > 0 or self.default_deadline_s > 0:
+            self._deadlines_armed = True
+        self.telemetry.counter("serving/kv_imports_committed").inc()
+        if self.tracer is not None:
+            self.tracer.record(uid, "kv_import_commit", slot=slot)
+        if imp["first"] == st.eos or st.remaining <= 0:
+            self._finish(slot)
+        return True
+
+    def kv_import_abort(self, uid: int) -> bool:
+        """Unwind a staged import (decode replica lost mid-stream, prefill
+        side failed over): free the slot, forget the staging. The partial
+        KV is finite garbage the next occupant's prefill masks/overwrites —
+        same contract as every slot release. Replay-tolerant."""
+        imp = self._imports.pop(int(uid), None)
+        if imp is None:
+            return False
+        self._free.append(imp["slot"])
+        self.telemetry.counter("serving/kv_imports_aborted").inc()
+        if self.tracer is not None:
+            self.tracer.record(int(uid), "kv_import_abort",
+                               slot=imp["slot"])
+        return True
+
     def result(self, uid: int) -> Optional[RequestResult]:
         """The terminal result for ``uid``, or None while in flight."""
         return self._results.get(uid)
@@ -945,8 +1219,12 @@ class ServingEngine:
             st = self._slots[slot]
             if self._active[slot] and st.uid == uid:
                 return np.asarray(st.tokens, np.int32)
+        h = self._handoffs.get(uid)
+        if h is not None:
+            return np.asarray([h.first], np.int32)
         if (any(r.uid == uid for r in self._queue)
-                or any(pf.req.uid == uid for pf in self._prefilling.values())):
+                or any(pf.req.uid == uid for pf in self._prefilling.values())
+                or uid in self._imports):
             return np.zeros((0,), np.int32)
         return None
 
@@ -973,6 +1251,9 @@ class ServingEngine:
         replica is declared dead or hung."""
         out = list(self._queue)
         out.extend(pf.req for _, pf in sorted(self._prefilling.items()))
+        # parked handoffs are accepted and non-terminal: a dead prefill
+        # replica's failover replays them from scratch
+        out.extend(h.req for _, h in sorted(self._handoffs.items()))
         out.extend(st.request for slot, st in enumerate(self._slots)
                    if self._active[slot] and st.request is not None)
         return out
@@ -990,12 +1271,15 @@ class ServingEngine:
 
     @property
     def load(self) -> int:
-        """Queued + mid-prefill + decoding requests (least-loaded dispatch)."""
-        return len(self._queue) + len(self._prefilling) + self.n_active
+        """Queued + mid-prefill + decoding requests (least-loaded dispatch),
+        plus parked handoffs and staged imports: both hold slots."""
+        return (len(self._queue) + len(self._prefilling) + self.n_active
+                + len(self._handoffs) + len(self._imports))
 
     @property
     def idle(self) -> bool:
-        return not self._queue and not self._prefilling and not self._active.any()
+        return (not self._queue and not self._prefilling and not self._active.any()
+                and not self._handoffs and not self._imports)
 
     @property
     def queue_len(self) -> int:
@@ -1004,8 +1288,12 @@ class ServingEngine:
 
     @property
     def occupancy(self) -> float:
-        """Fraction of slots held by decoding requests."""
-        return self.n_active / self.n_slots if self.n_slots else 0.0
+        """Fraction of slots held by decoding requests and staged KV
+        imports: the decode pool's saturation signal for per-pool
+        autoscaling (a staged import holds a slot)."""
+        if not self.n_slots:
+            return 0.0
+        return (self.n_active + len(self._imports)) / self.n_slots
 
     def pending_arrival_times(self) -> list[float]:
         """Arrival times of every queued request (a Router's idle wait)."""
@@ -1028,10 +1316,94 @@ class ServingEngine:
         return events
 
     def take_ring_flush(self, limit: int = 256) -> list[dict]:
-        """The flight-recorder rings' closed cells; the rings
-        (``timeseries``) are not ported, so there are none, as in the JAX
-        engine with its rings off."""
-        return []
+        """Closed flight-recorder ring cells since the last call, for a
+        Router's per-replica mirror (the ``take_trace_flush`` contract:
+        seq cursor, bounded, non-destructive). Empty when the rings are
+        off."""
+        if self._rings is None:
+            return []
+        cells, self._ring_cursor = self._rings.cells_since(self._ring_cursor, limit)
+        return cells
+
+    def _on_watchdog_refusal(self, name: str, signature: str) -> None:
+        """First refusal of a compile-stable path -> incident trigger (the
+        watchdog's ``on_refusal`` hook; raise-mode refusals are operational
+        events worth an autopsy bundle, not just a counter)."""
+        if self._incidents is not None:
+            self._incidents.trigger(
+                "watchdog_refusal", time.perf_counter() - self._epoch,
+                program=name, signature=signature)
+
+    def _maybe_sample_rings(self, now: float) -> None:
+        """One flight-recorder sample per configured interval: scheduler
+        gauges as-is, registry counters as deltas, histogram percentile
+        estimates as ring-only series. Off-interval steps pay one float
+        compare; the sampling walk itself is accumulated into the
+        ``serving/ring_sample_sec`` counter, so its cost is measured."""
+        if self._rings is None or not math.isfinite(now):
+            return
+        if now < self._next_sample_t:
+            return
+        t0 = time.perf_counter()
+        iv = self._rings.raw_interval_s
+        self._next_sample_t = (math.floor(now / iv) + 1.0) * iv
+        reg = self.telemetry.registry
+        gauges = {
+            "serving/queue_depth": float(len(self._queue)),
+            "serving/slot_occupancy": (self.n_active / self.n_slots
+                                       if self.n_slots else 0.0),
+            "serving/prefilling": float(len(self._prefilling)),
+        }
+        if self._pfx is not None:
+            g = reg.get("serving/prefix_pool_used")
+            if g is not None:
+                gauges["serving/prefix_pool_used"] = g.value
+        for hist_name, ring_name, q in (
+                ("serving/ttft_sec", "serving/ttft_p90_s", 0.9),
+                ("serving/tpot_sec", "serving/tpot_p90_s", 0.9),
+                ("serving/decode_step_sec", "serving/decode_step_p50_s", 0.5)):
+            h = reg.get(hist_name)
+            if h is not None and h.count:
+                gauges[ring_name] = h.quantile(q)
+        if self._spec_drafted:
+            gauges["serving/spec_acceptance"] = (
+                self._spec_accepted / self._spec_drafted)
+        counters = {}
+        for name in ("slo/requests", "slo/failures", "slo/ttft_violations",
+                     "slo/tpot_violations", "serving/tokens_out",
+                     "resilience/quarantines"):
+            c = reg.get(name)
+            if c is not None:
+                counters[name] = c.value
+        self._rings.sample(now, gauges=gauges, counters=counters)
+        reg.counter("serving/ring_sample_sec").inc(
+            time.perf_counter() - t0)
+
+    def _incident_context(self, st: dict, t0: float, t1: float) -> dict:
+        """Engine-side incident capture: the ring window around the trigger,
+        the trace events inside it, and a plain registry snapshot. Host
+        dict/deque reads only, no device work (this runs on the step loop
+        mid-incident). ``hbm`` is the port's memory view: the worker's
+        pools from tensor bytes and the CUDA caching allocator's counts."""
+        ctx: dict = {"metrics": self.telemetry.registry.snapshot()}
+        if self._rings is not None:
+            ctx["rings"] = self._rings.window_snapshot(t0, t1)
+        if self.tracer is not None:
+            ctx["trace_events"] = [
+                ev for ev in self.tracer.events()
+                if t0 <= float(ev.get("t", 0.0)) <= t1]
+        ctx["scheduler"] = {
+            "queue_depth": len(self._queue),
+            "active": self.n_active,
+            "prefilling": self.n_prefilling,
+            "quarantined_slots": sorted(self._quarantined_slots),
+        }
+        if self.worker._cache is not None:
+            ctx["hbm"] = hbm_snapshot(self.worker.hbm_pools(), self.worker.device)
+            if self.worker.device.type != "cuda":
+                ctx["hbm"]["device"] = "not measured: the CPU has no allocator counts"
+        return ctx
+
 
     @property
     def last_step_compiled(self) -> bool:
@@ -1217,6 +1589,23 @@ class ServingEngine:
             self._release_slot(slot)
             return
         S = prompt.shape[0]
+        eos = req.eos_token if req.eos_token is not None else -1
+        if self.role == "prefill" and first != eos and req.max_new_tokens > 1:
+            # the decode belongs to the decode pool: park the slot with its
+            # KV resident for the Router to stream out (kv_export_window)
+            # and release (handoff_release). A request that finishes at its
+            # first token completes here. The prefix insert still happens:
+            # the prefill pool's cache makes failover replays cheap
+            if self._pfx is not None:
+                self._insert_prefix(slot, prompt)
+            self._handoffs[req.uid] = _Handoff(
+                req=req, slot=slot, first=first, pos=S,
+                prefix_hit_tokens=entry.length if entry is not None else 0,
+                t_admit=t_adm, t_first=t_first, entry=entry)
+            self.telemetry.counter("serving/handoffs_parked").inc()
+            if self.tracer is not None:
+                self.tracer.record(req.uid, "handoff_ready", t=t_first, slot=slot)
+            return
         st = self._slots[slot]
         st.uid = req.uid
         st.remaining = req.max_new_tokens - 1
@@ -1285,6 +1674,9 @@ class ServingEngine:
             tpot = res.time_per_output_token
             if len(res.tokens) > 1:
                 tm.histogram("serving/tpot_sec").observe(tpot)
+        if self.slo_cfg.enabled:
+            classify_terminal(tm.registry, self.slo_cfg, status, res.ttft,
+                              tpot if len(res.tokens) > 1 else None)
         self._tenant_terminal(res.uid, status, res.ttft, tpot if len(res.tokens) > 1 else None)
         tm.emit({
             "type": "request", "uid": res.uid, "slot": slot,
@@ -1312,6 +1704,12 @@ class ServingEngine:
                 tm.histogram(f"tenant/{t}/tpot_sec").observe(tpot)
         elif status.startswith("shed"):
             tm.counter(f"tenant/{t}/sheds").inc()
+        if self.slo_cfg.enabled:
+            # classify_terminal's verdict, scoped to the tenant
+            ok = (status == "ok"
+                  and not (ttft > self.slo_cfg.ttft_s > 0)
+                  and not (tpot is not None and tpot > self.slo_cfg.tpot_s > 0))
+            tm.counter(f"tenant/{t}/slo_ok" if ok else f"tenant/{t}/slo_miss").inc()
 
     def _release_slot(self, slot: int):
         """Host-side slot teardown shared by every terminal path: per-slot
@@ -1345,6 +1743,8 @@ class ServingEngine:
         self._results[req.uid] = res
         self._terminal_uids.append(req.uid)
         self._exempt_uids.discard(req.uid)
+        if self.slo_cfg.enabled:
+            classify_terminal(self.telemetry.registry, self.slo_cfg, status, 0.0, None)
         self._tenant_terminal(req.uid, status, 0.0, None)
         self.telemetry.emit({
             "type": "request", "uid": req.uid, "slot": slot,
@@ -1390,6 +1790,20 @@ class ServingEngine:
                 self._finish(slot, status="cancelled")
                 tm.counter("resilience/cancelled").inc()
                 return True
+        h = self._handoffs.pop(uid, None)
+        if h is not None:
+            if h.entry is not None:
+                self._pfx.release(h.entry)
+            self._free.append(h.slot)
+            self._synth_result(h.req, "cancelled", slot=h.slot)
+            tm.counter("resilience/cancelled").inc()
+            return True
+        imp = self._imports.pop(uid, None)
+        if imp is not None:
+            self._free.append(imp["slot"])
+            self._synth_result(imp["req"], "cancelled", slot=imp["slot"])
+            tm.counter("resilience/cancelled").inc()
+            return True
         return False
 
     def _sweep_deadlines(self, now: float):
@@ -1413,6 +1827,16 @@ class ServingEngine:
             st = self._slots[slot]
             if self._active[slot] and st.request is not None and now > self._deadline_of(st.request):
                 self._finish(slot, status="deadline_exceeded")
+                tm.counter("resilience/deadline_evictions").inc()
+        for uid, h in list(self._handoffs.items()):
+            # a parked handoff past its deadline is evicted like a decoding
+            # slot: the Router's pump never committed it anywhere else
+            if now > self._deadline_of(h.req):
+                del self._handoffs[uid]
+                if h.entry is not None:
+                    self._pfx.release(h.entry)
+                self._free.append(h.slot)
+                self._synth_result(h.req, "deadline_exceeded", slot=h.slot)
                 tm.counter("resilience/deadline_evictions").inc()
 
     def _shed_overflow(self, now: float):
@@ -1442,6 +1866,9 @@ class ServingEngine:
         tm.counter("resilience/quarantines").inc()
         if self.tracer is not None:
             self.tracer.record(req.uid, "quarantine", phase=phase, slot=slot)
+        if self._incidents is not None:
+            self._incidents.trigger("nan_quarantine", time.perf_counter() - self._epoch,
+                                    uid=req.uid, slot=slot, phase=phase)
         self.worker.fill_slot(slot, 0.0)
         self._slot_faults[slot] += 1
         healthy = self.n_slots - len(self._quarantined_slots)
@@ -1613,6 +2040,9 @@ class ServingEngine:
 
     def _step(self, now: float, enforce_deadlines: bool) -> list[int]:
         tm = self.telemetry
+        self._maybe_sample_rings(now)
+        if self._incidents is not None and self._incidents.pending and math.isfinite(now):
+            self._incidents.tick(now, self._incident_context)
         if enforce_deadlines:
             if self._deadlines_armed:
                 self._sweep_deadlines(now)
@@ -1660,6 +2090,10 @@ class ServingEngine:
         times, deadlines and the queue bound; return all results so far."""
         while self._queue or self._prefilling or self._active.any():
             self.step(now=float("inf"), enforce_deadlines=False)
+        if self._incidents is not None and self._incidents.pending:
+            # drain's now=inf never ticks the recorder: a staged incident
+            # must not be lost because the engine idled
+            self._incidents.flush(self._incident_context)
         return dict(self._results)
 
     def serve(self, requests: list[Request]) -> dict[int, RequestResult]:
@@ -1668,7 +2102,7 @@ class ServingEngine:
         Returns {uid: RequestResult} for them. The epoch resets only while
         the engine is idle. A request shed at submit time gets a result
         (status ``shed_<reason>``) rather than an exception."""
-        if self.idle:
+        if not self._queue and not self._prefilling and not self._active.any():
             self._epoch = time.perf_counter()
         target = set()
         for r in sorted(requests, key=lambda r: r.arrival_time):
@@ -1710,7 +2144,10 @@ class ServingEngine:
         past Smax and is dropped): on the card this builds and loads the
         decode kernel and captures the decode graph before any request
         waits on them. A worker process calls it at boot. It counts as no
-        decode step and no replay."""
+        decode step and no replay. A prefill-role engine never decodes, so
+        it builds no decode program and captures nothing."""
+        if self.role == "prefill":
+            return
         n = self.n_slots
         self.worker.decode(np.zeros(n, np.int32), np.zeros(n, np.int32), np.full(n, self.Smax, np.int32),
                            np.zeros(n, bool), self._temp, self._top_k, self._top_p, warm=True)
@@ -1790,6 +2227,10 @@ class ServingEngine:
             extra["fault_injection"] = self._inj.stats()
         if self.tracer is not None:
             extra["request_trace"] = self.tracer.events()
+        if self._rings is not None:
+            extra["rings"] = self._rings.snapshot()
+        if self._incidents is not None:
+            extra["incidents"] = self._incidents.index()
         snap = self.telemetry.snapshot(
             replica_id=self.replica_id, compiles=self.compile_counts(),
             hbm=hbm_snapshot(self.worker.hbm_pools(), self.worker.device), **extra)

@@ -48,8 +48,14 @@ supervisor left behind (``adopt``), and ``set_spec``, the rolling
 upgrade's new generation: later spawns boot it, while running workers and
 their respawns keep the spec they booted from.
 
-Not ported yet: the disaggregated ``--role`` flag and the KV-handoff
-handlers.
+``--role prefill|decode`` pins the worker's engine to a disaggregated
+pool (one spec, differing only by the flag): a prefill worker parks its
+finished prefills and piggybacks them on every step reply (``handoff``),
+and serves its KV windows (``kv_export_window``, encoded with
+``rpc.encode_kv_window``); a decode worker stages, imports and commits
+them. A prefill worker never decodes, so its boot captures no decode
+graph. With the flight recorder on, each step reply also carries the
+engine's closed ring cells (``rings``).
 """
 
 from __future__ import annotations
@@ -66,7 +72,8 @@ from collections import Counter
 from typing import Optional
 
 from ..inference.rpc import (ReplicaClient, RpcServer, _dec_value,
-                             decode_request, encode_request, encode_result)
+                             decode_kv_window, decode_request,
+                             encode_kv_window, encode_request, encode_result)
 from ..resilience.errors import RpcConnectionLost, RpcError
 from ..resilience.heartbeat import HeartbeatJudge
 from ..resilience.preemption import PreemptionGuard
@@ -79,13 +86,15 @@ _DTYPES = ("float32", "bfloat16", "float16")
 
 
 def build_serving_engine(spec: dict, replica_id: int | str = 0,
-                         device: str | None = None):
+                         device: str | None = None, role: str | None = None):
     """Deterministic engine construction from a plain-JSON spec (the JAX
     worker's format): ``{"model": {TransformerConfig kwargs, "dtype":
     "float32"}, "engine_dtype": "fp32", "serving": {ServingEngine
     config}}``. The weights come from ``torch.Generator().manual_seed(0)``
     inside ``InferenceEngine``, so every process building the same spec
-    holds identical weights. ``device`` as ``init_inference`` takes it."""
+    holds identical weights. ``device`` as ``init_inference`` takes it;
+    ``role`` (the ``--role`` flag) overrides any ``serving.role`` in the
+    spec: disaggregated pools share one spec and differ only by the flag."""
     import torch
 
     from ..inference import InferenceEngine
@@ -99,7 +108,7 @@ def build_serving_engine(spec: dict, replica_id: int | str = 0,
     cfg = TransformerConfig(dtype=getattr(torch, name), **model_spec)
     engine = InferenceEngine(model=Model(cfg), config={"dtype": spec.get("engine_dtype", "fp32")},
                              device=device)
-    return ServingEngine(engine, config=dict(spec.get("serving", {})), replica_id=replica_id)
+    return ServingEngine(engine, config=dict(spec.get("serving", {})), replica_id=replica_id, role=role)
 
 
 class WorkerHost:
@@ -242,6 +251,15 @@ class WorkerHost:
             # and a fleet with no streaming front door must not pay it
             reply["progress"] = {
                 str(u): t for u, t in self.engine.live_progress().items()}
+        rings = self.engine.take_ring_flush(256)
+        if rings:
+            # closed flight-recorder cells ride the reply like the trace:
+            # the Router's mirror costs no extra RPC; absent when empty
+            reply["rings"] = rings
+        if self.engine.role == "prefill":
+            # parked prefill-complete requests ride the reply, so the
+            # Router's handoff pump never polls
+            reply["handoff"] = self.engine.handoff_ready()
         return reply
 
     def profile_decode_steps(self, steps: int) -> dict:
@@ -317,6 +335,39 @@ class WorkerHost:
         return {str(u): encode_result(r)
                 for u, r in self.engine.drain().items()}
 
+    # -- disaggregated handoff surface ---------------------------------
+
+    def kv_export_window(self, uid, start, width,
+                         compression: str = "none") -> dict:
+        k, v = self.engine.kv_export_window(int(uid), int(start), int(width))
+        return encode_kv_window(k, v, str(compression))
+
+    def kv_import_window(self, uid, start, width, window: dict) -> dict:
+        k, v = decode_kv_window(window)
+        self.engine.kv_import_window(int(uid), int(start), int(width), k, v)
+        return self._state()
+
+    def kv_import_begin(self, request: dict, pos, first,
+                        prefix_hit_tokens=0, t_admit=0.0,
+                        t_first=0.0) -> dict:
+        slot = self.engine.kv_import_begin(
+            decode_request(request), pos=int(pos), first=int(first),
+            prefix_hit_tokens=int(prefix_hit_tokens),
+            t_admit=float(t_admit), t_first=float(t_first))
+        return {"slot": int(slot), **self._state()}
+
+    def kv_import_commit(self, uid) -> dict:
+        return {"committed": self.engine.kv_import_commit(int(uid)),
+                **self._state()}
+
+    def kv_import_abort(self, uid) -> dict:
+        return {"aborted": self.engine.kv_import_abort(int(uid)),
+                **self._state()}
+
+    def handoff_release(self, uid) -> dict:
+        return {"released": self.engine.handoff_release(int(uid)),
+                **self._state()}
+
     # -- observability ---------------------------------------------------
 
     def telemetry_snapshot(self) -> dict:
@@ -338,7 +389,9 @@ class WorkerHost:
             "ping", "submit", "requeue", "withdraw", "cancel", "result",
             "step", "live_requests", "reconcile", "arrived_queue_len",
             "prefix_match_len", "set_epoch", "drain", "telemetry_snapshot",
-            "compile_counts", "prefix_cache_stats", "profile_decode_steps")}
+            "compile_counts", "prefix_cache_stats", "profile_decode_steps",
+            "kv_export_window", "kv_import_window", "kv_import_begin",
+            "kv_import_commit", "kv_import_abort", "handoff_release")}
 
 
 def _pid_alive(pid: int) -> bool:
@@ -405,6 +458,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the engine runs (default cuda: the worker "
                          "raises without a card and never falls back)")
+    ap.add_argument("--role", default="", choices=["", "both", "prefill", "decode"],
+                    help="disaggregated serving role: prefill workers park "
+                         "finished prefills for KV handoff, decode workers "
+                         "import KV and own decode and speculation "
+                         "(default: both)")
     args = ap.parse_args(argv)
 
     import torch
@@ -422,11 +480,12 @@ def main(argv=None) -> int:
     guard.install()
 
     # engine BEFORE socket: a connectable socket means a servable worker
-    engine = build_serving_engine(spec, replica_id=rid, device=args.device)
+    engine = build_serving_engine(spec, replica_id=rid, device=args.device, role=args.role or None)
     if args.device == "cuda":
         # build the decode kernel, capture the decode graph and replay it
         # once with every slot idle: a worker that cannot launch its
-        # kernel fails here, before it serves anything
+        # kernel fails here, before it serves anything (a prefill worker
+        # never decodes: warm_decode does nothing there)
         engine.warm_decode()
     host = WorkerHost(engine, heartbeat=args.heartbeat or None)
     server = RpcServer(args.socket, host.handlers())
@@ -469,7 +528,8 @@ class WorkerSupervisor:
     ``_respawn_count[slot]`` decays by one for every ``respawn_heal_s`` of
     healthy uptime, so occasional deaths over a long life never exhaust
     ``max_respawns``, while a crash loop still does. ``device`` is each
-    worker's ``--device``; ``env`` adds environment for every worker,
+    worker's ``--device``, ``roles`` maps slot -> its ``--role`` (a respawn
+    keeps the dead worker's); ``env`` adds environment for every worker,
     ``worker_env`` maps slot -> environment for that worker alone (e.g.
     ``CUDA_VISIBLE_DEVICES``)."""
 
@@ -481,6 +541,7 @@ class WorkerSupervisor:
                  respawn_heal_s: float = 300.0,
                  seed: int = 0,
                  device: str = "cuda",
+                 roles: Optional[dict] = None,
                  env: Optional[dict] = None,
                  worker_env: Optional[dict] = None,
                  clock=None):
@@ -497,6 +558,10 @@ class WorkerSupervisor:
         self.seed = int(seed)
         self.n_workers = int(n_workers)
         self.device = str(device)
+        # slot -> serving role ("prefill"/"decode"/"both"): disaggregated
+        # pools differ only by this flag. A slot keeps its role across
+        # respawns; missing slots default to "both"
+        self.roles = {int(k): str(v) for k, v in (roles or {}).items()}
         # verdict and heal clock: monotonic (injectable for fake-clock
         # tests; never wall time, which an NTP step moves)
         self._now = clock if clock is not None else time.monotonic
@@ -613,6 +678,9 @@ class WorkerSupervisor:
                "--socket", addr, "--spec", spec_path,
                "--replica-id", str(slot), "--heartbeat", hb,
                "--device", self.device]
+        role = self.roles.get(slot)
+        if role:
+            cmd += ["--role", role]
         with open(log_path, "w") as log_f:
             proc = subprocess.Popen(cmd, env=env, stdout=log_f,
                                     stderr=subprocess.STDOUT,

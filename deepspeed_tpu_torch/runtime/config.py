@@ -222,6 +222,136 @@ _FAULT_SITES = {"nan_grads", "io_error", "io_flaky", "garbage_logits", "preempt"
 
 
 @dataclass
+class TimeSeriesConfig:
+    """Flight-recorder ring sub-block (``telemetry.timeseries``, mirrored as
+    ``serving.timeseries``; ``telemetry/timeseries.py``,
+    docs/observability.md "Flight recorder & SLOs").
+
+    - ``enabled``: sample the configured metric set into bounded
+      downsampling rings from the owning step/serve loop. Forced on when
+      ``slo`` or ``incidents`` is enabled (both read the rings).
+    - ``interval_s``: raw sampling/bucket interval on the fleet clock.
+    - ``tiers``: coarser bucket intervals (seconds) rebuilt alongside raw;
+      intervals <= ``interval_s`` are dropped.
+    - ``capacity``: cells kept PER TIER per series (fixed deques — memory
+      is O(series x tiers x capacity) regardless of run length).
+    - ``flush_capacity``: closed-raw-cell journal bound for the step-reply
+      piggyback flush (seq-cursor; cells evicted before a flush are lost).
+    """
+
+    enabled: bool = False
+    interval_s: float = 0.25
+    tiers: list = field(default_factory=lambda: [1.0, 10.0, 60.0])
+    capacity: int = 240
+    flush_capacity: int = 4096
+
+    def __post_init__(self):
+        if self.interval_s <= 0:
+            raise DeepSpeedConfigError(
+                f"telemetry.timeseries.interval_s must be > 0, "
+                f"got {self.interval_s}")
+        if self.capacity < 2:
+            raise DeepSpeedConfigError(
+                f"telemetry.timeseries.capacity must be >= 2, "
+                f"got {self.capacity}")
+        if self.flush_capacity < 1:
+            raise DeepSpeedConfigError(
+                f"telemetry.timeseries.flush_capacity must be >= 1, "
+                f"got {self.flush_capacity}")
+
+
+@dataclass
+class SLOConfig:
+    """SLO objective sub-block (``telemetry.slo``, mirrored as
+    ``serving.slo``; ``telemetry/slo.py``, docs/observability.md).
+
+    - ``enabled``: classify terminals + evaluate attainment/burn on the
+      rings, publishing the ``slo/*`` gauges.
+    - ``ttft_s`` / ``tpot_s``: per-request latency objectives (seconds);
+      a finished request exceeding one counts as that dimension's
+      violation. 0 disables the dimension's classification.
+    - ``ttft_target`` / ``tpot_target`` / ``availability_target``: the SLO
+      targets in (0, 1] — the error budget is ``1 - target``.
+    - ``window_s``: rolling attainment window on the fleet clock.
+    - ``fast_window_s`` / ``slow_window_s``: the multi-window burn-rate
+      pair (5m/1h analogues, scaled so drills can use second-scale
+      windows).
+    - ``fast_burn_threshold``: fast-window burn at/over which the verdict
+      is a breach (14.4 = the classic "30-day budget gone in ~2 days"
+      page threshold) — an incident trigger on the rising edge.
+    - ``eval_interval_s``: how often the Router re-evaluates.
+    """
+
+    enabled: bool = False
+    ttft_s: float = 0.0
+    tpot_s: float = 0.0
+    ttft_target: float = 0.99
+    tpot_target: float = 0.99
+    availability_target: float = 0.999
+    window_s: float = 300.0
+    fast_window_s: float = 300.0
+    slow_window_s: float = 3600.0
+    fast_burn_threshold: float = 14.4
+    eval_interval_s: float = 1.0
+
+    def __post_init__(self):
+        for name in ("ttft_target", "tpot_target", "availability_target"):
+            v = getattr(self, name)
+            if not 0.0 < v <= 1.0:
+                raise DeepSpeedConfigError(
+                    f"telemetry.slo.{name} must be in (0, 1], got {v}")
+        if self.ttft_s < 0 or self.tpot_s < 0:
+            raise DeepSpeedConfigError(
+                "telemetry.slo.ttft_s/tpot_s must be >= 0")
+        for name in ("window_s", "fast_window_s", "slow_window_s",
+                     "eval_interval_s"):
+            if getattr(self, name) <= 0:
+                raise DeepSpeedConfigError(
+                    f"telemetry.slo.{name} must be > 0, "
+                    f"got {getattr(self, name)}")
+        if self.fast_burn_threshold <= 0:
+            raise DeepSpeedConfigError(
+                f"telemetry.slo.fast_burn_threshold must be > 0, "
+                f"got {self.fast_burn_threshold}")
+
+
+@dataclass
+class IncidentConfig:
+    """Incident-recorder sub-block (``telemetry.incidents``, mirrored as
+    ``serving.incidents``; ``telemetry/incident.py``, docs/observability.md).
+
+    - ``enabled``: stage/finalize durable incident bundles on the typed
+      trigger matrix. Requires ``dir``.
+    - ``dir``: bundle directory (the Router writes here; each replica's
+      engine writes under ``<dir>/replica<rid>/``).
+    - ``max_bundles``: bundle count bound per directory; oldest are
+      LRU-pruned past it (storage stays O(configured capacity)).
+    - ``window_before_s`` / ``window_after_s``: ring/trace capture window
+      around the trigger; finalization waits ``window_after_s`` of fleet
+      time so the aftermath is in the bundle too.
+    """
+
+    enabled: bool = False
+    dir: str = ""
+    max_bundles: int = 32
+    window_before_s: float = 30.0
+    window_after_s: float = 2.0
+
+    def __post_init__(self):
+        if self.enabled and not self.dir:
+            raise DeepSpeedConfigError(
+                "telemetry.incidents.enabled requires telemetry.incidents.dir")
+        if self.max_bundles < 1:
+            raise DeepSpeedConfigError(
+                f"telemetry.incidents.max_bundles must be >= 1, "
+                f"got {self.max_bundles}")
+        if self.window_before_s < 0 or self.window_after_s < 0:
+            raise DeepSpeedConfigError(
+                "telemetry.incidents window_before_s/window_after_s "
+                "must be >= 0")
+
+
+@dataclass
 class FaultInjectionConfig:
     """``serving.fault_injection`` and ``resilience.fault_injection``:
     deterministic faults (``resilience/faults.FaultInjector``). The port's
@@ -412,8 +542,8 @@ class SpeculationConfig:
 # The fleet's blocks under ``serving.router`` (and ``serving.gateway``),
 # which ``inference/router.Router``, ``inference/rpc`` and
 # ``launcher/serving_worker`` read: the JAX package's dataclasses, with
-# their defaults and validation errors. ``disagg`` parses and refuses being
-# enabled, and ``autoscale`` a ``scale_up_mfu`` threshold (``check_ported``).
+# their defaults and validation errors. ``autoscale`` refuses a
+# ``scale_up_mfu`` threshold (``check_ported``).
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -597,8 +727,9 @@ class AutoscaleConfig:
 @dataclass
 class DisaggConfig:
     """``serving.router.disagg``: disaggregated prefill/decode pools with a
-    KV handoff (not ported yet; parsed and validated as in the JAX
-    package, refused when enabled)."""
+    KV handoff ``handoff_chunk`` tokens a window (``kv_compression``
+    ``int8`` quantizes each window on the wire), and per-pool autoscaling
+    envelopes and thresholds, as in the JAX package."""
 
     enabled: bool = False
     prefill_replicas: int = 1
@@ -722,7 +853,7 @@ class RouterConfig:
     trie holds its longest match; ``max_queue_len`` bounds arrived,
     unadmitted requests across the fleet (0 = none); and the ``health``,
     ``transport``, ``autoscale`` and ``journal`` sub-blocks above.
-    ``disagg`` parses and is refused when enabled (``check_ported``)."""
+    ``disagg`` splits the fleet into prefill and decode pools."""
 
     replicas: int = 1
     affinity: bool = True
@@ -755,10 +886,6 @@ class RouterConfig:
 
     def check_ported(self) -> None:
         self.autoscale.check_ported()
-        if self.disagg.enabled:
-            raise NotImplementedError(
-                "serving.router.disagg (disaggregated prefill/decode pools with a KV handoff, and their "
-                "per-pool autoscaling) is not ported to deepspeed_tpu_torch yet")
 
 
 # ---------------------------------------------------------------------------
@@ -825,7 +952,7 @@ class RetryConfig:
 class ChaosConfig:
     """``resilience.chaos``: the fleet's seeded fault-schedule search. It
     parses, so one config serves both packages; the port has no search to
-    run until the fleet is ported."""
+    run until ``resilience/chaos.py`` is ported."""
 
     n_schedules: int = 64
     seed: int = 0
@@ -920,7 +1047,8 @@ class TelemetryConfig:
     monitor at each print boundary. ``device_sync_spans`` makes the step
     span wait for the step's loss. ``request_trace`` belongs to serving.
     The ledger and the flight-recorder blocks (``timeseries``, ``slo``,
-    ``incidents``) are not ported and raise when on."""
+    ``incidents``: the JAX training engine reads none of them; serving has
+    its own) raise when on."""
 
     enabled: bool = False
     jsonl_path: str = ""

@@ -13,11 +13,15 @@ request tracer.
     Perfetto export.
   * exporters — JSONL event log, Prometheus text, the bridge into the
     monitor backends.
+  * the flight recorder — ``TimeSeriesStore`` (bounded downsampling
+    rings, ``timeseries.py``), ``SLOTracker`` and ``classify_terminal``
+    (``slo.py``), ``IncidentRecorder`` (durable incident bundles,
+    ``incident.py``) and the ``autopsy`` CLI that reads them back; copies
+    of the JAX package's stdlib modules.
 
 ``Telemetry`` bundles them; engines hold one each. Metric names follow
 ``subsystem/name``, as in the JAX package. Not ported yet: the program and
-collective ledgers, the flight-recorder rings (``timeseries``), SLO
-classification, incidents and the report CLI.
+collective ledgers and the report CLI.
 """
 
 from __future__ import annotations
@@ -25,8 +29,11 @@ from __future__ import annotations
 import torch
 
 from .exporters import JsonlExporter, MonitorBridge, prometheus_fleet_text, prometheus_text
+from .incident import IncidentRecorder
 from .registry import Counter, Gauge, Histogram, MetricsRegistry, get_registry
 from .request_trace import RequestTracer, request_timeline, to_perfetto
+from .slo import SLOTracker, classify_terminal
+from .timeseries import TimeSeriesStore
 from .tracing import Span, SpanTracer
 from .watchdog import RecompileError, RecompileWatchdog, abstract_signature
 
@@ -36,6 +43,7 @@ __all__ = [
     "abstract_signature", "JsonlExporter", "MonitorBridge", "prometheus_text",
     "prometheus_fleet_text", "RequestTracer", "request_timeline",
     "to_perfetto", "Telemetry", "tree_bytes", "hbm_snapshot",
+    "TimeSeriesStore", "SLOTracker", "classify_terminal", "IncidentRecorder",
 ]
 
 

@@ -100,6 +100,10 @@ class RecompileWatchdog:
         self.mode = mode
         self.events: list[dict] = []  # chronological compile/refusal events
         self._watched: dict[str, dict] = {}  # name -> {stable, compiles, ...}
+        # optional incident hook: called as on_refusal(name, signature) on
+        # each FIRST refusal of a stable path (the serving engine points
+        # this at its IncidentRecorder, telemetry/incident.py)
+        self.on_refusal = None
 
     # -- bookkeeping ----------------------------------------------------
 
@@ -136,6 +140,8 @@ class RecompileWatchdog:
             self.events.append(ev)
             if self.sink is not None:
                 self.sink.emit(ev)
+            if self.on_refusal is not None:
+                self.on_refusal(name, signature)
 
     def _violation(self, name: str, ev: dict) -> None:
         msg = (

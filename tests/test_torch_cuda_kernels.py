@@ -1160,3 +1160,114 @@ def test_async_save_snapshot_is_right_while_the_next_step_runs(cuda_device, tmp_
     fresh.load_checkpoint(str(tmp_path))
     for a, b in zip(tree_leaves(fresh.state), tree_leaves(engine.state)):
         assert torch.equal(a, b)
+
+
+# Disaggregated serving on the card: the KV handoff into a captured graph.
+
+
+def _disagg_router(device, prefill=1, decode=1, **config):
+    from deepspeed_tpu_torch.inference import Router
+
+    eng = deepspeed_tpu_torch.init_inference(tfm.Model(tfm.TransformerConfig(**_SERVE_TINY)),
+                                             config={"dtype": "fp32"}, device=device)
+    return eng, Router(eng, config={"n_slots": 4, **config, "router": {
+        "health": {"timeout": 60.0},
+        "disagg": {"enabled": True, "prefill_replicas": prefill, "decode_replicas": decode}}})
+
+
+def test_kv_import_lands_in_the_captured_graphs_cache(cuda_device):
+    """The decode replica captures its graph first; every handoff then
+    copies into the cache tensors that graph captured (their addresses
+    never move), and the replays decode from the imported KV: the greedy
+    tokens equal a co-located engine's bit for bit (fp32)."""
+    from deepspeed_tpu_torch.inference import Request, ServingEngine
+
+    eng, router = _disagg_router(cuda_device)
+    pre, dec = (r.engine for r in router._replicas)
+    dec.warm_decode()
+    graph, ptrs = dec.worker._graph, {kv: t.data_ptr() for kv, t in dec.worker._cache.items()}
+    reqs = _serve_requests(8, seed=7)
+    for r in reqs:
+        router.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
+    res = router.drain()
+    assert dec.worker._graph is graph and {kv: t.data_ptr() for kv, t in dec.worker._cache.items()} == ptrs
+    assert router.router_stats()["disagg"]["handoffs"] == 8 and dec.compile_counts()["decode"] == 1
+    assert dec.worker.graph_replays > 0
+    solo = ServingEngine(eng, config={"n_slots": 4})
+    ref = solo.serve([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in reqs])
+    for r in reqs:
+        np.testing.assert_array_equal(res[r.uid].tokens, ref[r.uid].tokens)
+
+
+def test_prefill_replica_launches_no_decode_kernel(cuda_device):
+    """The profiler over a disaggregated fleet's whole run: the decode
+    kernels' records come only from the decode replica's replays (num_layers
+    split + combine each), none from the prefill replica, which never
+    captures a graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.inference import Request
+
+    _, router = _disagg_router(cuda_device)
+    pre, dec = (r.engine for r in router._replicas)
+    dec.warm_decode()
+    pre.warm_decode()
+    L = _SERVE_TINY["num_layers"]
+    for r in _serve_requests(6, seed=8):
+        router.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        router.drain()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    replays = dec.worker.graph_replays
+    assert pre.worker._graph is None and pre.worker.graph_replays == 0 and pre.compile_counts()["decode"] == 0
+    assert replays > 0
+    assert sum("decode_split_kernel" in x for x in names) == L * replays
+    assert sum("decode_combine_kernel" in x for x in names) == L * replays
+
+
+def test_bf16_windows_cross_a_tcp_worker(cuda_device, tmp_path):
+    """A prefill-role and a decode-role worker process on the card over TCP
+    (``--role``, one bf16 spec): the windows the prefill worker serves are
+    bf16 tensors after the frame codec, every request is handed off, and
+    the greedy streams equal an in-process co-located engine's."""
+    import os
+    import pathlib
+
+    from deepspeed_tpu_torch.inference import Request, Router
+    from deepspeed_tpu_torch.launcher.serving_worker import WorkerSupervisor, build_serving_engine
+    from deepspeed_tpu_torch.runtime.config import RouterTransportConfig
+
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
+    spec = {"model": {**_SERVE_TINY, "dtype": "bfloat16"}, "engine_dtype": "bf16",
+            "serving": {"n_slots": 4, "watchdog_mode": "raise"}}
+    transport = RouterTransportConfig(call_timeout_s=120.0, boot_timeout_s=180.0, heartbeat_timeout_s=60.0,
+                                      family="tcp", host="127.0.0.1", port_base=0)
+    sup = WorkerSupervisor(spec, 2, transport=transport, roles={0: "prefill", 1: "decode"}, device="cuda",
+                           workdir=str(tmp_path),
+                           env={"PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")})
+    try:
+        clients = sup.start()
+        router = Router(config={"router": {"replicas": 2, "health": {"timeout": 120.0},
+                                           "disagg": {"enabled": True}}}, replica_engines=clients)
+        seen = []
+        export = clients[0].kv_export_window
+
+        def spy(*a, **kw):
+            window = export(*a, **kw)
+            seen.append(window["k"].dtype)
+            return window
+
+        clients[0].kv_export_window = spy
+        reqs = _serve_requests(4, seed=9)
+        for r in reqs:
+            router.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
+        res = router.drain()
+        assert seen and all(d == torch.bfloat16 for d in seen)
+        assert router.router_stats()["disagg"]["handoffs"] == 4
+        solo = build_serving_engine(spec, device="cuda")
+        ref = solo.serve([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in reqs])
+        for r in reqs:
+            np.testing.assert_array_equal(res[r.uid].tokens, ref[r.uid].tokens)
+    finally:
+        sup.shutdown()

@@ -2,7 +2,8 @@
 it runs on CUDA unless asked for the CPU, and its kernel wrappers take the
 plain path only for CPU tensors. The no-JAX subprocess imports every module
 and runs a serving step, a two-replica Router with a journal through a
-replica's death, a flash training step and a block-sparse training step
+replica's death, a disaggregated Router with the flight recorder on, a bf16
+KV window through the int8 codec with no ``ml_dtypes``, a flash training step and a block-sparse training step
 fed by the curriculum and the dataloader; the serving worker's
 ``python -m`` entry point runs with JAX blocked too."""
 
@@ -51,6 +52,17 @@ with tempfile.TemporaryDirectory() as d:
                         for i in range(3)])
     assert all(r.ok for r in res.values()) and router.replica_states()[0] == "dead"
     assert sorted(RequestJournal(os.path.join(d, "j")).state.terminals) == [0, 1, 2]
+    router = Router(eng, config={{"n_slots": 2, "router": {{"disagg": {{"enabled": True}}}},
+                                 "incidents": {{"enabled": True, "dir": os.path.join(d, "inc")}},
+                                 "slo": {{"enabled": True}}}})
+    res = router.serve([Request(uid=i, prompt=np.arange(5 + i, dtype=np.int32), max_new_tokens=3)
+                        for i in range(3)])
+    assert all(r.ok for r in res.values()) and router.router_stats()["disagg"]["handoffs"] == 3
+import torch
+from deepspeed_tpu_torch.inference import rpc
+k = torch.ones((2, 1, 8, 4, 8), dtype=torch.bfloat16)
+assert rpc.decode_kv_window(rpc._dec_value(rpc.encode_kv_window(k, k, "int8")))[0].dtype == torch.bfloat16
+assert "ml_dtypes" not in [m for m in sys.modules if sys.modules[m] is not None]
 model = Model(TransformerConfig(**{TINY!r}, attn_impl="flash"))
 trainer, _, _, _ = pkg.initialize(model=model, config={{"train_batch_size": 2}}, device="cpu")
 metrics = trainer.train_batch({{"tokens": np.zeros((2, 9), np.int32)}})

@@ -398,7 +398,7 @@ def test_router_matches_jax(engines, case):
 
 def test_router_config_schema_matches_jax():
     """Fields, defaults and validation messages of every fleet block equal
-    the JAX package's; the unported blocks parse and refuse by name."""
+    the JAX package's; the unported autoscale threshold refuses by name."""
     import dataclasses
 
     def fields(cls):
@@ -424,11 +424,7 @@ def test_router_config_schema_matches_jax():
 
 
 @pytest.mark.parametrize("block,match", [
-    ({"router": {"disagg": {"enabled": True}}}, "disagg"),
     ({"router": {"autoscale": {"enabled": True, "scale_up_mfu": 0.5}}}, "scale_up_mfu"),
-    ({"timeseries": {"enabled": True}}, "timeseries"),
-    ({"slo": {"enabled": True}}, "slo"),
-    ({"incidents": {"enabled": True}}, "incidents"),
 ])
 def test_unported_fleet_blocks_are_refused(engines, block, match):
     with pytest.raises(NotImplementedError, match=match):

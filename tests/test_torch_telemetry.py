@@ -5,8 +5,9 @@ The same updates through the JAX package's modules and the port's give
 equal registry snapshots, Prometheus text, JSONL events (rotation
 included), request timelines and Perfetto exports. The port's recompile
 watchdog counts one compilation per abstract signature and refuses a
-stable path's second one before the call runs. Serving blocks the port has
-not got raise ``NotImplementedError`` naming them.
+stable path's second one before the call runs. The serving ``ledger`` block,
+which the port has not got, raises ``NotImplementedError`` naming it; the
+serving roles build.
 """
 
 import json
@@ -186,18 +187,18 @@ def test_request_timeline_and_perfetto_match_jax(tiny_engine):
     assert {e["name"] for e in ttel.to_perfetto(events)["traceEvents"]} >= {"queued", "prefill", "decode", "chunk"}
 
 
-@pytest.mark.parametrize("block", ["ledger", "timeseries", "slo", "incidents"])
+@pytest.mark.parametrize("block", ["ledger"])
 def test_unported_blocks_are_refused(tiny_engine, block):
     with pytest.raises(NotImplementedError, match=block):
         ServingEngine(tiny_engine, config={block: {"enabled": True}})
     ServingEngine(tiny_engine, config={block: {"enabled": False}})
 
 
-@pytest.mark.parametrize("role", ["prefill", "decode"])
-def test_disaggregated_roles_are_refused(tiny_engine, role):
-    with pytest.raises(NotImplementedError, match=role):
-        ServingEngine(tiny_engine, config={"role": role})
-    with pytest.raises(ValueError):
+@pytest.mark.parametrize("role", ["prefill", "decode", "both"])
+def test_serving_roles_build_and_an_unknown_role_raises(tiny_engine, role):
+    assert ServingEngine(tiny_engine, config={"role": role}).role == role
+    assert ServingEngine(tiny_engine, role=role).role == role
+    with pytest.raises(ValueError, match="both|prefill|decode"):
         ServingEngine(tiny_engine, role="mixed")
 
 

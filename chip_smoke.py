@@ -211,8 +211,38 @@ Phases, each of which passes or makes the script exit non-zero:
      their bound. It prints tokens/s, TTFT and TPOT disaggregated against
      co-located, handoff ms p50/p99, bytes per handoff, the parked
      backlog's peak and the recorder's cost.
+ 23. the launch stack, elastic training and the chaos conductor at
+     GPT-2-125M width. The worker is this script in its hidden
+     ``--elastic-worker`` mode: phase 7's step through the fused loss on
+     the card, its batch (64 = 16 x gas 4) from an ``elasticity`` block
+     through the engine, a heartbeat touch after every train_batch and
+     save, a synchronous save after each step, one JSON line per step and
+     per generation. (a) ``python -m deepspeed_tpu_torch.launcher.runner
+     --hostfile <localhost slots=1>`` runs it 2 steps: the rendezvous env
+     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, the DSTPU_* keys), 48
+     launches of each flash kernel a train_batch, rc 0; then SIGTERM to a
+     second launch's process group mid-step, and its whole tree (runner,
+     launch, worker) gone within 30 s with none of it on the card. (b)
+     ``DSElasticAgent`` over that hostfile: generation 0 trains 3 steps,
+     saves and SIGKILLs itself, the agent backs off and relaunches, and
+     generation 1 loads 'latest' and trains to step 6; every loss equals an
+     uninterrupted 6-step worker's bitwise, restart_count 1, rc 0. (c) the
+     hang drill: generation 0 stops touching the heartbeat after step 2;
+     the agent (timeout 3 x the longest gap between (b)'s touches, at least
+     5 s; grace 600 s) SIGKILLs it and generation 1 resumes bitwise to step
+     4; it prints the last touch -> kill seconds and the relaunch's boot ->
+     first step. (d) ``ChaosRunner`` over 3 real ``ServingEngine``
+     replicas (2 slots, phase 18's model and seeded weights, 6 new tokens,
+     each replica with the schedule's fault injection): 8 generated
+     schedules over the fake-fleet sites, each run twice, green under the
+     invariant oracles with one digest, 12 + 12 decode launches a replay,
+     the device memory after the last schedule beside the first's; then a
+     64-schedule fake-fleet ``search`` with a planted oracle on
+     ``garbage_logits``, shrunk to a reproducer that no single entry can
+     leave, which ``replay_repro`` re-executes bit-identically.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
-line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, a
+line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, an
+``{"elastic": {...}}`` line, a ``{"chaos": {...}}`` line, a
 ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
@@ -230,6 +260,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -4204,10 +4235,515 @@ def disagg_phase(dev, smi, model_cfg=None, serve_config=None, vocab_cap=None):
         shutil.rmtree(inc_root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the launch stack, elastic training and the chaos conductor
+# ---------------------------------------------------------------------------
+
+ELASTIC_SEED = 1000  # step k trains on tokens from np.random.default_rng(ELASTIC_SEED + k)
+# the elastic block solves world 1 to phase 7's batch (64 = 16 x gas 4); the
+# configured micro-batch of 1 is what the solution replaces
+ELASTIC_BLOCK = {"enabled": True, "max_train_batch_size": 64, "micro_batch_sizes": [8, 16], "min_gpus": 1,
+                 "max_gpus": 8, "ignore_non_elastic_batch_info": True}
+ELASTIC_DS = {**{k: v for k, v in BENCH_DS.items() if k not in ("train_batch_size", "gradient_accumulation_steps")},
+              "train_micro_batch_size_per_gpu": 1, "elasticity": ELASTIC_BLOCK, "checkpoint": {"keep_last_k": 1}}
+# the CPU rehearsal's worker: the same control flow at a tiny size
+ELASTIC_TINY = dict(vocab_size=97, max_seq_len=64, num_layers=2, num_heads=4, hidden_size=32, dtype=torch.float32,
+                    attn_impl="flash", loss_impl="fused_xent")
+ELASTIC_TINY_DS = {"train_micro_batch_size_per_gpu": 1, "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+                   "gradient_clipping": 1.0, "steps_per_print": 1000000, "checkpoint": {"keep_last_k": 1},
+                   "elasticity": {**ELASTIC_BLOCK, "max_train_batch_size": 8, "micro_batch_sizes": [2, 4]}}
+ELASTIC_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "DSTPU_COORDINATOR",
+               "DSTPU_NUM_PROCESSES", "DSTPU_PROCESS_ID", "DSTPU_WORLD_INFO", "DSTPU_ELASTIC_WORLD_SIZE",
+               "DSTPU_ELASTIC_MICRO_BATCH", "DSTPU_ELASTIC_BATCH", "DSTPU_ELASTIC_GENERATION")
+TREE_GONE_BOUND_S = 30.0  # SIGTERM to the launch's process group -> no process of its tree left
+CARD_FREE_SLACK = 256 << 20  # the card's free bytes after the SIGTERMed tree, at most this below those before it
+RESTART_BACKOFF = {"base_delay_s": 1.0, "max_delay_s": 1.0, "jitter": 0.25}
+CHAOS_SCHEDULES = 8
+CHAOS_SEARCH = 64
+CHAOS_SEED = 23
+CHAOS_PLANTED_SITE = "garbage_logits"
+CHAOS_MEMORY_SLACK = 64 << 20  # allocated bytes the last schedule may hold beyond the first's
+
+
+def elastic_model(name):
+    if name == "tiny":
+        return TransformerConfig(**ELASTIC_TINY), ELASTIC_TINY_DS
+    return gpt2_config(**RESILIENCE_MODEL), ELASTIC_DS
+
+
+def _emit(path, record):
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
+        f.flush()
+
+
+def elastic_worker(args) -> int:
+    """``--elastic-worker``: phase 23's training process. It takes its batch
+    from the elasticity block through the engine, resumes from ``--save-dir``
+    when it holds a checkpoint, touches ``DSTPU_ELASTIC_HEARTBEAT`` after
+    every train_batch (and after every save), saves synchronously after each
+    step, and appends a JSON line per step and one per generation to
+    ``--out``. Generation 0 SIGKILLs itself after ``--crash-after`` steps, or
+    stops touching the heartbeat and sleeps after ``--hang-after``. Its stamps
+    are time.monotonic(), the clock of the agent's generation records."""
+    from deepspeed_tpu_torch.elasticity import HEARTBEAT_ENV
+
+    t_boot = time.monotonic()
+    cfg, ds = elastic_model(args.model)
+    # the card unless the caller asks for the CPU: without one this raises
+    engine = deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds,
+                                            device=None if args.device == "cuda" else args.device)[0]
+    gen = int(os.environ.get("DSTPU_ELASTIC_GENERATION", "0"))
+    env = {k: os.environ.get(k) for k in ELASTIC_ENV}
+    agent_batch = (env["DSTPU_ELASTIC_BATCH"], env["DSTPU_ELASTIC_MICRO_BATCH"])
+    if agent_batch != (None, None) and agent_batch != (str(engine.train_batch_size), str(engine.micro_batch_size)):
+        raise SystemExit(f"the agent's elastic solution {agent_batch} is not the engine's "
+                         f"({engine.train_batch_size}, {engine.micro_batch_size})")
+    resumed = None
+    if args.save_dir and os.path.exists(os.path.join(args.save_dir, "latest")):
+        resumed, _ = engine.load_checkpoint(args.save_dir)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t_ready = time.monotonic()
+    hb = os.environ.get(HEARTBEAT_ENV)
+    record = {"event": "generation", "generation": gen, "pid": os.getpid(), "ppid": os.getppid(),
+              "device": str(engine.device), "env": env, "resumed_from": resumed,
+              "batch": [engine.train_batch_size, engine.micro_batch_size, engine.gradient_accumulation_steps],
+              "boot_s": t_ready - t_boot, "steps": [], "losses": [], "launches": [], "touches": [],
+              "built": sorted(op_builder.PTXAS_INFO)}  # the sources this process compiled: none expected
+    B, S = engine.train_batch_size, cfg.max_seq_len
+    for step in range(engine.global_steps, args.steps):
+        tokens = np.random.default_rng(ELASTIC_SEED + step).integers(0, cfg.vocab_size, size=(B, S + 1))
+        t0 = time.monotonic()
+        record.setdefault("first_step_start", t0)
+        before = counts() + sparse_counts()
+        metrics = engine.train_batch({"tokens": tokens.astype(np.int32)})
+        loss = float(metrics["loss"])  # synchronises
+        launches = [a - b for a, b in zip(counts() + sparse_counts(), before)]
+        if hb:
+            os.utime(hb)
+            record["touches"].append(time.monotonic())
+        t_save = time.monotonic()
+        if args.save_dir:
+            engine.save_checkpoint(args.save_dir)
+            if hb:
+                os.utime(hb)
+                record["touches"].append(time.monotonic())
+        record["steps"].append(step + 1)
+        record["losses"].append(loss)
+        record["launches"].append(launches)
+        _emit(args.out, {"event": "step", "generation": gen, "step": step + 1, "loss": loss, "pid": os.getpid(),
+                         "ppid": os.getppid(), "step_s": t_save - t0, "save_s": time.monotonic() - t_save})
+        if gen == 0 and step + 1 in (args.crash_after, args.hang_after):
+            _emit(args.out, record)
+            if step + 1 == args.crash_after:
+                os.kill(os.getpid(), signal.SIGKILL)
+            time.sleep(600)  # wedged: alive, never touching the heartbeat again
+            return 3  # the agent did not kill it
+    _emit(args.out, record)
+    return 0
+
+
+def _read_events(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _generations(path):
+    return [e for e in _read_events(path) if e["event"] == "generation"]
+
+
+def _alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[-1].split()[0] not in ("Z", "X")
+    except FileNotFoundError:
+        return False
+
+
+def _card_free(cuda):
+    """The card's free bytes over every process on it (cudaMemGetInfo)."""
+    return torch.cuda.mem_get_info()[0] if cuda else 0
+
+
+def _check(ok, what, detail=""):
+    print(f"    {what}{': ' + detail if detail else ''}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 23 failed: {what}")
+
+
+def _split_launches(launches):
+    """A step's counts() + sparse_counts() delta -> (flash fwd, dK/dV, dQ),
+    (xent fwd, combine, ds, dW, dH), (sparse fwd, dQ, dK/dV)."""
+    return launches[:3], launches[4:N_COUNTS], launches[N_COUNTS:]
+
+
+def _check_step_launches(gens, cfg, cuda):
+    """Every train_batch of every generation: 48 of each flash kernel (L x gas)
+    and the fused loss's launches (gas of each forward kernel, gas x chunks of
+    each backward one), no decode and no sparse launch (the model is dense);
+    none at all on the CPU. -> the totals of flash, xent and sparse launches."""
+    flash_total, xent_total, sparse_total = [0] * 3, [0] * 5, [0] * N_SPARSE
+    per_batch = None
+    for g in gens:
+        gas = g["batch"][2]
+        for launches in g["launches"]:
+            flash, xent, sparse = _split_launches(launches)
+            flash_total = [a + b for a, b in zip(flash_total, flash)]
+            xent_total = [a + b for a, b in zip(xent_total, xent)]
+            sparse_total = [a + b for a, b in zip(sparse_total, sparse)]
+            want_flash = [cfg.num_layers * gas] * 3 if cuda else [0, 0, 0]
+            xent_ok = (xent[0] == xent[1] == gas and xent[2] == xent[3] == xent[4] > 0
+                       and xent[2] % gas == 0) if cuda else xent == [0] * 5
+            if (flash != want_flash or not xent_ok or launches[3] != 0 or sparse != [0] * N_SPARSE
+                    or len(launches) != N_COUNTS + N_SPARSE):
+                _check(False, f"kernel launches per train_batch {COUNT_LABEL}",
+                       f"{launches} (flash expect {want_flash}, decode and sparse 0)")
+            per_batch = launches
+    return flash_total, xent_total, sparse_total, per_batch
+
+
+def _worker_cmd(model, device, *args):
+    return [sys.executable, os.path.abspath(__file__), "--elastic-worker", "--model", model, "--device", device,
+            *[str(a) for a in args]]
+
+
+def _launch_stack(root, hostfile, model, device, cfg, cuda):
+    """(a): the runner -> launch -> the worker, then SIGTERM to a second launch."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runner = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner", "--hostfile", hostfile]
+    out_path = os.path.join(root, "launch.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.run(runner + _worker_cmd(model, device, "--steps", 2, "--out", out_path)[1:], cwd=here,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    gens = _generations(out_path)
+    _check(proc.returncode == 0 and len(gens) == 1, "runner -> launch -> worker, 2 steps, rc 0",
+           f"rc {proc.returncode} in {wall:.2f} s")
+    g = gens[0]
+    env = g["env"]
+    want = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "29500",
+            "DSTPU_COORDINATOR": "127.0.0.1:29500", "DSTPU_NUM_PROCESSES": "1", "DSTPU_PROCESS_ID": "0"}
+    from deepspeed_tpu_torch.launcher.runner import decode_world_info
+
+    _check({k: env[k] for k in want} == want and decode_world_info(env["DSTPU_WORLD_INFO"]) == {"localhost": [0]}
+           and g["device"].startswith(device),
+           "the worker's rendezvous env and device", f"{ {k: env[k] for k in want} } on {g['device']}")
+    flash, xent, sparse, per_batch = _check_step_launches(gens, cfg, cuda)
+    want_batch = [64, 16, 4] if model == "gpt2" else [8, 4, 2]
+    _check(g["built"] == [] and g["batch"] == want_batch,
+           "the worker reused phase 2's kernels and took the elastic batch",
+           f"built {g['built']}, batch/micro/gas {g['batch']}, launches a train_batch {per_batch}")
+
+    # a second launch, SIGTERMed mid-step: the launch forwards it to the worker's group.
+    # The tree's pids are checked in /proc; what it held on the card is checked by the
+    # card's free memory (nvidia-smi's compute-app pids are the host's, not this
+    # container's, so they cannot be matched with the tree)
+    term_path = os.path.join(root, "term.jsonl")
+    free_before = _card_free(cuda)
+    proc = subprocess.Popen(runner + _worker_cmd(model, device, "--steps", 100000, "--out", term_path)[1:],
+                            cwd=here, start_new_session=True)
+    deadline = time.monotonic() + 600
+    steps = []
+    while not steps:
+        if time.monotonic() > deadline or proc.poll() is not None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            _check(False, "the SIGTERM drill's worker reached a step")
+        time.sleep(0.05)
+        steps = [e for e in _read_events(term_path) if e["event"] == "step"]
+    time.sleep(0.05)  # inside the next step
+    tree = [proc.pid, steps[0]["ppid"], steps[0]["pid"]]  # runner, launch, worker
+    free_during = _card_free(cuda)
+    t_sig = time.perf_counter()
+    os.killpg(proc.pid, signal.SIGTERM)
+    proc.wait(timeout=TREE_GONE_BOUND_S)
+    while any(_alive(p) for p in tree) and time.perf_counter() - t_sig < TREE_GONE_BOUND_S:
+        time.sleep(0.02)
+    gone_s = time.perf_counter() - t_sig
+    left = [p for p in tree if _alive(p)]
+    # a dead process's device memory is released asynchronously: wait for it within the bound
+    while _card_free(cuda) < free_before - CARD_FREE_SLACK and time.perf_counter() - t_sig < TREE_GONE_BOUND_S:
+        time.sleep(0.02)
+    free_s, free_after = time.perf_counter() - t_sig, _card_free(cuda)
+    mib = 2 ** 20
+    _check(not left and (not cuda or (free_during < free_before - CARD_FREE_SLACK
+                                      and free_after >= free_before - CARD_FREE_SLACK)),
+           f"SIGTERM to the launch mid-step: the tree gone and the card's memory back within "
+           f"{TREE_GONE_BOUND_S:.0f} s", f"runner/launch/worker {tree} gone from /proc in {gone_s:.3f} s; card free "
+           f"{free_before / mib:.0f} MiB before the launch, {free_during / mib:.0f} MiB mid-step, "
+           f"{free_after / mib:.0f} MiB {free_s:.3f} s after SIGTERM")
+    return {"rc": 0, "wall_s": wall, "boot_s": g["boot_s"], "env": {k: env[k] for k in want},
+            "launches_per_train_batch": per_batch, "losses": g["losses"], "sigterm_tree_gone_s": gone_s,
+            "sigterm_step_reached": len(steps), "sigterm_card_free_s": free_s,
+            "card_free_mib": {"before": free_before / mib, "mid_step": free_during / mib, "after": free_after / mib}
+            }, flash, xent, sparse
+
+
+def _agent(ds, cmd, hostfile, hb, timeout, grace=600.0):
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent, WorkerSpec
+
+    return DSElasticAgent(ds, WorkerSpec(command=cmd), hostfile=hostfile, monitor_interval=0.1, max_restarts=2,
+                          heartbeat_file=hb, heartbeat_timeout=timeout, heartbeat_grace=grace,
+                          restart_backoff=RESTART_BACKOFF)
+
+
+def _elastic_drills(root, hostfile, model, device, cfg, ds, cuda):
+    """(b) crash drill and (c) hang drill, each against one uninterrupted run."""
+    straight_path = os.path.join(root, "straight.jsonl")
+    t0 = time.perf_counter()
+    rc = subprocess.run(_worker_cmd(model, device, "--steps", 6, "--out", straight_path), timeout=900).returncode
+    straight = _generations(straight_path)
+    _check(rc == 0 and len(straight) == 1 and straight[0]["steps"] == [1, 2, 3, 4, 5, 6],
+           "an uninterrupted 6-step worker", f"rc {rc} in {time.perf_counter() - t0:.2f} s, "
+           f"losses {[round(x, 4) for x in straight[0]['losses']] if straight else None}")
+    ref = dict(zip(straight[0]["steps"], straight[0]["losses"]))
+    gens_all = list(straight)
+
+    # (b) crash: generation 0 trains 3 steps, saves and SIGKILLs itself
+    crash_path, crash_ckpt, hb = (os.path.join(root, n) for n in ("crash.jsonl", "crash_ckpt", "crash_hb"))
+    agent = _agent(ds, _worker_cmd(model, device, "--steps", 6, "--save-dir", crash_ckpt, "--crash-after", 3,
+                                          "--out", crash_path), hostfile, hb, timeout=300.0)
+    t0 = time.perf_counter()
+    rc = agent.run()
+    crash_s = time.perf_counter() - t0
+    gens = _generations(crash_path)
+    gens_all += gens
+    got = {s: x for g in gens for s, x in zip(g["steps"], g["losses"])}
+    ok = (rc == 0 and agent.restart_count == 1 and [g["steps"] for g in gens] == [[1, 2, 3], [4, 5, 6]]
+          and gens[1]["resumed_from"] == "global_step3" and all(got[s] == ref[s] for s in range(1, 7)))
+    _check(ok, "crash drill: SIGKILL after step 3, the agent relaunches, generation 1 resumes to step 6",
+           f"rc {rc}, restart_count {agent.restart_count}, steps {[g['steps'] for g in gens]}, steps 4-6 losses "
+           f"{[got.get(s) for s in (4, 5, 6)]} vs uninterrupted {[ref[s] for s in (4, 5, 6)]} (bitwise), "
+           f"{crash_s:.2f} s")
+    steps = [e for e in _read_events(crash_path) if e["event"] == "step"]
+    touches = gens[0]["touches"]
+    gap = max(b - a for a, b in zip(touches, touches[1:]))
+    relaunch_boot = gens[1]["first_step_start"] - agent.generations[1]["launched_at"]
+    crash = {"rc": rc, "restart_count": agent.restart_count, "seconds": crash_s, "losses": [got[s] for s in range(1, 7)],
+             "step_s": [e["step_s"] for e in steps], "save_s": [e["save_s"] for e in steps],
+             "max_touch_gap_s": gap, "relaunch_boot_to_first_step_s": relaunch_boot,
+             "relaunch_boot_s": gens[1]["boot_s"]}
+
+    # (c) hang: generation 0 stops touching the heartbeat after step 2
+    timeout = max(5.0, 3.0 * gap)
+    hang_path, hang_ckpt, hb = (os.path.join(root, n) for n in ("hang.jsonl", "hang_ckpt", "hang_hb"))
+    agent = _agent(ds, _worker_cmd(model, device, "--steps", 4, "--save-dir", hang_ckpt, "--hang-after", 2,
+                                          "--out", hang_path), hostfile, hb, timeout=timeout)
+    t0 = time.perf_counter()
+    rc = agent.run()
+    hang_s = time.perf_counter() - t0
+    gens = _generations(hang_path)
+    gens_all += gens
+    got = {s: x for g in gens for s, x in zip(g["steps"], g["losses"])}
+    kills = [g["killed_at"] for g in agent.generations if g["killed_at"] is not None]
+    ok = (rc == 0 and agent.restart_count == 1 and len(kills) == 1 and agent.generations[0]["killed_at"] is not None
+          and [g["steps"] for g in gens] == [[1, 2], [3, 4]] and all(got[s] == ref[s] for s in range(1, 5)))
+    touch_to_kill = kills[0] - gens[0]["touches"][-1] if ok else float("nan")
+    relaunch_boot_hang = gens[1]["first_step_start"] - agent.generations[1]["launched_at"] if ok else float("nan")
+    _check(ok, f"hang drill: heartbeat timeout {timeout:.2f} s (3 x the longest gap between touches, at least 5 s), "
+               "grace 600 s; the hung worker SIGKILLed and relaunched, generation 1 resumes to step 4",
+           f"rc {rc}, restart_count {agent.restart_count}, kills {len(kills)}, steps {[g['steps'] for g in gens]}, "
+           f"steps 3-4 losses {[got.get(s) for s in (3, 4)]} vs uninterrupted {[ref[s] for s in (3, 4)]} (bitwise); "
+           f"last touch -> kill {touch_to_kill:.3f} s; relaunch boot -> first step {relaunch_boot_hang:.2f} s; "
+           f"{hang_s:.2f} s")
+    hang = {"rc": rc, "restart_count": agent.restart_count, "seconds": hang_s, "heartbeat_timeout_s": timeout,
+            "last_touch_to_kill_s": touch_to_kill, "relaunch_boot_to_first_step_s": relaunch_boot_hang,
+            "relaunch_boot_s": gens[1]["boot_s"], "losses": [got[s] for s in range(1, 5)],
+            "first_touch_after_relaunch_s": gens[1]["touches"][0] - agent.generations[1]["launched_at"]}
+    return {"straight_losses": straight[0]["losses"], "straight_boot_s": straight[0]["boot_s"], "crash": crash,
+            "hang": hang}, gens_all
+
+
+def _chaos_engines(engine, built):
+    """The ChaosRunner's factory: fresh ServingEngine replicas over one set of
+    weights, each with the schedule's fault injection (so garbage logits fire
+    in the replica's decode)."""
+    from deepspeed_tpu_torch.inference import ServingEngine
+
+    def engines(wl, fi):
+        reps = [ServingEngine(engine, config={"n_slots": int(wl["n_slots"]), "seed": 0, "watchdog_mode": "raise",
+                                              "replica_id": i, **({"fault_injection": fi} if fi else {})})
+                for i in range(int(wl["n_replicas"]))]
+        built.append(reps)
+        return reps
+
+    return engines
+
+
+def _replica_launches(reps, L):
+    """(split, combine, replays) over one run's replicas, each checked: the
+    capture's L + L a replay times its replays."""
+    split = combine = replays = 0
+    for r in reps:
+        w = r.worker
+        s, c = w.decode_kernel_launches()
+        if w.graph_replays and w.graph_launches != (L, L):
+            _check(False, "decode launches a replay", f"replica {r.replica_id}: {w.graph_launches} (expect {L}, {L})")
+        split, combine, replays = split + s, combine + c, replays + w.graph_replays
+    return split, combine, replays
+
+
+def _chaos(dev, smi, cfg_model):
+    from deepspeed_tpu_torch.resilience import chaos
+
+    cuda = dev.type == "cuda"
+    L = cfg_model.num_layers if cuda else 0
+    engine = deepspeed_tpu_torch.init_inference(Model(cfg_model), config={"dtype": "bf16" if cuda else "fp32"},
+                                                device=dev)
+    built = []
+    runner = chaos.ChaosRunner(engines=_chaos_engines(engine, built))
+    wl = dict(chaos.DEFAULT_WORKLOAD)
+    t0 = time.perf_counter()
+    ref = runner.reference(wl)
+    ref_s = time.perf_counter() - t0
+    _check(all(r.status == "ok" for r in ref.values()) and len(ref) == wl["n_requests"],
+           f"the unfaulted reference over {wl['n_replicas']} real replicas", f"{len(ref)} ok in {ref_s:.2f} s")
+    rows, mem, launches = [], [], [0, 0, 0]
+    for i in range(CHAOS_SCHEDULES):
+        sched = chaos.FaultSchedule.generate(chaos.derive_seed(CHAOS_SEED, i), wl)
+        outs = []
+        for _ in range(2):
+            n_built = len(built)
+            t0 = time.perf_counter()
+            outs.append(runner.run(sched, reference=ref))
+            seconds = time.perf_counter() - t0
+            for reps in built[n_built:]:
+                launches = [a + b for a, b in zip(launches, _replica_launches(reps, L))]
+            if cuda:
+                torch.cuda.synchronize()
+                mem.append((torch.cuda.memory_allocated(), torch.cuda.memory_reserved()))
+        a, b = outs
+        rows.append({"schedule": i, "entries": [e.as_dict() for e in sched.entries], "digest": a.digest,
+                     "fired": dict(a.fired), "statuses": a.summary()["statuses"], "crashes": a.crashes,
+                     "restarts": a.restarts, "steps": a.steps, "seconds": seconds})
+        ok = not a.violations and not b.violations and a.digest == b.digest
+        _check(ok, f"schedule {i} {[(e.site, e.key, e.at) for e in sched.entries]}: green twice, one digest",
+               f"fired {dict(a.fired)}, statuses {a.summary()['statuses']}, digest {a.digest[:12]} / "
+               f"{b.digest[:12]}, violations {[str(v) for v in a.violations + b.violations]}, {seconds:.2f} s")
+    split, combine, replays = launches
+    _check(split == combine == L * replays and (replays > 0 or not cuda),
+           "decode launches over every replica's replays", f"{split} split + {combine} combine for {replays} "
+           f"replays ({L} + {L} a replay)")
+    counters = runner.telemetry.registry.snapshot()["counters"]
+    sites = sorted({k.split("/")[2] for k in counters if k.startswith("chaos/site/")})
+    per_site = {s: {"fired": counters.get(f"chaos/site/{s}/fired", 0),
+                    "survived": counters.get(f"chaos/site/{s}/survived", 0)} for s in sites}
+    per_schedule = [r["seconds"] for r in rows]
+    if cuda:
+        grown = mem[-1][0] - mem[0][0]
+        _check(grown <= CHAOS_MEMORY_SLACK, "device memory after the last schedule beside the first",
+               f"allocated {mem[0][0] / 2**20:.1f} -> {mem[-1][0] / 2**20:.1f} MiB, reserved "
+               f"{mem[0][1] / 2**20:.1f} -> {mem[-1][1] / 2**20:.1f} MiB over {len(mem)} runs")
+    print(f"    [{smi}] {CHAOS_SCHEDULES} schedules x 2 over {wl['n_replicas']} real replicas: "
+          f"{statistics.median(per_schedule):.2f} s a run (median; {min(per_schedule):.2f}-{max(per_schedule):.2f}); "
+          f"fired/survived by site {per_site}")
+    del engine
+    built.clear()
+
+    # the fake fleet's search with a planted oracle, shrunk and replayed
+    def planted(out):
+        n = out.fired.get(CHAOS_PLANTED_SITE, 0)
+        return [chaos.Violation("planted_tripwire", f"{CHAOS_PLANTED_SITE} fired {n}x")] if n else []
+
+    with tempfile.TemporaryDirectory(prefix="dstt_chaos_") as art:
+        t0 = time.perf_counter()
+        fake = chaos.ChaosRunner()
+        row = chaos.search(fake, CHAOS_SEARCH, CHAOS_SEED, artifact_dir=art, oracles=[planted])
+        search_s = time.perf_counter() - t0
+        _check(bool(row["violations"]), f"a {CHAOS_SEARCH}-schedule fake-fleet search trips the planted oracle",
+               f"{len(row['violations'])} schedules tripped, sites covered {row['sites_covered']}, {search_s:.2f} s")
+        v = row["violations"][0]
+        with open(v["repro"], "rb") as f:
+            written = f.read()
+        repro = json.loads(written)
+        mini = chaos.FaultSchedule.from_dict(repro["schedule"])
+        fake_ref = fake.reference(mini.workload)
+
+        def trips(cand):
+            return "planted_tripwire" in {x.invariant for x in fake.run(cand, reference=fake_ref,
+                                                                        oracles=[planted]).violations}
+
+        minimal = trips(mini) and all(not trips(mini.subset(j for j in range(len(mini.entries)) if j != k))
+                                      for k in range(len(mini.entries)))
+        rep = chaos.replay_repro(chaos.ChaosRunner(), repro, oracles=[planted])
+        again = os.path.join(art, "again.json")
+        chaos.write_repro(again, mini, rep["outcome"], search_seed=CHAOS_SEED, index=v["schedule_index"])
+        with open(again, "rb") as f:
+            rewritten = f.read()
+        _check(minimal and rep["digest_match"] and rep["violations_match"] and rewritten == written,
+               "shrunk to a minimal reproducer; replay_repro reproduces it bit-identically",
+               f"schedule {v['schedule_index']}: {v['entries']} -> {v['minimal_entries']} entries "
+               f"{[(e.site, e.key, e.at) for e in mini.entries]}, digest {rep['digest'][:12]}, rewritten file "
+               f"{'identical' if rewritten == written else 'differs'}")
+    return {"workload": wl, "schedules": rows, "reference_s": ref_s, "seconds_per_run_median":
+            statistics.median(per_schedule), "per_site": per_site,
+            "decode_launches": {"split": split, "combine": combine, "replays": replays},
+            "memory_first_last": [mem[0], mem[-1]] if mem else None,
+            "search": {"schedules": CHAOS_SEARCH, "seed": CHAOS_SEED, "planted_site": CHAOS_PLANTED_SITE,
+                       "tripped": len(row["violations"]), "first": {k: v[k] for k in ("schedule_index", "entries",
+                                                                                      "minimal_entries")},
+                       "seconds": search_s, "replay_digest_match": rep["digest_match"]}}, split, combine
+
+
+def elastic_chaos_phase(dev, smi, model=None):
+    """Phase 23: (a) the launch stack, (b)/(c) the elastic agent's crash and
+    hang drills, (d) chaos schedules over real replicas and a fake-fleet
+    search. ``model="tiny"`` rehearses the control flow on the CPU."""
+    cuda = dev.type == "cuda"
+    model = model or "gpt2"
+    cfg, ds = elastic_model(model)
+    device = "cuda" if cuda else "cpu"
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.empty_cache()  # the workers share the card with this process
+    with tempfile.TemporaryDirectory(prefix="dstt_elastic_") as root:
+        hostfile = os.path.join(root, "hostfile")
+        with open(hostfile, "w") as f:
+            f.write("localhost slots=1\n")
+        print("  (a) the launch stack: python -m deepspeed_tpu_torch.launcher.runner --hostfile <localhost slots=1>")
+        launch, flash_a, xent_a, sparse_a = _launch_stack(root, hostfile, model, device, cfg, cuda)
+        print("  (b)/(c) DSElasticAgent over that hostfile: the crash drill and the hang drill")
+        drills, gens = _elastic_drills(root, hostfile, model, device, cfg, ds, cuda)
+    flash_b, xent_b, sparse_b, _ = _check_step_launches(gens, cfg, cuda)
+    _check(all(g["built"] == [] and g["device"].startswith(device) for g in gens),
+           "every generation on the intended device, loading the built kernels (no worker compiled a source)",
+           f"{len(gens)} generations on {sorted({g['device'] for g in gens})}")
+    elastic = {"launch": launch, **drills, "config": {"elasticity": ds["elasticity"], "model": model},
+               "flash_launches": [a + b for a, b in zip(flash_a, flash_b)],
+               "xent_launches": [a + b for a, b in zip(xent_a, xent_b)],
+               "sparse_launches": [a + b for a, b in zip(sparse_a, sparse_b)]}
+    print(f"  [{smi}] workers' kernel launches (flash fwd, dK/dV, dQ) {elastic['flash_launches']}, fused loss (fwd, "
+          f"combine, ds, dW, dH) {elastic['xent_launches']}, sparse (fwd, dQ, dK/dV) {elastic['sparse_launches']}")
+    print(json.dumps({"elastic": elastic}))
+    print("  (d) chaos: ChaosRunner over real ServingEngine replicas, then a fake-fleet search with a planted oracle")
+    chaos_cfg = TransformerConfig(**GPT2_SPEC) if cuda else TransformerConfig(
+        **{k: v for k, v in ELASTIC_TINY.items() if k not in ("attn_impl", "loss_impl")})
+    chaos_out, split, combine = _chaos(dev, smi, chaos_cfg)
+    chaos_out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"chaos": chaos_out}))
+    print(f"  phase 23: {chaos_out['phase_s']:.1f} s")
+    return {"flash": elastic["flash_launches"], "xent": elastic["xent_launches"],
+            "sparse": elastic["sparse_launches"], "decode": (split, combine),
+            "seconds": chaos_out["phase_s"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace a short generate and a train_batch into DIR")
+    # phase 23's training process (chip_smoke.py is its own worker)
+    ap.add_argument("--elastic-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--model", default="gpt2", choices=("gpt2", "tiny"), help=argparse.SUPPRESS)
+    ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--steps", type=int, default=6, help=argparse.SUPPRESS)
+    ap.add_argument("--save-dir", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=os.devnull, help=argparse.SUPPRESS)
+    ap.add_argument("--crash-after", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--hang-after", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.elastic_worker:
+        return elastic_worker(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on a GPU", file=sys.stderr)
         return 1
@@ -4345,6 +4881,13 @@ def main() -> int:
           f"decode worker processes over TCP with a prefill SIGKILLed mid-handoff, per-pool autoscaling under the "
           f"surge trace, the SLO tracker and the rings")
     disagg = disagg_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    print("[23] the launch stack, elastic training and the chaos conductor at GPT-2-125M width: the runner -> "
+          "launch -> a training worker (and SIGTERM to a second launch), DSElasticAgent's crash and hang drills "
+          "resuming bitwise, 8 chaos schedules twice over 3 real ServingEngine replicas, a 64-schedule fake-fleet "
+          "search shrunk and replayed")
+    p23 = elastic_chaos_phase(dev, smi)
 
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -4358,6 +4901,7 @@ def main() -> int:
         "disagg_decode_replica_launches": disagg["decode_replicas"],
         "disagg_prefill_replica_launches": disagg["prefill_replicas"],
         "disagg_worker_launches": disagg["workers"],
+        "chaos_launches": p23["decode"][0], "chaos_combine_launches": p23["decode"][1],
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"], "library_ratio": times["library_ratio"],
@@ -4382,6 +4926,7 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library_ratio": t["library_ratio"],
             **{k: t[k] for k in ("library_fwd_bwd_less_fwd_ms", "library_fwd_bwd_less_fwd_ratio") if k in t},
             "resilience_launches": resilience["launches"][list(replaces).index(name)],
+            "elastic_worker_launches": p23["flash"][list(replaces).index(name)],
             "hgmma": sass.get(MAIN_PATH_KERNEL[name], {}).get("hgmma", 0),
             "registers": sass.get(MAIN_PATH_KERNEL[name], {}).get("registers"),
             "spill_stores": sass.get(MAIN_PATH_KERNEL[name], {}).get("spill_stores"),
@@ -4407,7 +4952,10 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "cublas_logits_ms": t["cublas_logits_ms"],
         }
-        r19 = resilience["launches"]
+        r19, w23 = resilience["launches"], p23["xent"]  # w23: product, combine, ds, dW, dH
+        entry["elastic_worker_launches"] = (
+            {"product": w23[0], "combine": w23[1]} if name == "fused_xent_forward"
+            else {"ds": w23[2], "dH" if name == "fused_xent_backward_dh" else "dW": w23[4 if name.endswith("dh") else 3]})
         entry["resilience_launches"] = (
             {"product": r19[4], "combine": r19[5]} if name == "fused_xent_forward"
             else {"ds": r19[6], "dH" if name == "fused_xent_backward_dh" else "dW": r19[8 if name.endswith("dh") else 7]})
@@ -4438,7 +4986,7 @@ def main() -> int:
                 "sparse_backward_dkdv": "deepspeed_tpu/ops/sparse_attention/kernels.py:192"}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_ratio", "dense_flash_ms",
              "dense_flash_ratio", "tflops")
-    for (name, where), n in zip(replaces.items(), sparse_launches):
+    for i, ((name, where), n) in enumerate(zip(replaces.items(), sparse_launches)):
         t, e, bb = sparse_times[name], sparse_errs[name], bigbird_times[name]
         built = sparse_sass.get(SPARSE_MAIN_PATH[name], {})
         kernels.append({
@@ -4452,6 +5000,7 @@ def main() -> int:
             "kernel": SPARSE_MAIN_PATH[name], "hgmma": built.get("hgmma", 0), "registers": built.get("registers"),
             "spill_stores": built.get("spill_stores"),
             "bigbird128": {k: bb[k] for k in timed},
+            "elastic_worker_launches": p23["sparse"][i],  # counted in the workers; the model is dense
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"training": training}))

@@ -18,6 +18,7 @@ import torch
 from ..models import transformer as tfm
 from ..models.transformer import Model, TransformerConfig
 from ..utils.logging import log_dist
+from ..utils.world import refuse_multi_process_world
 from .sampling import SamplerConfig, sample_logits, update_seen
 
 _DTYPES = {
@@ -44,6 +45,7 @@ def resolve_device(device=None) -> torch.device:
 class InferenceEngine:
     def __init__(self, model: Model | None = None, config: dict | None = None,
                  params: dict | None = None, device=None):
+        refuse_multi_process_world("deepspeed_tpu_torch.init_inference")
         config = dict(config or {})
         tp_size = config.get("tensor_parallel", {}).get("tp_size", config.get("mp_size", 1))
         if tp_size > 1:

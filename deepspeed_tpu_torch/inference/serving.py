@@ -88,7 +88,7 @@ import torch
 from ..models import transformer as tfm
 from ..ops import op_builder
 from ..ops.decode_attention import decode_attention
-from ..resilience import FaultInjector, RequestRejected
+from ..resilience import FaultInjector, RequestRejected, RpcConnectionLost
 from ..runtime.config import (ChunkedPrefillConfig, FaultInjectionConfig,
                               IncidentConfig, PrefixCacheConfig,
                               RequestTraceConfig, SLOConfig, SpeculationConfig,
@@ -853,6 +853,7 @@ class ServingEngine:
                 f"{engine.max_out_tokens})")
         self.min_bucket = int(min_prefill_bucket)
         self.worker = SlotWorker(engine, self.telemetry, self.n_slots, self.budget, seed, pc)
+        self.closed = False  # close() released the device state: a dead replica
         self.Smax = self.worker.Smax
 
         self._pfx: Optional[PrefixIndex] = None
@@ -1248,7 +1249,12 @@ class ServingEngine:
     def live_requests(self) -> list[Request]:
         """Accepted, non-terminal requests in scheduler order (queued, then
         mid-prefill, then decoding): what a Router fails over when this
-        replica is declared dead or hung."""
+        replica is declared dead or hung. A closed replica is a lost one: it
+        raises ``RpcConnectionLost``, as a dead worker's client does, so a
+        control plane restarted over it (the chaos conductor's recovery)
+        reconciles nothing with it and declares it dead at its first step."""
+        if self.closed:
+            raise RpcConnectionLost(f"replica {self.replica_id} is closed: its device state was released")
         out = list(self._queue)
         out.extend(pf.req for _, pf in sorted(self._prefilling.items()))
         # parked handoffs are accepted and non-terminal: a dead prefill
@@ -2027,6 +2033,8 @@ class ServingEngine:
         Returns the uids that reached a TERMINAL state since the last step()
         returned. ``enforce_deadlines=False`` (drain) skips the sweep and
         the queue bound."""
+        if self.closed:
+            raise RpcConnectionLost(f"replica {self.replica_id} is closed: its device state was released")
         if now is None:
             now = time.perf_counter() - self._epoch
         self.worker.step_compiled = False  # a fresh heartbeat window
@@ -2131,7 +2139,9 @@ class ServingEngine:
         """Release this replica's device memory (``SlotWorker.release``): a
         Router calls it when it declares the replica dead. Host state
         (results, counters, the request trace) stays readable; the engine
-        steps no more."""
+        steps no more (``step`` and ``live_requests`` raise
+        ``RpcConnectionLost``)."""
+        self.closed = True
         self.worker.release()
 
     def prefix_cache_stats(self) -> Optional[dict]:

@@ -13,10 +13,15 @@ training and serving parts):
   * ``retry``       — bounded exponential backoff with seeded jitter around
                       checkpoint saves;
   * ``heartbeat``   — the supervisors' monotonic heartbeat-file judge;
+  * ``invariants``  — the fleet's oracles (zero accepted loss, terminal
+                      conservation, exactly-once failover, ...);
+  * ``chaos``       — seeded fault schedules over the fleet, judged by the
+                      oracles, with a delta-debugging shrink and replayable
+                      reproducers (its names load on first use, so
+                      ``python -m deepspeed_tpu_torch.resilience.chaos``
+                      runs the module once);
   * typed errors    — ``errors`` (a copy of the JAX package's), the
                       fleet's RPC and journal errors among them.
-
-The fleet's invariants and chaos conductor are not ported yet.
 """
 
 from .errors import (  # noqa: F401
@@ -43,3 +48,14 @@ from .guardrails import TrainingGuardrail  # noqa: F401
 from .heartbeat import HeartbeatJudge  # noqa: F401
 from .preemption import PreemptionGuard  # noqa: F401
 from .retry import RetryPolicy, backoff_delay, retry_call  # noqa: F401
+
+_CHAOS = ("ChaosOutcome", "ChaosRunner", "DEFAULT_WORKLOAD", "FAKE_SITES", "FaultEntry", "FaultSchedule",
+          "derive_seed", "replay_repro", "search", "shrink_schedule", "write_repro")
+
+
+def __getattr__(name):
+    if name in _CHAOS:
+        from . import chaos
+
+        return getattr(chaos, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -950,9 +950,9 @@ class RetryConfig:
 
 @dataclass
 class ChaosConfig:
-    """``resilience.chaos``: the fleet's seeded fault-schedule search. It
-    parses, so one config serves both packages; the port has no search to
-    run until ``resilience/chaos.py`` is ported."""
+    """``resilience.chaos``: the fleet's seeded fault-schedule search, run
+    by ``resilience/chaos.py`` (``search``; ``python -m
+    deepspeed_tpu_torch.resilience.chaos --search N``)."""
 
     n_schedules: int = 64
     seed: int = 0
@@ -1093,10 +1093,29 @@ class TelemetryConfig:
                 raise NotImplementedError(f"telemetry.{name} is not ported to deepspeed_tpu_torch yet")
 
 
+@dataclass
+class ElasticityConfig:
+    """The ``elasticity`` block (DeepSpeed's ``elasticity/config.py``):
+    ``elasticity.compute_elastic_config`` solves it, the engine enforces
+    the solution at its world size, and ``DSElasticAgent`` relaunches
+    workers on it."""
+
+    enabled: bool = False
+    max_train_batch_size: int = 2000
+    micro_batch_sizes: list = field(default_factory=lambda: [2, 4, 6])
+    min_gpus: int = 1
+    max_gpus: int = 10000
+    min_time: int = 0
+    version: float = 0.1
+    ignore_non_elastic_batch_info: bool = False
+    prefer_larger_batch: bool = True
+    model_parallel_size: int = 1
+    num_gpus_per_node: int = 1
+
+
 # Blocks whose ``enabled`` flag selects a path the port does not have yet,
 # and top-level flags that do so when true.
-_UNPORTED_BLOCKS = (C.FLOPS_PROFILER, "eigenvalue", C.ELASTICITY, C.MONITOR_TENSORBOARD, C.MONITOR_WANDB,
-                    C.COMMS_LOGGER)
+_UNPORTED_BLOCKS = (C.FLOPS_PROFILER, "eigenvalue", C.MONITOR_TENSORBOARD, C.MONITOR_WANDB, C.COMMS_LOGGER)
 _UNPORTED_FLAGS = (C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN, C.DUMP_STATE)
 
 
@@ -1126,6 +1145,7 @@ class DeepSpeedConfig:
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     csv_monitor: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    elasticity: ElasticityConfig = field(default_factory=ElasticityConfig)
 
     raw: dict = field(default_factory=dict, repr=False)
 
@@ -1161,6 +1181,7 @@ class DeepSpeedConfig:
             resilience=_build(ResilienceConfig, _sub(d, C.RESILIENCE)),
             csv_monitor=_build(MonitorBackendConfig, _sub(d, C.MONITOR_CSV)),
             telemetry=_build(TelemetryConfig, _sub(d, C.TELEMETRY)),
+            elasticity=_build(ElasticityConfig, _sub(d, C.ELASTICITY)),
             raw=d,
         )
         cfg._triangulate_batch(world_size)

@@ -64,6 +64,7 @@ from ..resilience import (CheckpointCorruptError, CheckpointNotFoundError, Fault
 from ..resilience.preemption import PreemptionGuard, activate_guard, reap_orphaned_guard
 from ..telemetry import MonitorBridge, Telemetry, hbm_snapshot, tree_bytes
 from ..utils.logging import log_dist, logger
+from ..utils.world import refuse_multi_process_world
 from . import activation_checkpointing as act_ckpt
 from .checkpoint_engine.checkpoint_engine import get_checkpoint_engine
 from .config import DeepSpeedConfig
@@ -105,6 +106,7 @@ def _to_device(x, device):
 
 class DeepSpeedEngine:
     def __init__(self, model, config, params: Optional[dict] = None, device=None):
+        self.dp_world = refuse_multi_process_world("deepspeed_tpu_torch.initialize")
         if isinstance(config, str):
             config = DeepSpeedConfig.from_file(config, world_size=1)
         elif isinstance(config, dict):
@@ -119,6 +121,7 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.global_samples = 0
         self._seed = int(config.seed)  # dropout/layer-drop stream; restored by load_checkpoint
+        self._enforce_elasticity(config.raw)
 
         self.training_dataloader = None  # set by deepspeed_io / set_dataloader
         self._dl_cursor = None  # the loader's cursor at the last COMPLETED step
@@ -225,6 +228,37 @@ class DeepSpeedEngine:
         log_dist(f"engine ready: {n_params / 1e6:.1f}M params, zero_stage={self.zero_stage}, "
                  f"device={self.device}, micro_bs={self.micro_batch_size}, "
                  f"gas={self.gradient_accumulation_steps}, dtype={config.compute_dtype}", ranks=[0])
+
+    def _enforce_elasticity(self, raw) -> None:
+        """The elastic batch contract (JAX ``engine.py:693``): with
+        ``elasticity.enabled`` the batch sizes must be the elastic solution
+        at this engine's world. ``ignore_non_elastic_batch_info`` makes the
+        solution replace the configured sizes; otherwise a mismatch raises
+        ``ElasticityError``."""
+        el = raw.get("elasticity", {}) if isinstance(raw, dict) else {}
+        if not el.get("enabled"):
+            return
+        from ..elasticity import ElasticityError, compute_elastic_config
+
+        final_batch, valid_gpus, micro = compute_elastic_config({"elasticity": el}, world_size=self.dp_world)
+        if el.get("ignore_non_elastic_batch_info", False):
+            self.train_batch_size = final_batch
+            self.micro_batch_size = micro
+            self.gradient_accumulation_steps = max(1, final_batch // (micro * self.dp_world))
+            self.config.train_batch_size = final_batch
+            self.config.train_micro_batch_size_per_gpu = micro
+            self.config.gradient_accumulation_steps = self.gradient_accumulation_steps
+            log_dist(f"elasticity: overriding configured batch sizes with the elastic solution "
+                     f"train={final_batch}, micro={micro}, gas={self.gradient_accumulation_steps} for world "
+                     f"{self.dp_world}", ranks=[0])
+            return
+        if self.train_batch_size != final_batch:
+            raise ElasticityError(
+                f"elastic training requires train_batch_size={final_batch} at "
+                f"world size {self.dp_world} (valid worlds: {valid_gpus}); config "
+                f"has {self.train_batch_size}. Set elasticity."
+                f"ignore_non_elastic_batch_info to override."
+            )
 
     @property
     def _dropout_enabled(self) -> bool:
@@ -587,8 +621,8 @@ class DeepSpeedEngine:
         """Save the engine state to ``save_dir/tag`` (default
         ``global_step<N>``), atomically, and point ``save_dir/latest`` at it
         once it is durable. The client state carries the host's trajectory
-        (steps, samples, skipped steps, the dropout seed, the batch sizes,
-        the guardrail's streak), so train k + save + load + train n−k draws
+        (steps, samples, skipped steps, the dropout seed, the data-parallel
+        world and the batch sizes, the guardrail's streak), so train k + save + load + train n−k draws
         the masks of train n (they follow the saved device step). With ``resilience.enabled`` a
         synchronous save is retried under ``resilience.retry`` (a
         ``PermanentIOError`` is not); an async save returns after its
@@ -599,7 +633,7 @@ class DeepSpeedEngine:
         tag = tag or f"global_step{self.global_steps}"
         extra = dict(client_state or {})
         extra.update(global_steps=self.global_steps, global_samples=self.global_samples,
-                     skipped_steps=self.skipped_steps, rng_seed=self._seed,
+                     skipped_steps=self.skipped_steps, rng_seed=self._seed, dp_world=self.dp_world,
                      micro_batch_size=self.micro_batch_size, train_batch_size=self.train_batch_size)
         if self.training_dataloader is not None and self._dl_cursor is not None:
             extra["dataloader"] = dict(self._dl_cursor)
@@ -729,8 +763,16 @@ class DeepSpeedEngine:
         data replay is the caller's part), the curriculum's difficulty and
         the guardrail's streak. The masks are keyed on the loaded device
         step; an ``rng_step`` that older checkpoints of the port carry is
-        ignored."""
+        ignored. A checkpoint saved at another ``dp_world`` counts one
+        ``resilience/topology_changes``."""
         self._seed = int(client_state.get("rng_seed", self._seed))
+        saved_dp = int(client_state.get("dp_world", self.dp_world) or self.dp_world)
+        if saved_dp != self.dp_world:
+            self.telemetry.counter("resilience/topology_changes").inc()
+            log_dist(f"elastic resume: checkpoint saved at dp={saved_dp} "
+                     f"(micro={client_state.get('micro_batch_size', '?')}), live dp={self.dp_world} "
+                     f"(micro={self.micro_batch_size}): each leaf loads whole; the data cursor rescales "
+                     "through the global sample count", ranks=[0])
         if restore_dataloader and "dataloader" in client_state:
             dl = self.training_dataloader
             if dl is not None and hasattr(dl, "load_state_dict"):

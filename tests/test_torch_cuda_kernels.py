@@ -1271,3 +1271,68 @@ def test_bf16_windows_cross_a_tcp_worker(cuda_device, tmp_path):
             np.testing.assert_array_equal(res[r.uid].tokens, ref[r.uid].tokens)
     finally:
         sup.shutdown()
+
+
+_ELASTIC_WORKER = """
+import json, os, signal, sys
+import numpy as np
+import torch
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models import transformer as tfm
+save, out, steps, crash = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+cfg = tfm.TransformerConfig(vocab_size=97, max_seq_len=128, num_layers=2, num_heads=4, hidden_size=64,
+                            dtype=torch.bfloat16, attn_impl="flash", loss_impl="fused_xent")
+ds = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+      "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}, "steps_per_print": 1000000,
+      "elasticity": {"enabled": True, "max_train_batch_size": 8, "micro_batch_sizes": [2, 4], "max_gpus": 8,
+                     "ignore_non_elastic_batch_info": True}}
+eng = deepspeed_tpu_torch.initialize(model=tfm.Model(cfg), config=ds)[0]  # the card by default
+assert eng.device.type == "cuda" and (eng.train_batch_size, eng.micro_batch_size) == (8, 4)
+if save != "-" and os.path.exists(os.path.join(save, "latest")):
+    eng.load_checkpoint(save)
+gen = int(os.environ.get("DSTPU_ELASTIC_GENERATION", "0"))
+hb = os.environ.get("DSTPU_ELASTIC_HEARTBEAT")
+for step in range(eng.global_steps, steps):
+    tokens = np.random.default_rng(100 + step).integers(0, 97, size=(8, 129)).astype(np.int32)
+    loss = float(eng.train_batch({"tokens": tokens})["loss"])
+    if hb:
+        os.utime(hb)
+    if save != "-":
+        eng.save_checkpoint(save)
+    with open(out, "a") as f:
+        f.write(json.dumps({"gen": gen, "step": step + 1, "loss": loss}) + "\\n")
+    if gen == 0 and step + 1 == crash:
+        os.kill(os.getpid(), signal.SIGKILL)
+"""
+
+
+def test_elastic_agent_relaunch_resumes_bitwise_on_the_card(cuda_device, tmp_path):
+    """A worker training a small bf16 model through the flash and fused-loss
+    kernels saves after every step and SIGKILLs itself after step 3; the
+    agent relaunches it, generation 1 loads 'latest' and trains to step 6,
+    and steps 4-6 give the losses of an uninterrupted 6-step process."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent, WorkerSpec
+
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
+    env = {"PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    straight = tmp_path / "straight.jsonl"
+    subprocess.run([sys.executable, "-c", _ELASTIC_WORKER, "-", str(straight), "6", "0"], check=True,
+                   env={**os.environ, **env}, timeout=600)
+    resumed = tmp_path / "resumed.jsonl"
+    ds = {"elasticity": {"enabled": True, "max_train_batch_size": 8, "micro_batch_sizes": [2, 4], "max_gpus": 8}}
+    agent = DSElasticAgent(ds, WorkerSpec(command=[sys.executable, "-c", _ELASTIC_WORKER, str(tmp_path / "ckpt"),
+                                                   str(resumed), "6", "3"], extra_env=env),
+                           static_world_size=1, monitor_interval=0.1, max_restarts=2,
+                           heartbeat_file=str(tmp_path / "hb"), heartbeat_timeout=300.0,
+                           restart_backoff={"base_delay_s": 0.0, "max_delay_s": 0.0, "jitter": 0.0})
+    assert agent.run() == 0 and agent.restart_count == 1
+    want = [json.loads(line) for line in straight.read_text().splitlines()]
+    got = [json.loads(line) for line in resumed.read_text().splitlines()]
+    assert [(r["gen"], r["step"]) for r in got] == [(0, 1), (0, 2), (0, 3), (1, 4), (1, 5), (1, 6)]
+    assert [r["loss"] for r in got] == [r["loss"] for r in want]  # bitwise, across processes

@@ -4,8 +4,9 @@ plain path only for CPU tensors. The no-JAX subprocess imports every module
 and runs a serving step, a two-replica Router with a journal through a
 replica's death, a disaggregated Router with the flight recorder on, a bf16
 KV window through the int8 codec with no ``ml_dtypes``, a flash training step and a block-sparse training step
-fed by the curriculum and the dataloader; the serving worker's
-``python -m`` entry point runs with JAX blocked too."""
+fed by the curriculum and the dataloader; the serving worker's, the
+launchers', the elastic inspector's and the chaos conductor's ``python -m``
+entry points run with JAX blocked too."""
 
 import ast
 import pathlib
@@ -121,6 +122,42 @@ def test_serving_worker_entry_point_runs_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "--device" in proc.stdout and "--socket" in proc.stdout
+
+
+_CLIS = """
+import json, os, runpy, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["deepspeed_tpu"] = None
+
+
+def run(module, *argv):
+    sys.argv = [module, *argv]
+    try:
+        runpy.run_module(module, run_name="__main__")
+    except SystemExit as e:
+        return e.code
+    return 0
+
+
+with tempfile.TemporaryDirectory() as d:
+    cfg = os.path.join(d, "ds.json")
+    with open(cfg, "w") as f:
+        json.dump({"elasticity": {"enabled": True, "max_train_batch_size": 64, "micro_batch_sizes": [8, 16]}}, f)
+    assert run("deepspeed_tpu_torch.elasticity", "-c", cfg, "-w", "4") == 0
+    assert run("deepspeed_tpu_torch.elasticity", "-c", cfg, "-w", "3") == 3
+    assert run("deepspeed_tpu_torch.resilience.chaos", "--search", "2", "--artifact-dir", d) == 0
+    assert run("deepspeed_tpu_torch.launcher.runner", "--help") == 0
+    assert run("deepspeed_tpu_torch.launcher.launch", "--help") == 0
+assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
+print("entry points ok")
+"""
+
+
+def test_launch_elastic_and_chaos_entry_points_run_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _CLIS], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "entry points ok" in proc.stdout
+    assert "micro_batch_per_chip=16" in proc.stdout and '"schedules_run": 2' in proc.stdout
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],

@@ -168,7 +168,7 @@ def test_config_parses_like_jax(name):
     {"optimizer": {"type": "OneBitAdam"}},
     {"flops_profiler": {"enabled": True}},
     {"activation_checkpointing": {"enabled": True, "cpu_checkpointing": True}},
-    {"elasticity": {"enabled": True}},
+    {"eigenvalue": {"enabled": True}},  # elasticity is ported: tests/test_torch_elastic_engine.py
     {"telemetry": {"enabled": True}},
     {"mesh": {"data": 2}},
 ])

@@ -240,6 +240,26 @@ Phases, each of which passes or makes the script exit non-zero:
      64-schedule fake-fleet ``search`` with a planted oracle on
      ``garbage_logits``, shrunk to a reproducer that no single entry can
      leave, which ``replay_repro`` re-executes bit-identically.
+ 24. the memory tiers (runtime/zero/): (a) phase 7's configuration with
+     zero_optimization.offload_optimizer cpu against none, from the same
+     seeded weights: the fp32 masters and Adam moments in pinned host
+     memory, the update on the host in place, the bf16 copy back to the
+     card; step ms and peak memory of each beside the estimator's HBM and
+     host figures, the first three losses within the CPU parity test's
+     rtol 2e-2, 48 launches of each flash kernel a train_batch; (b)
+     offload_param cpu on it: the parameters stream from pinned host memory
+     a layer at a time (the backward streams each layer again), the
+     gradients go to the host; its host-to-device and device-to-host bytes
+     a step against the reckoning; (c) offload_optimizer and offload_param
+     nvme under a temporary directory: the NVMe tier's read and write GB/s
+     from its own byte counts and clock, then save -> a fresh engine loads
+     -> one step, bitwise the uninterrupted engine's; (d) GPT-3 6.7B widths
+     (32 layers, d_model 4096, 32 heads, 2048 positions, vocab 50304, the
+     fused loss), whose 16P bytes exceed the card's free memory: host
+     MemAvailable and the disk's free bytes decide the tier (cpu when host
+     memory holds 12P and the buffers, else nvme; depth cut only as far as
+     both force), one train_batch, its seconds, the host update's, peak HBM
+     against the estimator's 2P + 4P.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
 line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, an
 ``{"elastic": {...}}`` line, a ``{"chaos": {...}}`` line, a
@@ -282,6 +302,7 @@ from deepspeed_tpu_torch.ops.sparse_attention import SPARSITY_CONFIGS
 from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
 from deepspeed_tpu_torch.resilience import PermanentIOError, PreemptionSignal, install_injector
 from deepspeed_tpu_torch.resilience.preemption import deactivate_guard
+from deepspeed_tpu_torch.runtime.swap_tensor import flatten
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (the kernel's math)
@@ -4729,6 +4750,320 @@ def elastic_chaos_phase(dev, smi, model=None):
             "seconds": chaos_out["phase_s"]}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 24: the memory tiers
+# ---------------------------------------------------------------------------
+
+# cpu-tier losses against the unoffloaded run's: the CPU parity test's
+# tolerance (tests/test_torch_offload.py, JAX's own rtol 2e-2)
+TIER_LOSS_RTOL = 2e-2
+TIER_STEPS = 3  # timed steps after one warm-up; the first three losses are compared
+# GPT-3 6.7B (Brown et al. 2020, Table 2.1): 32 layers, d_model 4096, 32
+# heads of 128, 2048 positions; vocab 50304 (bench.py's padding)
+GPT3_67B = dict(vocab_size=50304, max_seq_len=2048, num_layers=32, num_heads=32, hidden_size=4096,
+                pos_emb="learned", tie_embeddings=True, dtype=torch.bfloat16, attn_impl="flash",
+                loss_impl="fused_xent")
+HOST_MARGIN = 4 << 30  # host bytes left to the process and the system beside a tier's buffers
+
+
+def tier_ds(off_opt="none", off_param="none", nvme_path="", base=None, **over):
+    ds = json.loads(json.dumps(base or BENCH_DS))
+    z = ds["zero_optimization"]
+    if off_opt != "none":
+        z["offload_optimizer"] = {"device": off_opt, "nvme_path": nvme_path}
+    if off_param != "none":
+        z["offload_param"] = {"device": off_param, "nvme_path": nvme_path}
+    ds.update(over)
+    return ds
+
+
+def mem_available() -> int:
+    """The host's MemAvailable in bytes (/proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def tier_run(label, model_cfg, ds, params, batch, steps=TIER_STEPS):
+    """initialize -> one warm-up and ``steps`` timed train_batch calls ->
+    (result, engine). Peak memory over the timed steps; each step's flash
+    launches; the streamer's and the cpu tier's copy bytes per step."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.initialize(model=Model(model_cfg), config=ds,
+                                            model_parameters=tree_map(torch.clone, params))[0]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, per_step = [], []
+    t0 = time.perf_counter()
+    losses.append(float(engine.train_batch(batch)["loss"]))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    tier = engine.tier
+    bytes0 = copy_bytes(engine)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        before = counts()
+        losses.append(float(engine.train_batch(batch)["loss"]))
+        per_step.append([a - b for a, b in zip(counts(), before)])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    h2d, d2h = [(b - a) / steps for a, b in zip(bytes0, copy_bytes(engine))]
+    res = {"init_s": init_s, "warmup_s": warm_s, "step_ms": step_s * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses,
+           "launches_per_train_batch": per_step[0], "h2d_bytes_per_step": h2d, "d2h_bytes_per_step": d2h,
+           "host_update_s": tier.stats["update_s"] if tier is not None else None,
+           "host_buffers_gib": tier.stats["pinned_bytes"] / 2**30 if tier is not None else None}
+    print(f"  {label}: init {init_s:.2f} s, warm-up {warm_s:.2f} s, {res['step_ms']:.1f} ms/step, peak "
+          f"{res['peak_gib']:.2f} GiB, losses {[round(x, 4) for x in losses]}, launches per train_batch "
+          f"{COUNT_LABEL_9} {per_step[0]}" + (f", host update {res['host_update_s']:.3f} s, H2D {h2d / 1e6:.1f} MB "
+                                              f"and D2H {d2h / 1e6:.1f} MB a step" if tier is not None else ""))
+    return res, engine
+
+
+def copy_bytes(engine):
+    """(host-to-device, device-to-host) bytes the tier has copied so far."""
+    tier = engine.tier
+    if tier is None:
+        return 0, 0
+    h2d, d2h = tier.stats["h2d_bytes"], tier.stats["d2h_bytes"]
+    if tier.streamer is not None:
+        h2d, d2h = h2d + tier.streamer.h2d_bytes, d2h + tier.streamer.d2h_bytes
+    return h2d, d2h
+
+
+def _tier_fail(what):
+    raise SystemExit(f"phase 24: {what}")
+
+
+def memory_tiers_phase(dev, smi, big_layers=None):
+    """Phase 24: (a) the cpu tier against no offload at phase 7's
+    configuration, (b) offload_param cpu, (c) the NVMe tier with save ->
+    load -> step bitwise, (d) one step of GPT-3 6.7B widths whose 16P
+    bytes of state exceed the card's free memory. Returns its record; every
+    failed check exits non-zero."""
+    from deepspeed_tpu_torch.runtime.zero import count_params, estimate_zero1_model_states_mem_needs
+
+    out = {"card": smi}
+    cfg = gpt2_config()
+    P = count_params(Model(cfg))
+    L, gas = cfg.num_layers, BENCH_DS["gradient_accumulation_steps"]
+    params = tfm.init(cfg, torch.Generator(device=dev).manual_seed(24), dev)
+    B = BENCH_DS["train_batch_size"]
+    batch = {"tokens": np.random.default_rng(24).integers(0, cfg.vocab_size, size=(B, cfg.max_seq_len + 1)
+                                                          ).astype(np.int32)}
+    expect = [L * gas] * 3 + [0] * (N_COUNTS - 3)
+
+    # (a) the cpu tier against no offload
+    print(f"  (a) GPT-2-125M ({P} params), phase 7's configuration, offload_optimizer none vs cpu; {smi}")
+    plain, eng = tier_run("no offload", cfg, tier_ds(), params, batch)
+    del eng
+    cpu, eng = tier_run("offload_optimizer cpu", cfg, tier_ds("cpu"), params, batch)
+    pinned = all(t.is_pinned() for t in tree_leaves(eng.state["master"]) + tree_leaves(eng.state["opt"]))
+    del eng
+    est_plain = estimate_zero1_model_states_mem_needs(P)
+    est_cpu = estimate_zero1_model_states_mem_needs(P, offload_optimizer=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(cpu["losses"][:3], plain["losses"][:3]))
+    ok = (rel <= TIER_LOSS_RTOL and pinned and all(np.isfinite(cpu["losses"]))
+          and cpu["launches_per_train_batch"] == expect and plain["launches_per_train_batch"] == expect)
+    out["a"] = {"params": P, "plain": plain, "cpu": cpu, "loss_max_rel_err": rel, "loss_rtol": TIER_LOSS_RTOL,
+                "estimate_hbm_gib": {"plain": est_plain.per_chip_hbm / 2**30, "cpu": est_cpu.per_chip_hbm / 2**30},
+                "estimate_dram_gib": {"plain": est_plain.per_host_dram / 2**30, "cpu": est_cpu.per_host_dram / 2**30}}
+    print(f"  (a) estimator: HBM {est_plain.per_chip_hbm / 2**30:.2f} -> {est_cpu.per_chip_hbm / 2**30:.2f} GiB, "
+          f"host DRAM 0 -> {est_cpu.per_host_dram / 2**30:.2f} GiB (model states only); measured peak "
+          f"{plain['peak_gib']:.2f} -> {cpu['peak_gib']:.2f} GiB; step {plain['step_ms']:.1f} -> "
+          f"{cpu['step_ms']:.1f} ms; losses max rel err {rel:.2e} (tol {TIER_LOSS_RTOL}); master and moments "
+          f"pinned {pinned}; {L} x {gas} = {L * gas} launches of each flash kernel a train_batch  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        _tier_fail("the cpu tier disagrees with the unoffloaded run")
+
+    # (b) offload_param: the parameters stream from host memory a layer at a time
+    param, eng = tier_run("offload_param cpu", cfg, tier_ds("cpu", "cpu"), params, batch)
+    del eng
+    # reckoned per step: each micro-batch streams the bf16 parameters in for
+    # the forward (2P bytes) and the layers' again for the backward (2P_L;
+    # the top-level leaves stay for it), sends its fp32 gradients out (4P)
+    # and, after the first, reads the running sum back in (4P)
+    P_L = sum(t.numel() for t in tree_leaves(params["layers"]))
+    e = torch.empty((), dtype=cfg.dtype).element_size()  # 2: bf16
+    reckon_h2d, reckon_d2h = gas * (e * P + e * P_L) + (gas - 1) * 4 * P, gas * 4 * P
+    rel_b = max(abs(a - b) / abs(b) for a, b in zip(param["losses"][:3], cpu["losses"][:3]))
+    ok = (rel_b <= TIER_LOSS_RTOL and param["launches_per_train_batch"] == expect
+          and abs(param["h2d_bytes_per_step"] - reckon_h2d) <= 0.01 * reckon_h2d
+          and abs(param["d2h_bytes_per_step"] - reckon_d2h) <= 0.01 * reckon_d2h)
+    out["b"] = {**param, "loss_max_rel_err_vs_cpu": rel_b, "reckoned_h2d_bytes": reckon_h2d,
+                "reckoned_d2h_bytes": reckon_d2h, "2P": 2 * P, "4P": 4 * P, "2P_layers": 2 * P_L}
+    print(f"  (b) H2D {param['h2d_bytes_per_step']:.0f} bytes a step against the reckoned "
+          f"{reckon_h2d} (= {gas} x (2P + 2P_L) + {gas - 1} x 4P; 2P = {e * P}, the layers' 2P_L = {e * P_L}); "
+          f"D2H {param['d2h_bytes_per_step']:.0f} against {reckon_d2h} (= {gas} x 4P); peak "
+          f"{param['peak_gib']:.2f} GiB against the cpu tier's {cpu['peak_gib']:.2f}; losses vs the cpu tier max rel "
+          f"err {rel_b:.2e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _tier_fail("offload_param's step or its copies are off")
+
+    # (c) the NVMe tier, then save -> load -> one step bitwise
+    root = tempfile.mkdtemp(prefix="dstt-tiers-")
+    try:
+        out["c"] = nvme_drill(cfg, params, batch, root, expect, gas, P)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) a model the card cannot hold
+    out["d"] = big_model_step(dev, smi, big_layers)
+    return out
+
+
+# the NVMe tier's I/O settings for phase 24: 8 aio threads (the host's
+# cores; the aio block's default is 1) and groups of 1e8 bytes of master,
+# so a step reads one group ahead and writes one behind
+NVME_AIO = {"thread_count": 8}
+NVME_SUB_GROUP = 100_000_000
+
+
+def nvme_drill(cfg, params, batch, root, expect, gas, P):
+    swap, ckpt = os.path.join(root, "swap"), os.path.join(root, "ckpt")
+    ds = tier_ds("nvme", "nvme", swap, aio=NVME_AIO)
+    ds["zero_optimization"]["sub_group_size"] = NVME_SUB_GROUP
+    res, eng = tier_run("offload_optimizer + offload_param nvme", cfg, ds, params, batch)
+    sw = eng.tier.nvme.swapper
+    read0, written0 = sw.bytes_read, sw.bytes_written
+    t0 = time.perf_counter()
+    eng.train_batch(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    upd = eng.tier.stats["update_s"]
+    rd, wr = sw.bytes_read - read0, sw.bytes_written - written0
+    res.update(step_read_bytes=rd, step_write_bytes=wr, host_update_s_measured=upd, groups=eng.tier.nvme.num_groups,
+               read_gbps=rd / upd / 1e9, write_gbps=wr / upd / 1e9, aio_threads=eng.config.aio.thread_count)
+    print(f"  (c) one more step {step_s:.2f} s: the tier read {rd / 1e9:.3f} GB and wrote {wr / 1e9:.3f} GB "
+          f"(12P = {12 * P / 1e9:.3f} GB each way) in its {upd:.3f} s update: {res['read_gbps']:.2f} GB/s read, "
+          f"{res['write_gbps']:.2f} GB/s written (the two overlap; {res['groups']} groups, {res['aio_threads']} aio "
+          f"threads), under {swap}")
+    eng.save_checkpoint(ckpt, tag="t")
+    loss_a = float(eng.train_batch(batch)["loss"])
+    after_a = {k: t.clone() for k, t in flatten(eng.state["params"])}
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds, model_parameters=tree_map(torch.clone, params))[0]
+    eng.load_checkpoint(ckpt)
+    load_s = time.perf_counter() - t0
+    loss_b = float(eng.train_batch(batch)["loss"])
+    after_b = dict(flatten(eng.state["params"]))
+    bitwise = loss_a == loss_b and all(torch.equal(after_a[k], after_b[k]) for k in after_a)
+    max_diff = max(float((after_a[k].float() - after_b[k].float()).abs().max()) for k in after_a)
+    step_count = eng.tier.nvme.step_count
+    eng.close()
+    del eng
+    ok = (bitwise and res["launches_per_train_batch"] == expect and np.isfinite(res["losses"]).all()
+          and rd == 12 * P and wr == 12 * P)
+    res.update(resume_bitwise=bitwise, resume_loss=loss_b, uninterrupted_loss=loss_a, engine_and_load_s=load_s,
+               nvme_step_count=step_count, resume_param_max_abs_diff=max_diff, groups=res.get("groups"))
+    print(f"  (c) save -> fresh engine + load ({load_s:.2f} s) -> one step: loss {loss_b:.6f} vs uninterrupted "
+          f"{loss_a:.6f}, parameters bitwise {bitwise} (max abs diff {max_diff:.3g}); the tier's clock {step_count}  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        _tier_fail("the NVMe tier's step, its I/O or its resume is off")
+    return res
+
+
+def big_model_step(dev, smi, big_layers=None):
+    """(d) GPT-3 6.7B widths: measure host memory and the disk first, take
+    the cpu tier if host memory holds 12P and the tier's buffers, else the
+    NVMe tier if the disk holds 12P, cutting depth only as far as both
+    force; train one step."""
+    from deepspeed_tpu_torch.runtime.zero import count_params, estimate_zero1_model_states_mem_needs
+    from deepspeed_tpu_torch.runtime.zero.offload import CHUNK
+
+    torch.cuda.empty_cache()
+    free_hbm, total_hbm = torch.cuda.mem_get_info()
+    avail = mem_available()
+    nvme_root = tempfile.mkdtemp(prefix="dstt-nvme-")
+    disk_free = shutil.disk_usage(nvme_root).free
+    layers = big_layers or GPT3_67B["num_layers"]
+    buffers = 2 * CHUNK * (4 + 2)
+
+    def fits(n_layers):
+        p = count_params(Model(TransformerConfig(**{**GPT3_67B, "num_layers": n_layers})))
+        if avail >= 12 * p + buffers + HOST_MARGIN:
+            return "cpu", p
+        if disk_free >= 12 * p + HOST_MARGIN:
+            return "nvme", p
+        return None, p
+
+    tier, P = fits(layers)
+    while tier is None and layers > 1:
+        layers -= 1
+        tier, P = fits(layers)
+    P32 = count_params(Model(TransformerConfig(**GPT3_67B)))
+    rec = {"free_hbm_bytes": free_hbm, "total_hbm_bytes": total_hbm, "mem_available_bytes": avail,
+           "nvme_path": nvme_root, "disk_free_bytes": disk_free, "params_32_layers": P32,
+           "16P_32_layers": 16 * P32, "layers": layers, "params": P, "tier": tier}
+    print(f"  (d) GPT-3 6.7B widths (Brown et al. 2020, Table 2.1; vocab 50304): {P32} params at 32 layers, 16P = "
+          f"{16 * P32 / 1e9:.1f} GB against {free_hbm / 1e9:.1f} GB free of the card's {total_hbm / 1e9:.1f}; host "
+          f"MemAvailable {avail / 1e9:.1f} GB, {disk_free / 1e9:.1f} GB free under {nvme_root}: tier {tier}, "
+          f"{layers} layers ({P} params, 12P = {12 * P / 1e9:.1f} GB); {smi}")
+    try:
+        if tier is None:
+            _tier_fail("neither host memory nor the disk holds one layer's optimizer state")
+        cfg = TransformerConfig(**{**GPT3_67B, "num_layers": layers})
+        ds = {"train_batch_size": 1, "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1.2e-4, "weight_decay": 0.1}},
+              "zero_optimization": {"stage": 1, "offload_optimizer": {"device": tier, "nvme_path": nvme_root},
+                                    "sub_group_size": NVME_SUB_GROUP * 10},
+              "aio": NVME_AIO, "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 1000000}
+        t0 = time.perf_counter()
+        params = tfm.init(cfg, torch.Generator(device=dev).manual_seed(67), dev)
+        torch.cuda.synchronize()
+        rec["init_params_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = deepspeed_tpu_torch.initialize(model=Model(cfg), config=ds, model_parameters=params)[0]
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rec["engine_s"] = time.perf_counter() - t0
+        rec["tier_host_buffers_gib"] = eng.tier.stats["pinned_bytes"] / 2**30
+        rec["tier_alloc_s"] = eng.tier.stats["pin_s"]
+        batch = {"tokens": np.random.default_rng(67).integers(0, cfg.vocab_size, size=(1, cfg.max_seq_len + 1)
+                                                              ).astype(np.int32)}
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        t0 = time.perf_counter()
+        m = eng.train_batch(batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        rec["step_s"] = time.perf_counter() - t0
+        rec["launches_per_train_batch"] = [a - b for a, b in zip(counts(), before)]
+        rec["host_update_s"] = eng.tier.stats["update_s"]
+        rec["peak_hbm_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        est = estimate_zero1_model_states_mem_needs(P, offload_optimizer=True)
+        rec["estimate_hbm_gib"], rec["estimate_dram_gib"] = est.per_chip_hbm / 2**30, est.per_host_dram / 2**30
+        rec["loss"], rec["overflow"] = loss, bool(m["overflow"])
+        eng.close()
+        del eng, m
+    finally:
+        shutil.rmtree(nvme_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ok = np.isfinite(loss) and not rec["overflow"] and 16 * P > free_hbm and rec["launches_per_train_batch"][:3] == [layers] * 3
+    print(f"  (d) initialize {rec['engine_s']:.1f} s (host buffers {rec['tier_host_buffers_gib']:.1f} GiB in "
+          f"{rec['tier_alloc_s']:.1f} s); one train_batch {rec['step_s']:.1f} s, of which the host update "
+          f"{rec['host_update_s']:.1f} s; loss {loss:.4f}; peak HBM {rec['peak_hbm_gib']:.2f} GiB against the "
+          f"estimator's {rec['estimate_hbm_gib']:.2f} GiB of model states (2P + 4P; activations excluded), host "
+          f"{rec['estimate_dram_gib']:.1f} GiB; launches {COUNT_LABEL_9} {rec['launches_per_train_batch']}  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        _tier_fail("the step of the model the card cannot hold failed")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace a short generate and a train_batch into DIR")
@@ -4888,6 +5223,20 @@ def main() -> int:
           "resuming bitwise, 8 chaos schedules twice over 3 real ServingEngine replicas, a 64-schedule fake-fleet "
           "search shrunk and replayed")
     p23 = elastic_chaos_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    print("[24] the memory tiers: ZeRO-Offload to pinned host memory and to NVMe, per-layer parameter streaming "
+          "at GPT-2-125M width against no offload, then one step of GPT-3 6.7B widths, whose 16 bytes a "
+          "parameter the card cannot hold")
+    t0 = time.perf_counter()
+    tiers = memory_tiers_phase(dev, smi)
+    tiers["phase_s"] = time.perf_counter() - t0
+    training["memory_tiers"] = tiers
+    print(f"  phase 24: {tiers['phase_s']:.1f} s")
+    tier_launches = {"a_cpu": tiers["a"]["cpu"]["launches_per_train_batch"],
+                     "b_offload_param": tiers["b"]["launches_per_train_batch"],
+                     "c_nvme": tiers["c"]["launches_per_train_batch"],
+                     "d_gpt3_6.7b": tiers["d"]["launches_per_train_batch"]}
 
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -4927,6 +5276,8 @@ def main() -> int:
             **{k: t[k] for k in ("library_fwd_bwd_less_fwd_ms", "library_fwd_bwd_less_fwd_ratio") if k in t},
             "resilience_launches": resilience["launches"][list(replaces).index(name)],
             "elastic_worker_launches": p23["flash"][list(replaces).index(name)],
+            "memory_tiers_launches_per_train_batch": {k: v[list(replaces).index(name)]
+                                                      for k, v in tier_launches.items()},
             "hgmma": sass.get(MAIN_PATH_KERNEL[name], {}).get("hgmma", 0),
             "registers": sass.get(MAIN_PATH_KERNEL[name], {}).get("registers"),
             "spill_stores": sass.get(MAIN_PATH_KERNEL[name], {}).get("spill_stores"),
@@ -4959,6 +5310,10 @@ def main() -> int:
         entry["resilience_launches"] = (
             {"product": r19[4], "combine": r19[5]} if name == "fused_xent_forward"
             else {"ds": r19[6], "dH" if name == "fused_xent_backward_dh" else "dW": r19[8 if name.endswith("dh") else 7]})
+        t24 = tier_launches["d_gpt3_6.7b"]  # the fused loss runs in (d)
+        entry["memory_tiers_launches_per_train_batch"] = (
+            {"product": t24[4], "combine": t24[5]} if name == "fused_xent_forward"
+            else {"ds": t24[6], "dH" if name == "fused_xent_backward_dh" else "dW": t24[8 if name.endswith("dh") else 7]})
         if name == "fused_xent_forward":
             fwd = xent_sass[XENT_MAIN_PATH["fwd"]]
             entry.update(

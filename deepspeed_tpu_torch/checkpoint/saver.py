@@ -135,11 +135,34 @@ def _save_array_durable(path: str, arr: np.ndarray) -> int:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    """A leaf's host array. A bfloat16 tensor (the memory tiers' compute-dtype
+    parameters) is written as its fp32 values, which hold it exactly: numpy
+    has no bfloat16, and the JAX loader casts an fp32 file to the manifest's
+    ``bfloat16`` where it cannot cast the raw ``<V2`` payload its own saver
+    writes."""
     if torch.is_tensor(leaf):
         if leaf.dtype == torch.bfloat16:
-            raise TypeError("bfloat16 leaves have no numpy dtype; the engine state is fp32/int32")
+            return leaf.detach().float().cpu().numpy()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(leaf) -> str:
+    """The manifest's dtype of a leaf, as the JAX package names it."""
+    if torch.is_tensor(leaf):
+        return str(leaf.dtype).rsplit(".", 1)[-1]
+    return str(np.asarray(leaf).dtype)
+
+
+def _leaf_tensor(arr: np.ndarray, entry: dict) -> torch.Tensor:
+    """A read leaf as a tensor of the manifest's dtype: a ``bfloat16`` leaf
+    is the JAX saver's raw 2-byte payload (``<V2``) or the port's fp32
+    values."""
+    if entry["dtype"] != "bfloat16":
+        return torch.from_numpy(arr)
+    if arr.dtype.itemsize == 2 and arr.dtype.kind == "V":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.asarray(arr, np.float32)).to(torch.bfloat16)
 
 
 def write_latest(path: str, tag: str) -> None:
@@ -227,8 +250,6 @@ class HostStaging:
             return out, None
         offsets, total = {}, 0
         for k, v in cuda.items():
-            if v.dtype == torch.bfloat16:
-                raise TypeError("bfloat16 leaves have no numpy dtype; the engine state is fp32/int32")
             offsets[k] = total
             total += -(-v.numel() * v.element_size() // 64) * 64  # 64-byte aligned views
         device = next(iter(cuda.values())).device
@@ -244,7 +265,8 @@ class HostStaging:
                 dst = self._buf[offsets[k]:offsets[k] + n].view(v.dtype).view(v.shape)
                 dst.copy_(v.detach(), non_blocking=True)
                 v.record_stream(self._stream)  # the memory is not reused before the copy ends
-                out[k] = dst.numpy()
+                # bfloat16 stays a tensor; the writer converts it (_to_numpy)
+                out[k] = dst if v.dtype == torch.bfloat16 else dst.numpy()
         event = torch.cuda.Event()
         event.record(self._stream)
         return out, event
@@ -275,7 +297,7 @@ def save_checkpoint(ckpt_dir: str, state, client_state: Optional[dict] = None,
     to_write = []
     for key, arr in arrays.items():
         fname = f"{key.replace('/', '_')}.full.npy"
-        manifest["leaves"][key] = {"dtype": str(arr.dtype), "shape": list(arr.shape), "file": fname}
+        manifest["leaves"][key] = {"dtype": _dtype_name(flat[key]), "shape": list(arr.shape), "file": fname}
         to_write.append((fname, arr))
 
     def write_files(errors):
@@ -283,7 +305,7 @@ def save_checkpoint(ckpt_dir: str, state, client_state: Optional[dict] = None,
             if event is not None:
                 event.synchronize()
             for fname, arr in to_write:
-                manifest["checksums"][fname] = _save_array_durable(os.path.join(stage_dir, fname), arr)
+                manifest["checksums"][fname] = _save_array_durable(os.path.join(stage_dir, fname), _to_numpy(arr))
         # dstpu: allow[broad-except] -- the async writer runs on its own thread: every failure kind (OSError, np.save's ValueError, MemoryError) is captured and re-raised by SaveHandle.wait(); a narrower clause would let one vanish with the thread and read as a saved checkpoint
         except Exception as e:
             errors.append(e)
@@ -315,7 +337,7 @@ def _read_leaf(ckpt_dir: str, entry: dict) -> np.ndarray:
     cover the leaf raise ``CheckpointCorruptError``."""
     if "file" in entry:
         return np.array(np.load(os.path.join(ckpt_dir, entry["file"]), mmap_mode="r"))
-    out = np.empty(entry["shape"], dtype=np.dtype(entry["dtype"]))
+    out = np.empty(entry["shape"], dtype=np.dtype("V2" if entry["dtype"] == "bfloat16" else entry["dtype"]))
     covered = 0
     for sh in entry["shards"]:
         sel = tuple(slice(lo, hi) for lo, hi in sh["index"])
@@ -412,7 +434,7 @@ def load_checkpoint(ckpt_dir: str, state_like, verify: bool = True):
         if entry is None:
             restored[key] = leaf
             continue
-        arr = torch.from_numpy(_read_leaf(ckpt_dir, entry))  # a fresh C-ordered array, 0-d kept 0-d
+        arr = _leaf_tensor(_read_leaf(ckpt_dir, entry), entry)  # a fresh C-ordered array, 0-d kept 0-d
         restored[key] = arr.to(leaf.device) if torch.is_tensor(leaf) else arr
     return _unflatten_like(state_like, restored), manifest.get("client_state", {})
 

@@ -28,6 +28,7 @@ keys them without a fetch.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -44,6 +45,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.fused_xent import fused_linear_xent
 from ..ops.sparse_attention import SPARSITY_CONFIGS, sparse_flash_attention
 from ..runtime.activation_checkpointing.checkpointing import REMAT_POLICIES, remat_context_fn
+from ..runtime.zero import param_offload
 
 Params = dict
 
@@ -94,9 +96,11 @@ class TransformerConfig:
     # Activation checkpointing over the layer stack: each layer (or each
     # group of ``remat_group`` layers) runs under torch.utils.checkpoint with
     # ``remat_policy`` (nothing_saveable | everything_saveable | dots_saveable
-    # | save_flash | dots_and_flash). ``remat_offload`` (cpu_checkpointing)
-    # and ``remat_partition_axis`` (partition_activations) raise: they belong
-    # to the memory tiers and to tensor parallelism.
+    # | save_flash | dots_and_flash). ``remat_offload`` (cpu_checkpointing):
+    # the saved layer boundaries go to (pinned) host memory; it composes
+    # with the named-residual policies (save_flash, nothing_saveable), as in
+    # the JAX package. ``remat_partition_axis`` (partition_activations)
+    # raises: it belongs to tensor parallelism.
     remat: bool = False
     remat_policy: str = "save_flash"
     remat_offload: bool = False
@@ -120,11 +124,14 @@ class TransformerConfig:
     moe_every: int = 0
     weight_bits: int = 0
     act_quant_bits: int = 0
+    # The ZeRO-Infinity parameter tier (the engine's offload_param,
+    # runtime/zero/param_offload.py): the parameters live in host memory,
+    # the top-level leaves are streamed to the device once at entry and each
+    # layer's slices one layer at a time; gradients go back to the host.
     param_offload: bool = False
 
     def __post_init__(self):
-        defaults = {"moe_every": 0, "weight_bits": 0, "act_quant_bits": 0, "param_offload": False,
-                    "remat_offload": False, "remat_partition_axis": ""}
+        defaults = {"moe_every": 0, "weight_bits": 0, "act_quant_bits": 0, "remat_partition_axis": ""}
         for name, default in defaults.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -535,9 +542,43 @@ def _remat_groups(cfg: TransformerConfig) -> list[range]:
     return [range(i, i + size) for i in range(0, L, size)]
 
 
+def _stream_top_level(cfg: TransformerConfig, params: Params, device) -> Params:
+    """Under ``param_offload``: the non-stacked leaves (embeddings, final
+    LayerNorm, head) on the device, once; ``layers`` stays on the host for
+    the loop to stream a layer at a time. Identity otherwise."""
+    if not cfg.param_offload:
+        return params
+    return param_offload.stream_top_level(params, device)
+
+
+def _layer_getter(cfg: TransformerConfig, params: Params, device) -> Callable[[int], dict]:
+    """``get(i)`` -> layer i's leaves: sliced from the device stacks, or
+    under ``param_offload`` streamed from the host ones."""
+    if cfg.param_offload:
+        return param_offload.layer_getter(params, device)
+    return _layers(params).__getitem__
+
+
+# The remat policies whose saved residuals are named, the only ones the JAX
+# package's cpu_checkpointing composes with (its _SAVED_NAMES)
+OFFLOADABLE_POLICIES = ("save_flash", "nothing_saveable")
+
+
+def _remat_region(cfg: TransformerConfig, device):
+    """The context each checkpointed region runs in: under ``remat_offload``
+    (cpu_checkpointing) the region's saved inputs, the layer boundaries, go
+    to host memory (pinned on a card) and come back for the recompute."""
+    if not cfg.remat_offload:
+        return contextlib.nullcontext()
+    if cfg.remat_policy not in OFFLOADABLE_POLICIES:
+        raise ValueError(f"cpu_checkpointing composes with named-residual remat policies "
+                         f"{sorted(OFFLOADABLE_POLICIES)}, not {cfg.remat_policy!r}")
+    return torch.autograd.graph.save_on_cpu(pin_memory=torch.device(device).type == "cuda")
+
+
 def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
           return_hidden: bool = False, rng=None,
-          step=None) -> torch.Tensor:
+          step=None, _top_streamed: bool = False) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] (fp32), or the final hidden
     states [B, S, d] (after the final LayerNorm) when ``return_hidden``.
     ``rng`` (a ``dropout_key`` on the tokens' device) enables dropout and
@@ -547,10 +588,15 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
     recompute replays them. ``step`` (int or 0-d tensor) drives the
     layer-drop schedule. With
     ``cfg.remat`` the layers run in checkpointed regions (``_remat_groups``)
-    under ``cfg.remat_policy``."""
+    under ``cfg.remat_policy`` (and, with ``cfg.remat_offload``, their saved
+    boundaries in host memory). Under ``cfg.param_offload`` the parameters
+    are on the host and stream in (``_top_streamed``: the caller streamed
+    the top-level leaves already, so the tied ``wte`` is streamed once)."""
     B, S = tokens.shape
     L = cfg.num_layers
     device = tokens.device
+    if not _top_streamed:
+        params = _stream_top_level(cfg, params, device)
     x, positions = embed(cfg, params, tokens, positions)
     keys = [None] * (L + 1) if rng is None else [_fold(rng, i) for i in range(L + 1)]
     x = _dropout(x, cfg.hidden_dropout, keys[L])
@@ -566,12 +612,12 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
         t = torch.as_tensor(0 if step is None else step, device=device).float()
         theta_t = cfg.pld_theta + (1.0 - cfg.pld_theta) * torch.exp(-cfg.pld_gamma * t)
         pld_keep = [1.0 - (i / max(1, L)) * (1.0 - theta_t) for i in range(L)]
-    layers = _layers(params)
+    layer = _layer_getter(cfg, params, device)
 
     def run(x, idx):
         for i in idx:
             is_local = bool(cfg.local_attn_layers[i]) if has_local else None
-            x = _layer_body(cfg, layers[i], x, bias, positions, attn_fn, is_local, local_bias,
+            x = _layer_body(cfg, layer(i), x, bias, positions, attn_fn, is_local, local_bias,
                             keys[i], pld_keep[i])
         return x
 
@@ -579,10 +625,15 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
     kw = {}
     if remat and (context_fn := remat_context_fn(cfg.remat_policy)) is not None:
         kw["context_fn"] = context_fn
+    region = _remat_region(cfg, device) if cfg.remat else contextlib.nullcontext()
     for idx in _remat_groups(cfg):
+        if not remat:
+            x = run(x, idx)
+            continue
         # preserve_rng_state=False: the masks are hashes of the layers'
         # keys, which the recompute hashes afresh
-        x = checkpoint(run, x, idx, use_reentrant=False, preserve_rng_state=False, **kw) if remat else run(x, idx)
+        with region:
+            x = checkpoint(run, x, idx, use_reentrant=False, preserve_rng_state=False, **kw)
     x = _final_ln(cfg, params, x)
     return x if return_hidden else _project(params, x)
 
@@ -719,6 +770,7 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
         )
     B, T = tokens.shape
     device = tokens.device
+    params = _stream_top_level(cfg, params, device)
     Smax = cache["k"].shape[2]
     pos = _on_device(pos, device).to(torch.int32)
     vector_pos = pos.ndim >= 1
@@ -735,7 +787,9 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
     use_decode_kernel = T == 1 and cfg.decode_attn == "kernel" and cfg.pos_emb != "alibi"
     write = _cache_writer(pos, write_pos, B, T, Smax, device)
     eps = cfg.layernorm_epsilon
-    for i, lp in enumerate(_layers(params)):
+    layer = _layer_getter(cfg, params, device)
+    for i in range(cfg.num_layers):
+        lp = layer(i)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps)
         q, k, v = _qkv_proj(cfg, lp, h, positions)
@@ -845,7 +899,9 @@ def causal_lm_loss(cfg: TransformerConfig, params: Params, batch: dict,
     {'input_ids', 'labels'}). ``rng`` (a ``dropout_key``) enables dropout
     for this step."""
     inputs, labels = split_batch(batch)
-    hidden = apply(cfg, params, inputs.long(), return_hidden=True, rng=rng, step=step)
+    # the top-level leaves streamed ONCE for the embedding and the tied head
+    params = _stream_top_level(cfg, params, inputs.device)
+    hidden = apply(cfg, params, inputs.long(), return_hidden=True, rng=rng, step=step, _top_streamed=True)
     return lm_loss_from_hidden(cfg, params, hidden, labels.long())
 
 

@@ -5,6 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``build/deepspeed_tpu_torch/`` beside the package, under a name keyed by the
 hash of the source and the flags: an edited source is rebuilt, an unchanged
 one is loaded as it is.
+
+``build_host`` does the same for a host-only C++ source under ``csrc/``
+(the NVMe tier's async-I/O engine, ``csrc/aio/dstpu_aio.cpp``) with
+``g++``; a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -81,6 +85,34 @@ def build_many(names) -> dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: _library(name)[1] for name in names}
+
+
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+
+def build_host(rel_source: str) -> Path:
+    """Compile the host C++ source ``csrc/<rel_source>`` with g++ into
+    ``build/deepspeed_tpu_torch/`` under a name keyed by the hash of the
+    source and the flags, once; returns the library path. Raises
+    ``RuntimeError`` with the compiler's stderr when the build fails (or
+    when there is no g++)."""
+    src = CSRC_DIR / rel_source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(HOST_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    if lib.exists():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {src} needs a C++ compiler")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
+    proc = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(src), "-lpthread"],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {src} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    # dstpu: allow[rename-durability] -- a build cache, as in build_many: the rename only keeps a concurrent builder from loading a partial file
+    os.replace(tmp, lib)
+    return lib
 
 
 def loaded_count() -> int:

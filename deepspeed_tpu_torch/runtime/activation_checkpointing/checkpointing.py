@@ -16,8 +16,13 @@ dots_and_flash both. The selective ones are ``torch.utils.checkpoint``
 selective-checkpoint contexts, which decide per dispatched op, which is why
 the flash forward is the custom op ``dstt::flash_attention_fwd``.
 
-Not ported: ``cpu_checkpointing`` (the memory tiers) and
-``partition_activations`` (tensor parallelism) raise;
+``cpu_checkpointing`` (the memory tier) moves a segment's saved inputs,
+the layer boundaries, to host memory (pinned on a card) through
+``torch.autograd.graph.save_on_cpu``, and they come back for the
+recompute: in the model (``remat_offload``) around each checkpointed
+region, and in ``checkpoint()`` with everything else recomputed, as the JAX
+package's policy offloads the inputs and saves nothing else. Not ported:
+``partition_activations`` (tensor parallelism) raises;
 ``contiguous_memory_optimization`` and ``synchronize_checkpoint_boundary``
 are accepted and recorded, as in the JAX package (the allocator owns the
 buffers).
@@ -157,17 +162,23 @@ def checkpoint(function: Callable, *args):
     (reference :743); an empty policy means nothing_saveable. The global RNG
     state is stashed and restored around the recompute
     (``preserve_rng_state``), so a segment that draws from it replays its
-    draws; the model's own layers draw from seeded generators instead."""
+    draws; the model's own layers draw from seeded generators instead.
+    With ``cpu_checkpointing`` the segment's inputs are saved in host memory
+    and everything else is recomputed."""
     cfg = get_config()
     cfg.check_ported()
-    policy = cfg.policy or "nothing_saveable"
+    policy = "nothing_saveable" if cfg.cpu_checkpointing else (cfg.policy or "nothing_saveable")
     if policy == "everything_saveable":
         return function(*args)
     kw = {}
     if (context_fn := remat_context_fn(policy)) is not None:
         kw["context_fn"] = context_fn
     scope = torch.profiler.record_function("act_checkpoint") if cfg.profile else contextlib.nullcontext()
-    with scope:
+    offload = contextlib.nullcontext()
+    if cfg.cpu_checkpointing:
+        cuda = any(torch.is_tensor(a) and a.is_cuda for a in args)
+        offload = torch.autograd.graph.save_on_cpu(pin_memory=cuda)
+    with scope, offload:
         return torch_checkpoint(function, *args, use_reentrant=False, **kw)
 
 

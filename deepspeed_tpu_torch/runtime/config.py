@@ -19,13 +19,18 @@ and the flags ``wall_clock_breakdown``, ``memory_breakdown`` and
 ignore, the telemetry ``ledger`` (on by default in the JAX package: a
 ``telemetry`` block must pass ``"ledger": {"enabled": false}``) and its
 flight-recorder blocks; ZeRO stages 0-3 are accepted, since on one device
-they are the same arithmetic.
+they are the same arithmetic. The memory tiers parse as in the JAX package
+(``zero_optimization.offload_optimizer``/``offload_param`` with
+``nvme_path``, ``sub_group_size``, the ``aio`` block, and
+``activation_checkpointing.cpu_checkpointing``), and their invalid
+combinations raise what the JAX engine raises (``_validate_offload``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import signal as _signal
 from dataclasses import dataclass, field
 from typing import Optional
@@ -69,9 +74,24 @@ class BF16Config:
     enabled: bool = False
 
 
+def _default_nvme_path() -> str:
+    import tempfile
+
+    return os.path.join(tempfile.gettempdir(), "dstpu_nvme")
+
+
 @dataclass
 class OffloadConfig:
+    """A ZeRO offload sub-block (reference runtime/zero/offload_config.py).
+    ``pin_memory``, ``buffer_count`` and ``fast_init`` are accepted as in the
+    JAX package: host buffers that a card copies are always pinned, and the
+    NVMe tier double-buffers its groups."""
+
     device: str = "none"  # none | cpu | nvme
+    nvme_path: str = field(default_factory=_default_nvme_path)
+    pin_memory: bool = True
+    buffer_count: int = 4
+    fast_init: bool = False
 
 
 @dataclass
@@ -79,6 +99,7 @@ class ZeroConfig:
     stage: int = 0
     offload_param: OffloadConfig = field(default_factory=OffloadConfig)
     offload_optimizer: OffloadConfig = field(default_factory=OffloadConfig)
+    sub_group_size: int = 1e9  # bytes of fp32 master per NVMe swap group
 
     def __post_init__(self):
         if isinstance(self.offload_param, dict):
@@ -93,6 +114,19 @@ class ZeroConfig:
 class OptimizerConfig:
     type: str = "adamw"
     params: dict = field(default_factory=dict)
+
+
+@dataclass
+class AioConfig:
+    """The ``aio`` block (reference runtime/swap_tensor/aio_config.py):
+    ``thread_count`` sizes the NVMe tier's I/O pool; the rest is accepted
+    as in the JAX package."""
+
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
 
 
 @dataclass
@@ -118,12 +152,11 @@ class ActivationCheckpointingConfig:
     enabled: bool = False
 
     def check_ported(self) -> None:
-        """cpu_checkpointing belongs to the memory tiers and
-        partition_activations to tensor parallelism: neither is ported."""
-        for name in ("cpu_checkpointing", "partition_activations"):
-            if self.enabled and getattr(self, name):
-                raise NotImplementedError(
-                    f"activation_checkpointing.{name} is not ported to deepspeed_tpu_torch yet")
+        """partition_activations belongs to tensor parallelism, which is not
+        ported (cpu_checkpointing, the memory tier, is)."""
+        if self.enabled and self.partition_activations:
+            raise NotImplementedError(
+                "activation_checkpointing.partition_activations is not ported to deepspeed_tpu_torch yet")
 
 
 @dataclass
@@ -1146,6 +1179,7 @@ class DeepSpeedConfig:
     csv_monitor: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     elasticity: ElasticityConfig = field(default_factory=ElasticityConfig)
+    aio: AioConfig = field(default_factory=AioConfig)
 
     raw: dict = field(default_factory=dict, repr=False)
 
@@ -1182,6 +1216,7 @@ class DeepSpeedConfig:
             csv_monitor=_build(MonitorBackendConfig, _sub(d, C.MONITOR_CSV)),
             telemetry=_build(TelemetryConfig, _sub(d, C.TELEMETRY)),
             elasticity=_build(ElasticityConfig, _sub(d, C.ELASTICITY)),
+            aio=_build(AioConfig, _sub(d, C.AIO)),
             raw=d,
         )
         cfg._triangulate_batch(world_size)
@@ -1220,12 +1255,7 @@ class DeepSpeedConfig:
     def _validate(self) -> None:
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
-        z = self.zero_optimization
-        for name in ("offload_optimizer", "offload_param"):
-            if getattr(z, name).device != "none":
-                raise NotImplementedError(
-                    f"zero_optimization.{name} device {getattr(z, name).device!r} is not "
-                    "ported to deepspeed_tpu_torch yet")
+        self._validate_offload()
         if self.optimizer.type.lower() in ONEBIT:
             raise NotImplementedError(
                 f"optimizer {self.optimizer.type!r} (the 1-bit family) is not ported to "
@@ -1246,6 +1276,48 @@ class DeepSpeedConfig:
         big = {k: v for k, v in dataclasses.asdict(self.mesh).items() if v > 1}
         if big:
             raise NotImplementedError(f"mesh axes {big} > 1: deepspeed_tpu_torch runs on one device")
+
+    def _validate_offload(self) -> None:
+        """The memory tiers' combinations, refused as the JAX engine refuses
+        them (``engine.py:333-389`` and ``:406-411``), with its messages."""
+        z = self.zero_optimization
+        off_opt, off_param = z.offload_optimizer.device, z.offload_param.device
+        for name, dev in (("offload_optimizer", off_opt), ("offload_param", off_param)):
+            if dev not in ("none", "cpu", "nvme"):
+                raise ValueError(f"{name}.device must be none|cpu|nvme, got {dev!r}")
+        if off_opt == "nvme" and self.fp16.enabled:
+            raise NotImplementedError(
+                "offload_optimizer device 'nvme' with fp16 dynamic loss "
+                "scaling is not supported; use bf16")
+        if off_param != "none":
+            if off_opt == "none":
+                raise ValueError(
+                    "offload_param requires offload_optimizer device 'cpu' or "
+                    "'nvme': with parameters tiered out of HBM, device-resident "
+                    "fp32 masters + Adam moments (6x the bf16 param bytes) "
+                    "would dwarf the savings")
+            if off_param == "nvme" and off_opt != "nvme":
+                raise ValueError(
+                    "offload_param device 'nvme' pairs with offload_optimizer "
+                    "device 'nvme' (fp32 masters+moments on disk; the bf16 "
+                    "working set stays in pinned host DRAM, which the device "
+                    "streams from — 2 bytes/param of DRAM instead of 16)")
+        opt_type = self.optimizer.type.lower()
+        if opt_type in ONEBIT and off_opt != "none":
+            raise NotImplementedError(f"{opt_type} with offload_optimizer is unsupported")
+        if opt_type in ONEBIT and off_param != "none":
+            raise NotImplementedError(
+                f"{opt_type} with offload_param is unsupported (replicated "
+                "momenta live on device)")
+        if off_opt == "nvme" and opt_type not in ("adam", "adamw", "fusedadam", "cpuadam"):
+            raise NotImplementedError(
+                f"nvme offload supports Adam(W) (the reference swaps Adam "
+                f"states too), not {opt_type!r}")
+
+    @property
+    def offload_tier(self) -> str:
+        """Where the optimizer state lives: none | cpu | nvme."""
+        return self.zero_optimization.offload_optimizer.device
 
     @property
     def zero_enabled(self) -> bool:

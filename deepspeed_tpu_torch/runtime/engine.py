@@ -21,6 +21,10 @@ loss), the optimizer state, and the 0-d device tensors ``step``,
 as the JAX engine's, so ``save_checkpoint``/``load_checkpoint`` (format 3,
 ``checkpoint/saver.py``) move a run between the two packages both ways.
 ZeRO stages 0-3 are accepted: on one device they are the same arithmetic.
+The memory tiers (``zero_optimization.offload_optimizer`` / ``offload_param``
+on ``cpu`` or ``nvme``) keep the JAX engine's offload state tree
+(compute-dtype ``params``, host ``master`` and ``opt``, or the masters and
+moments on disk) and step through ``zero/offload.py`` (``OffloadTier``).
 The ``activation_checkpointing`` block turns on the model's remat, and the
 ``sparse_attention`` block its block-sparse attention (``attn_impl="sparse"``
 with the mode's ``sparsity`` fields). ``curriculum_learning`` truncates each
@@ -71,6 +75,7 @@ from .config import DeepSpeedConfig
 from .data_pipeline.curriculum_scheduler import CurriculumScheduler
 from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import get_schedule
+from .zero.offload import OffloadTier
 
 
 def _global_norm(tree) -> torch.Tensor:
@@ -203,11 +208,23 @@ class DeepSpeedEngine:
 
         self.opt_init, self.opt_update, base_lr = get_optimizer(config.optimizer.type, config.optimizer.params)
         self.lr_schedule = get_schedule(config.scheduler.type, config.scheduler.params, base_lr)
+        if config.zero_optimization.offload_param.device != "none":
+            mcfg = getattr(model, "config", None)
+            if mcfg is None or not hasattr(mcfg, "param_offload"):
+                raise NotImplementedError(
+                    "offload_param needs a model family with per-layer param "
+                    "streaming (models/transformer.py param_offload)")
+            if not mcfg.param_offload:
+                model.config = mcfg.replace(param_offload=True)
 
         if params is None:
             params = model.init(torch.Generator().manual_seed(0), self.device)
         params = tree_map(lambda t: t.to(device=self.device,
                                          dtype=torch.float32 if t.is_floating_point() else t.dtype), params)
+        # the memory tiers (zero/offload.py): the fp32 masters and the
+        # optimizer state leave the device; params become the compute-dtype copy
+        self.tier = (OffloadTier(config, params, self.device, self.opt_init, self.opt_update)
+                     if config.offload_tier != "none" else None)
         fp16 = config.fp16
         self.fp16_enabled = fp16.enabled
         scale0 = fp16.loss_scale if fp16.loss_scale > 0 else float(2 ** fp16.initial_scale_power)
@@ -218,13 +235,16 @@ class DeepSpeedEngine:
         self.state = {
             "step": scalar(0, torch.int32),
             "params": params,
-            "opt": self.opt_init(params),
+            "opt": self.opt_init(params) if self.tier is None else {},
             "loss_scale": scalar(scale0 if fp16.enabled else 1.0, torch.float32),
             "good_steps": scalar(0, torch.int32),
             "skipped": scalar(0, torch.int32),
             "hysteresis": scalar(fp16.hysteresis, torch.int32),
         }
-        n_params = sum(t.numel() for t in tree_leaves(params))
+        if self.tier is not None:
+            self.state.update(self.tier.state_entries())
+            del params
+        n_params = sum(t.numel() for t in tree_leaves(self.state["params"]))
         log_dist(f"engine ready: {n_params / 1e6:.1f}M params, zero_stage={self.zero_stage}, "
                  f"device={self.device}, micro_bs={self.micro_batch_size}, "
                  f"gas={self.gradient_accumulation_steps}, dtype={config.compute_dtype}", ranks=[0])
@@ -314,7 +334,10 @@ class DeepSpeedEngine:
 
     def _grad_leaves(self) -> dict:
         """The fp32 master parameters as fresh autograd leaves, whose
-        ``.grad`` collects the micro-batches' gradients."""
+        ``.grad`` collects the micro-batches' gradients (under a memory tier,
+        what the tier differentiates: ``OffloadTier.grad_leaves``)."""
+        if self.tier is not None:
+            return self.tier.grad_leaves()
         return tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), self.state["params"])
 
     def _accumulate(self, leaves, mb: dict, micro: int) -> torch.Tensor:
@@ -324,6 +347,8 @@ class DeepSpeedEngine:
         kw = {}
         if self._dropout_enabled:
             kw = {"rng": self._dropout_key(micro), "step": self.state["step"] + 1}
+        if self.tier is not None:
+            return self.tier.backward_micro(self.model, leaves, mb, self.state["loss_scale"], kw)
         loss = self.model.loss(self._cast(leaves), mb, **kw)
         (loss * self.state["loss_scale"]).backward()
         return loss.detach().float()
@@ -336,42 +361,74 @@ class DeepSpeedEngine:
         gradients were not finite; the loss scale follows its rule.
         Replaces ``self.state``; returns {grad_norm, lr, loss_scale,
         overflow} as device tensors."""
+        if self.tier is not None:
+            return self._apply_tier_update(leaves, n_micro)
         state = self.state
         step1 = state["step"] + 1
         loss_scale = state["loss_scale"]
         grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p), leaves)
-        inv = 1.0 / (loss_scale * n_micro)
-        for g in tree_leaves(grads):
-            g.mul_(inv)
-        finite = torch.stack([torch.isfinite(g).all() for g in tree_leaves(grads)]).all()
-        gnorm = _global_norm(grads)
-        clip = self.config.gradient_clipping
-        if clip > 0:
-            factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-            for g in tree_leaves(grads):
-                g.mul_(factor)
+        finite, gnorm = self._unscale_and_clip(grads, loss_scale, n_micro)
         lr = self.lr_schedule(step1)
         new_params, new_opt = self.opt_update(grads, state["opt"], state["params"], step1, lr)
 
         def keep(new, old):
             return torch.where(finite, new, old)
 
-        fp16 = self.config.fp16
+        scalars = self._scalars_after(finite, step1)
+        self.state = {"step": scalars.pop("step"), "params": tree_map(keep, new_params, state["params"]),
+                      "opt": tree_map(keep, new_opt, state["opt"]), **scalars}
+        return {"grad_norm": gnorm, "lr": lr, "loss_scale": loss_scale, "overflow": ~finite}
+
+    def _unscale_and_clip(self, grads, loss_scale, n_micro: int):
+        """In place on ``grads`` (where they live): unscale by
+        ``1/(loss_scale·n_micro)``, then clip to the global norm ->
+        (finite, norm before clipping), tensors on the gradients' device."""
+        gl = tree_leaves(grads)
+        inv = (1.0 / (loss_scale * n_micro)).to(gl[0].device)
+        for g in gl:
+            g.mul_(inv)
+        finite = torch.stack([torch.isfinite(g).all() for g in gl]).all()
+        gnorm = _global_norm(grads)
+        clip = self.config.gradient_clipping
+        if clip > 0:
+            factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
+            for g in gl:
+                g.mul_(factor)
+        return finite, gnorm
+
+    def _scalars_after(self, finite, step1) -> dict:
+        """The step counter and the loss-scale state after a step whose
+        gradients were ``finite`` (a device tensor)."""
+        state, fp16 = self.state, self.config.fp16
+        loss_scale = state["loss_scale"]
         if self.fp16_enabled and fp16.loss_scale == 0:
             new_scale, good, hyst = _dynamic_loss_scale(
                 finite, loss_scale, state["good_steps"], state["hysteresis"], fp16)
         else:
             new_scale, good, hyst = loss_scale, state["good_steps"], state["hysteresis"]
-        self.state = {
-            "step": torch.where(finite, step1, state["step"]),
-            "params": tree_map(keep, new_params, state["params"]),
-            "opt": tree_map(keep, new_opt, state["opt"]),
-            "loss_scale": new_scale,
-            "good_steps": good,
-            "skipped": state["skipped"] + (~finite).int(),
-            "hysteresis": hyst,
-        }
-        return {"grad_norm": gnorm, "lr": lr, "loss_scale": loss_scale, "overflow": ~finite}
+        return {"step": torch.where(finite, step1, state["step"]), "loss_scale": new_scale, "good_steps": good,
+                "skipped": state["skipped"] + (~finite).int(), "hysteresis": hyst}
+
+    @torch.no_grad()
+    def _apply_tier_update(self, leaves, n_micro: int) -> dict:
+        """``_apply_update`` under a memory tier (JAX ``engine.py:764-840``,
+        ``:1801-1852``): unscale, finiteness, norm and clipping where the
+        gradients are (the device, or the host when the parameters are
+        streamed), then ONE fetch of (finite, lr, step) and, for a finite
+        step, the tier's in-place host update. A step that is not finite
+        leaves the parameters, the host state and the disk untouched."""
+        state = self.state
+        step1 = state["step"] + 1
+        loss_scale = state["loss_scale"]
+        grads = self.tier.gradients(leaves)
+        finite, gnorm = self._unscale_and_clip(grads, loss_scale, n_micro)
+        lr = self.lr_schedule(step1)
+        finite = finite.to(self.device)
+        fetched = torch.stack([finite.double(), lr.double(), step1.double()]).cpu()
+        if bool(fetched[0]):
+            self.tier.update(grads, int(fetched[2]), float(fetched[1]))
+        self.state = {**state, **self._scalars_after(finite, step1), **self.tier.state_entries()}
+        return {"grad_norm": gnorm.to(self.device), "lr": lr, "loss_scale": loss_scale, "overflow": ~finite}
 
     # ------------------------------------------------------------------
     # The 3-call loop: forward / backward / step (JAX engine.py:1965-2087)
@@ -391,6 +448,12 @@ class DeepSpeedEngine:
         """Accumulate fp32 gradients for the batch last passed to
         ``forward``: its loss is recomputed with dropout (``loss`` is not
         differentiated; it may be None)."""
+        if self.tier is not None and self.tier.streamed:
+            raise NotImplementedError(
+                "offload_param supports the fused train_batch() path only "
+                "(per-call gradient accumulation would round-trip the host-"
+                "resident gradient tree through HBM); forward()/eval_batch() "
+                "work normally")
         if self._last_batch is None:
             raise RuntimeError("backward() needs a forward() first")
         if self._accum is None:
@@ -523,6 +586,8 @@ class DeepSpeedEngine:
         log when a sink is configured. The JAX engine's program-ledger and
         collective sections are not ported."""
         pools = {"params": tree_bytes(self.state["params"]), "opt_state": tree_bytes(self.state["opt"])}
+        if "master" in self.state:
+            pools["master_params"] = tree_bytes(self.state["master"])
         snap = self.telemetry.snapshot(
             hbm=hbm_snapshot(pools, self.device, self.config.telemetry.ledger.hbm_warn_fraction))
         self.telemetry.emit({"type": "snapshot", **snap})
@@ -663,6 +728,11 @@ class DeepSpeedEngine:
                        seed=rcfg.fault_injection.seed, on_retry=note_retry)
         else:
             do_save()
+        if self.tier is not None and self.tier.nvme is not None:
+            # the tier's masters and moments live on disk, outside self.state:
+            # they go beside the engine's files (JAX engine.py:2200-2204)
+            eng.commit()
+            self.tier.nvme.save_state(os.path.join(save_dir, tag, "nvme_optimizer"))
         try:
             shutil.copyfile(zero_to_fp32.__file__, os.path.join(save_dir, "zero_to_fp32.py"))
         except OSError as e:
@@ -747,6 +817,8 @@ class DeepSpeedEngine:
             if state is None:
                 raise CheckpointCorruptError(f"no intact checkpoint under {load_dir} (latest {tag!r} and every "
                                              "fallback failed verification)", path=load_dir) from err
+        if self.tier is not None:
+            state = self._adopt_tier_state(state, os.path.join(load_dir, tag))
         self.state = state
         self._accum, self._micro_count = None, 0  # a half-accumulated 3-call step is dropped
         self.global_steps = int(client_state.get("global_steps", int(state["step"])))
@@ -756,6 +828,35 @@ class DeepSpeedEngine:
         self.telemetry.counter("resilience/resumes").inc()
         log_dist(f"loaded checkpoint {load_dir}/{tag} in {time.perf_counter() - t0:.2f} s", ranks=[0])
         return tag, client_state
+
+    def _adopt_tier_state(self, state: dict, ckpt_dir: str) -> dict:
+        """A loaded state into the tier's buffers (``OffloadTier.adopt``);
+        the NVMe tier's masters and moments from ``<tag>/nvme_optimizer``
+        (JAX ``engine.py:2453-2493``): without them the masters are rebuilt
+        from the loaded parameters with zeroed moments and a restarted
+        bias-correction clock, loudly."""
+        leaves = saver.read_manifest(ckpt_dir)["leaves"]
+        state = self.tier.adopt(state, has_master=any(k.startswith("master::") for k in leaves))
+        nvme = self.tier.nvme
+        if nvme is not None:
+            state_dir = os.path.join(ckpt_dir, "nvme_optimizer")
+            if nvme.load_state(state_dir):
+                log_dist(f"restored NVMe optimizer tier (masters + moments, step {nvme.step_count}) from "
+                         f"{state_dir}", ranks=[0])
+            else:
+                logger.warning(
+                    "checkpoint %s has no nvme_optimizer state; Adam moments "
+                    "restart from zero and the bias-correction clock is reset "
+                    "(convergence will briefly re-warm)", state_dir)
+                nvme.reset_from(self.tier.master_params_host(), step_count=0)
+        return state
+
+    def close(self) -> None:
+        """Release what the engine holds outside Python's reach: the NVMe
+        tier's I/O threads (its swap files stay until the next run on the
+        path reclaims them)."""
+        if self.tier is not None:
+            self.tier.close()
 
     def _restore_training_state(self, client_state: dict, restore_dataloader: bool = True) -> None:
         """The host-side trajectory the client state captured at save: the

@@ -19,6 +19,7 @@ both gateway fault keys. Greedy streams are also held against
 import json
 import socket
 import struct
+import threading
 import time
 import types
 
@@ -239,23 +240,57 @@ def script_disconnect_and_faults(P, eng):
                 "gateway/disconnects", "gateway/accepted")}}
 
 
+class _StreamParker:
+    """An ``on_tick`` hook: once armed, it parks the serve loop as soon as a
+    request the fleet holds has ``after`` tokens, until ``release`` is set,
+    so the stream is open, in a known state, while the test reads."""
+
+    def __init__(self, router, after=2):
+        self.router, self.after = router, after
+        self.armed = False
+        self.parked, self.release = threading.Event(), threading.Event()
+
+    def __call__(self):
+        if not self.armed or self.release.is_set():
+            return
+        for uid in list(self.router._owner):
+            got = self.router.partial_result(uid)
+            if got is not None and len(got[0]) >= self.after:
+                self.parked.set()
+                self.release.wait(timeout=30)
+                return
+
+
+def _counter(router, name):
+    return router.telemetry.registry.snapshot()["counters"].get(name, 0)
+
+
 def script_healthz_metrics_and_drain(P, eng):
     """``/healthz`` while serving, the ``/metrics`` names, then draining:
-    new requests get 503 ``shutting_down``, the open stream finishes."""
+    new requests get 503 ``shutting_down``, the open stream finishes. Each
+    read waits for the state it reads: ``/metrics`` for the blocking
+    reply's ``gateway/streams_done`` (counted after the reply is written),
+    the draining ``/healthz`` for the serve loop parked with the stream
+    open."""
     router = _router(P, eng)
     p = _prompts()
-    ctx = _Gateway(P, router, cfg={"retry_after_s": 3.0})
+    parker = _StreamParker(router)
+    ctx = _Gateway(P, router, cfg={"retry_after_s": 3.0}, on_tick=parker)
     gw = ctx.__enter__()
     try:
         out = {"healthz": _get(gw, "/healthz"), "unknown": _get(gw, "/nope")}
         _post(gw, {"prompt": p[0], "max_new_tokens": 4, "stream": False})
+        _wait(lambda: _counter(router, "gateway/streams_done") >= 1)
         status, ctype, text = _get(gw, "/metrics")
         out["metrics"] = (status, ctype, sorted({line.split(" ")[0].split("{")[0] for line in text.splitlines()
                                                  if line and not line.startswith("#")}))
+        parker.armed = True
         s, _ = _sse_socket(gw, {"prompt": p[1], "max_new_tokens": 12})
+        assert parker.parked.wait(timeout=30)
         gw.trigger_shutdown()
         out["refused"] = _post(gw, {"prompt": p[2], "max_new_tokens": 4})
         out["draining"] = _get(gw, "/healthz")
+        parker.release.set()
         buf = b""
         while b"event: done" not in buf:
             chunk = s.recv(4096)

@@ -78,6 +78,13 @@ trainer, _, loader, _ = pkg.initialize(model=sparse, config=ds, training_data=da
 assert trainer.model.config.attn_impl == "sparse"
 metrics = trainer.train_batch(next(iter(loader)))
 assert np.isfinite(float(metrics["loss"])) and trainer.curriculum_scheduler.get_current_difficulty() == 16
+with tempfile.TemporaryDirectory() as d:
+    tiers = {{"train_batch_size": 2, "zero_optimization": {{"stage": 1, "sub_group_size": 20000,
+             "offload_optimizer": {{"device": "nvme", "nvme_path": d}}, "offload_param": {{"device": "nvme"}}}}}}
+    trainer, _, _, _ = pkg.initialize(model=Model(TransformerConfig(**{TINY!r})), config=tiers, device="cpu")
+    metrics = trainer.train_batch({{"tokens": np.zeros((2, 9), np.int32)}})
+    assert np.isfinite(float(metrics["loss"])) and trainer.tier.nvme.step_count == 1
+    trainer.close()
 assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")
 """
@@ -208,3 +215,14 @@ def test_port_passes_the_code_lint_rules():
                            ",".join(LINT_CODE_RULES)], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "clean" in proc.stdout
+
+
+def test_aio_engine_builds_under_the_ignored_build_dir():
+    """The NVMe tier's host library is built by g++ into
+    build/deepspeed_tpu_torch/, which .gitignore's build/ covers."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    lib = op_builder.build_host("aio/dstpu_aio.cpp")
+    assert lib.parent == REPO / "build" / "deepspeed_tpu_torch" and lib.name.startswith("libdstpu_aio_")
+    assert "build/" in (REPO / ".gitignore").read_text().split()
+    assert (PKG / "csrc" / "aio" / "dstpu_aio.cpp").exists()

@@ -84,8 +84,7 @@ def test_group_that_does_not_divide_warns_and_goes_per_layer(tiny_inputs):
     assert loss.item() == ref_loss.item()
 
 
-@pytest.mark.parametrize("field,value", [("remat_policy", "checkpoint_dots"), ("remat_offload", True),
-                                         ("remat_partition_axis", "model")])
+@pytest.mark.parametrize("field,value", [("remat_policy", "checkpoint_dots"), ("remat_partition_axis", "model")])
 def test_unported_remat_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         ttfm.TransformerConfig(remat=True, **{field: value})
@@ -151,12 +150,22 @@ def test_checkpoint_api_replays_the_global_rng(clean_act_ckpt):
 
 
 def test_cpu_checkpointing_and_partition_activations_raise(clean_act_ckpt):
-    for knob in ("cpu_checkpointing", "partition_activations"):
-        with pytest.raises(NotImplementedError):
-            tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2,
-                                               "activation_checkpointing": {"enabled": True, knob: True}})
-        with pytest.raises(NotImplementedError):
-            tac.configure(deepspeed_config={"activation_checkpointing": {knob: True}})
+    """partition_activations (tensor parallelism) still raises;
+    cpu_checkpointing (the memory tier) is ported: it parses and configures
+    as in the JAX package and turns on the model's remat_offload."""
+    knob = "partition_activations"
+    with pytest.raises(NotImplementedError):
+        tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2,
+                                           "activation_checkpointing": {"enabled": True, knob: True}})
+    with pytest.raises(NotImplementedError):
+        tac.configure(deepspeed_config={"activation_checkpointing": {knob: True}})
+    ds = {"train_batch_size": 2, "activation_checkpointing": {"enabled": True, "cpu_checkpointing": True}}
+    tcfg = tconfig.DeepSpeedConfig.from_dict(ds).activation_checkpointing
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jconfig.DeepSpeedConfig.from_dict(ds).activation_checkpointing)
+    tac.set_config(tcfg)
+    jac.set_config(jconfig.DeepSpeedConfig.from_dict(ds).activation_checkpointing)
+    assert tac.model_overrides(4) == jac.model_overrides(4) == {"remat": True, "remat_offload": True}
+    assert dataclasses.asdict(tac.configure(deepspeed_config=ds)) == dataclasses.asdict(jac.configure(deepspeed_config=ds))
 
 
 REMAT_DS = base_config(

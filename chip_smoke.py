@@ -260,9 +260,27 @@ Phases, each of which passes or makes the script exit non-zero:
      memory holds 12P and the buffers, else nvme; depth cut only as far as
      both force), one train_batch, its seconds, the host update's, peak HBM
      against the estimator's 2P + 4P.
+ 25. profiling (telemetry/program_ledger.py, cost.py, report.py,
+     profiling/flops_profiler, utils/timer.py, env_report.py): (a) phase 7's
+     configuration and (b) phase 10's with the JAX package's default
+     telemetry block (the program ledger on, a JSONL sink),
+     wall_clock_breakdown, memory_breakdown and the flops profiler at step
+     2, the ledger off, on, then off again from the same seeded weights: step
+     ms and the first train_batch's seconds each way, the train/train_step
+     row (FLOPs, bytes, intensity, wall p50, achieved TFLOP/s, mfu and the
+     roofline verdict, rated against the H100's data sheet) with its
+     kernels' calls, its FLOPs against Model.flops_per_token x tokens, and
+     the launches a train_batch unchanged by the ledger; (c) phase 18's
+     serving engine on workload (a), the ledger off then on: the
+     serving/decode row (hbm-bound), the serving/mfu gauge, one decode
+     graph with 12 + 12 launches a replay either way; (d) python -m
+     deepspeed_tpu_torch.telemetry.report over (a)'s and (c)'s JSONL, its
+     rows rated; (e) python -m deepspeed_tpu_torch.env_report; (f) host µs a
+     call of the flash forward and the fused loss's forward with no counter
+     active (``kernel_call_timing``, which also times a parent checkout).
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
 line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, an
-``{"elastic": {...}}`` line, a ``{"chaos": {...}}`` line, a
+``{"elastic": {...}}`` line, a ``{"chaos": {...}}`` line, a ``{"profiling": {...}}`` line, a
 ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
@@ -520,21 +538,23 @@ def flash_checks(dev):
     return worst
 
 
-def flash_bounds(B, S, H, D, elt):
-    """{kernel: (bound_ms, bound_by, bytes, flops)} from the shape: each input
-    read once and each output written once; causal work is the S(S+1)/2
-    live (q, k) pairs, 2 flops per multiply-add of each D-long product."""
-    t = B * S * H * D * elt
-    rows = B * H * S * 4
-    pairs = B * H * S * (S + 1) // 2
-    work = {"flash_forward": (4 * t + rows, 2 * 2 * D * pairs),          # q,k,v -> O, lse
-            "flash_backward_dkdv": (6 * t + 2 * rows, 4 * 2 * D * pairs),  # q,k,v,dO,lse,Δ -> dK,dV
-            "flash_backward_dq": (5 * t + 2 * rows, 3 * 2 * D * pairs)}    # q,k,v,dO,lse,Δ -> dQ
+def bounds(work):
+    """{kernel: (flops, bytes)} -> {kernel: (bound_ms, bound_by, bytes,
+    flops)} on the tensor cores' bf16 peak and the HBM rate."""
     out = {}
-    for name, (nbytes, flops) in work.items():
+    for name, (flops, nbytes) in work.items():
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
         out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
     return out
+
+
+def flash_bounds(B, S, H, D, elt):
+    """{kernel: (bound_ms, bound_by, bytes, flops)} from the shape, the
+    work the program ledger counts for each launch (``fa.flash_cost``):
+    each input read once and each output written once; causal work is the
+    S(S+1)/2 live (q, k) pairs, 2 flops per multiply-add of each D-long
+    product."""
+    return bounds(fa.flash_cost(B, S, S, H, D, elt))
 
 
 def flash_timing(dev):
@@ -956,22 +976,22 @@ def xent_checks(dev):
 
 
 def xent_bounds(N, D, V, elt):
-    """{name: (bound_ms, bound_by, bytes, flops)}: each input read once and
-    each output written once. The logits take 2·N·D·V flops. The forward
-    computes them once; the backward pair ("fused_xent_backward") once more
-    and then its two products; each of the pair's rows alone
-    ("..._dh", "..._dw") would compute them again before its own product."""
-    hw = (N * D + D * V) * elt
-    rows = N * 4
-    work = {"fused_xent_forward": (hw + rows + 2 * rows, 2 * N * D * V),               # h, W, y -> nll, lse
-            "fused_xent_backward": (hw + 3 * rows + (N * D + D * V) * elt, 6 * N * D * V),  # h, W, y, lse, g -> dH, dW
-            "fused_xent_backward_dh": (hw + 3 * rows + N * D * elt, 4 * N * D * V),    # h, W, y, lse, g -> dH
-            "fused_xent_backward_dw": (hw + 3 * rows + D * V * elt, 4 * N * D * V)}    # h, W, y, lse, g -> dW
-    out = {}
-    for name, (nbytes, flops) in work.items():
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-        out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
-    return out
+    """{name: (bound_ms, bound_by, bytes, flops)} from the passes the
+    program ledger counts (``fx.xent_cost``): each input read once and each
+    output written once, 2·N·D·V flops for the logits. The forward computes
+    them once; the backward pair ("fused_xent_backward": the ds, dW and dH
+    passes) once more and then its two products; each of the pair's rows
+    alone ("..._dh", "..._dw": the ds pass and its own product) would
+    compute them again before its product."""
+    w = fx.xent_cost(N, D, V, elt)
+
+    def total(*names):
+        return tuple(sum(w[n][i] for n in names) for i in (0, 1))
+
+    return bounds({"fused_xent_forward": w["fused_xent_forward"],
+                   "fused_xent_backward": total("xent_ds_pass", "xent_dw_pass", "xent_dh_pass"),
+                   "fused_xent_backward_dh": total("xent_ds_pass", "xent_dh_pass"),
+                   "fused_xent_backward_dw": total("xent_ds_pass", "xent_dw_pass")})
 
 
 def xent_timing(dev):
@@ -1426,24 +1446,12 @@ def sparse_empty_list(dev, gen):
 
 
 def sparse_bounds(B, S, H, D, elt, lists):
-    """{kernel: (bound_ms, bound_by, bytes, flops)}: each input read once and
-    each output written once (the lists a kernel walks included); the work
-    is this layout's active block pairs, diagonal blocks counted whole:
-    4·block²·D flops per pair per (b, h) forward, 6 for dQ, 8 for dK/dV."""
-    t = B * S * H * D * elt
-    rows = B * H * S * 4
-    pairs = int(lists.k_counts.sum()) * B * H
-    per = lists.block ** 2 * D
-    kq = (lists.k_lists.numel() + lists.k_counts.numel()) * 4
-    qk = (lists.q_lists.numel() + lists.q_counts.numel()) * 4
-    work = {"sparse_forward": (4 * t + rows + kq, 4 * per * pairs),             # q,k,v -> O, lse
-            "sparse_backward_dq": (5 * t + 2 * rows + kq, 6 * per * pairs),     # q,k,v,dO,lse,Δ -> dQ
-            "sparse_backward_dkdv": (6 * t + 2 * rows + qk, 8 * per * pairs)}   # q,k,v,dO,lse,Δ -> dK,dV
-    out = {}
-    for name, (nbytes, flops) in work.items():
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-        out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
-    return out
+    """{kernel: (bound_ms, bound_by, bytes, flops)} from the work the program
+    ledger counts (``sk.sparse_cost``): each input read once and each output
+    written once (the lists a kernel walks included); this layout's active
+    block pairs, diagonal blocks counted whole: 4·block²·D flops per pair
+    per (b, h) forward, 6 for dQ, 8 for dK/dV."""
+    return bounds(sk.sparse_cost(B, S, H, D, elt, lists))
 
 
 def sparse_timing(dev, label, layout):
@@ -5064,6 +5072,271 @@ def big_model_step(dev, smi, big_layers=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the program ledger, the flops profiler, the timers, the report
+# CLI and env_report
+# ---------------------------------------------------------------------------
+
+PROFILE_TIMED_STEPS = 5
+# the train step's ledger FLOPs against Model.flops_per_token x tokens: the
+# counter counts the work done (the causal kernels' halved pairs, the
+# chunked loss's logits twice, elementwise work), the formula 6 x the matmul
+# parameters plus a dense attention term
+LEDGER_FLOPS_BAND = (0.9, 1.25)
+
+
+def ledger_training(model_kw, ledger, jsonl):
+    """One engine of phase 25 (a)/(b): phase 7's configuration (or phase
+    10's with ``model_kw``), the JAX package's default telemetry block with
+    its JSONL sink and the ledger ``ledger``, wall_clock_breakdown,
+    memory_breakdown and the flops profiler at step 2. Runs the first
+    train_batch (timed), step 2 (the profile) and PROFILE_TIMED_STEPS timed
+    steps -> {first_s, step_ms, per_step launches, snapshot, model}."""
+    model = Model(gpt2_config(**model_kw))
+    ds = {**BENCH_DS, "steps_per_print": 2 + PROFILE_TIMED_STEPS, "wall_clock_breakdown": True,
+          "memory_breakdown": True, "flops_profiler": {"enabled": True, "profile_step": 2},
+          "telemetry": {"enabled": True, "jsonl_path": jsonl, "ledger": {"enabled": ledger}}}
+    engine = deepspeed_tpu_torch.initialize(model=model, config=ds)[0]
+    B = BENCH_DS["train_batch_size"]
+    batch = {"tokens": np.random.default_rng(0).integers(0, 50304, size=(B, FS + 1)).astype(np.int32)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_batch(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    engine.train_batch(batch)  # step 2: the flops profiler's
+    reset_counts()
+    per_step = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_TIMED_STEPS):
+        before = counts()
+        m = engine.train_batch(batch)
+        per_step.append([a - b for a, b in zip(counts(), before)])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / PROFILE_TIMED_STEPS * 1e3
+    if not np.isfinite(float(m["loss"])):
+        raise SystemExit("phase 25: a training loss is not finite")
+    snap = engine.telemetry_snapshot()
+    engine.telemetry.close()
+    del engine
+    torch.cuda.empty_cache()
+    return {"first_s": first_s, "step_ms": step_ms, "per_step": per_step, "snap": snap, "model": model}
+
+
+def ledger_training_case(label, model_kw, tmp, expect_kernels):
+    """Phase 25 (a)/(b): the configuration with the ledger off, on, then
+    off again in this call (the two off runs show the call's noise) ->
+    (the printed record, the ledger-on JSONL). The row must be rated with
+    0 < mfu < 1, its FLOPs inside LEDGER_FLOPS_BAND of the model formula,
+    its kernel rows' calls ``expect_kernels``, and the launches a step the
+    same every way."""
+    off = ledger_training(model_kw, False, os.path.join(tmp, f"{label}_off.jsonl"))
+    on = ledger_training(model_kw, True, os.path.join(tmp, f"{label}_on.jsonl"))
+    off2 = ledger_training(model_kw, False, os.path.join(tmp, f"{label}_off2.jsonl"))
+    row = next(r for r in on["snap"]["program_ledger"] if r["name"] == "train/train_step")
+    B = BENCH_DS["train_batch_size"]
+    formula = on["model"].flops_per_token() * B * FS
+    ratio = row["flops"] / formula
+    kernels = {k: v["calls"] for k, v in row.get("kernels", {}).items()}
+    rec = {"ledger_on_step_ms": on["step_ms"], "ledger_off_step_ms": [off["step_ms"], off2["step_ms"]],
+           "first_train_batch_s_on": on["first_s"], "first_train_batch_s_off": [off["first_s"], off2["first_s"]],
+           "launches_per_train_batch_on": on["per_step"][0], "launches_per_train_batch_off": off["per_step"][0],
+           "flops_per_token_formula": on["model"].flops_per_token(), "ledger_over_formula": ratio,
+           "gauges": {k: v for k, v in on["snap"]["metrics"]["gauges"].items() if k.startswith("train/")},
+           "timers": {k: v for k, v in on["snap"]["metrics"]["histograms"].items() if k.startswith("timer/")},
+           "row": {k: row.get(k) for k in ("flops", "matmul_flops", "bytes_accessed", "arith_intensity",
+                                            "wall_p50_s", "achieved_tflops", "mfu", "roofline", "roof_tflops",
+                                            "roof_fraction", "argument_bytes", "output_bytes", "temp_bytes",
+                                            "compile_s", "ops")},
+           "kernel_calls": kernels, "platform": on["snap"]["platform"]}
+    r = rec["row"]
+    print(f"  {label}: step ms ledger off / on / off {off['step_ms']:.1f} / {on['step_ms']:.1f} / "
+          f"{off2['step_ms']:.1f} (on x{2 * on['step_ms'] / (off['step_ms'] + off2['step_ms']):.3f} of the offs' "
+          f"mean); the first train_batch {off['first_s']:.2f} / {on['first_s']:.2f} / {off2['first_s']:.2f} s")
+    print(f"    train/train_step on {rec['platform']['label']}: {r['flops'] / 1e12:.3f} TFLOP "
+          f"({r['matmul_flops'] / 1e12:.3f} matmul-class), {r['bytes_accessed'] / 1e9:.2f} GB, intensity "
+          f"{r['arith_intensity']:.1f} FLOP/B, wall p50 {r['wall_p50_s'] * 1e3:.1f} ms, achieved "
+          f"{r['achieved_tflops']:.1f} TFLOP/s, mfu {r['mfu']:.4f}, {r['roofline']} (roof {r['roof_tflops']:.0f} "
+          f"TFLOP/s); argument {r['argument_bytes'] / 2**30:.2f} GiB, output {r['output_bytes'] / 2**30:.3f} GiB, "
+          f"temp {r['temp_bytes'] / 2**30:.2f} GiB; {r['ops']} ops and kernels counted in {r['compile_s']:.2f} s")
+    print(f"    ledger FLOPs / (Model.flops_per_token x {B * FS} tokens = {formula / 1e12:.3f} TFLOP) = "
+          f"{ratio:.4f} (band {LEDGER_FLOPS_BAND}); kernel calls in the row {kernels} (expect {expect_kernels}); "
+          f"launches a train_batch {COUNT_LABEL_9} on {on['per_step'][0]}, off {off['per_step'][0]}")
+    ok = (r["roofline"] in ("compute-bound", "hbm-bound") and r["mfu"] is not None and 0 < r["mfu"] < 1
+          and LEDGER_FLOPS_BAND[0] <= ratio <= LEDGER_FLOPS_BAND[1] and kernels == expect_kernels
+          and all(s == on["per_step"][0] for s in on["per_step"] + off["per_step"] + off2["per_step"])
+          and rec["gauges"].get("train/mfu") == r["mfu"])
+    print(f"    {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 25 {label}: the ledger's train_step row failed its checks")
+    return rec, os.path.join(tmp, f"{label}_on.jsonl")
+
+
+def ledger_serving(engine, ledger, jsonl, smi, label):
+    """Phase 18's ServingEngine with the ledger ``ledger`` over workload (a)
+    (run_workload checks 12 + 12 launches a replay and one decode program)."""
+    from deepspeed_tpu_torch.inference import Request, ServingEngine
+
+    srv = ServingEngine(engine, config={**SERVE_CONFIG, "watchdog_mode": "raise", "jsonl_path": jsonl,
+                                        "ledger": {"enabled": ledger}})
+    srv.serve([Request(uid=100000 + i, prompt=np.arange(1, 20 + i, dtype=np.int32), max_new_tokens=4)
+               for i in range(2)])
+    _, m = run_workload(srv, shared_prefix_workload(engine.cfg.vocab_size), label, smi)
+    snap = srv.telemetry_snapshot()
+    out = {"metrics": m, "graph_launches": list(srv.worker.graph_launches), "snap": snap,
+           "decode_compiles": snap["metrics"]["counters"].get("compile/serving/decode")}
+    srv.telemetry.close()
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def report_text(jsonl, *extra):
+    proc = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.telemetry.report", jsonl, *extra],
+                          capture_output=True, text=True, timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 25 (d): the report CLI failed on {jsonl}:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout
+
+
+def kernel_call_timing(dev, reps=100, rounds=9):
+    """What the kernels' cost hook (``telemetry.cost.kernel``) costs a call
+    with no counter active: host µs per call of ``flash_attention``'s and
+    ``fused_linear_xent``'s forward, back to back under ``no_grad`` with one
+    synchronise at the end of each of ``rounds`` rounds (the median round),
+    at a small shape (the host's cost shows) and at phase 7's
+    per-micro-batch shape. Uses only what the parent commit has, so the same
+    function times the parent's package (load this file by its path from
+    the parent's checkout)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for label, (B, S) in (("small", (1, 128)), ("phase7", (16, FS))):
+        q, k, v = (torch.randn(B, S, 12, 64, generator=g, device=dev, dtype=torch.bfloat16) for _ in range(3))
+        N = B * S
+        h = torch.randn(N, 768, generator=g, device=dev, dtype=torch.bfloat16)
+        w = 0.02 * torch.randn(768, 50304 if label == "phase7" else 4096, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+        labels = torch.randint(0, w.shape[1], (N,), generator=g, device=dev)
+        for name, fn in (("flash_attention_fwd", lambda: fa.flash_attention(q, k, v)),
+                         ("fused_linear_xent_fwd", lambda: fx.fused_linear_xent(h, w, labels))):
+            with torch.no_grad():
+                for _ in range(10):
+                    fn()
+                per_round = []
+                for _ in range(rounds):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize(dev)
+                    per_round.append((time.perf_counter() - t0) / reps * 1e6)
+            out[f"{name}_{label}_us"] = statistics.median(per_round)
+    return out
+
+
+def hook_ns(dev, calls=200_000):
+    """ns per ``with cost.kernel(...)`` around nothing, no counter active:
+    the hook's own cost a kernel call."""
+    from deepspeed_tpu_torch.telemetry import cost
+
+    def costs():
+        return {}
+
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        with cost.kernel(dev, costs):
+            pass
+    return (time.perf_counter() - t0) / calls * 1e9
+
+
+def profiling_phase(dev, smi):
+    """Phase 25 -> its record."""
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="dstt_p25_")
+    try:
+        L, gas = 12, BENCH_DS["gradient_accumulation_steps"]
+        flash = {"flash_forward": L * gas, "flash_backward_dkdv": L * gas, "flash_backward_dq": L * gas}
+        print(f"  (a) phase 7's configuration with the JAX package's default telemetry block, wall_clock_breakdown, "
+              f"memory_breakdown and flops_profiler at step 2; ledger off, then on")
+        out["a_chunked_loss"], jsonl_a = ledger_training_case("(a) chunked loss", {}, tmp, flash)
+        xent = {"fused_xent_forward": gas, "xent_ds_pass": gas, "xent_dw_pass": gas, "xent_dh_pass": gas}
+        print("  (b) phase 10's configuration (the fused loss under dots_and_flash remat), the same blocks")
+        out["b_fused_loss"], _ = ledger_training_case("(b) fused loss", FUSED, tmp, {**flash, **xent})
+
+        print("  (c) phase 18's serving engine on workload (a), ledger off, then on")
+        cfg = TransformerConfig(vocab_size=50304, max_seq_len=1024, num_layers=12, num_heads=12,
+                                hidden_size=768, pos_emb="learned", tie_embeddings=True)
+        engine = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": "bf16"})
+        jsonl_c = os.path.join(tmp, "serving_on.jsonl")
+        off = ledger_serving(engine, False, os.path.join(tmp, "serving_off.jsonl"), smi, "workload (a), ledger off")
+        on = ledger_serving(engine, True, jsonl_c, smi, "workload (a), ledger on")
+        del engine
+        torch.cuda.empty_cache()
+        row = next(r for r in on["snap"]["program_ledger"] if r["name"] == "serving/decode")
+        gauge = on["snap"]["metrics"]["gauges"].get("serving/mfu")
+        keep = ("flops", "bytes_accessed", "arith_intensity", "wall_p50_s", "wall_count", "achieved_tflops", "mfu",
+                "roofline", "roof_fraction", "argument_bytes", "output_bytes", "temp_bytes", "kernels")
+        rec = {"decode_row": {k: row.get(k) for k in keep}, "serving_mfu_gauge": gauge,
+               "programs": [r["name"] for r in on["snap"]["program_ledger"]],
+               "tokens_per_s_on": on["metrics"]["tokens_per_s"], "tokens_per_s_off": off["metrics"]["tokens_per_s"],
+               "tpot_p50_ms_on": on["metrics"]["tpot_p50_ms"], "tpot_p50_ms_off": off["metrics"]["tpot_p50_ms"],
+               "graph_launches_on": on["graph_launches"], "graph_launches_off": off["graph_launches"],
+               "decode_compiles_on": on["decode_compiles"], "decode_compiles_off": off["decode_compiles"],
+               "replay_launches_on": [on["metrics"]["split_launches"], on["metrics"]["combine_launches"]],
+               "decode_steps_on": on["metrics"]["decode_steps"]}
+        d = rec["decode_row"]
+        print(f"    serving/decode: {d['flops'] / 1e9:.3f} GFLOP, {d['bytes_accessed'] / 1e6:.1f} MB a step, intensity "
+              f"{d['arith_intensity']:.2f} FLOP/B, wall p50 {d['wall_p50_s'] * 1e3:.3f} ms over {d['wall_count']} "
+              f"replays, {d['achieved_tflops']:.3f} TFLOP/s, mfu {d['mfu']:.5f}, {d['roofline']}; serving/mfu gauge "
+              f"{gauge}; decode kernel rows {d['kernels']}")
+        print(f"    tokens/s {off['metrics']['tokens_per_s']:.1f} off, {on['metrics']['tokens_per_s']:.1f} on; graph "
+              f"launches a replay {off['graph_launches']} off, {on['graph_launches']} on; compile/serving/decode "
+              f"{off['decode_compiles']} off, {on['decode_compiles']} on; programs in the ledger {rec['programs']}")
+        ok = (d["roofline"] == "hbm-bound" and gauge is not None and gauge == d["mfu"] and 0 < gauge < 1
+              and on["graph_launches"] == off["graph_launches"] == [L, L]
+              and on["decode_compiles"] == off["decode_compiles"] == 1
+              and d["kernels"] == {"decode_attention": {**d["kernels"]["decode_attention"], "calls": L}})
+        print(f"    {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("phase 25 (c): the serving ledger failed its checks")
+        out["c_serving"] = rec
+
+        print("  (d) python -m deepspeed_tpu_torch.telemetry.report over (a)'s and (c)'s JSONL")
+        texts = {"a": report_text(jsonl_a), "c": report_text(jsonl_c), "c_anatomy": report_text(jsonl_c, "--step-anatomy")}
+        for key in ("a", "c"):
+            lines = texts[key].splitlines()
+            start = next(i for i, ln in enumerate(lines) if ln.startswith("program roofline"))
+            section = lines[start:lines.index("", start)]
+            hbm = next(i for i, ln in enumerate(lines) if ln.startswith("hbm memory ledger"))
+            print("\n".join("    " + ln for ln in section + lines[hbm:hbm + 3]))
+        rated = all("NVIDIA H100" in t and "unrated" not in t for t in (texts["a"], texts["c"]))
+        print(f"    rated H100 rows, no 'unrated': {rated}  {'ok' if rated else 'FAIL'}")
+        if not rated:
+            raise SystemExit("phase 25 (d): the report's rows are not rated against the H100")
+        out["d_report_rated"] = rated
+
+        print("  (e) python -m deepspeed_tpu_torch.env_report")
+        proc = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.env_report"], capture_output=True,
+                              text=True, timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+        print("\n".join("    " + ln for ln in proc.stdout.splitlines()))
+        built = proc.returncode == 0 and "NOT BUILT" not in proc.stdout and "H100" in proc.stdout
+        print(f"    every kernel source built, the card named: {built}  {'ok' if built else 'FAIL'}")
+        if not built:
+            raise SystemExit(f"phase 25 (e): env_report failed (rc {proc.returncode}):\n{proc.stderr}")
+        out["e_env_report_ok"] = built
+
+        out["f_kernel_call_us"] = t = kernel_call_timing(dev)
+        out["f_hook_ns"] = hook_ns(dev)
+        print("  (f) host us a call, back to back, no counter active, the median of 9 rounds (the parent "
+              "commit's are timed by the same function from its checkout): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in t.items())
+              + f"; the cost hook alone {out['f_hook_ns']:.0f} ns a call")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace a short generate and a train_batch into DIR")
@@ -5237,6 +5510,15 @@ def main() -> int:
                      "b_offload_param": tiers["b"]["launches_per_train_batch"],
                      "c_nvme": tiers["c"]["launches_per_train_batch"],
                      "d_gpt3_6.7b": tiers["d"]["launches_per_train_batch"]}
+
+    print("[25] profiling: the program ledger, the flops profiler, wall-clock and memory breakdowns at GPT-2-125M "
+          "width (phases 7 and 10 with the JAX package's default telemetry, phase 18's serving engine), the "
+          "report CLI and env_report")
+    t0 = time.perf_counter()
+    prof = profiling_phase(dev, smi)
+    prof["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 25: {prof['phase_s']:.1f} s")
+    print(json.dumps({"profiling": prof}))
 
     kernels = [{
         "name": "decode_attention", "route": "cuda",

@@ -13,10 +13,11 @@ tick never blocks on a replica's transport):
                          decoding) per HEALTHY replica.
   * ``step_sec``         the slowest replica's last non-compiling step
                          latency (the Router's heartbeat sample).
-  * ``mfu``              always None here: its source, the program
-                         ledger's ``serving/mfu`` gauges, is not ported, so
-                         ``AutoscaleConfig.check_ported`` refuses a
-                         ``scale_up_mfu`` threshold.
+  * ``mfu``              mean fleet MFU from the program ledger's
+                         ``serving/mfu`` gauges, folded in by ``observe``
+                         from a ``Router.telemetry_snapshot()`` (or passed
+                         to ``tick``) at the caller's cadence; None until
+                         one is seen.
 
 Decisions, with hysteresis so a flapping metric never oscillates the fleet:
 a signal must persist ``up_consecutive``/``down_consecutive`` evaluations
@@ -87,7 +88,6 @@ class Autoscaler:
             config = router.cfg.autoscale
         if isinstance(config, dict):
             config = AutoscaleConfig(**config)
-        config.check_ported()
         self.cfg: AutoscaleConfig = config
         self.router = router
         self.supervisor = supervisor
@@ -134,6 +134,7 @@ class Autoscaler:
         self._calm_since = float("inf")  # router-clock start of calm
         self._last_action = float("-inf")  # router-clock cooldown anchor
         self._retry_at = float("-inf")     # paced respawn retries
+        self._mfu: Optional[float] = None  # the last observed fleet MFU
         # supervisor worker boots run on background threads: a process boot
         # takes seconds, and running one inline would freeze every
         # replica's stepping exactly when scale-up was meant to relieve
@@ -157,6 +158,21 @@ class Autoscaler:
 
     # -- observation ------------------------------------------------------
 
+    def observe(self, snapshot: dict) -> Optional[float]:
+        """Fold a ``Router.telemetry_snapshot()`` into the MFU signal: the
+        mean of the replicas' ``serving/mfu`` gauges (the program ledger).
+        Snapshots are dear over RPC, so the caller picks the cadence; the
+        last observation holds between calls."""
+        vals = []
+        for rep in (snapshot.get("replicas") or {}).values():
+            gauges = (rep.get("metrics") or {}).get("gauges") or {}
+            v = gauges.get("serving/mfu")
+            if v is not None:
+                vals.append(float(v))
+        if vals:
+            self._mfu = sum(vals) / len(vals)
+        return self._mfu
+
     def signals(self, now: float) -> dict:
         """The cheap per-tick signal set (cached host-side state only)."""
         healthy = [r for r in self.router._replicas if r.state == "healthy"]
@@ -174,7 +190,7 @@ class Autoscaler:
             "load": load,
             "load_per_replica": load / max(1, n),
             "step_sec": max((r.last_step_sec for r in healthy), default=0.0),
-            "mfu": None,  # the program ledger's gauges: not ported
+            "mfu": self._mfu,
         }
 
     def slot_of(self, rid: int) -> Optional[int]:
@@ -184,9 +200,11 @@ class Autoscaler:
 
     # -- the tick ---------------------------------------------------------
 
-    def tick(self, now: float | None = None) -> Optional[dict]:
+    def tick(self, now: float | None = None, snapshot: dict | None = None) -> Optional[dict]:
         """One evaluation; ``Router.step()`` calls this after stepping the
-        fleet. Returns the signal dict it acted on (None when disabled)."""
+        fleet. ``snapshot`` (a ``Router.telemetry_snapshot()``) is folded
+        into the MFU signal first. Returns the signal dict it acted on
+        (None when disabled)."""
         if not self.cfg.enabled:
             return None
         if now is None:
@@ -196,6 +214,8 @@ class Autoscaler:
             # signals are meaningless there, and an inf cooldown anchor
             # would freeze every later decision
             return None
+        if snapshot is not None:
+            self.observe(snapshot)
         self._finish_retirements(now)
         self._poll_boots(now)
         self._recover(now)
@@ -216,7 +236,9 @@ class Autoscaler:
               or (c.scale_up_load > 0
                   and sig["load_per_replica"] >= c.scale_up_load)
               or (c.scale_up_step_s > 0
-                  and sig["step_sec"] >= c.scale_up_step_s))
+                  and sig["step_sec"] >= c.scale_up_step_s)
+              or (c.scale_up_mfu > 0 and sig["mfu"] is not None
+                  and sig["mfu"] >= c.scale_up_mfu))
         down = (not up and sig["queue"] == 0
                 and sig["load_per_replica"] <= c.scale_down_load
                 and sig["healthy"] >= self.target)

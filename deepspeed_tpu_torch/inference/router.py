@@ -72,9 +72,6 @@ slot cache, prefix pool and graph.
                     SLO tracker over them, and incident bundles on dead
                     and hung verdicts, failovers, brownout, journal
                     recovery and failure, upgrade aborts and SLO burn.
-
-Not ported: ``router.autoscale.scale_up_mfu`` (its signal is the program
-ledger's), refused by name.
 """
 
 from __future__ import annotations
@@ -182,7 +179,6 @@ class Router:
         rc = config.get("router", {})
         if isinstance(rc, dict):
             rc = RouterConfig(**rc)
-        rc.check_ported()
         if replica_engines is not None:
             if not replica_engines:
                 raise ValueError("replica_engines must not be empty")

@@ -67,9 +67,16 @@ The flight recorder (``timeseries``, ``slo``, ``incidents``): bounded
 rings sampled from ``step()``, flushed over a worker's step reply
 (``take_ring_flush``); every terminal classified against the SLO
 thresholds (``classify_terminal``); incident bundles per replica under
-``<dir>/replica<rid>/`` on a NaN quarantine or a watchdog refusal. Not
-ported: the program ledger (``ledger`` enabled raises
-``NotImplementedError``).
+``<dir>/replica<rid>/`` on a NaN quarantine or a watchdog refusal.
+
+The program ledger (``ledger``, on by default as in JAX): each program's
+first call at a signature runs under the FLOP and byte counter
+(``telemetry/program_ledger.py``). The decode program's first call is its
+CUDA graph capture: the warm-up runs uncounted and the capture is counted
+once, so the ledger adds no graph, no replay and no launch.
+``serving/decode`` reads ``serving/decode_step_sec`` and publishes the
+``serving/mfu`` gauge; ``prefill[``, ``chunk_prefill[`` and ``verify[``
+read their own latency histograms.
 """
 
 from __future__ import annotations
@@ -90,11 +97,11 @@ from ..ops import op_builder
 from ..ops.decode_attention import decode_attention
 from ..resilience import FaultInjector, RequestRejected, RpcConnectionLost
 from ..runtime.config import (ChunkedPrefillConfig, FaultInjectionConfig,
-                              IncidentConfig, PrefixCacheConfig,
+                              IncidentConfig, LedgerConfig, PrefixCacheConfig,
                               RequestTraceConfig, SLOConfig, SpeculationConfig,
                               TenantConfig, TimeSeriesConfig)
 from ..telemetry import (IncidentRecorder, RequestTracer, Telemetry,
-                         TimeSeriesStore, classify_terminal, hbm_snapshot,
+                         TimeSeriesStore, classify_terminal, cost, hbm_snapshot,
                          tree_bytes)
 from ..utils.logging import log_dist
 from .engine import InferenceEngine
@@ -115,10 +122,6 @@ def _next_pow2(n: int) -> int:
 # the next one, capped at 2^_SPEC_PROBE_WAIT_MAX_LOG2 decode steps
 _SPEC_SUPPRESS_AFTER = 3
 _SPEC_PROBE_WAIT_MAX_LOG2 = 6
-
-# config blocks of the JAX engine the port has not got; each names the
-# default of its ``enabled`` flag there
-_UNPORTED_BLOCKS = {"ledger": True}
 
 # rows of the decode step's packed int32 input [7, n_slots]; temperature
 # and top-p travel as their float32 bits
@@ -348,7 +351,7 @@ class SlotWorker:
         self._done = torch.cuda.Event()
         side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), cost.paused():  # the ledger counts the capture alone
             for _ in range(2):
                 self.decode_step(self._static_in)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -752,8 +755,10 @@ class ServingEngine:
       fault_injection     {enabled, seed, rate, garbage_logits_*}
       role                both (co-located) | prefill | decode
       timeseries / slo / incidents   the flight recorder's blocks
+      ledger              {enabled, hbm_warn_fraction}: the program ledger
     ``router`` and ``gateway`` sub-blocks belong to the fleet and are
-    ignored here. ``ledger`` enabled raises ``NotImplementedError``.
+    ignored here. ``ledger.collectives`` enabled raises
+    ``NotImplementedError``.
     """
 
     def __init__(self, engine: InferenceEngine, config: dict | None = None,
@@ -772,13 +777,9 @@ class ServingEngine:
         self.role = role if role is not None else config.pop("role", "both")
         if self.role not in ("both", "prefill", "decode"):
             raise ValueError(f"serving role must be both|prefill|decode, got {self.role!r}")
-        for name, default in _UNPORTED_BLOCKS.items():
-            blk = config.get(name)
-            on = getattr(blk, "enabled", None) if not isinstance(blk, dict) else blk.get("enabled", default)
-            if blk is not None and on:
-                raise NotImplementedError(
-                    f"serving config block {name!r} is not ported to deepspeed_tpu_torch yet; "
-                    f"pass {{'{name}': {{'enabled': False}}}} or leave it out")
+        lc = _block(config.get("ledger", {}), LedgerConfig)
+        lc.check_ported()
+        self.ledger_cfg: LedgerConfig = lc
         n_slots = n_slots if n_slots is not None else config.get("n_slots", 8)
         max_seq_len = max_seq_len if max_seq_len is not None else config.get("max_seq_len", 0)
         engine_budget = min(engine.cfg.max_seq_len, engine.max_out_tokens)
@@ -796,9 +797,17 @@ class ServingEngine:
         self.telemetry = telemetry if telemetry is not None else Telemetry(
             jsonl_path=config.get("jsonl_path", ""),
             watchdog_mode=config.get("watchdog_mode", "warn"),
+            ledger=lc.enabled,
             jsonl_max_bytes=int(config.get("jsonl_max_bytes", 0)),
             jsonl_keep=int(config.get("jsonl_keep", 3)),
         )
+        # program-ledger join rules: each program family reads its wall
+        # time from its latency histogram; decode, the steady state,
+        # nominates the engine's headline serving/mfu gauge
+        self.telemetry.ledger.bind("serving/decode", wall_hist="serving/decode_step_sec", gauge="serving")
+        self.telemetry.ledger.bind("serving/prefill[", wall_hist="serving/prefill_sec")
+        self.telemetry.ledger.bind("serving/chunk_prefill[", wall_hist="serving/chunk_prefill_sec")
+        self.telemetry.ledger.bind("serving/verify[", wall_hist="serving/verify_step_sec")
         pc = _block(prefix_cache if prefix_cache is not None else config.get("prefix_cache", {}),
                     PrefixCacheConfig)
         cp = _block(chunked_prefill if chunked_prefill is not None else config.get("chunked_prefill", {}),
@@ -853,6 +862,7 @@ class ServingEngine:
                 f"{engine.max_out_tokens})")
         self.min_bucket = int(min_prefill_bucket)
         self.worker = SlotWorker(engine, self.telemetry, self.n_slots, self.budget, seed, pc)
+        self.telemetry.ledger.set_device(self.worker.device)
         self.closed = False  # close() released the device state: a dead replica
         self.Smax = self.worker.Smax
 
@@ -2243,6 +2253,7 @@ class ServingEngine:
             extra["incidents"] = self._incidents.index()
         snap = self.telemetry.snapshot(
             replica_id=self.replica_id, compiles=self.compile_counts(),
-            hbm=hbm_snapshot(self.worker.hbm_pools(), self.worker.device), **extra)
+            hbm=hbm_snapshot(self.worker.hbm_pools(), self.worker.device, self.ledger_cfg.hbm_warn_fraction),
+            **extra)
         self.telemetry.emit({"type": "snapshot", **snap})
         return snap

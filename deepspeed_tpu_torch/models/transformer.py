@@ -46,6 +46,7 @@ from ..ops.fused_xent import fused_linear_xent
 from ..ops.sparse_attention import SPARSITY_CONFIGS, sparse_flash_attention
 from ..runtime.activation_checkpointing.checkpointing import REMAT_POLICIES, remat_context_fn
 from ..runtime.zero import param_offload
+from ..telemetry import cost
 
 Params = dict
 
@@ -297,32 +298,37 @@ def _linear(x, w, b):
     return out if b is None else out + b.to(x.dtype)
 
 
+# The named scopes (``cost.scope``) are the JAX model's ``jax.named_scope``s,
+# at the same places: the flops profiler's per-module rows.
 def _ffn(cfg: TransformerConfig, lp, h):
-    u = _linear(h, lp["wi"], lp.get("bi"))
-    if cfg.activation == "relu":
-        u = F.relu(u)
-    elif cfg.activation == "gelu_exact":
-        u = F.gelu(u)
-    else:
-        u = F.gelu(u, approximate="tanh")
-    return _linear(u, lp["wo_mlp"], lp.get("bo_mlp"))
+    with cost.scope("ffn"):
+        u = _linear(h, lp["wi"], lp.get("bi"))
+        if cfg.activation == "relu":
+            u = F.relu(u)
+        elif cfg.activation == "gelu_exact":
+            u = F.gelu(u)
+        else:
+            u = F.gelu(u, approximate="tanh")
+        return _linear(u, lp["wo_mlp"], lp.get("bo_mlp"))
 
 
 def _qkv_proj(cfg: TransformerConfig, lp, h, positions):
     """LN'd hidden states [B,T,d] -> rotary-embedded q, k, v [B,T,H,Dh]."""
-    q = _linear(h, lp["wq"], lp.get("bq"))
-    k = _linear(h, lp["wk"], lp.get("bk"))
-    v = _linear(h, lp["wv"], lp.get("bv"))
-    if cfg.pos_emb == "rotary":
-        rd = int(cfg.head_dim * cfg.rotary_pct)
-        q = rotary_embed(q, positions, rd, interleaved=cfg.rotary_interleaved)
-        k = rotary_embed(k, positions, rd, interleaved=cfg.rotary_interleaved)
-    return q, k, v
+    with cost.scope("attn"):
+        q = _linear(h, lp["wq"], lp.get("bq"))
+        k = _linear(h, lp["wk"], lp.get("bk"))
+        v = _linear(h, lp["wv"], lp.get("bv"))
+        if cfg.pos_emb == "rotary":
+            rd = int(cfg.head_dim * cfg.rotary_pct)
+            q = rotary_embed(q, positions, rd, interleaved=cfg.rotary_interleaved)
+            k = rotary_embed(k, positions, rd, interleaved=cfg.rotary_interleaved)
+        return q, k, v
 
 
 def _attn_out_proj(cfg: TransformerConfig, lp, attn_out):
     B, T, H, Dh = attn_out.shape
-    return _linear(attn_out.reshape(B, T, H * Dh), lp["wo"].reshape(H * Dh, -1), lp.get("bo"))
+    with cost.scope("attn"):
+        return _linear(attn_out.reshape(B, T, H * Dh), lp["wo"].reshape(H * Dh, -1), lp.get("bo"))
 
 
 def _layers(params: Params) -> list[dict]:
@@ -485,15 +491,16 @@ def _layer_body(cfg: TransformerConfig, lp, x, bias, positions, attn_fn, is_loca
 
 def embed(cfg: TransformerConfig, params: Params, tokens, positions=None):
     """Token (+ learned position) embedding -> (x [B,S,d], positions [B,S])."""
-    B, S = tokens.shape
-    if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    x = params["wte"][tokens].to(cfg.dtype)
-    if cfg.pos_emb == "learned":
-        x = x + params["wpe"][positions].to(cfg.dtype)
-    if cfg.embed_ln:
-        x = layer_norm(x, params["emb_ln_scale"], params["emb_ln_bias"], cfg.layernorm_epsilon)
-    return x, positions
+    with cost.scope("embed"):
+        B, S = tokens.shape
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+        x = params["wte"][tokens].to(cfg.dtype)
+        if cfg.pos_emb == "learned":
+            x = x + params["wpe"][positions].to(cfg.dtype)
+        if cfg.embed_ln:
+            x = layer_norm(x, params["emb_ln_scale"], params["emb_ln_bias"], cfg.layernorm_epsilon)
+        return x, positions
 
 
 def attn_bias(cfg: TransformerConfig, S: int, device="cpu"):
@@ -635,7 +642,10 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
         with region:
             x = checkpoint(run, x, idx, use_reentrant=False, preserve_rng_state=False, **kw)
     x = _final_ln(cfg, params, x)
-    return x if return_hidden else _project(params, x)
+    if return_hidden:
+        return x
+    with cost.scope("lm_head"):
+        return _project(params, x)
 
 
 # ---------------------------------------------------------------------------

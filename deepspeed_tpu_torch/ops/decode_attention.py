@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from ..telemetry import cost
 from . import op_builder
 
 NEG_INF = -1e30  # the kernel's masked-score constant (TPU kernel: NEG_INF)
@@ -77,6 +78,16 @@ def decode_attention_reference(q, k_cache, v_cache, pos, *, sm_scale=None, alibi
     return torch.einsum("bhk,bkhd->bhd", p, v_cache.float()).to(q.dtype)
 
 
+def decode_cost(B: int, Smax: int, H: int, D: int, elt: int) -> dict:
+    """{"decode_attention": (flops, bytes)} at these shapes: the keys and
+    values of every cached position read (the launch's grid is fixed by the
+    cache's length, never by ``pos``, which lives on the device; at pos =
+    Smax - 1 it is what the kernel reads), q, the output and pos once; a
+    multiply and an add per element of q·k and of p·v."""
+    keys = B * Smax
+    return {"decode_attention": (4 * keys * H * D, 2 * keys * H * D * elt + 2 * B * H * D * elt + B * 4)}
+
+
 def split_plan(B: int, Smax: int, H: int, D: int) -> tuple[int, tuple[int, int, int, int]]:
     """(splits, scratch shape) of the split-KV kernels: ceil(Smax /
     SPLIT_KEYS) splits, each leaving (m, l, acc[D]) in fp32. Fixed by the
@@ -110,6 +121,12 @@ def decode_attention(q, k_cache, v_cache, pos, *, sm_scale=None, alibi_slopes=No
     kernels, which take contiguous fp32 or bf16 tensors on one device and
     D <= 256; anything else raises."""
     _check(q, k_cache, v_cache, alibi_slopes)
+    B, H, D = q.shape
+    with cost.kernel(q.device, lambda: decode_cost(B, k_cache.shape[1], H, D, q.element_size())):
+        return _decode_attention(q, k_cache, v_cache, pos, sm_scale, alibi_slopes)
+
+
+def _decode_attention(q, k_cache, v_cache, pos, sm_scale, alibi_slopes):
     if q.device.type == "cpu":
         return decode_attention_reference(
             q, k_cache, v_cache, pos, sm_scale=sm_scale, alibi_slopes=alibi_slopes)

@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from ..telemetry import cost
 from . import op_builder
 
 NEG_INF = -1e30  # the kernels' masked-score constant (Pallas: NEG_INF)
@@ -316,14 +317,42 @@ def flash_delta(out, dout):
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def causal_pairs(Sq: int, Sk: int) -> int:
+    """Live (query, key) pairs of one (b, h) under the causal mask (key k
+    attends query q when k <= q)."""
+    if Sq <= Sk:
+        return Sq * (Sq + 1) // 2
+    return Sk * (Sk + 1) // 2 + (Sq - Sk) * Sk
+
+
+def flash_cost(B: int, Sq: int, Sk: int, H: int, D: int, elt: int, causal: bool = True) -> dict:
+    """{kernel: (flops, bytes)} of the three flash kernels at these shapes,
+    the work behind each one's bound: every input read once and every
+    output written once; 2 flops per multiply-add of each D-long product,
+    over the live (q, k) pairs (a local window is counted as causal)."""
+    tq, tk = B * Sq * H * D * elt, B * Sk * H * D * elt
+    rows = B * H * Sq * 4
+    pairs = B * H * (causal_pairs(Sq, Sk) if causal else Sq * Sk)
+    return {"flash_forward": (2 * 2 * D * pairs, 2 * tq + 2 * tk + rows),             # q,k,v -> O, lse
+            "flash_backward_dkdv": (4 * 2 * D * pairs, 2 * tq + 4 * tk + 2 * rows),   # q,k,v,dO,lse,Δ -> dK,dV
+            "flash_backward_dq": (3 * 2 * D * pairs, 3 * tq + 2 * tk + 2 * rows)}     # q,k,v,dO,lse,Δ -> dQ
+
+
+def _costs(q, k, causal, names):
+    B, Sq, H, D = q.shape
+    work = flash_cost(B, Sq, k.shape[1], H, D, q.element_size(), causal)
+    return {n: work[n] for n in names}
+
+
 @torch.library.custom_op("dstt::flash_attention_fwd", mutates_args=())
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slopes: Optional[torch.Tensor],
                   window: Optional[torch.Tensor], causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """(out, lse): the forward kernel on CUDA tensors, the plain version on CPU ones."""
     kw = dict(causal=causal, sm_scale=scale, alibi_slopes=slopes, window=window)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, **kw)
-    return flash_forward(q, k, v, **kw)
+    with cost.kernel(q.device, lambda: _costs(q, k, causal, ("flash_forward",))):
+        if q.device.type == "cpu":
+            return flash_attention_reference(q, k, v, **kw)
+        return flash_forward(q, k, v, **kw)
 
 
 def _flash_setup_context(ctx, inputs, output):
@@ -336,14 +365,16 @@ def _flash_setup_context(ctx, inputs, output):
 
 def _flash_backward(ctx, dout, _dlse):
     q, k, v, out, lse = ctx.saved_tensors
-    if q.device.type == "cpu":
-        dq, dk, dv = flash_attention_backward_reference(q, k, v, out, lse, dout, **ctx.kw)
-    else:
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
-        delta = flash_delta(out, dout)
-        dk, dv = flash_backward_dkdv(q, k, v, dout, lse, delta, **ctx.kw)
-        dq = flash_backward_dq(q, k, v, dout, lse, delta, **ctx.kw)
+    names = ("flash_backward_dkdv", "flash_backward_dq")
+    with cost.kernel(q.device, lambda: _costs(q, k, ctx.kw["causal"], names)):
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_backward_reference(q, k, v, out, lse, dout, **ctx.kw)
+        else:
+            if dout.stride(-1) != 1:
+                dout = dout.contiguous()
+            delta = flash_delta(out, dout)
+            dk, dv = flash_backward_dkdv(q, k, v, dout, lse, delta, **ctx.kw)
+            dq = flash_backward_dq(q, k, v, dout, lse, delta, **ctx.kw)
     return dq, dk, dv, None, None, None, None
 
 

@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from ..telemetry import cost
 from . import op_builder
 
 MAX_BLOCK_ROWS = 512
@@ -325,13 +326,38 @@ xent_dw_pass.launches = 0
 xent_dh_pass.launches = 0
 
 
+def xent_cost(N: int, D: int, V: int, elt: int) -> dict:
+    """{kernel: (flops, bytes)} of the fused loss at these shapes, the work
+    behind each bound: every input read once and every output written
+    once, 2·N·D·V flops per product. The forward (``fused_xent_forward``
+    with its combine) makes the logits once; the backward's three passes
+    over the vocab chunks make them once more (``xent_ds_pass``, which also
+    reads h, W and the rows' labels, lse and cotangents) and then dW
+    (``xent_dw_pass``) and dH (``xent_dh_pass``), each writing its own
+    gradient: the ds pass and the dH pass are ``PERF.md``'s dH row, all
+    three its backward pair."""
+    hw = (N * D + D * V) * elt
+    rows = N * 4
+    product = 2 * N * D * V
+    return {"fused_xent_forward": (product, hw + rows + 2 * rows),   # h, W, y -> nll, lse
+            "xent_ds_pass": (product, hw + 3 * rows),                # h, W, y, lse, g
+            "xent_dw_pass": (product, D * V * elt),                  # -> dW
+            "xent_dh_pass": (product, N * D * elt)}                  # -> dH
+
+
+def _costs(hidden, head, names):
+    work = xent_cost(hidden.shape[0], hidden.shape[1], head.shape[1], hidden.element_size())
+    return {n: work[n] for n in names}
+
+
 class _FusedXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, head, labels):
-        if hidden.device.type == "cpu":
-            nll, lse = fused_linear_xent_reference(hidden, head, labels)
-        else:
-            nll, lse = fused_xent_forward(hidden, head, labels)
+        with cost.kernel(hidden.device, lambda: _costs(hidden, head, ("fused_xent_forward",))):
+            if hidden.device.type == "cpu":
+                nll, lse = fused_linear_xent_reference(hidden, head, labels)
+            else:
+                nll, lse = fused_xent_forward(hidden, head, labels)
         ctx.save_for_backward(hidden, head, labels, lse)
         ctx.mark_non_differentiable(lse)
         return nll
@@ -340,10 +366,12 @@ class _FusedXent(torch.autograd.Function):
     def backward(ctx, g):
         hidden, head, labels, lse = ctx.saved_tensors
         g = g.float().contiguous()
-        if hidden.device.type == "cpu":
-            dh, dw = fused_linear_xent_backward_reference(hidden, head, labels, lse, g)
-        else:
-            dh, dw = fused_xent_backward(hidden, head, labels, lse, g)
+        names = ("xent_ds_pass", "xent_dw_pass", "xent_dh_pass")
+        with cost.kernel(hidden.device, lambda: _costs(hidden, head, names)):
+            if hidden.device.type == "cpu":
+                dh, dw = fused_linear_xent_backward_reference(hidden, head, labels, lse, g)
+            else:
+                dh, dw = fused_xent_backward(hidden, head, labels, lse, g)
         return dh, dw, None
 
 

@@ -115,6 +115,24 @@ def build_host(rel_source: str) -> Path:
     return lib
 
 
+def report() -> str:
+    """The build state of every ``csrc/*.cu`` (the ds_report op section):
+    built (the library for this exact source, headers and flags is on
+    disk), loaded in this process, or not built yet; and whether ``nvcc``
+    is there to build it."""
+    try:
+        nvcc = _nvcc()
+    except RuntimeError:
+        nvcc = None
+    lines = [f"{'op name':24s} {'state':10s} library"]
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        _, lib = _library(src.stem)
+        state = "loaded" if src.stem in _loaded else "built" if lib.exists() else "NOT BUILT"
+        lines.append(f"{src.stem:24s} {state:10s} {lib.name}")
+    lines.append(f"nvcc: {nvcc or 'not found (the kernels build on first use where it is)'}")
+    return "\n".join(lines)
+
+
 def loaded_count() -> int:
     """How many libraries this process has loaded: a caller that sees the
     count change across a call knows the call built or loaded one."""

@@ -38,11 +38,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ...telemetry import cost
 from .. import op_builder
 from ..flash_attention import flash_delta, needs_padding, pad_head_dim
 
@@ -101,6 +102,7 @@ class SparseLists(NamedTuple):
     block: int
     dq_order: torch.Tensor    # [nq]
     dkdv_order: torch.Tensor  # [nk]
+    pairs: Optional[int] = None  # active (query block, key block) pairs, counted on the host
 
 
 # (seq_len, causal, device, layout shape, layout bytes) -> SparseLists
@@ -130,7 +132,8 @@ def device_lists(layout, causal: bool, seq_len: int, device) -> SparseLists:
         arrays = layout_to_lists(layout, causal)
         arrays += grid_orders(arrays[1], arrays[3])
         lists = [torch.from_numpy(a).to(device) for a in arrays]
-        hit = SparseLists(*lists[:4], block=seq_len // layout.shape[0], dq_order=lists[4], dkdv_order=lists[5])
+        hit = SparseLists(*lists[:4], block=seq_len // layout.shape[0], dq_order=lists[4], dkdv_order=lists[5],
+                          pairs=int(arrays[1].sum()))
         LIST_CACHE[key] = hit
     return hit
 
@@ -357,16 +360,41 @@ sparse_backward_dq.launches = 0
 sparse_backward_dkdv.launches = 0
 
 
+def sparse_cost(B: int, S: int, H: int, D: int, elt: int, lists: SparseLists) -> dict:
+    """{kernel: (flops, bytes)} of the three block-sparse kernels at these
+    shapes, the work behind each bound: every input read once (the lists a
+    kernel walks included) and every output written once; the layout's
+    active block pairs, diagonal blocks counted whole, 4·block²·D flops a
+    pair and (b, h) forward, 6 for dQ, 8 for dK/dV."""
+    t = B * S * H * D * elt
+    rows = B * H * S * 4
+    active = lists.pairs if lists.pairs is not None else int(lists.k_counts.sum())
+    pairs = active * B * H
+    per = lists.block ** 2 * D
+    kq = (lists.k_lists.numel() + lists.k_counts.numel()) * 4
+    qk = (lists.q_lists.numel() + lists.q_counts.numel()) * 4
+    return {"sparse_forward": (4 * per * pairs, 4 * t + rows + kq),              # q,k,v -> O, lse
+            "sparse_backward_dq": (6 * per * pairs, 5 * t + 2 * rows + kq),      # q,k,v,dO,lse,Δ -> dQ
+            "sparse_backward_dkdv": (8 * per * pairs, 6 * t + 2 * rows + qk)}    # q,k,v,dO,lse,Δ -> dK,dV
+
+
+def _costs(q, lists, names):
+    B, S, H, D = q.shape
+    work = sparse_cost(B, S, H, D, q.element_size(), lists)
+    return {n: work[n] for n in names}
+
+
 class _SparseAttention(torch.autograd.Function):
     """out = sparse attention(q, k, v); saves (q, k, v, out, lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lists, causal, scale):
         kw = dict(causal=causal, sm_scale=scale)
-        if q.device.type == "cpu":
-            out, lse = sparse_attention_reference(q, k, v, lists, **kw)
-        else:
-            out, lse = sparse_forward(q, k, v, lists, **kw)
+        with cost.kernel(q.device, lambda: _costs(q, lists, ("sparse_forward",))):
+            if q.device.type == "cpu":
+                out, lse = sparse_attention_reference(q, k, v, lists, **kw)
+            else:
+                out, lse = sparse_forward(q, k, v, lists, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.lists, ctx.kw = lists, kw
         return out
@@ -374,14 +402,16 @@ class _SparseAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = sparse_attention_backward_reference(q, k, v, out, lse, dout, ctx.lists, **ctx.kw)
-        else:
-            if dout.stride(-1) != 1:
-                dout = dout.contiguous()
-            delta = flash_delta(out, dout)
-            dq = sparse_backward_dq(q, k, v, dout, lse, delta, ctx.lists, **ctx.kw)
-            dk, dv = sparse_backward_dkdv(q, k, v, dout, lse, delta, ctx.lists, **ctx.kw)
+        names = ("sparse_backward_dq", "sparse_backward_dkdv")
+        with cost.kernel(q.device, lambda: _costs(q, ctx.lists, names)):
+            if q.device.type == "cpu":
+                dq, dk, dv = sparse_attention_backward_reference(q, k, v, out, lse, dout, ctx.lists, **ctx.kw)
+            else:
+                if dout.stride(-1) != 1:
+                    dout = dout.contiguous()
+                delta = flash_delta(out, dout)
+                dq = sparse_backward_dq(q, k, v, dout, lse, delta, ctx.lists, **ctx.kw)
+                dk, dv = sparse_backward_dkdv(q, k, v, dout, lse, delta, ctx.lists, **ctx.kw)
         return dq, dk, dv, None, None, None
 
 

@@ -10,16 +10,16 @@ engine), ``curriculum_learning`` and ``dataloader_drop_last``. The port
 runs on one device, so the world size is 1 and a ``mesh`` axis above 1 is
 refused. ``resilience`` (the NaN guardrail, preemption, checkpoint-save
 retries and the training fault sites), ``csv_monitor``, the training
-fields of ``telemetry`` and ``checkpoint.async_save`` parse as in the JAX
-package. Blocks that belong to paths not ported yet raise
-``NotImplementedError`` when enabled, naming the block: among them the
-monitor and logging blocks (``tensorboard``, ``wandb``, ``comms_logger``,
-and the flags ``wall_clock_breakdown``, ``memory_breakdown`` and
-``dump_state`` set to true), which the port would otherwise accept and
-ignore, the telemetry ``ledger`` (on by default in the JAX package: a
-``telemetry`` block must pass ``"ledger": {"enabled": false}``) and its
-flight-recorder blocks; ZeRO stages 0-3 are accepted, since on one device
-they are the same arithmetic. The memory tiers parse as in the JAX package
+fields of ``telemetry`` with its program ``ledger`` (on by default, as in
+JAX), ``flops_profiler``, the ``wall_clock_breakdown`` and
+``memory_breakdown`` flags and ``checkpoint.async_save`` parse as in the
+JAX package. Blocks that belong to paths not ported yet raise
+``NotImplementedError`` when enabled, naming the block: among them
+``tensorboard``, ``wandb``, ``comms_logger``, ``eigenvalue``, the flag
+``dump_state``, which the port would otherwise accept and ignore, the
+ledger's ``collectives`` and the telemetry block's flight-recorder blocks;
+ZeRO stages 0-3 are accepted, since on one device they are the same
+arithmetic. The memory tiers parse as in the JAX package
 (``zero_optimization.offload_optimizer``/``offload_param`` with
 ``nvme_path``, ``sub_group_size``, the ``aio`` block, and
 ``activation_checkpointing.cpu_checkpointing``), and their invalid
@@ -575,8 +575,7 @@ class SpeculationConfig:
 # The fleet's blocks under ``serving.router`` (and ``serving.gateway``),
 # which ``inference/router.Router``, ``inference/rpc`` and
 # ``launcher/serving_worker`` read: the JAX package's dataclasses, with
-# their defaults and validation errors. ``autoscale`` refuses a
-# ``scale_up_mfu`` threshold (``check_ported``).
+# their defaults and validation errors.
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -700,9 +699,8 @@ class RouterTransportConfig:
 class AutoscaleConfig:
     """``serving.router.autoscale``: the elastic fleet
     (``inference/autoscaler.Autoscaler``), parsed and validated as in the
-    JAX package. ``scale_up_mfu`` reads the program ledger's MFU gauges,
-    which the port has not got: a threshold above 0 is refused
-    (``check_ported``) rather than left to never fire."""
+    JAX package. ``scale_up_mfu`` reads the replicas' ``serving/mfu``
+    gauges, which the program ledger publishes."""
 
     enabled: bool = False
     min_replicas: int = 1
@@ -749,12 +747,6 @@ class AutoscaleConfig:
             raise DeepSpeedConfigError(
                 f"serving.router.autoscale.events_capacity must be >= 1, "
                 f"got {self.events_capacity}")
-
-    def check_ported(self) -> None:
-        if self.enabled and self.scale_up_mfu > 0:
-            raise NotImplementedError(
-                "serving.router.autoscale.scale_up_mfu (its signal is the program ledger's serving/mfu "
-                "gauges, telemetry.ledger) is not ported to deepspeed_tpu_torch yet")
 
 
 @dataclass
@@ -917,9 +909,6 @@ class RouterConfig:
                 f"serving.router.max_queue_len must be >= 0, "
                 f"got {self.max_queue_len}")
 
-    def check_ported(self) -> None:
-        self.autoscale.check_ported()
-
 
 # ---------------------------------------------------------------------------
 # The training engine's resilience, monitor and telemetry blocks (the JAX
@@ -1055,9 +1044,11 @@ class MonitorBackendConfig:
 
 @dataclass
 class LedgerConfig:
-    """``telemetry.ledger``: the JAX package's program ledger, on there by
-    default. The port has none, so a ``telemetry`` block must turn it off;
-    ``hbm_warn_fraction`` sets the HBM-pool section's warning."""
+    """``telemetry.ledger`` (and the serving block's ``ledger``): the
+    program ledger, on by default as in JAX (``telemetry/program_ledger.py``).
+    ``hbm_warn_fraction`` sets the HBM-pool section's warning. The
+    collective X-ray (``collectives``) is refused when enabled: it comes with
+    ``comm/``."""
 
     enabled: bool = True
     hbm_warn_fraction: float = 0.9
@@ -1069,6 +1060,10 @@ class LedgerConfig:
                 f"telemetry.ledger.hbm_warn_fraction must be in (0, 1], "
                 f"got {self.hbm_warn_fraction}")
 
+    def check_ported(self) -> None:
+        if self.collectives.get("enabled", False):
+            raise NotImplementedError("telemetry.ledger.collectives is not ported to deepspeed_tpu_torch yet")
+
 
 @dataclass
 class TelemetryConfig:
@@ -1078,10 +1073,11 @@ class TelemetryConfig:
     (rotated at ``jsonl_max_bytes``, ``jsonl_keep`` files kept) and, with
     ``monitor_bridge`` and a monitor on, the registry pushed into the
     monitor at each print boundary. ``device_sync_spans`` makes the step
-    span wait for the step's loss. ``request_trace`` belongs to serving.
-    The ledger and the flight-recorder blocks (``timeseries``, ``slo``,
-    ``incidents``: the JAX training engine reads none of them; serving has
-    its own) raise when on."""
+    span wait for the step's loss. ``ledger`` is the program ledger over
+    ``train/train_step``. ``request_trace`` belongs to serving. The
+    ledger's ``collectives`` and the flight-recorder blocks (``timeseries``,
+    ``slo``, ``incidents``: the JAX training engine reads none of them;
+    serving has its own) raise when on."""
 
     enabled: bool = False
     jsonl_path: str = ""
@@ -1113,14 +1109,9 @@ class TelemetryConfig:
                 f"telemetry.jsonl_keep must be >= 1, got {self.jsonl_keep}")
 
     def check_ported(self) -> None:
-        """The program ledger (default on), its collective X-ray and the
-        flight-recorder blocks raise, naming themselves."""
-        if self.ledger.enabled:
-            raise NotImplementedError(
-                "telemetry.ledger (the program ledger, on by default) is not ported to deepspeed_tpu_torch "
-                "yet; pass {'ledger': {'enabled': False}} in the telemetry block")
-        if self.ledger.collectives.get("enabled", False):
-            raise NotImplementedError("telemetry.ledger.collectives is not ported to deepspeed_tpu_torch yet")
+        """The ledger's collective X-ray and the flight-recorder blocks
+        raise, naming themselves."""
+        self.ledger.check_ported()
         for name in ("timeseries", "slo", "incidents"):
             if getattr(self, name).get("enabled", False):
                 raise NotImplementedError(f"telemetry.{name} is not ported to deepspeed_tpu_torch yet")
@@ -1146,10 +1137,23 @@ class ElasticityConfig:
     num_gpus_per_node: int = 1
 
 
+@dataclass
+class FlopsProfilerConfig:
+    """``flops_profiler``: at step ``profile_step`` the engine profiles one
+    micro-batch's loss and prints it (``profiling/flops_profiler``)."""
+
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+
 # Blocks whose ``enabled`` flag selects a path the port does not have yet,
 # and top-level flags that do so when true.
-_UNPORTED_BLOCKS = (C.FLOPS_PROFILER, "eigenvalue", C.MONITOR_TENSORBOARD, C.MONITOR_WANDB, C.COMMS_LOGGER)
-_UNPORTED_FLAGS = (C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN, C.DUMP_STATE)
+_UNPORTED_BLOCKS = ("eigenvalue", C.MONITOR_TENSORBOARD, C.MONITOR_WANDB, C.COMMS_LOGGER)
+_UNPORTED_FLAGS = (C.DUMP_STATE,)
 
 
 @dataclass
@@ -1161,6 +1165,8 @@ class DeepSpeedConfig:
     seed: int = C.SEED_DEFAULT
     gradient_clipping: float = C.GRADIENT_CLIPPING_DEFAULT
     dataloader_drop_last: bool = False
+    wall_clock_breakdown: bool = False
+    memory_breakdown: bool = False
 
     fp16: FP16Config = field(default_factory=FP16Config)
     bf16: BF16Config = field(default_factory=BF16Config)
@@ -1180,6 +1186,7 @@ class DeepSpeedConfig:
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     elasticity: ElasticityConfig = field(default_factory=ElasticityConfig)
     aio: AioConfig = field(default_factory=AioConfig)
+    flops_profiler: FlopsProfilerConfig = field(default_factory=FlopsProfilerConfig)
 
     raw: dict = field(default_factory=dict, repr=False)
 
@@ -1198,6 +1205,8 @@ class DeepSpeedConfig:
             seed=int(d.get(C.SEED, C.SEED_DEFAULT)),
             gradient_clipping=d.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT),
             dataloader_drop_last=d.get(C.DATALOADER_DROP_LAST, False),
+            wall_clock_breakdown=d.get(C.WALL_CLOCK_BREAKDOWN, False),
+            memory_breakdown=d.get(C.MEMORY_BREAKDOWN, False),
             fp16=_build(FP16Config, _sub(d, C.FP16)),
             bf16=_build(BF16Config, _sub(d, C.BF16)),
             zero_optimization=_build(ZeroConfig, _sub(d, C.ZERO_OPTIMIZATION)),
@@ -1217,6 +1226,7 @@ class DeepSpeedConfig:
             telemetry=_build(TelemetryConfig, _sub(d, C.TELEMETRY)),
             elasticity=_build(ElasticityConfig, _sub(d, C.ELASTICITY)),
             aio=_build(AioConfig, _sub(d, C.AIO)),
+            flops_profiler=_build(FlopsProfilerConfig, _sub(d, C.FLOPS_PROFILER)),
             raw=d,
         )
         cfg._triangulate_batch(world_size)
@@ -1261,8 +1271,7 @@ class DeepSpeedConfig:
                 f"optimizer {self.optimizer.type!r} (the 1-bit family) is not ported to "
                 "deepspeed_tpu_torch yet")
         self.activation_checkpointing.check_ported()
-        if C.TELEMETRY in self.raw:  # the JAX defaults hold a ledger the port has not got
-            self.telemetry.check_ported()
+        self.telemetry.check_ported()
         if self.checkpoint.engine not in (None, "native"):
             raise NotImplementedError(f"checkpoint.engine {self.checkpoint.engine!r} is not ported to "
                                       "deepspeed_tpu_torch (native only)")

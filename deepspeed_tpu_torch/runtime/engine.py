@@ -39,8 +39,19 @@ preemption by signal or injection (a just-in-time checkpoint, then
 ``PreemptionSignal``), retried synchronous saves, the training fault sites,
 and ``checkpoint.async_save``. ``csv_monitor`` receives the loss and lr
 each step and, with ``telemetry.enabled``, the registry at print
-boundaries; ``telemetry_snapshot()`` reports the registry and the
-device-memory pools.
+boundaries.
+
+Telemetry: the step (``train_batch``'s device work) is the watched
+program ``train/train_step``; with ``telemetry.ledger`` on (the default,
+as in JAX) its first call at a batch shape runs under the FLOP and byte
+counter, and ``telemetry_snapshot()`` reports the registry, the program
+ledger's row joined with ``train/step_time_sec`` (achieved TFLOP/s, the
+``train/mfu`` gauge, the roofline verdict), the step anatomy and the
+device-memory pools. ``wall_clock_breakdown`` times each step
+(``train_batch`` to the loss on the device, ``step_dispatch`` to the
+host's return) into ``timer/<name>_sec`` and logs them at print
+boundaries; ``memory_breakdown`` logs the device and host memory there;
+``flops_profiler`` profiles one micro-batch's loss at ``profile_step``.
 """
 
 from __future__ import annotations
@@ -66,8 +77,10 @@ from ..resilience import (CheckpointCorruptError, CheckpointNotFoundError, Fault
                           PreemptionSignal, TrainingDivergedError, TrainingGuardrail, install_injector,
                           retry_call)
 from ..resilience.preemption import PreemptionGuard, activate_guard, reap_orphaned_guard
-from ..telemetry import MonitorBridge, Telemetry, hbm_snapshot, tree_bytes
+from ..telemetry import MonitorBridge, Telemetry, cost, hbm_snapshot, tree_bytes
 from ..utils.logging import log_dist, logger
+from ..utils.memory import see_memory_usage
+from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.world import refuse_multi_process_world
 from . import activation_checkpointing as act_ckpt
 from .checkpoint_engine.checkpoint_engine import get_checkpoint_engine
@@ -138,7 +151,23 @@ class DeepSpeedEngine:
         tcfg = config.telemetry
         self.telemetry = Telemetry(jsonl_path=tcfg.jsonl_path if tcfg.enabled else "",
                                    watchdog_mode=tcfg.watchdog, device_sync_spans=tcfg.device_sync_spans,
-                                   jsonl_max_bytes=tcfg.jsonl_max_bytes, jsonl_keep=tcfg.jsonl_keep)
+                                   ledger=tcfg.ledger.enabled, jsonl_max_bytes=tcfg.jsonl_max_bytes,
+                                   jsonl_keep=tcfg.jsonl_keep, device=self.device)
+        # the train step's ledger row reads its wall time from the step-time
+        # histogram and publishes the engine's headline train/mfu gauge;
+        # under wall_clock_breakdown from the train_batch timer instead,
+        # which ends at the step's loss on the device (the span, without
+        # device_sync_spans, ends when the host has enqueued the step)
+        wall = "timer/train_batch_sec" if config.wall_clock_breakdown else "train/step_time_sec"
+        self.telemetry.ledger.bind("train/train_step", wall_hist=wall, gauge="train")
+        # the step is watched but never stable: the curriculum's batch
+        # shapes legitimately make new signatures
+        wd = self.telemetry.watchdog
+        self._train_step = wd.watch(self._train_step_program, wd.unique_name("train/train_step"))
+        self.timers = SynchronizedWallClockTimer(registry=self.telemetry.registry, device=self.device)
+        self.tput_timer = ThroughputTimer(batch_size=self.train_batch_size,
+                                          steps_per_output=config.steps_per_print,
+                                          registry=self.telemetry.registry)
         self._telemetry_bridge = (MonitorBridge(self.monitor)
                                   if tcfg.enabled and tcfg.monitor_bridge and self.monitor.enabled else None)
         self._last_seen_loss_scale = None  # boundary-sampled flip detection
@@ -303,27 +332,38 @@ class DeepSpeedEngine:
         leaves (numpy or torch) -> metrics dict of 0-d device tensors
         {loss, grad_norm, lr, loss_scale, overflow}."""
         self._resilience_pre_step()
-        gas = self.gradient_accumulation_steps
         if self.curriculum_scheduler is not None:
             batch = self._apply_curriculum(batch)
+        wcb = self.config.wall_clock_breakdown
+        self.tput_timer.start()
+        if wcb:
+            self.timers("train_batch").start()
+            self.timers("step_dispatch").start()
         with self.telemetry.span("train/train_batch") as sp:
             dev_batch = {k: _to_device(v, self.device) for k, v in batch.items()}
             for k, v in dev_batch.items():
                 if v.shape[0] != self.train_batch_size:
                     raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, train_batch_size is "
                                      f"{self.train_batch_size}")
-            micro = {k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:]) for k, v in dev_batch.items()}
-            leaves = self._grad_leaves()
-            loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-            for i in range(gas):
-                loss_sum = loss_sum + self._accumulate(leaves, {k: v[i] for k, v in micro.items()}, i)
-            metrics = {"loss": loss_sum / gas, **self._apply_update(leaves, gas)}
+            metrics = self._train_step(self.state, dev_batch)
             sp.set_sync(metrics["loss"])
+        if wcb:
+            self.timers("step_dispatch").stop()
+            self.timers("train_batch").stop(barrier=metrics["loss"])
+        self.tput_timer.stop()
         self.global_steps += 1
+        fp = self.config.flops_profiler
+        if fp.enabled and self.global_steps == fp.profile_step:
+            self._run_flops_profiler(dev_batch)
         self.global_samples += self.train_batch_size
-        need_host = self.global_steps % self.config.steps_per_print == 0 or self.monitor.enabled
-        if self.global_steps % self.config.steps_per_print == 0:
+        spp = self.config.steps_per_print
+        need_host = self.global_steps % spp == 0 or self.monitor.enabled
+        if self.global_steps % spp == 0:
             self._report_progress(metrics)
+            if wcb:
+                self.timers.log(["train_batch", "step_dispatch"], normalizer=spp, memory_breakdown=True)
+            see_memory_usage(f"after step {self.global_steps}", force=self.config.memory_breakdown,
+                             device=self.device)
         if self.monitor.enabled:
             self.monitor.write_events([("Train/Samples/train_loss", float(metrics["loss"]), self.global_samples),
                                        ("Train/Samples/lr", float(metrics["lr"]), self.global_samples)])
@@ -331,6 +371,20 @@ class DeepSpeedEngine:
         self._resilience_post_step(metrics)
         self._snapshot_dl_cursor()
         return metrics
+
+    def _train_step_program(self, state: dict, dev_batch: dict) -> dict:
+        """The watched step (``train/train_step``): the ``gas``
+        micro-batches' forward and backward, then the update, on the batch
+        already on the device. ``state`` is ``self.state``, passed so the
+        signature and the ledger's argument bytes cover it; the update
+        replaces ``self.state``."""
+        gas = self.gradient_accumulation_steps
+        micro = {k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:]) for k, v in dev_batch.items()}
+        leaves = self._grad_leaves()
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(gas):
+            loss_sum = loss_sum + self._accumulate(leaves, {k: v[i] for k, v in micro.items()}, i)
+        return {"loss": loss_sum / gas, **self._apply_update(leaves, gas)}
 
     def _grad_leaves(self) -> dict:
         """The fp32 master parameters as fresh autograd leaves, whose
@@ -426,7 +480,8 @@ class DeepSpeedEngine:
         finite = finite.to(self.device)
         fetched = torch.stack([finite.double(), lr.double(), step1.double()]).cpu()
         if bool(fetched[0]):
-            self.tier.update(grads, int(fetched[2]), float(fetched[1]))
+            with cost.paused():  # the host update is not the device's work
+                self.tier.update(grads, int(fetched[2]), float(fetched[1]))
         self.state = {**state, **self._scalars_after(finite, step1), **self.tier.state_entries()}
         return {"grad_norm": gnorm.to(self.device), "lr": lr, "loss_scale": loss_scale, "overflow": ~finite}
 
@@ -581,10 +636,12 @@ class DeepSpeedEngine:
 
     def telemetry_snapshot(self) -> dict:
         """The registry (step-time histogram, counters, boundary gauges),
-        the recompile table and the device-memory pools (params, optimizer
-        state) beside the caching allocator's counts; appended to the JSONL
-        log when a sink is configured. The JAX engine's program-ledger and
-        collective sections are not ported."""
+        the recompile table, the program ledger (the step's FLOPs, bytes
+        and device memory, with achieved TFLOP/s, MFU and the roofline
+        verdict), the step anatomy and the device-memory pools (params,
+        optimizer state) beside the caching allocator's counts; appended to
+        the JSONL log when a sink is configured. The JAX engine's
+        collective sections wait for ``comm/``."""
         pools = {"params": tree_bytes(self.state["params"]), "opt_state": tree_bytes(self.state["opt"])}
         if "master" in self.state:
             pools["master_params"] = tree_bytes(self.state["master"])
@@ -592,6 +649,23 @@ class DeepSpeedEngine:
             hbm=hbm_snapshot(pools, self.device, self.config.telemetry.ledger.hbm_warn_fraction))
         self.telemetry.emit({"type": "snapshot", **snap})
         return snap
+
+    def _run_flops_profiler(self, dev_batch: dict) -> None:
+        """The ``flops_profiler`` block (JAX ``engine.py:1779-1800``): profile
+        the loss over one micro-batch of the step's batch and print it.
+        Advisory: a failure is logged, never raised into training."""
+        from ..profiling.flops_profiler.profiler import FlopsProfiler
+
+        fp = self.config.flops_profiler
+        rows = max(1, self.train_batch_size // self.gradient_accumulation_steps)
+        micro = {k: v[:rows] for k, v in dev_batch.items()}
+        try:
+            prof = FlopsProfiler(fp)
+            params = self.state["params"]
+            res = prof.profile(lambda p, b: self.model.loss(self._cast(p), b), params, micro, params=params)
+            prof.print_model_profile(res, detailed=fp.detailed)
+        except (RuntimeError, ValueError, TypeError, NotImplementedError, OSError) as e:
+            logger.warning(f"flops profiler failed: {e}")
 
     def _apply_curriculum(self, batch: dict) -> dict:
         """Seqlen curriculum: truncate every batch leaf of rank >= 2 to the

@@ -6,9 +6,14 @@ request tracer.
     p50/p90/p99 estimates, cheap enough for per-decode-step updates.
   * ``SpanTracer`` — nested host spans that also open
     ``torch.profiler.record_function`` ranges.
-  * ``RecompileWatchdog`` — wraps the serving programs; every first call at
-    a new signature is an event, and paths declared stable (decode) warn or
-    raise on a second one.
+  * ``RecompileWatchdog`` — wraps the training step and the serving
+    programs; every first call at a new signature is an event, and paths
+    declared stable (decode) warn or raise on a second one.
+  * ``ProgramLedger`` — FLOPs, bytes and device memory per watched program,
+    counted on its first call (``cost.py``), joined with the wall-time
+    histograms into MFU and roofline rows (``program_ledger.py``), and the
+    step anatomy (``collective_ledger.py``); ``python -m
+    deepspeed_tpu_torch.telemetry.report`` renders them.
   * ``RequestTracer`` — bounded per-request lifecycle timeline with a
     Perfetto export.
   * exporters — JSONL event log, Prometheus text, the bridge into the
@@ -20,16 +25,16 @@ request tracer.
     of the JAX package's stdlib modules.
 
 ``Telemetry`` bundles them; engines hold one each. Metric names follow
-``subsystem/name``, as in the JAX package. Not ported yet: the program and
-collective ledgers and the report CLI.
+``subsystem/name``, as in the JAX package. Not ported yet: the collective
+ledger (HLO collectives, comm reconciliation), which comes with ``comm/``.
 """
 
 from __future__ import annotations
 
-import torch
-
+from .collective_ledger import pipeline_bubble_fraction, step_anatomy
 from .exporters import JsonlExporter, MonitorBridge, prometheus_fleet_text, prometheus_text
 from .incident import IncidentRecorder
+from .program_ledger import ProgramLedger, hbm_snapshot, platform_peaks, tree_bytes
 from .registry import Counter, Gauge, Histogram, MetricsRegistry, get_registry
 from .request_trace import RequestTracer, request_timeline, to_perfetto
 from .slo import SLOTracker, classify_terminal
@@ -41,67 +46,33 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
     "Span", "SpanTracer", "RecompileError", "RecompileWatchdog",
     "abstract_signature", "JsonlExporter", "MonitorBridge", "prometheus_text",
-    "prometheus_fleet_text", "RequestTracer", "request_timeline",
-    "to_perfetto", "Telemetry", "tree_bytes", "hbm_snapshot",
+    "prometheus_fleet_text", "ProgramLedger", "hbm_snapshot", "platform_peaks",
+    "tree_bytes", "RequestTracer", "request_timeline", "to_perfetto",
+    "step_anatomy", "pipeline_bubble_fraction", "Telemetry",
     "TimeSeriesStore", "SLOTracker", "classify_terminal", "IncidentRecorder",
 ]
 
 
-def tree_bytes(tree) -> int:
-    """Total bytes of the tensors in a dict/list/tuple nesting (metadata
-    only, no device sync)."""
-    if torch.is_tensor(tree):
-        return tree.numel() * tree.element_size()
-    if isinstance(tree, dict):
-        return sum(tree_bytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(tree_bytes(v) for v in tree)
-    return 0
-
-
-def hbm_snapshot(pools: dict[str, int], device, warn_fraction: float = 0.9) -> dict:
-    """Device memory attributed to named pools, beside the CUDA caching
-    allocator's own counts for ``device`` (none on the CPU). ``warn`` trips
-    when the allocator's reserved bytes exceed ``warn_fraction`` of the
-    card's memory."""
-    pools = {k: int(v) for k, v in pools.items() if v}
-    out: dict = {
-        "pools": pools,
-        "pool_total_bytes": sum(pools.values()),
-        "warn_fraction": float(warn_fraction),
-        "warn": False,
-    }
-    device = torch.device(device)
-    if device.type == "cuda":
-        stats = torch.cuda.memory_stats(device)
-        limit = torch.cuda.get_device_properties(device).total_memory
-        reserved = int(stats.get("reserved_bytes.all.current", 0))
-        out["device"] = {
-            "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
-            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
-            "bytes_reserved": reserved,
-            "bytes_limit": int(limit),
-        }
-        out["warn"] = reserved > warn_fraction * limit
-    return out
-
-
 class Telemetry:
-    """One registry + span tracer + recompile watchdog + optional JSONL
-    sink. ``registry=None`` creates a private registry (engine-scoped
-    metrics should not mix across engine instances)."""
+    """One registry + span tracer + recompile watchdog + program ledger +
+    optional JSONL sink. ``registry=None`` creates a private registry
+    (engine-scoped metrics should not mix across engine instances).
+    ``ledger=False`` turns the cost counting off
+    (``telemetry.ledger.enabled`` in config); ``device`` is what the
+    ledger counts on and rates against (the engine sets it)."""
 
     def __init__(self, registry: MetricsRegistry | None = None,
                  jsonl_path: str = "", watchdog_mode: str = "warn",
-                 device_sync_spans: bool = False,
-                 jsonl_max_bytes: int = 0, jsonl_keep: int = 3):
+                 device_sync_spans: bool = False, ledger: bool = True,
+                 jsonl_max_bytes: int = 0, jsonl_keep: int = 3, device=None):
         self.registry = registry if registry is not None else MetricsRegistry()
         self.sink = JsonlExporter(jsonl_path, max_bytes=jsonl_max_bytes,
                                   keep=jsonl_keep) if jsonl_path else None
         self.tracer = SpanTracer(self.registry, self.sink,
                                  device_sync=device_sync_spans)
+        self.ledger = ProgramLedger(self.registry, enabled=ledger, device=device)
         self.watchdog = RecompileWatchdog(self.registry, self.sink,
-                                          mode=watchdog_mode)
+                                          mode=watchdog_mode, ledger=self.ledger)
 
     # convenience passthroughs — instrumented code holds one handle
     def counter(self, name: str) -> Counter:
@@ -124,10 +95,17 @@ class Telemetry:
             self.sink.emit(event)
 
     def snapshot(self, **extra) -> dict:
-        """Registry snapshot + recompile table (+ caller extras): the one
-        call that reports everything."""
-        out: dict = {"metrics": self.registry.snapshot(),
-                     "recompile_table": self.watchdog.compile_table()}
+        """Registry snapshot + recompile table + program ledger + step
+        anatomy (+ caller extras): the one call that reports everything.
+        The ledger table and anatomy are computed FIRST so the MFU and
+        intensity gauges they publish land in the same metrics snapshot."""
+        out: dict = {}
+        if self.ledger.enabled and self.ledger.entries:
+            out["program_ledger"] = self.ledger.table(self.registry)
+            out["step_anatomy"] = self.ledger.anatomy(self.registry)
+            out["platform"] = dict(self.ledger.platform)
+        out["metrics"] = self.registry.snapshot()
+        out["recompile_table"] = self.watchdog.compile_table()
         out.update(extra)
         return out
 

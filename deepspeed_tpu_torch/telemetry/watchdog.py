@@ -19,7 +19,11 @@ compilation is recorded with
     for the decode program the graph capture),
   * registry counters ``compile/<name>`` and histogram ``compile/wall_s``,
   * a JSONL event ``{"type": "compile", "name", "signature", "compile_s",
-    "n_for_name"}``.
+    "n_for_name"}``,
+  * with a ``ProgramLedger`` (``telemetry/program_ledger.py``), the cost of
+    the compiling call: the first signature of each name runs under the
+    ledger's FLOP and byte counter (JAX hands the ledger the call's specs
+    for XLA's cost model instead).
 
 A path declared ``stable=True`` may compile ONCE; the second compilation
 triggers the watchdog's ``mode``: ``"warn"`` logs loudly, ``"raise"``
@@ -92,12 +96,15 @@ def abstract_key(args, kwargs=None) -> tuple:
 
 class RecompileWatchdog:
     def __init__(self, registry: Optional[MetricsRegistry] = None, sink=None,
-                 mode: str = "warn"):
+                 mode: str = "warn", ledger=None):
         if mode not in ("off", "warn", "raise"):
             raise ValueError(f"watchdog mode must be off|warn|raise, got {mode!r}")
         self.registry = registry if registry is not None else get_registry()
         self.sink = sink
         self.mode = mode
+        # optional ProgramLedger: the first signature of each name runs
+        # under its cost counter, and every compilation is offered to it
+        self.ledger = ledger
         self.events: list[dict] = []  # chronological compile/refusal events
         self._watched: dict[str, dict] = {}  # name -> {stable, compiles, ...}
         # optional incident hook: called as on_refusal(name, signature) on
@@ -192,13 +199,20 @@ class RecompileWatchdog:
                     f"be compilation #{entry['compiles'] + 1} on a path "
                     "whose contract is ONE program"
                     + ("" if first else " (already-refused signature)"))
+            costed = compiled and self.ledger is not None and self.ledger.wants(name)
+            cost = None
             t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
+            if costed:
+                out, cost = self.ledger.measure(fn, args, kwargs)
+            else:
+                out = fn(*args, **kwargs)
             dt = time.perf_counter() - t0
             wrapped.last_call_compiled = compiled
             if compiled:
                 seen.add(key)
                 ev = self._record(name, abstract_signature(args, kwargs), dt)
+                if self.ledger is not None:
+                    self.ledger.capture(name, cost, dt)
                 if stable and ev["n_for_name"] > 1:
                     self._violation(name, ev)
             return out

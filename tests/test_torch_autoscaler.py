@@ -1,8 +1,8 @@
 """Port parity: the serving fleet's autoscaler (``inference/autoscaler.py``)
 and the Router's brownout ladder it drives.
 
-Each case of ``tests/test_autoscaler.py`` (but the MFU signal's, whose
-ledger the port refuses) runs once per package over the same host-only
+Each case of ``tests/test_autoscaler.py`` (the MFU signal's too, now that
+the program ledger is ported) runs once per package over the same host-only
 scheduler fakes, or over real fp32 engines at ``tests/simple_model.py``
 shapes with the same weights, on a fixed router clock (``step(now=...)``).
 The decision events (kind, rid, slot, target and, where the clock is
@@ -525,14 +525,40 @@ def test_autoscale_config_schema_matches_jax():
         assert str(te.value) == str(je.value)
 
 
+class _MfuEngine(_FakeEngine):
+    """A fake replica whose snapshot carries the program ledger's gauge."""
+
+    def telemetry_snapshot(self):
+        return {"replica_id": self.replica_id, "metrics": {"gauges": {"serving/mfu": 0.6}}}
+
+
+def _mfu_run(P):
+    router = P.Router(replica_engines=[_MfuEngine(P, 0)], config={"router": {"health": {"timeout": 0}}})
+    spawned = []
+
+    def spawn():
+        spawned.append(_MfuEngine(P, 100 + len(spawned)))
+        return spawned[-1]
+
+    asc = P.Autoscaler(router, {"enabled": True, "min_replicas": 1, "max_replicas": 2, "scale_up_queue": 0,
+                                "scale_up_load": 0.0, "scale_up_mfu": 0.5, "up_consecutive": 2,
+                                "down_consecutive": 3, "cooldown_s": 0.0}, spawn=spawn)
+    assert asc.signals(0.0)["mfu"] is None
+    assert asc.observe(router.telemetry_snapshot()) == pytest.approx(0.6)
+    assert asc.signals(0.0)["mfu"] == pytest.approx(0.6)
+    router.step(now=1.0)
+    router.step(now=2.0)  # mfu 0.6 >= 0.5 for two ticks
+    assert asc.target == 2 and len(spawned) == 1
+    return _observe(router, asc)
+
+
 def test_scale_up_mfu_is_refused_not_dropped():
-    """The MFU up-signal reads the program ledger's gauges, which the port
-    refuses: a threshold that could never fire raises, naming it, from the
-    config block, the Router and a directly built Autoscaler alike."""
+    """The MFU up-signal, ported (the JAX case
+    ``test_mfu_signal_flows_from_fleet_snapshot``): ``observe`` folds the
+    replicas' ``serving/mfu`` gauges from ``Router.telemetry_snapshot()``
+    into the signal and an armed ``scale_up_mfu`` scales the fleet up, with
+    the same events, counters and gauges in both packages; the config
+    block takes the threshold."""
+    assert _mfu_run(TORCH) == _mfu_run(JAX)
     block = {"enabled": True, "scale_up_queue": 0, "scale_up_load": 0.0, "scale_up_mfu": 0.5}
-    with pytest.raises(NotImplementedError, match="scale_up_mfu"):
-        tconfig.RouterConfig(autoscale=block).check_ported()
-    router = Router(replica_engines=[_FakeEngine(TORCH)], config={"router": {"health": {"timeout": 0}}})
-    with pytest.raises(NotImplementedError, match="scale_up_mfu"):
-        Autoscaler(router, block)
-    tconfig.RouterConfig(autoscale=dict(block, enabled=False)).check_ported()
+    assert vars(tconfig.RouterConfig(autoscale=block).autoscale) == vars(jconfig.RouterConfig(autoscale=block).autoscale)

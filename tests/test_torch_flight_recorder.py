@@ -11,8 +11,8 @@ serving run with the whole recorder on writes no bundle, changes no token
 and builds no extra program; a replica's death leaves ONE coalesced bundle
 that both packages' autopsies validate with no problems; brownout, a NaN
 quarantine and a watchdog refusal trigger bundles of their kind; a
-worker's step reply carries its ring cells into the Router's mirror. The
-report CLI's ``--watch`` cases stay out: the report CLI is not ported.
+worker's step reply carries its ring cells into the Router's mirror; the
+report CLI's ``--watch`` loop and its interval check.
 """
 
 import json
@@ -467,6 +467,37 @@ def test_flight_recorder_config_validation(cls, kw):
     assert tconfig.GatewayConfig(metrics_fleet_refresh_s=5.0).metrics_fleet_refresh_s == 5.0
 
 
+# -- report --watch ---------------------------------------------------------------------
+
+def test_report_watch_loop_host_only():
+    import io
+
+    from deepspeed_tpu.telemetry import report as jreport
+    from deepspeed_tpu_torch.telemetry import report as treport
+
+    outs = {}
+    for name, rep in (("jax", jreport), ("torch", treport)):
+        out, sleeps = io.StringIO(), []
+        frames = iter(["frame-a\n", "frame-b\n", "frame-c\n"])
+        assert rep.watch_loop(lambda: next(frames), 2.5, out=out, sleep=sleeps.append, iterations=3) == 0
+        outs[name] = (out.getvalue(), sleeps)
+    text, sleeps = outs["torch"]
+    assert outs["torch"] == outs["jax"]
+    assert text.count(treport._CLEAR) == 3 and "frame-a" in text and "frame-c" in text
+    assert sleeps == [2.5, 2.5]  # no sleep after the final frame
+
+
+def test_report_watch_rejects_bad_interval(tmp_path):
+    from deepspeed_tpu.telemetry import report as jreport
+    from deepspeed_tpu_torch.telemetry import report as treport
+
+    p = tmp_path / "t.jsonl"
+    p.write_text("")
+    for rep in (jreport, treport):
+        with pytest.raises(SystemExit):
+            rep.main([str(p), "--watch", "0"])
+
+
 # -- the wiring -----------------------------------------------------------------------
 
 
@@ -510,7 +541,11 @@ def test_clean_serving_writes_zero_bundles(engines, tmp_path):
 
 def _dead_replica_run(P, eng, tmp_path):
     cfg = {"n_slots": 2, "max_seq_len": 64, "router": {"replicas": 2, "health": {"timeout": 30.0}},
-           **_flight_config(tmp_path), "fault_injection": {"enabled": True, "replica_dead_at": [[1, 3]]}}
+           # sampled at every fleet step: with a wall-clock interval the
+           # samples after the failover (and so which counters become ring
+           # series) depended on the host's speed
+           **_flight_config(tmp_path, timeseries={"enabled": True, "interval_s": 1e-4}),
+           "fault_injection": {"enabled": True, "replica_dead_at": [[1, 3]]}}
     if P == "jax":
         cfg["ledger"] = {"enabled": False}
     R, Q = (JaxRouter, JaxRequest) if P == "jax" else (Router, Request)

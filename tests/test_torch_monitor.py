@@ -150,7 +150,11 @@ def test_telemetry_block_refusals_name_themselves():
     ok = tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, "telemetry": {
         "enabled": True, "ledger": {"enabled": False, "hbm_warn_fraction": 0.5}}})
     assert ok.telemetry.enabled and ok.telemetry.ledger.hbm_warn_fraction == 0.5
-    for block, name in ((({"enabled": True}), "telemetry.ledger"),
+    # the program ledger is ported (on by default, as in JAX); its collective X-ray is not
+    on = tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, "telemetry": {"enabled": True}})
+    assert on.telemetry.ledger.enabled
+    for block, name in (({"ledger": {"enabled": True, "collectives": {"enabled": True}}},
+                         "telemetry.ledger.collectives"),
                         ({"ledger": {"enabled": False, "collectives": {"enabled": True}}},
                          "telemetry.ledger.collectives"),
                         ({"ledger": {"enabled": False}, "timeseries": {"enabled": True}}, "telemetry.timeseries"),

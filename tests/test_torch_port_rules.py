@@ -5,8 +5,10 @@ and runs a serving step, a two-replica Router with a journal through a
 replica's death, a disaggregated Router with the flight recorder on, a bf16
 KV window through the int8 codec with no ``ml_dtypes``, a flash training step and a block-sparse training step
 fed by the curriculum and the dataloader; the serving worker's, the
-launchers', the elastic inspector's and the chaos conductor's ``python -m``
-entry points run with JAX blocked too."""
+launchers', the elastic inspector's, the chaos conductor's, the report
+CLI's and env_report's ``python -m`` entry points run with JAX blocked
+too; the training step there carries the program ledger, the timers and
+the flops profiler."""
 
 import ast
 import pathlib
@@ -65,9 +67,13 @@ k = torch.ones((2, 1, 8, 4, 8), dtype=torch.bfloat16)
 assert rpc.decode_kv_window(rpc._dec_value(rpc.encode_kv_window(k, k, "int8")))[0].dtype == torch.bfloat16
 assert "ml_dtypes" not in [m for m in sys.modules if sys.modules[m] is not None]
 model = Model(TransformerConfig(**{TINY!r}, attn_impl="flash"))
-trainer, _, _, _ = pkg.initialize(model=model, config={{"train_batch_size": 2}}, device="cpu")
+trainer, _, _, _ = pkg.initialize(model=model, config={{"train_batch_size": 2, "wall_clock_breakdown": True,
+                                  "flops_profiler": {{"enabled": True}}}}, device="cpu")
 metrics = trainer.train_batch({{"tokens": np.zeros((2, 9), np.int32)}})
 assert np.isfinite(float(metrics["loss"]))
+snap = trainer.telemetry_snapshot()  # the program ledger, on by default
+assert snap["program_ledger"][0]["kernels"]["flash_forward"]["calls"] == 2
+assert snap["platform"]["label"] == "cpu (unrated)" and "timer/train_batch_sec" in snap["metrics"]["histograms"]
 sparse = Model(TransformerConfig(**{TINY!r}))
 ds = {{"train_batch_size": 2, "sparse_attention": {{"mode": "bigbird", "block": 16, "num_random_blocks": 1}},
       "curriculum_learning": {{"enabled": True, "min_difficulty": 16, "max_difficulty": 32,
@@ -155,6 +161,11 @@ with tempfile.TemporaryDirectory() as d:
     assert run("deepspeed_tpu_torch.resilience.chaos", "--search", "2", "--artifact-dir", d) == 0
     assert run("deepspeed_tpu_torch.launcher.runner", "--help") == 0
     assert run("deepspeed_tpu_torch.launcher.launch", "--help") == 0
+    with open(os.path.join(d, "t.jsonl"), "w") as f:
+        f.write(json.dumps({"type": "snapshot", "metrics": {}, "program_ledger": [
+            {"name": "p", "flops": 1e9, "bytes_accessed": 1e8, "roofline": "unrated:cpu"}]}) + "\\n")
+    assert run("deepspeed_tpu_torch.telemetry.report", os.path.join(d, "t.jsonl")) == 0
+    assert run("deepspeed_tpu_torch.env_report") == 0
 assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
 print("entry points ok")
 """

@@ -427,5 +427,9 @@ def test_router_config_schema_matches_jax():
     ({"router": {"autoscale": {"enabled": True, "scale_up_mfu": 0.5}}}, "scale_up_mfu"),
 ])
 def test_unported_fleet_blocks_are_refused(engines, block, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Router(engines["torch"], config={"n_slots": 2, **block})
+    """scale_up_mfu is ported (the program ledger's serving/mfu gauges): the
+    Router builds its autoscaler with the threshold, as the JAX Router does."""
+    jrouter = JaxRouter(engines["jax"], config={"n_slots": 2, "ledger": {"enabled": False}, **block})
+    router = Router(engines["torch"], config={"n_slots": 2, **block})
+    assert router._autoscaler.cfg.scale_up_mfu == jrouter._autoscaler.cfg.scale_up_mfu == 0.5
+    assert vars(router._autoscaler.cfg) == vars(jrouter._autoscaler.cfg) and match == "scale_up_mfu"

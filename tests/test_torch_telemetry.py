@@ -5,8 +5,8 @@ The same updates through the JAX package's modules and the port's give
 equal registry snapshots, Prometheus text, JSONL events (rotation
 included), request timelines and Perfetto exports. The port's recompile
 watchdog counts one compilation per abstract signature and refuses a
-stable path's second one before the call runs. The serving ``ledger`` block,
-which the port has not got, raises ``NotImplementedError`` naming it; the
+stable path's second one before the call runs. The serving ``ledger`` block
+is taken (on by default, as in JAX) and its collective X-ray refused; the
 serving roles build.
 """
 
@@ -189,9 +189,13 @@ def test_request_timeline_and_perfetto_match_jax(tiny_engine):
 
 @pytest.mark.parametrize("block", ["ledger"])
 def test_unported_blocks_are_refused(tiny_engine, block):
-    with pytest.raises(NotImplementedError, match=block):
-        ServingEngine(tiny_engine, config={block: {"enabled": True}})
-    ServingEngine(tiny_engine, config={block: {"enabled": False}})
+    """The serving ledger block is ported (on by default, as in JAX); only
+    its collective X-ray is refused."""
+    assert ServingEngine(tiny_engine, config={block: {"enabled": True}}).telemetry.ledger.enabled
+    assert ServingEngine(tiny_engine).telemetry.ledger.enabled
+    assert not ServingEngine(tiny_engine, config={block: {"enabled": False}}).telemetry.ledger.enabled
+    with pytest.raises(NotImplementedError, match="ledger.collectives"):
+        ServingEngine(tiny_engine, config={block: {"enabled": True, "collectives": {"enabled": True}}})
 
 
 @pytest.mark.parametrize("role", ["prefill", "decode", "both"])

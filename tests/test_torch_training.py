@@ -8,6 +8,8 @@ The JAX flash-attention path runs its Pallas kernels in interpret mode; the
 port's CPU tensors take the plain versions the CUDA kernels are held against.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -171,15 +173,35 @@ def test_config_parses_like_jax(name):
     {"mesh": {"data": 2}},
 ])
 def test_unported_config_blocks_raise(block):
-    # a telemetry block is refused for its program ledger, on by default in the JAX package
-    match = "telemetry.ledger" if "telemetry" in block else None
-    with pytest.raises(NotImplementedError, match=match):
-        tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, **block})
+    """Unported blocks raise; flops_profiler and telemetry (its program
+    ledger on by default, as in JAX) are ported: the port takes them as the
+    JAX package parses them."""
+    d = {"train_batch_size": 2, **block}
+    name = next(iter(block))
+    if name in ("flops_profiler", "telemetry"):
+        t = tconfig.DeepSpeedConfig.from_dict(d, world_size=1)
+        j = jconfig.DeepSpeedConfig.from_dict(d, world_size=1)
+        assert _config_view(t) == _config_view(j)
+        assert _ported_view(getattr(t, name)) == _ported_view(getattr(j, name))
+        return
+    with pytest.raises(NotImplementedError):
+        tconfig.DeepSpeedConfig.from_dict(d)
+
+
+def _ported_view(block):
+    """A flops_profiler or telemetry block's fields, the ledger's beside its
+    own (the JAX ledger's ``collectives`` is a dataclass, the port's a dict)."""
+    out = {f.name: getattr(block, f.name) for f in dataclasses.fields(block)
+           if f.name not in ("ledger", "request_trace", "timeseries", "slo", "incidents")}
+    if hasattr(block, "ledger"):
+        out["ledger"] = (block.ledger.enabled, block.ledger.hbm_warn_fraction)
+    return out
 
 
 # The monitor and logging blocks the JAX engine acts on (MonitorMaster's
-# TensorBoard and W&B backends, comms logging, timers, state dumps) and the
-# port has not got; csv_monitor is ported (tests/test_torch_monitor.py).
+# TensorBoard and W&B backends, comms logging, timers, state dumps);
+# csv_monitor (tests/test_torch_monitor.py) and the timer and memory flags
+# are ported, the others refused.
 MONITOR_BLOCKS = {
     "tensorboard": {"enabled": True, "output_path": "logs"},
     "wandb": {"enabled": True, "project": "p"},
@@ -196,6 +218,9 @@ def test_monitor_and_logging_blocks_are_refused_not_dropped(name):
     ref = jconfig.DeepSpeedConfig.from_dict(d, world_size=1)  # the reference takes it and acts on it
     ref_value = getattr(ref, name)
     assert (ref_value.enabled if hasattr(ref_value, "enabled") else ref_value) is True
+    if name in ("wall_clock_breakdown", "memory_breakdown"):  # ported: the engine's timers and memory log
+        assert getattr(tconfig.DeepSpeedConfig.from_dict(d), name) is True
+        return
     with pytest.raises(NotImplementedError, match=name):
         tconfig.DeepSpeedConfig.from_dict(d)
 

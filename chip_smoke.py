@@ -278,10 +278,27 @@ Phases, each of which passes or makes the script exit non-zero:
      rows rated; (e) python -m deepspeed_tpu_torch.env_report; (f) host µs a
      call of the flash forward and the fused loss's forward with no counter
      active (``kernel_call_timing``, which also times a parent checkout).
+ 26. data parallelism (comm/, parallel/sharding.py, runtime/zero/): (a) a
+     world of 1 under NCCL, through the real communicator: phase 7's
+     configuration under ZeRO 0, 1, 2 and 3 from the same seeded weights,
+     one warm-up and 3 timed steps each: ms/step, peak memory, the comms
+     logger's collectives and bytes a step beside the reckoning
+     (``dp_reckoning``), 48 launches of each flash kernel per train_batch
+     and none of the other kernels, and each stage's loss within 2e-3 of
+     stage 0's; (b) a world of 2 under
+     gloo, both ranks on the card (this script in its hidden
+     ``--dp-worker`` mode, a FileStore rendezvous): each rank first probes
+     which gloo collectives take CUDA tensors, then runs ZeRO 1 and ZeRO 3
+     at global batch 32 = 2 x micro 4 x gas 4, each rank's losses within
+     2e-3 of a world of 1 on the same global batches, each rank's
+     optimizer-state bytes (and at ZeRO 3 parameter bytes) about half of
+     world 1's, the logged bytes a step beside the reckoning; the ZeRO-3
+     state saved at world 2 is loaded at world 1 under ZeRO 1, whose next
+     loss equals world 2's.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
 line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, an
 ``{"elastic": {...}}`` line, a ``{"chaos": {...}}`` line, a ``{"profiling": {...}}`` line, a
-``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
+``{"zero": {...}}`` line, a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
 
@@ -294,6 +311,7 @@ without remat beside it, which shows what remat's recompute costs the step.
 """
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -5337,6 +5355,426 @@ def profiling_phase(dev, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: data parallelism (comm/, runtime/zero/)
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3  # timed steps after the warm-up (a), compared steps (b)
+DP_SEED = 2600
+# (b)'s losses against world 1's, relative: the same bf16 steps with the
+# gradients summed in another order (read 3.65e-6 at ZeRO 1, 2.26e-6 at
+# ZeRO 3 on an H100; one step moves the loss about 1e-3). (a)'s stages and
+# the resume are held bitwise: nothing in them changes an order.
+DP_LOSS_RTOL = 1e-5
+# (b)'s parameters: |world 2 - world 1| / |world 1 - initial| over every
+# element, after the same 4 steps: read 3.30e-2 (ZeRO 1) and 3.28e-2
+# (ZeRO 3) on an H100, Adam's steps on near-zero gradients that the other
+# summation order flips; a world that skipped its update reads 1
+DP_PARAM_GAP = 0.05
+DP_WORLD2 = {"micro": 4, "gas": 4}  # (b): global batch 32 = 2 ranks x micro 4 x gas 4
+DP_PROBE = ("all_reduce", "broadcast", "all_gather", "reduce_scatter", "all_to_all")
+
+
+def dp_config(stage, train_batch, micro, gas, base=None):
+    ds = dict(base or BENCH_DS)
+    return {**ds, "train_batch_size": train_batch, "train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas, "zero_optimization": {"stage": stage},
+            "comms_logger": {"enabled": True}}
+
+
+def dp_batch(cfg, rows, step):
+    """The global batch of ``step`` (every rank draws the same one)."""
+    rng = np.random.default_rng(DP_SEED + step)
+    return {"tokens": rng.integers(0, cfg.vocab_size, size=(rows, cfg.max_seq_len + 1)).astype(np.int32)}
+
+
+def dp_params(cfg):
+    """The phase's weights, from one seeded generator on the host."""
+    return tfm.init(cfg, torch.Generator().manual_seed(DP_SEED))
+
+
+def state_bytes(engine) -> dict:
+    return {"params": sum(t.numel() * t.element_size() for t in tree_leaves(engine.state["params"])),
+            "opt_state": sum(t.numel() * t.element_size() for t in tree_leaves(engine.state["opt"]))}
+
+
+def comm_totals() -> dict:
+    from deepspeed_tpu_torch.comm import comms_logger
+
+    s = comms_logger.summary()
+    return {"count": sum(v["count"] for k, v in s.items() if k != "by_axis"),
+            "bytes": sum(v["bytes"] for k, v in s.items() if k != "by_axis"),
+            "staged_bytes": comms_logger.staged_bytes,
+            "ops": {k: v for k, v in s.items() if k != "by_axis"}}
+
+
+def dp_steps(engine, cfg, steps, first_step=0, warm=True):
+    """(warm-up s, ms a step, losses, per-step launches, comms a step, peak
+    bytes): one warm-up call (step ``first_step``) when ``warm``, then
+    ``steps`` calls on the phase's global batches, ending in a synchronise."""
+    from deepspeed_tpu_torch.comm import comms_logger
+
+    cuda = engine.device.type == "cuda"
+    losses, warm_s = [], 0.0
+    step = first_step
+    if warm:
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(dp_batch(cfg, engine.train_batch_size, step))["loss"]))
+        warm_s = time.perf_counter() - t0
+        step += 1
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    comms_logger.reset()
+    reset_counts()
+    per_step, metrics = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        before = counts() + sparse_counts()
+        metrics.append(engine.train_batch(dp_batch(cfg, engine.train_batch_size, step)))
+        per_step.append([a - b for a, b in zip(counts() + sparse_counts(), before)])
+        step += 1
+    if cuda:
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    losses += [float(m["loss"]) for m in metrics]
+    tot = comm_totals()
+    per = {"count": tot["count"] / steps, "bytes": tot["bytes"] / steps, "staged_bytes": tot["staged_bytes"] / steps}
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    return warm_s, step_ms, losses, per_step, per, peak, tot["ops"]
+
+
+def dp_reckoning(P, P_layers, stage, world, gas, elt):
+    """The bytes a step's collectives should log (their operands), written
+    before the first run in PERF.md. Stages 0-2 reduce P fp32 gradient
+    elements (all-reduce; stage 2 at world > 1 reduce-scatter), and at
+    world > 1 stages 1-2 all-gather each rank's P / world fp32 parameter
+    shard. Stage 3 at world > 1, per micro-batch: each rank's ``elt``-byte
+    (compute dtype) shard of every leaf gathered in the forward, of the
+    layers (``P_layers``) again in the backward, and P fp32 gradient
+    elements reduce-scattered; at world 1 nothing is split, so only the
+    gradients are all-reduced, a layer at a time. Scalars (the loss, the
+    norm) are left out."""
+    if stage < 3:
+        return 4 * P + (4 * P // world if stage in (1, 2) and world > 1 else 0)
+    if world == 1:
+        return gas * 4 * P
+    return gas * (elt * P // world + elt * P_layers // world + 4 * P)
+
+
+def dp_probe(device) -> dict:
+    """Which gloo collectives take a tensor on ``device`` (run in every rank
+    at once): each is called on a tensor there; a refused call is recorded
+    by its error. comm/ does not try a collective and catch this: it hands
+    gloo the collectives in GLOO_CUDA_NATIVE on CUDA tensors as they are,
+    and this table checks that gloo takes each."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    out = {}
+    x = torch.arange(4 * world, dtype=torch.float32, device=device)
+    calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+             "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+             "all_gather": lambda: dist.all_gather_into_tensor(torch.empty(4 * world * world, device=device), x),
+             "reduce_scatter": lambda: dist.reduce_scatter_tensor(torch.empty(4, device=device), x),
+             "all_to_all": lambda: dist.all_to_all_single(torch.empty_like(x), x)}
+    for name in DP_PROBE:
+        try:
+            calls[name]()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = "native"
+        except (RuntimeError, ValueError, NotImplementedError) as e:  # the probe's answer, not a route
+            out[name] = f"refused: {str(e).splitlines()[0][:160]}"
+    if device.type == "cuda":
+        out["timing"] = dp_route_timing(device)
+        from deepspeed_tpu_torch.comm.collectives import GLOO_CUDA_NATIVE
+
+        wrong = {k: out[k] for k in GLOO_CUDA_NATIVE if out[k] != "native"}
+        if wrong:
+            raise SystemExit(f"phase 26: comm hands gloo CUDA tensors for collectives it refused: {wrong}")
+    return out
+
+
+DP_ROUTE_BYTES = 64 << 20
+
+
+def dp_route_timing(device, reps=3) -> dict:
+    """ms of one 64 MB fp32 all_reduce and all_gather on ``device`` tensors
+    under gloo (every rank at once), handed to gloo as CUDA tensors and
+    staged by hand through pinned host buffers, alternating the two."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    x = torch.randn(DP_ROUTE_BYTES // 4, device=device)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out = torch.empty(world * x.numel(), device=device)
+    host_out = torch.empty(out.shape, dtype=x.dtype, pin_memory=True)
+
+    def staged_reduce():
+        host.copy_(x)
+        dist.all_reduce(host)
+        x.copy_(host)
+
+    def staged_gather():
+        host.copy_(x)
+        dist.all_gather_into_tensor(host_out, host)
+        out.copy_(host_out)
+
+    calls = {"all_reduce": (lambda: dist.all_reduce(x), staged_reduce),
+             "all_gather": (lambda: dist.all_gather_into_tensor(out, x), staged_gather)}
+    res = {}
+    for name, (native, staged) in calls.items():
+        times = {"native": [], "staged": []}
+        for _ in range(reps):
+            for label, fn in (("native", native), ("staged", staged)):
+                torch.cuda.synchronize(device)
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(device)
+                times[label].append((time.perf_counter() - t0) * 1e3)
+        res[name] = {k: statistics.median(v) for k, v in times.items()}
+    return res
+
+
+def dp_worker(args) -> int:
+    """``--dp-worker``: one rank of phase 26 (b). Joins the gloo world
+    through ``--store`` (a FileStore), probes gloo on the device, runs
+    stage 1 and stage 3 on the phase's global batches, saves the stage-3
+    state after its third step into ``--save-dir`` and takes a fourth
+    step; appends one JSON record to ``--out``."""
+    from deepspeed_tpu_torch import comm
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    comm.init_distributed(init_method=f"file://{args.store}", world_size=world, rank=rank, backend="gloo",
+                          timeout_s=300.0)
+    cfg = gpt2_config() if args.model == "gpt2" else TransformerConfig(**DP_TINY)
+    base = BENCH_DS if args.model == "gpt2" else DP_TINY_DS
+    micro, gas = DP_WORLD2["micro"], DP_WORLD2["gas"]
+    rec = {"rank": rank, "world": world, "device": str(dev),
+           "kind": torch.cuda.get_device_name(dev) if cuda else "cpu", "probe": dp_probe(dev)}
+    params = dp_params(cfg)
+    for stage in (1, 3):
+        engine = deepspeed_tpu_torch.initialize(
+            model=Model(cfg), config=dp_config(stage, micro * gas * world, micro, gas, base),
+            model_parameters=tree_map(lambda t: t.clone(), params), device=dev)[0]
+        warm_s, step_ms, losses, per_step, per, peak, ops = dp_steps(engine, cfg, DP_STEPS, warm=True)
+        full = [t.detach().float().cpu() for t in tree_leaves(engine.full_params())]  # collective at ZeRO 3
+        if rank == 0:
+            torch.save(full, dp_params_path(args.out, stage))
+        entry = {"losses": losses, "step_ms": step_ms, "warmup_s": warm_s, "launches": per_step,
+                 "comm_per_step": per, "comm_ops": ops, "state_bytes": state_bytes(engine), "peak_bytes": peak,
+                 "held": engine.zero.fraction_held(),
+                 "params_checksum": [float(sum(t.double().sum() for t in full)),
+                                     float(sum((t.double() ** 2).sum() for t in full))]}
+        del full
+        if stage == 3:
+            engine.save_checkpoint(args.save_dir, tag="world2_stage3")
+            entry["next_loss"] = float(engine.train_batch(dp_batch(cfg, engine.train_batch_size,
+                                                                   DP_STEPS + 1))["loss"])
+        rec[f"stage{stage}"] = entry
+        del engine
+        gc.collect()  # the engine's telemetry holds a cycle through it
+        if cuda:
+            torch.cuda.empty_cache()
+    with open(args.out, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    comm.destroy_distributed()
+    return 0
+
+
+DP_TINY = dict(vocab_size=97, max_seq_len=64, num_layers=2, num_heads=4, hidden_size=64, dtype=torch.float32,
+               attn_impl="flash", loss_chunk_size=16)
+DP_TINY_DS = {"optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1}},
+              "gradient_clipping": 1.0, "steps_per_print": 1000000}
+
+
+def _dp_fail(what):
+    raise SystemExit(f"phase 26: {what}")
+
+
+def dp_params_path(rec_path, stage):
+    """Where rank 0 of (b) leaves its fp32 parameters after the compared steps."""
+    return os.path.join(os.path.dirname(rec_path), f"params_stage{stage}.pt")
+
+
+def dp_param_gap(got, ref, init) -> tuple[float, float]:
+    """(|got - ref| / |ref - init|, |ref - init|): Frobenius norms over
+    every leaf, summed in fp64 on ``ref``'s device."""
+    num = den = 0.0
+    for g, r, i in zip(got, ref, init):
+        r = r.double()
+        num += float(((g.to(r.device, torch.float64) - r) ** 2).sum())
+        den += float(((r - i.to(r.device, torch.float64)) ** 2).sum())
+    return (num / den) ** 0.5, den ** 0.5
+
+
+def dp_launches_ok(per_step, flash, cuda) -> bool:
+    """Every step ``flash`` launches of each flash kernel and none of the
+    others (the CPU runs the kernels' plain versions: none at all)."""
+    want = ([flash] * 3 if cuda else [0] * 3) + [0] * (N_COUNTS - 3 + N_SPARSE)
+    return all(s == want for s in per_step)
+
+
+def data_parallel_phase(dev, smi, model="gpt2"):
+    """Phase 26. (a) a world of 1 under NCCL (gloo on the CPU) through the
+    real communicator: phase 7's configuration under ZeRO 0-3 from the same
+    seeded weights; (b) a world of 2 under gloo, both ranks on ``dev``
+    (``--dp-worker`` processes), against a world of 1 on the same global
+    batches, and a world-2 stage-3 checkpoint resumed at world 1, stage 1."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import comms_logger
+
+    cuda = dev.type == "cuda"
+    cfg = gpt2_config() if model == "gpt2" else TransformerConfig(**DP_TINY)
+    base = BENCH_DS if model == "gpt2" else DP_TINY_DS
+    micro, gas = (16, 4) if model == "gpt2" else (4, 2)
+    L = cfg.num_layers
+    params = dp_params(cfg)
+    P = sum(t.numel() for t in tree_leaves(params))
+    P_layers = sum(t.numel() for t in tree_leaves(params["layers"]))
+    elt = torch.empty((), dtype=cfg.dtype).element_size()
+
+    def reckon(stage, world, g):
+        return dp_reckoning(P, P_layers, stage, world, g, elt)
+
+    out = {"card": smi, "params": P}
+    tmp = tempfile.mkdtemp(prefix="dstt-phase26-")
+    try:
+        # (a) world 1 under the real communicator
+        comm.init_distributed(init_method=f"file://{os.path.join(tmp, 'store_a')}", world_size=1, rank=0,
+                              backend="nccl" if cuda else "gloo", device=dev)
+        a = {}
+        for stage in (0, 1, 2, 3):
+            engine = deepspeed_tpu_torch.initialize(
+                model=Model(cfg), config=dp_config(stage, micro * gas, micro, gas, base),
+                model_parameters=tree_map(lambda t: t.clone(), params), device=dev)[0]
+            warm_s, step_ms, losses, per_step, per, peak, _ = dp_steps(engine, cfg, DP_STEPS)
+            a[f"stage{stage}"] = {"step_ms": step_ms, "warmup_s": warm_s, "losses": losses,
+                                  "launches_per_train_batch": per_step, "comm_per_step": per,
+                                  "reckoned_bytes_per_step": reckon(stage, 1, gas),
+                                  "peak_gib": None if peak is None else peak / 2**30,
+                                  "state_bytes": state_bytes(engine)}
+            print(f"  (a) world 1 ({'nccl' if cuda else 'gloo'}), ZeRO {stage}: {step_ms:.1f} ms/step, peak "
+                  f"{a[f'stage{stage}']['peak_gib']} GiB, {per['count']:.0f} collectives and "
+                  f"{per['bytes'] / 1e6:.1f} MB a step (reckoned {reckon(stage, 1, gas) / 1e6:.1f}),"
+                  f" launches {COUNT_LABEL} {per_step[0]} each step, losses {[round(x, 5) for x in losses]}  [{smi}]")
+            del engine
+            gc.collect()  # the engine's telemetry holds a cycle through it: free its state before the next
+            if cuda:
+                torch.cuda.empty_cache()
+        comm.destroy_distributed()
+        comms_logger.configure(enabled=False)
+        ref = a["stage0"]["losses"]
+        for stage in (0, 1, 2, 3):
+            got = a[f"stage{stage}"]
+            got["loss_rel_to_stage0"] = max(abs(x - y) / abs(y) for x, y in zip(got["losses"], ref))
+            if got["losses"] != ref or not all(np.isfinite(got["losses"])):
+                _dp_fail(f"(a) ZeRO {stage}'s losses {got['losses']} are not stage 0's {ref} bitwise")
+            if not dp_launches_ok(got["launches_per_train_batch"], L * gas, cuda):
+                _dp_fail(f"(a) ZeRO {stage}: launches per train_batch {COUNT_LABEL} "
+                         f"{got['launches_per_train_batch']}, expected {L * gas} of each flash kernel and no other")
+            if got["comm_per_step"]["count"] < 1:
+                _dp_fail(f"(a) ZeRO {stage} issued no collective")
+        out["a"] = a
+
+        # (b) world 2 under gloo, both ranks on this device
+        save_dir = os.path.join(tmp, "ckpt")
+        rec_path = os.path.join(tmp, "ranks.jsonl")
+        env = {**os.environ, "WORLD_SIZE": "2", "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        cmd = [sys.executable, os.path.abspath(__file__), "--dp-worker", "--model", model,
+               "--device", str(dev), "--save-dir", save_dir, "--out", rec_path, "--store",
+               os.path.join(tmp, "store_b")]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd, env={**env, "RANK": str(r), "LOCAL_RANK": "0"}) for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if rcs != [0, 0]:
+            _dp_fail(f"(b) a rank failed: exit codes {rcs}")
+        ranks = sorted((json.loads(line) for line in open(rec_path)), key=lambda r: r["rank"])
+        b = {"ranks_s": time.perf_counter() - t0, "probe": ranks[0]["probe"]}
+        # the world-1 reference on the same global batches (no process group)
+        gb = DP_WORLD2["micro"] * DP_WORLD2["gas"] * 2
+        ref_eng = deepspeed_tpu_torch.initialize(
+            model=Model(cfg), config=dp_config(1, gb, gb // DP_WORLD2["gas"], DP_WORLD2["gas"], base),
+            model_parameters=tree_map(lambda t: t.clone(), params), device=dev)[0]
+        ref_losses = [float(ref_eng.train_batch(dp_batch(cfg, gb, s))["loss"]) for s in range(DP_STEPS + 1)]
+        ref_bytes = state_bytes(ref_eng)
+        ref_params = tree_leaves(ref_eng.full_params())
+        init = tree_leaves(params)
+        b["world1_param_change"] = dp_param_gap(ref_params, ref_params, init)[1]
+        if not b["world1_param_change"] > 0:
+            _dp_fail("(b) world 1's steps did not move its parameters")
+        gaps = {stage: dp_param_gap(torch.load(dp_params_path(rec_path, stage)), ref_params, init)[0]
+                for stage in (1, 3)}
+        del ref_eng, ref_params
+        gc.collect()
+        b["world1_losses"] = ref_losses
+        b["world1_state_bytes"] = ref_bytes
+        for stage in (1, 3):
+            rows = [r[f"stage{stage}"] for r in ranks]
+            if rows[1]["params_checksum"] != rows[0]["params_checksum"]:
+                _dp_fail(f"(b) ZeRO {stage}: the ranks' parameters differ (checksums "
+                         f"{[r['params_checksum'] for r in rows]})")
+            if not gaps[stage] <= DP_PARAM_GAP:
+                _dp_fail(f"(b) ZeRO {stage}: the parameters are {gaps[stage]:.3e} of world 1's change away from "
+                         f"world 1's (limit {DP_PARAM_GAP})")
+            for r, row in enumerate(rows):
+                rel = max(abs(x - y) / abs(y) for x, y in zip(row["losses"], ref_losses))
+                row["loss_rel_to_world1"] = rel
+                if rel > DP_LOSS_RTOL:
+                    _dp_fail(f"(b) rank {r}, ZeRO {stage}: losses {row['losses']} vs world 1's {ref_losses} "
+                             f"({rel:.2e} > {DP_LOSS_RTOL})")
+                if not dp_launches_ok(row["launches"], L * DP_WORLD2["gas"], cuda):
+                    _dp_fail(f"(b) rank {r}, ZeRO {stage}: launches per train_batch {COUNT_LABEL} {row['launches']}")
+            opt_ratio = rows[0]["state_bytes"]["opt_state"] / ref_bytes["opt_state"]
+            par_ratio = rows[0]["state_bytes"]["params"] / ref_bytes["params"]
+            b[f"stage{stage}"] = {"ranks": rows, "opt_state_ratio_to_world1": opt_ratio,
+                                  "params_ratio_to_world1": par_ratio, "param_gap_to_world1": gaps[stage],
+                                  "reckoned_bytes_per_step": reckon(stage, 2, DP_WORLD2["gas"])}
+            want_par = 0.5 if stage == 3 else 1.0
+            if not (0.45 < opt_ratio < 0.55) or not (want_par - 0.05 < par_ratio < want_par + 0.05):
+                _dp_fail(f"(b) ZeRO {stage}: a rank holds {opt_ratio:.3f} of world 1's optimizer state and "
+                         f"{par_ratio:.3f} of its parameters")
+            per = rows[0]["comm_per_step"]
+            print(f"  (b) world 2 (gloo, both ranks on {dev}), ZeRO {stage}: {rows[0]['step_ms']:.1f} ms/step; a "
+                  f"rank holds {opt_ratio:.3f} of world 1's optimizer-state bytes and {par_ratio:.3f} of its "
+                  f"parameter bytes; {per['count']:.0f} collectives, {per['bytes'] / 1e6:.1f} MB a step "
+                  f"(reckoned {b[f'stage{stage}']['reckoned_bytes_per_step'] / 1e6:.1f}, host-staged "
+                  f"{per['staged_bytes'] / 1e6:.1f}); losses vs world 1 within "
+                  f"{max(r['loss_rel_to_world1'] for r in rows):.2e}, parameters {gaps[stage]:.3e} of world 1's "
+                  f"change from world 1's  [{smi}]")
+        # the world-2 stage-3 checkpoint resumed at world 1, stage 1
+        res = deepspeed_tpu_torch.initialize(
+            model=Model(cfg), config=dp_config(1, gb, gb // DP_WORLD2["gas"], DP_WORLD2["gas"], base),
+            device=dev)[0]
+        res.load_checkpoint(save_dir, tag="world2_stage3")
+        resumed = float(res.train_batch(dp_batch(cfg, gb, DP_STEPS + 1))["loss"])
+        del res
+        w2 = ranks[0]["stage3"]["next_loss"]
+        rel = abs(resumed - w2) / abs(w2)
+        b["resume"] = {"world1_stage1_next_loss": resumed, "world2_stage3_next_loss": w2, "rel": rel}
+        print(f"  (b) the world-2 ZeRO-3 checkpoint resumed at world 1, ZeRO 1: next loss {resumed:.6f} vs world "
+              f"2's {w2:.6f} ({rel:.2e}); gloo on {dev.type}: {b['probe']}")
+        if resumed != w2:
+            _dp_fail(f"(b) the resumed loss {resumed} is not world 2's {w2} bitwise ({rel:.2e})")
+        out["b"] = b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        comm.destroy_distributed()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", help="also trace a short generate and a train_batch into DIR")
@@ -5349,9 +5787,14 @@ def main() -> int:
     ap.add_argument("--out", default=os.devnull, help=argparse.SUPPRESS)
     ap.add_argument("--crash-after", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--hang-after", type=int, default=0, help=argparse.SUPPRESS)
+    # phase 26's ranks
+    ap.add_argument("--dp-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--store", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.elastic_worker:
         return elastic_worker(args)
+    if args.dp_worker:
+        return dp_worker(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on a GPU", file=sys.stderr)
         return 1
@@ -5520,6 +5963,18 @@ def main() -> int:
     print(f"  phase 25: {prof['phase_s']:.1f} s")
     print(json.dumps({"profiling": prof}))
 
+    print("[26] data parallelism: phase 7's configuration under ZeRO 0-3 in a world of 1 under NCCL (the real "
+          "communicator), then a world of 2 under gloo with both ranks on the card (ZeRO 1 and 3) against a world "
+          "of 1 on the same global batches, and the world-2 ZeRO-3 checkpoint resumed at world 1")
+    t0 = time.perf_counter()
+    zero = data_parallel_phase(dev, smi)
+    zero["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 26: {zero['phase_s']:.1f} s")
+    print(json.dumps({"zero": zero}))
+    dp_launches = {**{f"world1_stage{s}": zero["a"][f"stage{s}"]["launches_per_train_batch"][0] for s in range(4)},
+                   **{f"world2_stage{s}_rank{r}": zero["b"][f"stage{s}"]["ranks"][r]["launches"][0]
+                      for s in (1, 3) for r in range(2)}}
+
     kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
@@ -5533,6 +5988,7 @@ def main() -> int:
         "disagg_prefill_replica_launches": disagg["prefill_replicas"],
         "disagg_worker_launches": disagg["workers"],
         "chaos_launches": p23["decode"][0], "chaos_combine_launches": p23["decode"][1],
+        "data_parallel_launches_per_train_batch": {k: v[3] for k, v in dp_launches.items()},
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"], "library_ratio": times["library_ratio"],
@@ -5560,6 +6016,8 @@ def main() -> int:
             "elastic_worker_launches": p23["flash"][list(replaces).index(name)],
             "memory_tiers_launches_per_train_batch": {k: v[list(replaces).index(name)]
                                                       for k, v in tier_launches.items()},
+            "data_parallel_launches_per_train_batch": {k: v[list(replaces).index(name)]
+                                                       for k, v in dp_launches.items()},
             "hgmma": sass.get(MAIN_PATH_KERNEL[name], {}).get("hgmma", 0),
             "registers": sass.get(MAIN_PATH_KERNEL[name], {}).get("registers"),
             "spill_stores": sass.get(MAIN_PATH_KERNEL[name], {}).get("spill_stores"),
@@ -5592,6 +6050,10 @@ def main() -> int:
         entry["resilience_launches"] = (
             {"product": r19[4], "combine": r19[5]} if name == "fused_xent_forward"
             else {"ds": r19[6], "dH" if name == "fused_xent_backward_dh" else "dW": r19[8 if name.endswith("dh") else 7]})
+        entry["data_parallel_launches_per_train_batch"] = {  # phase 26 runs the chunked loss: all 0
+            k: ({"product": v[4], "combine": v[5]} if name == "fused_xent_forward"
+                else {"ds": v[6], "dH" if name == "fused_xent_backward_dh" else "dW": v[8 if name.endswith("dh") else 7]})
+            for k, v in dp_launches.items()}
         t24 = tier_launches["d_gpt3_6.7b"]  # the fused loss runs in (d)
         entry["memory_tiers_launches_per_train_batch"] = (
             {"product": t24[4], "combine": t24[5]} if name == "fused_xent_forward"
@@ -5638,6 +6100,7 @@ def main() -> int:
             "spill_stores": built.get("spill_stores"),
             "bigbird128": {k: bb[k] for k in timed},
             "elastic_worker_launches": p23["sparse"][i],  # counted in the workers; the model is dense
+            "data_parallel_launches_per_train_batch": {k: v[N_COUNTS + i] for k, v in dp_launches.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"training": training}))

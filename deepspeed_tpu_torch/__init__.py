@@ -21,6 +21,12 @@ It carries the training path and the serving path so far:
         "speculation": {"enabled": True, "depth": 8}})
     results = serving.serve([Request(uid=i, prompt=p, max_new_tokens=128) for i, p in ...])
 
+In a world of N processes (``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
+``MASTER_PORT``, or ``comm.init_distributed(...)`` first) ``initialize``
+shards over the ``mesh`` block's ``data`` and ``fsdp`` axes under ZeRO 0-3
+(``comm/``, ``runtime/zero/``); ``train_batch`` takes the global batch, or
+this rank's rows of it.
+
 ``ServingEngine`` is continuous batching over a slot KV cache, with its
 decode step one CUDA graph on the card (``inference/serving.py``).
 

@@ -1,15 +1,25 @@
-"""Atomic, checksummed checkpoint save/load for one process: the port of the
-single-process half of ``deepspeed_tpu/checkpoint/saver.py``, with the same
-on-disk format, so a checkpoint moves between the two packages both ways.
+"""Atomic, checksummed checkpoint save/load: the port of
+``deepspeed_tpu/checkpoint/saver.py``, with the same on-disk format, so a
+checkpoint moves between the two packages both ways.
 
 Layout (format 3):
 
   <ckpt_dir>/
-    manifest.json            — leaf index: shape/dtype + file name, per-file
-                               crc32 digests, client state (the commit record)
-    <leafkey>.full.npy       — one file per leaf (the port's leaves are whole)
-    <leafkey>.shard000.npy   — a sharded leaf's distinct shards, as the JAX
-                               engine writes them on a device mesh (read only)
+    manifest.json            — leaf index: shape/dtype + file name or shard
+                               table, per-file crc32 digests, client state
+                               (the commit record)
+    <leafkey>.full.npy       — one file per whole (replicated) leaf
+    <leafkey>.shard000.npy   — a sharded leaf's distinct shards, with each
+                               one's index (its bounds in the whole leaf)
+
+A data-parallel save (``layouts``: the ZeRO runtime's ``LeafLayout`` of each
+sharded leaf) is the JAX multi-process save: every rank writes the shards it
+is the first holder of, rank 0 the whole leaves, into one staging directory;
+each rank's crc32s go into the staging directory beside its files; after a
+barrier rank 0 writes the manifest and renames the directory into place
+(``_commit_stage``), and a second barrier holds every rank until the
+checkpoint is committed. An async save does the same at its ``wait()``,
+after its own writer thread, on the caller's thread.
 
 Leaf keys are the state tree's dict keys joined with ``::``
 (``params::layers::wq``, ``opt::m::wte``, ``step``), as JAX's tree paths.
@@ -28,7 +38,9 @@ Atomicity and integrity, as in the JAX package:
 
 Loading assembles each leaf whole from its ``.full.npy`` or from the
 ``.shardNNN.npy`` files of a sharded save (``_read_leaf``), so a checkpoint
-the JAX engine wrote on its 8-device CPU mesh loads here.
+the JAX engine wrote on its 8-device CPU mesh loads here; a leaf the loading
+rank holds a shard of reads only that slice (``_read_slice``), whatever the
+layout the checkpoint was saved in.
 
 ``async_save=True`` returns a ``SaveHandle`` after taking the snapshot:
 each CUDA leaf is copied into a pinned host buffer (``HostStaging``, one per
@@ -58,6 +70,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import comm
 from ..resilience.errors import CheckpointCorruptError, CheckpointNotFoundError
 from ..resilience.faults import maybe_io_error
 from .digest import file_crc32
@@ -277,47 +290,82 @@ class HostStaging:
 
 def save_checkpoint(ckpt_dir: str, state, client_state: Optional[dict] = None,
                     latest: Optional[tuple[str, str]] = None, async_save: bool = False,
-                    staging: Optional[HostStaging] = None) -> SaveHandle:
+                    staging: Optional[HostStaging] = None, layouts: Optional[dict] = None) -> SaveHandle:
     """Write ``state`` (nested dicts of tensors) to ``ckpt_dir`` atomically;
     ``latest=(path, tag)`` writes the tag file after the checkpoint is
     durable. Synchronous saves return a waited handle. ``async_save`` returns once the snapshot is taken (into ``staging``,
-    or a buffer of this save's own); the caller's ``wait()`` finishes it."""
+    or a buffer of this save's own); the caller's ``wait()`` finishes it.
+    ``layouts`` ({leaf key: LeafLayout}) marks the leaves this rank holds a
+    shard of: a data-parallel save, which every rank of the world makes."""
+    rank, world = comm.get_rank(), comm.get_world_size()
     stage_dir = ckpt_dir + _STAGE_SUFFIX
-    if os.path.exists(stage_dir):
-        shutil.rmtree(stage_dir)  # a crashed save's leftovers
-    os.makedirs(stage_dir)
+    if rank == 0:
+        if os.path.exists(stage_dir):
+            shutil.rmtree(stage_dir)  # a crashed save's leftovers
+        os.makedirs(stage_dir)
+    if world > 1:
+        comm.barrier()  # the staging directory exists, empty, before any rank writes
     manifest = {"leaves": {}, "client_state": client_state or {}, "format": 3, "checksums": {}}
     flat = _flatten_with_paths(state)
+    layouts = layouts or {}
+    mine = {}  # what this rank writes
+    for key, leaf in flat.items():
+        lay = layouts.get(key)
+        fkey = key.replace("/", "_")
+        if lay is not None and lay.sharded:
+            manifest["leaves"][key] = {"dtype": _dtype_name(leaf), "shape": list(lay.shape),
+                                       "shards": [{"file": f"{fkey}.shard{j:03d}.npy", "index": lay.bounds(j)}
+                                                  for j in range(lay.n)]}
+            if lay.writer:
+                mine[key] = f"{fkey}.shard{lay.index:03d}.npy"
+        else:
+            fname = f"{fkey}.full.npy"
+            manifest["leaves"][key] = {"dtype": _dtype_name(leaf), "shape": list(leaf.shape), "file": fname}
+            if rank == 0:
+                mine[key] = fname
     event = None
+    sub = {k: flat[k] for k in mine}
     if async_save:
         staging = staging if staging is not None else HostStaging()
-        arrays, event = staging.snapshot(flat)
+        arrays, event = staging.snapshot(sub)
     else:
-        arrays = {key: _to_numpy(leaf) for key, leaf in flat.items()}
-    to_write = []
-    for key, arr in arrays.items():
-        fname = f"{key.replace('/', '_')}.full.npy"
-        manifest["leaves"][key] = {"dtype": _dtype_name(flat[key]), "shape": list(arr.shape), "file": fname}
-        to_write.append((fname, arr))
+        arrays = {key: _to_numpy(leaf) for key, leaf in sub.items()}
+    to_write = [(mine[key], arr) for key, arr in arrays.items()]
+    crc_file = os.path.join(stage_dir, f"crc.rank{rank}.json")
 
     def write_files(errors):
         try:
             if event is not None:
                 event.synchronize()
+            crcs = {}
             for fname, arr in to_write:
-                manifest["checksums"][fname] = _save_array_durable(os.path.join(stage_dir, fname), _to_numpy(arr))
+                crcs[fname] = _save_array_durable(os.path.join(stage_dir, fname), _to_numpy(arr))
+            manifest["checksums"].update(crcs)
+            if world > 1:
+                _write_durable(crc_file, json.dumps(crcs).encode())
         # dstpu: allow[broad-except] -- the async writer runs on its own thread: every failure kind (OSError, np.save's ValueError, MemoryError) is captured and re-raised by SaveHandle.wait(); a narrower clause would let one vanish with the thread and read as a saved checkpoint
         except Exception as e:
             errors.append(e)
 
     def finalize():
-        tmp = os.path.join(stage_dir, _MANIFEST + ".tmp")
-        _write_durable(tmp, json.dumps(manifest, indent=1).encode())
-        os.replace(tmp, os.path.join(stage_dir, _MANIFEST))
-        _fsync_path(stage_dir)
-        _commit_stage(stage_dir, ckpt_dir, sorted(manifest["checksums"]))
-        if latest is not None:
-            write_latest(*latest)
+        if world > 1:
+            comm.barrier()  # every rank's files (and crc32s) are durable
+        if rank == 0:
+            if world > 1:
+                for r in range(world):
+                    path = os.path.join(stage_dir, f"crc.rank{r}.json")
+                    with open(path) as f:
+                        manifest["checksums"].update(json.load(f))
+                    os.unlink(path)
+            tmp = os.path.join(stage_dir, _MANIFEST + ".tmp")
+            _write_durable(tmp, json.dumps(manifest, indent=1).encode())
+            os.replace(tmp, os.path.join(stage_dir, _MANIFEST))
+            _fsync_path(stage_dir)
+            _commit_stage(stage_dir, ckpt_dir, sorted(manifest["checksums"]))
+            if latest is not None:
+                write_latest(*latest)
+        if world > 1:
+            comm.barrier()  # no rank reads or re-saves before the commit
 
     errors: list = []
     if async_save:
@@ -346,6 +394,30 @@ def _read_leaf(ckpt_dir: str, entry: dict) -> np.ndarray:
     if covered != out.size:  # the JAX table lists distinct, non-overlapping shards
         raise CheckpointCorruptError(f"checkpoint {ckpt_dir}: the shards cover {covered} of {out.size} elements "
                                      f"of a leaf", path=ckpt_dir)
+    return out
+
+
+def _read_slice(ckpt_dir: str, entry: dict, bounds: list) -> np.ndarray:
+    """The part ``bounds`` ([[lo, hi], ...]) of a leaf, read from its
+    ``.full.npy`` (memory-mapped) or from the shards that overlap it."""
+    sel = tuple(slice(lo, hi) for lo, hi in bounds)
+    if "file" in entry:
+        return np.array(np.load(os.path.join(ckpt_dir, entry["file"]), mmap_mode="r")[sel])
+    out = np.empty([hi - lo for lo, hi in bounds],
+                   dtype=np.dtype("V2" if entry["dtype"] == "bfloat16" else entry["dtype"]))
+    covered = 0
+    for sh in entry["shards"]:
+        lo = [max(a, s0) for (a, _), (s0, _) in zip(bounds, sh["index"])]
+        hi = [min(b, s1) for (_, b), (_, s1) in zip(bounds, sh["index"])]
+        if any(h <= l for l, h in zip(lo, hi)):
+            continue
+        src = np.load(os.path.join(ckpt_dir, sh["file"]), mmap_mode="r")
+        out[tuple(slice(l - b0, h - b0) for l, h, (b0, _) in zip(lo, hi, bounds))] = \
+            src[tuple(slice(l - s0, h - s0) for l, h, (s0, _) in zip(lo, hi, sh["index"]))]
+        covered += int(np.prod([h - l for l, h in zip(lo, hi)]))
+    if covered != out.size:
+        raise CheckpointCorruptError(f"checkpoint {ckpt_dir}: the shards cover {covered} of {out.size} elements "
+                                     f"of a leaf's slice {bounds}", path=ckpt_dir)
     return out
 
 
@@ -419,22 +491,31 @@ def find_checkpoints(root: str) -> list[str]:
     return [name for _, _, name in sorted(tags, reverse=True)]
 
 
-def load_checkpoint(ckpt_dir: str, state_like, verify: bool = True):
+def load_checkpoint(ckpt_dir: str, state_like, verify: bool = True, layouts: Optional[dict] = None):
     """Restore into the structure of ``state_like`` -> (state, client_state).
     Each saved leaf comes back whole, in its saved dtype, on the device of
-    the leaf it replaces; leaves the checkpoint lacks keep their current
+    the leaf it replaces, or, for a leaf ``layouts`` marks as sharded, this
+    rank's shard of it; leaves the checkpoint lacks keep their current
     value. ``verify`` digests every file first, so a torn checkpoint raises
     ``CheckpointCorruptError`` before any state is touched."""
     manifest = read_manifest(ckpt_dir)
     if verify:
         verify_checkpoint(ckpt_dir, manifest=manifest)
+    layouts = layouts or {}
     restored = {}
     for key, leaf in _flatten_with_paths(state_like).items():
         entry = manifest["leaves"].get(key)
         if entry is None:
             restored[key] = leaf
             continue
-        arr = _leaf_tensor(_read_leaf(ckpt_dir, entry), entry)  # a fresh C-ordered array, 0-d kept 0-d
+        lay = layouts.get(key)
+        if lay is not None and lay.sharded:
+            if list(entry["shape"]) != list(lay.shape):
+                raise CheckpointCorruptError(f"checkpoint {ckpt_dir}: leaf {key} has shape {entry['shape']}, the "
+                                             f"engine's is {list(lay.shape)}", path=ckpt_dir)
+            arr = _leaf_tensor(_read_slice(ckpt_dir, entry, lay.bounds()), entry)
+        else:
+            arr = _leaf_tensor(_read_leaf(ckpt_dir, entry), entry)  # a fresh C-ordered array, 0-d kept 0-d
         restored[key] = arr.to(leaf.device) if torch.is_tensor(leaf) else arr
     return _unflatten_like(state_like, restored), manifest.get("client_state", {})
 

@@ -757,8 +757,7 @@ class ServingEngine:
       timeseries / slo / incidents   the flight recorder's blocks
       ledger              {enabled, hbm_warn_fraction}: the program ledger
     ``router`` and ``gateway`` sub-blocks belong to the fleet and are
-    ignored here. ``ledger.collectives`` enabled raises
-    ``NotImplementedError``.
+    ignored here.
     """
 
     def __init__(self, engine: InferenceEngine, config: dict | None = None,
@@ -778,7 +777,6 @@ class ServingEngine:
         if self.role not in ("both", "prefill", "decode"):
             raise ValueError(f"serving role must be both|prefill|decode, got {self.role!r}")
         lc = _block(config.get("ledger", {}), LedgerConfig)
-        lc.check_ported()
         self.ledger_cfg: LedgerConfig = lc
         n_slots = n_slots if n_slots is not None else config.get("n_slots", 8)
         max_seq_len = max_seq_len if max_seq_len is not None else config.get("max_seq_len", 0)
@@ -800,6 +798,8 @@ class ServingEngine:
             ledger=lc.enabled,
             jsonl_max_bytes=int(config.get("jsonl_max_bytes", 0)),
             jsonl_keep=int(config.get("jsonl_keep", 3)),
+            ledger_collectives=lc.collectives.enabled,
+            ici_gbps=lc.collectives.ici_gbps,
         )
         # program-ledger join rules: each program family reads its wall
         # time from its latency histogram; decode, the steady state,

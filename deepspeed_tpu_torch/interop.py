@@ -8,6 +8,8 @@ tensors: ``wte``, ``wpe``, the stacked ``layers`` leaves
 ``lnf_*`` and the optional ``lm_head``. The layouts are the same in both
 packages, so nothing is transposed.
 
+``shard_state_from_jax`` gives one data-parallel rank its part of a JAX
+engine's ``params`` and ``opt`` by the port's ZeRO layouts.
 ``state_from_jax`` converts any subtree of a JAX engine's state (numpy
 leaves, bfloat16 ones included, their dtypes kept), and
 ``load_offload_state`` carries a JAX offload engine's ``params``,
@@ -58,3 +60,27 @@ def load_offload_state(engine, jax_state: dict) -> None:
         raise ValueError("the engine has no memory tier (zero_optimization.offload_optimizer is none)")
     loaded = {k: state_from_jax(jax_state[k]) for k in ("params", "master", "opt") if k in jax_state}
     engine.state = engine.tier.adopt({**engine.state, **loaded}, has_master="master" in loaded)
+
+
+def shard_state_from_jax(engine, jax_state: dict) -> dict:
+    """A JAX engine's ``params`` and ``opt`` (numpy trees, e.g.
+    ``jax.tree.map(numpy.asarray, jax_engine.state)``) as ``engine``'s rank
+    holds them under its ZeRO layouts (``engine.zero``): its shard of each
+    sharded leaf, the rest whole, on the engine's device. Assign the result
+    into ``engine.state`` to start both packages from one state."""
+    from .ops.optimizers import tree_map
+
+    z = engine.zero
+    out = {}
+    if "params" in jax_state:
+        full = params_from_jax(jax_state["params"], engine.device)
+        out["params"] = z.shard_params(full) if z is not None else full
+    if "opt" in jax_state:
+        opt = {}
+        for k, sub in jax_state["opt"].items():
+            t = state_from_jax(sub, engine.device)
+            if z is not None and isinstance(t, dict) and z.stage:
+                t = tree_map(lambda lay, x: lay.shard(x) if lay.sharded else x, z.opt_layouts, t)
+            opt[k] = t
+        out["opt"] = opt
+    return out

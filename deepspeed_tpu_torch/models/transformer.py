@@ -175,22 +175,28 @@ class TransformerConfig:
 # Parameter init
 # ---------------------------------------------------------------------------
 
-def init(cfg: TransformerConfig, generator: torch.Generator, device="cpu") -> Params:
+def init(cfg: TransformerConfig, generator: torch.Generator, device="cpu", place=None) -> Params:
     """The JAX ``init`` parameter tree, fp32, drawn from ``generator`` (on the
     generator's device) and placed on ``device``. Same distributions as the
     JAX package; not the same numbers (use ``interop.params_from_jax`` for
-    those)."""
+    those). ``place(path, leaf)``, when given, takes each leaf as it is made
+    and returns what the tree keeps (``zero.Init`` keeps a shard), so only
+    one whole leaf exists at a time; the draws are the same either way."""
     d, f, L = cfg.hidden_size, cfg.ffn_size, cfg.num_layers
     H, Dh = cfg.num_heads, cfg.head_dim
+    place = place or (lambda path, t: t)
 
+    # each leaf is made when its path is known, in the order the entries
+    # below are listed, which fixes the generator's draws
     def normal(shape, std):
-        return (torch.randn(shape, generator=generator, device=generator.device) * std).to(device)
+        return lambda path: place(path, (torch.randn(shape, generator=generator, device=generator.device)
+                                         * std).to(device))
 
     def zeros(*shape):
-        return torch.zeros(shape, device=device)
+        return lambda path: place(path, torch.zeros(shape, device=device))
 
     def ones(*shape):
-        return torch.ones(shape, device=device)
+        return lambda path: place(path, torch.ones(shape, device=device))
 
     layers = {
         "ln1_scale": ones(L, d), "ln1_bias": zeros(L, d),
@@ -207,6 +213,7 @@ def init(cfg: TransformerConfig, generator: torch.Generator, device="cpu") -> Pa
             "bq": zeros(L, H, Dh), "bk": zeros(L, H, Dh), "bv": zeros(L, H, Dh),
             "bo": zeros(L, d), "bi": zeros(L, f), "bo_mlp": zeros(L, d),
         })
+    layers = {k: make(("layers", k)) for k, make in layers.items()}
     params = {
         "wte": normal((cfg.vocab_size, d), 0.02),
         "layers": layers,
@@ -220,7 +227,34 @@ def init(cfg: TransformerConfig, generator: torch.Generator, device="cpu") -> Pa
         params["emb_ln_bias"] = zeros(d)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), 1 / math.sqrt(d))
-    return params
+    return {k: v if k == "layers" else v((k,)) for k, v in params.items()}
+
+
+def logical_axes(cfg: TransformerConfig) -> dict:
+    """The tree of logical-axis tuples matching ``init``'s output (JAX
+    ``models/transformer.py:218-260``), read by
+    ``parallel/sharding.spec_from_logical``."""
+    layers = {
+        "ln1_scale": ("layers", "embed"), "ln1_bias": ("layers", "embed"),
+        "ln2_scale": ("layers", "embed"), "ln2_bias": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "kv"), "wk": ("layers", "embed", "heads", "kv"),
+        "wv": ("layers", "embed", "heads", "kv"), "wo": ("layers", "heads", "kv", "embed"),
+        "wi": ("layers", "embed", "mlp"), "wo_mlp": ("layers", "mlp", "embed"),
+    }
+    if cfg.use_bias:
+        layers.update({
+            "bq": ("layers", "heads", "kv"), "bk": ("layers", "heads", "kv"), "bv": ("layers", "heads", "kv"),
+            "bo": ("layers", "embed"), "bi": ("layers", "mlp"), "bo_mlp": ("layers", "embed"),
+        })
+    axes = {"wte": ("vocab", "embed"), "layers": layers, "lnf_scale": ("embed",), "lnf_bias": ("embed",)}
+    if cfg.pos_emb == "learned":
+        axes["wpe"] = (None, "embed")
+    if cfg.embed_ln:
+        axes["emb_ln_scale"] = ("embed",)
+        axes["emb_ln_bias"] = ("embed",)
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -377,20 +411,25 @@ def dropout_key(seed: int, step, micro: int = 0, device=None) -> torch.Tensor:
     return _fold(_fold(key, step), int(micro))
 
 
-def _uniform(key: torch.Tensor, shape) -> torch.Tensor:
+def _uniform(key: torch.Tensor, shape, row_offset: int = 0) -> torch.Tensor:
     """Uniform fp32 in [0, 1) with 24 random bits, one per element of
-    ``shape``: the hash of the element's index under ``key``."""
+    ``shape``: the hash of the element's index under ``key``. With
+    ``row_offset`` the tensor is rows ``[row_offset, row_offset + shape[0])``
+    of a larger one and hashes their indices there, so a data-parallel rank
+    holding those rows of a micro-batch draws the masks a world of 1 draws."""
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).view(shape)
+    start = row_offset * math.prod(shape[1:]) if row_offset else 0
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=key.device).view(shape)
     bits = _hash32(_hash32(idx ^ key) ^ key)
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def _dropout(x, rate: float, key):
-    """Inverted dropout; identity when rate == 0 or no key (inference)."""
+def _dropout(x, rate: float, key, row_offset: int = 0):
+    """Inverted dropout; identity when rate == 0 or no key (inference).
+    ``row_offset``: ``x`` is those rows of the micro-batch (``_uniform``)."""
     if rate <= 0.0 or key is None:
         return x
-    keep = _uniform(key, tuple(x.shape)) < 1.0 - rate
+    keep = _uniform(key, tuple(x.shape), row_offset) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -454,7 +493,7 @@ def _attn_call(cfg: TransformerConfig, attn_fn, q, k, v, bias, is_local):
 
 
 def _layer_body(cfg: TransformerConfig, lp, x, bias, positions, attn_fn, is_local=None,
-                local_bias=None, key=None, pld_keep=None):
+                local_bias=None, key=None, pld_keep=None, row_offset: int = 0):
     """One layer of ``apply``: pre-LN, post-LN or parallel residual, with
     dropout and the progressive-layer-drop gate when ``key`` (the layer's
     key) is given: sites 0 (the gate), 1 (attention) and 2 (FFN) each fold
@@ -468,7 +507,7 @@ def _layer_body(cfg: TransformerConfig, lp, x, bias, positions, attn_fn, is_loca
         bias = lb if bias is None else bias + lb
 
     def branch(y, rate, site):
-        y = _dropout(y, rate, None if key is None else _fold(key, site))
+        y = _dropout(y, rate, None if key is None else _fold(key, site), row_offset)
         return y if gate is None else gate * y
 
     def attn(h):
@@ -549,19 +588,28 @@ def _remat_groups(cfg: TransformerConfig) -> list[range]:
     return [range(i, i + size) for i in range(0, L, size)]
 
 
+def _streamed(cfg: TransformerConfig, params: Params) -> bool:
+    """Whether the parameters come through a streamer: host ones under
+    ``param_offload``, or ZeRO-3 shards (``runtime/zero/stage3.py``), whose
+    ``params`` carry the streamer that gathers them."""
+    return cfg.param_offload or getattr(params, "streamer", None) is not None
+
+
 def _stream_top_level(cfg: TransformerConfig, params: Params, device) -> Params:
-    """Under ``param_offload``: the non-stacked leaves (embeddings, final
-    LayerNorm, head) on the device, once; ``layers`` stays on the host for
-    the loop to stream a layer at a time. Identity otherwise."""
-    if not cfg.param_offload:
+    """Under ``param_offload`` or ZeRO-3: the non-stacked leaves
+    (embeddings, final LayerNorm, head) on the device, once; ``layers``
+    stays where it is for the loop to fetch a layer at a time. Identity
+    otherwise."""
+    if not _streamed(cfg, params):
         return params
     return param_offload.stream_top_level(params, device)
 
 
 def _layer_getter(cfg: TransformerConfig, params: Params, device) -> Callable[[int], dict]:
     """``get(i)`` -> layer i's leaves: sliced from the device stacks, or
-    under ``param_offload`` streamed from the host ones."""
-    if cfg.param_offload:
+    under ``param_offload`` streamed from the host ones, or under ZeRO-3
+    gathered from the ranks' shards."""
+    if _streamed(cfg, params):
         return param_offload.layer_getter(params, device)
     return _layers(params).__getitem__
 
@@ -585,7 +633,7 @@ def _remat_region(cfg: TransformerConfig, device):
 
 def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
           return_hidden: bool = False, rng=None,
-          step=None, _top_streamed: bool = False) -> torch.Tensor:
+          step=None, _top_streamed: bool = False, row_offset: int = 0) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] (fp32), or the final hidden
     states [B, S, d] (after the final LayerNorm) when ``return_hidden``.
     ``rng`` (a ``dropout_key`` on the tokens' device) enables dropout and
@@ -593,7 +641,8 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
     does: layer i hashes the key folded with i and the embedding dropout the
     key folded with L, so one key gives one set of masks and a remat
     recompute replays them. ``step`` (int or 0-d tensor) drives the
-    layer-drop schedule. With
+    layer-drop schedule. ``row_offset``: ``tokens`` are those rows of the
+    micro-batch (a data-parallel rank's), whose dropout masks they draw. With
     ``cfg.remat`` the layers run in checkpointed regions (``_remat_groups``)
     under ``cfg.remat_policy`` (and, with ``cfg.remat_offload``, their saved
     boundaries in host memory). Under ``cfg.param_offload`` the parameters
@@ -606,7 +655,7 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
         params = _stream_top_level(cfg, params, device)
     x, positions = embed(cfg, params, tokens, positions)
     keys = [None] * (L + 1) if rng is None else [_fold(rng, i) for i in range(L + 1)]
-    x = _dropout(x, cfg.hidden_dropout, keys[L])
+    x = _dropout(x, cfg.hidden_dropout, keys[L], row_offset)
     attn_fn = _attention_dispatch(cfg, device)
     fused_bias = getattr(attn_fn, "handles_fused_bias", False)
     # the flash dispatch computes ALiBi and windows from positions in the
@@ -625,7 +674,7 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
         for i in idx:
             is_local = bool(cfg.local_attn_layers[i]) if has_local else None
             x = _layer_body(cfg, layer(i), x, bias, positions, attn_fn, is_local, local_bias,
-                            keys[i], pld_keep[i])
+                            keys[i], pld_keep[i], row_offset)
         return x
 
     remat = cfg.remat and cfg.remat_policy != "everything_saveable" and torch.is_grad_enabled()
@@ -904,14 +953,15 @@ def split_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def causal_lm_loss(cfg: TransformerConfig, params: Params, batch: dict,
-                   rng=None, step=None) -> torch.Tensor:
+                   rng=None, step=None, row_offset: int = 0) -> torch.Tensor:
     """Next-token cross-entropy of batch {'tokens': [B, S+1]} (or
     {'input_ids', 'labels'}). ``rng`` (a ``dropout_key``) enables dropout
-    for this step."""
+    for this step; ``row_offset`` places the rows in the micro-batch."""
     inputs, labels = split_batch(batch)
     # the top-level leaves streamed ONCE for the embedding and the tied head
     params = _stream_top_level(cfg, params, inputs.device)
-    hidden = apply(cfg, params, inputs.long(), return_hidden=True, rng=rng, step=step, _top_streamed=True)
+    hidden = apply(cfg, params, inputs.long(), return_hidden=True, rng=rng, step=step, _top_streamed=True,
+                   row_offset=row_offset)
     return lm_loss_from_hidden(cfg, params, hidden, labels.long())
 
 
@@ -923,19 +973,24 @@ class Model:
         self.config = cfg
         self._loss = loss_fn or causal_lm_loss
 
-    def init(self, generator: torch.Generator, device="cpu") -> Params:
-        return init(self.config, generator, device)
+    def init(self, generator: torch.Generator, device="cpu", place=None) -> Params:
+        return init(self.config, generator, device, place)
 
     def apply(self, params: Params, tokens, positions=None, **kw):
         return apply(self.config, params, tokens, positions, **kw)
 
-    def loss(self, params: Params, batch: dict, rng=None, step=None):
+    def loss(self, params: Params, batch: dict, rng=None, step=None, row_offset: int = 0):
         kw = {}
         if rng is not None:
             kw["rng"] = rng
+            if row_offset:
+                kw["row_offset"] = row_offset
         if step is not None and self.config.pld_enabled:
             kw["step"] = step
         return self._loss(self.config, params, batch, **kw)
+
+    def logical_axes(self) -> dict:
+        return logical_axes(self.config)
 
     def flops_per_token(self) -> float:
         """Approximate training FLOPs per token (forward + backward ≈ 6 × the

@@ -109,23 +109,34 @@ def lamb(betas=(0.9, 0.999), eps: float = 1e-6, weight_decay: float = 0.0,
     def init_fn(params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def update_fn(grads, state, params, step, lr):
+    def update_fn(grads, state, params, step, lr, reduce_sq=None):
+        """``reduce_sq`` (under sharded optimizer state: the ZeRO runtime's
+        ``reduce_leaf_sq``) turns each leaf's sums of squares of this rank's
+        shard of the weights and of the update into the whole leaf's, so the
+        trust ratio is the whole tensor's."""
         bc1, bc2 = _bias_correction(step, beta1, beta2)
-
-        def leaf(g, m, v, p):
-            g = g.float()
-            m = beta1 * m + (1.0 - beta1) * g
-            v = beta2 * v + (1.0 - beta2) * (g * g)
-            update = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * p
-            w_norm = torch.linalg.vector_norm(p)
-            u_norm = torch.linalg.vector_norm(update)
+        gl, ml, vl, pl = (tree_leaves(t) for t in (grads, state["m"], state["v"], params))
+        ms = [beta1 * m + (1.0 - beta1) * g.float() for g, m in zip(gl, ml)]
+        vs = [beta2 * v + (1.0 - beta2) * (g.float() * g.float()) for g, v in zip(gl, vl)]
+        ups = [(m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * p for m, v, p in zip(ms, vs, pl)]
+        if reduce_sq is None:
+            w_norms = [torch.linalg.vector_norm(p) for p in pl]
+            u_norms = [torch.linalg.vector_norm(u) for u in ups]
+        else:
+            w_sq, u_sq = reduce_sq([torch.sum(torch.square(p)) for p in pl], [torch.sum(torch.square(u)) for u in ups])
+            w_norms, u_norms = [torch.sqrt(x) for x in w_sq], [torch.sqrt(x) for x in u_sq]
+        new = []
+        for p, u, w_norm, u_norm in zip(pl, ups, w_norms, u_norms):
             trust = torch.where((w_norm > 0) & (u_norm > 0),
                                 torch.clamp(w_norm / u_norm, min_coeff, max_coeff),
                                 torch.ones_like(w_norm))
-            return p - lr * trust * update, m, v
+            new.append(p - lr * trust * u)
 
-        new_p, m, v = _unzip(tree_map(leaf, grads, state["m"], state["v"], params), 3)
-        return new_p, {"m": m, "v": v}
+        def like(leaves):
+            it = iter(leaves)
+            return tree_map(lambda _: next(it), params)
+
+        return like(new), {"m": like(ms), "v": like(vs)}
 
     return init_fn, update_fn
 

@@ -28,18 +28,18 @@ class NativeCheckpointEngine:
         self.staging = saver.HostStaging()
 
     def save(self, ckpt_dir: str, state, client_state: dict, async_save: bool = False,
-             latest: Optional[tuple] = None) -> saver.SaveHandle:
+             latest: Optional[tuple] = None, layouts: Optional[dict] = None) -> saver.SaveHandle:
         self.commit()  # one in-flight save at a time
         self._pending = saver.save_checkpoint(ckpt_dir, state, client_state=client_state, latest=latest,
-                                              async_save=async_save, staging=self.staging)
+                                              async_save=async_save, staging=self.staging, layouts=layouts)
         if async_save:
             atexit.register(self.commit)
         else:
             self.commit()
         return self._pending
 
-    def load(self, ckpt_dir: str, state_like, verify: bool = True):
-        return saver.load_checkpoint(ckpt_dir, state_like, verify=verify)
+    def load(self, ckpt_dir: str, state_like, verify: bool = True, layouts: Optional[dict] = None):
+        return saver.load_checkpoint(ckpt_dir, state_like, verify=verify, layouts=layouts)
 
     def commit(self):
         """Finish the pending save: join its writer, then write its manifest

@@ -7,23 +7,28 @@ One DeepSpeed JSON dict drives both packages: the batch triangulation
 the same way, as do ``activation_checkpointing``, ``checkpoint``,
 ``sparse_attention`` (turned into the model's ``attn_impl="sparse"`` by the
 engine), ``curriculum_learning`` and ``dataloader_drop_last``. The port
-runs on one device, so the world size is 1 and a ``mesh`` axis above 1 is
-refused. ``resilience`` (the NaN guardrail, preemption, checkpoint-save
+runs data-parallel over ``torch.distributed``: ``mesh.data`` and
+``mesh.fsdp`` take the world (their product, -1 the remainder, equals the
+data-parallel world) and the batch is triangulated at that world; a
+``pipe``, ``context`` or ``model`` axis above 1 is refused by name.
+``comms_logger``, ``sparse_gradients`` and the ``zero_optimization`` bucket
+sizes and ``overlap_comm`` parse as in JAX. ``resilience`` (the NaN guardrail, preemption, checkpoint-save
 retries and the training fault sites), ``csv_monitor``, the training
 fields of ``telemetry`` with its program ``ledger`` (on by default, as in
 JAX), ``flops_profiler``, the ``wall_clock_breakdown`` and
 ``memory_breakdown`` flags and ``checkpoint.async_save`` parse as in the
-JAX package. Blocks that belong to paths not ported yet raise
-``NotImplementedError`` when enabled, naming the block: among them
-``tensorboard``, ``wandb``, ``comms_logger``, ``eigenvalue``, the flag
-``dump_state``, which the port would otherwise accept and ignore, the
-ledger's ``collectives`` and the telemetry block's flight-recorder blocks;
-ZeRO stages 0-3 are accepted, since on one device they are the same
-arithmetic. The memory tiers parse as in the JAX package
+JAX package, the ledger's ``collectives`` included. Blocks that belong
+to paths not ported yet raise ``NotImplementedError`` when enabled, naming
+the block: among them ``tensorboard``, ``wandb``, ``eigenvalue``, the flag
+``dump_state``, which the port would otherwise accept and ignore, and the
+telemetry block's flight-recorder blocks. ZeRO stages 0-3 shard over the
+mesh's ``data`` and ``fsdp`` axes (``runtime/zero/``). The memory tiers parse as in the JAX package
 (``zero_optimization.offload_optimizer``/``offload_param`` with
 ``nvme_path``, ``sub_group_size``, the ``aio`` block, and
 ``activation_checkpointing.cpu_checkpointing``), and their invalid
-combinations raise what the JAX engine raises (``_validate_offload``).
+combinations raise what the JAX engine raises (``_validate_offload``); at
+a data-parallel world above 1 the NVMe tier and ``offload_param`` below
+stage 3 are refused by name (not ported yet).
 """
 
 from __future__ import annotations
@@ -96,10 +101,31 @@ class OffloadConfig:
 
 @dataclass
 class ZeroConfig:
+    """The JAX ``ZeroConfig`` (reference runtime/zero/config.py:77). The
+    stage selects the sharding rules (``parallel/sharding.py``);
+    ``reduce_bucket_size`` and ``allgather_bucket_size`` (bytes) size the
+    ZeRO runtime's buckets. ``overlap_comm`` is parsed and ignored, as in
+    JAX (where XLA schedules the collectives): the port's run in program
+    order. The rest is accepted for config compatibility."""
+
     stage: int = 0
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = 5e8
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = 5e8
+    overlap_comm: bool = True
+    round_robin_gradients: bool = False
     offload_param: OffloadConfig = field(default_factory=OffloadConfig)
     offload_optimizer: OffloadConfig = field(default_factory=OffloadConfig)
     sub_group_size: int = 1e9  # bytes of fp32 master per NVMe swap group
+    prefetch_bucket_size: int = 5e7
+    param_persistence_threshold: int = 1e5
+    max_live_parameters: int = 1e9
+    max_reuse_distance: int = 1e9
+    gather_16bit_weights_on_model_save: bool = False
+    ignore_unused_parameters: bool = True
+    zero_quantized_weights: bool = False
 
     def __post_init__(self):
         if isinstance(self.offload_param, dict):
@@ -1043,26 +1069,42 @@ class MonitorBackendConfig:
 
 
 @dataclass
+class CollectiveLedgerConfig:
+    """``telemetry.ledger.collectives`` (``telemetry/collective_ledger.py``):
+    record the collectives ``comm/`` issues during each watched program's
+    first call, for the step anatomy and the comms-logger reconcile view.
+    ``ici_gbps`` rates the link for the modeled comm times (0: the
+    platform's rating, which no link of the port has: the times stay
+    labeled nulls)."""
+
+    enabled: bool = True
+    ici_gbps: float = 0.0
+
+    def __post_init__(self):
+        if self.ici_gbps < 0:
+            raise DeepSpeedConfigError(
+                f"telemetry.ledger.collectives.ici_gbps must be >= 0, "
+                f"got {self.ici_gbps}")
+
+
+@dataclass
 class LedgerConfig:
     """``telemetry.ledger`` (and the serving block's ``ledger``): the
     program ledger, on by default as in JAX (``telemetry/program_ledger.py``).
-    ``hbm_warn_fraction`` sets the HBM-pool section's warning. The
-    collective X-ray (``collectives``) is refused when enabled: it comes with
-    ``comm/``."""
+    ``hbm_warn_fraction`` sets the HBM-pool section's warning;
+    ``collectives`` is the collective ledger's block."""
 
     enabled: bool = True
     hbm_warn_fraction: float = 0.9
-    collectives: dict = field(default_factory=dict)
+    collectives: CollectiveLedgerConfig = field(default_factory=CollectiveLedgerConfig)
 
     def __post_init__(self):
+        if isinstance(self.collectives, dict):
+            self.collectives = _build(CollectiveLedgerConfig, self.collectives)
         if not (0.0 < self.hbm_warn_fraction <= 1.0):
             raise DeepSpeedConfigError(
                 f"telemetry.ledger.hbm_warn_fraction must be in (0, 1], "
                 f"got {self.hbm_warn_fraction}")
-
-    def check_ported(self) -> None:
-        if self.collectives.get("enabled", False):
-            raise NotImplementedError("telemetry.ledger.collectives is not ported to deepspeed_tpu_torch yet")
 
 
 @dataclass
@@ -1075,9 +1117,8 @@ class TelemetryConfig:
     monitor at each print boundary. ``device_sync_spans`` makes the step
     span wait for the step's loss. ``ledger`` is the program ledger over
     ``train/train_step``. ``request_trace`` belongs to serving. The
-    ledger's ``collectives`` and the flight-recorder blocks (``timeseries``,
-    ``slo``, ``incidents``: the JAX training engine reads none of them;
-    serving has its own) raise when on."""
+    flight-recorder blocks (``timeseries``, ``slo``, ``incidents``: the JAX
+    training engine reads none of them; serving has its own) raise when on."""
 
     enabled: bool = False
     jsonl_path: str = ""
@@ -1109,9 +1150,7 @@ class TelemetryConfig:
                 f"telemetry.jsonl_keep must be >= 1, got {self.jsonl_keep}")
 
     def check_ported(self) -> None:
-        """The ledger's collective X-ray and the flight-recorder blocks
-        raise, naming themselves."""
-        self.ledger.check_ported()
+        """The flight-recorder blocks raise, naming themselves."""
         for name in ("timeseries", "slo", "incidents"):
             if getattr(self, name).get("enabled", False):
                 raise NotImplementedError(f"telemetry.{name} is not ported to deepspeed_tpu_torch yet")
@@ -1152,7 +1191,22 @@ class FlopsProfilerConfig:
 
 # Blocks whose ``enabled`` flag selects a path the port does not have yet,
 # and top-level flags that do so when true.
-_UNPORTED_BLOCKS = ("eigenvalue", C.MONITOR_TENSORBOARD, C.MONITOR_WANDB, C.COMMS_LOGGER)
+_UNPORTED_BLOCKS = ("eigenvalue", C.MONITOR_TENSORBOARD, C.MONITOR_WANDB)
+
+# the mesh axes of the paths not ported yet, refused above 1 by name
+_UNPORTED_AXES = {"pipe": "pipeline parallelism", "context": "context parallelism (ring/Ulysses attention)",
+                  "model": "tensor parallelism"}
+
+
+@dataclass
+class CommsLoggerConfig:
+    """``comms_logger``: record every collective ``comm/`` issues
+    (``comm/logger.py``)."""
+
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
 _UNPORTED_FLAGS = (C.DUMP_STATE,)
 
 
@@ -1164,6 +1218,7 @@ class DeepSpeedConfig:
     steps_per_print: int = C.STEPS_PER_PRINT_DEFAULT
     seed: int = C.SEED_DEFAULT
     gradient_clipping: float = C.GRADIENT_CLIPPING_DEFAULT
+    sparse_gradients: bool = False
     dataloader_drop_last: bool = False
     wall_clock_breakdown: bool = False
     memory_breakdown: bool = False
@@ -1183,6 +1238,7 @@ class DeepSpeedConfig:
     sparse_attention: Optional[SparseAttentionConfig] = None
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     csv_monitor: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
+    comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     elasticity: ElasticityConfig = field(default_factory=ElasticityConfig)
     aio: AioConfig = field(default_factory=AioConfig)
@@ -1204,6 +1260,7 @@ class DeepSpeedConfig:
             steps_per_print=d.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT),
             seed=int(d.get(C.SEED, C.SEED_DEFAULT)),
             gradient_clipping=d.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT),
+            sparse_gradients=d.get(C.SPARSE_GRADIENTS, False),
             dataloader_drop_last=d.get(C.DATALOADER_DROP_LAST, False),
             wall_clock_breakdown=d.get(C.WALL_CLOCK_BREAKDOWN, False),
             memory_breakdown=d.get(C.MEMORY_BREAKDOWN, False),
@@ -1223,6 +1280,7 @@ class DeepSpeedConfig:
                               if d.get(C.SPARSE_ATTENTION) else None),
             resilience=_build(ResilienceConfig, _sub(d, C.RESILIENCE)),
             csv_monitor=_build(MonitorBackendConfig, _sub(d, C.MONITOR_CSV)),
+            comms_logger=_build(CommsLoggerConfig, _sub(d, C.COMMS_LOGGER)),
             telemetry=_build(TelemetryConfig, _sub(d, C.TELEMETRY)),
             elasticity=_build(ElasticityConfig, _sub(d, C.ELASTICITY)),
             aio=_build(AioConfig, _sub(d, C.AIO)),
@@ -1230,7 +1288,7 @@ class DeepSpeedConfig:
             raw=d,
         )
         cfg._triangulate_batch(world_size)
-        cfg._validate()
+        cfg._validate(world_size)
         return cfg
 
     def _triangulate_batch(self, world_size: int) -> None:
@@ -1257,15 +1315,36 @@ class DeepSpeedConfig:
                 "at least one of train_batch_size / train_micro_batch_size_per_gpu must be set")
         self.train_batch_size, self.train_micro_batch_size_per_gpu, self.gradient_accumulation_steps = (
             train, micro, gas)
+        try:
+            self.dp_mesh_sizes(ws)
+        except ValueError as e:
+            raise DeepSpeedConfigError(f"mesh {dataclasses.asdict(self.mesh)} over a world of {ws}: {e}") from e
         if train != micro * gas * ws:
             raise DeepSpeedConfigError(
                 f"batch sizes inconsistent: train_batch_size={train} != "
                 f"micro({micro}) * gas({gas}) * world({ws})")
 
-    def _validate(self) -> None:
+    def dp_mesh_sizes(self, world: int) -> dict:
+        """The ``mesh`` block's axis sizes over a world of ``world`` ranks
+        (``comm.MeshConfig.sizes``: -1 takes the remainder)."""
+        from ..comm.mesh import MeshConfig
+
+        m = self.mesh
+        return MeshConfig(pipe=m.pipe, data=m.data, fsdp=m.fsdp, context=m.context, model=m.model).sizes(world)
+
+    def _validate(self, world_size: int = 1) -> None:
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         self._validate_offload()
+        z = self.zero_optimization
+        if world_size > 1 and "nvme" in (z.offload_optimizer.device, z.offload_param.device):
+            raise NotImplementedError(
+                f"the NVMe tier at a data-parallel world of {world_size} is not ported to deepspeed_tpu_torch yet "
+                "(the cpu tier is: each rank's shards in host memory)")
+        if world_size > 1 and z.offload_param.device != "none" and z.stage != 3:
+            raise NotImplementedError(
+                f"offload_param at ZeRO stage {z.stage} and a data-parallel world of {world_size} is not ported to "
+                "deepspeed_tpu_torch yet (at stage 3 it is: each rank streams its host shards)")
         if self.optimizer.type.lower() in ONEBIT:
             raise NotImplementedError(
                 f"optimizer {self.optimizer.type!r} (the 1-bit family) is not ported to "
@@ -1282,9 +1361,11 @@ class DeepSpeedConfig:
         for flag in _UNPORTED_FLAGS:
             if self.raw.get(flag, False):
                 raise NotImplementedError(f"config flag {flag!r} is not ported to deepspeed_tpu_torch yet")
-        big = {k: v for k, v in dataclasses.asdict(self.mesh).items() if v > 1}
-        if big:
-            raise NotImplementedError(f"mesh axes {big} > 1: deepspeed_tpu_torch runs on one device")
+        for axis, what in _UNPORTED_AXES.items():
+            size = getattr(self.mesh, axis)
+            if size > 1:
+                raise NotImplementedError(f"mesh axis {axis!r}={size}: {what} is not ported to "
+                                          "deepspeed_tpu_torch yet (data and fsdp are)")
 
     def _validate_offload(self) -> None:
         """The memory tiers' combinations, refused as the JAX engine refuses

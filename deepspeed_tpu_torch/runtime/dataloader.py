@@ -93,8 +93,10 @@ class DeepSpeedDataLoader:
 
     dataset[i] must return a dict of numpy-convertible leaves (or a tuple);
     ``collate_fn`` overrides the default np.stack collation. ``batch_size``
-    here is the per-iteration batch this process must supply; the port's
-    engine passes its whole ``train_batch_size`` (one device, one replica).
+    here is the per-iteration batch this process must supply: the engine's
+    ``deepspeed_io`` passes ``train_batch_size / dp`` with the rank's
+    data-parallel coordinate as ``rank`` and the data-parallel world as
+    ``num_replicas``.
     """
 
     def __init__(

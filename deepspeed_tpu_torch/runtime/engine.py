@@ -20,11 +20,26 @@ loss), the optimizer state, and the 0-d device tensors ``step``,
 ``loss_scale``, ``good_steps``, ``skipped`` and ``hysteresis``, the same tree
 as the JAX engine's, so ``save_checkpoint``/``load_checkpoint`` (format 3,
 ``checkpoint/saver.py``) move a run between the two packages both ways.
-ZeRO stages 0-3 are accepted: on one device they are the same arithmetic.
-The memory tiers (``zero_optimization.offload_optimizer`` / ``offload_param``
+
+Data parallelism: in a world of N processes (``comm.init_distributed``
+from the env:// variables, or a process group the caller started) the
+engine lays the ranks over the ``mesh`` block's ``data`` and ``fsdp`` axes
+(``comm/mesh.py``), each rank takes its rows of every global micro-batch
+(``train_batch`` takes the global batch, or this rank's rows of it), and
+the update goes through ``zero/stage_1_and_2.py`` (stages 0-2: gradients
+all-reduced or reduce-scattered, optimizer state sharded, updated shards
+all-gathered) or ``zero/stage3.py`` (parameters sharded too and gathered a
+layer at a time in the forward and the backward), on each leaf's
+dimension of the JAX engine's specs. The loss, the gradient norm and the
+non-finite flag are reduced over the ranks, so every rank takes the same
+step or skips it. Without a process group (a world of 1) the engine runs
+the single-device arithmetic it always ran, at every stage. The memory tiers (``zero_optimization.offload_optimizer`` / ``offload_param``
 on ``cpu`` or ``nvme``) keep the JAX engine's offload state tree
 (compute-dtype ``params``, host ``master`` and ``opt``, or the masters and
-moments on disk) and step through ``zero/offload.py`` (``OffloadTier``).
+moments on disk) and step through ``zero/offload.py`` (``OffloadTier``); at
+a data-parallel world above 1 the cpu tier holds this rank's shards (with
+``offload_param`` at stage 3: the parameter shards too), and the NVMe tier
+and ``offload_param`` below stage 3 are refused by name.
 The ``activation_checkpointing`` block turns on the model's remat, and the
 ``sparse_attention`` block its block-sparse attention (``attn_impl="sparse"``
 with the mode's ``sparsity`` fields). ``curriculum_learning`` truncates each
@@ -66,7 +81,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import comm
 from ..checkpoint import saver, zero_to_fp32
+from ..comm.logger import comms_logger
+from ..comm.mesh import DP_AXES, MeshConfig, build_mesh, data_parallel_size, single_device_mesh
 from ..inference.engine import resolve_device
 from ..models import transformer as tfm
 from ..models.transformer import effective_loss_impl
@@ -81,7 +99,6 @@ from ..telemetry import MonitorBridge, Telemetry, cost, hbm_snapshot, tree_bytes
 from ..utils.logging import log_dist, logger
 from ..utils.memory import see_memory_usage
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
-from ..utils.world import refuse_multi_process_world
 from . import activation_checkpointing as act_ckpt
 from .checkpoint_engine.checkpoint_engine import get_checkpoint_engine
 from .config import DeepSpeedConfig
@@ -89,6 +106,8 @@ from .data_pipeline.curriculum_scheduler import CurriculumScheduler
 from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import get_schedule
 from .zero.offload import OffloadTier
+from .zero.stage3 import Zero3Params
+from .zero.stage_1_and_2 import ZeroRuntime
 
 
 def _global_norm(tree) -> torch.Tensor:
@@ -124,13 +143,24 @@ def _to_device(x, device):
 
 class DeepSpeedEngine:
     def __init__(self, model, config, params: Optional[dict] = None, device=None):
-        self.dp_world = refuse_multi_process_world("deepspeed_tpu_torch.initialize")
-        if isinstance(config, str):
-            config = DeepSpeedConfig.from_file(config, world_size=1)
-        elif isinstance(config, dict):
-            config = DeepSpeedConfig.from_dict(config, world_size=1)
-        self.config: DeepSpeedConfig = config
         self.device = resolve_device(device)
+        comm.init_distributed(device=self.device)
+        world = comm.get_world_size()
+        if isinstance(config, str):
+            config = DeepSpeedConfig.from_file(config, world_size=world)
+        elif isinstance(config, dict):
+            config = DeepSpeedConfig.from_dict(config, world_size=world)
+        self.config: DeepSpeedConfig = config
+        distributed = comm.is_initialized()
+        self.mesh = build_mesh(MeshConfig(**config.dp_mesh_sizes(world))) if distributed else single_device_mesh()
+        self.dp_world = data_parallel_size(self.mesh)
+        self.dp_rank = self.mesh.axis_index(DP_AXES)
+        if config.train_batch_size != (config.train_micro_batch_size_per_gpu
+                                       * config.gradient_accumulation_steps * self.dp_world):
+            raise ValueError(f"train_batch_size {config.train_batch_size} != micro "
+                             f"{config.train_micro_batch_size_per_gpu} x gas {config.gradient_accumulation_steps}"
+                             f" x data-parallel world {self.dp_world}")
+        comms_logger.configure(enabled=config.comms_logger.enabled, verbose=config.comms_logger.verbose)
         self.model = model
         self.micro_batch_size = config.train_micro_batch_size_per_gpu
         self.gradient_accumulation_steps = config.gradient_accumulation_steps
@@ -152,7 +182,10 @@ class DeepSpeedEngine:
         self.telemetry = Telemetry(jsonl_path=tcfg.jsonl_path if tcfg.enabled else "",
                                    watchdog_mode=tcfg.watchdog, device_sync_spans=tcfg.device_sync_spans,
                                    ledger=tcfg.ledger.enabled, jsonl_max_bytes=tcfg.jsonl_max_bytes,
-                                   jsonl_keep=tcfg.jsonl_keep, device=self.device)
+                                   jsonl_keep=tcfg.jsonl_keep, device=self.device,
+                                   ledger_collectives=tcfg.ledger.collectives.enabled,
+                                   ici_gbps=tcfg.ledger.collectives.ici_gbps)
+        self.telemetry.ledger.set_mesh_shape(self.mesh.shape)
         # the train step's ledger row reads its wall time from the step-time
         # histogram and publishes the engine's headline train/mfu gauge;
         # under wall_clock_breakdown from the train_batch timer instead,
@@ -176,7 +209,10 @@ class DeepSpeedEngine:
         # device; the guardrail adds streak tracking and rewind at the cost
         # of one fetch of the overflow flag per step
         rcfg = config.resilience
-        self.fault_injector = FaultInjector(rcfg.fault_injection) if rcfg.fault_injection.enabled else None
+        # each rank draws its own faults: the rank folds into the seed (the
+        # JAX engine folds the process index into its retry seed, :2196)
+        fi = dataclasses.replace(rcfg.fault_injection, seed=rcfg.fault_injection.seed + comm.get_rank())
+        self.fault_injector = FaultInjector(fi) if fi.enabled else None
         if self.fault_injector is not None:
             log_dist(f"resilience: fault injection armed (seed {rcfg.fault_injection.seed}, "
                      f"rate {rcfg.fault_injection.rate})", ranks=[0])
@@ -220,7 +256,7 @@ class DeepSpeedEngine:
             accepted = set(inspect.signature(SPARSITY_CONFIGS[sa.mode].__init__).parameters)
             sparsity = {"mode": sa.mode, **{k: v for k, v in dataclasses.asdict(sa).items() if k in accepted}}
             model.config = model.config.replace(attn_impl="sparse", sparsity=sparsity)
-            logger.info("sparse_attention: %s", sparsity)
+            log_dist(f"sparse_attention: {sparsity}", ranks=[0])
         self.curriculum_scheduler = None
         if config.curriculum_learning.enabled:
             self.curriculum_scheduler = CurriculumScheduler(config.curriculum_learning)
@@ -230,7 +266,7 @@ class DeepSpeedEngine:
             overrides = act_ckpt.model_overrides(model.config.num_layers)
             if overrides:
                 model.config = model.config.replace(**overrides)
-                logger.info("activation_checkpointing: %s", overrides)
+                log_dist(f"activation_checkpointing: {overrides}", ranks=[0])
         impl, reason = effective_loss_impl(model.config)
         note = "" if impl == model.config.loss_impl else f" (configured {model.config.loss_impl!r}: {reason})"
         log_dist(f"loss implementation: {impl}{note}", ranks=[0])
@@ -250,9 +286,30 @@ class DeepSpeedEngine:
             params = model.init(torch.Generator().manual_seed(0), self.device)
         params = tree_map(lambda t: t.to(device=self.device,
                                          dtype=torch.float32 if t.is_floating_point() else t.dtype), params)
+        # data parallelism: the ZeRO runtime shards over the mesh (every
+        # stage, a world of 1 under a process group included). A memory tier
+        # at a world of 1 runs its single-device path; above 1 the cpu tier
+        # holds this rank's shards (offload_param at stage 3 only, and no NVMe:
+        # the config refuses the others there).
+        self.zero: Optional[ZeroRuntime] = None
+        self.z3: Optional[Zero3Params] = None
+        if distributed and (config.offload_tier == "none" or self.dp_world > 1):
+            if config.offload_tier != "none" and config.optimizer.type.lower() in ("lamb", "fusedlamb"):
+                raise NotImplementedError("LAMB with the cpu tier at a data-parallel world above 1 is not ported: "
+                                          "its host update takes a leaf at a time, and the trust ratio needs "
+                                          "whole-leaf norms")
+            axes_tree = model.logical_axes() if hasattr(model, "logical_axes") else tree_map(lambda _: None, params)
+            zc = config.zero_optimization
+            self.zero = ZeroRuntime(self.mesh, self.zero_stage, axes_tree, params, zc.reduce_bucket_size,
+                                    zc.allgather_bucket_size)
+            params = self.zero.shard_params(params)
+            if self.zero_stage == 3:
+                self.z3 = Zero3Params(params, self.device, self.zero.param_layouts, config.compute_dtype,
+                                      zc.allgather_bucket_size, zc.reduce_bucket_size,
+                                      host_grads=zc.offload_param.device != "none")
         # the memory tiers (zero/offload.py): the fp32 masters and the
         # optimizer state leave the device; params become the compute-dtype copy
-        self.tier = (OffloadTier(config, params, self.device, self.opt_init, self.opt_update)
+        self.tier = (OffloadTier(config, params, self.device, self.opt_init, self.opt_update, zero=self.zero)
                      if config.offload_tier != "none" else None)
         fp16 = config.fp16
         self.fp16_enabled = fp16.enabled
@@ -264,7 +321,8 @@ class DeepSpeedEngine:
         self.state = {
             "step": scalar(0, torch.int32),
             "params": params,
-            "opt": self.opt_init(params) if self.tier is None else {},
+            "opt": (self.opt_init(params if self.zero is None else self.zero.owned(params))
+                    if self.tier is None else {}),
             "loss_scale": scalar(scale0 if fp16.enabled else 1.0, torch.float32),
             "good_steps": scalar(0, torch.int32),
             "skipped": scalar(0, torch.int32),
@@ -274,8 +332,8 @@ class DeepSpeedEngine:
             self.state.update(self.tier.state_entries())
             del params
         n_params = sum(t.numel() for t in tree_leaves(self.state["params"]))
-        log_dist(f"engine ready: {n_params / 1e6:.1f}M params, zero_stage={self.zero_stage}, "
-                 f"device={self.device}, micro_bs={self.micro_batch_size}, "
+        log_dist(f"engine ready: {n_params / 1e6:.1f}M params on this rank, zero_stage={self.zero_stage}, "
+                 f"mesh={self.mesh.shape}, device={self.device}, micro_bs={self.micro_batch_size}, "
                  f"gas={self.gradient_accumulation_steps}, dtype={config.compute_dtype}", ranks=[0])
 
     def _enforce_elasticity(self, raw) -> None:
@@ -341,10 +399,12 @@ class DeepSpeedEngine:
             self.timers("step_dispatch").start()
         with self.telemetry.span("train/train_batch") as sp:
             dev_batch = {k: _to_device(v, self.device) for k, v in batch.items()}
+            local = self.train_batch_size // self.dp_world
             for k, v in dev_batch.items():
-                if v.shape[0] != self.train_batch_size:
+                if v.shape[0] not in (self.train_batch_size, local):
                     raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, train_batch_size is "
-                                     f"{self.train_batch_size}")
+                                     f"{self.train_batch_size}" + (f" (this rank's rows: {local})"
+                                                                   if self.dp_world > 1 else ""))
             metrics = self._train_step(self.state, dev_batch)
             sp.set_sync(metrics["loss"])
         if wcb:
@@ -380,16 +440,26 @@ class DeepSpeedEngine:
         replaces ``self.state``."""
         gas = self.gradient_accumulation_steps
         micro = {k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:]) for k, v in dev_batch.items()}
+        b = self.micro_batch_size
+        # a global batch: this rank's rows of every micro-batch, as JAX's
+        # batch spec ("data", "fsdp") splits them
+        micro = {k: v[:, self.dp_rank * b:(self.dp_rank + 1) * b] if v.shape[1] != b else v
+                 for k, v in micro.items()}
         leaves = self._grad_leaves()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(gas):
             loss_sum = loss_sum + self._accumulate(leaves, {k: v[i] for k, v in micro.items()}, i)
-        return {"loss": loss_sum / gas, **self._apply_update(leaves, gas)}
+        loss = loss_sum / gas
+        if self.zero is not None:
+            loss = comm.all_reduce(loss, DP_AXES, "mean")
+        return {"loss": loss, **self._apply_update(leaves, gas)}
 
     def _grad_leaves(self) -> dict:
         """The fp32 master parameters as fresh autograd leaves, whose
         ``.grad`` collects the micro-batches' gradients (under a memory tier,
         what the tier differentiates: ``OffloadTier.grad_leaves``)."""
+        if self.z3 is not None:
+            return self.z3.begin_step(self.state["params"])
         if self.tier is not None:
             return self.tier.grad_leaves()
         return tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), self.state["params"])
@@ -401,11 +471,34 @@ class DeepSpeedEngine:
         kw = {}
         if self._dropout_enabled:
             kw = {"rng": self._dropout_key(micro), "step": self.state["step"] + 1}
-        if self.tier is not None:
-            return self.tier.backward_micro(self.model, leaves, mb, self.state["loss_scale"], kw)
-        loss = self.model.loss(self._cast(leaves), mb, **kw)
-        (loss * self.state["loss_scale"]).backward()
-        return loss.detach().float()
+            if self.dp_rank:  # this rank's rows of the micro-batch draw their masks
+                kw["row_offset"] = self.dp_rank * self.micro_batch_size
+        weight = self._label_weight(mb)
+        scale = self.state["loss_scale"] if weight is None else self.state["loss_scale"] * weight
+        if self.z3 is not None:
+            loss = self.z3.backward_micro(self.model, leaves, mb, scale, kw)
+        elif self.tier is not None:
+            loss = self.tier.backward_micro(self.model, leaves, mb, scale, kw)
+        else:
+            loss = self.model.loss(self._cast(leaves), mb, **kw)
+            (loss * scale).backward()
+            loss = loss.detach().float()
+        return loss if weight is None else loss * weight
+
+    def _label_weight(self, mb: dict) -> Optional[torch.Tensor]:
+        """For a batch with explicit ``labels`` at a data-parallel world
+        above 1: ``world · c / C``, where ``c`` is this rank's labelled
+        (``>= 0``) tokens in the micro-batch and ``C`` the whole micro-batch's
+        (each at least 1, as the loss clamps its count). The rank's token
+        mean times it, averaged over the ranks, is the token mean over the
+        global micro-batch, which the JAX engine takes under pjit. Without
+        labels every token is labelled, the ranks' counts are equal and the
+        weight is 1: None, and no collective."""
+        if self.zero is None or self.dp_world == 1 or "labels" not in mb:
+            return None
+        labelled = (mb["labels"] >= 0).sum().float()
+        total = comm.all_reduce(labelled, DP_AXES, "sum")
+        return self.dp_world * labelled.clamp(min=1.0) / total.clamp(min=1.0)
 
     @torch.no_grad()
     def _apply_update(self, leaves, n_micro: int) -> dict:
@@ -420,34 +513,59 @@ class DeepSpeedEngine:
         state = self.state
         step1 = state["step"] + 1
         loss_scale = state["loss_scale"]
-        grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p), leaves)
-        finite, gnorm = self._unscale_and_clip(grads, loss_scale, n_micro)
+        reduce = None
+        if self.z3 is not None:  # already reduce-scattered onto this rank's shards
+            grads = self.z3.gradients()
+        else:
+            grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p), leaves)
+        if self.zero is not None:
+            if self.z3 is None:
+                grads = self.zero.reduce_grads(grads)
+            n_micro, reduce = n_micro * self.dp_world, self.zero.reduce_stats
+        finite, gnorm = self._unscale_and_clip(grads, loss_scale, n_micro, reduce)
         lr = self.lr_schedule(step1)
-        new_params, new_opt = self.opt_update(grads, state["opt"], state["params"], step1, lr)
+        owned = state["params"] if self.zero is None else self.zero.owned(state["params"])
+        kw = {}
+        if self.zero is not None and self.config.optimizer.type.lower() in ("lamb", "fusedlamb"):
+            kw["reduce_sq"] = self.zero.reduce_leaf_sq  # the trust ratio's whole-leaf norms
+        new_params, new_opt = self.opt_update(grads, state["opt"], owned, step1, lr, **kw)
 
         def keep(new, old):
             return torch.where(finite, new, old)
 
+        new_params = tree_map(keep, new_params, owned)
+        if self.zero is not None:
+            new_params = self.zero.assemble(new_params, state["params"])
         scalars = self._scalars_after(finite, step1)
-        self.state = {"step": scalars.pop("step"), "params": tree_map(keep, new_params, state["params"]),
+        self.state = {"step": scalars.pop("step"), "params": new_params,
                       "opt": tree_map(keep, new_opt, state["opt"]), **scalars}
         return {"grad_norm": gnorm, "lr": lr, "loss_scale": loss_scale, "overflow": ~finite}
 
-    def _unscale_and_clip(self, grads, loss_scale, n_micro: int):
+    def _unscale_and_clip(self, grads, loss_scale, n_micro: int, reduce=None):
         """In place on ``grads`` (where they live): unscale by
         ``1/(loss_scale·n_micro)``, then clip to the global norm ->
-        (finite, norm before clipping), tensors on the gradients' device."""
+        (finite, norm before clipping), tensors on the gradients' device.
+        ``reduce`` (the ZeRO runtime's ``reduce_stats``) turns the per-leaf
+        sums of squares and non-finite counts of this rank's gradients into
+        the whole model's."""
         gl = tree_leaves(grads)
         inv = (1.0 / (loss_scale * n_micro)).to(gl[0].device)
         for g in gl:
             g.mul_(inv)
-        finite = torch.stack([torch.isfinite(g).all() for g in gl]).all()
-        gnorm = _global_norm(grads)
+        if reduce is None:
+            finite = torch.stack([torch.isfinite(g).all() for g in gl]).all()
+            gnorm = _global_norm(grads)
+        else:
+            # (on the engine's device: NCCL reduces there, and host gradients
+            # under offload_param send only these scalars)
+            sq, bad = reduce([torch.sum(torch.square(g.float())).to(self.device) for g in gl],
+                             [(~torch.isfinite(g)).sum().float().to(self.device) for g in gl])
+            finite, gnorm = bad == 0, torch.sqrt(sq)
         clip = self.config.gradient_clipping
         if clip > 0:
             factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
             for g in gl:
-                g.mul_(factor)
+                g.mul_(factor.to(g.device))
         return finite, gnorm
 
     def _scalars_after(self, finite, step1) -> dict:
@@ -474,8 +592,13 @@ class DeepSpeedEngine:
         state = self.state
         step1 = state["step"] + 1
         loss_scale = state["loss_scale"]
-        grads = self.tier.gradients(leaves)
-        finite, gnorm = self._unscale_and_clip(grads, loss_scale, n_micro)
+        grads = self.z3.gradients() if self.z3 is not None else self.tier.gradients(leaves)
+        reduce = None
+        if self.zero is not None:  # onto this rank's shards, as _apply_update reduces them
+            if self.z3 is None:
+                grads = self.zero.reduce_grads(grads)
+            n_micro, reduce = n_micro * self.dp_world, self.zero.reduce_stats
+        finite, gnorm = self._unscale_and_clip(grads, loss_scale, n_micro, reduce)
         lr = self.lr_schedule(step1)
         finite = finite.to(self.device)
         fetched = torch.stack([finite.double(), lr.double(), step1.double()]).cpu()
@@ -494,8 +617,16 @@ class DeepSpeedEngine:
         without dropout or a gradient (a 0-d device tensor). The batch is
         kept for ``backward``."""
         self._last_batch = {k: _to_device(v, self.device) for k, v in batch.items()}
+        return self._eval_loss(self._last_batch)
+
+    def _eval_loss(self, batch: dict) -> torch.Tensor:
+        """The loss of ``batch`` without dropout or a gradient, this rank's
+        (ZeRO-3: the layers gathered as in training, so every rank of the
+        world calls it together)."""
+        if self.z3 is not None:
+            return self.z3.evaluate(lambda v: self.model.loss(v, batch), self.z3.view(self.state["params"]))
         with torch.no_grad():
-            return self.model.loss(self._cast(self.state["params"]), self._last_batch)
+            return self.model.loss(self._cast(self.state["params"]), batch)
 
     __call__ = forward
 
@@ -539,12 +670,20 @@ class DeepSpeedEngine:
         through ``_preempt``."""
         step1 = self.global_steps + 1
         guard = self._preemption_guard
-        if guard is not None and guard.consume():
-            self._preempt(source="signal")
         inj = self.fault_injector
+        signal = guard is not None and guard.consume()
+        injected = inj is not None and inj.preempt(step1)
+        if self.dp_world > 1 and (guard is not None or inj is not None):
+            # every rank preempts (and takes its JIT checkpoint) together; a
+            # guard or an injector is configured on every rank of a world
+            flags = comm.all_reduce(torch.tensor([float(signal), float(injected)], device=self.device),
+                                    DP_AXES, "max").tolist()
+            signal, injected = flags[0] > 0, flags[1] > 0 and not flags[0] > 0
+        if signal:
+            self._preempt(source="signal")
         if inj is None:
             return
-        if inj.preempt(step1):
+        if injected:
             self._preempt(source="injected")
         if inj.nan_grads(step1):
             # a +inf loss scale for this one step: the loss and gradients
@@ -640,8 +779,9 @@ class DeepSpeedEngine:
         and device memory, with achieved TFLOP/s, MFU and the roofline
         verdict), the step anatomy and the device-memory pools (params,
         optimizer state) beside the caching allocator's counts; appended to
-        the JSONL log when a sink is configured. The JAX engine's
-        collective sections wait for ``comm/``."""
+        the JSONL log when a sink is configured. The collective ledger's
+        ``comm_reconcile`` view rides beside them. The pools are this
+        rank's own bytes (its shards under ZeRO)."""
         pools = {"params": tree_bytes(self.state["params"]), "opt_state": tree_bytes(self.state["opt"])}
         if "master" in self.state:
             pools["master_params"] = tree_bytes(self.state["master"])
@@ -661,7 +801,7 @@ class DeepSpeedEngine:
         micro = {k: v[:rows] for k, v in dev_batch.items()}
         try:
             prof = FlopsProfiler(fp)
-            params = self.state["params"]
+            params = self.full_params()
             res = prof.profile(lambda p, b: self.model.loss(self._cast(p), b), params, micro, params=params)
             prof.print_model_profile(res, detailed=fp.detailed)
         except (RuntimeError, ValueError, TypeError, NotImplementedError, OSError) as e:
@@ -685,11 +825,15 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
 
     def deepspeed_io(self, dataset, batch_size: Optional[int] = None, **kw) -> DeepSpeedDataLoader:
-        """A dataloader over ``dataset`` yielding ``train_batch_size`` samples
-        per batch (one device, one replica; JAX engine.py:1907). The first
-        loader built is attached as the training loader whose cursor rides
-        checkpoints; later ones (eval) stay detached."""
-        loader = DeepSpeedDataLoader(dataset, batch_size=batch_size or self.train_batch_size,
+        """A data-parallel dataloader over ``dataset`` (JAX engine.py:1907):
+        this rank's ``train_batch_size / dp`` samples per batch, its sampler
+        strided by the rank's data-parallel coordinate over the ``data`` x
+        ``fsdp`` ranks. The first loader built is attached as the training
+        loader whose cursor rides checkpoints; later ones (eval) stay
+        detached."""
+        kw.setdefault("num_replicas", self.dp_world)
+        kw.setdefault("rank", self.dp_rank)
+        loader = DeepSpeedDataLoader(dataset, batch_size=batch_size or self.train_batch_size // self.dp_world,
                                      drop_last=self.config.dataloader_drop_last, **kw)
         if self.training_dataloader is None:
             self.set_dataloader(loader)
@@ -724,7 +868,7 @@ class DeepSpeedEngine:
     def eval_batch(self, batch: dict) -> float:
         """Loss of ``batch`` without dropout or an update, read on the host."""
         batch = {k: _to_device(v, self.device) for k, v in batch.items()}
-        return float(self.model.loss(self._cast(self.state["params"]), batch))
+        return float(self._eval_loss(batch))
 
     @property
     def lr(self) -> float:
@@ -786,9 +930,12 @@ class DeepSpeedEngine:
 
         def do_save():
             return eng.save(os.path.join(save_dir, tag), self.state, client_state=extra,
-                            async_save=self._ckpt_async, latest=(os.path.join(save_dir, "latest"), tag))
+                            async_save=self._ckpt_async, latest=(os.path.join(save_dir, "latest"), tag),
+                            layouts=self._state_layouts())
 
-        if rcfg.enabled and not self._ckpt_async:
+        if rcfg.enabled and not self._ckpt_async and comm.get_world_size() == 1:
+            # (at a world above 1 a save is one attempt: a retry on one rank
+            # alone would meet no partner at the save's barriers)
             # a failed attempt's staging leftovers are reclaimed by the next
             # attempt, so a retried atomic save stays atomic; an async save
             # is not retried (its errors surface at commit, where a retry
@@ -808,7 +955,8 @@ class DeepSpeedEngine:
             eng.commit()
             self.tier.nvme.save_state(os.path.join(save_dir, tag, "nvme_optimizer"))
         try:
-            shutil.copyfile(zero_to_fp32.__file__, os.path.join(save_dir, "zero_to_fp32.py"))
+            if comm.get_rank() == 0:
+                shutil.copyfile(zero_to_fp32.__file__, os.path.join(save_dir, "zero_to_fp32.py"))
         except OSError as e:
             logger.warning(f"could not copy zero_to_fp32.py into {save_dir}: {e}")
         log_dist(f"saved checkpoint {save_dir}/{tag}" + (" (async)" if self._ckpt_async else ""), ranks=[0])
@@ -824,7 +972,7 @@ class DeepSpeedEngine:
         just-saved tag counts among the k while an async save of it is
         still in flight."""
         k = self.config.checkpoint.keep_last_k
-        if k <= 0:
+        if k <= 0 or comm.get_rank() != 0:
             return
         keep = {current}
         latest = os.path.join(save_dir, "latest")
@@ -867,7 +1015,8 @@ class DeepSpeedEngine:
         eng = self.checkpoint_engine
         eng.commit()  # do not read past an in-flight save
         try:
-            state, client_state = eng.load(os.path.join(load_dir, tag), self.state, verify=verify)
+            state, client_state = eng.load(os.path.join(load_dir, tag), self.state, verify=verify,
+                                           layouts=self._state_layouts())
         except (CheckpointCorruptError, CheckpointNotFoundError) as err:
             if explicit or not fallback_to_intact:
                 raise
@@ -878,14 +1027,16 @@ class DeepSpeedEngine:
                 if cand == tag:
                     continue
                 try:
-                    state, client_state = eng.load(os.path.join(load_dir, cand), self.state, verify=True)
+                    state, client_state = eng.load(os.path.join(load_dir, cand), self.state, verify=True,
+                                                   layouts=self._state_layouts())
                 except CheckpointCorruptError as e2:
                     logger.warning("checkpoint %s/%s also corrupt (%s); continuing scan", load_dir, cand, e2)
                     continue
                 self.telemetry.counter("resilience/ckpt_fallbacks").inc()
                 self.telemetry.counter("resilience/recovered").inc()
                 logger.warning("resilience: fell back from torn checkpoint %r to intact %r", tag, cand)
-                saver.write_latest(os.path.join(load_dir, "latest"), cand)
+                if comm.get_rank() == 0:
+                    saver.write_latest(os.path.join(load_dir, "latest"), cand)
                 tag = cand
                 break
             if state is None:
@@ -967,11 +1118,42 @@ class DeepSpeedEngine:
         API parity; ``checkpoint/universal.py`` reshapes files offline."""
         return self.load_checkpoint(load_dir, tag=tag)
 
+    def _state_layouts(self) -> Optional[dict]:
+        """{checkpoint leaf key: LeafLayout} of the state leaves this rank
+        holds a shard of (None without the ZeRO runtime)."""
+        if self.zero is None:
+            return None
+        tree = {"opt": self.zero.opt_state_layouts(self.state["opt"])}
+        if self.tier is not None:  # the cpu tier's host masters: the optimizer state's split
+            tree["master"] = self.zero.opt_layouts
+        if self.zero_stage == 3:
+            tree["params"] = self.zero.param_layouts
+        flat = saver._flatten_with_paths(tree)
+        return {k: v for k, v in flat.items() if v is not None and v.sharded}
+
+    def full_params(self) -> dict:
+        """The whole fp32 parameter tree on every rank (ZeRO-3: gathered;
+        collective)."""
+        if self.z3 is None:
+            return self.state["params"]
+        from .zero.stage_1_and_2 import all_gather_rows
+
+        lays = tree_leaves(self.zero.param_layouts)
+        shards = tree_leaves(self.state["params"])
+        idx = [i for i, lay in enumerate(lays) if lay.sharded]
+        out = list(shards)
+        for i, f in zip(idx, all_gather_rows([shards[i] for i in idx], [lays[i] for i in idx],
+                                             self.config.zero_optimization.allgather_bucket_size)):
+            out[i] = f
+        it = iter(out)
+        return tree_map(lambda _: next(it), self.state["params"])
+
     def _zero3_consolidated_16bit_state_dict(self) -> dict:
         """The weights in the compute dtype as a flat {"a/b": CPU tensor}
-        dict in the JAX tree's order (on one device nothing is gathered)."""
+        dict in the JAX tree's order (ZeRO-3: gathered from every rank;
+        collective)."""
         cdt = self.config.compute_dtype
-        flat = saver._flatten_with_paths(self.state["params"])
+        flat = saver._flatten_with_paths(self.full_params())
         return {key.replace(saver._SEP, "/"): (t.detach().to(cdt) if t.is_floating_point() else t.detach()).cpu()
                 for key, t in flat.items()}
 
@@ -979,8 +1161,10 @@ class DeepSpeedEngine:
         """Write the weights in the compute dtype for deployment, as a torch
         state dict (``torch.save``), the file the JAX engine writes."""
         sd = self._zero3_consolidated_16bit_state_dict()
-        os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
-        torch.save(sd, path)
+        if comm.get_rank() == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            torch.save(sd, path)
+        comm.barrier()
         log_dist(f"saved 16bit model weights to {path}", ranks=[0])
         return True

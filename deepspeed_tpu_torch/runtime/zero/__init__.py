@@ -1,7 +1,9 @@
-"""ZeRO's single-device memory tiers, ported from ``deepspeed_tpu/runtime/zero``:
-the memory estimators, tiled linears, the NVMe-tiered optimizer, per-layer
-parameter streaming and the host update. ``partition_parameters``
-(``Init``, ``GatheredParameters``) comes with parallelism."""
+"""ZeRO, ported from ``deepspeed_tpu/runtime/zero``: the data-parallel
+stages (``stage_1_and_2.py``, ``stage3.py``), ``partition_parameters``
+(``Init``, ``GatheredParameters``), and the memory tiers (``offload.py``;
+over the ranks' shards for the cpu tier): the memory estimators, tiled
+linears, the NVMe-tiered optimizer, per-layer parameter streaming and the
+host update."""
 
 from .memory_estimators import (  # noqa: F401
     MemoryEstimate,
@@ -13,3 +15,4 @@ from .memory_estimators import (  # noqa: F401
     print_mem_estimates,
 )
 from .tiling import TiledLinear, TiledLinearConfig, split_tensor_along_dim  # noqa: F401
+from .partition_parameters import GatheredParameters, Init  # noqa: F401

@@ -16,6 +16,16 @@ delegates to it when ``zero_optimization.offload_optimizer`` is ``cpu`` or
   layer at a time (``ParamStreamer``); gradients land in a pinned fp32 host
   tree.
 
+Under a data-parallel world above 1 (``zero``: the engine's
+``ZeroRuntime``; the ``cpu`` tier) the masters and the moments are this
+rank's shards, laid out as the optimizer state (``opt_layouts``), as the
+JAX engine lays out its host ``master``; the engine reduces the gradients
+onto them (stage 3: its streamer), the host update writes each updated
+shard's compute-dtype copy back (to the device, or under
+``offload_param``, stage 3 only, to the host shards the engine's streamer
+gathers from), and at stages 1-2 those shards are all-gathered into the
+replicated parameters.
+
 A step: with the parameters on the device, each micro-batch's gradient
 (compute dtype) is added leaf by leaf into an fp32 accumulator on the
 device as soon as autograd has it (a post-accumulate hook), so the device
@@ -69,9 +79,13 @@ def _keys(tree) -> list[str]:
 
 
 class OffloadTier:
-    def __init__(self, config, params: dict, device: torch.device, opt_init, opt_update):
-        """``params``: the fp32 initial parameters (on ``device``)."""
+    def __init__(self, config, params: dict, device: torch.device, opt_init, opt_update, zero=None):
+        """``params``: the fp32 initial parameters (on ``device``; this
+        rank's shards at ZeRO stage 3); ``zero``: the engine's ZeRO runtime
+        at a data-parallel world above 1."""
         z = config.zero_optimization
+        self.zero = zero
+        owned = params if zero is None else zero.owned(params)
         self.kind = z.offload_optimizer.device  # cpu | nvme
         self.streamed = z.offload_param.device != "none"
         self.device = device
@@ -87,8 +101,8 @@ class OffloadTier:
         self.opt: dict = {}
         self.nvme: Optional[NvmeTieredOptimizer] = None
         if self.kind == "cpu":
-            self.master = tree_map(lambda p: self._host(p, torch.float32), params)
-            shapes = opt_init(tree_map(lambda p: torch.empty_like(p, device="meta"), params))
+            self.master = tree_map(lambda p: self._host(p, torch.float32), owned)
+            shapes = opt_init(tree_map(lambda p: torch.empty_like(p, device="meta"), owned))
             self.opt = tree_map(lambda t: self._host(t, t.dtype, zero=True), shapes)
         else:
             aio = config.aio
@@ -102,18 +116,29 @@ class OffloadTier:
                 out_dtype=self.cdt)
         if self.streamed:
             self.params = tree_map(lambda p: self._host(p, self.cdt if p.is_floating_point() else p.dtype), params)
-            grads = tree_map(lambda p: self._host(p, torch.float32, zero=True), params)
-            self.streamer: Optional[ParamStreamer] = ParamStreamer(self.params, grads, device)
+            self.streamer: Optional[ParamStreamer] = None
+            if zero is None:  # (ZeRO-3 over the mesh: the engine's streamer gathers these shards)
+                grads = tree_map(lambda p: self._host(p, torch.float32, zero=True), params)
+                self.streamer = ParamStreamer(self.params, grads, device)
             self.acc = None
         else:
             self.params = tree_map(lambda p: p.to(self.cdt) if p.is_floating_point() else p, params)
             self.streamer = None
-            self.acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+            # (at stage 3 the engine's streamer reduces the gradients into its own shards)
+            self.acc = (tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+                        if zero is None or zero.stage < 3 else None)
+        # where the update writes each owned leaf's compute-dtype copy: the
+        # parameter itself, or (a shard at stages 1-2) a buffer gathered after
+        self._gathered = [] if zero is None or zero.stage not in (1, 2) else [
+            i for i, lay in enumerate(tree_leaves(zero.opt_layouts)) if lay.sharded]
+        self._dest = list(tree_leaves(self.params))
+        for i in self._gathered:
+            self._dest[i] = torch.empty(tree_leaves(self.master)[i].shape, dtype=self.cdt, device=device)
         self.stats["pin_s"] = time.perf_counter() - t0
         self._scratch = AdamScratch()
         self._bufs = None
         if self.kind == "cpu" and not self.streamed and self.pin:
-            n = min(CHUNK, max((p.numel() for p in tree_leaves(params)), default=1))
+            n = min(CHUNK, max((p.numel() for p in tree_leaves(owned)), default=1))
             self._bufs = [(host_empty((n,), torch.float32, True), host_empty((n,), self.cdt, True),
                            torch.cuda.Event(), torch.cuda.Event()) for _ in range(2)]
             self.stats["pinned_bytes"] += 2 * n * (4 + torch.empty((), dtype=self.cdt).element_size())
@@ -186,13 +211,21 @@ class OffloadTier:
             self._host_update(grads, step1, lr)
         else:
             self._chunked_update(grads, step1, lr)
+        if self._gathered:  # stages 1-2: every rank's updated shards into the replicated parameters
+            from .stage_1_and_2 import all_gather_rows
+
+            lays, params = tree_leaves(self.zero.opt_layouts), tree_leaves(self.params)
+            for i, full in zip(self._gathered, all_gather_rows([self._dest[i] for i in self._gathered],
+                                                               [lays[i] for i in self._gathered],
+                                                               self.zero.gather_bucket)):
+                params[i].copy_(full)
         self.stats["update_s"] = time.perf_counter() - t0
 
     def _host_update(self, grads: dict, step1: int, lr: float) -> None:
         """Everything on the host (streamed parameters, or a CPU engine):
         the optimizer over the masters, then the compute-dtype copies."""
         g = [t.float() if t.device.type == "cpu" else t.float().cpu() for t in tree_leaves(grads)]
-        master, params = tree_leaves(self.master), tree_leaves(self.params)
+        master, params = tree_leaves(self.master), self._dest
         if self.adam is not None:
             m, v = tree_leaves(self.opt["m"]), tree_leaves(self.opt["v"])
             for gi, p, mi, vi in zip(g, master, m, v):
@@ -211,14 +244,14 @@ class OffloadTier:
             gh = [g.cpu() for g in tree_leaves(grads)]
             leafwise_update_(self.opt_update, gh, {k: tree_leaves(t) for k, t in self.opt.items()},
                              tree_leaves(self.master), step1, lr)
-            for dst, src in zip(tree_leaves(self.params), tree_leaves(self.master)):
+            for dst, src in zip(self._dest, tree_leaves(self.master)):
                 dst.copy_(src)
             return
         g_dev = [g.reshape(-1) for g in tree_leaves(grads)]
         master = [t.view(-1) for t in tree_leaves(self.master)]
         m = [t.view(-1) for t in tree_leaves(self.opt["m"])]
         v = [t.view(-1) for t in tree_leaves(self.opt["v"])]
-        p_dev = [t.view(-1) for t in tree_leaves(self.params)]
+        p_dev = [t.view(-1) for t in self._dest]
         chunks = [(i, lo, min(g.numel(), lo + CHUNK)) for i, g in enumerate(g_dev)
                   for lo in range(0, g.numel(), CHUNK)]
         issued = [False, False]  # an H2D copy from the slot's staging is in flight
@@ -258,7 +291,8 @@ class OffloadTier:
             if src is not dst:
                 dst.copy_(src)
         if self.master is not None:
-            source = state["master"] if has_master else state["params"]
+            source = state["master"] if has_master else (
+                state["params"] if self.zero is None else self.zero.owned(state["params"]))
             for dst, src in zip(tree_leaves(self.master), tree_leaves(source)):
                 if src is not dst:
                     dst.copy_(src)

@@ -169,7 +169,9 @@ class ParamStreamer:
 
     def _copy_in(self, key):
         """Start the host-to-device copy of ``key``'s slices -> (names,
-        device tensors, event or None)."""
+        device tensors, event or None). This and ``_put_grads`` are the
+        transport: ZeRO-3 (``stage3.py``) replaces them by an all-gather
+        and a reduce-scatter and keeps the rest."""
         src = self._slices_of(self.params, key)
         names = [n for n, _ in src]
         self.h2d_bytes += sum(h.numel() * h.element_size() for _, h in src)
@@ -229,9 +231,12 @@ class ParamStreamer:
         return base.as_strided(packed.shape, packed.stride, packed.offset)
 
     def _store_grads(self, key, names, grads) -> None:
+        self._ready.pop(("bwd", key), None)  # the layer's backward is done
+        self._put_grads(key, names, grads)
+
+    def _put_grads(self, key, names, grads) -> None:
         """The gradients of ``key``'s slices into the host tree: copied on
         the step's first micro-batch, added to the host value after it."""
-        self._ready.pop(("bwd", key), None)  # the layer's backward is done
         dst_of = dict(self._slices_of(self.grads, key))
         # the fp32 gradients first, then the copy stream waits for them
         g32s = [None if g is None else g.float() for g in grads]

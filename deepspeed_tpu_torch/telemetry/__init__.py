@@ -25,13 +25,15 @@ request tracer.
     of the JAX package's stdlib modules.
 
 ``Telemetry`` bundles them; engines hold one each. Metric names follow
-``subsystem/name``, as in the JAX package. Not ported yet: the collective
-ledger (HLO collectives, comm reconciliation), which comes with ``comm/``.
+``subsystem/name``, as in the JAX package. The collective ledger
+(``collective_ledger.py``) holds the collectives each watched program's
+measured call issued, and ``snapshot()`` carries its ``comm_reconcile``
+view beside the comms logger's.
 """
 
 from __future__ import annotations
 
-from .collective_ledger import pipeline_bubble_fraction, step_anatomy
+from .collective_ledger import CollectiveLedger, pipeline_bubble_fraction, step_anatomy
 from .exporters import JsonlExporter, MonitorBridge, prometheus_fleet_text, prometheus_text
 from .incident import IncidentRecorder
 from .program_ledger import ProgramLedger, hbm_snapshot, platform_peaks, tree_bytes
@@ -48,7 +50,7 @@ __all__ = [
     "abstract_signature", "JsonlExporter", "MonitorBridge", "prometheus_text",
     "prometheus_fleet_text", "ProgramLedger", "hbm_snapshot", "platform_peaks",
     "tree_bytes", "RequestTracer", "request_timeline", "to_perfetto",
-    "step_anatomy", "pipeline_bubble_fraction", "Telemetry",
+    "step_anatomy", "pipeline_bubble_fraction", "Telemetry", "CollectiveLedger",
     "TimeSeriesStore", "SLOTracker", "classify_terminal", "IncidentRecorder",
 ]
 
@@ -64,13 +66,15 @@ class Telemetry:
     def __init__(self, registry: MetricsRegistry | None = None,
                  jsonl_path: str = "", watchdog_mode: str = "warn",
                  device_sync_spans: bool = False, ledger: bool = True,
-                 jsonl_max_bytes: int = 0, jsonl_keep: int = 3, device=None):
+                 jsonl_max_bytes: int = 0, jsonl_keep: int = 3, device=None,
+                 ledger_collectives: bool = True, ici_gbps: float = 0.0):
         self.registry = registry if registry is not None else MetricsRegistry()
         self.sink = JsonlExporter(jsonl_path, max_bytes=jsonl_max_bytes,
                                   keep=jsonl_keep) if jsonl_path else None
         self.tracer = SpanTracer(self.registry, self.sink,
                                  device_sync=device_sync_spans)
-        self.ledger = ProgramLedger(self.registry, enabled=ledger, device=device)
+        self.ledger = ProgramLedger(self.registry, enabled=ledger, device=device,
+                                    collectives=ledger_collectives, ici_gbps=ici_gbps)
         self.watchdog = RecompileWatchdog(self.registry, self.sink,
                                           mode=watchdog_mode, ledger=self.ledger)
 
@@ -104,10 +108,26 @@ class Telemetry:
             out["program_ledger"] = self.ledger.table(self.registry)
             out["step_anatomy"] = self.ledger.anatomy(self.registry)
             out["platform"] = dict(self.ledger.platform)
+            rec = self._comm_reconcile()
+            if rec:
+                out["comm_reconcile"] = rec
         out["metrics"] = self.registry.snapshot()
         out["recompile_table"] = self.watchdog.compile_table()
         out.update(extra)
         return out
+
+    def _comm_reconcile(self):
+        """The comms logger's per-axis totals (every call) beside the
+        collective ledger's (the watched programs' measured calls): an axis
+        one side never saw is a labeled row, never averaged away."""
+        coll = self.ledger.collectives
+        if not coll.programs:
+            return None
+        from ..comm.logger import comms_logger
+
+        if not comms_logger.enabled and not comms_logger.axis_totals():
+            return None  # no host accounting to reconcile against
+        return comms_logger.reconcile(coll.bytes_by_axis(), mesh_shape=coll.mesh_shape)
 
     def close(self) -> None:
         if self.sink is not None:

@@ -89,8 +89,14 @@ class ProgramLedger:
     and arithmetic intensity as registry gauges, so
     ``telemetry_snapshot()`` carries them."""
 
-    def __init__(self, registry=None, enabled: bool = True, device=None):
+    def __init__(self, registry=None, enabled: bool = True, device=None, collectives: bool = True,
+                 ici_gbps: float = 0.0):
+        from .collective_ledger import CollectiveLedger
+
         self.enabled = enabled
+        # the collectives comm/ issues during each program's measured call
+        self.collectives = CollectiveLedger(enabled=enabled and collectives)
+        self._ici_gbps = float(ici_gbps) or None
         self.registry = registry
         self.device = None if device is None else torch.device(device)
         self.entries: dict[str, dict] = {}  # name -> row, in capture order
@@ -108,6 +114,11 @@ class ProgramLedger:
         """Override peak resolution (tests pin a synthetic platform so the
         MFU arithmetic is checked against hand-computed fixtures)."""
         self._peaks = dict(peaks)
+
+    def set_mesh_shape(self, mesh_shape: dict) -> None:
+        """The engine's mesh axis sizes, in mesh order, for the collective
+        ledger's reconcile view."""
+        self.collectives.set_mesh_shape(mesh_shape)
 
     def set_device(self, device) -> None:
         """The engine's device: what the counter counts, and the peaks'."""
@@ -132,9 +143,12 @@ class ProgramLedger:
         if cuda:
             before = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-        with _cost.CostCounter(dev) as counter:
+        from ..comm.collectives import recording
+
+        with _cost.CostCounter(dev) as counter, recording() as comm_rows:
             out = fn(*args, **kwargs)
         fields = counter.totals()
+        fields["_collectives"] = comm_rows  # for capture: the collective ledger's rows
         if cuda:
             after = torch.cuda.memory_allocated(dev)
             fields.update(argument_bytes=_cost.tensor_bytes((args, kwargs), dev),
@@ -150,9 +164,13 @@ class ProgramLedger:
             return
         try:
             row = self.entries.get(name)
+            cost = dict(cost or {})
+            comm_rows = cost.pop("_collectives", None)
             if row is None:
                 row = self.entries[name] = {"name": name, "compiles": 1, "compile_s": float(compile_s)}
-                row.update(cost or {})
+                row.update(cost)
+                if comm_rows:
+                    self.collectives.record(name, comm_rows)
                 flops, by = row.get("flops"), row.get("bytes_accessed")
                 if flops and by:
                     row["arith_intensity"] = flops / by
@@ -240,8 +258,9 @@ class ProgramLedger:
 
     def anatomy(self, registry=None) -> list[dict]:
         """Step-anatomy rows (``collective_ledger.step_anatomy``): modeled
-        compute and HBM times per program beside its measured wall time;
-        the comm fields are labeled nulls (no collectives in the port yet).
+        compute and HBM times per program beside its measured wall time and
+        the collectives its measured call issued (comm times: labeled nulls
+        unless ``ici_gbps`` rates the link).
         Publishes the nominated ``<gauge>/comm/*`` gauges as JAX does (call
         BEFORE snapshotting the registry)."""
         from .collective_ledger import step_anatomy
@@ -251,7 +270,8 @@ class ProgramLedger:
         published: set[str] = set()
         for name, row in self.entries.items():
             wall_hist, gauge = self._binding(name)
-            arow = step_anatomy(row, self._wall(registry, wall_hist), self.platform, None)
+            arow = step_anatomy(row, self._wall(registry, wall_hist), self.platform, self.collectives.get(name),
+                                ici_gbps=self._ici_gbps)
             if registry is not None and gauge is not None and gauge not in published:
                 # the same first-captured-program-owns-the-gauge rule as table()
                 published.add(gauge)

@@ -2,9 +2,11 @@
 
 ``launcher/launch.py`` (and any DeepSpeed-style launcher) sets
 ``WORLD_SIZE`` and ``DSTPU_NUM_PROCESSES`` for every process it starts.
-The port runs one process on one GPU, so an entry point that finds a world
-above 1 refuses it by name instead of silently training or serving as a
-world of one.
+Training takes such a world (``comm.init_distributed`` joins it and the
+engine shards over it). Serving at a world above 1 is tensor-parallel
+serving (``tp_size > 1``), which comes with the tensor-parallel slice, so
+``init_inference`` refuses such a world by name instead of silently
+serving as a world of one.
 """
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ def launcher_world_size() -> tuple[int, str]:
 
 def refuse_multi_process_world(what: str) -> int:
     """Raise ``NotImplementedError`` when the launcher's world is above 1,
-    else return 1 (the data-parallel world the caller runs)."""
+    else return 1 (the world the caller serves)."""
     world, key = launcher_world_size()
     if world > 1:
         raise NotImplementedError(
-            f"{what}: the launcher's world is {world} processes ({key}={world}); data parallelism over "
-            "torch.distributed is not ported to deepspeed_tpu_torch yet, so each process would train or "
-            "serve as a world of 1. Launch one process (WORLD_SIZE=1).")
+            f"{what}: the launcher's world is {world} processes ({key}={world}); serving over several "
+            "processes is tensor-parallel serving (tp_size > 1), which is not ported to deepspeed_tpu_torch "
+            "yet (it comes with the tensor-parallel slice). Launch one process (WORLD_SIZE=1).")
     return 1

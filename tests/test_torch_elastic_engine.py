@@ -12,6 +12,8 @@ the JAX engine counts one loading the port's. A launcher world above 1
 and ``init_inference``, naming data parallelism over ``torch.distributed``.
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -119,13 +121,69 @@ def test_dp_world_rides_the_client_state_and_topology_changes_count(tmp_path):
                         "micro_batch_size", "train_batch_size"}
 
 
+_PARTNER = """
+import sys
+import numpy as np
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models import transformer as ttfm
+eng = deepspeed_tpu_torch.initialize(model=ttfm.Model(ttfm.TransformerConfig(**{tcfg!r})), config={ds!r},
+                                     device="cpu")[0]
+loss = float(eng.train_batch({{"tokens": np.asarray({tokens!r}, dtype=np.int32)}})["loss"])
+print("LOSS", repr(loss), eng.dp_world, eng.dp_rank)
+from deepspeed_tpu_torch import comm
+comm.destroy_distributed()
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 @pytest.mark.parametrize("var", ["WORLD_SIZE", "DSTPU_NUM_PROCESSES"])
 def test_launcher_world_above_one_is_refused(monkeypatch, var):
+    """``initialize`` takes the launcher's world: under either spelling of
+    the launcher's variables (torch's env:// ones, or the ``DSTPU_*`` ones
+    launcher/launch.py also sets) two processes rendezvous, train one
+    data-parallel step and agree on its loss. ``init_inference`` still
+    refuses such a world, naming tensor-parallel serving."""
+    import subprocess
+    import sys
+
+    from deepspeed_tpu_torch import comm
+
     model = ttfm.Model(ttfm.TransformerConfig(**TCFG))
     monkeypatch.setenv(var, "1")
     deepspeed_tpu_torch.initialize(model=model, config=DS, device="cpu")
-    monkeypatch.setenv(var, "2")
-    with pytest.raises(NotImplementedError, match=f"{var}=2.*data parallelism over torch.distributed"):
-        deepspeed_tpu_torch.initialize(model=model, config=DS, device="cpu")
-    with pytest.raises(NotImplementedError, match="data parallelism over torch.distributed"):
+    port = _free_port()
+    rank_var, addr = (("RANK", {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}) if var == "WORLD_SIZE"
+                      else ("DSTPU_PROCESS_ID", {"DSTPU_COORDINATOR": f"127.0.0.1:{port}"}))
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "DSTPU_NUM_PROCESSES", "RANK",
+                                                                "DSTPU_PROCESS_ID", "MASTER_ADDR", "MASTER_PORT")}
+    env.update({var: "2", rank_var: "1", "PYTHONPATH": os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                **addr})
+    ds2 = dict(DS, train_micro_batch_size_per_gpu=4)  # the same global batch over 2 ranks
+    partner = subprocess.Popen([sys.executable, "-c", _PARTNER.format(tcfg=TCFG, ds=ds2, tokens=TOKENS.tolist())],
+                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        monkeypatch.setenv(var, "2")
+        monkeypatch.setenv(rank_var, "0")
+        for k, v in addr.items():
+            monkeypatch.setenv(k, v)
+        eng = deepspeed_tpu_torch.initialize(model=model, config=ds2, device="cpu")[0]
+        assert (eng.dp_world, eng.dp_rank, eng.mesh.shape["data"]) == (2, 0, 2)
+        loss = float(eng.train_batch({"tokens": TOKENS})["loss"])
+        out = partner.communicate(timeout=120)[0]
+    finally:
+        comm.destroy_distributed()
+        if partner.poll() is None:
+            partner.kill()
+            partner.wait()
+    assert partner.returncode == 0, out[-3000:]
+    got = next(line for line in out.splitlines() if line.startswith("LOSS")).split()
+    assert float(got[1]) == loss and got[2:] == ["2", "1"]
+    with pytest.raises(NotImplementedError, match=f"{var}=2.*tensor-parallel serving"):
         deepspeed_tpu_torch.init_inference(model, config={"dtype": "fp32"}, device="cpu")

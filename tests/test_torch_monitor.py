@@ -150,14 +150,23 @@ def test_telemetry_block_refusals_name_themselves():
     ok = tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, "telemetry": {
         "enabled": True, "ledger": {"enabled": False, "hbm_warn_fraction": 0.5}}})
     assert ok.telemetry.enabled and ok.telemetry.ledger.hbm_warn_fraction == 0.5
-    # the program ledger is ported (on by default, as in JAX); its collective X-ray is not
+    # the program ledger is ported (on by default, as in JAX), and with comm/ its collective ledger:
+    # the block parses as JAX's (on by default, ici_gbps validated the same way)
     on = tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, "telemetry": {"enabled": True}})
     assert on.telemetry.ledger.enabled
-    for block, name in (({"ledger": {"enabled": True, "collectives": {"enabled": True}}},
-                         "telemetry.ledger.collectives"),
-                        ({"ledger": {"enabled": False, "collectives": {"enabled": True}}},
-                         "telemetry.ledger.collectives"),
-                        ({"ledger": {"enabled": False}, "timeseries": {"enabled": True}}, "telemetry.timeseries"),
+    for ledger in ({"enabled": True, "collectives": {"enabled": True}},
+                   {"enabled": False, "collectives": {"enabled": True, "ici_gbps": 450.0}},
+                   {"collectives": {"enabled": False}}, {}):
+        d = {"train_batch_size": 2, "telemetry": {"ledger": ledger}}
+        got = tconfig.DeepSpeedConfig.from_dict(d).telemetry.ledger.collectives
+        want = jconfig.DeepSpeedConfig.from_dict(d).telemetry.ledger.collectives
+        assert (got.enabled, got.ici_gbps) == (want.enabled, want.ici_gbps)
+    bad = {"train_batch_size": 2, "telemetry": {"ledger": {"collectives": {"ici_gbps": -1}}}}
+    with pytest.raises(tconfig.DeepSpeedConfigError, match="ici_gbps"):
+        tconfig.DeepSpeedConfig.from_dict(bad)
+    with pytest.raises(jconfig.DeepSpeedConfigError, match="ici_gbps"):
+        jconfig.DeepSpeedConfig.from_dict(bad)
+    for block, name in (({"ledger": {"enabled": False}, "timeseries": {"enabled": True}}, "telemetry.timeseries"),
                         ({"ledger": {"enabled": False}, "slo": {"enabled": True}}, "telemetry.slo"),
                         ({"ledger": {"enabled": False}, "incidents": {"enabled": True}}, "telemetry.incidents")):
         with pytest.raises(NotImplementedError, match=name):

@@ -221,13 +221,22 @@ def test_invalid_tier_combinations_raise_like_jax(name, tmp_path):
 
 def test_the_optimizers_bad_device_raises():
     """The port refuses an unknown offload_optimizer device too (the JAX
-    engine reads it as none); partition_activations and mesh axes above 1
-    stay refused."""
+    engine reads it as none); partition_activations stays refused, and so
+    do the NVMe tier and offload_param below stage 3 at a data-parallel
+    world above 1 (the cpu tier shards there), while a mesh that does not
+    cover the world is a config error."""
     cfg = _cfg()
     cfg["zero_optimization"]["offload_optimizer"] = {"device": "disk"}
     with pytest.raises(ValueError, match="none|cpu|nvme"):
         tconfig.DeepSpeedConfig.from_dict(cfg)
-    with pytest.raises(NotImplementedError):
+    world2 = {"train_batch_size": 16, "mesh": {"data": 2}}
+    for tier in (_cfg("cpu"), _cfg("cpu", stage=3, off_param="cpu")):
+        tconfig.DeepSpeedConfig.from_dict({**tier, **world2}, world_size=2)
+    for tier, what in ((_cfg("nvme", nvme_path="/nonexistent"), "NVMe tier"),
+                       (_cfg("cpu", off_param="cpu"), "offload_param at ZeRO stage 2")):
+        with pytest.raises(NotImplementedError, match=what):
+            tconfig.DeepSpeedConfig.from_dict({**tier, **world2}, world_size=2)
+    with pytest.raises(tconfig.DeepSpeedConfigError, match="does not cover"):
         tconfig.DeepSpeedConfig.from_dict({**_cfg("cpu"), "mesh": {"data": 2}})
     with pytest.raises(NotImplementedError):
         tconfig.DeepSpeedConfig.from_dict({**_cfg("cpu"),

@@ -4,7 +4,8 @@ plain path only for CPU tensors. The no-JAX subprocess imports every module
 and runs a serving step, a two-replica Router with a journal through a
 replica's death, a disaggregated Router with the flight recorder on, a bf16
 KV window through the int8 codec with no ``ml_dtypes``, a flash training step and a block-sparse training step
-fed by the curriculum and the dataloader; the serving worker's, the
+fed by the curriculum and the dataloader; two such processes take a
+data-parallel ZeRO-3 step in a gloo world; the serving worker's, the
 launchers', the elastic inspector's, the chaos conductor's, the report
 CLI's and env_report's ``python -m`` entry points run with JAX blocked
 too; the training step there carries the program ledger, the timers and
@@ -101,6 +102,47 @@ def test_package_imports_and_generates_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+
+
+_DP_RANK = """
+import sys
+sys.modules["jax"] = None          # any import of jax now raises ImportError
+sys.modules["deepspeed_tpu"] = None
+import numpy as np
+import deepspeed_tpu_torch as pkg
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.models.transformer import Model, TransformerConfig
+rank, store = int(sys.argv[1]), sys.argv[2]
+comm.init_distributed(init_method="file://" + store, world_size=2, rank=rank, backend="gloo", timeout_s=60.0)
+eng = pkg.initialize(model=Model(TransformerConfig(**TINY)), device="cpu",
+                     config={"train_batch_size": 4, "zero_optimization": {"stage": 3}})[0]
+assert eng.z3 is not None and eng.zero.fraction_held() == {"params": 0.5, "opt_state": 0.5}
+loss = float(eng.train_batch({"tokens": np.arange(4 * 9, dtype=np.int32).reshape(4, 9) % 97})["loss"])
+assert np.isfinite(loss)
+assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
+print("LOSS", repr(loss))
+comm.destroy_distributed()
+"""
+
+
+def test_data_parallel_world2_stage3_step_without_jax(tmp_path):
+    """Two ranks, each a process with jax and the JAX package blocked, join a
+    gloo world and take one ZeRO-3 train_batch; they agree on the loss."""
+    script = "TINY = " + repr(TINY) + "\n" + _DP_RANK
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), str(tmp_path / "store")], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(o[-2000:] for o in outs)
+    losses = {next(line for line in o.splitlines() if line.startswith("LOSS")) for o in outs}
+    assert len(losses) == 1, losses
 
 
 def _imported_modules(path):

@@ -189,13 +189,14 @@ def test_request_timeline_and_perfetto_match_jax(tiny_engine):
 
 @pytest.mark.parametrize("block", ["ledger"])
 def test_unported_blocks_are_refused(tiny_engine, block):
-    """The serving ledger block is ported (on by default, as in JAX); only
-    its collective X-ray is refused."""
+    """The serving ledger block is ported (on by default, as in JAX), and
+    with comm/ its collective ledger too: the block builds an engine, whose
+    serving programs (one process, no collectives) record none."""
     assert ServingEngine(tiny_engine, config={block: {"enabled": True}}).telemetry.ledger.enabled
     assert ServingEngine(tiny_engine).telemetry.ledger.enabled
     assert not ServingEngine(tiny_engine, config={block: {"enabled": False}}).telemetry.ledger.enabled
-    with pytest.raises(NotImplementedError, match="ledger.collectives"):
-        ServingEngine(tiny_engine, config={block: {"enabled": True, "collectives": {"enabled": True}}})
+    srv = ServingEngine(tiny_engine, config={block: {"enabled": True, "collectives": {"enabled": True}}})
+    assert srv.ledger_cfg.collectives.enabled and srv.telemetry.ledger.collectives.programs == {}
 
 
 @pytest.mark.parametrize("role", ["prefill", "decode", "both"])

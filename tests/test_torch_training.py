@@ -175,9 +175,22 @@ def test_config_parses_like_jax(name):
 def test_unported_config_blocks_raise(block):
     """Unported blocks raise; flops_profiler and telemetry (its program
     ledger on by default, as in JAX) are ported: the port takes them as the
-    JAX package parses them."""
+    JAX package parses them. The mesh's data axis is ported: ``data: 2``
+    parses at a world of 2 as JAX parses it there (and not at a world of
+    1, where it does not cover the ranks); ``model: 2`` (tensor
+    parallelism) is still refused by name."""
     d = {"train_batch_size": 2, **block}
     name = next(iter(block))
+    if name == "mesh":
+        t = tconfig.DeepSpeedConfig.from_dict(d, world_size=2)
+        assert _config_view(t) == _config_view(jconfig.DeepSpeedConfig.from_dict(d, world_size=2))
+        assert t.dp_mesh_sizes(2) == {"pipe": 1, "data": 2, "fsdp": 1, "context": 1, "model": 1}
+        with pytest.raises(tconfig.DeepSpeedConfigError, match="does not cover"):
+            tconfig.DeepSpeedConfig.from_dict(d, world_size=1)
+        with pytest.raises(NotImplementedError, match="'model'=2: tensor parallelism"):
+            tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, "mesh": {"data": 1, "model": 2}},
+                                              world_size=2)
+        return
     if name in ("flops_profiler", "telemetry"):
         t = tconfig.DeepSpeedConfig.from_dict(d, world_size=1)
         j = jconfig.DeepSpeedConfig.from_dict(d, world_size=1)
@@ -220,6 +233,10 @@ def test_monitor_and_logging_blocks_are_refused_not_dropped(name):
     assert (ref_value.enabled if hasattr(ref_value, "enabled") else ref_value) is True
     if name in ("wall_clock_breakdown", "memory_breakdown"):  # ported: the engine's timers and memory log
         assert getattr(tconfig.DeepSpeedConfig.from_dict(d), name) is True
+        return
+    if name == "comms_logger":  # ported with comm/: the block parses as JAX's
+        got = tconfig.DeepSpeedConfig.from_dict(d).comms_logger
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref_value)
         return
     with pytest.raises(NotImplementedError, match=name):
         tconfig.DeepSpeedConfig.from_dict(d)

@@ -1,0 +1,200 @@
+"""One rank of a gloo world for the port's data-parallel CPU tests
+(``test_torch_comm.py``, ``test_torch_zero.py``, ``test_torch_zero_init.py``).
+
+    python tests/torch_dp_worker.py JOB SPEC.json RANK WORLD
+
+joins the world through the FileStore named in the spec, runs JOB
+(``comm``, ``zero`` or ``zero_init``) and writes ``<out>/rank<RANK>.npz``
+(and a JSON sidecar). It imports the port only: never jax or the JAX
+package. The tests start the ranks with ``subprocess`` (never ``fork``: the
+test workers have JAX's threads running), once per test module.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import deepspeed_tpu_torch  # noqa: E402
+from deepspeed_tpu_torch import comm  # noqa: E402
+from deepspeed_tpu_torch.checkpoint import saver  # noqa: E402
+from deepspeed_tpu_torch.models import transformer as tfm  # noqa: E402
+from deepspeed_tpu_torch.ops.optimizers import tree_leaves, tree_map  # noqa: E402
+
+COMM_AXES = {"data": "data", "fsdp": "fsdp", "data+fsdp": ("data", "fsdp"), "fsdp+data": ("fsdp", "data")}
+
+
+def _unflatten(flat: dict) -> dict:
+    out: dict = {}
+    for key, arr in flat.items():
+        node = out
+        parts = key.split("::")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = torch.from_numpy(np.array(arr))
+    return out
+
+
+def comm_job(spec, rank, world) -> dict:
+    """Every collective of ``comm/`` on this rank's rows of the spec's inputs,
+    over each axis spelling."""
+    comm.build_mesh(comm.MeshConfig(data=2, fsdp=2))
+    x = torch.from_numpy(np.load(spec["inputs"])["x"][rank])  # [8, 6]
+    out = {}
+    for label, axes in COMM_AXES.items():
+        for op in ("sum", "mean", "max", "min"):
+            out[f"all_reduce_{op}@{label}"] = comm.all_reduce(x, axes, op)
+        out[f"reduce_scatter@{label}"] = comm.reduce_scatter(x, axes, scatter_dimension=0)
+        out[f"all_gather@{label}"] = comm.all_gather(x, axes, gather_dimension=1)
+        out[f"all_to_all@{label}"] = comm.all_to_all(x, axes, split_axis=0, concat_axis=1)
+        out[f"ring_shift@{label}"] = comm.ring_shift(x, axes, shift=1)
+        out[f"broadcast@{label}"] = comm.broadcast_in_axis(x, axes, src_index=1)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _engine(case, params, spec):
+    cfg = tfm.TransformerConfig(**spec["model"], **case.get("model", {}), dtype=torch.float32)
+    ds = dict(spec["ds"], **case.get("ds", {}))
+    return deepspeed_tpu_torch.initialize(model=tfm.Model(cfg), config=ds,
+                                          model_parameters=tree_map(lambda t: t.clone(), params),
+                                          device="cpu")[0]
+
+
+def _layout_record(engine) -> dict:
+    """{leaf: [dim or -1, n, held numel, full numel]} of the params (stage 3)
+    and the optimizer's first moment-like subtree."""
+    z = engine.zero
+    rec = {}
+    first_opt = next(k for k, v in engine.state["opt"].items() if isinstance(v, dict))
+    for tag, lays, held in (("params", z.param_layouts, engine.state["params"]),
+                            ("opt", z.opt_layouts, engine.state["opt"][first_opt])):
+        for (key, lay), t in zip(saver._flatten_with_paths(lays).items(), saver._flatten_with_paths(held).values()):
+            rec[f"{tag}::{key}"] = [-1 if lay.dim is None else lay.dim, lay.n, t.numel(), int(np.prod(lay.shape))]
+    return rec
+
+
+def zero_job(spec, rank, world) -> tuple[dict, dict]:
+    params = _unflatten(dict(np.load(spec["params"])))
+    data = np.load(spec["tokens"])
+    tokens = data["tokens"]
+    arrays, meta = {}, {}
+    for case in spec["cases"]:
+        name = case["name"]
+        if case.get("world", world) != world:
+            continue
+        if case.get("nan_rank1_at"):  # every rank has an injector; rank 1's fires
+            case = dict(case, ds={**case.get("ds", {}), "resilience": {"fault_injection": {
+                "enabled": True, "nan_grad_steps": [case["nan_rank1_at"]] if rank == 1 else []}}})
+        engine = _engine(case, params, spec)
+        if case.get("jax_state"):  # the JAX engine's state, this rank's part by the port's layouts
+            from deepspeed_tpu_torch import interop
+
+            jstate = _unflatten(dict(np.load(case["jax_state"])))
+            engine.state.update(interop.shard_state_from_jax(engine, jstate), step=jstate["step"].to(torch.int32))
+        if case.get("load"):
+            engine.load_checkpoint(case["load"], tag=case.get("load_tag"))
+        losses, norms, overflow = [], [], []
+        for step in range(case["steps"]):
+            if case.get("three_call"):  # DeepSpeed's loop on this rank's rows of each micro-batch
+                gas, b = engine.gradient_accumulation_steps, engine.micro_batch_size
+                micro = tokens.reshape(gas, -1, tokens.shape[1])[:, engine.dp_rank * b:(engine.dp_rank + 1) * b]
+                for i in range(gas):
+                    engine({"tokens": micro[i]})
+                    engine.backward()
+                    engine.step()
+                losses.append(float("nan"))
+                norms.append(float("nan"))
+                overflow.append(False)
+                continue
+            batch = {"input_ids": data["input_ids"], "labels": data["labels"]} if case.get("labels") else \
+                {"tokens": tokens}
+            m = engine.train_batch(batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            overflow.append(bool(m["overflow"]))
+            if case.get("save") and step + 1 == case["save_after"]:
+                engine.save_checkpoint(case["save"], tag="port")
+        engine.checkpoint_engine.commit()  # an async save is finished here, on every rank
+        arrays[f"{name}::losses"] = np.asarray(losses)
+        arrays[f"{name}::norms"] = np.asarray(norms)
+        arrays[f"{name}::overflow"] = np.asarray(overflow)
+        full = engine.full_params()
+        for key, t in saver._flatten_with_paths(full).items():
+            arrays[f"{name}::params::{key}"] = t.numpy()
+        meta[name] = {"layouts": _layout_record(engine) if engine.zero else {}, "skipped": engine.skipped_steps,
+                      "mesh": engine.mesh.shape, "dp_rank": engine.dp_rank, "zero_runtime": engine.zero is not None}
+        if "master" in engine.state:  # the cpu tier: this rank's host masters
+            meta[name]["master_numel"] = sum(t.numel() for t in tree_leaves(engine.state["master"]))
+            meta[name]["tier_streamed"] = engine.tier.streamed
+        if case.get("snapshot"):
+            snap = engine.telemetry_snapshot()
+            meta[name]["snapshot"] = {k: snap.get(k) for k in ("comm_reconcile", "step_anatomy")}
+            meta[name]["pools"] = snap["hbm"]["pools"]
+    return arrays, meta
+
+
+def zero_init_job(spec, rank, world) -> tuple[dict, dict]:
+    """``zero.Init`` and ``GatheredParameters`` over a gloo world."""
+    from deepspeed_tpu_torch.runtime.zero import GatheredParameters, Init
+
+    mesh = comm.build_mesh(comm.MeshConfig(data=-1))
+    cfg = tfm.TransformerConfig(**spec["model"], dtype=torch.float32)
+    model = tfm.Model(cfg)
+    out, meta = {}, {}
+    with Init(mesh=mesh) as zi:
+        params = zi.materialize(model.init, torch.Generator().manual_seed(0), model.logical_axes())
+    meta["wq_layout"] = list(zi.layouts["layers"]["wq"].spec)
+    out["wq_shard"] = params["layers"]["wq"].numpy()
+    with GatheredParameters(params["layers"]) as full:
+        out["wq_full"] = full["wq"].numpy()
+    out["wq_shard_after"] = params["layers"]["wq"].numpy()
+    with Init(mesh=mesh, dtype=torch.bfloat16) as zi:
+        half = zi.materialize(model.init, torch.Generator().manual_seed(0), model.logical_axes())
+    meta["bf16_dtype"] = str(half["wte"].dtype)
+    with Init(mesh=mesh, enabled=False) as zi:
+        plain = zi.materialize(model.init, torch.Generator().manual_seed(0))
+    out["plain_wq"] = plain["layers"]["wq"].numpy()
+    with GatheredParameters(params, modifier_rank=0) as full:
+        full["wte"] = torch.zeros_like(full["wte"]) if rank == 0 else full["wte"]
+    out["wte_after_modify"] = params["wte"].numpy()
+    meta["wte_shape_after_modify"] = list(params["wte"].shape)
+    # the sparse all-reduce of this rank's embedding-gradient rows
+    from deepspeed_tpu_torch.runtime.sparse_tensor import SparseTensor, sparse_all_reduce
+
+    sp = np.load(spec["sparse"])
+    st = SparseTensor(torch.from_numpy(sp["ids"][rank]), torch.from_numpy(sp["vals"][rank]),
+                      torch.tensor(int(sp["counts"][rank]), dtype=torch.int32), tuple(int(x) for x in sp["shape"]))
+    out["sparse_dense"] = sparse_all_reduce(st, "data").to_dense().numpy()
+    return out, meta
+
+
+def main() -> int:
+    job, spec_path, rank, world = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+    with open(spec_path) as f:
+        spec = json.load(f)
+    comm.init_distributed(init_method=f"file://{spec['store']}", world_size=world, rank=rank, backend="gloo",
+                          timeout_s=300.0)
+    if job == "comm":
+        arrays, meta = comm_job(spec, rank, world), {}
+    elif job == "zero":
+        arrays, meta = zero_job(spec, rank, world)
+    elif job == "zero_init":
+        arrays, meta = zero_init_job(spec, rank, world)
+    else:
+        raise SystemExit(f"unknown job {job!r}")
+    np.savez(os.path.join(spec["out"], f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(meta, f)
+    comm.barrier()
+    comm.destroy_distributed()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

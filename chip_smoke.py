@@ -159,7 +159,9 @@ Phases, each of which passes or makes the script exit non-zero:
      attach_replica, each worker's decode launches as it reports them
      (its boot warm-up excluded), the live workers' own profiler kernel
      records over 3 decoding steps after the timed run, and a SIGTERM
-     drain with exit 0. It prints tokens/s, TTFT p50/p99 and TPOT
+     drain with exit 0 (the worker processes of phases 21 and 22 boot
+     beside these two, so no later phase waits for its boot). It prints
+     tokens/s, TTFT p50/p99 and TPOT
      p50 of each run, the time from the kill to the last failed-over
      admission, the recovery time, the worker boot and respawn seconds,
      beside the card's name and power limit.
@@ -216,17 +218,18 @@ Phases, each of which passes or makes the script exit non-zero:
      ``--elastic-worker`` mode: phase 7's step through the fused loss on
      the card, its batch (64 = 16 x gas 4) from an ``elasticity`` block
      through the engine, a heartbeat touch after every train_batch and
-     save, a synchronous save after each step, one JSON line per step and
-     per generation. (a) ``python -m deepspeed_tpu_torch.launcher.runner
-     --hostfile <localhost slots=1>`` runs it 2 steps: the rendezvous env
-     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, the DSTPU_* keys), 48
+     save, a synchronous save after every other step but the last, one
+     JSON line per step and per generation. (a) ``python -m
+     deepspeed_tpu_torch.launcher.runner --hostfile <localhost slots=1>``
+     runs it 6 steps uninterrupted (the drills' reference): the rendezvous
+     env (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, the DSTPU_* keys), 48
      launches of each flash kernel a train_batch, rc 0; then SIGTERM to a
      second launch's process group mid-step, and its whole tree (runner,
      launch, worker) gone within 30 s with none of it on the card. (b)
-     ``DSElasticAgent`` over that hostfile: generation 0 trains 3 steps,
-     saves and SIGKILLs itself, the agent backs off and relaunches, and
-     generation 1 loads 'latest' and trains to step 6; every loss equals an
-     uninterrupted 6-step worker's bitwise, restart_count 1, rc 0. (c) the
+     ``DSElasticAgent`` over that hostfile: generation 0 trains 4 steps
+     (saving after steps 2 and 4) and SIGKILLs itself, the agent backs off
+     and relaunches, and generation 1 loads 'latest' and trains to step 6;
+     every loss equals (a)'s bitwise, restart_count 1, rc 0. (c) the
      hang drill: generation 0 stops touching the heartbeat after step 2;
      the agent (timeout 3 x the longest gap between (b)'s touches, at least
      5 s; grace 600 s) SIGKILLs it and generation 1 resumes bitwise to step
@@ -287,7 +290,8 @@ Phases, each of which passes or makes the script exit non-zero:
      and none of the other kernels, and each stage's loss within 2e-3 of
      stage 0's; (b) a world of 2 under
      gloo, both ranks on the card (this script in its hidden
-     ``--dp-worker`` mode, a FileStore rendezvous): each rank first probes
+     ``--dp-worker`` mode, a FileStore rendezvous; booted at the phase's
+     start beside (a), they wait for it to finish): each rank first probes
      which gloo collectives take CUDA tensors, then runs ZeRO 1 and ZeRO 3
      at global batch 32 = 2 x micro 4 x gas 4, each rank's losses within
      2e-3 of a world of 1 on the same global batches, each rank's
@@ -295,10 +299,31 @@ Phases, each of which passes or makes the script exit non-zero:
      world 1's, the logged bytes a step beside the reckoning; the ZeRO-3
      state saved at world 2 is loaded at world 1 under ZeRO 1, whose next
      loss equals world 2's.
+ 27. tensor-parallel serving (module_inject/layers.py, the model's model
+     axis, parallel/sharding.py's KV specs, the ServingEngine's driver and
+     followers): gloo worlds of 2 and 4 ranks sharing the card (this
+     script in its hidden ``--tp-worker`` mode), booted together while
+     this process runs tp 1. (a) init_inference -> generate at GPT-2-125M
+     width (6 and 3 heads a rank), 4 x 128-token prompts, 32 new tokens:
+     in fp32 the greedy tokens equal tp 1's; in bf16 the first decode
+     step's logits within ``TP_BF16_GAP`` of tp 1's, and above it when
+     model index 1's wo shards are zeroed (a rank computing the wrong
+     heads); each rank launches the split and combine decode kernels 12 x
+     31 times a generate, on its own heads. (b) the ServingEngine at tp 2
+     (the driver and its follower; the decode step eager) and at tp 1 (one
+     CUDA graph) over the first 16 requests of workload (a), new tokens
+     cut to a quarter: fp32 greedy streams equal, every rank's serve()
+     returns the driver's results, tokens/s, TTFT p50/p99 and TPOT p50
+     beside tp 1's, 12 + 12 decode launches a step on each rank, and a
+     decode step's all-reduces, all-gather and bytes against the
+     reckoning (``tp_reckoning``). No scaling is claimed: one card, gloo.
+Every phase prints its seconds (``phase N: S s``), and the script its
+total.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
 line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, an
 ``{"elastic": {...}}`` line, a ``{"chaos": {...}}`` line, a ``{"profiling": {...}}`` line, a
-``{"zero": {...}}`` line, a ``{"kernels": [...]}`` line, a ``{"training": {...}}`` line,
+``{"zero": {...}}`` line, a ``{"tensor_parallel": {...}}`` line, a ``{"kernels": [...]}`` line, a
+``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
 
@@ -2505,6 +2530,98 @@ GPT2_SPEC = dict(vocab_size=50304, max_seq_len=1024, num_layers=12, num_heads=12
                  pos_emb="learned", tie_embeddings=True)
 
 
+_RESPAWN_FAST = {"max_attempts": 10, "base_delay_s": 0.05, "max_delay_s": 0.1, "jitter": 0.0}
+
+
+def _worker_spec(serve_config, model_spec, engine_dtype, **serving):
+    model = {**(model_spec or GPT2_SPEC), "dtype": "float32"}
+    return {"model": model, "engine_dtype": engine_dtype,
+            "serving": {**serve_config, "watchdog_mode": "raise", **serving}}
+
+
+def fleet_worker_plan(serve_config, device="cuda", model_spec=None, engine_dtype="bf16"):
+    """Phase 20's workers: (spec, count, supervisor keywords)."""
+    return (_worker_spec(serve_config, model_spec, engine_dtype), FLEET_REPLICAS,
+            {"transport": FLEET_TRANSPORT, "device": device, "respawn_backoff": _RESPAWN_FAST})
+
+
+def gateway_worker_plan(serve_config, device="cuda", model_spec=None, engine_dtype="bf16"):
+    """Phase 21 (e)'s workers, over TCP."""
+    return (_worker_spec(serve_config, model_spec, engine_dtype), FLEET_REPLICAS,
+            {"transport": {**FLEET_TRANSPORT, "family": "tcp", "host": "127.0.0.1"}, "device": device,
+             "respawn_backoff": _RESPAWN_FAST})
+
+
+def disagg_worker_plan(serve_config, device="cuda", model_spec=None, engine_dtype="bf16"):
+    """Phase 22 (c)'s 2 prefill + 1 decode workers, over TCP, recorder on."""
+    return (_worker_spec(serve_config, model_spec, engine_dtype, **FLIGHT_RECORDER), 3,
+            {"transport": {**FLEET_TRANSPORT, "family": "tcp", "host": "127.0.0.1", "port_base": 0},
+             "device": device, "roles": {0: "prefill", 1: "prefill", 2: "decode"}})
+
+
+# worker processes booted ahead of their phase (``boot_workers_ahead``):
+# plan name -> (supervisor, socket directory, wait)
+_AHEAD: dict = {}
+
+
+def _boot_workers(plan):
+    """A WorkerSupervisor over a plan's workers, all spawned at once on
+    background threads -> (supervisor, socket directory, wait); ``wait()``
+    -> (clients, seconds from the spawn to the last worker serving)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepspeed_tpu_torch.launcher.serving_worker import WorkerSupervisor
+
+    spec, n, kw = plan
+    real, workdir = _socket_dir()
+    sup = WorkerSupervisor(spec, n, workdir=workdir, **kw)
+    t0, served = time.perf_counter(), {}
+
+    def spawn(slot):
+        client = sup.spawn(slot)
+        served[slot] = time.perf_counter()
+        return client
+
+    ex = ThreadPoolExecutor(n)
+    futures = [ex.submit(spawn, slot) for slot in range(n)]
+    ex.shutdown(wait=False)
+
+    def wait():
+        clients = [f.result() for f in futures]
+        return clients, max(served.values()) - t0
+
+    return sup, real, wait
+
+
+def _shutdown_ahead():
+    """At exit: stop the workers booted ahead that no phase took."""
+    import signal
+
+    for sup, real, _ in _AHEAD.values():
+        sup.shutdown(signal.SIGKILL, timeout=10.0)
+        shutil.rmtree(real, ignore_errors=True)
+    _AHEAD.clear()
+
+
+def boot_workers_ahead(**plans) -> None:
+    """Boot later phases' workers now, beside this phase's (each phase
+    boots ~22 s on the card): ``name=plan``; the phase takes them with
+    ``phase_workers(name, plan)``."""
+    import atexit
+
+    if not _AHEAD:
+        atexit.register(_shutdown_ahead)
+    for name, plan in plans.items():
+        _AHEAD[name] = _boot_workers(plan)
+
+
+def phase_workers(name, plan):
+    """(supervisor, socket directory, wait) of a phase's workers: booted
+    ahead under ``name``, else booted now from ``plan``."""
+    ahead = _AHEAD.pop(name, None)
+    return ahead if ahead is not None else _boot_workers(plan)
+
+
 def fleet_config(serve_config, **extra):
     return {**serve_config, "watchdog_mode": "raise",
             "router": {"replicas": FLEET_REPLICAS, "health": dict(FLEET_HEALTH)}, **extra}
@@ -2745,30 +2862,24 @@ def _socket_dir():
     return d, os.path.relpath(d)
 
 
-def worker_fleet(serve_config, vocab, smi, device="cuda", model_spec=None, engine_dtype="bf16"):
+def worker_fleet(serve_config, vocab, smi, device="cuda", model_spec=None, engine_dtype="bf16", ahead=None):
     """Two worker processes under a WorkerSupervisor, a Router over their
     ReplicaClients; worker 0 SIGKILLed after router step KILL_STEP, its
     requests failed over, the worker respawned and attached; every request
     terminal; each worker's decode launches as it reports them; SIGTERM
-    drains."""
+    drains. ``ahead``: later phases' worker plans, booted beside these
+    (``boot_workers_ahead``)."""
     import signal
-    from concurrent.futures import ThreadPoolExecutor
 
     from deepspeed_tpu_torch.inference import Request, Router
-    from deepspeed_tpu_torch.launcher.serving_worker import WorkerSupervisor
 
-    model = {**(model_spec or GPT2_SPEC), "dtype": "float32"}
-    spec = {"model": model, "engine_dtype": engine_dtype, "serving": {**serve_config, "watchdog_mode": "raise"}}
-    real, workdir = _socket_dir()
-    sup = WorkerSupervisor(spec, FLEET_REPLICAS, workdir=workdir, transport=FLEET_TRANSPORT, device=device,
-                           respawn_backoff={"max_attempts": 10, "base_delay_s": 0.05, "max_delay_s": 0.1,
-                                            "jitter": 0.0})
+    spec, _, _ = plan = fleet_worker_plan(serve_config, device, model_spec, engine_dtype)
+    model = spec["model"]
+    sup, real, wait = phase_workers("fleet", plan)  # both boot at once
+    boot_workers_ahead(**(ahead or {}))
     out = {}
     try:
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(FLEET_REPLICAS) as ex:  # both boot at once
-            clients = list(ex.map(sup.spawn, range(FLEET_REPLICAS)))
-        out["boot_s"] = time.perf_counter() - t0
+        clients, out["boot_s"] = wait()
         router = Router(config={"router": {"replicas": FLEET_REPLICAS, "health": dict(FLEET_HEALTH),
                                            "transport": FLEET_TRANSPORT}}, replica_engines=clients)
         reported, records = {}, {}
@@ -2852,9 +2963,11 @@ def worker_fleet(serve_config, vocab, smi, device="cuda", model_spec=None, engin
         shutil.rmtree(real, ignore_errors=True)
 
 
-def fleet_phase(dev, smi, model_cfg=None, serve_config=None, vocab_cap=None):
+def fleet_phase(dev, smi, model_cfg=None, serve_config=None, vocab_cap=None, ahead=None):
     """Phase 20. ``model_cfg``/``serve_config`` default to phase 18's
-    (GPT-2-125M, bf16); a smaller pair rehearses the phase's control flow."""
+    (GPT-2-125M, bf16); a smaller pair rehearses the phase's control flow.
+    ``ahead``: later phases' worker plans, booted beside this phase's
+    workers."""
     from deepspeed_tpu_torch.inference import Router
 
     cuda = dev.type == "cuda"
@@ -2941,7 +3054,7 @@ def fleet_phase(dev, smi, model_cfg=None, serve_config=None, vocab_cap=None):
                                   model_spec=None if model_cfg is None else {
                                       k: getattr(cfg, k) for k in ("vocab_size", "max_seq_len", "num_layers",
                                                                    "num_heads", "hidden_size")},
-                                  engine_dtype="bf16" if model_cfg is None else "fp32")
+                                  engine_dtype="bf16" if model_cfg is None else "fp32", ahead=ahead)
     print(json.dumps({"fleet": out}, default=str))
     inproc = [e for k in ("two_replicas", "two_replicas_killed") for e in out[k]["replicas"]]
     return {"inprocess": [(e["split_in_run"], e["combine_in_run"]) for e in inproc],
@@ -3575,26 +3688,17 @@ def gateway_workers(serve_config, vocab, smi, device="cuda", model_spec=None, en
     SIGKILLed mid-trace, respawned by its supervisor and attached; then a
     ``set_spec`` rolling upgrade of both workers."""
     import signal
-    from concurrent.futures import ThreadPoolExecutor
 
     from deepspeed_tpu_torch.inference import Router
     from deepspeed_tpu_torch.launcher.http_gateway import HttpGateway
-    from deepspeed_tpu_torch.launcher.serving_worker import WorkerSupervisor
 
-    model = {**(model_spec or GPT2_SPEC), "dtype": "float32"}
-    spec = {"model": model, "engine_dtype": engine_dtype, "serving": {**serve_config, "watchdog_mode": "raise"}}
-    transport = {**FLEET_TRANSPORT, "family": "tcp", "host": "127.0.0.1"}
-    real, workdir = _socket_dir()
-    sup = WorkerSupervisor(spec, FLEET_REPLICAS, workdir=workdir, transport=transport, device=device,
-                           respawn_backoff={"max_attempts": 10, "base_delay_s": 0.05, "max_delay_s": 0.1,
-                                            "jitter": 0.0})
+    spec, _, kw = plan = gateway_worker_plan(serve_config, device, model_spec, engine_dtype)
+    model, transport = spec["model"], kw["transport"]
+    sup, real, wait = phase_workers("gateway", plan)
     out = {}
     gw = None
     try:
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(FLEET_REPLICAS) as ex:
-            clients = list(ex.map(sup.spawn, range(FLEET_REPLICAS)))
-        out["boot_s"] = time.perf_counter() - t0
+        clients, out["boot_s"] = wait()
         router = Router(config={"router": {"replicas": FLEET_REPLICAS, "health": dict(FLEET_HEALTH),
                                            "transport": transport}}, replica_engines=clients)
         calls = LoopCalls()
@@ -4028,26 +4132,17 @@ def disagg_workers(serve_config, vocab, smi, inc_dir, device="cuda", model_spec=
     verdict; bf16 windows crossed the process boundary; the kill leaves one
     coalesced incident bundle that the autopsy validates."""
     import signal
-    from concurrent.futures import ThreadPoolExecutor
 
     from deepspeed_tpu_torch.inference import Router
-    from deepspeed_tpu_torch.launcher.serving_worker import WorkerSupervisor
     from deepspeed_tpu_torch.resilience import invariants
     from deepspeed_tpu_torch.telemetry import autopsy
 
-    model = {**(model_spec or GPT2_SPEC), "dtype": "float32"}
-    spec = {"model": model, "engine_dtype": engine_dtype,
-            "serving": {**serve_config, "watchdog_mode": "raise", **FLIGHT_RECORDER}}
-    transport = {**FLEET_TRANSPORT, "family": "tcp", "host": "127.0.0.1", "port_base": 0}
-    real, workdir = _socket_dir()
-    sup = WorkerSupervisor(spec, 3, workdir=workdir, transport=transport, device=device,
-                           roles={0: "prefill", 1: "prefill", 2: "decode"})
+    spec, _, kw = plan = disagg_worker_plan(serve_config, device, model_spec, engine_dtype)
+    model, transport = spec["model"], kw["transport"]
+    sup, real, wait = phase_workers("disagg", plan)  # all boot at once
     out = {}
     try:
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as ex:  # all boot at once
-            clients = list(ex.map(sup.spawn, range(3)))
-        out["boot_s"] = time.perf_counter() - t0
+        clients, out["boot_s"] = wait()
         router = Router(config={**recorder_config(inc_dir), "router": {
             "replicas": 3, "health": dict(FLEET_HEALTH), "transport": transport,
             "disagg": {"enabled": True, "handoff_chunk": HANDOFF_CHUNK}}}, replica_engines=clients)
@@ -4305,6 +4400,11 @@ ELASTIC_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
 TREE_GONE_BOUND_S = 30.0  # SIGTERM to the launch's process group -> no process of its tree left
 CARD_FREE_SLACK = 256 << 20  # the card's free bytes after the SIGTERMed tree, at most this below those before it
 RESTART_BACKOFF = {"base_delay_s": 1.0, "max_delay_s": 1.0, "jitter": 0.25}
+# the elastic worker saves after every other step (each GPT-2 save writes
+# 1.5 GB, ~3.5 s on the card); the drills' kills follow saved steps
+ELASTIC_SAVE_EVERY = 2
+ELASTIC_STEPS = 6  # the uninterrupted run (the launch stack's) and the crash drill
+CRASH_AFTER, HANG_AFTER = 4, 2
 CHAOS_SCHEDULES = 8
 CHAOS_SEARCH = 64
 CHAOS_SEED = 23
@@ -4330,7 +4430,9 @@ def elastic_worker(args) -> int:
     when it holds a checkpoint, touches ``DSTPU_ELASTIC_HEARTBEAT`` after
     every train_batch (and after every save), saves synchronously after each
     step, and appends a JSON line per step and one per generation to
-    ``--out``. Generation 0 SIGKILLs itself after ``--crash-after`` steps, or
+    ``--out``. With ``--save-dir`` it saves after every ``ELASTIC_SAVE_EVERY``-th
+    step but the last (nothing resumes from it): a resume restarts from the
+    latest such step. Generation 0 SIGKILLs itself after ``--crash-after`` steps, or
     stops touching the heartbeat and sleeps after ``--hang-after``. Its stamps
     are time.monotonic(), the clock of the agent's generation records."""
     from deepspeed_tpu_torch.elasticity import HEARTBEAT_ENV
@@ -4371,7 +4473,7 @@ def elastic_worker(args) -> int:
             os.utime(hb)
             record["touches"].append(time.monotonic())
         t_save = time.monotonic()
-        if args.save_dir:
+        if args.save_dir and (step + 1) % ELASTIC_SAVE_EVERY == 0 and step + 1 < args.steps:
             engine.save_checkpoint(args.save_dir)
             if hb:
                 os.utime(hb)
@@ -4458,17 +4560,19 @@ def _worker_cmd(model, device, *args):
 
 
 def _launch_stack(root, hostfile, model, device, cfg, cuda):
-    """(a): the runner -> launch -> the worker, then SIGTERM to a second launch."""
+    """(a): the runner -> launch -> the worker for ``ELASTIC_STEPS`` steps
+    (the drills' uninterrupted reference), then SIGTERM to a second launch."""
     here = os.path.dirname(os.path.abspath(__file__))
     runner = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner", "--hostfile", hostfile]
     out_path = os.path.join(root, "launch.jsonl")
     t0 = time.perf_counter()
-    proc = subprocess.run(runner + _worker_cmd(model, device, "--steps", 2, "--out", out_path)[1:], cwd=here,
-                          timeout=900)
+    proc = subprocess.run(runner + _worker_cmd(model, device, "--steps", ELASTIC_STEPS, "--out", out_path)[1:],
+                          cwd=here, timeout=900)
     wall = time.perf_counter() - t0
     gens = _generations(out_path)
-    _check(proc.returncode == 0 and len(gens) == 1, "runner -> launch -> worker, 2 steps, rc 0",
-           f"rc {proc.returncode} in {wall:.2f} s")
+    _check(proc.returncode == 0 and len(gens) == 1 and gens[0]["steps"] == list(range(1, ELASTIC_STEPS + 1)),
+           f"runner -> launch -> worker, {ELASTIC_STEPS} steps uninterrupted (the drills' reference), rc 0",
+           f"rc {proc.returncode} in {wall:.2f} s, losses {[round(x, 4) for x in gens[0]['losses']] if gens else None}")
     g = gens[0]
     env = g["env"]
     want = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "29500",
@@ -4521,7 +4625,7 @@ def _launch_stack(root, hostfile, model, device, cfg, cuda):
            f"{TREE_GONE_BOUND_S:.0f} s", f"runner/launch/worker {tree} gone from /proc in {gone_s:.3f} s; card free "
            f"{free_before / mib:.0f} MiB before the launch, {free_during / mib:.0f} MiB mid-step, "
            f"{free_after / mib:.0f} MiB {free_s:.3f} s after SIGTERM")
-    return {"rc": 0, "wall_s": wall, "boot_s": g["boot_s"], "env": {k: env[k] for k in want},
+    return {"rc": 0, "wall_s": wall, "boot_s": g["boot_s"], "env": {k: env[k] for k in want}, "gen": g,
             "launches_per_train_batch": per_batch, "losses": g["losses"], "sigterm_tree_gone_s": gone_s,
             "sigterm_step_reached": len(steps), "sigterm_card_free_s": free_s,
             "card_free_mib": {"before": free_before / mib, "mid_step": free_during / mib, "after": free_after / mib}
@@ -4536,21 +4640,17 @@ def _agent(ds, cmd, hostfile, hb, timeout, grace=600.0):
                           restart_backoff=RESTART_BACKOFF)
 
 
-def _elastic_drills(root, hostfile, model, device, cfg, ds, cuda):
-    """(b) crash drill and (c) hang drill, each against one uninterrupted run."""
-    straight_path = os.path.join(root, "straight.jsonl")
-    t0 = time.perf_counter()
-    rc = subprocess.run(_worker_cmd(model, device, "--steps", 6, "--out", straight_path), timeout=900).returncode
-    straight = _generations(straight_path)
-    _check(rc == 0 and len(straight) == 1 and straight[0]["steps"] == [1, 2, 3, 4, 5, 6],
-           "an uninterrupted 6-step worker", f"rc {rc} in {time.perf_counter() - t0:.2f} s, "
-           f"losses {[round(x, 4) for x in straight[0]['losses']] if straight else None}")
-    ref = dict(zip(straight[0]["steps"], straight[0]["losses"]))
-    gens_all = list(straight)
+def _elastic_drills(root, hostfile, model, device, cfg, ds, cuda, straight):
+    """(b) crash drill and (c) hang drill, each against the uninterrupted
+    run ``straight`` (the launch stack's generation record)."""
+    ref = dict(zip(straight["steps"], straight["losses"]))
+    gens_all = []
+    n, c = ELASTIC_STEPS, CRASH_AFTER
 
-    # (b) crash: generation 0 trains 3 steps, saves and SIGKILLs itself
+    # (b) crash: generation 0 trains CRASH_AFTER steps (saving after every
+    # other one) and SIGKILLs itself
     crash_path, crash_ckpt, hb = (os.path.join(root, n) for n in ("crash.jsonl", "crash_ckpt", "crash_hb"))
-    agent = _agent(ds, _worker_cmd(model, device, "--steps", 6, "--save-dir", crash_ckpt, "--crash-after", 3,
+    agent = _agent(ds, _worker_cmd(model, device, "--steps", n, "--save-dir", crash_ckpt, "--crash-after", c,
                                           "--out", crash_path), hostfile, hb, timeout=300.0)
     t0 = time.perf_counter()
     rc = agent.run()
@@ -4558,26 +4658,31 @@ def _elastic_drills(root, hostfile, model, device, cfg, ds, cuda):
     gens = _generations(crash_path)
     gens_all += gens
     got = {s: x for g in gens for s, x in zip(g["steps"], g["losses"])}
-    ok = (rc == 0 and agent.restart_count == 1 and [g["steps"] for g in gens] == [[1, 2, 3], [4, 5, 6]]
-          and gens[1]["resumed_from"] == "global_step3" and all(got[s] == ref[s] for s in range(1, 7)))
-    _check(ok, "crash drill: SIGKILL after step 3, the agent relaunches, generation 1 resumes to step 6",
-           f"rc {rc}, restart_count {agent.restart_count}, steps {[g['steps'] for g in gens]}, steps 4-6 losses "
-           f"{[got.get(s) for s in (4, 5, 6)]} vs uninterrupted {[ref[s] for s in (4, 5, 6)]} (bitwise), "
+    later = list(range(c + 1, n + 1))
+    ok = (rc == 0 and agent.restart_count == 1 and [g["steps"] for g in gens] == [list(range(1, c + 1)), later]
+          and gens[1]["resumed_from"] == f"global_step{c}" and all(got[s] == ref[s] for s in range(1, n + 1)))
+    _check(ok, f"crash drill: SIGKILL after step {c} (saved), the agent relaunches, generation 1 resumes to "
+               f"step {n}",
+           f"rc {rc}, restart_count {agent.restart_count}, steps {[g['steps'] for g in gens]}, steps {c + 1}-{n} "
+           f"losses {[got.get(s) for s in later]} vs uninterrupted {[ref[s] for s in later]} (bitwise), "
            f"{crash_s:.2f} s")
     steps = [e for e in _read_events(crash_path) if e["event"] == "step"]
     touches = gens[0]["touches"]
     gap = max(b - a for a, b in zip(touches, touches[1:]))
     relaunch_boot = gens[1]["first_step_start"] - agent.generations[1]["launched_at"]
-    crash = {"rc": rc, "restart_count": agent.restart_count, "seconds": crash_s, "losses": [got[s] for s in range(1, 7)],
+    crash = {"rc": rc, "restart_count": agent.restart_count, "seconds": crash_s,
+             "losses": [got[s] for s in range(1, n + 1)],
              "step_s": [e["step_s"] for e in steps], "save_s": [e["save_s"] for e in steps],
              "max_touch_gap_s": gap, "relaunch_boot_to_first_step_s": relaunch_boot,
              "relaunch_boot_s": gens[1]["boot_s"]}
 
-    # (c) hang: generation 0 stops touching the heartbeat after step 2
+    # (c) hang: generation 0 stops touching the heartbeat after step
+    # HANG_AFTER (saved)
     timeout = max(5.0, 3.0 * gap)
     hang_path, hang_ckpt, hb = (os.path.join(root, n) for n in ("hang.jsonl", "hang_ckpt", "hang_hb"))
-    agent = _agent(ds, _worker_cmd(model, device, "--steps", 4, "--save-dir", hang_ckpt, "--hang-after", 2,
-                                          "--out", hang_path), hostfile, hb, timeout=timeout)
+    agent = _agent(ds, _worker_cmd(model, device, "--steps", 2 * HANG_AFTER, "--save-dir", hang_ckpt,
+                                          "--hang-after", HANG_AFTER, "--out", hang_path), hostfile, hb,
+                   timeout=timeout)
     t0 = time.perf_counter()
     rc = agent.run()
     hang_s = time.perf_counter() - t0
@@ -4599,7 +4704,7 @@ def _elastic_drills(root, hostfile, model, device, cfg, ds, cuda):
             "last_touch_to_kill_s": touch_to_kill, "relaunch_boot_to_first_step_s": relaunch_boot_hang,
             "relaunch_boot_s": gens[1]["boot_s"], "losses": [got[s] for s in range(1, 5)],
             "first_touch_after_relaunch_s": gens[1]["touches"][0] - agent.generations[1]["launched_at"]}
-    return {"straight_losses": straight[0]["losses"], "straight_boot_s": straight[0]["boot_s"], "crash": crash,
+    return {"straight_losses": straight["losses"], "straight_boot_s": straight["boot_s"], "crash": crash,
             "hang": hang}, gens_all
 
 
@@ -4752,7 +4857,7 @@ def elastic_chaos_phase(dev, smi, model=None):
         print("  (a) the launch stack: python -m deepspeed_tpu_torch.launcher.runner --hostfile <localhost slots=1>")
         launch, flash_a, xent_a, sparse_a = _launch_stack(root, hostfile, model, device, cfg, cuda)
         print("  (b)/(c) DSElasticAgent over that hostfile: the crash drill and the hang drill")
-        drills, gens = _elastic_drills(root, hostfile, model, device, cfg, ds, cuda)
+        drills, gens = _elastic_drills(root, hostfile, model, device, cfg, ds, cuda, launch.pop("gen"))
     flash_b, xent_b, sparse_b, _ = _check_step_launches(gens, cfg, cuda)
     _check(all(g["built"] == [] and g["device"].startswith(device) for g in gens),
            "every generation on the intended device, loading the built kernels (no worker compiled a source)",
@@ -5553,6 +5658,12 @@ def dp_worker(args) -> int:
         torch.cuda.set_device(dev)
     comm.init_distributed(init_method=f"file://{args.store}", world_size=world, rank=rank, backend="gloo",
                           timeout_s=300.0)
+    if args.wait_for:  # booted beside phase 26 (a): go once it is done with the card
+        deadline = time.monotonic() + 900
+        while not os.path.exists(args.wait_for):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"phase 26: no {args.wait_for} within 900 s")
+            time.sleep(0.1)
     cfg = gpt2_config() if args.model == "gpt2" else TransformerConfig(**DP_TINY)
     base = BENCH_DS if args.model == "gpt2" else DP_TINY_DS
     micro, gas = DP_WORLD2["micro"], DP_WORLD2["gas"]
@@ -5645,6 +5756,16 @@ def data_parallel_phase(dev, smi, model="gpt2"):
 
     out = {"card": smi, "params": P}
     tmp = tempfile.mkdtemp(prefix="dstt-phase26-")
+    # (b)'s ranks boot now, beside (a), and wait for go_b before their first
+    # use of the card
+    save_dir = os.path.join(tmp, "ckpt")
+    rec_path = os.path.join(tmp, "ranks.jsonl")
+    go_b = os.path.join(tmp, "b.go")
+    env = {**os.environ, "WORLD_SIZE": "2", "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    cmd = [sys.executable, os.path.abspath(__file__), "--dp-worker", "--model", model,
+           "--device", str(dev), "--save-dir", save_dir, "--out", rec_path, "--store",
+           os.path.join(tmp, "store_b"), "--wait-for", go_b]
+    procs = [subprocess.Popen(cmd, env={**env, "RANK": str(r), "LOCAL_RANK": "0"}) for r in range(2)]
     try:
         # (a) world 1 under the real communicator
         comm.init_distributed(init_method=f"file://{os.path.join(tmp, 'store_a')}", world_size=1, rank=0,
@@ -5683,15 +5804,11 @@ def data_parallel_phase(dev, smi, model="gpt2"):
                 _dp_fail(f"(a) ZeRO {stage} issued no collective")
         out["a"] = a
 
-        # (b) world 2 under gloo, both ranks on this device
-        save_dir = os.path.join(tmp, "ckpt")
-        rec_path = os.path.join(tmp, "ranks.jsonl")
-        env = {**os.environ, "WORLD_SIZE": "2", "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
-        cmd = [sys.executable, os.path.abspath(__file__), "--dp-worker", "--model", model,
-               "--device", str(dev), "--save-dir", save_dir, "--out", rec_path, "--store",
-               os.path.join(tmp, "store_b")]
+        # (b) world 2 under gloo, both ranks on this device, booted at the
+        # phase's start (above): they go once (a) is done with the card
+        with open(go_b, "w") as f:
+            f.write("go\n")
         t0 = time.perf_counter()
-        procs = [subprocess.Popen(cmd, env={**env, "RANK": str(r), "LOCAL_RANK": "0"}) for r in range(2)]
         try:
             rcs = [p.wait(timeout=900) for p in procs]
         finally:
@@ -5770,9 +5887,368 @@ def data_parallel_phase(dev, smi, model="gpt2"):
             _dp_fail(f"(b) the resumed loss {resumed} is not world 2's {w2} bitwise ({rel:.2e})")
         out["b"] = b
     finally:
+        for p in procs:  # (a) failed before (b)'s ranks were let go
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
         comm.destroy_distributed()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: tensor-parallel serving (init_inference at tp_size > 1 over the
+# mesh's model axis; the ServingEngine's driver and followers) at GPT-2-125M
+# width, gloo ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+TP_SIZES = (2, 4)
+TP_B, TP_PROMPT, TP_NEW = 4, 128, 32  # (a) generate: rows, prompt tokens, new tokens
+# (b) the first 16 requests of workload (a), one for each slot, their new
+# tokens cut to a quarter (16-32): a TP decode step under gloo is a host
+# round trip per collective
+TP_SERVE_REQUESTS, TP_SERVE_NEW_DIV = 16, 4
+TP_DECODE_PROBE = 4  # (b) idle decode steps whose collectives are counted
+# (a) the largest |logit| gap of the first decode step, tp N against tp 1,
+# both bf16 (bf16 rounds each rank's partial product of a row-parallel
+# layer before the fp32 sum, where tp 1 rounds the whole product once; the
+# difference passes through 12 layers): read 0.0264 at tp 2 and 0.0259 at
+# tp 4 on an H100, about 3x below this limit; a rank computing the wrong
+# heads (model index 1's wo shards zeroed) read 3.05 and 2.00
+TP_BF16_GAP = 0.08
+TP_TINY = dict(vocab_size=96, max_seq_len=256, num_layers=2, num_heads=4, hidden_size=64)
+
+
+def tp_model(model):
+    """Phase 4's serving model at full width (``gpt2``), or the CPU
+    rehearsal's (``tiny``); the engine dtype is the caller's."""
+    if model == "gpt2":
+        return TransformerConfig(vocab_size=50304, max_seq_len=1024, num_layers=12, num_heads=12, hidden_size=768,
+                                 pos_emb="learned", tie_embeddings=True)
+    return TransformerConfig(**TP_TINY)
+
+
+def tp_params(cfg):
+    """The weights every engine of phase 27 starts from: ``init_inference``'s
+    own draw (seed 0, on the host), made once a process."""
+    return Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+
+
+def tp_prompt(cfg):
+    return np.random.default_rng(27).integers(0, cfg.vocab_size, size=(TP_B, TP_PROMPT)).astype(np.int32)
+
+
+def tp_serve_workload(cfg):
+    """The first requests of workload (a) (benchmarks/serving_throughput.py:
+    169-191) with their new tokens cut, and on the CPU rehearsal its
+    512-token shared prefix cut to the model's context."""
+    from deepspeed_tpu_torch.inference import Request
+
+    short = cfg.max_seq_len < SHARED_PREFIX + 48 + 128
+    return [Request(uid=r.uid, prompt=r.prompt[-40:] if short else r.prompt,
+                    max_new_tokens=r.max_new_tokens // TP_SERVE_NEW_DIV)
+            for r in shared_prefix_workload(cfg.vocab_size)[:TP_SERVE_REQUESTS]]
+
+
+def tp_serve_config(cfg):
+    if cfg.max_seq_len >= SHARED_PREFIX + 48 + 128:
+        return {**SERVE_CONFIG, "watchdog_mode": "raise"}
+    return {"n_slots": 8, "seed": 0, "watchdog_mode": "raise",
+            "prefix_cache": {"enabled": True, "n_slots": 4, "max_prefix_len": 64},
+            "chunked_prefill": {"enabled": True, "chunk_size": 16}}
+
+
+def first_step_logits(engine, prompt):
+    """The first decode step's fp32 logits [B, V] after a prefill of
+    ``prompt``, through the decode kernel (every rank calls it under tensor
+    parallelism; every rank returns the full logits)."""
+    cfg = engine.cfg
+    toks = torch.from_numpy(prompt).long().to(engine.device)
+    S = toks.shape[1]
+    with torch.inference_mode():
+        cache = tfm.init_cache(cfg, toks.shape[0], -(-(S + 1) // 128) * 128, device=engine.device,
+                               heads=engine.heads)
+        logits, cache = tfm.apply_with_cache(cfg, engine.params, toks, cache, 0, last_only=True)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        step, _ = tfm.apply_with_cache(cfg, engine.params, nxt, cache, S)
+    return step[:, 0].float().cpu()
+
+
+def tp_generate(engine, prompt):
+    """(greedy tokens of ``TP_NEW``, (split, combine) decode-kernel launches
+    of that generate, seconds)."""
+    engine.generate(prompt, max_new_tokens=2)  # warm-up: library handles, the allocator
+    decode_attention.launches = decode_attention.combine_launches = 0
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompt, max_new_tokens=TP_NEW)
+    return out, (decode_attention.launches, decode_attention.combine_launches), time.perf_counter() - t0
+
+
+def tp_results_digest(res) -> dict:
+    return {str(u): [r.status, np.asarray(r.tokens).tolist()] for u, r in sorted(res.items())}
+
+
+def tp_serve(engine, cfg):
+    """(b) on one rank (or at tp 1): warm the engine, serve the workload cut
+    on the clock, then count the collectives of ``TP_DECODE_PROBE`` decode
+    steps (every slot idle: the same shapes as a loaded step)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference import Request, ServingEngine
+
+    srv = ServingEngine(engine, config=tp_serve_config(cfg))
+    srv.serve([Request(uid=100000 + i, prompt=np.arange(1, 20 + i, dtype=np.int32), max_new_tokens=4)
+               for i in range(2)])  # a warm-up outside the measured run
+    reqs = tp_serve_workload(cfg)
+    w = srv.worker
+    steps0, launches0 = w._decode_steps, w.decode_kernel_launches()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv.serve(reqs)
+    seconds = time.perf_counter() - t0
+    steps = w._decode_steps - steps0
+    launches = [b - a for a, b in zip(launches0, w.decode_kernel_launches())]
+    out = {"metrics": serving_metrics(res, seconds) if srv.is_driver else None, "decode_steps": steps,
+           "launches": launches, "launches_per_step": [n / max(steps, 1) for n in launches],
+           "results": tp_results_digest(res), "decode_route": srv.telemetry_snapshot()["decode_route"]}
+    comm.comms_logger.reset()
+    comm.comms_logger.configure(enabled=True)
+    for _ in range(TP_DECODE_PROBE):
+        srv.warm_decode()
+    out["decode_comm"] = {k: {"count": v["count"] / TP_DECODE_PROBE, "bytes": v["bytes"] / TP_DECODE_PROBE}
+                          for k, v in comm.comms_logger.summary().items() if "@" in k}
+    comm.comms_logger.configure(enabled=False)
+    srv.close()
+    return out
+
+
+def tp_reckoning(cfg, n_slots, tp) -> dict:
+    """The collectives one decode step of ``n_slots`` rows issues at ``tp``
+    (fp32 on the wire): an all-reduce of B·T·D after every row-parallel
+    layer (2 a layer) and one for the vocab-split embedding, one
+    all-gather of the rank's B·T·V/tp logits; plus, over the driver's
+    broadcasts, the call and the closing message (pickles, not reckoned)."""
+    B, D = n_slots, cfg.hidden_size
+    split_vocab = cfg.vocab_size % tp == 0
+    n_reduce = 2 * cfg.num_layers + (1 if split_vocab else 0)
+    return {"all_reduce": {"count": n_reduce, "bytes": n_reduce * B * D * 4},
+            "all_gather": {"count": 1 if split_vocab else 0,
+                           "bytes": B * (cfg.vocab_size // tp) * 4 if split_vocab else 0}}
+
+
+def tp_worker(args) -> int:
+    """``--tp-worker``: one rank of phase 27 at tp = ``WORLD_SIZE``. Joins
+    the gloo world through ``--store``; (a) greedy generate in fp32 and
+    bf16 (tokens, the first decode step's logits, its decode launches),
+    and in bf16 once more with model index 1's ``wo`` shards zeroed (the
+    wrong-heads control); with ``--tp-serve``, once the file ``--wait-for``
+    exists (the parent's signal that nothing else runs on the card), (b)
+    the ServingEngine over the workload cut. Appends one JSON record to
+    ``--out``; rank 0 saves its logits beside it."""
+    from deepspeed_tpu_torch import comm
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(init_method=f"file://{args.store}", world_size=world, rank=rank, backend="gloo",
+                          timeout_s=300.0)
+    cfg = tp_model(args.model)
+    prompt = tp_prompt(cfg)
+    rec = {"rank": rank, "world": world, "device": str(dev), "kind": torch.cuda.get_device_name(dev) if cuda else "cpu"}
+    logits = {}
+    params = tp_params(cfg)
+    for dtype in ("fp32", "bf16"):
+        eng = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": dtype, "tensor_parallel":
+                                                                     {"tp_size": world}}, params=params, device=dev)
+        out, launches, seconds = tp_generate(eng, prompt)
+        logits[dtype] = first_step_logits(eng, prompt)
+        rec[dtype] = {"tokens": out.tolist(), "launches": launches, "seconds": seconds, "heads": eng.heads,
+                      "wq_shape": list(eng.params["layers"]["wq"].shape)}
+        if dtype == "bf16":  # the control: one rank's heads computed wrong
+            if eng.tp.index == 1:
+                eng.params["layers"]["wo"].zero_()
+            logits["wrong_heads"] = first_step_logits(eng, prompt)
+        del eng
+        gc.collect()
+    if rank == 0:
+        torch.save(logits, f"{args.out}.logits.pt")
+    if args.tp_serve:
+        deadline = time.monotonic() + 600
+        while not os.path.exists(args.wait_for):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"phase 27: no {args.wait_for} within 600 s")
+            time.sleep(0.1)
+        eng = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": "fp32", "tensor_parallel":
+                                                                     {"tp_size": world}}, params=params, device=dev)
+        rec["serve"] = tp_serve(eng, cfg)
+        del eng
+    with open(args.out, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    comm.destroy_distributed()
+    return 0
+
+
+def _tp_fail(what):
+    raise SystemExit(f"phase 27: {what}")
+
+
+def tensor_parallel_phase(dev, smi, model="gpt2"):
+    """Phase 27. The gloo worlds of tp 2 and tp 4 (``--tp-worker``
+    processes, all on ``dev``) boot first, all at once; meanwhile this
+    process runs tp 1's generate in fp32 and bf16. (a) generate in each
+    world; once the tp 4 world is done, tp 1's ServingEngine over the
+    workload cut (its decode step one CUDA graph) is timed here while the
+    tp 2 world waits; then (b) the ServingEngine at tp 2, alone on the card.
+    Checks: fp32 greedy tokens and streams equal tp 1's, the bf16 first-step
+    logit gap within ``TP_BF16_GAP`` and the wrong-heads control above it,
+    every rank's decode launches 12 x (new - 1) a generate and 12 + 12 a
+    serving decode step, the collectives a decode step as reckoned, every
+    rank's serve() returning the driver's results."""
+    cuda = dev.type == "cuda"
+    cfg = tp_model(model)
+    L = cfg.num_layers
+    prompt = tp_prompt(cfg)
+    t_phase = time.perf_counter()
+    out = {"config": {"model": model, "B": TP_B, "prompt": TP_PROMPT, "new": TP_NEW,
+                      "serve_requests": TP_SERVE_REQUESTS, "serve_config": tp_serve_config(cfg)}}
+    ref, ref_logits = {}, {}
+    with tempfile.TemporaryDirectory(prefix="dstt_tp_") as tmp:
+        paths = {tp: os.path.join(tmp, f"tp{tp}.jsonl") for tp in TP_SIZES}
+        go = os.path.join(tmp, "serve.go")
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)), "LOCAL_RANK": "0"}
+        procs = {}
+        for tp in TP_SIZES:
+            cmd = [sys.executable, os.path.abspath(__file__), "--tp-worker", "--model", model, "--device", str(dev),
+                   "--out", paths[tp], "--store", os.path.join(tmp, f"store{tp}")]
+            if tp == TP_SIZES[0]:  # (b) at the smallest tp, once the card is free
+                cmd += ["--tp-serve", "--wait-for", go]
+            procs[tp] = [subprocess.Popen(cmd, env={**env, "WORLD_SIZE": str(tp), "RANK": str(r)})
+                         for r in range(tp)]
+        try:
+            engines, params = {}, tp_params(cfg)
+            for dtype in ("fp32", "bf16"):
+                eng = engines[dtype] = deepspeed_tpu_torch.init_inference(Model(cfg), config={"dtype": dtype},
+                                                                          params=params, device=dev)
+                tokens, launches, seconds = tp_generate(eng, prompt)
+                ref[dtype] = {"tokens": tokens.tolist(), "launches": launches, "seconds": seconds}
+                ref_logits[dtype] = first_step_logits(eng, prompt)
+            del engines["bf16"], eng
+            rcs = {tp: [p.wait(timeout=900) for p in procs[tp]] for tp in TP_SIZES[1:]}
+            # tp 1's serving, timed while the tp 2 world waits for the signal
+            ref["serve"] = tp_serve(engines.pop("fp32"), cfg)
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            with open(go, "w") as f:
+                f.write("go\n")
+            rcs[TP_SIZES[0]] = [p.wait(timeout=900) for p in procs[TP_SIZES[0]]]
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        out["ranks_s"] = time.perf_counter() - t_phase
+        if any(rc != 0 for r in rcs.values() for rc in r):
+            _tp_fail(f"a rank failed: exit codes {rcs}")
+        ranks = {tp: sorted((json.loads(line) for line in open(paths[tp])), key=lambda r: r["rank"])
+                 for tp in TP_SIZES}
+        logits = {tp: torch.load(f"{paths[tp]}.logits.pt") for tp in TP_SIZES}
+    m1 = ref["serve"]["metrics"]
+    print(f"  [{smi}] tp 1: generate fp32 {ref['fp32']['seconds']:.3f} s, bf16 {ref['bf16']['seconds']:.3f} s (the "
+          f"ranks booting beside it); serving ({ref['serve']['decode_route']}) {m1['tokens']} tokens in "
+          f"{m1['seconds']:.3f} s = {m1['tokens_per_s']:.1f} tokens/s, TTFT p50 {m1['ttft_p50_ms']:.1f} ms, p99 "
+          f"{m1['ttft_p99_ms']:.1f} ms, TPOT p50 {m1['tpot_p50_ms']:.3f} ms")
+
+    expect = L * (TP_NEW - 1) if cuda else 0
+    for tp in TP_SIZES:
+        rs = ranks[tp]
+        gap = {k: float((logits[tp][k] - ref_logits["bf16" if k == "wrong_heads" else k]).abs().max())
+               for k in ("fp32", "bf16", "wrong_heads")}
+        entry = {"gap_vs_tp1": gap, "heads_per_rank": rs[0]["fp32"]["heads"],
+                 "launches_per_generate": [r[d]["launches"] for r in rs for d in ("fp32", "bf16")],
+                 "generate_s": {d: [r[d]["seconds"] for r in rs] for d in ("fp32", "bf16")}}
+        fp32_equal = all(r["fp32"]["tokens"] == ref["fp32"]["tokens"] for r in rs)
+        bf16_same = all(r["bf16"]["tokens"] == rs[0]["bf16"]["tokens"] for r in rs)
+        entry["bf16_tokens_equal_tp1"] = rs[0]["bf16"]["tokens"] == ref["bf16"]["tokens"]
+        launches_ok = all(tuple(x) == (expect, expect) for x in entry["launches_per_generate"])
+        print(f"  [{smi}] (a) tp {tp}: {entry['heads_per_rank']} heads a rank; fp32 greedy tokens == tp 1's: "
+              f"{fp32_equal}; first-step logits vs tp 1 fp32 {gap['fp32']:.3e}, bf16 {gap['bf16']:.4f} "
+              f"(limit {TP_BF16_GAP}), bf16 with model index 1's wo zeroed {gap['wrong_heads']:.4f} (must exceed "
+              f"it); bf16 tokens equal across ranks {bf16_same}, == tp 1's {entry['bf16_tokens_equal_tp1']}; "
+              f"decode launches a generate (split, combine) per rank and dtype {entry['launches_per_generate']} "
+              f"(expect {expect} each)")
+        if not fp32_equal:
+            _tp_fail(f"(a) tp {tp}: fp32 greedy tokens differ from tp 1's")
+        if not gap["bf16"] <= TP_BF16_GAP < gap["wrong_heads"]:
+            _tp_fail(f"(a) tp {tp}: bf16 first-step logit gap {gap['bf16']} against the limit {TP_BF16_GAP} "
+                     f"(the wrong-heads control read {gap['wrong_heads']})")
+        if not (bf16_same and launches_ok):
+            _tp_fail(f"(a) tp {tp}: ranks disagree on tokens or launched the decode kernel other than {expect} times")
+        out[f"tp{tp}"] = entry
+
+    # (b) the ServingEngine at the smallest tp against tp 1
+    tp = TP_SIZES[0]
+    rs = ranks[tp]
+    mt = rs[0]["serve"]["metrics"]
+    streams_equal = rs[0]["serve"]["results"] == ref["serve"]["results"]
+    followers_equal = all(r["serve"]["results"] == rs[0]["serve"]["results"] for r in rs)
+    per_step = [r["serve"]["launches_per_step"] for r in rs]
+    launch_ok = all(p == ([L, L] if cuda else [0, 0]) for p in per_step)
+    reck = tp_reckoning(cfg, tp_serve_config(cfg)["n_slots"], tp)
+    got = {op: {"count": sum(v["count"] for k, v in rs[0]["serve"]["decode_comm"].items() if k.startswith(op)),
+                "bytes": sum(v["bytes"] for k, v in rs[0]["serve"]["decode_comm"].items() if k.startswith(op))}
+           for op in ("all_reduce", "all_gather", "broadcast")}
+    comm_ok = all(got[op] == reck[op] for op in reck)
+    print(f"  [{smi}] (b) ServingEngine at tp {tp} ({rs[0]['serve']['decode_route']} decode): {mt['tokens']} tokens "
+          f"in {mt['seconds']:.3f} s = {mt['tokens_per_s']:.1f} tokens/s (tp 1 {m1['tokens_per_s']:.1f}), TTFT p50 "
+          f"{mt['ttft_p50_ms']:.1f} ms / p99 {mt['ttft_p99_ms']:.1f} ms (tp 1 {m1['ttft_p50_ms']:.1f} / "
+          f"{m1['ttft_p99_ms']:.1f}), TPOT p50 {mt['tpot_p50_ms']:.3f} ms (tp 1 {m1['tpot_p50_ms']:.3f}); fp32 "
+          f"streams == tp 1's: {streams_equal}; every rank's serve() returned the driver's results: "
+          f"{followers_equal}; decode launches a step per rank (split, combine) {per_step}; a decode step's "
+          f"collectives on rank 0 {got} against the reckoning {reck}")
+    if not (streams_equal and followers_equal and launch_ok and comm_ok and mt["ok"] == mt["requests"]):
+        _tp_fail("(b) the tensor-parallel ServingEngine failed its checks")
+    out["serve"] = {"tp1": m1, f"tp{tp}": mt, "tp1_decode_route": ref["serve"]["decode_route"],
+                    "decode_route": rs[0]["serve"]["decode_route"], "decode_steps": rs[0]["serve"]["decode_steps"],
+                    "launches_per_step": per_step, "launches": [r["serve"]["launches"] for r in rs],
+                    "decode_comm": got, "reckoning": reck, "tp1_launches": ref["serve"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"tensor_parallel": out}))
+    return out
+
+
+def cache_bytecode() -> str:
+    """Let this process and the ones it starts (serving workers, training
+    generations, ranks) cache the bytecode they compile, under
+    build/pycache in the checkout: where the environment sets
+    PYTHONDONTWRITEBYTECODE and the installed packages hold no bytecode,
+    every process otherwise compiles torch's Python sources afresh (~9 s of
+    a process's boot on the card's host). Returns the directory."""
+    where = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = where
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = where
+    return where
+
+
+_PHASE_T0 = [0.0]
+
+
+def phase_done(n) -> float:
+    """Print ``phase N: S s`` for the phase that ends now (since the last
+    call) and start the next one's clock."""
+    now = time.perf_counter()
+    seconds = now - _PHASE_T0[0]
+    _PHASE_T0[0] = now
+    print(f"  phase {n}: {seconds:.1f} s")
+    return seconds
 
 
 def main() -> int:
@@ -5790,35 +6266,46 @@ def main() -> int:
     # phase 26's ranks
     ap.add_argument("--dp-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--store", default="", help=argparse.SUPPRESS)
+    # phase 27's ranks
+    ap.add_argument("--tp-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-serve", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--wait-for", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.elastic_worker:
         return elastic_worker(args)
     if args.dp_worker:
         return dp_worker(args)
+    if args.tp_worker:
+        return tp_worker(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on a GPU", file=sys.stderr)
         return 1
+    cache_bytecode()
     dev = torch.device("cuda", 0)
     # full-fp32 matmuls in the plain versions the kernel is held against
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    _PHASE_T0[0] = T_START = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi)
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
+    phase_done(1)
     t0 = time.perf_counter()
     op_builder.build_many(KERNEL_SOURCES)
     op_builder.load("decode_attention")
     print(f"[2] built {', '.join(KERNEL_SOURCES)} (one nvcc each, in parallel) in "
           f"{time.perf_counter() - t0:.2f} s")
 
+    phase_done(2)
     print("[3] decode_attention kernels vs plain; their registers and spills (ptxas):")
     decode_regs = decode_registers()
     errs = kernel_checks(dev)
     times = kernel_timing(dev)
 
+    phase_done(3)
     print("[4] serving: init_inference -> generate at GPT-2-125M width")
     launches, engine, prompt = serve(dev)
     if args.profile:
@@ -5827,6 +6314,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
+    phase_done(4)
     t0 = time.perf_counter()
     op_builder.load("flash_attention")
     print(f"[5] loaded flash_attention (forward, dK/dV, dQ) in {time.perf_counter() - t0:.2f} s; "
@@ -5836,11 +6324,13 @@ def main() -> int:
           "operand layout:")
     xent_sass = sass_report("fused_xent", xent_label, XENT_MAIN_PATH.values())
 
+    phase_done(5)
     print("[6] flash kernels vs plain")
     flash_errs = flash_checks(dev)
     flash_times = flash_timing(dev)
     torch.cuda.empty_cache()
 
+    phase_done(6)
     print("[7] training: initialize -> train_batch at GPT-2-125M width")
     flash_launches, training, trainer, batch = train(dev)
     if args.profile:
@@ -5848,10 +6338,12 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
+    phase_done(7)
     print("[8] slice parity: flash kernels vs plain attention")
     training["parity"] = train_parity(dev)
     torch.cuda.empty_cache()
 
+    phase_done(8)
     t0 = time.perf_counter()
     op_builder.load("fused_xent")
     print(f"[9] loaded fused_xent (forward: product and combine; backward: ds, dW, dH) in "
@@ -5861,26 +6353,31 @@ def main() -> int:
     xent_times = xent_timing(dev)
     torch.cuda.empty_cache()
 
+    phase_done(9)
     print("[10] training: the fused loss under dots_and_flash remat at GPT-2-125M width")
     xent_launches, training["fused_remat"], trainer, batch = train_fused(dev, no_remat=bool(args.profile))
     if args.profile:
         profile("train_batch_fused_remat", lambda: trainer.train_batch(batch), args.profile)
 
+    phase_done(10)
     print("[11] slice parity: the fused loss vs the chunked loss")
     training["fused_remat"]["parity"] = fused_parity(dev)
     torch.cuda.empty_cache()
 
+    phase_done(11)
     print("[12] checkpoint and resume")
     training["checkpoint"] = checkpoint_resume(dev, trainer, batch)
     del trainer
     torch.cuda.empty_cache()
 
+    phase_done(12)
     t0 = time.perf_counter()
     op_builder.load("sparse_attention")
     print(f"[13] loaded sparse_attention (forward, dQ, dK/dV) in "
           f"{time.perf_counter() - t0:.2f} s; its kernels' SASS (cuobjdump) and registers (ptxas):")
     sparse_sass = sass_report("sparse_attention", sparse_label, SPARSE_MAIN_PATH.values())
 
+    phase_done(13)
     print("[14] sparse kernels vs plain")
     sparse_errs = sparse_checks(dev)
     sparse_times = sparse_timing(dev, "fixed-64 (the slice's layout)", slice_layout())
@@ -5888,6 +6385,7 @@ def main() -> int:
     bigbird_times = sparse_timing(dev, "bigbird-128 (benchmarks/sparse_attention_bench.py)",
                                   SPARSITY_CONFIGS[name](num_heads=12, **kw).make_layout(SS))
 
+    phase_done(14)
     print(f"[15] long-sequence training: initialize -> train_batch at GPT-2-125M width, S={SS}, sparse attention")
     sparse_launches, training["sparse"], sparse_batch = train_sparse(dev)
     if args.profile:
@@ -5897,29 +6395,36 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
+    phase_done(15)
     print("[16] slice parity: sparse kernels vs their plain versions")
     training["sparse"]["parity"] = sparse_parity(dev)
     torch.cuda.empty_cache()
 
+    phase_done(16)
     print("[17] the curriculum and the dataloader through save and resume")
     training["curriculum"] = curriculum_resume(dev)
     torch.cuda.empty_cache()
 
+    phase_done(17)
     print("[18] serving engine: ServingEngine over init_inference at GPT-2-125M width, the decode step one CUDA graph")
     serving_launches = serve_engine_phase(dev, smi, args.profile)
     torch.cuda.empty_cache()
 
+    phase_done(18)
     print("[19] training resilience at GPT-2-125M width: NaN skip, rewind, preemption, write faults, async "
           "save, the 3-call loop, save_16bit_model, the CSV monitor")
     resilience = resilience_phase(dev, smi)
     torch.cuda.empty_cache()
 
+    phase_done(19)
     print(f"[20] serving fleet: Router over {FLEET_REPLICAS} in-process replicas (unfaulted, then replica 0 killed "
           f"at router step {KILL_STEP}), the journal's crash drill, {FLEET_REPLICAS} worker processes under a "
           f"WorkerSupervisor (SIGKILL, respawn, SIGTERM drain), at GPT-2-125M width")
-    fleet = fleet_phase(dev, smi)
+    fleet = fleet_phase(dev, smi, ahead={"gateway": gateway_worker_plan(SERVE_CONFIG),
+                                        "disagg": disagg_worker_plan(SERVE_CONFIG)})
     torch.cuda.empty_cache()
 
+    phase_done(20)
     print(f"[21] the fleet's front door and membership at GPT-2-125M width: {FLEET_REPLICAS} in-process replicas "
           f"behind the HTTP/SSE gateway (workload (b) blocking and streamed, disconnects, a rolling upgrade under "
           f"traffic), the autoscaler under the surge trace with a replica killed, {FLEET_REPLICAS} worker processes "
@@ -5927,6 +6432,7 @@ def main() -> int:
     gateway = gateway_phase(dev, smi)
     torch.cuda.empty_cache()
 
+    phase_done(21)
     print(f"[22] disaggregated prefill/decode serving at GPT-2-125M width with the flight recorder on: 2 co-located "
           f"against 1 prefill + 1 decode in-process replicas (workloads (a) and (b)), the int8 wire, 2 prefill + 1 "
           f"decode worker processes over TCP with a prefill SIGKILLed mid-handoff, per-pool autoscaling under the "
@@ -5934,11 +6440,13 @@ def main() -> int:
     disagg = disagg_phase(dev, smi)
     torch.cuda.empty_cache()
 
+    phase_done(22)
     print("[23] the launch stack, elastic training and the chaos conductor at GPT-2-125M width: the runner -> "
           "launch -> a training worker (and SIGTERM to a second launch), DSElasticAgent's crash and hang drills "
           "resuming bitwise, 8 chaos schedules twice over 3 real ServingEngine replicas, a 64-schedule fake-fleet "
           "search shrunk and replayed")
     p23 = elastic_chaos_phase(dev, smi)
+    _PHASE_T0[0] = time.perf_counter()
     torch.cuda.empty_cache()
 
     print("[24] the memory tiers: ZeRO-Offload to pinned host memory and to NVMe, per-layer parameter streaming "
@@ -5970,6 +6478,14 @@ def main() -> int:
     zero = data_parallel_phase(dev, smi)
     zero["phase_s"] = time.perf_counter() - t0
     print(f"  phase 26: {zero['phase_s']:.1f} s")
+    _PHASE_T0[0] = time.perf_counter()
+
+    print(f"[27] tensor-parallel serving at GPT-2-125M width: init_inference -> generate at tp 1, 2 and 4 (fp32 "
+          f"and bf16; gloo ranks sharing the card, {TP_B} x {TP_PROMPT}-token prompts, {TP_NEW} new tokens), then "
+          f"the ServingEngine at tp 1 and tp {TP_SIZES[0]} (the driver and its follower) over the first "
+          f"{TP_SERVE_REQUESTS} requests of workload (a)")
+    tpar = tensor_parallel_phase(dev, smi)
+    phase_done(27)
     print(json.dumps({"zero": zero}))
     dp_launches = {**{f"world1_stage{s}": zero["a"][f"stage{s}"]["launches_per_train_batch"][0] for s in range(4)},
                    **{f"world2_stage{s}_rank{r}": zero["b"][f"stage{s}"]["ranks"][r]["launches"][0]
@@ -5989,6 +6505,10 @@ def main() -> int:
         "disagg_worker_launches": disagg["workers"],
         "chaos_launches": p23["decode"][0], "chaos_combine_launches": p23["decode"][1],
         "data_parallel_launches_per_train_batch": {k: v[3] for k, v in dp_launches.items()},
+        "tensor_parallel_launches_per_generate": {f"tp{tp}": tpar[f"tp{tp}"]["launches_per_generate"]
+                                                  for tp in TP_SIZES},
+        "tensor_parallel_serving_launches_per_step": tpar["serve"]["launches_per_step"],
+        "tensor_parallel_serving_launches": tpar["serve"]["launches"],
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"], "library_ratio": times["library_ratio"],
@@ -6102,6 +6622,7 @@ def main() -> int:
             "elastic_worker_launches": p23["sparse"][i],  # counted in the workers; the model is dense
             "data_parallel_launches_per_train_batch": {k: v[N_COUNTS + i] for k, v in dp_launches.items()},
         })
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"training": training}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

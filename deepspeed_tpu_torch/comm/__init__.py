@@ -18,6 +18,7 @@ from .collectives import (
     axis_size_in_jit,
     barrier,
     broadcast_in_axis,
+    broadcast_object,
     destroy_distributed,
     get_local_rank,
     get_rank,

@@ -18,6 +18,8 @@ Mapping (reference op -> here):
     all_to_all_single   -> all_to_all (all_to_all_single)        comm/comm.py:222
     send/recv (PP p2p)  -> ppermute (batch_isend_irecv)          pipe/p2p.py:48
     broadcast           -> broadcast_in_axis (dist.broadcast)
+    broadcast (objects) -> broadcast_object (a pickled payload; the
+                           tensor-parallel serving driver's calls)
 
 Routes. NCCL takes CUDA tensors and gloo CPU tensors. Gloo on CUDA tensors
 takes the five collectives in ``GLOO_CUDA_NATIVE`` itself (the probe in
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import pickle
 from datetime import timedelta
 from typing import Optional
 
@@ -384,6 +387,32 @@ def broadcast_in_axis(x: torch.Tensor, axis, src_index: int = 0) -> torch.Tensor
         return out
     dist.broadcast(out, src=members[src_index], group=pg)
     return out
+
+
+def broadcast_object(obj, axis, src_index: int = 0):
+    """The ``src_index``-th member's Python object on every rank of
+    ``axis``: its pickle, as a length then a byte tensor (two broadcasts),
+    on the host under gloo and on the current CUDA device under nccl.
+    Logged once, as a ``broadcast`` of the payload's bytes. The payload is
+    unpickled, so only ranks of one job may send it. A rank that waits
+    longer than the process group's timeout raises (``RuntimeError``)."""
+    pg, n, members, me, _ = _group(axis)
+    if pg is None:
+        return obj
+    dev = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend(pg) == "nccl" else torch.device("cpu")
+    if me == src_index:
+        payload = torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8).to(dev)
+        size = torch.tensor([payload.numel()], dtype=torch.int64, device=dev)
+    else:
+        size = torch.zeros(1, dtype=torch.int64, device=dev)
+    dist.broadcast(size, src=members[src_index], group=pg)
+    if me != src_index:
+        payload = torch.empty(int(size.item()), dtype=torch.uint8, device=dev)
+    _log("broadcast", axis, payload, n)
+    dist.broadcast(payload, src=members[src_index], group=pg)
+    if me == src_index:
+        return obj
+    return pickle.loads(payload.cpu().numpy().tobytes())
 
 
 def axis_index(axis) -> int:

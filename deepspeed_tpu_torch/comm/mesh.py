@@ -39,6 +39,9 @@ DP_AXES = ("data", "fsdp")
 # gets its process groups when a mesh is built
 ENGINE_AXES = ("data", "fsdp", DP_AXES)
 
+# the axes tensor-parallel serving adds: the ``model`` axis's groups
+SERVING_AXES = ENGINE_AXES + ("model",)
+
 Axes = Union[str, Sequence[str]]
 
 # the most recently built mesh: the "default process group" analogue

@@ -176,6 +176,9 @@ class Router:
                  telemetry: Telemetry | None = None,
                  replica_engines: list | None = None):
         config = dict(config or {})
+        if any(getattr(e, "tp", None) is not None for e in [engine, *(replica_engines or [])]):
+            raise NotImplementedError("the fleet (Router) over tensor-parallel engines is not ported to "
+                                      "deepspeed_tpu_torch yet: serve a tp_size > 1 engine with ServingEngine")
         rc = config.get("router", {})
         if isinstance(rc, dict):
             rc = RouterConfig(**rc)

@@ -69,6 +69,30 @@ rings sampled from ``step()``, flushed over a worker's step reply
 thresholds (``classify_terminal``); incident bundles per replica under
 ``<dir>/replica<rid>/`` on a NaN quarantine or a watchdog refusal.
 
+Tensor parallelism (an engine from ``init_inference`` at ``tp_size > 1``):
+the JAX engine runs one scheduler that drives every device; here each
+rank is a process, so the port splits the engine into a driver and
+followers. The driver (model index 0) runs the scheduler, the clock,
+admission, deadlines and sampling; its ``SlotWorker`` broadcasts each
+device call (``decode``, ``prefill``, ``chunk``, ``verify``,
+``prefix_fetch``, ``prefix_store``, ``fill_slot``, ``release``: the method
+and its host arguments) over the mesh's ``model`` axis before running it.
+A follower runs no scheduler and decides nothing on a clock: its entry
+points (``serve``, ``drain``, ``step``, ``warm_decode``, ``warm_verify``,
+``close``) run the driver's calls in order (``SlotWorker.follow``) until
+the driver's matching entry point sends its closing message with its
+result, which every rank then returns. The closing message goes from a
+``finally``, so a driver that raises still releases its followers (which
+then raise); a follower that hears nothing within the process group's
+timeout raises. Followers never sample: the driver's tokens reach them as
+the next call's arguments. The slot cache and the prefix pool hold the
+rank's heads (``kv_slot_cache_spec`` / ``kv_prefix_pool_spec``). The
+decode step runs eagerly under tensor parallelism, a route chosen at
+construction (``decode_route`` in ``telemetry_snapshot()``): gloo's
+collectives cannot be captured into a CUDA graph. Refused by name under
+tensor parallelism: the disaggregated roles and their KV handoff, and the
+fleet (``Router``, ``launcher/serving_worker.py``).
+
 The program ledger (``ledger``, on by default as in JAX): each program's
 first call at a signature runs under the FLOP and byte counter
 (``telemetry/program_ledger.py``). The decode program's first call is its
@@ -81,6 +105,7 @@ read their own latency histograms.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import math
 import os
@@ -92,8 +117,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import comm
 from ..models import transformer as tfm
 from ..ops import op_builder
+from ..parallel.sharding import kv_prefix_pool_spec, kv_slot_cache_spec, local_shape
 from ..ops.decode_attention import decode_attention
 from ..resilience import FaultInjector, RequestRejected, RpcConnectionLost
 from ..runtime.config import (ChunkedPrefillConfig, FaultInjectionConfig,
@@ -272,13 +299,22 @@ class SlotWorker:
         self.device = engine.device
         self.telemetry = telemetry
         self.n_slots = int(n_slots)
+        # tensor parallelism: the driver (model index 0) broadcasts each
+        # device call; a follower runs them as they come (``follow``)
+        self.tp = getattr(engine, "tp", None)
+        self.mesh = getattr(engine, "mesh", None)
+        self.lead = self.tp is None or self.tp.index == 0
+        self._clock = time.perf_counter if self.lead else (lambda: 0.0)  # a follower reads no clock
+        # the decode step: one CUDA graph on a card, eager on the CPU and
+        # under tensor parallelism (gloo's collectives cannot be captured)
+        self.decode_route = "graph" if self.device.type == "cuda" and self.tp is None else "eager"
         # only the cache ALLOCATION rounds up to a multiple of 128, as the
         # JAX package's decode kernel needs; admission stays at the model's
         # limit, so those tail positions are never admitted into
         self.Smax = -(-int(budget) // 128) * 128
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        self._cache = tfm.init_cache(self.cfg, self.n_slots, self.Smax,
-                                     dtype=self.cfg.dtype, device=self.device)
+        self.spec = kv_slot_cache_spec(self._mesh_shape(), self.n_slots, self.cfg.num_heads)
+        self._cache = self._kv(self.spec, self.n_slots, self.Smax)
         self.pmax = 0
         self._pool = None
         if prefix_cfg.enabled:
@@ -287,8 +323,8 @@ class SlotWorker:
                 raise ValueError(
                     f"prefix_cache.max_prefix_len ({self.pmax}) exceeds the "
                     f"slot cache length {self.Smax}")
-            self._pool = tfm.init_cache(self.cfg, prefix_cfg.n_slots, self.pmax,
-                                        dtype=self.cfg.dtype, device=self.device)
+            self.pool_spec = kv_prefix_pool_spec(self._mesh_shape(), prefix_cfg.n_slots, self.cfg.num_heads)
+            self._pool = self._kv(self.pool_spec, prefix_cfg.n_slots, self.pmax)
 
         self._decode = None  # the watched decode program, made at first use
         self._graph = None  # its CUDA graph (CUDA only), captured at first use
@@ -308,10 +344,62 @@ class SlotWorker:
         self.graph_launches = (0, 0)
         # the graph's replays on traffic (a warm-up's is not counted)
         self.graph_replays = 0
+        # decode-kernel launches of the eager route (split, combine),
+        # counted by the wrappers around each step
+        self.eager_launches = [0, 0]
         # True once a program of the current scheduler step ran for the
         # first time at its signature (the decode graph's capture included):
         # the Router's hung verdict exempts such a step
         self.step_compiled = False
+
+    def _mesh_shape(self) -> dict:
+        return {} if self.mesh is None else self.mesh.shape
+
+    def _kv(self, spec, slots: int, length: int) -> dict:
+        """A KV cache [L, slots, length, H, Dh]: this rank's part under
+        ``spec`` (its heads when ``model`` splits them)."""
+        full = (self.cfg.num_layers, slots, length, self.cfg.num_heads, self.cfg.head_dim)
+        L, b, s, h, dh = local_shape(full, spec, self._mesh_shape())
+        if b != slots:
+            raise NotImplementedError("the slot cache split over the data axes (data-parallel serving) "
+                                      "is not ported to deepspeed_tpu_torch yet")
+        return tfm.init_cache(self.cfg, slots, length, dtype=self.cfg.dtype, device=self.device, heads=h)
+
+    # -- tensor parallelism: the driver's calls and the followers' loop -------
+
+    def _tell(self, name: str, *args, **kw) -> None:
+        """On the driver under tensor parallelism, broadcast one device call
+        (method and host arguments) to the followers before running it."""
+        if self.tp is not None and self.lead:
+            comm.broadcast_object(("call", name, args, kw), self.tp.axis)
+
+    def done(self, result, failed: bool = False) -> None:
+        """The driver's closing message of an entry point: the followers
+        return ``result`` (or raise when ``failed``)."""
+        if self.tp is not None and self.lead:
+            comm.broadcast_object(("done", result, failed), self.tp.axis)
+
+    def follow(self):
+        """A follower's loop: run every device call the driver broadcasts, in
+        order, until its closing message; return the driver's result. Raises
+        when the driver failed, or when no message comes within the process
+        group's timeout."""
+        if self.lead:
+            raise RuntimeError("follow() runs on a tensor-parallel follower, not on the driver")
+        while True:
+            try:
+                msg = comm.broadcast_object(None, self.tp.axis)
+            except RuntimeError as e:
+                raise RuntimeError(f"tensor-parallel follower (model index {self.tp.index}): no call from the "
+                                   f"driver within the process group's timeout, or its group failed: {e}") from e
+            if msg[0] == "done":
+                _, result, failed = msg
+                if failed:
+                    raise RuntimeError(f"tensor-parallel follower (model index {self.tp.index}): the driver "
+                                       "raised; its closing message ended this entry point")
+                return result
+            _, name, args, kw = msg
+            getattr(self, name)(*args, **kw)
 
     # -- the decode step --------------------------------------------------
 
@@ -331,8 +419,11 @@ class SlotWorker:
         # per-slot NaN sentinel in the same program: the host quarantines a
         # poisoned request and discards its token
         bad = ~torch.isfinite(logits).all(dim=-1)
-        nxt = sample_logits_vector(logits, self._gen, temp, inp[_IN_TOPK], top_p)
-        nxt = torch.where(inp[_IN_ACTIVE] != 0, nxt, 0)
+        if self.lead:
+            nxt = sample_logits_vector(logits, self._gen, temp, inp[_IN_TOPK], top_p)
+            nxt = torch.where(inp[_IN_ACTIVE] != 0, nxt, 0)
+        else:  # a follower never samples: the driver's tokens come with the next call
+            nxt = torch.zeros_like(inp[_IN_TOK])
         return torch.stack([nxt, bad.to(torch.int32)], dim=1)
 
     def _capture(self):
@@ -380,8 +471,12 @@ class SlotWorker:
         self._graph = graph
 
     def _decode_program(self, packed: np.ndarray) -> np.ndarray:
-        if self.device.type != "cuda":
-            return self.decode_step(torch.from_numpy(packed)).numpy()
+        if self.decode_route == "eager":
+            before = (decode_attention.launches, decode_attention.combine_launches)
+            out = self.decode_step(torch.from_numpy(packed).to(self.device)).cpu().numpy()
+            self.eager_launches[0] += decode_attention.launches - before[0]
+            self.eager_launches[1] += decode_attention.combine_launches - before[1]
+            return out
         if self._graph is None:
             self._capture()
         self._pin_in.numpy()[...] = packed
@@ -398,12 +493,13 @@ class SlotWorker:
         bad)`` [n_slots] arrays; the read syncs, so the recorded latency is
         the device's. ``warm=True`` (every slot idle, made to capture)
         records neither a latency nor a decode step nor a replay."""
+        self._tell("decode", last_tok, pos, wpos, active, temp, top_k, top_p, warm=warm)
         tm = self.telemetry
         if self._decode is None:
             wd = tm.watchdog
             self._decode = wd.watch(self._decode_program, wd.unique_name("serving/decode"),
                                     stable=True)
-        t0 = time.perf_counter()
+        t0 = self._clock()
         out = self._decode(pack_decode_inputs(last_tok, pos, wpos, active, temp, top_k, top_p))
         self.step_compiled |= bool(self._decode.last_call_compiled)
         if warm:
@@ -413,17 +509,19 @@ class SlotWorker:
             self.graph_replays += 1
         # the capturing call is excluded from the latency histogram
         if not self._decode.last_call_compiled:
-            tm.histogram("serving/decode_step_sec").observe(time.perf_counter() - t0)
+            tm.histogram("serving/decode_step_sec").observe(self._clock() - t0)
         tm.counter("serving/decode_steps").inc()
         return out[:, 0], out[:, 1].astype(bool)
 
     def decode_kernel_launches(self) -> tuple[int, int]:
-        """(split, combine) decode-kernel launches the graph's replays made
-        on traffic: the launches one replay makes, as the wrappers counted
-        them while capturing, times the replays. A replay cannot count, so
-        this follows from the capture; the profiler's kernel records over
-        replays are what measure it."""
-        return self.graph_launches[0] * self.graph_replays, self.graph_launches[1] * self.graph_replays
+        """(split, combine) decode-kernel launches the decode steps made on
+        traffic and warm-ups. The graph route: the launches one replay
+        makes, as the wrappers counted them while capturing, times the
+        replays (a replay cannot count, so this follows from the capture;
+        the profiler's kernel records over replays are what measure it).
+        The eager route: the wrappers' counts around each step."""
+        return (self.graph_launches[0] * self.graph_replays + self.eager_launches[0],
+                self.graph_launches[1] * self.graph_replays + self.eager_launches[1])
 
     # -- eager programs ---------------------------------------------------
 
@@ -436,7 +534,9 @@ class SlotWorker:
 
     def _sample_one(self, logits, temperature, top_k, top_p) -> tuple[int, bool]:
         """First-token sampling of a prefill or chunk: (token, bad) on the
-        host, one read."""
+        host, one read. A follower samples nothing and reads nothing."""
+        if not self.lead:
+            return 0, False
         s = self._upload([temperature], [top_k], [top_p])
         logits = logits[:, 0]
         bad = ~torch.isfinite(logits).all(dim=-1)
@@ -463,17 +563,18 @@ class SlotWorker:
                 temperature: float, top_k: int, top_p: float):
         """One-shot bucketed prompt prefill into ``slot``, written in place.
         Returns the host ``(first_token, bad)`` pair."""
+        self._tell("prefill", bucket, padded, slot, true_len, temperature, top_k, top_p)
         tm = self.telemetry
         if bucket not in self._prefills:
             wd = tm.watchdog
             self._prefills[bucket] = wd.watch(
                 self._prefill_program, wd.unique_name(f"serving/prefill[{bucket}]"), stable=True)
         prog = self._prefills[bucket]
-        t0 = time.perf_counter()
+        t0 = self._clock()
         out = prog(bucket, padded, slot, true_len, temperature, top_k, top_p)
         self.step_compiled |= bool(prog.last_call_compiled)
         if not prog.last_call_compiled:
-            tm.histogram("serving/prefill_sec").observe(time.perf_counter() - t0)
+            tm.histogram("serving/prefill_sec").observe(self._clock() - t0)
         tm.counter(f"serving/prefill_bucket[{bucket}]").inc()
         return out
 
@@ -499,18 +600,19 @@ class SlotWorker:
         """One prompt chunk through the ``width`` program. ``fetch=False``
         (an intermediate chunk) returns None without a device read; the
         final chunk returns ``(first_token, bad)``."""
+        self._tell("chunk", width, toks, slot, start, live, temperature, top_k, top_p, fetch=fetch)
         if width not in self._chunk_progs:
             wd = self.telemetry.watchdog
             self._chunk_progs[width] = wd.watch(
                 self._chunk_program, wd.unique_name(f"serving/chunk_prefill[{width}]"), stable=True)
         prog = self._chunk_progs[width]
         tm = self.telemetry
-        t0 = time.perf_counter()
+        t0 = self._clock()
         out = prog(width, toks, slot, start, live, temperature, top_k, top_p, fetch)
         self.step_compiled |= bool(prog.last_call_compiled)
         tm.counter(f"serving/chunk_bucket[{width}]").inc()
         if fetch and not prog.last_call_compiled:
-            tm.histogram("serving/chunk_prefill_sec").observe(time.perf_counter() - t0)
+            tm.histogram("serving/chunk_prefill_sec").observe(self._clock() - t0)
         return out
 
     @torch.no_grad()
@@ -522,6 +624,8 @@ class SlotWorker:
         s = self._upload(pos, wpos, active, temp, top_k, top_p)
         toks = torch.from_numpy(np.asarray(toks)).to(self.device).long()
         logits, _ = tfm.apply_with_cache(self.cfg, self.params, toks, self._cache, s[0], write_pos=s[1])
+        if not self.lead:
+            return None  # a follower never samples and reads nothing back
         # the sentinel spans every position of the block
         bad = ~torch.isfinite(logits).all(dim=-1).all(dim=-1)
         on = (s[2] != 0)[:, None]
@@ -553,6 +657,8 @@ class SlotWorker:
         resample, clean, bad)`` arrays ([n, depth] / [n, depth+1] /
         [n, depth+1] / [n]). ``warm=True`` (a dispatch with every slot idle,
         made to compile) records neither a latency nor a verify step."""
+        self._tell("verify", depth, toks, pos, wpos, active, temp, top_k, top_p, greedy_only=greedy_only,
+                   warm=warm)
         tm = self.telemetry
         key = (depth, greedy_only)
         if key not in self._verifies:
@@ -560,14 +666,14 @@ class SlotWorker:
             name = f"serving/verify[{depth}{':greedy' if greedy_only else ''}]"
             self._verifies[key] = wd.watch(self._verify_program, wd.unique_name(name), stable=True)
         prog = self._verifies[key]
-        t0 = time.perf_counter()
+        t0 = self._clock()
         out = prog(depth, greedy_only, np.asarray(toks, np.int32), pos, np.asarray(wpos, np.int32),
                    active, temp, top_k, top_p)
         self.step_compiled |= bool(prog.last_call_compiled)
         if warm:
             return out
         if not prog.last_call_compiled:
-            tm.histogram("serving/verify_step_sec").observe(time.perf_counter() - t0)
+            tm.histogram("serving/verify_step_sec").observe(self._clock() - t0)
         tm.counter("serving/verify_steps").inc()
         tm.counter(f"serving/verify_bucket[{depth}]").inc()
         return out
@@ -582,6 +688,7 @@ class SlotWorker:
 
     def prefix_fetch(self, pool_slot: int, slot: int) -> None:
         """Copy a prefix-pool window into ``slot``, in place."""
+        self._tell("prefix_fetch", pool_slot, slot)
         if self._fetch is None:
             wd = self.telemetry.watchdog
             self._fetch = wd.watch(self._fetch_program, wd.unique_name("serving/prefix_fetch"),
@@ -596,6 +703,7 @@ class SlotWorker:
 
     def prefix_store(self, slot: int, pool_slot: int) -> None:
         """Copy ``slot``'s leading window into the prefix pool, in place."""
+        self._tell("prefix_store", slot, pool_slot)
         if self._store is None:
             wd = self.telemetry.watchdog
             self._store = wd.watch(self._store_program, wd.unique_name("serving/prefix_store"),
@@ -616,6 +724,7 @@ class SlotWorker:
         host: the disaggregated handoff's wire unit, one watched program per
         power-of-two width. Returns host ``(k, v)`` tensors
         ``[L, 1, width, H, Dh]`` in the cache's dtype."""
+        self._refuse_handoff("kv_export")
         if width not in self._kv_exports:
             wd = self.telemetry.watchdog
             self._kv_exports[width] = wd.watch(
@@ -638,6 +747,7 @@ class SlotWorker:
         ``slot``: the import half of the handoff wire. Idempotent (a
         replayed window writes the same bytes); the window is cast to the
         cache's dtype, so one program per width."""
+        self._refuse_handoff("kv_import")
         if width not in self._kv_imports:
             wd = self.telemetry.watchdog
             self._kv_imports[width] = wd.watch(
@@ -649,6 +759,11 @@ class SlotWorker:
         prog(width, k, v, slot, start)
         self.step_compiled |= bool(prog.last_call_compiled)
         self.telemetry.counter(f"serving/kv_import_bucket[{width}]").inc()
+
+    def _refuse_handoff(self, what: str) -> None:
+        if self.tp is not None:
+            raise NotImplementedError(f"{what}: the KV handoff (disaggregated serving) under tensor parallelism "
+                                      "is not ported to deepspeed_tpu_torch yet")
 
     @torch.no_grad()
     def _fill_program(self, slot, value):
@@ -663,6 +778,7 @@ class SlotWorker:
         weighs every cache position and zeroes masked ones after the fact,
         so a NaN parked anywhere in the row leaks through ``0 * NaN`` into
         every later occupant's logits."""
+        self._tell("fill_slot", slot, value)
         if self._fill is None:
             wd = self.telemetry.watchdog
             self._fill = wd.watch(self._fill_program, wd.unique_name("serving/fill_slot"),
@@ -683,6 +799,7 @@ class SlotWorker:
         """Drop the device state: the slot cache, the prefix pool, the
         decode graph (its private memory pool goes with it) and the graph's
         static and pinned buffers. The worker runs nothing afterwards."""
+        self._tell("release")
         self._cache = self._pool = None
         if self._graph is not None:
             self._graph.reset()
@@ -850,6 +967,11 @@ class ServingEngine:
         self.engine = engine
         self.cfg = engine.cfg
         self.n_slots = int(n_slots)
+        self.tp = getattr(engine, "tp", None)
+        if self.tp is not None and self.role != "both":
+            raise NotImplementedError(f"serving role {self.role!r} (disaggregated prefill/decode and its KV handoff) "
+                                      "under tensor parallelism is not ported to deepspeed_tpu_torch yet")
+        self._entry_depth = 0  # the driver's nesting of entry points (tensor parallelism)
         self.replica_id = replica_id if replica_id is not None else config.get("replica_id", 0)
         # admission stays at the MODEL's sequence limit (a learned position
         # table has nothing past it); the worker's cache rounds up to 128
@@ -939,6 +1061,36 @@ class ServingEngine:
             f"serving engine: {n} slots x {self.Smax} tokens, cache "
             f"{tree_bytes(self.worker._cache) / 1e6:.1f} MB on {self.worker.device}"
             + (", " + ", ".join(feat) if feat else ""), ranks=[0])
+
+    @property
+    def is_driver(self) -> bool:
+        """Whether this engine runs the scheduler: always, but for a
+        tensor-parallel follower (model index above 0)."""
+        return self.worker.lead
+
+    @contextlib.contextmanager
+    def _entry(self):
+        """An entry point on the driver under tensor parallelism: the
+        outermost one ends with the closing message, sent from ``finally``
+        (flagged failed when the entry raised), carrying the entry's result
+        (``box[0]``) to every follower."""
+        if self.tp is None or self._entry_depth:
+            yield [None]
+            return
+        self._entry_depth += 1
+        box, failed = [None], True
+        try:
+            yield box
+            failed = False
+        finally:
+            self._entry_depth -= 1
+            self.worker.done(None if failed else box[0], failed)
+
+    def follow(self):
+        """A tensor-parallel follower's side of one driver entry point: run
+        the driver's device calls until its closing message; return the
+        driver's result. Every follower entry point is this."""
+        return self.worker.follow()
 
     def _bucket_len(self, S: int) -> int:
         return min(_next_pow2(max(S, self.min_bucket)), self.Smax)
@@ -2042,18 +2194,23 @@ class ServingEngine:
         slot (one decode step, or one verify call when a slot drafted).
         Returns the uids that reached a TERMINAL state since the last step()
         returned. ``enforce_deadlines=False`` (drain) skips the sweep and
-        the queue bound."""
+        the queue bound. On a tensor-parallel follower it runs the driver's
+        step (``follow``) and returns the driver's result."""
         if self.closed:
             raise RpcConnectionLost(f"replica {self.replica_id} is closed: its device state was released")
-        if now is None:
-            now = time.perf_counter() - self._epoch
-        self.worker.step_compiled = False  # a fresh heartbeat window
-        libraries = op_builder.loaded_count()
-        finished = self._step(now, enforce_deadlines)
-        # a kernel library built or loaded inside the step (nvcc takes tens
-        # of seconds on a cold cache) is compiling, not hanging
-        if op_builder.loaded_count() != libraries:
-            self.worker.step_compiled = True
+        if not self.is_driver:
+            return self.follow()
+        with self._entry() as box:
+            if now is None:
+                now = time.perf_counter() - self._epoch
+            self.worker.step_compiled = False  # a fresh heartbeat window
+            libraries = op_builder.loaded_count()
+            finished = self._step(now, enforce_deadlines)
+            # a kernel library built or loaded inside the step (nvcc takes tens
+            # of seconds on a cold cache) is compiling, not hanging
+            if op_builder.loaded_count() != libraries:
+                self.worker.step_compiled = True
+            box[0] = finished
         return finished
 
     def _step(self, now: float, enforce_deadlines: bool) -> list[int]:
@@ -2105,38 +2262,49 @@ class ServingEngine:
 
     def drain(self) -> dict[int, RequestResult]:
         """Run steps until queue and slots are empty, ignoring arrival
-        times, deadlines and the queue bound; return all results so far."""
-        while self._queue or self._prefilling or self._active.any():
-            self.step(now=float("inf"), enforce_deadlines=False)
-        if self._incidents is not None and self._incidents.pending:
-            # drain's now=inf never ticks the recorder: a staged incident
-            # must not be lost because the engine idled
-            self._incidents.flush(self._incident_context)
-        return dict(self._results)
+        times, deadlines and the queue bound; return all results so far
+        (on a tensor-parallel follower: the driver's)."""
+        if not self.is_driver:
+            return self.follow()
+        with self._entry() as box:
+            while self._queue or self._prefilling or self._active.any():
+                self.step(now=float("inf"), enforce_deadlines=False)
+            if self._incidents is not None and self._incidents.pending:
+                # drain's now=inf never ticks the recorder: a staged incident
+                # must not be lost because the engine idled
+                self._incidents.flush(self._incident_context)
+            box[0] = dict(self._results)
+        return box[0]
 
     def serve(self, requests: list[Request]) -> dict[int, RequestResult]:
         """Wall-clock driver: admit each request once its arrival_time has
         passed and decode until every request of this call is terminal.
         Returns {uid: RequestResult} for them. The epoch resets only while
         the engine is idle. A request shed at submit time gets a result
-        (status ``shed_<reason>``) rather than an exception."""
-        if not self._queue and not self._prefilling and not self._active.any():
-            self._epoch = time.perf_counter()
-        target = set()
-        for r in sorted(requests, key=lambda r: r.arrival_time):
-            try:
-                target.add(self.submit(r))
-            except RequestRejected as e:
-                self._synth_result(r, "shed_" + e.reason)
-                target.add(r.uid)
-        while not target <= set(self._results):
-            now = time.perf_counter() - self._epoch
-            if not self._active.any() and not self._prefilling and self._queue:
-                wait = min(r.arrival_time for r in self._queue) - now
-                if wait > 0:
-                    time.sleep(min(wait, 0.05))
-            self.step()
-        return {u: self._results[u] for u in target}
+        (status ``shed_<reason>``) rather than an exception. Under tensor
+        parallelism every rank calls it; a follower's ``requests`` are not
+        read, and every rank returns the driver's results."""
+        if not self.is_driver:
+            return self.follow()
+        with self._entry() as box:
+            if not self._queue and not self._prefilling and not self._active.any():
+                self._epoch = time.perf_counter()
+            target = set()
+            for r in sorted(requests, key=lambda r: r.arrival_time):
+                try:
+                    target.add(self.submit(r))
+                except RequestRejected as e:
+                    self._synth_result(r, "shed_" + e.reason)
+                    target.add(r.uid)
+            while not target <= set(self._results):
+                now = time.perf_counter() - self._epoch
+                if not self._active.any() and not self._prefilling and self._queue:
+                    wait = min(r.arrival_time for r in self._queue) - now
+                    if wait > 0:
+                        time.sleep(min(wait, 0.05))
+                self.step()
+            box[0] = {u: self._results[u] for u in target}
+        return box[0]
 
     # -- observability --------------------------------------------------
 
@@ -2150,9 +2318,15 @@ class ServingEngine:
         Router calls it when it declares the replica dead. Host state
         (results, counters, the request trace) stays readable; the engine
         steps no more (``step`` and ``live_requests`` raise
-        ``RpcConnectionLost``)."""
-        self.closed = True
-        self.worker.release()
+        ``RpcConnectionLost``). Under tensor parallelism every rank calls it
+        and each releases its own."""
+        if not self.is_driver:
+            self.follow()
+            self.closed = True
+            return
+        with self._entry():
+            self.closed = True
+            self.worker.release()
 
     def prefix_cache_stats(self) -> Optional[dict]:
         """Host-side prefix-cache view (hits, misses, reuse, pool occupancy,
@@ -2168,9 +2342,13 @@ class ServingEngine:
         it builds no decode program and captures nothing."""
         if self.role == "prefill":
             return
+        if not self.is_driver:
+            self.follow()
+            return
         n = self.n_slots
-        self.worker.decode(np.zeros(n, np.int32), np.zeros(n, np.int32), np.full(n, self.Smax, np.int32),
-                           np.zeros(n, bool), self._temp, self._top_k, self._top_p, warm=True)
+        with self._entry():
+            self.worker.decode(np.zeros(n, np.int32), np.zeros(n, np.int32), np.full(n, self.Smax, np.int32),
+                               np.zeros(n, bool), self._temp, self._top_k, self._top_p, warm=True)
 
     def warm_verify(self, *, sampled: bool = False) -> list[int]:
         """Run the speculative verify programs once ahead of traffic, one
@@ -2181,6 +2359,13 @@ class ServingEngine:
         the depths; [] when speculation is off."""
         if self._drafter is None:
             return []
+        if not self.is_driver:
+            return self.follow()
+        with self._entry() as box:
+            box[0] = self._warm_verify(sampled)
+        return box[0]
+
+    def _warm_verify(self, sampled: bool) -> list[int]:
         depths, d = [], 1
         while True:
             depths.append(d)
@@ -2251,8 +2436,11 @@ class ServingEngine:
             extra["rings"] = self._rings.snapshot()
         if self._incidents is not None:
             extra["incidents"] = self._incidents.index()
+        if self.tp is not None:
+            extra["tensor_parallel"] = {"tp_size": self.tp.size, "model_index": self.tp.index,
+                                        "driver": self.is_driver, "heads": self.tp.heads(self.cfg.num_heads)}
         snap = self.telemetry.snapshot(
-            replica_id=self.replica_id, compiles=self.compile_counts(),
+            replica_id=self.replica_id, compiles=self.compile_counts(), decode_route=self.worker.decode_route,
             hbm=hbm_snapshot(self.worker.hbm_pools(), self.worker.device, self.ledger_cfg.hbm_warn_fraction),
             **extra)
         self.telemetry.emit({"type": "snapshot", **snap})

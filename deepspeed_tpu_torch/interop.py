@@ -9,7 +9,10 @@ tensors: ``wte``, ``wpe``, the stacked ``layers`` leaves
 packages, so nothing is transposed.
 
 ``shard_state_from_jax`` gives one data-parallel rank its part of a JAX
-engine's ``params`` and ``opt`` by the port's ZeRO layouts.
+engine's ``params`` and ``opt`` by the port's ZeRO layouts, and
+``tp_params_from_jax`` one tensor-parallel rank its slices of the JAX
+parameters by the JAX engine's specs (``init_inference(..., params=)``
+takes either the full tree or these slices' ``TPParams``).
 ``state_from_jax`` converts any subtree of a JAX engine's state (numpy
 leaves, bfloat16 ones included, their dtypes kept), and
 ``load_offload_state`` carries a JAX offload engine's ``params``,
@@ -84,3 +87,16 @@ def shard_state_from_jax(engine, jax_state: dict) -> dict:
             opt[k] = t
         out["opt"] = opt
     return out
+
+
+def tp_params_from_jax(tree, model, mesh, device="cpu", dtype=torch.float32):
+    """The JAX package's parameters (numpy leaves) as ``mesh``'s rank holds
+    them under tensor parallelism: each leaf's slice by its spec
+    (``spec_from_logical`` over ``DEFAULT_TP_RULES``, as the JAX engine
+    places it), cut by ``ReplaceWithTensorSlicing``, then as
+    ``params_from_jax`` converts it. Returns a ``TPParams`` carrying the
+    rank's plan (``model`` is the port's ``Model``)."""
+    from .module_inject.layers import TensorParallel, TPParams
+
+    tp = TensorParallel(mesh, model.logical_axes(), tree)
+    return TPParams(params_from_jax(tp.shard(tree), device, dtype), tp)

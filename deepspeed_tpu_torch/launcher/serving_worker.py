@@ -101,6 +101,9 @@ def build_serving_engine(spec: dict, replica_id: int | str = 0,
     from ..inference.serving import ServingEngine
     from ..models.transformer import Model, TransformerConfig
 
+    if "tensor_parallel" in spec or "mp_size" in spec:
+        raise NotImplementedError("a serving worker of a tensor-parallel engine (the fleet under tensor "
+                                  "parallelism) is not ported to deepspeed_tpu_torch yet")
     model_spec = dict(spec.get("model", {}))
     name = str(model_spec.pop("dtype", "float32"))
     if name not in _DTYPES:

@@ -24,6 +24,18 @@ the card, other bits than ``jax.random``. As the JAX package splits its key
 per layer, each layer and each of its sites hashes a key of its own, so a
 remat recompute replays the layer's masks, and a step tensor on the device
 keys them without a fetch.
+
+Tensor parallelism (serving): a parameter tree that carries a
+``module_inject.TensorParallel`` plan (``TPParams``, made by
+``init_inference`` at ``tp_size > 1``) holds one rank's slices, each leaf
+split over the mesh's ``model`` axis where its spec says so. The forward
+then runs this rank's heads and FFN columns (q/k/v and ``wi`` column-
+parallel, ``wo`` and ``wo_mlp`` row-parallel: all-reduced, then the bias
+added once), looks up a vocab-split embedding by range and all-reduces it,
+all-gathers a vocab-split head's logits to the full width, slices the
+ALiBi slopes to its heads, and keeps a KV cache of its heads only
+(``init_cache(heads=)``). A leaf ``model`` does not divide stays whole and
+no collective runs for it.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_xent import fused_linear_xent
+from ..module_inject.layers import plan_of
 from ..ops.sparse_attention import SPARSITY_CONFIGS, sparse_flash_attention
 from ..runtime.activation_checkpointing.checkpointing import REMAT_POLICIES, remat_context_fn
 from ..runtime.zero import param_offload
@@ -299,6 +312,13 @@ def alibi_slopes(num_heads: int, device="cpu") -> torch.Tensor:
     return torch.tensor(vals, dtype=torch.float32, device=device)
 
 
+def _slopes(cfg: TransformerConfig, device, tp=None) -> torch.Tensor:
+    """The ALiBi slopes of the heads this rank computes: its slice of the
+    model's slopes under tp (never ``alibi_slopes(H / tp)``)."""
+    slopes = alibi_slopes(cfg.num_heads, device)
+    return slopes if tp is None else slopes[tp.head_slice(cfg.num_heads)]
+
+
 def xla_attention(q, k, v, *, causal_offset=0, bias=None, causal=True):
     """Plain attention over [B,S,H,Dh] (the JAX package's ``xla_attention``).
     ``causal_offset`` is a scalar (int or 0-d tensor) or a per-row [B]
@@ -334,16 +354,18 @@ def _linear(x, w, b):
 
 # The named scopes (``cost.scope``) are the JAX model's ``jax.named_scope``s,
 # at the same places: the flops profiler's per-module rows.
-def _ffn(cfg: TransformerConfig, lp, h):
+def _ffn(cfg: TransformerConfig, lp, h, tp=None):
     with cost.scope("ffn"):
-        u = _linear(h, lp["wi"], lp.get("bi"))
+        u = _linear(h, lp["wi"], lp.get("bi"))  # column-parallel under tp
         if cfg.activation == "relu":
             u = F.relu(u)
         elif cfg.activation == "gelu_exact":
             u = F.gelu(u)
         else:
             u = F.gelu(u, approximate="tanh")
-        return _linear(u, lp["wo_mlp"], lp.get("bo_mlp"))
+        if tp is None:
+            return _linear(u, lp["wo_mlp"], lp.get("bo_mlp"))
+        return tp.row(_linear(u, lp["wo_mlp"], None), lp.get("bo_mlp"), "layers", "wo_mlp")
 
 
 def _qkv_proj(cfg: TransformerConfig, lp, h, positions):
@@ -359,10 +381,13 @@ def _qkv_proj(cfg: TransformerConfig, lp, h, positions):
         return q, k, v
 
 
-def _attn_out_proj(cfg: TransformerConfig, lp, attn_out):
-    B, T, H, Dh = attn_out.shape
+def _attn_out_proj(cfg: TransformerConfig, lp, attn_out, tp=None):
+    B, T, H, Dh = attn_out.shape  # H: this rank's heads under tp
     with cost.scope("attn"):
-        return _linear(attn_out.reshape(B, T, H * Dh), lp["wo"].reshape(H * Dh, -1), lp.get("bo"))
+        x, w = attn_out.reshape(B, T, H * Dh), lp["wo"].reshape(H * Dh, -1)
+        if tp is None:
+            return _linear(x, w, lp.get("bo"))
+        return tp.row(_linear(x, w, None), lp.get("bo"), "layers", "wo")
 
 
 def _layers(params: Params) -> list[dict]:
@@ -456,7 +481,7 @@ def _sparsity_layout(cfg: TransformerConfig, seq_len: int):
     return _LAYOUTS[key]
 
 
-def _attention_dispatch(cfg: TransformerConfig, device="cpu") -> Callable:
+def _attention_dispatch(cfg: TransformerConfig, device="cpu", tp=None) -> Callable:
     """attn_fn(q, k, v, bias[, window]) for ``cfg.attn_impl``. The flash
     dispatch fuses ALiBi and local windows in the kernel
     (``handles_fused_bias``); a dense bias falls back to plain attention, in
@@ -464,7 +489,7 @@ def _attention_dispatch(cfg: TransformerConfig, device="cpu") -> Callable:
     if cfg.attn_impl == "flash":
         bq = cfg.flash_block_q or None
         bk = cfg.flash_block_k or None
-        slopes = alibi_slopes(cfg.num_heads, device) if cfg.pos_emb == "alibi" else None
+        slopes = _slopes(cfg, device, tp) if cfg.pos_emb == "alibi" else None
 
         def flash_fn(q, k, v, bias, window=None):
             if bias is not None:
@@ -493,7 +518,7 @@ def _attn_call(cfg: TransformerConfig, attn_fn, q, k, v, bias, is_local):
 
 
 def _layer_body(cfg: TransformerConfig, lp, x, bias, positions, attn_fn, is_local=None,
-                local_bias=None, key=None, pld_keep=None, row_offset: int = 0):
+                local_bias=None, key=None, pld_keep=None, row_offset: int = 0, tp=None):
     """One layer of ``apply``: pre-LN, post-LN or parallel residual, with
     dropout and the progressive-layer-drop gate when ``key`` (the layer's
     key) is given: sites 0 (the gate), 1 (attention) and 2 (FFN) each fold
@@ -512,29 +537,31 @@ def _layer_body(cfg: TransformerConfig, lp, x, bias, positions, attn_fn, is_loca
 
     def attn(h):
         q, k, v = _qkv_proj(cfg, lp, h, positions)
-        out = _attn_out_proj(cfg, lp, _attn_call(cfg, attn_fn, q, k, v, bias, is_local))
+        out = _attn_out_proj(cfg, lp, _attn_call(cfg, attn_fn, q, k, v, bias, is_local), tp)
         return branch(out, cfg.attn_dropout, 1)
 
     if cfg.norm_style == "post":
         x = layer_norm(x + attn(x), lp["ln1_scale"], lp["ln1_bias"], eps)
-        f = branch(_ffn(cfg, lp, x), cfg.hidden_dropout, 2)
+        f = branch(_ffn(cfg, lp, x, tp), cfg.hidden_dropout, 2)
         return layer_norm(x + f, lp["ln2_scale"], lp["ln2_bias"], eps)
     attn_out = attn(layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps))
     if cfg.parallel_residual:
         h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-        return x + attn_out + branch(_ffn(cfg, lp, h2), cfg.hidden_dropout, 2)
+        return x + attn_out + branch(_ffn(cfg, lp, h2, tp), cfg.hidden_dropout, 2)
     x = x + attn_out
     h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-    return x + branch(_ffn(cfg, lp, h2), cfg.hidden_dropout, 2)
+    return x + branch(_ffn(cfg, lp, h2, tp), cfg.hidden_dropout, 2)
 
 
-def embed(cfg: TransformerConfig, params: Params, tokens, positions=None):
-    """Token (+ learned position) embedding -> (x [B,S,d], positions [B,S])."""
+def embed(cfg: TransformerConfig, params: Params, tokens, positions=None, tp=None):
+    """Token (+ learned position) embedding -> (x [B,S,d], positions [B,S]).
+    Under ``tp`` a vocab-split table is looked up by range and all-reduced."""
     with cost.scope("embed"):
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        x = params["wte"][tokens].to(cfg.dtype)
+        wte = params["wte"]
+        x = (wte[tokens] if tp is None else tp.embed(wte, tokens)).to(cfg.dtype)
         if cfg.pos_emb == "learned":
             x = x + params["wpe"][positions].to(cfg.dtype)
         if cfg.embed_ln:
@@ -542,11 +569,12 @@ def embed(cfg: TransformerConfig, params: Params, tokens, positions=None):
         return x, positions
 
 
-def attn_bias(cfg: TransformerConfig, S: int, device="cpu"):
-    """Additive attention bias [1,H,S,S] (ALiBi) or None."""
+def attn_bias(cfg: TransformerConfig, S: int, device="cpu", tp=None):
+    """Additive attention bias [1,H,S,S] (ALiBi; this rank's heads under
+    ``tp``) or None."""
     if cfg.pos_emb != "alibi":
         return None
-    slopes = alibi_slopes(cfg.num_heads, device)
+    slopes = _slopes(cfg, device, tp)
     pos = torch.arange(S, device=device)
     dist = (pos[None, :] - pos[:, None]).float()
     return (slopes[:, None, None] * dist[None])[None]
@@ -563,17 +591,20 @@ def _head(params: Params):
     return params["wte"].t() if head is None else head
 
 
-def _project(params: Params, x):
-    """Vocab projection in x's dtype, then fp32 logits."""
+def _project(params: Params, x, tp=None):
+    """Vocab projection in x's dtype, then fp32 logits (under ``tp`` a
+    vocab-split head's columns all-gathered to the full vocab)."""
     logits = (x @ _head(params).to(x.dtype)).float()
+    if tp is not None:
+        logits = tp.logits(logits, ("lm_head",) if "lm_head" in params else ("wte",))
     if "lm_head_bias" in params:
         logits = logits + params["lm_head_bias"].float()
     return logits
 
 
-def _lm_head(cfg: TransformerConfig, params: Params, x):
+def _lm_head(cfg: TransformerConfig, params: Params, x, tp=None):
     """Final LayerNorm + vocab projection."""
-    return _project(params, _final_ln(cfg, params, x))
+    return _project(params, _final_ln(cfg, params, x), tp)
 
 
 def _remat_groups(cfg: TransformerConfig) -> list[range]:
@@ -651,16 +682,17 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
     B, S = tokens.shape
     L = cfg.num_layers
     device = tokens.device
+    tp = plan_of(params)
     if not _top_streamed:
         params = _stream_top_level(cfg, params, device)
-    x, positions = embed(cfg, params, tokens, positions)
+    x, positions = embed(cfg, params, tokens, positions, tp)
     keys = [None] * (L + 1) if rng is None else [_fold(rng, i) for i in range(L + 1)]
     x = _dropout(x, cfg.hidden_dropout, keys[L], row_offset)
-    attn_fn = _attention_dispatch(cfg, device)
+    attn_fn = _attention_dispatch(cfg, device, tp)
     fused_bias = getattr(attn_fn, "handles_fused_bias", False)
     # the flash dispatch computes ALiBi and windows from positions in the
     # kernel: no [S, S] bias tensor is made
-    bias = None if fused_bias else attn_bias(cfg, S, device)
+    bias = None if fused_bias else attn_bias(cfg, S, device, tp)
     has_local = cfg.local_attn_window > 0 and cfg.local_attn_layers is not None
     local_bias = _local_attn_bias(cfg, S, device) if has_local and not fused_bias else None
     pld_keep = [None] * L
@@ -674,7 +706,7 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
         for i in idx:
             is_local = bool(cfg.local_attn_layers[i]) if has_local else None
             x = _layer_body(cfg, layer(i), x, bias, positions, attn_fn, is_local, local_bias,
-                            keys[i], pld_keep[i], row_offset)
+                            keys[i], pld_keep[i], row_offset, tp)
         return x
 
     remat = cfg.remat and cfg.remat_policy != "everything_saveable" and torch.is_grad_enabled()
@@ -694,16 +726,18 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
     if return_hidden:
         return x
     with cost.scope("lm_head"):
-        return _project(params, x)
+        return _project(params, x, tp)
 
 
 # ---------------------------------------------------------------------------
 # KV-cache decoding
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, device="cpu"):
-    """An empty KV cache for ``batch`` sequences of up to ``max_len``."""
-    shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, device="cpu",
+               heads: Optional[int] = None):
+    """An empty KV cache for ``batch`` sequences of up to ``max_len``, of
+    ``heads`` heads (default the model's; a tensor-parallel rank's own)."""
+    shape = (cfg.num_layers, batch, max_len, heads or cfg.num_heads, cfg.head_dim)
     dtype = dtype or cfg.dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -829,17 +863,18 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
         )
     B, T = tokens.shape
     device = tokens.device
+    tp = plan_of(params)
     params = _stream_top_level(cfg, params, device)
     Smax = cache["k"].shape[2]
     pos = _on_device(pos, device).to(torch.int32)
     vector_pos = pos.ndim >= 1
     arange_t = torch.arange(T, device=device, dtype=torch.int32)
     positions = (pos[:, None] if vector_pos else pos) + arange_t[None, :].expand(B, T)
-    x, _ = embed(cfg, params, tokens, positions)
+    x, _ = embed(cfg, params, tokens, positions, tp)
 
     bias = None
     if cfg.pos_emb == "alibi":
-        slopes = alibi_slopes(cfg.num_heads, device)
+        slopes = _slopes(cfg, device, tp)
         dist = (torch.arange(Smax, device=device)[None, None, :] - positions[:, :, None]).float()
         bias = slopes[None, :, None, None] * dist[:, None]  # [B, H, T, Smax]
 
@@ -858,19 +893,19 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
             attn = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, pos)[:, None]
         else:
             attn = cached_attention(q, k_cache, v_cache, pos, bias=bias)
-        attn_out = _attn_out_proj(cfg, lp, attn)
+        attn_out = _attn_out_proj(cfg, lp, attn, tp)
         if cfg.parallel_residual:
             h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-            x = x + attn_out + _ffn(cfg, lp, h2)
+            x = x + attn_out + _ffn(cfg, lp, h2, tp)
         else:
             x = x + attn_out
             h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-            x = x + _ffn(cfg, lp, h2)
+            x = x + _ffn(cfg, lp, h2, tp)
     if last_index is not None:
         x = x.index_select(1, _clamped(last_index, 0, T - 1, device).reshape(1))
     elif last_only:
         x = x[:, -1:]
-    return _lm_head(cfg, params, x), cache
+    return _lm_head(cfg, params, x, tp), cache
 
 
 # ---------------------------------------------------------------------------

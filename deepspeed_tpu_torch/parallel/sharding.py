@@ -16,9 +16,17 @@ Stage -> rules (as in JAX):
   stage 2: + gradients reduce-scattered onto the same shards
   stage 3: params themselves sharded over (fsdp, data)
 
+Tensor-parallel serving reads the same rules: ``heads``, ``mlp``,
+``ffn_in`` and ``vocab`` go on ``model`` where it divides them, and the
+serving engine's KV caches take ``kv_slot_cache_spec`` /
+``kv_prefix_pool_spec`` (heads over ``model``). ``local_shape`` and
+``local_slices`` give one rank's part of a tensor by its spec.
+``constrain`` (JAX's ``with_sharding_constraint`` over a tree) is called
+only by the training engine and comes with tensor-parallel training.
+
 A mesh here is anything with a ``shape`` mapping (a ``comm.Mesh``) or the
-mapping itself. The tensor-parallel specs (the KV-cache specs and
-``constrain``) come with the tensor-parallel slice.
+mapping itself; ``local_slices`` also needs a rank's coordinates, so a
+``comm.Mesh``.
 """
 
 from __future__ import annotations
@@ -148,3 +156,60 @@ def spec_axes(spec: Spec) -> tuple:
         return ()
     a = spec[d]
     return (a,) if isinstance(a, str) else tuple(a)
+
+
+def kv_slot_cache_spec(mesh, n_slots: int, num_heads: int) -> Spec:
+    """The spec of the serving engine's slot KV cache [L, n_slots, Smax, H,
+    Dh] (JAX ``sharding.py:154``): slots over the data axes when their
+    product divides ``n_slots``, heads over ``model`` when it divides
+    ``num_heads``; an axis that does not divide leaves its dimension whole.
+    Five entries, as JAX's ``PartitionSpec`` holds them."""
+    ms = _shape_of(mesh)
+    batch_axes = tuple(a for a in ("data", "fsdp") if ms.get(a, 1) > 1)
+    size = int(np.prod([ms[a] for a in batch_axes])) if batch_axes else 1
+    slot_axes = batch_axes if (batch_axes and size > 1 and n_slots % size == 0) else ()
+    model_size = ms.get("model", 1)
+    head_ax = "model" if (model_size > 1 and num_heads % model_size == 0) else None
+    slot = slot_axes if len(slot_axes) > 1 else (slot_axes[0] if slot_axes else None)
+    return (None, slot, None, head_ax, None)
+
+
+def kv_prefix_pool_spec(mesh, n_prefix_slots: int, num_heads: int) -> Spec:
+    """The prefix pool [L, n_prefix_slots, Pmax, H, Dh] takes the slot
+    cache's rule (JAX ``sharding.py:172``), so the copies between the two
+    stay on each rank's own heads."""
+    return kv_slot_cache_spec(mesh, n_prefix_slots, num_heads)
+
+
+def _entry_axes(entry) -> tuple:
+    return () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def local_shape(shape: tuple, spec: Spec, mesh) -> tuple:
+    """The shape of one rank's part of a tensor of ``shape`` under
+    ``spec``: each split dimension divided by its axes' product."""
+    ms = _shape_of(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        n = int(np.prod([ms[a] for a in _entry_axes(entry)])) if entry is not None else 1
+        if out[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(shape)} is not divisible by {n} ({entry})")
+        out[d] //= n
+    return tuple(out)
+
+
+def local_slices(shape: tuple, spec: Spec, mesh, rank=None) -> tuple:
+    """The index (one slice a dimension) of ``rank``'s part (default: the
+    mesh's own rank) of a tensor of ``shape`` under ``spec``; over an axis
+    tuple the first axis is major, as JAX tiles it."""
+    out = []
+    for d, dim in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        if entry is None:
+            out.append(slice(None))
+            continue
+        axes = _entry_axes(entry)
+        n = mesh.axis_size(axes)
+        i = mesh.axis_index(axes, rank)
+        out.append(slice(i * (dim // n), (i + 1) * (dim // n)))
+    return tuple(out)

@@ -1195,7 +1195,7 @@ _UNPORTED_BLOCKS = ("eigenvalue", C.MONITOR_TENSORBOARD, C.MONITOR_WANDB)
 
 # the mesh axes of the paths not ported yet, refused above 1 by name
 _UNPORTED_AXES = {"pipe": "pipeline parallelism", "context": "context parallelism (ring/Ulysses attention)",
-                  "model": "tensor parallelism"}
+                  "model": "tensor parallelism in training (serving takes tp_size through init_inference)"}
 
 
 @dataclass

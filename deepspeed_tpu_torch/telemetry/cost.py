@@ -281,4 +281,13 @@ class CostCounter(TorchDispatchMode):
         return out
 
 
+# TorchDispatchMode wraps a subclass's __torch_dispatch__ in
+# torch._disable_dynamo, whose first call imports torch._dynamo (with sympy
+# and DTensor): seconds of every fresh process's first counted program.
+# Nothing in the port compiles with dynamo, so the counter keeps its plain
+# method.
+CostCounter.__torch_dispatch__ = getattr(CostCounter.__torch_dispatch__, "__wrapped__",
+                                         CostCounter.__torch_dispatch__)
+
+
 __all__ = ["CostCounter", "counting", "kernel", "paused", "scope", "tensor_bytes"]

@@ -3,10 +3,13 @@
 ``launcher/launch.py`` (and any DeepSpeed-style launcher) sets
 ``WORLD_SIZE`` and ``DSTPU_NUM_PROCESSES`` for every process it starts.
 Training takes such a world (``comm.init_distributed`` joins it and the
-engine shards over it). Serving at a world above 1 is tensor-parallel
-serving (``tp_size > 1``), which comes with the tensor-parallel slice, so
-``init_inference`` refuses such a world by name instead of silently
-serving as a world of one.
+engine shards over it). Serving takes a world of exactly ``tp_size``
+processes: tensor-parallel serving, one rank a device, over the mesh
+``MeshConfig(data=-1, model=tp_size)``. Any other world would put a
+``data`` axis above 1 under the server (data-parallel serving, where the
+JAX engine spreads the batch's rows), which is not ported, so
+``init_inference`` refuses it by name instead of silently serving as a
+world of ``tp_size``.
 """
 
 from __future__ import annotations
@@ -27,13 +30,14 @@ def launcher_world_size() -> tuple[int, str]:
     return world, key
 
 
-def refuse_multi_process_world(what: str) -> int:
-    """Raise ``NotImplementedError`` when the launcher's world is above 1,
-    else return 1 (the world the caller serves)."""
+def refuse_multi_process_world(what: str, tp_size: int = 1) -> int:
+    """Raise ``NotImplementedError`` when the launcher's world is above 1
+    and is not ``tp_size``, else return the world (1, or ``tp_size``)."""
     world, key = launcher_world_size()
-    if world > 1:
+    if world > 1 and world != tp_size:
         raise NotImplementedError(
-            f"{what}: the launcher's world is {world} processes ({key}={world}); serving over several "
-            "processes is tensor-parallel serving (tp_size > 1), which is not ported to deepspeed_tpu_torch "
-            "yet (it comes with the tensor-parallel slice). Launch one process (WORLD_SIZE=1).")
-    return 1
+            f"{what}: the launcher's world is {world} processes ({key}={world}) but tp_size is {tp_size}: "
+            f"serving over a world other than tp_size would give the mesh a data axis of {world / tp_size:g} "
+            "(data-parallel serving), which is not ported to deepspeed_tpu_torch yet; tensor-parallel serving "
+            f"takes a world of exactly tp_size processes (launch {key}=tp_size), or launch one process.")
+    return world

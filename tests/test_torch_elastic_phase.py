@@ -29,7 +29,7 @@ def test_phase23_rehearses_on_the_cpu(capsys):
     printed = capsys.readouterr().out
     assert out["flash"] == [0, 0, 0] and out["xent"] == [0] * 5 and out["sparse"] == [0, 0, 0]
     assert out["decode"] == (0, 0) and out["seconds"] > 0
-    for line in ("runner -> launch -> worker, 2 steps, rc 0", "crash drill", "hang drill",
+    for line in ("runner -> launch -> worker, 6 steps uninterrupted", "crash drill", "hang drill",
                  "replay_repro reproduces it bit-identically"):
         assert line in printed
     assert printed.count("green twice, one digest") == smoke.CHAOS_SCHEDULES

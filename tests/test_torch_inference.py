@@ -68,8 +68,10 @@ def test_sequence_budget_and_unported_options_raise(engines):
     with pytest.raises(ValueError):
         teng.generate(_prompt(S=100), max_new_tokens=29)
     cfg = TransformerConfig(**TINY)
-    for config in ({"tensor_parallel": {"tp_size": 2}}, {"quantize": {"enabled": True}}):
-        with pytest.raises(NotImplementedError):
+    # tensor parallelism runs a process a rank: tp_size 2 in one process is refused by name
+    for config, what in (({"tensor_parallel": {"tp_size": 2}}, "tp_size=2 in a single process"),
+                         ({"quantize": {"enabled": True}}, "quantization")):
+        with pytest.raises(NotImplementedError, match=what):
             init_inference(Model(cfg), config=config, device="cpu")
     with pytest.raises(ValueError):
         init_inference(Model(cfg), config={"dtype": "int8"}, device="cpu")

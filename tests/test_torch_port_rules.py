@@ -5,7 +5,9 @@ and runs a serving step, a two-replica Router with a journal through a
 replica's death, a disaggregated Router with the flight recorder on, a bf16
 KV window through the int8 codec with no ``ml_dtypes``, a flash training step and a block-sparse training step
 fed by the curriculum and the dataloader; two such processes take a
-data-parallel ZeRO-3 step in a gloo world; the serving worker's, the
+data-parallel ZeRO-3 step in a gloo world, and two serve at tp_size 2
+(generate and the ServingEngine's driver and follower); the serving
+worker's, the
 launchers', the elastic inspector's, the chaos conductor's, the report
 CLI's and env_report's ``python -m`` entry points run with JAX blocked
 too; the training step there carries the program ledger, the timers and
@@ -145,6 +147,52 @@ def test_data_parallel_world2_stage3_step_without_jax(tmp_path):
     assert len(losses) == 1, losses
 
 
+_TP_RANK = """
+import sys
+sys.modules["jax"] = None          # any import of jax now raises ImportError
+sys.modules["deepspeed_tpu"] = None
+import numpy as np
+import deepspeed_tpu_torch as pkg
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.inference import Request, ServingEngine
+from deepspeed_tpu_torch.models.transformer import Model, TransformerConfig
+rank, store = int(sys.argv[1]), sys.argv[2]
+comm.init_distributed(init_method="file://" + store, world_size=2, rank=rank, backend="gloo", timeout_s=60.0)
+eng = pkg.init_inference(Model(TransformerConfig(**TINY)), config={"dtype": "fp32", "tensor_parallel": {"tp_size": 2}},
+                         device="cpu")
+assert eng.heads == 2 and eng.params["layers"]["wq"].shape[2] == 2
+out = eng.generate(np.arange(10, dtype=np.int32).reshape(2, 5), max_new_tokens=4)
+srv = ServingEngine(eng, config={"n_slots": 2, "prefix_cache": {"enabled": True}, "speculation": {"enabled": True}})
+res = srv.serve([Request(uid=i, prompt=np.arange(5 + i, dtype=np.int32), max_new_tokens=3) for i in range(3)])
+assert all(r.ok for r in res.values())
+assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
+print("OUT", out.tolist(), sorted((u, r.tokens.tolist()) for u, r in res.items()))
+srv.close()
+comm.destroy_distributed()
+"""
+
+
+def test_tensor_parallel_world2_generate_and_serve_without_jax(tmp_path):
+    """Two ranks, each a process with jax and the JAX package blocked, serve
+    at tp_size 2 over gloo: generate, then the ServingEngine (the driver
+    and its follower); both return the same tokens."""
+    script = "TINY = " + repr(TINY) + "\n" + _TP_RANK
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), str(tmp_path / "store")], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(o[-2000:] for o in outs)
+    got = {next(line for line in o.splitlines() if line.startswith("OUT")) for o in outs}
+    assert len(got) == 1, got
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -220,7 +268,7 @@ def test_launch_elastic_and_chaos_entry_points_run_without_jax():
     assert "micro_batch_per_chip=16" in proc.stdout and '"schedules_run": 2' in proc.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "torch_dp_worker.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_jax_package_imports(path):
     bad = [m for m in _imported_modules(path)

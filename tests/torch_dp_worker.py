@@ -1,10 +1,13 @@
-"""One rank of a gloo world for the port's data-parallel CPU tests
-(``test_torch_comm.py``, ``test_torch_zero.py``, ``test_torch_zero_init.py``).
+"""One rank of a gloo world for the port's data- and tensor-parallel CPU
+tests (``test_torch_comm.py``, ``test_torch_zero.py``,
+``test_torch_zero_init.py``, ``test_torch_tensor_parallel.py``,
+``test_torch_tp_serving.py``).
 
     python tests/torch_dp_worker.py JOB SPEC.json RANK WORLD
 
 joins the world through the FileStore named in the spec, runs JOB
-(``comm``, ``zero`` or ``zero_init``) and writes ``<out>/rank<RANK>.npz``
+(``comm``, ``zero``, ``zero_init``, ``tp_engine`` or ``tp_serving``) and
+writes ``<out>/rank<RANK>.npz``
 (and a JSON sidecar). It imports the port only: never jax or the JAX
 package. The tests start the ranks with ``subprocess`` (never ``fork``: the
 test workers have JAX's threads running), once per test module.
@@ -174,23 +177,129 @@ def zero_init_job(spec, rank, world) -> tuple[dict, dict]:
     return out, meta
 
 
+def tp_engine_job(spec, rank, world) -> tuple[dict, dict]:
+    """Tensor parallelism at tp = WORLD: the TP layers against the dense
+    product, then for each case an engine over the JAX weights (the full
+    tree, sliced by the engine): forward logits, greedy generate, and the
+    rank's shards of ``wq``, ``wo`` and ``wte``."""
+    from deepspeed_tpu_torch import init_inference, interop
+    from deepspeed_tpu_torch.module_inject import LinearAllreduce, LinearLayer
+
+    lay = dict(np.load(spec["layers"]))
+    mesh = comm.build_mesh(comm.MeshConfig(data=-1, model=world), axes_list=comm.mesh.SERVING_AXES)
+    col, row = LinearLayer(mesh=mesh), LinearAllreduce(mesh=mesh)
+    p1 = col.shard(torch.from_numpy(lay["w1"]), torch.from_numpy(lay["b1"]))
+    p2 = row.shard(torch.from_numpy(lay["w2"]), torch.from_numpy(lay["b2"]))
+    out = {"layers::y": row.apply(p2, col.apply(p1, torch.from_numpy(lay["x"]))).numpy(),
+           "layers::w1_shard": p1["w"].numpy(), "layers::w2_shard": p2["w"].numpy()}
+    meta = {}
+    for case in spec["cases"]:
+        name = case["name"]
+        params = _unflatten(dict(np.load(case["params"])))
+        cfg = tfm.TransformerConfig(**case["model"], dtype=torch.float32)
+        eng = init_inference(tfm.Model(cfg), config={"dtype": "fp32", "tensor_parallel": {"tp_size": world}},
+                             params=params, device="cpu")
+        tokens = np.asarray(case["tokens"], np.int32)
+        out[f"{name}::logits"] = eng.forward(tokens).numpy()
+        out[f"{name}::generate"] = eng.generate(tokens, max_new_tokens=case["max_new"])
+        out[f"{name}::sampled"] = eng.generate(tokens, max_new_tokens=case["max_new"], temperature=0.9, top_k=20)
+        # the same weights handed over as this rank's slices (interop), never whole
+        flat = dict(np.load(case["params"]))
+        tree: dict = {}
+        for key, arr in flat.items():
+            node = tree
+            *parents, leaf = key.split("::")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = arr
+        shards = interop.tp_params_from_jax(tree, tfm.Model(cfg), comm.current_mesh())
+        from_shards = init_inference(tfm.Model(cfg), config={"dtype": "fp32", "tensor_parallel": {"tp_size": world}},
+                                     params=shards, device="cpu")
+        out[f"{name}::logits_from_shards"] = from_shards.forward(tokens).numpy()
+        for leaf in ("wq", "wo"):
+            out[f"{name}::shard::{leaf}"] = eng.params["layers"][leaf].numpy()
+        out[f"{name}::shard::wte"] = eng.params["wte"].numpy()
+        meta[name] = {"heads": eng.heads, "split": {k: eng.tp.split(*k.split("/")) for k in
+                                                    ("wte", "layers/wq", "layers/wo", "layers/wi", "layers/wo_mlp")}}
+    return out, meta
+
+
+def _tp_results(res: dict) -> dict:
+    return {int(u): {"tokens": np.asarray(r.tokens).tolist(), "status": r.status,
+                     "prefix_hit_tokens": int(r.prefix_hit_tokens), "requeues": int(r.requeues),
+                     "prompt_len": int(r.prompt_len), "slot": int(r.slot)} for u, r in res.items()}
+
+
+def tp_serving_job(spec, rank, world) -> tuple[dict, dict]:
+    """The ``ServingEngine`` at tp = WORLD over the JAX weights: the
+    driver (rank 0) serves the requests, every rank returns its results;
+    then a driver that raises inside ``serve`` (its followers must raise),
+    then a follower left waiting by a driver that has gone."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import Request, ServingEngine
+
+    params = _unflatten(dict(np.load(spec["params"])))
+    cfg = tfm.TransformerConfig(**spec["model"], dtype=torch.float32)
+    eng = init_inference(tfm.Model(cfg), config={"dtype": "fp32", "tensor_parallel": {"tp_size": world}},
+                         params=params, device="cpu")
+    srv = ServingEngine(eng, config=spec["serving"])
+    reqs = [Request(**{**r, "prompt": np.asarray(r["prompt"], np.int32)}) for r in spec["requests"]]
+    srv.warm_decode()
+    depths = srv.warm_verify()
+    res = srv.serve(reqs)
+    snap = srv.telemetry_snapshot()
+    meta = {"results": _tp_results(res), "depths": depths, "decode_route": snap["decode_route"],
+            "tensor_parallel": snap["tensor_parallel"], "compiles": srv.compile_counts()["decode"],
+            "cache_heads": int(srv.worker._cache["k"].shape[3]), "pool_heads": int(srv.worker._pool["k"].shape[3]),
+            "spec": list(srv.worker.spec), "comm": comm.comms_logger.prof_ops if comm.comms_logger.enabled else {}}
+    if rank == 0:  # a driver that raises mid-serve still sends its closing message
+        def planted(*a, **k):
+            raise RuntimeError("planted driver fault")
+        srv._step = planted
+    try:
+        srv.serve([Request(uid=100, prompt=reqs[0].prompt, max_new_tokens=2)])
+        meta["raised"] = ""
+    except RuntimeError as e:
+        meta["raised"] = str(e)
+    _write(spec, rank, {}, meta)
+    # the driver leaves without a closing message: a follower's wait for
+    # its next call must raise, not hang
+    if rank > 0:
+        try:
+            srv.follow()
+            left = "returned"
+        except RuntimeError as e:
+            left = str(e)
+        with open(os.path.join(spec["out"], f"rank{rank}.left.txt"), "w") as f:
+            f.write(left)
+    os._exit(0)
+
+
+def _write(spec, rank, arrays, meta) -> None:
+    np.savez(os.path.join(spec["out"], f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(meta, f)
+
+
 def main() -> int:
     job, spec_path, rank, world = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
     with open(spec_path) as f:
         spec = json.load(f)
     comm.init_distributed(init_method=f"file://{spec['store']}", world_size=world, rank=rank, backend="gloo",
-                          timeout_s=300.0)
+                          timeout_s=float(spec.get("timeout_s", 300.0)))
     if job == "comm":
         arrays, meta = comm_job(spec, rank, world), {}
     elif job == "zero":
         arrays, meta = zero_job(spec, rank, world)
     elif job == "zero_init":
         arrays, meta = zero_init_job(spec, rank, world)
+    elif job == "tp_engine":
+        arrays, meta = tp_engine_job(spec, rank, world)
+    elif job == "tp_serving":
+        arrays, meta = tp_serving_job(spec, rank, world)
     else:
         raise SystemExit(f"unknown job {job!r}")
-    np.savez(os.path.join(spec["out"], f"rank{rank}.npz"), **arrays)
-    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
-        json.dump(meta, f)
+    _write(spec, rank, arrays, meta)
     comm.barrier()
     comm.destroy_distributed()
     return 0

@@ -317,12 +317,32 @@ Phases, each of which passes or makes the script exit non-zero:
      beside tp 1's, 12 + 12 decode launches a step on each rank, and a
      decode step's all-reduces, all-gather and bytes against the
      reckoning (``tp_reckoning``). No scaling is claimed: one card, gloo.
+ 28. tensor-parallel training (comm's conjugate collectives, the TP layers
+     under autograd, the vocab-parallel loss, partition_activations, ZeRO x
+     TP, TP-sharded checkpoints): gloo worlds sharing the card (this script
+     in its hidden ``--tp-train-worker`` mode), booted while this process
+     runs tp 1 on the same global batches. (a) tp 2 at phase 7's model (6
+     heads and 25152 vocab rows a rank), ZeRO 1, batch 8 = micro 4 x gas 2,
+     one warm-up and 3 timed steps: each rank's losses within
+     ``TPT_LOSS_GAP`` of tp 1's, and the first batch's loss with model
+     index 1's wo shard zeroed beyond it; 24 launches of each flash kernel
+     per train_batch on each rank and none of the fused loss (whose config
+     falls back to the chunked loss here, as reported); ms/step, peak
+     memory and each rank's parameter and optimizer-state bytes beside tp
+     1's; the collectives over ``model`` a step against the reckoning
+     (``tp_train_reckoning``). (b) data 2 x model 2 under ZeRO 3 with
+     dots_and_flash remat and partition_activations, batch 16: losses
+     within the limit; the saved layer boundaries' bytes a rank half of
+     those without partition_activations, and the peak memory both ways;
+     the state saved there loaded at world 1, whose next loss is (b)'s
+     within the limit. No scaling is claimed: one card, gloo.
 Every phase prints its seconds (``phase N: S s``), and the script its
 total.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
 line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, an
 ``{"elastic": {...}}`` line, a ``{"chaos": {...}}`` line, a ``{"profiling": {...}}`` line, a
-``{"zero": {...}}`` line, a ``{"tensor_parallel": {...}}`` line, a ``{"kernels": [...]}`` line, a
+``{"zero": {...}}`` line, a ``{"tensor_parallel": {...}}`` line, a
+``{"tensor_parallel_training": {...}}`` line, a ``{"kernels": [...]}`` line, a
 ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
@@ -6223,6 +6243,328 @@ def tensor_parallel_phase(dev, smi, model="gpt2"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: tensor-parallel training
+# ---------------------------------------------------------------------------
+
+# (a) tp 2 alone at phase 7's model: global batch 8 = micro 4 x gas 2, ZeRO 1;
+# (b) data 2 x model 2 under ZeRO 3 with dots_and_flash remat and
+# partition_activations: global batch 16 = 2 x micro 4 x gas 2
+TPT_CASES = {"a": {"data": 1, "tp": 2, "micro": 4, "gas": 2, "stage": 1},
+             "b": {"data": 2, "tp": 2, "micro": 4, "gas": 2, "stage": 3}}
+# timed steps after one warm-up, whose losses are compared too; (b)'s steps
+# take ~6 s under gloo, so it times 2
+TPT_STEPS = {"a": 3, "b": 2}
+TPT_REMAT = {"enabled": True, "policy": "dots_and_flash"}
+# each rank's losses against tp 1's on the same global batches, relative, by
+# model: fp32 at the tiny size (the CPU rehearsal) sums in another order
+# only; at GPT-2 width in bf16 each rank rounds its partial products (read
+# 2.90e-5 over (a)'s 4 steps on an H100, the wrong-shard control 7.16e-4)
+TPT_LOSS_GAP = {"gpt2": 2e-4, "tiny": 1e-5}
+TPT_TINY = dict(vocab_size=96, max_seq_len=64, num_layers=2, num_heads=4, hidden_size=64, dtype=torch.float32,
+                attn_impl="flash", loss_chunk_size=16)
+
+
+def tpt_model(model):
+    return gpt2_config() if model == "gpt2" else TransformerConfig(**TPT_TINY)
+
+
+def tpt_config(case, model, reference=False, partition=True):
+    """The case's config on its mesh, or for the ``reference`` at tp 1 (one
+    process, the same global batch: the micro-batches of every data index
+    in one)."""
+    c = TPT_CASES[case]
+    rows = c["micro"] * c["gas"] * c["data"]
+    micro = c["micro"] * c["data"] if reference else c["micro"]
+    ds = dp_config(c["stage"], rows, micro, c["gas"], BENCH_DS if model == "gpt2" else DP_TINY_DS)
+    if not reference:
+        ds["mesh"] = {"data": c["data"], "model": c["tp"]}
+    if case == "b":
+        ds["activation_checkpointing"] = {**TPT_REMAT, "partition_activations": partition}
+    return ds
+
+
+class BoundaryMeter:
+    """Counts the bytes of the layer regions' inputs that the model's
+    checkpoints keep for their recompute (the saved boundaries), by
+    wrapping the ``checkpoint`` the model calls."""
+
+    def __init__(self):
+        self.bytes = 0
+        self._orig = None
+
+    def __enter__(self):
+        self._orig = orig = tfm.checkpoint
+
+        def counted(fn, *args, **kw):
+            if getattr(fn, "__name__", "") == "run":  # a layer region (the loss chunks are not boundaries)
+                self.bytes += args[0].numel() * args[0].element_size()
+            return orig(fn, *args, **kw)
+
+        tfm.checkpoint = counted
+        return self
+
+    def __exit__(self, *exc):
+        tfm.checkpoint = self._orig
+
+
+def tp_train_reckoning(cfg, micro, gas) -> dict:
+    """The collectives a train_batch logs over ``model`` at ZeRO 1 without
+    remat (case a), written before the first run in PERF.md. Per micro-batch
+    and 2L + 1 of each: the forward's reduce of the embedding and of each
+    layer's two row-parallel products, the backward's all-reduce of each
+    column-parallel input's gradient (q/k/v's, wi's, the head's), all of
+    micro x S x D fp32; then per loss chunk three all-reduces of micro x
+    chunk fp32 (the max, the sum of exponentials, the gold logit), in the
+    forward and again in the chunk's recompute. Keyed as the comms logger
+    keys them over ``model``."""
+    S, D, L = cfg.max_seq_len, cfg.hidden_size, cfg.num_layers
+    chunk = cfg.loss_chunk_size
+    chunks = S // chunk if chunk and S % chunk == 0 and S > chunk else 1
+    big = 2 * (2 * L + 1)
+    row = micro * (S // chunks) * 4  # one loss all-reduce's bytes
+    return {"all_reduce[sum]": {"count": gas * (big + 4 * chunks),
+                                "bytes": gas * (big * micro * S * D * 4 + 4 * chunks * row)},
+            "all_reduce[max]": {"count": gas * 2 * chunks, "bytes": gas * 2 * chunks * row}}
+
+
+def tp_train_worker(args) -> int:
+    """``--tp-train-worker``: one rank of phase 28's case ``--tpt-case``
+    (a: tp 2; b: data 2 x model 2). Joins the gloo world through
+    ``--store`` and waits for ``--wait-for`` (the card to itself); (a) the
+    wrong-shard control (model index 1's ``wo`` zeroed, the first batch's
+    loss), then one warm-up and ``TPT_STEPS`` timed steps with the flash
+    launches and the collectives counted; (b) the same with partition_
+    activations, the saved boundaries' bytes and the peak memory, a save
+    into ``--save-dir`` and the next step, then a warm-up and one step
+    without partition_activations. Appends one JSON record to ``--out``."""
+    from deepspeed_tpu_torch import comm
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(init_method=f"file://{args.store}", world_size=world, rank=rank, backend="gloo",
+                          timeout_s=600.0)
+    deadline = time.monotonic() + 900
+    while not os.path.exists(args.wait_for):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"phase 28: no {args.wait_for} within 900 s")
+        time.sleep(0.05)
+    case = args.tpt_case
+    cfg = tpt_model(args.model)
+    params = dp_params(cfg)
+    rec = {"rank": rank, "world": world, "case": case, "kind": torch.cuda.get_device_name(dev) if cuda else "cpu"}
+    runs = (True, False) if case == "b" else (True,)
+    for partition in runs:
+        engine = deepspeed_tpu_torch.initialize(model=Model(cfg), config=tpt_config(case, args.model,
+                                                                                  partition=partition),
+                                                model_parameters=tree_map(lambda t: t.clone(), params),
+                                                device=dev)[0]
+        entry = {"heads": engine.tp.heads(cfg.num_heads), "vocab_rows": int(engine.tp.full_shapes["wte"][0]
+                                                                             // engine.tp.size),
+                 "model_index": engine.tp.index, "dp_rank": engine.dp_rank, "state_bytes": state_bytes(engine),
+                 "fused_fallback": list(tfm.effective_loss_impl(cfg.replace(loss_impl="fused_xent"),
+                                                                n_rows=engine.micro_batch_size * cfg.max_seq_len,
+                                                                mesh=engine.mesh))}
+        if case == "a":  # the control: one rank's row-parallel heads wrong
+            wo = engine.state["params"]["layers"]["wo"]
+            keep = wo.clone()
+            if engine.tp.index == 1:
+                wo.zero_()
+            entry["wrong_shard_loss"] = float(engine.eval_batch(dp_batch(cfg, engine.train_batch_size, 0)))
+            wo.copy_(keep)
+            del keep
+        # without partition_activations (b) takes one step after its warm-up,
+        # for its peak and its boundaries only
+        steps = TPT_STEPS[case] if partition else 1
+        with BoundaryMeter() as meter:
+            warm_s, step_ms, losses, per_step, per, peak, ops = dp_steps(engine, cfg, steps)
+        entry.update(warmup_s=warm_s, step_ms=step_ms, losses=losses, launches=per_step, comm_per_step=per,
+                     comm_ops=ops, peak_bytes=peak, boundary_bytes_per_train_batch=meter.bytes // (steps + 1))
+        if case == "b" and partition:
+            engine.save_checkpoint(args.save_dir, tag="tp_b")
+            entry["next_loss"] = float(engine.train_batch(dp_batch(cfg, engine.train_batch_size,
+                                                                   steps + 1))["loss"])
+        rec["partition" if partition and case == "b" else "plain" if case == "b" else "run"] = entry
+        del engine
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    with open(args.out, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    comm.destroy_distributed()
+    return 0
+
+
+def _tpt_fail(what):
+    raise SystemExit(f"phase 28: {what}")
+
+
+def tpt_reference(dev, cfg, model, case):
+    """tp 1 in this process on the case's global batches: (warm-up s, ms a
+    step, losses, per-step launches, peak bytes, state bytes, engine)."""
+    engine = deepspeed_tpu_torch.initialize(model=Model(cfg), config=tpt_config(case, model, reference=True),
+                                            model_parameters=dp_params(cfg), device=dev)[0]
+    with BoundaryMeter() as meter:
+        warm_s, step_ms, losses, per_step, per, peak, ops = dp_steps(engine, cfg, TPT_STEPS[case])
+    return {"warmup_s": warm_s, "step_ms": step_ms, "losses": losses, "launches": per_step, "peak_bytes": peak,
+            "state_bytes": state_bytes(engine),
+            "boundary_bytes_per_train_batch": meter.bytes // (TPT_STEPS[case] + 1)}
+
+
+def rel_gap(got, ref) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(got, ref))
+
+
+def tensor_parallel_training_phase(dev, smi, model="gpt2"):
+    """Phase 28. The gloo worlds of (a) tp 2 and (b) data 2 x model 2
+    (``--tp-train-worker`` processes, all on ``dev``) boot first and wait;
+    meanwhile this process runs tp 1 on each case's global batches. Then
+    (a) runs alone on the card, then (b); then (b)'s saved state is loaded
+    here at world 1 and takes the next step. Checks: each rank's losses
+    within ``TPT_LOSS_GAP`` of tp 1's and the wrong-shard control above it;
+    each rank's flash forward, dK/dV and dQ launched 12 x gas times a
+    train_batch on its own heads and no other kernel; (a)'s collectives
+    over ``model`` as reckoned (``tp_train_reckoning``); (b)'s saved
+    boundaries about half of those without partition_activations; the
+    world-1 resume's next loss within the limit of (b)'s."""
+    cuda = dev.type == "cuda"
+    cfg = tpt_model(model)
+    L = cfg.num_layers
+    t_phase = time.perf_counter()
+    limit = TPT_LOSS_GAP[model]
+    out = {"config": {"model": model, "cases": TPT_CASES, "remat_b": TPT_REMAT, "steps": TPT_STEPS,
+                      "loss_gap": limit}}
+    with tempfile.TemporaryDirectory(prefix="dstt_tpt_") as tmp:
+        paths = {c: os.path.join(tmp, f"{c}.jsonl") for c in TPT_CASES}
+        go = {c: os.path.join(tmp, f"{c}.go") for c in TPT_CASES}
+        save_dir = os.path.join(tmp, "ckpt")
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)), "LOCAL_RANK": "0"}
+        procs = {}
+        for c, spec in TPT_CASES.items():
+            n = spec["data"] * spec["tp"]
+            cmd = [sys.executable, os.path.abspath(__file__), "--tp-train-worker", "--tpt-case", c, "--model", model,
+                   "--device", str(dev), "--out", paths[c], "--store", os.path.join(tmp, f"store_{c}"),
+                   "--wait-for", go[c], "--save-dir", save_dir]
+            procs[c] = [subprocess.Popen(cmd, env={**env, "WORLD_SIZE": str(n), "RANK": str(r)}) for r in range(n)]
+        try:
+            ref = {c: tpt_reference(dev, cfg, model, c) for c in TPT_CASES}
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            rcs = {}
+            for c in TPT_CASES:  # each world alone on the card
+                with open(go[c], "w") as f:
+                    f.write("go\n")
+                rcs[c] = [p.wait(timeout=900) for p in procs[c]]
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        out["ranks_s"] = time.perf_counter() - t_phase
+        if any(rc != 0 for r in rcs.values() for rc in r):
+            _tpt_fail(f"a rank failed: exit codes {rcs}")
+        ranks = {c: sorted((json.loads(line) for line in open(paths[c])), key=lambda r: r["rank"])
+                 for c in TPT_CASES}
+        # (b)'s state at world 1: its next loss against (b)'s
+        engine = deepspeed_tpu_torch.initialize(model=Model(cfg), config=tpt_config("b", model, reference=True),
+                                                device=dev)[0]
+        engine.load_checkpoint(save_dir, tag="tp_b")
+        resumed = float(engine.train_batch(dp_batch(cfg, engine.train_batch_size, TPT_STEPS["b"] + 1))["loss"])
+        del engine
+        gc.collect()
+
+    def launches_ok(per_step, gas):
+        want = ([L * gas] * 3 if cuda else [0] * 3) + [0] * (N_COUNTS - 3 + N_SPARSE)
+        return all(s == want for s in per_step)
+
+    # (a)
+    c = TPT_CASES["a"]
+    ra, r1 = ranks["a"], ref["a"]
+    gaps = [rel_gap(r["run"]["losses"], r1["losses"]) for r in ra]
+    control = [abs(r["run"]["wrong_shard_loss"] - r1["losses"][0]) / abs(r1["losses"][0]) for r in ra]
+    reck = tp_train_reckoning(cfg, c["micro"], c["gas"])
+    got, data_axes = {}, {}
+    for key, v in ra[0]["run"]["comm_ops"].items():
+        op, _, axis = key.partition("@")
+        per = {"count": v["count"] / TPT_STEPS["a"], "bytes": v["bytes"] / TPT_STEPS["a"]}
+        (got if axis == "model" else data_axes)[op if axis == "model" else key] = per
+    comm_ok = got == reck
+    a_launch_ok = all(launches_ok(r["run"]["launches"], c["gas"]) for r in ra)
+    heads_ok = all(r["run"]["heads"] == cfg.num_heads // c["tp"] for r in ra)
+    fallback = ra[0]["run"]["fused_fallback"]
+    entry_a = {"loss_gap_vs_tp1": gaps, "wrong_shard_gap": control, "losses": [r["run"]["losses"] for r in ra],
+               "tp1_losses": r1["losses"], "step_ms": [r["run"]["step_ms"] for r in ra], "tp1_step_ms": r1["step_ms"],
+               "peak_bytes": [r["run"]["peak_bytes"] for r in ra], "tp1_peak_bytes": r1["peak_bytes"],
+               "state_bytes": [r["run"]["state_bytes"] for r in ra], "tp1_state_bytes": r1["state_bytes"],
+               "launches_per_train_batch": [r["run"]["launches"][0] for r in ra],
+               "tp1_launches_per_train_batch": r1["launches"][0], "heads_per_rank": ra[0]["run"]["heads"],
+               "vocab_rows_per_rank": ra[0]["run"]["vocab_rows"], "comm_on_model_per_step": got,
+               "reckoning": reck, "comm_other_axes_per_step": data_axes, "fused_fallback": fallback,
+               "warmup_s": [r["run"]["warmup_s"] for r in ra]}
+    byte_share = [r["run"]["state_bytes"]["params"] / r1["state_bytes"]["params"] for r in ra]
+    opt_share = [r["run"]["state_bytes"]["opt_state"] / r1["state_bytes"]["opt_state"] for r in ra]
+    entry_a.update(params_share=byte_share, opt_share=opt_share)
+    print(f"  [{smi}] (a) tp 2 ({entry_a['heads_per_rank']} heads and {entry_a['vocab_rows_per_rank']} vocab rows a "
+          f"rank, ZeRO 1, batch {c['micro'] * c['gas']} = micro {c['micro']} x gas {c['gas']}): "
+          f"{[round(x, 1) for x in entry_a['step_ms']]} ms/step (tp 1 {r1['step_ms']:.1f}), peak "
+          f"{[round(x / 2**30, 3) for x in entry_a['peak_bytes'] if x] or 'n/a'} GiB (tp 1 "
+          f"{(r1['peak_bytes'] or 0) / 2**30:.3f}), parameter bytes {[round(x, 3) for x in byte_share]} and "
+          f"optimizer-state bytes {[round(x, 3) for x in opt_share]} of tp 1's; losses {entry_a['losses'][0]} vs tp 1 "
+          f"{r1['losses']}: gap {max(gaps):.3e} (limit {limit}); wrong-shard control {min(control):.3e} (must "
+          f"exceed it); launches a train_batch {COUNT_LABEL} {entry_a['launches_per_train_batch']} (expect "
+          f"{L} x {c['gas']} of each flash kernel); collectives over model a step {got} against {reck}; other axes "
+          f"{data_axes}; a fused_xent config here: {fallback}")
+    if not max(gaps) <= limit < min(control):
+        _tpt_fail(f"(a) loss gap {max(gaps)} against the limit {limit} (the wrong-shard control read "
+                  f"{min(control)})")
+    if not (a_launch_ok and heads_ok and comm_ok and fallback[0] == "chunked"):
+        _tpt_fail(f"(a) launches {a_launch_ok}, heads {heads_ok}, collectives {comm_ok} or the fused fallback "
+                  f"{fallback} failed")
+    out["a"] = entry_a
+
+    # (b)
+    c = TPT_CASES["b"]
+    rb, r1 = ranks["b"], ref["b"]
+    gaps = [rel_gap(r["partition"]["losses"], r1["losses"]) for r in rb]
+    part_b = [r["partition"]["boundary_bytes_per_train_batch"] for r in rb]
+    plain_b = [r["plain"]["boundary_bytes_per_train_batch"] for r in rb]
+    boundary_share = [p / q for p, q in zip(part_b, plain_b)]
+    next_losses = [r["partition"]["next_loss"] for r in rb]
+    resume_gap = abs(resumed - next_losses[0]) / abs(next_losses[0])
+    b_launch_ok = all(launches_ok(r[k]["launches"], c["gas"]) for r in rb for k in ("partition", "plain"))
+    entry_b = {"loss_gap_vs_tp1": gaps, "losses": [r["partition"]["losses"] for r in rb], "tp1_losses": r1["losses"],
+               "step_ms": [r["partition"]["step_ms"] for r in rb], "tp1_step_ms": r1["step_ms"],
+               "peak_bytes_partitioned": [r["partition"]["peak_bytes"] for r in rb],
+               "peak_bytes_whole": [r["plain"]["peak_bytes"] for r in rb], "tp1_peak_bytes": r1["peak_bytes"],
+               "boundary_bytes_partitioned": part_b, "boundary_bytes_whole": plain_b,
+               "boundary_share": boundary_share, "state_bytes": [r["partition"]["state_bytes"] for r in rb],
+               "launches_per_train_batch": [r["partition"]["launches"][0] for r in rb],
+               "next_losses": next_losses, "world1_resumed_next_loss": resumed, "resume_gap": resume_gap,
+               "comm_per_step": rb[0]["partition"]["comm_per_step"]}
+    print(f"  [{smi}] (b) data 2 x model 2, ZeRO 3, {TPT_REMAT['policy']} remat with partition_activations, batch "
+          f"{c['micro'] * c['gas'] * c['data']}: {[round(x, 1) for x in entry_b['step_ms']]} ms/step (tp 1 "
+          f"{r1['step_ms']:.1f}); losses {entry_b['losses'][0]} vs tp 1 {r1['losses']}: gap {max(gaps):.3e} (limit "
+          f"{limit}); saved boundaries a train_batch {part_b} bytes vs {plain_b} without "
+          f"partition_activations (share {[round(x, 3) for x in boundary_share]}); peak "
+          f"{[round((x or 0) / 2**30, 3) for x in entry_b['peak_bytes_partitioned']]} GiB vs "
+          f"{[round((x or 0) / 2**30, 3) for x in entry_b['peak_bytes_whole']]} GiB without; launches a "
+          f"train_batch {entry_b['launches_per_train_batch']}; the state saved here loaded at world 1: next loss "
+          f"{resumed:.6f} vs (b)'s {next_losses} (gap {resume_gap:.3e})")
+    if not (max(gaps) <= limit and resume_gap <= limit and b_launch_ok
+            and all(0.45 <= s <= 0.55 for s in boundary_share)):
+        _tpt_fail("(b) failed its checks")
+    out["b"] = entry_b
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"tensor_parallel_training": out}))
+    return out
+
+
 def cache_bytecode() -> str:
     """Let this process and the ones it starts (serving workers, training
     generations, ranks) cache the bytecode they compile, under
@@ -6270,6 +6612,9 @@ def main() -> int:
     ap.add_argument("--tp-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tp-serve", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--wait-for", default="", help=argparse.SUPPRESS)
+    # phase 28's ranks
+    ap.add_argument("--tp-train-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--tpt-case", default="a", choices=tuple(TPT_CASES), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.elastic_worker:
         return elastic_worker(args)
@@ -6277,6 +6622,8 @@ def main() -> int:
         return dp_worker(args)
     if args.tp_worker:
         return tp_worker(args)
+    if args.tp_train_worker:
+        return tp_train_worker(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on a GPU", file=sys.stderr)
         return 1
@@ -6486,6 +6833,15 @@ def main() -> int:
           f"{TP_SERVE_REQUESTS} requests of workload (a)")
     tpar = tensor_parallel_phase(dev, smi)
     phase_done(27)
+
+    print(f"[28] tensor-parallel training at GPT-2-125M width: (a) tp 2 (ZeRO 1, batch 8) and (b) data 2 x model 2 "
+          f"(ZeRO 3, {TPT_REMAT['policy']} remat, partition_activations, batch 16), gloo ranks sharing the card, "
+          f"against tp 1 on the same global batches; (b)'s state resumed at world 1")
+    tpt = tensor_parallel_training_phase(dev, smi)
+    phase_done(28)
+    training["tensor_parallel"] = tpt
+    tpt_launches = {**{f"a_rank{r}": v for r, v in enumerate(tpt["a"]["launches_per_train_batch"])},
+                    **{f"b_rank{r}": v for r, v in enumerate(tpt["b"]["launches_per_train_batch"])}}
     print(json.dumps({"zero": zero}))
     dp_launches = {**{f"world1_stage{s}": zero["a"][f"stage{s}"]["launches_per_train_batch"][0] for s in range(4)},
                    **{f"world2_stage{s}_rank{r}": zero["b"][f"stage{s}"]["ranks"][r]["launches"][0]
@@ -6505,6 +6861,7 @@ def main() -> int:
         "disagg_worker_launches": disagg["workers"],
         "chaos_launches": p23["decode"][0], "chaos_combine_launches": p23["decode"][1],
         "data_parallel_launches_per_train_batch": {k: v[3] for k, v in dp_launches.items()},
+        "tensor_parallel_training_launches_per_train_batch": {k: v[3] for k, v in tpt_launches.items()},
         "tensor_parallel_launches_per_generate": {f"tp{tp}": tpar[f"tp{tp}"]["launches_per_generate"]
                                                   for tp in TP_SIZES},
         "tensor_parallel_serving_launches_per_step": tpar["serve"]["launches_per_step"],
@@ -6538,6 +6895,8 @@ def main() -> int:
                                                       for k, v in tier_launches.items()},
             "data_parallel_launches_per_train_batch": {k: v[list(replaces).index(name)]
                                                        for k, v in dp_launches.items()},
+            "tensor_parallel_training_launches_per_train_batch": {k: v[list(replaces).index(name)]
+                                                                  for k, v in tpt_launches.items()},
             "hgmma": sass.get(MAIN_PATH_KERNEL[name], {}).get("hgmma", 0),
             "registers": sass.get(MAIN_PATH_KERNEL[name], {}).get("registers"),
             "spill_stores": sass.get(MAIN_PATH_KERNEL[name], {}).get("spill_stores"),
@@ -6574,6 +6933,10 @@ def main() -> int:
             k: ({"product": v[4], "combine": v[5]} if name == "fused_xent_forward"
                 else {"ds": v[6], "dH" if name == "fused_xent_backward_dh" else "dW": v[8 if name.endswith("dh") else 7]})
             for k, v in dp_launches.items()}
+        entry["tensor_parallel_training_launches_per_train_batch"] = {  # phase 28: the chunked loss (all 0)
+            k: ({"product": v[4], "combine": v[5]} if name == "fused_xent_forward"
+                else {"ds": v[6], "dH" if name == "fused_xent_backward_dh" else "dW": v[8 if name.endswith("dh") else 7]})
+            for k, v in tpt_launches.items()}
         t24 = tier_launches["d_gpt3_6.7b"]  # the fused loss runs in (d)
         entry["memory_tiers_launches_per_train_batch"] = (
             {"product": t24[4], "combine": t24[5]} if name == "fused_xent_forward"
@@ -6621,6 +6984,8 @@ def main() -> int:
             "bigbird128": {k: bb[k] for k in timed},
             "elastic_worker_launches": p23["sparse"][i],  # counted in the workers; the model is dense
             "data_parallel_launches_per_train_batch": {k: v[N_COUNTS + i] for k, v in dp_launches.items()},
+            "tensor_parallel_training_launches_per_train_batch": {k: v[N_COUNTS + i]
+                                                                  for k, v in tpt_launches.items()},
         })
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -296,7 +296,10 @@ def save_checkpoint(ckpt_dir: str, state, client_state: Optional[dict] = None,
     durable. Synchronous saves return a waited handle. ``async_save`` returns once the snapshot is taken (into ``staging``,
     or a buffer of this save's own); the caller's ``wait()`` finishes it.
     ``layouts`` ({leaf key: LeafLayout}) marks the leaves this rank holds a
-    shard of: a data-parallel save, which every rank of the world makes."""
+    part of: a data- or tensor-parallel save, which every rank of the world
+    makes. Each distinct shard is listed once, with its bounds on every
+    split dimension, in the order of its first holder's rank (a JAX
+    multi-device save's table), and written by that first holder."""
     rank, world = comm.get_rank(), comm.get_world_size()
     stage_dir = ckpt_dir + _STAGE_SUFFIX
     if rank == 0:
@@ -312,12 +315,12 @@ def save_checkpoint(ckpt_dir: str, state, client_state: Optional[dict] = None,
     for key, leaf in flat.items():
         lay = layouts.get(key)
         fkey = key.replace("/", "_")
-        if lay is not None and lay.sharded:
-            manifest["leaves"][key] = {"dtype": _dtype_name(leaf), "shape": list(lay.shape),
-                                       "shards": [{"file": f"{fkey}.shard{j:03d}.npy", "index": lay.bounds(j)}
-                                                  for j in range(lay.n)]}
+        if lay is not None and lay.partial:
+            manifest["leaves"][key] = {"dtype": _dtype_name(leaf), "shape": list(lay.full_shape),
+                                       "shards": [{"file": f"{fkey}.shard{j:03d}.npy", "index": b}
+                                                  for j, b in enumerate(lay.table)]}
             if lay.writer:
-                mine[key] = f"{fkey}.shard{lay.index:03d}.npy"
+                mine[key] = f"{fkey}.shard{lay.slot:03d}.npy"
         else:
             fname = f"{fkey}.full.npy"
             manifest["leaves"][key] = {"dtype": _dtype_name(leaf), "shape": list(leaf.shape), "file": fname}
@@ -509,10 +512,10 @@ def load_checkpoint(ckpt_dir: str, state_like, verify: bool = True, layouts: Opt
             restored[key] = leaf
             continue
         lay = layouts.get(key)
-        if lay is not None and lay.sharded:
-            if list(entry["shape"]) != list(lay.shape):
+        if lay is not None and lay.partial:
+            if list(entry["shape"]) != list(lay.full_shape):
                 raise CheckpointCorruptError(f"checkpoint {ckpt_dir}: leaf {key} has shape {entry['shape']}, the "
-                                             f"engine's is {list(lay.shape)}", path=ckpt_dir)
+                                             f"engine's is {list(lay.full_shape)}", path=ckpt_dir)
             arr = _leaf_tensor(_read_slice(ckpt_dir, entry, lay.bounds()), entry)
         else:
             arr = _leaf_tensor(_read_leaf(ckpt_dir, entry), entry)  # a fresh C-ordered array, 0-d kept 0-d

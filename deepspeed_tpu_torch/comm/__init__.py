@@ -19,7 +19,9 @@ from .collectives import (
     barrier,
     broadcast_in_axis,
     broadcast_object,
+    copy_to_model,
     destroy_distributed,
+    gather_from_model,
     get_local_rank,
     get_rank,
     get_world_size,
@@ -28,8 +30,10 @@ from .collectives import (
     mpi_discovery,
     ppermute,
     recording,
+    reduce_from_model,
     reduce_scatter,
     ring_shift,
+    scatter_to_model,
 )
 from .logger import CommsLogger, comms_logger, get_bw
 from .mesh import (

@@ -21,6 +21,18 @@ Mapping (reference op -> here):
     broadcast (objects) -> broadcast_object (a pickled payload; the
                            tensor-parallel serving driver's calls)
 
+The tensor-parallel conjugates (Megatron's ``mappings.py``), autograd
+functions over one axis whose backward is the other half of the pair, so a
+tensor-parallel forward differentiates through its collectives:
+
+    copy_to_model      identity         / all-reduce   (a column-parallel input)
+    reduce_from_model  all-reduce       / identity     (a row-parallel epilogue)
+    gather_from_model  all-gather       / own slice
+    scatter_to_model   own slice        / all-gather   (partition_activations)
+
+Their sums run in fp32 and are cast back, and each collective they issue,
+forward or backward, is logged as the ones above are.
+
 Routes. NCCL takes CUDA tensors and gloo CPU tensors. Gloo on CUDA tensors
 takes the five collectives in ``GLOO_CUDA_NATIVE`` itself (the probe in
 ``chip_smoke.py`` phase 26 checks each); ``ppermute``'s point-to-point
@@ -413,6 +425,88 @@ def broadcast_object(obj, axis, src_index: int = 0):
     if me == src_index:
         return obj
     return pickle.loads(payload.cpu().numpy().tobytes())
+
+
+# --------------------------------------------------------------------------
+# The tensor-parallel conjugates (autograd through the collectives)
+# --------------------------------------------------------------------------
+
+def _sum32(x: torch.Tensor, axis) -> torch.Tensor:
+    return all_reduce(x.float(), axis).to(x.dtype)
+
+
+def _own_slice(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    n = axis_size_in_jit(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} is not divisible by the {axis!r} axis ({n})")
+    return x.chunk(n, dim=dim)[axis_index(axis)].contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum32(g, ctx.axis), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _sum32(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, gather_dimension=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.axis, ctx.dim), None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _own_slice(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.axis, gather_dimension=ctx.dim), None, None
+
+
+def copy_to_model(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """``x`` as it is; its gradient all-reduced over ``axis`` (in fp32): the
+    input of a column-parallel product, whose ranks each see part of it."""
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis="model") -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (in fp32, cast back); its gradient
+    passes as it is: a row-parallel product's partial sums."""
+    return _ReduceFromModel.apply(x, axis)
+
+
+def gather_from_model(x: torch.Tensor, axis="model", dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated on ``dim`` in the axis's order; the
+    gradient keeps this rank's slice."""
+    return _GatherFromModel.apply(x, axis, dim % x.dim())
+
+
+def scatter_to_model(x: torch.Tensor, axis="model", dim: int = -1) -> torch.Tensor:
+    """This rank's slice of ``x`` on ``dim`` (``x`` the same on every rank of
+    ``axis``); the gradient all-gathered back to the full width."""
+    return _ScatterToModel.apply(x, axis, dim % x.dim())
 
 
 def axis_index(axis) -> int:

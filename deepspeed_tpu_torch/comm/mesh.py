@@ -42,6 +42,11 @@ ENGINE_AXES = ("data", "fsdp", DP_AXES)
 # the axes tensor-parallel serving adds: the ``model`` axis's groups
 SERVING_AXES = ENGINE_AXES + ("model",)
 
+# the axes a tensor-parallel training world adds: the ``model`` axis's
+# groups, and the whole data x model plane, over which the gradient norm and
+# LAMB's whole-leaf sums add each piece once
+TP_TRAIN_AXES = SERVING_AXES + (DP_AXES + ("model",),)
+
 Axes = Union[str, Sequence[str]]
 
 # the most recently built mesh: the "default process group" analogue

@@ -8,11 +8,14 @@ tensors: ``wte``, ``wpe``, the stacked ``layers`` leaves
 ``lnf_*`` and the optional ``lm_head``. The layouts are the same in both
 packages, so nothing is transposed.
 
-``shard_state_from_jax`` gives one data-parallel rank its part of a JAX
-engine's ``params`` and ``opt`` by the port's ZeRO layouts, and
-``tp_params_from_jax`` one tensor-parallel rank its slices of the JAX
-parameters by the JAX engine's specs (``init_inference(..., params=)``
-takes either the full tree or these slices' ``TPParams``).
+``shard_state_from_jax`` gives one rank its part of a JAX engine's
+``params`` and ``opt`` (the fp32 masters and the moments) by the port
+engine's layouts: its tensor-parallel slice of each leaf, then its ZeRO
+shard of that, under ZeRO x TP. ``tp_params_from_jax`` gives one tensor-
+parallel rank its slices of the JAX parameters, and with ``opt=`` its
+slices of the optimizer state too, by the JAX engine's specs
+(``init_inference(..., params=)`` and ``initialize(..., model_parameters=)``
+take either the full tree or these slices' ``TPParams``).
 ``state_from_jax`` converts any subtree of a JAX engine's state (numpy
 leaves, bfloat16 ones included, their dtypes kept), and
 ``load_offload_state`` carries a JAX offload engine's ``params``,
@@ -73,15 +76,19 @@ def shard_state_from_jax(engine, jax_state: dict) -> dict:
     into ``engine.state`` to start both packages from one state."""
     from .ops.optimizers import tree_map
 
-    z = engine.zero
+    z, tp = engine.zero, getattr(engine, "tp", None)
     out = {}
     if "params" in jax_state:
         full = params_from_jax(jax_state["params"], engine.device)
+        if tp is not None:
+            full = tp.shard(full)
         out["params"] = z.shard_params(full) if z is not None else full
     if "opt" in jax_state:
         opt = {}
         for k, sub in jax_state["opt"].items():
             t = state_from_jax(sub, engine.device)
+            if tp is not None and isinstance(t, dict):
+                t = tp.shard(t)
             if z is not None and isinstance(t, dict) and z.stage:
                 t = tree_map(lambda lay, x: lay.shard(x) if lay.sharded else x, z.opt_layouts, t)
             opt[k] = t
@@ -89,14 +96,21 @@ def shard_state_from_jax(engine, jax_state: dict) -> dict:
     return out
 
 
-def tp_params_from_jax(tree, model, mesh, device="cpu", dtype=torch.float32):
+def tp_params_from_jax(tree, model, mesh, device="cpu", dtype=torch.float32, opt=None):
     """The JAX package's parameters (numpy leaves) as ``mesh``'s rank holds
     them under tensor parallelism: each leaf's slice by its spec
     (``spec_from_logical`` over ``DEFAULT_TP_RULES``, as the JAX engine
     places it), cut by ``ReplaceWithTensorSlicing``, then as
     ``params_from_jax`` converts it. Returns a ``TPParams`` carrying the
-    rank's plan (``model`` is the port's ``Model``)."""
+    rank's plan (``model`` is the port's ``Model``). With ``opt`` (a JAX
+    engine's ``opt`` tree: ``m``/``v`` or the masters, each params-shaped,
+    beside scalar leaves) returns (params, opt) with each params-shaped
+    subtree sliced the same way, its dtype kept; a ZeRO engine takes its
+    shards of these slices (``shard_state_from_jax``)."""
     from .module_inject.layers import TensorParallel, TPParams
 
     tp = TensorParallel(mesh, model.logical_axes(), tree)
-    return TPParams(params_from_jax(tp.shard(tree), device, dtype), tp)
+    params = TPParams(params_from_jax(tp.shard(tree), device, dtype), tp)
+    if opt is None:
+        return params
+    return params, {k: state_from_jax(tp.shard(v) if isinstance(v, dict) else v, device) for k, v in opt.items()}

@@ -25,17 +25,25 @@ per layer, each layer and each of its sites hashes a key of its own, so a
 remat recompute replays the layer's masks, and a step tensor on the device
 keys them without a fetch.
 
-Tensor parallelism (serving): a parameter tree that carries a
+Tensor parallelism: a parameter tree that carries a
 ``module_inject.TensorParallel`` plan (``TPParams``, made by
-``init_inference`` at ``tp_size > 1``) holds one rank's slices, each leaf
-split over the mesh's ``model`` axis where its spec says so. The forward
-then runs this rank's heads and FFN columns (q/k/v and ``wi`` column-
-parallel, ``wo`` and ``wo_mlp`` row-parallel: all-reduced, then the bias
-added once), looks up a vocab-split embedding by range and all-reduces it,
-all-gathers a vocab-split head's logits to the full width, slices the
-ALiBi slopes to its heads, and keeps a KV cache of its heads only
-(``init_cache(heads=)``). A leaf ``model`` does not divide stays whole and
-no collective runs for it.
+``init_inference`` at ``tp_size > 1`` and by the training engine under a
+``model`` axis) holds one rank's slices, each leaf split over the mesh's
+``model`` axis where its spec says so. The forward then runs this rank's
+heads and FFN columns (q/k/v and ``wi`` column-parallel, each input
+entering once through ``copy_to_model``; ``wo`` and ``wo_mlp`` row-
+parallel: reduced, then the bias added once), looks up a vocab-split
+embedding by range and reduces it, gathers a vocab-split head's logits to
+the full width, slices the ALiBi slopes to its heads, and keeps a KV cache
+of its heads only (``init_cache(heads=)``). The collectives are autograd
+functions (``comm.copy_to_model`` and its conjugates), so training
+differentiates through them; every dropout site sits where the activations
+are replicated, so the ranks of one data index draw the same masks. The
+training loss over a vocab-split head is vocab-parallel (``_nll_sum_split``:
+the [B, chunk, V] logits are never gathered), and under
+``remat_partition_axis`` (partition_activations) each checkpointed region
+keeps only this rank's rows of its saved boundary. A leaf ``model`` does
+not divide stays whole and no collective runs for it.
 """
 
 from __future__ import annotations
@@ -55,7 +63,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_xent import fused_linear_xent
-from ..module_inject.layers import plan_of
+from .. import comm
+from ..module_inject.layers import TPParams, plan_of
 from ..ops.sparse_attention import SPARSITY_CONFIGS, sparse_flash_attention
 from ..runtime.activation_checkpointing.checkpointing import REMAT_POLICIES, remat_context_fn
 from ..runtime.zero import param_offload
@@ -113,8 +122,10 @@ class TransformerConfig:
     # | save_flash | dots_and_flash). ``remat_offload`` (cpu_checkpointing):
     # the saved layer boundaries go to (pinned) host memory; it composes
     # with the named-residual policies (save_flash, nothing_saveable), as in
-    # the JAX package. ``remat_partition_axis`` (partition_activations)
-    # raises: it belongs to tensor parallelism.
+    # the JAX package. ``remat_partition_axis`` (partition_activations):
+    # under tensor parallelism over that mesh axis, each region's saved
+    # boundary [B, S, D] keeps only this rank's S / size rows (whole when
+    # the axis does not divide S), gathered back for the recompute.
     remat: bool = False
     remat_policy: str = "save_flash"
     remat_offload: bool = False
@@ -145,12 +156,16 @@ class TransformerConfig:
     param_offload: bool = False
 
     def __post_init__(self):
-        defaults = {"moe_every": 0, "weight_bits": 0, "act_quant_bits": 0, "remat_partition_axis": ""}
+        defaults = {"moe_every": 0, "weight_bits": 0, "act_quant_bits": 0}
         for name, default in defaults.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"TransformerConfig.{name}={getattr(self, name)!r} is not implemented "
                     f"in deepspeed_tpu_torch yet (only {default!r})")
+        if self.remat_partition_axis not in ("", "model"):
+            raise NotImplementedError(
+                f"TransformerConfig.remat_partition_axis={self.remat_partition_axis!r}: partition_activations "
+                "over an axis other than 'model' is not implemented in deepspeed_tpu_torch yet")
         if self.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"TransformerConfig.attn_impl={self.attn_impl!r} is not implemented in "
@@ -356,6 +371,8 @@ def _linear(x, w, b):
 # at the same places: the flops profiler's per-module rows.
 def _ffn(cfg: TransformerConfig, lp, h, tp=None):
     with cost.scope("ffn"):
+        if tp is not None:
+            h = tp.copy_in(h, "layers", "wi")
         u = _linear(h, lp["wi"], lp.get("bi"))  # column-parallel under tp
         if cfg.activation == "relu":
             u = F.relu(u)
@@ -368,9 +385,13 @@ def _ffn(cfg: TransformerConfig, lp, h, tp=None):
         return tp.row(_linear(u, lp["wo_mlp"], None), lp.get("bo_mlp"), "layers", "wo_mlp")
 
 
-def _qkv_proj(cfg: TransformerConfig, lp, h, positions):
-    """LN'd hidden states [B,T,d] -> rotary-embedded q, k, v [B,T,H,Dh]."""
+def _qkv_proj(cfg: TransformerConfig, lp, h, positions, tp=None):
+    """LN'd hidden states [B,T,d] -> rotary-embedded q, k, v [B,T,H,Dh]
+    (this rank's heads under ``tp``, the three products reading one copy of
+    ``h``)."""
     with cost.scope("attn"):
+        if tp is not None:
+            h = tp.copy_in(h, "layers", "wq")
         q = _linear(h, lp["wq"], lp.get("bq"))
         k = _linear(h, lp["wk"], lp.get("bk"))
         v = _linear(h, lp["wv"], lp.get("bv"))
@@ -500,6 +521,11 @@ def _attention_dispatch(cfg: TransformerConfig, device="cpu", tp=None) -> Callab
         flash_fn.handles_fused_bias = True
         return flash_fn
     if cfg.attn_impl == "sparse":
+        if tp is not None and tp.split("layers", "wq"):
+            raise NotImplementedError(
+                "attn_impl='sparse' under tensor parallelism (block-sparse attention on a rank's H/tp heads) "
+                "is not ported to deepspeed_tpu_torch yet")
+
         def sparse_fn(q, k, v, bias):
             if bias is not None:
                 return xla_attention(q, k, v, bias=bias, causal=cfg.causal)  # alibi unfused
@@ -536,7 +562,7 @@ def _layer_body(cfg: TransformerConfig, lp, x, bias, positions, attn_fn, is_loca
         return y if gate is None else gate * y
 
     def attn(h):
-        q, k, v = _qkv_proj(cfg, lp, h, positions)
+        q, k, v = _qkv_proj(cfg, lp, h, positions, tp)
         out = _attn_out_proj(cfg, lp, _attn_call(cfg, attn_fn, q, k, v, bias, is_local), tp)
         return branch(out, cfg.attn_dropout, 1)
 
@@ -591,12 +617,18 @@ def _head(params: Params):
     return params["wte"].t() if head is None else head
 
 
+def _head_path(params: Params) -> tuple:
+    return ("lm_head",) if "lm_head" in params else ("wte",)
+
+
 def _project(params: Params, x, tp=None):
     """Vocab projection in x's dtype, then fp32 logits (under ``tp`` a
-    vocab-split head's columns all-gathered to the full vocab)."""
+    vocab-split head's columns gathered to the full vocab)."""
+    if tp is not None:
+        x = tp.copy_in(x, *_head_path(params))
     logits = (x @ _head(params).to(x.dtype)).float()
     if tp is not None:
-        logits = tp.logits(logits, ("lm_head",) if "lm_head" in params else ("wte",))
+        logits = tp.logits(logits, _head_path(params))
     if "lm_head_bias" in params:
         logits = logits + params["lm_head_bias"].float()
     return logits
@@ -630,10 +662,17 @@ def _stream_top_level(cfg: TransformerConfig, params: Params, device) -> Params:
     """Under ``param_offload`` or ZeRO-3: the non-stacked leaves
     (embeddings, final LayerNorm, head) on the device, once; ``layers``
     stays where it is for the loop to fetch a layer at a time. Identity
-    otherwise."""
+    otherwise. The tree keeps its tensor-parallel plan."""
     if not _streamed(cfg, params):
         return params
-    return param_offload.stream_top_level(params, device)
+    tp = plan_of(params)
+    out = param_offload.stream_top_level(params, device)
+    if tp is None:
+        return out
+    if type(out) is dict:
+        return TPParams(out, tp)
+    out.tp = tp
+    return out
 
 
 def _layer_getter(cfg: TransformerConfig, params: Params, device) -> Callable[[int], dict]:
@@ -660,6 +699,18 @@ def _remat_region(cfg: TransformerConfig, device):
         raise ValueError(f"cpu_checkpointing composes with named-residual remat policies "
                          f"{sorted(OFFLOADABLE_POLICIES)}, not {cfg.remat_policy!r}")
     return torch.autograd.graph.save_on_cpu(pin_memory=torch.device(device).type == "cuda")
+
+
+def _partition_axis(cfg: TransformerConfig, tp, seq_len: int) -> Optional[str]:
+    """The mesh axis partition_activations splits the saved boundaries'
+    sequence over: ``remat_partition_axis`` when the parameters carry a plan
+    over a mesh where that axis is above 1 and divides ``seq_len`` (JAX
+    ``transformer.py:462-467``); None keeps them whole."""
+    axis = cfg.remat_partition_axis
+    if not axis or tp is None:
+        return None
+    n = tp.mesh.shape.get(axis, 1)
+    return axis if n > 1 and seq_len % n == 0 else None
 
 
 def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
@@ -714,10 +765,21 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
     if remat and (context_fn := remat_context_fn(cfg.remat_policy)) is not None:
         kw["context_fn"] = context_fn
     region = _remat_region(cfg, device) if cfg.remat else contextlib.nullcontext()
+    part = _partition_axis(cfg, tp, S) if remat else None
+    if part is not None:
+        # partition_activations: the region's input (what the checkpoint
+        # keeps for its recompute) is this rank's rows of the boundary; the
+        # region gathers them first, in the forward and in the recompute
+        plain_run = run
+
+        def run(xp, idx):
+            return plain_run(comm.gather_from_model(xp, part, dim=1), idx)
     for idx in _remat_groups(cfg):
         if not remat:
             x = run(x, idx)
             continue
+        if part is not None:
+            x = comm.scatter_to_model(x, part, dim=1)
         # preserve_rng_state=False: the masks are hashes of the layers'
         # keys, which the recompute hashes afresh
         with region:
@@ -886,7 +948,7 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
         lp = layer(i)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps)
-        q, k, v = _qkv_proj(cfg, lp, h, positions)
+        q, k, v = _qkv_proj(cfg, lp, h, positions, tp)
         write(k_cache, k)  # before attention: the new token attends to itself
         write(v_cache, v)
         if use_decode_kernel:
@@ -912,14 +974,22 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
 # Loss
 # ---------------------------------------------------------------------------
 
-def effective_loss_impl(cfg: TransformerConfig, n_rows: Optional[int] = None) -> tuple[str, str]:
+def effective_loss_impl(cfg: TransformerConfig, n_rows: Optional[int] = None, mesh=None) -> tuple[str, str]:
     """(implementation, reason): the JAX predicate (``transformer.py:1193``).
-    The fused loss takes row counts divisible by 128 and by the row block,
-    with 128-aligned blocks; ``n_rows=None`` gives the shape-free answer.
-    The JAX clause for a tensor-parallel mesh does not apply: the port runs
-    on one device."""
+    Over a ``mesh`` whose ``model`` axis is above 1 the head is vocab-split
+    and the fused loss gives way to the chunked one, which runs vocab-
+    parallel (JAX's tensor-parallel clause; the port passes the mesh, where
+    JAX reads its active one). The fused loss takes row counts divisible by
+    128 and by the row block, with 128-aligned blocks; ``n_rows=None`` gives
+    the shape-free answer."""
     if cfg.loss_impl != "fused_xent":
         return "chunked", "configured"
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        return "chunked", (
+            "tensor-parallel mesh (model axis > 1) shards the vocab head; "
+            "the fused_xent kernel cannot partition it — using the chunked "
+            "loss, which runs vocab-parallel over the head's shards"
+        )
     if n_rows is not None:
         br = cfg.loss_fused_block_rows or 128
         bv = cfg.loss_fused_block_v or 128
@@ -941,6 +1011,25 @@ def _nll_sum(h, labels, head):
     return torch.sum((logz - gold) * mask), torch.sum(mask)
 
 
+def _nll_sum_split(h, labels, head, axis: str, start: int):
+    """``_nll_sum`` over a vocab-split head: this rank's columns ``head``
+    [d, V/tp] of the vocabulary from ``start``. The logits stay [.., V/tp];
+    the max (no gradient), the sum of ``exp(logits - max)`` and the gold
+    logit (from the rank whose range holds the label, 0 elsewhere) are
+    reduced over ``axis``, the last two through ``reduce_from_model``, so
+    each rank's logits get their part of the gradient."""
+    logits = (h @ head.to(h.dtype)).float()
+    m = comm.all_reduce(logits.detach().amax(dim=-1), axis, "max")
+    z = comm.reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1), axis)
+    n = logits.shape[-1]
+    local = labels - start
+    hit = (local >= 0) & (local < n)
+    mine = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = comm.reduce_from_model(torch.where(hit, mine, torch.zeros_like(mine)), axis)
+    mask = (labels >= 0).float()
+    return torch.sum((torch.log(z) + m - gold) * mask), torch.sum(mask)
+
+
 def lm_loss_from_hidden(cfg: TransformerConfig, params: Params, hidden, labels) -> torch.Tensor:
     """Token-mean next-token cross-entropy from final hidden states [B, S, d].
 
@@ -951,9 +1040,14 @@ def lm_loss_from_hidden(cfg: TransformerConfig, params: Params, hidden, labels) 
     loss, as the JAX package does. Chunked: the vocab projection a sequence
     chunk at a time, each chunk under ``torch.utils.checkpoint`` so its
     [B, chunk, V] logits are recomputed in the backward and never kept;
-    unchunked when ``S % chunk or S <= chunk`` (or the chunk is 0)."""
+    unchunked when ``S % chunk or S <= chunk`` (or the chunk is 0). Under
+    a vocab-split head (tensor parallelism) each chunk runs
+    ``_nll_sum_split`` on this rank's columns, and ``hidden`` enters once
+    through ``copy_to_model``."""
     head = _head(params)
-    impl, reason = effective_loss_impl(cfg, n_rows=hidden.shape[0] * hidden.shape[1])
+    tp = plan_of(params)
+    impl, reason = effective_loss_impl(cfg, n_rows=hidden.shape[0] * hidden.shape[1],
+                                       mesh=None if tp is None else tp.mesh)
     if cfg.loss_impl == "fused_xent" and impl != "fused_xent":
         warnings.warn(f"loss_impl='fused_xent' falling back to the chunked loss ({reason}) — the fused "
                       "kernel's memory savings do NOT apply", stacklevel=2)
@@ -965,14 +1059,18 @@ def lm_loss_from_hidden(cfg: TransformerConfig, params: Params, hidden, labels) 
                                 block_v=cfg.loss_fused_block_v or None)
         mask = (flat >= 0).float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    nll_sum = _nll_sum
+    if tp is not None and tp.split(*_head_path(params)):
+        hidden = tp.copy_in(hidden, *_head_path(params))
+        nll_sum = functools.partial(_nll_sum_split, axis=tp.axis, start=tp.index * head.shape[-1])
     chunk = cfg.loss_chunk_size
     S = hidden.shape[1]
     if chunk <= 0 or S % chunk != 0 or S <= chunk:
-        nll, count = _nll_sum(hidden, labels, head)
+        nll, count = nll_sum(hidden, labels, head)
         return nll / torch.clamp(count, min=1.0)
     nll = count = None
     for c0 in range(0, S, chunk):
-        n, t = checkpoint(_nll_sum, hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head,
+        n, t = checkpoint(nll_sum, hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head,
                           use_reentrant=False)
         nll, count = (n, t) if nll is None else (nll + n, count + t)
     return nll / torch.clamp(count, min=1.0)

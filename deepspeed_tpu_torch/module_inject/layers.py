@@ -28,6 +28,13 @@ The all-reduces of partial sums run in fp32 whatever the compute dtype:
 each rank's partial product is rounded to the compute dtype once, as a
 dense product is, and the sum adds no further rounding before the result
 is cast back.
+
+Training differentiates through the collectives (``comm.copy_to_model``
+and its conjugates): a column-parallel input enters through
+``copy_to_model`` (its gradient all-reduced), a row-parallel epilogue and
+the vocab-split embedding reduce through ``reduce_from_model`` (their
+gradients pass as they are, so each rank's ``wte`` gradient lands on the
+rows it owns), and the logits gather through ``gather_from_model``.
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ def row_epilogue(y: torch.Tensor, b: Optional[torch.Tensor], axis: str, split: b
     local partial product ``y`` all-reduced over ``axis`` (in fp32, cast
     back); then the bias, added once."""
     if split:
-        y = comm.all_reduce(y.float(), axis).to(y.dtype)
+        y = comm.reduce_from_model(y, axis)
     return y if b is None else y + b.to(y.dtype)
 
 
@@ -77,6 +84,8 @@ class LinearLayer:
         return params
 
     def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        if self._split():
+            x = comm.copy_to_model(x, self.axis)
         y = _matmul(x, params["w"])
         if params.get("b") is not None:
             y = y + params["b"].to(y.dtype)
@@ -189,6 +198,18 @@ class TensorParallel:
         return {k: self.shard(v, path + (k,)) if isinstance(v, dict) else self.shard_leaf(v, *path, k)
                 for k, v in tree.items()}
 
+    def gather(self, tree: dict, path: tuple = ()) -> dict:
+        """The full tree from every rank's part of it (the inverse of
+        ``shard``; collective over the plan's axis)."""
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = self.gather(v, path + (k,))
+                continue
+            dims = [d for d, e in enumerate(self.spec(*path, k)) if e is not None]
+            out[k] = comm.all_gather(v.contiguous(), self.axis, gather_dimension=dims[0]) if dims else v
+        return out
+
     # -- the model's split layers --------------------------------------------
 
     def heads(self, num_heads: int) -> int:
@@ -199,6 +220,12 @@ class TensorParallel:
         """This rank's heads in the model's head order (ALiBi slopes)."""
         n = self.heads(num_heads)
         return slice(self.index * n, (self.index + 1) * n) if n != num_heads else slice(None)
+
+    def copy_in(self, x: torch.Tensor, *path) -> torch.Tensor:
+        """The input of the column-parallel leaf at ``path``: through
+        ``copy_to_model`` when the leaf is split (one copy per input, shared
+        by every product that reads it), as it is otherwise."""
+        return comm.copy_to_model(x, self.axis) if self.split(*path) else x
 
     def row(self, y: torch.Tensor, b: Optional[torch.Tensor], *path) -> torch.Tensor:
         """``row_epilogue`` of the leaf at ``path``'s local product ``y``."""
@@ -214,13 +241,13 @@ class TensorParallel:
         local = tokens - self.index * n
         hit = (local >= 0) & (local < n)
         rows = wte[local.clamp(0, n - 1)] * hit[..., None].to(wte.dtype)
-        return comm.all_reduce(rows.float(), self.axis).to(wte.dtype)
+        return comm.reduce_from_model(rows, self.axis)
 
     def logits(self, logits: torch.Tensor, head_path: tuple) -> torch.Tensor:
         """This rank's vocab columns of the logits, all-gathered on the last
         dimension when the head is split: every rank holds the full [.., V]."""
         if self.split(*head_path):
-            return comm.all_gather(logits, self.axis, gather_dimension=logits.dim() - 1)
+            return comm.gather_from_model(logits, self.axis, dim=-1)
         return logits
 
 

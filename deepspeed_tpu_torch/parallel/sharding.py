@@ -16,13 +16,15 @@ Stage -> rules (as in JAX):
   stage 2: + gradients reduce-scattered onto the same shards
   stage 3: params themselves sharded over (fsdp, data)
 
-Tensor-parallel serving reads the same rules: ``heads``, ``mlp``,
-``ffn_in`` and ``vocab`` go on ``model`` where it divides them, and the
-serving engine's KV caches take ``kv_slot_cache_spec`` /
-``kv_prefix_pool_spec`` (heads over ``model``). ``local_shape`` and
-``local_slices`` give one rank's part of a tensor by its spec.
-``constrain`` (JAX's ``with_sharding_constraint`` over a tree) is called
-only by the training engine and comes with tensor-parallel training.
+Tensor parallelism reads the same rules: ``heads``, ``mlp``, ``ffn_in``
+and ``vocab`` go on ``model`` where it divides them, and the serving
+engine's KV caches take ``kv_slot_cache_spec`` / ``kv_prefix_pool_spec``
+(heads over ``model``). Under ZeRO x TP a spec splits two dimensions: the
+``model`` one and the ZeRO one (``split_dims`` names both); a rank holds
+the ZeRO shard of its tensor-parallel slice. ``local_shape`` and
+``local_slices`` give one rank's part of a tensor by its spec, and
+``constrain`` (JAX's ``with_sharding_constraint`` over a tree) checks or
+cuts a tree's leaves to those parts where the training engine places them.
 
 A mesh here is anything with a ``shape`` mapping (a ``comm.Mesh``) or the
 mapping itself; ``local_slices`` also needs a rank's coordinates, so a
@@ -140,22 +142,68 @@ def make_param_specs(logical_axes_tree, shapes_tree, rules: Rules, mesh, zero_fa
                          logical_axes_tree, shapes_tree)
 
 
-def shard_dim(spec: Spec) -> Optional[int]:
-    """The one dimension a ZeRO spec splits (None: replicated). A spec that
-    splits two dimensions needs tensor parallelism, which is not ported."""
-    dims = [i for i, a in enumerate(spec) if a is not None]
-    if len(dims) > 1:
-        raise NotImplementedError(f"spec {spec} splits {len(dims)} dimensions (tensor parallelism)")
-    return dims[0] if dims else None
+# the mesh axes a training spec may split over: tensor parallelism's and
+# ZeRO's (``pipe`` and ``context`` are not ported)
+_PORTED_AXES = ("model", "data", "fsdp")
 
 
-def spec_axes(spec: Spec) -> tuple:
-    """The mesh axes a spec splits over, first major (() when replicated)."""
-    d = shard_dim(spec)
-    if d is None:
-        return ()
-    a = spec[d]
-    return (a,) if isinstance(a, str) else tuple(a)
+def split_dims(spec: Spec) -> tuple[Optional[int], Optional[int]]:
+    """(the dimension ``spec`` splits over ``model``, the dimension it splits
+    over the ZeRO axes), each None when there is none. Raises on an axis
+    that is not ported (``pipe``, ``context``), on ``model`` sharing a
+    dimension with another axis and on two ZeRO dimensions."""
+    model_dim = zero_dim = None
+    for d, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes:
+            continue
+        bad = [a for a in axes if a not in _PORTED_AXES]
+        if bad:
+            raise NotImplementedError(f"spec {spec} splits over {bad}: not ported to deepspeed_tpu_torch yet")
+        if "model" in axes:
+            if len(axes) > 1:
+                raise NotImplementedError(f"spec {spec} splits one dimension over model and {axes}")
+            model_dim = d
+        elif zero_dim is not None:
+            raise NotImplementedError(f"spec {spec} splits two dimensions over the ZeRO axes")
+        else:
+            zero_dim = d
+    return model_dim, zero_dim
+
+
+def zero_axes(spec: Spec) -> tuple:
+    """The ZeRO axes a spec splits over, first major (() when none)."""
+    d = split_dims(spec)[1]
+    return () if d is None else _entry_axes(spec[d])
+
+
+def constrain(tree, mesh, specs_tree):
+    """Each leaf of ``tree`` as this rank's part under its entry of
+    ``specs_tree`` (JAX ``sharding.py:185``, where XLA moves the data; here
+    each rank holds its part). An entry is a spec, taken over the leaf as
+    the global array, or a layout (anything with ``spec``, ``full_shape``
+    and ``shard_shape``: the ZeRO runtime's ``LeafLayout``), which also
+    knows the part's shape: a leaf that is already that part, or whose
+    entry is replicated (None or ``()``), is returned as it is; a global
+    leaf is cut to the part; any other shape raises."""
+    if isinstance(tree, dict):
+        return {k: constrain(v, mesh, specs_tree.get(k) if isinstance(specs_tree, dict) else specs_tree)
+                for k, v in tree.items()}
+    entry = specs_tree
+    if entry is None or (isinstance(entry, tuple) and not any(e is not None for e in entry)):
+        return tree
+    if hasattr(entry, "full_shape"):
+        spec, full, part = entry.spec, tuple(entry.full_shape), tuple(entry.shard_shape)
+    else:
+        spec, full = entry, tuple(tree.shape)
+        part = local_shape(full, spec, mesh)
+    shape = tuple(tree.shape)
+    if shape == part:
+        return tree
+    if shape == full:
+        return tree[local_slices(full, spec, mesh)]
+    raise ValueError(f"constrain: a leaf of shape {shape} is neither the global {full} nor this rank's "
+                     f"part {part} under {spec}")
 
 
 def kv_slot_cache_spec(mesh, n_slots: int, num_heads: int) -> Spec:

@@ -21,8 +21,12 @@ the layer boundaries, to host memory (pinned on a card) through
 ``torch.autograd.graph.save_on_cpu``, and they come back for the
 recompute: in the model (``remat_offload``) around each checkpointed
 region, and in ``checkpoint()`` with everything else recomputed, as the JAX
-package's policy offloads the inputs and saves nothing else. Not ported:
-``partition_activations`` (tensor parallelism) raises;
+package's policy offloads the inputs and saves nothing else.
+``partition_activations`` becomes the model's ``remat_partition_axis =
+"model"`` (JAX ``checkpointing.py:113-114``): under tensor parallelism each
+checkpointed region keeps only this rank's rows of its saved boundary and
+gathers them for the recompute (``models/transformer.py``); it has no
+effect on ``checkpoint()``, as in the JAX package.
 ``contiguous_memory_optimization`` and ``synchronize_checkpoint_boundary``
 are accepted and recorded, as in the JAX package (the allocator owns the
 buffers).
@@ -107,7 +111,6 @@ def configure(
     base.setdefault("enabled", True)
     known = set(ActivationCheckpointingConfig.__dataclass_fields__)
     cfg = ActivationCheckpointingConfig(**{k: v for k, v in base.items() if k in known})
-    cfg.check_ported()
     _config = cfg
     if cfg.contiguous_memory_optimization or cfg.synchronize_checkpoint_boundary:
         logger.info("activation_checkpointing: contiguous_memory_optimization / "
@@ -166,7 +169,6 @@ def checkpoint(function: Callable, *args):
     With ``cpu_checkpointing`` the segment's inputs are saved in host memory
     and everything else is recomputed."""
     cfg = get_config()
-    cfg.check_ported()
     policy = "nothing_saveable" if cfg.cpu_checkpointing else (cfg.policy or "nothing_saveable")
     if policy == "everything_saveable":
         return function(*args)

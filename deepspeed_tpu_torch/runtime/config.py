@@ -2,15 +2,18 @@
 ``deepspeed_tpu/runtime/config.py``.
 
 One DeepSpeed JSON dict drives both packages: the batch triangulation
-(train = micro × gas × world), ``fp16``/``bf16``, ``zero_optimization``,
+(train = micro × gas × data-parallel world), ``fp16``/``bf16``, ``zero_optimization``,
 ``optimizer``, ``scheduler``, clipping, seed and ``steps_per_print`` parse
 the same way, as do ``activation_checkpointing``, ``checkpoint``,
 ``sparse_attention`` (turned into the model's ``attn_impl="sparse"`` by the
 engine), ``curriculum_learning`` and ``dataloader_drop_last``. The port
-runs data-parallel over ``torch.distributed``: ``mesh.data`` and
-``mesh.fsdp`` take the world (their product, -1 the remainder, equals the
-data-parallel world) and the batch is triangulated at that world; a
-``pipe``, ``context`` or ``model`` axis above 1 is refused by name.
+runs data- and tensor-parallel over ``torch.distributed``: the ``mesh``
+block's ``data``, ``fsdp`` and ``model`` axes take the world (their
+product, -1 the remainder), the batch is triangulated at the data-parallel
+world (``data`` x ``fsdp``), and under a ``model`` axis above 1 the memory
+tiers and ``sparse_attention`` are refused by name
+(``_validate_tensor_parallel``); a ``pipe`` or ``context`` axis above 1 is
+refused by name.
 ``comms_logger``, ``sparse_gradients`` and the ``zero_optimization`` bucket
 sizes and ``overlap_comm`` parse as in JAX. ``resilience`` (the NaN guardrail, preemption, checkpoint-save
 retries and the training fault sites), ``csv_monitor``, the training
@@ -176,13 +179,6 @@ class ActivationCheckpointingConfig:
     profile: bool = False
     policy: str = ""
     enabled: bool = False
-
-    def check_ported(self) -> None:
-        """partition_activations belongs to tensor parallelism, which is not
-        ported (cpu_checkpointing, the memory tier, is)."""
-        if self.enabled and self.partition_activations:
-            raise NotImplementedError(
-                "activation_checkpointing.partition_activations is not ported to deepspeed_tpu_torch yet")
 
 
 @dataclass
@@ -1194,8 +1190,7 @@ class FlopsProfilerConfig:
 _UNPORTED_BLOCKS = ("eigenvalue", C.MONITOR_TENSORBOARD, C.MONITOR_WANDB)
 
 # the mesh axes of the paths not ported yet, refused above 1 by name
-_UNPORTED_AXES = {"pipe": "pipeline parallelism", "context": "context parallelism (ring/Ulysses attention)",
-                  "model": "tensor parallelism in training (serving takes tp_size through init_inference)"}
+_UNPORTED_AXES = {"pipe": "pipeline parallelism", "context": "context parallelism (ring/Ulysses attention)"}
 
 
 @dataclass
@@ -1292,10 +1287,16 @@ class DeepSpeedConfig:
         return cfg
 
     def _triangulate_batch(self, world_size: int) -> None:
-        """train = micro × gas × world."""
+        """train = micro × gas × the data-parallel world (``data`` x
+        ``fsdp``: the ranks of one ``model`` line take the same rows)."""
         train, micro, gas = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
                              self.gradient_accumulation_steps)
         ws = max(world_size, 1)
+        try:
+            sizes = self.dp_mesh_sizes(ws)
+        except ValueError as e:
+            raise DeepSpeedConfigError(f"mesh {dataclasses.asdict(self.mesh)} over a world of {ws}: {e}") from e
+        ws = sizes["data"] * sizes["fsdp"]
         if train is not None and micro is not None and gas is not None:
             pass
         elif train is not None and micro is not None:
@@ -1315,10 +1316,6 @@ class DeepSpeedConfig:
                 "at least one of train_batch_size / train_micro_batch_size_per_gpu must be set")
         self.train_batch_size, self.train_micro_batch_size_per_gpu, self.gradient_accumulation_steps = (
             train, micro, gas)
-        try:
-            self.dp_mesh_sizes(ws)
-        except ValueError as e:
-            raise DeepSpeedConfigError(f"mesh {dataclasses.asdict(self.mesh)} over a world of {ws}: {e}") from e
         if train != micro * gas * ws:
             raise DeepSpeedConfigError(
                 f"batch sizes inconsistent: train_batch_size={train} != "
@@ -1336,6 +1333,7 @@ class DeepSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         self._validate_offload()
+        self._validate_tensor_parallel()
         z = self.zero_optimization
         if world_size > 1 and "nvme" in (z.offload_optimizer.device, z.offload_param.device):
             raise NotImplementedError(
@@ -1349,7 +1347,6 @@ class DeepSpeedConfig:
             raise NotImplementedError(
                 f"optimizer {self.optimizer.type!r} (the 1-bit family) is not ported to "
                 "deepspeed_tpu_torch yet")
-        self.activation_checkpointing.check_ported()
         self.telemetry.check_ported()
         if self.checkpoint.engine not in (None, "native"):
             raise NotImplementedError(f"checkpoint.engine {self.checkpoint.engine!r} is not ported to "
@@ -1366,6 +1363,27 @@ class DeepSpeedConfig:
             if size > 1:
                 raise NotImplementedError(f"mesh axis {axis!r}={size}: {what} is not ported to "
                                           "deepspeed_tpu_torch yet (data and fsdp are)")
+
+    def _validate_tensor_parallel(self) -> None:
+        """The paths not ported under a ``model`` axis above 1, refused by
+        name: the memory tiers (offload_optimizer, offload_param and
+        cpu_checkpointing) and block-sparse attention."""
+        tp = self.mesh.model
+        if tp <= 1:
+            return
+        z = self.zero_optimization
+        for name, dev in (("offload_optimizer", z.offload_optimizer.device),
+                          ("offload_param", z.offload_param.device)):
+            if dev != "none":
+                raise NotImplementedError(f"the memory tiers ({name} {dev!r}) with tensor parallelism (mesh model="
+                                          f"{tp}) are not ported to deepspeed_tpu_torch yet")
+        ac = self.activation_checkpointing
+        if ac.enabled and ac.cpu_checkpointing:
+            raise NotImplementedError(f"the memory tiers (activation_checkpointing.cpu_checkpointing) with tensor "
+                                      f"parallelism (mesh model={tp}) are not ported to deepspeed_tpu_torch yet")
+        if self.sparse_attention is not None:
+            raise NotImplementedError(f"sparse_attention with tensor parallelism (mesh model={tp}: block-sparse "
+                                      "attention on a rank's H/tp heads) is not ported to deepspeed_tpu_torch yet")
 
     def _validate_offload(self) -> None:
         """The memory tiers' combinations, refused as the JAX engine refuses

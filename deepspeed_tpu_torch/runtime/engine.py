@@ -33,7 +33,19 @@ layer at a time in the forward and the backward), on each leaf's
 dimension of the JAX engine's specs. The loss, the gradient norm and the
 non-finite flag are reduced over the ranks, so every rank takes the same
 step or skips it. Without a process group (a world of 1) the engine runs
-the single-device arithmetic it always ran, at every stage. The memory tiers (``zero_optimization.offload_optimizer`` / ``offload_param``
+the single-device arithmetic it always ran, at every stage.
+
+Tensor parallelism: a ``mesh.model`` above 1 (``WORLD_SIZE = data x fsdp
+x model``) splits every leaf's ``model`` dimension as the JAX engine's
+specs do (``module_inject.TensorParallel``): the parameters are made once
+at full shape and sliced, ZeRO shards each rank's slice over the data axes
+(``zero/``), the model runs this rank's heads, FFN columns and vocabulary
+columns with autograd through the ``model`` collectives, and the ranks of
+one ``model`` line take the same rows of each micro-batch (``dp_world`` and
+``dp_rank`` count ``data`` x ``fsdp`` only). Checkpoints write each
+distinct shard once and load at any layout; ``full_params`` and
+``save_16bit_model`` gather full leaves. The memory tiers and block-sparse
+attention under tensor parallelism are refused by name. The memory tiers (``zero_optimization.offload_optimizer`` / ``offload_param``
 on ``cpu`` or ``nvme``) keep the JAX engine's offload state tree
 (compute-dtype ``params``, host ``master`` and ``opt``, or the masters and
 moments on disk) and step through ``zero/offload.py`` (``OffloadTier``); at
@@ -84,13 +96,16 @@ import torch
 from .. import comm
 from ..checkpoint import saver, zero_to_fp32
 from ..comm.logger import comms_logger
-from ..comm.mesh import DP_AXES, MeshConfig, build_mesh, data_parallel_size, single_device_mesh
+from ..comm.mesh import (DP_AXES, ENGINE_AXES, TP_TRAIN_AXES, MeshConfig, build_mesh, data_parallel_size,
+                         single_device_mesh)
 from ..inference.engine import resolve_device
 from ..models import transformer as tfm
 from ..models.transformer import effective_loss_impl
+from ..module_inject.layers import TensorParallel, TPParams, plan_of
 from ..monitor.monitor import MonitorMaster
 from ..ops.optimizers import get_optimizer, tree_leaves, tree_map
 from ..ops.sparse_attention import SPARSITY_CONFIGS
+from ..parallel import sharding as shd
 from ..resilience import (CheckpointCorruptError, CheckpointNotFoundError, FaultInjector, PermanentIOError,
                           PreemptionSignal, TrainingDivergedError, TrainingGuardrail, install_injector,
                           retry_call)
@@ -152,7 +167,9 @@ class DeepSpeedEngine:
             config = DeepSpeedConfig.from_dict(config, world_size=world)
         self.config: DeepSpeedConfig = config
         distributed = comm.is_initialized()
-        self.mesh = build_mesh(MeshConfig(**config.dp_mesh_sizes(world))) if distributed else single_device_mesh()
+        sizes = config.dp_mesh_sizes(world)
+        self.mesh = (build_mesh(MeshConfig(**sizes), axes_list=TP_TRAIN_AXES if sizes["model"] > 1 else ENGINE_AXES)
+                     if distributed else single_device_mesh())
         self.dp_world = data_parallel_size(self.mesh)
         self.dp_rank = self.mesh.axis_index(DP_AXES)
         if config.train_batch_size != (config.train_micro_batch_size_per_gpu
@@ -267,7 +284,7 @@ class DeepSpeedEngine:
             if overrides:
                 model.config = model.config.replace(**overrides)
                 log_dist(f"activation_checkpointing: {overrides}", ranks=[0])
-        impl, reason = effective_loss_impl(model.config)
+        impl, reason = effective_loss_impl(model.config, mesh=self.mesh)
         note = "" if impl == model.config.loss_impl else f" (configured {model.config.loss_impl!r}: {reason})"
         log_dist(f"loss implementation: {impl}{note}", ranks=[0])
 
@@ -284,6 +301,21 @@ class DeepSpeedEngine:
 
         if params is None:
             params = model.init(torch.Generator().manual_seed(0), self.device)
+        # tensor parallelism: the plan of every leaf's model split, from the
+        # full shapes (the parameters are made, or given, at full shape and
+        # sliced, so every model size starts from the same weights; a
+        # TPParams tree is already this rank's slices)
+        tp_size = self.mesh.shape["model"]
+        if tp_size > 1 and getattr(model.config, "attn_impl", None) == "sparse":
+            raise NotImplementedError(
+                f"attn_impl='sparse' with tensor parallelism (mesh model={tp_size}: block-sparse attention on a "
+                "rank's H/tp heads) is not ported to deepspeed_tpu_torch yet")
+        self.tp: Optional[TensorParallel] = plan_of(params)
+        sliced = self.tp is not None
+        if not sliced and tp_size > 1:
+            self.tp = TensorParallel(self.mesh, model.logical_axes(), params)
+        # (in the tree's own key order, which the layouts' leaves follow)
+        full_shapes = params if not sliced else tree_map(lambda _, shape: shape, params, self.tp.full_shapes)
         params = tree_map(lambda t: t.to(device=self.device,
                                          dtype=torch.float32 if t.is_floating_point() else t.dtype), params)
         # data parallelism: the ZeRO runtime shards over the mesh (every
@@ -300,13 +332,15 @@ class DeepSpeedEngine:
                                           "whole-leaf norms")
             axes_tree = model.logical_axes() if hasattr(model, "logical_axes") else tree_map(lambda _: None, params)
             zc = config.zero_optimization
-            self.zero = ZeroRuntime(self.mesh, self.zero_stage, axes_tree, params, zc.reduce_bucket_size,
+            self.zero = ZeroRuntime(self.mesh, self.zero_stage, axes_tree, full_shapes, zc.reduce_bucket_size,
                                     zc.allgather_bucket_size)
+            if self.tp is not None and not sliced:
+                params = self.tp.shard(params)
             params = self.zero.shard_params(params)
             if self.zero_stage == 3:
                 self.z3 = Zero3Params(params, self.device, self.zero.param_layouts, config.compute_dtype,
                                       zc.allgather_bucket_size, zc.reduce_bucket_size,
-                                      host_grads=zc.offload_param.device != "none")
+                                      host_grads=zc.offload_param.device != "none", tp=self.tp)
         # the memory tiers (zero/offload.py): the fp32 masters and the
         # optimizer state leave the device; params become the compute-dtype copy
         self.tier = (OffloadTier(config, params, self.device, self.opt_init, self.opt_update, zero=self.zero)
@@ -333,7 +367,8 @@ class DeepSpeedEngine:
             del params
         n_params = sum(t.numel() for t in tree_leaves(self.state["params"]))
         log_dist(f"engine ready: {n_params / 1e6:.1f}M params on this rank, zero_stage={self.zero_stage}, "
-                 f"mesh={self.mesh.shape}, device={self.device}, micro_bs={self.micro_batch_size}, "
+                 f"model={self.mesh.shape['model']}, mesh={self.mesh.shape}, device={self.device}, "
+                 f"micro_bs={self.micro_batch_size}, "
                  f"gas={self.gradient_accumulation_steps}, dtype={config.compute_dtype}", ranks=[0])
 
     def _enforce_elasticity(self, raw) -> None:
@@ -375,6 +410,15 @@ class DeepSpeedEngine:
     def _cast(self, params):
         dt = self.config.compute_dtype
         return tree_map(lambda p: p.to(dt) if p.dtype == torch.float32 else p, params)
+
+    def _compute_copy(self, params):
+        """The compute-dtype copy of this rank's parameters the model reads,
+        constrained to this rank's part and carrying the tensor-parallel
+        plan."""
+        out = self._cast(params)
+        if self.zero is not None:
+            out = shd.constrain(out, self.mesh, self.zero.param_layouts)
+        return out if self.tp is None else TPParams(out, self.tp)
 
     def _dropout_key(self, micro: int) -> torch.Tensor:
         """Dropout/layer-drop key of one micro-batch, hashed on the device
@@ -480,7 +524,7 @@ class DeepSpeedEngine:
         elif self.tier is not None:
             loss = self.tier.backward_micro(self.model, leaves, mb, scale, kw)
         else:
-            loss = self.model.loss(self._cast(leaves), mb, **kw)
+            loss = self.model.loss(self._compute_copy(leaves), mb, **kw)
             (loss * scale).backward()
             loss = loss.detach().float()
         return loss if weight is None else loss * weight
@@ -519,6 +563,7 @@ class DeepSpeedEngine:
         else:
             grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p), leaves)
         if self.zero is not None:
+            grads = shd.constrain(grads, self.mesh, self.zero.param_layouts)
             if self.z3 is None:
                 grads = self.zero.reduce_grads(grads)
             n_micro, reduce = n_micro * self.dp_world, self.zero.reduce_stats
@@ -535,7 +580,8 @@ class DeepSpeedEngine:
 
         new_params = tree_map(keep, new_params, owned)
         if self.zero is not None:
-            new_params = self.zero.assemble(new_params, state["params"])
+            new_params = shd.constrain(self.zero.assemble(new_params, state["params"]), self.mesh,
+                                       self.zero.param_layouts)
         scalars = self._scalars_after(finite, step1)
         self.state = {"step": scalars.pop("step"), "params": new_params,
                       "opt": tree_map(keep, new_opt, state["opt"]), **scalars}
@@ -626,7 +672,7 @@ class DeepSpeedEngine:
         if self.z3 is not None:
             return self.z3.evaluate(lambda v: self.model.loss(v, batch), self.z3.view(self.state["params"]))
         with torch.no_grad():
-            return self.model.loss(self._cast(self.state["params"]), batch)
+            return self.model.loss(self._compute_copy(self.state["params"]), batch)
 
     __call__ = forward
 
@@ -673,11 +719,11 @@ class DeepSpeedEngine:
         inj = self.fault_injector
         signal = guard is not None and guard.consume()
         injected = inj is not None and inj.preempt(step1)
-        if self.dp_world > 1 and (guard is not None or inj is not None):
+        if comm.get_world_size() > 1 and (guard is not None or inj is not None):
             # every rank preempts (and takes its JIT checkpoint) together; a
             # guard or an injector is configured on every rank of a world
             flags = comm.all_reduce(torch.tensor([float(signal), float(injected)], device=self.device),
-                                    DP_AXES, "max").tolist()
+                                    DP_AXES if self.tp is None else TP_TRAIN_AXES[-1], "max").tolist()
             signal, injected = flags[0] > 0, flags[1] > 0 and not flags[0] > 0
         if signal:
             self._preempt(source="signal")
@@ -1123,30 +1169,30 @@ class DeepSpeedEngine:
         holds a shard of (None without the ZeRO runtime)."""
         if self.zero is None:
             return None
-        tree = {"opt": self.zero.opt_state_layouts(self.state["opt"])}
+        tree = {"opt": self.zero.opt_state_layouts(self.state["opt"]), "params": self.zero.param_layouts}
         if self.tier is not None:  # the cpu tier's host masters: the optimizer state's split
             tree["master"] = self.zero.opt_layouts
-        if self.zero_stage == 3:
-            tree["params"] = self.zero.param_layouts
         flat = saver._flatten_with_paths(tree)
-        return {k: v for k, v in flat.items() if v is not None and v.sharded}
+        return {k: v for k, v in flat.items() if v is not None and v.partial}
 
     def full_params(self) -> dict:
         """The whole fp32 parameter tree on every rank (ZeRO-3: gathered;
+        under tensor parallelism the slices gathered over ``model``;
         collective)."""
-        if self.z3 is None:
-            return self.state["params"]
-        from .zero.stage_1_and_2 import all_gather_rows
+        params = self.state["params"]
+        if self.z3 is not None:
+            from .zero.stage_1_and_2 import all_gather_rows
 
-        lays = tree_leaves(self.zero.param_layouts)
-        shards = tree_leaves(self.state["params"])
-        idx = [i for i, lay in enumerate(lays) if lay.sharded]
-        out = list(shards)
-        for i, f in zip(idx, all_gather_rows([shards[i] for i in idx], [lays[i] for i in idx],
-                                             self.config.zero_optimization.allgather_bucket_size)):
-            out[i] = f
-        it = iter(out)
-        return tree_map(lambda _: next(it), self.state["params"])
+            lays = tree_leaves(self.zero.param_layouts)
+            shards = tree_leaves(params)
+            idx = [i for i, lay in enumerate(lays) if lay.sharded]
+            out = list(shards)
+            for i, f in zip(idx, all_gather_rows([shards[i] for i in idx], [lays[i] for i in idx],
+                                                 self.config.zero_optimization.allgather_bucket_size)):
+                out[i] = f
+            it = iter(out)
+            params = tree_map(lambda _: next(it), params)
+        return params if self.tp is None else self.tp.gather(params)
 
     def _zero3_consolidated_16bit_state_dict(self) -> dict:
         """The weights in the compute dtype as a flat {"a/b": CPU tensor}

@@ -23,6 +23,10 @@ streamer reads are the tier's compute-dtype copies in host memory: each
 gather first copies this rank's slices to the device, and the gradient
 shards it fills are fp32 host buffers the tier's host update reads.
 
+Under tensor parallelism the shards are of each rank's tensor-parallel
+slices, and a gather rebuilds those slices, never the full leaf: the ZeRO
+collectives run among the ranks of this rank's ``model`` index.
+
 A stacked leaf whose spec splits the layer dimension itself (possible only
 when that is its largest divisible dimension) has each layer on one rank:
 that layer is broadcast from its owner, and its gradient all-reduced and
@@ -43,10 +47,12 @@ from .stage_1_and_2 import LeafLayout, all_gather_rows, all_reduce_tree, reduce_
 
 
 def _slice_layout(lay: LeafLayout) -> LeafLayout:
-    """The layout of one layer's slice of a stacked ``[L, ...]`` leaf."""
+    """The layout of one layer's slice of a stacked ``[L, ...]`` leaf (its
+    ZeRO split; the tensor-parallel slice is what the gather rebuilds)."""
+    base = dict(shape=lay.shape[1:], full_shape=lay.shape[1:], tp_dim=None, tp_n=1, tp_index=0, table=())
     if lay.dim is None or lay.dim == 0:
-        return dataclasses.replace(lay, shape=lay.shape[1:], spec=(), dim=None, axes=(), n=1, index=0)
-    return dataclasses.replace(lay, shape=lay.shape[1:], spec=lay.spec[1:], dim=lay.dim - 1)
+        return dataclasses.replace(lay, spec=(), dim=None, axes=(), n=1, index=0, **base)
+    return dataclasses.replace(lay, spec=lay.spec[1:], dim=lay.dim - 1, **base)
 
 
 class GatheredParamStreamer(ParamStreamer):
@@ -183,10 +189,12 @@ class Zero3Params:
     streamer that hands the model its gathered layers."""
 
     def __init__(self, params: dict, device, layouts: dict, compute_dtype, gather_bucket: float,
-                 reduce_bucket: float, host_grads: bool = False):
+                 reduce_bucket: float, host_grads: bool = False, tp=None):
         """``host_grads``: the gradient shards in host memory (pinned on a
-        card), for the tier's host update under ``offload_param``."""
+        card), for the tier's host update under ``offload_param``; ``tp``:
+        the tensor-parallel plan the model reads from its parameters."""
         self.device = device
+        self.tp = tp
         if host_grads:
             pin = torch.device(device).type == "cuda"
             grads = tree_map(lambda p: host_empty(p.shape, torch.float32, pin).zero_(), params)
@@ -202,7 +210,10 @@ class Zero3Params:
 
     def view(self, params: dict) -> StreamedParams:
         self.bind(params)
-        return self.streamer.view()
+        view = self.streamer.view()
+        if self.tp is not None:
+            view.tp = self.tp
+        return view
 
     def begin_step(self, params: dict) -> StreamedParams:
         self.streamer.begin_step()

@@ -26,6 +26,15 @@ on. The global gradient norm and the non-finite count are reduced over the
 ZeRO axes in one 2-element all-reduce (``reduce_stats``), so clipping, the
 fp16 loss scaler and the NaN guardrail see the same numbers on every rank.
 
+Under tensor parallelism (a ``model`` axis above 1) each rank holds its
+tensor-parallel slice of a leaf (``module_inject.TensorParallel``), and
+ZeRO splits that slice over ``data``/``fsdp`` on the ZeRO dimension of the
+leaf's spec: ``LeafLayout`` carries both splits, its ``shape`` is the
+slice's and ``bounds`` the shard's place in the full leaf on both
+dimensions. The data-axis collectives run among the ranks of this rank's
+``model`` index; the norm, the non-finite count and LAMB's whole-leaf sums
+add each distinct piece once over the whole data x model plane.
+
 ``overlap_comm`` is parsed and ignored, as in JAX (where XLA schedules):
 the collectives here run in program order between the backward and the
 update.
@@ -40,7 +49,7 @@ from typing import Optional
 import torch
 
 from ... import comm
-from ...comm.mesh import DP_AXES, Mesh
+from ...comm.mesh import DP_AXES, Mesh, TP_TRAIN_AXES
 from ...ops.optimizers import tree_leaves, tree_map
 from ...parallel import sharding as shd
 
@@ -49,10 +58,14 @@ ZERO_FALLBACK = ("fsdp", "data")
 
 @dataclasses.dataclass
 class LeafLayout:
-    """One leaf's split: ``dim`` (None: replicated) over ``axes`` (first
-    major) into ``n`` shards, of which this rank holds shard ``index``;
-    ``writer`` is whether this rank is the first holder of its shard (the
-    rank that writes it into a checkpoint)."""
+    """One leaf's split: ``dim`` (None: replicated) over the ZeRO ``axes``
+    (first major) into ``n`` shards, of which this rank holds shard
+    ``index``; ``writer`` is whether this rank is the first holder of its
+    shard (the rank that writes it into a checkpoint). Under tensor
+    parallelism ``shape`` is this rank's slice of the ``full_shape`` leaf,
+    split on ``tp_dim`` into ``tp_n`` slices of which it holds ``tp_index``;
+    ``table`` lists every distinct shard's bounds in the full leaf in the
+    order of their first holders' ranks, as a JAX save lists them."""
 
     shape: tuple
     spec: tuple
@@ -61,10 +74,31 @@ class LeafLayout:
     n: int
     index: int
     writer: bool
+    full_shape: Optional[tuple] = None
+    tp_dim: Optional[int] = None
+    tp_n: int = 1
+    tp_index: int = 0
+    table: tuple = ()
+
+    def __post_init__(self):
+        if self.full_shape is None:
+            self.full_shape = self.shape
 
     @property
     def sharded(self) -> bool:
+        """Whether ZeRO splits the leaf (its collectives run for it)."""
         return self.dim is not None and self.n > 1
+
+    @property
+    def partial(self) -> bool:
+        """Whether this rank holds less than the whole leaf (ZeRO, tensor
+        parallelism or both): a checkpoint writes it as shards."""
+        return self.sharded or self.tp_n > 1
+
+    @property
+    def slot(self) -> int:
+        """This rank's shard's entry in ``table``."""
+        return self.table.index(self.bounds())
 
     @property
     def shard_shape(self) -> tuple:
@@ -75,9 +109,13 @@ class LeafLayout:
         return tuple(s)
 
     def bounds(self, index: Optional[int] = None) -> list[list[int]]:
-        """[[lo, hi], ...] per dimension of shard ``index`` (default: this
-        rank's) in the full leaf: the checkpoint's shard index."""
-        out = [[0, d] for d in self.shape]
+        """[[lo, hi], ...] per dimension of ZeRO shard ``index`` (default:
+        this rank's) of this rank's tensor-parallel slice, in the full
+        leaf: the checkpoint's shard index."""
+        out = [[0, d] for d in self.full_shape]
+        if self.tp_dim is not None:
+            s = self.shape[self.tp_dim]
+            out[self.tp_dim] = [self.tp_index * s, (self.tp_index + 1) * s]
         if self.dim is not None:
             i = self.index if index is None else index
             s = self.shape[self.dim] // self.n
@@ -103,23 +141,40 @@ class LeafLayout:
 
 
 def layout_tree(mesh: Mesh, axes_tree, shapes, rules, zero_fallback=None):
-    """A ``LeafLayout`` per leaf of ``shapes`` (a tree of tensors or
-    shapes), from its logical axes under ``rules``. The tree has the key
-    order of ``shapes``, so its leaves line up with the parameters'
-    (``tree_leaves``)."""
+    """A ``LeafLayout`` per leaf of ``shapes`` (a tree of tensors or the
+    full leaves' shapes), from its logical axes under ``rules``. The tree
+    has the key order of ``shapes``, so its leaves line up with the
+    parameters' (``tree_leaves``)."""
     all_ranks = sorted(int(r) for r in mesh.ranks.ravel())
 
     def one(ax, t):
-        shape = tuple(t.shape if hasattr(t, "shape") else t)
-        spec = shd.spec_from_logical(ax, shape, rules, mesh, zero_fallback=zero_fallback)
-        dim = shd.shard_dim(spec)
-        axes = shd.spec_axes(spec)
+        full = tuple(t.shape if hasattr(t, "shape") else t)
+        spec = shd.spec_from_logical(ax, full, rules, mesh, zero_fallback=zero_fallback)
+        tp_dim, dim = shd.split_dims(spec)
+        axes = shd.zero_axes(spec)
+        tp_n = mesh.axis_size("model") if tp_dim is not None else 1
+        shape = list(full)
+        if tp_n > 1:
+            shape[tp_dim] //= tp_n
+        else:
+            tp_dim = None
+        shape = tuple(shape)
         n = mesh.axis_size(axes) if axes else 1
         if n == 1:
-            return LeafLayout(shape, spec, None if dim is None else dim, axes, 1, 0, mesh.rank == all_ranks[0])
-        index = mesh.axis_index(axes)
-        first = min(r for r in all_ranks if mesh.axis_index(axes, r) == index)
-        return LeafLayout(shape, spec, dim, axes, n, index, first == mesh.rank)
+            dim, axes = None, ()
+
+        def key(r):  # rank r's shard: (its tensor-parallel slice, its ZeRO shard)
+            return (mesh.axis_index("model", r) if tp_dim is not None else 0,
+                    mesh.axis_index(axes, r) if dim is not None else 0)
+
+        lay = LeafLayout(shape, spec, dim, axes, n, key(mesh.rank)[1], False, full, tp_dim, tp_n,
+                         key(mesh.rank)[0])
+        firsts: dict = {}
+        for r in all_ranks:
+            firsts.setdefault(key(r), r)
+        lay.writer = firsts[key(mesh.rank)] == mesh.rank
+        lay.table = tuple(dataclasses.replace(lay, tp_index=tpi).bounds(zi) for tpi, zi in firsts)
+        return lay
 
     def walk(ax, t):
         if isinstance(t, dict):
@@ -208,7 +263,9 @@ class ZeroRuntime:
 
     def __init__(self, mesh: Mesh, stage: int, axes_tree, shapes, reduce_bucket_size: float,
                  allgather_bucket_size: float):
+        """``shapes``: the full parameter tree (or its leaves' shapes)."""
         self.mesh = mesh
+        self.tp = mesh.shape.get("model", 1)
         self.stage = stage
         param_rules, opt_rules = shd.zero_stage_rules(stage)
         zfb = ZERO_FALLBACK if stage >= 1 else None
@@ -282,16 +339,33 @@ class ZeroRuntime:
 
     def grad_layouts(self) -> list:
         """The layout of each owned gradient leaf (in ``tree_leaves`` order)."""
-        lays = self.param_layouts if self.stage == 3 else self.opt_layouts
-        return tree_leaves(lays) if self.stage else [None] * len(tree_leaves(lays))
+        return tree_leaves(self.param_layouts if self.stage == 3 else self.opt_layouts)
+
+    def _distinct(self, lays: list) -> list[float]:
+        """Per leaf, 1.0 on the one rank of each group holding the same
+        piece of it (the first data index of a leaf ZeRO does not split,
+        the first model index of a leaf tensor parallelism does not split),
+        0.0 elsewhere: summed over the data x model plane, each piece of
+        each leaf counts once."""
+        dp0 = self.mesh.axis_index(DP_AXES) == 0
+        tp0 = self.mesh.axis_index("model") == 0
+        return [float((lay.sharded or dp0) and (lay.tp_n > 1 or tp0)) for lay in lays]
 
     def reduce_stats(self, sq: list, nonfinite: list) -> tuple[torch.Tensor, torch.Tensor]:
         """Per owned-leaf sums of squares and non-finite counts -> their
         totals over the whole model: the sharded leaves' parts summed over
         the ZeRO axes in one all-reduce, the replicated leaves' (the same on
-        every rank) added once."""
+        every rank) added once. Under tensor parallelism every leaf's piece
+        is weighted by ``_distinct`` and summed over the data x model plane
+        in one all-reduce, so a leaf split over ``model`` adds its slices
+        and a replicated one counts once, not ``tp`` times."""
         lays = self.grad_layouts()
-        part = [i for i, lay in enumerate(lays) if lay is not None and lay.sharded]
+        if self.tp > 1:
+            w = torch.tensor(self._distinct(lays), dtype=torch.float32, device=sq[0].device)
+            red = comm.all_reduce(torch.stack([(torch.stack(sq) * w).sum(), (torch.stack(nonfinite) * w).sum()]),
+                                  TP_TRAIN_AXES[-1], "sum")
+            return red[0], red[1]
+        part = [i for i, lay in enumerate(lays) if lay.sharded]
         rep = sorted(set(range(len(sq))) - set(part))
         dev = sq[0].device
         zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -306,8 +380,14 @@ class ZeroRuntime:
     def reduce_leaf_sq(self, a: list, b: list) -> tuple[list, list]:
         """Two per-owned-leaf sums of squares (LAMB's weights and update)
         -> each whole leaf's: the sharded leaves' summed over the ZeRO axes
-        in one all-reduce, the replicated leaves' kept."""
-        part = [i for i, lay in enumerate(self.grad_layouts()) if lay is not None and lay.sharded]
+        in one all-reduce, the replicated leaves' kept (under tensor
+        parallelism every leaf's distinct pieces summed over the data x
+        model plane, as ``reduce_stats`` adds them)."""
+        if self.tp > 1:
+            w = torch.tensor(self._distinct(self.grad_layouts()), dtype=torch.float32, device=a[0].device)
+            red = comm.all_reduce(torch.stack([torch.stack(a) * w, torch.stack(b) * w]), TP_TRAIN_AXES[-1], "sum")
+            return list(red[0].unbind()), list(red[1].unbind())
+        part = [i for i, lay in enumerate(self.grad_layouts()) if lay.sharded]
         if not part:
             return a, b
         red = comm.all_reduce(torch.stack([torch.stack([a[i] for i in part]), torch.stack([b[i] for i in part])]),
@@ -320,11 +400,12 @@ class ZeroRuntime:
     # -- bookkeeping ----------------------------------------------------
     def fraction_held(self) -> dict:
         """Bytes-weighted share of the parameters and the optimizer state
-        one rank holds (1/N of each sharded leaf)."""
+        one rank holds (1/N of each sharded leaf, of its tensor-parallel
+        slice)."""
         def share(lays):
-            tot = sum(math.prod(lay.shape) for lay in tree_leaves(lays))
+            tot = sum(math.prod(lay.full_shape) for lay in tree_leaves(lays))
             mine = sum(math.prod(lay.shard_shape) for lay in tree_leaves(lays))
             return mine / max(tot, 1)
 
-        return {"params": share(self.param_layouts) if self.stage == 3 else 1.0,
-                "opt_state": share(self.opt_layouts) if self.stage else 1.0}
+        return {"params": share(self.param_layouts) if self.stage == 3 or self.tp > 1 else 1.0,
+                "opt_state": share(self.opt_layouts) if self.stage or self.tp > 1 else 1.0}

@@ -238,9 +238,13 @@ def test_the_optimizers_bad_device_raises():
             tconfig.DeepSpeedConfig.from_dict({**tier, **world2}, world_size=2)
     with pytest.raises(tconfig.DeepSpeedConfigError, match="does not cover"):
         tconfig.DeepSpeedConfig.from_dict({**_cfg("cpu"), "mesh": {"data": 2}})
-    with pytest.raises(NotImplementedError):
-        tconfig.DeepSpeedConfig.from_dict({**_cfg("cpu"),
-                                           "activation_checkpointing": {"enabled": True, "partition_activations": True}})
+    tp2 = {"mesh": {"model": 2}}
+    for tier, what in ((_cfg("cpu"), "offload_optimizer 'cpu'"),
+                       (_cfg("cpu", stage=3, off_param="cpu"), "offload_optimizer 'cpu'"),
+                       (_cfg(stage=1) | {"activation_checkpointing": {"enabled": True, "cpu_checkpointing": True}},
+                        "activation_checkpointing.cpu_checkpointing")):
+        with pytest.raises(NotImplementedError, match=f"memory tiers \\({what}.*tensor parallelism"):
+            tconfig.DeepSpeedConfig.from_dict({**tier, **tp2}, world_size=2)
 
 
 def test_offload_keys_parse_like_jax():

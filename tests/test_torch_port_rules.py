@@ -227,6 +227,32 @@ def test_serving_worker_entry_point_runs_without_jax():
     assert "--device" in proc.stdout and "--socket" in proc.stdout
 
 
+_TP_TRAIN_WORKER = """
+import sys
+sys.modules["jax"] = None
+sys.modules["deepspeed_tpu"] = None
+sys.argv = ["chip_smoke.py", "--tp-train-worker", "--tpt-case", "b", "--model", "tiny", "--device", "cpu"]
+import chip_smoke
+seen = []
+chip_smoke.tp_train_worker = lambda args: seen.append((args.tpt_case, args.model, args.device)) or 0
+assert chip_smoke.main() == 0 and seen == [("b", "tiny", "cpu")], seen
+assert chip_smoke.tpt_config("b", "tiny")["mesh"] == {"data": 2, "model": 2}
+assert chip_smoke.tpt_config("b", "tiny")["activation_checkpointing"]["partition_activations"]
+assert "mesh" not in chip_smoke.tpt_config("b", "tiny", reference=True)
+assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
+print("tp train worker ok")
+"""
+
+
+def test_chip_smoke_tp_train_worker_mode_runs_without_jax():
+    """Phase 28's rank mode (``chip_smoke.py --tp-train-worker``) parses and
+    dispatches with jax and the JAX package blocked."""
+    proc = subprocess.run([sys.executable, "-c", _TP_TRAIN_WORKER], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "tp train worker ok" in proc.stdout
+
+
 _CLIS = """
 import json, os, runpy, sys, tempfile
 sys.modules["jax"] = None

@@ -84,7 +84,7 @@ def test_group_that_does_not_divide_warns_and_goes_per_layer(tiny_inputs):
     assert loss.item() == ref_loss.item()
 
 
-@pytest.mark.parametrize("field,value", [("remat_policy", "checkpoint_dots"), ("remat_partition_axis", "model")])
+@pytest.mark.parametrize("field,value", [("remat_policy", "checkpoint_dots"), ("remat_partition_axis", "context")])
 def test_unported_remat_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         ttfm.TransformerConfig(remat=True, **{field: value})
@@ -150,15 +150,24 @@ def test_checkpoint_api_replays_the_global_rng(clean_act_ckpt):
 
 
 def test_cpu_checkpointing_and_partition_activations_raise(clean_act_ckpt):
-    """partition_activations (tensor parallelism) still raises;
-    cpu_checkpointing (the memory tier) is ported: it parses and configures
-    as in the JAX package and turns on the model's remat_offload."""
+    """partition_activations (tensor parallelism) parses and configures as
+    in the JAX package and gives the model remat_partition_axis="model"
+    (JAX ``model_overrides``); cpu_checkpointing (the memory tier) is
+    ported likewise and turns on the model's remat_offload."""
     knob = "partition_activations"
-    with pytest.raises(NotImplementedError):
-        tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2,
-                                           "activation_checkpointing": {"enabled": True, knob: True}})
-    with pytest.raises(NotImplementedError):
-        tac.configure(deepspeed_config={"activation_checkpointing": {knob: True}})
+    block = {"enabled": True, knob: True}
+    tpart = tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, "activation_checkpointing": block})
+    jpart = jconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, "activation_checkpointing": block})
+    assert dataclasses.asdict(tpart.activation_checkpointing) == dataclasses.asdict(jpart.activation_checkpointing)
+    assert tac.configure(deepspeed_config={"activation_checkpointing": {knob: True}}).partition_activations
+    tac.set_config(tpart.activation_checkpointing)
+    jac.set_config(jpart.activation_checkpointing)
+    try:
+        assert tac.model_overrides(4) == jac.model_overrides(4)
+        assert tac.model_overrides(4)["remat_partition_axis"] == "model"
+    finally:
+        jac.reset()
+    assert ttfm.TransformerConfig(remat=True, remat_partition_axis="model").remat_partition_axis == "model"
     ds = {"train_batch_size": 2, "activation_checkpointing": {"enabled": True, "cpu_checkpointing": True}}
     tcfg = tconfig.DeepSpeedConfig.from_dict(ds).activation_checkpointing
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jconfig.DeepSpeedConfig.from_dict(ds).activation_checkpointing)

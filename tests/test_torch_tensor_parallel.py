@@ -227,7 +227,7 @@ def test_tp_refusals_name_themselves(monkeypatch):
 
 def test_tp_fleet_handoff_and_training_are_refused():
     """Behind the fleet, in a disaggregated role (the KV handoff) and in
-    training, tensor parallelism raises by name. A TP engine is faked by
+    training with block-sparse attention, tensor parallelism raises by name. A TP engine is faked by
     its plan attribute: the refusals read nothing else."""
     from deepspeed_tpu_torch.inference import Router
     from deepspeed_tpu_torch.launcher.serving_worker import build_serving_engine
@@ -240,5 +240,8 @@ def test_tp_fleet_handoff_and_training_are_refused():
         ServingEngine(eng, config={"n_slots": 2, "role": "prefill"})
     with pytest.raises(NotImplementedError, match="serving worker of a tensor-parallel engine"):
         build_serving_engine({"model": BASE, "tensor_parallel": {"tp_size": 2}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="'model'=2: tensor parallelism in training"):
-        DeepSpeedConfig.from_dict({"train_batch_size": 2, "mesh": {"data": 1, "model": 2}}, world_size=2)
+    # training under a model axis is ported; its unported paths are refused by name
+    DeepSpeedConfig.from_dict({"train_batch_size": 2, "mesh": {"data": 1, "model": 2}}, world_size=2)
+    with pytest.raises(NotImplementedError, match="sparse_attention with tensor parallelism"):
+        DeepSpeedConfig.from_dict({"train_batch_size": 2, "mesh": {"data": 1, "model": 2},
+                                   "sparse_attention": {"mode": "fixed", "block": 16}}, world_size=2)

@@ -177,7 +177,7 @@ def test_unported_config_blocks_raise(block):
     ledger on by default, as in JAX) are ported: the port takes them as the
     JAX package parses them. The mesh's data axis is ported: ``data: 2``
     parses at a world of 2 as JAX parses it there (and not at a world of
-    1, where it does not cover the ranks); ``model: 2`` (tensor
+    1, where it does not cover the ranks); ``pipe: 2`` (pipeline
     parallelism) is still refused by name."""
     d = {"train_batch_size": 2, **block}
     name = next(iter(block))
@@ -187,8 +187,8 @@ def test_unported_config_blocks_raise(block):
         assert t.dp_mesh_sizes(2) == {"pipe": 1, "data": 2, "fsdp": 1, "context": 1, "model": 1}
         with pytest.raises(tconfig.DeepSpeedConfigError, match="does not cover"):
             tconfig.DeepSpeedConfig.from_dict(d, world_size=1)
-        with pytest.raises(NotImplementedError, match="'model'=2: tensor parallelism"):
-            tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, "mesh": {"data": 1, "model": 2}},
+        with pytest.raises(NotImplementedError, match="'pipe'=2: pipeline parallelism"):
+            tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 2, "mesh": {"data": 1, "pipe": 2}},
                                               world_size=2)
         return
     if name in ("flops_profiler", "telemetry"):

@@ -1,12 +1,14 @@
 """One rank of a gloo world for the port's data- and tensor-parallel CPU
 tests (``test_torch_comm.py``, ``test_torch_zero.py``,
 ``test_torch_zero_init.py``, ``test_torch_tensor_parallel.py``,
-``test_torch_tp_serving.py``).
+``test_torch_tp_serving.py``, ``test_torch_tp_training.py``,
+``test_torch_tp_checkpoint.py``).
 
     python tests/torch_dp_worker.py JOB SPEC.json RANK WORLD
 
 joins the world through the FileStore named in the spec, runs JOB
-(``comm``, ``zero``, ``zero_init``, ``tp_engine`` or ``tp_serving``) and
+(``comm``, ``zero``, ``zero_init``, ``tp_engine``, ``tp_serving``,
+``tp_ops`` or ``tp_train``) and
 writes ``<out>/rank<RANK>.npz``
 (and a JSON sidecar). It imports the port only: never jax or the JAX
 package. The tests start the ranks with ``subprocess`` (never ``fork``: the
@@ -62,7 +64,7 @@ def comm_job(spec, rank, world) -> dict:
 
 
 def _engine(case, params, spec):
-    cfg = tfm.TransformerConfig(**spec["model"], **case.get("model", {}), dtype=torch.float32)
+    cfg = tfm.TransformerConfig(**{**spec["model"], **case.get("model", {})}, dtype=torch.float32)
     ds = dict(spec["ds"], **case.get("ds", {}))
     return deepspeed_tpu_torch.initialize(model=tfm.Model(cfg), config=ds,
                                           model_parameters=tree_map(lambda t: t.clone(), params),
@@ -83,7 +85,6 @@ def _layout_record(engine) -> dict:
 
 
 def zero_job(spec, rank, world) -> tuple[dict, dict]:
-    params = _unflatten(dict(np.load(spec["params"])))
     data = np.load(spec["tokens"])
     tokens = data["tokens"]
     arrays, meta = {}, {}
@@ -94,6 +95,7 @@ def zero_job(spec, rank, world) -> tuple[dict, dict]:
         if case.get("nan_rank1_at"):  # every rank has an injector; rank 1's fires
             case = dict(case, ds={**case.get("ds", {}), "resilience": {"fault_injection": {
                 "enabled": True, "nan_grad_steps": [case["nan_rank1_at"]] if rank == 1 else []}}})
+        params = _unflatten(dict(np.load(case.get("params", spec["params"]))))
         engine = _engine(case, params, spec)
         if case.get("jax_state"):  # the JAX engine's state, this rank's part by the port's layouts
             from deepspeed_tpu_torch import interop
@@ -102,6 +104,10 @@ def zero_job(spec, rank, world) -> tuple[dict, dict]:
             engine.state.update(interop.shard_state_from_jax(engine, jstate), step=jstate["step"].to(torch.int32))
         if case.get("load"):
             engine.load_checkpoint(case["load"], tag=case.get("load_tag"))
+            if case.get("loaded_state"):  # the state as loaded, before any step
+                for what, tree in (("params", engine.full_params()), ("opt", full_opt(engine))):
+                    arrays.update({f"{name}::loaded::{what}::{k}": t.numpy()
+                                   for k, t in saver._flatten_with_paths(tree).items()})
         losses, norms, overflow = [], [], []
         for step in range(case["steps"]):
             if case.get("three_call"):  # DeepSpeed's loop on this rank's rows of each micro-batch
@@ -124,14 +130,22 @@ def zero_job(spec, rank, world) -> tuple[dict, dict]:
             if case.get("save") and step + 1 == case["save_after"]:
                 engine.save_checkpoint(case["save"], tag="port")
         engine.checkpoint_engine.commit()  # an async save is finished here, on every rank
+        if case.get("save16"):
+            engine.save_16bit_model(case["save16"])
         arrays[f"{name}::losses"] = np.asarray(losses)
         arrays[f"{name}::norms"] = np.asarray(norms)
         arrays[f"{name}::overflow"] = np.asarray(overflow)
         full = engine.full_params()
         for key, t in saver._flatten_with_paths(full).items():
             arrays[f"{name}::params::{key}"] = t.numpy()
+        if case.get("full_opt"):
+            for key, t in saver._flatten_with_paths(full_opt(engine)).items():
+                arrays[f"{name}::opt::{key}"] = t.numpy()
         meta[name] = {"layouts": _layout_record(engine) if engine.zero else {}, "skipped": engine.skipped_steps,
-                      "mesh": engine.mesh.shape, "dp_rank": engine.dp_rank, "zero_runtime": engine.zero is not None}
+                      "mesh": engine.mesh.shape, "dp_rank": engine.dp_rank, "zero_runtime": engine.zero is not None,
+                      "held": engine.zero.fraction_held() if engine.zero else {},
+                      "heads": None if engine.tp is None else engine.tp.heads(engine.model.config.num_heads),
+                      "param_numel": sum(t.numel() for t in tree_leaves(engine.state["params"]))}
         if "master" in engine.state:  # the cpu tier: this rank's host masters
             meta[name]["master_numel"] = sum(t.numel() for t in tree_leaves(engine.state["master"]))
             meta[name]["tier_streamed"] = engine.tier.streamed
@@ -140,6 +154,76 @@ def zero_job(spec, rank, world) -> tuple[dict, dict]:
             meta[name]["snapshot"] = {k: snap.get(k) for k in ("comm_reconcile", "step_anatomy")}
             meta[name]["pools"] = snap["hbm"]["pools"]
     return arrays, meta
+
+
+def full_opt(engine) -> dict:
+    """The optimizer state's params-shaped subtrees at full shape on every
+    rank: the ZeRO shards gathered over the data axes, then the tensor-
+    parallel slices over ``model`` (collective)."""
+    from deepspeed_tpu_torch.runtime.zero.stage_1_and_2 import all_gather_rows
+
+    out = {}
+    for k, sub in engine.state["opt"].items():
+        if not isinstance(sub, dict):
+            continue
+        if engine.zero is not None and engine.zero.stage:
+            lays, leaves = tree_leaves(engine.zero.opt_layouts), tree_leaves(sub)
+            idx = [i for i, lay in enumerate(lays) if lay.sharded]
+            for i, f in zip(idx, all_gather_rows([leaves[i] for i in idx], [lays[i] for i in idx], 5e8)):
+                leaves[i] = f
+            it = iter(leaves)
+            sub = tree_map(lambda _: next(it), sub)
+        out[k] = sub if engine.tp is None else engine.tp.gather(sub)
+    return out
+
+
+def tp_ops_job(spec, rank, world) -> tuple[dict, dict]:
+    """At tp = WORLD: the four conjugate collectives over ``model``, each
+    one's forward on this rank's input and its backward of this rank's
+    upstream gradient (integer-valued fp32, so every sum is exact); then
+    the vocab-parallel loss (``_vocab_parallel_losses``)."""
+    mesh = comm.build_mesh(comm.MeshConfig(data=-1, model=world), axes_list=comm.mesh.SERVING_AXES)
+    data = np.load(spec["inputs"])
+    out = {}
+    for name, fn, x_key, g_key in (("copy", comm.copy_to_model, "x", "g"),
+                                   ("reduce", comm.reduce_from_model, "x", "g"),
+                                   ("gather", lambda t: comm.gather_from_model(t, dim=-1), "x", "g_wide"),
+                                   ("scatter", lambda t: comm.scatter_to_model(t, dim=1), "x_wide", "g_narrow")):
+        x = torch.from_numpy(data[x_key][rank]).requires_grad_()
+        y = fn(x)
+        y.backward(torch.from_numpy(data[g_key][rank]))
+        out[f"{name}::fwd"] = y.detach().numpy()
+        out[f"{name}::bwd"] = x.grad.numpy()
+    out.update(_vocab_parallel_losses(spec, mesh, data))
+    return out, {}
+
+
+def _vocab_parallel_losses(spec, mesh, data) -> dict:
+    """The vocab-parallel ``lm_loss_from_hidden`` for each case: the loss,
+    the gradient of ``hidden`` and this rank's gradient of the head (the
+    tied ``wte`` rows or the untied ``lm_head`` columns) gathered to full
+    shape."""
+    from deepspeed_tpu_torch.module_inject.layers import TensorParallel, TPParams
+
+    out = {}
+    for case in spec["cases"]:
+        name = case["name"]
+        cfg = tfm.TransformerConfig(**case["model"], dtype=torch.float32)
+        head = "lm_head" if f"{name}::lm_head" in data else "wte"  # (an untied wte has no part in the loss)
+        full = {head: torch.from_numpy(data[f"{name}::{head}"])}
+        shapes = {k: tuple(v.shape) for k, v in full.items()}
+        axes = {k: v for k, v in tfm.logical_axes(cfg).items() if k in full}
+        tp = TensorParallel(mesh, axes, shapes)
+        local = {k: tp.shard_leaf(v, k).requires_grad_() for k, v in full.items()}
+        hidden = torch.from_numpy(data[f"{name}::hidden"]).requires_grad_()
+        loss = tfm.lm_loss_from_hidden(cfg, TPParams(dict(local), tp), hidden,
+                                       torch.from_numpy(data[f"{name}::labels"]).long())
+        loss.backward()
+        out[f"{name}::loss"] = loss.detach().numpy()
+        out[f"{name}::d_hidden"] = hidden.grad.numpy()
+        for k, t in local.items():
+            out[f"{name}::d_{k}"] = tp.gather({k: t.grad})[k].numpy()
+    return out
 
 
 def zero_init_job(spec, rank, world) -> tuple[dict, dict]:
@@ -297,6 +381,10 @@ def main() -> int:
         arrays, meta = tp_engine_job(spec, rank, world)
     elif job == "tp_serving":
         arrays, meta = tp_serving_job(spec, rank, world)
+    elif job == "tp_ops":
+        arrays, meta = tp_ops_job(spec, rank, world)
+    elif job == "tp_train":  # the engine's cases (zero_job) over a mesh with a model axis
+        arrays, meta = zero_job(spec, rank, world)
     else:
         raise SystemExit(f"unknown job {job!r}")
     _write(spec, rank, arrays, meta)

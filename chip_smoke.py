@@ -236,7 +236,7 @@ Phases, each of which passes or makes the script exit non-zero:
      4; it prints the last touch -> kill seconds and the relaunch's boot ->
      first step. (d) ``ChaosRunner`` over 3 real ``ServingEngine``
      replicas (2 slots, phase 18's model and seeded weights, 6 new tokens,
-     each replica with the schedule's fault injection): 8 generated
+     each replica with the schedule's fault injection): 4 generated
      schedules over the fake-fleet sites, each run twice, green under the
      invariant oracles with one digest, 12 + 12 decode launches a replay,
      the device memory after the last schedule beside the first's; then a
@@ -336,13 +336,28 @@ Phases, each of which passes or makes the script exit non-zero:
      those without partition_activations, and the peak memory both ways;
      the state saved there loaded at world 1, whose next loss is (b)'s
      within the limit. No scaling is claimed: one card, gloo.
+ 29. pipeline parallelism (pipe/: PipelineEngine over a PipelinedTransformer,
+     the stages' ppermute over ``pipe``, the tied embedding's gradient
+     summed over it): a gloo world of 2 ranks, one stage each (this script
+     in its hidden ``--pipe-worker`` mode), booted while this process runs a
+     world-1 plain engine on the same weights and batches; phase 7's model
+     with the fused loss (6 layers a stage), batch 8 = micro 2 x 4
+     micro-batches, GPipe then the executed 1F1B, one warm-up and 2 timed
+     steps each: each rank's losses within ``PIPE_LOSS_GAP`` of world 1's,
+     and the first batch's loss with the last stage's wo zeroed beyond it;
+     each kernel's launches a train_batch on each stage as reckoned from the
+     code (``pipe_reckoning``: 24 of each flash kernel, the forward 48 under
+     1F1B, and the fused loss on the last stage only); the ppermute count
+     and bytes a step as reckoned; the bubble gauge 0.2; 1F1B's forward
+     clocks ``TrainSchedule``'s; ms/step and peak memory a rank beside world
+     1's. No scaling is claimed: one card, gloo.
 Every phase prints its seconds (``phase N: S s``), and the script its
 total.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
 line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, an
 ``{"elastic": {...}}`` line, a ``{"chaos": {...}}`` line, a ``{"profiling": {...}}`` line, a
 ``{"zero": {...}}`` line, a ``{"tensor_parallel": {...}}`` line, a
-``{"tensor_parallel_training": {...}}`` line, a ``{"kernels": [...]}`` line, a
+``{"tensor_parallel_training": {...}}`` line, a ``{"pipeline": {...}}`` line, a ``{"kernels": [...]}`` line, a
 ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
@@ -4425,7 +4440,7 @@ RESTART_BACKOFF = {"base_delay_s": 1.0, "max_delay_s": 1.0, "jitter": 0.25}
 ELASTIC_SAVE_EVERY = 2
 ELASTIC_STEPS = 6  # the uninterrupted run (the launch stack's) and the crash drill
 CRASH_AFTER, HANG_AFTER = 4, 2
-CHAOS_SCHEDULES = 8
+CHAOS_SCHEDULES = 4  # 8 before phase 29 (a run 1.1-1.8 s on an H100, two a schedule): its seconds came out here
 CHAOS_SEARCH = 64
 CHAOS_SEED = 23
 CHAOS_PLANTED_SITE = "garbage_logits"
@@ -4909,7 +4924,7 @@ def elastic_chaos_phase(dev, smi, model=None):
 # cpu-tier losses against the unoffloaded run's: the CPU parity test's
 # tolerance (tests/test_torch_offload.py, JAX's own rtol 2e-2)
 TIER_LOSS_RTOL = 2e-2
-TIER_STEPS = 3  # timed steps after one warm-up; the first three losses are compared
+TIER_STEPS = 2  # timed steps after one warm-up (3 before phase 29); the warm-up's and their losses are compared
 # GPT-3 6.7B (Brown et al. 2020, Table 2.1): 32 layers, d_model 4096, 32
 # heads of 128, 2048 positions; vocab 50304 (bench.py's padding)
 GPT3_67B = dict(vocab_size=50304, max_seq_len=2048, num_layers=32, num_heads=32, hidden_size=4096,
@@ -6565,6 +6580,231 @@ def tensor_parallel_training_phase(dev, smi, model="gpt2"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: pipeline parallelism
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES = 2
+PIPE_MICRO = 4  # micro-batches a train_batch (the config's gradient_accumulation_steps)
+PIPE_MB = 2  # rows a micro-batch: the global batch is 8 = 2 x 4
+PIPE_STEPS = 2  # timed steps after one warm-up, per schedule; the warm-up's loss is compared too
+PIPE_SCHEDULES = ("gpipe", "1f1b")
+# each rank's losses against the world-1 plain engine's on the same weights
+# and batches, relative, by model: fp32 at the tiny size (the CPU
+# rehearsal) sums the gradients in another order only; at GPT-2 width in
+# bf16 the stages compute the plain engine's micro-batches, so only the
+# gradient sums' order and GPipe's one fused-loss call over every row move
+# the loss (PERF.md: the prediction before the first run)
+PIPE_LOSS_GAP = {"gpt2": 2e-4, "tiny": 1e-5}
+PIPE_TINY = dict(vocab_size=512, max_seq_len=128, num_layers=4, num_heads=4, hidden_size=64, dtype=torch.float32,
+                 attn_impl="flash", loss_impl="fused_xent")
+
+
+def pipe_model(model):
+    return gpt2_config(loss_impl="fused_xent") if model == "gpt2" else TransformerConfig(**PIPE_TINY)
+
+
+def pipe_config(model, schedule, reference=False):
+    """The pipelined engine's config over ``pipe`` = 2, or the world-1 plain
+    engine's (``reference``): the same micro-batches as gas."""
+    ds = dp_config(1, PIPE_MB * PIPE_MICRO, PIPE_MB, PIPE_MICRO, BENCH_DS if model == "gpt2" else DP_TINY_DS)
+    if not reference:
+        ds.update(mesh={"pipe": PIPE_STAGES}, pipeline={"schedule": schedule})
+    return ds
+
+
+def pipe_params(cfg, stacked=True):
+    """The phase's weights (``dp_params``), the layers as [S, K, ...] when
+    ``stacked`` (the pipelined model's tree)."""
+    params = dp_params(cfg)
+    if stacked:
+        S = PIPE_STAGES
+        params["layers"] = {k: v.reshape((S, v.shape[0] // S) + tuple(v.shape[1:])) for k, v in params["layers"].items()}
+    return params
+
+
+def pipe_reckoning(cfg, cuda) -> dict:
+    """What a train_batch should launch and send on each stage, by schedule,
+    reckoned from the code before the run (PERF.md). Launches in
+    ``counts() + sparse_counts()`` order: every stage runs its K layers'
+    flash forward, dK/dV and dQ once a micro-batch (the executed 1F1B's
+    forward twice: once in its forward, once in the backward's recompute);
+    the last stage alone runs the fused loss: GPipe one call over all M x mb
+    rows (one product and one combine; a ds, dW and dH pass a vocab chunk of
+    ``fused_xent_backward``'s rule at that row count), 1F1B one call a
+    micro-batch. ppermute: GPipe M + S - 2 sends a direction (the last
+    tick's has no reader), 1F1B two a tick over 2M + 2S - 2 ticks, each of
+    one micro-batch's activation (mb x seq x d in the compute dtype); every
+    rank of the axis logs every call."""
+    S, M, mb = PIPE_STAGES, PIPE_MICRO, PIPE_MB
+    K = cfg.num_layers // S
+    seq, V = cfg.max_seq_len, cfg.vocab_size
+    elt = torch.empty((), dtype=cfg.dtype).element_size()
+    msg = mb * seq * cfg.hidden_size * elt
+    out = {}
+    for sched in PIPE_SCHEDULES:
+        calls, rows = (M, mb * seq) if sched == "1f1b" else (1, M * mb * seq)
+        chunks = len(fx.vocab_chunks(V, fx.backward_chunk(rows, V, elt)))
+        flash = [(2 if sched == "1f1b" else 1) * K * M, K * M, K * M]
+        xent = [calls, calls] + [calls * chunks] * 3
+        launches = [(flash + [0] + (xent if s == S - 1 else [0] * 5) + [0] * N_SPARSE) if cuda
+                    else [0] * (N_COUNTS + N_SPARSE) for s in range(S)]
+        sends = 2 * (2 * M + 2 * S - 2) if sched == "1f1b" else 2 * (M + S - 2)
+        out[sched] = {"launches": launches, "ppermute": {"count": sends, "bytes": sends * msg},
+                      "fused_loss_rows_a_call": rows, "vocab_chunks": chunks}
+    return out
+
+
+def pipe_worker(args) -> int:
+    """``--pipe-worker``: one rank (one stage) of phase 29's world. Joins
+    the gloo world through ``--store``, waits for ``--wait-for`` (the card
+    to itself), then for each schedule: a ``PipelineEngine`` over a
+    ``PipelinedTransformer`` from the phase's weights; under GPipe first the
+    wrong-stage control (the last stage's ``wo`` zeroed, the first batch's
+    loss); one warm-up and ``PIPE_STEPS`` timed steps with the kernel
+    launches and the collectives counted. Appends one JSON record to
+    ``--out``."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.pipe import PipelineEngine, PipelinedTransformer
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(init_method=f"file://{args.store}", world_size=world, rank=rank, backend="gloo",
+                          timeout_s=600.0)
+    deadline = time.monotonic() + 900
+    while not os.path.exists(args.wait_for):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"phase 29: no {args.wait_for} within 900 s")
+        time.sleep(0.05)
+    cfg = pipe_model(args.model)
+    params = pipe_params(cfg)
+    rec = {"rank": rank, "world": world, "kind": torch.cuda.get_device_name(dev) if cuda else "cpu"}
+    for sched in PIPE_SCHEDULES:
+        engine = PipelineEngine(PipelinedTransformer(cfg, PIPE_STAGES), pipe_config(args.model, sched),
+                                params=tree_map(lambda t: t.clone(), params), device=dev)
+        entry = {"stage": engine.stage_id, "state_bytes": state_bytes(engine),
+                 "bubble": engine.telemetry.registry.snapshot()["gauges"]["train/pipe/bubble_fraction"]}
+        if sched == "gpipe":  # the control: the last stage's attention output projections zeroed
+            wo = engine.state["params"]["layers"]["wo"]
+            keep = wo.clone()
+            if engine.stage_id == PIPE_STAGES - 1:
+                wo.zero_()
+            entry["wrong_stage_loss"] = float(engine.eval_batch(dp_batch(cfg, engine.train_batch_size, 0)))
+            wo.copy_(keep)
+            del keep
+        warm_s, step_ms, losses, per_step, per, peak, ops = dp_steps(engine, cfg, PIPE_STEPS)
+        entry.update(warmup_s=warm_s, step_ms=step_ms, losses=losses, launches=per_step, comm_per_step=per,
+                     comm_ops=ops, peak_bytes=peak, trace=engine.last_trace)
+        rec[sched] = entry
+        del engine
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    with open(args.out, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    comm.destroy_distributed()
+    return 0
+
+
+def _pipe_fail(what):
+    raise SystemExit(f"phase 29: {what}")
+
+
+def pipeline_phase(dev, smi, model="gpt2"):
+    """Phase 29. A gloo world of 2 ranks, pipe 2 (``--pipe-worker``
+    processes, both on ``dev``), boots first and waits; meanwhile this
+    process runs the world-1 plain engine on the same weights and batches
+    (micro 2 x gas 4). Then the world runs GPipe and the executed 1F1B.
+    Checks, on each rank and schedule: losses within ``PIPE_LOSS_GAP`` of
+    world 1's and the wrong-stage control beyond it; each kernel's launches
+    a train_batch equal to ``pipe_reckoning`` (none of the fused loss on
+    stage 0); the ppermute count and bytes a step as reckoned; the bubble
+    gauge (S-1)/(M+S-1); the 1F1B trace's forward clocks ``TrainSchedule``'s."""
+    from deepspeed_tpu_torch.pipe import schedule as pipe_schedule
+    from deepspeed_tpu_torch.telemetry.collective_ledger import pipeline_bubble_fraction
+
+    cuda = dev.type == "cuda"
+    cfg = pipe_model(model)
+    t_phase = time.perf_counter()
+    limit = PIPE_LOSS_GAP[model]
+    reck = pipe_reckoning(cfg, cuda)
+    out = {"config": {"model": model, "stages": PIPE_STAGES, "micro_batches": PIPE_MICRO, "micro_rows": PIPE_MB,
+                      "steps": PIPE_STEPS, "loss_gap": limit}, "reckoning": reck}
+    with tempfile.TemporaryDirectory(prefix="dstt_pipe_") as tmp:
+        path, go = os.path.join(tmp, "ranks.jsonl"), os.path.join(tmp, "go")
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)), "LOCAL_RANK": "0",
+               "WORLD_SIZE": str(PIPE_STAGES)}
+        cmd = [sys.executable, os.path.abspath(__file__), "--pipe-worker", "--model", model, "--device", str(dev),
+               "--out", path, "--store", os.path.join(tmp, "store"), "--wait-for", go]
+        procs = [subprocess.Popen(cmd, env={**env, "RANK": str(r)}) for r in range(PIPE_STAGES)]
+        try:
+            engine = deepspeed_tpu_torch.initialize(model=Model(cfg), config=pipe_config(model, None, reference=True),
+                                                    model_parameters=pipe_params(cfg, stacked=False), device=dev)[0]
+            warm_s, step_ms, losses, per_step, _, peak, _ = dp_steps(engine, cfg, PIPE_STEPS)
+            ref = {"warmup_s": warm_s, "step_ms": step_ms, "losses": losses, "launches": per_step, "peak_bytes": peak}
+            del engine
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            with open(go, "w") as f:
+                f.write("go\n")
+            rcs = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out["ranks_s"] = time.perf_counter() - t_phase
+        if any(rcs):
+            _pipe_fail(f"a rank failed: exit codes {rcs}")
+        ranks = sorted((json.loads(line) for line in open(path)), key=lambda r: r["rank"])
+    bubble = pipeline_bubble_fraction(PIPE_STAGES, PIPE_MICRO)
+    control = [abs(r["gpipe"]["wrong_stage_loss"] - ref["losses"][0]) / abs(ref["losses"][0]) for r in ranks]
+    ok = min(control) > limit
+    for sched in PIPE_SCHEDULES:
+        want = reck[sched]
+        entry = {"step_ms": [], "peak_bytes": [], "losses": [], "loss_gap": [], "launches_per_train_batch": [],
+                 "ppermute_per_step": [], "bubble": [], "state_bytes": []}
+        for r in ranks:
+            e, stage = r[sched], r[sched]["stage"]
+            pp = [v for k, v in e["comm_ops"].items() if k.startswith("ppermute@")]
+            sent = {"count": sum(v["count"] for v in pp) / PIPE_STEPS, "bytes": sum(v["bytes"] for v in pp) / PIPE_STEPS}
+            gap = rel_gap(e["losses"], ref["losses"])
+            launch_ok = all(step == want["launches"][stage] for step in e["launches"])
+            for k, v in (("step_ms", e["step_ms"]), ("peak_bytes", e["peak_bytes"]), ("losses", e["losses"]),
+                         ("loss_gap", gap), ("launches_per_train_batch", e["launches"][0]),
+                         ("ppermute_per_step", sent), ("bubble", e["bubble"]), ("state_bytes", e["state_bytes"])):
+                entry[k].append(v)
+            ok = ok and gap <= limit and launch_ok and sent == want["ppermute"] and abs(e["bubble"] - bubble) < 1e-12
+            if sched == "1f1b":
+                clocks = [t for t, f in enumerate(e["trace"][0]) if f]
+                steps = pipe_schedule.TrainSchedule(PIPE_MICRO, PIPE_STAGES, stage).steps()
+                ok = ok and clocks == [t for t, st in enumerate(steps)
+                                       if any(isinstance(c, pipe_schedule.ForwardPass) for c in st)]
+        out[sched] = entry
+        print(f"  [{smi}] {sched}: pipe {PIPE_STAGES} ({cfg.num_layers // PIPE_STAGES} layers a stage, batch "
+              f"{PIPE_MB * PIPE_MICRO} = micro {PIPE_MB} x {PIPE_MICRO}): "
+              f"{[round(x, 1) for x in entry['step_ms']]} ms/step a rank (world-1 plain engine {ref['step_ms']:.1f}), "
+              f"peak {[round((x or 0) / 2**30, 3) for x in entry['peak_bytes']]} GiB (world 1 "
+              f"{(ref['peak_bytes'] or 0) / 2**30:.3f}); losses {entry['losses'][0]} vs world 1 {ref['losses']}: gap "
+              f"{max(entry['loss_gap']):.3e} (limit {limit}); launches a train_batch {COUNT_LABEL} by stage "
+              f"{entry['launches_per_train_batch']} (reckoned {want['launches']}); ppermute a step "
+              f"{entry['ppermute_per_step']} (reckoned {want['ppermute']}); bubble gauge {entry['bubble']} "
+              f"(expect {bubble})")
+    out["world1"] = ref
+    out["wrong_stage_gap"] = control
+    print(f"  [{smi}] wrong-stage control (the last stage's wo zeroed): gap {control} (must exceed {limit})")
+    if not ok:
+        _pipe_fail("a check failed (losses, the control, launches, ppermute bytes, the bubble or the 1F1B clocks)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"pipeline": out}))
+    return out
+
+
 def cache_bytecode() -> str:
     """Let this process and the ones it starts (serving workers, training
     generations, ranks) cache the bytecode they compile, under
@@ -6615,6 +6855,8 @@ def main() -> int:
     # phase 28's ranks
     ap.add_argument("--tp-train-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--tpt-case", default="a", choices=tuple(TPT_CASES), help=argparse.SUPPRESS)
+    # phase 29's ranks
+    ap.add_argument("--pipe-worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.elastic_worker:
         return elastic_worker(args)
@@ -6624,6 +6866,8 @@ def main() -> int:
         return tp_worker(args)
     if args.tp_train_worker:
         return tp_train_worker(args)
+    if args.pipe_worker:
+        return pipe_worker(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on a GPU", file=sys.stderr)
         return 1
@@ -6790,8 +7034,8 @@ def main() -> int:
     phase_done(22)
     print("[23] the launch stack, elastic training and the chaos conductor at GPT-2-125M width: the runner -> "
           "launch -> a training worker (and SIGTERM to a second launch), DSElasticAgent's crash and hang drills "
-          "resuming bitwise, 8 chaos schedules twice over 3 real ServingEngine replicas, a 64-schedule fake-fleet "
-          "search shrunk and replayed")
+          f"resuming bitwise, {CHAOS_SCHEDULES} chaos schedules twice over 3 real ServingEngine replicas, a "
+          "64-schedule fake-fleet search shrunk and replayed")
     p23 = elastic_chaos_phase(dev, smi)
     _PHASE_T0[0] = time.perf_counter()
     torch.cuda.empty_cache()
@@ -6842,6 +7086,16 @@ def main() -> int:
     training["tensor_parallel"] = tpt
     tpt_launches = {**{f"a_rank{r}": v for r, v in enumerate(tpt["a"]["launches_per_train_batch"])},
                     **{f"b_rank{r}": v for r, v in enumerate(tpt["b"]["launches_per_train_batch"])}}
+
+    print(f"[29] pipeline parallelism at GPT-2-125M width: pipe {PIPE_STAGES} ({12 // PIPE_STAGES} layers a stage), "
+          f"GPipe and the executed 1F1B, batch {PIPE_MB * PIPE_MICRO} = micro {PIPE_MB} x {PIPE_MICRO} micro-batches, "
+          f"the fused loss on the last stage, gloo ranks sharing the card, against a world-1 plain engine on the same "
+          f"weights and batches")
+    pipe = pipeline_phase(dev, smi)
+    phase_done(29)
+    training["pipeline"] = pipe
+    pipe_launches = {f"{sched}_stage{r}": v for sched in PIPE_SCHEDULES
+                     for r, v in enumerate(pipe[sched]["launches_per_train_batch"])}
     print(json.dumps({"zero": zero}))
     dp_launches = {**{f"world1_stage{s}": zero["a"][f"stage{s}"]["launches_per_train_batch"][0] for s in range(4)},
                    **{f"world2_stage{s}_rank{r}": zero["b"][f"stage{s}"]["ranks"][r]["launches"][0]
@@ -6897,6 +7151,7 @@ def main() -> int:
                                                        for k, v in dp_launches.items()},
             "tensor_parallel_training_launches_per_train_batch": {k: v[list(replaces).index(name)]
                                                                   for k, v in tpt_launches.items()},
+            "pipeline_launches_per_train_batch": {k: v[list(replaces).index(name)] for k, v in pipe_launches.items()},
             "hgmma": sass.get(MAIN_PATH_KERNEL[name], {}).get("hgmma", 0),
             "registers": sass.get(MAIN_PATH_KERNEL[name], {}).get("registers"),
             "spill_stores": sass.get(MAIN_PATH_KERNEL[name], {}).get("spill_stores"),
@@ -6937,6 +7192,10 @@ def main() -> int:
             k: ({"product": v[4], "combine": v[5]} if name == "fused_xent_forward"
                 else {"ds": v[6], "dH" if name == "fused_xent_backward_dh" else "dW": v[8 if name.endswith("dh") else 7]})
             for k, v in tpt_launches.items()}
+        entry["pipeline_launches_per_train_batch"] = {  # phase 29: the last stage's only
+            k: ({"product": v[4], "combine": v[5]} if name == "fused_xent_forward"
+                else {"ds": v[6], "dH" if name == "fused_xent_backward_dh" else "dW": v[8 if name.endswith("dh") else 7]})
+            for k, v in pipe_launches.items()}
         t24 = tier_launches["d_gpt3_6.7b"]  # the fused loss runs in (d)
         entry["memory_tiers_launches_per_train_batch"] = (
             {"product": t24[4], "combine": t24[5]} if name == "fused_xent_forward"
@@ -6986,6 +7245,7 @@ def main() -> int:
             "data_parallel_launches_per_train_batch": {k: v[N_COUNTS + i] for k, v in dp_launches.items()},
             "tensor_parallel_training_launches_per_train_batch": {k: v[N_COUNTS + i]
                                                                   for k, v in tpt_launches.items()},
+            "pipeline_launches_per_train_batch": {k: v[N_COUNTS + i] for k, v in pipe_launches.items()},
         })
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

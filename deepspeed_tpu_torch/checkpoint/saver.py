@@ -16,10 +16,15 @@ A data-parallel save (``layouts``: the ZeRO runtime's ``LeafLayout`` of each
 sharded leaf) is the JAX multi-process save: every rank writes the shards it
 is the first holder of, rank 0 the whole leaves, into one staging directory;
 each rank's crc32s go into the staging directory beside its files; after a
-barrier rank 0 writes the manifest and renames the directory into place
-(``_commit_stage``), and a second barrier holds every rank until the
+meeting point rank 0 writes the manifest and renames the directory into place
+(``_commit_stage``), and a second one holds every rank until the
 checkpoint is committed. An async save does the same at its ``wait()``,
-after its own writer thread, on the caller's thread.
+after its own writer thread, on the caller's thread. Each meeting point (the
+staging directory's, the writes', the commit's) is an agreement over the
+world of every rank's outcome (``_agree``), not a plain barrier: a rank whose
+part failed still meets the others, and then every rank raises, so a retried
+save retries on every rank together and a permanent failure raises
+everywhere without a hang.
 
 Leaf keys are the state tree's dict keys joined with ``::``
 (``params::layers::wq``, ``opt::m::wte``, ``step``), as JAX's tree paths.
@@ -71,7 +76,8 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..resilience.errors import CheckpointCorruptError, CheckpointNotFoundError
+from ..resilience.errors import (CheckpointCorruptError, CheckpointNotFoundError, CheckpointPeerError,
+                                 CheckpointPeerPermanentError, PermanentIOError)
 from ..resilience.faults import maybe_io_error
 from .digest import file_crc32
 
@@ -215,10 +221,53 @@ def _commit_stage(stage_dir: str, ckpt_dir: str, staged: list[str]) -> None:
     _fsync_path(os.path.dirname(os.path.abspath(ckpt_dir)) or ".")
 
 
+def _failure_code(err: Optional[BaseException]) -> int:
+    """A rank's part in a save's agreement: 0 ok, 1 a transient ``OSError``,
+    2 a ``PermanentIOError`` or any other error (not retried)."""
+    if err is None:
+        return 0
+    return 2 if isinstance(err, PermanentIOError) or not isinstance(err, OSError) else 1
+
+
+def _agree(err: Optional[BaseException], what: str) -> None:
+    """One of a multi-rank save's meeting points: every rank's failure code
+    is agreed over the world (``comm.world_codes``) before any rank goes
+    on, so a rank whose work failed still meets the others. On a failure
+    anywhere every rank raises: a failing rank its own error, the others a
+    ``CheckpointPeerError`` naming the failing ranks, of the permanent kind
+    when any rank's failure was permanent."""
+    codes = comm.world_codes(_failure_code(err))
+    if err is not None:
+        raise err
+    bad = [r for r, c in enumerate(codes) if c]
+    if bad:
+        kind = CheckpointPeerPermanentError if max(codes) == 2 else CheckpointPeerError
+        raise kind(f"checkpoint save: {what} failed on rank(s) {bad}", ranks=bad)
+
+
+def _meet(world: int, what: str, fn) -> None:
+    """Run ``fn`` (this rank's work before a meeting point, or None), then
+    meet: in a world above 1 through ``_agree``, which raises on every rank
+    when ``fn`` failed on any; in a world of 1 ``fn``'s error propagates."""
+    if world == 1:
+        if fn is not None:
+            fn()
+        return
+    err = None
+    try:
+        if fn is not None:
+            fn()
+    # dstpu: allow[broad-except] -- the error is not swallowed: _agree re-raises it on this rank after the world's agreement, which every rank must reach or the others would wait on a rank that raised
+    except Exception as e:
+        err = e
+    _agree(err, what)
+
+
 class SaveHandle:
-    """Handle of a save. ``wait()`` joins the writer thread (if any),
-    re-raises its error, then finishes the save on the calling thread: the
-    manifest, the rename into place and 'latest'."""
+    """Handle of a save. ``wait()`` joins the writer thread (if any), then
+    finishes the save on the calling thread: the writes' outcome (agreed
+    over the world in a multi-rank save, where a writer's error raises on
+    every rank), the manifest, the rename into place and 'latest'."""
 
     def __init__(self, thread: Optional[threading.Thread] = None, error: Optional[list] = None,
                  finalize=None):
@@ -230,11 +279,11 @@ class SaveHandle:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error:
-            raise self._error[0]
         if self._finalize is not None:
             fin, self._finalize = self._finalize, None
             fin()
+        elif self._error:
+            raise self._error[0]
         return True
 
 
@@ -296,18 +345,22 @@ def save_checkpoint(ckpt_dir: str, state, client_state: Optional[dict] = None,
     durable. Synchronous saves return a waited handle. ``async_save`` returns once the snapshot is taken (into ``staging``,
     or a buffer of this save's own); the caller's ``wait()`` finishes it.
     ``layouts`` ({leaf key: LeafLayout}) marks the leaves this rank holds a
-    part of: a data- or tensor-parallel save, which every rank of the world
-    makes. Each distinct shard is listed once, with its bounds on every
+    part of: a data-, tensor- or pipeline-parallel save (a stage's layers
+    are a shard of their ``[S, K, ...]`` leaf), which every rank of the
+    world makes. Each distinct shard is listed once, with its bounds on every
     split dimension, in the order of its first holder's rank (a JAX
     multi-device save's table), and written by that first holder."""
     rank, world = comm.get_rank(), comm.get_world_size()
     stage_dir = ckpt_dir + _STAGE_SUFFIX
-    if rank == 0:
+
+    def stage():
         if os.path.exists(stage_dir):
-            shutil.rmtree(stage_dir)  # a crashed save's leftovers
+            shutil.rmtree(stage_dir)  # a crashed or failed save's leftovers
         os.makedirs(stage_dir)
-    if world > 1:
-        comm.barrier()  # the staging directory exists, empty, before any rank writes
+
+    # every attempt of a retried save starts here: the staging directory
+    # exists, empty, before any rank writes
+    _meet(world, "staging", stage if rank == 0 else None)
     manifest = {"leaves": {}, "client_state": client_state or {}, "format": 3, "checksums": {}}
     flat = _flatten_with_paths(state)
     layouts = layouts or {}
@@ -350,25 +403,30 @@ def save_checkpoint(ckpt_dir: str, state, client_state: Optional[dict] = None,
         except Exception as e:
             errors.append(e)
 
+    def commit():
+        if world > 1:
+            for r in range(world):
+                path = os.path.join(stage_dir, f"crc.rank{r}.json")
+                with open(path) as f:
+                    manifest["checksums"].update(json.load(f))
+                os.unlink(path)
+        tmp = os.path.join(stage_dir, _MANIFEST + ".tmp")
+        _write_durable(tmp, json.dumps(manifest, indent=1).encode())
+        os.replace(tmp, os.path.join(stage_dir, _MANIFEST))
+        _fsync_path(stage_dir)
+        _commit_stage(stage_dir, ckpt_dir, sorted(manifest["checksums"]))
+        if latest is not None:
+            write_latest(*latest)
+
     def finalize():
-        if world > 1:
-            comm.barrier()  # every rank's files (and crc32s) are durable
-        if rank == 0:
-            if world > 1:
-                for r in range(world):
-                    path = os.path.join(stage_dir, f"crc.rank{r}.json")
-                    with open(path) as f:
-                        manifest["checksums"].update(json.load(f))
-                    os.unlink(path)
-            tmp = os.path.join(stage_dir, _MANIFEST + ".tmp")
-            _write_durable(tmp, json.dumps(manifest, indent=1).encode())
-            os.replace(tmp, os.path.join(stage_dir, _MANIFEST))
-            _fsync_path(stage_dir)
-            _commit_stage(stage_dir, ckpt_dir, sorted(manifest["checksums"]))
-            if latest is not None:
-                write_latest(*latest)
-        if world > 1:
-            comm.barrier()  # no rank reads or re-saves before the commit
+        def written():
+            if errors:
+                raise errors[0]
+
+        # every rank's files (and crc32s) are durable, or every rank raises
+        _meet(world, "the shard writes", written)
+        # rank 0's manifest and commit; no rank reads or re-saves before it
+        _meet(world, "rank 0's manifest and commit", commit if rank == 0 else None)
 
     errors: list = []
     if async_save:

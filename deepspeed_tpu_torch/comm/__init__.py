@@ -34,6 +34,7 @@ from .collectives import (
     reduce_scatter,
     ring_shift,
     scatter_to_model,
+    world_codes,
 )
 from .logger import CommsLogger, comms_logger, get_bw
 from .mesh import (

@@ -210,6 +210,21 @@ def barrier() -> None:
         dist.barrier()
 
 
+def world_codes(code: int) -> list[int]:
+    """Every rank's integer ``code``, in rank order, over the whole world:
+    one all-reduce of a vector holding this rank's code at its index. Where
+    a rank may fail between two meeting points, the meeting is this
+    agreement rather than a plain barrier, so no rank waits on a rank that
+    raised (the checkpoint saver's). ``[code]`` in a world of 1."""
+    if not _up() or dist.get_world_size() == 1:
+        return [int(code)]
+    dev = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else torch.device("cpu")
+    codes = torch.zeros(dist.get_world_size(), dtype=torch.int64, device=dev)
+    codes[dist.get_rank()] = int(code)
+    dist.all_reduce(codes)
+    return [int(c) for c in codes.tolist()]
+
+
 # --------------------------------------------------------------------------
 # Collectives over named mesh axes
 # --------------------------------------------------------------------------

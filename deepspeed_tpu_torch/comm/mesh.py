@@ -47,6 +47,28 @@ SERVING_AXES = ENGINE_AXES + ("model",)
 # LAMB's whole-leaf sums add each piece once
 TP_TRAIN_AXES = SERVING_AXES + (DP_AXES + ("model",),)
 
+# the axes a pipelined training world adds: the ``pipe`` axis's groups (the
+# stages' sends, the sum of the gradients of the leaves every stage holds)
+# and the planes over which the gradient norm adds each piece once
+PIPE_TRAIN_AXES = TP_TRAIN_AXES + ("pipe", ("pipe",) + DP_AXES, ("pipe",) + DP_AXES + ("model",))
+
+
+def train_axes(sizes: dict) -> tuple:
+    """The axes (and planes) a training engine's mesh of axis ``sizes``
+    builds process groups for."""
+    if sizes.get("pipe", 1) > 1:
+        return PIPE_TRAIN_AXES
+    return TP_TRAIN_AXES if sizes.get("model", 1) > 1 else ENGINE_AXES
+
+
+def world_plane(sizes: dict) -> tuple:
+    """The axes a training world spans (the data axes, then ``model`` and
+    ``pipe`` where above 1): the plane over which a reduction meets every
+    rank once."""
+    return (("pipe",) if sizes.get("pipe", 1) > 1 else ()) + DP_AXES + (
+        ("model",) if sizes.get("model", 1) > 1 else ())
+
+
 Axes = Union[str, Sequence[str]]
 
 # the most recently built mesh: the "default process group" analogue

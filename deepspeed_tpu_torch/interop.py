@@ -13,7 +13,9 @@ packages, so nothing is transposed.
 engine's layouts: its tensor-parallel slice of each leaf, then its ZeRO
 shard of that, under ZeRO x TP. ``tp_params_from_jax`` gives one tensor-
 parallel rank its slices of the JAX parameters, and with ``opt=`` its
-slices of the optimizer state too, by the JAX engine's specs
+slices of the optimizer state too, by the JAX engine's specs (for a
+pipelined model over a ``pipe`` axis also the rank's stage of each
+``[S, K, ...]`` layer leaf, as the JAX ``PipelineEngine`` places it)
 (``init_inference(..., params=)`` and ``initialize(..., model_parameters=)``
 take either the full tree or these slices' ``TPParams``).
 ``state_from_jax`` converts any subtree of a JAX engine's state (numpy
@@ -98,7 +100,7 @@ def shard_state_from_jax(engine, jax_state: dict) -> dict:
 
 def tp_params_from_jax(tree, model, mesh, device="cpu", dtype=torch.float32, opt=None):
     """The JAX package's parameters (numpy leaves) as ``mesh``'s rank holds
-    them under tensor parallelism: each leaf's slice by its spec
+    them under tensor (and pipeline) parallelism: each leaf's slice by its spec
     (``spec_from_logical`` over ``DEFAULT_TP_RULES``, as the JAX engine
     places it), cut by ``ReplaceWithTensorSlicing``, then as
     ``params_from_jax`` converts it. Returns a ``TPParams`` carrying the

@@ -156,7 +156,9 @@ class TensorParallel:
     """One rank's tensor-parallel plan over ``mesh``'s ``axis``: every
     parameter's spec (from the full shapes and the model's logical axes, by
     ``rules``), whether a leaf is split, its slice of a full tree, and the
-    collectives the model's split layers need."""
+    collectives the model's split layers need. Over a mesh with a ``pipe``
+    axis above 1 a pipelined model's stage leaves are cut to the rank's
+    stage too (``shard``/``gather``)."""
 
     def __init__(self, mesh, logical_axes: dict, full_shapes: dict, axis: str = "model",
                  rules=shd.DEFAULT_TP_RULES):
@@ -180,18 +182,37 @@ class TensorParallel:
     def slicer(self, num_heads: int = 0) -> ReplaceWithTensorSlicing:
         return ReplaceWithTensorSlicing(self.size, self.index, num_heads=num_heads)
 
+    def _cuts(self, path) -> dict:
+        """{dimension: its mesh axis} of the leaf at ``path``'s split
+        dimensions: the plan's axis, and ``pipe`` for a pipelined model's
+        stage dimension (the rank's stage's layers)."""
+        spec = self.spec(*path)
+        cuts = {}
+        for d, e in enumerate(spec):
+            axes = shd._entry_axes(e)
+            if not axes:
+                continue
+            if axes not in ((self.axis,), ("pipe",)):
+                raise NotImplementedError(f"leaf {'/'.join(path)} spec {spec}: only the {self.axis!r} and 'pipe' "
+                                          "axes are ported")
+            cuts[d] = axes[0]
+        return cuts
+
     def shard_leaf(self, full, *path):
         """This rank's part of the full leaf at ``path`` (a tensor, cloned so
         the full one can go, or a numpy array)."""
-        spec = self.spec(*path)
-        dims = [d for d, e in enumerate(spec) if e is not None]
-        if not dims:
+        cuts = self._cuts(path)
+        if not cuts:
             return full
-        if len(dims) > 1 or shd._entry_axes(spec[dims[0]]) != (self.axis,):
-            raise NotImplementedError(f"leaf {'/'.join(path)} spec {spec}: only the {self.axis!r} axis is ported")
         if isinstance(full, torch.Tensor):
-            return full[shd.local_slices(tuple(full.shape), spec, self.mesh)].clone()
-        return self.slicer().copy(full, dim=dims[0])
+            return full[shd.local_slices(tuple(full.shape), self.spec(*path), self.mesh)].clone()
+        out = np.asarray(full)
+        for d, axis in cuts.items():
+            if axis == "pipe":
+                out = np.split(out, self.mesh.axis_size("pipe"), axis=d)[self.mesh.axis_index("pipe")]
+            else:
+                out = self.slicer().copy(out, dim=d)
+        return out
 
     def shard(self, tree: dict, path: tuple = ()) -> dict:
         """This rank's part of a full parameter tree (tensors or numpy)."""
@@ -200,14 +221,15 @@ class TensorParallel:
 
     def gather(self, tree: dict, path: tuple = ()) -> dict:
         """The full tree from every rank's part of it (the inverse of
-        ``shard``; collective over the plan's axis)."""
+        ``shard``; collective over the plan's axis and ``pipe``)."""
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
                 out[k] = self.gather(v, path + (k,))
                 continue
-            dims = [d for d, e in enumerate(self.spec(*path, k)) if e is not None]
-            out[k] = comm.all_gather(v.contiguous(), self.axis, gather_dimension=dims[0]) if dims else v
+            for d, axis in self._cuts(path + (k,)).items():
+                v = comm.all_gather(v.contiguous(), axis, gather_dimension=d)
+            out[k] = v
         return out
 
     # -- the model's split layers --------------------------------------------

@@ -17,7 +17,8 @@ Stage -> rules (as in JAX):
   stage 3: params themselves sharded over (fsdp, data)
 
 Tensor parallelism reads the same rules: ``heads``, ``mlp``, ``ffn_in``
-and ``vocab`` go on ``model`` where it divides them, and the serving
+and ``vocab`` go on ``model`` where it divides them (and a pipelined
+model's ``stage`` on ``pipe``: each rank holds its stage's layers), and the serving
 engine's KV caches take ``kv_slot_cache_spec`` / ``kv_prefix_pool_spec``
 (heads over ``model``). Under ZeRO x TP a spec splits two dimensions: the
 ``model`` one and the ZeRO one (``split_dims`` names both); a rank holds
@@ -142,16 +143,18 @@ def make_param_specs(logical_axes_tree, shapes_tree, rules: Rules, mesh, zero_fa
                          logical_axes_tree, shapes_tree)
 
 
-# the mesh axes a training spec may split over: tensor parallelism's and
-# ZeRO's (``pipe`` and ``context`` are not ported)
-_PORTED_AXES = ("model", "data", "fsdp")
+# the mesh axes a training spec may split over: tensor parallelism's,
+# pipeline parallelism's (the ``stage`` dimension) and ZeRO's (``context``
+# is not ported)
+_PORTED_AXES = ("pipe", "model", "data", "fsdp")
 
 
 def split_dims(spec: Spec) -> tuple[Optional[int], Optional[int]]:
     """(the dimension ``spec`` splits over ``model``, the dimension it splits
-    over the ZeRO axes), each None when there is none. Raises on an axis
-    that is not ported (``pipe``, ``context``), on ``model`` sharing a
-    dimension with another axis and on two ZeRO dimensions."""
+    over the ZeRO axes), each None when there is none; a ``pipe`` dimension
+    (``pipe_dim``) is neither. Raises on an axis that is not ported
+    (``context``), on ``model`` or ``pipe`` sharing a dimension with another
+    axis and on two ZeRO dimensions."""
     model_dim = zero_dim = None
     for d, entry in enumerate(spec):
         axes = _entry_axes(entry)
@@ -160,15 +163,24 @@ def split_dims(spec: Spec) -> tuple[Optional[int], Optional[int]]:
         bad = [a for a in axes if a not in _PORTED_AXES]
         if bad:
             raise NotImplementedError(f"spec {spec} splits over {bad}: not ported to deepspeed_tpu_torch yet")
+        for solo in ("model", "pipe"):
+            if solo in axes and len(axes) > 1:
+                raise NotImplementedError(f"spec {spec} splits one dimension over {solo} and {axes}")
+        if axes == ("pipe",):
+            continue
         if "model" in axes:
-            if len(axes) > 1:
-                raise NotImplementedError(f"spec {spec} splits one dimension over model and {axes}")
             model_dim = d
         elif zero_dim is not None:
             raise NotImplementedError(f"spec {spec} splits two dimensions over the ZeRO axes")
         else:
             zero_dim = d
     return model_dim, zero_dim
+
+
+def pipe_dim(spec: Spec) -> Optional[int]:
+    """The dimension ``spec`` splits over ``pipe`` (a pipelined model's
+    ``stage`` dimension), or None."""
+    return next((d for d, e in enumerate(spec) if _entry_axes(e) == ("pipe",)), None)
 
 
 def zero_axes(spec: Spec) -> tuple:

@@ -28,6 +28,8 @@ from .errors import (  # noqa: F401
     CheckpointCorruptError,
     CheckpointError,
     CheckpointNotFoundError,
+    CheckpointPeerError,
+    CheckpointPeerPermanentError,
     ControlPlaneCrash,
     JournalCorruptError,
     JournalUnavailableError,

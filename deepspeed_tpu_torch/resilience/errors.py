@@ -81,6 +81,28 @@ class PermanentIOError(OSError):
     on attempt 2 (indistinguishable from ``io_flaky``)."""
 
 
+class CheckpointPeerError(OSError):
+    """A multi-rank checkpoint save failed on another rank (its file writes,
+    or rank 0's manifest and commit): at the save's agreement every rank
+    raises, the failing ones their own error and the others this, with the
+    failing ranks in ``ranks``. An ``OSError``, so a retried save retries on
+    every rank together and the ranks meet again at the next attempt's
+    staging agreement."""
+
+    def __init__(self, message: str, ranks=()):
+        super().__init__(message)
+        self.ranks = list(ranks)
+
+
+class CheckpointPeerPermanentError(PermanentIOError):
+    """``CheckpointPeerError`` for a failure another rank reported as
+    permanent: a ``PermanentIOError``, so no rank retries alone."""
+
+    def __init__(self, message: str, ranks=()):
+        super().__init__(message)
+        self.ranks = list(ranks)
+
+
 class JournalCorruptError(ResilienceError):
     """The request journal (``inference/journal.py``) holds a record whose
     frame fails its magic/CRC check with MORE valid data after it — bytes

@@ -12,8 +12,10 @@ block's ``data``, ``fsdp`` and ``model`` axes take the world (their
 product, -1 the remainder), the batch is triangulated at the data-parallel
 world (``data`` x ``fsdp``), and under a ``model`` axis above 1 the memory
 tiers and ``sparse_attention`` are refused by name
-(``_validate_tensor_parallel``); a ``pipe`` or ``context`` axis above 1 is
-refused by name.
+(``_validate_tensor_parallel``); a ``pipe`` axis above 1 runs only under
+``pipe.PipelineEngine`` (``from_dict(..., pipelined=True)``, which refuses
+what the pipeline does not run: ``_validate_pipeline``) and a plain engine
+refuses it by name, as it refuses a ``context`` axis above 1.
 ``comms_logger``, ``sparse_gradients`` and the ``zero_optimization`` bucket
 sizes and ``overlap_comm`` parse as in JAX. ``resilience`` (the NaN guardrail, preemption, checkpoint-save
 retries and the training fault sites), ``csv_monitor``, the training
@@ -1190,7 +1192,7 @@ class FlopsProfilerConfig:
 _UNPORTED_BLOCKS = ("eigenvalue", C.MONITOR_TENSORBOARD, C.MONITOR_WANDB)
 
 # the mesh axes of the paths not ported yet, refused above 1 by name
-_UNPORTED_AXES = {"pipe": "pipeline parallelism", "context": "context parallelism (ring/Ulysses attention)"}
+_UNPORTED_AXES = {"context": "context parallelism (ring/Ulysses attention)"}
 
 
 @dataclass
@@ -1242,12 +1244,14 @@ class DeepSpeedConfig:
     raw: dict = field(default_factory=dict, repr=False)
 
     @classmethod
-    def from_file(cls, path: str, world_size: int = 1) -> "DeepSpeedConfig":
+    def from_file(cls, path: str, world_size: int = 1, pipelined: bool = False) -> "DeepSpeedConfig":
         with open(path) as f:
-            return cls.from_dict(json.load(f), world_size=world_size)
+            return cls.from_dict(json.load(f), world_size=world_size, pipelined=pipelined)
 
     @classmethod
-    def from_dict(cls, d: dict, world_size: int = 1) -> "DeepSpeedConfig":
+    def from_dict(cls, d: dict, world_size: int = 1, pipelined: bool = False) -> "DeepSpeedConfig":
+        """``pipelined``: the config of a ``pipe.PipelineEngine`` (a
+        pipelined model), which may lay a ``pipe`` axis above 1."""
         cfg = cls(
             train_batch_size=d.get(C.TRAIN_BATCH_SIZE),
             train_micro_batch_size_per_gpu=d.get(C.TRAIN_MICRO_BATCH_SIZE_PER_GPU),
@@ -1283,7 +1287,7 @@ class DeepSpeedConfig:
             raw=d,
         )
         cfg._triangulate_batch(world_size)
-        cfg._validate(world_size)
+        cfg._validate(world_size, pipelined)
         return cfg
 
     def _triangulate_batch(self, world_size: int) -> None:
@@ -1329,9 +1333,11 @@ class DeepSpeedConfig:
         m = self.mesh
         return MeshConfig(pipe=m.pipe, data=m.data, fsdp=m.fsdp, context=m.context, model=m.model).sizes(world)
 
-    def _validate(self, world_size: int = 1) -> None:
+    def _validate(self, world_size: int = 1, pipelined: bool = False) -> None:
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        if pipelined:
+            self._validate_pipeline()
         self._validate_offload()
         self._validate_tensor_parallel()
         z = self.zero_optimization
@@ -1363,6 +1369,29 @@ class DeepSpeedConfig:
             if size > 1:
                 raise NotImplementedError(f"mesh axis {axis!r}={size}: {what} is not ported to "
                                           "deepspeed_tpu_torch yet (data and fsdp are)")
+        if self.mesh.pipe > 1 and not pipelined:
+            raise NotImplementedError(f"mesh axis 'pipe'={self.mesh.pipe}: pipeline parallelism runs through "
+                                      "deepspeed_tpu_torch.pipe.PipelineEngine with a pipelined model "
+                                      "(PipelinedTransformer); a plain DeepSpeedEngine refuses it")
+
+    def _validate_pipeline(self) -> None:
+        """What a pipelined engine does not run, refused by name: JAX's
+        ``offload_param`` refusal (``deepspeed_tpu/runtime/engine.py:375``,
+        its message), and, not ported under the pipeline yet, the other
+        memory tiers and ZeRO stage 3."""
+        z = self.zero_optimization
+        if z.offload_param.device != "none":
+            raise NotImplementedError(
+                "offload_param under pipeline parallelism is not wired up "
+                "(the pipelined loss path does not stream params); use the "
+                "plain model family or drop offload_param")
+        ac = self.activation_checkpointing
+        if z.offload_optimizer.device != "none" or (ac.enabled and ac.cpu_checkpointing):
+            raise NotImplementedError("the memory tiers (offload_optimizer, cpu_checkpointing) under pipeline "
+                                      "parallelism are not ported to deepspeed_tpu_torch yet")
+        if z.stage == 3:
+            raise NotImplementedError("ZeRO stage 3 under pipeline parallelism (a stage's layers gathered inside "
+                                      "the schedule) is not ported to deepspeed_tpu_torch yet (stages 0-2 are)")
 
     def _validate_tensor_parallel(self) -> None:
         """The paths not ported under a ``model`` axis above 1, refused by

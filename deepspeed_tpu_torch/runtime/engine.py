@@ -60,11 +60,20 @@ training dataloader, whose cursor at the last completed step rides the
 checkpoint with the curriculum's state, in the JAX engine's client-state
 keys.
 
+Pipeline parallelism (a ``pipe`` axis above 1) runs through the subclass
+``pipe.PipelineEngine`` over a pipelined model, whose config may lay that
+axis (``_PIPELINED``); a plain engine refuses it by name. The plan above
+then also cuts each stage leaf to this rank's stage, ZeRO splits that
+slice, and the leaves every stage holds have their gradients summed over
+``pipe`` (``zero/stage_1_and_2.py``).
+
 Resilience (the ``resilience`` block, ``resilience/``): the NaN guardrail
 (skip → rewind to the last good checkpoint → ``TrainingDivergedError``),
 preemption by signal or injection (a just-in-time checkpoint, then
-``PreemptionSignal``), retried synchronous saves, the training fault sites,
-and ``checkpoint.async_save``. ``csv_monitor`` receives the loss and lr
+``PreemptionSignal``), retried synchronous saves (at every world: the
+save's meeting points agree each rank's outcome, so every rank fails and
+retries an attempt together), the training fault sites, and
+``checkpoint.async_save``. ``csv_monitor`` receives the loss and lr
 each step and, with ``telemetry.enabled``, the registry at print
 boundaries.
 
@@ -96,8 +105,8 @@ import torch
 from .. import comm
 from ..checkpoint import saver, zero_to_fp32
 from ..comm.logger import comms_logger
-from ..comm.mesh import (DP_AXES, ENGINE_AXES, TP_TRAIN_AXES, MeshConfig, build_mesh, data_parallel_size,
-                         single_device_mesh)
+from ..comm.mesh import (DP_AXES, MeshConfig, build_mesh, data_parallel_size, single_device_mesh, train_axes,
+                         world_plane)
 from ..inference.engine import resolve_device
 from ..models import transformer as tfm
 from ..models.transformer import effective_loss_impl
@@ -157,19 +166,24 @@ def _to_device(x, device):
 
 
 class DeepSpeedEngine:
+    # a pipelined engine's config may lay a ``pipe`` axis above 1
+    # (pipe/engine.py PipelineEngine); a plain engine's refuses it
+    _PIPELINED = False
+
     def __init__(self, model, config, params: Optional[dict] = None, device=None):
         self.device = resolve_device(device)
         comm.init_distributed(device=self.device)
         world = comm.get_world_size()
         if isinstance(config, str):
-            config = DeepSpeedConfig.from_file(config, world_size=world)
+            config = DeepSpeedConfig.from_file(config, world_size=world, pipelined=self._PIPELINED)
         elif isinstance(config, dict):
-            config = DeepSpeedConfig.from_dict(config, world_size=world)
+            config = DeepSpeedConfig.from_dict(config, world_size=world, pipelined=self._PIPELINED)
         self.config: DeepSpeedConfig = config
         distributed = comm.is_initialized()
         sizes = config.dp_mesh_sizes(world)
-        self.mesh = (build_mesh(MeshConfig(**sizes), axes_list=TP_TRAIN_AXES if sizes["model"] > 1 else ENGINE_AXES)
+        self.mesh = (build_mesh(MeshConfig(**sizes), axes_list=train_axes(sizes))
                      if distributed else single_device_mesh())
+        self._plane = world_plane(self.mesh.shape)  # the axes the world spans
         self.dp_world = data_parallel_size(self.mesh)
         self.dp_rank = self.mesh.axis_index(DP_AXES)
         if config.train_batch_size != (config.train_micro_batch_size_per_gpu
@@ -301,10 +315,11 @@ class DeepSpeedEngine:
 
         if params is None:
             params = model.init(torch.Generator().manual_seed(0), self.device)
-        # tensor parallelism: the plan of every leaf's model split, from the
-        # full shapes (the parameters are made, or given, at full shape and
-        # sliced, so every model size starts from the same weights; a
-        # TPParams tree is already this rank's slices)
+        # tensor (and pipeline) parallelism: the plan of every leaf's model
+        # split and stage split, from the full shapes (the parameters are
+        # made, or given, at full shape and sliced, so every model size
+        # starts from the same weights; a TPParams tree is already this
+        # rank's slices)
         tp_size = self.mesh.shape["model"]
         if tp_size > 1 and getattr(model.config, "attn_impl", None) == "sparse":
             raise NotImplementedError(
@@ -312,7 +327,7 @@ class DeepSpeedEngine:
                 "rank's H/tp heads) is not ported to deepspeed_tpu_torch yet")
         self.tp: Optional[TensorParallel] = plan_of(params)
         sliced = self.tp is not None
-        if not sliced and tp_size > 1:
+        if not sliced and (tp_size > 1 or self.mesh.shape["pipe"] > 1):
             self.tp = TensorParallel(self.mesh, model.logical_axes(), params)
         # (in the tree's own key order, which the layouts' leaves follow)
         full_shapes = params if not sliced else tree_map(lambda _, shape: shape, params, self.tp.full_shapes)
@@ -723,7 +738,7 @@ class DeepSpeedEngine:
             # every rank preempts (and takes its JIT checkpoint) together; a
             # guard or an injector is configured on every rank of a world
             flags = comm.all_reduce(torch.tensor([float(signal), float(injected)], device=self.device),
-                                    DP_AXES if self.tp is None else TP_TRAIN_AXES[-1], "max").tolist()
+                                    self._plane, "max").tolist()
             signal, injected = flags[0] > 0, flags[1] > 0 and not flags[0] > 0
         if signal:
             self._preempt(source="signal")
@@ -979,20 +994,22 @@ class DeepSpeedEngine:
                             async_save=self._ckpt_async, latest=(os.path.join(save_dir, "latest"), tag),
                             layouts=self._state_layouts())
 
-        if rcfg.enabled and not self._ckpt_async and comm.get_world_size() == 1:
-            # (at a world above 1 a save is one attempt: a retry on one rank
-            # alone would meet no partner at the save's barriers)
+        if rcfg.enabled and not self._ckpt_async:
             # a failed attempt's staging leftovers are reclaimed by the next
             # attempt, so a retried atomic save stays atomic; an async save
             # is not retried (its errors surface at commit, where a retry
-            # would snapshot a later state)
+            # would snapshot a later state). At a world above 1 the save's
+            # meeting points agree every rank's outcome (checkpoint/saver.py
+            # _agree), so every rank fails an attempt together, and retries
+            # it after its own backoff (the rank folds into the seed, as the
+            # JAX engine folds the process index) from the staging agreement
             def note_retry(attempt, exc, delay):
                 self.telemetry.counter("resilience/ckpt_retries").inc()
                 logger.warning("checkpoint save %s/%s attempt %d failed (%s); retrying in %.2fs",
                                save_dir, tag, attempt, exc, delay)
 
             retry_call(do_save, policy=rcfg.retry, retry_on=(OSError,), no_retry_on=(PermanentIOError,),
-                       seed=rcfg.fault_injection.seed, on_retry=note_retry)
+                       seed=rcfg.fault_injection.seed + comm.get_rank(), on_retry=note_retry)
         else:
             do_save()
         if self.tier is not None and self.tier.nvme is not None:

@@ -35,6 +35,15 @@ dimensions. The data-axis collectives run among the ranks of this rank's
 ``model`` index; the norm, the non-finite count and LAMB's whole-leaf sums
 add each distinct piece once over the whole data x model plane.
 
+Under pipeline parallelism (a ``pipe`` axis above 1) a pipelined model's
+stage leaves ``[S, K, ...]`` are split on their ``stage`` dimension over
+``pipe`` (each rank holds its stage's ``[1, K, ...]``), as the model axis
+splits its leaves, and ZeRO splits that slice; the leaves every stage holds
+(the embeddings, the tied head, the final LayerNorm) have their gradients
+summed over ``pipe`` after the data-axis reduction (the reference's
+``ReduceTiedGrads``), so every stage takes the same update of them, and the
+norm's plane takes in ``pipe`` too.
+
 ``overlap_comm`` is parsed and ignored, as in JAX (where XLA schedules):
 the collectives here run in program order between the backward and the
 update.
@@ -49,7 +58,7 @@ from typing import Optional
 import torch
 
 from ... import comm
-from ...comm.mesh import DP_AXES, Mesh, TP_TRAIN_AXES
+from ...comm.mesh import DP_AXES, Mesh, world_plane
 from ...ops.optimizers import tree_leaves, tree_map
 from ...parallel import sharding as shd
 
@@ -65,7 +74,9 @@ class LeafLayout:
     parallelism ``shape`` is this rank's slice of the ``full_shape`` leaf,
     split on ``tp_dim`` into ``tp_n`` slices of which it holds ``tp_index``;
     ``table`` lists every distinct shard's bounds in the full leaf in the
-    order of their first holders' ranks, as a JAX save lists them."""
+    order of their first holders' ranks, as a JAX save lists them. Under
+    pipeline parallelism the slice is also split on ``pp_dim`` (the stage
+    dimension) into ``pp_n`` parts of which it holds ``pp_index``."""
 
     shape: tuple
     spec: tuple
@@ -79,6 +90,9 @@ class LeafLayout:
     tp_n: int = 1
     tp_index: int = 0
     table: tuple = ()
+    pp_dim: Optional[int] = None
+    pp_n: int = 1
+    pp_index: int = 0
 
     def __post_init__(self):
         if self.full_shape is None:
@@ -91,9 +105,9 @@ class LeafLayout:
 
     @property
     def partial(self) -> bool:
-        """Whether this rank holds less than the whole leaf (ZeRO, tensor
-        parallelism or both): a checkpoint writes it as shards."""
-        return self.sharded or self.tp_n > 1
+        """Whether this rank holds less than the whole leaf (ZeRO, tensor or
+        pipeline parallelism): a checkpoint writes it as shards."""
+        return self.sharded or self.tp_n > 1 or self.pp_n > 1
 
     @property
     def slot(self) -> int:
@@ -113,9 +127,10 @@ class LeafLayout:
         this rank's) of this rank's tensor-parallel slice, in the full
         leaf: the checkpoint's shard index."""
         out = [[0, d] for d in self.full_shape]
-        if self.tp_dim is not None:
-            s = self.shape[self.tp_dim]
-            out[self.tp_dim] = [self.tp_index * s, (self.tp_index + 1) * s]
+        for d, n_i in ((self.tp_dim, self.tp_index), (self.pp_dim, self.pp_index)):
+            if d is not None:
+                s = self.shape[d]
+                out[d] = [n_i * s, (n_i + 1) * s]
         if self.dim is not None:
             i = self.index if index is None else index
             s = self.shape[self.dim] // self.n
@@ -151,29 +166,37 @@ def layout_tree(mesh: Mesh, axes_tree, shapes, rules, zero_fallback=None):
         full = tuple(t.shape if hasattr(t, "shape") else t)
         spec = shd.spec_from_logical(ax, full, rules, mesh, zero_fallback=zero_fallback)
         tp_dim, dim = shd.split_dims(spec)
+        pp_dim = shd.pipe_dim(spec)
         axes = shd.zero_axes(spec)
         tp_n = mesh.axis_size("model") if tp_dim is not None else 1
+        pp_n = mesh.axis_size("pipe") if pp_dim is not None else 1
         shape = list(full)
         if tp_n > 1:
             shape[tp_dim] //= tp_n
         else:
             tp_dim = None
+        if pp_n > 1:
+            shape[pp_dim] //= pp_n
+        else:
+            pp_dim = None
         shape = tuple(shape)
         n = mesh.axis_size(axes) if axes else 1
         if n == 1:
             dim, axes = None, ()
 
-        def key(r):  # rank r's shard: (its tensor-parallel slice, its ZeRO shard)
-            return (mesh.axis_index("model", r) if tp_dim is not None else 0,
+        def key(r):  # rank r's shard: (its stage slice, its tensor-parallel slice, its ZeRO shard)
+            return (mesh.axis_index("pipe", r) if pp_dim is not None else 0,
+                    mesh.axis_index("model", r) if tp_dim is not None else 0,
                     mesh.axis_index(axes, r) if dim is not None else 0)
 
-        lay = LeafLayout(shape, spec, dim, axes, n, key(mesh.rank)[1], False, full, tp_dim, tp_n,
-                         key(mesh.rank)[0])
+        mine = key(mesh.rank)
+        lay = LeafLayout(shape, spec, dim, axes, n, mine[2], False, full, tp_dim, tp_n, mine[1],
+                         pp_dim=pp_dim, pp_n=pp_n, pp_index=mine[0])
         firsts: dict = {}
         for r in all_ranks:
             firsts.setdefault(key(r), r)
-        lay.writer = firsts[key(mesh.rank)] == mesh.rank
-        lay.table = tuple(dataclasses.replace(lay, tp_index=tpi).bounds(zi) for tpi, zi in firsts)
+        lay.writer = firsts[mine] == mesh.rank
+        lay.table = tuple(dataclasses.replace(lay, pp_index=ppi, tp_index=tpi).bounds(zi) for ppi, tpi, zi in firsts)
         return lay
 
     def walk(ax, t):
@@ -266,6 +289,8 @@ class ZeroRuntime:
         """``shapes``: the full parameter tree (or its leaves' shapes)."""
         self.mesh = mesh
         self.tp = mesh.shape.get("model", 1)
+        self.pp = mesh.shape.get("pipe", 1)
+        self.plane = world_plane(mesh.shape)  # the axes the world spans
         self.stage = stage
         param_rules, opt_rules = shd.zero_stage_rules(stage)
         zfb = ZERO_FALLBACK if stage >= 1 else None
@@ -334,6 +359,10 @@ class ZeroRuntime:
             out = all_reduce_tree(gl, DP_AXES, self.reduce_bucket)
             if self.stage == 1:
                 out = [lay.shard(g) if lay.sharded else g for lay, g in zip(lays, out)]
+        if self.pp > 1:  # the leaves every stage holds: their stages' parts summed
+            tied = [i for i, lay in enumerate(lays) if lay.pp_n == 1]
+            for i, g in zip(tied, all_reduce_tree([out[i] for i in tied], "pipe", self.reduce_bucket)):
+                out[i] = g
         it = iter(out)
         return tree_map(lambda _: next(it), grads)
 
@@ -344,12 +373,13 @@ class ZeroRuntime:
     def _distinct(self, lays: list) -> list[float]:
         """Per leaf, 1.0 on the one rank of each group holding the same
         piece of it (the first data index of a leaf ZeRO does not split,
-        the first model index of a leaf tensor parallelism does not split),
-        0.0 elsewhere: summed over the data x model plane, each piece of
-        each leaf counts once."""
+        the first model index of a leaf tensor parallelism does not split,
+        the first stage of a leaf every stage holds), 0.0 elsewhere: summed
+        over the world's plane, each piece of each leaf counts once."""
         dp0 = self.mesh.axis_index(DP_AXES) == 0
         tp0 = self.mesh.axis_index("model") == 0
-        return [float((lay.sharded or dp0) and (lay.tp_n > 1 or tp0)) for lay in lays]
+        pp0 = self.mesh.axis_index("pipe") == 0
+        return [float((lay.sharded or dp0) and (lay.tp_n > 1 or tp0) and (lay.pp_n > 1 or pp0)) for lay in lays]
 
     def reduce_stats(self, sq: list, nonfinite: list) -> tuple[torch.Tensor, torch.Tensor]:
         """Per owned-leaf sums of squares and non-finite counts -> their
@@ -360,10 +390,10 @@ class ZeroRuntime:
         in one all-reduce, so a leaf split over ``model`` adds its slices
         and a replicated one counts once, not ``tp`` times."""
         lays = self.grad_layouts()
-        if self.tp > 1:
+        if self.tp > 1 or self.pp > 1:
             w = torch.tensor(self._distinct(lays), dtype=torch.float32, device=sq[0].device)
             red = comm.all_reduce(torch.stack([(torch.stack(sq) * w).sum(), (torch.stack(nonfinite) * w).sum()]),
-                                  TP_TRAIN_AXES[-1], "sum")
+                                  self.plane, "sum")
             return red[0], red[1]
         part = [i for i, lay in enumerate(lays) if lay.sharded]
         rep = sorted(set(range(len(sq))) - set(part))
@@ -383,9 +413,9 @@ class ZeroRuntime:
         in one all-reduce, the replicated leaves' kept (under tensor
         parallelism every leaf's distinct pieces summed over the data x
         model plane, as ``reduce_stats`` adds them)."""
-        if self.tp > 1:
+        if self.tp > 1 or self.pp > 1:
             w = torch.tensor(self._distinct(self.grad_layouts()), dtype=torch.float32, device=a[0].device)
-            red = comm.all_reduce(torch.stack([torch.stack(a) * w, torch.stack(b) * w]), TP_TRAIN_AXES[-1], "sum")
+            red = comm.all_reduce(torch.stack([torch.stack(a) * w, torch.stack(b) * w]), self.plane, "sum")
             return list(red[0].unbind()), list(red[1].unbind())
         part = [i for i, lay in enumerate(self.grad_layouts()) if lay.sharded]
         if not part:
@@ -407,5 +437,6 @@ class ZeroRuntime:
             mine = sum(math.prod(lay.shard_shape) for lay in tree_leaves(lays))
             return mine / max(tot, 1)
 
-        return {"params": share(self.param_layouts) if self.stage == 3 or self.tp > 1 else 1.0,
-                "opt_state": share(self.opt_layouts) if self.stage or self.tp > 1 else 1.0}
+        sliced = self.tp > 1 or self.pp > 1
+        return {"params": share(self.param_layouts) if self.stage == 3 or sliced else 1.0,
+                "opt_state": share(self.opt_layouts) if self.stage or sliced else 1.0}

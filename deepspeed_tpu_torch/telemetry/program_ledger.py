@@ -103,6 +103,7 @@ class ProgramLedger:
         # (prefix, wall_hist, gauge_prefix) join rules, first match wins
         self._bindings: list[tuple[str, str, Optional[str]]] = []
         self._peaks: Optional[dict] = None
+        self._pipeline: Optional[dict] = None  # set by the pipeline engine
 
     @property
     def platform(self) -> dict:
@@ -119,6 +120,16 @@ class ProgramLedger:
         """The engine's mesh axis sizes, in mesh order, for the collective
         ledger's reconcile view."""
         self.collectives.set_mesh_shape(mesh_shape)
+
+    def set_pipeline(self, num_stages: int, micro_batches: int, schedule: str) -> None:
+        """Pipeline-engine nomination (JAX ``program_ledger.py:239``): attach
+        the clocked schedule's bubble accounting (ticks = M+S-1, bubble =
+        S-1 of them) to the train-step anatomy rows."""
+        from .collective_ledger import pipeline_bubble_fraction
+
+        self._pipeline = {"num_stages": int(num_stages), "micro_batches": int(micro_batches),
+                          "schedule": schedule,
+                          "bubble_fraction": pipeline_bubble_fraction(num_stages, micro_batches)}
 
     def set_device(self, device) -> None:
         """The engine's device: what the counter counts, and the peaks'."""
@@ -272,6 +283,8 @@ class ProgramLedger:
             wall_hist, gauge = self._binding(name)
             arow = step_anatomy(row, self._wall(registry, wall_hist), self.platform, self.collectives.get(name),
                                 ici_gbps=self._ici_gbps)
+            if self._pipeline is not None and name.startswith("train/"):
+                arow["pipeline"] = dict(self._pipeline)
             if registry is not None and gauge is not None and gauge not in published:
                 # the same first-captured-program-owns-the-gauge rule as table()
                 published.add(gauge)

@@ -3,7 +3,7 @@ flow as on the card, with its workers on ``--device cpu --model tiny``.
 
 The runner -> launch -> worker launch with its rendezvous env, SIGTERM to a
 second launch ending its tree, the agent's crash and hang drills resuming
-bitwise across processes, 8 chaos schedules twice over real tiny replicas,
+bitwise across processes, ``CHAOS_SCHEDULES`` chaos schedules twice over real tiny replicas,
 and the fake-fleet search shrunk and replayed. Every check of the phase
 raises on failure; on the CPU no kernel launches, so every count is 0.
 """

@@ -4,7 +4,7 @@ plain path only for CPU tensors. The no-JAX subprocess imports every module
 and runs a serving step, a two-replica Router with a journal through a
 replica's death, a disaggregated Router with the flight recorder on, a bf16
 KV window through the int8 codec with no ``ml_dtypes``, a flash training step and a block-sparse training step
-fed by the curriculum and the dataloader; two such processes take a
+fed by the curriculum and the dataloader, and a pipelined model's loss with both stages in process; two such processes take a
 data-parallel ZeRO-3 step in a gloo world, and two serve at tp_size 2
 (generate and the ServingEngine's driver and follower); the serving
 worker's, the
@@ -94,6 +94,10 @@ with tempfile.TemporaryDirectory() as d:
     metrics = trainer.train_batch({{"tokens": np.zeros((2, 9), np.int32)}})
     assert np.isfinite(float(metrics["loss"])) and trainer.tier.nvme.step_count == 1
     trainer.close()
+from deepspeed_tpu_torch.pipe import PipelinedTransformer, TrainSchedule
+piped = PipelinedTransformer(TransformerConfig(**{TINY!r}), num_stages=2, num_micro_batches=2)
+loss = piped.loss(piped.init(torch.Generator().manual_seed(0)), {{"tokens": torch.zeros((4, 9), dtype=torch.long)}})
+assert np.isfinite(float(loss)) and len(TrainSchedule(2, 2, 0).steps()) == 7
 assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")
 """
@@ -242,6 +246,31 @@ assert "mesh" not in chip_smoke.tpt_config("b", "tiny", reference=True)
 assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
 print("tp train worker ok")
 """
+
+
+_PIPE_WORKER = """
+import sys
+sys.modules["jax"] = None
+sys.modules["deepspeed_tpu"] = None
+sys.argv = ["chip_smoke.py", "--pipe-worker", "--model", "tiny", "--device", "cpu"]
+import chip_smoke
+seen = []
+chip_smoke.pipe_worker = lambda args: seen.append((args.model, args.device)) or 0
+assert chip_smoke.main() == 0 and seen == [("tiny", "cpu")], seen
+assert chip_smoke.pipe_config("tiny", "1f1b")["mesh"] == {"pipe": 2}
+assert "mesh" not in chip_smoke.pipe_config("tiny", None, reference=True)
+assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
+print("pipe worker ok")
+"""
+
+
+def test_chip_smoke_pipe_worker_mode_runs_without_jax():
+    """Phase 29's rank mode (``chip_smoke.py --pipe-worker``) parses and
+    dispatches with jax and the JAX package blocked."""
+    proc = subprocess.run([sys.executable, "-c", _PIPE_WORKER], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "pipe worker ok" in proc.stdout
 
 
 def test_chip_smoke_tp_train_worker_mode_runs_without_jax():

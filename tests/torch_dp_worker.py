@@ -2,13 +2,14 @@
 tests (``test_torch_comm.py``, ``test_torch_zero.py``,
 ``test_torch_zero_init.py``, ``test_torch_tensor_parallel.py``,
 ``test_torch_tp_serving.py``, ``test_torch_tp_training.py``,
-``test_torch_tp_checkpoint.py``).
+``test_torch_tp_checkpoint.py``, ``test_torch_ckpt_agreement.py``,
+``test_torch_pipe.py``).
 
     python tests/torch_dp_worker.py JOB SPEC.json RANK WORLD
 
 joins the world through the FileStore named in the spec, runs JOB
 (``comm``, ``zero``, ``zero_init``, ``tp_engine``, ``tp_serving``,
-``tp_ops`` or ``tp_train``) and
+``tp_ops``, ``tp_train``, ``ckpt_retry`` or ``pipe``) and
 writes ``<out>/rank<RANK>.npz``
 (and a JSON sidecar). It imports the port only: never jax or the JAX
 package. The tests start the ranks with ``subprocess`` (never ``fork``: the
@@ -153,6 +154,86 @@ def zero_job(spec, rank, world) -> tuple[dict, dict]:
             snap = engine.telemetry_snapshot()
             meta[name]["snapshot"] = {k: snap.get(k) for k in ("comm_reconcile", "step_anatomy")}
             meta[name]["pools"] = snap["hbm"]["pools"]
+    return arrays, meta
+
+
+def ckpt_retry_job(spec, rank, world) -> tuple[dict, dict]:
+    """A synchronous save under ``resilience`` at this world, once per case
+    of the spec (``clean``; ``flaky``/``permanent``: rank 1's first guarded
+    write fails transiently / permanently): per rank, the error it raised
+    (type and the failing ranks it names), its ``resilience/ckpt_retries``
+    and the save's seconds."""
+    import time
+
+    from deepspeed_tpu_torch.resilience import clear_injector
+
+    params = _unflatten(dict(np.load(spec["params"])))
+    tokens = np.load(spec["tokens"])["tokens"]
+    meta = {}
+    for case in spec["cases"]:
+        name = case["name"]
+        fi = {"enabled": True, **(case.get("fault", {}) if rank == 1 else {})}
+        ds = dict(spec["ds"], resilience={"enabled": True, "retry": spec["retry"], "fault_injection": fi})
+        engine = _engine({"ds": ds}, params, spec)
+        engine.train_batch({"tokens": tokens})
+        t0 = time.monotonic()
+        err = None
+        try:
+            engine.save_checkpoint(os.path.join(spec["dir"], name), tag="t")
+        except OSError as e:
+            err = e
+        meta[name] = {"error": None if err is None else type(err).__name__,
+                      "ranks": getattr(err, "ranks", None), "seconds": time.monotonic() - t0,
+                      "retries": engine.telemetry.registry.snapshot()["counters"].get("resilience/ckpt_retries", 0)}
+        clear_injector()
+    return {}, meta
+
+
+def pipe_job(spec, rank, world) -> tuple[dict, dict]:
+    """``PipelineEngine`` over a ``PipelinedTransformer`` for each case of
+    this world: ``steps`` train_batch calls on the spec's global batch (a
+    save after ``save_after``, or first a load of ``load``), then the
+    losses, the full parameters (gathered over ``pipe`` and ``model``), the
+    executed 1F1B trace, the bubble gauge and the train step's pipeline
+    anatomy row."""
+    from deepspeed_tpu_torch.pipe import PipelineEngine, PipelinedTransformer
+
+    tokens = np.load(spec["tokens"])["tokens"]
+    arrays, meta = {}, {}
+    for case in spec["cases"]:
+        if case.get("world", 2) != world:
+            continue
+        name = case["name"]
+        cfg = tfm.TransformerConfig(**spec["model"], dtype=torch.float32)
+        model = PipelinedTransformer(cfg, spec["stages"])
+        ds = dict(spec["ds"], **case["ds"])
+        params = _unflatten(dict(np.load(spec["params"])))
+        if case.get("interop"):  # the JAX tree's numpy leaves, cut to this rank's stage by interop
+            from deepspeed_tpu_torch import interop
+            from deepspeed_tpu_torch.comm.mesh import train_axes
+
+            sizes = comm.MeshConfig(**{"data": -1, **ds["mesh"]}).sizes(world)
+            mesh = comm.build_mesh(comm.MeshConfig(**sizes), axes_list=train_axes(sizes))
+            params = interop.tp_params_from_jax(tree_map(lambda t: t.numpy(), params), model, mesh)
+        engine = PipelineEngine(model, ds, params=params, device="cpu")
+        if case.get("load"):
+            engine.load_checkpoint(case["load"], tag=case["load_tag"])
+        losses = []
+        for step in range(case["steps"]):
+            losses.append(float(engine.train_batch({"tokens": tokens})["loss"]))
+            if case.get("save") and step + 1 == case["save_after"]:
+                engine.save_checkpoint(case["save"], tag="port")
+        arrays[f"{name}::losses"] = np.asarray(losses)
+        for key, t in saver._flatten_with_paths(engine.full_params()).items():
+            arrays[f"{name}::params::{key}"] = t.numpy()
+        snap = engine.telemetry_snapshot()
+        meta[name] = {"trace": engine.last_trace, "mesh": engine.mesh.shape, "stage": engine.stage_id,
+                      "bubble": snap["metrics"]["gauges"].get("train/pipe/bubble_fraction"),
+                      "pipeline_row": next((r.get("pipeline") for r in snap.get("step_anatomy", [])
+                                            if r["name"].startswith("train/")), None),
+                      "stage_shape": list(engine.state["params"]["layers"]["wq"].shape),
+                      "table": saver._flatten_with_paths(engine._state_layouts())["params::layers::wq"].table
+                      if engine._state_layouts() else None}
     return arrays, meta
 
 
@@ -383,6 +464,10 @@ def main() -> int:
         arrays, meta = tp_serving_job(spec, rank, world)
     elif job == "tp_ops":
         arrays, meta = tp_ops_job(spec, rank, world)
+    elif job == "pipe":
+        arrays, meta = pipe_job(spec, rank, world)
+    elif job == "ckpt_retry":
+        arrays, meta = ckpt_retry_job(spec, rank, world)
     elif job == "tp_train":  # the engine's cases (zero_job) over a mesh with a model axis
         arrays, meta = zero_job(spec, rank, world)
     else:

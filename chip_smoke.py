@@ -297,8 +297,9 @@ Phases, each of which passes or makes the script exit non-zero:
      2e-3 of a world of 1 on the same global batches, each rank's
      optimizer-state bytes (and at ZeRO 3 parameter bytes) about half of
      world 1's, the logged bytes a step beside the reckoning; the ZeRO-3
-     state saved at world 2 is loaded at world 1 under ZeRO 1, whose next
-     loss equals world 2's.
+     state saved at world 2 is loaded at world 1 under ZeRO 1: every fp32
+     leaf it loads (masters and moments) bitwise the one world 2 gathered
+     and saved, and its next loss within ``DP_LOSS_RTOL`` of world 2's.
  27. tensor-parallel serving (module_inject/layers.py, the model's model
      axis, parallel/sharding.py's KV specs, the ServingEngine's driver and
      followers): gloo worlds of 2 and 4 ranks sharing the card (this
@@ -350,14 +351,34 @@ Phases, each of which passes or makes the script exit non-zero:
      1F1B, and the fused loss on the last stage only); the ppermute count
      and bytes a step as reckoned; the bubble gauge 0.2; 1F1B's forward
      clocks ``TrainSchedule``'s; ms/step and peak memory a rank beside world
-     1's. No scaling is claimed: one card, gloo.
+     1's. No scaling is claimed: one card, gloo;
+ 30. mixture of experts on one rank (moe/: GShard top-1 gating with
+     capacity, the slot-table dispatch and combine, the expert bank) at
+     GPT-3 125M widths with 64 experts on every other layer (Megatron-
+     DeepSpeed's ds_pretrain_gpt_125M_MoE64.sh: top-1, capacity factor 1.0,
+     aux coefficient 0.01; 1.94 B parameters), bf16, flash attention, the
+     fused loss, ZeRO 1, batch 8 = one micro-batch of 8 x 1024 tokens: (a)
+     the first MoE layer in bf16 against fp32 on the same input and weights
+     (the routing equal, the output within ``TOL``, experts.wo zeroed far
+     outside it); the bf16 kernel path's first loss within ``MOE_LOSS_GAP`` of the fp32
+     plain path's (plain attention, chunked loss) on the same weights and
+     batch and one MoE layer's experts.wo zeroed beyond it; the share of
+     tokens dropped at step 0; 2 timed steps whose kernel launches equal
+     ``moe_reckoning``'s; the first step from the same weights in a second
+     engine bitwise equal (loss, masters, moments); ms/step, tokens/s and
+     the peak beside the state's reckoning; (b) init_inference -> generate,
+     8 x 128-token prompts, 64 new tokens: fp32 greedy tokens through the
+     decode kernel equal to the plain path's, the bf16 first decode step's
+     logit gap, bf16 decode ms a step beside the dense route's 3.62 GB of
+     experts a step, and the decode kernel's launches (12 + 12 a step).
 Every phase prints its seconds (``phase N: S s``), and the script its
 total.
 It prints a ``{"serving_engine": {...}}`` line, a ``{"resilience": {...}}``
 line, a ``{"fleet": {...}}`` line, a ``{"gateway": {...}}`` line, a ``{"disagg": {...}}`` line, an
 ``{"elastic": {...}}`` line, a ``{"chaos": {...}}`` line, a ``{"profiling": {...}}`` line, a
 ``{"zero": {...}}`` line, a ``{"tensor_parallel": {...}}`` line, a
-``{"tensor_parallel_training": {...}}`` line, a ``{"pipeline": {...}}`` line, a ``{"kernels": [...]}`` line, a
+``{"tensor_parallel_training": {...}}`` line, a ``{"pipeline": {...}}`` line, a ``{"moe": {...}}`` line, a
+``{"kernels": [...]}`` line, a
 ``{"training": {...}}`` line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a GPU it
 exits 1 and prints no result.
@@ -5503,8 +5524,11 @@ DP_STEPS = 3  # timed steps after the warm-up (a), compared steps (b)
 DP_SEED = 2600
 # (b)'s losses against world 1's, relative: the same bf16 steps with the
 # gradients summed in another order (read 3.65e-6 at ZeRO 1, 2.26e-6 at
-# ZeRO 3 on an H100; one step moves the loss about 1e-3). (a)'s stages and
-# the resume are held bitwise: nothing in them changes an order.
+# ZeRO 3 on an H100; one step moves the loss about 1e-3); so is the next
+# loss of world 2's ZeRO-3 save resumed at world 1 (a world of 1's token
+# mean against two ranks' means averaged), whose loaded state is held to
+# the saved one bitwise. (a)'s stages are held bitwise: nothing in them
+# changes an order.
 DP_LOSS_RTOL = 1e-5
 # (b)'s parameters: |world 2 - world 1| / |world 1 - initial| over every
 # element, after the same 4 steps: read 3.30e-2 (ZeRO 1) and 3.28e-2
@@ -5678,6 +5702,37 @@ def dp_route_timing(device, reps=3) -> dict:
     return res
 
 
+def leaf_digest(t) -> list:
+    """An integer digest of an fp32 tensor: its int32 bit patterns summed,
+    and summed weighted by position, in int64 on its device."""
+    bits = t.detach().reshape(-1).view(torch.int32).long()
+    w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return [int(bits.sum()), int((bits * w).sum())]
+
+
+def gathered_state_digest(engine) -> list:
+    """``leaf_digest`` of every whole fp32 leaf of the masters (gathered
+    under ZeRO-3) and of the optimizer's params-shaped state (each leaf's
+    shards gathered where the ZeRO runtime split it): what a checkpoint
+    holds, in the tree's order. Collective under a ZeRO runtime."""
+    from deepspeed_tpu_torch.runtime.zero.stage_1_and_2 import all_gather_rows
+
+    leaves = tree_leaves(engine.full_params())
+    for _, sub in sorted(engine.state["opt"].items()):
+        if not isinstance(sub, dict):
+            continue
+        part = tree_leaves(sub)
+        if engine.zero is not None:
+            lays = tree_leaves(engine.zero.opt_layouts)
+            idx = [i for i, lay in enumerate(lays) if lay.sharded]
+            whole = all_gather_rows([part[i] for i in idx], [lays[i] for i in idx],
+                                    engine.config.zero_optimization.allgather_bucket_size)
+            for i, t in zip(idx, whole):
+                part[i] = t
+        leaves += part
+    return [leaf_digest(t) for t in leaves if t.dtype == torch.float32]
+
+
 def dp_worker(args) -> int:
     """``--dp-worker``: one rank of phase 26 (b). Joins the gloo world
     through ``--store`` (a FileStore), probes gloo on the device, runs
@@ -5720,6 +5775,7 @@ def dp_worker(args) -> int:
                                      float(sum((t.double() ** 2).sum() for t in full))]}
         del full
         if stage == 3:
+            entry["saved_digest"] = gathered_state_digest(engine)  # collective: both ranks
             engine.save_checkpoint(args.save_dir, tag="world2_stage3")
             entry["next_loss"] = float(engine.train_batch(dp_batch(cfg, engine.train_batch_size,
                                                                    DP_STEPS + 1))["loss"])
@@ -5911,15 +5967,26 @@ def data_parallel_phase(dev, smi, model="gpt2"):
             model=Model(cfg), config=dp_config(1, gb, gb // DP_WORLD2["gas"], DP_WORLD2["gas"], base),
             device=dev)[0]
         res.load_checkpoint(save_dir, tag="world2_stage3")
+        loaded = gathered_state_digest(res)
+        saved = ranks[0]["stage3"]["saved_digest"]
+        same = [a == b for a, b in zip(loaded, saved)]
         resumed = float(res.train_batch(dp_batch(cfg, gb, DP_STEPS + 1))["loss"])
         del res
+        gc.collect()  # the engine's telemetry holds a cycle through it
         w2 = ranks[0]["stage3"]["next_loss"]
         rel = abs(resumed - w2) / abs(w2)
-        b["resume"] = {"world1_stage1_next_loss": resumed, "world2_stage3_next_loss": w2, "rel": rel}
-        print(f"  (b) the world-2 ZeRO-3 checkpoint resumed at world 1, ZeRO 1: next loss {resumed:.6f} vs world "
-              f"2's {w2:.6f} ({rel:.2e}); gloo on {dev.type}: {b['probe']}")
-        if resumed != w2:
-            _dp_fail(f"(b) the resumed loss {resumed} is not world 2's {w2} bitwise ({rel:.2e})")
+        b["resume"] = {"world1_stage1_next_loss": resumed, "world2_stage3_next_loss": w2, "rel": rel,
+                       "leaves": len(saved), "leaves_bitwise": sum(same)}
+        print(f"  (b) the world-2 ZeRO-3 checkpoint resumed at world 1, ZeRO 1: {sum(same)} of {len(saved)} fp32 "
+              f"leaves (masters and moments) bitwise the ones world 2 gathered and saved; next loss {resumed:.6f} "
+              f"vs world 2's {w2:.6f} ({rel:.2e}, limit {DP_LOSS_RTOL}); gloo on {dev.type}: {b['probe']}")
+        # the state is the checkpoint's bitwise; the next loss is a world of
+        # 1's mean against the mean of two ranks' means: rounding apart
+        if len(loaded) != len(saved) or not all(same) or not len(saved):
+            _dp_fail(f"(b) the resumed state differs from what world 2 saved at leaves "
+                     f"{[i for i, ok in enumerate(same) if not ok]} of {len(saved)} ({len(loaded)} loaded)")
+        if not rel <= DP_LOSS_RTOL:
+            _dp_fail(f"(b) the resumed loss {resumed} is {rel:.2e} from world 2's {w2} (limit {DP_LOSS_RTOL})")
         out["b"] = b
     finally:
         for p in procs:  # (a) failed before (b)'s ranks were let go
@@ -6805,6 +6872,311 @@ def pipeline_phase(dev, smi, model="gpt2"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: mixture of experts on one rank (moe/: GShard gating, the slot-
+# table dispatch, the expert bank) through initialize -> train_batch and
+# init_inference -> generate at 125M-MoE-64 widths
+# ---------------------------------------------------------------------------
+
+MOE_SEED = 3000
+MOE_ROWS = 8  # one micro-batch of 8 rows: T = 8 x 1024 tokens gated at once
+MOE_STEPS = 2  # timed train_batch calls after the warm-up
+MOE_PROMPT, MOE_NEW = 128, 64
+# the bf16 kernel path's first loss (flash, fused loss) against the fp32
+# plain path's (plain attention, chunked loss) on the same weights and
+# batch, relative, by model. At the initial weights the MoE branch moves
+# the loss little (76% of step 0's tokens dropped, the kept ones scaled by
+# a gate near 1/64): on an H100 the gap read 5.685e-5 and the control (the
+# first MoE layer's experts.wo zeroed) 1.131e-4, both the same in every
+# run; the limit sits between them, and ``moe_layer_check`` holds the MoE
+# layer itself with a control far outside (PERF.md)
+MOE_LOSS_GAP = {"gpt2": 8e-5, "tiny": 1e-5}
+MOE_TINY = dict(vocab_size=512, max_seq_len=256, num_layers=4, num_heads=4, hidden_size=64, dtype=torch.float32,
+                attn_impl="flash", loss_impl="fused_xent", moe_every=2, num_experts=8, moe_capacity_factor=1.0)
+
+
+def moe_model(model, **kw):
+    """GPT-3 125M widths with 64 experts on every other layer (Megatron-
+    DeepSpeed examples_deepspeed/MoE/ds_pretrain_gpt_125M_MoE64.sh: top-1,
+    capacity factor 1.0, min capacity 4, aux coefficient 0.01), bf16, flash
+    attention, the fused loss; or the CPU rehearsal's tiny model."""
+    if model == "gpt2":
+        cfg = gpt2_config(loss_impl="fused_xent", moe_every=2, num_experts=64, moe_top_k=1, moe_capacity_factor=1.0,
+                          moe_aux_coeff=0.01)
+    else:
+        cfg = TransformerConfig(**MOE_TINY)
+    return cfg.replace(**kw)
+
+
+def moe_config(model):
+    base = BENCH_DS if model == "gpt2" else DP_TINY_DS
+    return {**base, "train_batch_size": MOE_ROWS, "train_micro_batch_size_per_gpu": MOE_ROWS,
+            "gradient_accumulation_steps": 1, "zero_optimization": {"stage": 1}}
+
+
+def moe_params(cfg, dev):
+    """The phase's weights, drawn on ``dev`` from one seeded generator: the
+    same tensors each call."""
+    return tfm.init(cfg, torch.Generator(device=dev).manual_seed(MOE_SEED), dev)
+
+
+def moe_batch(cfg, step):
+    rng = np.random.default_rng(MOE_SEED + step)
+    return {"tokens": rng.integers(0, cfg.vocab_size, size=(MOE_ROWS, cfg.max_seq_len + 1)).astype(np.int32)}
+
+
+def moe_reckoning(cfg, P, cuda) -> dict:
+    """Reckoned from the code before the run (PERF.md). Launches a
+    train_batch in ``counts() + sparse_counts()`` order: each of the 12
+    layers' flash forward, dK/dV and dQ once (no remat, one micro-batch),
+    the fused loss's product and combine once, and a ds, dW and dH pass a
+    vocab chunk of ``fused_xent_backward``'s rule at 8 x 1024 rows; decode
+    per generate: the split and the combine kernel once a layer a decode
+    step. State bytes: the fp32 masters (4 B a parameter), Adam's two fp32
+    moments (8), the fp32 gradients (4) and the bf16 compute copy (2). The
+    dense decode route reads every expert's two matrices a step."""
+    L, elt = cfg.num_layers, torch.empty((), dtype=cfg.dtype).element_size()
+    rows = MOE_ROWS * cfg.max_seq_len
+    chunks = len(fx.vocab_chunks(cfg.vocab_size, fx.backward_chunk(rows, cfg.vocab_size, elt)))
+    launches = ([L] * 3 + [0] + [1, 1] + [chunks] * 3 + [0] * N_SPARSE) if cuda else [0] * (N_COUNTS + N_SPARSE)
+    n_moe = L // cfg.moe_every
+    expert_bytes = n_moe * cfg.num_experts * 2 * cfg.hidden_size * cfg.ffn_size * elt
+    return {"launches": launches, "vocab_chunks": chunks, "state_bytes": 18 * P,
+            "decode_launches": [(MOE_NEW - 1) * L] * 2 if cuda else [0, 0],
+            "decode_expert_bytes": expert_bytes, "decode_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+            "capacity": max(int(rows * cfg.moe_top_k * cfg.moe_capacity_factor / cfg.num_experts), 4)}
+
+
+class RouteRecorder:
+    """Records each capacity-path gating's (dropped choices, choices,
+    capacity) and its ``Route`` while it is entered."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.moe import sharded_moe
+
+        self.seen, self.routes, self.module, plain = [], [], sharded_moe, sharded_moe.route
+
+        def route(*a, **k):
+            r, aux, C = plain(*a, **k)
+            self.seen.append(((~r.kept).sum(), r.kept.numel(), C))
+            # detached: the weights' graph would keep every autograd
+            # function's context of the step alive past its backward
+            self.routes.append(type(r)(*(t.detach() for t in r)))
+            return r, aux, C
+
+        self.plain, sharded_moe.route = plain, route
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.plain
+
+    def drop_share(self) -> float:
+        return float(sum(int(d) for d, _, _ in self.seen)) / max(1, sum(n for _, n, _ in self.seen))
+
+
+def _moe_fail(what):
+    raise SystemExit(f"phase 30: {what}")
+
+
+def moe_layer_check(dev, smi, cfg, params) -> dict:
+    """The first MoE layer at the phase's shapes (8 x 1024 unit-normal
+    tokens, 64 experts, capacity 128) in the compute dtype against fp32 on
+    the same input and the same (rounded) weights: the routing equal (the
+    capacity path's logits are fp32 products of the same values in both),
+    the output within ``TOL`` of the fp32 output's largest magnitude, and
+    with ``experts.wo`` zeroed far outside it."""
+    from deepspeed_tpu_torch.moe import layer as moe_layer
+
+    g = torch.Generator(device=dev).manual_seed(MOE_SEED + 1)
+    h = torch.randn(MOE_ROWS, cfg.max_seq_len, cfg.hidden_size, generator=g, device=dev).to(cfg.dtype)
+    first = tree_map(lambda t: t[0].to(cfg.dtype), params["moe"])
+    outs = {}
+    with torch.no_grad():
+        for name, p, x, c in (("low", first, h, cfg),
+                              ("fp32", tree_map(lambda t: t.float(), first), h.float(), cfg.replace(dtype=torch.float32)),
+                              ("control", {**first, "experts": {**first["experts"],
+                                                                "wo": torch.zeros_like(first["experts"]["wo"])}}, h, cfg)):
+            with RouteRecorder() as rec:
+                outs[name] = (moe_layer.moe_ffn_apply(c, p, x)[0].float(), rec.routes[0])
+    ref, r32 = outs["fp32"]
+    scale = float(ref.abs().max())
+    same = all(torch.equal(a, b) for a, b in zip(outs["low"][1][:3], r32[:3]))
+    err = float((outs["low"][0] - ref).abs().max()) / scale
+    control = float((outs["control"][0] - ref).abs().max()) / scale
+    tol = TOL[cfg.dtype]
+    kept = int(r32.kept.sum())
+    print(f"  [{smi}] (a) the first MoE layer, {MOE_ROWS} x {cfg.max_seq_len} unit-normal tokens, {cfg.dtype} against "
+          f"fp32 on the same weights: routing {'equal' if same else 'DIFFERS'} ({kept} of {r32.kept.numel()} kept), "
+          f"max abs err {err:.3e} of the output's largest magnitude (limit {tol}); experts.wo zeroed: {control:.3e}")
+    if not (same and err <= tol and control > 10 * tol):
+        _moe_fail("(a) the MoE layer against fp32: routing, value or control")
+    return {"routing_equal": same, "kept": kept, "rel_err": err, "control_rel_err": control, "tol": tol}
+
+
+def moe_generate(dev, smi, cfg, params, reck, cuda):
+    """(b): fp32 greedy tokens through the decode kernel against the plain
+    cached attention's; the bf16 engine's first decode step's logits against
+    fp32's; bf16 decode ms a step and the decode kernel's launches."""
+    prompt = np.random.default_rng(MOE_SEED - 1).integers(0, cfg.vocab_size, size=(MOE_ROWS, MOE_PROMPT))
+    f32 = cfg.replace(dtype=torch.float32)
+    kernel = deepspeed_tpu_torch.init_inference(Model(f32), config={"dtype": "fp32"}, params=params, device=dev)
+    plain = deepspeed_tpu_torch.init_inference(Model(f32.replace(decode_attn="xla")), config={"dtype": "fp32"},
+                                               params=params, device=dev)
+    toks = kernel.generate(prompt, max_new_tokens=MOE_NEW)
+    toks_plain = plain.generate(prompt, max_new_tokens=MOE_NEW)
+    same = bool((toks == toks_plain).all())
+    bf16 = deepspeed_tpu_torch.init_inference(Model(cfg.replace(dtype=torch.bfloat16)), config={"dtype": "bf16"},
+                                              params=params, device=dev)
+
+    def first_step_logits(eng):
+        with torch.inference_mode():
+            p = torch.as_tensor(prompt, dtype=torch.long, device=dev)
+            cache = tfm.init_cache(eng.cfg, MOE_ROWS, MOE_PROMPT + 128, device=dev)
+            tfm.apply_with_cache(eng.cfg, eng.params, p, cache, 0, last_only=True)
+            nxt = torch.as_tensor(toks[:, :1], dtype=torch.long, device=dev)
+            return tfm.apply_with_cache(eng.cfg, eng.params, nxt, cache, MOE_PROMPT)[0][:, 0]
+
+    gap = float((first_step_logits(bf16) - first_step_logits(kernel)).abs().max())
+    del kernel, plain
+    bf16.generate(prompt, max_new_tokens=2)  # warm-up
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    bf16.generate(prompt, max_new_tokens=1)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    out = bf16.generate(prompt, max_new_tokens=MOE_NEW)
+    sync()
+    t_all = time.perf_counter() - t0
+    launches = [decode_attention.launches, decode_attention.combine_launches]
+    step_ms = (t_all - t_prefill) / (MOE_NEW - 1) * 1e3
+    res = {"fp32_tokens_equal_plain": same, "bf16_first_step_logit_gap": gap, "decode_ms_per_step": step_ms,
+           "prefill_ms": t_prefill * 1e3, "decode_launches": launches,
+           "decode_expert_gb_per_step": reck["decode_expert_bytes"] / 1e9,
+           "decode_bound_ms": reck["decode_bound_ms"], "finite": bool(np.isfinite(out).all())}
+    print(f"  [{smi}] (b) generate {MOE_ROWS} x {MOE_PROMPT}-token prompts, {MOE_NEW} new: fp32 greedy tokens "
+          f"through the decode kernel {'equal' if same else 'DIFFER FROM'} the plain path's; bf16 first decode "
+          f"step's logits within {gap:.3e} of fp32's; bf16 decode {step_ms:.3f} ms/step (prefill "
+          f"{t_prefill * 1e3:.1f} ms) beside the dense route's {reck['decode_expert_bytes'] / 1e9:.2f} GB of "
+          f"experts a step (>= {reck['decode_bound_ms']:.3f} ms at 3.35 TB/s); decode launches [split, combine] "
+          f"{launches} (reckoned {reck['decode_launches']})")
+    del bf16
+    return res
+
+
+def moe_phase(dev, smi, model="gpt2"):
+    """Phase 30. (a) the first MoE layer against fp32 (``moe_layer_check``);
+    initialize -> train_batch of the MoE model at ZeRO 1,
+    world 1, one micro-batch of 8 rows: the fp32 plain path's loss and the
+    bf16 kernel path's first loss on the same weights and batch within
+    ``MOE_LOSS_GAP`` and one MoE layer's experts.wo zeroed beyond it; the
+    warm-up's dropped share; ``MOE_STEPS`` timed steps with each kernel's
+    launches against ``moe_reckoning``; the first step from the same
+    weights in a second engine bitwise equal (loss, masters, moments).
+    (b) init_inference -> generate (``moe_generate``)."""
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    # earlier phases' engines hold reference cycles (their telemetry): free
+    # them first, for the update's peak (about 65 GiB) needs the card
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    leftover = torch.cuda.memory_allocated() if cuda else None
+    cfg = moe_model(model)
+    limit = MOE_LOSS_GAP[model]
+    params = moe_params(cfg, dev)
+    P = sum(t.numel() for t in tree_leaves(params))
+    P_experts = sum(t.numel() for t in tree_leaves(params["moe"]["experts"]))
+    reck = moe_reckoning(cfg, P, cuda)
+    out = {"card": smi, "params": P, "expert_params": P_experts, "reckoning": reck, "loss_gap_limit": limit,
+           "entry_allocated_bytes": leftover}
+    batch0 = moe_batch(cfg, 0)
+    with torch.no_grad():
+        plain = cfg.replace(dtype=torch.float32, attn_impl="xla", loss_impl="chunked")
+        ref = float(tfm.causal_lm_loss(plain, params, {"tokens": torch.as_tensor(batch0["tokens"], device=dev)}))
+    out["layer"] = moe_layer_check(dev, smi, cfg, params)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    engine = deepspeed_tpu_torch.initialize(model=Model(cfg), config=moe_config(model), model_parameters=params,
+                                            device=dev)[0]
+    del params
+    wo = engine.state["params"]["moe"]["experts"]["wo"][0]
+    keep = wo.clone()
+    wo.zero_()
+    control = abs(engine.eval_batch(batch0) - ref) / abs(ref)
+    wo.copy_(keep)
+    del keep, wo
+    with RouteRecorder() as routes:
+        t0 = time.perf_counter()
+        m0 = engine.train_batch(batch0)
+        loss0 = float(m0["loss"])
+        warm_s = time.perf_counter() - t0
+    digest0 = gathered_state_digest(engine)
+    gap = abs(loss0 - ref) / abs(ref)
+    if cuda:
+        torch.cuda.synchronize()
+    reset_counts()
+    per_step, losses = [], [loss0]
+    t0 = time.perf_counter()
+    for step in range(1, MOE_STEPS + 1):
+        before = counts() + sparse_counts()
+        losses.append(float(engine.train_batch(moe_batch(cfg, step))["loss"]))
+        per_step.append([a - b for a, b in zip(counts() + sparse_counts(), before)])
+    if cuda:
+        torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MOE_STEPS  # the float() of each loss waits for its step
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    del engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # the same first step again, in a second engine from the same weights
+    again = deepspeed_tpu_torch.initialize(model=Model(cfg), config=moe_config(model),
+                                           model_parameters=moe_params(cfg, dev), device=dev)[0]
+    loss0_again = float(again.train_batch(batch0)["loss"])
+    # the CPU's index backward (the embeddings' gradients) sums a row's
+    # duplicates in no fixed order above a few hundred tokens: the CPU
+    # rehearsal holds the loss alone
+    bitwise = loss0_again == loss0 and (gathered_state_digest(again) == digest0 or not cuda)
+    del again
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    tok_s = MOE_ROWS * cfg.max_seq_len / step_s
+    launch_ok = all(s == reck["launches"] for s in per_step)
+    a = {"step_ms": step_s * 1e3, "tokens_per_s": tok_s, "warmup_s": warm_s, "losses": losses,
+         "fp32_plain_loss": ref, "loss_gap": gap, "control_gap": control, "dropped_share_step0": routes.drop_share(),
+         "capacity": routes.seen[0][2] if routes.seen else None, "moe_calls_step0": len(routes.seen),
+         "launches_per_train_batch": per_step, "peak_gib": None if peak is None else peak / 2**30,
+         "reckoned_state_gib": reck["state_bytes"] / 2**30, "bitwise_rerun": bitwise}
+    out["a"] = a
+    print(f"  [{smi}] (a) {P / 1e9:.3f} B parameters ({P_experts / 1e9:.3f} B of them experts), ZeRO 1, batch "
+          f"{MOE_ROWS} x {cfg.max_seq_len}: {a['step_ms']:.1f} ms/step, {tok_s:.0f} tokens/s, peak "
+          f"{a['peak_gib']} GiB (state reckoned {a['reckoned_state_gib']:.2f} GiB before activations; earlier "
+          f"phases' leftovers {(leftover or 0) / 2**30:.2f} GiB at entry); step 0 "
+          f"dropped {a['dropped_share_step0']:.4f} of its tokens over {a['moe_calls_step0']} MoE layers at capacity "
+          f"{a['capacity']} (reckoned {reck['capacity']}); launches a train_batch {COUNT_LABEL} {per_step} "
+          f"(reckoned {reck['launches']}); losses {[round(x, 5) for x in losses]}")
+    print(f"  [{smi}] (a) the bf16 kernel path's first loss {loss0:.6f} vs the fp32 plain path's {ref:.6f}: gap "
+          f"{gap:.3e} (limit {limit}); one MoE layer's experts.wo zeroed: {control:.3e} (must exceed the limit); "
+          f"the first step again from the same weights: loss and fp32 state {'bitwise equal' if bitwise else 'DIFFER'}")
+    ok = (launch_ok and bitwise and gap <= limit and control > limit and all(np.isfinite(losses))
+          and len(routes.seen) == cfg.num_layers // cfg.moe_every and routes.seen[0][2] == reck["capacity"])
+    if not ok:
+        _moe_fail("(a) a check failed (launches, the bitwise rerun, the loss gap, the control or the routing)")
+    b = moe_generate(dev, smi, cfg, moe_params(cfg, dev), reck, cuda)
+    out["b"] = b
+    if not (b["fp32_tokens_equal_plain"] and b["decode_launches"] == reck["decode_launches"] and b["finite"]):
+        _moe_fail("(b) a check failed (fp32 tokens against the plain path's, or the decode launches)")
+    if cuda:
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"moe": out}))
+    return out
+
+
 def cache_bytecode() -> str:
     """Let this process and the ones it starts (serving workers, training
     generations, ranks) cache the bytecode they compile, under
@@ -7094,6 +7466,15 @@ def main() -> int:
     pipe = pipeline_phase(dev, smi)
     phase_done(29)
     training["pipeline"] = pipe
+
+    print(f"[30] mixture of experts on one rank at 125M-MoE-64 widths (12 layers, d768, 64 experts on every other "
+          f"layer, top-1, capacity factor 1.0): (a) initialize -> train_batch at ZeRO 1, batch {MOE_ROWS} x 1024, "
+          f"against the fp32 plain path, a zeroed expert bank and a rerun of the first step; (b) init_inference -> "
+          f"generate, {MOE_ROWS} x {MOE_PROMPT}-token prompts, {MOE_NEW} new tokens")
+    moe = moe_phase(dev, smi)
+    phase_done(30)
+    training["moe"] = moe
+    moe_launches = moe["a"]["launches_per_train_batch"][0]
     pipe_launches = {f"{sched}_stage{r}": v for sched in PIPE_SCHEDULES
                      for r, v in enumerate(pipe[sched]["launches_per_train_batch"])}
     print(json.dumps({"zero": zero}))
@@ -7120,6 +7501,8 @@ def main() -> int:
                                                   for tp in TP_SIZES},
         "tensor_parallel_serving_launches_per_step": tpar["serve"]["launches_per_step"],
         "tensor_parallel_serving_launches": tpar["serve"]["launches"],
+        "moe_launches_per_generate": {"split": moe["b"]["decode_launches"][0],
+                                      "combine": moe["b"]["decode_launches"][1]},
         "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
         "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["library_ms"], "library_ratio": times["library_ratio"],
@@ -7152,6 +7535,7 @@ def main() -> int:
             "tensor_parallel_training_launches_per_train_batch": {k: v[list(replaces).index(name)]
                                                                   for k, v in tpt_launches.items()},
             "pipeline_launches_per_train_batch": {k: v[list(replaces).index(name)] for k, v in pipe_launches.items()},
+            "moe_launches_per_train_batch": moe_launches[list(replaces).index(name)],
             "hgmma": sass.get(MAIN_PATH_KERNEL[name], {}).get("hgmma", 0),
             "registers": sass.get(MAIN_PATH_KERNEL[name], {}).get("registers"),
             "spill_stores": sass.get(MAIN_PATH_KERNEL[name], {}).get("spill_stores"),
@@ -7196,6 +7580,10 @@ def main() -> int:
             k: ({"product": v[4], "combine": v[5]} if name == "fused_xent_forward"
                 else {"ds": v[6], "dH" if name == "fused_xent_backward_dh" else "dW": v[8 if name.endswith("dh") else 7]})
             for k, v in pipe_launches.items()}
+        entry["moe_launches_per_train_batch"] = (
+            {"product": moe_launches[4], "combine": moe_launches[5]} if name == "fused_xent_forward"
+            else {"ds": moe_launches[6],
+                  "dH" if name == "fused_xent_backward_dh" else "dW": moe_launches[8 if name.endswith("dh") else 7]})
         t24 = tier_launches["d_gpt3_6.7b"]  # the fused loss runs in (d)
         entry["memory_tiers_launches_per_train_batch"] = (
             {"product": t24[4], "combine": t24[5]} if name == "fused_xent_forward"
@@ -7246,6 +7634,7 @@ def main() -> int:
             "tensor_parallel_training_launches_per_train_batch": {k: v[N_COUNTS + i]
                                                                   for k, v in tpt_launches.items()},
             "pipeline_launches_per_train_batch": {k: v[N_COUNTS + i] for k, v in pipe_launches.items()},
+            "moe_launches_per_train_batch": moe_launches[N_COUNTS + i],  # dense attention: 0
         })
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -99,6 +99,9 @@ class InferenceEngine:
             dtype = _DTYPES[dtype]
         if model is None:
             raise ValueError("InferenceEngine needs a model")
+        if tp_size > 1 and model.config.moe_every > 0:
+            raise NotImplementedError(f"MoE at tp_size={tp_size} (the experts split over the model axis) is not "
+                                      "ported to deepspeed_tpu_torch yet; tp_size 1 serves it")
         if model.config.dtype != dtype:
             model = Model(model.config.replace(dtype=dtype))
 

@@ -887,6 +887,12 @@ class ServingEngine:
                  speculation: SpeculationConfig | dict | None = None,
                  fault_injection: FaultInjectionConfig | dict | None = None,
                  role: str | None = None):
+        if engine.cfg.moe_every > 0:
+            # the Router, the serving worker and the gateway build one, so
+            # this refuses MoE for the fleet too
+            raise NotImplementedError("ServingEngine with an MoE model (moe_every > 0: the slot decode step and its "
+                                      "CUDA graph over the experts) is not ported to deepspeed_tpu_torch yet; "
+                                      "InferenceEngine.generate serves it")
         config = dict(config or {})
         config.pop("router", None)  # the fleet's Router block
         config.pop("gateway", None)  # the HTTP front door's block

@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..moe.layer import init_moe_params, moe_ffn_apply, moe_ffn_dense, moe_layers, moe_logical_axes
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_xent import fused_linear_xent
@@ -144,9 +145,16 @@ class TransformerConfig:
     pld_enabled: bool = False
     pld_theta: float = 0.5
     pld_gamma: float = 0.001
+    # Mixture of experts (moe/): every ``moe_every``-th layer's FFN is a
+    # bank of ``num_experts`` experts behind a top-``moe_top_k`` GShard gate
+    # with capacity factor ``moe_capacity_factor``; its load-balancing loss
+    # enters the training loss times ``moe_aux_coeff``. 0 = dense.
+    moe_every: int = 0
+    num_experts: int = 1
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
     moe_aux_coeff: float = 0.01
     # Not implemented in the port yet: any value but the default raises.
-    moe_every: int = 0
     weight_bits: int = 0
     act_quant_bits: int = 0
     # The ZeRO-Infinity parameter tier (the engine's offload_param,
@@ -156,7 +164,7 @@ class TransformerConfig:
     param_offload: bool = False
 
     def __post_init__(self):
-        defaults = {"moe_every": 0, "weight_bits": 0, "act_quant_bits": 0}
+        defaults = {"weight_bits": 0, "act_quant_bits": 0}
         for name, default in defaults.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -255,7 +263,10 @@ def init(cfg: TransformerConfig, generator: torch.Generator, device="cpu", place
         params["emb_ln_bias"] = zeros(d)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), 1 / math.sqrt(d))
-    return {k: v if k == "layers" else v((k,)) for k, v in params.items()}
+    out = {k: v if k == "layers" else v((k,)) for k, v in params.items()}
+    if cfg.moe_every > 0:
+        out["moe"] = init_moe_params(generator, L // cfg.moe_every, cfg.num_experts, d, f, device, place)
+    return out
 
 
 def logical_axes(cfg: TransformerConfig) -> dict:
@@ -282,6 +293,8 @@ def logical_axes(cfg: TransformerConfig) -> dict:
         axes["emb_ln_bias"] = ("embed",)
     if not cfg.tie_embeddings:
         axes["lm_head"] = ("embed", "vocab")
+    if cfg.moe_every > 0:
+        axes["moe"] = moe_logical_axes()
     return axes
 
 
@@ -579,6 +592,47 @@ def _layer_body(cfg: TransformerConfig, lp, x, bias, positions, attn_fn, is_loca
     return x + branch(_ffn(cfg, lp, h2, tp), cfg.hidden_dropout, 2)
 
 
+def _moe_layer(cfg: TransformerConfig, lp, moe_p, x, bias, positions, attn_fn, is_local=None, local_bias=None,
+               key=None, pld_keep=None, row_offset: int = 0):
+    """One MoE layer of ``apply`` (JAX ``transformer.py:909``) -> (x, aux):
+    always pre-LN and sequential (LN1, attention, residual, LN2, the MoE
+    FFN, residual), whatever ``norm_style`` and ``parallel_residual`` say,
+    with the dropout sites and the layer-drop gate of ``_layer_body``."""
+    eps = cfg.layernorm_epsilon
+    gate = None
+    if pld_keep is not None and key is not None:
+        gate = (_uniform(_fold(key, 0), ()) < pld_keep).to(cfg.dtype)
+    if is_local and local_bias is not None:
+        lb = local_bias[None, None]
+        bias = lb if bias is None else bias + lb
+
+    def branch(y, rate, site):
+        y = _dropout(y, rate, None if key is None else _fold(key, site), row_offset)
+        return y if gate is None else gate * y
+
+    q, k, v = _qkv_proj(cfg, lp, layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps), positions)
+    x = x + branch(_attn_out_proj(cfg, lp, _attn_call(cfg, attn_fn, q, k, v, bias, is_local)), cfg.attn_dropout, 1)
+    out, aux = moe_ffn_apply(cfg, moe_p, layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps))
+    return x + branch(out, cfg.hidden_dropout, 2), aux
+
+
+def _moe_stack(cfg: TransformerConfig, params: Params, what: str) -> Optional[list]:
+    """The MoE layers' parameters, one dict each, or None for a dense
+    model. Refused by name where the port does not run MoE yet: tensor
+    parallelism and streamed parameters (ZeRO-3, offload_param)."""
+    if cfg.moe_every <= 0:
+        return None
+    if plan_of(params) is not None:
+        raise NotImplementedError(f"{what}: MoE under tensor parallelism (the experts split over the model axis) "
+                                  "is not ported to deepspeed_tpu_torch yet")
+    if _streamed(cfg, params):
+        raise NotImplementedError(f"{what}: MoE with streamed parameters (ZeRO-3 or offload_param's per-layer "
+                                  "streaming) is not ported to deepspeed_tpu_torch yet")
+    if "moe" not in params:
+        raise ValueError(f"{what}: moe_every={cfg.moe_every} but the parameters hold no 'moe' leaves")
+    return moe_layers(params["moe"])
+
+
 def embed(cfg: TransformerConfig, params: Params, tokens, positions=None, tp=None):
     """Token (+ learned position) embedding -> (x [B,S,d], positions [B,S]).
     Under ``tp`` a vocab-split table is looked up by range and all-reduced."""
@@ -715,7 +769,7 @@ def _partition_axis(cfg: TransformerConfig, tp, seq_len: int) -> Optional[str]:
 
 def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
           return_hidden: bool = False, rng=None,
-          step=None, _top_streamed: bool = False, row_offset: int = 0) -> torch.Tensor:
+          step=None, _top_streamed: bool = False, row_offset: int = 0, with_aux: bool = False):
     """tokens [B, S] -> logits [B, S, vocab] (fp32), or the final hidden
     states [B, S, d] (after the final LayerNorm) when ``return_hidden``.
     ``rng`` (a ``dropout_key`` on the tokens' device) enables dropout and
@@ -729,11 +783,20 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
     under ``cfg.remat_policy`` (and, with ``cfg.remat_offload``, their saved
     boundaries in host memory). Under ``cfg.param_offload`` the parameters
     are on the host and stream in (``_top_streamed``: the caller streamed
-    the top-level leaves already, so the tied ``wte`` is streamed once)."""
+    the top-level leaves already, so the tied ``wte`` is streamed once).
+
+    MoE (``moe_every`` > 0): layer i is an MoE layer (``_moe_layer``) when
+    ``(i + 1) % moe_every == 0``. When ``moe_every`` divides the depth the
+    checkpointed regions are the groups of ``moe_every`` layers ending in
+    one (JAX's grouped scan under ``maybe_remat``); otherwise the layers
+    run in one loop without remat (JAX's fallback). ``with_aux`` returns
+    (output, the sum of the MoE layers' aux losses), 0 for a dense model."""
     B, S = tokens.shape
     L = cfg.num_layers
     device = tokens.device
     tp = plan_of(params)
+    moe = _moe_stack(cfg, params, "apply")
+    E = cfg.moe_every
     if not _top_streamed:
         params = _stream_top_level(cfg, params, device)
     x, positions = embed(cfg, params, tokens, positions, tp)
@@ -754,13 +817,22 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
     layer = _layer_getter(cfg, params, device)
 
     def run(x, idx):
+        aux = None
         for i in idx:
             is_local = bool(cfg.local_attn_layers[i]) if has_local else None
-            x = _layer_body(cfg, layer(i), x, bias, positions, attn_fn, is_local, local_bias,
-                            keys[i], pld_keep[i], row_offset, tp)
-        return x
+            if moe is not None and (i + 1) % E == 0:
+                x, a = _moe_layer(cfg, layer(i), moe[(i + 1) // E - 1], x, bias, positions, attn_fn, is_local,
+                                  local_bias, keys[i], pld_keep[i], row_offset)
+                aux = a if aux is None else aux + a
+            else:
+                x = _layer_body(cfg, layer(i), x, bias, positions, attn_fn, is_local, local_bias,
+                                keys[i], pld_keep[i], row_offset, tp)
+        return x, aux
 
-    remat = cfg.remat and cfg.remat_policy != "everything_saveable" and torch.is_grad_enabled()
+    regions = _remat_groups(cfg) if moe is None else (
+        [range(g, g + E) for g in range(0, L, E)] if L % E == 0 else [range(L)])
+    remat = (cfg.remat and cfg.remat_policy != "everything_saveable" and torch.is_grad_enabled()
+             and (moe is None or L % E == 0))
     kw = {}
     if remat and (context_fn := remat_context_fn(cfg.remat_policy)) is not None:
         kw["context_fn"] = context_fn
@@ -774,21 +846,26 @@ def apply(cfg: TransformerConfig, params: Params, tokens, positions=None,
 
         def run(xp, idx):
             return plain_run(comm.gather_from_model(xp, part, dim=1), idx)
-    for idx in _remat_groups(cfg):
+    aux_total = None
+    for idx in regions:
         if not remat:
-            x = run(x, idx)
-            continue
-        if part is not None:
-            x = comm.scatter_to_model(x, part, dim=1)
-        # preserve_rng_state=False: the masks are hashes of the layers'
-        # keys, which the recompute hashes afresh
-        with region:
-            x = checkpoint(run, x, idx, use_reentrant=False, preserve_rng_state=False, **kw)
+            x, aux = run(x, idx)
+        else:
+            if part is not None:
+                x = comm.scatter_to_model(x, part, dim=1)
+            # preserve_rng_state=False: the masks are hashes of the layers'
+            # keys, which the recompute hashes afresh
+            with region:
+                x, aux = checkpoint(run, x, idx, use_reentrant=False, preserve_rng_state=False, **kw)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
     x = _final_ln(cfg, params, x)
-    if return_hidden:
+    if not return_hidden:
+        with cost.scope("lm_head"):
+            x = _project(params, x, tp)
+    if not with_aux:
         return x
-    with cost.scope("lm_head"):
-        return _project(params, x, tp)
+    return x, torch.zeros((), device=device) if aux_total is None else aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -913,7 +990,17 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
 
     Single-token steps of non-ALiBi models with ``decode_attn="kernel"`` go
     through the decode-attention kernel; everything else through the plain
-    masked attention over the whole cache."""
+    masked attention over the whole cache.
+
+    MoE layers (every ``moe_every``-th) route their FFN through the experts:
+    capacity-free (``moe_ffn_dense``) at T == 1, on the capacity path with
+    the capacity of these T x B tokens otherwise, in the layer's own
+    residual form (JAX's ``layer_core``); ``moe_every`` must divide the
+    depth, as in JAX."""
+    if cfg.moe_every > 0 and cfg.num_layers % cfg.moe_every:
+        raise NotImplementedError(
+            "apply_with_cache with MoE needs num_layers divisible by moe_every "
+            "and materialized expert params")
     if not cfg.causal:
         raise NotImplementedError("KV-cache decoding is causal-only (encoders use apply())")
     if cfg.norm_style != "pre":
@@ -926,6 +1013,7 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
     B, T = tokens.shape
     device = tokens.device
     tp = plan_of(params)
+    moe = _moe_stack(cfg, params, "apply_with_cache")
     params = _stream_top_level(cfg, params, device)
     Smax = cache["k"].shape[2]
     pos = _on_device(pos, device).to(torch.int32)
@@ -946,6 +1034,11 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
     layer = _layer_getter(cfg, params, device)
     for i in range(cfg.num_layers):
         lp = layer(i)
+        ffn = functools.partial(_ffn, cfg, lp, tp=tp)
+        if moe is not None and (i + 1) % cfg.moe_every == 0:
+            moe_p = moe[(i + 1) // cfg.moe_every - 1]
+            ffn = (functools.partial(moe_ffn_dense, cfg, moe_p) if T == 1
+                   else lambda h2, moe_p=moe_p: moe_ffn_apply(cfg, moe_p, h2)[0])
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps)
         q, k, v = _qkv_proj(cfg, lp, h, positions, tp)
@@ -958,11 +1051,11 @@ def apply_with_cache(cfg: TransformerConfig, params: Params, tokens, cache, pos,
         attn_out = _attn_out_proj(cfg, lp, attn, tp)
         if cfg.parallel_residual:
             h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-            x = x + attn_out + _ffn(cfg, lp, h2, tp)
+            x = x + attn_out + ffn(h2)
         else:
             x = x + attn_out
             h2 = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps)
-            x = x + _ffn(cfg, lp, h2, tp)
+            x = x + ffn(h2)
     if last_index is not None:
         x = x.index_select(1, _clamped(last_index, 0, T - 1, device).reshape(1))
     elif last_only:
@@ -1088,14 +1181,18 @@ def split_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
 def causal_lm_loss(cfg: TransformerConfig, params: Params, batch: dict,
                    rng=None, step=None, row_offset: int = 0) -> torch.Tensor:
     """Next-token cross-entropy of batch {'tokens': [B, S+1]} (or
-    {'input_ids', 'labels'}). ``rng`` (a ``dropout_key``) enables dropout
+    {'input_ids', 'labels'}), plus ``moe_aux_coeff`` times the MoE layers'
+    aux loss for an MoE model. ``rng`` (a ``dropout_key``) enables dropout
     for this step; ``row_offset`` places the rows in the micro-batch."""
     inputs, labels = split_batch(batch)
     # the top-level leaves streamed ONCE for the embedding and the tied head
     params = _stream_top_level(cfg, params, inputs.device)
-    hidden = apply(cfg, params, inputs.long(), return_hidden=True, rng=rng, step=step, _top_streamed=True,
-                   row_offset=row_offset)
-    return lm_loss_from_hidden(cfg, params, hidden, labels.long())
+    moe = cfg.moe_every > 0
+    out = apply(cfg, params, inputs.long(), return_hidden=True, rng=rng, step=step, _top_streamed=True,
+                row_offset=row_offset, with_aux=moe)
+    hidden, aux = out if moe else (out, None)
+    loss = lm_loss_from_hidden(cfg, params, hidden, labels.long())
+    return loss if aux is None else loss + cfg.moe_aux_coeff * aux
 
 
 class Model:

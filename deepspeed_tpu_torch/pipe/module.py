@@ -223,6 +223,10 @@ class PipelinedTransformer(Model):
                 "dropout/progressive-layer-drop under pipeline parallelism is "
                 "not wired up (per-stage rng routing); disable them"
             )
+        if cfg.moe_every > 0:
+            raise NotImplementedError("PipelinedTransformer with MoE (moe_every > 0: the expert stacks split over "
+                                      "the stages and the aux loss carried between them) is not ported to "
+                                      "deepspeed_tpu_torch yet")
         super().__init__(cfg)
         self.num_stages = num_stages
         self.num_micro_batches = num_micro_batches

@@ -111,6 +111,7 @@ from ..inference.engine import resolve_device
 from ..models import transformer as tfm
 from ..models.transformer import effective_loss_impl
 from ..module_inject.layers import TensorParallel, TPParams, plan_of
+from ..moe.sharded_moe import refuse_expert_parallel
 from ..monitor.monitor import MonitorMaster
 from ..ops.optimizers import get_optimizer, tree_leaves, tree_map
 from ..ops.sparse_attention import SPARSITY_CONFIGS
@@ -193,6 +194,7 @@ class DeepSpeedEngine:
                              f" x data-parallel world {self.dp_world}")
         comms_logger.configure(enabled=config.comms_logger.enabled, verbose=config.comms_logger.verbose)
         self.model = model
+        self._refuse_moe(model, config)
         self.micro_batch_size = config.train_micro_batch_size_per_gpu
         self.gradient_accumulation_steps = config.gradient_accumulation_steps
         self.train_batch_size = config.train_batch_size
@@ -385,6 +387,31 @@ class DeepSpeedEngine:
                  f"model={self.mesh.shape['model']}, mesh={self.mesh.shape}, device={self.device}, "
                  f"micro_bs={self.micro_batch_size}, "
                  f"gas={self.gradient_accumulation_steps}, dtype={config.compute_dtype}", ranks=[0])
+
+    def _refuse_moe(self, model, config: DeepSpeedConfig) -> None:
+        """An MoE model (``moe_every`` > 0) trains on one rank at ZeRO 0-2;
+        the paths not ported for it are refused by name: expert parallelism
+        (a data-parallel world above 1), tensor parallelism, ZeRO stage 3
+        and the memory tiers."""
+        if getattr(getattr(model, "config", None), "moe_every", 0) <= 0:
+            return
+        if self.mesh.shape["model"] > 1:
+            raise NotImplementedError(f"MoE under tensor parallelism (mesh model={self.mesh.shape['model']}: the "
+                                      "experts split over the model axis) is not ported to deepspeed_tpu_torch yet")
+        refuse_expert_parallel(self.mesh)
+        z = config.zero_optimization
+        if z.stage == 3:
+            raise NotImplementedError("MoE under ZeRO stage 3 (the expert banks gathered a layer at a time) is not "
+                                      "ported to deepspeed_tpu_torch yet (stages 0-2 are)")
+        for name, dev in (("offload_optimizer", z.offload_optimizer.device),
+                          ("offload_param", z.offload_param.device)):
+            if dev != "none":
+                raise NotImplementedError(f"MoE with the memory tiers ({name} {dev!r}) is not ported to "
+                                          "deepspeed_tpu_torch yet")
+        ac = config.activation_checkpointing
+        if ac.enabled and ac.cpu_checkpointing:
+            raise NotImplementedError("MoE with the memory tiers (activation_checkpointing.cpu_checkpointing) is "
+                                      "not ported to deepspeed_tpu_torch yet")
 
     def _enforce_elasticity(self, raw) -> None:
         """The elastic batch contract (JAX ``engine.py:693``): with

@@ -4,7 +4,8 @@ plain path only for CPU tensors. The no-JAX subprocess imports every module
 and runs a serving step, a two-replica Router with a journal through a
 replica's death, a disaggregated Router with the flight recorder on, a bf16
 KV window through the int8 codec with no ``ml_dtypes``, a flash training step and a block-sparse training step
-fed by the curriculum and the dataloader, and a pipelined model's loss with both stages in process; two such processes take a
+fed by the curriculum and the dataloader, a pipelined model's loss with both stages in process, and an MoE
+model's training step and generate; two such processes take a
 data-parallel ZeRO-3 step in a gloo world, and two serve at tp_size 2
 (generate and the ServingEngine's driver and follower); the serving
 worker's, the
@@ -98,6 +99,11 @@ from deepspeed_tpu_torch.pipe import PipelinedTransformer, TrainSchedule
 piped = PipelinedTransformer(TransformerConfig(**{TINY!r}), num_stages=2, num_micro_batches=2)
 loss = piped.loss(piped.init(torch.Generator().manual_seed(0)), {{"tokens": torch.zeros((4, 9), dtype=torch.long)}})
 assert np.isfinite(float(loss)) and len(TrainSchedule(2, 2, 0).steps()) == 7
+moe_cfg = TransformerConfig(**{TINY!r}, moe_every=1, num_experts=4, moe_top_k=2)
+trainer, _, _, _ = pkg.initialize(model=Model(moe_cfg), config={{"train_batch_size": 2}}, device="cpu")
+assert np.isfinite(float(trainer.train_batch({{"tokens": np.zeros((2, 9), np.int32)}})["loss"]))
+moe_eng = pkg.init_inference(Model(moe_cfg), config={{"dtype": "fp32"}}, device="cpu")
+assert moe_eng.generate(np.zeros((2, 5), np.int32), max_new_tokens=3).shape == (2, 3)
 assert not any(m == "jax" or m.startswith(("jax.", "deepspeed_tpu.")) for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")
 """
